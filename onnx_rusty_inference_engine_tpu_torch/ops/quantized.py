@@ -1,0 +1,117 @@
+"""Quantized ONNX op emitters: QuantizeLinear / DequantizeLinear / QLinearConv.
+
+The port's counterpart of onnx_rusty_inference_engine_tpu/ops/quantized.py
+for the INT8 SqueezeNet path. Requant math (ONNX QLinear convention):
+y = saturate(round(acc * (x_s * w_s / y_s)) + y_zp), rounding half to even.
+
+QLinearConv runs on the hand-written kernel (ops/kernels/qconv_int8.py) in
+the case the quantizer emits: 2-D, group 1, no dilation, int8 operands, and
+all three zero points statically 0. Every other QLinearConv raises
+UnsupportedOpError naming the case, on the CPU as on the card, so both
+devices run the same function.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..graph import Node
+from .kernels.qconv_int8 import qconv_int8_requant
+from .registry import LoweringContext, UnsupportedOpError, register
+from .standard import _conv_padding
+
+
+def _per_axis(t: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
+    """A 1-D per-channel tensor shaped to broadcast along `axis`."""
+    shape = [1] * ndim
+    shape[axis] = t.numel()
+    return t.reshape(shape)
+
+
+# --------------------------------------------------------------------------
+# Quantize / Dequantize
+# --------------------------------------------------------------------------
+@register("QuantizeLinear")
+def quantize_linear(ctx: LoweringContext, node: Node, ins):
+    x, scale = ins[0], ins[1]
+    zp = ins[2] if len(ins) > 2 and ins[2] is not None else None
+    qdtype = zp.dtype if zp is not None else torch.int8
+    info = torch.iinfo(qdtype)
+    axis = int(node.attr("axis", 1))
+    if scale.dim() == 1 and scale.numel() > 1:
+        scale = _per_axis(scale, x.dim(), axis)
+        if zp is not None and zp.numel() == scale.numel():
+            zp = _per_axis(zp, x.dim(), axis)
+    # a true division, as the JAX emitter's; scale is a tensor on x's
+    # device (PyTorch turns division by a CPU scalar into a multiply by
+    # its reciprocal, which moves ties by one step)
+    y = torch.round(x / scale)
+    if zp is not None:
+        y = y + zp.to(y.dtype)
+    return (y.clamp(info.min, info.max).to(qdtype),)
+
+
+@register("DequantizeLinear")
+def dequantize_linear(ctx: LoweringContext, node: Node, ins):
+    x, scale = ins[0], ins[1]
+    zp = ins[2] if len(ins) > 2 and ins[2] is not None else None
+    axis = int(node.attr("axis", 1))
+    if scale.dim() == 1 and scale.numel() > 1:
+        scale = _per_axis(scale, x.dim(), axis)
+        if zp is not None and zp.numel() == scale.numel():
+            zp = _per_axis(zp, x.dim(), axis)
+    xf = x.to(torch.float32)
+    if zp is not None:
+        xf = xf - zp.to(torch.float32)
+    return (xf * scale.to(torch.float32),)
+
+
+# --------------------------------------------------------------------------
+# QLinearConv
+# --------------------------------------------------------------------------
+def _static_zp_is_zero(ctx: LoweringContext, name: str) -> bool:
+    v = ctx.constant(name) if name else None
+    return v is not None and not np.any(v)
+
+
+def _unsupported_qconv(ctx: LoweringContext, node: Node, x, w, spatial,
+                       dilations, group) -> Optional[str]:
+    """Why the kernel cannot run this QLinearConv, or None."""
+    if spatial != 2:
+        return f"{spatial}-D spatial (the kernel is 2-D)"
+    if group != 1:
+        return f"group={group} (grouped convs are not ported)"
+    if any(d != 1 for d in dilations):
+        return f"dilations={dilations} (dilated convs are not ported)"
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        return f"{x.dtype} x {w.dtype} operands (the kernel takes int8)"
+    for idx, what in ((2, "x"), (5, "w"), (7, "y")):
+        if not _static_zp_is_zero(ctx, node.inputs[idx]):
+            return (f"{what}_zero_point is not a constant 0 (asymmetric "
+                    f"quantization is not ported)")
+    return None
+
+
+@register("QLinearConv")
+def qlinear_conv(ctx: LoweringContext, node: Node, ins):
+    (x, x_s, x_zp, w, w_s, w_zp, y_s, y_zp) = ins[:8]
+    bias = ins[8] if len(ins) > 8 else None
+    spatial = x.dim() - 2
+    kernel = node.attr("kernel_shape", list(w.shape[2:]))
+    strides = [int(s) for s in node.attr("strides", [1] * spatial)]
+    dilations = [int(d) for d in node.attr("dilations", [1] * spatial)]
+    group = int(node.attr("group", 1))
+    why = _unsupported_qconv(ctx, node, x, w, spatial, dilations, group)
+    if why is not None:
+        raise UnsupportedOpError(
+            f"QLinearConv {node.name or node.outputs[0]!r}: {why}")
+    padding = _conv_padding(node, x.shape[2:], kernel, strides, dilations)
+    # the multiplier in fp32 and in the JAX emitter's order
+    mult = (x_s.to(torch.float32) * w_s.to(torch.float32)
+            / y_s.to(torch.float32))
+    return (qconv_int8_requant(x, w, mult, bias, stride=strides,
+                               padding=padding,
+                               packed=ctx.packed.get(node.inputs[3])),)

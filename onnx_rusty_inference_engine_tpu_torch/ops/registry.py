@@ -1,0 +1,82 @@
+"""Lowering-rule registry: ONNX op_type -> PyTorch emitter.
+
+The port's counterpart of onnx_rusty_inference_engine_tpu/ops/registry.py.
+An emitter takes (ctx, node, input tensors) and returns the node's output
+tensors; engine.py runs the emitters eagerly in topological order.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..graph import Graph
+
+# keyed by (domain, op_type); domain "" is ai.onnx (the spec treats
+# "ai.onnx" as an alias for the default domain)
+_REGISTRY: Dict[tuple, Callable] = {}
+
+
+class UnsupportedOpError(NotImplementedError):
+    """Clean error for ops (or op variants) the port cannot run."""
+
+
+def _norm_domain(domain: str) -> str:
+    return "" if domain in ("", "ai.onnx") else domain
+
+
+def register(*op_types: str, domain: str = ""):
+    def deco(fn):
+        for op in op_types:
+            _REGISTRY[(_norm_domain(domain), op)] = fn
+        return fn
+    return deco
+
+
+def get_emitter(op_type: str, domain: str = "") -> Callable:
+    """Dispatch by (domain, op_type).
+
+    Lookup order: the node's own domain first, then the default domain
+    (many exporters leave node.domain empty even for contrib ops, and some
+    stamp com.microsoft on nodes lowered with default-domain semantics)."""
+    dom = _norm_domain(domain)
+    fn = _REGISTRY.get((dom, op_type))
+    if fn is None and dom:
+        fn = _REGISTRY.get(("", op_type))
+    if fn is None and not dom:
+        # bare contrib node (exporters frequently omit the domain)
+        fn = _REGISTRY.get(("com.microsoft", op_type))
+    if fn is None:
+        raise UnsupportedOpError(
+            f"op '{op_type}' (domain {domain!r}) has no lowering rule; "
+            f"supported: {supported_ops()}"
+        )
+    return fn
+
+
+def supported_ops():
+    return sorted({op for _, op in _REGISTRY})
+
+
+class LoweringContext:
+    """Context handed to emitters: graph constants, opset, the value env,
+    values known before the run (`static_env`: Shape of a tensor, and
+    foldable arithmetic on such values), and the pre-packed QLinearConv
+    weights (`packed`, weight name -> kernel layout; see weights.py)."""
+
+    def __init__(self, graph: Graph, env: dict,
+                 packed: Optional[Dict[str, torch.Tensor]] = None):
+        self.graph = graph
+        self.env = env  # tensor name -> torch.Tensor
+        self.static_env: Dict[str, np.ndarray] = {}
+        self.opset = graph.opset
+        self.packed = {} if packed is None else packed
+
+    def constant(self, name: str) -> Optional[np.ndarray]:
+        """Value of a tensor known before the run, else None."""
+        v = self.graph.constants.get(name)
+        if v is None:
+            v = self.static_env.get(name)
+        return v

@@ -1,0 +1,208 @@
+"""fp32/generic ONNX op emitters -> PyTorch.
+
+The port's counterpart of onnx_rusty_inference_engine_tpu/ops/standard.py,
+holding the emitters SqueezeNet 1.0 needs in fp32 and in its INT8 form:
+Conv, Relu, MaxPool, Concat, Dropout, GlobalAveragePool and Softmax. Each
+keeps the JAX emitter's semantics: NCHW layout, ONNX pads as (lo, hi) pairs
+applied explicitly (so asymmetric pads and ceil_mode follow the JAX
+package's arithmetic), opset < 13 Softmax flattening.
+
+fp32 Conv runs in full fp32, as the JAX package's Precision.HIGHEST does:
+cuDNN's default TF32 is switched off around the call.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..graph import Node
+from .registry import LoweringContext, UnsupportedOpError, register
+
+Padding = List[Tuple[int, int]]
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+def _onnx_pads_to_lax(pads: Sequence[int], spatial: int) -> Padding:
+    """ONNX pads = [x1_begin, x2_begin, ..., x1_end, x2_end, ...] -> [(lo, hi)]."""
+    return [(int(pads[i]), int(pads[i + spatial])) for i in range(spatial)]
+
+
+def _auto_pad(auto_pad: str, in_spatial: Sequence[int],
+              kernel: Sequence[int], strides: Sequence[int],
+              dilations: Sequence[int]) -> Padding:
+    """SAME_UPPER / SAME_LOWER / VALID padding per the ONNX spec."""
+    if auto_pad == "VALID":
+        return [(0, 0)] * len(in_spatial)
+    out = []
+    for size, k, s, d in zip(in_spatial, kernel, strides, dilations):
+        eff_k = (k - 1) * d + 1
+        out_size = -(-size // s)  # ceil
+        total = max(0, (out_size - 1) * s + eff_k - size)
+        lo = total // 2
+        hi = total - lo
+        if auto_pad == "SAME_LOWER":
+            lo, hi = hi, lo
+        out.append((lo, hi))
+    return out
+
+
+def _conv_padding(node: Node, in_spatial, kernel, strides, dilations
+                  ) -> Padding:
+    pads = node.attr("pads")
+    auto_pad = node.attr("auto_pad", "NOTSET")
+    # Per ONNX spec pads and auto_pad are mutually exclusive; some exporters
+    # set both — explicit nonzero pads win.
+    if pads is not None and (auto_pad in ("NOTSET", "") or any(pads)):
+        return _onnx_pads_to_lax(pads, len(in_spatial))
+    if auto_pad in ("NOTSET", "", None):
+        return [(0, 0)] * len(in_spatial)
+    return _auto_pad(auto_pad, in_spatial, kernel, strides, dilations)
+
+
+def _pad(x: torch.Tensor, padding: Padding, value: float) -> torch.Tensor:
+    """Pad the trailing len(padding) dims by (lo, hi) pairs."""
+    if not any(lo or hi for lo, hi in padding):
+        return x
+    flat: List[int] = []
+    for lo, hi in reversed(padding):  # F.pad lists the last dim first
+        flat += [int(lo), int(hi)]
+    return F.pad(x, flat, value=value)
+
+
+def _fp32_exact():
+    """cuDNN flags as they are, with TF32 off (fp32 convs in full fp32)."""
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                   deterministic=c.deterministic, allow_tf32=False)
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+# --------------------------------------------------------------------------
+# Convolution
+# --------------------------------------------------------------------------
+@register("Conv")
+def conv(ctx: LoweringContext, node: Node, ins):
+    x, w = ins[0], ins[1]
+    b = ins[2] if len(ins) > 2 else None
+    spatial = x.dim() - 2
+    if spatial not in _CONV:
+        raise UnsupportedOpError(f"Conv: {spatial}-D spatial")
+    kernel = node.attr("kernel_shape", list(w.shape[2:]))
+    strides = [int(s) for s in node.attr("strides", [1] * spatial)]
+    dilations = [int(d) for d in node.attr("dilations", [1] * spatial)]
+    group = int(node.attr("group", 1))
+    padding = _conv_padding(node, x.shape[2:], kernel, strides, dilations)
+    with _fp32_exact():
+        out = _CONV[spatial](_pad(x, padding, 0.0), w, b, stride=strides,
+                             dilation=dilations, groups=group)
+    return (out,)
+
+
+# --------------------------------------------------------------------------
+# Pooling
+# --------------------------------------------------------------------------
+def _pool(node: Node, x: torch.Tensor):
+    """Window geometry of a pooling node: (padding, kernel, strides,
+    dilations), with ceil_mode folded into the end padding as the JAX
+    package does, so the pooling itself always floors."""
+    spatial = x.dim() - 2
+    kernel = [int(k) for k in node.attr("kernel_shape")]
+    strides = [int(s) for s in node.attr("strides", [1] * spatial)]
+    dilations = [int(d) for d in node.attr("dilations", [1] * spatial)]
+    ceil_mode = int(node.attr("ceil_mode", 0))
+    padding = _conv_padding(node, x.shape[2:], kernel, strides, dilations)
+    if ceil_mode:
+        # extend end-padding so the last partial window is included
+        new_pad = []
+        for i, (lo, hi) in enumerate(padding):
+            size = x.shape[2 + i]
+            eff_k = (kernel[i] - 1) * dilations[i] + 1
+            out_ceil = -(-(size + lo + hi - eff_k) // strides[i]) + 1
+            needed = (out_ceil - 1) * strides[i] + eff_k - (size + lo)
+            new_pad.append((lo, max(hi, needed)))
+        padding = new_pad
+    return padding, kernel, strides, dilations
+
+
+# integer types whose every value float32 holds exactly
+_POOL_VIA_FLOAT = (torch.int8, torch.uint8, torch.int16)
+
+
+@register("MaxPool")
+def max_pool(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    if len([o for o in node.outputs if o]) > 1:
+        raise UnsupportedOpError("MaxPool: the Indices output is not ported")
+    spatial = x.dim() - 2
+    if spatial not in _MAX_POOL:
+        raise UnsupportedOpError(f"MaxPool: {spatial}-D spatial")
+    padding, kernel, strides, dilations = _pool(node, x)
+    if x.is_floating_point():
+        xf, fill = x, float("-inf")
+    elif x.dtype in _POOL_VIA_FLOAT:
+        # PyTorch's CUDA max-pool takes no integers; float32 holds these
+        # exactly. Pads take the type's min, as the JAX emitter's iinfo.min.
+        xf, fill = x.to(torch.float32), float(torch.iinfo(x.dtype).min)
+    else:
+        raise UnsupportedOpError(f"MaxPool: {x.dtype} input")
+    out = _MAX_POOL[spatial](_pad(xf, padding, fill), kernel, strides,
+                             padding=0, dilation=dilations)
+    return (out.to(x.dtype),)
+
+
+@register("GlobalAveragePool")
+def global_average_pool(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    return (x.mean(dim=tuple(range(2, x.dim())), keepdim=True),)
+
+
+# --------------------------------------------------------------------------
+# Elementwise / shape
+# --------------------------------------------------------------------------
+@register("Relu")
+def relu(ctx: LoweringContext, node: Node, ins):
+    return (torch.clamp_min(ins[0], 0),)
+
+
+@register("Concat")
+def concat(ctx: LoweringContext, node: Node, ins):
+    return (torch.cat(ins, dim=int(node.attr("axis", 1))),)
+
+
+@register("Dropout")
+def dropout(ctx: LoweringContext, node: Node, ins):
+    # Inference mode: identity; mask output (if requested) is all-true.
+    outs = [ins[0]]
+    if len(node.outputs) > 1 and node.outputs[1]:
+        outs.append(torch.ones(ins[0].shape, dtype=torch.bool,
+                               device=ins[0].device))
+    return tuple(outs)
+
+
+# --------------------------------------------------------------------------
+# Softmax
+# --------------------------------------------------------------------------
+def _softmax_axis(ctx: LoweringContext, node: Node) -> int:
+    default = 1 if ctx.opset < 13 else -1
+    return int(node.attr("axis", default))
+
+
+@register("Softmax")
+def softmax(ctx: LoweringContext, node: Node, ins):
+    # Opset <13 semantics: flatten to 2-D at `axis`, softmax over the tail.
+    x = ins[0]
+    axis = _softmax_axis(ctx, node)
+    if ctx.opset < 13:
+        ax = axis % x.dim()
+        lead = math.prod(x.shape[:ax]) if ax else 1
+        return (torch.softmax(x.reshape(lead, -1), dim=-1).reshape(x.shape),)
+    return (torch.softmax(x, dim=axis),)

@@ -1,0 +1,413 @@
+"""Post-training INT8 quantization: calibration + QDQ graph transform.
+
+The port's counterpart of onnx_rusty_inference_engine_tpu/quant.py. The
+graph transform (`quantize_graph`) is the JAX package's, line for line: it
+is numpy over the Graph IR, so the same graph and the same `ranges` give
+the same quantized graph in both packages. Calibration runs the port's own
+engine (`lower`) on the device the caller names.
+
+Scheme
+------
+- activations: per-tensor symmetric int8 (zero_point = 0), which keeps
+  Relu/MaxPool/Concat exact in the int8 domain;
+- weights: per-output-channel symmetric int8;
+- biases: int32 at scale x_scale * w_scale (ONNX convention);
+- compute: QLinearConv on the int8 kernel (ops/kernels/qconv_int8.py).
+
+Not ported yet: the "mse" calibration method, `bias_correct`, INT4
+weight-only and W8A8 quantization.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .engine import lower, resolve_device
+from .graph import Graph, Node, prune_dead, topo_sort
+
+__all__ = ["calibrate", "quantize_graph", "QuantConfig"]
+
+
+@dataclasses.dataclass
+class QuantConfig:
+    per_channel_weights: bool = True
+    # ops converted to QLinear form
+    quantize_ops: Tuple[str, ...] = ("Conv", "MatMul", "Gemm")
+    # ops that pass int8 through unchanged (symmetric scheme keeps them exact)
+    int8_transparent: Tuple[str, ...] = ("Relu", "MaxPool", "Reshape",
+                                         "Flatten", "Transpose", "Identity")
+    # mixed precision: nodes for which this predicate returns True keep
+    # their fp32 form (e.g. lambda n: int(n.attr("group", 1)) > 1 to leave
+    # depthwise convs unquantized)
+    exclude: Optional[callable] = None
+    # activation-range calibration: "minmax" records plain min/max;
+    # "percentile" clips to the given |x| percentile (outlier-robust)
+    calibration: str = "minmax"
+    percentile: float = 99.99
+
+
+# --------------------------------------------------------------------------
+# Calibration
+# --------------------------------------------------------------------------
+def _percentile(a: torch.Tensor, q: float) -> float:
+    """The linear-interpolation percentile of a flattened float32 tensor,
+    computed in float32 as jnp.percentile computes it (position, weights
+    and blend all in float32)."""
+    flat = torch.sort(a.reshape(-1).to(torch.float32)).values
+    pos = (torch.tensor(q, dtype=torch.float32) / 100.0
+           * torch.tensor(flat.numel() - 1, dtype=torch.float32))
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    w_lo = 1.0 - w_hi
+    return float(flat[int(lo)].cpu() * w_lo + flat[int(hi)].cpu() * w_hi)
+
+
+def calibrate(
+    graph: Graph,
+    calibration_inputs: Optional[Sequence[Dict[str, np.ndarray]]] = None,
+    max_tensors: int = 4096,
+    method: str = "minmax",
+    percentile: float = 99.99,
+    device="cuda",
+) -> Dict[str, Tuple[float, float]]:
+    """Run the fp32 graph on calibration batches and record a per-tensor
+    quantization range for every intermediate value.
+
+    method="minmax" records plain (min, max); "percentile" records the
+    symmetric range at the given |x| percentile."""
+    if method not in ("minmax", "percentile"):
+        raise ValueError(f"unknown or unported calibration method: "
+                         f"{method!r} (have minmax, percentile)")
+    if calibration_inputs is None:
+        rng = np.random.default_rng(0)
+        feed = {
+            spec.name: rng.standard_normal(spec.concrete_shape(batch=1)).astype(
+                spec.dtype
+            )
+            for spec in graph.inputs
+        }
+        calibration_inputs = [feed]
+
+    # Probe graph whose outputs are every intermediate (debug.py builds it;
+    # logs when max_tensors truncates).
+    from .debug import probe_graph
+    from .weights import as_device_tensor, params_from_numpy
+
+    device = resolve_device(device)
+    probe = probe_graph(graph, max_tensors=max_tensors)
+    fn = lower(probe, device)
+    params = params_from_numpy(
+        {k: graph.constants[k] for k in graph.weight_names}, device)
+
+    def batch_range(val: torch.Tensor) -> Tuple[float, float]:
+        if method == "minmax":
+            return float(val.min()), float(val.max())
+        amax = _percentile(val.to(torch.float32).abs(), percentile)
+        return -amax, amax
+
+    ranges: Dict[str, Tuple[float, float]] = {}
+    with torch.no_grad():
+        for feed in calibration_inputs:
+            out = fn(params, {k: as_device_tensor(v, device)
+                              for k, v in feed.items()})
+            for name, val in out.items():
+                if not val.is_floating_point():
+                    continue
+                lo, hi = batch_range(val)
+                if name in ranges:
+                    plo, phi = ranges[name]
+                    ranges[name] = (min(plo, lo), max(phi, hi))
+                else:
+                    ranges[name] = (lo, hi)
+    return ranges
+
+
+def _static_clip_bounds(graph: Graph, node: Node
+                        ) -> Optional[Tuple[float, float]]:
+    """(min, max) of a Clip node when both bounds are static, else None."""
+
+    def bound(attr_name: str, input_idx: int):
+        v = node.attr(attr_name)
+        if v is not None:
+            return float(v)
+        if len(node.inputs) > input_idx and node.inputs[input_idx]:
+            c = graph.constants.get(node.inputs[input_idx])
+            if c is not None and c.size == 1:
+                return float(np.asarray(c).reshape(()))
+            return None  # dynamic bound
+        return None
+
+    lo = bound("min", 1)
+    hi = bound("max", 2)
+    if lo is None or hi is None:
+        return None
+    return lo, hi
+
+
+def _act_scale(ranges: Dict[str, Tuple[float, float]], name: str) -> float:
+    lo, hi = ranges.get(name, (-1.0, 1.0))
+    amax = max(abs(lo), abs(hi), 1e-8)
+    return amax / 127.0
+
+
+def _quantize_weight(w: np.ndarray, per_channel: bool
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric int8; per-channel along axis 0 (conv O) when requested."""
+    if per_channel and w.ndim >= 2:
+        axes = tuple(range(1, w.ndim))
+        amax = np.maximum(np.max(np.abs(w), axis=axes), 1e-8)
+    else:
+        amax = np.maximum(np.max(np.abs(w)), 1e-8)
+    scale = (amax / 127.0).astype(np.float32)
+    q = np.clip(np.round(w / np.reshape(scale, (-1,) + (1,) * (w.ndim - 1))
+                         if np.ndim(scale) else w / scale),
+                -127, 127).astype(np.int8)
+    return q, np.atleast_1d(scale)
+
+
+# --------------------------------------------------------------------------
+# Transform
+# --------------------------------------------------------------------------
+def quantize_graph(
+    graph: Graph,
+    calibration_inputs: Optional[Sequence[Dict[str, np.ndarray]]] = None,
+    ranges: Optional[Dict[str, Tuple[float, float]]] = None,
+    config: QuantConfig = QuantConfig(),
+    device="cuda",
+) -> Graph:
+    """Return a new Graph in QLinear form (fp32 Graph is unmodified).
+    `device` is where calibration runs when `ranges` is not given."""
+    if ranges is None:
+        ranges = calibrate(graph, calibration_inputs,
+                           method=config.calibration,
+                           percentile=config.percentile, device=device)
+
+    consumers: Dict[str, List[Node]] = {}
+    for n in graph.nodes:
+        for i in n.inputs:
+            consumers.setdefault(i, []).append(n)
+
+    # --- unify scales across Concat inputs (one pass; SqueezeNet fires) ----
+    scale_override: Dict[str, float] = {}
+    for n in graph.nodes:
+        if n.op_type == "Concat":
+            s = max(_act_scale(ranges, i) for i in n.inputs)
+            for i in n.inputs:
+                scale_override[i] = s
+            scale_override[n.outputs[0]] = s
+    # Relu output shares its input scale only if we fold; we keep Relu in
+    # int8 domain, so give Relu output its own (post-relu) range — but its
+    # *input* must use the same scale as its output for exactness. Clip with
+    # static bounds (ReLU6 in MobileNet) gets the same treatment: the int8
+    # saturation at 127·s realizes the upper bound, and the remaining lower
+    # bound is applied as an int8-domain clip.
+    for n in graph.nodes:
+        if n.op_type == "Relu" or (
+                n.op_type == "Clip" and _static_clip_bounds(graph, n)):
+            out_s = scale_override.get(n.outputs[0], _act_scale(ranges, n.outputs[0]))
+            scale_override[n.inputs[0]] = out_s
+
+    def act_scale(name: str) -> float:
+        return scale_override.get(name, _act_scale(ranges, name))
+
+    new_nodes: List[Node] = []
+    new_consts: Dict[str, np.ndarray] = dict(graph.constants)
+    new_weights: List[str] = []
+    # tensor name -> ("int8", scale) for values materialized in int8 domain
+    qdomain: Dict[str, float] = {}
+
+    def add_const(name: str, arr: np.ndarray, is_weight=True) -> str:
+        new_consts[name] = arr
+        if is_weight:
+            new_weights.append(name)
+        return name
+
+    def scale_const(qname: str) -> str:
+        s_name = f"{qname}__s"
+        if s_name not in new_consts:
+            add_const(s_name, np.float32(qdomain[qname]), is_weight=False)
+        return s_name
+
+    def ensure_int8(name: str) -> Tuple[str, str]:
+        """Return (int8_tensor_name, scale_const_name) for a value, inserting
+        QuantizeLinear if it currently lives in fp32."""
+        if name in qdomain:
+            return name, scale_const(name)
+        q_name = f"{name}__q8"
+        if q_name not in qdomain:
+            s = act_scale(name)
+            s_name = add_const(f"{name}__scale", np.float32(s), is_weight=False)
+            zp_name = add_const(f"{name}__zp", np.int8(0), is_weight=False)
+            new_nodes.append(Node("QuantizeLinear", [name, s_name, zp_name],
+                                  [q_name], name=f"quant_{name}"))
+            qdomain[q_name] = s
+        return q_name, scale_const(q_name)
+
+    def ensure_fp32(name: str) -> str:
+        """Dequantize an int8-domain tensor back to fp32."""
+        if name not in qdomain:
+            return name
+        d_name = f"{name}__dq"
+        s = qdomain[name]
+        s_name = add_const(f"{name}__dqs", np.float32(s), is_weight=False)
+        zp_name = add_const(f"{name}__dqzp", np.int8(0), is_weight=False)
+        new_nodes.append(Node("DequantizeLinear", [name, s_name, zp_name],
+                              [d_name], name=f"dequant_{name}"))
+        return d_name
+
+    for node in graph.nodes:
+        op = node.op_type
+        if op in config.quantize_ops and not (
+                config.exclude is not None and config.exclude(node)):
+            w_name = node.inputs[1]
+            w = new_consts.get(w_name)
+            # dynamic weights (e.g. activation x activation matmul) stay fp32
+            if w is None or not np.issubdtype(w.dtype, np.floating):
+                new_nodes.append(Node(op, [ensure_fp32(i) for i in node.inputs],
+                                      node.outputs, node.name, dict(node.attrs)))
+                continue
+            if op == "Gemm" and (
+                    int(node.attr("transA", 0))
+                    or float(node.attr("alpha", 1.0)) != 1.0
+                    or float(node.attr("beta", 1.0)) not in (0.0, 1.0)):
+                # QLinearMatMul has no alpha/beta; non-default Gemms stay fp32
+                new_nodes.append(Node(op, [ensure_fp32(i) for i in node.inputs],
+                                      node.outputs, node.name, dict(node.attrs)))
+                continue
+
+            x_q, x_s = ensure_int8(node.inputs[0])
+            w_mat = w
+            attrs = dict(node.attrs)
+            if op == "Gemm" and int(node.attr("transB", 0)):
+                w_mat = np.ascontiguousarray(w_mat.T)
+                attrs.pop("transB", None)
+            per_ch = config.per_channel_weights and op == "Conv"
+            if op in ("MatMul", "Gemm") and config.per_channel_weights \
+                    and w_mat.ndim == 2:
+                # per-output-column scales: quantize along axis 1
+                amax = np.maximum(np.max(np.abs(w_mat), axis=0), 1e-8)
+                w_scale = (amax / 127.0).astype(np.float32)
+                w_q = np.clip(np.round(w_mat / w_scale), -127, 127).astype(np.int8)
+            else:
+                w_q, w_scale = _quantize_weight(w_mat, per_ch)
+
+            wq_name = add_const(f"{w_name}__w8", w_q)
+            ws_name = add_const(f"{w_name}__ws", w_scale, is_weight=False)
+            wzp_name = add_const(f"{w_name}__wzp",
+                                 np.zeros_like(w_scale, dtype=np.int8),
+                                 is_weight=False)
+
+            y_name = node.outputs[0]
+            y_s = act_scale(y_name)
+            ys_name = add_const(f"{y_name}__ys", np.float32(y_s), is_weight=False)
+            yzp_name = add_const(f"{y_name}__yzp", np.int8(0), is_weight=False)
+
+            qop = "QLinearConv" if op == "Conv" else "QLinearMatMul"
+            x_scale_val = qdomain[x_q]
+            x_zp = add_const(f"{x_q}__xzp", np.int8(0), is_weight=False)
+            inputs = [x_q, x_s, x_zp, wq_name, ws_name, wzp_name,
+                      ys_name, yzp_name]
+            # bias -> int32 at scale x_s * w_s (skipped when Gemm beta == 0)
+            if len(node.inputs) > 2 and node.inputs[2] and \
+                    float(node.attr("beta", 1.0)) != 0.0:
+                b = new_consts.get(node.inputs[2])
+                if b is not None:
+                    b32 = np.round(
+                        b / (x_scale_val * w_scale.reshape(-1)[: b.size]
+                             if w_scale.size > 1 else x_scale_val * w_scale)
+                    ).astype(np.int32)
+                    inputs.append(add_const(f"{node.inputs[2]}__b32", b32))
+            new_nodes.append(Node(qop, inputs, node.outputs, node.name, attrs))
+            qdomain[y_name] = y_s
+
+        elif op == "Clip" and node.inputs[0] in qdomain \
+                and _static_clip_bounds(graph, node):
+            # ReLU6-style: clip in the int8 domain at round(bound / s)
+            lo, hi = _static_clip_bounds(graph, node)
+            s = qdomain[node.inputs[0]]
+            lo_q = np.int8(np.clip(round(lo / s), -128, 127))
+            hi_q = np.int8(np.clip(round(hi / s), -128, 127))
+            lo_name = add_const(f"{node.outputs[0]}__cliplo", lo_q,
+                                is_weight=False)
+            hi_name = add_const(f"{node.outputs[0]}__cliphi", hi_q,
+                                is_weight=False)
+            new_nodes.append(Node("Clip", [node.inputs[0], lo_name, hi_name],
+                                  node.outputs, node.name))
+            qdomain[node.outputs[0]] = s
+
+        elif op in config.int8_transparent and node.inputs[0] in qdomain:
+            # stays in int8 domain
+            new_nodes.append(Node(op, list(node.inputs), node.outputs,
+                                  node.name, dict(node.attrs)))
+            qdomain[node.outputs[0]] = qdomain[node.inputs[0]]
+
+        elif op == "Add" and len(node.inputs) == 2 and \
+                all(i in qdomain for i in node.inputs):
+            # residual adds stay in the int8 domain via the ORT-contrib
+            # QLinearAdd (dequant-add-requant fused on the VPU) instead of
+            # an fp32 island between QLinearConvs
+            a, b_in = node.inputs
+            y_name = node.outputs[0]
+            y_s = act_scale(y_name)
+            ys_name = add_const(f"{y_name}__ys", np.float32(y_s),
+                                is_weight=False)
+            yzp_name = add_const(f"{y_name}__yzp", np.int8(0),
+                                 is_weight=False)
+            zp_a = add_const(f"{a}__azp", np.int8(0), is_weight=False)
+            zp_b = add_const(f"{b_in}__bzp", np.int8(0), is_weight=False)
+            new_nodes.append(Node(
+                "QLinearAdd",
+                [a, scale_const(a), zp_a, b_in, scale_const(b_in), zp_b,
+                 ys_name, yzp_name],
+                node.outputs, node.name))
+            qdomain[y_name] = y_s
+
+        elif op == "Concat" and all(i in qdomain for i in node.inputs):
+            scales = {round(qdomain[i], 12) for i in node.inputs}
+            if len(scales) == 1:
+                new_nodes.append(Node(op, list(node.inputs), node.outputs,
+                                      node.name, dict(node.attrs)))
+                qdomain[node.outputs[0]] = qdomain[node.inputs[0]]
+            else:  # scales diverged — fall back to fp32 concat
+                new_nodes.append(Node(op, [ensure_fp32(i) for i in node.inputs],
+                                      node.outputs, node.name, dict(node.attrs)))
+
+        else:
+            # fp32 island: dequantize any int8 inputs
+            new_nodes.append(Node(op, [ensure_fp32(i) for i in node.inputs],
+                                  node.outputs, node.name, dict(node.attrs)))
+
+    # graph outputs must come back to fp32 — keeping their original names
+    final_outputs: List[str] = []
+    for o in graph.outputs:
+        if o in qdomain:
+            raw = f"{o}__qraw"
+            for n in new_nodes:  # rename the int8 producer's output
+                n.outputs = [raw if x == o else x for x in n.outputs]
+                n.inputs = [raw if x == o else x for x in n.inputs]
+            qdomain[raw] = qdomain.pop(o)
+            s_name = add_const(f"{raw}__dqs", np.float32(qdomain[raw]),
+                               is_weight=False)
+            zp_name = add_const(f"{raw}__dqzp", np.int8(0), is_weight=False)
+            new_nodes.append(Node("DequantizeLinear", [raw, s_name, zp_name],
+                                  [o], name=f"dequant_{o}"))
+        final_outputs.append(o)
+
+    qgraph = Graph(
+        name=f"{graph.name}_int8",
+        nodes=new_nodes,
+        constants=new_consts,
+        inputs=graph.inputs,
+        outputs=final_outputs,
+        opset=max(graph.opset, 10),
+        weight_names=[w for w in dict.fromkeys(graph.weight_names + new_weights)
+                      if w in new_consts],
+    )
+    avail = set(qgraph.constants) | {i.name for i in qgraph.inputs}
+    qgraph.nodes = topo_sort(qgraph.nodes, avail)
+    prune_dead(qgraph)
+    return qgraph
