@@ -4,30 +4,55 @@ NVIDIA H100 and check what comes out.
 
     python3 chip_smoke.py      # from the root of a checkout, one CUDA card
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device  - the card (name and power limit as nvidia-smi prints them);
              TF32 is off for every comparison (cudnn and matmul flags,
              scoped to this script's run).
-2. build   - compiles every kernel from csrc/ with nvcc for sm_90a.
-3. slice   - the main path through the port's entry points: SqueezeNet 1.0
-             at 224x224 (random weights from seed 0); golden check at b1
-             against tests/goldens/squeezenet.pb; fp32 Engine at b256;
-             calibrate on x[:8]; quantize_graph; INT8 Engine at b256. The
-             kernels' launch counts are set to 0 just before and read just
-             after; every QLinearConv must launch the int8 kernel (26 per
-             INT8 forward). The card's INT8 intermediates are held against
-             the plain versions run on the CPU for the first 8 images.
-             fp32 and INT8 images/s from CUDA events over warmed,
-             device-resident runs.
-4. kernel  - one line per distinct QLinearConv shape of that run: the
+2. build   - compiles every kernel source in csrc/ with nvcc for sm_90a,
+             one nvcc per source, all at once.
+3. slice   - SqueezeNet: the port's entry points at 224x224 (random weights
+             from seed 0); golden check at b1 against
+             tests/goldens/squeezenet.pb; fp32 Engine at b256; calibrate on
+             x[:8]; quantize_graph; INT8 Engine at b256. Every kernel's
+             launch count is set to 0 just before and read just after;
+             every QLinearConv must launch the int8 kernel (26 per INT8
+             forward). The card's INT8 intermediates are held against the
+             plain versions run on the CPU for the first 8 images. fp32 and
+             INT8 images/s from CUDA events over warmed, device-resident
+             runs.
+4. profile - where one fp32 and one INT8 forward spend device time, by
+             kernel, from torch.profiler (device busy share of the wall
+             time under the profiler).
+5. kernel  - one line per distinct QLinearConv shape of that run: the
              kernel against its plain version on the same (real) inputs on
              the card, bit for bit; kernel, plain and library times and the
              card's bound for the same work.
-5. profile - where one fp32 and one INT8 forward spend device time, by
-             kernel, from torch.profiler (device busy share of the wall
-             time under the profiler).
-6. kernels - one line listing every ported kernel.
+6. decode  - GPT-2 124M (the SMALL config: 12 layers, 12 heads of 64, n_embd
+             768, vocab 50257; random weights from seed 0) through
+             Generator.generate with INT4 planar weights, an INT8 KV cache
+             and fused attention: batch 8, 64-token prompts, max_len 256, 64
+             new greedy tokens. Counts set to 0 just before, read just
+             after: 49 int4 launches per prefill and per decode step (4 per
+             layer + the lm_head), 12 attention launches per step. The
+             prefill and the first 4 steps are re-run through the plain
+             versions on the CPU with the card's tokens and KV scales:
+             logits within 1e-2 * max|logit|, greedy agreement reported.
+             Then the same path with ORIET_ATTN_I8=1 (the int8 x int8
+             attention kernel, its own counts). Then decode tokens/s (wall
+             and CUDA events) for fp32 weights + fp32 KV, INT4 + INT8 KV
+             unfused, fused, and fused int8 x int8: for information only.
+7. profile - one decode step of the fused INT4 path under torch.profiler:
+             device busy against wall time, the idle share, by kernel.
+8. kernel  - one line per distinct int4 and attention shape of the decode
+             path, on the card against the plain version (int4 and f32
+             attention within 1e-5 * max|out|, int8 x int8 attention within
+             1e-2 * max|out|), with the kernel, plain and library times and
+             the card's bound; then the nibble-unpack probe, bit for bit.
+             Kernel and library times are device times from a replayed
+             CUDA graph of DEC_ITERS calls (ms_eager: the same calls issued
+             from Python, host time included); plain times are eager.
+9. kernels - one line listing every ported kernel.
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -58,10 +83,29 @@ WARMUP, ITERS = 3, 20
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
+# GPT-2 decode path
+DEC_BATCH, PROMPT, MAX_LEN, NEW = 8, 64, 256, 64
+CPU_STEPS = 4       # decode steps re-run through the plain versions
+DEC_ITERS = 50      # timed launches per decode kernel shape
+
+BF16_OPS_PER_S = 989e12
+
 KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
     "qconv_int8_requant": (
         f"{PKG}/csrc/qconv_int8.cu",
         "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul.py:102"),
+    "qmatmul_int4_planar": (
+        f"{PKG}/csrc/qmatmul_int4.cu",
+        "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul_int4.py:200"),
+    "decode_attention_int8": (
+        f"{PKG}/csrc/decode_attn.cu",
+        "onnx_rusty_inference_engine_tpu/ops/kernels/decode_attn.py:60"),
+    "decode_attention_int8_mxu": (
+        f"{PKG}/csrc/decode_attn.cu",
+        "onnx_rusty_inference_engine_tpu/ops/kernels/decode_attn.py:147"),
+    "nibble_probe": (
+        f"{PKG}/csrc/nibble.cuh",
+        "experiments/cast_probe.py:7"),
 }
 
 
@@ -81,6 +125,38 @@ def nvidia_smi() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def _wrappers():
+    """Every kernel wrapper, by kernel name; each counts its launches."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        decode_attn, qconv_int8, qmatmul_int4)
+
+    return {"qconv_int8_requant": qconv_int8.qconv_int8_requant,
+            "qmatmul_int4_planar": qmatmul_int4.qmatmul_int4_planar,
+            "decode_attention_int8": decode_attn.decode_attention_int8,
+            "decode_attention_int8_mxu":
+                decode_attn.decode_attention_int8_mxu,
+            "nibble_probe": qmatmul_int4.nibble_probe}
+
+
+def reset_counts() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def bound(ops: float, nbytes: float, ops_per_s: float):
+    """(bound_ms, bound_by, ops_ms, bytes_ms) for work of `ops` operations
+    moving `nbytes` bytes on the H100."""
+    ops_ms = ops / ops_per_s * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean device ms per call of fn, by CUDA events."""
     for _ in range(warmup):
@@ -94,6 +170,33 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean device ms per call of fn with no host time between calls: the
+    calls are captured once into a CUDA graph and the graph is replayed
+    (a decode kernel runs for microseconds, less than its wrapper's host
+    time, so eager back-to-back calls would time the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
 
 # --------------------------------------------------------------------------
@@ -147,7 +250,7 @@ def phase_slice():
     x = rng.standard_normal((BATCH, 3, 224, 224)).astype(np.float32)
     feed = {"data_0": x}
 
-    qconv_int8_requant.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     # golden at b1
     golden = onnx_io.read_tensor_file(
@@ -183,10 +286,13 @@ def phase_slice():
             and bool(torch.isfinite(y8).all()), "INT8 b256 output")
     int8_ips = engine_throughput(eng8, feed, iters=ITERS, warmup=WARMUP)
     int8_forwards = 1 + WARMUP + ITERS
-    launches = qconv_int8_requant.launches
+    counts = read_counts()
+    launches = counts["qconv_int8_requant"]
     main_path_s = time.perf_counter() - t0
     require(launches == n_qconv * int8_forwards,
             f"{launches} launches for {int8_forwards} INT8 forwards")
+    require(sum(counts.values()) == launches,
+            f"only the int8 conv kernel on SqueezeNet's path: {counts}")
 
     # every intermediate of the INT8 graph, on the card at b256 and through
     # the plain versions on the CPU for the first CPU_CHECK images
@@ -296,7 +402,7 @@ def _conv_work(x, w, stride, padding):
     return 2 * macs, nbytes
 
 
-def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> None:
+def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qconv_int8 import (
         qconv_int8_requant, qconv_int8_requant_plain)
     from onnx_rusty_inference_engine_tpu_torch.ops.standard import (
@@ -331,7 +437,7 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> None:
                        "packed": eng8.packed[node.inputs[3]]}
 
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-           "bytes_ms": 0.0}
+           "bytes_ms": 0.0, "library_ms": 0.0, "ms_1x1": 0.0}
     max_err = 0
     for (xs, ws, stride, padding), s in shapes.items():
         x, w, mult, bias = s["x"], s["w"], s["mult"], s["bias"]
@@ -367,7 +473,9 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> None:
         emit({"phase": "kernel", "kernel": "qconv_int8_requant",
               "node": s["node"], "x": list(xs), "w": list(ws),
               "stride": list(stride), "padding": [list(p) for p in padding],
-              "count_per_forward": s["count"], "equal": True,
+              "count_per_forward": s["count"],
+              # 26 QLinearConvs per forward (phase_slice checks it)
+              "launches": s["count"] * (launches // 26), "equal": True,
               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms,
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -378,21 +486,461 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> None:
         tot["bound_ms"] += n * bound_ms
         tot["ops_ms"] += n * ops_ms
         tot["bytes_ms"] += n * bytes_ms
+        if library_ms is not None:
+            tot["library_ms"] += n * library_ms
+            tot["ms_1x1"] += n * ms
 
     require(launches > 0, "qconv_int8_requant launched on the main path")
     source, replaces = KERNEL_ROWS["qconv_int8_requant"]
-    emit({"kernels": [{
+    return {
         "name": "qconv_int8_requant", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": max_err,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                      else "bytes"),
-        "library_ms": None,
-        "per": "one INT8 SqueezeNet 1.0 forward at b256: the sum over its "
-               "26 QLinearConvs (library_ms: no PyTorch call computes an "
-               "int8 kxk conv; the 1x1 shapes carry torch._int_mm times)",
-        "distinct_shapes": len(shapes), "card": smi}]})
+        "library_ms": tot["library_ms"],
+        "ms_same_shapes_as_library": tot["ms_1x1"],
+        "per": "one INT8 SqueezeNet 1.0 forward at b256: ms, plain_ms and "
+               "bound_ms sum its 26 QLinearConvs; library_ms sums "
+               "torch._int_mm (int32 out, no epilogue) over the 1x1 convs "
+               "only, as no PyTorch call computes an int8 kxk conv, and "
+               "ms_same_shapes_as_library is the kernel's own sum over "
+               "those same 1x1 convs",
+        "distinct_shapes": len(shapes), "card": smi}
+
+
+# --------------------------------------------------------------------------
+# GPT-2 decode
+# --------------------------------------------------------------------------
+def _gpt2_prompts(cfg) -> np.ndarray:
+    return np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (DEC_BATCH, PROMPT))
+
+
+def _generator(cfg, **kw):
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+
+    return Generator(cfg, batch=DEC_BATCH, prompt_len=PROMPT,
+                     max_len=MAX_LEN, **kw)
+
+
+def _decode_tokens_per_s(gen, prompts) -> dict:
+    """Decode tokens/s of gen.generate: the time of a NEW-token run less
+    that of a 1-token run (prefill and first pick), by the host clock
+    around synchronized runs and by CUDA events; warmed first."""
+    def timed(n_new):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        gen.generate(prompts, n_new)
+        end.record()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+    gen.generate(prompts, NEW)
+    full_wall, full_ev = timed(NEW)
+    pre_wall, pre_ev = timed(1)
+    toks = DEC_BATCH * (NEW - 1)
+    return {"wall_s": full_wall - pre_wall, "events_s": full_ev - pre_ev,
+            "tokens_per_s_wall": toks / (full_wall - pre_wall),
+            "tokens_per_s_events": toks / (full_ev - pre_ev),
+            "prefill_s_wall": pre_wall}
+
+
+def phase_decode():
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config()  # SMALL: GPT-2 124M at its published widths
+    prompts = _gpt2_prompts(cfg)
+    t0 = time.perf_counter()
+    gen = _generator(cfg, kv_dtype="int8", int4_weights=True,
+                     fused_attention=True)
+    build_s = time.perf_counter() - t0
+    n4_pre = sum(n.op_type == "MatMulNBits" for n in gen.prefill.graph.nodes)
+    n4_dec = sum(n.op_type == "MatMulNBits" for n in gen.decode.graph.nodes)
+    n_attn = sum(n.op_type == "FusedDecodeAttention"
+                 for n in gen.decode.graph.nodes)
+    require(n4_pre == n4_dec == 4 * cfg.n_layer + 1 and n_attn == cfg.n_layer,
+            f"49 MatMulNBits per graph and 12 fused attentions: {n4_pre}, "
+            f"{n4_dec}, {n_attn}")
+
+    # the main path
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, _ = gen.generate(prompts, NEW)
+    counts = read_counts()
+    main_s = time.perf_counter() - t0
+    steps = NEW - 1
+    require(counts["qmatmul_int4_planar"] == n4_pre + n4_dec * steps,
+            f"49 int4 launches per prefill and per step: {counts}")
+    require(counts["decode_attention_int8"] == n_attn * steps,
+            f"12 attention launches per step: {counts}")
+    require(counts["decode_attention_int8_mxu"] == 0
+            and counts["qconv_int8_requant"] == 0, f"counts {counts}")
+    require(toks.shape == (DEC_BATCH, NEW) and toks.min() >= 0
+            and toks.max() < cfg.vocab_size, f"tokens {toks.shape}")
+
+    # the prefill and the first CPU_STEPS steps through the plain versions
+    # on the CPU, fed the card's tokens and KV scales
+    cpu = gen.to("cpu")
+    card_logits, card_cache = gen.start(prompts)
+    host_logits, host_cache = cpu.start(prompts)
+    require(bool(torch.isfinite(card_logits).all()), "finite prefill logits")
+    errs, agree = [], []
+
+    def compare(card_l, host_l, want_tok):
+        c, h = card_l[:, -1].cpu(), host_l[:, -1]
+        errs.append(float((c - h).abs().max() / h.abs().max()))
+        agree.append(float((h.argmax(-1).numpy() == want_tok).mean()))
+        require(bool((c.argmax(-1).numpy() == want_tok).all()),
+                "the card's teacher-forced step repeats its own tokens")
+
+    compare(card_logits, host_logits, toks[:, 0])
+    for t in range(CPU_STEPS):
+        tok = torch.from_numpy(toks[:, t])
+        card_l, card_cache = gen.step(card_cache, tok.cuda(), PROMPT + t)
+        host_l, host_cache = cpu.step(host_cache, tok, PROMPT + t)
+        compare(card_l, host_l, toks[:, t + 1])
+    del cpu, host_cache
+    require(max(errs) <= 1e-2, f"card vs plain logits: {errs}")
+
+    # the int8 x int8 attention path (ORIET_ATTN_I8), its own counts
+    os.environ["ORIET_ATTN_I8"] = "1"
+    try:
+        reset_counts()
+        toks_i8, _ = gen.generate(prompts, NEW)
+        counts_i8 = read_counts()
+        tps_mxu = _decode_tokens_per_s(gen, prompts)
+    finally:
+        del os.environ["ORIET_ATTN_I8"]
+    require(counts_i8["decode_attention_int8_mxu"] == n_attn * steps
+            and counts_i8["decode_attention_int8"] == 0
+            and counts_i8["qmatmul_int4_planar"] == n4_pre + n4_dec * steps,
+            f"ORIET_ATTN_I8 path counts: {counts_i8}")
+
+    tps = {"int4_int8kv_fused": _decode_tokens_per_s(gen, prompts),
+           "int4_int8kv_fused_i8attn": tps_mxu}
+    for name, kw in (("fp32_fp32kv", {}),
+                     ("int4_int8kv_unfused", {"kv_dtype": "int8",
+                                              "int4_weights": True})):
+        other = _generator(cfg, **kw)
+        tps[name] = _decode_tokens_per_s(other, prompts)
+        del other
+        torch.cuda.empty_cache()
+
+    emit({"phase": "decode", "model": "gpt2 124M (SMALL, seed 0)",
+          "batch": DEC_BATCH, "prompt": PROMPT, "max_len": MAX_LEN,
+          "new_tokens": NEW, "build_s": build_s, "main_path_s": main_s,
+          "launches": counts, "launches_i8attn": counts_i8,
+          "int4_per_prefill": n4_pre, "int4_per_step": n4_dec,
+          "attention_per_step": n_attn,
+          "card_vs_plain_rel_err": errs,
+          "plain_greedy_agreement": agree,
+          "i8attn_token_agreement": float((toks_i8 == toks).mean()),
+          "decode_tokens_per_s": tps,
+          "tokens_row0": toks[0, :16].tolist()})
+    return gen, prompts, counts, counts_i8
+
+
+# device kernel name fragment -> bucket, first match wins
+_DEC_BUCKETS = (("qmatmul_int4_planar", "qmatmul_int4_planar (int4 matmul)"),
+                ("decode_attn", "decode attention"),
+                ("gemm", "other matmul"), ("softmax", "softmax"),
+                ("reduce", "reductions (LayerNorm)"),
+                ("elementwise", "elementwise / copies"),
+                ("copy", "elementwise / copies"),
+                ("index", "gather / index"))
+
+
+def phase_decode_profile(gen, prompts, reps: int = 5) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    _, cache = gen.start(prompts)
+    tok = torch.zeros((DEC_BATCH,), dtype=torch.int64, device=gen.device)
+    with torch.no_grad():
+        gen.step(cache, tok, PROMPT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            gen.step(cache, tok, PROMPT)
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                gen.step(cache, tok, PROMPT)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels, launches = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / reps
+        launches += evt.count
+    buckets = {}
+    for kname, ms in kernels.items():
+        b = next((label for frag, label in _DEC_BUCKETS if frag in kname),
+                 "other")
+        buckets[b] = buckets.get(b, 0.0) + ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "profile", "engine": "gpt2 decode step (int4, int8 KV, "
+          "fused)", "batch": DEC_BATCH, "pos": PROMPT,
+          "wall_ms_per_step": plain_wall_ms,
+          "wall_ms_per_step_profiled": wall_ms,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": (1 - busy / wall_ms) if busy else None,
+          "device_ops_per_step": launches / reps,
+          "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
+          "top_kernels_ms": [[k[:90], v] for k, v in top]})
+
+
+def _int4_library(a, packed, scales, bs):
+    """(label, fn) of one PyTorch call computing the same int4 product:
+    torch._weight_int4pack_mm (bf16, groupsize bs) where this PyTorch takes
+    the weight, else a bf16 matmul on the weight dequantized beforehand."""
+    p = packed.to(torch.int32)
+    q = torch.cat([p & 0xF, p >> 4], dim=1)            # [Nw, K], q + 8
+    ab = a.to(torch.bfloat16)
+    # the k-major planar scales are the groups of bs consecutive k in order
+    sz = torch.stack([scales.t(), torch.zeros_like(scales.t())], dim=-1)
+    sz = sz.transpose(0, 1).contiguous().to(torch.bfloat16)  # [K/bs, Nw, 2]
+    for weight in ((q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8),  # >= 2.5
+                   q):                                           # older
+        for tiles in (8, 4, 2):
+            try:
+                wp = torch._convert_weight_to_int4pack(weight.contiguous(),
+                                                       tiles)
+                torch._weight_int4pack_mm(ab, wp, bs, sz)
+                torch.cuda.synchronize()
+            except Exception:  # this PyTorch takes another weight form
+                continue
+            return ("torch._weight_int4pack_mm (bf16, groupsize bs, Nw "
+                    "columns)",
+                    lambda wp=wp: torch._weight_int4pack_mm(ab, wp, bs, sz))
+    scale_k = scales.t().repeat_interleave(bs, dim=1)      # [Nw, K]
+    w = ((q - 8).float() * scale_k).t().contiguous().to(torch.bfloat16)
+    return ("torch.matmul bf16 on the weight dequantized beforehand",
+            lambda: torch.matmul(ab, w))
+
+
+def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
+    import torch.nn.functional as F
+
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        decode_attn as da, qmatmul_int4 as q4)
+
+    rng = np.random.default_rng(1)
+    params = gen.decode.params
+    rows = []
+
+    # int4: each distinct (M, K, N) of the prefill (M = batch * prompt) and
+    # of a decode step (M = batch), on the decode graph's own weights
+    shapes = {}
+    for node in gen.decode.graph.nodes:
+        if node.op_type != "MatMulNBits":
+            continue
+        K, N = int(node.attr("K")), int(node.attr("N"))
+        for M, phase in ((DEC_BATCH * PROMPT, "prefill"),
+                         (DEC_BATCH, "step")):
+            key = (M, K, N)
+            if key in shapes:
+                shapes[key]["count"] += 1
+                continue
+            shapes[key] = {"count": 1, "phase": phase, "node": node.inputs[1],
+                           "bs": int(node.attr("block_size")),
+                           "packed": params[node.inputs[1]],
+                           "scales": params[node.inputs[2]]}
+    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "ops_ms": 0.0, "bytes_ms": 0.0}
+    max_abs, max_rel = 0.0, 0.0
+    passes = {"prefill": 1, "step": NEW - 1}  # of the main path
+    require(sum(sh["count"] * passes[sh["phase"]] for sh in shapes.values())
+            == counts["qmatmul_int4_planar"],
+            "the int4 shapes account for every main-path launch")
+    for (M, K, N), sh in shapes.items():
+        a = torch.from_numpy(rng.standard_normal((M, K)).astype(
+            np.float32)).cuda()
+        packed, scales, bs = sh["packed"], sh["scales"], sh["bs"]
+        Nw, nbh = packed.shape[0], scales.shape[0] // 2
+
+        def kern():
+            return q4.qmatmul_int4_planar(a, packed, scales, qblock=bs, n=N)
+
+        def plain():
+            return q4.qmatmul_int4_planar_plain(a, packed, scales,
+                                                qblock=bs, n=N)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
+        require(rel <= 1e-5, f"int4 kernel vs plain at M={M} K={K} N={N}: "
+                f"{rel}")
+        ms, ms_eager = graph_ms(kern, DEC_ITERS), cuda_ms(kern, DEC_ITERS)
+        plain_ms = cuda_ms(plain, 3)
+        lib_label, lib = _int4_library(a, packed, scales, bs)
+        lib_out = lib()[:, :N].float()
+        lib_rel = float((lib_out - want).abs().max() / want.abs().max())
+        library_ms = graph_ms(lib, DEC_ITERS)
+        ops = 2 * M * N * K
+        nbytes = M * K * 4 + N * K // 2 + 2 * nbh * N * 4 + M * N * 4
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     BF16_OPS_PER_S)
+        emit({"phase": "kernel", "kernel": "qmatmul_int4_planar",
+              "node": sh["node"], "M": M, "K": K, "N": N, "Nw": Nw,
+              "bs": bs, "nbh": nbh, "where": sh["phase"],
+              "count_per_" + sh["phase"]: sh["count"],
+              "launches": sh["count"] * passes[sh["phase"]],
+              "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+              "ms_eager": ms_eager, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "library": lib_label, "library_max_rel_err": lib_rel,
+              "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+              "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+              "tflops": ops / ms / 1e9})
+        if sh["phase"] == "step":
+            n = sh["count"]
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound_ms), ("library_ms", library_ms),
+                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                step[k] += n * v
+    source, replaces = KERNEL_ROWS["qmatmul_int4_planar"]
+    rows.append({
+        "name": "qmatmul_int4_planar", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": counts["qmatmul_int4_planar"],
+        "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": step["ms"],
+        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_by": ("operations" if step["ops_ms"] >= step["bytes_ms"]
+                     else "bytes"),
+        "library_ms": step["library_ms"],
+        "per": "one GPT-2 124M decode step at batch 8: the sum over its 49 "
+               "launches (4 per layer + the lm_head); the prefill shapes "
+               "are in the kernel lines. ms and library_ms are device times "
+               "(CUDA-graph replay); plain_ms is eager. library_ms: the "
+               "same sum of the library calls named in the kernel lines",
+        "distinct_shapes": len(shapes), "card": smi})
+
+    # attention: the decode step's one shape, on the prefill's real cache
+    _, cache = gen.start(prompts)
+    H, hd = gen.cfg.n_head, gen.cfg.head_dim
+    k8 = cache["past_key_0"].reshape(DEC_BATCH * H, MAX_LEN, hd)
+    v8 = cache["past_value_0"].reshape(DEC_BATCH * H, MAX_LEN, hd)
+    q = torch.from_numpy((rng.standard_normal((DEC_BATCH * H, 1, hd))
+                          / (127 * np.sqrt(hd))).astype(np.float32)).cuda()
+    valid = np.arange(MAX_LEN) <= PROMPT  # the first step, at pos = prompt
+    bias = torch.from_numpy(np.broadcast_to(
+        np.where(valid, 0.0, -1e9).astype(np.float32),
+        (DEC_BATCH, 1, MAX_LEN)).copy()).cuda()
+    n_valid = int(valid.sum())
+    qb = q.reshape(DEC_BATCH, H, 1, hd).to(torch.bfloat16)
+    kb = k8.reshape(DEC_BATCH, H, MAX_LEN, hd).to(torch.bfloat16)
+    vb = v8.reshape(DEC_BATCH, H, MAX_LEN, hd).to(torch.bfloat16)
+    mb = bias.reshape(DEC_BATCH, 1, 1, MAX_LEN).to(torch.bfloat16)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qb, kb, vb, attn_mask=mb, scale=1.0)
+    for name, kern_fn, plain_fn, tol, peak, launches in (
+            ("decode_attention_int8", da.decode_attention_int8,
+             da.decode_attention_int8_plain, 1e-5, BF16_OPS_PER_S,
+             counts["decode_attention_int8"]),
+            ("decode_attention_int8_mxu", da.decode_attention_int8_mxu,
+             da.decode_attention_int8_mxu_plain, 1e-2, INT8_OPS_PER_S,
+             counts_i8["decode_attention_int8_mxu"])):
+        def kern():
+            return kern_fn(q, k8, v8, bias, n_q_heads=H)
+
+        def plain():
+            return plain_fn(q, k8, v8, bias, n_q_heads=H)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        require(rel <= tol, f"{name} vs plain: {rel} (tolerance {tol})")
+        lib_rel = float((sdpa().reshape(want.shape).float() - want).abs()
+                        .max() / want.abs().max())
+        ms, ms_eager = graph_ms(kern, DEC_ITERS), cuda_ms(kern, DEC_ITERS)
+        plain_ms = cuda_ms(plain, 3)
+        library_ms = graph_ms(sdpa, DEC_ITERS)
+        # what this step's data needs: the valid cache rows only (masked
+        # rows add exactly 0)
+        BH = DEC_BATCH * H
+        ops = 4 * BH * n_valid * hd
+        nbytes = BH * hd * 4 * 2 + 2 * BH * n_valid * hd + DEC_BATCH * \
+            MAX_LEN * 4
+        bound_ms, bound_by, _, _ = bound(ops, nbytes, peak)
+        emit({"phase": "kernel", "kernel": name, "q": [BH, 1, hd],
+              "kv": [BH, MAX_LEN, hd], "valid_positions": n_valid,
+              "count_per_step": gen.cfg.n_layer, "launches": launches,
+              "max_abs_err": err,
+              "max_rel_err": rel, "tolerance": tol, "ms": ms,
+              "ms_eager": ms_eager, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "library": "F.scaled_dot_product_attention, bf16, on K/V "
+                         "dequantized beforehand",
+              "library_max_rel_err": lib_rel, "bound_ms": bound_ms,
+              "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+              "gb_per_s": nbytes / ms / 1e6})
+        source, replaces = KERNEL_ROWS[name]
+        n = gen.cfg.n_layer
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "max_rel_err": rel, "ms": n * ms,
+            "plain_ms": n * plain_ms, "bound_ms": n * bound_ms,
+            "bound_by": bound_by, "library_ms": n * library_ms,
+            "per": "one GPT-2 124M decode step at batch 8, pos 64: 12 "
+                   "launches (one per layer); ms and library_ms are device "
+                   "times (CUDA-graph replay), plain_ms eager; launches "
+                   "counted on "
+                   + ("the main path" if name == "decode_attention_int8"
+                      else "the ORIET_ATTN_I8=1 run of the same path"),
+            "card": smi})
+    return rows
+
+
+def phase_nibble(int4_launches: int, smi: str) -> dict:
+    """The probe of experiments/cast_probe.py: its 256x256 arange % 251
+    uint8 input through the int4 kernels' unpack, bit for bit."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qmatmul_int4 as q4)
+
+    p = torch.from_numpy((np.arange(256 * 256).reshape(256, 256) % 251)
+                         .astype(np.uint8)).cuda()
+    probes = q4.nibble_probe.launches
+    lo, hi = q4.nibble_probe(p)
+    torch.cuda.synchronize()
+    plo, phi = q4.nibble_probe_plain(p)
+    require(q4.nibble_probe.launches == probes + 1, "nibble_probe launched")
+    require(torch.equal(lo, plo) and torch.equal(hi, phi),
+            "nibble_probe == plain")
+    ms = graph_ms(lambda: q4.nibble_probe(p), DEC_ITERS)
+    plain_ms = cuda_ms(lambda: q4.nibble_probe_plain(p), DEC_ITERS)
+    nbytes = p.numel() * (1 + 2 * 4)
+    bound_ms, bound_by, _, _ = bound(2 * p.numel(), nbytes, BF16_OPS_PER_S)
+    emit({"phase": "kernel", "kernel": "nibble_probe", "input": [256, 256],
+          "equal": True, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    source, replaces = KERNEL_ROWS["nibble_probe"]
+    return {"name": "nibble_probe", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": int4_launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": "the unpack device function (nibble.cuh) runs inlined in "
+                   "every qmatmul_int4_planar launch, so launches counts "
+                   "those on the main path; ms, plain_ms and bound_ms are "
+                   "the exported probe kernel's over cast_probe.py's "
+                   "256x256 input (bit-equal). library_ms: no PyTorch call "
+                   "unpacks nibbles",
+            "card": smi}
 
 
 def main() -> int:
@@ -411,7 +959,15 @@ def main() -> int:
             phase_build()
             eng, qgraph, eng8, card, launches, feed = phase_slice()
             phase_profile(eng, eng8, feed)
-            phase_kernels(qgraph, eng8, card, launches, smi)
+            rows = [phase_kernels(qgraph, eng8, card, launches, smi)]
+            del eng, eng8, card
+            torch.cuda.empty_cache()
+            gen, prompts, counts, counts_i8 = phase_decode()
+            phase_decode_profile(gen, prompts)
+            rows += phase_decode_kernels(gen, prompts, counts, counts_i8,
+                                         smi)
+            rows.append(phase_nibble(counts["qmatmul_int4_planar"], smi))
+            emit({"kernels": rows})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
     print(nvidia_smi(), flush=True)

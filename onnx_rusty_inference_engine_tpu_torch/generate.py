@@ -1,0 +1,303 @@
+"""Autoregressive generation for the GPT-2 ONNX decoder, on one device.
+
+The port's counterpart of onnx_rusty_inference_engine_tpu/generate.py::
+Generator, with its host loop: a prefill graph runs the prompt at once and
+returns the presents; a fixed-cache decode graph then runs one token per
+step, and the KV cache stays on the device between steps (fp32, or INT8
+with per-(layer, kind, head) scales calibrated from the prefill presents).
+Token selection -- greedy, or temperature / top-k / top-p / min-p sampling
+with a repetition penalty -- runs on the device, with a `torch.Generator`
+seeded by `sample_seed`. Per step, only the eos check (and return_logits)
+reads anything back to the host.
+
+`Generator(...)` runs on the card; only an explicit `device="cpu"` runs on
+the CPU, where every kernel is its plain version.
+
+Not ported yet (each raises NotImplementedError): other decoder families
+and the int4 KV cache (ROADMAP 1.5, 1.8), `scan_layers` (1.5),
+`device_loop` > 0 (1.5: K steps replayed as one CUDA graph), `mesh` /
+`param_sharding_fn` / `pipeline_axis` (1.12), `lora_bank` (1.8) and
+`prefill_dtype` other than "float32" (1.6).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .engine import Engine, resolve_device
+from .graph import Graph, import_model
+from .models.gpt2 import GPT2Config
+
+__all__ = ["Generator"]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"Generator: {what} is not ported yet "
+                               f"(ROADMAP {item})")
+
+
+class Generator:
+    def __init__(
+        self,
+        cfg: GPT2Config,
+        *,
+        batch: int = 1,
+        prompt_len: int = 8,
+        max_len: int = 32,
+        seed: int = 0,
+        mesh=None,
+        param_sharding_fn=None,
+        kv_dtype: str = "float32",
+        int4_weights: bool = False,
+        family: str = "gpt2",
+        scan_layers: bool = False,
+        fused_attention: bool = False,
+        prefill_dtype: str = "float32",
+        device_loop: int = 0,
+        pipeline_axis: Optional[str] = None,
+        lora_bank=None,
+        lora_alpha: float = 16.0,
+        adapter=0,
+        device="cuda",
+    ):
+        assert max_len >= prompt_len
+        if mesh is not None or param_sharding_fn is not None:
+            raise _not_ported("a device mesh", "1.12")
+        if pipeline_axis is not None:
+            raise _not_ported("pipeline_axis", "1.12")
+        if scan_layers:
+            raise _not_ported("scan_layers", "1.5")
+        if int(device_loop) > 0:
+            raise _not_ported("device_loop > 0 (K steps as one CUDA graph)",
+                              "1.5")
+        if lora_bank is not None:
+            raise _not_ported("lora_bank", "1.8")
+        if prefill_dtype != "float32":
+            raise _not_ported(f"prefill_dtype={prefill_dtype!r}", "1.6")
+        if kv_dtype == "int4":
+            raise _not_ported("kv_dtype='int4'", "1.5")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.batch = batch
+        self.prompt_len = prompt_len
+        self.max_len = max_len
+        self.kv_dtype = np.dtype(kv_dtype)
+        self._kv_q = self.kv_dtype == np.int8
+        self._kv_qmax = 127.0
+
+        from .models import decoder_family
+
+        build_prefill, build_decode, int8_kv_ok = decoder_family(family)
+        if self._kv_q and not int8_kv_ok:
+            raise NotImplementedError(
+                f"{family}: in-graph quantized KV cache not implemented")
+        dkw = {"kv_dtype": kv_dtype} if int8_kv_ok else {}
+        if fused_attention:
+            # one kernel per layer over the int8 cache (ops/fused.py)
+            dkw["fused_attention"] = True
+        prefill_graph = import_model(
+            build_prefill(cfg, batch=batch, seq_len=prompt_len, seed=seed,
+                          past_len=0, with_presents=True))
+        decode_graph = import_model(
+            build_decode(cfg, batch=batch, max_len=max_len, seed=seed,
+                         **dkw))
+        if int4_weights:
+            from .quant import quantize_weights_int4
+
+            prefill_graph = quantize_weights_int4(prefill_graph)
+            decode_graph = quantize_weights_int4(decode_graph)
+        self._engines(prefill_graph, decode_graph)
+        # per-(layer, kind, head) scales, calibrated from the prefill
+        self._kv_scales: Optional[Dict[str, torch.Tensor]] = None
+
+    def _engines(self, prefill_graph: Graph, decode_graph: Graph) -> None:
+        self.prefill = Engine(prefill_graph, device=self.device)
+        self.decode = Engine(decode_graph, device=self.device)
+
+    def to(self, device) -> "Generator":
+        """The same graphs and weights on another device (the KV scales
+        calibrated so far come along)."""
+        other = object.__new__(Generator)
+        other.__dict__.update(self.__dict__)
+        other.device = resolve_device(device)
+        other._engines(self.prefill.graph, self.decode.graph)
+        if self._kv_scales is not None:
+            other._kv_scales = {k: v.to(other.device)
+                                for k, v in self._kv_scales.items()}
+        return other
+
+    # -- cache quantization (INT8 KV; the decode GRAPH carries the QDQ) ---
+    def _store(self, kv: torch.Tensor, scale_name: str) -> torch.Tensor:
+        if self._kv_q:
+            s = self._kv_scales[scale_name].reshape(1, -1, 1, 1)
+            return torch.clamp(torch.round(kv / s), -127, 127).to(torch.int8)
+        return kv.to(torch.float32)
+
+    def calibrate_kv(self, prefill_out: Dict[str, torch.Tensor]) -> None:
+        """Per-(layer, kind, head) INT8 KV scales amax / 127 from the
+        prefill presents (kept once set, as in the JAX Generator)."""
+        if not self._kv_q or self._kv_scales is not None:
+            return
+        # a division by a tensor on the device: a true division on the card
+        # too (a CPU scalar divisor becomes a multiply by its reciprocal)
+        qmax = torch.tensor(self._kv_qmax, dtype=torch.float32,
+                            device=self.device)
+        self._kv_scales = {}
+        for i in range(self.cfg.n_layer):
+            for kind in ("key", "value"):
+                kv = prefill_out[f"present_{kind}_{i}"]
+                amax = kv.abs().amax(dim=(0, 2, 3)).clamp_min(1e-6)
+                self._kv_scales[f"kv_scale_{kind}_{i}"] = amax / qmax
+
+    # -- prefill and one decode step ---------------------------------------
+    def start(self, input_ids) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Run the prompt [B, prompt_len]: (logits [B, P, V], the fixed-size
+        cache seeded with the prefill presents, padded to max_len)."""
+        ids = torch.as_tensor(input_ids, dtype=torch.int64,
+                              device=self.device)
+        out = self.prefill({"input_ids": ids})
+        self.calibrate_kv(out)
+        cache: Dict[str, torch.Tensor] = {}
+        for i in range(self.cfg.n_layer):
+            for kind in ("key", "value"):
+                kv = out[f"present_{kind}_{i}"]  # [B,H,P,hd]
+                kv_full = F.pad(kv, (0, 0, 0, self.max_len - kv.shape[2]))
+                cache[f"past_{kind}_{i}"] = self._store(
+                    kv_full, f"kv_scale_{kind}_{i}")
+        return out["logits"], cache
+
+    def step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+             pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One decode step: tokens [B] at position `pos` -> (logits
+        [B, 1, V], the updated cache)."""
+        B = self.batch
+        feed = {"input_ids": tokens.reshape(B, 1).to(torch.int64),
+                "pos": torch.full((B,), pos, dtype=torch.int64,
+                                  device=self.device)}
+        feed.update(cache)  # int8 pasts flow straight back in
+        if self._kv_q:
+            feed.update(self._kv_scales)
+        out = self.decode(feed)
+        new_cache = {f"past_{kind}_{i}": out[f"present_{kind}_{i}"]
+                     for i in range(self.cfg.n_layer)
+                     for kind in ("key", "value")}
+        return out["logits"], new_cache
+
+    # -- token selection -----------------------------------------------------
+    def _select(self, logits: torch.Tensor, gen: torch.Generator,
+                temperature: float, top_k: Optional[int],
+                top_p: Optional[float], seen: Optional[torch.Tensor] = None,
+                repetition_penalty: float = 1.0,
+                min_p: Optional[float] = None) -> torch.Tensor:
+        """logits [B, V] -> token ids [B]. temperature == 0 is greedy;
+        otherwise categorical sampling (Gumbel-max, as
+        jax.random.categorical) with optional top-k / nucleus / min-p
+        filtering, all on the device. min_p keeps tokens with prob >=
+        min_p * p_max. repetition_penalty > 1 applies the CTRL scheme to
+        tokens already in the sequence (`seen` [B, V] bool): positive
+        logits divided by the penalty, negative multiplied."""
+        dev = logits.device
+        if seen is not None and repetition_penalty != 1.0:
+            p = torch.tensor(repetition_penalty, dtype=torch.float32,
+                             device=dev)
+            logits = torch.where(seen, torch.where(logits > 0, logits / p,
+                                                   logits * p), logits)
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1)
+        neg_inf = torch.tensor(-float("inf"), device=dev)
+        l = logits / torch.tensor(temperature, dtype=torch.float32,
+                                  device=dev)
+        if top_k is not None:
+            kth = torch.sort(l, dim=-1).values[:, -int(top_k)][:, None]
+            l = torch.where(l >= kth, l, neg_inf)
+        if top_p is not None:
+            sl = torch.sort(l, dim=-1, descending=True).values
+            probs = torch.softmax(sl, dim=-1)
+            cum = torch.cumsum(probs, dim=-1)
+            # smallest set whose mass >= top_p: keep while cum - p < p_i
+            keep = cum - probs < top_p
+            thresh = torch.where(keep, sl, -neg_inf).amin(dim=-1,
+                                                          keepdim=True)
+            l = torch.where(l >= thresh, l, neg_inf)
+        if min_p is not None:
+            # scale-invariant tail cutoff: keep p >= min_p * p_max
+            top = torch.where(torch.isfinite(l), l, neg_inf).amax(
+                dim=-1, keepdim=True)
+            l = torch.where(torch.exp(l - top) >= min_p, l, neg_inf)
+        u = torch.rand(l.shape, generator=gen, device=dev)
+        return torch.argmax(l - torch.log(-torch.log(u)), dim=-1)
+
+    # -- generation ------------------------------------------------------
+    def generate(self, input_ids: np.ndarray, n_new: int,
+                 return_logits: bool = False,
+                 temperature: float = 0.0,
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 sample_seed: int = 0,
+                 eos_id: Optional[int] = None,
+                 repetition_penalty: float = 1.0,
+                 min_p: Optional[float] = None,
+                 ) -> Tuple[np.ndarray, Optional[List[np.ndarray]]]:
+        """Decode n_new tokens. Greedy by default; temperature > 0 samples
+        (optionally top-k / top-p / min-p filtered). input_ids: [B,
+        prompt_len]. Returns (tokens [B, n_new], the logits of the prefill
+        and of every step as numpy arrays when return_logits, else None).
+
+        eos_id: rows that emit it are frozen (keep emitting eos_id) and
+        generation stops early once every row has finished.
+        repetition_penalty: CTRL-style penalty on already-seen tokens
+        (prompt + generated), applied on the device."""
+        B, P = tuple(input_ids.shape)
+        assert (B, P) == (self.batch, self.prompt_len)
+        assert P + n_new <= self.max_len
+        dev = self.device
+        use_pen = repetition_penalty != 1.0
+        ids = torch.as_tensor(input_ids, dtype=torch.int64, device=dev)
+        rows = torch.arange(B, device=dev)
+        seen = None
+        if use_pen:
+            seen = torch.zeros((B, self.cfg.vocab_size), dtype=torch.bool,
+                               device=dev)
+            seen[rows[:, None], ids] = True
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(sample_seed))
+
+        logits, cache = self.start(ids)
+        next_tok = self._select(logits[:, -1, :], gen, temperature, top_k,
+                                top_p, seen, repetition_penalty, min_p)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        if eos_id is not None:
+            done |= next_tok == eos_id
+        tokens = [next_tok]
+        all_logits = [logits.cpu().numpy()] if return_logits else None
+
+        for t in range(n_new - 1):
+            if eos_id is not None and not return_logits \
+                    and bool(done.all()):
+                break  # every row frozen; remaining output is eos padding
+            step_logits, cache = self.step(cache, next_tok, P + t)
+            if use_pen:
+                seen[rows, next_tok] = True
+            next_tok = self._select(step_logits[:, -1, :], gen, temperature,
+                                    top_k, top_p, seen, repetition_penalty,
+                                    min_p)
+            if eos_id is not None:
+                # frozen rows keep emitting eos
+                next_tok = torch.where(done, torch.full_like(next_tok,
+                                                             eos_id),
+                                       next_tok)
+                done |= next_tok == eos_id
+            tokens.append(next_tok)
+            if return_logits:
+                all_logits.append(step_logits.cpu().numpy())
+
+        out_toks = torch.stack(tokens, dim=1).cpu().numpy()
+        if eos_id is not None and out_toks.shape[1] < n_new:
+            pad = np.full((B, n_new - out_toks.shape[1]), eos_id,
+                          out_toks.dtype)
+            out_toks = np.concatenate([out_toks, pad], axis=1)
+        return out_toks, all_logits

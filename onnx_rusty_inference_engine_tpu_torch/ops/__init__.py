@@ -1,3 +1,3 @@
 """ONNX op emitters; importing this package fills the registry."""
 
-from . import quantized, standard  # noqa: F401
+from . import fused, quantized, standard  # noqa: F401

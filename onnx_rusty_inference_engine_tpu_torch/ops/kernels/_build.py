@@ -2,8 +2,9 @@
 
 Each source is compiled by `nvcc` for sm_90a into one shared library with a
 plain C interface, loaded with ctypes. The library lands in `build/kernels/`
-beside the package, in a directory keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+beside the package, in a directory keyed by a hash of the source, the
+shared headers (csrc/*.cuh) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 `build_all` starts one nvcc per source, all at once.
 """
 
@@ -22,7 +23,9 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 # kernel library name -> its source under csrc/
-SOURCES: Dict[str, str] = {"qconv_int8": "qconv_int8.cu"}
+SOURCES: Dict[str, str] = {"qconv_int8": "qconv_int8.cu",
+                           "qmatmul_int4": "qmatmul_int4.cu",
+                           "decode_attn": "decode_attn.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,8 +56,10 @@ def nvcc() -> str:
 def _target(name: str) -> str:
     src = os.path.join(CSRC_DIR, SOURCES[name])
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}",
                         f"lib{name}.so")

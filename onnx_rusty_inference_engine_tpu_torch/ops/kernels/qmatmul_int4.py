@@ -1,0 +1,172 @@
+"""Planar int4 weight-only matrix product, and the nibble-unpack probe.
+
+Hopper counterpart of the TPU kernel
+`onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul_int4.py::
+qmatmul_int4_planar` (Pallas body `_int4_mm_planar_kernel`). The CUDA
+source is `csrc/qmatmul_int4.cu`: the weights stay packed (uint8 nibble
+pairs) in device memory and are unpacked in registers by the shared device
+function in `csrc/nibble.cuh`; its source note says what bounds the kernel
+on the H100 and what the design does about that.
+
+`nibble_probe` runs that device function alone over a uint8 array: the
+port of `experiments/cast_probe.py::mk`, the TPU probe of the same unpack.
+
+Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
+(`*_plain`), and launches the kernel for a tensor on the card, or raises.
+`qmatmul_int4_planar.launches` and `nibble_probe.launches` count launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..standard import matmul_fp32_exact
+from . import _build
+
+__all__ = ["planar_layout", "qmatmul_int4_planar", "qmatmul_int4_planar_plain",
+           "nibble_probe", "nibble_probe_plain"]
+
+
+def planar_layout(K: int, block_size: int = 256) -> Tuple[int, int]:
+    """The planar pack/kernel layout contract for a [K, N] weight:
+    (nbh, bs) where bs is the per-half quant block width (block_size
+    shrunk by powers of 2 until it divides K//2) and nbh = (K//2) / bs is
+    the number of blocks per half. Scales are stored [2*nbh, N] k-major:
+    lo-half rows then hi-half rows."""
+    Kh = K // 2
+    bs = max(1, min(block_size, Kh))
+    while Kh % bs:
+        bs //= 2
+    return Kh // bs, bs
+
+
+def _unpack_planes(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """uint8 (e.g. [Nw, Kh]) -> the (lo, hi) nibble planes minus 8, as
+    exact floats of the same shape."""
+    p = packed.to(torch.int32)
+    return (((p & 0xF) - 8).to(torch.float32),
+            ((p >> 4) - 8).to(torch.float32))
+
+
+def qmatmul_int4_planar_plain(a: torch.Tensor, packed: torch.Tensor,
+                              scales: torch.Tensor, *, qblock: int = 256,
+                              n: Optional[int] = None) -> torch.Tensor:
+    """The TPU kernel's arithmetic: A rounded to bf16, each quant block's
+    dot in f32 (exact products, f32 sums), then acc + dlo * s_lo + dhi *
+    s_hi block after block. a f32 [M, K], packed uint8 [Nw, K/2], scales
+    f32 [2*nbh, Nw] -> f32 [M, n] (n defaults to Nw)."""
+    M, K = a.shape
+    Nw, Kh = packed.shape
+    nbh, bs = planar_layout(K, qblock)
+    ab = a.to(torch.bfloat16).to(torch.float32)
+    lo, hi = _unpack_planes(packed)
+    # [nbh, M, bs] @ [nbh, bs, Nw] -> per-block dots [nbh, M, Nw]
+    blocks = lambda x, rows: x.reshape(rows, nbh, bs).transpose(0, 1)  # noqa: E731
+    with matmul_fp32_exact():
+        dlo = torch.bmm(blocks(ab[:, :Kh], M), blocks(lo, Nw).transpose(1, 2))
+        dhi = torch.bmm(blocks(ab[:, Kh:], M), blocks(hi, Nw).transpose(1, 2))
+    s = scales.to(torch.float32)
+    acc = torch.zeros((M, Nw), dtype=torch.float32, device=a.device)
+    for t in range(nbh):
+        acc = acc + dlo[t] * s[t] + dhi[t] * s[nbh + t]
+    return acc if n is None else acc[:, :n]
+
+
+def _check(what: str, t: torch.Tensor, dtype: torch.dtype, dev) -> None:
+    if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"qmatmul_int4_planar: {what} wants contiguous "
+                         f"{dtype} on {dev}, got {t.dtype} on {t.device} "
+                         f"(contiguous={t.is_contiguous()})")
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(_build.load("qmatmul_int4"), name)
+    if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
+                        scales: torch.Tensor, *, qblock: int = 256,
+                        n: Optional[int] = None) -> torch.Tensor:
+    """Planar-packed int4 matmul: a f32 [M, K] @ the [K, N] weight that
+    `quant.pack_int4_planar(w, qblock)` packed into `packed` uint8 [Nw, K/2]
+    and `scales` f32 [2*nbh, Nw] -> f32 [M, n] (n <= Nw, default Nw)."""
+    if a.device.type == "cpu":
+        return qmatmul_int4_planar_plain(a, packed, scales, qblock=qblock,
+                                         n=n)
+    if a.device.type != "cuda":
+        raise ValueError(f"qmatmul_int4_planar: no kernel for {a.device}")
+    if a.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"qmatmul_int4_planar: want a [M,K], packed "
+                         f"[Nw,K/2], scales [2*nbh,Nw]; got {tuple(a.shape)}, "
+                         f"{tuple(packed.shape)}, {tuple(scales.shape)}")
+    M, K = a.shape
+    Nw, Kh = packed.shape
+    n = Nw if n is None else int(n)
+    nbh, bs = planar_layout(K, qblock)
+    if K % 2 or Kh != K // 2 or tuple(scales.shape) != (2 * nbh, Nw) \
+            or not 0 < n <= Nw:
+        raise ValueError(f"qmatmul_int4_planar: K={K}, packed "
+                         f"{tuple(packed.shape)}, scales "
+                         f"{tuple(scales.shape)}, n={n} do not fit the planar "
+                         f"layout (nbh={nbh}, bs={bs})")
+    if max(M, K, Nw) >= 2 ** 31:
+        raise ValueError(f"qmatmul_int4_planar: dims out of range {M, K, Nw}")
+    dev = a.device
+    _check("a", a, torch.float32, dev)
+    _check("packed", packed, torch.uint8, dev)
+    _check("scales", scales, torch.float32, dev)
+    out = torch.empty((M, n), dtype=torch.float32, device=dev)
+    fn = _fn("qmatmul_int4_planar_launch",
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                 out.data_ptr(), M, K, n, Nw, nbh, bs, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"qmatmul_int4_planar: launch failed with "
+                           f"cudaError {err}")
+    qmatmul_int4_planar.launches += 1
+    return out
+
+
+qmatmul_int4_planar.launches = 0
+
+
+def nibble_probe_plain(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """uint8 -> (low nibble - 8, high nibble - 8) as f32, elementwise."""
+    return _unpack_planes(p)
+
+
+def nibble_probe(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int4 kernels' in-register unpack (csrc/nibble.cuh) applied to
+    every byte of p: uint8 -> (lo, hi) f32, each of p's shape."""
+    if p.device.type == "cpu":
+        return nibble_probe_plain(p)
+    if p.device.type != "cuda":
+        raise ValueError(f"nibble_probe: no kernel for {p.device}")
+    if p.dtype != torch.uint8 or not p.is_contiguous():
+        raise ValueError(f"nibble_probe: want contiguous uint8, got {p.dtype} "
+                         f"(contiguous={p.is_contiguous()})")
+    lo = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    hi = torch.empty_like(lo)
+    fn = _fn("nibble_probe_launch", [ctypes.c_void_p] * 3
+             + [ctypes.c_longlong, ctypes.c_void_p])
+    with torch.cuda.device(p.device):
+        err = fn(p.data_ptr(), lo.data_ptr(), hi.data_ptr(), p.numel(),
+                 _stream(p.device))
+    if err != 0:
+        raise RuntimeError(f"nibble_probe: launch failed with cudaError {err}")
+    nibble_probe.launches += 1
+    return lo, hi
+
+
+nibble_probe.launches = 0

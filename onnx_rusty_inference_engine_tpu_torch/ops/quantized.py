@@ -1,14 +1,22 @@
-"""Quantized ONNX op emitters: QuantizeLinear / DequantizeLinear / QLinearConv.
+"""Quantized ONNX op emitters: QuantizeLinear / DequantizeLinear /
+QLinearConv / MatMulNBits.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/quantized.py
-for the INT8 SqueezeNet path. Requant math (ONNX QLinear convention):
-y = saturate(round(acc * (x_s * w_s / y_s)) + y_zp), rounding half to even.
+for the INT8 SqueezeNet path and the INT4 GPT-2 decode path. Requant math
+(ONNX QLinear convention): y = saturate(round(acc * (x_s * w_s / y_s)) +
+y_zp), rounding half to even.
 
 QLinearConv runs on the hand-written kernel (ops/kernels/qconv_int8.py) in
 the case the quantizer emits: 2-D, group 1, no dilation, int8 operands, and
 all three zero points statically 0. Every other QLinearConv raises
 UnsupportedOpError naming the case, on the CPU as on the card, so both
 devices run the same function.
+
+MatMulNBits in the planar layout (quant.quantize_weights_int4) runs on the
+int4 kernel (ops/kernels/qmatmul_int4.py) at every K and block size the
+quantizer gives: the JAX package's dense-dequant fallback for layouts its
+TPU kernel cannot tile is not needed on the card. The interleaved (ORT)
+layout raises until its kernel (ROADMAP 2.4) is ported.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 
 from ..graph import Node
 from .kernels.qconv_int8 import qconv_int8_requant
+from .kernels.qmatmul_int4 import qmatmul_int4_planar
 from .registry import LoweringContext, UnsupportedOpError, register
 from .standard import _conv_padding
 
@@ -115,3 +124,30 @@ def qlinear_conv(ctx: LoweringContext, node: Node, ins):
     return (qconv_int8_requant(x, w, mult, bias, stride=strides,
                                padding=padding,
                                packed=ctx.packed.get(node.inputs[3])),)
+
+
+# --------------------------------------------------------------------------
+# MatMulNBits (INT4 weight-only)
+# --------------------------------------------------------------------------
+@register("MatMulNBits", domain="com.microsoft")
+def matmul_nbits(ctx: LoweringContext, node: Node, ins):
+    """Weight-only INT4 matmul: activations stay floating, the packed
+    nibbles are unpacked and block-dequantized inside the kernel."""
+    a, packed, scales = ins[0], ins[1], ins[2]
+    K = int(node.attr("K"))
+    N = int(node.attr("N"))
+    if int(node.attr("bits", 4)) != 4:
+        raise UnsupportedOpError("MatMulNBits: only bits=4 supported")
+    layout = node.attr("layout", "")
+    if isinstance(layout, bytes):
+        layout = layout.decode()
+    if layout != "planar":
+        raise UnsupportedOpError(
+            f"MatMulNBits {node.name or node.outputs[0]!r}: the interleaved "
+            f"(ORT) int4 layout runs on kernel qmatmul_int4_bf16, which is "
+            f"not ported yet (ROADMAP 2.4)")
+    block = int(node.attr("block_size", K))
+    lead = a.shape[:-1]
+    out = qmatmul_int4_planar(a.reshape(-1, K).to(torch.float32).contiguous(),
+                              packed, scales, qblock=block, n=N)
+    return (out.reshape(*lead, N).to(a.dtype),)

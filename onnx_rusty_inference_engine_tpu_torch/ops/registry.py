@@ -80,3 +80,10 @@ class LoweringContext:
         if v is None:
             v = self.static_env.get(name)
         return v
+
+    def require_constant(self, name: str, what: str) -> np.ndarray:
+        v = self.constant(name)
+        if v is None:
+            raise UnsupportedOpError(
+                f"{what} must be known before the run (tensor {name!r})")
+        return v

@@ -1,25 +1,32 @@
 """fp32/generic ONNX op emitters -> PyTorch.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/standard.py,
-holding the emitters SqueezeNet 1.0 needs in fp32 and in its INT8 form:
-Conv, Relu, MaxPool, Concat, Dropout, GlobalAveragePool and Softmax. Each
-keeps the JAX emitter's semantics: NCHW layout, ONNX pads as (lo, hi) pairs
-applied explicitly (so asymmetric pads and ceil_mode follow the JAX
-package's arithmetic), opset < 13 Softmax flattening.
+holding the emitters SqueezeNet 1.0 needs in fp32 and in its INT8 form
+(Conv, Relu, MaxPool, Concat, Dropout, GlobalAveragePool, Softmax) and
+those the GPT-2 graphs need (the binary elementwise family, MatMul, Gelu,
+Where, Cast, Reshape, Transpose, Split, Gather, Identity,
+LayerNormalization). Each keeps the JAX emitter's semantics: NCHW layout,
+ONNX pads as (lo, hi) pairs applied explicitly (so asymmetric pads and
+ceil_mode follow the JAX package's arithmetic), opset < 13 Softmax
+flattening, Gather's wrap-and-clamp of indices.
 
-fp32 Conv runs in full fp32, as the JAX package's Precision.HIGHEST does:
-cuDNN's default TF32 is switched off around the call.
+fp32 Conv and MatMul run in full fp32, as the JAX package's
+Precision.HIGHEST does: TF32 (cuDNN's default for convs) is switched off
+around the call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..graph import Node
+from .. import onnx_io
+from ..graph import Node, _resolve_reshape
 from .registry import LoweringContext, UnsupportedOpError, register
 
 Padding = List[Tuple[int, int]]
@@ -80,6 +87,24 @@ def _fp32_exact():
     c = torch.backends.cudnn
     return c.flags(enabled=c.enabled, benchmark=c.benchmark,
                    deterministic=c.deterministic, allow_tf32=False)
+
+
+@contextlib.contextmanager
+def matmul_fp32_exact():
+    """CUDA matmul flags as they are, with TF32 off (fp32 matrix products
+    in full fp32), restored on exit."""
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = prev
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (bool, ints, floats)."""
+    return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
 
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -206,3 +231,141 @@ def softmax(ctx: LoweringContext, node: Node, ins):
         lead = math.prod(x.shape[:ax]) if ax else 1
         return (torch.softmax(x.reshape(lead, -1), dim=-1).reshape(x.shape),)
     return (torch.softmax(x, dim=axis),)
+
+
+# --------------------------------------------------------------------------
+# Matmul
+# --------------------------------------------------------------------------
+@register("MatMul")
+def matmul(ctx: LoweringContext, node: Node, ins):
+    a, b = ins
+    with matmul_fp32_exact():
+        return (torch.matmul(a, b),)
+
+
+# --------------------------------------------------------------------------
+# Elementwise (binary, with numpy broadcasting)
+# --------------------------------------------------------------------------
+def _binary(fn):
+    def emit(ctx, node, ins):
+        return (fn(ins[0], ins[1]),)
+    return emit
+
+
+register("Add")(_binary(torch.add))
+register("Sub")(_binary(torch.sub))
+register("Mul")(_binary(torch.mul))
+register("Div")(_binary(torch.true_divide))  # jnp.divide: true division
+register("Pow")(_binary(torch.pow))
+register("Equal")(_binary(torch.eq))
+register("Greater")(_binary(torch.gt))
+register("GreaterOrEqual")(_binary(torch.ge))
+register("Less")(_binary(torch.lt))
+register("LessOrEqual")(_binary(torch.le))
+register("And")(_binary(torch.logical_and))
+register("Or")(_binary(torch.logical_or))
+register("Xor")(_binary(torch.logical_xor))
+register("BitwiseAnd")(_binary(torch.bitwise_and))
+register("BitwiseOr")(_binary(torch.bitwise_or))
+
+
+# --------------------------------------------------------------------------
+# Elementwise (single input, and Where / Cast)
+# --------------------------------------------------------------------------
+@register("Gelu")
+def gelu(ctx: LoweringContext, node: Node, ins):
+    a = node.attr("approximate", "none")
+    if isinstance(a, bytes):  # wire-parsed string attrs arrive as bytes
+        a = a.decode()
+    return (F.gelu(ins[0], approximate="tanh" if a == "tanh" else "none"),)
+
+
+@register("Where")
+def where(ctx: LoweringContext, node: Node, ins):
+    return (torch.where(ins[0], ins[1], ins[2]),)
+
+
+@register("Cast")
+def cast(ctx: LoweringContext, node: Node, ins):
+    to = onnx_io.DTYPE_TO_NUMPY[int(node.attr("to"))]
+    return (ins[0].to(_torch_dtype(to)),)
+
+
+@register("Identity")
+def identity(ctx: LoweringContext, node: Node, ins):
+    return (ins[0],)
+
+
+@register("LayerNormalization")
+def layer_norm(ctx: LoweringContext, node: Node, ins):
+    x, scale = ins[0], ins[1]
+    bias = ins[2] if len(ins) > 2 else None
+    axis = int(node.attr("axis", -1))
+    eps = float(node.attr("epsilon", 1e-5))
+    dims = tuple(range(axis % x.dim(), x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = torch.square(x - mean).mean(dim=dims, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps) * scale
+    if bias is not None:
+        out = out + bias
+    return (out,)
+
+
+# --------------------------------------------------------------------------
+# Shape manipulation
+# --------------------------------------------------------------------------
+@register("Reshape")
+def reshape(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    shape = ctx.require_constant(node.inputs[1], "Reshape shape")
+    tgt = list(_resolve_reshape(x.shape, np.asarray(shape),
+                                allowzero=int(node.attr("allowzero", 0))))
+    # batch polymorphism, as the JAX emitter: exports bake the batch into
+    # Reshape targets; when the element counts disagree and the tail
+    # divides evenly, the leading dim follows the input
+    total = math.prod(x.shape)
+    if math.prod(tgt) != total and -1 not in tgt:
+        tail = math.prod(tgt[1:])
+        if tail > 0 and total % tail == 0:
+            tgt[0] = total // tail
+    return (x.reshape(tgt),)
+
+
+@register("Transpose")
+def transpose(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    perm = node.attr("perm", list(reversed(range(x.dim()))))
+    return (x.permute([int(p) for p in perm]),)
+
+
+@register("Split")
+def split(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    axis = int(node.attr("axis", 0))
+    # the `split` attribute is read at every opset, as the JAX emitter
+    # does (the GPT-2 builder writes it at opset 17)
+    sizes = node.attr("split")
+    if sizes is None and len(ins) > 1 and ins[1] is not None:
+        sizes = ctx.require_constant(node.inputs[1], "Split sizes").tolist()
+    n_out = len(node.outputs)
+    if sizes is None:
+        sizes = [x.shape[axis] // n_out] * n_out
+    return tuple(torch.split(x, [int(s) for s in sizes], dim=axis))
+
+
+def _wrap_indices(idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """ONNX negative-index wrap, then a clamp to [0, dim - 1]: an
+    out-of-range index (undefined per the spec) takes the edge row, as the
+    JAX emitter's mode="clip" does, instead of raising."""
+    idx = idx.to(torch.int64)
+    return torch.where(idx < 0, idx + dim, idx).clamp(0, dim - 1)
+
+
+@register("Gather")
+def gather(ctx: LoweringContext, node: Node, ins):
+    x, idx = ins
+    axis = int(node.attr("axis", 0)) % x.dim()
+    flat = _wrap_indices(idx, x.shape[axis]).reshape(-1)
+    out = torch.index_select(x, axis, flat)
+    return (out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
+                        + tuple(x.shape[axis + 1:])),)

@@ -14,8 +14,10 @@ Scheme
 - biases: int32 at scale x_scale * w_scale (ONNX convention);
 - compute: QLinearConv on the int8 kernel (ops/kernels/qconv_int8.py).
 
-Not ported yet: the "mse" calibration method, `bias_correct`, INT4
-weight-only and W8A8 quantization.
+INT4 weight-only (`pack_int4`, `pack_int4_planar`, `quantize_weights_int4`)
+is the JAX package's numpy, line for line, so both packages pack the same
+bytes and scales. Not ported yet: the "mse" calibration method,
+`bias_correct`, W8A8, the int4 KV cache, and int4 over a Scan body.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 from .engine import lower, resolve_device
 from .graph import Graph, Node, prune_dead, topo_sort
 
-__all__ = ["calibrate", "quantize_graph", "QuantConfig"]
+__all__ = ["calibrate", "quantize_graph", "QuantConfig", "pack_int4",
+           "pack_int4_planar", "quantize_weights_int4"]
 
 
 @dataclasses.dataclass
@@ -411,3 +414,121 @@ def quantize_graph(
     qgraph.nodes = topo_sort(qgraph.nodes, avail)
     prune_dead(qgraph)
     return qgraph
+
+
+# --------------------------------------------------------------------------
+# INT4 weight-only (GPT-2 north-star config: BASELINE.json configs[4])
+# --------------------------------------------------------------------------
+def pack_int4(w: np.ndarray, block_size: int = 256
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-block INT4 packing of a [K, N] matmul weight, in the
+    interleaved (ORT MatMulNBits) layout.
+
+    Returns (packed uint8 [N, K//2] -- two nibbles per byte, k-major, value
+    stored as q+8 in [0,15]; scales fp32 [N, K//block_size])."""
+    K, N = w.shape
+    assert K % 2 == 0, "K must be even for nibble packing"
+    bs = min(block_size, K)
+    while K % bs:
+        bs //= 2
+    n_blocks = K // bs
+    wt = np.ascontiguousarray(w.T)  # [N, K]
+    blocks = wt.reshape(N, n_blocks, bs)
+    amax = np.maximum(np.abs(blocks).max(axis=2), 1e-8)
+    scales = (amax / 7.0).astype(np.float32)  # [N, n_blocks]
+    q = np.clip(np.round(blocks / scales[:, :, None]), -8, 7).astype(np.int8)
+    q = q.reshape(N, K) + 8  # -> [0, 15]
+    packed = (q[:, 0::2] | (q[:, 1::2] << 4)).astype(np.uint8)  # [N, K//2]
+    return packed, scales
+
+
+def pack_int4_planar(w: np.ndarray, block_size: int = 256
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-block INT4 packing, PLANAR nibble layout: byte j holds
+    q[j] (lo nibble) and q[j + K/2] (hi nibble) -- the two nibble planes are
+    the contiguous halves of K. Each half is quantized with its own
+    per-block scales (blocks are runs of bs consecutive columns of K).
+
+    Returns (packed uint8 [N, K//2], scales fp32 [2*nbh, N] k-major -- the
+    lo-half block scales in rows [0, nbh), the hi half in [nbh, 2*nbh));
+    nbh = (K//2) / bs with bs = block_size shrunk by powers of two until
+    it divides K//2 (ops/kernels/qmatmul_int4.planar_layout)."""
+    from .ops.kernels.qmatmul_int4 import planar_layout
+
+    K, N = w.shape
+    assert K % 2 == 0, "K must be even for nibble packing"
+    Kh = K // 2
+    nbh, bs = planar_layout(K, block_size)
+    wt = np.ascontiguousarray(w.T)  # [N, K]
+    halves = wt.reshape(N, 2, nbh, bs)
+    amax = np.maximum(np.abs(halves).max(axis=3), 1e-8)  # [N, 2, nbh]
+    scales = (amax / 7.0).astype(np.float32)
+    q = np.clip(np.round(halves / scales[..., None]), -8, 7).astype(np.int8)
+    q = q.reshape(N, 2, Kh) + 8  # -> [0, 15]
+    packed = (q[:, 0] | (q[:, 1] << 4)).astype(np.uint8)  # [N, Kh]
+    return packed, np.ascontiguousarray(
+        scales.transpose(1, 2, 0).reshape(2 * nbh, N))
+
+
+def quantize_weights_int4(
+    graph: Graph,
+    min_elems: int = 4096,
+    block_size: int = 256,
+) -> Graph:
+    """Rewrite MatMul nodes with large constant 2-D weights into
+    MatMulNBits(bits=4, layout="planar") nodes (weight-only; activations
+    stay floating). Embedding Gathers and small weights are untouched."""
+    from .ops.kernels.qmatmul_int4 import planar_layout
+
+    new_nodes: List[Node] = []
+    consts = dict(graph.constants)
+    weights = list(graph.weight_names)
+    for node in graph.nodes:
+        if node.op_type == "Scan":
+            raise NotImplementedError(
+                "quantize_weights_int4: int4 weights inside a Scan body "
+                "(the scan_layers decode graph) are not ported yet: ROADMAP "
+                "1.5")
+        if node.op_type == "MatMul" and len(node.inputs) == 2:
+            w = consts.get(node.inputs[1])
+            if (w is not None and w.ndim == 2 and w.size >= min_elems
+                    and np.issubdtype(w.dtype, np.floating)
+                    and w.shape[0] % 2 == 0):
+                K, N = w.shape
+                packed, scales = pack_int4_planar(w.astype(np.float32),
+                                                  block_size)
+                # N pre-padded to a multiple of 256, as the JAX quantizer
+                # pads it for its TPU kernel's blocks: the graphs of the two
+                # packages stay equal (the kernel here writes only N columns)
+                n_pad = -(-N // 256) * 256 - N
+                if n_pad:
+                    packed = np.pad(packed, ((0, n_pad), (0, 0)))
+                    scales = np.pad(scales, ((0, 0), (0, n_pad)))
+                pname = f"{node.inputs[1]}__w4"
+                sname = f"{node.inputs[1]}__w4s"
+                consts[pname] = packed
+                consts[sname] = scales
+                weights.append(pname)
+                weights.append(sname)
+                new_nodes.append(Node(
+                    "MatMulNBits",
+                    [node.inputs[0], pname, sname],
+                    list(node.outputs),
+                    node.name,
+                    {"K": K, "N": N, "bits": 4, "layout": "planar",
+                     "block_size": planar_layout(K, block_size)[1]},
+                ))
+                continue
+        new_nodes.append(node)
+
+    g4 = Graph(
+        name=f"{graph.name}_w4",
+        nodes=new_nodes,
+        constants=consts,
+        inputs=graph.inputs,
+        outputs=list(graph.outputs),
+        opset=graph.opset,
+        weight_names=weights,
+    )
+    prune_dead(g4)
+    return g4

@@ -1,5 +1,5 @@
-"""The port's int8 kernel and engine on the card (marker `cuda`; each test
-skips without a CUDA device).
+"""The port's kernels, engine and generator on the card (marker `cuda`;
+each test skips without a CUDA device).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed. Run it on a card, without the suite's conftest.py
@@ -7,8 +7,11 @@ JAX is not installed. Run it on a card, without the suite's conftest.py
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
-The kernel must equal its plain version bit for bit: both sum int8
-products exactly in 32 bits, then apply the same fp32 epilogue.
+The int8 conv kernel must equal its plain version bit for bit: both sum
+int8 products exactly in 32 bits, then apply the same fp32 epilogue. The
+int4 and f32 attention kernels sum f32 in another order than their plain
+versions (1e-5 of max|out|); the int8 x int8 attention can move one
+quantized-probability step on a rounding tie (1e-2 of max|out|).
 """
 
 import numpy as np
@@ -20,7 +23,12 @@ from onnx_rusty_inference_engine_tpu_torch import (
 from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
 from onnx_rusty_inference_engine_tpu_torch.models._builder import (
     GraphBuilder)
+from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+from onnx_rusty_inference_engine_tpu_torch.ops.kernels import decode_attn as da
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qconv_int8 as k
+from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int4 as q4
+from onnx_rusty_inference_engine_tpu_torch.quant import pack_int4_planar
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +141,112 @@ def test_int8_engine_on_card_matches_cpu(cuda):
             assert torch.equal(card[name].cpu(), v), name
     err = float((card["prob"].cpu() - host["prob"]).abs().max())
     assert err <= 1e-5, err
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+# (M, K, N, block): M = 1; N = 130; K = 2 * bs * 3 at bs 128 and 64; an odd
+# half-K block (bs = 21, byte loads); a prefill-sized M
+INT4_CASES = {"m1_n130": (1, 768, 130, 256), "k_2bs3_bs64": (8, 384, 130, 64),
+              "m17_k3072": (17, 3072, 300, 256), "odd_bs21": (3, 42, 33, 256),
+              "m512": (512, 768, 1000, 256)}
+
+
+@pytest.mark.parametrize("case", list(INT4_CASES))
+def test_int4_kernel_matches_plain(cuda, case):
+    M, K, N, block = INT4_CASES[case]
+    rng = np.random.default_rng(M + K)
+    packed, scales = pack_int4_planar(
+        rng.standard_normal((K, N)).astype(np.float32), block)
+    Nw = -(-N // 256) * 256
+    packed = torch.from_numpy(np.pad(packed, ((0, Nw - N), (0, 0)))).to(cuda)
+    scales = torch.from_numpy(np.pad(scales, ((0, 0), (0, Nw - N)))).to(cuda)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(cuda)
+    before = q4.qmatmul_int4_planar.launches
+    got = q4.qmatmul_int4_planar(a, packed, scales, qblock=block, n=N)
+    torch.cuda.synchronize()
+    assert q4.qmatmul_int4_planar.launches == before + 1
+    want = q4.qmatmul_int4_planar_plain(a, packed, scales, qblock=block, n=N)
+    assert got.shape == want.shape == (M, N)
+    assert _rel_err(got, want) <= 1e-5
+
+
+# (B, H, Hkv, L, hd): GPT-2's decode shape, L not a multiple of 32 with GQA,
+# hd not a multiple of 4 (byte loads)
+ATTN_CASES = {"gpt2": (8, 12, 12, 256, 64), "gqa_l77": (2, 4, 2, 77, 64),
+              "gqa_hd10": (3, 6, 3, 50, 10)}
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attention_kernels_match_plain(cuda, case, mxu):
+    B, H, Hkv, L, hd = ATTN_CASES[case]
+    rng = np.random.default_rng(L)
+    q = torch.from_numpy((rng.standard_normal((B * H, 1, hd))
+                          / (127 * np.sqrt(hd))).astype(np.float32)).to(cuda)
+    k8, v8 = (torch.from_numpy(rng.integers(-127, 128, (B * Hkv, L, hd),
+                                            dtype=np.int8)).to(cuda)
+              for _ in range(2))
+    valid = np.arange(L)[None, :] < rng.integers(1, L + 1, (B, 1))
+    bias = torch.from_numpy(np.where(valid, 0.0, -1e9).astype(np.float32)
+                            [:, None, :]).to(cuda)
+    kern, plain, tol = ((da.decode_attention_int8_mxu,
+                         da.decode_attention_int8_mxu_plain, 1e-2) if mxu
+                        else (da.decode_attention_int8,
+                              da.decode_attention_int8_plain, 1e-5))
+    before = kern.launches
+    got = kern(q, k8, v8, bias, n_q_heads=H)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert _rel_err(got, plain(q, k8, v8, bias, n_q_heads=H)) <= tol
+
+
+def test_nibble_probe_on_card(cuda):
+    p = torch.from_numpy((np.arange(256 * 256).reshape(256, 256) % 251
+                          ).astype(np.uint8)).to(cuda)
+    lo, hi = q4.nibble_probe(p)
+    torch.cuda.synchronize()
+    plo, phi = q4.nibble_probe_plain(p)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+def test_kernels_refuse_cpu_operands_and_wrong_dtypes(cuda):
+    a = torch.zeros((2, 64), device=cuda)
+    packed = torch.zeros((256, 32), dtype=torch.uint8, device=cuda)
+    scales = torch.zeros((2, 256), device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        q4.qmatmul_int4_planar(a, packed, scales.cpu())
+    with pytest.raises(ValueError, match="a wants"):
+        q4.qmatmul_int4_planar(a.double(), packed, scales)
+    q = torch.zeros((4, 1, 8), device=cuda)
+    kv = torch.zeros((4, 6, 8), dtype=torch.int8, device=cuda)
+    bias = torch.zeros((1, 1, 6), device=cuda)
+    with pytest.raises(ValueError, match="k8"):
+        da.decode_attention_int8(q, kv.float(), kv, bias, n_q_heads=4)
+    with pytest.raises(ValueError, match="bias"):
+        da.decode_attention_int8_mxu(q, kv, kv, bias.cpu(), n_q_heads=4)
+
+
+def test_int4_int8kv_generator_on_card_matches_cpu(cuda):
+    """A TINY GPT-2 with INT4 weights, INT8 KV and fused attention: the
+    card's greedy tokens equal the CPU run's, every MatMulNBits and every
+    attention ran on its kernel."""
+    cfg = GPT2Config(vocab_size=256, n_positions=64, n_embd=64, n_layer=2,
+                     n_head=4)
+    kw = dict(batch=2, prompt_len=8, max_len=32, kv_dtype="int8",
+              int4_weights=True, fused_attention=True)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    n_new = 6
+    i4, at = q4.qmatmul_int4_planar.launches, da.decode_attention_int8.launches
+    card, card_logits = Generator(cfg, **kw).generate(ids, n_new,
+                                                      return_logits=True)
+    assert q4.qmatmul_int4_planar.launches - i4 == (4 * 2 + 1) * n_new
+    assert da.decode_attention_int8.launches - at == 2 * (n_new - 1)
+    host, host_logits = Generator(cfg, device="cpu", **kw).generate(
+        ids, n_new, return_logits=True)
+    np.testing.assert_array_equal(card, host)
+    for c, h in zip(card_logits, host_logits):
+        np.testing.assert_allclose(c, h, rtol=1e-4, atol=1e-4)
