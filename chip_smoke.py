@@ -52,7 +52,40 @@ Phases, each printing JSON lines:
              Kernel and library times are device times from a replayed
              CUDA graph of DEC_ITERS calls (ms_eager: the same calls issued
              from Python, host time included); plain times are eager.
-9. kernels - one line listing every ported kernel.
+9. bert    - BERT-base (30522 vocab, 12 layers, 12 heads of 64, hidden
+             768; random weights from seed 0) at B = 32, T = 128, with an
+             attention mask that pads each sequence after a random length
+             in 32-128: fp32 Engine; calibrate on the first 8 sequences (a
+             B = 8 build of the same seed: the graph bakes B into its
+             Reshape constants); quantize_graph; INT8 Engine. Counts set to
+             0 just before, read just after: 73 qmatmul_int8 launches per
+             INT8 forward (6 per layer + the pooler) and no other kernel.
+             The first 8 sequences re-run through the plain versions on the
+             CPU (a B = 8 build, quantized with the card's ranges): fp32
+             outputs within 1e-4 * max|out|; every QLinearMatMul, fed the
+             card's own int8 input, equal to the card's output bit for bit;
+             the INT8 outputs' mean |INT8 - fp32| on the card within 1.25x
+             the plain version's. Run free, the two devices' int8 values
+             part layer by layer (a requant tie that an fp32 island's
+             summation order moves one step cascades through the int8
+             q/k/v): their equal fractions are printed, not held. fp32 and
+             INT8 sequences/s from CUDA events.
+10. profile - one fp32 and one INT8 BERT forward under torch.profiler.
+11. kernel  - one line per distinct qmatmul_int8 shape of that run, on its
+             real operands: bit-equal to the plain version on the card;
+             kernel and library (torch._int_mm) times from a replayed CUDA
+             graph, the plain time, the card's bound.
+12. ort_decode - the GPT-2 decode path of phase 6 with every MatMul that
+             quantize_weights_int4 would take rewritten into the interleaved
+             ORT MatMulNBits form (quant.pack_int4, no `layout`), carried
+             as ONNX bytes into the Generator: 49 qmatmul_int4_bf16 launches
+             per prefill and per step, none planar; prefill + 4 steps
+             re-run through the plain versions on the CPU (logits within
+             1e-2 * max|logit|); tokens/s.
+13. kernel  - one line per distinct qmatmul_int4_bf16 shape (M = 8 step,
+             M = 512 prefill), within 1e-5 * max|out| of the plain version
+             on the card, timed as in phase 8.
+14. kernels - one line listing every ported kernel, one per TPU kernel.
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -90,10 +123,21 @@ DEC_ITERS = 50      # timed launches per decode kernel shape
 
 BF16_OPS_PER_S = 989e12
 
+# BERT-base INT8 encoder path
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_CALIB = 8      # calibration sequences
+BERT_CPU = 8        # sequences re-run through the plain versions on the CPU
+
 KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
     "qconv_int8_requant": (
         f"{PKG}/csrc/qconv_int8.cu",
         "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul.py:102"),
+    "qmatmul_int8": (
+        f"{PKG}/csrc/qmatmul_int8.cu",
+        "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul.py:58"),
+    "qmatmul_int4_bf16": (
+        f"{PKG}/csrc/qmatmul_int4.cu",
+        "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul_int4.py:75"),
     "qmatmul_int4_planar": (
         f"{PKG}/csrc/qmatmul_int4.cu",
         "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul_int4.py:200"),
@@ -128,9 +172,11 @@ def nvidia_smi() -> str:
 def _wrappers():
     """Every kernel wrapper, by kernel name; each counts its launches."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
-        decode_attn, qconv_int8, qmatmul_int4)
+        decode_attn, qconv_int8, qmatmul_int4, qmatmul_int8)
 
     return {"qconv_int8_requant": qconv_int8.qconv_int8_requant,
+            "qmatmul_int8": qmatmul_int8.qmatmul_int8,
+            "qmatmul_int4_bf16": qmatmul_int4.qmatmul_int4_bf16,
             "qmatmul_int4_planar": qmatmul_int4.qmatmul_int4_planar,
             "decode_attention_int8": decode_attn.decode_attention_int8,
             "decode_attention_int8_mxu":
@@ -344,7 +390,8 @@ _BUCKETS = (("qconv_int8_requant", "qconv_int8_requant (int8 conv)"),
             ("copy", "elementwise / copies"))
 
 
-def phase_profile(eng, eng8, feed, reps: int = 3) -> None:
+def phase_profile(eng, eng8, feed, reps: int = 3, *, model: str = "",
+                  batch: int = BATCH, buckets_by=_BUCKETS) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     dev_feed = {k: torch.as_tensor(v, device="cuda") for k, v in feed.items()}
@@ -369,12 +416,12 @@ def phase_profile(eng, eng8, feed, reps: int = 3) -> None:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / reps
         buckets = {}
         for kname, ms in kernels.items():
-            b = next((label for frag, label in _BUCKETS
+            b = next((label for frag, label in buckets_by
                       if frag in kname), "other")
             buckets[b] = buckets.get(b, 0.0) + ms
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-        emit({"phase": "profile", "engine": name, "batch": BATCH,
+        emit({"phase": "profile", "engine": f"{model}{name}", "batch": batch,
               "wall_ms_per_forward_profiled": wall_ms,
               "device_busy_ms_per_forward": busy,
               "device_idle_share": (1 - busy / wall_ms) if busy else None,
@@ -550,6 +597,34 @@ def _decode_tokens_per_s(gen, prompts) -> dict:
             "prefill_s_wall": pre_wall}
 
 
+def _plain_rerun(gen, prompts, toks):
+    """The prefill and the first CPU_STEPS steps of gen's main path through
+    the plain versions on the CPU, fed the card's tokens and KV scales:
+    (relative logit errors, greedy agreements) per pass; raises past
+    1e-2 * max|logit|."""
+    cpu = gen.to("cpu")
+    card_logits, card_cache = gen.start(prompts)
+    host_logits, host_cache = cpu.start(prompts)
+    require(bool(torch.isfinite(card_logits).all()), "finite prefill logits")
+    errs, agree = [], []
+
+    def compare(card_l, host_l, want_tok):
+        c, h = card_l[:, -1].cpu(), host_l[:, -1]
+        errs.append(float((c - h).abs().max() / h.abs().max()))
+        agree.append(float((h.argmax(-1).numpy() == want_tok).mean()))
+        require(bool((c.argmax(-1).numpy() == want_tok).all()),
+                "the card's teacher-forced step repeats its own tokens")
+
+    compare(card_logits, host_logits, toks[:, 0])
+    for t in range(CPU_STEPS):
+        tok = torch.from_numpy(toks[:, t])
+        card_l, card_cache = gen.step(card_cache, tok.cuda(), PROMPT + t)
+        host_l, host_cache = cpu.step(host_cache, tok, PROMPT + t)
+        compare(card_l, host_l, toks[:, t + 1])
+    require(max(errs) <= 1e-2, f"card vs plain logits: {errs}")
+    return errs, agree
+
+
 def phase_decode():
     from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 
@@ -579,33 +654,12 @@ def phase_decode():
     require(counts["decode_attention_int8"] == n_attn * steps,
             f"12 attention launches per step: {counts}")
     require(counts["decode_attention_int8_mxu"] == 0
-            and counts["qconv_int8_requant"] == 0, f"counts {counts}")
+            and counts["qconv_int8_requant"] == 0
+            and counts["qmatmul_int8"] == counts["qmatmul_int4_bf16"] == 0,
+            f"counts {counts}")
     require(toks.shape == (DEC_BATCH, NEW) and toks.min() >= 0
             and toks.max() < cfg.vocab_size, f"tokens {toks.shape}")
-
-    # the prefill and the first CPU_STEPS steps through the plain versions
-    # on the CPU, fed the card's tokens and KV scales
-    cpu = gen.to("cpu")
-    card_logits, card_cache = gen.start(prompts)
-    host_logits, host_cache = cpu.start(prompts)
-    require(bool(torch.isfinite(card_logits).all()), "finite prefill logits")
-    errs, agree = [], []
-
-    def compare(card_l, host_l, want_tok):
-        c, h = card_l[:, -1].cpu(), host_l[:, -1]
-        errs.append(float((c - h).abs().max() / h.abs().max()))
-        agree.append(float((h.argmax(-1).numpy() == want_tok).mean()))
-        require(bool((c.argmax(-1).numpy() == want_tok).all()),
-                "the card's teacher-forced step repeats its own tokens")
-
-    compare(card_logits, host_logits, toks[:, 0])
-    for t in range(CPU_STEPS):
-        tok = torch.from_numpy(toks[:, t])
-        card_l, card_cache = gen.step(card_cache, tok.cuda(), PROMPT + t)
-        host_l, host_cache = cpu.step(host_cache, tok, PROMPT + t)
-        compare(card_l, host_l, toks[:, t + 1])
-    del cpu, host_cache
-    require(max(errs) <= 1e-2, f"card vs plain logits: {errs}")
+    errs, agree = _plain_rerun(gen, prompts, toks)
 
     # the int8 x int8 attention path (ORIET_ATTN_I8), its own counts
     os.environ["ORIET_ATTN_I8"] = "1"
@@ -646,7 +700,7 @@ def phase_decode():
 
 
 # device kernel name fragment -> bucket, first match wins
-_DEC_BUCKETS = (("qmatmul_int4_planar", "qmatmul_int4_planar (int4 matmul)"),
+_DEC_BUCKETS = (("qmatmul_int4", "qmatmul_int4 (int4 matmul)"),
                 ("decode_attn", "decode attention"),
                 ("gemm", "other matmul"), ("softmax", "softmax"),
                 ("reduce", "reductions (LayerNorm)"),
@@ -702,16 +756,20 @@ def phase_decode_profile(gen, prompts, reps: int = 5) -> None:
           "top_kernels_ms": [[k[:90], v] for k, v in top]})
 
 
-def _int4_library(a, packed, scales, bs):
+def _int4_library(a, q, scales_k, bs):
     """(label, fn) of one PyTorch call computing the same int4 product:
     torch._weight_int4pack_mm (bf16, groupsize bs) where this PyTorch takes
-    the weight, else a bf16 matmul on the weight dequantized beforehand."""
-    p = packed.to(torch.int32)
-    q = torch.cat([p & 0xF, p >> 4], dim=1)            # [Nw, K], q + 8
+    the weight, else a bf16 matmul on the weight dequantized beforehand.
+    q: int32 [Nw, K], the weight's values + 8 in k order; scales_k: f32
+    [K/bs, Nw], the scale of each group of bs consecutive k. Nw is rounded
+    up to a multiple of 64 with zero columns, as the library packs whole
+    column tiles; the caller keeps the first N."""
+    pad = -q.shape[0] % 64
+    q = torch.nn.functional.pad(q, (0, 0, 0, pad), value=8)
+    scales_k = torch.nn.functional.pad(scales_k, (0, pad))
     ab = a.to(torch.bfloat16)
-    # the k-major planar scales are the groups of bs consecutive k in order
-    sz = torch.stack([scales.t(), torch.zeros_like(scales.t())], dim=-1)
-    sz = sz.transpose(0, 1).contiguous().to(torch.bfloat16)  # [K/bs, Nw, 2]
+    sz = torch.stack([scales_k, torch.zeros_like(scales_k)], dim=-1)
+    sz = sz.contiguous().to(torch.bfloat16)              # [K/bs, Nw, 2]
     for weight in ((q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8),  # >= 2.5
                    q):                                           # older
         for tiles in (8, 4, 2):
@@ -723,26 +781,27 @@ def _int4_library(a, packed, scales, bs):
             except Exception:  # this PyTorch takes another weight form
                 continue
             return ("torch._weight_int4pack_mm (bf16, groupsize bs, Nw "
-                    "columns)",
+                    "rounded up to 64 columns)",
                     lambda wp=wp: torch._weight_int4pack_mm(ab, wp, bs, sz))
-    scale_k = scales.t().repeat_interleave(bs, dim=1)      # [Nw, K]
+    scale_k = scales_k.t().repeat_interleave(bs, dim=1)    # [Nw, K]
     w = ((q - 8).float() * scale_k).t().contiguous().to(torch.bfloat16)
     return ("torch.matmul bf16 on the weight dequantized beforehand",
             lambda: torch.matmul(ab, w))
 
 
-def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
-    import torch.nn.functional as F
-
+def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
+    """The kernel lines of int4 kernel `name` (qmatmul_int4_planar or
+    qmatmul_int4_bf16, by the layout of gen's MatMulNBits weights): each
+    distinct (M, K, N) of the prefill (M = batch * prompt) and of a decode
+    step (M = batch), on the decode graph's own weights; and its row of the
+    kernels line, summed over one decode step."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
-        decode_attn as da, qmatmul_int4 as q4)
+        qmatmul_int4 as q4)
 
+    kern_fn, plain_fn = getattr(q4, name), getattr(q4, name + "_plain")
+    planar = name == "qmatmul_int4_planar"
     rng = np.random.default_rng(1)
     params = gen.decode.params
-    rows = []
-
-    # int4: each distinct (M, K, N) of the prefill (M = batch * prompt) and
-    # of a decode step (M = batch), on the decode graph's own weights
     shapes = {}
     for node in gen.decode.graph.nodes:
         if node.op_type != "MatMulNBits":
@@ -763,41 +822,51 @@ def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
     max_abs, max_rel = 0.0, 0.0
     passes = {"prefill": 1, "step": NEW - 1}  # of the main path
     require(sum(sh["count"] * passes[sh["phase"]] for sh in shapes.values())
-            == counts["qmatmul_int4_planar"],
-            "the int4 shapes account for every main-path launch")
+            == launches, f"the {name} shapes account for every main-path "
+            f"launch")
     for (M, K, N), sh in shapes.items():
         a = torch.from_numpy(rng.standard_normal((M, K)).astype(
             np.float32)).cuda()
         packed, scales, bs = sh["packed"], sh["scales"], sh["bs"]
-        Nw, nbh = packed.shape[0], scales.shape[0] // 2
+        Nw = packed.shape[0]
+        p = packed.to(torch.int32)
+        if planar:  # scales [2 * nbh, Nw], k-major
+            kw = {"qblock": bs, "n": N}
+            layout = {"bs": bs, "nbh": scales.shape[0] // 2}
+            q = torch.cat([p & 0xF, p >> 4], dim=1)
+            scales_k = scales
+        else:  # scales [Nw, nb], n-major
+            kw = {"n": N}
+            layout = {"qblock": bs, "nb": scales.shape[1]}
+            q = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(Nw, K)
+            scales_k = scales.t()
 
         def kern():
-            return q4.qmatmul_int4_planar(a, packed, scales, qblock=bs, n=N)
+            return kern_fn(a, packed, scales, **kw)
 
         def plain():
-            return q4.qmatmul_int4_planar_plain(a, packed, scales,
-                                                qblock=bs, n=N)
+            return plain_fn(a, packed, scales, **kw)
 
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
-        require(rel <= 1e-5, f"int4 kernel vs plain at M={M} K={K} N={N}: "
-                f"{rel}")
+        require(rel <= 1e-5, f"{name} vs plain at M={M} K={K} N={N}: {rel}")
         ms, ms_eager = graph_ms(kern, DEC_ITERS), cuda_ms(kern, DEC_ITERS)
         plain_ms = cuda_ms(plain, 3)
-        lib_label, lib = _int4_library(a, packed, scales, bs)
+        lib_label, lib = _int4_library(a, q, scales_k, bs)
         lib_out = lib()[:, :N].float()
         lib_rel = float((lib_out - want).abs().max() / want.abs().max())
         library_ms = graph_ms(lib, DEC_ITERS)
         ops = 2 * M * N * K
-        nbytes = M * K * 4 + N * K // 2 + 2 * nbh * N * 4 + M * N * 4
+        nbytes = (M * K * 4 + N * K // 2 + scales.numel() // Nw * N * 4
+                  + M * N * 4)
         bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
                                                      BF16_OPS_PER_S)
-        emit({"phase": "kernel", "kernel": "qmatmul_int4_planar",
+        emit({"phase": "kernel", "kernel": name,
               "node": sh["node"], "M": M, "K": K, "N": N, "Nw": Nw,
-              "bs": bs, "nbh": nbh, "where": sh["phase"],
+              **layout, "where": sh["phase"],
               "count_per_" + sh["phase"]: sh["count"],
               "launches": sh["count"] * passes[sh["phase"]],
               "max_abs_err": err, "max_rel_err": rel, "ms": ms,
@@ -813,10 +882,10 @@ def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
                          ("bound_ms", bound_ms), ("library_ms", library_ms),
                          ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
                 step[k] += n * v
-    source, replaces = KERNEL_ROWS["qmatmul_int4_planar"]
-    rows.append({
-        "name": "qmatmul_int4_planar", "route": "cuda", "source": source,
-        "replaces": replaces, "launches": counts["qmatmul_int4_planar"],
+    source, replaces = KERNEL_ROWS[name]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
         "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": step["ms"],
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": ("operations" if step["ops_ms"] >= step["bytes_ms"]
@@ -827,7 +896,18 @@ def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
                "are in the kernel lines. ms and library_ms are device times "
                "(CUDA-graph replay); plain_ms is eager. library_ms: the "
                "same sum of the library calls named in the kernel lines",
-        "distinct_shapes": len(shapes), "card": smi})
+        "distinct_shapes": len(shapes), "card": smi}
+
+
+def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
+    import torch.nn.functional as F
+
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        decode_attn as da)
+
+    rng = np.random.default_rng(1)
+    rows = [int4_kernel_row(gen, "qmatmul_int4_planar",
+                            counts["qmatmul_int4_planar"], smi)]
 
     # attention: the decode step's one shape, on the prefill's real cache
     _, cache = gen.start(prompts)
@@ -907,6 +987,373 @@ def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
     return rows
 
 
+# --------------------------------------------------------------------------
+# GPT-2 decode with ORT-layout (interleaved) int4 weights
+# --------------------------------------------------------------------------
+def ort_int4_weights(graph):
+    """`graph` with every MatMul that quant.quantize_weights_int4 would take
+    (at its defaults: at least 4096 weights, block 256) rewritten into the
+    form an ORT-quantized model carries: MatMulNBits(K, N, bits=4,
+    block_size) in domain com.microsoft with no `layout` attribute, fed
+    quant.pack_int4's interleaved packed [N, K/2] and scales [N, K/block].
+    Neither package's quantizer emits this form; the tests import it from
+    here."""
+    from onnx_rusty_inference_engine_tpu_torch.graph import (
+        Graph, Node, prune_dead)
+    from onnx_rusty_inference_engine_tpu_torch.quant import pack_int4
+
+    nodes, consts = [], dict(graph.constants)
+    weights = list(graph.weight_names)
+    for n in graph.nodes:
+        w = (consts.get(n.inputs[1])
+             if n.op_type == "MatMul" and len(n.inputs) == 2 else None)
+        if (w is None or w.ndim != 2 or w.size < 4096
+                or not np.issubdtype(w.dtype, np.floating) or w.shape[0] % 2):
+            nodes.append(n)
+            continue
+        K, N = w.shape
+        packed, scales = pack_int4(w.astype(np.float32), 256)
+        pname, sname = f"{n.inputs[1]}__w4", f"{n.inputs[1]}__w4s"
+        consts[pname], consts[sname] = packed, scales
+        weights += [pname, sname]
+        nodes.append(Node("MatMulNBits", [n.inputs[0], pname, sname],
+                          list(n.outputs), n.name,
+                          {"K": K, "N": N, "bits": 4,
+                           "block_size": K // scales.shape[1]},
+                          domain="com.microsoft"))
+    g = Graph(name=f"{graph.name}_ort4", nodes=nodes, constants=consts,
+              inputs=graph.inputs, outputs=list(graph.outputs),
+              opset=graph.opset, opsets=dict(graph.opsets),
+              weight_names=weights)
+    prune_dead(g)
+    return g
+
+
+def ort_int4_generator(gen):
+    """gen's prefill and decode graphs rewritten by ort_int4_weights,
+    exported and serialized to ONNX bytes, parsed and imported again, and
+    set as gen's engines: the path an ORT-quantized file takes. Returns the
+    two graphs' bytes."""
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+    from onnx_rusty_inference_engine_tpu_torch.graph import (
+        export_model, import_model)
+
+    blobs = [onnx_io.serialize_model(export_model(ort_int4_weights(g)))
+             for g in (gen.prefill.graph, gen.decode.graph)]
+    gen._engines(*(import_model(onnx_io.parse_model(b)) for b in blobs))
+    return blobs
+
+
+def phase_ort_decode():
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config()  # SMALL, as phase_decode
+    prompts = _gpt2_prompts(cfg)
+    t0 = time.perf_counter()
+    gen = _generator(cfg, kv_dtype="int8", fused_attention=True)
+    onnx_bytes = sum(map(len, ort_int4_generator(gen)))
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    per_graph = []
+    for g in (gen.prefill.graph, gen.decode.graph):
+        nbits = [n for n in g.nodes if n.op_type == "MatMulNBits"]
+        require(all("layout" not in n.attrs for n in nbits),
+                "ORT-form MatMulNBits carry no layout attribute")
+        per_graph.append(len(nbits))
+    n4_pre, n4_dec = per_graph
+    n_attn = sum(n.op_type == "FusedDecodeAttention"
+                 for n in gen.decode.graph.nodes)
+    require(n4_pre == n4_dec == 4 * cfg.n_layer + 1 and n_attn == cfg.n_layer,
+            f"49 MatMulNBits per graph and 12 fused attentions: {n4_pre}, "
+            f"{n4_dec}, {n_attn}")
+
+    # the main path
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, _ = gen.generate(prompts, NEW)
+    counts = read_counts()
+    main_s = time.perf_counter() - t0
+    steps = NEW - 1
+    require(counts["qmatmul_int4_bf16"] == n4_pre + n4_dec * steps,
+            f"49 interleaved int4 launches per prefill and per step: {counts}")
+    require(counts["decode_attention_int8"] == n_attn * steps,
+            f"12 attention launches per step: {counts}")
+    require(sum(counts.values()) == counts["qmatmul_int4_bf16"]
+            + counts["decode_attention_int8"],
+            f"no planar int4 or other kernel on this path: {counts}")
+    require(toks.shape == (DEC_BATCH, NEW) and toks.min() >= 0
+            and toks.max() < cfg.vocab_size, f"tokens {toks.shape}")
+    errs, agree = _plain_rerun(gen, prompts, toks)
+    emit({"phase": "ort_decode", "model": "gpt2 124M (SMALL, seed 0), "
+          "interleaved (ORT MatMulNBits) int4 weights, block 256",
+          "batch": DEC_BATCH, "prompt": PROMPT, "max_len": MAX_LEN,
+          "new_tokens": NEW, "build_s": build_s, "onnx_bytes": onnx_bytes,
+          "main_path_s": main_s, "launches": counts,
+          "int4_per_prefill": n4_pre, "int4_per_step": n4_dec,
+          "attention_per_step": n_attn,
+          "card_vs_plain_rel_err": errs, "plain_greedy_agreement": agree,
+          "decode_tokens_per_s": _decode_tokens_per_s(gen, prompts),
+          "tokens_row0": toks[0, :16].tolist()})
+    return gen, counts
+
+
+# --------------------------------------------------------------------------
+# BERT-base INT8 encoder
+# --------------------------------------------------------------------------
+OUTS = ("last_hidden_state", "pooler_output")
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _run_node_cpu(graph, node, x):
+    """One node of `graph` alone, fed x as its first input, through the
+    plain versions on the CPU: its first output."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.graph import Graph, InputSpec
+    from onnx_rusty_inference_engine_tpu_torch.weights import (
+        params_from_numpy)
+
+    one = Graph(name="one", nodes=[node], constants=graph.constants,
+                inputs=[InputSpec(node.inputs[0], tuple(x.shape), np.int8)],
+                outputs=[node.outputs[0]], opset=graph.opset,
+                weight_names=graph.weight_names)
+    params = params_from_numpy({k: graph.constants[k]
+                                for k in graph.weight_names
+                                if k in node.inputs}, "cpu")
+    with torch.no_grad():
+        return P.lower(one, "cpu")(params, {node.inputs[0]: x})[
+            node.outputs[0]]
+
+
+def _bert_feed(vocab: int) -> dict:
+    """Token ids, segment ids, and a mask that keeps each sequence for a
+    random length in T/4..T (32-128) and pads the rest."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (BERT_BATCH, BERT_SEQ))
+    seg = rng.integers(0, 2, (BERT_BATCH, BERT_SEQ))
+    keep = rng.integers(BERT_SEQ // 4, BERT_SEQ + 1, (BERT_BATCH, 1))
+    return {"input_ids": ids, "token_type_ids": seg,
+            "attention_mask": (np.arange(BERT_SEQ)[None] < keep).astype(
+                np.int64)}
+
+
+def phase_bert():
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+    from onnx_rusty_inference_engine_tpu_torch.models.bert import (
+        BASE, build_bert)
+    from onnx_rusty_inference_engine_tpu_torch.utils.timing import (
+        engine_throughput)
+
+    def graph_at(batch):  # the graph bakes B and T into its Reshapes
+        return P.import_model(build_bert(BASE, batch=batch, seq_len=BERT_SEQ,
+                                         seed=0))
+
+    def first(n):
+        return {k: v[:n] for k, v in feed.items()}
+
+    feed = _bert_feed(BASE.vocab_size)
+    t0 = time.perf_counter()
+    graph, calib_graph = graph_at(BERT_BATCH), graph_at(BERT_CALIB)
+    build_s = time.perf_counter() - t0
+
+    # the main path
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = P.Engine(graph)
+    y32 = eng(feed)
+    require(tuple(y32["last_hidden_state"].shape)
+            == (BERT_BATCH, BERT_SEQ, BASE.hidden)
+            and bool(torch.isfinite(y32["last_hidden_state"]).all()),
+            "fp32 last_hidden_state")
+    fp32_sps = engine_throughput(eng, feed, iters=ITERS, warmup=WARMUP)
+    ranges = P.calibrate(calib_graph, [first(BERT_CALIB)], method="minmax")
+    qgraph = P.quantize_graph(graph, ranges=ranges)
+    n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
+    require(n_qmm == 6 * BASE.n_layer + 1 == 73,
+            f"73 QLinearMatMul nodes in INT8 BERT-base, got {n_qmm}")
+    eng8 = P.Engine(qgraph)
+    y8 = eng8(feed)
+    counts = read_counts()
+    require(counts["qmatmul_int8"] == n_qmm,
+            f"one int8 GEMM launch per QLinearMatMul: {counts}")
+    for name, shape in (("last_hidden_state",
+                         (BERT_BATCH, BERT_SEQ, BASE.hidden)),
+                        ("pooler_output", (BERT_BATCH, BASE.hidden))):
+        require(tuple(y8[name].shape) == shape
+                and bool(torch.isfinite(y8[name]).all()), f"INT8 {name}")
+    int8_sps = engine_throughput(eng8, feed, iters=ITERS, warmup=WARMUP)
+    int8_forwards = 1 + WARMUP + ITERS
+    counts = read_counts()
+    main_s = time.perf_counter() - t0
+    launches = counts["qmatmul_int8"]
+    require(launches == n_qmm * int8_forwards,
+            f"{launches} launches for {int8_forwards} INT8 forwards")
+    require(sum(counts.values()) == launches,
+            f"only the int8 GEMM on BERT's path: {counts}")
+
+    # every QLinearMatMul's int8 input and output, and the model's outputs,
+    # on the card at B = 32 and through the plain versions on the CPU for
+    # the first BERT_CPU sequences (a B = BERT_CPU build, same ranges)
+    qmm = [n for n in qgraph.nodes if n.op_type == "QLinearMatMul"]
+    names = list(dict.fromkeys(
+        [t for n in qmm for t in (n.inputs[0], n.outputs[0])] + list(OUTS)))
+    with torch.no_grad():
+        card = P.lower(probe_graph(qgraph, names), eng8.device, eng8.packed)(
+            eng8.params, {k: torch.as_tensor(v, device=eng8.device)
+                          for k, v in feed.items()})
+        cpu_graph = graph_at(BERT_CPU)
+        qcpu = P.quantize_graph(cpu_graph, ranges=ranges)
+        host = P.Engine(probe_graph(qcpu, names), device="cpu")(
+            first(BERT_CPU))
+        host32 = P.Engine(cpu_graph, device="cpu")(first(BERT_CPU))
+
+    def rows(t):  # the first BERT_CPU sequences, on the CPU
+        return t[:BERT_CPU].cpu()
+
+    # (a) fp32: the card's fp32 islands against the plain versions
+    fp32_err = {k: _rel_err(rows(y32[k]), host32[k]) for k in OUTS}
+    # (b) each QLinearMatMul alone, fed the card's own int8 input: the plain
+    # version on the CPU gives the card's output bit for bit
+    differ = [n.name for n in qmm if not torch.equal(
+        _run_node_cpu(qcpu, n, rows(card[n.inputs[0]])),
+        rows(card[n.outputs[0]]))]
+    # (c) run free, the card's and the CPU's int8 values part, for
+    # information: an fp32 island (LayerNorm, Softmax, Gelu) sums in
+    # another order on each device, a value at a requant tie moves one
+    # step, and each such step in q / k / v reaches every position of its
+    # sequence in the next layer, so the steps multiply layer by layer
+    # (PERF.md)
+    fracs = [float((rows(card[n.outputs[0]]) == host[n.outputs[0]])
+                   .float().mean()) for n in qmm]
+    lsb = [int((rows(card[n.outputs[0]]).int() - host[n.outputs[0]].int())
+               .abs().max()) for n in qmm]
+    # (d) so the outputs are held to the INT8 model's own accuracy: the
+    # card's INT8 lies no farther from fp32 than the plain INT8 does
+    # (mean |INT8 - fp32| over the first BERT_CPU sequences, within 25%)
+    acc = {k: {"card": float((rows(y8[k]) - host32[k]).abs().mean()),
+               "plain": float((host[k] - host32[k]).abs().mean()),
+               "card_vs_plain_max_abs": float(
+                   (rows(card[k]) - host[k]).abs().max())} for k in OUTS}
+    emit({"phase": "bert", "model": "bert-base (BASE, seed 0)",
+          "batch": BERT_BATCH, "seq_len": BERT_SEQ,
+          "mask_lengths": [int(v) for v in feed["attention_mask"].sum(1)],
+          "build_s": build_s, "main_path_s": main_s,
+          "fp32_sequences_per_s": fp32_sps, "int8_sequences_per_s": int8_sps,
+          "int8_over_fp32": int8_sps / fp32_sps,
+          "qlinearmatmul_nodes": n_qmm, "int8_forwards": int8_forwards,
+          "launches": counts, "launches_per_int8_forward":
+              launches / int8_forwards,
+          "cpu_sequences": BERT_CPU, "fp32_card_vs_plain_rel_err": fp32_err,
+          "qlinearmatmul_card_vs_plain_on_card_inputs_differ": differ,
+          "int8_free_run_equal_fraction_by_node": fracs,
+          "int8_free_run_max_lsb_by_node": lsb,
+          "int8_mean_abs_err_vs_fp32": acc,
+          "int8_vs_fp32_card_b32": {
+              k: _rel_err(y8[k], y32[k]) for k in OUTS}})
+    require(max(fp32_err.values()) <= 1e-4, f"fp32 card vs plain: {fp32_err}")
+    require(not differ, f"QLinearMatMul card vs plain on the card's inputs: "
+            f"{differ}")
+    for k in OUTS:
+        require(acc[k]["card"] <= 1.25 * acc[k]["plain"],
+                f"INT8 {k}: mean |card - fp32| {acc[k]['card']} against "
+                f"the plain version's {acc[k]['plain']}")
+    return eng, eng8, qgraph, card, launches, feed
+
+
+# device kernel name fragment -> bucket, first match wins
+_BERT_BUCKETS = (("qmatmul_int8", "qmatmul_int8 (int8 GEMM)"),
+                 ("softmax", "softmax"), ("layer_norm", "LayerNorm"),
+                 ("gemm", "fp32 matmul (cuBLAS)"),
+                 ("sm90", "fp32 matmul (cuBLAS)"),
+                 ("xmma", "fp32 matmul (cuBLAS)"),
+                 ("cutlass", "fp32 matmul (cuBLAS)"),
+                 ("reduce", "reductions"), ("index", "gather / index"),
+                 ("elementwise", "elementwise / copies"),
+                 ("copy", "elementwise / copies"))
+
+
+def phase_bert_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qmatmul_int8 import (
+        qmatmul_int8, qmatmul_int8_plain)
+
+    n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
+    shapes = {}
+    for node in qgraph.nodes:
+        if node.op_type != "QLinearMatMul":
+            continue
+        a = card[node.inputs[0]]
+        b = eng8.params[node.inputs[3]]
+        key = (a.numel() // a.shape[-1], *b.shape)
+        if key in shapes:
+            shapes[key]["count"] += 1
+            continue
+        shapes[key] = {"node": node.name or node.outputs[0], "count": 1,
+                       "a": a.reshape(key[0], key[1]).contiguous(), "b": b,
+                       "packed": eng8.packed.get(node.inputs[3])}
+    require(sum(s["count"] for s in shapes.values()) == n_qmm,
+            "the shapes account for every QLinearMatMul")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "ops_ms": 0.0, "bytes_ms": 0.0}
+    for (M, K, N), s in shapes.items():
+        a, b, packed = s["a"], s["b"], s["packed"]
+        bt = b.t().contiguous()
+
+        def kern():
+            return qmatmul_int8(a, b, packed=packed)
+
+        def plain():
+            return qmatmul_int8_plain(a, b)
+
+        def library():  # int32 out, no epilogue: the same function
+            return torch._int_mm(a, bt.t())
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        require(torch.equal(got, want), f"qmatmul_int8 == plain at {s['node']}"
+                f" M={M} K={K} N={N} (max |diff| {err})")
+        library_equal = bool(torch.equal(library(), want))
+        ms, ms_eager = graph_ms(kern, ITERS), cuda_ms(kern, ITERS)
+        plain_ms = cuda_ms(plain, 3)
+        library_ms = graph_ms(library, ITERS)
+        ops = 2 * M * N * K
+        nbytes = M * K + K * N + 4 * M * N
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     INT8_OPS_PER_S)
+        emit({"phase": "kernel", "kernel": "qmatmul_int8", "node": s["node"],
+              "M": M, "K": K, "N": N, "count_per_forward": s["count"],
+              "launches": s["count"] * (launches // n_qmm), "equal": True,
+              "max_abs_err": err, "ms": ms, "ms_eager": ms_eager,
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "library": "torch._int_mm", "library_equal": library_equal,
+              "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+              "bytes": nbytes, "tops": ops / ms / 1e9,
+              "gb_per_s": nbytes / ms / 1e6})
+        n = s["count"]
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("library_ms", library_ms),
+                     ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+            tot[k] += n * v
+    require(launches > 0, "qmatmul_int8 launched on the main path")
+    source, replaces = KERNEL_ROWS["qmatmul_int8"]
+    return {
+        "name": "qmatmul_int8", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": 0,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                     else "bytes"),
+        "library_ms": tot["library_ms"],
+        "per": "one INT8 BERT-base forward at B = 32, T = 128: ms, plain_ms, "
+               "bound_ms and library_ms sum its 73 QLinearMatMuls; ms and "
+               "library_ms (torch._int_mm) are device times (CUDA-graph "
+               "replay), plain_ms eager",
+        "distinct_shapes": len(shapes), "card": smi}
+
+
 def phase_nibble(int4_launches: int, smi: str) -> dict:
     """The probe of experiments/cast_probe.py: its 256x256 arange % 251
     uint8 input through the int4 kernels' unpack, bit for bit."""
@@ -935,8 +1382,9 @@ def phase_nibble(int4_launches: int, smi: str) -> dict:
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "per": "the unpack device function (nibble.cuh) runs inlined in "
-                   "every qmatmul_int4_planar launch, so launches counts "
-                   "those on the main path; ms, plain_ms and bound_ms are "
+                   "every qmatmul_int4_planar and qmatmul_int4_bf16 launch, "
+                   "so launches counts those of both decode paths; ms, "
+                   "plain_ms and bound_ms are "
                    "the exported probe kernel's over cast_probe.py's "
                    "256x256 input (bit-equal). library_ms: no PyTorch call "
                    "unpacks nibbles",
@@ -966,7 +1414,21 @@ def main() -> int:
             phase_decode_profile(gen, prompts)
             rows += phase_decode_kernels(gen, prompts, counts, counts_i8,
                                          smi)
-            rows.append(phase_nibble(counts["qmatmul_int4_planar"], smi))
+            del gen
+            torch.cuda.empty_cache()
+            eng, eng8, qgraph, card, launches, feed = phase_bert()
+            phase_profile(eng, eng8, feed, model="bert-base ",
+                          batch=BERT_BATCH, buckets_by=_BERT_BUCKETS)
+            rows.insert(1, phase_bert_kernels(qgraph, eng8, card, launches,
+                                              smi))
+            del eng, eng8, card
+            torch.cuda.empty_cache()
+            gen_ort, counts_ort = phase_ort_decode()
+            rows.insert(2, int4_kernel_row(gen_ort, "qmatmul_int4_bf16",
+                                           counts_ort["qmatmul_int4_bf16"],
+                                           smi))
+            rows.append(phase_nibble(counts["qmatmul_int4_planar"]
+                                     + counts_ort["qmatmul_int4_bf16"], smi))
             emit({"kernels": rows})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

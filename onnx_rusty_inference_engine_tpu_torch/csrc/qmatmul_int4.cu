@@ -1,6 +1,7 @@
-// Planar int4 weight-only matrix product for Hopper (sm_90a).
+// int4 weight-only matrix products for Hopper (sm_90a), in the two nibble
+// layouts of the JAX package's TPU kernels.
 //
-// Replaces the TPU kernel onnx_rusty_inference_engine_tpu/ops/kernels/
+// Planar: replaces onnx_rusty_inference_engine_tpu/ops/kernels/
 // qmatmul_int4.py::qmatmul_int4_planar (body _int4_mm_planar_kernel).
 //
 //   A      f32 [M, K] activations, rounded to bf16 (round to nearest even)
@@ -14,9 +15,24 @@
 //          dlo_t = sum over block t of A[m, k] * q[n, k] (low half) and dhi_t
 //          the same over the high half, each accumulated in f32.
 //
+// Interleaved (the ORT MatMulNBits layout): replaces qmatmul_int4.py::
+// qmatmul_int4_bf16 (body _int4_mm_kernel).
+//
+//   packed uint8 [Nw, K/2]: byte j of row n = (q[n, 2j] + 8) | (q[n, 2j + 1] + 8) << 4
+//          (quant.pack_int4);
+//   scales f32 [Nw, nb], n-major: column t scales the quant block of
+//          qblock = K/nb consecutive k, i.e. qbh = qblock/2 bytes;
+//   out    f32 [M, N] = sum_t (deven_t + dodd_t) * s[n, t], where deven_t
+//          sums A[m, 2j] * LO[n, j] over the bytes j of block t and dodd_t
+//          A[m, 2j + 1] * HI[n, j], each in f32: the TPU kernel's
+//          A_even @ LO^T + A_odd @ HI^T per block, then its scale. The TPU
+//          wrapper's strided a[:, 0::2], a[:, 1::2] copies become a pair of
+//          loads per byte here.
+//
 // The weights stay packed in device memory; each byte is unpacked in
-// registers (nibble.cuh). Block t's dot is summed in f32, then scaled, as
-// the TPU kernel applies the scale to each block's dot result.
+// registers (nibble.cuh). Block t's dots are summed in f32, then scaled, as
+// the TPU kernels apply the scale to each block's dot result, and added with
+// __fmul_rn / __fadd_rn in the TPU kernels' order (no FMA contraction).
 //
 // What bounds it: at decode (M = 8) the product does 2*M*N*K operations over
 // N*K/2 weight bytes, 32 operations per byte, far below the H100's ~295 bf16
@@ -25,13 +41,13 @@
 // tensor-core rate, which this first version does not use: it multiplies
 // with f32 FMAs on the CUDA cores.
 //
-// Schedule: a block of 4 warps owns 32 output columns (one per lane) and 8
-// rows. Warp w takes quant blocks t = w, w + 4, ..., so a decode-sized
-// product still spreads its K over 4 warps (split-K inside the block); the
-// four partial sums are added in a fixed order at the end, so the result
-// does not depend on timing. Each warp stages 32 half-K bytes of its 32
-// weight rows and the matching bf16-rounded activations through shared
-// memory, then every lane unpacks its own row.
+// Schedule (both layouts): a block of 4 warps owns 32 output columns (one
+// per lane) and 8 rows. Warp w takes quant blocks t = w, w + 4, ..., so a
+// decode-sized product still spreads its K over 4 warps (split-K inside the
+// block); the four partial sums are added in a fixed order at the end, so
+// the result does not depend on timing. Each warp stages 32 half-K bytes of
+// its 32 weight rows and the matching bf16-rounded activations through
+// shared memory, then every lane unpacks its own row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,13 +74,15 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool kWordLoads>
+// nblk quant blocks of blk half-K bytes: (nbh, bs) planar, (nb, qbh)
+// interleaved.
+template <bool kInterleaved, bool kWordLoads>
 __global__ void __launch_bounds__(THREADS)
-qmatmul_int4_planar_kernel(const float* __restrict__ a,
-                           const uint8_t* __restrict__ packed,
-                           const float* __restrict__ scales,
-                           float* __restrict__ out, int M, int K, int N,
-                           int Nw, int nbh, int bs) {
+qmatmul_int4_kernel(const float* __restrict__ a,
+                    const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scales,
+                    float* __restrict__ out, int M, int K, int N, int Nw,
+                    int nblk, int blk) {
   __shared__ Staging stage[WARPS];
   __shared__ float red[WARPS][BM][BN];
 
@@ -81,24 +99,27 @@ qmatmul_int4_planar_kernel(const float* __restrict__ a,
 #pragma unroll
   for (int r = 0; r < BM; ++r) acc[r] = 0.f;
 
-  for (int t = warp; t < nbh; t += WARPS) {
+  for (int t = warp; t < nblk; t += WARPS) {
     float dlo[BM], dhi[BM];
 #pragma unroll
     for (int r = 0; r < BM; ++r) dlo[r] = dhi[r] = 0.f;
 
-    for (int c0 = 0; c0 < bs; c0 += CK) {
-      const int jn = min(CK, bs - c0);
-      const int k0 = t * bs + c0;  // half-K index of this step's first byte
+    for (int c0 = 0; c0 < blk; c0 += CK) {
+      const int jn = min(CK, blk - c0);
+      const int k0 = t * blk + c0;  // half-K index of this step's first byte
 
-      // activations: lane j loads k0 + j of each row, in both halves
+      // activations: lane j loads the pair that byte k0 + j multiplies:
+      // k0 + j in both halves (planar), 2(k0 + j) and 2(k0 + j) + 1
+      // (interleaved)
 #pragma unroll
       for (int r = 0; r < BM; ++r) {
         const int m = m0 + r;
         float lo = 0.f, hi = 0.f;
         if (lane < jn && m < M) {
           const float* row = a + static_cast<int64_t>(m) * K;
-          lo = bf16_round(row[k0 + lane]);
-          hi = bf16_round(row[Kh + k0 + lane]);
+          const int j = k0 + lane;
+          lo = bf16_round(row[kInterleaved ? 2 * j : j]);
+          hi = bf16_round(row[kInterleaved ? 2 * j + 1 : Kh + j]);
         }
         st.alo[lane][r] = lo;
         st.ahi[lane][r] = hi;
@@ -163,17 +184,24 @@ qmatmul_int4_planar_kernel(const float* __restrict__ a,
       __syncwarp();
     }
 
-    // acc + dlo * s_lo + dhi * s_hi, each step rounded (no FMA contraction),
-    // in the TPU kernel's order
-    float s_lo = 0.f, s_hi = 0.f;
-    if (n < N) {
-      s_lo = scales[static_cast<int64_t>(t) * Nw + n];
-      s_hi = scales[static_cast<int64_t>(nbh + t) * Nw + n];
-    }
+    // each step rounded (no FMA contraction), in the TPU kernels' order:
+    // planar acc + dlo * s_lo + dhi * s_hi, interleaved acc + (dlo + dhi) * s
+    if (kInterleaved) {
+      const float s = n < N ? scales[static_cast<int64_t>(n) * nblk + t] : 0.f;
 #pragma unroll
-    for (int r = 0; r < BM; ++r)
-      acc[r] = __fadd_rn(__fadd_rn(acc[r], __fmul_rn(dlo[r], s_lo)),
-                         __fmul_rn(dhi[r], s_hi));
+      for (int r = 0; r < BM; ++r)
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(__fadd_rn(dlo[r], dhi[r]), s));
+    } else {
+      float s_lo = 0.f, s_hi = 0.f;
+      if (n < N) {
+        s_lo = scales[static_cast<int64_t>(t) * Nw + n];
+        s_hi = scales[static_cast<int64_t>(nblk + t) * Nw + n];
+      }
+#pragma unroll
+      for (int r = 0; r < BM; ++r)
+        acc[r] = __fadd_rn(__fadd_rn(acc[r], __fmul_rn(dlo[r], s_lo)),
+                           __fmul_rn(dhi[r], s_hi));
+    }
   }
 
 #pragma unroll
@@ -200,6 +228,32 @@ __global__ void nibble_probe_kernel(const uint8_t* __restrict__ p,
   if (i < n) unpack_nibbles(p[i], lo[i], hi[i]);
 }
 
+template <bool kInterleaved>
+cudaError_t launch_int4(const void* a, const void* packed, const void* scales,
+                        void* out, int M, int K, int N, int Nw, int nblk,
+                        int blk, void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0 || K % 2 || nblk <= 0 || blk <= 0 || nblk * blk != K / 2 ||
+      N > Nw)
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM));
+  if (grid.y > 65535u) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool words = (K / 2) % 4 == 0 && blk % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(packed) % 4 == 0;
+  if (words)
+    qmatmul_int4_kernel<kInterleaved, true><<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(a), static_cast<const uint8_t*>(packed),
+        static_cast<const float*>(scales), static_cast<float*>(out), M, K, N,
+        Nw, nblk, blk);
+  else
+    qmatmul_int4_kernel<kInterleaved, false><<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(a), static_cast<const uint8_t*>(packed),
+        static_cast<const float*>(scales), static_cast<float*>(out), M, K, N,
+        Nw, nblk, blk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a: f32 [M, K]; packed: uint8 [Nw, K/2]; scales: f32 [2*nbh, Nw];
@@ -208,26 +262,18 @@ __global__ void nibble_probe_kernel(const uint8_t* __restrict__ p,
 extern "C" cudaError_t qmatmul_int4_planar_launch(
     const void* a, const void* packed, const void* scales, void* out, int M,
     int K, int N, int Nw, int nbh, int bs, void* stream) {
-  if (M <= 0 || N <= 0) return cudaSuccess;
-  if (K <= 0 || K % 2 || nbh <= 0 || bs <= 0 || nbh * bs != K / 2 ||
-      N > Nw)
-    return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM));
-  if (grid.y > 65535u) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool words = (K / 2) % 4 == 0 && bs % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(packed) % 4 == 0;
-  if (words)
-    qmatmul_int4_planar_kernel<true><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const uint8_t*>(packed),
-        static_cast<const float*>(scales), static_cast<float*>(out), M, K, N,
-        Nw, nbh, bs);
-  else
-    qmatmul_int4_planar_kernel<false><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const uint8_t*>(packed),
-        static_cast<const float*>(scales), static_cast<float*>(out), M, K, N,
-        Nw, nbh, bs);
-  return cudaGetLastError();
+  return launch_int4<false>(a, packed, scales, out, M, K, N, Nw, nbh, bs,
+                            stream);
+}
+
+// a: f32 [M, K]; packed: uint8 [Nw, K/2] (interleaved); scales: f32 [Nw, nb];
+// out: f32 [M, N] with N <= Nw. nb * qbh must equal K/2. Launches on
+// `stream` and returns the launch's error code.
+extern "C" cudaError_t qmatmul_int4_bf16_launch(
+    const void* a, const void* packed, const void* scales, void* out, int M,
+    int K, int N, int Nw, int nb, int qbh, void* stream) {
+  return launch_int4<true>(a, packed, scales, out, M, K, N, Nw, nb, qbh,
+                           stream);
 }
 
 // p: uint8 [n]; lo, hi: f32 [n] = the two nibbles of each byte, minus 8.

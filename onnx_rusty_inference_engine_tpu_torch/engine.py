@@ -24,8 +24,7 @@ import torch
 from .graph import _FOLDABLE, Graph, _fold_one, _shape_slice
 from . import ops  # noqa: F401  (importing ops fills the registry)
 from .ops.registry import LoweringContext, UnsupportedOpError, get_emitter
-from .weights import (as_device_tensor, params_from_numpy,
-                      prepack_qconv_weights)
+from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
 
 __all__ = ["lower", "Engine", "InferenceResult", "resolve_device"]
 
@@ -52,8 +51,9 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
 
     `params` carries the graph's weights; the other constants (scales, zero
     points, folded values) are moved to the device here, once. `packed`
-    holds the pre-packed QLinearConv weights the kernel reads on the card
-    (`weights.prepack_qconv_weights`; `Engine` makes them)."""
+    holds the pre-packed QLinearConv and QLinearMatMul weights the kernels
+    read on the card (`weights.prepack_int8_weights`; `Engine` makes
+    them)."""
     device = resolve_device(device)
     consts = params_from_numpy(
         {k: v for k, v in graph.constants.items()
@@ -160,7 +160,7 @@ class Engine:
         self.graph = graph
         self.params = params_from_numpy(
             {k: graph.constants[k] for k in graph.weight_names}, self.device)
-        self.packed = prepack_qconv_weights(graph, self.params)
+        self.packed = prepack_int8_weights(graph, self.params)
         self._fn = lower(graph, self.device, self.packed)
 
     def _canon_inputs(self, inputs) -> Dict[str, torch.Tensor]:

@@ -2,6 +2,7 @@
 
 from .squeezenet import build_squeezenet  # noqa: F401
 from .gpt2 import GPT2Config, build_gpt2, build_gpt2_decode  # noqa: F401
+from .bert import BertConfig, build_bert  # noqa: F401
 
 
 def decoder_family(name: str):

@@ -1,19 +1,24 @@
-"""Planar int4 weight-only matrix product, and the nibble-unpack probe.
+"""int4 weight-only matrix products, planar and interleaved, and the
+nibble-unpack probe.
 
-Hopper counterpart of the TPU kernel
-`onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul_int4.py::
-qmatmul_int4_planar` (Pallas body `_int4_mm_planar_kernel`). The CUDA
-source is `csrc/qmatmul_int4.cu`: the weights stay packed (uint8 nibble
-pairs) in device memory and are unpacked in registers by the shared device
-function in `csrc/nibble.cuh`; its source note says what bounds the kernel
-on the H100 and what the design does about that.
+Hopper counterparts of the TPU kernels in
+`onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul_int4.py`:
+`qmatmul_int4_planar` (Pallas body `_int4_mm_planar_kernel`; the layout of
+`quant.pack_int4_planar`) and `qmatmul_int4_bf16` (body `_int4_mm_kernel`;
+the interleaved ORT MatMulNBits layout of `quant.pack_int4`). The CUDA
+source of both is `csrc/qmatmul_int4.cu`, one kernel templated on the
+layout: the weights stay packed (uint8 nibble pairs) in device memory and
+are unpacked in registers by the shared device function in
+`csrc/nibble.cuh`; its source note says what bounds the kernel on the H100
+and what the design does about that.
 
 `nibble_probe` runs that device function alone over a uint8 array: the
 port of `experiments/cast_probe.py::mk`, the TPU probe of the same unpack.
 
 Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
 (`*_plain`), and launches the kernel for a tensor on the card, or raises.
-`qmatmul_int4_planar.launches` and `nibble_probe.launches` count launches.
+`qmatmul_int4_planar.launches`, `qmatmul_int4_bf16.launches` and
+`nibble_probe.launches` count launches.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..standard import matmul_fp32_exact
 from . import _build
 
 __all__ = ["planar_layout", "qmatmul_int4_planar", "qmatmul_int4_planar_plain",
+           "interleaved_layout", "qmatmul_int4_bf16", "qmatmul_int4_bf16_plain",
            "nibble_probe", "nibble_probe_plain"]
 
 
@@ -75,9 +81,50 @@ def qmatmul_int4_planar_plain(a: torch.Tensor, packed: torch.Tensor,
     return acc if n is None else acc[:, :n]
 
 
-def _check(what: str, t: torch.Tensor, dtype: torch.dtype, dev) -> None:
+def interleaved_layout(K: int, packed_cols: int, n_blocks: int) -> int:
+    """The interleaved layout's half-K bytes per quant block (qbh) for a
+    [K, N] weight packed into [Nw, packed_cols] bytes with scales
+    [Nw, n_blocks]; raises where no kernel block schedule fits: K odd, a
+    packed width other than K/2, or quant blocks that do not tile K in
+    whole bytes (an odd block splits a nibble pair between two scales)."""
+    if (K <= 0 or K % 2 or packed_cols != K // 2 or n_blocks <= 0
+            or K % n_blocks or (K // n_blocks) % 2):
+        raise ValueError(f"qmatmul_int4_bf16: K={K} with {packed_cols} "
+                         f"packed bytes per row and {n_blocks} quant blocks "
+                         f"is not an interleaved int4 layout")
+    return K // 2 // n_blocks
+
+
+def qmatmul_int4_bf16_plain(a: torch.Tensor, packed: torch.Tensor,
+                            scales: torch.Tensor, *,
+                            n: Optional[int] = None) -> torch.Tensor:
+    """The TPU kernel `_int4_mm_kernel`'s arithmetic: A rounded to bf16;
+    per quant block t the f32 dot of A's even lanes with the low nibbles
+    plus that of its odd lanes with the high nibbles (exact products, f32
+    sums); then acc + dot * s[:, t] block after block. a f32 [M, K], packed
+    uint8 [Nw, K/2], scales f32 [Nw, nb] -> f32 [M, n] (n defaults to Nw)."""
+    M, K = a.shape
+    Nw, Kh = packed.shape
+    nb = scales.shape[1]
+    qbh = interleaved_layout(K, Kh, nb)
+    ab = a.to(torch.bfloat16).to(torch.float32)
+    lo, hi = _unpack_planes(packed)
+    # [nb, M, qbh] @ [nb, qbh, Nw] -> per-block dots [nb, M, Nw]
+    blocks = lambda x, rows: x.reshape(rows, nb, qbh).transpose(0, 1)  # noqa: E731
+    with matmul_fp32_exact():
+        dlo = torch.bmm(blocks(ab[:, 0::2], M), blocks(lo, Nw).transpose(1, 2))
+        dhi = torch.bmm(blocks(ab[:, 1::2], M), blocks(hi, Nw).transpose(1, 2))
+    s = scales.to(torch.float32)
+    acc = torch.zeros((M, Nw), dtype=torch.float32, device=a.device)
+    for t in range(nb):
+        acc = acc + (dlo[t] + dhi[t]) * s[:, t]
+    return acc if n is None else acc[:, :n]
+
+
+def _check(fn: str, what: str, t: torch.Tensor, dtype: torch.dtype,
+           dev) -> None:
     if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"qmatmul_int4_planar: {what} wants contiguous "
+        raise ValueError(f"{fn}: {what} wants contiguous "
                          f"{dtype} on {dev}, got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
 
@@ -109,7 +156,7 @@ def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"qmatmul_int4_planar: want a [M,K], packed "
                          f"[Nw,K/2], scales [2*nbh,Nw]; got {tuple(a.shape)}, "
                          f"{tuple(packed.shape)}, {tuple(scales.shape)}")
-    M, K = a.shape
+    K = a.shape[1]
     Nw, Kh = packed.shape
     n = Nw if n is None else int(n)
     nbh, bs = planar_layout(K, qblock)
@@ -119,26 +166,67 @@ def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
                          f"{tuple(packed.shape)}, scales "
                          f"{tuple(scales.shape)}, n={n} do not fit the planar "
                          f"layout (nbh={nbh}, bs={bs})")
-    if max(M, K, Nw) >= 2 ** 31:
-        raise ValueError(f"qmatmul_int4_planar: dims out of range {M, K, Nw}")
-    dev = a.device
-    _check("a", a, torch.float32, dev)
-    _check("packed", packed, torch.uint8, dev)
-    _check("scales", scales, torch.float32, dev)
-    out = torch.empty((M, n), dtype=torch.float32, device=dev)
-    fn = _fn("qmatmul_int4_planar_launch",
-             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(), M, K, n, Nw, nbh, bs, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"qmatmul_int4_planar: launch failed with "
-                           f"cudaError {err}")
+    out = _launch("qmatmul_int4_planar", a, packed, scales, n, nbh, bs)
     qmatmul_int4_planar.launches += 1
     return out
 
 
 qmatmul_int4_planar.launches = 0
+
+
+def _launch(name: str, a: torch.Tensor, packed: torch.Tensor,
+            scales: torch.Tensor, n: int, nblk: int, blk: int
+            ) -> torch.Tensor:
+    """Check the operands and launch kernel `name` (its C entry point is
+    `name`_launch): out f32 [M, n]."""
+    M, K = a.shape
+    Nw = packed.shape[0]
+    if max(M, K, Nw) >= 2 ** 31:
+        raise ValueError(f"{name}: dims out of range {M, K, Nw}")
+    dev = a.device
+    _check(name, "a", a, torch.float32, dev)
+    _check(name, "packed", packed, torch.uint8, dev)
+    _check(name, "scales", scales, torch.float32, dev)
+    out = torch.empty((M, n), dtype=torch.float32, device=dev)
+    fn = _fn(f"{name}_launch",
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                 out.data_ptr(), M, K, n, Nw, nblk, blk, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+    return out
+
+
+def qmatmul_int4_bf16(a: torch.Tensor, packed: torch.Tensor,
+                      scales: torch.Tensor, *, n: Optional[int] = None
+                      ) -> torch.Tensor:
+    """Interleaved-packed int4 matmul: a f32 [M, K] @ the [K, N] weight that
+    `quant.pack_int4(w, qblock)` packed into `packed` uint8 [Nw, K/2] and
+    `scales` f32 [Nw, K/qblock] -> f32 [M, n] (n <= Nw, default Nw)."""
+    if a.device.type == "cpu":
+        return qmatmul_int4_bf16_plain(a, packed, scales, n=n)
+    if a.device.type != "cuda":
+        raise ValueError(f"qmatmul_int4_bf16: no kernel for {a.device}")
+    if a.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"qmatmul_int4_bf16: want a [M,K], packed "
+                         f"[Nw,K/2], scales [Nw,nb]; got {tuple(a.shape)}, "
+                         f"{tuple(packed.shape)}, {tuple(scales.shape)}")
+    K = a.shape[1]
+    Nw, Kh = packed.shape
+    nb = scales.shape[1]
+    qbh = interleaved_layout(K, Kh, nb)
+    n = Nw if n is None else int(n)
+    if scales.shape[0] != Nw or not 0 < n <= Nw:
+        raise ValueError(f"qmatmul_int4_bf16: packed {tuple(packed.shape)}, "
+                         f"scales {tuple(scales.shape)}, n={n} do not fit "
+                         f"the interleaved layout")
+    out = _launch("qmatmul_int4_bf16", a, packed, scales, n, nb, qbh)
+    qmatmul_int4_bf16.launches += 1
+    return out
+
+
+qmatmul_int4_bf16.launches = 0
 
 
 def nibble_probe_plain(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,22 +1,27 @@
 """Quantized ONNX op emitters: QuantizeLinear / DequantizeLinear /
-QLinearConv / MatMulNBits.
+QLinearConv / QLinearMatMul / MatMulNBits.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/quantized.py
-for the INT8 SqueezeNet path and the INT4 GPT-2 decode path. Requant math
-(ONNX QLinear convention): y = saturate(round(acc * (x_s * w_s / y_s)) +
-y_zp), rounding half to even.
+for the INT8 SqueezeNet and BERT paths and the INT4 GPT-2 decode paths.
+Requant math (ONNX QLinear convention): y = saturate(round(acc * (x_s *
+w_s / y_s)) + y_zp), rounding half to even.
 
 QLinearConv runs on the hand-written kernel (ops/kernels/qconv_int8.py) in
 the case the quantizer emits: 2-D, group 1, no dilation, int8 operands, and
-all three zero points statically 0. Every other QLinearConv raises
-UnsupportedOpError naming the case, on the CPU as on the card, so both
-devices run the same function.
+all three zero points statically 0. QLinearMatMul runs its int8 x int8 ->
+int32 product on the kernel of ops/kernels/qmatmul_int8.py for int8
+operands, a 2-D b, an a of any rank and both input zero points statically
+0; the bias add and the requant stay in PyTorch, in the JAX emitter's
+order. Every other QLinearConv or QLinearMatMul raises UnsupportedOpError
+naming the case, on the CPU as on the card, so both devices run the same
+function.
 
-MatMulNBits in the planar layout (quant.quantize_weights_int4) runs on the
-int4 kernel (ops/kernels/qmatmul_int4.py) at every K and block size the
-quantizer gives: the JAX package's dense-dequant fallback for layouts its
-TPU kernel cannot tile is not needed on the card. The interleaved (ORT)
-layout raises until its kernel (ROADMAP 2.4) is ported.
+MatMulNBits runs on the int4 kernels (ops/kernels/qmatmul_int4.py) in both
+nibble layouts: planar (quant.quantize_weights_int4) at every K and block
+size the quantizer gives, and the interleaved ORT layout of quant.pack_int4
+(packed [N, K/2], scales [N, K/block]) at every even K and every even block
+that divides it. The JAX package's dense-dequant fallbacks, for layouts its
+TPU kernels cannot tile, are not needed on the card.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ import torch
 
 from ..graph import Node
 from .kernels.qconv_int8 import qconv_int8_requant
-from .kernels.qmatmul_int4 import qmatmul_int4_planar
+from .kernels.qmatmul_int4 import (interleaved_layout, qmatmul_int4_bf16,
+                                   qmatmul_int4_planar)
+from .kernels.qmatmul_int8 import qmatmul_int8
 from .registry import LoweringContext, UnsupportedOpError, register
 from .standard import _conv_padding
 
@@ -127,6 +134,56 @@ def qlinear_conv(ctx: LoweringContext, node: Node, ins):
 
 
 # --------------------------------------------------------------------------
+# QLinearMatMul
+# --------------------------------------------------------------------------
+def _requant(acc: torch.Tensor, mult: torch.Tensor,
+             y_zp: Optional[torch.Tensor]) -> torch.Tensor:
+    """The JAX emitter's `_requant`: acc as f32 * mult, round half to even,
+    + y_zp, saturate to int8."""
+    y = torch.round(acc.to(torch.float32) * mult)
+    if y_zp is not None:
+        y = y + y_zp.to(torch.float32)
+    return y.clamp(-128, 127).to(torch.int8)
+
+
+def _unsupported_qmatmul(ctx: LoweringContext, node: Node, a,
+                         b) -> Optional[str]:
+    """Why the kernel cannot run this QLinearMatMul, or None."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        return f"{a.dtype} x {b.dtype} operands (the kernel takes int8)"
+    if b.dim() != 2:
+        return f"a {b.dim()}-D b (the kernel takes a 2-D weight)"
+    for idx, what in ((2, "a"), (5, "b")):
+        if not _static_zp_is_zero(ctx, node.inputs[idx]):
+            return (f"{what}_zero_point is not a constant 0 (asymmetric "
+                    f"quantization is not ported)")
+    return None
+
+
+@register("QLinearMatMul")
+def qlinear_matmul(ctx: LoweringContext, node: Node, ins):
+    (a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp) = ins[:8]
+    bias = ins[8] if len(ins) > 8 else None
+    why = _unsupported_qmatmul(ctx, node, a, b)
+    if why is not None:
+        raise UnsupportedOpError(
+            f"QLinearMatMul {node.name or node.outputs[0]!r}: {why}")
+    K, N = b.shape
+    # the leading dims of a flattened: the product jnp.matmul computes
+    acc = qmatmul_int8(a.reshape(-1, K).contiguous(), b,
+                       packed=ctx.packed.get(node.inputs[3]))
+    acc = acc.reshape(*a.shape[:-1], N)
+    if bias is not None:
+        acc = acc + bias
+    # in fp32 and in the JAX emitter's order, from tensors on the device (a
+    # true division: a CPU scalar divisor becomes a reciprocal multiply on
+    # the card); a 1-D b_s is per output column, broadcast over the last dim
+    mult = (a_s.to(torch.float32) * b_s.to(torch.float32)
+            / y_s.to(torch.float32))
+    return (_requant(acc, mult, y_zp),)
+
+
+# --------------------------------------------------------------------------
 # MatMulNBits (INT4 weight-only)
 # --------------------------------------------------------------------------
 @register("MatMulNBits", domain="com.microsoft")
@@ -141,13 +198,23 @@ def matmul_nbits(ctx: LoweringContext, node: Node, ins):
     layout = node.attr("layout", "")
     if isinstance(layout, bytes):
         layout = layout.decode()
-    if layout != "planar":
-        raise UnsupportedOpError(
-            f"MatMulNBits {node.name or node.outputs[0]!r}: the interleaved "
-            f"(ORT) int4 layout runs on kernel qmatmul_int4_bf16, which is "
-            f"not ported yet (ROADMAP 2.4)")
-    block = int(node.attr("block_size", K))
     lead = a.shape[:-1]
-    out = qmatmul_int4_planar(a.reshape(-1, K).to(torch.float32).contiguous(),
-                              packed, scales, qblock=block, n=N)
+    a2 = a.reshape(-1, K).to(torch.float32).contiguous()
+    if layout == "planar":
+        out = qmatmul_int4_planar(a2, packed, scales,
+                                  qblock=int(node.attr("block_size", K)), n=N)
+        return (out.reshape(*lead, N).to(a.dtype),)
+    # interleaved (ORT): quant.pack_int4's packed [Nw, K/2], scales [Nw, nb]
+    if packed.dim() != 2 or scales.dim() != 2:
+        raise UnsupportedOpError(
+            f"MatMulNBits {node.name or node.outputs[0]!r}: packed "
+            f"{tuple(packed.shape)}, scales {tuple(scales.shape)}; the port "
+            f"takes the 2-D [N, K/2] form of quant.pack_int4 (ORT's 3-D "
+            f"[N, blocks, blob] form is not ported)")
+    try:
+        interleaved_layout(K, packed.shape[1], scales.shape[1])
+    except ValueError as e:
+        raise UnsupportedOpError(
+            f"MatMulNBits {node.name or node.outputs[0]!r}: {e}") from None
+    out = qmatmul_int4_bf16(a2, packed, scales, n=N)
     return (out.reshape(*lead, N).to(a.dtype),)

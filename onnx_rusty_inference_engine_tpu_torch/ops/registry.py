@@ -63,8 +63,9 @@ def supported_ops():
 class LoweringContext:
     """Context handed to emitters: graph constants, opset, the value env,
     values known before the run (`static_env`: Shape of a tensor, and
-    foldable arithmetic on such values), and the pre-packed QLinearConv
-    weights (`packed`, weight name -> kernel layout; see weights.py)."""
+    foldable arithmetic on such values), and the pre-packed QLinearConv and
+    QLinearMatMul weights (`packed`, weight name -> kernel layout; see
+    weights.py)."""
 
     def __init__(self, graph: Graph, env: dict,
                  packed: Optional[Dict[str, torch.Tensor]] = None):

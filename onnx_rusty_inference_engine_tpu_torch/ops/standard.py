@@ -2,10 +2,10 @@
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/standard.py,
 holding the emitters SqueezeNet 1.0 needs in fp32 and in its INT8 form
-(Conv, Relu, MaxPool, Concat, Dropout, GlobalAveragePool, Softmax) and
-those the GPT-2 graphs need (the binary elementwise family, MatMul, Gelu,
-Where, Cast, Reshape, Transpose, Split, Gather, Identity,
-LayerNormalization). Each keeps the JAX emitter's semantics: NCHW layout,
+(Conv, Relu, MaxPool, Concat, Dropout, GlobalAveragePool, Softmax), those
+the GPT-2 graphs need (the binary elementwise family, MatMul, Gelu, Where,
+Cast, Reshape, Transpose, Split, Gather, Identity, LayerNormalization) and
+those BERT adds (Tanh, Slice). Each keeps the JAX emitter's semantics: NCHW layout,
 ONNX pads as (lo, hi) pairs applied explicitly (so asymmetric pads and
 ceil_mode follow the JAX package's arithmetic), opset < 13 Softmax
 flattening, Gather's wrap-and-clamp of indices.
@@ -272,6 +272,15 @@ register("BitwiseOr")(_binary(torch.bitwise_or))
 # --------------------------------------------------------------------------
 # Elementwise (single input, and Where / Cast)
 # --------------------------------------------------------------------------
+def _unary(fn):
+    def emit(ctx, node, ins):
+        return (fn(ins[0]),)
+    return emit
+
+
+register("Tanh")(_unary(torch.tanh))
+
+
 @register("Gelu")
 def gelu(ctx: LoweringContext, node: Node, ins):
     a = node.attr("approximate", "none")
@@ -329,6 +338,38 @@ def reshape(ctx: LoweringContext, node: Node, ins):
         if tail > 0 and total % tail == 0:
             tgt[0] = total // tail
     return (x.reshape(tgt),)
+
+
+@register("Slice")
+def slice_op(ctx: LoweringContext, node: Node, ins):
+    """Constant starts / ends / axes / steps: operands from opset 10 on, the
+    starts / ends / axes attributes before. Python slice semantics, as the
+    JAX emitter indexes with Python slices: negative bounds count from the
+    end, out-of-range ends clamp, and a negative step walks backwards."""
+    x = ins[0]
+    if ctx.opset >= 10 or len(node.inputs) > 1:
+        starts = ctx.require_constant(node.inputs[1], "Slice starts").tolist()
+        ends = ctx.require_constant(node.inputs[2], "Slice ends").tolist()
+        axes = (ctx.require_constant(node.inputs[3], "Slice axes").tolist()
+                if len(node.inputs) > 3 and node.inputs[3]
+                else list(range(len(starts))))
+        steps = (ctx.require_constant(node.inputs[4], "Slice steps").tolist()
+                 if len(node.inputs) > 4 and node.inputs[4]
+                 else [1] * len(starts))
+    else:
+        starts = [int(v) for v in node.attr("starts")]
+        ends = [int(v) for v in node.attr("ends")]
+        axes = [int(v) for v in (node.attr("axes") or range(len(starts)))]
+        steps = [1] * len(starts)
+    for ax, st, en, sp in zip(axes, starts, ends, steps):
+        ax = int(ax) % x.dim()
+        lo, hi, step = slice(int(st), int(en), int(sp)).indices(x.shape[ax])
+        if step > 0:
+            x = x[(slice(None),) * ax + (slice(lo, hi, step),)]
+        else:  # PyTorch slices take no negative step: gather the indices
+            x = torch.index_select(x, ax, torch.arange(
+                lo, hi, step, dtype=torch.int64, device=x.device))
+    return (x,)
 
 
 @register("Transpose")

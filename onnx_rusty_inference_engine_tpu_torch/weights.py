@@ -2,9 +2,9 @@
 
 The JAX package keeps weights as numpy `graph.constants` and lets jit place
 them; here they become torch tensors on the engine's device once, at
-`Engine` build, and the QLinearConv weights are also re-laid once into the
-layout the int8 kernel reads (the JAX package re-lays them inside jit on
-every call, ops/kernels/qmatmul.py:172).
+`Engine` build, and the QLinearConv and QLinearMatMul weights are also
+re-laid once into the layouts their int8 kernels read (the JAX package
+re-lays conv weights inside jit on every call, ops/kernels/qmatmul.py:172).
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ import torch
 
 from .graph import Graph
 from .ops.kernels.qconv_int8 import pack_qconv_weight
+from .ops.kernels.qmatmul_int8 import pack_qmatmul_weight
 
-__all__ = ["as_device_tensor", "params_from_numpy", "prepack_qconv_weights"]
+__all__ = ["as_device_tensor", "params_from_numpy", "prepack_int8_weights"]
 
 
 def as_device_tensor(v, device) -> torch.Tensor:
@@ -47,19 +48,26 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray],
     return out
 
 
-def prepack_qconv_weights(graph: Graph, params: Mapping[str, torch.Tensor]
-                          ) -> Dict[str, torch.Tensor]:
-    """Weight name -> kernel layout (`pack_qconv_weight`) for every
-    QLinearConv whose 4-D int8 weight sits in `params` on a CUDA device. On
-    the CPU the plain version reads the weight as it is, and nothing is
-    packed."""
+# op -> (the rank of its int8 weight, input 3, and the kernel's layout of it)
+_INT8_PACKERS = {"QLinearConv": (4, pack_qconv_weight),
+                 "QLinearMatMul": (2, pack_qmatmul_weight)}
+
+
+def prepack_int8_weights(graph: Graph, params: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """Weight name -> kernel layout (`pack_qconv_weight`,
+    `pack_qmatmul_weight`) for every QLinearConv and QLinearMatMul whose
+    int8 weight, 4-D and 2-D respectively, sits in `params` on a CUDA
+    device. On the CPU the plain versions read the weights as they are,
+    and nothing is packed."""
     packed: Dict[str, torch.Tensor] = {}
     for node in graph.nodes:
-        if node.op_type != "QLinearConv" or len(node.inputs) < 4:
+        if node.op_type not in _INT8_PACKERS or len(node.inputs) < 4:
             continue
+        rank, pack = _INT8_PACKERS[node.op_type]
         w = params.get(node.inputs[3])
         if (w is not None and w.device.type == "cuda"
-                and w.dtype == torch.int8 and w.dim() == 4
+                and w.dtype == torch.int8 and w.dim() == rank
                 and node.inputs[3] not in packed):
-            packed[node.inputs[3]] = pack_qconv_weight(w)
+            packed[node.inputs[3]] = pack(w)
     return packed

@@ -11,7 +11,16 @@ The int8 conv kernel must equal its plain version bit for bit: both sum
 int8 products exactly in 32 bits, then apply the same fp32 epilogue. The
 int4 and f32 attention kernels sum f32 in another order than their plain
 versions (1e-5 of max|out|); the int8 x int8 attention can move one
-quantized-probability step on a rounding tie (1e-2 of max|out|).
+quantized-probability step on a rounding tie (1e-2 of max|out|). The int8
+GEMM (QLinearMatMul) is exact, so it equals its plain version bit for bit.
+
+Whole models on the card against the CPU (12 layers at small widths, so
+the launch counts are those of the full-size paths: 73 int8 GEMMs per BERT
+forward, 49 int4 products per GPT-2 pass): the fp32 islands (LayerNorm,
+Softmax, Gelu) sum in another order on each device, so an int8 value at a
+requant tie, or a bf16-rounded activation, can move one step; the graphs
+are held to more than 99% of int8 values equal and outputs within 1e-2 of
+their largest magnitude.
 """
 
 import numpy as np
@@ -24,11 +33,16 @@ from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
 from onnx_rusty_inference_engine_tpu_torch.models._builder import (
     GraphBuilder)
 from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+from onnx_rusty_inference_engine_tpu_torch.models.bert import (
+    BertConfig, build_bert)
 from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import decode_attn as da
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qconv_int8 as k
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int4 as q4
-from onnx_rusty_inference_engine_tpu_torch.quant import pack_int4_planar
+from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int8 as q8
+from onnx_rusty_inference_engine_tpu_torch.quant import (
+    pack_int4, pack_int4_planar)
+from chip_smoke import ort_int4_generator
 
 pytestmark = pytest.mark.cuda
 
@@ -250,3 +264,153 @@ def test_int4_int8kv_generator_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(card, host)
     for c, h in zip(card_logits, host_logits):
         np.testing.assert_allclose(c, h, rtol=1e-4, atol=1e-4)
+
+
+# (M, K, N): BERT-base's four shapes at B = 32, T = 128; M = 1 and 17; K
+# not a multiple of 16 (byte loads of a); odd N (scalar stores); more than
+# one block tile in both M and N
+QMM8_CASES = {"bert_qkvo": (4096, 768, 768), "bert_ffn_in": (4096, 768, 3072),
+              "bert_ffn_out": (4096, 3072, 768), "bert_pooler": (32, 768, 768),
+              "m1": (1, 768, 768), "m17_k200_n48": (17, 200, 48),
+              "odd_n_k13": (5, 13, 3), "m130_n130": (130, 72, 130)}
+
+
+@pytest.mark.parametrize("case", list(QMM8_CASES))
+def test_qmatmul_int8_equals_plain(cuda, case):
+    M, K, N = QMM8_CASES[case]
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K), np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-128, 128, (K, N), np.int8)).to(cuda)
+    before = q8.qmatmul_int8.launches
+    got = q8.qmatmul_int8(a, b, packed=q8.pack_qmatmul_weight(b))
+    torch.cuda.synchronize()
+    assert q8.qmatmul_int8.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, q8.qmatmul_int8_plain(a, b))
+
+
+def test_qmatmul_int8_extreme_sums_are_exact(cuda):
+    """All -128: every product is +16384, the sum 3072 * 16384 = 50331648."""
+    a = torch.full((64, 3072), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((3072, 64), -128, dtype=torch.int8, device=cuda)
+    got = q8.qmatmul_int8(a, b, packed=q8.pack_qmatmul_weight(b))
+    assert bool((got == 3072 * 16384).all())
+
+
+def test_qmatmul_int8_refuses_what_it_cannot_take(cuda):
+    a = torch.zeros((8, 64), dtype=torch.int8, device=cuda)
+    b = torch.zeros((64, 16), dtype=torch.int8, device=cuda)
+    packed = q8.pack_qmatmul_weight(b)
+    with pytest.raises(ValueError, match="a wants"):
+        q8.qmatmul_int8(a.to(torch.uint8), b, packed=packed)
+    with pytest.raises(ValueError, match="packed wants"):
+        q8.qmatmul_int8(a, b, packed=packed.cpu())
+    with pytest.raises(ValueError, match="contiguous=False"):
+        wide = torch.zeros((8, 128), dtype=torch.int8, device=cuda)
+        q8.qmatmul_int8(wide[:, ::2], b, packed=packed)
+    with pytest.raises(ValueError, match="pre-packed"):
+        q8.qmatmul_int8(a, b)
+    with pytest.raises(ValueError, match="packed weight"):
+        q8.qmatmul_int8(a, b, packed=packed[:, :32].contiguous())
+
+
+# (M, K, N, block): GPT-2 124M's decode-step (M = 8) and prefill (M = 512)
+# shapes, the lm_head's N = 50257 among them; M = 1 and 17; K = 200 (one
+# block of 200); N = 48 and 130; a block of 42 (21 bytes: byte loads)
+INT4_BF16_CASES = {"step_qkv": (8, 768, 2304, 256),
+                   "step_mlp_proj": (8, 3072, 768, 256),
+                   "step_lm_head": (8, 768, 50257, 256),
+                   "prefill_fc": (512, 768, 3072, 256),
+                   "m1": (1, 768, 768, 256), "m17_k200_n48": (17, 200, 48, 256),
+                   "bs64_n130": (3, 384, 130, 64), "odd_qbh21": (3, 84, 33, 42)}
+
+
+@pytest.mark.parametrize("case", list(INT4_BF16_CASES))
+def test_int4_bf16_kernel_matches_plain(cuda, case):
+    M, K, N, block = INT4_BF16_CASES[case]
+    rng = np.random.default_rng(M + K)
+    packed, scales = pack_int4(rng.standard_normal((K, N)).astype(np.float32),
+                               block)
+    Nw = -(-N // 256) * 256  # rows past N, as a padded weight carries them
+    packed = torch.from_numpy(np.pad(packed, ((0, Nw - N), (0, 0)))).to(cuda)
+    scales = torch.from_numpy(np.pad(scales, ((0, Nw - N), (0, 0)))).to(cuda)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(cuda)
+    before = q4.qmatmul_int4_bf16.launches
+    got = q4.qmatmul_int4_bf16(a, packed, scales, n=N)
+    torch.cuda.synchronize()
+    assert q4.qmatmul_int4_bf16.launches == before + 1
+    want = q4.qmatmul_int4_bf16_plain(a, packed, scales, n=N)
+    assert got.shape == want.shape == (M, N)
+    assert _rel_err(got, want) <= 1e-5
+
+
+def test_int4_bf16_refuses_what_it_cannot_take(cuda):
+    a = torch.zeros((2, 64), device=cuda)
+    packed = torch.zeros((32, 32), dtype=torch.uint8, device=cuda)
+    scales = torch.zeros((32, 1), device=cuda)
+    with pytest.raises(ValueError, match="scales wants"):
+        q4.qmatmul_int4_bf16(a, packed, scales.cpu())
+    with pytest.raises(ValueError, match="a wants"):
+        q4.qmatmul_int4_bf16(a.double(), packed, scales)
+    with pytest.raises(ValueError, match="contiguous=False"):
+        wide = torch.zeros((32, 64), dtype=torch.uint8, device=cuda)
+        q4.qmatmul_int4_bf16(a, wide[:, ::2], scales)
+    with pytest.raises(ValueError, match="interleaved"):
+        q4.qmatmul_int4_bf16(a, packed[:, :16].contiguous(), scales)
+
+
+def test_bert_int8_engine_on_card_matches_cpu(cuda):
+    """BERT with BERT-base's 12 layers at hidden 64: 73 int8 GEMM launches
+    per INT8 forward, and the card's int8 values against the CPU's."""
+    cfg = BertConfig(vocab_size=500, max_positions=64, hidden=64, n_layer=12,
+                     n_head=4)
+    B, T = 2, 16
+    g = import_model(build_bert(cfg, batch=B, seq_len=T, seed=0))
+    rng = np.random.default_rng(0)
+    feed = {"input_ids": rng.integers(0, cfg.vocab_size, (B, T)),
+            "token_type_ids": rng.integers(0, 2, (B, T)),
+            "attention_mask": (np.arange(T)[None] < np.array([[T], [9]])
+                               ).astype(np.int64)}
+    q = quantize_graph(g, ranges=calibrate(g, [feed], device="cpu"))
+    probe = probe_graph(q)
+    before = q8.qmatmul_int8.launches
+    card = Engine(probe)(feed)
+    torch.cuda.synchronize()
+    assert q8.qmatmul_int8.launches - before == 73
+    host = Engine(probe, device="cpu")(feed)
+    n_eq = n_all = 0
+    for name, v in host.items():
+        if v.dtype == torch.int8:
+            n_eq += int((card[name].cpu() == v).sum())
+            n_all += v.numel()
+    assert n_all > 0 and n_eq / n_all > 0.99, n_eq / n_all
+    for name in ("last_hidden_state", "pooler_output"):
+        assert _rel_err(card[name].cpu(), host[name]) <= 1e-2, name
+
+
+def test_ort_int4_generator_on_card_matches_cpu(cuda):
+    """GPT-2 with GPT-2 124M's 12 layers at n_embd 64, its weights in the
+    interleaved ORT int4 form carried as ONNX bytes, INT8 KV and fused
+    attention: 49 interleaved int4 launches per pass and no planar one;
+    the prefill's and a teacher-forced step's logits against the CPU's."""
+    cfg = GPT2Config(vocab_size=256, n_positions=64, n_embd=64, n_layer=12,
+                     n_head=4)
+    gen = Generator(cfg, batch=2, prompt_len=8, max_len=32, kv_dtype="int8",
+                    fused_attention=True)
+    ort_int4_generator(gen)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    n_new = 6
+    i4, pl = q4.qmatmul_int4_bf16.launches, q4.qmatmul_int4_planar.launches
+    toks, _ = gen.generate(ids, n_new)
+    torch.cuda.synchronize()
+    assert q4.qmatmul_int4_bf16.launches - i4 == 49 * n_new
+    assert q4.qmatmul_int4_planar.launches == pl
+    host = gen.to("cpu")
+    card_l, card_cache = gen.start(ids)
+    host_l, host_cache = host.start(ids)
+    assert _rel_err(card_l.cpu(), host_l) <= 1e-2
+    tok = torch.from_numpy(toks[:, 0])
+    card_l, _ = gen.step(card_cache, tok.to(cuda), 8)
+    host_l, _ = host.step(host_cache, tok, 8)
+    assert _rel_err(card_l.cpu(), host_l) <= 1e-2

@@ -167,13 +167,21 @@ def test_matmul_nbits_planar_matches_jax_kernel_form(monkeypatch):
 
 
 def test_matmul_nbits_interleaved_raises():
+    """The interleaved (ORT) layout runs on qmatmul_int4_bf16 in
+    quant.pack_int4's 2-D form (tests/test_torch_port_qmatmul.py); ORT's
+    3-D [N, blocks, blob] form and quant blocks that split a nibble pair
+    still raise, naming the case."""
     rng = np.random.default_rng(2)
     packed, scales = j_pack_int4(
         rng.standard_normal((64, 8)).astype(np.float32), 32)
-    with pytest.raises(UnsupportedOpError, match="2.4"):
-        run_op_port("MatMulNBits", {"a": rng.standard_normal(
-            (2, 64)).astype(np.float32)}, {"p": packed, "s": scales},
-            domain="com.microsoft", K=64, N=8, bits=4, block_size=32)
+    a = {"a": rng.standard_normal((2, 64)).astype(np.float32)}
+    attrs = dict(domain="com.microsoft", K=64, N=8, bits=4, block_size=32)
+    with pytest.raises(UnsupportedOpError, match="3-D"):
+        run_op_port("MatMulNBits", a,
+                    {"p": packed.reshape(8, 2, 16), "s": scales}, **attrs)
+    with pytest.raises(UnsupportedOpError, match="not an interleaved"):
+        run_op_port("MatMulNBits", a,
+                    {"p": packed, "s": np.ones((8, 64), np.float32)}, **attrs)
 
 
 def _attention_inputs(B=2, H=4, Hkv=2, L=24, hd=16, valid=13, seed=5):
