@@ -10,7 +10,8 @@ Phases, each printing JSON lines:
              TF32 is off for every comparison (cudnn and matmul flags,
              scoped to this script's run).
 2. build   - compiles every kernel source in csrc/ with nvcc for sm_90a,
-             one nvcc per source, all at once.
+             one nvcc per source, all at once; ptxas's registers, shared
+             memory and spills for each kernel entry.
 3. slice   - SqueezeNet: the port's entry points at 224x224 (random weights
              from seed 0); golden check at b1 against
              tests/goldens/squeezenet.pb; fp32 Engine at b256; calibrate on
@@ -34,7 +35,9 @@ Phases, each printing JSON lines:
              and fused attention: batch 8, 64-token prompts, max_len 256, 64
              new greedy tokens. Counts set to 0 just before, read just
              after: 49 int4 launches per prefill and per decode step (4 per
-             layer + the lm_head), 12 attention launches per step. The
+             layer + the lm_head), every prefill launch on the int4
+             kernel's mma schedule and every step launch on small_m, 12
+             attention launches per step. The
              prefill and the first 4 steps are re-run through the plain
              versions on the CPU with the card's tokens and KV scales:
              logits within 1e-2 * max|logit|, greedy agreement reported.
@@ -45,10 +48,12 @@ Phases, each printing JSON lines:
 7. profile - one decode step of the fused INT4 path under torch.profiler:
              device busy against wall time, the idle share, by kernel.
 8. kernel  - one line per distinct int4 and attention shape of the decode
-             path, on the card against the plain version (int4 and f32
+             path (int4: with its schedule and the wrapper's host time per
+             call), on the card against the plain version (int4 and f32
              attention within 1e-5 * max|out|, int8 x int8 attention within
              1e-2 * max|out|), with the kernel, plain and library times and
-             the card's bound; then the nibble-unpack probe, bit for bit.
+             the card's bound; then the nibble-unpack probe, every unpack
+             variant the int4 schedules use, bit for bit.
              Kernel and library times are device times from a replayed
              CUDA graph of DEC_ITERS calls (ms_eager: the same calls issued
              from Python, host time included); plain times are eager.
@@ -79,13 +84,18 @@ Phases, each printing JSON lines:
              quantize_weights_int4 would take rewritten into the interleaved
              ORT MatMulNBits form (quant.pack_int4, no `layout`), carried
              as ONNX bytes into the Generator: 49 qmatmul_int4_bf16 launches
-             per prefill and per step, none planar; prefill + 4 steps
+             per prefill (on mma) and per step (on small_m), none planar;
+             prefill + 4 steps
              re-run through the plain versions on the CPU (logits within
              1e-2 * max|logit|); tokens/s.
 13. kernel  - one line per distinct qmatmul_int4_bf16 shape (M = 8 step,
              M = 512 prefill), within 1e-5 * max|out| of the plain version
              on the card, timed as in phase 8.
-14. kernels - one line listing every ported kernel, one per TPU kernel.
+14. int4_m_sweep - both int4 kernels at K = 768, N = 2304 for M = 1, 8,
+             16, 32, 64, 128, 512: every schedule that takes the shape
+             (checked against the plain version) and the library call,
+             timed; where small_m stops beating mma (the crossover).
+15. kernels - one line listing every ported kernel, one per TPU kernel.
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -187,6 +197,8 @@ def _wrappers():
 def reset_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "schedules"):  # the int4 kernels count per schedule
+            w.schedules = dict.fromkeys(w.schedules, 0)
 
 
 def read_counts() -> dict:
@@ -265,8 +277,10 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     built = _build.build_all()
+    # each kernel's entry line, then its registers, shared memory and spills
     regs = {name: [ln.strip() for ln in info.log.splitlines()
-                   if "registers" in ln or "spill" in ln]
+                   if "entry function" in ln or "registers" in ln
+                   or "spill" in ln]
             for name, info in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": sorted(built), "ptxas": regs})
@@ -625,6 +639,17 @@ def _plain_rerun(gen, prompts, toks):
     return errs, agree
 
 
+def _int4_schedules(name: str, prefill: int, steps: int) -> dict:
+    """The schedules int4 kernel `name` ran on over the main path just
+    driven: every prefill launch (M = batch x prompt) on mma, every step
+    launch (M = batch) on small_m, none on general."""
+    got = dict(_wrappers()[name].schedules)
+    require(got == {"general": 0, "small_m": steps, "mma": prefill},
+            f"{name}: {prefill} prefill launches on mma and {steps} step "
+            f"launches on small_m, got {got}")
+    return got
+
+
 def phase_decode():
     from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 
@@ -651,6 +676,7 @@ def phase_decode():
     steps = NEW - 1
     require(counts["qmatmul_int4_planar"] == n4_pre + n4_dec * steps,
             f"49 int4 launches per prefill and per step: {counts}")
+    schedules = _int4_schedules("qmatmul_int4_planar", n4_pre, n4_dec * steps)
     require(counts["decode_attention_int8"] == n_attn * steps,
             f"12 attention launches per step: {counts}")
     require(counts["decode_attention_int8_mxu"] == 0
@@ -689,6 +715,7 @@ def phase_decode():
           "batch": DEC_BATCH, "prompt": PROMPT, "max_len": MAX_LEN,
           "new_tokens": NEW, "build_s": build_s, "main_path_s": main_s,
           "launches": counts, "launches_i8attn": counts_i8,
+          "int4_schedules": schedules,
           "int4_per_prefill": n4_pre, "int4_per_step": n4_dec,
           "attention_per_step": n_attn,
           "card_vs_plain_rel_err": errs,
@@ -700,7 +727,7 @@ def phase_decode():
 
 
 # device kernel name fragment -> bucket, first match wins
-_DEC_BUCKETS = (("qmatmul_int4", "qmatmul_int4 (int4 matmul)"),
+_DEC_BUCKETS = (("int4_", "qmatmul_int4 (int4 matmul)"),  # every schedule
                 ("decode_attn", "decode attention"),
                 ("gemm", "other matmul"), ("softmax", "softmax"),
                 ("reduce", "reductions (LayerNorm)"),
@@ -819,8 +846,10 @@ def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
                            "scales": params[node.inputs[2]]}
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
             "ops_ms": 0.0, "bytes_ms": 0.0}
+    pre = dict(step)
     max_abs, max_rel = 0.0, 0.0
     passes = {"prefill": 1, "step": NEW - 1}  # of the main path
+    sched_seen = {"prefill": set(), "step": set()}
     require(sum(sh["count"] * passes[sh["phase"]] for sh in shapes.values())
             == launches, f"the {name} shapes account for every main-path "
             f"launch")
@@ -833,13 +862,17 @@ def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
         if planar:  # scales [2 * nbh, Nw], k-major
             kw = {"qblock": bs, "n": N}
             layout = {"bs": bs, "nbh": scales.shape[0] // 2}
+            nblk, blk = q4.planar_layout(K, bs)
             q = torch.cat([p & 0xF, p >> 4], dim=1)
             scales_k = scales
         else:  # scales [Nw, nb], n-major
             kw = {"n": N}
             layout = {"qblock": bs, "nb": scales.shape[1]}
+            nblk, blk = scales.shape[1], K // 2 // scales.shape[1]
             q = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(Nw, K)
             scales_k = scales.t()
+        schedule = q4.int4_schedule(M, K, nblk, blk)
+        sched_seen[sh["phase"]].add(schedule)
 
         def kern():
             return kern_fn(a, packed, scales, **kw)
@@ -847,8 +880,11 @@ def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
         def plain():
             return plain_fn(a, packed, scales, **kw)
 
+        before = dict(kern_fn.schedules)
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        require(kern_fn.schedules[schedule] == before[schedule] + 1,
+                f"{name} at M={M} K={K} N={N} launched on {schedule}")
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
@@ -866,22 +902,21 @@ def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
                                                      BF16_OPS_PER_S)
         emit({"phase": "kernel", "kernel": name,
               "node": sh["node"], "M": M, "K": K, "N": N, "Nw": Nw,
-              **layout, "where": sh["phase"],
+              **layout, "where": sh["phase"], "schedule": schedule,
               "count_per_" + sh["phase"]: sh["count"],
               "launches": sh["count"] * passes[sh["phase"]],
               "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-              "ms_eager": ms_eager, "plain_ms": plain_ms,
-              "library_ms": library_ms,
+              "ms_eager": ms_eager, "host_ms_per_call": ms_eager - ms,
+              "plain_ms": plain_ms, "library_ms": library_ms,
               "library": lib_label, "library_max_rel_err": lib_rel,
               "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
               "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
               "tflops": ops / ms / 1e9})
-        if sh["phase"] == "step":
-            n = sh["count"]
-            for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                         ("bound_ms", bound_ms), ("library_ms", library_ms),
-                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
-                step[k] += n * v
+        n = sh["count"]
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("library_ms", library_ms),
+                     ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+            (step if sh["phase"] == "step" else pre)[k] += n * v
     source, replaces = KERNEL_ROWS[name]
     return {
         "name": name, "route": "cuda", "source": source,
@@ -891,12 +926,88 @@ def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
         "bound_by": ("operations" if step["ops_ms"] >= step["bytes_ms"]
                      else "bytes"),
         "library_ms": step["library_ms"],
+        "schedules": {k: sorted(v) for k, v in sched_seen.items()},
+        "prefill_ms": pre["ms"], "prefill_library_ms": pre["library_ms"],
         "per": "one GPT-2 124M decode step at batch 8: the sum over its 49 "
                "launches (4 per layer + the lm_head); the prefill shapes "
-               "are in the kernel lines. ms and library_ms are device times "
-               "(CUDA-graph replay); plain_ms is eager. library_ms: the "
-               "same sum of the library calls named in the kernel lines",
+               "are in the kernel lines, prefill_ms and prefill_library_ms "
+               "their sums over one prefill. ms and library_ms are device "
+               "times (CUDA-graph replay); plain_ms is eager. library_ms: "
+               "the same sum of the library calls named in the kernel lines",
         "distinct_shapes": len(shapes), "card": smi}
+
+
+SWEEP_M = (1, 8, 16, 32, 64, 128, 512)
+SWEEP_K, SWEEP_N = 768, 2304   # GPT-2 124M's qkv projection
+
+
+def phase_int4_sweep(smi: str) -> None:
+    """Both int4 kernels over M at K = 768, N = 2304 on a weight from seed
+    2 (block 256): every schedule that takes the shape, held to the plain
+    version (1e-5 x max|out|) and timed by CUDA-graph replay, beside the
+    library call; the schedule int4_schedule picks. Where small_m stops
+    beating mma is the crossover that qmatmul_int4.SMALL_M_MAX records."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qmatmul_int4 as q4)
+    from onnx_rusty_inference_engine_tpu_torch.quant import (
+        pack_int4, pack_int4_planar)
+
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((SWEEP_K, SWEEP_N)).astype(np.float32)
+    rows, wins = [], {}
+    for layout in ("planar", "interleaved"):
+        if layout == "planar":
+            packed, scales = pack_int4_planar(w, 256)
+            wrapper, plain_fn = (q4.qmatmul_int4_planar,
+                                 q4.qmatmul_int4_planar_plain)
+            nblk, blk = q4.planar_layout(SWEEP_K, 256)
+            kw, group = {"qblock": 256}, blk
+        else:
+            packed, scales = pack_int4(w, 256)
+            wrapper, plain_fn = (q4.qmatmul_int4_bf16,
+                                 q4.qmatmul_int4_bf16_plain)
+            nblk = scales.shape[1]
+            blk, kw, group = SWEEP_K // 2 // nblk, {}, 256
+        packed, scales = (torch.from_numpy(x).cuda() for x in (packed, scales))
+        p = packed.to(torch.int32)
+        if layout == "planar":
+            q, scales_k = torch.cat([p & 0xF, p >> 4], dim=1), scales
+        else:
+            q = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(-1, SWEEP_K)
+            scales_k = scales.t()
+        for M in SWEEP_M:
+            a = torch.from_numpy(rng.standard_normal((M, SWEEP_K)).astype(
+                np.float32)).cuda()
+            want = plain_fn(a, packed, scales, **kw)
+            ms = {}
+            for sched in q4.SCHEDULES:
+                if sched == "small_m" and M > 16:  # the kernel's own limit
+                    continue
+
+                def fn(sched=sched):  # the wrapper's launch, schedule forced
+                    return q4._launch(wrapper, a, packed, scales, SWEEP_N,
+                                      nblk, blk, sched)
+
+                got = fn()
+                torch.cuda.synchronize()
+                rel = float((got - want).abs().max() / want.abs().max())
+                require(rel <= 1e-5, f"{layout} {sched} at M={M}: {rel}")
+                ms[sched] = graph_ms(fn, DEC_ITERS)
+            _, lib = _int4_library(a, q, scales_k, group)
+            rows.append({"layout": layout, "M": M,
+                         "picked": q4.int4_schedule(M, SWEEP_K, nblk, blk),
+                         "ms": ms, "library_ms": graph_ms(lib, DEC_ITERS)})
+            if "small_m" in ms:
+                wins.setdefault(M, []).append(ms["small_m"] < ms["mma"])
+    crossover = max([M for M, w in wins.items() if all(w)], default=0)
+    emit({"phase": "int4_m_sweep", "K": SWEEP_K, "N": SWEEP_N,
+          "block": 256, "rows": rows,
+          "crossover_measured": crossover,
+          "small_m_max": q4.SMALL_M_MAX,
+          "note": "ms by schedule: device ms per call (CUDA-graph replay); "
+                  "crossover_measured: the largest swept M at which small_m "
+                  "beats mma in both layouts",
+          "card": smi})
 
 
 def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
@@ -1076,6 +1187,7 @@ def phase_ort_decode():
     steps = NEW - 1
     require(counts["qmatmul_int4_bf16"] == n4_pre + n4_dec * steps,
             f"49 interleaved int4 launches per prefill and per step: {counts}")
+    schedules = _int4_schedules("qmatmul_int4_bf16", n4_pre, n4_dec * steps)
     require(counts["decode_attention_int8"] == n_attn * steps,
             f"12 attention launches per step: {counts}")
     require(sum(counts.values()) == counts["qmatmul_int4_bf16"]
@@ -1089,6 +1201,7 @@ def phase_ort_decode():
           "batch": DEC_BATCH, "prompt": PROMPT, "max_len": MAX_LEN,
           "new_tokens": NEW, "build_s": build_s, "onnx_bytes": onnx_bytes,
           "main_path_s": main_s, "launches": counts,
+          "int4_schedules": schedules,
           "int4_per_prefill": n4_pre, "int4_per_step": n4_dec,
           "attention_per_step": n_attn,
           "card_vs_plain_rel_err": errs, "plain_greedy_agreement": agree,
@@ -1362,32 +1475,40 @@ def phase_nibble(int4_launches: int, smi: str) -> dict:
 
     p = torch.from_numpy((np.arange(256 * 256).reshape(256, 256) % 251)
                          .astype(np.uint8)).cuda()
-    probes = q4.nibble_probe.launches
-    lo, hi = q4.nibble_probe(p)
-    torch.cuda.synchronize()
     plo, phi = q4.nibble_probe_plain(p)
-    require(q4.nibble_probe.launches == probes + 1, "nibble_probe launched")
-    require(torch.equal(lo, plo) and torch.equal(hi, phi),
-            "nibble_probe == plain")
-    ms = graph_ms(lambda: q4.nibble_probe(p), DEC_ITERS)
+    variants_ms = {}
+    for variant in q4.NIBBLE_VARIANTS:  # every unpack the schedules use
+        probes = q4.nibble_probe.launches
+        lo, hi = q4.nibble_probe(p, variant)
+        torch.cuda.synchronize()
+        require(q4.nibble_probe.launches == probes + 1,
+                f"nibble_probe ({variant}) launched")
+        require(torch.equal(lo, plo) and torch.equal(hi, phi),
+                f"nibble_probe ({variant}) == plain")
+        variants_ms[variant] = graph_ms(
+            lambda v=variant: q4.nibble_probe(p, v), DEC_ITERS)
+    ms = variants_ms["int"]
     plain_ms = cuda_ms(lambda: q4.nibble_probe_plain(p), DEC_ITERS)
     nbytes = p.numel() * (1 + 2 * 4)
     bound_ms, bound_by, _, _ = bound(2 * p.numel(), nbytes, BF16_OPS_PER_S)
     emit({"phase": "kernel", "kernel": "nibble_probe", "input": [256, 256],
-          "equal": True, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+          "equal": True, "variants": list(q4.NIBBLE_VARIANTS),
+          "variants_ms": variants_ms,
+          "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     source, replaces = KERNEL_ROWS["nibble_probe"]
     return {"name": "nibble_probe", "route": "cuda", "source": source,
             "replaces": replaces, "launches": int4_launches,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "per": "the unpack device function (nibble.cuh) runs inlined in "
+            "per": "the unpack device functions (nibble.cuh) run inlined in "
                    "every qmatmul_int4_planar and qmatmul_int4_bf16 launch, "
                    "so launches counts those of both decode paths; ms, "
                    "plain_ms and bound_ms are "
                    "the exported probe kernel's over cast_probe.py's "
-                   "256x256 input (bit-equal). library_ms: no PyTorch call "
-                   "unpacks nibbles",
+                   "256x256 input with the int variant; every variant is "
+                   "bit-equal (times in the kernel line). library_ms: no "
+                   "PyTorch call unpacks nibbles",
             "card": smi}
 
 
@@ -1427,6 +1548,9 @@ def main() -> int:
             rows.insert(2, int4_kernel_row(gen_ort, "qmatmul_int4_bf16",
                                            counts_ort["qmatmul_int4_bf16"],
                                            smi))
+            del gen_ort
+            torch.cuda.empty_cache()
+            phase_int4_sweep(smi)
             rows.append(phase_nibble(counts["qmatmul_int4_planar"]
                                      + counts_ort["qmatmul_int4_bf16"], smi))
             emit({"kernels": rows})

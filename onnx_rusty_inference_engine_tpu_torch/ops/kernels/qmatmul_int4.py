@@ -6,19 +6,27 @@ Hopper counterparts of the TPU kernels in
 `qmatmul_int4_planar` (Pallas body `_int4_mm_planar_kernel`; the layout of
 `quant.pack_int4_planar`) and `qmatmul_int4_bf16` (body `_int4_mm_kernel`;
 the interleaved ORT MatMulNBits layout of `quant.pack_int4`). The CUDA
-source of both is `csrc/qmatmul_int4.cu`, one kernel templated on the
-layout: the weights stay packed (uint8 nibble pairs) in device memory and
-are unpacked in registers by the shared device function in
-`csrc/nibble.cuh`; its source note says what bounds the kernel on the H100
-and what the design does about that.
+source of both is `csrc/qmatmul_int4.cu`, templated on the layout: the
+weights stay packed (uint8 nibble pairs) in device memory and are unpacked
+in registers by the shared device functions in `csrc/nibble.cuh`; the
+source note says what bounds each schedule on the H100 and what its design
+does about that.
 
-`nibble_probe` runs that device function alone over a uint8 array: the
-port of `experiments/cast_probe.py::mk`, the TPU probe of the same unpack.
+Three schedules (`int4_schedule` picks one from the shape before the
+launch): `small_m` streams the weights for decode-sized M, `mma` runs on the
+bf16 tensor cores for prefill-sized M, and `general` takes every other
+shape (odd quant blocks, unaligned operands). The C entry point refuses a
+schedule whose constraints do not hold; the wrapper then raises.
+
+`nibble_probe` runs one of those unpack functions alone over a uint8
+array: the port of `experiments/cast_probe.py::mk`, the TPU probe of the
+same unpack.
 
 Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
 (`*_plain`), and launches the kernel for a tensor on the card, or raises.
 `qmatmul_int4_planar.launches`, `qmatmul_int4_bf16.launches` and
-`nibble_probe.launches` count launches.
+`nibble_probe.launches` count launches; `qmatmul_int4_planar.schedules` and
+`qmatmul_int4_bf16.schedules` count them per schedule.
 """
 
 from __future__ import annotations
@@ -33,7 +41,37 @@ from . import _build
 
 __all__ = ["planar_layout", "qmatmul_int4_planar", "qmatmul_int4_planar_plain",
            "interleaved_layout", "qmatmul_int4_bf16", "qmatmul_int4_bf16_plain",
+           "int4_schedule", "SCHEDULES", "SMALL_M_MAX", "NIBBLE_VARIANTS",
            "nibble_probe", "nibble_probe_plain"]
+
+# schedule name -> the id the C entry points take
+SCHEDULES = {"general": 0, "small_m": 1, "mma": 2}
+# The largest M that goes to small_m: the crossover with mma that
+# chip_smoke.py's M sweep measured on an H100 (PERF.md): at M = 16 small_m
+# still wins in the planar layout but not in the interleaved one. small_m
+# itself takes up to 16 rows.
+SMALL_M_MAX = 8
+# small_m stages A[M, K] as f32 in one block's shared memory, M rounded up
+# to 8 or 16 rows, beside its 8 warps' partial sums (rows x 32 f32 each):
+# at most the 227 KB an H100 block can opt into.
+SMALL_M_SMEM = 232448
+
+
+def int4_schedule(M: int, K: int, nblk: int, blk: int, *,
+                  aligned: bool = True) -> str:
+    """The schedule for an int4 product of A [M, K] with nblk quant blocks
+    of blk packed bytes each (planar (nbh, bs), interleaved (nb, qbh)):
+    "small_m" for M <= SMALL_M_MAX, "mma" above it (and for a small M
+    whose A does not fit small_m's shared memory), and "general" where
+    quant blocks are not a multiple of 16 bytes or A or the packed weights
+    are not 16-byte aligned. The C entry points check the same
+    constraints."""
+    if not aligned or blk % 16:
+        return "general"
+    rows = 8 if M <= 8 else 16
+    if M <= SMALL_M_MAX and (rows * K + 8 * rows * 32) * 4 <= SMALL_M_SMEM:
+        return "small_m"
+    return "mma"
 
 
 def planar_layout(K: int, block_size: int = 256) -> Tuple[int, int]:
@@ -166,19 +204,20 @@ def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
                          f"{tuple(packed.shape)}, scales "
                          f"{tuple(scales.shape)}, n={n} do not fit the planar "
                          f"layout (nbh={nbh}, bs={bs})")
-    out = _launch("qmatmul_int4_planar", a, packed, scales, n, nbh, bs)
-    qmatmul_int4_planar.launches += 1
-    return out
+    return _launch(qmatmul_int4_planar, a, packed, scales, n, nbh, bs)
 
 
 qmatmul_int4_planar.launches = 0
+qmatmul_int4_planar.schedules = dict.fromkeys(SCHEDULES, 0)
 
 
-def _launch(name: str, a: torch.Tensor, packed: torch.Tensor,
-            scales: torch.Tensor, n: int, nblk: int, blk: int
-            ) -> torch.Tensor:
-    """Check the operands and launch kernel `name` (its C entry point is
-    `name`_launch): out f32 [M, n]."""
+def _launch(wrapper, a: torch.Tensor, packed: torch.Tensor,
+            scales: torch.Tensor, n: int, nblk: int, blk: int,
+            schedule: Optional[str] = None) -> torch.Tensor:
+    """Check the operands and launch `wrapper`'s kernel (its C entry point
+    is `<name>_launch`) on `schedule` (default: int4_schedule's pick), and
+    count the launch: out f32 [M, n]."""
+    name = wrapper.__name__
     M, K = a.shape
     Nw = packed.shape[0]
     if max(M, K, Nw) >= 2 ** 31:
@@ -187,14 +226,21 @@ def _launch(name: str, a: torch.Tensor, packed: torch.Tensor,
     _check(name, "a", a, torch.float32, dev)
     _check(name, "packed", packed, torch.uint8, dev)
     _check(name, "scales", scales, torch.float32, dev)
+    if schedule is None:
+        schedule = int4_schedule(M, K, nblk, blk, aligned=(
+            a.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0))
     out = torch.empty((M, n), dtype=torch.float32, device=dev)
     fn = _fn(f"{name}_launch",
-             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         err = fn(a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(), M, K, n, Nw, nblk, blk, _stream(dev))
+                 out.data_ptr(), M, K, n, Nw, nblk, blk, SCHEDULES[schedule],
+                 _stream(dev))
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+        raise RuntimeError(f"{name}: launch on schedule {schedule} failed "
+                           f"with cudaError {err}")
+    wrapper.launches += 1
+    wrapper.schedules[schedule] += 1
     return out
 
 
@@ -221,12 +267,17 @@ def qmatmul_int4_bf16(a: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"qmatmul_int4_bf16: packed {tuple(packed.shape)}, "
                          f"scales {tuple(scales.shape)}, n={n} do not fit "
                          f"the interleaved layout")
-    out = _launch("qmatmul_int4_bf16", a, packed, scales, n, nb, qbh)
-    qmatmul_int4_bf16.launches += 1
-    return out
+    return _launch(qmatmul_int4_bf16, a, packed, scales, n, nb, qbh)
 
 
 qmatmul_int4_bf16.launches = 0
+qmatmul_int4_bf16.schedules = dict.fromkeys(SCHEDULES, 0)
+
+
+# the unpack device functions of csrc/nibble.cuh, by the schedule that uses
+# them: int (general), f32 (small_m), bf16_pairs (mma, interleaved),
+# bf16_planes (mma, planar)
+NIBBLE_VARIANTS = ("int", "f32", "bf16_pairs", "bf16_planes")
 
 
 def nibble_probe_plain(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -234,9 +285,14 @@ def nibble_probe_plain(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _unpack_planes(p)
 
 
-def nibble_probe(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The int4 kernels' in-register unpack (csrc/nibble.cuh) applied to
-    every byte of p: uint8 -> (lo, hi) f32, each of p's shape."""
+def nibble_probe(p: torch.Tensor, variant: str = "int"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One of the int4 kernels' in-register unpacks (csrc/nibble.cuh, see
+    NIBBLE_VARIANTS) applied to every byte of p: uint8 -> (lo, hi) f32,
+    each of p's shape. Every variant gives the plain version's values."""
+    if variant not in NIBBLE_VARIANTS:
+        raise ValueError(f"nibble_probe: variant {variant!r} is not one of "
+                         f"{NIBBLE_VARIANTS}")
     if p.device.type == "cpu":
         return nibble_probe_plain(p)
     if p.device.type != "cuda":
@@ -247,10 +303,10 @@ def nibble_probe(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     lo = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     hi = torch.empty_like(lo)
     fn = _fn("nibble_probe_launch", [ctypes.c_void_p] * 3
-             + [ctypes.c_longlong, ctypes.c_void_p])
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(p.device):
         err = fn(p.data_ptr(), lo.data_ptr(), hi.data_ptr(), p.numel(),
-                 _stream(p.device))
+                 NIBBLE_VARIANTS.index(variant), _stream(p.device))
     if err != 0:
         raise RuntimeError(f"nibble_probe: launch failed with cudaError {err}")
     nibble_probe.launches += 1

@@ -219,12 +219,92 @@ def test_attention_kernels_match_plain(cuda, case, mxu):
 
 
 def test_nibble_probe_on_card(cuda):
-    p = torch.from_numpy((np.arange(256 * 256).reshape(256, 256) % 251
-                          ).astype(np.uint8)).to(cuda)
-    lo, hi = q4.nibble_probe(p)
+    """Every unpack variant the int4 schedules use, bit for bit; 1,001 bytes
+    as well, a length the probe's 4-byte words do not divide."""
+    for p in (np.arange(256 * 256).reshape(256, 256) % 251,
+              np.arange(1001) % 256):
+        p = torch.from_numpy(p.astype(np.uint8)).to(cuda)
+        plo, phi = q4.nibble_probe_plain(p)
+        for variant in q4.NIBBLE_VARIANTS:
+            lo, hi = q4.nibble_probe(p, variant)
+            torch.cuda.synchronize()
+            assert torch.equal(lo, plo) and torch.equal(hi, phi), variant
+
+
+def _int4_operands(layout, M, K, N, block, rng, cuda):
+    """(wrapper, plain, a, packed, scales, kwargs) for an int4 product in
+    `layout` with the weight padded to Nw = 256-multiple rows (Nw > N, as
+    the quantizer pads it)."""
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    Nw = -(-N // 256) * 256 + (256 if N % 256 == 0 else 0)
+    if layout == "planar":
+        packed, scales = pack_int4_planar(w, block)
+        scales = np.pad(scales, ((0, 0), (0, Nw - N)))
+        fns, kw = (q4.qmatmul_int4_planar, q4.qmatmul_int4_planar_plain), {
+            "qblock": block, "n": N}
+    else:
+        packed, scales = pack_int4(w, block)
+        scales = np.pad(scales, ((0, Nw - N), (0, 0)))
+        fns, kw = (q4.qmatmul_int4_bf16, q4.qmatmul_int4_bf16_plain), {"n": N}
+    packed = np.pad(packed, ((0, Nw - N), (0, 0)))
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    return (*fns, *(torch.from_numpy(x).to(cuda) for x in (a, packed, scales)),
+            kw)
+
+
+# (M, K, N, block) at the schedules' edges: M at the crossover and one
+# above it, 16 and 17; K = 3072 with N = 768; N not a multiple of the mma
+# N tile (128) or of small_m's row groups; a quant block of 64 16-byte
+# chunks (planar bs 1024: more than a warp's 32 lanes); 25 16-byte steps
+# of 16-byte blocks (an odd step count, one lane per block in small_m).
+# Every case has Nw > N.
+SCHEDULE_CASES = {"m_crossover": (q4.SMALL_M_MAX, 768, 2304, 256),
+                  "m_crossover_plus1": (q4.SMALL_M_MAX + 1, 768, 2304, 256),
+                  "m16": (16, 768, 2304, 256), "m17": (17, 768, 2304, 256),
+                  "m8_k3072_n768": (8, 3072, 768, 256),
+                  "m8_n300": (8, 768, 300, 256),
+                  "m100_n300": (100, 768, 300, 256),
+                  "m3_big_block": (3, 4096, 260, 1024),
+                  "m70_big_block": (70, 4096, 260, 1024),
+                  "m5_k800_bs16": (5, 800, 130, 32),
+                  "m40_k800_bs16": (40, 800, 130, 32)}
+
+
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_int4_schedules_match_plain(cuda, case, layout):
+    M, K, N, block = SCHEDULE_CASES[case]
+    kern, plain, a, packed, scales, kw = _int4_operands(
+        layout, M, K, N, block, np.random.default_rng(M + K + N), cuda)
+    want_schedule = "small_m" if M <= q4.SMALL_M_MAX else "mma"
+    before = dict(kern.schedules)
+    got = kern(a, packed, scales, **kw)
     torch.cuda.synchronize()
-    plo, phi = q4.nibble_probe_plain(p)
-    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    moved = {k: v - before[k] for k, v in kern.schedules.items()}
+    assert moved == {s: int(s == want_schedule) for s in q4.SCHEDULES}, moved
+    want = plain(a, packed, scales, **kw)
+    assert got.shape == want.shape == (M, N)
+    assert _rel_err(got, want) <= 1e-5
+
+
+def test_int4_entry_points_refuse_a_schedule_that_does_not_fit(
+        cuda, monkeypatch):
+    """small_m at M = 64 and mma on 21-byte quant blocks: the C entry point
+    returns cudaErrorInvalidValue, the wrapper raises and counts nothing."""
+    rng = np.random.default_rng(0)
+    for layout, M, K, block, schedule in (("planar", 64, 768, 256, "small_m"),
+                                          ("interleaved", 64, 768, 256,
+                                           "small_m"),
+                                          ("planar", 8, 42, 256, "mma"),
+                                          ("interleaved", 8, 84, 42, "mma")):
+        kern, _, a, packed, scales, kw = _int4_operands(
+            layout, M, K, 40, block, rng, cuda)
+        monkeypatch.setattr(q4, "int4_schedule",
+                            lambda *args, s=schedule, **kws: s)
+        before = (kern.launches, dict(kern.schedules))
+        with pytest.raises(RuntimeError, match=f"schedule {schedule}"):
+            kern(a, packed, scales, **kw)
+        assert (kern.launches, kern.schedules) == before
 
 
 def test_kernels_refuse_cpu_operands_and_wrong_dtypes(cuda):
