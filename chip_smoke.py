@@ -18,17 +18,26 @@ Phases, each printing JSON lines:
              x[:8]; quantize_graph; INT8 Engine at b256. Every kernel's
              launch count is set to 0 just before and read just after;
              every QLinearConv must launch the int8 kernel (26 per INT8
-             forward). The card's INT8 intermediates are held against the
-             plain versions run on the CPU for the first 8 images. fp32 and
-             INT8 images/s from CUDA events over warmed, device-resident
-             runs.
+             forward: 17 on its TMA producer, 9 on its gather). The
+             card's
+             INT8 intermediates are held against the plain versions run on
+             the CPU for the first 8 images; which 4-D intermediates are
+             channels-last on the card, by op type. fp32 and INT8 images/s
+             from CUDA events over warmed, device-resident runs.
 4. profile - where one fp32 and one INT8 forward spend device time, by
              kernel, from torch.profiler (device busy share of the wall
-             time under the profiler).
+             time under the profiler), the copy kernels left per forward,
+             and a second profiled forward with each node in a range named
+             by its op type: device ms of PyTorch's kernels by op type (the
+             int8 kernels, launched through ctypes, fall in no range).
 5. kernel  - one line per distinct QLinearConv shape of that run: the
              kernel against its plain version on the same (real) inputs on
-             the card, bit for bit; kernel, plain and library times and the
-             card's bound for the same work.
+             the card, bit for bit; kernel and library (torch._int_mm, 1x1
+             convs) times from a replayed CUDA graph on the input laid out
+             channels-last, as the previous conv leaves it; the layout copy
+             the wrapper still makes on the main path's input (conv1's
+             NCHW, 3 channels padded to 4), timed alone; plain time; the
+             card's bound; TOP/s and GB/s.
 6. decode  - GPT-2 124M (the SMALL config: 12 layers, 12 heads of 64, n_embd
              768, vocab 50257; random weights from seed 0) through
              Generator.generate with INT4 planar weights, an INT8 KV cache
@@ -64,7 +73,8 @@ Phases, each printing JSON lines:
              B = 8 build of the same seed: the graph bakes B into its
              Reshape constants); quantize_graph; INT8 Engine. Counts set to
              0 just before, read just after: 73 qmatmul_int8 launches per
-             INT8 forward (6 per layer + the pooler) and no other kernel.
+             INT8 forward (6 per layer + the pooler), all on its requant
+             epilogue, and no other kernel.
              The first 8 sequences re-run through the plain versions on the
              CPU (a B = 8 build, quantized with the card's ranges): fp32
              outputs within 1e-4 * max|out|; every QLinearMatMul, fed the
@@ -75,11 +85,15 @@ Phases, each printing JSON lines:
              summation order moves one step cascades through the int8
              q/k/v): their equal fractions are printed, not held. fp32 and
              INT8 sequences/s from CUDA events.
-10. profile - one fp32 and one INT8 BERT forward under torch.profiler.
-11. kernel  - one line per distinct qmatmul_int8 shape of that run, on its
-             real operands: bit-equal to the plain version on the card;
-             kernel and library (torch._int_mm) times from a replayed CUDA
-             graph, the plain time, the card's bound.
+10. profile - one fp32 and one INT8 BERT forward under torch.profiler,
+             with device ms by op type (QuantizeLinear apart from
+             QLinearMatMul's own glue: any requant passes left).
+11. kernel  - two lines per distinct qmatmul_int8 shape of that run, on its
+             real operands: the requant epilogue (the main path) bit-equal
+             to qmatmul_int8_requant_plain and the int32 epilogue bit-equal
+             to qmatmul_int8_plain on the card; kernel and library
+             (torch._int_mm) times from a replayed CUDA graph, the plain
+             time, the card's bound, TOP/s and GB/s.
 12. ort_decode - the GPT-2 decode path of phase 6 with every MatMul that
              quantize_weights_int4 would take rewritten into the interleaved
              ORT MatMulNBits form (quant.pack_int4, no `layout`), carried
@@ -95,7 +109,8 @@ Phases, each printing JSON lines:
              16, 32, 64, 128, 512: every schedule that takes the shape
              (checked against the plain version) and the library call,
              timed; where small_m stops beating mma (the crossover).
-15. kernels - one line listing every ported kernel, one per TPU kernel.
+15. kernels - one line listing every ported kernel, one per TPU kernel,
+             after a line with the script's seconds so far.
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -105,6 +120,7 @@ it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -194,11 +210,24 @@ def _wrappers():
             "nibble_probe": qmatmul_int4.nibble_probe}
 
 
+# the per-variant counts some wrappers keep beside `launches`: int4
+# schedules, int8 GEMM epilogues, int8 conv A producers
+_SPLITS = ("schedules", "epilogues", "producers")
+
+
 def reset_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
-        if hasattr(w, "schedules"):  # the int4 kernels count per schedule
-            w.schedules = dict.fromkeys(w.schedules, 0)
+        for split in _SPLITS:
+            if hasattr(w, split):
+                setattr(w, split, dict.fromkeys(getattr(w, split), 0))
+
+
+def read_splits(name: str) -> dict:
+    """The per-variant launch counts of one kernel's wrapper."""
+    w = _wrappers()[name]
+    return {split: dict(getattr(w, split)) for split in _SPLITS
+            if hasattr(w, split)}
 
 
 def read_counts() -> dict:
@@ -280,7 +309,7 @@ def phase_build() -> None:
     # each kernel's entry line, then its registers, shared memory and spills
     regs = {name: [ln.strip() for ln in info.log.splitlines()
                    if "entry function" in ln or "registers" in ln
-                   or "spill" in ln]
+                   or "spill" in ln or "arning" in ln]
             for name, info in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": sorted(built), "ptxas": regs})
@@ -353,6 +382,12 @@ def phase_slice():
             f"{launches} launches for {int8_forwards} INT8 forwards")
     require(sum(counts.values()) == launches,
             f"only the int8 conv kernel on SqueezeNet's path: {counts}")
+    # the 17 1x1 convs (C % 16 == 0) read A by TMA; the 8 3x3 expands and
+    # conv1 gather their im2col
+    producers = read_splits("qconv_int8_requant")["producers"]
+    require(producers == {"tma": 17 * int8_forwards,
+                          "gather": 9 * int8_forwards},
+            f"A producers per INT8 forward: {producers} for {int8_forwards}")
 
     # every intermediate of the INT8 graph, on the card at b256 and through
     # the plain versions on the CPU for the first CPU_CHECK images
@@ -378,19 +413,48 @@ def phase_slice():
     require(out_err <= 1e-3, f"card vs plain INT8 softmax: {out_err}")
     top1_agree = float((y8.reshape(BATCH, -1).argmax(1)
                         == y32.reshape(BATCH, -1).argmax(1)).float().mean())
+    layouts = _layouts(probe, card)
+    require(layouts["QLinearConv"]["channels_last"]
+            == layouts["QLinearConv"]["outputs"] == n_qconv,
+            f"every QLinearConv leaves channels-last: {layouts}")
     emit({"phase": "slice", "model": "squeezenet1.0 224x224", "batch": BATCH,
           "golden_b1_max_abs_err": golden_err,
           "fp32_images_per_s": fp32_ips, "int8_images_per_s": int8_ips,
           "int8_over_fp32": int8_ips / fp32_ips,
           "qlinearconv_nodes": n_qconv, "int8_forwards": int8_forwards,
-          "qconv_launches": launches,
+          "qconv_launches": launches, "qconv_producers": producers,
           "launches_per_int8_forward": launches / int8_forwards,
           "int8_vs_plain_equal_fraction": frac,
           "int8_vs_plain_max_lsb": worst,
           "int8_vs_plain_softmax_max_abs_err": out_err,
           "int8_vs_fp32_top1_agreement": top1_agree,
+          "layout_by_op": layouts,
           "main_path_seconds": main_path_s})
     return eng, qgraph, eng8, card, launches, feed
+
+
+def _layouts(graph, values) -> dict:
+    """By op type: the 4-D outputs on the card, how many are channels-last,
+    and how many had a channels-last 4-D input but are not (a layout the op
+    dropped). A tensor whose H = W = 1 counts as channels-last."""
+    def cl(t):
+        return t.dim() == 4 and t.is_contiguous(
+            memory_format=torch.channels_last)
+
+    out = {}
+    for node in graph.nodes:
+        for name in node.outputs:
+            t = values.get(name)
+            if t is None or t.dim() != 4:
+                continue
+            row = out.setdefault(node.op_type, {"outputs": 0,
+                                                "channels_last": 0,
+                                                "dropped": 0})
+            row["outputs"] += 1
+            row["channels_last"] += cl(t)
+            row["dropped"] += (not cl(t)) and any(
+                cl(values[i]) for i in node.inputs if i in values)
+    return out
 
 
 # device kernel name fragment -> bucket, first match wins
@@ -405,7 +469,8 @@ _BUCKETS = (("qconv_int8_requant", "qconv_int8_requant (int8 conv)"),
 
 
 def phase_profile(eng, eng8, feed, reps: int = 3, *, model: str = "",
-                  batch: int = BATCH, buckets_by=_BUCKETS) -> None:
+                  batch: int = BATCH, buckets_by=_BUCKETS,
+                  glue_op: str = "QLinearConv") -> None:
     from torch.profiler import ProfilerActivity, profile
 
     dev_feed = {k: torch.as_tensor(v, device="cuda") for k, v in feed.items()}
@@ -435,13 +500,76 @@ def phase_profile(eng, eng8, feed, reps: int = 3, *, model: str = "",
             buckets[b] = buckets.get(b, 0.0) + ms
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        # layout and dtype copies (PyTorch's copy kernels; concat excluded)
+        copies = [evt for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA
+                  and "copy" in evt.key.lower() and "CatArray" not in evt.key]
+        ops_ms = _ms_by_op(e, dev_feed, reps)
         emit({"phase": "profile", "engine": f"{model}{name}", "batch": batch,
               "wall_ms_per_forward_profiled": wall_ms,
               "device_busy_ms_per_forward": busy,
               "device_idle_share": (1 - busy / wall_ms) if busy else None,
               "buckets_ms": dict(sorted(buckets.items(),
                                         key=lambda kv: -kv[1])),
+              "copy_kernels_per_forward": sum(evt.count for evt in copies)
+              / reps,
+              "copy_ms_per_forward": sum(kernels.get(evt.key, 0.0)
+                                         for evt in copies),
+              "ops_ms_per_forward": ops_ms,
+              # what the emitters of the ops that run the int8 kernel still
+              # launch around it: their ranges hold PyTorch's kernels only
+              # (the int8 kernel, launched through ctypes, is not
+              # attributed to a range; its time is in buckets_ms)
+              f"{glue_op}_glue_ms": ops_ms.get(glue_op, 0.0),
               "top_kernels_ms": [[k[:90], v] for k, v in top]})
+
+
+@contextlib.contextmanager
+def _op_ranges():
+    """Every emitter call of an Engine run inside a profiler range named
+    "op:<op type>", so that device time can be read by ONNX op type."""
+    from onnx_rusty_inference_engine_tpu_torch import engine as E
+
+    real = E.get_emitter
+
+    def ranged(*args, **kw):
+        emitter = real(*args, **kw)
+
+        def run(ctx, node, ins):
+            with torch.profiler.record_function(f"op:{node.op_type}"):
+                return emitter(ctx, node, ins)
+        return run
+
+    E.get_emitter = ranged
+    try:
+        yield
+    finally:
+        E.get_emitter = real
+
+
+def _ms_by_op(e, dev_feed, reps: int) -> dict:
+    """Device ms per forward of engine e by ONNX op type: the device time
+    of the kernels each op's emitter launched, from a profiled run with the
+    emitters in named ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), _op_ranges():
+        e._fn(e.params, dev_feed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                e._fn(e.params, dev_feed)
+            torch.cuda.synchronize()
+    ops = {}
+    for evt in prof.key_averages():
+        if (evt.key.startswith("op:")
+                and evt.device_type == torch.autograd.DeviceType.CPU):
+            us = getattr(evt, "device_time_total", None)
+            if us is None:
+                us = evt.cuda_time_total
+            ops[evt.key[3:]] = ops.get(evt.key[3:], 0.0) + us / 1e3 / reps
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
 
 
 def _conv_work(x, w, stride, padding):
@@ -463,19 +591,21 @@ def _conv_work(x, w, stride, padding):
     return 2 * macs, nbytes
 
 
+def _const(qgraph, params, name):
+    """A graph constant (scale, zero point) or weight on the card."""
+    v = params.get(name)
+    return v if v is not None else torch.as_tensor(
+        np.asarray(qgraph.constants[name]), device="cuda")
+
+
 def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qconv_int8 import (
-        qconv_int8_requant, qconv_int8_requant_plain)
+        channels_last_input, conv_plan, qconv_int8_requant,
+        qconv_int8_requant_plain)
     from onnx_rusty_inference_engine_tpu_torch.ops.standard import (
         _conv_padding)
 
     params = eng8.params
-
-    def const(name):
-        v = params.get(name)
-        return v if v is not None else torch.as_tensor(
-            np.asarray(qgraph.constants[name]), device="cuda")
-
     shapes = {}
     for node in qgraph.nodes:
         if node.op_type != "QLinearConv":
@@ -489,19 +619,22 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
         if key in shapes:
             shapes[key]["count"] += 1
             continue
-        mult = (const(node.inputs[1]).float() * const(node.inputs[4]).float()
-                / const(node.inputs[6]).float())
+        mult = (_const(qgraph, params, node.inputs[1]).float()
+                * _const(qgraph, params, node.inputs[4]).float()
+                / _const(qgraph, params, node.inputs[6]).float())
         bias = params.get(node.inputs[8]) if len(node.inputs) > 8 else None
         shapes[key] = {"node": node.name or node.outputs[0], "count": 1,
                        "x": x, "w": w, "mult": mult, "bias": bias,
                        "stride": stride, "padding": padding,
                        "packed": eng8.packed[node.inputs[3]]}
 
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-           "bytes_ms": 0.0, "library_ms": 0.0, "ms_1x1": 0.0}
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+                         "library_ms", "ms_1x1", "copy_ms"), 0.0)
     max_err = 0
     for (xs, ws, stride, padding), s in shapes.items():
-        x, w, mult, bias = s["x"], s["w"], s["mult"], s["bias"]
+        w, mult, bias = s["w"], s["mult"], s["bias"]
+        x_main = s["x"]  # as the main path hands it over
+        x = x_main.contiguous(memory_format=torch.channels_last)
 
         def kern():
             return qconv_int8_requant(x, w, mult, bias, stride=stride,
@@ -517,36 +650,43 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
         max_err = max(max_err, err)
         require(torch.equal(got, want), f"kernel == plain at {s['node']} "
                 f"x{xs} w{ws} (max |diff| {err})")
-        ms = cuda_ms(kern, ITERS)
+        require(got.is_contiguous(memory_format=torch.channels_last),
+                f"channels-last output at {s['node']}")
+        ms, ms_eager = graph_ms(kern, ITERS), cuda_ms(kern, ITERS)
         plain_ms = cuda_ms(plain, 3)
+        # the layout copy the wrapper makes of the main path's own input
+        copies = channels_last_input(x_main).data_ptr() != x_main.data_ptr()
+        copy_ms = graph_ms(lambda: channels_last_input(x_main),
+                           ITERS) if copies else 0.0
         library_ms = None
         if ws[2:] == (1, 1) and stride == (1, 1) and not any(
                 sum(padding, ())):
             # one PyTorch call with the same contraction (int32 out, no
-            # epilogue), on the same data already channels-last
-            a = x.permute(0, 2, 3, 1).reshape(-1, xs[1]).contiguous()
-            b = w.reshape(ws[0], ws[1]).contiguous()
-            library_ms = cuda_ms(lambda: torch._int_mm(a, b.t()), ITERS)
+            # epilogue), on the same channels-last data, timed the same way
+            a = x.permute(0, 2, 3, 1).reshape(-1, xs[1])
+            b = w.reshape(ws[0], ws[1])
+            library_ms = graph_ms(lambda: torch._int_mm(a, b.t()), ITERS)
         ops, nbytes = _conv_work(x, w, stride, padding)
-        ops_ms = ops / INT8_OPS_PER_S * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     INT8_OPS_PER_S)
+        producer, tile = conv_plan(xs, ws, stride, padding)
         emit({"phase": "kernel", "kernel": "qconv_int8_requant",
               "node": s["node"], "x": list(xs), "w": list(ws),
               "stride": list(stride), "padding": [list(p) for p in padding],
+              "producer": producer, "tile": list(tile),
               "count_per_forward": s["count"],
               # 26 QLinearConvs per forward (phase_slice checks it)
               "launches": s["count"] * (launches // 26), "equal": True,
-              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "max_abs_err": err, "ms": ms, "ms_eager": ms_eager,
+              "layout_copy_ms": copy_ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-              "ops": ops, "bytes": nbytes, "tops": ops / ms / 1e9})
+              "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+              "tops": ops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6})
         n = s["count"]
-        tot["ms"] += n * ms
-        tot["plain_ms"] += n * plain_ms
-        tot["bound_ms"] += n * bound_ms
-        tot["ops_ms"] += n * ops_ms
-        tot["bytes_ms"] += n * bytes_ms
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("ops_ms", ops_ms),
+                     ("bytes_ms", bytes_ms), ("copy_ms", copy_ms)):
+            tot[k] += n * v
         if library_ms is not None:
             tot["library_ms"] += n * library_ms
             tot["ms_1x1"] += n * ms
@@ -562,12 +702,18 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
                      else "bytes"),
         "library_ms": tot["library_ms"],
         "ms_same_shapes_as_library": tot["ms_1x1"],
+        "layout_copy_ms": tot["copy_ms"],
         "per": "one INT8 SqueezeNet 1.0 forward at b256: ms, plain_ms and "
-               "bound_ms sum its 26 QLinearConvs; library_ms sums "
-               "torch._int_mm (int32 out, no epilogue) over the 1x1 convs "
+               "bound_ms sum its 26 QLinearConvs; ms is the wrapper's device "
+               "time (CUDA-graph replay) on channels-last input, as the "
+               "previous conv leaves it (conv1's includes padding its 3 "
+               "channels to 4); layout_copy_ms sums the copies the wrapper "
+               "still makes of the main path's own inputs (conv1's NCHW "
+               "input), timed alone; library_ms sums torch._int_mm (int32 "
+               "out, no epilogue, timed the same way) over the 1x1 convs "
                "only, as no PyTorch call computes an int8 kxk conv, and "
                "ms_same_shapes_as_library is the kernel's own sum over "
-               "those same 1x1 convs",
+               "those same 1x1 convs; plain_ms is eager",
         "distinct_shapes": len(shapes), "card": smi}
 
 
@@ -1292,6 +1438,9 @@ def phase_bert():
     counts = read_counts()
     require(counts["qmatmul_int8"] == n_qmm,
             f"one int8 GEMM launch per QLinearMatMul: {counts}")
+    epilogues = read_splits("qmatmul_int8")["epilogues"]
+    require(epilogues == {"int32": 0, "requant": n_qmm},
+            f"every QLinearMatMul on the requant epilogue: {epilogues}")
     for name, shape in (("last_hidden_state",
                          (BERT_BATCH, BERT_SEQ, BASE.hidden)),
                         ("pooler_output", (BERT_BATCH, BASE.hidden))):
@@ -1306,6 +1455,9 @@ def phase_bert():
             f"{launches} launches for {int8_forwards} INT8 forwards")
     require(sum(counts.values()) == launches,
             f"only the int8 GEMM on BERT's path: {counts}")
+    epilogues = read_splits("qmatmul_int8")["epilogues"]
+    require(epilogues == {"int32": 0, "requant": launches},
+            f"every launch on the requant epilogue: {epilogues}")
 
     # every QLinearMatMul's int8 input and output, and the model's outputs,
     # on the card at B = 32 and through the plain versions on the CPU for
@@ -1357,8 +1509,8 @@ def phase_bert():
           "fp32_sequences_per_s": fp32_sps, "int8_sequences_per_s": int8_sps,
           "int8_over_fp32": int8_sps / fp32_sps,
           "qlinearmatmul_nodes": n_qmm, "int8_forwards": int8_forwards,
-          "launches": counts, "launches_per_int8_forward":
-              launches / int8_forwards,
+          "launches": counts, "epilogues": epilogues,
+          "launches_per_int8_forward": launches / int8_forwards,
           "cpu_sequences": BERT_CPU, "fp32_card_vs_plain_rel_err": fp32_err,
           "qlinearmatmul_card_vs_plain_on_card_inputs_differ": differ,
           "int8_free_run_equal_fraction_by_node": fracs,
@@ -1390,66 +1542,87 @@ _BERT_BUCKETS = (("qmatmul_int8", "qmatmul_int8 (int8 GEMM)"),
 
 def phase_bert_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qmatmul_int8 import (
-        qmatmul_int8, qmatmul_int8_plain)
+        int8_tile, qmatmul_int8, qmatmul_int8_plain, qmatmul_int8_requant,
+        qmatmul_int8_requant_plain)
 
     n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
+    params = eng8.params
     shapes = {}
     for node in qgraph.nodes:
         if node.op_type != "QLinearMatMul":
             continue
         a = card[node.inputs[0]]
-        b = eng8.params[node.inputs[3]]
+        b = params[node.inputs[3]]
         key = (a.numel() // a.shape[-1], *b.shape)
         if key in shapes:
             shapes[key]["count"] += 1
             continue
+        mult = (_const(qgraph, params, node.inputs[1]).float()
+                * _const(qgraph, params, node.inputs[4]).float()
+                / _const(qgraph, params, node.inputs[6]).float())
         shapes[key] = {"node": node.name or node.outputs[0], "count": 1,
                        "a": a.reshape(key[0], key[1]).contiguous(), "b": b,
+                       "mult": mult, "bias": (params.get(node.inputs[8])
+                                              if len(node.inputs) > 8
+                                              else None),
+                       "out": card[node.outputs[0]].reshape(key[0], key[2]),
                        "packed": eng8.packed.get(node.inputs[3])}
     require(sum(s["count"] for s in shapes.values()) == n_qmm,
             "the shapes account for every QLinearMatMul")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "ops_ms": 0.0, "bytes_ms": 0.0}
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms",
+                         "ops_ms", "bytes_ms", "ms_int32"), 0.0)
     for (M, K, N), s in shapes.items():
         a, b, packed = s["a"], s["b"], s["packed"]
+        mult, bias = s["mult"], s["bias"]
         bt = b.t().contiguous()
 
-        def kern():
-            return qmatmul_int8(a, b, packed=packed)
-
-        def plain():
-            return qmatmul_int8_plain(a, b)
-
-        def library():  # int32 out, no epilogue: the same function
+        def library():  # int32 out, no epilogue
             return torch._int_mm(a, bt.t())
 
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        require(torch.equal(got, want), f"qmatmul_int8 == plain at {s['node']}"
-                f" M={M} K={K} N={N} (max |diff| {err})")
-        library_equal = bool(torch.equal(library(), want))
-        ms, ms_eager = graph_ms(kern, ITERS), cuda_ms(kern, ITERS)
-        plain_ms = cuda_ms(plain, 3)
         library_ms = graph_ms(library, ITERS)
-        ops = 2 * M * N * K
-        nbytes = M * K + K * N + 4 * M * N
-        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
-                                                     INT8_OPS_PER_S)
-        emit({"phase": "kernel", "kernel": "qmatmul_int8", "node": s["node"],
-              "M": M, "K": K, "N": N, "count_per_forward": s["count"],
-              "launches": s["count"] * (launches // n_qmm), "equal": True,
-              "max_abs_err": err, "ms": ms, "ms_eager": ms_eager,
-              "plain_ms": plain_ms, "library_ms": library_ms,
-              "library": "torch._int_mm", "library_equal": library_equal,
-              "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
-              "bytes": nbytes, "tops": ops / ms / 1e9,
-              "gb_per_s": nbytes / ms / 1e6})
-        n = s["count"]
-        for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("bound_ms", bound_ms), ("library_ms", library_ms),
-                     ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
-            tot[k] += n * v
+        library_equal = bool(torch.equal(library(), qmatmul_int8_plain(a, b)))
+        epilogues = (
+            ("requant",
+             lambda: qmatmul_int8_requant(a, b, mult, bias, packed=packed),
+             lambda: qmatmul_int8_requant_plain(a, b, mult, bias),
+             M * K + K * N + M * N + 8 * N),
+            ("int32", lambda: qmatmul_int8(a, b, packed=packed),
+             lambda: qmatmul_int8_plain(a, b), M * K + K * N + 4 * M * N))
+        for epilogue, kern, plain, nbytes in epilogues:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            require(torch.equal(got, want), f"qmatmul_int8 ({epilogue}) == "
+                    f"plain at {s['node']} M={M} K={K} N={N} (max |diff| "
+                    f"{err})")
+            if epilogue == "requant":  # the main path's own output
+                require(torch.equal(got, s["out"]),
+                        f"the requant line repeats {s['node']}'s output")
+            ms, ms_eager = graph_ms(kern, ITERS), cuda_ms(kern, ITERS)
+            plain_ms = cuda_ms(plain, 3)
+            ops = 2 * M * N * K
+            bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                         INT8_OPS_PER_S)
+            emit({"phase": "kernel", "kernel": "qmatmul_int8",
+                  "epilogue": epilogue, "node": s["node"], "M": M, "K": K,
+                  "N": N, "tile": list(int8_tile(M, N, K)),
+                  "count_per_forward": s["count"],
+                  "launches": (s["count"] * (launches // n_qmm)
+                               if epilogue == "requant" else 0),
+                  "equal": True, "max_abs_err": err, "ms": ms,
+                  "ms_eager": ms_eager, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "library": "torch._int_mm",
+                  "library_equal": library_equal, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+                  "tops": ops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6})
+            n = s["count"]
+            if epilogue == "int32":
+                tot["ms_int32"] += n * ms
+                continue
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound_ms), ("library_ms", library_ms),
+                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                tot[k] += n * v
     require(launches > 0, "qmatmul_int8 launched on the main path")
     source, replaces = KERNEL_ROWS["qmatmul_int8"]
     return {
@@ -1459,11 +1632,13 @@ def phase_bert_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
         "bound_ms": tot["bound_ms"],
         "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                      else "bytes"),
-        "library_ms": tot["library_ms"],
+        "library_ms": tot["library_ms"], "ms_int32_epilogue": tot["ms_int32"],
         "per": "one INT8 BERT-base forward at B = 32, T = 128: ms, plain_ms, "
-               "bound_ms and library_ms sum its 73 QLinearMatMuls; ms and "
-               "library_ms (torch._int_mm) are device times (CUDA-graph "
-               "replay), plain_ms eager",
+               "bound_ms and library_ms sum its 73 QLinearMatMuls; ms on the "
+               "requant epilogue (int8 out, the main path), "
+               "ms_int32_epilogue on the int32 one; ms and library_ms "
+               "(torch._int_mm, int32 out, no epilogue) are device times "
+               "(CUDA-graph replay), plain_ms eager",
         "distinct_shapes": len(shapes), "card": smi}
 
 
@@ -1518,6 +1693,7 @@ def main() -> int:
     require(os.path.isdir(os.path.join(HERE, PKG)),
             f"the package {PKG}/ beside this script")
     sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -1539,7 +1715,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             eng, eng8, qgraph, card, launches, feed = phase_bert()
             phase_profile(eng, eng8, feed, model="bert-base ",
-                          batch=BERT_BATCH, buckets_by=_BERT_BUCKETS)
+                          batch=BERT_BATCH, buckets_by=_BERT_BUCKETS,
+                          glue_op="QLinearMatMul")
             rows.insert(1, phase_bert_kernels(qgraph, eng8, card, launches,
                                               smi))
             del eng, eng8, card
@@ -1553,6 +1730,7 @@ def main() -> int:
             phase_int4_sweep(smi)
             rows.append(phase_nibble(counts["qmatmul_int4_planar"]
                                      + counts_ort["qmatmul_int4_bf16"], smi))
+            emit({"phase": "done", "seconds": time.perf_counter() - t_start})
             emit({"kernels": rows})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

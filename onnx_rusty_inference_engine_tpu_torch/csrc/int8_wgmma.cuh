@@ -1,0 +1,851 @@
+// One int8 tensor-core mainloop for Hopper (sm_90a), shared by the int8
+// GEMM (qmatmul_int8.cu) and the int8 implicit-GEMM convolution
+// (qconv_int8.cu).
+//
+//   out[m, n] = epilogue(sum_k A[m, k] * Bp[n, k])
+//
+// A is int8 [M, K] and Bp int8 [N, Kp] (a packed weight: K-contiguous rows,
+// zero past K). Both are read K-major, the only layout wgmma takes for 8-bit
+// types, in 128-byte K slices.
+//
+// Block: WGM consumer warpgroups (64 output rows each, BM = 64 * WGM) and one
+// producer (a warp, or a warpgroup for the im2col gather). The producer keeps
+// a ring of `stages` shared-memory slots filled, each holding A's BM x 128
+// and Bp's BN x 128 bytes (or A's alone, Bp resident: see Tile) in the
+// 128-byte-swizzled layout that both TMA and
+// the wgmma descriptors name; an mbarrier pair per slot (full: the bytes
+// landed; empty: both warpgroups' products on it are done) hands slots back
+// and forth, so loads stay in flight while the tensor cores work. Each
+// consumer warpgroup runs wgmma.m64nBNk32.s32.s8.s8 (four per slice) into
+// BN / 2 int32 registers a thread, and keeps one slice's products in flight
+// while it waits on the next slice.
+//
+// A producers (compile-time):
+//   A_TMA     A is a row-major matrix (the GEMM's activations, or a 1x1,
+//             stride-1, unpadded conv's channels-last input): TMA, which
+//             also fills rows past M and bytes past K with zeros;
+//   A_GATHER  the implicit im2col of a conv over channels-last int8 x
+//             [B, H, W, C], C a multiple of 4, K ordered (kh, kw, c), by 128
+//             threads with cp.async: a thread owns one 16-byte column of the
+//             slice for BM / 16 rows and fills it in runs of 16, 8 or 4
+//             bytes (one tap's channels each, as C's divisibility allows),
+//             zero-filling padding taps. Bp still comes by TMA.
+// Epilogues (compile-time):
+//   EPI_INT32    int32 [M, N], exact (the caller keeps |sum| < 2^31);
+//   EPI_REQUANT  int8 [M, N] = sat(rn(fmul_rn(i2f_rn(acc + bias[n]),
+//                mult[n]))), staged through shared memory so that each row
+//                leaves in 16-byte stores along N.
+// Persistent blocks: each walks output tiles; the producer fills the ring
+// for the next tile while the consumers run this one's epilogue.
+//
+// Tile: BN in {16, 32, 48, 64, 96, 128, 192, 256} (one wgmma N each), BM in
+// {64, 128}; the callers pick them (and the ring depth) from the shape in
+// Python (ops/kernels/qmatmul_int8.py::int8_tile) and the entry points
+// refuse a choice that does not fit. Where N fits one tile and Bp's K
+// slices fit beside the ring, Bp is resident: loaded once per block rather
+// than once per tile, because every block reading the same few kilobytes of
+// weights from L2 for every tile bounded the narrow convs.
+
+#pragma once
+
+#ifndef I8G_KERNEL
+#error "define I8G_KERNEL, the kernel's name in the including library"
+#endif
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+// Everything here has internal linkage: both libraries include it, and a
+// function-local static of an inline template (the shared-memory opt-in
+// below) would otherwise be one symbol across every loaded library.
+namespace i8g {
+namespace {
+
+constexpr int BK = 128;             // K bytes per slot: one 128-byte swizzle row
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory an H100 block can opt into
+constexpr int MAX_STAGES = 8;
+
+enum { A_TMA = 0, A_GATHER = 1 };
+enum { EPI_INT32 = 0, EPI_REQUANT = 1 };
+
+// n / d for 0 <= n, n * d < 2^32: a shift where d is a power of two, else
+// the high word of n * m, m = floor(2^32 / d) + 1 (the error n * (m d -
+// 2^32) / (d 2^32) stays below 1 / d). A runtime division costs some twenty
+// instructions; the gather needs two per run it copies.
+struct FastDiv {
+  uint32_t m;  // 0: shift
+  int s;
+};
+
+inline FastDiv make_fastdiv(uint32_t d) {
+  FastDiv f = {0, 0};
+  if ((d & (d - 1)) == 0) {
+    while ((1u << f.s) < d) ++f.s;
+  } else {
+    f.m = (uint32_t)((1ull << 32) / d + 1);
+  }
+  return f;
+}
+
+__device__ __forceinline__ int fdiv(int n, FastDiv f) {
+  return f.m ? (int)__umulhi((uint32_t)n, f.m) : n >> f.s;
+}
+
+struct Params {
+  int M, N;
+  int K;          // A_GATHER: the im2col row length KH * KW * C; bytes past it are 0
+  int num_k;      // 128-byte K slices: ceil(Kp / 128)
+  int stages;     // ring depth
+  void* out;      // int32 or int8 [M, N]
+  const float* mult;     // EPI_REQUANT: f32 [N]
+  const int32_t* bias;   // EPI_REQUANT: int32 [N] or null
+  // A_GATHER: x int8 [B, H, W, C] channels-last, output [B, OH, OW]
+  const int8_t* x;
+  int H, W, C, OH, OW, KW, stride_h, stride_w, pad_h, pad_w;
+  int gran;       // bytes per cp.async: 16, 8 or 4 (divides C)
+  FastDiv div_c, div_kw;  // k / C and tap / KW without a division
+  // Bp resident: the block's one N tile of Bp (all K) is loaded into shared
+  // memory once, and the ring carries A alone
+  int b_resident;
+};
+
+inline size_t smem_bytes(int bm, int bn, int stages, int resident_k = 0) {
+  // 1024 of slack to align the ring to the 1024-byte swizzle atom, the
+  // slots (A and Bp, or A alone with Bp's resident_k slices after them),
+  // the requant epilogue's int8 staging tile (rows of bn + 16 bytes), then
+  // a full and an empty mbarrier per slot and one for the resident Bp
+  const size_t slot = (size_t)(bm + (resident_k ? 0 : bn)) * BK;
+  return 1024 + stages * slot + (size_t)resident_k * bn * BK + (size_t)bm * (bn + 16) +
+         16 * (size_t)stages + 8;
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// G bytes from src into shared dst, or G zero bytes where !ok (src unread)
+template <int G>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bool ok) {
+  const uint32_t n = ok ? G : 0;
+  if (G == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+                 "r"(n)
+                 : "memory");
+  else if (G == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst), "l"(src),
+                 "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+                 "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes (cp.async) made visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// min(max(__float2int_rn(y), -128), 127) for a finite y, without the
+// conversion unit (16 results a clock on an SM, against 128 for the float
+// pipe): clamp first (the same result, as rounding is monotonic and the
+// bounds are integers), then add 1.5 * 2^23, a float sum that rounds y half
+// to even into the low mantissa bits.
+__device__ __forceinline__ int f32_to_s8(float y) {
+  const float c = fminf(fmaxf(y, -128.f), 127.f);
+  return __float_as_int(__fadd_rn(c, 12582912.f)) - 0x4B400000;
+}
+
+// Keeps the compiler from moving accumulator reads above a wgmma wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// wgmma matrix descriptor of a K-major operand in 128-byte-swizzled rows:
+// 8-row groups 1024 bytes apart; the leading offset is unused by this layout.
+// A step of 32 bytes along K inside the row adds 2 to the address field.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma.m64nNk32.s32.s8.s8, A and B from shared memory; d += A * B, or
+// d = A * B where scale_d is 0. PTX names every accumulator register.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void mma(int (&d)[24], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void mma(int (&d)[48], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  static __device__ __forceinline__ void mma(int (&d)[96], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(int (&d)[128], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+      "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+      "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+      "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+      "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the producers
+// ---------------------------------------------------------------------------
+// One 128-byte K slice of the im2col rows of A into the slot at `slot`
+// (A_GATHER): this thread's 16-byte column c, in runs of G bytes, for rows
+// r0 + 16 i. `img`, `ih0`, `iw0` locate each row's output pixel (img < 0: a
+// row past M). Padding taps, bytes past K and rows past M are zero-filled:
+// the lanes of a warp hold different columns, and one predicated copy for
+// all of them runs faster than lanes that skip theirs.
+template <int G, int RPT>
+__device__ __forceinline__ void gather_slice(const Params& p, uint32_t slot, int kt, int c,
+                                             int r0, const int64_t (&img)[RPT],
+                                             const int (&ih0)[RPT],
+                                             const int (&iw0)[RPT]) {
+  const uint32_t col = (uint32_t)((c ^ (r0 & 7)) * 16);  // swizzled 16-byte column
+#pragma unroll
+  for (int j = 0; j < 16 / G; ++j) {
+    const int k = kt * BK + c * 16 + j * G;
+    const bool k_ok = k < p.K;
+    const int tap = fdiv(k, p.div_c);
+    const int ch = k - tap * p.C;
+    const int kh = fdiv(tap, p.div_kw);
+    const int kw = tap - kh * p.KW;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int ih = ih0[i] + kh;
+      const int iw = iw0[i] + kw;
+      const bool ok = k_ok && img[i] >= 0 && (unsigned)ih < (unsigned)p.H &&
+                      (unsigned)iw < (unsigned)p.W;
+      const int8_t* src = ok ? p.x + img[i] + ((int64_t)ih * p.W + iw) * p.C + ch : p.x;
+      cp_async_zfill<G>(slot + (uint32_t)(r0 + 16 * i) * BK + col + j * G, src, ok);
+    }
+  }
+}
+
+// Where output row m reads its input: x offset of its image (-1 past M) and
+// the top-left tap's (ih, iw).
+__device__ __forceinline__ void row_origin(const Params& p, int m, int64_t& img, int& ih0,
+                                           int& iw0) {
+  if (m >= p.M) {
+    img = -1;
+    ih0 = iw0 = 0;
+    return;
+  }
+  const int plane = p.OH * p.OW;
+  const int b = m / plane;
+  const int pix = m - b * plane;
+  const int oh = pix / p.OW;
+  img = (int64_t)b * p.H * p.W * p.C;
+  ih0 = oh * p.stride_h - p.pad_h;
+  iw0 = (pix - oh * p.OW) * p.stride_w - p.pad_w;
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+// Waits until this thread's cp.async groups but the newest `lag` have landed.
+__device__ __forceinline__ void cp_async_wait_lag(int lag) {
+  if (lag >= 3)
+    cp_async_wait<3>();
+  else if (lag == 2)
+    cp_async_wait<2>();
+  else if (lag == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
+// Persistent: block b takes output tiles b, b + gridDim.x, ... (N tiles
+// fastest, so the blocks in flight share A's rows in L2). The producer runs
+// through every slice of every tile on one slot counter `it`, so it fills
+// the ring for the next tile while the consumers run this one's epilogue.
+template <int PROD, int EPI, int BN, int WGM>
+__global__ void __launch_bounds__(WGM * 128 + (PROD == A_TMA ? 32 : 128), BN >= 96 ? 1 : 2)
+I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
+           const __grid_constant__ CUtensorMap tm_b, const Params p) {
+  constexpr int BM = 64 * WGM;
+  constexpr int CONSUMERS = 128 * WGM;
+  constexpr int PRODUCERS = PROD == A_TMA ? 32 : 128;
+  constexpr int A_BYTES = BM * BK;
+  constexpr int B_BYTES = BN * BK;
+  constexpr int R = BN / 2;                // accumulators per thread
+  constexpr int LDS = BN + 16;             // staging row stride (bytes)
+  const bool bres = p.b_resident != 0;
+  const int SLOT = A_BYTES + (bres ? 0 : B_BYTES);  // a multiple of 1024
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const int S = p.stages;
+  const uint32_t b_res = ring + S * SLOT;  // resident Bp: num_k slices of B_BYTES
+  const int b_res_bytes = bres ? p.num_k * B_BYTES : 0;
+  uint8_t* ring_ptr = smem_raw + (ring - raw);
+  uint8_t* staging = ring_ptr + S * SLOT + b_res_bytes;  // BM x LDS bytes (requant)
+  const uint32_t full0 = ring + S * SLOT + b_res_bytes + BM * LDS;
+  const uint32_t empty0 = full0 + 8 * S;
+  const uint32_t b_full = empty0 + 8 * S;  // the resident Bp has landed
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      // full: the TMA thread's expect-tx arrival (+ one per gather thread)
+      mbar_init(full0 + 8 * s, PROD == A_TMA ? 1 : PRODUCERS + 1);
+      mbar_init(empty0 + 8 * s, 4 * WGM);  // one arrival per consumer warp
+    }
+    mbar_init(b_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int tiles = ((p.M + BM - 1) / BM) * n_tiles;
+
+  if (tid >= CONSUMERS) {
+    // ------------------------------------------------------------ producer
+    const int pt = tid - CONSUMERS;
+    if (bres && pt == 0) {  // the one N tile (n0 = 0) of Bp, all of K, once
+      mbar_arrive_tx(b_full, b_res_bytes);
+      for (int kt = 0; kt < p.num_k; ++kt)
+        tma_load_2d(b_res + kt * B_BYTES, &tm_b, b_full, kt * BK, 0);
+    }
+    if constexpr (PROD == A_TMA) {
+      if (pt != 0) return;
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * BM;
+        const int n0 = tile % n_tiles * BN;
+        for (int kt = 0; kt < p.num_k; ++kt, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty0 + 8 * s, (it / S - 1) & 1);
+          const uint32_t slot = ring + s * SLOT;
+          mbar_arrive_tx(full0 + 8 * s, SLOT);
+          tma_load_2d(slot, &tm_a, full0 + 8 * s, kt * BK, m0);
+          if (!bres) tma_load_2d(slot + A_BYTES, &tm_b, full0 + 8 * s, kt * BK, n0);
+        }
+      }
+    } else {
+      // thread pt owns 16-byte column pt % 8 of rows pt / 8 + 16 i
+      constexpr int RPT = BM / 16;
+      const int c = pt & 7;
+      const int r0 = pt >> 3;
+      // slices a thread keeps in flight before it publishes the oldest. A
+      // consumer frees slot j once it has slice j + 1, so the producer,
+      // waiting for slot it - S, must have published it - S + 1: lag <= S - 2
+      const int lag = S - 2 < 3 ? S - 2 : 3;
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * BM;
+        const int n0 = tile % n_tiles * BN;
+        int64_t img[RPT];
+        int ih0[RPT], iw0[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) row_origin(p, m0 + r0 + 16 * i, img[i], ih0[i], iw0[i]);
+        for (int kt = 0; kt < p.num_k; ++kt, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty0 + 8 * s, (it / S - 1) & 1);
+          const uint32_t slot = ring + s * SLOT;
+          if (pt == 0 && bres) {
+            mbar_arrive(full0 + 8 * s);
+          } else if (pt == 0) {
+            mbar_arrive_tx(full0 + 8 * s, B_BYTES);
+            tma_load_2d(slot + A_BYTES, &tm_b, full0 + 8 * s, kt * BK, n0);
+          }
+          if (p.gran == 16)
+            gather_slice<16, RPT>(p, slot, kt, c, r0, img, ih0, iw0);
+          else if (p.gran == 8)
+            gather_slice<8, RPT>(p, slot, kt, c, r0, img, ih0, iw0);
+          else
+            gather_slice<4, RPT>(p, slot, kt, c, r0, img, ih0, iw0);
+          cp_async_commit();
+          if (it >= lag) {  // slice it - lag has landed: publish it
+            cp_async_wait_lag(lag);
+            fence_proxy_async();
+            mbar_arrive(full0 + 8 * ((it - lag) % S));
+          }
+        }
+      }
+      cp_async_wait<0>();
+      fence_proxy_async();
+      for (int j = it - lag > 0 ? it - lag : 0; j < it; ++j) mbar_arrive(full0 + 8 * (j % S));
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int wg = tid >> 7;  // rows 64 * wg of each tile
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  // accumulator fragment (wgmma m64nN): acc[4j + 2h + e] is row
+  // 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e of the
+  // warpgroup's 64 x BN tile
+  const int row_in_wg = warp * 16 + (lane >> 2);
+  const int col_in_j = 2 * (lane & 3);
+  int acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0;
+
+  if (bres) mbar_wait(b_full, 0);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * BM;
+    const int rows = p.M - m0 < BM ? p.M - m0 : BM;
+    const int n0 = tile % n_tiles * BN;
+    for (int kt = 0; kt < p.num_k; ++kt, ++it) {
+      const int s = it % S;
+      mbar_wait(full0 + 8 * s, (it / S) & 1);
+      const uint32_t a_slot = ring + s * SLOT + wg * 64 * BK;
+      const uint32_t b_slot = bres ? b_res + kt * B_BYTES : ring + s * SLOT + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        Wgmma<BN>::mma(acc, sw128_desc(a_slot + kk * 32), sw128_desc(b_slot + kk * 32),
+                       (kt | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slice's products are done: free its slot
+      if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S));
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S));
+    fence_acc(acc);
+
+    if constexpr (EPI == EPI_INT32) {
+      int32_t* out = static_cast<int32_t*>(p.out);
+      const bool vec = (p.N % 2 == 0) && (reinterpret_cast<uintptr_t>(out) % 8 == 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * 64 + row_in_wg + 8 * h;
+        if (r >= rows) continue;
+        const int m = m0 + r;
+        int32_t* orow = out + (int64_t)m * p.N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = n0 + 8 * j + col_in_j;
+          const int v0 = acc[4 * j + 2 * h];
+          const int v1 = acc[4 * j + 2 * h + 1];
+          if (vec && n + 1 < p.N) {
+            *reinterpret_cast<int2*>(orow + n) = make_int2(v0, v1);
+          } else {
+            if (n < p.N) orow[n] = v0;
+            if (n + 1 < p.N) orow[n + 1] = v1;
+          }
+        }
+      }
+    } else {
+      uint8_t* stage = staging + wg * 64 * LDS;
+      named_barrier(2 + wg, 128);  // the warpgroup's previous tile has left
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + col_in_j;
+        const float mu0 = n < p.N ? p.mult[n] : 0.f;
+        const float mu1 = n + 1 < p.N ? p.mult[n + 1] : 0.f;
+        const int b0 = (p.bias != nullptr && n < p.N) ? p.bias[n] : 0;
+        const int b1 = (p.bias != nullptr && n + 1 < p.N) ? p.bias[n + 1] : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q0 = f32_to_s8(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h] + b0), mu0));
+          const int q1 = f32_to_s8(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1] + b1), mu1));
+          *reinterpret_cast<uint16_t*>(stage + (row_in_wg + 8 * h) * LDS + 8 * j + col_in_j) =
+              (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
+        }
+      }
+      named_barrier(2 + wg, 128);
+      int8_t* out = static_cast<int8_t*>(p.out);
+      const int wtid = tid & 127;
+      const bool vec16 = (p.N % 16 == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+      const bool vec8 = (p.N % 8 == 0) && (reinterpret_cast<uintptr_t>(out) % 8 == 0);
+      constexpr int CPR = BN / 16;  // 16-byte chunks per row
+      for (int idx = wtid; idx < 64 * CPR; idx += 128) {
+        const int r = idx / CPR;
+        const int ch = idx - r * CPR;
+        const int n = n0 + 16 * ch;
+        if (wg * 64 + r >= rows || n >= p.N) continue;
+        const int m = m0 + wg * 64 + r;
+        const uint8_t* src = stage + r * LDS + 16 * ch;
+        int8_t* dst = out + (int64_t)m * p.N + n;
+        if (vec16 && n + 16 <= p.N) {
+          *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+        } else if (vec8) {
+          *reinterpret_cast<int2*>(dst) = *reinterpret_cast<const int2*>(src);
+          if (n + 16 <= p.N)
+            *reinterpret_cast<int2*>(dst + 8) = *reinterpret_cast<const int2*>(src + 8);
+        } else {
+          for (int b = 0; b < 16 && n + b < p.N; ++b) dst[b] = (int8_t)src[b];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library links no libcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym,
+                                                     12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(sym);
+  }
+  return fn;
+}
+
+// A TMA map of a row-major int8 [rows, cols] matrix (cols a multiple of 16,
+// base 16-byte aligned), loaded in boxes of box_rows x 128 bytes with the
+// 128-byte swizzle; reads outside the matrix return zeros.
+inline cudaError_t encode_rows(CUtensorMap* map, const void* base, uint64_t rows,
+                               uint64_t cols, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int PROD, int EPI, int BN, int WGM>
+cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params& p,
+                        cudaStream_t st) {
+  constexpr int BM = 64 * WGM;
+  constexpr int THREADS = WGM * 128 + (PROD == A_TMA ? 32 : 128);
+  const size_t smem = smem_bytes(BM, BN, p.stages, p.b_resident ? p.num_k : 0);
+  auto kern = I8G_KERNEL<PROD, EPI, BN, WGM>;
+  static size_t opted_in = 0;  // the shared memory this instantiation may use
+  static size_t occ_smem = 0;  // blocks an SM holds at that shared memory
+  static int occ = 0;
+  cudaError_t e;
+  if (smem > opted_in) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  if (smem != occ_smem) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, THREADS, smem);
+    if (e != cudaSuccess) return e;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    occ_smem = smem;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const long long tiles = (long long)((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+  const long long blocks = tiles < (long long)sms * occ ? tiles : (long long)sms * occ;
+  kern<<<(unsigned)blocks, THREADS, smem, st>>>(a, b, p);
+  return cudaGetLastError();
+}
+
+template <int PROD, int EPI, int WGM>
+cudaError_t launch_bn(int bn, const CUtensorMap& a, const CUtensorMap& b, const Params& p,
+                      cudaStream_t st) {
+  switch (bn) {
+    case 16: return launch_tile<PROD, EPI, 16, WGM>(a, b, p, st);
+    case 32: return launch_tile<PROD, EPI, 32, WGM>(a, b, p, st);
+    case 48: return launch_tile<PROD, EPI, 48, WGM>(a, b, p, st);
+    case 64: return launch_tile<PROD, EPI, 64, WGM>(a, b, p, st);
+    case 96: return launch_tile<PROD, EPI, 96, WGM>(a, b, p, st);
+    case 128: return launch_tile<PROD, EPI, 128, WGM>(a, b, p, st);
+    case 192: return launch_tile<PROD, EPI, 192, WGM>(a, b, p, st);
+    case 256: return launch_tile<PROD, EPI, 256, WGM>(a, b, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+inline bool tile_fits(int bm, int bn, int stages, int resident_k) {
+  const bool bn_ok = bn == 16 || bn == 32 || bn == 48 || bn == 64 || bn == 96 ||
+                     bn == 128 || bn == 192 || bn == 256;
+  return (bm == 64 || bm == 128) && bn_ok && stages >= 2 && stages <= MAX_STAGES &&
+         smem_bytes(bm, bn, stages, resident_k) <= (size_t)SMEM_LIMIT;
+}
+
+// Encodes Bp's map (and A's, for A_TMA: a [M, K] with K a multiple of 16)
+// and launches the tile (bm, bn, stages; p.b_resident: Bp resident, which
+// needs N <= bn), after checking that it fits.
+template <int PROD, int EPI>
+cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int bn,
+                   cudaStream_t st) {
+  p.num_k = (Kp + BK - 1) / BK;
+  if (!tile_fits(bm, bn, p.stages, p.b_resident ? p.num_k : 0) ||
+      p.M <= 0 || p.N <= 0 || Kp <= 0 || Kp % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bp) % 16 != 0 || (p.b_resident && p.N > bn) ||
+      (long long)((p.M + bm - 1) / bm) * ((p.N + bn - 1) / bn) >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  memset(&ta, 0, sizeof(ta));
+  cudaError_t e = encode_rows(&tb, bp, (uint64_t)p.N, (uint64_t)Kp, (uint32_t)bn);
+  if (e != cudaSuccess) return e;
+  if (PROD == A_TMA) {
+    if (reinterpret_cast<uintptr_t>(a) % 16 != 0) return cudaErrorInvalidValue;
+    e = encode_rows(&ta, a, (uint64_t)p.M, (uint64_t)Kp, (uint32_t)bm);
+    if (e != cudaSuccess) return e;
+  }
+  return bm == 64 ? launch_bn<PROD, EPI, 1>(bn, ta, tb, p, st)
+                  : launch_bn<PROD, EPI, 2>(bn, ta, tb, p, st);
+}
+
+}  // namespace
+}  // namespace i8g

@@ -1,233 +1,92 @@
-// int8 implicit-GEMM convolution with a fused int32-bias + fp32 requant
-// epilogue, for Hopper (sm_90a).
+// int8 implicit-GEMM convolution with a fused int32-bias + f32 requant
+// epilogue, for Hopper (sm_90a), on the int8 tensor cores (wgmma).
 //
 // Replaces the TPU kernel onnx_rusty_inference_engine_tpu/ops/kernels/
 // qmatmul.py::qmatmul_int8_requant (body _mm_requant_kernel) and its 1x1-conv
-// wrapper qconv1x1_int8_requant. One kernel covers every symmetric,
-// group-1 QLinearConv: 1x1, kxk with padding, and strided; a plain
-// [M,K] x [K,N] matrix product is the 1x1 case with H = W = 1.
+// wrapper qconv1x1_int8_requant. One entry point covers every symmetric,
+// group-1 QLinearConv: 1x1, kxk with padding, and strided.
 //
-//   M = B*OH*OW output pixels, N = O output channels,
-//   K = KH*KW*C, ordered (kh, kw, c) so that a run of channels of one tap is
-//   contiguous in channels-last activations.
-//   y[m, n] = sat_int8(rint(float(sum_k x[m, k] * w[n, k] + bias[n]) * mult[n]))
+//   x  int8 [B, H, W, C] channels-last, C a multiple of 4 (the wrapper pads
+//      other C with zero channels);
+//   w  int8 [N, Kp]: row n = output channel n's taps in (kh, kw, c) order,
+//      K = KH*KW*C, zero past K, Kp = K rounded up to 16
+//      (ops/kernels/qconv_int8.py::pack_qconv_weight);
+//   y  int8 [M, N], M = B*OH*OW: channels-last output, which the next conv
+//      reads as it is;
+//   y[m, n] = sat_int8(rint(float(sum_k x[m, k] * w[n, k] + bias[n]) * mult[n])).
 //
-// The im2col matrix is never written to device memory: each block gathers
-// its A tile straight from the channels-last input, reading padding taps as
-// 0. The int32 sums stay in registers and only int8 leaves the kernel, which
-// is what the TPU kernel kept in VMEM.
+// The mainloop is csrc/int8_wgmma.cuh. Two A producers:
+//   producer 0 (TMA): a 1x1, stride-1, unpadded conv with C % 16 == 0 is a
+//     plain matrix product over the channels-last input [M, C];
+//   producer 1 (gather): any other conv; the im2col matrix is never
+//     written to device memory, each block gathers its A tile straight from
+//     x by cp.async into the ring (16-, 8- or 4-byte runs, one tap's
+//     channels each), zero-filling padding taps.
+// The int32 sums stay in registers and only int8 leaves the kernel, as the
+// TPU kernel kept them in VMEM.
 //
-// What bounds it: SqueezeNet's convs at batch 256 do 2*M*N*K operations over
-// a few bytes per output, far above the H100's ~590 int8 operations per byte
-// of HBM, so the bound is the int8 tensor-core rate. This first version does
-// not reach the tensor cores: it multiplies with __dp4a (four int8 products
-// per instruction on the CUDA cores) from a 128x64 output tile per block,
-// staged through shared memory with the next K slice prefetched into
-// registers. wgmma with TMA-fed tiles is the step that moves it toward the
-// bound.
+// What bounds it: SqueezeNet's 3x3 expands and conv10 at batch 256 do
+// 2*M*N*K operations on few bytes per output, above the H100's ~590 int8
+// operations per byte of HBM: the tensor-core rate bounds them. Its 1x1
+// squeezes (N = 16-64) and conv1 move more bytes than they compute: HBM
+// bounds those. The design keeps both rates in reach: wgmma fed from a ring
+// of asynchronous copies for the first kind, an N tile sized to the layer
+// (16-256 wide, so a squeeze wastes no tensor-core columns) and coalesced
+// 16-byte int8 stores for the second.
 //
 // Rounding: __float2int_rn (half to even), as jnp.round does; never roundf.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+// the mainloop's kernel, named for this library in profiles
+#define I8G_KERNEL qconv_int8_requant_kernel
+#include "int8_wgmma.cuh"
 
-namespace {
-
-constexpr int BM = 128;       // output pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 32;        // K bytes per stage; packed weight rows are padded to it
-constexpr int THREADS = 256;  // 16 x 16 threads, each owning 8 pixels x 4 channels
-constexpr int TM = 8;
-constexpr int TN = 4;
-
-struct ConvShape {
-  int B, H, W, C;        // input, channels-last [B, H, W, C]
-  int OH, OW, N;         // output
-  int KH, KW;
-  int stride_h, stride_w;
-  int pad_h, pad_w;      // top and left padding; bottom/right follow from OH, OW
-  int K, Kp;             // K = KH*KW*C; Kp = packed weight row length (multiple of BK)
-  int64_t M;             // B*OH*OW
-  int64_t plane;         // output layout: y[(m / plane * N + n) * plane + m % plane]
-};
-
-// One byte of the implicit im2col row: 0 outside the image or past K.
-__device__ __forceinline__ uint32_t gather_byte(const int8_t* __restrict__ xb,
-                                                const ConvShape& s, int k,
-                                                int ih0, int iw0) {
-  if (k >= s.K) return 0;
-  const int tap = k / s.C;
-  const int c = k - tap * s.C;
-  const int kh = tap / s.KW;
-  const int ih = ih0 + kh;
-  const int iw = iw0 + (tap - kh * s.KW);
-  if ((unsigned)ih >= (unsigned)s.H || (unsigned)iw >= (unsigned)s.W) return 0;
-  return (uint8_t)xb[((int64_t)ih * s.W + iw) * s.C + c];
-}
-
-// 16 consecutive K bytes of one im2col row, packed little-endian into four
-// words (byte k + 4w + i in bits 8i of word w, the order __dp4a pairs them).
-// VEC: C % 16 == 0, so the 16 bytes are one aligned run of a single tap.
-template <bool VEC>
-__device__ __forceinline__ int4 load_a(const int8_t* __restrict__ xb,
-                                       const ConvShape& s, bool valid, int k,
-                                       int ih0, int iw0) {
-  int4 v = make_int4(0, 0, 0, 0);
-  if (!valid) return v;
-  if (VEC) {
-    if (k < s.K) {
-      const int tap = k / s.C;
-      const int c = k - tap * s.C;
-      const int kh = tap / s.KW;
-      const int ih = ih0 + kh;
-      const int iw = iw0 + (tap - kh * s.KW);
-      if ((unsigned)ih < (unsigned)s.H && (unsigned)iw < (unsigned)s.W)
-        v = *reinterpret_cast<const int4*>(xb + ((int64_t)ih * s.W + iw) * s.C + c);
-    }
-  } else {
-    uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      w[i >> 2] |= gather_byte(xb, s, k + i, ih0, iw0) << (8 * (i & 3));
-    v = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
-  }
-  return v;
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-qconv_int8_requant_kernel(const int8_t* __restrict__ x,
-                          const int8_t* __restrict__ w,
-                          const float* __restrict__ mult,
-                          const int32_t* __restrict__ bias,
-                          int8_t* __restrict__ y, ConvShape s) {
-  __shared__ __align__(16) int32_t As[BK / 4][BM];
-  __shared__ __align__(16) int32_t Bs[BK / 4][BN];
-
-  const int tid = threadIdx.x;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // A loader: one im2col row, 16 of the BK bytes.
-  const int a_row = tid >> 1;
-  const int a_half = tid & 1;
-  const int64_t am = m0 + a_row;
-  const bool a_valid = am < s.M;
-  int ih0 = 0, iw0 = 0;
-  const int8_t* xb = x;
-  if (a_valid) {
-    const int64_t hw = (int64_t)s.OH * s.OW;
-    const int64_t b = am / hw;
-    const int pix = (int)(am - b * hw);
-    const int oh = pix / s.OW;
-    ih0 = oh * s.stride_h - s.pad_h;
-    iw0 = (pix - oh * s.OW) * s.stride_w - s.pad_w;
-    xb = x + b * s.H * s.W * s.C;
-  }
-  // B loader: threads 0..127, one packed weight row, 16 of the BK bytes.
-  const int b_row = (tid >> 1) & (BN - 1);
-  const bool b_loader = tid < 2 * BN;
-  const bool b_valid = b_loader && (n0 + b_row) < s.N;
-  const int8_t* wr = w + (int64_t)(n0 + b_row) * s.Kp + a_half * 16;
-
-  const int tm = tid & 15;  // pixels tm + 16*i
-  const int tn = tid >> 4;  // channels tn*4 + j
-  int acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  const int num_k = s.Kp / BK;
-  int4 ra = load_a<VEC>(xb, s, a_valid, a_half * 16, ih0, iw0);
-  int4 rb = b_valid ? *reinterpret_cast<const int4*>(wr) : make_int4(0, 0, 0, 0);
-  for (int kt = 0; kt < num_k; ++kt) {
-    As[a_half * 4 + 0][a_row] = ra.x;
-    As[a_half * 4 + 1][a_row] = ra.y;
-    As[a_half * 4 + 2][a_row] = ra.z;
-    As[a_half * 4 + 3][a_row] = ra.w;
-    if (b_loader) {
-      Bs[a_half * 4 + 0][b_row] = rb.x;
-      Bs[a_half * 4 + 1][b_row] = rb.y;
-      Bs[a_half * 4 + 2][b_row] = rb.z;
-      Bs[a_half * 4 + 3][b_row] = rb.w;
-    }
-    __syncthreads();
-    if (kt + 1 < num_k) {  // next K slice into registers while this one computes
-      const int k = (kt + 1) * BK + a_half * 16;
-      ra = load_a<VEC>(xb, s, a_valid, k, ih0, iw0);
-      rb = b_valid ? *reinterpret_cast<const int4*>(wr + (kt + 1) * BK)
-                   : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int k4 = 0; k4 < BK / 4; ++k4) {
-      int a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k4][tm + 16 * i];
-      const int4 bv = *reinterpret_cast<const int4*>(&Bs[k4][tn * TN]);
-      const int b[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue in registers: + bias (int32), * mult (fp32), rint, saturate.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t m = m0 + tm + 16 * i;
-    if (m >= s.M) continue;
-    const int64_t img = m / s.plane;
-    const int64_t pix = m - img * s.plane;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn * TN + j;
-      if (n >= s.N) continue;
-      const int a = acc[i][j] + (bias != nullptr ? bias[n] : 0);
-      int q = __float2int_rn(__fmul_rn(__int2float_rn(a), mult[n]));
-      q = min(max(q, -128), 127);
-      y[(img * s.N + n) * s.plane + pix] = (int8_t)q;
-    }
-  }
-}
-
-}  // namespace
-
-// x: int8 [B, H, W, C] channels-last; w: int8 [N, Kp], row n = weights of
-// output channel n in (kh, kw, c) order, zero past K; mult: f32 [N];
-// bias: int32 [N] or null; y: int8, NCHW when plane = OH*OW, [M, N] when
-// plane = 1. Launches on `stream` and returns the launch's error code.
+// mult: f32 [N]; bias: int32 [N] or null. producer 0 requires KH = KW = 1,
+// unit strides, no padding and C % 16 == 0; producer 1 requires C % 4 == 0.
+// (bm, bn, stages, b_resident): the tile the wrapper chose
+// (qmatmul_int8.py::int8_tile); one that does not fit is refused with
+// cudaErrorInvalidValue. Launches on `stream`; returns the launch's error.
 extern "C" cudaError_t qconv_int8_requant_launch(
-    const void* x, const void* w, const void* mult, const void* bias, void* y,
-    int B, int H, int W, int C, int OH, int OW, int N, int KH, int KW,
-    int stride_h, int stride_w, int pad_h, int pad_w, int Kp, long long plane,
-    void* stream) {
-  ConvShape s;
-  s.B = B; s.H = H; s.W = W; s.C = C;
-  s.OH = OH; s.OW = OW; s.N = N;
-  s.KH = KH; s.KW = KW;
-  s.stride_h = stride_h; s.stride_w = stride_w;
-  s.pad_h = pad_h; s.pad_w = pad_w;
-  s.K = KH * KW * C;
-  s.Kp = Kp;
-  s.M = (int64_t)B * OH * OW;
-  s.plane = plane;
-  if (s.M <= 0 || N <= 0) return cudaSuccess;
-  if (Kp % BK != 0 || Kp < s.K) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((s.M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+    const void* x, const void* w, const void* mult, const void* bias, void* y, int B,
+    int H, int W, int C, int OH, int OW, int N, int KH, int KW, int stride_h,
+    int stride_w, int pad_h, int pad_w, int Kp, int producer, int bm, int bn, int stages,
+    int b_resident, void* stream) {
+  const long long M = (long long)B * OH * OW;
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const long long K = (long long)KH * KW * C;
+  if (M >= (1LL << 31) || K <= 0 || Kp < K || Kp - K >= 16 || mult == nullptr ||
+      C % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
+  i8g::Params p = {};
+  p.M = (int)M;
+  p.N = N;
+  p.K = (int)K;
+  p.stages = stages;
+  p.b_resident = b_resident;
+  p.out = y;
+  p.mult = static_cast<const float*>(mult);
+  p.bias = static_cast<const int32_t*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = (C % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  if (vec)
-    qconv_int8_requant_kernel<true><<<grid, THREADS, 0, st>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(mult), static_cast<const int32_t*>(bias),
-        static_cast<int8_t*>(y), s);
-  else
-    qconv_int8_requant_kernel<false><<<grid, THREADS, 0, st>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(mult), static_cast<const int32_t*>(bias),
-        static_cast<int8_t*>(y), s);
-  return cudaGetLastError();
+  if (producer == 0) {
+    if (KH != 1 || KW != 1 || stride_h != 1 || stride_w != 1 || pad_h != 0 ||
+        pad_w != 0 || OH != H || OW != W || C % 16 != 0 || Kp != C)
+      return cudaErrorInvalidValue;
+    return i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT>(x, w, Kp, p, bm, bn, st);
+  }
+  if (producer != 1) return cudaErrorInvalidValue;
+  p.x = static_cast<const int8_t*>(x);
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.OH = OH;
+  p.OW = OW;
+  p.KW = KW;
+  p.stride_h = stride_h;
+  p.stride_w = stride_w;
+  p.pad_h = pad_h;
+  p.pad_w = pad_w;
+  p.gran = C % 16 == 0 ? 16 : (C % 8 == 0 ? 8 : 4);
+  p.div_c = i8g::make_fastdiv((uint32_t)C);
+  p.div_kw = i8g::make_fastdiv((uint32_t)KW);
+  if (K * C >= (1LL << 32)) return cudaErrorInvalidValue;  // make_fastdiv's range
+  return i8g::launch<i8g::A_GATHER, i8g::EPI_REQUANT>(x, w, Kp, p, bm, bn, st);
 }

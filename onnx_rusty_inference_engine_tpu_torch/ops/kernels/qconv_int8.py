@@ -1,17 +1,30 @@
-"""int8 convolution / matrix product with a fused int32-bias + requant epilogue.
+"""int8 convolution with a fused int32-bias + requant epilogue.
 
 Hopper counterpart of the TPU kernel
 `onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul.py::qmatmul_int8_requant`
 (Pallas body `_mm_requant_kernel`) and of its 1x1-conv wrapper
 `qconv1x1_int8_requant`. The CUDA source is `csrc/qconv_int8.cu`: one
 implicit-GEMM kernel for every symmetric, group-1 QLinearConv (1x1, kxk with
-padding, strided), reading channels-last int8 activations, accumulating in
-int32 and leaving only int8 in device memory. Its source note says what
-bounds it on the H100 and what the design does about that.
+padding, strided) on the int8 tensor-core mainloop it shares with the int8
+GEMM (`csrc/int8_wgmma.cuh`), reading channels-last int8 activations,
+accumulating in int32 and leaving only int8 in device memory. Its source
+note says what bounds it on the H100 and what the design does about that.
 
-Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
-(`*_plain`), and launches the kernel for a tensor on the card, or raises.
-`qconv_int8_requant.launches` counts the kernel's launches.
+Channels-last between convs: on the card the wrapper returns a
+[B, O, OH, OW] tensor with `torch.channels_last` strides, a view of the
+kernel's [B*OH*OW, O] output, and reads a channels-last input without a
+copy. Any other input is copied channels-last first (`channels_last_input`),
+with its channels zero-padded to a multiple of 4 where they are not.
+
+`conv_plan` picks how the kernel fetches A (`conv_producer`) and the tile:
+"tma" for a 1x1, stride-1, unpadded conv with C % 16 == 0 (a plain matrix
+product), "gather" (an implicit im2col by cp.async) for every other.
+
+The wrapper takes a tensor on the CPU to the kernel's plain PyTorch
+version (`qconv_int8_requant_plain`, a contiguous NCHW result: the same
+values), and launches the kernel for a tensor on the card, or raises.
+`qconv_int8_requant.launches` counts the kernel's launches,
+`qconv_int8_requant.producers` counts them per A producer.
 """
 
 from __future__ import annotations
@@ -23,14 +36,18 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .qmatmul_int8 import _requant, check_operand, int8_tile, mult_vector
 
 __all__ = ["qconv_int8_requant", "qconv_int8_requant_plain",
-           "qmatmul_int8_requant", "qmatmul_int8_requant_plain",
-           "pack_qconv_weight", "K_ALIGN"]
+           "pack_qconv_weight", "conv_channels", "conv_producer", "conv_plan",
+           "channels_last_input", "PRODUCERS", "K_ALIGN"]
 
-# packed weight rows are zero-padded to a multiple of the kernel's K stage
-# (BK in csrc/qconv_int8.cu)
-K_ALIGN = 32
+# packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
+# rows whose stride is a multiple of 16
+K_ALIGN = 16
+
+# producer name -> the id the C entry point takes
+PRODUCERS = {"tma": 0, "gather": 1}
 
 Padding = Sequence[Tuple[int, int]]
 
@@ -39,39 +56,61 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def conv_channels(C: int) -> int:
+    """The channels the kernel reads per pixel: C rounded up to a multiple
+    of 4, the smallest run cp.async copies."""
+    return _round_up(C, 4)
+
+
+def conv_producer(C: int, KH: int, KW: int, stride: Sequence[int],
+                  padding: Padding) -> str:
+    """"tma" for a 1x1, stride-1, unpadded conv over C % 16 == 0 channels
+    (A is the channels-last input as a [B*H*W, C] matrix, rows of a
+    16-byte multiple as TMA needs), "gather" for every other conv. C is the
+    channels the kernel reads (`conv_channels`)."""
+    if ((KH, KW) == (1, 1) and tuple(stride) == (1, 1)
+            and not any(p for side in padding for p in side)
+            and C % 16 == 0):
+        return "tma"
+    return "gather"
+
+
+def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
+              stride: Sequence[int], padding: Padding):
+    """(producer, tile) for a conv of x [B, C, H, W] by w [O, C, KH, KW]:
+    what the wrapper passes the kernel."""
+    B, C, H, W = x_shape
+    O, _, KH, KW = w_shape
+    (pt, pb), (pl, pr) = padding
+    OH = (H + pt + pb - KH) // stride[0] + 1
+    OW = (W + pl + pr - KW) // stride[1] + 1
+    Cp = conv_channels(C)
+    tile = int8_tile(B * OH * OW, O, _round_up(KH * KW * Cp, K_ALIGN))
+    return conv_producer(Cp, KH, KW, stride, padding), tile
+
+
 def pack_qconv_weight(w: torch.Tensor) -> torch.Tensor:
     """int8 [O, C, KH, KW] -> int8 [O, Kp]: row o holds output channel o's
-    taps in (kh, kw, c) order, the order of K in the kernel's implicit GEMM,
-    zero-padded to Kp = K rounded up to K_ALIGN."""
+    taps in (kh, kw, c) order over Cp = conv_channels(C) channels (zero past
+    C), the order of K in the kernel's implicit GEMM, zero-padded to Kp =
+    KH*KW*Cp rounded up to K_ALIGN."""
     if w.dtype != torch.int8 or w.dim() != 4:
         raise ValueError(f"pack_qconv_weight: want int8 [O,C,KH,KW], got "
                          f"{w.dtype} {tuple(w.shape)}")
     O, C, KH, KW = w.shape
-    K = KH * KW * C
+    Cp = conv_channels(C)
+    taps = torch.zeros((O, KH, KW, Cp), dtype=torch.int8, device=w.device)
+    taps[..., :C] = w.permute(0, 2, 3, 1)
+    K = KH * KW * Cp
     out = torch.zeros((O, _round_up(K, K_ALIGN)), dtype=torch.int8,
                       device=w.device)
-    out[:, :K] = w.permute(0, 2, 3, 1).reshape(O, K)
+    out[:, :K] = taps.reshape(O, K)
     return out
 
 
 # --------------------------------------------------------------------------
-# plain versions: exact int32 accumulation, then the fp32 epilogue
+# plain version: exact int32 accumulation, then the fp32 epilogue
 # --------------------------------------------------------------------------
-def _requant(acc: torch.Tensor, mult: torch.Tensor,
-             bias: Optional[torch.Tensor], channel_dim: int) -> torch.Tensor:
-    """`_mm_requant_kernel`'s epilogue: (acc + bias) as f32, * mult, round
-    half to even, saturate to int8. mult / bias run along `channel_dim`."""
-    shape = [1] * acc.dim()
-    shape[channel_dim] = -1
-    if bias is not None:
-        acc = acc + bias.to(torch.int32).reshape(shape)
-    mult = mult.to(torch.float32)
-    if mult.numel() > 1:
-        mult = mult.reshape(shape)
-    y = torch.round(acc.to(torch.float32) * mult)
-    return y.clamp(-128, 127).to(torch.int8)
-
-
 def qconv_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
                              mult: torch.Tensor,
                              bias: Optional[torch.Tensor] = None, *,
@@ -91,66 +130,32 @@ def qconv_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
     return _requant(acc.to(torch.int32), mult, bias, channel_dim=1)
 
 
-def qmatmul_int8_requant_plain(a: torch.Tensor, b: torch.Tensor,
-                               mult: torch.Tensor,
-                               bias: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
-    """int8 [M,K] @ int8 [K,N] (+ bias) * mult -> int8 [M,N]."""
-    acc = (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
-    return _requant(acc, mult, bias, channel_dim=-1)
-
-
 # --------------------------------------------------------------------------
 # the kernel
 # --------------------------------------------------------------------------
 def _lib_fn():
     fn = _build.load("qconv_int8").qconv_int8_requant_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 19
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_cuda(what: str, t: Optional[torch.Tensor], dtype: torch.dtype,
-                device: torch.device, numel: Optional[int] = None) -> None:
-    if t is None:
-        return
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{what}: want contiguous {dtype} on {device}, got "
-                         f"{t.dtype} on {t.device} (contiguous="
-                         f"{t.is_contiguous()})")
-    if numel is not None and t.numel() != numel:
-        raise ValueError(f"{what}: want {numel} elements, got "
-                         f"{tuple(t.shape)}")
-
-
-def _mult_vector(mult: torch.Tensor, n: int) -> torch.Tensor:
-    mult = mult.to(torch.float32).reshape(-1)
-    if mult.numel() == 1:
-        mult = mult.expand(n)
-    return mult.contiguous()
-
-
-def _launch(x_cl, packed, mult, bias, y, *, B, H, W, C, OH, OW, N, KH, KW,
-            stride, pads_tl, plane) -> None:
-    dims = (B, H, W, C, OH, OW, N, KH, KW, stride[0], stride[1],
-            pads_tl[0], pads_tl[1], packed.shape[1])
-    if (min(dims[:11] + dims[13:]) <= 0 or min(dims[11:13]) < 0
-            or max(dims) >= 2 ** 31):
-        raise ValueError(f"qconv_int8_requant: dims out of range {dims}")
-    if packed.data_ptr() % 16:
-        raise ValueError("qconv_int8_requant: packed weight not 16-byte aligned")
-    with torch.cuda.device(x_cl.device):
-        stream = torch.cuda.current_stream(x_cl.device).cuda_stream
-        err = _lib_fn()(
-            x_cl.data_ptr(), packed.data_ptr(), mult.data_ptr(),
-            bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            *dims, plane, stream)
-    if err != 0:
-        raise RuntimeError(f"qconv_int8_requant: launch failed with "
-                           f"cudaError {err}")
-    qconv_int8_requant.launches += 1
+def channels_last_input(x: torch.Tensor) -> torch.Tensor:
+    """x int8 [B, C, H, W] as the kernel reads it: [B, H, W, Cp]
+    contiguous, Cp = conv_channels(C), 16-byte aligned. A channels-last,
+    aligned x with Cp == C is returned as a view; any other is copied."""
+    B, C, H, W = x.shape
+    Cp = conv_channels(C)
+    xl = x.permute(0, 2, 3, 1)
+    if Cp == C:
+        if xl.is_contiguous() and xl.data_ptr() % 16 == 0:
+            return xl
+        return xl.contiguous()  # a new allocation: aligned
+    out = torch.zeros((B, H, W, Cp), dtype=torch.int8, device=x.device)
+    out[..., :C] = xl
+    return out
 
 
 def qconv_int8_requant(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
@@ -158,12 +163,12 @@ def qconv_int8_requant(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                        stride: Sequence[int] = (1, 1),
                        padding: Padding = ((0, 0), (0, 0)),
                        packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Symmetric, group-1 int8 QLinearConv: x int8 [B,C,H,W] (NCHW), w int8
+    """Symmetric, group-1 int8 QLinearConv: x int8 [B,C,H,W], w int8
     [O,C,KH,KW], mult f32 [O] or scalar (x_s * w_s / y_s), bias int32 [O] or
     None, padding ((top, bottom), (left, right)) -> int8 [B,O,OH,OW].
 
     On the card `packed` must be `pack_qconv_weight(w)`, made once per
-    weight; the activations are turned channels-last for the kernel."""
+    weight, and the result is channels-last (see the module note)."""
     if x.device.type == "cpu":
         return qconv_int8_requant_plain(x, w, mult, bias, stride=stride,
                                         padding=padding)
@@ -183,49 +188,44 @@ def qconv_int8_requant(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
     if packed is None:
         raise ValueError("qconv_int8_requant: on the card the weight must "
                          "be pre-packed (pack_qconv_weight)")
+    fn = "qconv_int8_requant"
     dev = x.device
-    _check_cuda("x", x, torch.int8, dev)
-    _check_cuda("packed", packed, torch.int8, dev)
-    if tuple(packed.shape) != (O, _round_up(KH * KW * C, K_ALIGN)):
+    if x.dtype != torch.int8:
+        raise ValueError(f"{fn}: x wants torch.int8, got {x.dtype}")
+    check_operand(fn, "packed", packed, torch.int8, dev)
+    Cp = conv_channels(C)
+    Kp = _round_up(KH * KW * Cp, K_ALIGN)
+    if tuple(packed.shape) != (O, Kp):
         raise ValueError(f"qconv_int8_requant: packed weight "
                          f"{tuple(packed.shape)} is not pack_qconv_weight's "
                          f"layout of w {tuple(w.shape)}")
-    mult = _mult_vector(mult, O)
-    _check_cuda("mult", mult, torch.float32, dev, O)
-    _check_cuda("bias", bias, torch.int32, dev, O)
-    x_cl = x.permute(0, 2, 3, 1).contiguous()
-    y = torch.empty((B, O, OH, OW), dtype=torch.int8, device=dev)
-    _launch(x_cl, packed, mult, bias, y, B=B, H=H, W=W, C=C, OH=OH, OW=OW,
-            N=O, KH=KH, KW=KW, stride=(sh, sw), pads_tl=(pt, pl),
-            plane=OH * OW)
-    return y
+    mult = mult_vector(mult, O)
+    check_operand(fn, "mult", mult, torch.float32, dev, O)
+    check_operand(fn, "bias", bias, torch.int32, dev, O)
+    dims = (B, H, W, Cp, OH, OW, O, KH, KW, sh, sw, pt, pl, Kp)
+    M = B * OH * OW
+    if (min(dims[:11] + dims[13:]) <= 0 or min(dims[11:13]) < 0
+            or max(dims) >= 2 ** 31 or M >= 2 ** 31):
+        raise ValueError(f"qconv_int8_requant: dims out of range {dims}")
+    if packed.data_ptr() % 16:
+        raise ValueError("qconv_int8_requant: packed weight not 16-byte "
+                         "aligned")
+    producer, tile = conv_plan(x.shape, w.shape, (sh, sw), padding)
+    x_cl = channels_last_input(x)
+    y = torch.empty((M, O), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib_fn()(
+            x_cl.data_ptr(), packed.data_ptr(), mult.data_ptr(),
+            bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            *dims, PRODUCERS[producer], *tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qconv_int8_requant: launch with the {producer} "
+                           f"producer on {tile} failed with cudaError {err}")
+    qconv_int8_requant.launches += 1
+    qconv_int8_requant.producers[producer] += 1
+    return y.view(B, OH, OW, O).permute(0, 3, 1, 2)
 
 
 qconv_int8_requant.launches = 0
-
-
-def qmatmul_int8_requant(a: torch.Tensor, b: torch.Tensor, mult: torch.Tensor,
-                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """int8 [M,K] @ int8 [K,N] + bias, * mult -> int8 [M,N]: the TPU
-    kernel's own signature, run as the 1x1 case of the conv kernel. The
-    weight is packed on every call; QLinearConv pre-packs instead."""
-    if a.device.type == "cpu":
-        return qmatmul_int8_requant_plain(a, b, mult, bias)
-    if a.device.type != "cuda":
-        raise ValueError(f"qmatmul_int8_requant: no kernel for {a.device}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"qmatmul_int8_requant: shapes {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    M, K = a.shape
-    N = b.shape[1]
-    dev = a.device
-    _check_cuda("a", a, torch.int8, dev)
-    _check_cuda("b", b.contiguous(), torch.int8, dev)
-    packed = pack_qconv_weight(b.t().reshape(N, K, 1, 1))
-    mult = _mult_vector(mult, N)
-    _check_cuda("mult", mult, torch.float32, dev, N)
-    _check_cuda("bias", bias, torch.int32, dev, N)
-    y = torch.empty((M, N), dtype=torch.int8, device=dev)
-    _launch(a, packed, mult, bias, y, B=M, H=1, W=1, C=K, OH=1, OW=1, N=N,
-            KH=1, KW=1, stride=(1, 1), pads_tl=(0, 0), plane=1)
-    return y
+qconv_int8_requant.producers = dict.fromkeys(PRODUCERS, 0)

@@ -1,41 +1,130 @@
-"""int8 x int8 -> int32 matrix product, with no epilogue.
+"""int8 x int8 matrix product: exact int32 out, or a fused bias + requant
+to int8.
 
-Hopper counterpart of the TPU kernel
+Hopper counterpart of the TPU kernels
 `onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul.py::qmatmul_int8`
-(Pallas body `_mm_kernel`), which the QLinearMatMul emitter runs for
-symmetric zero points. The CUDA source is `csrc/qmatmul_int8.cu`: int8
-tensor-core products (`mma.sync` m16n8k32) over tiles staged through
-shared memory, exact int32 sums. Its source note says what bounds the
+(Pallas body `_mm_kernel`) and, in its 2-D form, `qmatmul_int8_requant`
+(body `_mm_requant_kernel`). The CUDA source is `csrc/qmatmul_int8.cu` on
+the int8 tensor-core mainloop of `csrc/int8_wgmma.cuh` (wgmma fed by TMA
+through a ring of shared-memory slots), with two epilogues: `qmatmul_int8`
+returns the exact int32 product, `qmatmul_int8_requant` adds the int32 bias,
+multiplies by the f32 multiplier, rounds half to even and saturates, so
+that only int8 leaves the kernel. The source notes say what bounds the
 kernel on the H100 and what the design does about that.
+
+`int8_tile` picks the tile and the ring depth from the shape, in Python,
+for this kernel and for the conv kernel of `qconv_int8.py`, which shares
+the mainloop; the C entry points refuse a choice that does not fit.
 
 The weight is re-laid once, when an Engine is built
 (`weights.prepack_int8_weights`), into the K-contiguous rows the kernel
-reads (`pack_qmatmul_weight`). The activations are read as they come: the
-kernel masks the ragged edges, so no call pads or copies them.
+reads (`pack_qmatmul_weight`). The activations are read as they come when
+K is a multiple of 16 (TMA's row stride), and copied into a zero-padded
+buffer otherwise.
 
-The wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
-(`qmatmul_int8_plain`), and launches the kernel for a tensor on the card,
-or raises. `qmatmul_int8.launches` counts launches.
+Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch
+version (`*_plain`), and launches the kernel for a tensor on the card, or
+raises. `qmatmul_int8.launches` counts the kernel's launches through both
+wrappers, `qmatmul_int8.epilogues` counts them per epilogue.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
-__all__ = ["qmatmul_int8", "qmatmul_int8_plain", "pack_qmatmul_weight",
-           "K_ALIGN"]
+__all__ = ["qmatmul_int8", "qmatmul_int8_plain", "qmatmul_int8_requant",
+           "qmatmul_int8_requant_plain", "pack_qmatmul_weight", "int8_tile",
+           "Int8Tile", "EPILOGUES", "K_ALIGN", "MAX_K"]
 
-# packed weight rows are zero-padded to a multiple of the kernel's K stage
-# (BK in csrc/qmatmul_int8.cu)
-K_ALIGN = 64
+# packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
+# rows whose stride is a multiple of 16
+K_ALIGN = 16
 # the largest K whose sums cannot leave int32: every product is at most
 # 128 * 128 in magnitude
 MAX_K = (2 ** 31 - 1) // (128 * 128)
+
+# epilogue name -> the id the C entry point takes
+EPILOGUES = {"int32": 0, "requant": 1}
+
+# the kernel's tile (csrc/int8_wgmma.cuh): BN is one wgmma N, BM 64 rows per
+# consumer warpgroup, each ring slot 128 K bytes of both operands
+BN_CHOICES = (16, 32, 48, 64, 96, 128, 192, 256)
+STAGE_K = 128
+MAX_STAGES = 6
+SMEM_LIMIT = 232448  # the dynamic shared memory an H100 block can opt into
+NUM_SMS = 132        # H100 SXM
+# a tile's fixed cost in units of output elements (int8_tile's model):
+# 128 x 192 at BERT-base's N = 768 and 128-row tiles for SqueezeNet's convs
+# measured fastest (experiments/int8_ablation.py on an H100)
+TILE_OVERHEAD = 3 * 64 * 64
+
+
+# the most shared memory a resident B (all K slices of its one N tile) takes
+B_RESIDENT_MAX = 96 * 1024
+
+
+class Int8Tile(NamedTuple):
+    bm: int
+    bn: int
+    stages: int
+    b_resident: bool = False  # B loaded once per block, the ring carries A
+
+
+def smem_bytes(bm: int, bn: int, stages: int, resident_k: int = 0) -> int:
+    """The kernel's dynamic shared memory for a tile: 1024 bytes to align
+    the ring, `stages` slots of (bm + bn) x 128 bytes (bm x 128 with B
+    resident, its `resident_k` 128-byte K slices of bn rows after them), the
+    requant epilogue's int8 staging tile (bm rows of bn + 16 bytes), two
+    mbarriers a slot and one for B (csrc/int8_wgmma.cuh::smem_bytes)."""
+    slot = (bm + (0 if resident_k else bn)) * STAGE_K
+    return (1024 + stages * slot + resident_k * bn * STAGE_K
+            + bm * (bn + 16) + 16 * stages + 8)
+
+
+def tile_smem(tile: Int8Tile, K: int) -> int:
+    """smem_bytes of `tile` for a product over K."""
+    resident_k = -(-K // STAGE_K) if tile.b_resident else 0
+    return smem_bytes(tile.bm, tile.bn, tile.stages, resident_k)
+
+
+def int8_tile(M: int, N: int, K: int) -> Int8Tile:
+    """The tile for an int8 product [M, K] x [K, N]. (BM, BN) minimizes the
+    time each SM spends, modelled as ceil(tiles / NUM_SMS) waves of a
+    tile's work BM * BN plus a fixed TILE_OVERHEAD (a tile's epilogue,
+    barriers and its B slice), over BM 64 or 128 and BN the narrowest wgmma
+    N that covers N (up to 256), or, for N > 256, BN 128, 192 or 256; the
+    larger tile on a tie. So a product whose tiles fill the SMs once
+    (BERT-base's N = 768 at M = 4096: 128 tiles of 128 x 192) is not cut
+    into a second, part-empty wave. Where N fits one tile and all of B's
+    K slices fit in B_RESIDENT_MAX, B is resident (loaded once per block;
+    every block reading the same weights from L2 for every tile bounds the
+    narrow convs otherwise). The ring is the deepest of at most MAX_STAGES
+    slots that fits in shared memory, in half of it for BN <= 64 (two such
+    blocks share an SM). The kernel is persistent, so the ring runs on
+    across tiles and K does not bound its depth."""
+    if N <= BN_CHOICES[-1]:
+        bns = [next(c for c in BN_CHOICES if c >= N)]
+    else:
+        bns = [128, 192, 256]
+
+    def work(tile):
+        bm, bn = tile
+        tiles = -(-M // bm) * -(-N // bn)
+        return (-(-tiles // NUM_SMS) * (bm * bn + TILE_OVERHEAD), -bm * bn)
+
+    bm, bn = min(((bm, bn) for bm in (64, 128) for bn in bns), key=work)
+    budget = SMEM_LIMIT // 2 if bn <= 64 else SMEM_LIMIT
+    num_k = -(-K // STAGE_K)
+    resident = N <= bn and num_k * bn * STAGE_K <= B_RESIDENT_MAX
+    fixed = smem_bytes(bm, bn, 0, resident_k=num_k if resident else 0)
+    slot = (bm + (0 if resident else bn)) * STAGE_K
+    fit = (budget - fixed) // (slot + 16)
+    return Int8Tile(bm, bn, max(2, min(MAX_STAGES, fit)), resident)
 
 
 def pack_qmatmul_weight(b: torch.Tensor) -> torch.Tensor:
@@ -51,6 +140,9 @@ def pack_qmatmul_weight(b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# --------------------------------------------------------------------------
+# plain versions: exact int32 accumulation, then the fp32 epilogue
+# --------------------------------------------------------------------------
 def qmatmul_int8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] @ int8 [K, N] -> int32 [M, N]. The sums are taken in
     float64, where every partial sum of int8 products (|.| <= 128 * 128 * K
@@ -58,20 +150,117 @@ def qmatmul_int8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
 
 
+def _requant(acc: torch.Tensor, mult: torch.Tensor,
+             bias: Optional[torch.Tensor], channel_dim: int) -> torch.Tensor:
+    """`_mm_requant_kernel`'s epilogue: (acc + bias) as f32, * mult, round
+    half to even, saturate to int8. mult / bias run along `channel_dim`."""
+    shape = [1] * acc.dim()
+    shape[channel_dim] = -1
+    if bias is not None:
+        acc = acc + bias.to(torch.int32).reshape(shape)
+    mult = mult.to(torch.float32)
+    if mult.numel() > 1:
+        mult = mult.reshape(shape)
+    y = torch.round(acc.to(torch.float32) * mult)
+    return y.clamp(-128, 127).to(torch.int8)
+
+
+def qmatmul_int8_requant_plain(a: torch.Tensor, b: torch.Tensor,
+                               mult: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """int8 [M,K] @ int8 [K,N] (+ bias) * mult -> int8 [M,N]."""
+    acc = (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+    return _requant(acc, mult, bias, channel_dim=-1)
+
+
+# --------------------------------------------------------------------------
+# the kernel
+# --------------------------------------------------------------------------
 def _lib_fn():
     fn = _build.load("qmatmul_int8").qmatmul_int8_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(what: str, t: torch.Tensor, dev) -> None:
-    if t.device != dev or t.dtype != torch.int8 or not t.is_contiguous():
-        raise ValueError(f"qmatmul_int8: {what} wants contiguous int8 on "
-                         f"{dev}, got {t.dtype} on {t.device} "
+def check_operand(fn: str, what: str, t: Optional[torch.Tensor],
+                  dtype: torch.dtype, dev, numel: Optional[int] = None) -> None:
+    """Raise unless t (where given) is a contiguous `dtype` tensor on
+    `dev` with `numel` elements."""
+    if t is None:
+        return
+    if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{fn}: {what} wants contiguous {dtype} on {dev}, "
+                         f"got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{fn}: {what} wants {numel} elements, got "
+                         f"{tuple(t.shape)}")
+
+
+def mult_vector(mult: torch.Tensor, n: int) -> torch.Tensor:
+    """The requant multiplier as the f32 [n] vector the kernels read: a
+    scalar (or one-element) multiplier is broadcast."""
+    mult = mult.to(torch.float32).reshape(-1)
+    if mult.numel() == 1:
+        mult = mult.expand(n)
+    return mult.contiguous()
+
+
+def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
+            packed: Optional[torch.Tensor], epilogue: str,
+            mult: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Check the operands, launch one epilogue of the kernel on the tile
+    `int8_tile` picks, and count the launch."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"{fn}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    M, K = a.shape
+    N = b.shape[1]
+    if packed is None:
+        raise ValueError(f"{fn}: on the card the weight must be pre-packed "
+                         f"(pack_qmatmul_weight)")
+    dev = a.device
+    check_operand(fn, "a", a, torch.int8, dev)
+    check_operand(fn, "packed", packed, torch.int8, dev)
+    Kp = -(-K // K_ALIGN) * K_ALIGN
+    if tuple(packed.shape) != (N, Kp):
+        raise ValueError(f"{fn}: packed weight {tuple(packed.shape)} is not "
+                         f"pack_qmatmul_weight's layout of b {tuple(b.shape)}")
+    if not 0 < K <= MAX_K or M >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError(f"{fn}: M={M}, K={K}, N={N} out of range (int32 "
+                         f"sums need 0 < K <= {MAX_K})")
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{fn}: packed weight not 16-byte aligned")
+    if epilogue == "requant":
+        mult = mult_vector(mult, N)
+        check_operand(fn, "mult", mult, torch.float32, dev, N)
+        check_operand(fn, "bias", bias, torch.int32, dev, N)
+    out = torch.empty((M, N), device=dev, dtype=(
+        torch.int32 if epilogue == "int32" else torch.int8))
+    if M == 0 or N == 0:
+        return out  # nothing to launch
+    if Kp != K or a.data_ptr() % 16:  # TMA's rows: 16-byte stride and base
+        a_pad = torch.zeros((M, Kp), dtype=torch.int8, device=dev)
+        a_pad[:, :K] = a
+        a = a_pad
+    tile = int8_tile(M, N, Kp)
+    with torch.cuda.device(dev):
+        err = _lib_fn()(
+            a.data_ptr(), packed.data_ptr(), out.data_ptr(),
+            mult.data_ptr() if mult is not None else None,
+            bias.data_ptr() if bias is not None else None, M, N, Kp,
+            EPILOGUES[epilogue], *tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch with the {epilogue} epilogue on "
+                           f"{tile} failed with cudaError {err}")
+    qmatmul_int8.launches += 1
+    qmatmul_int8.epilogues[epilogue] += 1
+    return out
 
 
 def qmatmul_int8(a: torch.Tensor, b: torch.Tensor, *,
@@ -84,37 +273,25 @@ def qmatmul_int8(a: torch.Tensor, b: torch.Tensor, *,
         return qmatmul_int8_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"qmatmul_int8: no kernel for {a.device}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"qmatmul_int8: shapes {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    M, K = a.shape
-    N = b.shape[1]
-    if packed is None:
-        raise ValueError("qmatmul_int8: on the card the weight must be "
-                         "pre-packed (pack_qmatmul_weight)")
-    dev = a.device
-    _check("a", a, dev)
-    _check("packed", packed, dev)
-    Kp = -(-K // K_ALIGN) * K_ALIGN
-    if tuple(packed.shape) != (N, Kp):
-        raise ValueError(f"qmatmul_int8: packed weight {tuple(packed.shape)} "
-                         f"is not pack_qmatmul_weight's layout of b "
-                         f"{tuple(b.shape)}")
-    if not 0 < K <= MAX_K or M >= 2 ** 31 or N >= 2 ** 31:
-        raise ValueError(f"qmatmul_int8: M={M}, K={K}, N={N} out of range "
-                         f"(int32 sums need 0 < K <= {MAX_K})")
-    if packed.data_ptr() % 16:
-        raise ValueError("qmatmul_int8: packed weight not 16-byte aligned")
-    out = torch.empty((M, N), dtype=torch.int32, device=dev)
-    if M == 0 or N == 0:
-        return out  # nothing to launch
-    with torch.cuda.device(dev):
-        err = _lib_fn()(a.data_ptr(), packed.data_ptr(), out.data_ptr(), M, N,
-                        K, Kp, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"qmatmul_int8: launch failed with cudaError {err}")
-    qmatmul_int8.launches += 1
-    return out
+    return _launch("qmatmul_int8", a, b, packed, "int32")
 
 
 qmatmul_int8.launches = 0
+qmatmul_int8.epilogues = dict.fromkeys(EPILOGUES, 0)
+
+
+def qmatmul_int8_requant(a: torch.Tensor, b: torch.Tensor, mult: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None, *,
+                         packed: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """int8 [M,K] @ int8 [K,N] + bias, * mult -> int8 [M,N]: the TPU
+    kernel's signature, mult f32 [N] or scalar, bias int32 [N] or None.
+
+    On the card `packed` must be `pack_qmatmul_weight(b)`; the launch is
+    counted on `qmatmul_int8` (the same kernel, requant epilogue)."""
+    if a.device.type == "cpu":
+        return qmatmul_int8_requant_plain(a, b, mult, bias)
+    if a.device.type != "cuda":
+        raise ValueError(f"qmatmul_int8_requant: no kernel for {a.device}")
+    return _launch("qmatmul_int8_requant", a, b, packed, "requant", mult,
+                   bias)

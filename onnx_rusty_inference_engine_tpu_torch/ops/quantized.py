@@ -9,10 +9,13 @@ w_s / y_s)) + y_zp), rounding half to even.
 QLinearConv runs on the hand-written kernel (ops/kernels/qconv_int8.py) in
 the case the quantizer emits: 2-D, group 1, no dilation, int8 operands, and
 all three zero points statically 0. QLinearMatMul runs its int8 x int8 ->
-int32 product on the kernel of ops/kernels/qmatmul_int8.py for int8
-operands, a 2-D b, an a of any rank and both input zero points statically
-0; the bias add and the requant stay in PyTorch, in the JAX emitter's
-order. Every other QLinearConv or QLinearMatMul raises UnsupportedOpError
+product on the kernel of ops/kernels/qmatmul_int8.py for int8 operands, a
+2-D b, an a of any rank and both input zero points statically 0. Where
+y_zero_point is statically 0 too (the quantizer's form), the kernel's
+requant epilogue adds the bias and requantizes, and only int8 leaves it;
+otherwise it returns int32 and the bias add and the requant run in
+PyTorch, in the JAX emitter's order. Both give the JAX emitter's values bit
+for bit. Every other QLinearConv or QLinearMatMul raises UnsupportedOpError
 naming the case, on the CPU as on the card, so both devices run the same
 function.
 
@@ -35,7 +38,7 @@ from ..graph import Node
 from .kernels.qconv_int8 import qconv_int8_requant
 from .kernels.qmatmul_int4 import (interleaved_layout, qmatmul_int4_bf16,
                                    qmatmul_int4_planar)
-from .kernels.qmatmul_int8 import qmatmul_int8
+from .kernels.qmatmul_int8 import qmatmul_int8, qmatmul_int8_requant
 from .registry import LoweringContext, UnsupportedOpError, register
 from .standard import _conv_padding
 
@@ -170,16 +173,22 @@ def qlinear_matmul(ctx: LoweringContext, node: Node, ins):
             f"QLinearMatMul {node.name or node.outputs[0]!r}: {why}")
     K, N = b.shape
     # the leading dims of a flattened: the product jnp.matmul computes
-    acc = qmatmul_int8(a.reshape(-1, K).contiguous(), b,
-                       packed=ctx.packed.get(node.inputs[3]))
-    acc = acc.reshape(*a.shape[:-1], N)
-    if bias is not None:
-        acc = acc + bias
+    a2 = a.reshape(-1, K).contiguous()
+    packed = ctx.packed.get(node.inputs[3])
     # in fp32 and in the JAX emitter's order, from tensors on the device (a
     # true division: a CPU scalar divisor becomes a reciprocal multiply on
     # the card); a 1-D b_s is per output column, broadcast over the last dim
     mult = (a_s.to(torch.float32) * b_s.to(torch.float32)
             / y_s.to(torch.float32))
+    if (_static_zp_is_zero(ctx, node.inputs[7]) and mult.numel() in (1, N)
+            and (bias is None or (bias.dtype == torch.int32
+                                  and bias.numel() == N))):
+        # the emitter's requant with y_zp = 0 is the kernel's epilogue
+        y = qmatmul_int8_requant(a2, b, mult, bias, packed=packed)
+        return (y.reshape(*a.shape[:-1], N),)
+    acc = qmatmul_int8(a2, b, packed=packed).reshape(*a.shape[:-1], N)
+    if bias is not None:
+        acc = acc + bias
     return (_requant(acc, mult, y_zp),)
 
 

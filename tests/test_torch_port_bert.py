@@ -204,15 +204,21 @@ def test_int8_matches_jax(int8):
 def test_int8_forward_calls_the_int8_gemm_once_per_qlinear_matmul(
         int8, monkeypatch):
     """Every QLinearMatMul of the INT8 forward goes through the int8 GEMM's
-    wrapper (on the CPU its plain version), with the weight as it is."""
+    wrapper with the fused requant epilogue (the quantizer's y_zero_point is
+    a constant 0; on the CPU its plain version), with the weight as it is,
+    and none through the int32 one."""
     calls = []
-    real = quantized.qmatmul_int8
+    real = quantized.qmatmul_int8_requant
 
-    def counting(a, b, *, packed=None):
+    def counting(a, b, mult, bias=None, *, packed=None):
         calls.append((tuple(a.shape), tuple(b.shape), packed))
-        return real(a, b, packed=packed)
+        return real(a, b, mult, bias, packed=packed)
 
-    monkeypatch.setattr(quantized, "qmatmul_int8", counting)
+    def int32_route(*args, **kw):
+        raise AssertionError("QLinearMatMul took the int32 route")
+
+    monkeypatch.setattr(quantized, "qmatmul_int8_requant", counting)
+    monkeypatch.setattr(quantized, "qmatmul_int8", int32_route)
     out = Engine(int8[1], device="cpu")(_feed(0))
     assert len(calls) == 13
     assert all(p is None for _, _, p in calls)  # nothing packed on the CPU

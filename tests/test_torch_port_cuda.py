@@ -8,7 +8,9 @@ JAX is not installed. Run it on a card, without the suite's conftest.py
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
 The int8 conv kernel must equal its plain version bit for bit: both sum
-int8 products exactly in 32 bits, then apply the same fp32 epilogue. The
+int8 products exactly in 32 bits, then apply the same fp32 epilogue; on the
+card it returns a channels-last tensor. The int8 GEMM's two epilogues
+(int32, and the fused requant) are exact the same way. The
 int4 and f32 attention kernels sum f32 in another order than their plain
 versions (1e-5 of max|out|); the int8 x int8 attention can move one
 quantized-probability step on a rounding tie (1e-2 of max|out|). The int8
@@ -67,7 +69,34 @@ CASES = {
                              False),
     "k_beyond_one_stage": (3, 48, 5, 6, 130, 3, 1, (1, 1, 1, 1), True,
                            True),
+    "1x1_c16_n8": (2, 16, 5, 7, 8, 1, 1, (0, 0, 0, 0), True, True),
+    "1x1_c16_n1000": (1, 16, 9, 9, 1000, 1, 1, (0, 0, 0, 0), True, True),
+    "3x3_c16_n16_stride2": (3, 16, 11, 9, 16, 3, 2, (1, 1, 1, 1), True,
+                            False),
+    "7x7_c3_stride2_pad3": (2, 3, 30, 29, 96, 7, 2, (3, 3, 3, 3), True,
+                            True),
+    "5x5_c8_asym_pad": (2, 8, 13, 10, 40, 5, 1, (2, 0, 1, 3), False, True),
+    "1x1_stride2_c32": (2, 32, 9, 9, 24, 1, 2, (0, 0, 0, 0), True, True),
+    "ragged_m_many_blocks": (3, 64, 23, 21, 200, 3, 1, (1, 1, 1, 1), True,
+                             True),
+    # K of 61 128-byte slices and B too large to stay resident
+    "31x31_c8_stride2": (1, 8, 300, 300, 16, 31, 2, (0, 0, 0, 0), True,
+                         True),
 }
+
+
+def _qconv_operands(B, C, H, W, O, ksz, per_ch, with_bias, rng, cuda):
+    x = torch.from_numpy(rng.integers(-128, 128, (B, C, H, W), np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (O, C, ksz, ksz), np.int8))
+    # about 1.5 output steps per standard deviation of the sums
+    sd = 128 * 73 * np.sqrt(C * ksz * ksz)
+    mult = torch.from_numpy(
+        (np.abs(rng.standard_normal(O if per_ch else 1)) * 100 / sd
+         + 1 / sd).astype(np.float32))
+    bias = (torch.from_numpy(rng.integers(-3000, 3000, (O,), np.int32))
+            if with_bias else None)
+    x, w, mult = x.to(cuda), w.to(cuda), mult.to(cuda)
+    return x, w, mult, None if bias is None else bias.to(cuda)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -92,10 +121,72 @@ def test_kernel_equals_plain(cuda, case):
     assert k.qconv_int8_requant.launches == before + 1
     want = k.qconv_int8_requant_plain(x, w, mult, bias, stride=(s, s),
                                       padding=padding)
+    assert got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("M,K,N", [(100, 300, 50), (17, 64, 1000)])
+# SqueezeNet 1.0's 22 distinct QLinearConv shapes at b256, 224x224:
+# (C, H, O, kernel, stride, pad)
+SQUEEZENET_B256_CONVS = [
+    (3, 224, 96, 7, 2, 0),
+    (96, 54, 16, 1, 1, 0), (16, 54, 64, 1, 1, 0), (16, 54, 64, 3, 1, 1),
+    (128, 54, 16, 1, 1, 0), (128, 54, 32, 1, 1, 0), (32, 54, 128, 1, 1, 0),
+    (32, 54, 128, 3, 1, 1), (256, 26, 32, 1, 1, 0), (32, 26, 128, 1, 1, 0),
+    (32, 26, 128, 3, 1, 1), (256, 26, 48, 1, 1, 0), (48, 26, 192, 1, 1, 0),
+    (48, 26, 192, 3, 1, 1), (384, 26, 48, 1, 1, 0), (384, 26, 64, 1, 1, 0),
+    (64, 26, 256, 1, 1, 0), (64, 26, 256, 3, 1, 1), (512, 12, 64, 1, 1, 0),
+    (64, 12, 256, 1, 1, 0), (64, 12, 256, 3, 1, 1), (512, 12, 1000, 1, 1, 0),
+]
+
+
+@pytest.mark.parametrize("C,H,O,ksz,s,pad", SQUEEZENET_B256_CONVS)
+def test_kernel_equals_plain_at_every_squeezenet_b256_conv(cuda, C, H, O,
+                                                           ksz, s, pad):
+    """On channels-last input, as the previous conv leaves it (conv1's
+    NCHW input is copied), through the producer its shape picks."""
+    x, w, mult, bias = _qconv_operands(256, C, H, H, O, ksz, True, True,
+                                       np.random.default_rng(C + O), cuda)
+    if C != 3:
+        x = x.contiguous(memory_format=torch.channels_last)
+    padding = ((pad, pad), (pad, pad))
+    producer = k.conv_plan(x.shape, w.shape, (s, s), padding)[0]
+    before = dict(k.qconv_int8_requant.producers)
+    got = k.qconv_int8_requant(x, w, mult, bias, stride=(s, s),
+                               padding=padding,
+                               packed=k.pack_qconv_weight(w))
+    torch.cuda.synchronize()
+    assert k.qconv_int8_requant.producers[producer] == before[producer] + 1
+    want = k.qconv_int8_requant_plain(x, w, mult, bias, stride=(s, s),
+                                      padding=padding)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_conv_takes_either_layout_and_returns_channels_last(cuda, layout):
+    x, w, mult, bias = _qconv_operands(2, 32, 9, 7, 48, 3, True, True,
+                                       np.random.default_rng(3), cuda)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    padding = ((1, 1), (1, 1))
+    got = k.qconv_int8_requant(x, w, mult, bias, padding=padding,
+                               packed=k.pack_qconv_weight(w))
+    torch.cuda.synchronize()
+    assert got.shape == (2, 48, 9, 7)
+    assert got.stride() == (9 * 7 * 48, 1, 7 * 48, 48)
+    assert torch.equal(got, k.qconv_int8_requant_plain(x, w, mult, bias,
+                                                       padding=padding))
+    # the next conv reads it in place
+    assert k.channels_last_input(got).data_ptr() == got.data_ptr()
+
+
+# (M, K, N): ragged M, N and K (K not a multiple of 16 is copied into a
+# padded A), N = 8, 16 and 1000
+GEMM_FORM_CASES = [(100, 300, 50), (17, 64, 1000), (5, 13, 8), (300, 48, 16),
+                   (1, 768, 768), (4097, 160, 96)]
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_FORM_CASES)
 def test_gemm_form_equals_plain(cuda, M, K, N):
     rng = np.random.default_rng(M)
     a = torch.from_numpy(rng.integers(-128, 128, (M, K), np.int8)).to(cuda)
@@ -103,9 +194,40 @@ def test_gemm_form_equals_plain(cuda, M, K, N):
     mult = torch.tensor(3e-4, device=cuda)
     bias = torch.from_numpy(
         rng.integers(-1000, 1000, (N,), np.int32)).to(cuda)
-    got = k.qmatmul_int8_requant(a, b, mult, bias)
+    before = dict(q8.qmatmul_int8.epilogues)
+    got = q8.qmatmul_int8_requant(a, b, mult, bias,
+                                  packed=q8.pack_qmatmul_weight(b))
     torch.cuda.synchronize()
-    assert torch.equal(got, k.qmatmul_int8_requant_plain(a, b, mult, bias))
+    assert q8.qmatmul_int8.epilogues == dict(before, requant=before[
+        "requant"] + 1)
+    assert got.dtype == torch.int8 and got.shape == (M, N)
+    assert torch.equal(got, q8.qmatmul_int8_requant_plain(a, b, mult, bias))
+
+
+def test_refused_tiles_raise_and_count_nothing(cuda, monkeypatch):
+    """A tile the C entry points refuse (a BN the kernel lacks, a ring of 9
+    slots, one past 227 KB of shared memory): the wrappers raise and count
+    no launch."""
+    a = torch.zeros((64, 64), dtype=torch.int8, device=cuda)
+    b = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
+    packed = q8.pack_qmatmul_weight(b)
+    x = torch.zeros((1, 16, 8, 8), dtype=torch.int8, device=cuda)
+    w = torch.zeros((32, 16, 3, 3), dtype=torch.int8, device=cuda)
+    mult = torch.ones(32, device=cuda)
+    for tile in (q8.Int8Tile(128, 80, 2), q8.Int8Tile(128, 32, 9),
+                 q8.Int8Tile(128, 256, 5), q8.Int8Tile(96, 32, 2)):
+        monkeypatch.setattr(q8, "int8_tile", lambda *args, t=tile: t)
+        monkeypatch.setattr(k, "int8_tile", lambda *args, t=tile: t)
+        before = (q8.qmatmul_int8.launches, dict(q8.qmatmul_int8.epilogues),
+                  k.qconv_int8_requant.launches)
+        with pytest.raises(RuntimeError, match="int32 epilogue"):
+            q8.qmatmul_int8(a, b, packed=packed)
+        with pytest.raises(RuntimeError, match="requant epilogue"):
+            q8.qmatmul_int8_requant(a, b, mult, packed=packed)
+        with pytest.raises(RuntimeError, match="gather producer"):
+            k.qconv_int8_requant(x, w, mult, packed=k.pack_qconv_weight(w))
+        assert (q8.qmatmul_int8.launches, q8.qmatmul_int8.epilogues,
+                k.qconv_int8_requant.launches) == before
 
 
 def test_operands_off_the_card_raise(cuda):
@@ -369,12 +491,46 @@ def test_qmatmul_int8_equals_plain(cuda, case):
     assert torch.equal(got, q8.qmatmul_int8_plain(a, b))
 
 
+@pytest.mark.parametrize("case", list(QMM8_CASES))
+def test_qmatmul_int8_requant_equals_plain(cuda, case):
+    """The requant epilogue at the same shapes: per-column multipliers
+    that put the outputs across the int8 range (some saturate), a bias."""
+    M, K, N = QMM8_CASES[case]
+    rng = np.random.default_rng(M + K + N + 1)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K), np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-128, 128, (K, N), np.int8)).to(cuda)
+    sd = 128 * 74 * np.sqrt(K)
+    mult = torch.from_numpy((rng.uniform(10, 200, N) / sd).astype(
+        np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.integers(-50000, 50000, (N,), np.int32)
+                            ).to(cuda)
+    before = q8.qmatmul_int8.launches
+    got = q8.qmatmul_int8_requant(a, b, mult, bias,
+                                  packed=q8.pack_qmatmul_weight(b))
+    torch.cuda.synchronize()
+    assert q8.qmatmul_int8.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == (M, N)
+    assert torch.equal(got, q8.qmatmul_int8_requant_plain(a, b, mult, bias))
+
+
 def test_qmatmul_int8_extreme_sums_are_exact(cuda):
-    """All -128: every product is +16384, the sum 3072 * 16384 = 50331648."""
+    """All -128: every product is +16384, the sum 3072 * 16384 = 50331648;
+    through the requant epilogue, with bias -50331648 + k and mult 0.5, the
+    sums k = -3..3 land on halves (round half to even) and 300 saturates."""
     a = torch.full((64, 3072), -128, dtype=torch.int8, device=cuda)
     b = torch.full((3072, 64), -128, dtype=torch.int8, device=cuda)
-    got = q8.qmatmul_int8(a, b, packed=q8.pack_qmatmul_weight(b))
+    packed = q8.pack_qmatmul_weight(b)
+    got = q8.qmatmul_int8(a, b, packed=packed)
     assert bool((got == 3072 * 16384).all())
+    k_off = torch.tensor([-3, -1, 1, 3, 5, 300, -300, 0] * 8,
+                         dtype=torch.int32, device=cuda)
+    bias = k_off - 3072 * 16384
+    q = q8.qmatmul_int8_requant(a, b, torch.tensor(0.5, device=cuda), bias,
+                                packed=packed)
+    torch.cuda.synchronize()
+    want = torch.tensor([-2, 0, 0, 2, 2, 127, -128, 0] * 8,
+                        dtype=torch.int8, device=cuda)
+    assert bool((q == want).all())
 
 
 def test_qmatmul_int8_refuses_what_it_cannot_take(cuda):
@@ -454,10 +610,11 @@ def test_bert_int8_engine_on_card_matches_cpu(cuda):
                                ).astype(np.int64)}
     q = quantize_graph(g, ranges=calibrate(g, [feed], device="cpu"))
     probe = probe_graph(q)
-    before = q8.qmatmul_int8.launches
+    before = (q8.qmatmul_int8.launches, dict(q8.qmatmul_int8.epilogues))
     card = Engine(probe)(feed)
     torch.cuda.synchronize()
-    assert q8.qmatmul_int8.launches - before == 73
+    assert q8.qmatmul_int8.launches - before[0] == 73
+    assert q8.qmatmul_int8.epilogues["requant"] - before[1]["requant"] == 73
     host = Engine(probe, device="cpu")(feed)
     n_eq = n_all = 0
     for name, v in host.items():

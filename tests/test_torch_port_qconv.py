@@ -24,6 +24,7 @@ from onnx_rusty_inference_engine_tpu.ops.kernels.qmatmul import (
 )
 from onnx_rusty_inference_engine_tpu.ops.quantized import _requant as j_requant
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qconv_int8 as k
+from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int8 as q8
 from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
     UnsupportedOpError)
 from torch_port_util import run_op_port
@@ -111,7 +112,7 @@ def test_plain_qmatmul_matches_pallas(M, K, N, per_col, with_bias):
     want = np.asarray(j_qmatmul_requant(
         jnp.asarray(a), jnp.asarray(b), jnp.asarray(mult),
         None if bias is None else jnp.asarray(bias), interpret=True))
-    got = k.qmatmul_int8_requant(
+    got = q8.qmatmul_int8_requant(
         torch.from_numpy(a), torch.from_numpy(b),
         torch.as_tensor(mult),
         None if bias is None else torch.from_numpy(bias)).numpy()
@@ -139,24 +140,29 @@ def test_requant_epilogue_equals_jax_bit_for_bit():
                                              (7, 2, (0, 0, 0, 0)),
                                              (3, 2, (2, 1, 0, 1))])
 def test_packed_weight_layout_is_the_kernels_implicit_gemm(ksz, stride, pads):
-    """The kernel reads channels-last activations along K = (kh, kw, c) and
-    the packed weight row by row. Emulate that gather here and check it
+    """The kernel reads channels-last activations, their channels padded
+    to Cp = conv_channels(C) (5 -> 8 here), along K = (kh, kw, c) and the
+    packed weight row by row. Emulate that gather here and check it
     reproduces the exact conv: the layout the CUDA kernel relies on."""
     rng = np.random.default_rng(ksz * 10 + stride)
     B, C, H, W, O = 2, 5, 9, 8, 6
     x = torch.from_numpy(rng.integers(-128, 128, (B, C, H, W), np.int8))
     w = torch.from_numpy(rng.integers(-127, 128, (O, C, ksz, ksz), np.int8))
     packed = k.pack_qconv_weight(w)
-    K = ksz * ksz * C
+    Cp = k.conv_channels(C)
+    K = ksz * ksz * Cp
+    assert Cp == 8
     assert packed.shape == (O, -(-K // k.K_ALIGN) * k.K_ALIGN)
     assert not packed[:, K:].any()
+    assert not packed[:, :K].reshape(O, ksz * ksz, Cp)[..., C:].any()
     pt, pl, pb, pr = pads
     OH = (H + pt + pb - ksz) // stride + 1
     OW = (W + pl + pr - ksz) // stride + 1
-    x_cl = x.permute(0, 2, 3, 1).to(torch.int64)
+    x_cl = k.channels_last_input(x).to(torch.int64)
+    assert x_cl.shape == (B, H, W, Cp) and not x_cl[..., C:].any()
     cols = torch.zeros((B, OH, OW, packed.shape[1]), dtype=torch.int64)
     for kidx in range(K):
-        tap, c = divmod(kidx, C)
+        tap, c = divmod(kidx, Cp)
         kh, kw = divmod(tap, ksz)
         for oh in range(OH):
             ih = oh * stride - pt + kh
@@ -227,3 +233,77 @@ def test_quantize_dequantize_match_jax(case):
     (got_d,) = run_op_port("DequantizeLinear", {"q": want_q}, q_inits,
                            **attrs)
     np.testing.assert_array_equal(got_d, want_d)
+
+
+# SqueezeNet 1.0's 22 distinct QLinearConv shapes at b256, 224x224:
+# (C, H, O, kernel, stride, pad)
+SQUEEZENET_B256_CONVS = [
+    (3, 224, 96, 7, 2, 0),
+    (96, 54, 16, 1, 1, 0), (16, 54, 64, 1, 1, 0), (16, 54, 64, 3, 1, 1),
+    (128, 54, 16, 1, 1, 0), (128, 54, 32, 1, 1, 0), (32, 54, 128, 1, 1, 0),
+    (32, 54, 128, 3, 1, 1), (256, 26, 32, 1, 1, 0), (32, 26, 128, 1, 1, 0),
+    (32, 26, 128, 3, 1, 1), (256, 26, 48, 1, 1, 0), (48, 26, 192, 1, 1, 0),
+    (48, 26, 192, 3, 1, 1), (384, 26, 48, 1, 1, 0), (384, 26, 64, 1, 1, 0),
+    (64, 26, 256, 1, 1, 0), (64, 26, 256, 3, 1, 1), (512, 12, 64, 1, 1, 0),
+    (64, 12, 256, 1, 1, 0), (64, 12, 256, 3, 1, 1), (512, 12, 1000, 1, 1, 0),
+]
+
+
+@pytest.mark.parametrize("C,H,O,ksz,s,pad", SQUEEZENET_B256_CONVS)
+def test_tile_and_producer_fit_every_squeezenet_b256_conv(C, H, O, ksz, s,
+                                                           pad):
+    """The tile the wrapper passes fits the kernel (a BN it has, a ring of at
+    least 2 slots within the H100's 227 KB of shared memory), covers N in
+    one block where N <= 256, and each conv goes to
+    the producer its shape allows: TMA for the 1x1s (C % 16 == 0), the
+    gather for the 3x3s and for conv1, whose 3 channels are read as 4."""
+    pads = ((pad, pad), (pad, pad))
+    Cp = k.conv_channels(C)
+    producer, tile = k.conv_plan((256, C, H, H), (O, C, ksz, ksz), (s, s),
+                                 pads)
+    assert tile.bn in q8.BN_CHOICES and tile.bm in (64, 128)
+    assert 2 <= tile.stages <= q8.MAX_STAGES
+    Kp = -(-ksz * ksz * Cp // k.K_ALIGN) * k.K_ALIGN
+    assert q8.tile_smem(tile, Kp) <= q8.SMEM_LIMIT == 232448
+    # B stays in shared memory where the conv has one N tile and its K
+    # slices fit: all but conv10 and the 3x3 expands of fires 6-9
+    assert tile.b_resident == (O <= 256 and -(-Kp // 128) * tile.bn * 128
+                               <= q8.B_RESIDENT_MAX)
+    if O <= 256:
+        assert tile.bn == min(c for c in q8.BN_CHOICES if c >= O)
+    else:
+        assert -(-O // tile.bn) * tile.bn - O < 128
+    assert tile.bm == 128  # every SqueezeNet grid has blocks for all SMs
+    assert producer == ("tma" if ksz == 1 else "gather")
+    assert Cp == (4 if C == 3 else C)
+
+
+@pytest.mark.parametrize("C,ksz,stride,pads,want", [
+    (3, 7, 2, ((0, 0), (0, 0)), "gather"),
+    (16, 1, 1, ((0, 0), (0, 0)), "tma"),
+    (512, 1, 1, ((0, 0), (0, 0)), "tma"),
+    (24, 1, 1, ((0, 0), (0, 0)), "gather"),
+    (32, 1, 2, ((0, 0), (0, 0)), "gather"),
+    (32, 1, 1, ((0, 1), (0, 0)), "gather"),
+    (64, 3, 1, ((1, 1), (1, 1)), "gather"),
+])
+def test_conv_producer_routes_by_shape(C, ksz, stride, pads, want):
+    assert k.conv_producer(k.conv_channels(C), ksz, ksz, (stride, stride),
+                           pads) == want
+
+
+def test_channels_last_input_views_or_pads():
+    """A channels-last x with C % 4 == 0 is read in place; an NCHW x is
+    copied channels-last; C = 3 gains a zero fourth channel."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 8, 5, 6), np.int8))
+    cl = x.contiguous(memory_format=torch.channels_last)
+    got = k.channels_last_input(cl)
+    assert got.data_ptr() == cl.data_ptr() and got.is_contiguous()
+    assert torch.equal(got, x.permute(0, 2, 3, 1))
+    got = k.channels_last_input(x)
+    assert got.is_contiguous() and torch.equal(got, x.permute(0, 2, 3, 1))
+    x3 = x[:, :3].contiguous()
+    got = k.channels_last_input(x3)
+    assert got.shape == (2, 5, 6, 4) and not got[..., 3].any()
+    assert torch.equal(got[..., :3], x3.permute(0, 2, 3, 1))

@@ -171,6 +171,130 @@ def test_qlinear_matmul_requant_ties_round_half_to_even():
     np.testing.assert_array_equal(got.reshape(-1), [0, 2, 2, 0, -2])
 
 
+@pytest.fixture
+def qmm_routes(monkeypatch):
+    """Which kernel wrapper each QLinearMatMul of the port called: "requant"
+    (the fused epilogue) or "int32" (the product, then PyTorch's requant)."""
+    from onnx_rusty_inference_engine_tpu_torch.ops import quantized
+
+    routes = []
+    for name, route in (("qmatmul_int8_requant", "requant"),
+                        ("qmatmul_int8", "int32")):
+        fn = getattr(quantized, name)
+
+        def spy(*args, _fn=fn, _route=route, **kw):
+            routes.append(_route)
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(quantized, name, spy)
+    return routes
+
+
+def _jax_qlinear_matmul(a, inits, kernels, monkeypatch):
+    """The JAX emitter's QLinearMatMul under ORIET_KERNELS=`kernels` (its
+    Pallas kernel in interpret mode)."""
+    monkeypatch.setattr(j_qmatmul_module, "qmatmul_int8",
+                        functools.partial(j_qmatmul_int8, interpret=True))
+    os.environ["ORIET_KERNELS"] = kernels
+    try:
+        (want,) = run_op("QLinearMatMul", {"a": a}, inits)
+    finally:
+        os.environ["ORIET_KERNELS"] = "xla"
+    return want
+
+
+# (a shape, N, per-column b_s, bias, mult 0.5 with sums on halves)
+FUSED_CASES = {
+    "2d_per_col_bias": ((37, 96), 40, True, True, False),
+    "3d_per_tensor_bias": ((3, 4, 72), 130, False, True, False),
+    "2d_per_col_nobias": ((16, 48), 24, True, False, False),
+    "ties_bias": ((6, 1), 3, False, True, True),
+}
+
+
+@pytest.mark.parametrize("kernels", ["xla", "pallas"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_qlinear_matmul_fused_route_matches_jax_emitter(case, kernels,
+                                                        qmm_routes,
+                                                        monkeypatch):
+    """y_zero_point a constant 0 (the quantizer's form): the port calls the
+    fused requant epilogue once, and its int8 equals the JAX emitter's bit
+    for bit, with per-column b_s, a bias, and sums that land on halves
+    (a_s * b_s / y_s = 0.5), which round half to even."""
+    a_shape, N, per_col, with_bias, ties = FUSED_CASES[case]
+    rng = np.random.default_rng(21)
+    if ties:
+        a = np.array([[1], [3], [5], [-1], [-3], [7]], np.int8)
+        inits = {"a_s": np.float32(1.0), "a_zp": np.int8(0),
+                 "b": np.array([[1, -1, 3]], np.int8),
+                 "b_s": np.array([0.5], np.float32),
+                 "b_zp": np.zeros(1, np.int8), "y_s": np.float32(1.0),
+                 "y_zp": np.int8(0),
+                 "bias": np.array([0, 2, -4], np.int32)}
+    else:
+        a = rng.integers(-128, 128, a_shape, dtype=np.int8)
+        inits = _qmatmul_inits(a_shape[-1], N, per_col, with_bias, seed=8)
+    want = _jax_qlinear_matmul(a, inits, kernels, monkeypatch)
+    (got,) = run_op_port("QLinearMatMul", {"a": a}, inits)
+    assert qmm_routes == ["requant"]
+    assert got.dtype == want.dtype == np.int8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if ties:  # acc + bias = 1, 3, 5, -1, -3, 7 (col 0), x 0.5 -> even
+        np.testing.assert_array_equal(got[:, 0], [0, 2, 2, 0, -2, 4])
+
+
+@pytest.mark.parametrize("kernels", ["xla", "pallas"])
+@pytest.mark.parametrize("y_zp", [3, -5])
+def test_nonzero_y_zero_point_takes_the_int32_route(y_zp, kernels,
+                                                    qmm_routes, monkeypatch):
+    """A constant y_zero_point other than 0 is not the kernel epilogue's
+    function: the port takes the int32 product and requantizes in PyTorch,
+    still equal to the JAX emitter."""
+    a = np.random.default_rng(4).integers(-128, 128, (9, 64), dtype=np.int8)
+    inits = dict(_qmatmul_inits(64, 33, True, True), y_zp=np.int8(y_zp))
+    want = _jax_qlinear_matmul(a, inits, kernels, monkeypatch)
+    (got,) = run_op_port("QLinearMatMul", {"a": a}, inits)
+    assert qmm_routes == ["int32"]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(4096, 768, 768), (4096, 768, 3072),
+                                   (4096, 3072, 768), (32, 768, 768),
+                                   (1, 13, 8), (17, 200, 1000)])
+def test_int8_tile_fits_bert_and_ragged_shapes(M, K, N):
+    """BERT-base's four QLinearMatMul shapes at B = 32, T = 128, and ragged
+    ones: a BN the kernel has, one N tile where N <= 256, a ring that fits
+    the H100's 227 KB of shared memory, and no (BM, BN) that would leave
+    each SM less modelled time."""
+    Kp = -(-K // q8.K_ALIGN) * q8.K_ALIGN
+    tile = q8.int8_tile(M, N, Kp)
+    assert tile.bn in q8.BN_CHOICES and tile.bm in (64, 128)
+    assert 2 <= tile.stages <= q8.MAX_STAGES
+    assert q8.tile_smem(tile, Kp) <= q8.SMEM_LIMIT
+    assert tile.b_resident == (N <= 256 and -(-Kp // 128) * tile.bn * 128
+                               <= q8.B_RESIDENT_MAX)
+    if N <= 256:
+        assert tile.bn >= N
+
+    def per_sm(bm, bn):
+        tiles = -(-M // bm) * -(-N // bn)
+        return -(-tiles // q8.NUM_SMS) * (bm * bn + q8.TILE_OVERHEAD)
+
+    best = min(per_sm(bm, bn) for bm in (64, 128)
+               for bn in q8.BN_CHOICES if bn >= min(N, 128))
+    assert per_sm(tile.bm, tile.bn) == best
+    if (M, K, N) in ((4096, 768, 768), (4096, 3072, 768)):
+        assert tile[:2] == (128, 192)  # 128 tiles: one wave on 132 SMs
+
+
+def test_qmatmul_int8_requant_wrapper_has_no_fallback_off_the_cpu():
+    a = torch.zeros((4, 8), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        q8.qmatmul_int8_requant(a, torch.zeros((8, 2), dtype=torch.int8,
+                                               device="meta"),
+                                torch.ones(2, device="meta"))
+
+
 def _uint8(inits):
     out = dict(inits, a_zp=np.uint8(0), b=inits["b"].view(np.uint8),
                b_zp=inits["b_zp"].view(np.uint8))
