@@ -65,7 +65,17 @@ Phases, each printing JSON lines:
              variant the int4 schedules use, bit for bit.
              Kernel and library times are device times from a replayed
              CUDA graph of DEC_ITERS calls (ms_eager: the same calls issued
-             from Python, host time included); plain times are eager.
+             from Python, host time included); plain times are eager. The
+             attention lines also give the kernel's cluster size, the K/V
+             rows it loaded (counted by the kernel, held equal to
+             attn_live_chunks), the bytes it moved (bytes_read) beside the
+             bytes of the bound, and times with the cache cold in L2.
+8b. attn_sweep - both attention kernels at six shapes (GPT-2's step at
+             L 256 with 65 and 128 valid rows, L 1024 all valid at batch 8
+             and 1, L 1024 with 257 valid, GQA 32/8 heads of 128 at L
+             1024), each held to its plain version on the card (1e-5 and
+             1e-2 x max|out|), timed hot and cold beside SDPA bf16, with
+             its bound, cluster size, rows and bytes read.
 9. bert    - BERT-base (30522 vocab, 12 layers, 12 heads of 64, hidden
              768; random weights from seed 0) at B = 32, T = 128, with an
              attention mask that pads each sequence after a random length
@@ -1157,11 +1167,6 @@ def phase_int4_sweep(smi: str) -> None:
 
 
 def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
-    import torch.nn.functional as F
-
-    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
-        decode_attn as da)
-
     rng = np.random.default_rng(1)
     rows = [int4_kernel_row(gen, "qmatmul_int4_planar",
                             counts["qmatmul_int4_planar"], smi)]
@@ -1178,62 +1183,26 @@ def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
         np.where(valid, 0.0, -1e9).astype(np.float32),
         (DEC_BATCH, 1, MAX_LEN)).copy()).cuda()
     n_valid = int(valid.sum())
-    qb = q.reshape(DEC_BATCH, H, 1, hd).to(torch.bfloat16)
-    kb = k8.reshape(DEC_BATCH, H, MAX_LEN, hd).to(torch.bfloat16)
-    vb = v8.reshape(DEC_BATCH, H, MAX_LEN, hd).to(torch.bfloat16)
-    mb = bias.reshape(DEC_BATCH, 1, 1, MAX_LEN).to(torch.bfloat16)
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qb, kb, vb, attn_mask=mb, scale=1.0)
-    for name, kern_fn, plain_fn, tol, peak, launches in (
-            ("decode_attention_int8", da.decode_attention_int8,
-             da.decode_attention_int8_plain, 1e-5, BF16_OPS_PER_S,
-             counts["decode_attention_int8"]),
-            ("decode_attention_int8_mxu", da.decode_attention_int8_mxu,
-             da.decode_attention_int8_mxu_plain, 1e-2, INT8_OPS_PER_S,
+    for name, launches in (
+            ("decode_attention_int8", counts["decode_attention_int8"]),
+            ("decode_attention_int8_mxu",
              counts_i8["decode_attention_int8_mxu"])):
-        def kern():
-            return kern_fn(q, k8, v8, bias, n_q_heads=H)
-
-        def plain():
-            return plain_fn(q, k8, v8, bias, n_q_heads=H)
-
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        require(rel <= tol, f"{name} vs plain: {rel} (tolerance {tol})")
-        lib_rel = float((sdpa().reshape(want.shape).float() - want).abs()
-                        .max() / want.abs().max())
-        ms, ms_eager = graph_ms(kern, DEC_ITERS), cuda_ms(kern, DEC_ITERS)
-        plain_ms = cuda_ms(plain, 3)
-        library_ms = graph_ms(sdpa, DEC_ITERS)
-        # what this step's data needs: the valid cache rows only (masked
-        # rows add exactly 0)
-        BH = DEC_BATCH * H
-        ops = 4 * BH * n_valid * hd
-        nbytes = BH * hd * 4 * 2 + 2 * BH * n_valid * hd + DEC_BATCH * \
-            MAX_LEN * 4
-        bound_ms, bound_by, _, _ = bound(ops, nbytes, peak)
-        emit({"phase": "kernel", "kernel": name, "q": [BH, 1, hd],
-              "kv": [BH, MAX_LEN, hd], "valid_positions": n_valid,
+        line = attn_measure(name, q, k8, v8, bias, H, n_valid, plain=True)
+        emit({"phase": "kernel", "kernel": name, "q": [DEC_BATCH * H, 1, hd],
+              "kv": [DEC_BATCH * H, MAX_LEN, hd], "valid_positions": n_valid,
               "count_per_step": gen.cfg.n_layer, "launches": launches,
-              "max_abs_err": err,
-              "max_rel_err": rel, "tolerance": tol, "ms": ms,
-              "ms_eager": ms_eager, "plain_ms": plain_ms,
-              "library_ms": library_ms,
-              "library": "F.scaled_dot_product_attention, bf16, on K/V "
-                         "dequantized beforehand",
-              "library_max_rel_err": lib_rel, "bound_ms": bound_ms,
-              "bound_by": bound_by, "ops": ops, "bytes": nbytes,
-              "gb_per_s": nbytes / ms / 1e6})
+              **line, "card": smi})
         source, replaces = KERNEL_ROWS[name]
         n = gen.cfg.n_layer
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": err, "max_rel_err": rel, "ms": n * ms,
-            "plain_ms": n * plain_ms, "bound_ms": n * bound_ms,
-            "bound_by": bound_by, "library_ms": n * library_ms,
+            "max_abs_err": line["max_abs_err"],
+            "max_rel_err": line["max_rel_err"], "ms": n * line["ms"],
+            "plain_ms": n * line["plain_ms"],
+            "bound_ms": n * line["bound_ms"], "bound_by": line["bound_by"],
+            "library_ms": n * line["library_ms"],
+            "cluster": line["cluster"], "rows_read": line["rows_read"],
             "per": "one GPT-2 124M decode step at batch 8, pos 64: 12 "
                    "launches (one per layer); ms and library_ms are device "
                    "times (CUDA-graph replay), plain_ms eager; launches "
@@ -1242,6 +1211,155 @@ def phase_decode_kernels(gen, prompts, counts, counts_i8, smi: str):
                       else "the ORIET_ATTN_I8=1 run of the same path"),
             "card": smi})
     return rows
+
+
+ATTN_FORMS = {  # kernel -> (plain version, tolerance x max|out|, peak)
+    "decode_attention_int8": ("decode_attention_int8_plain", 1e-5,
+                              BF16_OPS_PER_S),
+    "decode_attention_int8_mxu": ("decode_attention_int8_mxu_plain", 1e-2,
+                                  INT8_OPS_PER_S)}
+L2_BYTES = 50e6  # the H100's L2 cache
+
+
+def _sdpa_bf16(q, k8, v8, bias, H):
+    """One PyTorch call computing the same attention: F.scaled_dot_product_
+    attention in bf16 on K/V dequantized beforehand (GQA by enable_gqa).
+    Timed only; the port never calls it."""
+    import torch.nn.functional as F
+
+    B, L, hd = bias.shape[0], bias.shape[-1], q.shape[-1]
+    Hkv = k8.shape[0] // B
+    qb = q.reshape(B, H, 1, hd).to(torch.bfloat16)
+    kb = k8.reshape(B, Hkv, L, hd).to(torch.bfloat16)
+    vb = v8.reshape(B, Hkv, L, hd).to(torch.bfloat16)
+    mb = bias.reshape(B, 1, 1, L).to(torch.bfloat16)
+    gqa = {"enable_gqa": True} if Hkv != H else {}
+    return lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mb,
+                                                  scale=1.0, **gqa)
+
+
+def _graph_ms_cold(make, nbytes: int) -> float:
+    """graph_ms of calls that cycle through copies of the operands
+    (make(i) -> fn on copy i) that together exceed twice the L2 cache, so
+    that each call finds its operands in device memory, as a decode step
+    finds a layer's cache after the other layers' weights and caches."""
+    n = int(min(DEC_ITERS, max(2, -(-2 * L2_BYTES // max(nbytes, 1)))))
+    fns = [make(i) for i in range(n)]
+    turn = [0]
+
+    def fn():
+        turn[0] += 1
+        return fns[turn[0] % n]()
+
+    return graph_ms(fn, DEC_ITERS)
+
+
+def attn_measure(name, q, k8, v8, bias, H, n_valid, *, plain=False) -> dict:
+    """One attention kernel on (q, k8, v8, bias) with n_valid valid cache
+    rows per batch row: held to its plain version on the card (raises past
+    its tolerance), its K rows counted by the kernel against
+    attn_live_chunks, and timed by CUDA-graph replay with the cache hot in
+    L2 (ms) and cold (ms_cold), beside SDPA bf16 (library_ms, timed alike)
+    and the card's bound for what the data needs (the valid rows' K and V,
+    q, bias, out). bytes_read: what the kernel moves (the rows it loads,
+    the bias row once per CTA, q, out)."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        decode_attn as da)
+
+    plain_name, tol, peak = ATTN_FORMS[name]
+    kern, plain_fn = getattr(da, name), getattr(da, plain_name)
+    B, L, hd = bias.shape[0], bias.shape[-1], q.shape[-1]
+    Hkv = k8.shape[0] // B
+    C = da.attn_split(B, H, Hkv, L, hd)
+    counter = torch.zeros(1, dtype=torch.int32, device=q.device)
+    got = da._launch(name, q, k8, v8, bias, H, rows_read=counter)
+    want = plain_fn(q, k8, v8, bias, n_q_heads=H)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    require(rel <= tol, f"{name} vs plain at {(B, H, Hkv, L, hd)}: {rel} "
+                        f"(tolerance {tol})")
+    rows_read = int(da.attn_live_chunks(
+        q, bias, n_q_heads=H, n_kv_heads=Hkv,
+        mxu=name.endswith("_mxu")).sum())
+    require(int(counter.item()) == rows_read,
+            f"{name}: the kernel loaded {int(counter.item())} K rows, "
+            f"attn_live_chunks says {rows_read}")
+    sdpa = _sdpa_bf16(q, k8, v8, bias, H)
+    lib_rel = float((sdpa().reshape(want.shape).float() - want).abs().max()
+                    / want.abs().max())
+
+    def kern_fn():
+        return kern(q, k8, v8, bias, n_q_heads=H)
+
+    def kern_on(i):
+        if i == 0:
+            return kern_fn
+        kc, vc = k8.clone(), v8.clone()
+        return lambda: kern(q, kc, vc, bias, n_q_heads=H)
+
+    def sdpa_on(i):
+        return sdpa if i == 0 else _sdpa_bf16(q, k8.clone(), v8.clone(),
+                                              bias, H)
+
+    kv_bytes = 2 * k8.numel()
+    line = {"cluster": C, "ms": graph_ms(kern_fn, DEC_ITERS),
+            "ms_cold": _graph_ms_cold(kern_on, kv_bytes),
+            "library_ms": graph_ms(sdpa, DEC_ITERS),
+            "library_ms_cold": _graph_ms_cold(sdpa_on, 2 * kv_bytes)}
+    if plain:
+        line["ms_eager"] = cuda_ms(kern_fn, DEC_ITERS)
+        line["plain_ms"] = cuda_ms(lambda: plain_fn(q, k8, v8, bias,
+                                                    n_q_heads=H), 3)
+    ops = 4 * B * H * n_valid * hd
+    nbytes = B * H * hd * 4 * 2 + 2 * B * Hkv * n_valid * hd + B * L * 4
+    bound_ms, bound_by, _, _ = bound(ops, nbytes, peak)
+    bytes_read = 2 * rows_read * hd + B * Hkv * C * L * 4 + B * H * hd * 8
+    line.update({
+        "max_abs_err": err, "max_rel_err": rel, "tolerance": tol,
+        "library": "F.scaled_dot_product_attention, bf16, on K/V "
+                   "dequantized beforehand",
+        "library_max_rel_err": lib_rel, "bound_ms": bound_ms,
+        "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+        "rows_read": rows_read, "rows_total": B * Hkv * L,
+        "bytes_read": bytes_read,
+        "gb_per_s": nbytes / line["ms"] / 1e6,
+        "gb_per_s_read": bytes_read / line["ms"] / 1e6})
+    return line
+
+
+# (label, B, H, Hkv, hd, L, valid rows per batch row)
+ATTN_SWEEP = (("main_first_step", 8, 12, 12, 64, 256, 65),
+              ("main_last_step", 8, 12, 12, 64, 256, 128),
+              ("full_context", 8, 12, 12, 64, 1024, 1024),
+              ("batch1_full_context", 1, 12, 12, 64, 1024, 1024),
+              ("long_cache_mostly_empty", 8, 12, 12, 64, 1024, 257),
+              ("gqa_rep4_hd128", 8, 32, 8, 128, 1024, 1024))
+
+
+def phase_attn_sweep(smi: str) -> None:
+    """Both attention kernels at the ATTN_SWEEP shapes, on data from seed
+    3 (q scaled as the decode graph scales it, the int8 cache uniform in
+    [-127, 127], the first `valid` rows of every batch row unmasked): one
+    attn_measure line per shape and kernel."""
+    rng = np.random.default_rng(3)
+    for label, B, H, Hkv, hd, L, n_valid in ATTN_SWEEP:
+        q = torch.from_numpy((rng.standard_normal((B * H, 1, hd))
+                              / (127 * np.sqrt(hd))).astype(np.float32)).cuda()
+        k8, v8 = (torch.from_numpy(rng.integers(
+            -127, 128, (B * Hkv, L, hd), dtype=np.int8)).cuda()
+            for _ in range(2))
+        bias = torch.from_numpy(np.broadcast_to(
+            np.where(np.arange(L) < n_valid, 0.0, -1e9).astype(np.float32),
+            (B, 1, L)).copy()).cuda()
+        for name in ATTN_FORMS:
+            emit({"phase": "attn_sweep", "shape": label, "kernel": name,
+                  "B": B, "H": H, "Hkv": Hkv, "hd": hd, "L": L,
+                  "valid_rows": n_valid,
+                  **attn_measure(name, q, k8, v8, bias, H, n_valid),
+                  "card": smi})
+        del q, k8, v8, bias
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -1713,6 +1831,7 @@ def main() -> int:
                                          smi)
             del gen
             torch.cuda.empty_cache()
+            phase_attn_sweep(smi)
             eng, eng8, qgraph, card, launches, feed = phase_bert()
             phase_profile(eng, eng8, feed, model="bert-base ",
                           batch=BERT_BATCH, buckets_by=_BERT_BUCKETS,

@@ -310,33 +310,136 @@ def test_int4_kernel_matches_plain(cuda, case):
     assert _rel_err(got, want) <= 1e-5
 
 
-# (B, H, Hkv, L, hd): GPT-2's decode shape, L not a multiple of 32 with GQA,
-# hd not a multiple of 4 (byte loads)
-ATTN_CASES = {"gpt2": (8, 12, 12, 256, 64), "gqa_l77": (2, 4, 2, 77, 64),
-              "gqa_hd10": (3, 6, 3, 50, 10)}
+# (B, H, Hkv, L, hd, live rows, cluster). live: None draws a valid length
+# per batch row, an int keeps that many rows live in every batch row,
+# "masked" also masks batch row 0 entirely (all biases equal: nothing is
+# skipped there). cluster: None takes attn_split's C, an int forces it.
+# GPT-2's decode shape; L not a multiple of 32 with GQA; hd not a multiple
+# of 16 (byte loads); the attn_sweep shapes of chip_smoke.py (the main
+# path's first and last steps, full context at batch 8 and 1, a long cache
+# mostly empty, GQA rep 4 at hd 128); L not divisible by C; L < C (empty
+# chunks); hd 80 (lanes past hd) and 256; MQA (rep 12: three RB passes).
+ATTN_CASES = {
+    "gpt2": (8, 12, 12, 256, 64, None, None),
+    "gqa_l77": (2, 4, 2, 77, 64, None, None),
+    "gqa_hd10": (3, 6, 3, 50, 10, None, None),
+    "main_pos64": (8, 12, 12, 256, 64, 65, None),
+    "main_last_step": (8, 12, 12, 256, 64, 128, None),
+    "l1024_full": (8, 12, 12, 1024, 64, 1024, None),
+    "b1_l1024_full": (1, 12, 12, 1024, 64, 1024, None),
+    "l1024_live257": (8, 12, 12, 1024, 64, 257, None),
+    "gqa_rep4_hd128": (8, 32, 8, 1024, 128, 1024, None),
+    "l1000_c8": (1, 12, 12, 1000, 64, None, None),
+    "l5_below_c8": (2, 4, 2, 5, 64, None, 8),
+    "hd128_l77_c2": (2, 8, 2, 77, 128, None, 2),
+    "hd80": (2, 4, 4, 64, 80, None, None),
+    "hd256": (1, 2, 2, 300, 256, None, None),
+    "all_masked_row": (3, 4, 4, 96, 64, "masked", None),
+    "mqa_rep12": (2, 12, 1, 200, 64, None, None),
+}
 
 
-@pytest.mark.parametrize("mxu", [False, True])
-@pytest.mark.parametrize("case", list(ATTN_CASES))
-def test_attention_kernels_match_plain(cuda, case, mxu):
-    B, H, Hkv, L, hd = ATTN_CASES[case]
+def _attn_case(case, cuda):
+    """(q, k8, v8, bias, H, cluster) of ATTN_CASES[case], on the card."""
+    B, H, Hkv, L, hd, live, split = ATTN_CASES[case]
     rng = np.random.default_rng(L)
     q = torch.from_numpy((rng.standard_normal((B * H, 1, hd))
                           / (127 * np.sqrt(hd))).astype(np.float32)).to(cuda)
     k8, v8 = (torch.from_numpy(rng.integers(-127, 128, (B * Hkv, L, hd),
                                             dtype=np.int8)).to(cuda)
               for _ in range(2))
-    valid = np.arange(L)[None, :] < rng.integers(1, L + 1, (B, 1))
+    if live is None or live == "masked":
+        n_live = rng.integers(1, L + 1, (B, 1))
+    else:
+        n_live = np.full((B, 1), live)
+    valid = np.arange(L)[None, :] < n_live
+    if live == "masked":
+        valid[0] = False
     bias = torch.from_numpy(np.where(valid, 0.0, -1e9).astype(np.float32)
                             [:, None, :]).to(cuda)
-    kern, plain, tol = ((da.decode_attention_int8_mxu,
-                         da.decode_attention_int8_mxu_plain, 1e-2) if mxu
-                        else (da.decode_attention_int8,
-                              da.decode_attention_int8_plain, 1e-5))
+    return q, k8, v8, bias, H, split
+
+
+def _attn_forms(mxu):
+    return ((da.decode_attention_int8_mxu, da.decode_attention_int8_mxu_plain,
+             1e-2) if mxu else (da.decode_attention_int8,
+                                da.decode_attention_int8_plain, 1e-5))
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attention_kernels_match_plain(cuda, case, mxu):
+    q, k8, v8, bias, H, split = _attn_case(case, cuda)
+    kern, plain, tol = _attn_forms(mxu)
     before = kern.launches
-    got = kern(q, k8, v8, bias, n_q_heads=H)
+    if split is None:
+        got = kern(q, k8, v8, bias, n_q_heads=H)
+        assert kern.launches == before + 1
+    else:  # the wrapper's own launch with the cluster forced
+        got = da._launch(kern.__name__, q, k8, v8, bias, H, split=split)
+    torch.cuda.synchronize()
+    assert _rel_err(got, plain(q, k8, v8, bias, n_q_heads=H)) <= tol
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("case", ["main_pos64", "l1024_live257",
+                                  "all_masked_row", "gqa_l77", "l5_below_c8",
+                                  "gqa_rep4_hd128"])
+def test_attention_rows_read_match_attn_live_chunks(cuda, case, mxu):
+    """The K rows the kernel loads are the rows attn_live_chunks calls
+    live; at pos 64 and on the long mostly-empty cache that is fewer than
+    L."""
+    q, k8, v8, bias, H, split = _attn_case(case, cuda)
+    B, L = bias.shape[0], bias.shape[-1]
+    Hkv = k8.shape[0] // B
+    kern, plain, tol = _attn_forms(mxu)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = da._launch(kern.__name__, q, k8, v8, bias, H, split=split,
+                     rows_read=counter)
+    torch.cuda.synchronize()
+    want = da.attn_live_chunks(q, bias, n_q_heads=H, n_kv_heads=Hkv, mxu=mxu)
+    assert int(counter.item()) == int(want.sum())
+    if case in ("main_pos64", "l1024_live257"):
+        assert int(counter.item()) < B * Hkv * L
+    assert _rel_err(got, plain(q, k8, v8, bias, n_q_heads=H)) <= tol
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_attention_in_a_cuda_graph_equals_eager(cuda, mxu):
+    """Captured once and replayed: the replays equal the eager call bit for
+    bit (no atomics, fixed summation order), and the capture counts one
+    launch, the replays none."""
+    q, k8, v8, bias, H, _ = _attn_case("main_pos64", cuda)
+    kern, _, _ = _attn_forms(mxu)
+    eager = kern(q, k8, v8, bias, n_q_heads=H)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern(q, k8, v8, bias, n_q_heads=H)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kern.launches
+    with torch.cuda.graph(graph):
+        out = kern(q, k8, v8, bias, n_q_heads=H)
+    assert kern.launches == before + 1
+    for _ in range(3):
+        graph.replay()
     torch.cuda.synchronize()
     assert kern.launches == before + 1
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_attention_unaligned_cache_takes_byte_loads(cuda, mxu):
+    """A cache 1 byte off 16-byte alignment (hd 64) goes through the
+    kernel's byte loads and still matches the plain version."""
+    q, k8, v8, bias, H, _ = _attn_case("gqa_l77", cuda)
+    kern, plain, tol = _attn_forms(mxu)
+    k8u, v8u = (torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda)
+                [1:].view(x.shape).copy_(x) for x in (k8, v8))
+    assert k8u.data_ptr() % 16 and k8u.is_contiguous()
+    got = kern(q, k8u, v8u, bias, n_q_heads=H)
+    torch.cuda.synchronize()
     assert _rel_err(got, plain(q, k8, v8, bias, n_q_heads=H)) <= tol
 
 
