@@ -119,7 +119,40 @@ Phases, each printing JSON lines:
              16, 32, 64, 128, 512: every schedule that takes the shape
              (checked against the plain version) and the library call,
              timed; where small_m stops beating mma (the crossover).
-15. kernels - one line listing every ported kernel, one per TPU kernel,
+15. capture - twice, after phase 5 (SqueezeNet INT8 at b256) and after
+             phase 11 (INT8 BERT at B 32, T 128): the Engine's captured CUDA
+             graph (Engine.__call__ captures on a signature's first call)
+             against its eager function on the same inputs, bit for bit,
+             for the main path's input and a second one; a returned output
+             not overwritten by the next call; launch counts per forward
+             over replays unchanged (26 convs: 17 TMA + 9 gather; 73 GEMMs,
+             all requant); wall per forward eager, replayed through
+             Engine.__call__ and as the bare graph replay, each beside the
+             device busy time from torch.profiler (idle share).
+16. device_loop - after phase 7: phase 6's Generator with device_loop = 8
+             (K steps as one replayed CUDA graph): greedy tokens equal the
+             host loop's with ORIET_ATTN_I8 unset and set, a seeded
+             sampled run bit-equal to the host loop's, 49 int4 and 12
+             attention launches per step over the replays; tokens/s of
+             both loops, also with an eos id no row emits (the host loop
+             then reads `done` every step, the device loop once a block);
+             a block's wall against its device busy time.
+17. serve   - after phase 14: DecodeServer on GPT-2 124M (8 slots, INT4
+             planar weights, INT8 KV, max_len 256, prompt buckets 16/32/
+             64), 16 requests with prompts of 16-64 tokens from
+             default_rng(0) and 64 new tokens each, at multi_step 0 and 8
+             (a warm-up request per bucket first): the tokens of
+             multi_step 8 equal multi_step 0's for every request;
+             agreement of the first 4 with an isolated batch-1 Generator
+             reported, not held; served tokens/s, p50/p99 request latency,
+             a K-step replay's wall against its device busy time. Then
+             InferenceServer on SqueezeNet 1.0 INT8 at 224x224, buckets
+             1/8/64/256 (warmup captures each), 120 requests of 1-8
+             images: every served batch equal to the Engine's eager run
+             on the same padded batch, every request's rows a slice of
+             one; images/s, p50/p99, each Engine call's ms, and a b256
+             batch's pageable copy to the card and np.concatenate alone.
+18. kernels - one line listing every ported kernel, one per TPU kernel,
              after a line with the script's seconds so far.
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
@@ -207,17 +240,9 @@ def nvidia_smi() -> str:
 
 def _wrappers():
     """Every kernel wrapper, by kernel name; each counts its launches."""
-    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
-        decode_attn, qconv_int8, qmatmul_int4, qmatmul_int8)
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import counters
 
-    return {"qconv_int8_requant": qconv_int8.qconv_int8_requant,
-            "qmatmul_int8": qmatmul_int8.qmatmul_int8,
-            "qmatmul_int4_bf16": qmatmul_int4.qmatmul_int4_bf16,
-            "qmatmul_int4_planar": qmatmul_int4.qmatmul_int4_planar,
-            "decode_attention_int8": decode_attn.decode_attention_int8,
-            "decode_attention_int8_mxu":
-                decode_attn.decode_attention_int8_mxu,
-            "nibble_probe": qmatmul_int4.nibble_probe}
+    return counters.wrappers()
 
 
 # the per-variant counts some wrappers keep beside `launches`: int4
@@ -742,22 +767,23 @@ def _generator(cfg, **kw):
                      max_len=MAX_LEN, **kw)
 
 
-def _decode_tokens_per_s(gen, prompts) -> dict:
-    """Decode tokens/s of gen.generate: the time of a NEW-token run less
-    that of a 1-token run (prefill and first pick), by the host clock
-    around synchronized runs and by CUDA events; warmed first."""
+def _decode_tokens_per_s(gen, prompts, **kw) -> dict:
+    """Decode tokens/s of gen.generate(prompts, n, **kw): the time of a
+    NEW-token run less that of a 1-token run (prefill and first pick), by
+    the host clock around synchronized runs and by CUDA events; warmed
+    first."""
     def timed(n_new):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        gen.generate(prompts, n_new)
+        gen.generate(prompts, n_new, **kw)
         end.record()
         torch.cuda.synchronize()
         return time.perf_counter() - t0, start.elapsed_time(end) / 1e3
 
-    gen.generate(prompts, NEW)
+    gen.generate(prompts, NEW, **kw)
     full_wall, full_ev = timed(NEW)
     pre_wall, pre_ev = timed(1)
     toks = DEC_BATCH * (NEW - 1)
@@ -879,7 +905,7 @@ def phase_decode():
           "i8attn_token_agreement": float((toks_i8 == toks).mean()),
           "decode_tokens_per_s": tps,
           "tokens_row0": toks[0, :16].tolist()})
-    return gen, prompts, counts, counts_i8
+    return gen, prompts, counts, counts_i8, toks, toks_i8
 
 
 # device kernel name fragment -> bucket, first match wins
@@ -1805,6 +1831,344 @@ def phase_nibble(int4_launches: int, smi: str) -> dict:
             "card": smi}
 
 
+# --------------------------------------------------------------------------
+# whole-graph capture, the K-step device loop, the servers
+# --------------------------------------------------------------------------
+CAPTURE_REPS = 10          # forwards per timing and per count over replays
+SERVE_SLOTS, SERVE_REQS, SERVE_NEW = 8, 16, 64
+SERVE_BUCKETS = (16, 32, 64)
+SERVE_K = 8
+ISOLATED_CHECK = 4         # served requests re-run through a batch-1 Generator
+CNN_BUCKETS = (1, 8, 64, 256)
+CNN_REQS = 120             # InferenceServer requests of 1-8 images
+
+
+def device_busy(fn, reps: int) -> dict:
+    """Host wall ms per call of fn (reps calls, then a synchronize), and
+    the device busy ms per call from torch.profiler over another reps
+    calls: the sum of the kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy, n = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        busy += us / 1e3 / reps
+        n += evt.count
+    require(busy > 0, "the profiler saw device time")
+    return {"wall_ms": wall, "busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall),
+            "device_ops": n / reps}
+
+
+def phase_capture(model: str, eng8, feed: dict, kernel: str,
+                  per_forward: int, splits: dict, feed2: dict) -> None:
+    """The INT8 Engine's captured graph (made by the main path's first
+    call) against its eager function on the same inputs, bit for bit, for
+    the main path's feed and a second one; a returned output not
+    overwritten by the next call; launch counts per forward over
+    CAPTURE_REPS replays; wall per forward eager and replayed, beside the
+    device busy time."""
+    dev = [{k: torch.as_tensor(v, device="cuda") for k, v in f.items()}
+           for f in (feed, feed2)]
+    with torch.no_grad():
+        eager = [eng8._fn(eng8.params, f) for f in dev]
+        got = [eng8(f) for f in dev]
+        kept = {k: v.clone() for k, v in got[0].items()}
+        eng8(dev[1])
+    torch.cuda.synchronize()
+    for want, have in zip(eager, got):
+        for name, v in want.items():
+            require(torch.equal(have[name], v),
+                    f"{model}: captured {name} equals eager bit for bit")
+    for name, v in kept.items():
+        require(torch.equal(got[0][name], v),
+                f"{model}: a returned {name} is the caller's")
+    require(len(eng8._graphs) == 1, f"{model}: one graph per signature")
+    reset_counts()
+    with torch.no_grad():
+        for _ in range(CAPTURE_REPS):
+            eng8(dev[0])
+    counts = read_counts()
+    require(counts[kernel] == per_forward * CAPTURE_REPS
+            and sum(counts.values()) == counts[kernel],
+            f"{model}: {per_forward} {kernel} launches per replayed forward:"
+            f" {counts}")
+    got_splits = read_splits(kernel)
+    want_splits = {k: {v: n * CAPTURE_REPS for v, n in d.items()}
+                   for k, d in splits.items()}
+    require(got_splits == want_splits,
+            f"{model}: per-variant counts over replays {got_splits}")
+    (cap,) = eng8._graphs.values()
+    with torch.no_grad():
+        eager_t = device_busy(lambda: eng8._fn(eng8.params, dev[0]),
+                              CAPTURE_REPS)
+        replay_t = device_busy(lambda: eng8(dev[0]), CAPTURE_REPS)
+        graph_t = device_busy(cap.replay, CAPTURE_REPS)
+    batch = int(next(iter(feed.values())).shape[0])
+    emit({"phase": "capture", "model": model, "batch": batch,
+          "captured_equals_eager": True, "inputs_checked": 2,
+          "launches_per_forward": counts[kernel] / CAPTURE_REPS,
+          "splits_per_forward": {k: {v: n / CAPTURE_REPS
+                                     for v, n in d.items()}
+                                 for k, d in got_splits.items()},
+          "eager": eager_t, "replayed_call": replay_t,
+          "graph_replay_only": graph_t,
+          "per_s_eager": batch / eager_t["wall_ms"] * 1e3,
+          "per_s_replayed": batch / replay_t["wall_ms"] * 1e3})
+
+
+def phase_device_loop(gen, prompts, toks, toks_i8) -> None:
+    """Phase 6's Generator (the same object, engines and KV scales) with
+    device_loop = SERVE_K: greedy tokens equal the host loop's with
+    ORIET_ATTN_I8 unset and set, a seeded sampled run bit-equal to the
+    host loop's, 49 int4 and 12 attention launches per step over the
+    replayed blocks; tokens/s of both loops; one block's wall against its
+    device busy time."""
+    K = SERVE_K
+    steps = NEW - 1
+    blocks = -(-steps // K)
+    samp = dict(temperature=0.8, top_k=40, top_p=0.95, sample_seed=3)
+    never = gen.cfg.vocab_size
+    gen.device_loop = 0
+    want_s, _ = gen.generate(prompts, NEW, **samp)
+    gen.device_loop = K
+    try:
+        got = gen.generate(prompts, NEW)[0]             # eager block, capture
+        greedy_block = gen._blocks[next(iter(gen._blocks))]
+        reset_counts()
+        got2 = gen.generate(prompts, NEW)[0]            # replays
+        counts = read_counts()
+        os.environ["ORIET_ATTN_I8"] = "1"
+        try:
+            got_i8 = gen.generate(prompts, NEW)[0]
+        finally:
+            del os.environ["ORIET_ATTN_I8"]
+        got_s = gen.generate(prompts, NEW, **samp)[0]
+        got_s2 = gen.generate(prompts, NEW, **samp)[0]
+        tps_dl = _decode_tokens_per_s(gen, prompts)
+        # an eos id no row emits: the host loop reads `done` every step,
+        # the device loop once a block
+        tps_dl_eos = _decode_tokens_per_s(gen, prompts, eos_id=never)
+        with torch.no_grad():
+            block_t = device_busy(greedy_block["replay"], 5)
+    finally:
+        gen.device_loop = 0
+    require(np.array_equal(got, toks) and np.array_equal(got2, toks),
+            "device_loop greedy tokens equal the host loop's")
+    require(np.array_equal(got_i8, toks_i8),
+            "device_loop greedy tokens equal the host loop's (ORIET_ATTN_I8)")
+    require(np.array_equal(got_s, want_s) and np.array_equal(got_s2, want_s),
+            "device_loop sampled tokens equal the host loop's, bit for bit")
+    n4 = 4 * gen.cfg.n_layer + 1
+    require(counts["qmatmul_int4_planar"] == n4 * (1 + blocks * K)
+            and counts["decode_attention_int8"] == gen.cfg.n_layer
+            * blocks * K, f"49 int4 and 12 attention launches per step "
+            f"over {blocks} replayed blocks: {counts}")
+    tps_host = _decode_tokens_per_s(gen, prompts)
+    tps_host_eos = _decode_tokens_per_s(gen, prompts, eos_id=never)
+    emit({"phase": "device_loop", "model": "gpt2 124M (SMALL, seed 0), "
+          "int4 planar, int8 KV, fused attention", "batch": DEC_BATCH,
+          "K": K, "new_tokens": NEW, "blocks": blocks,
+          "greedy_equals_host": True, "i8attn_equals_host": True,
+          "sampled_equals_host": True, "sampling": samp,
+          "launches": counts,
+          "int4_per_step": counts["qmatmul_int4_planar"] / (1 + blocks * K),
+          "tokens_per_s_device_loop": tps_dl,
+          "tokens_per_s_host_loop": tps_host,
+          "tokens_per_s_device_loop_eos_set": tps_dl_eos,
+          "tokens_per_s_host_loop_eos_set": tps_host_eos,
+          "block_replay": block_t,
+          "step_wall_ms": block_t["wall_ms"] / K,
+          "step_busy_ms": block_t["busy_ms"] / K})
+
+
+def _serve_requests(cfg):
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 65, SERVE_REQS)
+    return [rng.integers(0, cfg.vocab_size, (int(n),)) for n in lens]
+
+
+def _run_decode_server(cfg, prompts, K: int):
+    from onnx_rusty_inference_engine_tpu_torch.serve_llm import DecodeServer
+
+    srv = DecodeServer(cfg, slots=SERVE_SLOTS, prompt_len=SERVE_BUCKETS[-1],
+                       max_len=MAX_LEN, kv_dtype="int8", int4_weights=True,
+                       prompt_buckets=SERVE_BUCKETS, multi_step=K,
+                       autostart=False)
+    # a first pass captures every graph: one request per prompt bucket
+    warm = [srv.submit(p[:b], 2) for p, b in zip(prompts, SERVE_BUCKETS)]
+    srv.start()
+    for f in warm:
+        f.result(timeout=600)
+    srv._latencies.clear()
+    srv.steps = srv.tokens_out = srv.requests_done = srv._occupancy_sum = 0
+    reset_counts()
+    t0 = time.perf_counter()
+    futs = [srv.submit(p, SERVE_NEW) for p in prompts]
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    stats = srv.stats()
+    return srv, outs, wall, counts, stats
+
+
+def phase_serve(smi: str) -> None:
+    """DecodeServer on GPT-2 124M at multi_step 0 and SERVE_K, the same
+    SERVE_REQS requests; InferenceServer on SqueezeNet 1.0 INT8."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config()
+    prompts = _serve_requests(cfg)
+    res = {}
+    for K in (0, SERVE_K):
+        srv, outs, wall, counts, stats = _run_decode_server(cfg, prompts, K)
+        block = None
+        if K:
+            with torch.no_grad():
+                block = device_busy(srv._blocks[("greedy", MAX_LEN)], 5)
+        srv.stop()
+        require(all(len(o) == SERVE_NEW for o in outs)
+                and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+                f"multi_step={K}: {SERVE_NEW} tokens per request")
+        require(counts["qmatmul_int4_planar"] > 0
+                and counts["decode_attention_int8"] == 0
+                and counts["qconv_int8_requant"] == 0, f"counts {counts}")
+        res[K] = {"outs": outs, "wall_s": wall, "counts": counts,
+                  "stats": stats, "block": block}
+        del srv
+        torch.cuda.empty_cache()
+    require(res[SERVE_K]["outs"] == res[0]["outs"],
+            f"multi_step={SERVE_K} tokens equal multi_step=0's for all "
+            f"{SERVE_REQS} requests")
+    agree = []
+    for p, o in list(zip(prompts, res[0]["outs"]))[:ISOLATED_CHECK]:
+        g = Generator(cfg, batch=1, prompt_len=p.size, max_len=MAX_LEN,
+                      kv_dtype="int8", int4_weights=True)
+        want = g.generate(p[None], SERVE_NEW)[0][0]
+        agree.append(float(np.mean(np.asarray(o) == want)))
+        del g
+        torch.cuda.empty_cache()
+    for K, r in res.items():
+        st = r["stats"]
+        emit({"phase": "serve", "server": "DecodeServer",
+              "model": "gpt2 124M (SMALL, seed 0), int4 planar, int8 KV",
+              "slots": SERVE_SLOTS, "requests": SERVE_REQS,
+              "new_tokens": SERVE_NEW, "prompt_buckets": SERVE_BUCKETS,
+              "max_len": MAX_LEN, "multi_step": K,
+              "tokens_equal_multi_step_0": True,
+              "isolated_batch1_agreement": agree,
+              "served_tokens_per_s": SERVE_REQS * SERVE_NEW / r["wall_s"],
+              "wall_s": r["wall_s"], "p50_latency_s": st["p50_latency_s"],
+              "p99_latency_s": st["p99_latency_s"],
+              "decode_dispatches": st["decode_steps"],
+              "mean_slot_occupancy": st["mean_slot_occupancy"],
+              "launches": r["counts"], "block_replay": r["block"],
+              "card": smi})
+    phase_serve_cnn(smi)
+
+
+def phase_serve_cnn(smi: str) -> None:
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.serve import InferenceServer
+
+    graph = P.import_model(P.build_squeezenet())
+    rng = np.random.default_rng(0)
+    calib = rng.standard_normal((CALIB, 3, 224, 224)).astype(np.float32)
+    qgraph = P.quantize_graph(graph, ranges=P.calibrate(
+        graph, [{"data_0": calib}]))
+    eng8 = P.Engine(qgraph)
+    seen, call_ms = [], []
+
+    class Recording:
+        """eng8, keeping each packed batch the server ran and its output."""
+        graph = eng8.graph
+
+        def __call__(self, feed):
+            t = time.perf_counter()
+            out = eng8(feed)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t) * 1e3)
+            seen.append((feed["data_0"], out["softmaxout_1"]))
+            return out
+
+    t0 = time.perf_counter()
+    srv = InferenceServer(Recording(), batch_buckets=CNN_BUCKETS,
+                          max_delay_s=0.002, autostart=False)
+    srv.warmup((3, 224, 224))
+    warm_s = time.perf_counter() - t0
+    require(len(eng8._graphs) == len(CNN_BUCKETS),
+            f"warmup captured every bucket: {len(eng8._graphs)}")
+    seen.clear()
+    call_ms.clear()
+    sizes = rng.integers(1, 9, CNN_REQS)
+    images = [rng.standard_normal((int(n), 3, 224, 224)).astype(np.float32)
+              for n in sizes]
+    reset_counts()
+    srv.start()
+    t0 = time.perf_counter()
+    futs = [srv.submit(x) for x in images]
+    outs = [f.result(timeout=600)["softmaxout_1"] for f in futs]
+    wall = time.perf_counter() - t0
+    srv.stop()
+    counts = read_counts()
+    summary = srv.stats.summary()
+    # each batch's output is the eager function's on the same padded
+    # bucket batch, and each request's rows are a slice of one of them
+    buckets = []
+    with torch.no_grad():
+        for x, o in seen:
+            buckets.append(int(x.shape[0]))
+            want = eng8._fn(eng8.params, {"data_0": torch.as_tensor(
+                x, device="cuda")})["softmaxout_1"]
+            require(torch.equal(o, want),
+                    "InferenceServer batch equals the Engine's eager run")
+    pool = np.concatenate([o.cpu().numpy() for _, o in seen]).reshape(
+        -1, 1000)
+    for x, o in zip(images, outs):
+        rows = o.reshape(len(x), -1)
+        require(any(np.array_equal(pool[i:i + len(x)], rows)
+                    for i in range(pool.shape[0] - len(x) + 1)),
+                "every request's rows are a slice of a served batch")
+    require(counts["qconv_int8_requant"] == 26 * len(seen),
+            f"26 convs per served batch: {counts}")
+    # where a b256 batch's host time goes: the pageable copy of its images
+    # to the card, and the replay alone
+    big = next(x for x, _ in seen if x.shape[0] == CNN_BUCKETS[-1])
+    h2d_ms = cuda_ms(lambda: torch.from_numpy(big).to("cuda"), 5)
+    t0 = time.perf_counter()
+    np.concatenate([big[i:i + 4] for i in range(0, len(big), 4)])
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "serve", "server": "InferenceServer",
+          "model": "squeezenet1.0 int8 224x224", "buckets": CNN_BUCKETS,
+          "requests": CNN_REQS, "images": int(sizes.sum()),
+          "batches": len(seen), "batch_sizes": buckets,
+          "results_equal_engine": True, "warmup_s": warm_s,
+          "engine_call_ms": call_ms, "h2d_ms_b256": h2d_ms,
+          "np_concatenate_ms_b256": pack_ms,
+          "images_per_s": int(sizes.sum()) / wall, "wall_s": wall,
+          "p50_latency_s": summary["p50_latency_s"],
+          "p99_latency_s": summary["p99_latency_s"],
+          "padding_overhead": summary["padding_overhead"],
+          "launches": counts, "card": smi})
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -1823,10 +2187,16 @@ def main() -> int:
             eng, qgraph, eng8, card, launches, feed = phase_slice()
             phase_profile(eng, eng8, feed)
             rows = [phase_kernels(qgraph, eng8, card, launches, smi)]
+            phase_capture("squeezenet1.0 int8 224x224", eng8, feed,
+                          "qconv_int8_requant", 26,
+                          {"producers": {"tma": 17, "gather": 9}},
+                          {"data_0": np.random.default_rng(1).standard_normal(
+                              feed["data_0"].shape).astype(np.float32)})
             del eng, eng8, card
             torch.cuda.empty_cache()
-            gen, prompts, counts, counts_i8 = phase_decode()
+            gen, prompts, counts, counts_i8, toks, toks_i8 = phase_decode()
             phase_decode_profile(gen, prompts)
+            phase_device_loop(gen, prompts, toks, toks_i8)
             rows += phase_decode_kernels(gen, prompts, counts, counts_i8,
                                          smi)
             del gen
@@ -1838,6 +2208,10 @@ def main() -> int:
                           glue_op="QLinearMatMul")
             rows.insert(1, phase_bert_kernels(qgraph, eng8, card, launches,
                                               smi))
+            phase_capture("bert-base int8 B32 T128", eng8, feed,
+                          "qmatmul_int8", 73,
+                          {"epilogues": {"int32": 0, "requant": 73}},
+                          {k: np.roll(v, 1, axis=0) for k, v in feed.items()})
             del eng, eng8, card
             torch.cuda.empty_cache()
             gen_ort, counts_ort = phase_ort_decode()
@@ -1847,6 +2221,7 @@ def main() -> int:
             del gen_ort
             torch.cuda.empty_cache()
             phase_int4_sweep(smi)
+            phase_serve(smi)
             rows.append(phase_nibble(counts["qmatmul_int4_planar"]
                                      + counts_ort["qmatmul_int4_bf16"], smi))
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -7,26 +7,39 @@ topological order, on the device the caller names. Values known before the
 run (Shape/Size of a tensor, and foldable arithmetic on such values) are
 propagated statically, as the JAX lowering does at trace time.
 
+On the card, `Engine.__call__` takes the place of JAX's `jax.jit`: the
+first call for an input signature (names, shapes, dtypes, and the
+ORIET_ATTN_I8 switch the attention emitter reads) runs eagerly, which
+builds the kernels and fixes every static value, and then captures the
+whole graph into one CUDA graph over static input and output buffers;
+later calls copy the feed in, replay, and return copies the caller owns.
+One Engine's graphs share one memory pool. On the CPU every call runs
+eagerly.
+
 `Engine(graph)` runs on the card; only an explicit `device="cpu"` runs on
-the CPU. Not ported yet: the bfloat16 dtype policy, the host prolog/epilog
-for string and image front-end ops (a graph that needs it raises), and
-capturing the whole graph as one CUDA graph.
+the CPU. Not ported yet: the bfloat16 dtype policy and the host
+prolog/epilog for string and image front-end ops (a graph that needs it
+raises).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .graph import _FOLDABLE, Graph, _fold_one, _shape_slice
 from . import ops  # noqa: F401  (importing ops fills the registry)
+from .ops.kernels import counters
 from .ops.registry import LoweringContext, UnsupportedOpError, get_emitter
 from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
 
-__all__ = ["lower", "Engine", "InferenceResult", "resolve_device"]
+__all__ = ["lower", "Engine", "InferenceResult", "resolve_device",
+           "captures", "capture", "Replay", "signature", "side_stream"]
 
 # ops that need no emitter when their inputs are known before the run
 # (Shape/Size always are; the foldable ops when fed static values)
@@ -62,7 +75,12 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
         device)
 
     def fn(params: Mapping[str, torch.Tensor],
-           inputs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+           inputs: Mapping[str, torch.Tensor],
+           statics: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        """`statics`, where given, keeps the static values (numpy, and on
+        the device) of one input signature: computed on the first call,
+        reused after, so that a later call copies nothing from the host
+        and may be captured into a CUDA graph."""
         env: Dict[str, torch.Tensor] = dict(consts)
         env.update(params)
         env.update(inputs)
@@ -72,6 +90,16 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
             if name in graph.constants:
                 return graph.constants[name]
             return ctx.static_env.get(name)
+
+        def put_static(name, val):
+            if statics is not None and name in statics:
+                val, t = statics[name]
+            else:
+                t = torch.as_tensor(val, device=device)
+                if statics is not None:
+                    statics[name] = (val, t)
+            ctx.static_env[name] = val
+            env[name] = t
 
         for node in graph.nodes:
             # static propagation: Shape/Size of a tensor are known from its
@@ -83,8 +111,7 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
                                      dtype=np.int64)
                 else:
                     val = np.asarray(int(np.prod(shp)), dtype=np.int64)
-                ctx.static_env[node.outputs[0]] = val
-                env[node.outputs[0]] = torch.as_tensor(val, device=device)
+                put_static(node.outputs[0], val)
                 continue
             if node.op_type in _FOLDABLE and len(node.outputs) == 1 and all(
                     (not i) or static_value(i) is not None
@@ -95,10 +122,7 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
                 except Exception:
                     folded = None
                 if folded is not None:
-                    folded = np.asarray(folded)
-                    ctx.static_env[node.outputs[0]] = folded
-                    env[node.outputs[0]] = torch.as_tensor(folded,
-                                                           device=device)
+                    put_static(node.outputs[0], np.asarray(folded))
                     continue
 
             emitter = get_emitter(node.op_type, node.domain)
@@ -110,6 +134,88 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
         return {o: env[o] for o in graph.outputs}
 
     return fn
+
+
+def captures(device) -> bool:
+    """Whether work on `device` runs as captured CUDA graphs: on the card
+    it does, on the CPU everything runs eagerly."""
+    return torch.device(device).type == "cuda"
+
+
+def signature(feed: Mapping[str, torch.Tensor]) -> tuple:
+    """What a captured graph is specific to: each input's name, shape and
+    dtype, and the ORIET_ATTN_I8 switch that ops/fused.py reads (a graph
+    captured with it freezes its choice of attention kernel)."""
+    return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(
+        feed.items())), bool(os.environ.get("ORIET_ATTN_I8")))
+
+
+class Replay:
+    """A captured CUDA graph. Calling it replays the graph on the current
+    stream and adds the launches the capture recorded to the kernel
+    wrappers' counters."""
+
+    def __init__(self, graph, gains: dict):
+        self.graph = graph
+        self.gains = gains
+
+    def __call__(self) -> None:
+        self.graph.replay()
+        counters.add(self.gains)
+
+
+def capture(fn: Callable, *, stream, pool=None, generators=()
+            ) -> Tuple[object, Replay]:
+    """Capture `fn()` into one CUDA graph on the side stream `stream`:
+    (what fn returned, its tensors now the graph's static outputs; the
+    Replay). fn must have run once with the same shapes before (kernels
+    built, static values fixed), on `stream`, whose work the caller has
+    ordered after the current stream's. The counters' gain over the
+    capture is taken back out: nothing ran. `generators` are the
+    torch.Generators fn draws from: each replay advances them as the
+    eager calls would. A capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = counters.snapshot()
+    # thread_local: a server captures on its dispatcher thread while
+    # client threads may touch the card
+    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = fn()
+    gains = counters.delta(before)
+    counters.add(gains, -1)
+    return out, Replay(graph, gains)
+
+
+@contextlib.contextmanager
+def side_stream(stream):
+    """`with side_stream(s):` runs the block on stream `s`, ordered after
+    the current stream's work so far, and orders the current stream's
+    later work after it. Warm-up runs and captures go there, as CUDA
+    graphs want."""
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        yield stream
+    cur.wait_stream(stream)
+
+
+def _same_value(a, b) -> bool:
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a is b
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+class _Captured:
+    """One input signature's graph: static inputs, static outputs, the
+    replay."""
+
+    def __init__(self, inputs, outputs, replay):
+        self.inputs = inputs
+        self.outputs = outputs
+        self.replay = replay
 
 
 class InferenceResult:
@@ -141,10 +247,15 @@ class Engine:
     device: where it runs; "cuda" (the default) raises when no card is
         present, only an explicit "cpu" runs on the CPU.
     dtype: compute dtype policy for float tensors; only "float32" is ported.
+    share_params_with: an Engine whose device weights this one reuses
+        where a weight of the same name has the same value (the decode
+        graphs of one server's cache lengths share every weight and
+        differ in their length-dependent tables).
     """
 
     def __init__(self, graph: Graph, *, device="cuda",
-                 dtype: str = "float32"):
+                 dtype: str = "float32",
+                 share_params_with: Optional["Engine"] = None):
         if np.dtype(dtype) != np.float32:
             raise NotImplementedError(
                 f"Engine dtype {dtype!r}: only float32 is ported")
@@ -158,26 +269,87 @@ class Engine:
             if node.op_type not in _STATIC_OPS:
                 get_emitter(node.op_type, node.domain)
         self.graph = graph
-        self.params = params_from_numpy(
-            {k: graph.constants[k] for k in graph.weight_names}, self.device)
+        donor = share_params_with
+        if donor is not None and set(donor.params) != set(graph.weight_names):
+            raise ValueError("share_params_with: weight sets differ")
+        shared = {} if donor is None else {
+            k: donor.params[k] for k in graph.weight_names
+            if donor.device == self.device and _same_value(
+                graph.constants[k], donor.graph.constants[k])}
+        self.params = {**shared, **params_from_numpy(
+            {k: graph.constants[k] for k in graph.weight_names
+             if k not in shared}, self.device)}
         self.packed = prepack_int8_weights(graph, self.params)
         self._fn = lower(graph, self.device, self.packed)
+        self._statics: Dict[tuple, dict] = {}    # signature -> static values
+        self._graphs: Dict[tuple, _Captured] = {}  # signature -> its graph
+        self._pool = None     # one memory pool for all of them
+        self._stream = None   # the side stream they are captured on
 
-    def _canon_inputs(self, inputs) -> Dict[str, torch.Tensor]:
+    def _canon_inputs(self, inputs, device) -> Dict[str, torch.Tensor]:
+        """The feed as name -> tensor on `device`; device None keeps a
+        tensor where it is and puts an array on the CPU."""
         names = self.graph.input_names
         if isinstance(inputs, (list, tuple)):
             inputs = dict(zip(names, inputs))
         elif not isinstance(inputs, Mapping):
             inputs = {names[0]: inputs}
-        return {k: as_device_tensor(v, self.device)
+        return {k: v if device is None and isinstance(v, torch.Tensor)
+                else as_device_tensor(v, device or "cpu")
                 for k, v in inputs.items()}
 
+    def side_stream(self):
+        """The stream this Engine warms up and captures on, made once."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def graph_pool(self):
+        """The memory pool this Engine's CUDA graphs share, made once."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
     # -- API -----------------------------------------------------------
+    def forward(self, feed: Mapping[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Run the graph's function once, eagerly, on device tensors. The
+        static values of the feed's signature are made on its first call
+        and reused, so that a later call may be captured (the K-step
+        decode graphs call this inside their capture)."""
+        statics = self._statics.setdefault(signature(feed), {})
+        return self._fn(self.params, feed, statics)
+
     def __call__(self, inputs) -> Dict[str, torch.Tensor]:
-        """Run once; outputs stay on the device."""
-        feed = self._canon_inputs(inputs)
+        """Run once; outputs stay on the device and belong to the caller.
+        On the card the first call of a signature runs eagerly and
+        captures the graph; later calls replay it."""
         with torch.no_grad():
-            return self._fn(self.params, feed)
+            if not captures(self.device):
+                return self._fn(self.params,
+                                self._canon_inputs(inputs, self.device))
+            host = self._canon_inputs(inputs, None)
+            key = signature(host)
+            cap = self._graphs.get(key)
+            if cap is None:
+                feed = {k: v.to(self.device) for k, v in host.items()}
+                return self._first_call(key, feed)
+            for k, v in host.items():
+                cap.inputs[k].copy_(v, non_blocking=v.device.type == "cuda")
+            cap.replay()
+            return {k: v.clone() for k, v in cap.outputs.items()}
+
+    def _first_call(self, key: tuple, feed: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Run eagerly (the call's result), then capture the signature's
+        graph over copies of the feed."""
+        with side_stream(self.side_stream()) as s:
+            out = self.forward(feed)
+            static_in = {k: v.clone() for k, v in feed.items()}
+            static_out, replay = capture(lambda: self.forward(static_in),
+                                         stream=s, pool=self.graph_pool())
+        self._graphs[key] = _Captured(static_in, static_out, replay)
+        return out
 
     def run(self, inputs) -> InferenceResult:
         t0 = time.perf_counter()

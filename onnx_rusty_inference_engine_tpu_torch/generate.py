@@ -8,31 +8,59 @@ with per-(layer, kind, head) scales calibrated from the prefill presents).
 Token selection -- greedy, or temperature / top-k / top-p / min-p sampling
 with a repetition penalty -- runs on the device, with a `torch.Generator`
 seeded by `sample_seed`. Per step, only the eos check (and return_logits)
-reads anything back to the host.
+reads anything back to the host. Each step is one replay of the decode
+Engine's captured graph.
+
+`device_loop=K` runs K decode steps as one block, the counterpart of the
+JAX Generator's `lax.scan` over time: the token, the position, the cache,
+`done` and `seen` live in buffers on the device that the block advances in
+place, and the host reads the block's [B, K] tokens and `done` once. On
+the card the block's first run is eager and then the K steps (decode,
+selection, the eos freeze, the position's +1) are captured into one CUDA
+graph per sampling configuration, which later blocks replay; the sampling
+`torch.Generator` is registered with the graph, so a replay draws what the
+host loop draws. `return_logits=True` runs the host loop, as in JAX.
 
 `Generator(...)` runs on the card; only an explicit `device="cpu"` runs on
-the CPU, where every kernel is its plain version.
+the CPU, where every kernel is its plain version and a block is a Python
+loop.
 
 Not ported yet (each raises NotImplementedError): other decoder families
-and the int4 KV cache (ROADMAP 1.5, 1.8), `scan_layers` (1.5),
-`device_loop` > 0 (1.5: K steps replayed as one CUDA graph), `mesh` /
+and the int4 KV cache (ROADMAP 1.5b, 1.8), `scan_layers` (1.5b), `mesh` /
 `param_sharding_fn` / `pipeline_axis` (1.12), `lora_bank` (1.8) and
 `prefill_dtype` other than "float32" (1.6).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .engine import Engine, resolve_device
+from .engine import Engine, capture, captures, resolve_device, side_stream
 from .graph import Graph, import_model
 from .models.gpt2 import GPT2Config
 
 __all__ = ["Generator"]
+
+
+def _clone(v):
+    """A tensor, a dict of tensors, or None, cloned."""
+    if isinstance(v, dict):
+        return {k: t.clone() for k, t in v.items()}
+    return None if v is None else v.clone()
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a tensor or a dict of tensors into buffers of the same form."""
+    if isinstance(src, dict):
+        for k, t in src.items():
+            dst[k].copy_(t)
+    elif src is not None:
+        dst.copy_(src)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -70,16 +98,13 @@ class Generator:
         if pipeline_axis is not None:
             raise _not_ported("pipeline_axis", "1.12")
         if scan_layers:
-            raise _not_ported("scan_layers", "1.5")
-        if int(device_loop) > 0:
-            raise _not_ported("device_loop > 0 (K steps as one CUDA graph)",
-                              "1.5")
+            raise _not_ported("scan_layers", "1.5b")
         if lora_bank is not None:
             raise _not_ported("lora_bank", "1.8")
         if prefill_dtype != "float32":
             raise _not_ported(f"prefill_dtype={prefill_dtype!r}", "1.6")
         if kv_dtype == "int4":
-            raise _not_ported("kv_dtype='int4'", "1.5")
+            raise _not_ported("kv_dtype='int4'", "1.5b")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch
@@ -113,10 +138,14 @@ class Generator:
         self._engines(prefill_graph, decode_graph)
         # per-(layer, kind, head) scales, calibrated from the prefill
         self._kv_scales: Optional[Dict[str, torch.Tensor]] = None
+        self.device_loop = int(device_loop)
 
     def _engines(self, prefill_graph: Graph, decode_graph: Graph) -> None:
         self.prefill = Engine(prefill_graph, device=self.device)
         self.decode = Engine(decode_graph, device=self.device)
+        self._gen: Optional[torch.Generator] = None
+        # sampling configuration -> its K-step block (state and graph)
+        self._blocks: Dict[tuple, dict] = {}
 
     def to(self, device) -> "Generator":
         """The same graphs and weights on another device (the KV scales
@@ -188,7 +217,20 @@ class Generator:
         return out["logits"], new_cache
 
     # -- token selection -----------------------------------------------------
+    def _sampling_consts(self, temperature: float,
+                         repetition_penalty: float) -> Dict[str, torch.Tensor]:
+        """The device scalars `_select` divides and fills by, made once per
+        generate call, outside any captured graph (a tensor made from a
+        Python number is a copy from the host)."""
+        dev = self.device
+        return {"pen": torch.tensor(repetition_penalty, dtype=torch.float32,
+                                    device=dev),
+                "temp": torch.tensor(temperature, dtype=torch.float32,
+                                     device=dev),
+                "neg_inf": torch.tensor(-float("inf"), device=dev)}
+
     def _select(self, logits: torch.Tensor, gen: torch.Generator,
+                consts: Dict[str, torch.Tensor],
                 temperature: float, top_k: Optional[int],
                 top_p: Optional[float], seen: Optional[torch.Tensor] = None,
                 repetition_penalty: float = 1.0,
@@ -199,18 +241,16 @@ class Generator:
         filtering, all on the device. min_p keeps tokens with prob >=
         min_p * p_max. repetition_penalty > 1 applies the CTRL scheme to
         tokens already in the sequence (`seen` [B, V] bool): positive
-        logits divided by the penalty, negative multiplied."""
-        dev = logits.device
+        logits divided by the penalty, negative multiplied. Nothing here
+        reads the device or copies from the host, so it may be captured."""
         if seen is not None and repetition_penalty != 1.0:
-            p = torch.tensor(repetition_penalty, dtype=torch.float32,
-                             device=dev)
+            p = consts["pen"]
             logits = torch.where(seen, torch.where(logits > 0, logits / p,
                                                    logits * p), logits)
         if temperature == 0.0:
             return torch.argmax(logits, dim=-1)
-        neg_inf = torch.tensor(-float("inf"), device=dev)
-        l = logits / torch.tensor(temperature, dtype=torch.float32,
-                                  device=dev)
+        neg_inf = consts["neg_inf"]
+        l = logits / consts["temp"]
         if top_k is not None:
             kth = torch.sort(l, dim=-1).values[:, -int(top_k)][:, None]
             l = torch.where(l >= kth, l, neg_inf)
@@ -228,8 +268,100 @@ class Generator:
             top = torch.where(torch.isfinite(l), l, neg_inf).amax(
                 dim=-1, keepdim=True)
             l = torch.where(torch.exp(l - top) >= min_p, l, neg_inf)
-        u = torch.rand(l.shape, generator=gen, device=dev)
+        u = torch.rand(l.shape, generator=gen, device=l.device)
         return torch.argmax(l - torch.log(-torch.log(u)), dim=-1)
+
+    def _generator(self, sample_seed: int) -> torch.Generator:
+        """The sampling generator, seeded: one object per Generator, since
+        the K-step graphs are registered with it."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(sample_seed))
+        return self._gen
+
+    # -- the K-step block (device_loop) -----------------------------------
+    def _block_body(self, st: dict, sel: dict) -> None:
+        """K decode steps on the block state `st`, in place: per step the
+        decode graph, the penalty's `seen`, selection, the eos freeze; the
+        tokens go to st["toks"] [B, K]. The same operations as the host
+        loop's steps, and nothing reads the device: one CUDA graph."""
+        tok, pos, cache, done, seen = (st["tok"], st["pos"], st["cache"],
+                                       st["done"], st["seen"])
+        eos_id = sel["eos_id"]
+        scales = self._kv_scales if self._kv_q else {}
+        for j in range(self.device_loop):
+            feed = {"input_ids": tok.reshape(self.batch, 1), "pos": pos}
+            feed.update(cache)
+            feed.update(scales)
+            out = self.decode.forward(feed)
+            cache = {name: out[name.replace("past_", "present_", 1)]
+                     for name in cache}
+            if seen is not None:
+                seen.scatter_(1, tok[:, None], True)
+            tok = self._select(out["logits"][:, -1, :], st["gen"],
+                               st["consts"], sel["temperature"],
+                               sel["top_k"], sel["top_p"], seen,
+                               sel["repetition_penalty"], sel["min_p"])
+            if eos_id is not None:
+                tok = torch.where(done, torch.full_like(tok, eos_id), tok)
+                done |= tok == eos_id
+            st["toks"][:, j].copy_(tok)
+            pos = pos + 1
+        st["tok"].copy_(tok)
+        st["pos"].copy_(pos)
+        for name, v in cache.items():
+            st["cache"][name].copy_(v)
+
+    def _run_blocks(self, sel: dict, gen: torch.Generator, consts: dict,
+                    next_tok: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    done: torch.Tensor, seen: Optional[torch.Tensor],
+                    n_steps: int) -> List[np.ndarray]:
+        """Decode `n_steps` tokens after `next_tok` in K-step blocks, with
+        one read of the block's tokens and `done` each. Rows frozen on eos
+        end the loop early, between blocks, as in JAX."""
+        B, K = self.batch, self.device_loop
+        fresh = {"tok": next_tok.to(torch.int64),
+                 "pos": torch.full((B,), self.prompt_len, dtype=torch.int64,
+                                   device=self.device),
+                 "cache": cache, "done": done, "seen": seen}
+        on_card = captures(self.device)
+        key = tuple(sorted(sel.items())) + (bool(os.environ.get(
+            "ORIET_ATTN_I8")),)
+        blk = self._blocks.get(key) if on_card else None
+        if blk is None:
+            # the state the block advances, with the generator and the
+            # device scalars it reads; on the card all of it stays with
+            # the graph, which reads and writes it by address
+            st = {k: _clone(v) for k, v in fresh.items()}
+            st.update(toks=torch.zeros((B, K), dtype=torch.int64,
+                                       device=self.device),
+                      gen=gen, consts=consts)
+            blk = {"st": st, "replay": None}
+            if on_card:
+                self._blocks[key] = blk
+        else:
+            for k, v in fresh.items():
+                _copy_into(blk["st"][k], v)
+        st = blk["st"]
+
+        out: List[np.ndarray] = []
+        while len(out) < n_steps:
+            if sel["eos_id"] is not None and bool(st["done"].all()):
+                break
+            if blk["replay"] is not None:
+                blk["replay"]()
+            elif on_card:
+                with side_stream(self.decode.side_stream()) as s:
+                    self._block_body(st, sel)     # warm-up: the first block
+                    _, blk["replay"] = capture(
+                        lambda: self._block_body(st, sel), stream=s,
+                        pool=self.decode.graph_pool(),
+                        generators=(gen,) if sel["temperature"] else ())
+            else:
+                self._block_body(st, sel)
+            toks = st["toks"].cpu().numpy().copy()  # the CPU shares memory
+            out.extend(toks[:, j] for j in range(min(K, n_steps - len(out))))
+        return out
 
     # -- generation ------------------------------------------------------
     def generate(self, input_ids: np.ndarray, n_new: int,
@@ -250,7 +382,9 @@ class Generator:
         eos_id: rows that emit it are frozen (keep emitting eos_id) and
         generation stops early once every row has finished.
         repetition_penalty: CTRL-style penalty on already-seen tokens
-        (prompt + generated), applied on the device."""
+        (prompt + generated), applied on the device. With device_loop = K
+        the steps run in K-step blocks (return_logits runs the host
+        loop)."""
         B, P = tuple(input_ids.shape)
         assert (B, P) == (self.batch, self.prompt_len)
         assert P + n_new <= self.max_len
@@ -263,28 +397,55 @@ class Generator:
             seen = torch.zeros((B, self.cfg.vocab_size), dtype=torch.bool,
                                device=dev)
             seen[rows[:, None], ids] = True
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(sample_seed))
+        gen = self._generator(sample_seed)
+        consts = self._sampling_consts(temperature, repetition_penalty)
+        sel = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                   repetition_penalty=repetition_penalty, min_p=min_p,
+                   eos_id=eos_id)
 
         logits, cache = self.start(ids)
-        next_tok = self._select(logits[:, -1, :], gen, temperature, top_k,
-                                top_p, seen, repetition_penalty, min_p)
+        next_tok = self._select(logits[:, -1, :], gen, consts, temperature,
+                                top_k, top_p, seen, repetition_penalty,
+                                min_p)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         if eos_id is not None:
             done |= next_tok == eos_id
+
+        if self.device_loop > 0 and not return_logits:
+            tokens = [next_tok.cpu().numpy()] + self._run_blocks(
+                sel, gen, consts, next_tok, cache, done, seen, n_new - 1)
+            out_toks = np.stack(tokens, axis=1)
+        else:
+            out_toks = self._host_loop(sel, gen, consts, next_tok, logits,
+                                       cache, done, seen, n_new,
+                                       return_logits)
+        all_logits = None
+        if return_logits:
+            out_toks, all_logits = out_toks
+        if eos_id is not None and out_toks.shape[1] < n_new:
+            pad = np.full((B, n_new - out_toks.shape[1]), eos_id,
+                          out_toks.dtype)
+            out_toks = np.concatenate([out_toks, pad], axis=1)
+        return out_toks, all_logits
+
+    def _host_loop(self, sel, gen, consts, next_tok, logits, cache, done,
+                   seen, n_new, return_logits):
+        """One step per call: the decode graph's replay, then selection;
+        `done` read after every step when eos_id is set."""
+        P, eos_id = self.prompt_len, sel["eos_id"]
         tokens = [next_tok]
         all_logits = [logits.cpu().numpy()] if return_logits else None
-
         for t in range(n_new - 1):
             if eos_id is not None and not return_logits \
                     and bool(done.all()):
                 break  # every row frozen; remaining output is eos padding
             step_logits, cache = self.step(cache, next_tok, P + t)
-            if use_pen:
-                seen[rows, next_tok] = True
-            next_tok = self._select(step_logits[:, -1, :], gen, temperature,
-                                    top_k, top_p, seen, repetition_penalty,
-                                    min_p)
+            if seen is not None:
+                seen.scatter_(1, next_tok[:, None], True)
+            next_tok = self._select(step_logits[:, -1, :], gen, consts,
+                                    sel["temperature"], sel["top_k"],
+                                    sel["top_p"], seen,
+                                    sel["repetition_penalty"], sel["min_p"])
             if eos_id is not None:
                 # frozen rows keep emitting eos
                 next_tok = torch.where(done, torch.full_like(next_tok,
@@ -294,10 +455,5 @@ class Generator:
             tokens.append(next_tok)
             if return_logits:
                 all_logits.append(step_logits.cpu().numpy())
-
         out_toks = torch.stack(tokens, dim=1).cpu().numpy()
-        if eos_id is not None and out_toks.shape[1] < n_new:
-            pad = np.full((B, n_new - out_toks.shape[1]), eos_id,
-                          out_toks.dtype)
-            out_toks = np.concatenate([out_toks, pad], axis=1)
-        return out_toks, all_logits
+        return (out_toks, all_logits) if return_logits else out_toks

@@ -754,3 +754,155 @@ def test_ort_int4_generator_on_card_matches_cpu(cuda):
     card_l, _ = gen.step(card_cache, tok.to(cuda), 8)
     host_l, _ = host.step(host_cache, tok, 8)
     assert _rel_err(card_l.cpu(), host_l) <= 1e-2
+
+
+# --------------------------------------------------------------------------
+# whole-graph capture, the K-step device loop and the servers on the card
+# --------------------------------------------------------------------------
+def _captured_cases():
+    """(graph, two feeds, kernel wrapper, launches per forward): the small
+    INT8 CNN of test_int8_engine_on_card_matches_cpu and BERT with 12
+    layers at hidden 64."""
+    rng = np.random.default_rng(3)
+    g = import_model(_small_cnn())
+    xs = [rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+          for _ in range(2)]
+    cnn = quantize_graph(g, ranges=calibrate(g, [{"x": xs[0]}],
+                                             device="cpu"))
+    cfg = BertConfig(vocab_size=500, max_positions=64, hidden=64, n_layer=12,
+                     n_head=4)
+    B, T = 2, 16
+    bg = import_model(build_bert(cfg, batch=B, seq_len=T, seed=0))
+    feeds = [{"input_ids": rng.integers(0, cfg.vocab_size, (B, T)),
+              "token_type_ids": rng.integers(0, 2, (B, T)),
+              "attention_mask": (np.arange(T)[None] < np.array([[T], [n]])
+                                 ).astype(np.int64)} for n in (9, 13)]
+    bert = quantize_graph(bg, ranges=calibrate(bg, feeds[:1],
+                                               device="cpu"))
+    return {"cnn_int8": (cnn, [{"x": x} for x in xs], k.qconv_int8_requant,
+                         5),
+            "bert_int8": (bert, feeds, q8.qmatmul_int8, 73)}
+
+
+@pytest.mark.parametrize("case", ["cnn_int8", "bert_int8"])
+def test_captured_engine_equals_eager_and_counts_replays(cuda, case):
+    """An Engine's first call runs eagerly and captures; its replays, over
+    two inputs, equal the eager function bit for bit; a returned output is
+    the caller's (the next call does not overwrite it); and N replays
+    count N forwards' launches."""
+    graph, feeds, wrapper, per_forward = _captured_cases()[case]
+    eng = Engine(graph)
+    first = eng(feeds[0])                         # eager + capture
+    with torch.no_grad():
+        eager = [eng._fn(eng.params, {n: torch.as_tensor(v, device=cuda)
+                                      for n, v in f.items()})
+                 for f in feeds]
+    for name, v in eager[0].items():
+        assert torch.equal(first[name], v), name
+    kept = None
+    for f, want in zip(feeds * 2, eager * 2):     # replays
+        got = eng(f)
+        for name, v in want.items():
+            assert torch.equal(got[name], v), name
+        if kept is None:
+            kept = (got, {n: v.clone() for n, v in got.items()})
+    for name, v in kept[1].items():               # not overwritten since
+        assert torch.equal(kept[0][name], v), name
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    for _ in range(5):
+        eng(feeds[1])
+    torch.cuda.synchronize()
+    assert wrapper.launches - before == 5 * per_forward
+    assert len(eng._graphs) == 1
+
+
+def test_engine_captures_one_graph_per_signature(cuda):
+    graph, feeds, wrapper, per_forward = _captured_cases()["cnn_int8"]
+    eng = Engine(graph)
+    for f in (feeds[0], {"x": feeds[0]["x"][:2]}, feeds[1],
+              {"x": feeds[1]["x"][:2]}):
+        eng(f)
+    assert len(eng._graphs) == 2
+    half = eng({"x": feeds[1]["x"][:2]})
+    with torch.no_grad():
+        want = eng._fn(eng.params, {"x": torch.as_tensor(
+            feeds[1]["x"][:2], device=cuda)})
+    for name, v in want.items():
+        assert torch.equal(half[name], v), name
+
+
+_TINY4 = GPT2Config(vocab_size=256, n_positions=64, n_embd=64, n_layer=2,
+                    n_head=4)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"temperature": 0.8, "top_k": 20, "sample_seed": 7},
+    {"temperature": 1.0, "top_p": 0.9, "repetition_penalty": 1.2,
+     "sample_seed": 3}], ids=["greedy", "sampled", "sampled_penalty"])
+def test_device_loop_equals_host_loop_on_card(cuda, kw):
+    """Generator(device_loop=4) on the card: K steps as one replayed CUDA
+    graph give the host loop's tokens, greedy and seeded sampling, with
+    one int4 launch per MatMulNBits and one attention launch per layer per
+    step counted over the replays."""
+    gkw = dict(batch=2, prompt_len=8, max_len=32, kv_dtype="int8",
+               int4_weights=True, fused_attention=True)
+    ids = np.random.default_rng(0).integers(0, _TINY4.vocab_size, (2, 8))
+    host = Generator(_TINY4, **gkw)
+    dev = Generator(_TINY4, device_loop=4, **gkw)
+    want, _ = host.generate(ids, 11, **kw)
+    got, _ = dev.generate(ids, 11, **kw)            # eager block + capture
+    np.testing.assert_array_equal(got, want)
+    torch.cuda.synchronize()
+    i4, at = q4.qmatmul_int4_planar.launches, da.decode_attention_int8.launches
+    again, _ = dev.generate(ids, 11, **kw)          # prefill + 3 replays
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(again, want)
+    assert q4.qmatmul_int4_planar.launches - i4 == 9 * (1 + 3 * 4)
+    assert da.decode_attention_int8.launches - at == 2 * 3 * 4
+
+
+def test_decode_server_multi_step_equals_single_step_on_card(cuda):
+    """DecodeServer(multi_step=4) on the card (INT4 weights, INT8 KV,
+    prompt buckets): every greedy request's tokens equal multi_step=0's."""
+    from onnx_rusty_inference_engine_tpu_torch.serve_llm import DecodeServer
+
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, _TINY4.vocab_size, (int(n),)), int(m))
+            for n, m in zip(rng.integers(2, 17, 6), rng.integers(3, 12, 6))]
+    outs = {}
+    for K in (0, 4):
+        srv = DecodeServer(_TINY4, slots=4, prompt_len=16, max_len=32,
+                           kv_dtype="int8", int4_weights=True,
+                           prompt_buckets=(8, 16), multi_step=K)
+        try:
+            futs = [srv.submit(p, n) for p, n in reqs]
+            outs[K] = [f.result(timeout=300) for f in futs]
+        finally:
+            srv.stop()
+    assert outs[4] == outs[0]
+    assert [len(o) for o in outs[0]] == [n for _, n in reqs]
+
+
+def test_inference_server_on_card_equals_engine(cuda):
+    from onnx_rusty_inference_engine_tpu_torch.serve import InferenceServer
+
+    graph, feeds, _, _ = _captured_cases()["cnn_int8"]
+    eng = Engine(graph)
+    x = feeds[0]["x"]
+    srv = InferenceServer(eng, batch_buckets=(1, 2, 4), max_delay_s=0.5,
+                          warmup=True, example_shape=(3, 32, 32),
+                          autostart=False)
+    assert len(eng._graphs) == 3
+    futs = [srv.submit(x[i]) for i in range(3)]
+    srv.start()
+    try:
+        outs = [f.result(timeout=300)["prob"] for f in futs]
+    finally:
+        srv.stop()
+    padded = np.concatenate([x[:3], np.zeros_like(x[:1])])
+    with torch.no_grad():
+        want = eng._fn(eng.params, {"x": torch.as_tensor(padded,
+                                                         device=cuda)})
+    np.testing.assert_array_equal(np.concatenate(outs),
+                                  want["prob"][:3].cpu().numpy())

@@ -260,7 +260,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="1.8"):
         decoder_family("llama")
     for kw, item in (({"scan_layers": True}, "1.5"),
-                     ({"device_loop": 4}, "1.5"),
                      ({"kv_dtype": "int4"}, "1.5"),
                      ({"mesh": object()}, "1.12"),
                      ({"pipeline_axis": "pipe"}, "1.12"),
