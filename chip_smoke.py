@@ -152,8 +152,32 @@ Phases, each printing JSON lines:
              on the same padded batch, every request's rows a slice of
              one; images/s, p50/p99, each Engine call's ms, and a b256
              batch's pageable copy to the card and np.concatenate alone.
-18. kernels - one line listing every ported kernel, one per TPU kernel,
-             after a line with the script's seconds so far.
+18. llama   - after phase 17: the Llama decoder (GQA, RoPE, SwiGLU,
+             RMSNorm) at LlamaConfig()'s widths (dim 4096, 32 heads on 8 KV
+             heads of 128, FFN 16384, vocab 32000) with 4 of its 32 layers,
+             random weights from seed 0, every graph built inside
+             models.host_memo (weights drawn and packed once; host build
+             seconds printed). Generator(family="llama") with INT4 planar
+             weights, an INT8 KV cache and fused attention at phase 6's
+             batch, prompt, max_len and new tokens: counts set to 0 just
+             before, read just after: 29 int4 launches per prefill (all on
+             mma) and per step (25 on small_m, the 4 down projections at
+             K = 16384 on mma: every launch on int4_schedule's pick), 4
+             attention launches per step; prefill + 4 steps re-run through
+             the plain versions on the CPU (logits within 1e-2 *
+             max|logit|). The same with ORIET_ATTN_I8=1 (its own counts);
+             device_loop = 8 (tokens equal the host loop's, counts over the
+             replays); one step under torch.profiler (busy share by
+             bucket); the kernel lines of every int4 shape of the path and
+             of both attention kernels at its GQA shape (32 / 8 heads of
+             128, L 256). Then kv_dtype="int4" unfused (counts, CPU
+             re-run); DecodeServer(family="llama") with 8 slots, buckets
+             16/32/64, 16 requests of 16-64 prompt tokens x 32 new at
+             multi_step 0 and 8: tokens equal. Tokens/s, step wall and
+             busy for information.
+19. kernels - one line listing every ported kernel, one per TPU kernel,
+             after a line with the script's seconds so far; the rows of the
+             kernels the Llama path runs carry its numbers in `llama_path`.
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -755,7 +779,7 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
 # --------------------------------------------------------------------------
 # GPT-2 decode
 # --------------------------------------------------------------------------
-def _gpt2_prompts(cfg) -> np.ndarray:
+def _decode_prompts(cfg) -> np.ndarray:
     return np.random.default_rng(0).integers(0, cfg.vocab_size,
                                              (DEC_BATCH, PROMPT))
 
@@ -793,42 +817,85 @@ def _decode_tokens_per_s(gen, prompts, **kw) -> dict:
             "prefill_s_wall": pre_wall}
 
 
-def _plain_rerun(gen, prompts, toks):
+def _plain_rerun(gen, prompts, toks, same_cache: bool = False):
     """The prefill and the first CPU_STEPS steps of gen's main path through
     the plain versions on the CPU, fed the card's tokens and KV scales:
     (relative logit errors, greedy agreements) per pass; raises past
-    1e-2 * max|logit|."""
+    1e-2 * max|logit|. same_cache: each CPU step also takes the card's
+    cache as it stands before that step (the same inputs on both devices),
+    as an INT4 KV cache needs: a 1e-7 difference in a new K/V value moves
+    its 4-bit code by one step (1/7 of the head's range) now and then, and
+    two caches built apart drift by that much. The errors of the CPU's own
+    cache are then returned third, for information."""
     cpu = gen.to("cpu")
     card_logits, card_cache = gen.start(prompts)
     host_logits, host_cache = cpu.start(prompts)
     require(bool(torch.isfinite(card_logits).all()), "finite prefill logits")
-    errs, agree = [], []
+    errs, agree, own = [], [], []
+
+    def rel(card_l, host_l):
+        c, h = card_l[:, -1].cpu(), host_l[:, -1]
+        return float((c - h).abs().max() / h.abs().max())
 
     def compare(card_l, host_l, want_tok):
-        c, h = card_l[:, -1].cpu(), host_l[:, -1]
-        errs.append(float((c - h).abs().max() / h.abs().max()))
+        errs.append(rel(card_l, host_l))
+        h = host_l[:, -1]
         agree.append(float((h.argmax(-1).numpy() == want_tok).mean()))
-        require(bool((c.argmax(-1).numpy() == want_tok).all()),
+        require(bool((card_l[:, -1].cpu().argmax(-1).numpy()
+                      == want_tok).all()),
                 "the card's teacher-forced step repeats its own tokens")
 
     compare(card_logits, host_logits, toks[:, 0])
     for t in range(CPU_STEPS):
         tok = torch.from_numpy(toks[:, t])
+        if same_cache:
+            shared = {k: v.cpu() for k, v in card_cache.items()}
+            host_l, _ = cpu.step(shared, tok, PROMPT + t)
+            own_l, host_cache = cpu.step(host_cache, tok, PROMPT + t)
         card_l, card_cache = gen.step(card_cache, tok.cuda(), PROMPT + t)
-        host_l, host_cache = cpu.step(host_cache, tok, PROMPT + t)
+        if same_cache:
+            own.append(rel(card_l, own_l))
+        else:
+            host_l, host_cache = cpu.step(host_cache, tok, PROMPT + t)
         compare(card_l, host_l, toks[:, t + 1])
     require(max(errs) <= 1e-2, f"card vs plain logits: {errs}")
-    return errs, agree
+    return (errs, agree, own) if same_cache else (errs, agree)
 
 
-def _int4_schedules(name: str, prefill: int, steps: int) -> dict:
+def _int4_picks(gen, name: str, m_prefill: int, m_step: int,
+                steps: int) -> dict:
+    """Launches per schedule that qmatmul_int4.int4_schedule picks for the
+    MatMulNBits nodes of gen's main path: its prefill graph once at
+    M = m_prefill and its decode graph `steps` times at M = m_step. `name`
+    says the layout: qmatmul_int4_planar (planar_layout of K and
+    block_size) or qmatmul_int4_bf16 (interleaved, nb blocks of the
+    scales)."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qmatmul_int4 as q4)
+
+    picks = dict.fromkeys(q4.SCHEDULES, 0)
+    for graph, M, passes in ((gen.prefill.graph, m_prefill, 1),
+                             (gen.decode.graph, m_step, steps)):
+        for node in graph.nodes:
+            if node.op_type != "MatMulNBits":
+                continue
+            K = int(node.attr("K"))
+            if name == "qmatmul_int4_planar":
+                nblk, blk = q4.planar_layout(K, int(node.attr("block_size")))
+            else:
+                nblk = graph.constants[node.inputs[2]].shape[1]
+                blk = K // 2 // nblk
+            picks[q4.int4_schedule(M, K, nblk, blk)] += passes
+    return picks
+
+
+def _int4_schedules(gen, name: str, steps: int) -> dict:
     """The schedules int4 kernel `name` ran on over the main path just
-    driven: every prefill launch (M = batch x prompt) on mma, every step
-    launch (M = batch) on small_m, none on general."""
+    driven, each launch held to int4_schedule's pick for its shape."""
     got = dict(_wrappers()[name].schedules)
-    require(got == {"general": 0, "small_m": steps, "mma": prefill},
-            f"{name}: {prefill} prefill launches on mma and {steps} step "
-            f"launches on small_m, got {got}")
+    want = _int4_picks(gen, name, DEC_BATCH * PROMPT, DEC_BATCH, steps)
+    require(got == want, f"{name}: every launch on int4_schedule's pick "
+                         f"{want}, got {got}")
     return got
 
 
@@ -836,7 +903,7 @@ def phase_decode():
     from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 
     cfg = GPT2Config()  # SMALL: GPT-2 124M at its published widths
-    prompts = _gpt2_prompts(cfg)
+    prompts = _decode_prompts(cfg)
     t0 = time.perf_counter()
     gen = _generator(cfg, kv_dtype="int8", int4_weights=True,
                      fused_attention=True)
@@ -858,7 +925,11 @@ def phase_decode():
     steps = NEW - 1
     require(counts["qmatmul_int4_planar"] == n4_pre + n4_dec * steps,
             f"49 int4 launches per prefill and per step: {counts}")
-    schedules = _int4_schedules("qmatmul_int4_planar", n4_pre, n4_dec * steps)
+    schedules = _int4_schedules(gen, "qmatmul_int4_planar", steps)
+    require(schedules == {"general": 0, "small_m": n4_dec * steps,
+                          "mma": n4_pre},
+            f"GPT-2: every prefill launch on mma, every step launch on "
+            f"small_m: {schedules}")
     require(counts["decode_attention_int8"] == n_attn * steps,
             f"12 attention launches per step: {counts}")
     require(counts["decode_attention_int8_mxu"] == 0
@@ -918,7 +989,11 @@ _DEC_BUCKETS = (("int4_", "qmatmul_int4 (int4 matmul)"),  # every schedule
                 ("index", "gather / index"))
 
 
-def phase_decode_profile(gen, prompts, reps: int = 5) -> None:
+def phase_decode_profile(gen, prompts, reps: int = 5, *,
+                         engine: str = "gpt2 decode step (int4, int8 KV, "
+                                       "fused)") -> dict:
+    """One decode step of gen under torch.profiler: wall against device
+    busy time, by kernel and by bucket. Returns the emitted line."""
     from torch.profiler import ProfilerActivity, profile
 
     _, cache = gen.start(prompts)
@@ -954,15 +1029,19 @@ def phase_decode_profile(gen, prompts, reps: int = 5) -> None:
         buckets[b] = buckets.get(b, 0.0) + ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "engine": "gpt2 decode step (int4, int8 KV, "
-          "fused)", "batch": DEC_BATCH, "pos": PROMPT,
-          "wall_ms_per_step": plain_wall_ms,
-          "wall_ms_per_step_profiled": wall_ms,
-          "device_busy_ms_per_step": busy,
-          "device_idle_share": (1 - busy / wall_ms) if busy else None,
-          "device_ops_per_step": launches / reps,
-          "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
-          "top_kernels_ms": [[k[:90], v] for k, v in top]})
+    line = {"phase": "profile", "engine": engine, "batch": DEC_BATCH,
+            "pos": PROMPT, "wall_ms_per_step": plain_wall_ms,
+            "wall_ms_per_step_profiled": wall_ms,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": (1 - busy / wall_ms) if busy else None,
+            "device_ops_per_step": launches / reps,
+            "buckets_ms": dict(sorted(buckets.items(),
+                                      key=lambda kv: -kv[1])),
+            "busy_share_by_bucket": {k: v / busy for k, v in buckets.items()}
+            if busy else None,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    emit(line)
+    return line
 
 
 def _int4_library(a, q, scales_k, bs):
@@ -998,7 +1077,12 @@ def _int4_library(a, q, scales_k, bs):
             lambda: torch.matmul(ab, w))
 
 
-def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
+GPT2_INT4_PER = ("one GPT-2 124M decode step at batch 8: the sum over its 49 "
+                 "launches (4 per layer + the lm_head)")
+
+
+def int4_kernel_row(gen, name: str, launches: int, smi: str,
+                    per: str = GPT2_INT4_PER) -> dict:
     """The kernel lines of int4 kernel `name` (qmatmul_int4_planar or
     qmatmul_int4_bf16, by the layout of gen's MatMulNBits weights): each
     distinct (M, K, N) of the prefill (M = batch * prompt) and of a decode
@@ -1110,8 +1194,7 @@ def int4_kernel_row(gen, name: str, launches: int, smi: str) -> dict:
         "library_ms": step["library_ms"],
         "schedules": {k: sorted(v) for k, v in sched_seen.items()},
         "prefill_ms": pre["ms"], "prefill_library_ms": pre["library_ms"],
-        "per": "one GPT-2 124M decode step at batch 8: the sum over its 49 "
-               "launches (4 per layer + the lm_head); the prefill shapes "
+        "per": per + "; the prefill shapes "
                "are in the kernel lines, prefill_ms and prefill_library_ms "
                "their sums over one prefill. ms and library_ms are device "
                "times (CUDA-graph replay); plain_ms is eager. library_ms: "
@@ -1449,7 +1532,7 @@ def phase_ort_decode():
     from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 
     cfg = GPT2Config()  # SMALL, as phase_decode
-    prompts = _gpt2_prompts(cfg)
+    prompts = _decode_prompts(cfg)
     t0 = time.perf_counter()
     gen = _generator(cfg, kv_dtype="int8", fused_attention=True)
     onnx_bytes = sum(map(len, ort_int4_generator(gen)))
@@ -1477,7 +1560,11 @@ def phase_ort_decode():
     steps = NEW - 1
     require(counts["qmatmul_int4_bf16"] == n4_pre + n4_dec * steps,
             f"49 interleaved int4 launches per prefill and per step: {counts}")
-    schedules = _int4_schedules("qmatmul_int4_bf16", n4_pre, n4_dec * steps)
+    schedules = _int4_schedules(gen, "qmatmul_int4_bf16", steps)
+    require(schedules == {"general": 0, "small_m": n4_dec * steps,
+                          "mma": n4_pre},
+            f"GPT-2: every prefill launch on mma, every step launch on "
+            f"small_m: {schedules}")
     require(counts["decode_attention_int8"] == n_attn * steps,
             f"12 attention launches per step: {counts}")
     require(sum(counts.values()) == counts["qmatmul_int4_bf16"]
@@ -1822,7 +1909,8 @@ def phase_nibble(int4_launches: int, smi: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "per": "the unpack device functions (nibble.cuh) run inlined in "
                    "every qmatmul_int4_planar and qmatmul_int4_bf16 launch, "
-                   "so launches counts those of both decode paths; ms, "
+                   "so launches counts those of the three decode paths' "
+                   "main runs (GPT-2 planar, GPT-2 ORT layout, Llama); ms, "
                    "plain_ms and bound_ms are "
                    "the exported probe kernel's over cast_probe.py's "
                    "256x256 input with the int variant; every variant is "
@@ -2004,13 +2092,17 @@ def _serve_requests(cfg):
     return [rng.integers(0, cfg.vocab_size, (int(n),)) for n in lens]
 
 
-def _run_decode_server(cfg, prompts, K: int):
+def _run_decode_server(cfg, prompts, K: int, new: int = SERVE_NEW, **kw):
+    """DecodeServer (INT4 planar weights, INT8 KV, SERVE_SLOTS slots,
+    SERVE_BUCKETS) at multi_step K, after a warm-up request per bucket:
+    (server, token lists, wall s, counts, stats) for `new` tokens of each
+    prompt. kw: more DecodeServer arguments (family)."""
     from onnx_rusty_inference_engine_tpu_torch.serve_llm import DecodeServer
 
     srv = DecodeServer(cfg, slots=SERVE_SLOTS, prompt_len=SERVE_BUCKETS[-1],
                        max_len=MAX_LEN, kv_dtype="int8", int4_weights=True,
                        prompt_buckets=SERVE_BUCKETS, multi_step=K,
-                       autostart=False)
+                       autostart=False, **kw)
     # a first pass captures every graph: one request per prompt bucket
     warm = [srv.submit(p[:b], 2) for p, b in zip(prompts, SERVE_BUCKETS)]
     srv.start()
@@ -2020,7 +2112,7 @@ def _run_decode_server(cfg, prompts, K: int):
     srv.steps = srv.tokens_out = srv.requests_done = srv._occupancy_sum = 0
     reset_counts()
     t0 = time.perf_counter()
-    futs = [srv.submit(p, SERVE_NEW) for p in prompts]
+    futs = [srv.submit(p, new) for p in prompts]
     outs = [f.result(timeout=600) for f in futs]
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -2169,6 +2261,267 @@ def phase_serve_cnn(smi: str) -> None:
           "launches": counts, "card": smi})
 
 
+# --------------------------------------------------------------------------
+# Llama decode: GQA, RoPE, SwiGLU, RMSNorm at LlamaConfig()'s widths
+# --------------------------------------------------------------------------
+LLAMA_LAYERS = 4           # of LlamaConfig()'s 32: the depth cut
+LLAMA_SERVE_NEW = 32       # new tokens per served request
+
+
+def _llama_counts(gen) -> tuple:
+    """(MatMulNBits in the prefill graph, in the decode graph, fused
+    attentions in the decode graph)."""
+    return (sum(n.op_type == "MatMulNBits" for n in gen.prefill.graph.nodes),
+            sum(n.op_type == "MatMulNBits" for n in gen.decode.graph.nodes),
+            sum(n.op_type == "FusedDecodeAttention"
+                for n in gen.decode.graph.nodes))
+
+
+def _step_weight_bytes(gen) -> int:
+    """Bytes of the int4 weights and scales one decode step reads."""
+    params = gen.decode.params
+    return sum(params[n.inputs[i]].numel() * params[n.inputs[i]].element_size()
+               for n in gen.decode.graph.nodes if n.op_type == "MatMulNBits"
+               for i in (1, 2))
+
+
+def _llama_main_path(gen, prompts, what: str, attention: str = None):
+    """Drive gen.generate once with every count set to 0 just before and
+    read just after: (tokens, counts, seconds). Holds every int4 launch to
+    its schedule (the prefill all on mma; a step's 4 down projections,
+    K = 16384, on mma and its other 25 launches on small_m), 29 int4
+    launches per pass and 4 `attention` launches per step."""
+    L = LLAMA_LAYERS
+    steps = NEW - 1
+    n4_pre, n4_dec, _ = _llama_counts(gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, _ = gen.generate(prompts, NEW)
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    require(n4_pre == n4_dec == 7 * L + 1, f"{what}: 29 MatMulNBits per "
+            f"graph: {n4_pre}, {n4_dec}")
+    require(counts["qmatmul_int4_planar"] == n4_pre + n4_dec * steps,
+            f"{what}: 29 int4 launches per prefill and per step: {counts}")
+    schedules = _int4_schedules(gen, "qmatmul_int4_planar", steps)
+    require(schedules == {"general": 0, "small_m": (6 * L + 1) * steps,
+                          "mma": n4_pre + L * steps},
+            f"{what}: the prefill on mma, per step 25 small_m and 4 mma: "
+            f"{schedules}")
+    attn = {"decode_attention_int8": 0, "decode_attention_int8_mxu": 0}
+    if attention:
+        attn[attention] = L * steps
+    require(all(counts[k] == v for k, v in attn.items())
+            and sum(counts.values()) == counts["qmatmul_int4_planar"]
+            + sum(attn.values()),
+            f"{what}: {attn} and no other kernel: {counts}")
+    require(toks.shape == (DEC_BATCH, NEW) and toks.min() >= 0
+            and toks.max() < gen.cfg.vocab_size, f"{what}: tokens")
+    return toks, counts, schedules, seconds
+
+
+def phase_llama(smi: str) -> dict:
+    """The llama slice at LlamaConfig()'s widths with LLAMA_LAYERS of its
+    32 layers (random weights from seed 0; every graph built inside
+    models.host_memo, so the weights are drawn and packed once): the
+    Generator paths (INT4 + INT8 KV + fused attention, with and without
+    ORIET_ATTN_I8; INT4 + INT4 KV unfused; device_loop) each held to the
+    plain versions or to the host loop, DecodeServer at multi_step 0 and
+    8, one step's profile, the kernel lines of the new int4 and GQA
+    attention shapes. Returns each kernel's llama-path numbers."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+    from onnx_rusty_inference_engine_tpu_torch.models import host_memo
+    from onnx_rusty_inference_engine_tpu_torch.models.llama import (
+        LlamaConfig)
+
+    cfg = LlamaConfig(n_layer=LLAMA_LAYERS)
+    prompts = _decode_prompts(cfg)
+    L, steps, K = LLAMA_LAYERS, NEW - 1, SERVE_K
+    model = (f"llama-7b widths (LlamaConfig(): dim 4096, 32 heads / 8 KV "
+             f"heads of 128, FFN 16384, vocab 32000), {L} of 32 layers, "
+             f"seed 0")
+    out, rows = {"phase": "llama", "model": model}, {}
+    with host_memo():
+        # 1. INT4 planar weights, INT8 KV, fused attention
+        t0 = time.perf_counter()
+        gen = _generator(cfg, family="llama", kv_dtype="int8",
+                         int4_weights=True, fused_attention=True)
+        out["build_s"] = time.perf_counter() - t0
+        require(_llama_counts(gen)[2] == L, "4 fused attentions")
+        toks, counts, schedules, out["main_path_s"] = _llama_main_path(
+            gen, prompts, "fused", "decode_attention_int8")
+        t0 = time.perf_counter()
+        errs, agree = _plain_rerun(gen, prompts, toks)
+        out.update(launches=counts, int4_schedules=schedules,
+                   card_vs_plain_rel_err=errs, plain_greedy_agreement=agree,
+                   plain_rerun_s=time.perf_counter() - t0,
+                   step_int4_weight_bytes=_step_weight_bytes(gen),
+                   tokens_row0=toks[0, :16].tolist())
+        out["step_weight_bound_ms"] = (out["step_int4_weight_bytes"]
+                                       / HBM_BYTES_PER_S * 1e3)
+        tps = {"int4_int8kv_fused": _decode_tokens_per_s(gen, prompts)}
+
+        # 2. the same path with the int8 x int8 attention
+        os.environ["ORIET_ATTN_I8"] = "1"
+        try:
+            toks_i8, counts_i8, _, _ = _llama_main_path(
+                gen, prompts, "ORIET_ATTN_I8", "decode_attention_int8_mxu")
+            tps["int4_int8kv_fused_i8attn"] = _decode_tokens_per_s(
+                gen, prompts)
+        finally:
+            del os.environ["ORIET_ATTN_I8"]
+        out.update(launches_i8attn=counts_i8,
+                   i8attn_token_agreement=float((toks_i8 == toks).mean()))
+
+        # 4. device_loop = K on the same Generator
+        blocks = -(-steps // K)
+        gen.device_loop = K
+        try:
+            first = gen.generate(prompts, NEW)[0]       # eager block, capture
+            block = gen._blocks[next(iter(gen._blocks))]
+            reset_counts()
+            again = gen.generate(prompts, NEW)[0]       # replays
+            counts_dl = read_counts()
+            tps["int4_int8kv_fused_device_loop"] = _decode_tokens_per_s(
+                gen, prompts)
+            with torch.no_grad():
+                block_t = device_busy(block["replay"], 5)
+        finally:
+            gen.device_loop = 0
+        require(np.array_equal(first, toks) and np.array_equal(again, toks),
+                "device_loop greedy tokens equal the host loop's")
+        require(counts_dl["qmatmul_int4_planar"] == (7 * L + 1) * (
+                    1 + blocks * K)
+                and counts_dl["decode_attention_int8"] == L * blocks * K,
+                f"29 int4 and 4 attention launches per step over {blocks} "
+                f"replayed blocks: {counts_dl}")
+        out.update(device_loop={"K": K, "blocks": blocks,
+                                "greedy_equals_host": True,
+                                "launches": counts_dl,
+                                "block_replay": block_t,
+                                "step_wall_ms": block_t["wall_ms"] / K,
+                                "step_busy_ms": block_t["busy_ms"] / K})
+
+        # 6. one step under the profiler
+        prof = phase_decode_profile(
+            gen, prompts, engine=f"llama {L}-layer decode step (int4, int8 "
+                                 f"KV, fused)")
+        out["step_profile"] = {k: prof[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "busy_share_by_bucket")}
+
+        # 7. kernel lines: the int4 shapes, the GQA attention shape
+        rows["qmatmul_int4_planar"] = int4_kernel_row(
+            gen, "qmatmul_int4_planar", counts["qmatmul_int4_planar"], smi,
+            per=f"one {L}-layer Llama decode step at batch 8 (llama-7b "
+                f"widths): the sum over its 29 launches (7 per layer + the "
+                f"lm_head)")
+        rows.update(_llama_attention_rows(gen, prompts, counts, counts_i8,
+                                          smi))
+        del gen
+        torch.cuda.empty_cache()
+
+        # 3. INT4 KV (nibble-packed), unfused attention
+        t0 = time.perf_counter()
+        gen4 = _generator(cfg, family="llama", kv_dtype="int4",
+                          int4_weights=True)
+        out["int4kv_build_s"] = time.perf_counter() - t0
+        toks4, counts4, _, _ = _llama_main_path(gen4, prompts, "int4 KV")
+        errs4, agree4, own4 = _plain_rerun(gen4, prompts, toks4,
+                                           same_cache=True)
+        tps["int4_int4kv_unfused"] = _decode_tokens_per_s(gen4, prompts)
+        out.update(int4kv={"launches": counts4,
+                           "card_vs_plain_rel_err": errs4,
+                           "card_vs_plain_own_cache_rel_err": own4,
+                           "plain_greedy_agreement": agree4,
+                           "token_agreement_with_int8kv": float(
+                               (toks4 == toks).mean())},
+                   decode_tokens_per_s=tps)
+        del gen4
+        torch.cuda.empty_cache()
+
+        # 5. DecodeServer
+        reqs = _serve_requests(cfg)
+        served = {}
+        for k in (0, K):
+            t0 = time.perf_counter()
+            srv, outs, wall, counts_s, stats = _run_decode_server(
+                cfg, reqs, k, new=LLAMA_SERVE_NEW, family="llama")
+            blk = None
+            if k:
+                with torch.no_grad():
+                    blk = device_busy(srv._blocks[("greedy", MAX_LEN)], 5)
+            srv.stop()
+            require(all(len(o) == LLAMA_SERVE_NEW for o in outs)
+                    and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+                    f"llama multi_step={k}: {LLAMA_SERVE_NEW} tokens each")
+            require(counts_s["qmatmul_int4_planar"] > 0
+                    and counts_s["decode_attention_int8"] == 0,
+                    f"llama serve counts {counts_s}")
+            served[k] = {"outs": outs, "wall_s": wall, "counts": counts_s,
+                         "stats": stats, "block": blk,
+                         "build_and_run_s": time.perf_counter() - t0}
+            del srv
+            torch.cuda.empty_cache()
+        require(served[K]["outs"] == served[0]["outs"],
+                f"llama: multi_step={K} tokens equal multi_step=0's for all "
+                f"{SERVE_REQS} requests")
+        out["serve"] = {k: {
+            "multi_step": k, "tokens_equal_multi_step_0": True,
+            "served_tokens_per_s": SERVE_REQS * LLAMA_SERVE_NEW / r["wall_s"],
+            "wall_s": r["wall_s"], "build_and_run_s": r["build_and_run_s"],
+            "p50_latency_s": r["stats"]["p50_latency_s"],
+            "p99_latency_s": r["stats"]["p99_latency_s"],
+            "decode_dispatches": r["stats"]["decode_steps"],
+            "launches": r["counts"], "block_replay": r["block"]}
+            for k, r in served.items()}
+    out.update(batch=DEC_BATCH, prompt=PROMPT, max_len=MAX_LEN,
+               new_tokens=NEW, serve_slots=SERVE_SLOTS,
+               serve_buckets=SERVE_BUCKETS, serve_requests=SERVE_REQS,
+               serve_new=LLAMA_SERVE_NEW, card=smi)
+    emit(out)
+    return rows
+
+
+def _llama_attention_rows(gen, prompts, counts, counts_i8, smi) -> dict:
+    """Both attention kernels at the llama step's GQA shape (32 query heads
+    on 8 KV heads of 128, L = MAX_LEN, the first step's valid rows) on the
+    prefill's real layer-0 cache: kernel lines, and each kernel's numbers
+    for one step (LLAMA_LAYERS launches)."""
+    rng = np.random.default_rng(1)
+    _, cache = gen.start(prompts)
+    H, Hkv, hd = gen.cfg.n_head, gen.cfg.n_kv_head, gen.cfg.head_dim
+    k8 = cache["past_key_0"].reshape(DEC_BATCH * Hkv, MAX_LEN, hd)
+    v8 = cache["past_value_0"].reshape(DEC_BATCH * Hkv, MAX_LEN, hd)
+    q = torch.from_numpy((rng.standard_normal((DEC_BATCH * H, 1, hd))
+                          / (127 * np.sqrt(hd))).astype(np.float32)).cuda()
+    valid = np.arange(MAX_LEN) <= PROMPT
+    bias = torch.from_numpy(np.broadcast_to(
+        np.where(valid, 0.0, -1e9).astype(np.float32),
+        (DEC_BATCH, 1, MAX_LEN)).copy()).cuda()
+    n_valid, n = int(valid.sum()), LLAMA_LAYERS
+    rows = {}
+    for name, launches in (
+            ("decode_attention_int8", counts["decode_attention_int8"]),
+            ("decode_attention_int8_mxu",
+             counts_i8["decode_attention_int8_mxu"])):
+        line = attn_measure(name, q, k8, v8, bias, H, n_valid, plain=True)
+        emit({"phase": "kernel", "kernel": name, "path": "llama",
+              "q": [DEC_BATCH * H, 1, hd], "kv": [DEC_BATCH * Hkv, MAX_LEN,
+                                                  hd],
+              "valid_positions": n_valid, "count_per_step": n,
+              "launches": launches, **line, "card": smi})
+        rows[name] = {
+            "launches": launches, "max_abs_err": line["max_abs_err"],
+            "max_rel_err": line["max_rel_err"], "ms": n * line["ms"],
+            "plain_ms": n * line["plain_ms"],
+            "bound_ms": n * line["bound_ms"], "bound_by": line["bound_by"],
+            "library_ms": n * line["library_ms"], "cluster": line["cluster"],
+            "per": f"one {n}-layer Llama decode step at batch 8, pos 64: {n} "
+                   f"launches at GQA 32/8 heads of 128, L 256"}
+    return rows
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -2222,8 +2575,14 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_int4_sweep(smi)
             phase_serve(smi)
-            rows.append(phase_nibble(counts["qmatmul_int4_planar"]
-                                     + counts_ort["qmatmul_int4_bf16"], smi))
+            llama = phase_llama(smi)
+            for row in rows:
+                if row["name"] in llama:
+                    row["llama_path"] = llama[row["name"]]
+            rows.append(phase_nibble(
+                counts["qmatmul_int4_planar"]
+                + counts_ort["qmatmul_int4_bf16"]
+                + llama["qmatmul_int4_planar"]["launches"], smi))
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})
             emit({"kernels": rows})
     finally:

@@ -85,6 +85,7 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
         env.update(params)
         env.update(inputs)
         ctx = LoweringContext(graph, env, packed)
+        ctx.batch_polymorphic = _batch_polymorphic(graph, inputs)
 
         def static_value(name):
             if name in graph.constants:
@@ -134,6 +135,21 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
         return {o: env[o] for o in graph.outputs}
 
     return fn
+
+
+def _batch_polymorphic(graph: Graph, inputs: Mapping[str, torch.Tensor]
+                       ) -> bool:
+    """Whether a run is batch-polymorphic, as the JAX lowering decides per
+    trace: some input arrives at another leading dim than declared, or its
+    declared leading dim is symbolic."""
+    for s in graph.inputs:
+        v = inputs.get(s.name)
+        if v is None or not s.shape:
+            continue
+        d0 = s.shape[0]
+        if isinstance(d0, str) or (v.dim() >= 1 and v.shape[0] != d0):
+            return True
+    return False
 
 
 def captures(device) -> bool:

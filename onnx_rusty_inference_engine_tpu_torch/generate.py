@@ -1,10 +1,15 @@
-"""Autoregressive generation for the GPT-2 ONNX decoder, on one device.
+"""Autoregressive generation for the ONNX decoder families (gpt2, llama,
+and families registered with models.register_decoder_family), on one device.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/generate.py::
 Generator, with its host loop: a prefill graph runs the prompt at once and
 returns the presents; a fixed-cache decode graph then runs one token per
-step, and the KV cache stays on the device between steps (fp32, or INT8
-with per-(layer, kind, head) scales calibrated from the prefill presents).
+step, and the KV cache stays on the device between steps (fp32; INT8; or
+INT4 nibble-packed, two values a byte, for gpt2 and llama), the quantized
+caches with per-(layer, kind, head) scales amax / 127 (INT4: amax / 7)
+calibrated from the prefill presents. `cfg` is any config with `n_layer`
+and `vocab_size`; the cache's shapes come from the graphs (GQA families
+carry n_kv_head heads).
 Token selection -- greedy, or temperature / top-k / top-p / min-p sampling
 with a repetition penalty -- runs on the device, with a `torch.Generator`
 seeded by `sample_seed`. Per step, only the eos check (and return_logits)
@@ -25,10 +30,9 @@ host loop draws. `return_logits=True` runs the host loop, as in JAX.
 the CPU, where every kernel is its plain version and a block is a Python
 loop.
 
-Not ported yet (each raises NotImplementedError): other decoder families
-and the int4 KV cache (ROADMAP 1.5b, 1.8), `scan_layers` (1.5b), `mesh` /
-`param_sharding_fn` / `pipeline_axis` (1.12), `lora_bank` (1.8) and
-`prefill_dtype` other than "float32" (1.6).
+Not ported yet (each raises NotImplementedError): the moe family (ROADMAP
+1.8), `scan_layers` (1.5b), `mesh` / `param_sharding_fn` / `pipeline_axis`
+(1.12), `lora_bank` (1.8) and `prefill_dtype` other than "float32" (1.6).
 """
 
 from __future__ import annotations
@@ -42,7 +46,6 @@ import torch.nn.functional as F
 
 from .engine import Engine, capture, captures, resolve_device, side_stream
 from .graph import Graph, import_model
-from .models.gpt2 import GPT2Config
 
 __all__ = ["Generator"]
 
@@ -71,7 +74,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class Generator:
     def __init__(
         self,
-        cfg: GPT2Config,
+        cfg,
         *,
         batch: int = 1,
         prompt_len: int = 8,
@@ -103,20 +106,25 @@ class Generator:
             raise _not_ported("lora_bank", "1.8")
         if prefill_dtype != "float32":
             raise _not_ported(f"prefill_dtype={prefill_dtype!r}", "1.6")
-        if kv_dtype == "int4":
-            raise _not_ported("kv_dtype='int4'", "1.5b")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch
         self.prompt_len = prompt_len
         self.max_len = max_len
-        self.kv_dtype = np.dtype(kv_dtype)
+        # int4: the nibble-packed [B,H,L,hd/2] int8 cache; it takes every
+        # int8 path, only the packing and the amax/7 scales differ
+        self._int4_kv = kv_dtype == "int4"
+        self.kv_dtype = np.dtype(np.int8 if self._int4_kv else kv_dtype)
         self._kv_q = self.kv_dtype == np.int8
-        self._kv_qmax = 127.0
+        self._kv_qmax = 7.0 if self._int4_kv else 127.0
 
         from .models import decoder_family
 
         build_prefill, build_decode, int8_kv_ok = decoder_family(family)
+        if self._int4_kv and family not in ("gpt2", "llama"):
+            raise NotImplementedError(
+                f"{family}: the int4 KV cache needs a nibble-packing decode "
+                f"graph (gpt2 and llama only)")
         if self._kv_q and not int8_kv_ok:
             raise NotImplementedError(
                 f"{family}: in-graph quantized KV cache not implemented")
@@ -124,9 +132,11 @@ class Generator:
         if fused_attention:
             # one kernel per layer over the int8 cache (ops/fused.py)
             dkw["fused_attention"] = True
+        pkw = ({"past_len": 0, "with_presents": True} if family == "gpt2"
+               else {"with_presents": True})
         prefill_graph = import_model(
             build_prefill(cfg, batch=batch, seq_len=prompt_len, seed=seed,
-                          past_len=0, with_presents=True))
+                          **pkw))
         decode_graph = import_model(
             build_decode(cfg, batch=batch, max_len=max_len, seed=seed,
                          **dkw))
@@ -159,16 +169,23 @@ class Generator:
                                 for k, v in self._kv_scales.items()}
         return other
 
-    # -- cache quantization (INT8 KV; the decode GRAPH carries the QDQ) ---
+    # -- cache quantization (INT8 / INT4 KV; the decode GRAPH carries the
+    # QDQ) -------------------------------------------------------------------
     def _store(self, kv: torch.Tensor, scale_name: str) -> torch.Tensor:
+        if self._int4_kv:
+            from .quant import pack_int4_kv
+
+            return pack_int4_kv(
+                kv, self._kv_scales[scale_name].reshape(1, -1, 1, 1))
         if self._kv_q:
             s = self._kv_scales[scale_name].reshape(1, -1, 1, 1)
             return torch.clamp(torch.round(kv / s), -127, 127).to(torch.int8)
         return kv.to(torch.float32)
 
     def calibrate_kv(self, prefill_out: Dict[str, torch.Tensor]) -> None:
-        """Per-(layer, kind, head) INT8 KV scales amax / 127 from the
-        prefill presents (kept once set, as in the JAX Generator)."""
+        """Per-(layer, kind, head) KV scales amax / 127 (INT4: amax / 7)
+        from the prefill presents (kept once set, as in the JAX
+        Generator)."""
         if not self._kv_q or self._kv_scales is not None:
             return
         # a division by a tensor on the device: a true division on the card

@@ -1,17 +1,43 @@
-"""Model builders: ONNX ModelProtos synthesized offline with seeded weights."""
+"""Model builders: ONNX ModelProtos synthesized offline with seeded weights,
+and the decoder-family registry the drivers (generate.Generator,
+serving.DecodeServer) build their graphs through."""
 
 from .squeezenet import build_squeezenet  # noqa: F401
 from .gpt2 import GPT2Config, build_gpt2, build_gpt2_decode  # noqa: F401
 from .bert import BertConfig, build_bert  # noqa: F401
+from .llama import LlamaConfig, build_llama, build_llama_decode  # noqa: F401
+from ._builder import host_memo  # noqa: F401
+
+_CUSTOM_DECODERS: dict = {}
+
+
+def register_decoder_family(name: str, build_prefill, build_decode,
+                            int8_kv_ok: bool = False) -> None:
+    """Plug an external decoder family into the drivers (Generator,
+    DecodeServer). Builders must follow the decoder_family contract below;
+    `custom_decoder.onnx_decoder_family` creates them from ONNX files (with
+    optional tensor renaming)."""
+    if name in ("gpt2", "llama", "moe"):
+        raise ValueError(f"cannot override built-in family {name!r}")
+    _CUSTOM_DECODERS[name] = (build_prefill, build_decode, bool(int8_kv_ok))
 
 
 def decoder_family(name: str):
-    """(build_prefill, build_decode, supports_int8_kv) for a decoder family:
-    prefill(input_ids [B,T]) -> logits + presents; decode(input_ids [B,1],
-    pos [B], past_*) -> logits + presents with per-slot positions. Only
-    gpt2 is ported; llama, moe and custom families are ROADMAP 1.8."""
+    """(build_prefill, build_decode, supports_int8_kv) for a decoder family.
+
+    Every family shares the driver contract: prefill(input_ids [B,T]) ->
+    logits + presents; decode(input_ids [B,1], pos [B], past_*) -> logits +
+    presents with per-slot positions (continuous-batching-ready). moe is
+    not ported yet (ROADMAP 1.8)."""
+    if name in _CUSTOM_DECODERS:
+        return _CUSTOM_DECODERS[name]
     if name == "gpt2":
         return build_gpt2, build_gpt2_decode, True
-    raise NotImplementedError(
-        f"decoder family {name!r} is not ported yet (ROADMAP 1.8); the port "
-        f"has gpt2")
+    if name == "llama":
+        return build_llama, build_llama_decode, True
+    if name == "moe":
+        raise NotImplementedError(
+            "decoder family 'moe' is not ported yet (ROADMAP 1.8); the port "
+            "has gpt2 and llama")
+    raise KeyError(f"unknown decoder family {name!r}; have gpt2, llama, "
+                   f"moe{''.join(', ' + k for k in _CUSTOM_DECODERS)}")

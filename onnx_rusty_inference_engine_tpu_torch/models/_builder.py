@@ -1,12 +1,47 @@
-"""Small helper DSL for constructing ONNX GraphProtos programmatically."""
+"""Small helper DSL for constructing ONNX GraphProtos programmatically,
+and `host_memo`, which lets many builds of one large model share their
+host arrays."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import contextlib
+from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import numpy as np
 
 from .. import onnx_io
+
+
+_memo: Optional[Dict[Hashable, object]] = None
+
+
+@contextlib.contextmanager
+def host_memo():
+    """Within the block, each seeded weight a builder draws through `memo`
+    (models/llama.py) and each int4 packing of one weight array
+    (quant.quantize_weights_int4) is made once and reused: the prefill and
+    decode graphs of one config and seed, a server's prompt buckets and KV
+    variants then share their host arrays instead of drawing and packing
+    them again. For a process that builds many graphs of one large config;
+    the arrays are held until the block ends. Nested blocks share the
+    outer one's entries."""
+    global _memo
+    outer = _memo
+    _memo = {} if outer is None else outer
+    try:
+        yield
+    finally:
+        _memo = outer
+
+
+def memo(key: Hashable, make: Callable[[], object]):
+    """make(), or inside `host_memo` the value made first under `key`."""
+    if _memo is None:
+        return make()
+    value = _memo.get(key)
+    if value is None:
+        value = _memo[key] = make()
+    return value
 
 
 class GraphBuilder:

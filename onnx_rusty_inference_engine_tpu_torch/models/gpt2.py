@@ -10,9 +10,9 @@ Gelu MLP, final LayerNorm, tied lm_head MatMul. Optionally takes
 static (P and T fixed per graph). The same seed gives the JAX package's
 graph node for node and weight for weight.
 
-Not ported yet (ROADMAP 1.5): the int4 KV-cache decode graph
-(kv_dtype="int4") and the Scan-over-layers decode graph (scan_layers=True);
-both raise NotImplementedError.
+kv_dtype="int4" builds the nibble-packed KV cache (models/q4.py). Not
+ported yet (ROADMAP 1.5b): the Scan-over-layers decode graph
+(scan_layers=True) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -200,22 +200,30 @@ def build_gpt2_decode(
     Weights are seeded identically to build_gpt2(), so prefill and decode
     graphs share parameters.
 
-    Not ported yet (ROADMAP 1.5): kv_dtype="int4" and scan_layers=True
-    raise NotImplementedError.
+    kv_dtype="int4" nibble-packs the cache: TWO 4-bit values in one int8
+    byte along hd (p = (q0+8) + 16*q1, q in [-8, 7]), so pasts/presents are
+    [B,H,max_len,hd/2] int8 -- half the int8 cache's bytes. The new k/v
+    are quantized and packed in the graph, the cache updated in the packed
+    domain, and the whole cache unpacked and dequantized for the attention
+    (models/q4.py); quant.pack_int4_kv packs a prefill into the same form.
+
+    Not ported yet (ROADMAP 1.5b): scan_layers=True raises
+    NotImplementedError.
     """
-    if kv_dtype == "int4":
-        raise NotImplementedError(
-            "kv_dtype='int4' (the nibble-packed KV cache, models/q4.py) is "
-            "not ported yet: ROADMAP 1.5")
-    if scan_layers:
-        raise NotImplementedError(
-            "scan_layers=True (the Scan-over-layers decode graph) is not "
-            "ported yet: ROADMAP 1.5")
-    int8_kv = np.dtype(kv_dtype) == np.int8
+    int4_kv = kv_dtype == "int4"
+    int8_kv = (not int4_kv) and np.dtype(kv_dtype) == np.int8
+    if int4_kv and (fused_attention or scan_layers):
+        raise ValueError("int4 KV supports the plain decode graph only")
+    if int4_kv and cfg.head_dim % 2:
+        raise ValueError("int4 KV packs hd pairs: head_dim must be even")
     if fused_attention and not int8_kv:
         raise ValueError("fused_attention requires kv_dtype='int8'")
     if fused_attention and chunk != 1:
         raise ValueError("fused_attention supports chunk=1 only")
+    if scan_layers:
+        raise NotImplementedError(
+            "scan_layers=True (the Scan-over-layers decode graph) is not "
+            "ported yet: ROADMAP 1.5b")
     b = GraphBuilder("gpt2_decode", opset=opset, seed=seed)
     B, T = batch, chunk
     D, H, hd = cfg.n_embd, cfg.n_head, cfg.head_dim
@@ -225,8 +233,8 @@ def build_gpt2_decode(
     # admits new sequences into free slots while others are mid-generation)
     ids = b.input("input_ids", [B, T], dtype=np.int64)
     pos = b.input("pos", [B], dtype=np.int64)
-    cache_np = np.int8 if int8_kv else np.float32
-    cache_hd = hd
+    cache_np = np.int8 if (int8_kv or int4_kv) else np.float32
+    cache_hd = hd // 2 if int4_kv else hd
     pasts = [(b.input(f"past_key_{i}", [B, H, max_len, cache_hd],
                       dtype=cache_np),
               b.input(f"past_value_{i}", [B, H, max_len, cache_hd],
@@ -234,7 +242,8 @@ def build_gpt2_decode(
              for i in range(cfg.n_layer)]
     kv_scales = [(b.input(f"kv_scale_key_{i}", [H]),
                   b.input(f"kv_scale_value_{i}", [H]))
-                 for i in range(cfg.n_layer)] if int8_kv else None
+                 for i in range(cfg.n_layer)] if (int8_kv or int4_kv) \
+        else None
     zp8 = b.init("kv_zp8", np.int8(0)) if int8_kv else None
 
     wte = b.init("wte", (b.rng.standard_normal((cfg.vocab_size, D))
@@ -311,6 +320,12 @@ def build_gpt2_decode(
     shape_split = b.init("shape_bthd", np.array([B, T, H, hd], np.int64))
     shape_merge = b.init("shape_btd", np.array([B, T, D], np.int64))
 
+    if int4_kv:
+        from .q4 import q4_helpers
+
+        _q4_pack, _q4_unpack, q4_sshape = q4_helpers(
+            b, heads=H, hd=hd, batch=B, max_len=max_len)
+
     for i in range(cfg.n_layer):
         ln1 = _layernorm(b, x, f"blk{i}_ln1", D)
         qkv = _linear(b, ln1, f"blk{i}_attn_qkv", D, 3 * D)
@@ -358,6 +373,20 @@ def build_gpt2_decode(
                                [f"blk{i}_k_dq"], axis=1)
                 (vc,) = b.node("DequantizeLinear", [vc8, sv, zp8],
                                [f"blk{i}_v_dq"], axis=1)
+        elif int4_kv:
+            # quantize + nibble-pack the new k/v, update the cache in the
+            # packed int8 domain, unpack + dequantize for the attention
+            sk, sv = kv_scales[i]
+            (sk4,) = b.node("Reshape", [sk, q4_sshape], [f"blk{i}_sk4"])
+            (sv4,) = b.node("Reshape", [sv, q4_sshape], [f"blk{i}_sv4"])
+            kq = _q4_pack(kh, sk4, f"blk{i}_k")
+            vq = _q4_pack(vh, sv4, f"blk{i}_v")
+            (kc8,) = b.node("Where", [is_now4, _spread(kq, "k8"), pk],
+                            [f"present_key_{i}"])
+            (vc8,) = b.node("Where", [is_now4, _spread(vq, "v8"), pv],
+                            [f"present_value_{i}"])
+            kc = _q4_unpack(kc8, sk4, f"blk{i}_k")
+            vc = _q4_unpack(vc8, sv4, f"blk{i}_v")
         else:
             # scatter new k/v into the fixed cache at `pos`
             (kc,) = b.node("Where", [is_now4, _spread(kh, "k"), pk],

@@ -74,6 +74,11 @@ class LoweringContext:
         self.static_env: Dict[str, np.ndarray] = {}
         self.opset = graph.opset
         self.packed = {} if packed is None else packed
+        # True when this run's batch differs from the graph's declared input
+        # batch (engine.lower sets it per run): Expand may then put the
+        # runtime batch in place of a baked leading dim. When False, baked
+        # shapes hold and a mismatch is an invalid model.
+        self.batch_polymorphic = True
 
     def constant(self, name: str) -> Optional[np.ndarray]:
         """Value of a tensor known before the run, else None."""

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import onnx_io
-from ..graph import Node, _resolve_reshape
+from ..graph import Node, _broadcast_expand, _resolve_reshape
 from .registry import LoweringContext, UnsupportedOpError, register
 
 Padding = List[Tuple[int, int]]
@@ -279,6 +279,28 @@ def _unary(fn):
 
 
 register("Tanh")(_unary(torch.tanh))
+register("Sigmoid")(_unary(torch.sigmoid))
+register("Neg")(_unary(torch.neg))
+register("Floor")(_unary(torch.floor))
+register("Round")(_unary(torch.round))  # half to even, as jnp.round
+
+
+@register("Clip")
+def clip(ctx: LoweringContext, node: Node, ins):
+    """Bounds from the min / max attributes (before opset 11) or the
+    optional inputs; either may be absent."""
+    x = ins[0]
+    lo = node.attr("min")
+    hi = node.attr("max")
+    if lo is None and len(ins) > 1 and ins[1] is not None:
+        lo = ins[1]
+    if hi is None and len(ins) > 2 and ins[2] is not None:
+        hi = ins[2]
+    if lo is not None:
+        x = torch.clamp_min(x, lo)
+    if hi is not None:
+        x = torch.clamp_max(x, hi)
+    return (x,)
 
 
 @register("Gelu")
@@ -303,6 +325,17 @@ def cast(ctx: LoweringContext, node: Node, ins):
 @register("Identity")
 def identity(ctx: LoweringContext, node: Node, ins):
     return (ins[0],)
+
+
+@register("RMSNormalization", "SimplifiedLayerNormalization")
+def rms_normalization(ctx: LoweringContext, node: Node, ins):
+    """x * rsqrt(mean(x^2) + eps) * scale, the mean of squares in fp32."""
+    x, scale = ins[0], ins[1]
+    axis = int(node.attr("axis", -1))
+    eps = float(node.attr("epsilon", 1e-5))
+    dims = tuple(range(axis % x.dim(), x.dim()))
+    ms = torch.square(x.to(torch.float32)).mean(dim=dims, keepdim=True)
+    return ((x * torch.rsqrt(ms + eps).to(x.dtype)) * scale,)
 
 
 @register("LayerNormalization")
@@ -338,6 +371,35 @@ def reshape(ctx: LoweringContext, node: Node, ins):
         if tail > 0 and total % tail == 0:
             tgt[0] = total // tail
     return (x.reshape(tgt),)
+
+
+@register("Unsqueeze")
+def unsqueeze(ctx: LoweringContext, node: Node, ins):
+    """Axes from the attribute (before opset 13) or a constant input,
+    inserted in ascending order as the JAX emitter does."""
+    x = ins[0]
+    axes = node.attr("axes")
+    if axes is None:
+        axes = ctx.require_constant(node.inputs[1], "Unsqueeze axes").tolist()
+    for ax in sorted(int(a) for a in axes):
+        x = x.unsqueeze(ax if ax >= 0 else ax + x.dim() + 1)
+    return (x,)
+
+
+@register("Expand")
+def expand(ctx: LoweringContext, node: Node, ins):
+    """Broadcast to a constant shape (a view). Batch polymorphism as the
+    JAX emitter: when the run's batch differs from the declared one
+    (`ctx.batch_polymorphic`), ranks match and neither leading dim is 1, the
+    leading dim follows the input."""
+    x = ins[0]
+    shape = np.asarray(ctx.require_constant(node.inputs[1], "Expand shape"))
+    if (ctx.batch_polymorphic
+            and len(shape) == x.dim() and x.shape[0] != 1 and shape[0] != 1
+            and int(shape[0]) != x.shape[0]):
+        shape = shape.copy()
+        shape[0] = x.shape[0]
+    return (x.expand(_broadcast_expand(tuple(x.shape), shape)),)
 
 
 @register("Slice")

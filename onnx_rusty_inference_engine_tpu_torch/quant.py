@@ -15,9 +15,10 @@ Scheme
 - compute: QLinearConv on the int8 kernel (ops/kernels/qconv_int8.py).
 
 INT4 weight-only (`pack_int4`, `pack_int4_planar`, `quantize_weights_int4`)
-is the JAX package's numpy, line for line, so both packages pack the same
-bytes and scales. Not ported yet: the "mse" calibration method,
-`bias_correct`, W8A8, the int4 KV cache, and int4 over a Scan body.
+and the int4 KV cache's packing (`pack_int4_kv`) are the JAX package's
+arithmetic, line for line, so both packages pack the same bytes and
+scales. Not ported yet: the "mse" calibration method, `bias_correct`,
+W8A8, and int4 over a Scan body.
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ import torch
 
 from .engine import lower, resolve_device
 from .graph import Graph, Node, prune_dead, topo_sort
+from .models._builder import memo
 
 __all__ = ["calibrate", "quantize_graph", "QuantConfig", "pack_int4",
-           "pack_int4_planar", "quantize_weights_int4"]
+           "pack_int4_planar", "quantize_weights_int4", "pack_int4_kv"]
 
 
 @dataclasses.dataclass
@@ -495,8 +497,12 @@ def quantize_weights_int4(
                     and np.issubdtype(w.dtype, np.floating)
                     and w.shape[0] % 2 == 0):
                 K, N = w.shape
-                packed, scales = pack_int4_planar(w.astype(np.float32),
-                                                  block_size)
+                # inside models.host_memo, one packing per weight array (the
+                # entry keeps the array, so its id stays its own)
+                _, packed, scales = memo(
+                    ("int4_planar", id(w), block_size),
+                    lambda w=w: (w, *pack_int4_planar(w.astype(np.float32),
+                                                      block_size)))
                 # N pre-padded to a multiple of 256, as the JAX quantizer
                 # pads it for its TPU kernel's blocks: the graphs of the two
                 # packages stay equal (the kernel here writes only N columns)
@@ -532,3 +538,13 @@ def quantize_weights_int4(
     )
     prune_dead(g4)
     return g4
+
+
+def pack_int4_kv(kv: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize + nibble-pack a KV tensor into the int4 cache layout the
+    gpt2 and llama decode graphs read (models/q4.py): per-head scale
+    [..., H, 1, 1]-broadcastable, q = clip(round(kv / s), -8, 7) packed as
+    p = (q0+8) + 16*q1 over hd pairs -> int8 [..., hd/2], on kv's device.
+    The graphs' unpack inverts it: change them together."""
+    q = torch.clamp(torch.round(kv / scale), -8, 7)
+    return ((q[..., 0::2] + 8) + 16 * q[..., 1::2]).to(torch.int8)

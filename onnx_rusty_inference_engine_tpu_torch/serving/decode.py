@@ -1,4 +1,5 @@
-"""DecodeServer: token-level continuous batching for the GPT-2 decoder.
+"""DecodeServer: token-level continuous batching for the decoder families
+(gpt2, llama, and families registered with models.register_decoder_family).
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/serving/
 decode.py. One decode graph over a fixed pool of B slots runs every step;
@@ -19,14 +20,14 @@ bucket; padded positions write garbage K/V beyond the true prompt, which
 the decode graph's per-slot mask (k <= pos) hides until the step that
 reaches each row overwrites it, so served tokens are exactly the isolated
 generation's. Inactive slots park at pos = max_len - 1. The KV cache can
-be INT8 (kv_dtype="int8"): the decode graph carries the QDQ, and the
-server quantizes prefill K/V into the slot with the same per-head scales
-it feeds the graph.
+be INT8 (kv_dtype="int8") or INT4 nibble-packed (kv_dtype="int4", gpt2 and
+llama): the decode graph carries the QDQ, and the server quantizes prefill
+K/V into the slot with the same per-head scales it feeds the graph. Cache
+shapes come from the decode graph (GQA families carry n_kv_head heads).
 
 Not ported yet (each raises NotImplementedError): `lora_bank` (ROADMAP
-1.8), `mesh` / `param_sharding_fn` (1.12), `kv_dtype="int4"` (1.5b),
-`prefill_dtype` other than "float32" (1.6) and decoder families other
-than gpt2 (1.8).
+1.8), `mesh` / `param_sharding_fn` (1.12), `prefill_dtype` other than
+"float32" (1.6) and the moe family (1.8).
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ import torch.nn.functional as F
 
 from ..engine import Engine, resolve_device
 from ..graph import import_model
-from ..models.gpt2 import GPT2Config
 from .base import _ServerBase
 from .decode_multi import _MultiStepMixin
 from .request import _Request, _fetch, _hits_stop, _select_token
@@ -57,12 +57,14 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
 
     Parameters
     ----------
-    cfg: model config (weights are seeded; same seed == same weights as
-        generate.Generator and as the JAX package's server).
+    cfg: model config, any with `n_layer` and `vocab_size` (weights are
+        seeded; same seed == same weights as generate.Generator and as the
+        JAX package's server).
     slots: decode batch size B, resident sequences generated per step.
     prompt_len: prefill graph length; prompts are right-padded to it.
     max_len: fixed KV-cache length.
-    kv_dtype: "float32" or "int8" (in-graph QDQ cache).
+    kv_dtype: "float32", "int8" or "int4" (in-graph QDQ cache; int4 packs
+        two values a byte, scales amax / 7).
     len_buckets: ascending cache lengths ending at max_len. The pool runs
         at the smallest bucket covering what live requests still need:
         one decode Engine (and graph) per bucket, weights shared, cache
@@ -74,7 +76,7 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
 
     def __init__(
         self,
-        cfg: GPT2Config,
+        cfg,
         *,
         slots: int = 4,
         prompt_len: int = 8,
@@ -101,8 +103,6 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             raise _not_ported("lora_bank", "1.8")
         if mesh is not None or param_sharding_fn is not None:
             raise _not_ported("a device mesh", "1.12")
-        if kv_dtype == "int4":
-            raise _not_ported("kv_dtype='int4'", "1.5b")
         if chunked_prefill and prefill_dtype != "float32":
             raise ValueError(
                 f"prefill_dtype={prefill_dtype!r} has no effect with "
@@ -116,8 +116,11 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         self.B = slots
         self.prompt_len = prompt_len
         self.max_len = max_len
-        self.kv_dtype = np.dtype(kv_dtype)
-        self._kv_qmax = 127.0
+        # int4: the nibble-packed [B,H,L,hd/2] int8 cache; it takes every
+        # int8 path, only the packing and the amax/7 scales differ
+        self._int4_kv = kv_dtype == "int4"
+        self.kv_dtype = np.dtype(np.int8 if self._int4_kv else kv_dtype)
+        self._kv_qmax = 7.0 if self._int4_kv else 127.0
         # prompts pad to the smallest bucket >= their length: one prefill
         # Engine (one graph) per bucket, made on first use
         self.prompt_buckets = tuple(sorted(prompt_buckets or (prompt_len,)))
@@ -126,6 +129,10 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         from ..models import decoder_family
 
         build_prefill, build_decode, int8_kv_ok = decoder_family(family)
+        if self._int4_kv and family not in ("gpt2", "llama"):
+            raise NotImplementedError(
+                "int4 KV serving needs a nibble-packing decode graph (gpt2 "
+                "and llama only)")
         if self.kv_dtype == np.int8 and not int8_kv_ok:
             raise NotImplementedError(
                 f"{family}: in-graph INT8 KV cache not implemented")
@@ -146,9 +153,10 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         self._pcache: "OrderedDict[bytes, dict]" = OrderedDict()
         self.prefix_hits = 0
         self.prefix_tokens_saved = 0
-        dkw = {"kv_dtype": kv_dtype}
+        dkw = {"kv_dtype": kv_dtype} if int8_kv_ok else {}
         if self.chunked:
             dkw["chunk"] = self.chunk
+        pkw = {"past_len": 0} if family == "gpt2" else {}
 
         self._len_buckets: Optional[Tuple[int, ...]] = None
         if len_buckets is not None:
@@ -156,8 +164,8 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             if not bks or bks[-1] != max_len:
                 raise ValueError("len_buckets must end at max_len")
             self._len_buckets = bks
-        # chunked int8: the shadow-calibration phase runs at max_len (the
-        # shadow graph's only length); buckets engage after the flip
+        # chunked int8/int4: the shadow-calibration phase runs at max_len
+        # (the shadow graph's only length); buckets engage after the flip
         self._cur_len = max_len if (
             self.chunked and self.kv_dtype == np.int8
             or self._len_buckets is None) else self._len_buckets[0]
@@ -175,10 +183,11 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
                 cfg, batch=slots, max_len=L, seed=seed, **dkw)))
 
         self._make_decode_graph = make_decode_graph
-        # chunked + int8 KV: no bucketed prefill exists to calibrate the
-        # per-head scales from, so steps run a SHADOW fp32 chunk graph
+        # chunked + int8/int4 KV: no bucketed prefill exists to calibrate
+        # the per-head scales from, so steps run a SHADOW fp32 chunk graph
         # (same weights) until the first request finishes prefilling; the
-        # fp32 cache is then quantized once and serving goes on in int8
+        # fp32 cache (unpacked: int4's packed cache halves the hd axis) is
+        # then quantized once and serving goes on in the quantized cache
         self._shadow = None
         if self.chunked and self.kv_dtype == np.int8:
             self._shadow = Engine(quantized(import_model(build_decode(
@@ -189,7 +198,7 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         def make_prefill(bucket: int) -> Engine:
             return Engine(quantized(import_model(build_prefill(
                 cfg, batch=1, seq_len=bucket, with_presents=True,
-                seed=seed, past_len=0))), device=self.device)
+                seed=seed, **pkw))), device=self.device)
 
         self._make_prefill = make_prefill
         # decode engines keyed by cache length; all share ONE set of
@@ -350,16 +359,21 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             f"kv_scale_{kind}_{name.rsplit('_', 1)[1]}"].reshape(1, -1, 1, 1)
 
     def _quant_kv(self, kv: torch.Tensor, name: str) -> torch.Tensor:
-        """fp32 K/V rows -> the cache's dtype (round half to even, as the
-        reference's numpy; the division is a true one on both devices)."""
+        """fp32 K/V rows -> the cache's dtype and layout (round half to
+        even, as the reference's numpy; the division is a true one on both
+        devices)."""
         if self.kv_dtype != np.int8:
             return kv.to(torch.float32)
+        if self._int4_kv:
+            from ..quant import pack_int4_kv
+
+            return pack_int4_kv(kv, self._scale(name))
         return torch.clamp(torch.round(kv / self._scale(name)),
                            -127, 127).to(torch.int8)
 
     def _calibrate(self, presents: Dict[str, torch.Tensor]) -> None:
-        """Per-(layer, kind, head) INT8 KV scales amax / 127 from fp32
-        K/V [B, H, T, hd], keyed by past_ name."""
+        """Per-(layer, kind, head) KV scales amax / 127 (INT4: amax / 7)
+        from fp32 K/V [B, H, T, hd], keyed by past_ name."""
         qmax = torch.tensor(self._kv_qmax, dtype=torch.float32,
                             device=self.device)
         self._kv_scales = {}

@@ -38,13 +38,15 @@ from onnx_rusty_inference_engine_tpu_torch.generate import Generator
 from onnx_rusty_inference_engine_tpu_torch.models.bert import (
     BertConfig, build_bert)
 from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+from onnx_rusty_inference_engine_tpu_torch.models.llama import (
+    LlamaConfig, build_llama_decode)
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import decode_attn as da
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qconv_int8 as k
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int4 as q4
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int8 as q8
 from onnx_rusty_inference_engine_tpu_torch.quant import (
     pack_int4, pack_int4_planar)
-from chip_smoke import ort_int4_generator
+from chip_smoke import _int4_picks, ort_int4_generator
 
 pytestmark = pytest.mark.cuda
 
@@ -906,3 +908,144 @@ def test_inference_server_on_card_equals_engine(cuda):
                                                          device=cuda)})
     np.testing.assert_array_equal(np.concatenate(outs),
                                   want["prob"][:3].cpu().numpy())
+
+
+# --------------------------------------------------------------------------
+# the Llama slice on the card: GQA at 4 query heads per KV head and head
+# dim 128, the int4 KV cache, and the int4 down projection's schedule
+# --------------------------------------------------------------------------
+_GQA = LlamaConfig(vocab_size=256, max_positions=64, dim=512, n_layer=2,
+                   n_head=4, n_kv_head=1, ffn_mult=2)
+
+
+@pytest.mark.parametrize("K,schedule", [(4096, "small_m"), (16384, "mma")])
+def test_int4_decode_m8_schedule_by_k(cuda, K, schedule):
+    """At M = 8 a Llama step's int4 products stage A in small_m's shared
+    memory up to K = 4096; the down projection (K = 16384) does not fit
+    and runs on mma. Both equal the plain version."""
+    kern, plain, a, packed, scales, kw = _int4_operands(
+        "planar", 8, K, 512, 256, np.random.default_rng(K), cuda)
+    nblk, blk = q4.planar_layout(K, 256)
+    assert q4.int4_schedule(8, K, nblk, blk) == schedule
+    before = dict(kern.schedules)
+    got = kern(a, packed, scales, **kw)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in kern.schedules.items()} == {
+        s: int(s == schedule) for s in q4.SCHEDULES}
+    assert _rel_err(got, plain(a, packed, scales, **kw)) <= 1e-5
+
+
+def _teacher_forced_errors(gen, ids, toks, steps):
+    """The prefill and `steps` steps on the card and through the plain
+    versions on the CPU, both fed the card's tokens: each pass's max
+    |difference| / max |logit|. The card's teacher-forced passes repeat
+    its own greedy tokens."""
+    cpu = gen.to("cpu")
+    P = ids.shape[1]
+    card_l, card_c = gen.start(ids)
+    host_l, host_c = cpu.start(ids)
+    errs = []
+    for t in range(steps + 1):
+        c, h = card_l[:, -1].cpu(), host_l[:, -1]
+        errs.append(float((c - h).abs().max() / h.abs().max()))
+        np.testing.assert_array_equal(c.argmax(-1).numpy(), toks[:, t])
+        if t == steps:
+            break
+        tok = torch.from_numpy(toks[:, t])
+        card_l, card_c = gen.step(card_c, tok.to(gen.device), P + t)
+        host_l, host_c = cpu.step(host_c, tok, P + t)
+    return errs
+
+
+def test_llama_gqa_decode_on_card_matches_cpu(cuda):
+    """Generator(family="llama") at GQA rep 4, hd 128 with INT4 weights,
+    an INT8 KV cache and fused attention: 15 int4 launches per pass, each
+    on int4_schedule's pick, 2 attention launches per step; every pass
+    re-run through the plain versions on the CPU with the card's tokens
+    within 1e-2 x max|logit| (both int4 forms round A to bf16)."""
+    kw = dict(batch=2, prompt_len=8, max_len=32, family="llama",
+              kv_dtype="int8", int4_weights=True, fused_attention=True)
+    ids = np.random.default_rng(5).integers(0, _GQA.vocab_size, (2, 8))
+    n_new = 6
+    gen = Generator(_GQA, **kw)
+    i4, at = q4.qmatmul_int4_planar.launches, da.decode_attention_int8.launches
+    sched = dict(q4.qmatmul_int4_planar.schedules)
+    toks, _ = gen.generate(ids, n_new)
+    torch.cuda.synchronize()
+    assert q4.qmatmul_int4_planar.launches - i4 == (7 * 2 + 1) * n_new
+    assert da.decode_attention_int8.launches - at == 2 * (n_new - 1)
+    assert {k: v - sched[k] for k, v in
+            q4.qmatmul_int4_planar.schedules.items()} == _int4_picks(
+        gen, "qmatmul_int4_planar", 16, 2, n_new - 1)
+    assert max(_teacher_forced_errors(gen, ids, toks, n_new - 1)) <= 1e-2
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_int4_kv_decode_on_card_matches_cpu(cuda, family):
+    """kv_dtype="int4" (the nibble-packed cache, fp32 weights) on the card:
+    the cache is packed int8 [B, Hkv, L, hd/2], no kernel of the port runs
+    (the pack and unpack are elementwise), and every pass re-run on the
+    CPU with the card's tokens is within 1e-3 x max|logit|."""
+    cfg = _GQA if family == "llama" else _TINY4
+    ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 8))
+    gen = Generator(cfg, batch=2, prompt_len=8, max_len=32, family=family,
+                    kv_dtype="int4")
+    i4 = q4.qmatmul_int4_planar.launches
+    toks, _ = gen.generate(ids, 6)
+    _, cache = gen.start(ids)
+    heads = getattr(cfg, "n_kv_head", cfg.n_head)
+    assert cache["past_key_0"].dtype == torch.int8
+    assert tuple(cache["past_key_0"].shape) == (2, heads, 32,
+                                                cfg.head_dim // 2)
+    assert q4.qmatmul_int4_planar.launches == i4
+    assert max(_teacher_forced_errors(gen, ids, toks, 5)) <= 1e-3
+
+
+def _llama_step_feeds(kv, rng):
+    """Two decode-step feeds of _GQA at batch 2, max_len 32: per-slot
+    positions, a random cache (int8, or nibble-packed int8) and scales."""
+    feeds = []
+    for pos in ((3, 17), (9, 30)):
+        feed = {"input_ids": rng.integers(0, _GQA.vocab_size, (2, 1)),
+                "pos": np.array(pos, np.int64)}
+        for i in range(_GQA.n_layer):
+            for kind in ("key", "value"):
+                width = _GQA.head_dim // (2 if kv == "int4" else 1)
+                feed[f"past_{kind}_{i}"] = rng.integers(
+                    -128, 128, (2, 1, 32, width)).astype(np.int8)
+                feed[f"kv_scale_{kind}_{i}"] = (
+                    rng.random(1) * 0.05 + 0.02).astype(np.float32)
+        feeds.append(feed)
+    return feeds
+
+
+@pytest.mark.parametrize("kv", ["int8_fused_int4w", "int4"])
+def test_llama_step_captured_equals_eager(cuda, kv):
+    """The Llama decode step's captured graph (the RoPE Gather at pos [B],
+    GQA attention, the int4 KV pack and unpack) replays equal to the eager
+    function bit for bit, for two inputs."""
+    from onnx_rusty_inference_engine_tpu_torch.quant import (
+        quantize_weights_int4)
+
+    if kv == "int4":
+        g = import_model(build_llama_decode(_GQA, batch=2, max_len=32,
+                                            kv_dtype="int4"))
+    else:
+        g = quantize_weights_int4(import_model(build_llama_decode(
+            _GQA, batch=2, max_len=32, kv_dtype="int8",
+            fused_attention=True)))
+    feeds = _llama_step_feeds("int4" if kv == "int4" else "int8",
+                              np.random.default_rng(7))
+    eng = Engine(g)
+    first = eng(feeds[0])                         # eager + capture
+    with torch.no_grad():
+        eager = [eng._fn(eng.params, {n: torch.as_tensor(v, device=cuda)
+                                      for n, v in f.items()})
+                 for f in feeds]
+    for name, v in eager[0].items():
+        assert torch.equal(first[name], v), name
+    for f, want in zip(feeds * 2, eager * 2):     # replays
+        got = eng(f)
+        for name, v in want.items():
+            assert torch.equal(got[name], v), name
+    assert len(eng._graphs) == 1

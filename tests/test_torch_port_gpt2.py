@@ -253,14 +253,17 @@ def test_int4_packing_bit_equal(K, N, block):
 
 
 def test_unported_options_raise():
+    # the int4 KV cache and the llama family are ported (tests/
+    # test_torch_port_int4_kv.py, test_torch_port_llama.py); the Scan
+    # graph and moe still raise, also combined with them
     with pytest.raises(NotImplementedError, match="1.5"):
-        build_gpt2_decode(TINY, kv_dtype="int4")
+        build_gpt2_decode(TINY, kv_dtype="int8", scan_layers=True)
     with pytest.raises(NotImplementedError, match="1.5"):
         build_gpt2_decode(TINY, scan_layers=True)
     with pytest.raises(NotImplementedError, match="1.8"):
-        decoder_family("llama")
+        decoder_family("moe")
     for kw, item in (({"scan_layers": True}, "1.5"),
-                     ({"kv_dtype": "int4"}, "1.5"),
+                     ({"kv_dtype": "int4", "family": "moe"}, "1.8"),
                      ({"mesh": object()}, "1.12"),
                      ({"pipeline_axis": "pipe"}, "1.12"),
                      ({"lora_bank": {}}, "1.8"),
@@ -280,6 +283,9 @@ def test_generate_imports_no_jax():
     code = (
         "import sys\n"
         "import onnx_rusty_inference_engine_tpu_torch.generate\n"
+        "import onnx_rusty_inference_engine_tpu_torch.custom_decoder\n"
+        "import onnx_rusty_inference_engine_tpu_torch.models.llama\n"
+        "import onnx_rusty_inference_engine_tpu_torch.models.q4\n"
         "import onnx_rusty_inference_engine_tpu_torch.ops.kernels.decode_attn\n"
         "import onnx_rusty_inference_engine_tpu_torch.ops.kernels.qmatmul_int4\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -712,12 +712,12 @@ def test_watchdog_still_fires_on_a_stuck_known_graph():
     ({"lora_bank": {}}, "1.8"),
     ({"mesh": object()}, "1.12"),
     ({"param_sharding_fn": lambda n, a: None}, "1.12"),
-    ({"kv_dtype": "int4"}, "1.5b"),
+    ({"kv_dtype": "int4", "family": "moe"}, "1.8"),
     ({"prefill_dtype": "w8a8"}, "1.6"),
     ({"prefill_dtype": "bfloat16"}, "1.6"),
-    ({"family": "llama"}, "1.8"),
-], ids=["lora_bank", "mesh", "param_sharding_fn", "int4_kv", "w8a8",
-        "bf16_prefill", "llama"])
+    ({"family": "moe"}, "1.8"),
+], ids=["lora_bank", "mesh", "param_sharding_fn", "int4_kv_moe", "w8a8",
+        "bf16_prefill", "moe"])
 def test_unported_server_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         DecodeServer(TINY, slots=1, max_len=16, device="cpu",
