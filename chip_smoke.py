@@ -175,9 +175,39 @@ Phases, each printing JSON lines:
              16/32/64, 16 requests of 16-64 prompt tokens x 32 new at
              multi_step 0 and 8: tokens equal. Tokens/s, step wall and
              busy for information.
-19. kernels - one line listing every ported kernel, one per TPU kernel,
+19. vision  - after phase 18: ResNet-50, MobileNetV2 and ViT, random
+             weights from seed 0, at full width. Goldens on the card
+             (ResNet-50 at 64x64, MobileNetV2 at 96x96, ViT TINY; b1;
+             tests/goldens/, rtol = atol = 1e-3). Then ResNet-50 and
+             MobileNetV2 at 224x224, b256, and ViT-B/16 (ViTConfig(): 224,
+             patch 16, hidden 768, 12 x 12 heads) at b64, inputs from
+             default_rng(0): fp32 Engine, calibrate on x[:8] (ViT: a b8
+             build of the same seed), quantize_graph, INT8 Engine, each
+             forward a captured graph. Counts set to 0 just before, read
+             just after, exact per INT8 forward: ResNet-50 53
+             qconv_int8_requant + 1 qmatmul_int8; MobileNetV2 35 +
+             17 qconv_grouped_int8_requant + 1; ViT-B/16 1 + 73; producers,
+             grouped forms and epilogues as the shapes predict. Every
+             distinct QLinearConv (grouped too) and QLinearMatMul shape
+             bit for bit against its plain version on the card's own
+             inputs (one kernel line each, `"path": "vision"`), every
+             QLinearAdd against its plain re-run on the CPU for the first
+             8 images; INT8 against fp32 at the JAX tests' bounds (ResNet:
+             top-1 equal or max |d| / max|ref| < 0.1; MobileNetV2: top-1
+             or max |d| < 0.15; ViT: correlation > 0.95); channels-last
+             kept through QLinearConv and QLinearAdd; images/s from
+             replayed graphs; the profile of one fp32 and one INT8
+             forward. InferenceServer on ResNet-50 INT8 (buckets
+             1/8/64/256, 120 requests of 1-8 images): every response
+             within 1e-3 of an eager Engine call on the same images. The
+             CLI as subprocesses: `run` with resnet50.pb's golden case
+             (MATCH), `inspect` of the three models (no unsupported op),
+             `bench --quantize int8 --batch 256`.
+20. kernels - one line listing every ported kernel, one per TPU kernel,
+             and the grouped int8 conv, which has no TPU kernel behind it,
              after a line with the script's seconds so far; the rows of the
-             kernels the Llama path runs carry its numbers in `llama_path`.
+             kernels the Llama path runs carry its numbers in `llama_path`,
+             those of the vision path in `vision_path` (by model).
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -225,6 +255,10 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
     "qconv_int8_requant": (
         f"{PKG}/csrc/qconv_int8.cu",
         "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul.py:102"),
+    "qconv_grouped_int8_requant": (
+        f"{PKG}/csrc/qconv_grouped_int8.cu",
+        "no Pallas counterpart: XLA conv in JAX "
+        "(onnx_rusty_inference_engine_tpu/ops/quantized.py:127-136)"),
     "qmatmul_int8": (
         f"{PKG}/csrc/qmatmul_int8.cu",
         "onnx_rusty_inference_engine_tpu/ops/kernels/qmatmul.py:58"),
@@ -634,7 +668,7 @@ def _ms_by_op(e, dev_feed, reps: int) -> dict:
 def _conv_work(x, w, stride, padding):
     """(operations, bytes) the conv needs: 2 * MACs over in-bounds taps,
     each input read once and the int8 output written once."""
-    B, C, H, W = x.shape
+    B, _, H, W = x.shape
     O, _, KH, KW = w.shape
     (pt, pb), (pl, pr) = padding
     OH = (H + pt + pb - KH) // stride[0] + 1
@@ -644,7 +678,8 @@ def _conv_work(x, w, stride, padding):
         return sum(1 for o in range(n_out) for t in range(k)
                    if 0 <= o * s - lo + t < size)
 
-    macs = (B * O * C * taps(OH, KH, stride[0], pt, H)
+    # w.shape[1] is C for a group-1 conv, C / group for a grouped one
+    macs = (B * O * w.shape[1] * taps(OH, KH, stride[0], pt, H)
             * taps(OW, KW, stride[1], pl, W))
     nbytes = x.numel() + w.numel() + 4 * O + 4 * O + B * O * OH * OW
     return 2 * macs, nbytes
@@ -657,35 +692,77 @@ def _const(qgraph, params, name):
         np.asarray(qgraph.constants[name]), device="cuda")
 
 
-def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
-    from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qconv_int8 import (
-        channels_last_input, conv_plan, qconv_int8_requant,
-        qconv_int8_requant_plain)
+def _qconv_geometry(node, x, w):
     from onnx_rusty_inference_engine_tpu_torch.ops.standard import (
         _conv_padding)
 
+    stride = tuple(int(s) for s in node.attr("strides", [1, 1]))
+    padding = tuple(tuple(p) for p in _conv_padding(
+        node, x.shape[2:], w.shape[2:], stride, (1, 1)))
+    return stride, padding
+
+
+def _qconv_shapes(qgraph, eng8, card, grouped: bool) -> dict:
+    """The distinct QLinearConv shapes of one INT8 forward, group 1 or
+    grouped: (x, w, stride, padding) -> the card's own operands and output
+    for the first node of that shape, and the count per forward."""
     params = eng8.params
     shapes = {}
     for node in qgraph.nodes:
-        if node.op_type != "QLinearConv":
+        if (node.op_type != "QLinearConv"
+                or (int(node.attr("group", 1)) > 1) != grouped):
             continue
-        x = card[node.inputs[0]]
-        w = params[node.inputs[3]]
-        stride = tuple(int(s) for s in node.attr("strides", [1, 1]))
-        padding = tuple(tuple(p) for p in _conv_padding(
-            node, x.shape[2:], w.shape[2:], stride, (1, 1)))
+        x, w = card[node.inputs[0]], params[node.inputs[3]]
+        stride, padding = _qconv_geometry(node, x, w)
         key = (tuple(x.shape), tuple(w.shape), stride, padding)
         if key in shapes:
             shapes[key]["count"] += 1
             continue
-        mult = (_const(qgraph, params, node.inputs[1]).float()
-                * _const(qgraph, params, node.inputs[4]).float()
-                / _const(qgraph, params, node.inputs[6]).float())
-        bias = params.get(node.inputs[8]) if len(node.inputs) > 8 else None
-        shapes[key] = {"node": node.name or node.outputs[0], "count": 1,
-                       "x": x, "w": w, "mult": mult, "bias": bias,
-                       "stride": stride, "padding": padding,
-                       "packed": eng8.packed[node.inputs[3]]}
+        shapes[key] = {
+            "node": node.name or node.outputs[0], "count": 1, "x": x, "w": w,
+            "mult": (_const(qgraph, params, node.inputs[1]).float()
+                     * _const(qgraph, params, node.inputs[4]).float()
+                     / _const(qgraph, params, node.inputs[6]).float()),
+            "bias": params.get(node.inputs[8]) if len(node.inputs) > 8
+            else None, "stride": stride, "padding": padding,
+            "packed": eng8.packed.get(node.inputs[3]),
+            "out": card[node.outputs[0]]}
+    return shapes
+
+
+def _qmm_shapes(qgraph, eng8, card) -> dict:
+    """The distinct QLinearMatMul shapes of one INT8 forward: (M, K, N) ->
+    the card's own operands and output for the first node of that shape,
+    and the count per forward."""
+    params = eng8.params
+    shapes = {}
+    for node in qgraph.nodes:
+        if node.op_type != "QLinearMatMul":
+            continue
+        a, b = card[node.inputs[0]], params[node.inputs[3]]
+        key = (a.numel() // a.shape[-1], *b.shape)
+        if key in shapes:
+            shapes[key]["count"] += 1
+            continue
+        shapes[key] = {
+            "node": node.name or node.outputs[0], "count": 1,
+            "a": a.reshape(key[0], key[1]).contiguous(), "b": b,
+            "mult": (_const(qgraph, params, node.inputs[1]).float()
+                     * _const(qgraph, params, node.inputs[4]).float()
+                     / _const(qgraph, params, node.inputs[6]).float()),
+            "bias": params.get(node.inputs[8]) if len(node.inputs) > 8
+            else None,
+            "out": card[node.outputs[0]].reshape(key[0], key[2]),
+            "packed": eng8.packed.get(node.inputs[3])}
+    return shapes
+
+
+def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qconv_int8 import (
+        channels_last_input, conv_plan, qconv_int8_requant,
+        qconv_int8_requant_plain)
+
+    shapes = _qconv_shapes(qgraph, eng8, card, grouped=False)
 
     tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
                          "library_ms", "ms_1x1", "copy_ms"), 0.0)
@@ -1597,24 +1674,31 @@ def _rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def _run_node_cpu(graph, node, x):
-    """One node of `graph` alone, fed x as its first input, through the
-    plain versions on the CPU: its first output."""
+def _node_cpu(graph, node, feeds: dict):
+    """One node of `graph` alone, fed `feeds` (input name -> CPU tensor)
+    for its inputs that are not constants, through the plain versions on
+    the CPU: its first output."""
     import onnx_rusty_inference_engine_tpu_torch as P
     from onnx_rusty_inference_engine_tpu_torch.graph import Graph, InputSpec
     from onnx_rusty_inference_engine_tpu_torch.weights import (
         params_from_numpy)
 
     one = Graph(name="one", nodes=[node], constants=graph.constants,
-                inputs=[InputSpec(node.inputs[0], tuple(x.shape), np.int8)],
+                inputs=[InputSpec(k, tuple(v.shape), np.int8)
+                        for k, v in feeds.items()],
                 outputs=[node.outputs[0]], opset=graph.opset,
                 weight_names=graph.weight_names)
     params = params_from_numpy({k: graph.constants[k]
                                 for k in graph.weight_names
                                 if k in node.inputs}, "cpu")
     with torch.no_grad():
-        return P.lower(one, "cpu")(params, {node.inputs[0]: x})[
-            node.outputs[0]]
+        return P.lower(one, "cpu")(params, feeds)[node.outputs[0]]
+
+
+def _run_node_cpu(graph, node, x):
+    """One node of `graph` alone, fed x as its first input, through the
+    plain versions on the CPU: its first output."""
+    return _node_cpu(graph, node, {node.inputs[0]: x})
 
 
 def _bert_feed(vocab: int) -> dict:
@@ -1777,27 +1861,7 @@ def phase_bert_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
         qmatmul_int8_requant_plain)
 
     n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
-    params = eng8.params
-    shapes = {}
-    for node in qgraph.nodes:
-        if node.op_type != "QLinearMatMul":
-            continue
-        a = card[node.inputs[0]]
-        b = params[node.inputs[3]]
-        key = (a.numel() // a.shape[-1], *b.shape)
-        if key in shapes:
-            shapes[key]["count"] += 1
-            continue
-        mult = (_const(qgraph, params, node.inputs[1]).float()
-                * _const(qgraph, params, node.inputs[4]).float()
-                / _const(qgraph, params, node.inputs[6]).float())
-        shapes[key] = {"node": node.name or node.outputs[0], "count": 1,
-                       "a": a.reshape(key[0], key[1]).contiguous(), "b": b,
-                       "mult": mult, "bias": (params.get(node.inputs[8])
-                                              if len(node.inputs) > 8
-                                              else None),
-                       "out": card[node.outputs[0]].reshape(key[0], key[2]),
-                       "packed": eng8.packed.get(node.inputs[3])}
+    shapes = _qmm_shapes(qgraph, eng8, card)
     require(sum(s["count"] for s in shapes.values()) == n_qmm,
             "the shapes account for every QLinearMatMul")
     tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms",
@@ -1929,6 +1993,7 @@ SERVE_K = 8
 ISOLATED_CHECK = 4         # served requests re-run through a batch-1 Generator
 CNN_BUCKETS = (1, 8, 64, 256)
 CNN_REQS = 120             # InferenceServer requests of 1-8 images
+SERVE_WINDOW_REQS = 1200   # served ResNet-50's rate window: ~21 b256 batches
 
 
 def device_busy(fn, reps: int) -> dict:
@@ -2522,6 +2587,604 @@ def _llama_attention_rows(gen, prompts, counts, counts_i8, smi) -> dict:
     return rows
 
 
+# --------------------------------------------------------------------------
+# Vision families: ResNet-50, MobileNetV2 and ViT-B/16, fp32 and INT8
+# --------------------------------------------------------------------------
+VIT_BATCH = 64             # ViT-B/16; ResNet-50 and MobileNetV2 at BATCH
+
+# model -> (input, output, batch, kernel launches per INT8 forward)
+VISION = {
+    "resnet50": ("data", "logits", BATCH,
+                 {"qconv_int8_requant": 53, "qmatmul_int8": 1}),
+    "mobilenetv2": ("input", "output", BATCH,
+                    {"qconv_int8_requant": 35,
+                     "qconv_grouped_int8_requant": 17, "qmatmul_int8": 1}),
+    "vit": ("pixel_values", "logits", VIT_BATCH,
+            {"qconv_int8_requant": 1, "qmatmul_int8": 73}),
+}
+
+# device kernel name fragment -> bucket, first match wins
+_VISION_BUCKETS = (
+    ("qconv_grouped_int8_requant", "qconv_grouped_int8_requant (grouped)"),
+    ("qconv_int8_requant", "qconv_int8_requant (int8 conv)"),
+    ("qmatmul_int8", "qmatmul_int8 (int8 GEMM)"),
+    ("max_pool", "max-pool"), ("softmax", "softmax"),
+    ("layer_norm", "LayerNorm"), ("reduce", "reductions"),
+    ("conv", "fp32 conv / matmul (cuDNN, cuBLAS)"),
+    ("gemm", "fp32 conv / matmul (cuDNN, cuBLAS)"),
+    ("sm90", "fp32 conv / matmul (cuDNN, cuBLAS)"),
+    ("xmma", "fp32 conv / matmul (cuDNN, cuBLAS)"),
+    ("cutlass", "fp32 conv / matmul (cuDNN, cuBLAS)"),
+    ("elementwise", "elementwise / copies"), ("copy", "elementwise / copies"))
+
+
+def _vision_graph(name: str, batch: int):
+    """The model at 224x224, weights from seed 0. The CNNs declare batch 1
+    and run any batch; ViT-B/16 bakes its batch into Reshape and Expand
+    constants, so it is built at the batch it runs."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models.vit import ViTConfig
+
+    if name == "resnet50":
+        return P.import_model(P.build_resnet50())
+    if name == "mobilenetv2":
+        return P.import_model(P.build_mobilenetv2())
+    return P.import_model(P.build_vit(ViTConfig(), batch=batch))
+
+
+def phase_vision_goldens() -> None:
+    """ResNet-50 at 64x64, MobileNetV2 at 96x96 and ViT TINY, batch 1, fp32
+    on the card against tests/goldens/ at the golden test's tolerance
+    (rtol = atol = 1e-3), on the inputs test_regression_goldens.py::_cases
+    draws."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+    from onnx_rusty_inference_engine_tpu_torch.models.vit import TINY
+
+    rng = np.random.default_rng(123)
+    img64 = rng.standard_normal((1, 3, 64, 64)).astype(np.float32)
+    img96 = rng.standard_normal((1, 3, 96, 96)).astype(np.float32)
+    rng.integers(0, 128, (1, 8))
+    rng.standard_normal((1, 3, 224, 224))  # squeezenet's
+    vit_x = rng.standard_normal(
+        (1, 3, TINY.image_size, TINY.image_size)).astype(np.float32)
+    errs = {}
+    for name, model, feed, out in (
+            ("resnet50", P.build_resnet50(), {"data": img64}, "logits"),
+            ("mobilenetv2", P.build_mobilenetv2(), {"input": img96},
+             "output"),
+            ("vit", P.build_vit(TINY, batch=1), {"pixel_values": vit_x},
+             "logits")):
+        golden = onnx_io.read_tensor_file(
+            os.path.join(HERE, "tests", "goldens", f"{name}.pb")).array
+        got = P.Engine(P.import_model(model)).run(feed)[out]
+        errs[name] = float(np.abs(got - golden).max())
+        require(got.shape == golden.shape
+                and np.allclose(got, golden, rtol=1e-3, atol=1e-3),
+                f"{name} fp32 golden on the card (max abs err "
+                f"{errs[name]})")
+    emit({"phase": "vision_goldens", "rtol": 1e-3, "atol": 1e-3,
+          "max_abs_err": errs,
+          "sizes": {"resnet50": "64x64", "mobilenetv2": "96x96",
+                    "vit": "TINY 32x32"}})
+
+
+def _timed(fn):
+    """(fn()'s result, its device ms): one call between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _vision_conv_lines(model: str, qgraph, eng8, card, forwards: int,
+                       grouped: bool) -> dict:
+    """One kernel line per distinct QLinearConv shape (group 1, or
+    grouped) of `model`'s INT8 forward: the kernel on the card's own input
+    equal to its plain version and to the main path's output, bit for bit;
+    kernel and library times from a replayed CUDA graph, the plain one
+    eager; the card's bound. Returns the sums over one forward."""
+    from torch.nn import functional as F
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8, qconv_int8 as c8)
+
+    if grouped:
+        kname, kern_fn = ("qconv_grouped_int8_requant",
+                          g8.qconv_grouped_int8_requant)
+        plain_fn = g8.qconv_grouped_int8_requant_plain
+    else:
+        kname, kern_fn = "qconv_int8_requant", c8.qconv_int8_requant
+        plain_fn = c8.qconv_int8_requant_plain
+    shapes = _qconv_shapes(qgraph, eng8, card, grouped)
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+                         "library_ms", "ms_same_shapes_as_library"), 0.0)
+    max_err = 0
+    for (xs, ws, stride, padding), s in shapes.items():
+        x, w, mult, bias = s["x"], s["w"], s["mult"], s["bias"]
+
+        def kern():
+            return kern_fn(x, w, mult, bias, stride=stride, padding=padding,
+                           packed=s["packed"])
+
+        got = kern()
+        want, plain_ms = _timed(lambda: plain_fn(
+            x, w, mult, bias, stride=stride, padding=padding))
+        err = int((got.int() - want.int()).abs().max())
+        max_err = max(max_err, err)
+        require(torch.equal(got, want), f"{model} {kname} == plain at "
+                f"{s['node']} x{xs} w{ws} (max |diff| {err})")
+        require(torch.equal(got, s["out"]),
+                f"{model} {kname} line repeats {s['node']}'s output")
+        require(got.is_contiguous(memory_format=torch.channels_last),
+                f"channels-last output at {s['node']}")
+        ms = graph_ms(kern, ITERS)
+        library_ms = library = None
+        (pt, pb), (pl, pr) = padding
+        if grouped and (pt, pl) == (pb, pr):
+            xf = x.float().contiguous(memory_format=torch.channels_last)
+            wf = w.float()
+            groups = xs[1] // ws[1]
+            library = "F.conv2d f32 channels-last, groups=C (not int8)"
+            library_ms = graph_ms(lambda: F.conv2d(
+                xf, wf, stride=stride, padding=(pt, pl), groups=groups),
+                ITERS)
+        elif (not grouped and ws[2:] == (1, 1) and stride == (1, 1)
+              and not any(padding[0] + padding[1]) and xs[1] % 8 == 0
+              and ws[0] % 8 == 0):
+            a = x.permute(0, 2, 3, 1).reshape(-1, xs[1])
+            b = w.reshape(ws[0], ws[1])
+            library = "torch._int_mm (int32 out, no epilogue; 1x1 only)"
+            library_ms = graph_ms(lambda: torch._int_mm(a, b.t()), ITERS)
+        ops, nbytes = _conv_work(x, w, stride, padding)
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     INT8_OPS_PER_S)
+        line = {"phase": "kernel", "kernel": kname, "path": "vision",
+                "model": model, "node": s["node"], "x": list(xs),
+                "w": list(ws), "stride": list(stride),
+                "padding": [list(p) for p in padding],
+                "count_per_forward": s["count"],
+                "launches": s["count"] * forwards, "equal": True,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "library": library,
+                "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+                "bytes": nbytes, "tops": ops / ms / 1e9,
+                "gb_per_s": nbytes / ms / 1e6}
+        if grouped:
+            line["form"] = g8.grouped_mode(xs[1], ws[1], ws[0],
+                                           xs[1] // ws[1])
+        else:
+            line["producer"], line["tile"] = c8.conv_plan(xs, ws, stride,
+                                                          padding)
+        emit(line)
+        n = s["count"]
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("ops_ms", ops_ms),
+                     ("bytes_ms", bytes_ms)):
+            tot[k] += n * v
+        if library_ms is not None:
+            tot["library_ms"] += n * library_ms
+            tot["ms_same_shapes_as_library"] += n * ms
+    return {"per_forward": sum(s["count"] for s in shapes.values()),
+            "distinct_shapes": len(shapes), "max_abs_err": max_err,
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                         else "bytes"),
+            "library_ms": tot["library_ms"] or None,
+            "ms_same_shapes_as_library": tot["ms_same_shapes_as_library"]}
+
+
+def _vision_qmm_lines(model: str, qgraph, eng8, card, forwards: int
+                      ) -> dict:
+    """One kernel line per distinct QLinearMatMul shape of `model`'s INT8
+    forward, on its requant epilogue (the main path), as
+    _vision_conv_lines does for the convs."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qmatmul_int8 import (
+        int8_tile, qmatmul_int8_requant, qmatmul_int8_requant_plain)
+
+    shapes = _qmm_shapes(qgraph, eng8, card)
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms",
+                         "ops_ms", "bytes_ms"), 0.0)
+    for (M, K, N), s in shapes.items():
+        a, b, mult, bias = s["a"], s["b"], s["mult"], s["bias"]
+
+        def kern():
+            return qmatmul_int8_requant(a, b, mult, bias, packed=s["packed"])
+
+        got = kern()
+        want, plain_ms = _timed(lambda: qmatmul_int8_requant_plain(
+            a, b, mult, bias))
+        err = int((got.int() - want.int()).abs().max())
+        require(torch.equal(got, want), f"{model} qmatmul_int8 == plain at "
+                f"{s['node']} M={M} K={K} N={N} (max |diff| {err})")
+        require(torch.equal(got, s["out"]),
+                f"{model} qmatmul_int8 line repeats {s['node']}'s output")
+        ms = graph_ms(kern, ITERS)
+        bt = b.t().contiguous()
+        library_ms = graph_ms(lambda: torch._int_mm(a, bt.t()), ITERS)
+        ops, nbytes = 2 * M * N * K, M * K + K * N + M * N + 8 * N
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     INT8_OPS_PER_S)
+        emit({"phase": "kernel", "kernel": "qmatmul_int8", "path": "vision",
+              "model": model, "epilogue": "requant", "node": s["node"],
+              "M": M, "K": K, "N": N, "tile": list(int8_tile(M, N, K)),
+              "count_per_forward": s["count"],
+              "launches": s["count"] * forwards, "equal": True,
+              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "library": "torch._int_mm (int32 out, no epilogue)",
+              "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+              "bytes": nbytes, "tops": ops / ms / 1e9,
+              "gb_per_s": nbytes / ms / 1e6})
+        n = s["count"]
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("library_ms", library_ms),
+                     ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+            tot[k] += n * v
+    return {"per_forward": sum(s["count"] for s in shapes.values()),
+            "distinct_shapes": len(shapes), "max_abs_err": 0,
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                         else "bytes"),
+            "library_ms": tot["library_ms"]}
+
+
+def _predicted_splits(qgraph, eng8, card) -> dict:
+    """The per-variant launches one INT8 forward should make, from the
+    shapes: each group-1 conv's producer (`conv_plan`), each grouped
+    conv's form (`grouped_mode`), every QLinearMatMul on the requant
+    epilogue (the quantizer's y_zero_point is 0 and its bias int32)."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8, qconv_int8 as c8, qmatmul_int8 as q8)
+
+    producers = dict.fromkeys(c8.PRODUCERS, 0)
+    forms = dict.fromkeys(g8.MODES, 0)
+    for node in qgraph.nodes:
+        if node.op_type != "QLinearConv":
+            continue
+        x, w = card[node.inputs[0]], eng8.params[node.inputs[3]]
+        stride, padding = _qconv_geometry(node, x, w)
+        group = int(node.attr("group", 1))
+        if group == 1:
+            producers[c8.conv_plan(x.shape, w.shape, stride, padding)[0]] += 1
+        else:
+            forms[g8.grouped_mode(x.shape[1], w.shape[1], w.shape[0],
+                                  group)] += 1
+    n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
+    out = {"qconv_int8_requant": {"producers": producers},
+           "qmatmul_int8": {"epilogues": {**dict.fromkeys(q8.EPILOGUES, 0),
+                                          "requant": n_qmm}}}
+    if any(forms.values()):
+        out["qconv_grouped_int8_requant"] = {"schedules": forms}
+    return out
+
+
+def phase_vision_model(name: str, smi: str):
+    """One vision model at 224x224 through the port's entry points: fp32
+    Engine, calibrate on x[:8], quantize_graph, INT8 Engine (each forward
+    a captured graph). Counts set to 0 just before, read just after: the
+    exact launches per INT8 forward, per producer, form and epilogue as
+    the shapes predict. Then every QLinearConv and QLinearMatMul shape
+    bit for bit on the card's own inputs, every QLinearAdd against its
+    plain re-run on the CPU, INT8 against fp32 within the JAX tests'
+    bounds, the layouts, images/s and the profile. Returns (the kernel
+    rows' sums for this model, the INT8 Engine)."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+
+    inp, out, B, per_forward = VISION[name]
+    t0 = time.perf_counter()
+    graph = _vision_graph(name, B)
+    calib_graph = _vision_graph(name, CALIB) if name == "vit" else graph
+    build_s = time.perf_counter() - t0
+    x = np.random.default_rng(0).standard_normal(
+        (B, 3, 224, 224)).astype(np.float32)
+    feed = {inp: x}
+    dev_feed = {inp: torch.as_tensor(x, device="cuda")}
+
+    # the main path
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = P.Engine(graph)
+    y32 = eng(feed)[out]
+    fp32_ms = cuda_ms(lambda: eng(dev_feed), ITERS, WARMUP)
+    ranges = P.calibrate(calib_graph, [{inp: x[:CALIB]}])
+    qgraph = P.quantize_graph(graph, ranges=ranges)
+    eng8 = P.Engine(qgraph)
+    y8 = eng8(feed)[out]
+    int8_ms = cuda_ms(lambda: eng8(dev_feed), ITERS, WARMUP)
+    counts = read_counts()
+    splits = {k: read_splits(k) for k in per_forward}
+    main_s = time.perf_counter() - t0
+    forwards = 1 + WARMUP + ITERS
+
+    ops = {}
+    for n in qgraph.nodes:
+        key = n.op_type
+        if key == "QLinearConv" and int(n.attr("group", 1)) > 1:
+            key = "QLinearConv (grouped)"
+        ops[key] = ops.get(key, 0) + 1
+    require(ops.get("QLinearConv", 0)
+            == per_forward["qconv_int8_requant"]
+            and ops.get("QLinearConv (grouped)", 0)
+            == per_forward.get("qconv_grouped_int8_requant", 0)
+            and ops.get("QLinearMatMul", 0) == per_forward["qmatmul_int8"],
+            f"{name}: QLinear nodes {ops}")
+    require({k: v for k, v in counts.items() if v}
+            == {k: n * forwards for k, n in per_forward.items()},
+            f"{name}: {per_forward} launches per INT8 forward over "
+            f"{forwards} forwards: {counts}")
+    for t, shape in ((y32, (B, 1000)), (y8, (B, 1000))):
+        require(tuple(t.shape) == shape and bool(torch.isfinite(t).all()),
+                f"{name}: output {tuple(t.shape)}")
+
+    # every QLinear node's operands on the card (the CNNs: every value)
+    qnodes = [n for n in qgraph.nodes if n.op_type.startswith("QLinear")]
+    names = None if name != "vit" else list(dict.fromkeys(
+        t for n in qnodes for t in (n.inputs[0], n.outputs[0])))
+    probe = probe_graph(qgraph, names)
+    with torch.no_grad():
+        card = P.lower(probe, "cuda", eng8.packed)(eng8.params, dev_feed)
+    predicted = _predicted_splits(qgraph, eng8, card)
+    require(splits == {k: {s: {v: n * forwards for v, n in d.items()}
+                           for s, d in sp.items()}
+                       for k, sp in predicted.items()},
+            f"{name}: per-variant launches {splits} against the shapes' "
+            f"{predicted} x {forwards}")
+    layouts = _layouts(probe, card)
+    for op in ("QLinearConv", "QLinearAdd"):
+        row = layouts.get(op)
+        require(row is None or row["channels_last"] == row["outputs"],
+                f"{name}: every {op} leaves channels-last: {layouts}")
+
+    # each QLinearAdd, fed the card's own int8 inputs, re-run through the
+    # plain path on the CPU for the first CPU_CHECK images
+    adds = [n for n in qgraph.nodes if n.op_type == "QLinearAdd"]
+    differ = [n.name for n in adds if not torch.equal(
+        _node_cpu(qgraph, n, {i: card[i][:CPU_CHECK].cpu()
+                              for i in (n.inputs[0], n.inputs[3])}),
+        card[n.outputs[0]][:CPU_CHECK].cpu())]
+    require(not differ, f"{name}: QLinearAdd card vs plain: {differ}")
+
+    rows = {"qconv_int8_requant": _vision_conv_lines(
+        name, qgraph, eng8, card, forwards, grouped=False),
+        "qmatmul_int8": _vision_qmm_lines(name, qgraph, eng8, card,
+                                          forwards)}
+    if "qconv_grouped_int8_requant" in per_forward:
+        rows["qconv_grouped_int8_requant"] = _vision_conv_lines(
+            name, qgraph, eng8, card, forwards, grouped=True)
+    for k, row in rows.items():
+        row["launches"] = counts[k]
+    del card
+
+    # INT8 against fp32, at the JAX tests' bounds
+    y32f, y8f = y32.float(), y8.float()
+    top1 = float((y8f.argmax(1) == y32f.argmax(1)).float().mean())
+    max_abs = float((y8f - y32f).abs().max())
+    rel = max_abs / float(y32f.abs().max())
+    corr = float(torch.corrcoef(torch.stack([y32f.ravel(),
+                                             y8f.ravel()]))[0, 1])
+    if name == "resnet50":
+        ok, bound_s = top1 == 1.0 or rel < 0.1, "top-1 equal or rel < 0.1"
+    elif name == "mobilenetv2":
+        ok, bound_s = top1 == 1.0 or max_abs < 0.15, \
+            "top-1 equal or max |d| < 0.15"
+    else:
+        ok, bound_s = corr > 0.95, "correlation > 0.95"
+    with torch.no_grad():
+        replay = device_busy(lambda: eng8(dev_feed), 5)
+    emit({"phase": "vision", "model": name, "size": "224x224", "batch": B,
+          "build_s": build_s, "main_path_s": main_s,
+          "fp32_images_per_s": B / fp32_ms * 1e3,
+          "int8_images_per_s": B / int8_ms * 1e3,
+          "int8_over_fp32": fp32_ms / int8_ms,
+          "qlinear_nodes": ops, "int8_forwards": forwards,
+          "launches": {k: v for k, v in counts.items() if v},
+          "launches_per_int8_forward": per_forward, "splits": splits,
+          "qlinearadd_card_vs_plain_equal": len(adds),
+          "int8_vs_fp32": {"top1_agreement": top1, "max_abs": max_abs,
+                           "max_abs_over_max_ref": rel,
+                           "correlation": corr, "bound": bound_s},
+          "int8_replay": replay, "layout_by_op": layouts, "card": smi})
+    require(ok, f"{name}: INT8 against fp32 ({bound_s}): top-1 {top1}, "
+            f"max |d| {max_abs}, rel {rel}, corr {corr}")
+    phase_profile(eng, eng8, feed, model=f"{name} ", batch=B,
+                  buckets_by=_VISION_BUCKETS, glue_op="QLinearAdd")
+    return rows, eng8
+
+
+def phase_serve_resnet(eng8, smi: str) -> None:
+    """InferenceServer on ResNet-50 INT8 at 224x224, buckets 1/8/64/256,
+    CNN_REQS requests of 1-8 images: each response equal to a direct
+    eager Engine call on the same images within rtol = atol = 1e-3
+    (tests/test_resnet.py's tolerance); 53 convs and 1 GEMM per served
+    batch. Then, for information, the served rate over a window of
+    SERVE_WINDOW_REQS requests of the same mix (images reused from the
+    checked run), queued before the dispatcher starts: images/s and the
+    p50/p99 latency of that backlog, padding overhead, batches. The
+    checked run's own rate covers a few batches and start-up; it is kept
+    as a smoke figure."""
+    from onnx_rusty_inference_engine_tpu_torch.serve import InferenceServer
+
+    rng = np.random.default_rng(0)
+    srv = InferenceServer(eng8, batch_buckets=CNN_BUCKETS,
+                          max_delay_s=0.002, autostart=False)
+    t0 = time.perf_counter()
+    srv.warmup((3, 224, 224))
+    warm_s = time.perf_counter() - t0
+    require(len(eng8._graphs) == len(CNN_BUCKETS),
+            f"warmup captured every bucket: {len(eng8._graphs)}")
+    sizes = rng.integers(1, 9, CNN_REQS)
+    images = [rng.standard_normal((int(n), 3, 224, 224)).astype(np.float32)
+              for n in sizes]
+    reset_counts()
+    srv.start()
+    t0 = time.perf_counter()
+    futs = [srv.submit(x) for x in images]
+    outs = [f.result(timeout=600)["logits"] for f in futs]
+    wall = time.perf_counter() - t0
+    srv.stop()
+    counts = read_counts()
+    summary = srv.stats.summary()
+    batches = summary["batches"]
+    require({k: v for k, v in counts.items() if v}
+            == {"qconv_int8_requant": 53 * batches, "qmatmul_int8": batches},
+            f"53 convs and 1 GEMM per served batch ({batches}): {counts}")
+    worst = 0.0
+    with torch.no_grad():
+        for x, o in zip(images, outs):
+            want = eng8.forward({"data": torch.as_tensor(
+                x, device="cuda")})["logits"].cpu().numpy()
+            worst = max(worst, float(np.abs(o - want).max()))
+            require(o.shape == want.shape
+                    and np.allclose(o, want, rtol=1e-3, atol=1e-3),
+                    "served ResNet-50 INT8 equals the Engine's call")
+    win = InferenceServer(eng8, batch_buckets=CNN_BUCKETS,
+                          max_delay_s=0.002, autostart=False)
+    picks = [images[i % CNN_REQS] for i in range(SERVE_WINDOW_REQS)]
+    win_futs = [win.submit(x) for x in picks]
+    t0 = time.perf_counter()
+    win.start()
+    for f in win_futs:
+        f.result(timeout=600)
+    win_wall = time.perf_counter() - t0
+    win.stop()
+    ws = win.stats.summary()
+    win_images = sum(len(x) for x in picks)
+    emit({"phase": "serve", "server": "InferenceServer",
+          "model": "resnet50 int8 224x224", "buckets": CNN_BUCKETS,
+          "requests": CNN_REQS, "images": int(sizes.sum()),
+          "batches": batches, "results_equal_engine_rtol_1e-3": True,
+          "max_abs_diff_vs_engine": worst, "warmup_s": warm_s,
+          "smoke_images_per_s": int(sizes.sum()) / wall,
+          "smoke_wall_s": wall,
+          "smoke_p50_latency_s": summary["p50_latency_s"],
+          "smoke_p99_latency_s": summary["p99_latency_s"],
+          "window": {"requests": SERVE_WINDOW_REQS, "images": win_images,
+                     "batches": ws["batches"],
+                     "images_per_s": win_images / win_wall,
+                     "wall_s": win_wall,
+                     "p50_latency_s": ws["p50_latency_s"],
+                     "p99_latency_s": ws["p99_latency_s"],
+                     "padding_overhead": ws["padding_overhead"]},
+          "launches": counts, "card": smi})
+
+
+def _cli(*args: str) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", f"{PKG}.cli", *args],
+                            cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc: subprocess.Popen, timeout: int = 600):
+    """(exit code, stdout, stderr) of a CLI subprocess; killed past
+    `timeout` seconds."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err
+
+
+def phase_vision_cli(smi: str) -> None:
+    """The CLI on the card, as subprocesses of
+    `python -m onnx_rusty_inference_engine_tpu_torch.cli`: `run` on
+    ResNet-50 with resnet50.pb's golden case (files written to a
+    temporary directory) must print its golden MATCH line at the golden
+    test's tolerance and exit 0; `inspect` must find no unsupported op in
+    ResNet-50, MobileNetV2 and ViT (TINY: the op set of ViT-B/16);
+    `bench --quantize int8 --batch 256` on the 224x224 ResNet-50."""
+    import tempfile
+
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+    from onnx_rusty_inference_engine_tpu_torch.models.vit import TINY
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        paths = {m: os.path.join(d, f"{m}.onnx")
+                 for m in ("resnet50", "mobilenetv2", "vit_tiny")}
+        onnx_io.save_model(paths["resnet50"], P.build_resnet50())
+        onnx_io.save_model(paths["mobilenetv2"], P.build_mobilenetv2())
+        onnx_io.save_model(paths["vit_tiny"], P.build_vit(TINY, batch=1))
+        x = np.random.default_rng(123).standard_normal((1, 3, 64, 64))
+        onnx_io.write_tensor_file(os.path.join(d, "in.pb"), "data",
+                                  x.astype(np.float32))
+        golden = onnx_io.read_tensor_file(
+            os.path.join(HERE, "tests", "goldens", "resnet50.pb"))
+        onnx_io.write_tensor_file(os.path.join(d, "out.pb"), golden.name,
+                                  golden.array)
+        procs = {"run": _cli("run", "--model", paths["resnet50"], "--input",
+                             os.path.join(d, "in.pb"), "--golden",
+                             os.path.join(d, "out.pb"), "--rtol", "1e-3",
+                             "--atol", "1e-3")}
+        procs.update({f"inspect_{m}": _cli("inspect", "--model", p)
+                      for m, p in paths.items()})
+        res = {k: _finish(p) for k, p in procs.items()}
+        res["bench"] = _finish(_cli(
+            "bench", "--model", paths["resnet50"], "--quantize", "int8",
+            "--batch", str(BATCH), "--steps", str(ITERS)))
+    for k, (rc, out, err) in res.items():
+        require(rc == 0, f"cli {k} exited {rc}: {err[-2000:]}")
+    golden_line = res["run"][1].strip().splitlines()[-1]
+    require(golden_line.startswith("golden: MATCH"),
+            f"cli run: {golden_line}")
+    inspected = {k: json.loads(out) for k, (_, out, _) in res.items()
+                 if k.startswith("inspect_")}
+    for k, body in inspected.items():
+        require(body["unsupported_ops"] == [],
+                f"cli {k}: unsupported {body['unsupported_ops']}")
+    bench = json.loads(res["bench"][1].strip().splitlines()[-1])
+    require(bench["device"] == torch.cuda.get_device_name(0)
+            and bench["images_per_sec"] > 0, f"cli bench: {bench}")
+    emit({"phase": "cli", "run": golden_line,
+          "inspect": {k: {"n_nodes": b["n_nodes"],
+                          "unsupported_ops": b["unsupported_ops"]}
+                      for k, b in inspected.items()},
+          "bench": bench, "seconds": time.perf_counter() - t0, "card": smi})
+
+
+def phase_vision(smi: str):
+    """The vision slice: goldens, the three models, served ResNet-50 INT8,
+    the CLI. Returns (each int8 kernel's sums by model, for the kernels
+    line's `vision_path`; the grouped conv's row)."""
+    t0 = time.perf_counter()
+    phase_vision_goldens()
+    paths = {}
+    for name in VISION:
+        rows, eng8 = phase_vision_model(name, smi)
+        for k, v in rows.items():
+            paths.setdefault(k, {})[name] = v
+        if name == "resnet50":
+            phase_serve_resnet(eng8, smi)
+        del eng8, rows
+        torch.cuda.empty_cache()
+    phase_vision_cli(smi)
+    emit({"phase": "vision_done", "seconds": time.perf_counter() - t0})
+    g = paths.pop("qconv_grouped_int8_requant")["mobilenetv2"]
+    source, replaces = KERNEL_ROWS["qconv_grouped_int8_requant"]
+    grouped = {
+        "name": "qconv_grouped_int8_requant", "route": "cuda",
+        "source": source, "replaces": replaces, "launches": g["launches"],
+        "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "library": "F.conv2d f32 channels-last, groups=C: an f32 conv, "
+                   "not an int8 one (no PyTorch call takes int8 here)",
+        "per": "one INT8 MobileNetV2 forward at 224x224, b256: ms, "
+               "plain_ms, bound_ms and library_ms sum its 17 depthwise "
+               "convs; ms and library_ms are device times (CUDA-graph "
+               "replay), plain_ms one eager call",
+        "distinct_shapes": g["distinct_shapes"], "card": smi}
+    return paths, grouped
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -2579,6 +3242,11 @@ def main() -> int:
             for row in rows:
                 if row["name"] in llama:
                     row["llama_path"] = llama[row["name"]]
+            vision, grouped = phase_vision(smi)
+            for row in rows:
+                if row["name"] in vision:
+                    row["vision_path"] = vision[row["name"]]
+            rows.insert(1, grouped)
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]

@@ -1,0 +1,476 @@
+"""Command-line interface: the port's copy of
+onnx_rusty_inference_engine_tpu/cli.py.
+
+    python -m onnx_rusty_inference_engine_tpu_torch.cli run --model m.onnx
+        --input in.pb [--golden out.pb] [--batch N] [--quantize int8]
+    ... bench --model m.onnx [--batch 64] [--steps 100] [--quantize int8]
+    ... inspect --model m.onnx
+    ... quantize --model m.onnx --out q.onnx [--calib-input in.pb]
+    ... generate [--family gpt2|llama] [--int4] [--kv-dtype int8] ...
+    ... serve --model m.onnx [--port 8000]          (POST /v1/infer)
+    ... serve-llm [--family gpt2|llama] [--port 8001] (POST /v1/generate)
+
+The subcommands take the JAX CLI's flags and print its JSON. The port adds
+`--device` (default "cuda": the card, which raises where there is none;
+"cpu" runs on the CPU): the JAX package picks its platform from the
+environment, the port is told. `bench` reports the device by name
+(`torch.cuda.get_device_name()`, or "cpu"). A flag whose machinery the port
+lacks exits with code 2 and names the ROADMAP item that ports it. `profile`,
+`export` and `run-exported` are not ported yet (ROADMAP 1.11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+
+def _split_input_spec(spec: str):
+    """--input accepts "path.pb" or "name=path.pb". A plain path may itself
+    contain '=' (runs/lr=0.1/x.pb), so only split when the whole string is
+    not an existing file."""
+    if "=" in spec and not os.path.exists(spec):
+        name, _, path = spec.partition("=")
+        return name, path
+    return "", spec
+
+
+def _unported(args) -> List[Tuple[str, str]]:
+    """(flag as given, ROADMAP item) for every flag of this command whose
+    machinery the port does not have yet."""
+    checks = (
+        ("--dtype bfloat16", "1.2/1.6",
+         getattr(args, "dtype", "float32") != "float32"),
+        ("--quantize w8a8", "1.6", getattr(args, "quantize", None) == "w8a8"),
+        ("--bias-correct", "1.4", getattr(args, "bias_correct", False)),
+        ("--calibration mse", "1.4",
+         getattr(args, "calibration", None) == "mse"),
+        ("--draft-layers", "1.9/1.10b",
+         bool(getattr(args, "draft_layers", 0))),
+        (f"--spec-k {getattr(args, 'spec_k', 4)}", "1.9/1.10b",
+         getattr(args, "spec_k", 4) != 4),
+        (f"--prefill-dtype {getattr(args, 'prefill_dtype', '')}", "1.6",
+         getattr(args, "prefill_dtype", "float32") != "float32"),
+        (f"--family {getattr(args, 'family', '')}", "1.8",
+         getattr(args, "family", "gpt2") in ("moe", "t5", "asr")),
+        ("--beam", "1.9", getattr(args, "beam", 1) > 1),
+        ("--adapters", "1.8", bool(getattr(args, "adapters", 0))),
+        ("--adapter", "1.8", bool(getattr(args, "adapter", 0))),
+        (f"--lora-rank {getattr(args, 'lora_rank', 8)}", "1.8",
+         getattr(args, "lora_rank", 8) != 8),
+        ("--dump-stats / --dump-tensors", "1.11",
+         bool(getattr(args, "dump_stats", False)
+              or getattr(args, "dump_tensors", None))),
+    )
+    return [(flag, item) for flag, item, on in checks if on]
+
+
+def _read_feed(specs, graph) -> dict:
+    from . import onnx_io
+
+    feed = {}
+    for spec_str in specs:
+        name, path = _split_input_spec(spec_str)
+        t = onnx_io.read_tensor_file(path)
+        feed[name or t.name or graph.input_names[len(feed)]] = t.array
+    return feed
+
+
+def _build_engine(args, graph=None):
+    from .engine import Engine
+    from .graph import import_onnx
+
+    graph = graph or import_onnx(args.model)
+    if getattr(args, "quantize", None) == "int8":
+        from .quant import quantize_graph
+
+        calib = None
+        inp = getattr(args, "input", None)
+        if inp:
+            calib = [_read_feed(inp if isinstance(inp, list) else [inp],
+                                graph)]
+        graph = quantize_graph(graph, calibration_inputs=calib,
+                               device=args.device)
+    return Engine(graph, dtype=getattr(args, "dtype", "float32"),
+                  device=args.device)
+
+
+def cmd_run(args) -> int:
+    from . import onnx_io
+    from .graph import import_onnx
+
+    graph = import_onnx(args.model)
+    engine = _build_engine(args, graph)
+    feed = {}
+    for spec_str in args.input:
+        name, path = _split_input_spec(spec_str)
+        t = onnx_io.read_tensor_file(path)
+        key = name or args.input_name or t.name or graph.input_names[
+            len(feed)]
+        x = t.array
+        if args.batch and args.batch > 1:
+            x = np.repeat(x, args.batch, axis=0)
+        feed[key] = x
+
+    if args.log_ops:
+        for i, n in enumerate(graph.nodes):
+            print(f"[node {i:3d}] {n.op_type:20s} {n.name} "
+                  f"{n.inputs} -> {n.outputs}", file=sys.stderr)
+
+    res = engine.run(feed)
+    print(json.dumps({
+        "outputs": {k: v.reshape(v.shape[0], -1)[:, :16].tolist()
+                    for k, v in res.outputs.items()},
+        "output_shapes": {k: list(v.shape) for k, v in res.outputs.items()},
+        "top1": res.top1().tolist(),
+        "latency_s": res.latency_s,
+    }, indent=2))
+
+    if args.golden:
+        g = onnx_io.read_tensor_file(args.golden)
+        out_name = g.name if g.name in res.outputs else next(iter(res.outputs))
+        got = res.outputs[out_name][:1].reshape(g.array.shape)
+        ok = np.allclose(got, g.array, rtol=args.rtol, atol=args.atol)
+        err = float(np.max(np.abs(got - g.array)))
+        print(f"golden: {'MATCH' if ok else 'MISMATCH'} "
+              f"(max_abs_err={err:.3e})")
+        return 0 if ok else 1
+    return 0
+
+
+def _throughput(engine, feed: dict, steps: int) -> Tuple[float, str]:
+    """(examples/s, device name): on the card from CUDA events over warmed,
+    device-resident forwards; on the CPU, when asked for, by the host
+    clock."""
+    import torch
+
+    if engine.device.type == "cuda":
+        from .utils.timing import engine_throughput
+
+        return (engine_throughput(engine, feed, iters=steps),
+                torch.cuda.get_device_name(engine.device))
+    engine(feed)  # warm up
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine(feed)
+    sec = (time.perf_counter() - t0) / steps
+    return int(next(iter(feed.values())).shape[0]) / sec, "cpu"
+
+
+def cmd_bench(args) -> int:
+    from .graph import import_onnx
+
+    graph = import_onnx(args.model)
+    engine = _build_engine(args, graph)
+    spec = graph.inputs[0]
+    shape = list(spec.concrete_shape(batch=args.batch))
+    # the leading dim is the batch even where the file declares a static 1
+    # (the JAX CLI keeps the 1 and reports --batch: cli.py:127-142)
+    shape[0] = args.batch
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(spec.dtype)
+    ips, device = _throughput(engine, {spec.name: x}, args.steps)
+    print(json.dumps({
+        "model": args.model,
+        "batch": args.batch,
+        "quantize": args.quantize,
+        "images_per_sec": round(ips, 2),
+        "latency_s_per_batch": round(args.batch / ips, 6),
+        "steps": args.steps,
+        "device": device,
+    }))
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    from .graph import import_onnx
+    from .ops.registry import supported_ops
+
+    graph = import_onnx(args.model)
+    counts = {}
+    for n in graph.nodes:
+        counts[n.op_type] = counts.get(n.op_type, 0) + 1
+    # Shape and Size need no emitter: the engine knows them from the shapes
+    have = set(supported_ops()) | {"Shape", "Size"}
+    print(json.dumps({
+        "name": graph.name,
+        "opset": graph.opset,
+        "n_nodes": len(graph.nodes),
+        "op_histogram": counts,
+        "inputs": [{"name": i.name, "shape": list(i.shape),
+                    "dtype": str(i.dtype)} for i in graph.inputs],
+        "outputs": graph.outputs,
+        "n_weights": len(graph.weight_names),
+        "weight_bytes": int(sum(graph.constants[w].nbytes
+                                for w in graph.weight_names)),
+        "unsupported_ops": sorted(set(counts) - have),
+    }, indent=2))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from .http_serve import serve_http
+
+    engine = _build_engine(args)
+    print(f"serving on :{args.port} (POST /v1/infer)", file=sys.stderr)
+    serve_http(engine, port=args.port)
+    return 0
+
+
+def cmd_quantize(args) -> int:
+    from . import onnx_io
+    from .graph import import_onnx, save_graph
+    from .quant import QuantConfig, quantize_graph
+
+    graph = import_onnx(args.model)
+    calib = None
+    if args.calib_input:
+        t = onnx_io.read_tensor_file(args.calib_input)
+        calib = [{t.name or graph.input_names[0]: t.array}]
+    qgraph = quantize_graph(
+        graph, calibration_inputs=calib,
+        config=QuantConfig(calibration=args.calibration,
+                           percentile=args.percentile),
+        device=args.device)
+    save_graph(args.out, qgraph)
+    n_q = sum(1 for n in qgraph.nodes if n.op_type.startswith("QLinear"))
+    print(json.dumps({"out": args.out, "qlinear_nodes": n_q,
+                      "total_nodes": len(qgraph.nodes)}))
+    return 0
+
+
+def _decoder_config(args):
+    if args.family == "gpt2":
+        from .models.gpt2 import GPT2Config
+
+        return GPT2Config(vocab_size=args.vocab, n_positions=args.max_len,
+                          n_embd=args.d, n_layer=args.layers,
+                          n_head=args.heads)
+    from .models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=args.vocab, max_positions=args.max_len,
+                       dim=args.d, n_layer=args.layers, n_head=args.heads,
+                       n_kv_head=max(1, args.heads // 2))
+
+
+def cmd_generate(args) -> int:
+    from .generate import Generator
+
+    cfg = _decoder_config(args)
+    ids = np.asarray([int(t) for t in args.prompt_ids.split(",")],
+                     dtype=np.int64)[None]
+    gen = Generator(cfg, batch=1, prompt_len=ids.shape[1],
+                    max_len=args.max_len, kv_dtype=args.kv_dtype,
+                    int4_weights=args.int4, family=args.family,
+                    device_loop=args.device_loop, device=args.device)
+    toks, _ = gen.generate(ids, args.new)
+    print(json.dumps({"family": args.family, "prompt": ids[0].tolist(),
+                      "generated": toks[0].tolist(),
+                      "kv_dtype": args.kv_dtype, "int4": args.int4}))
+    return 0
+
+
+def cmd_serve_llm(args) -> int:
+    from .http_serve import serve_generate_http
+    from .serving import DecodeServer
+
+    cfg = _decoder_config(args)
+    lb = ([int(x) for x in args.len_buckets.split(",")]
+          if args.len_buckets else None)
+    srv = DecodeServer(cfg, slots=args.slots, prompt_len=args.prompt_len,
+                       max_len=args.max_len, kv_dtype=args.kv_dtype,
+                       int4_weights=args.int4, family=args.family,
+                       multi_step=args.multi_step,
+                       prompt_cache=args.prompt_cache, len_buckets=lb,
+                       device=args.device)
+    if args.step_timeout > 0:
+        srv.step_timeout = args.step_timeout   # armed by the dispatcher
+    print(f"serving on :{args.port} (POST /v1/generate)", file=sys.stderr)
+    serve_generate_http(srv, port=args.port)
+    return 0
+
+
+def _device_flag(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help='where to run: "cuda" (default; raises without a '
+                        'CUDA device) or "cpu"')
+
+
+def main(argv: Optional[list] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m onnx_rusty_inference_engine_tpu_torch.cli",
+        description="ONNX inference in PyTorch on an NVIDIA H100 (the "
+                    "PyTorch port)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pr = sub.add_parser("run", help="run a model on a TensorProto input")
+    pr.add_argument("--model", required=True)
+    pr.add_argument("--input", required=True, action="append",
+                    help="TensorProto .pb; repeatable, optionally name=path")
+    pr.add_argument("--golden")
+    pr.add_argument("--input-name", dest="input_name")
+    pr.add_argument("--batch", type=int, default=1)
+    pr.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    pr.add_argument("--quantize", choices=["int8", "w8a8"])
+    pr.add_argument("--rtol", type=float, default=1e-4)
+    pr.add_argument("--atol", type=float, default=1e-3)
+    pr.add_argument("--log-ops", action="store_true",
+                    help="per-node log (parity with reference debug_prints)")
+    pr.add_argument("--dump-stats", action="store_true",
+                    help="not ported yet (ROADMAP 1.11)")
+    pr.add_argument("--dump-tensors", metavar="OUT.npz",
+                    help="not ported yet (ROADMAP 1.11)")
+    _device_flag(pr)
+    pr.set_defaults(fn=cmd_run)
+
+    pb = sub.add_parser("bench", help="throughput benchmark")
+    pb.add_argument("--model", required=True)
+    pb.add_argument("--batch", type=int, default=64)
+    pb.add_argument("--steps", type=int, default=100)
+    pb.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    pb.add_argument("--quantize", choices=["int8", "w8a8"])
+    pb.add_argument("--input")
+    _device_flag(pb)
+    pb.set_defaults(fn=cmd_bench)
+
+    pi = sub.add_parser("inspect", help="print graph summary")
+    pi.add_argument("--model", required=True)
+    pi.set_defaults(fn=cmd_inspect)
+
+    ps = sub.add_parser("serve", help="HTTP inference server "
+                                      "(continuous batching)")
+    ps.add_argument("--model", required=True)
+    ps.add_argument("--port", type=int, default=8000)
+    ps.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ps.add_argument("--quantize", choices=["int8", "w8a8"])
+    ps.add_argument("--input")
+    _device_flag(ps)
+    ps.set_defaults(fn=cmd_serve)
+
+    pg = sub.add_parser("generate",
+                        help="greedy decode with a decoder family "
+                             "(seeded weights; fixed-cache decode graph)")
+    pg.add_argument("--prompt-ids", default="1,2,3,4",
+                    help="comma-separated token ids")
+    pg.add_argument("--new", type=int, default=8)
+    pg.add_argument("--layers", type=int, default=2)
+    pg.add_argument("--d", type=int, default=64)
+    pg.add_argument("--heads", type=int, default=4)
+    pg.add_argument("--vocab", type=int, default=256)
+    pg.add_argument("--max-len", dest="max_len", type=int, default=64)
+    pg.add_argument("--kv-dtype", dest="kv_dtype", default="float32",
+                    choices=["float32", "int8", "int4"],
+                    help="KV cache dtype: int8 = in-graph QDQ; int4 = "
+                         "nibble-packed [B,H,L,hd/2] cache")
+    pg.add_argument("--int4", action="store_true",
+                    help="INT4 weight-only quantization")
+    pg.add_argument("--prefill-dtype", dest="prefill_dtype",
+                    default="float32",
+                    choices=["float32", "bfloat16", "w8a8"],
+                    help="prefill compute scheme; only float32 is ported")
+    pg.add_argument("--family", default="gpt2",
+                    choices=["gpt2", "llama", "moe", "t5", "asr"])
+    pg.add_argument("--draft-layers", dest="draft_layers", type=int,
+                    default=0, help="not ported yet (ROADMAP 1.9)")
+    pg.add_argument("--device-loop", dest="device_loop", type=int,
+                    default=0, metavar="K",
+                    help="run K decode steps per dispatch as one replayed "
+                         "CUDA graph, sampling on the device")
+    pg.add_argument("--spec-k", dest="spec_k", type=int, default=4,
+                    help="not ported yet (ROADMAP 1.9/1.10b)")
+    pg.add_argument("--beam", type=int, default=1, metavar="K",
+                    help="not ported yet (ROADMAP 1.9)")
+    pg.add_argument("--adapters", type=int, default=0, metavar="N",
+                    help="not ported yet (ROADMAP 1.8)")
+    pg.add_argument("--adapter", type=int, default=0,
+                    help="not ported yet (ROADMAP 1.8)")
+    pg.add_argument("--lora-rank", dest="lora_rank", type=int, default=8,
+                    help="not ported yet (ROADMAP 1.8)")
+    _device_flag(pg)
+    pg.set_defaults(fn=cmd_generate)
+
+    psl = sub.add_parser("serve-llm",
+                         help="HTTP generation server over the "
+                              "continuous-batching slot pool")
+    psl.add_argument("--port", type=int, default=8001)
+    psl.add_argument("--slots", type=int, default=4)
+    psl.add_argument("--prompt-len", dest="prompt_len", type=int, default=32)
+    psl.add_argument("--layers", type=int, default=2)
+    psl.add_argument("--d", type=int, default=64)
+    psl.add_argument("--heads", type=int, default=4)
+    psl.add_argument("--vocab", type=int, default=256)
+    psl.add_argument("--max-len", dest="max_len", type=int, default=128)
+    psl.add_argument("--kv-dtype", dest="kv_dtype", default="float32",
+                     choices=["float32", "int8", "int4"])
+    psl.add_argument("--int4", action="store_true")
+    psl.add_argument("--prefill-dtype", dest="prefill_dtype",
+                     default="float32",
+                     choices=["float32", "bfloat16", "w8a8"],
+                     help="bucketed-prefill compute scheme; only float32 "
+                          "is ported")
+    psl.add_argument("--family", default="gpt2",
+                     choices=["gpt2", "llama", "moe"])
+    psl.add_argument("--multi-step", dest="multi_step", type=int, default=0,
+                     metavar="K",
+                     help="K decode steps per dispatch (greedy or sampled)")
+    psl.add_argument("--len-buckets", dest="len_buckets", default="",
+                     metavar="L1,L2,...",
+                     help="KV cache length buckets (ascending, ending at "
+                          "max-len): the pool runs at the smallest bucket "
+                          "covering live requests")
+    psl.add_argument("--draft-layers", dest="draft_layers", type=int,
+                     default=0, metavar="N",
+                     help="not ported yet (ROADMAP 1.9/1.10b)")
+    psl.add_argument("--spec-k", dest="spec_k", type=int, default=4,
+                     help="not ported yet (ROADMAP 1.9/1.10b)")
+    psl.add_argument("--prompt-cache", dest="prompt_cache", type=int,
+                     default=0, metavar="N",
+                     help="cache up to N prompts' KV (LRU): exact-match "
+                          "replay skips the prefill; with chunked prefill, "
+                          "shared prefixes stream only their suffix")
+    psl.add_argument("--step-timeout", dest="step_timeout", type=float,
+                     default=0.0, metavar="SECS",
+                     help="failure-detection watchdog: a decode step stuck "
+                          "past SECS fails pending requests with a clean "
+                          "error instead of hanging clients")
+    _device_flag(psl)
+    psl.set_defaults(fn=cmd_serve_llm)
+
+    pq = sub.add_parser("quantize",
+                        help="offline INT8 PTQ: write a QLinear ONNX file")
+    pq.add_argument("--model", required=True)
+    pq.add_argument("--out", required=True)
+    pq.add_argument("--calib-input", dest="calib_input",
+                    help="TensorProto .pb used for range calibration")
+    pq.add_argument("--calibration", default="minmax",
+                    choices=["minmax", "percentile", "mse"],
+                    help="activation-range calibration method (mse is not "
+                         "ported yet, ROADMAP 1.4)")
+    pq.add_argument("--percentile", type=float, default=99.99)
+    pq.add_argument("--bias-correct", dest="bias_correct",
+                    action="store_true",
+                    help="not ported yet (ROADMAP 1.4)")
+    _device_flag(pq)
+    pq.set_defaults(fn=cmd_quantize)
+
+    args = p.parse_args(argv)
+    bad = _unported(args)
+    if bad:
+        print("error: " + "; ".join(f"{flag} is not ported yet (ROADMAP "
+                                    f"{item})" for flag, item in bad),
+              file=sys.stderr)
+        return 2
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,6 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 # kernel library name -> its source under csrc/
 SOURCES: Dict[str, str] = {"qconv_int8": "qconv_int8.cu",
+                           "qconv_grouped_int8": "qconv_grouped_int8.cu",
                            "qmatmul_int8": "qmatmul_int8.cu",
                            "qmatmul_int4": "qmatmul_int4.cu",
                            "decode_attn": "decode_attn.cu"}

@@ -1,12 +1,12 @@
 """The kernel wrappers' launch counters, read and moved as one.
 
 Each wrapper counts its launches on the host, in `.launches` and, for some,
-per variant in `.schedules` (int4), `.epilogues` (int8 GEMM) and
-`.producers` (int8 conv). A CUDA graph replays the kernels without calling
-the wrappers, and capturing one calls them without launching anything. So
-whoever captures a graph takes the counters' change over the capture back
-out, and adds it again on every replay (`engine.capture`): the counters
-keep meaning launches on the card.
+per variant in `.schedules` (int4; the grouped conv's forms), `.epilogues`
+(int8 GEMM) and `.producers` (int8 conv). A CUDA graph replays the kernels
+without calling the wrappers, and capturing one calls them without
+launching anything. So whoever captures a graph takes the counters' change
+over the capture back out, and adds it again on every replay
+(`engine.capture`): the counters keep meaning launches on the card.
 """
 
 from __future__ import annotations
@@ -22,9 +22,12 @@ Key = Tuple[str, str, str]
 
 def wrappers() -> dict:
     """Every kernel wrapper that counts its launches, by kernel name."""
-    from . import decode_attn, qconv_int8, qmatmul_int4, qmatmul_int8
+    from . import (decode_attn, qconv_grouped_int8, qconv_int8, qmatmul_int4,
+                   qmatmul_int8)
 
     return {"qconv_int8_requant": qconv_int8.qconv_int8_requant,
+            "qconv_grouped_int8_requant":
+                qconv_grouped_int8.qconv_grouped_int8_requant,
             "qmatmul_int8": qmatmul_int8.qmatmul_int8,
             "qmatmul_int4_bf16": qmatmul_int4.qmatmul_int4_bf16,
             "qmatmul_int4_planar": qmatmul_int4.qmatmul_int4_planar,

@@ -1,23 +1,29 @@
 """Quantized ONNX op emitters: QuantizeLinear / DequantizeLinear /
-QLinearConv / QLinearMatMul / MatMulNBits.
+QLinearConv / QLinearMatMul / QLinearAdd / QLinearMul / MatMulNBits.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/quantized.py
-for the INT8 SqueezeNet and BERT paths and the INT4 GPT-2 decode paths.
+for the INT8 CNN (SqueezeNet, ResNet-50, MobileNetV2), BERT and ViT paths
+and the INT4 decode paths.
 Requant math (ONNX QLinear convention): y = saturate(round(acc * (x_s *
 w_s / y_s)) + y_zp), rounding half to even.
 
-QLinearConv runs on the hand-written kernel (ops/kernels/qconv_int8.py) in
-the case the quantizer emits: 2-D, group 1, no dilation, int8 operands, and
-all three zero points statically 0. QLinearMatMul runs its int8 x int8 ->
-product on the kernel of ops/kernels/qmatmul_int8.py for int8 operands, a
-2-D b, an a of any rank and both input zero points statically 0. Where
-y_zero_point is statically 0 too (the quantizer's form), the kernel's
-requant epilogue adds the bias and requantizes, and only int8 leaves it;
-otherwise it returns int32 and the bias add and the requant run in
-PyTorch, in the JAX emitter's order. Both give the JAX emitter's values bit
+QLinearConv runs on the hand-written kernels in the cases the quantizer
+emits: 2-D, no dilation, int8 operands, and all three zero points
+statically 0; group 1 on the implicit-GEMM kernel (ops/kernels/
+qconv_int8.py), group > 1 (MobileNetV2's depthwise convs) on the direct
+grouped kernel (ops/kernels/qconv_grouped_int8.py). QLinearMatMul runs
+its int8 x int8 -> product on the kernel of ops/kernels/qmatmul_int8.py for
+int8 operands, a 2-D b, an a of any rank and both input zero points
+statically 0. Where y_zero_point is statically 0 too (the quantizer's
+form), the kernel's requant epilogue adds the bias and requantizes, and
+only int8 leaves it; otherwise it returns int32 and the bias add and the
+requant run in PyTorch, in the JAX emitter's order. Both give the JAX emitter's values bit
 for bit. Every other QLinearConv or QLinearMatMul raises UnsupportedOpError
 naming the case, on the CPU as on the card, so both devices run the same
 function.
+
+QLinearAdd and QLinearMul (the quantizer's residual adds) dequantize,
+combine and requantize elementwise in PyTorch, as the JAX emitter does.
 
 MatMulNBits runs on the int4 kernels (ops/kernels/qmatmul_int4.py) in both
 nibble layouts: planar (quant.quantize_weights_int4) at every K and block
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from ..graph import Node
+from .kernels.qconv_grouped_int8 import qconv_grouped_int8_requant
 from .kernels.qconv_int8 import qconv_int8_requant
 from .kernels.qmatmul_int4 import (interleaved_layout, qmatmul_int4_bf16,
                                    qmatmul_int4_planar)
@@ -101,8 +108,10 @@ def _unsupported_qconv(ctx: LoweringContext, node: Node, x, w, spatial,
     """Why the kernel cannot run this QLinearConv, or None."""
     if spatial != 2:
         return f"{spatial}-D spatial (the kernel is 2-D)"
-    if group != 1:
-        return f"group={group} (grouped convs are not ported)"
+    if group < 1 or x.shape[1] != w.shape[1] * group \
+            or w.shape[0] % group:
+        return (f"group={group} with x {tuple(x.shape)} and w "
+                f"{tuple(w.shape)} (channels do not split into the groups)")
     if any(d != 1 for d in dilations):
         return f"dilations={dilations} (dilated convs are not ported)"
     if x.dtype != torch.int8 or w.dtype != torch.int8:
@@ -131,9 +140,9 @@ def qlinear_conv(ctx: LoweringContext, node: Node, ins):
     # the multiplier in fp32 and in the JAX emitter's order
     mult = (x_s.to(torch.float32) * w_s.to(torch.float32)
             / y_s.to(torch.float32))
-    return (qconv_int8_requant(x, w, mult, bias, stride=strides,
-                               padding=padding,
-                               packed=ctx.packed.get(node.inputs[3])),)
+    conv = qconv_int8_requant if group == 1 else qconv_grouped_int8_requant
+    return (conv(x, w, mult, bias, stride=strides, padding=padding,
+                 packed=ctx.packed.get(node.inputs[3])),)
 
 
 # --------------------------------------------------------------------------
@@ -190,6 +199,47 @@ def qlinear_matmul(ctx: LoweringContext, node: Node, ins):
     if bias is not None:
         acc = acc + bias
     return (_requant(acc, mult, y_zp),)
+
+
+# --------------------------------------------------------------------------
+# QLinearAdd / QLinearMul (ORT contrib)
+# --------------------------------------------------------------------------
+def _dq(x: torch.Tensor, s: torch.Tensor,
+        zp: Optional[torch.Tensor]) -> torch.Tensor:
+    """The JAX emitter's `_dq`: (x - zp) * s in f32."""
+    xf = x.to(torch.float32)
+    if zp is not None:
+        xf = xf - zp.to(torch.float32)
+    return xf * s.to(torch.float32)
+
+
+def _q(xf: torch.Tensor, s: torch.Tensor, zp: Optional[torch.Tensor],
+       dtype: torch.dtype) -> torch.Tensor:
+    """The JAX emitter's `_q`: round(xf / s) half to even, + zp, saturated
+    to `dtype`. s stays a tensor on xf's device and is divided by (a CPU
+    scalar divisor would become a multiply by its reciprocal on the card,
+    which moves ties by one step)."""
+    info = torch.iinfo(dtype)
+    y = torch.round(xf / s.to(torch.float32))
+    if zp is not None:
+        y = y + zp.to(torch.float32)
+    return y.clamp(info.min, info.max).to(dtype)
+
+
+def _qlinear_binary(fn):
+    """dequantize both inputs, fn, requantize to the first input's dtype.
+    Elementwise, so a channels-last input (the int8 conv kernels' output)
+    gives a channels-last result and the next conv reads it uncopied."""
+    def emit(ctx: LoweringContext, node: Node, ins):
+        a, a_s, a_zp, b, b_s, b_zp, y_s = ins[:7]
+        y_zp = ins[7] if len(ins) > 7 else None
+        out = fn(_dq(a, a_s, a_zp), _dq(b, b_s, b_zp))
+        return (_q(out, y_s, y_zp, a.dtype),)
+    return emit
+
+
+register("QLinearAdd", domain="com.microsoft")(_qlinear_binary(torch.add))
+register("QLinearMul", domain="com.microsoft")(_qlinear_binary(torch.mul))
 
 
 # --------------------------------------------------------------------------

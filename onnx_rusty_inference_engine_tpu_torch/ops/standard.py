@@ -10,7 +10,7 @@ ONNX pads as (lo, hi) pairs applied explicitly (so asymmetric pads and
 ceil_mode follow the JAX package's arithmetic), opset < 13 Softmax
 flattening, Gather's wrap-and-clamp of indices.
 
-fp32 Conv and MatMul run in full fp32, as the JAX package's
+fp32 Conv, MatMul and Gemm run in full fp32, as the JAX package's
 Precision.HIGHEST does: TF32 (cuDNN's default for convs) is switched off
 around the call.
 """
@@ -243,6 +243,26 @@ def matmul(ctx: LoweringContext, node: Node, ins):
         return (torch.matmul(a, b),)
 
 
+@register("Gemm")
+def gemm(ctx: LoweringContext, node: Node, ins):
+    """alpha * A' @ B' + beta * C, A' and B' transposed where transA /
+    transB say; C (1-D or any shape that broadcasts) is skipped when beta
+    is 0, as the JAX emitter does."""
+    a, b = ins[0], ins[1]
+    c = ins[2] if len(ins) > 2 else None
+    alpha = float(node.attr("alpha", 1.0))
+    beta = float(node.attr("beta", 1.0))
+    if int(node.attr("transA", 0)):
+        a = a.T
+    if int(node.attr("transB", 0)):
+        b = b.T
+    with matmul_fp32_exact():
+        out = alpha * torch.matmul(a, b)
+    if c is not None and beta != 0.0:
+        out = out + beta * c
+    return (out.to(a.dtype),)
+
+
 # --------------------------------------------------------------------------
 # Elementwise (binary, with numpy broadcasting)
 # --------------------------------------------------------------------------
@@ -338,6 +358,20 @@ def rms_normalization(ctx: LoweringContext, node: Node, ins):
     return ((x * torch.rsqrt(ms + eps).to(x.dtype)) * scale,)
 
 
+@register("BatchNormalization")
+def batch_norm(ctx: LoweringContext, node: Node, ins):
+    """Inference mode: (x - mean) * (scale * rsqrt(var + eps)) + bias per
+    channel (axis 1), in the JAX emitter's order. A BN that follows a Conv
+    is folded into it at import (passes.fold_batchnorm); this runs the
+    others."""
+    x, scale, bias, mean, var = ins[:5]
+    eps = float(node.attr("epsilon", 1e-5))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    inv = torch.rsqrt(var.to(torch.float32) + eps).to(x.dtype)
+    return ((x - mean.reshape(shape)) * (scale * inv).reshape(shape)
+            + bias.reshape(shape),)
+
+
 @register("LayerNormalization")
 def layer_norm(ctx: LoweringContext, node: Node, ins):
     x, scale = ins[0], ins[1]
@@ -371,6 +405,15 @@ def reshape(ctx: LoweringContext, node: Node, ins):
         if tail > 0 and total % tail == 0:
             tgt[0] = total // tail
     return (x.reshape(tgt),)
+
+
+@register("Flatten")
+def flatten(ctx: LoweringContext, node: Node, ins):
+    """2-D [prod(shape[:axis]), prod(shape[axis:])]; a negative axis counts
+    from the end (axis -r is 0)."""
+    x = ins[0]
+    ax = int(node.attr("axis", 1)) % (x.dim() + 1)
+    return (x.reshape(math.prod(x.shape[:ax]) if ax else 1, -1),)
 
 
 @register("Unsqueeze")

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .graph import Graph
+from .ops.kernels.qconv_grouped_int8 import pack_qconv_grouped_weight
 from .ops.kernels.qconv_int8 import pack_qconv_weight
 from .ops.kernels.qmatmul_int8 import pack_qmatmul_weight
 
@@ -48,23 +49,31 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray],
     return out
 
 
-# op -> (the rank of its int8 weight, input 3, and the kernel's layout of it)
-_INT8_PACKERS = {"QLinearConv": (4, pack_qconv_weight),
-                 "QLinearMatMul": (2, pack_qmatmul_weight)}
+def _packer(node):
+    """(the rank of the node's int8 weight, input 3, and the function that
+    lays it out for its kernel), or None for a node no int8 kernel reads."""
+    if node.op_type == "QLinearMatMul":
+        return 2, pack_qmatmul_weight
+    if node.op_type == "QLinearConv":
+        if int(node.attr("group", 1)) == 1:
+            return 4, pack_qconv_weight
+        return 4, pack_qconv_grouped_weight
+    return None
 
 
 def prepack_int8_weights(graph: Graph, params: Mapping[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
     """Weight name -> kernel layout (`pack_qconv_weight`,
-    `pack_qmatmul_weight`) for every QLinearConv and QLinearMatMul whose
-    int8 weight, 4-D and 2-D respectively, sits in `params` on a CUDA
-    device. On the CPU the plain versions read the weights as they are,
-    and nothing is packed."""
+    `pack_qconv_grouped_weight` for group > 1, `pack_qmatmul_weight`) for
+    every QLinearConv and QLinearMatMul whose int8 weight, 4-D and 2-D
+    respectively, sits in `params` on a CUDA device. On the CPU the plain
+    versions read the weights as they are, and nothing is packed."""
     packed: Dict[str, torch.Tensor] = {}
     for node in graph.nodes:
-        if node.op_type not in _INT8_PACKERS or len(node.inputs) < 4:
+        packer = _packer(node)
+        if packer is None or len(node.inputs) < 4:
             continue
-        rank, pack = _INT8_PACKERS[node.op_type]
+        rank, pack = packer
         w = params.get(node.inputs[3])
         if (w is not None and w.device.type == "cuda"
                 and w.dtype == torch.int8 and w.dim() == rank

@@ -1,0 +1,295 @@
+"""The port's product surface on the CPU: `onnx_make_inference` (api.py),
+the CLI (cli.py, `python -m onnx_rusty_inference_engine_tpu_torch.cli`) and
+the HTTP front ends (http_serve.py), against the JAX package's.
+
+- onnx_make_inference(device="cpu") on ResNet-50 (64x64) written to a file
+  with its golden input and output (tests/goldens/resnet50.pb) as .pb
+  files: golden_match at the golden test's tolerance (rtol = atol = 1e-3).
+- Each ported subcommand with --device cpu: `run` prints the golden MATCH
+  line and exits 0; `bench`, `inspect` and `quantize` print JSON with the
+  JAX CLI's keys (and, for inspect and quantize, its values); `generate`
+  prints the JAX CLI's tokens; `bench --batch N` feeds N examples a
+  forward also where the file declares a static batch of 1 (the JAX CLI
+  feeds 1 and reports N); every flag whose machinery the port lacks
+  exits with code 2 and names its ROADMAP item; without --device the CLI
+  asks for the card, and raises where there is none.
+- serve_http and serve_generate_http on port 0, one request each: the
+  response equals the JAX server's on the same tiny model (ViT TINY logits
+  within 1e-4, as tests/test_http_serve.py holds its MNIST; GPT-2 TINY
+  greedy tokens equal), and a malformed request answers 400.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from onnx_rusty_inference_engine_tpu import cli as j_cli
+from onnx_rusty_inference_engine_tpu import onnx_io as j_io
+from onnx_rusty_inference_engine_tpu.engine import Engine as JEngine
+from onnx_rusty_inference_engine_tpu.graph import import_model as j_import
+from onnx_rusty_inference_engine_tpu.http_serve import (
+    serve_generate_http as j_serve_generate_http, serve_http as j_serve_http)
+from onnx_rusty_inference_engine_tpu.models.gpt2 import TINY as J_GPT_TINY
+from onnx_rusty_inference_engine_tpu.models.vit import (
+    TINY as J_VIT_TINY, build_vit)
+from onnx_rusty_inference_engine_tpu.serve_llm import (
+    DecodeServer as JDecodeServer)
+from onnx_rusty_inference_engine_tpu_torch import cli as t_cli
+from onnx_rusty_inference_engine_tpu_torch import onnx_make_inference
+from onnx_rusty_inference_engine_tpu_torch.engine import Engine
+from onnx_rusty_inference_engine_tpu_torch.http_serve import (
+    serve_generate_http, serve_http)
+from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import TINY
+from onnx_rusty_inference_engine_tpu_torch.models.resnet import (
+    build_resnet50)
+from onnx_rusty_inference_engine_tpu_torch.serving import DecodeServer
+from torch_port_util import to_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "goldens", "resnet50.pb")
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """ResNet-50 and ViT TINY as .onnx files; ResNet-50's golden input (as
+    test_regression_goldens.py::_cases draws it) and output as .pb."""
+    d = tmp_path_factory.mktemp("cli")
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+
+    onnx_io.save_model(str(d / "resnet50.onnx"), build_resnet50())
+    j_io.save_model(str(d / "vit.onnx"), build_vit(J_VIT_TINY, batch=1))
+    x = np.random.default_rng(123).standard_normal((1, 3, 64, 64))
+    onnx_io.write_tensor_file(str(d / "in.pb"), "data", x.astype(np.float32))
+    golden = onnx_io.read_tensor_file(GOLDEN)
+    onnx_io.write_tensor_file(str(d / "out.pb"), golden.name, golden.array)
+    return d
+
+
+def test_onnx_make_inference_golden_on_cpu(files):
+    rep = onnx_make_inference(str(files / "resnet50.onnx"),
+                              str(files / "in.pb"), str(files / "out.pb"),
+                              rtol=1e-3, atol=1e-3, device="cpu")
+    assert rep["golden_match"] is True
+    assert rep["max_abs_err"] < 1e-2
+    assert rep["outputs"]["logits"].shape == (1, 1000)
+    assert rep["top1"].shape == (1,)
+
+
+def _main(main, argv, capsys):
+    """(exit code, stdout, stderr) of one CLI call in this process."""
+    rc = main(argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def test_cli_run_golden_match(files, capsys):
+    rc, out, _ = _main(t_cli.main, [
+        "run", "--model", str(files / "resnet50.onnx"), "--input",
+        str(files / "in.pb"), "--golden", str(files / "out.pb"), "--rtol",
+        "1e-3", "--atol", "1e-3", "--device", "cpu"], capsys)
+    assert rc == 0
+    assert out.strip().splitlines()[-1].startswith("golden: MATCH")
+    body = json.loads(out[:out.rindex("golden:")])
+    assert body["output_shapes"] == {"logits": [1, 1000]}
+
+
+@pytest.mark.parametrize("cmd", ["inspect", "bench", "quantize"])
+def test_cli_json_keys_match_jax(cmd, files, capsys, tmp_path):
+    model = str(files / "vit.onnx")
+    args = {"inspect": ["inspect", "--model", model],
+            "bench": ["bench", "--model", model, "--batch", "1",
+                      "--steps", "2"],
+            "quantize": ["quantize", "--model", model, "--calib-input",
+                         str(files / "vit_in.pb")]}[cmd]
+    if cmd == "quantize":
+        x = np.random.default_rng(2).standard_normal(
+            (1, 3, J_VIT_TINY.image_size, J_VIT_TINY.image_size))
+        j_io.write_tensor_file(str(files / "vit_in.pb"), "pixel_values",
+                               x.astype(np.float32))
+    j_args = args + (["--out", str(tmp_path / "j.onnx")]
+                     if cmd == "quantize" else [])
+    t_args = args + (["--out", str(tmp_path / "t.onnx")]
+                     if cmd == "quantize" else [])
+    t_args += [] if cmd == "inspect" else ["--device", "cpu"]
+    rc_j, out_j, _ = _main(j_cli.main, j_args, capsys)
+    rc_t, out_t, _ = _main(t_cli.main, t_args, capsys)
+    assert rc_j == rc_t == 0
+    want, got = json.loads(out_j), json.loads(out_t)
+    assert sorted(got) == sorted(want)
+    if cmd == "inspect":
+        assert got == want
+        assert got["unsupported_ops"] == []
+    if cmd == "quantize":
+        assert {k: v for k, v in got.items() if k != "out"} == \
+            {k: v for k, v in want.items() if k != "out"}
+    if cmd == "bench":
+        assert got["device"] == "cpu" and got["images_per_sec"] > 0
+
+
+def test_cli_bench_runs_at_the_requested_batch(files, capsys, monkeypatch):
+    """ResNet-50 declares a static batch of 1: `bench --batch 2` still
+    feeds 2 images a forward (the JAX CLI feeds 1 and reports 2)."""
+    seen = []
+
+    def throughput(engine, feed, steps):
+        seen.append(tuple(next(iter(feed.values())).shape))
+        return 1.0, "cpu"
+
+    monkeypatch.setattr(t_cli, "_throughput", throughput)
+    rc, out, _ = _main(t_cli.main, [
+        "bench", "--model", str(files / "resnet50.onnx"), "--batch", "2",
+        "--steps", "1", "--device", "cpu"], capsys)
+    assert rc == 0 and seen == [(2, 3, 224, 224)]
+    assert json.loads(out)["batch"] == 2
+
+
+def test_cli_bench_int8_on_cpu(files, capsys):
+    rc, out, _ = _main(t_cli.main, [
+        "bench", "--model", str(files / "vit.onnx"), "--batch", "1",
+        "--steps", "2", "--quantize", "int8", "--device", "cpu"], capsys)
+    assert rc == 0 and json.loads(out)["quantize"] == "int8"
+
+
+def test_cli_generate_matches_jax(capsys):
+    args = ["generate", "--new", "4"]
+    rc_j, out_j, _ = _main(j_cli.main, args, capsys)
+    rc_t, out_t, _ = _main(t_cli.main, args + ["--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0
+    assert json.loads(out_t) == json.loads(out_j)
+
+
+UNPORTED = [
+    (["run", "--dtype", "bfloat16"], "1.2/1.6"),
+    (["run", "--quantize", "w8a8"], "1.6"),
+    (["run", "--dump-stats"], "1.11"),
+    (["bench", "--dtype", "bfloat16"], "1.2/1.6"),
+    (["bench", "--quantize", "w8a8"], "1.6"),
+    (["serve", "--quantize", "w8a8"], "1.6"),
+    (["quantize", "--out", "x.onnx", "--bias-correct"], "1.4"),
+    (["quantize", "--out", "x.onnx", "--calibration", "mse"], "1.4"),
+    (["generate", "--draft-layers", "1"], "1.9/1.10b"),
+    (["generate", "--prefill-dtype", "bfloat16"], "1.6"),
+    (["generate", "--family", "moe"], "1.8"),
+    (["generate", "--family", "t5"], "1.8"),
+    (["generate", "--beam", "2"], "1.9"),
+    (["generate", "--adapters", "2"], "1.8"),
+    (["generate", "--adapter", "2"], "1.8"),
+    (["generate", "--lora-rank", "4"], "1.8"),
+    (["generate", "--spec-k", "2"], "1.9/1.10b"),
+    (["serve-llm", "--spec-k", "8"], "1.9/1.10b"),
+    (["serve-llm", "--draft-layers", "1"], "1.9/1.10b"),
+    (["serve-llm", "--prefill-dtype", "w8a8"], "1.6"),
+    (["serve-llm", "--family", "moe"], "1.8"),
+]
+
+
+@pytest.mark.parametrize("argv,item", UNPORTED,
+                         ids=[" ".join(a) for a, _ in UNPORTED])
+def test_cli_unported_flag_exits_2(argv, item, capsys):
+    cmd, rest = argv[0], argv[1:]
+    if cmd in ("run", "bench", "serve", "quantize"):
+        rest = ["--model", "m.onnx"] + rest
+    if cmd == "run":
+        rest += ["--input", "x.pb"]
+    rc, out, err = _main(t_cli.main, [cmd] + rest, capsys)
+    assert rc == 2 and out == ""
+    assert f"ROADMAP {item}" in err
+
+
+def test_cli_defaults_to_the_card(files):
+    """Without --device the CLI runs on the card; where there is none it
+    raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_cli.main(["run", "--model", str(files / "vit.onnx"), "--input",
+                    str(files / "in.pb")])
+
+
+def test_cli_module_entry_inspects(files):
+    """`python -m onnx_rusty_inference_engine_tpu_torch.cli inspect`."""
+    res = subprocess.run(
+        [sys.executable, "-m", "onnx_rusty_inference_engine_tpu_torch.cli",
+         "inspect", "--model", str(files / "resnet50.onnx")],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    body = json.loads(res.stdout)
+    assert body["op_histogram"]["Conv"] == 53
+    assert body["unsupported_ops"] == []
+
+
+def _post(port, path, payload):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def test_serve_http_matches_jax_server():
+    m = build_vit(J_VIT_TINY, batch=1)
+    x = np.random.default_rng(4).standard_normal(
+        (1, 3, J_VIT_TINY.image_size, J_VIT_TINY.image_size)).astype(
+            np.float32)
+    resp = {}
+    for name, engine, serve in (
+            ("jax", JEngine(j_import(m)), j_serve_http),
+            ("port", Engine(to_port(m), device="cpu"), serve_http)):
+        httpd, batcher = serve(engine, port=0, block=False,
+                               batch_buckets=(1,))
+        try:
+            port = httpd.server_address[1]
+            assert _get(port, "/healthz") == (200, {"status": "ok"})
+            resp[name] = _post(port, "/v1/infer", {"input": x.tolist()})
+            status, err = _post(port, "/v1/infer", {"input": [[1, 2, 3]]})
+            assert status == 400 and "error" in err
+            status, stats = _get(port, "/v1/stats")
+            assert status == 200 and stats["requests"] == 1
+        finally:
+            httpd.shutdown()
+            batcher.stop()
+    (sj, rj), (st, rt) = resp["jax"], resp["port"]
+    assert sj == st == 200
+    assert sorted(rt) == sorted(rj) and rt["top1"] == rj["top1"]
+    np.testing.assert_allclose(np.asarray(rt["outputs"]["logits"]),
+                               np.asarray(rj["outputs"]["logits"]),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_serve_generate_http_matches_jax_server():
+    body = {"prompt_ids": [3, 1, 4, 1], "max_new_tokens": 4}
+    resp = {}
+    for name, srv, serve in (
+            ("jax", JDecodeServer(J_GPT_TINY, slots=2, prompt_len=4,
+                                  max_len=12), j_serve_generate_http),
+            ("port", DecodeServer(TINY, slots=2, prompt_len=4, max_len=12,
+                                  device="cpu"), serve_generate_http)):
+        httpd = serve(srv, port=0, block=False)
+        try:
+            port = httpd.server_address[1]
+            resp[name] = _post(port, "/v1/generate", body)
+            status, err = _post(port, "/v1/generate", {"prompt_ids": "x"})
+            assert status == 400 and "error" in err
+            assert _get(port, "/v1/stats")[1]["requests"] == 1
+        finally:
+            httpd.shutdown()
+            srv.stop()
+    assert resp["port"] == resp["jax"]
+    assert resp["port"][0] == 200 and len(resp["port"][1]["generated_ids"]) \
+        == 4

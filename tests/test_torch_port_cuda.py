@@ -1049,3 +1049,199 @@ def test_llama_step_captured_equals_eager(cuda, kv):
         for name, v in want.items():
             assert torch.equal(got[name], v), name
     assert len(eng._graphs) == 1
+
+
+# --------------------------------------------------------------------------
+# the vision slice: the grouped int8 conv, QLinearAdd, the N = 1000 heads
+# --------------------------------------------------------------------------
+def _mobilenet_depthwise_convs(size: int = 224):
+    """(C, H, stride) of MobileNetV2's 17 depthwise convs at size x size,
+    in graph order (models/mobilenet.py's inverted residual config)."""
+    from onnx_rusty_inference_engine_tpu_torch.models.mobilenet import (
+        _IR_CFG)
+
+    out, h, c_in = [], size // 2, 32
+    for t, c, n, s in _IR_CFG:
+        for i in range(n):
+            stride = s if i == 0 else 1
+            out.append((c_in * t, h, stride))
+            h = -(-h // stride)
+            c_in = c
+    return out
+
+
+def _grouped_operands(B, C, H, W, O, group, ksz, rng, dev):
+    x = torch.from_numpy(rng.integers(-128, 128, (B, C, H, W),
+                                      dtype=np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(-127, 128, (O, C // group, ksz, ksz),
+                                      dtype=np.int8)).to(dev)
+    mult = torch.from_numpy((np.abs(rng.standard_normal(O)) * 2e-3 + 1e-3)
+                            .astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.integers(-3000, 3000, (O,),
+                                         dtype=np.int32)).to(dev)
+    return x, w, mult, bias
+
+
+@pytest.mark.parametrize("C,H,s", _mobilenet_depthwise_convs(),
+                         ids=[f"block{i}_c{c}_h{h}_s{s}" for i, (c, h, s)
+                              in enumerate(_mobilenet_depthwise_convs())])
+def test_grouped_kernel_equals_plain_at_every_mobilenet_b256_depthwise(
+        cuda, C, H, s):
+    """Each of MobileNetV2's 17 depthwise convs at b256 (3x3, pad 1), on
+    channels-last input as the expand conv leaves it: the char4 form, bit
+    for bit, and a channels-last int8 output."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8)
+
+    x, w, mult, bias = _grouped_operands(256, C, H, H, C, C, 3,
+                                         np.random.default_rng(C + H), cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = dict(g8.qconv_grouped_int8_requant.schedules)
+    got = g8.qconv_grouped_int8_requant(
+        x, w, mult, bias, stride=(s, s), padding=((1, 1), (1, 1)),
+        packed=g8.pack_qconv_grouped_weight(w))
+    torch.cuda.synchronize()
+    assert (g8.qconv_grouped_int8_requant.schedules["depthwise"]
+            == before["depthwise"] + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = g8.qconv_grouped_int8_requant_plain(
+        x, w, mult, bias, stride=(s, s), padding=((1, 1), (1, 1)))
+    assert torch.equal(got, want)
+
+
+# (B, C, H, W, O, group, kernel, stride, pads (t, b, l, r), layout)
+GROUPED_CASES = {
+    "dw_c6_unaligned": (3, 6, 9, 7, 6, 6, 3, 1, (1, 1, 1, 1), "cl"),
+    "dw_c4_nchw_input": (2, 4, 8, 8, 4, 4, 3, 2, (1, 1, 1, 1), "nchw"),
+    "dw_c36_asym_pad": (2, 36, 10, 9, 36, 36, 3, 2, (1, 0, 2, 1), "cl"),
+    "dw_5x5_c20": (2, 20, 13, 11, 20, 20, 5, 1, (2, 2, 2, 2), "cl"),
+    "group2_c16_o24": (2, 16, 8, 9, 24, 2, 3, 1, (1, 1, 1, 1), "cl"),
+    "group2_c10_o6": (1, 10, 6, 7, 6, 2, 3, 2, (1, 1, 1, 1), "cl"),
+    "dw_multiplier2": (2, 8, 7, 7, 16, 8, 3, 1, (1, 1, 1, 1), "cl"),
+    "group4_1x1": (2, 16, 5, 5, 32, 4, 1, 1, (0, 0, 0, 0), "nchw"),
+    "dw_c960_7x7": (4, 960, 7, 7, 960, 960, 3, 1, (1, 1, 1, 1), "cl"),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+def test_grouped_kernel_equals_plain(cuda, case):
+    """Unaligned channel counts, NCHW inputs, asymmetric padding, other
+    kernel sizes and group > 1 beyond depthwise (the general form), bit
+    for bit; the launch counted in the form grouped_mode picks."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8)
+
+    B, C, H, W, O, group, ksz, s, (pt, pb, pl, pr), layout = \
+        GROUPED_CASES[case]
+    x, w, mult, bias = _grouped_operands(B, C, H, W, O, group, ksz,
+                                         np.random.default_rng(B * C + O),
+                                         cuda)
+    if layout == "cl":
+        x = x.contiguous(memory_format=torch.channels_last)
+    padding = ((pt, pb), (pl, pr))
+    mode = g8.grouped_mode(C, C // group, O, group)
+    before = dict(g8.qconv_grouped_int8_requant.schedules)
+    got = g8.qconv_grouped_int8_requant(
+        x, w, mult, bias, stride=(s, s), padding=padding,
+        packed=g8.pack_qconv_grouped_weight(w))
+    torch.cuda.synchronize()
+    assert g8.qconv_grouped_int8_requant.schedules[mode] == before[mode] + 1
+    want = g8.qconv_grouped_int8_requant_plain(x, w, mult, bias,
+                                               stride=(s, s),
+                                               padding=padding)
+    assert torch.equal(got, want)
+    # no bias and a scalar multiplier
+    got = g8.qconv_grouped_int8_requant(
+        x, w, mult[0], None, stride=(s, s), padding=padding,
+        packed=g8.pack_qconv_grouped_weight(w))
+    want = g8.qconv_grouped_int8_requant_plain(x, w, mult[0], None,
+                                               stride=(s, s),
+                                               padding=padding)
+    assert torch.equal(got, want)
+
+
+def test_grouped_kernel_in_a_cuda_graph_equals_eager(cuda):
+    """Captured into a CUDA graph (launched on the capturing stream, no
+    sync, no allocation of its own), replays give the eager bytes."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8)
+
+    x, w, mult, bias = _grouped_operands(8, 144, 28, 28, 144, 144, 3,
+                                         np.random.default_rng(3), cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    packed = g8.pack_qconv_grouped_weight(w)
+
+    def run():
+        return g8.qconv_grouped_int8_requant(
+            x, w, mult, bias, stride=(2, 2), padding=((1, 1), (1, 1)),
+            packed=packed)
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    x.copy_(torch.roll(x, 1, dims=0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, run())
+
+
+def test_qlinear_add_keeps_channels_last(cuda):
+    """QLinearAdd of two channels-last int8 tensors (the conv kernels'
+    output) returns channels-last, so the next conv reads it uncopied;
+    its values equal the CPU's bit for bit."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.quantized import (
+        _qlinear_binary)
+
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy(rng.integers(-128, 128, (4, 64, 14, 14),
+                                          dtype=np.int8)) for _ in range(2))
+    scales = [torch.tensor(v, dtype=torch.float32)
+              for v in (0.05, 0.025, 0.1)]
+    zp = torch.tensor(0, dtype=torch.int8)
+    emit = _qlinear_binary(torch.add)
+
+    def ins(dev, cl):
+        a2, b2 = (t.to(dev) for t in (a, b))
+        if cl:
+            a2, b2 = (t.contiguous(memory_format=torch.channels_last)
+                      for t in (a2, b2))
+        s = [v.to(dev) for v in scales]
+        z = zp.to(dev)
+        return [a2, s[0], z, b2, s[1], z, s[2], z]
+
+    (got,) = emit(None, None, ins(cuda, True))
+    (want,) = emit(None, None, ins("cpu", False))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("M,K", [(256, 2048), (256, 1280), (64, 768),
+                                 (1, 2048)])
+def test_classifier_head_n1000_equals_plain(cuda, M, K):
+    """The vision models' heads as QLinearMatMul: N = 1000, not a multiple
+    of 16, through both epilogues, bit for bit."""
+    rng = np.random.default_rng(M + K)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K),
+                                      dtype=np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-127, 128, (K, 1000),
+                                      dtype=np.int8)).to(cuda)
+    mult = torch.from_numpy((np.abs(rng.standard_normal(1000)) * 1e-4
+                             + 1e-5).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.integers(-5000, 5000, (1000,),
+                                         dtype=np.int32)).to(cuda)
+    packed = q8.pack_qmatmul_weight(b)
+    got = q8.qmatmul_int8_requant(a, b, mult, bias, packed=packed)
+    assert torch.equal(got, q8.qmatmul_int8_requant_plain(a, b, mult, bias))
+    got32 = q8.qmatmul_int8(a, b, packed=packed)
+    assert torch.equal(got32, q8.qmatmul_int8_plain(a, b))

@@ -261,10 +261,11 @@ def test_no_card_no_silent_cpu():
 
 
 def test_unported_ops_and_dtypes_raise_at_build():
-    b = GraphBuilder("gemm", opset=13)
+    b = GraphBuilder("einsum", opset=13)
     x = b.input("x", [2, 4])
-    b.output(b.node("Gemm", [x, b.he("w", (4, 3))], ["y"])[0])
-    with pytest.raises(UnsupportedOpError, match="Gemm"):
+    b.output(b.node("Einsum", [x, b.he("w", (4, 3))], ["y"],
+                    equation="ij,jk->ik")[0])
+    with pytest.raises(UnsupportedOpError, match="Einsum"):
         Engine(to_port(b.model()), device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
         Engine(to_port(_narrow_model(13)), device="cpu", dtype="bfloat16")
