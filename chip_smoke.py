@@ -190,7 +190,13 @@ Phases, each printing JSON lines:
              grouped forms and epilogues as the shapes predict. Every
              distinct QLinearConv (grouped too) and QLinearMatMul shape
              bit for bit against its plain version on the card's own
-             inputs (one kernel line each, `"path": "vision"`), every
+             inputs (one kernel line each, `"path": "vision"`; a grouped
+             line adds its plan's form, tile, channel run, box, threads
+             and shared memory, and where the plan takes all of C as one
+             channel run, the time of the run TILE_RUNS alone would give
+             on the same inputs; then one `grouped_conv` line: the 17
+             launches' ms, GB/s and share of the bound beside the first
+             design's recorded 3.482 ms), every
              QLinearAdd against its plain re-run on the CPU for the first
              8 images; INT8 against fp32 at the JAX tests' bounds (ResNet:
              top-1 equal or max |d| / max|ref| < 0.1; MobileNetV2: top-1
@@ -357,6 +363,8 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
     calls are captured once into a CUDA graph and the graph is replayed
     (a decode kernel runs for microseconds, less than its wrapper's host
     time, so eager back-to-back calls would time the host)."""
+    from onnx_rusty_inference_engine_tpu_torch.engine import collector_held
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -364,7 +372,7 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_held(), torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -2603,6 +2611,12 @@ VISION = {
             {"qconv_int8_requant": 1, "qmatmul_int8": 73}),
 }
 
+# MobileNetV2's 17 grouped convs a forward in the kernel's first design
+# (one thread per output pixel and 4 channels), as PERF.md section 6
+# records them (H100 80GB HBM3, 700 W): the `grouped_conv` line sets this
+# run's time beside it
+GROUPED_FIRST_DESIGN_MS = 3.482
+
 # device kernel name fragment -> bucket, first match wins
 _VISION_BUCKETS = (
     ("qconv_grouped_int8_requant", "qconv_grouped_int8_requant (grouped)"),
@@ -2700,7 +2714,8 @@ def _vision_conv_lines(model: str, qgraph, eng8, card, forwards: int,
         plain_fn = c8.qconv_int8_requant_plain
     shapes = _qconv_shapes(qgraph, eng8, card, grouped)
     tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
-                         "library_ms", "ms_same_shapes_as_library"), 0.0)
+                         "library_ms", "ms_same_shapes_as_library", "bytes"),
+                   0.0)
     max_err = 0
     for (xs, ws, stride, padding), s in shapes.items():
         x, w, mult, bias = s["x"], s["w"], s["mult"], s["bias"]
@@ -2753,8 +2768,28 @@ def _vision_conv_lines(model: str, qgraph, eng8, card, forwards: int,
                 "bytes": nbytes, "tops": ops / ms / 1e9,
                 "gb_per_s": nbytes / ms / 1e6}
         if grouped:
-            line["form"] = g8.grouped_mode(xs[1], ws[1], ws[0],
-                                           xs[1] // ws[1])
+            plan = g8.grouped_plan(xs, ws, stride, padding,
+                                   g8.input_align(x))
+            line.update({k: plan[k] for k in (
+                "form", "tile", "run", "box", "threads", "smem", "tiles")})
+            if plan["form"] == "tile" and plan["run"] not in g8.TILE_RUNS:
+                # the plan takes all of C as one channel run: the time of
+                # the run TILE_RUNS alone would give, on the same inputs
+                # (not counted: the wrapper alone counts)
+                whole, g8.TILE_WHOLE = g8.TILE_WHOLE, 0
+                try:
+                    line["split_run"] = g8.grouped_plan(
+                        xs, ws, stride, padding, g8.input_align(x))["run"]
+
+                    def split():
+                        return g8._launch(x, w, mult, bias, stride, padding,
+                                          s["packed"])[0]
+
+                    require(torch.equal(split(), want), f"{model} {kname} "
+                            f"on a split channel run == plain at {s['node']}")
+                    line["split_run_ms"] = graph_ms(split, ITERS)
+                finally:
+                    g8.TILE_WHOLE = whole
         else:
             line["producer"], line["tile"] = c8.conv_plan(xs, ws, stride,
                                                           padding)
@@ -2762,7 +2797,7 @@ def _vision_conv_lines(model: str, qgraph, eng8, card, forwards: int,
         n = s["count"]
         for k, v in (("ms", ms), ("plain_ms", plain_ms),
                      ("bound_ms", bound_ms), ("ops_ms", ops_ms),
-                     ("bytes_ms", bytes_ms)):
+                     ("bytes_ms", bytes_ms), ("bytes", nbytes)):
             tot[k] += n * v
         if library_ms is not None:
             tot["library_ms"] += n * library_ms
@@ -2774,7 +2809,8 @@ def _vision_conv_lines(model: str, qgraph, eng8, card, forwards: int,
             "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                          else "bytes"),
             "library_ms": tot["library_ms"] or None,
-            "ms_same_shapes_as_library": tot["ms_same_shapes_as_library"]}
+            "ms_same_shapes_as_library": tot["ms_same_shapes_as_library"],
+            "gb_per_s": tot["bytes"] / tot["ms"] / 1e6}
 
 
 def _vision_qmm_lines(model: str, qgraph, eng8, card, forwards: int
@@ -2836,13 +2872,13 @@ def _vision_qmm_lines(model: str, qgraph, eng8, card, forwards: int
 def _predicted_splits(qgraph, eng8, card) -> dict:
     """The per-variant launches one INT8 forward should make, from the
     shapes: each group-1 conv's producer (`conv_plan`), each grouped
-    conv's form (`grouped_mode`), every QLinearMatMul on the requant
+    conv's form (`grouped_plan`), every QLinearMatMul on the requant
     epilogue (the quantizer's y_zero_point is 0 and its bias int32)."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
         qconv_grouped_int8 as g8, qconv_int8 as c8, qmatmul_int8 as q8)
 
     producers = dict.fromkeys(c8.PRODUCERS, 0)
-    forms = dict.fromkeys(g8.MODES, 0)
+    forms = dict.fromkeys(g8.FORMS, 0)
     for node in qgraph.nodes:
         if node.op_type != "QLinearConv":
             continue
@@ -2852,8 +2888,8 @@ def _predicted_splits(qgraph, eng8, card) -> dict:
         if group == 1:
             producers[c8.conv_plan(x.shape, w.shape, stride, padding)[0]] += 1
         else:
-            forms[g8.grouped_mode(x.shape[1], w.shape[1], w.shape[0],
-                                  group)] += 1
+            forms[g8.grouped_plan(x.shape, w.shape, stride, padding,
+                                  g8.input_align(x))["form"]] += 1
     n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
     out = {"qconv_int8_requant": {"producers": producers},
            "qmatmul_int8": {"epilogues": {**dict.fromkeys(q8.EPILOGUES, 0),
@@ -3182,6 +3218,14 @@ def phase_vision(smi: str):
                "convs; ms and library_ms are device times (CUDA-graph "
                "replay), plain_ms one eager call",
         "distinct_shapes": g["distinct_shapes"], "card": smi}
+    emit({"phase": "grouped_conv", "kernel": "qconv_grouped_int8_requant",
+          "model": "mobilenetv2", "per_forward": g["per_forward"],
+          "ms": g["ms"], "gb_per_s": g["gb_per_s"],
+          "bound_ms": g["bound_ms"], "share_of_bound": g["bound_ms"] / g["ms"],
+          "library_ms": g["library_ms"],
+          "first_design_recorded_ms": GROUPED_FIRST_DESIGN_MS,
+          "over_first_design": GROUPED_FIRST_DESIGN_MS / g["ms"],
+          "card": smi})
     return paths, grouped
 
 

@@ -20,33 +20,81 @@
 //             * w[kh, kw, c, o] + bias[o]) * mult[o])),  g = o / Og,
 //   Og = O / group, padding taps contributing 0.
 //
-// One thread computes a run of 4 output channels of one output pixel; the
-// threads of a warp take neighbouring runs of one pixel, so each tap's
-// loads of a warp are contiguous. Two forms, chosen by the wrapper:
-//   mode 0 (depthwise, Cg = Og = 1, C % 4 == 0, x 4-byte aligned): the 4
-//     channels' taps are one char4 load of x and one of w;
-//   mode 1 (any other): each output channel reads its own group's bytes.
+// Two forms; the wrapper picks one from the shape
+// (qconv_grouped_int8.py::grouped_plan) and counts it:
+//
+// tile: depthwise 3x3 at stride 1 or 2, C % 16 == 0, x 16-byte
+//   aligned (all 17 of MobileNetV2's depthwise convs). What bounds it: a
+//   depthwise 3x3 does 18 operations per output byte, far below the H100's
+//   ~590 int8 operations per byte of HBM, so the bytes bound it (input read
+//   once, output written once). The first design (one thread per output
+//   pixel and 4 channels, each tap a 4-byte load of x and one of w) ran
+//   every shape at ~41 G threads a second whatever its bytes: bound by
+//   instructions, with six 64-bit divisions, 18 bounds-checked 4-byte loads
+//   and 36 sign-extending IMADs a thread. This form cuts the instructions
+//   per output byte:
+//   - Tiles in shared memory. A block owns an output tile: one image, TH
+//     rows, TW columns and a run of CR channels (a multiple of 16; all
+//     of C where C <= 160, so the box's rows are contiguous). One thread
+//     starts a 4-D TMA load of the input tile with its halo,
+//     ((TH-1)*s+3) x ((TW-1)*s+3) x CR bytes, over a tensor map of
+//     [B, H, W, C]: reads outside the image come back as zeros, which is
+//     the padding, because the port's QLinearConv is symmetric (zero point
+//     0). Blocks are persistent over tiles (channel runs fastest, so
+//     blocks in flight together share their halos in L2) and double-
+//     buffered: the next tile's load is in flight while this one computes.
+//   - Index math per tile: each thread splits the tile id once per tile;
+//     nothing is divided per output.
+//   - Register blocking. A thread owns 4 channels (one 32-bit word of a
+//     column) and 2 adjacent output columns, and walks down all TH rows of
+//     the tile. Per input row it reads the 4 (stride 2: 5) column words it
+//     needs from shared memory once, and keeps the last rows it read in
+//     registers, so at stride 1 each input row is read once per thread, not
+//     three times. Its channels' 9 taps stay in registers for the tile.
+//   - Packed multiplies. Eight PRMTs transpose the 4 columns x 4 channels
+//     of a row into one word per channel, [x(c), x(c+1), x(c+2), x(c+3)];
+//     one IDP4A against [w0, w1, w2, 0] of a kernel row gives output column
+//     c's three taps of that row, one against [0, w0, w1, w2] column c+1's
+//     (at stride 2, a PRMT forms [x(c+2), x(c+3), x(c+4), -] for the
+//     second column). The sums start at the bias.
+//   - Epilogue in registers, with no conversion instruction (each runs at a
+//     quarter of the rate of an add): float(s) = (0x4B400000 + s as a float)
+//     - 1.5*2^23, exact for |s| < 2^22 (a channel whose bias could leave
+//     that range takes __int2float_rn); then __fmul_rn by mult, a clamp to
+//     [-128, 127] and __fadd_rn(v, 1.5*2^23), whose low byte is rint(v),
+//     half to even, as __float2int_rn rounds. Three PRMTs pack 4 channels
+//     and one 4-byte store writes them: the lanes of a warp hold
+//     neighbouring channel words, so a warp's store is contiguous bytes
+//     within each output pixel (a 16-byte store per thread would need 16
+//     channels a thread: four times the accumulators and weights in
+//     registers).
+//   Per output byte at stride 1: 3 IDP4A, ~1 PRMT of transpose, 0.5 LDS,
+//   ~6.75 epilogue instructions and 0.25 STG, ~12 in all (the first
+//   design: ~30); at stride 2, ~15.
+//   The wrapper's plan (grouped_plan) owns the tile, the box, the staging
+//   buffer, the threads and the grid; the entry point takes them as they
+//   are and refuses a plan whose box does not hold its tile's reads, whose
+//   tiles do not cover the output or that does not fit a block.
+// general (any other group > 1): one thread per output pixel and run of 4
+//   output channels, each output channel reading its own group's bytes.
 // The sums are int32 in registers; only int8 leaves the kernel.
 //
-// What bounds it: a depthwise 3x3 does 18 operations per output byte and
-// reads each input byte 9 / stride^2 times (from L1/L2), far below the
-// H100's ~590 int8 operations per byte of HBM: the bytes bound it (the
-// input read once, the output written once). The design reads x in 4-byte
-// runs that coalesce across a warp and writes 4 output bytes a thread; it
-// does not stage tiles in shared memory, a later step.
-//
-// Rounding: __float2int_rn (half to even), as jnp.round does; the multiply
-// by __fmul_rn, so no contraction into an FMA can move a tie.
+// Rounding: round half to even, as jnp.round does; the multiply by
+// __fmul_rn, so no contraction into an FMA can move a tie.
 //
 // Capturable in a CUDA graph: it launches on the stream it is given,
 // allocates nothing and does not synchronise.
 
+#include <cuda.h>  // CUtensorMap and its enums, reached through the runtime
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// general: one thread per output pixel and run of 4 channels
+// ---------------------------------------------------------------------------
 struct Params {
   const int8_t* x;
   const int8_t* w;
@@ -57,7 +105,6 @@ struct Params {
   int H, W, C, OH, OW, O, Op, Cg, Og, KH, KW, stride_h, stride_w, pad_h, pad_w;
 };
 
-template <int MODE>
 __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const Params p) {
   const int runs = p.Op >> 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,23 +126,14 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
       if (iw < 0 || iw >= p.W) continue;
       const int8_t* px = xb + ((long long)ih * p.W + iw) * p.C;
       const int8_t* pw = p.w + (long long)(kh * p.KW + kw) * p.Cg * p.Op + o0;
-      if (MODE == 0) {
-        const char4 xv = *reinterpret_cast<const char4*>(px + o0);
-        const char4 wv = *reinterpret_cast<const char4*>(pw);
-        acc[0] += (int)xv.x * (int)wv.x;
-        acc[1] += (int)xv.y * (int)wv.y;
-        acc[2] += (int)xv.z * (int)wv.z;
-        acc[3] += (int)xv.w * (int)wv.w;
-      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = o0 + j;
-          if (o >= p.O) break;
-          const int8_t* pg = px + (o / p.Og) * p.Cg;
-          int s = 0;
-          for (int c = 0; c < p.Cg; ++c) s += (int)pg[c] * (int)pw[(long long)c * p.Op + j];
-          acc[j] += s;
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + j;
+        if (o >= p.O) break;
+        const int8_t* pg = px + (o / p.Og) * p.Cg;
+        int s = 0;
+        for (int c = 0; c < p.Cg; ++c) s += (int)pg[c] * (int)pw[(long long)c * p.Op + j];
+        acc[j] += s;
       }
     }
   }
@@ -122,17 +160,400 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
   }
 }
 
+// ---------------------------------------------------------------------------
+// tile: depthwise 3x3 over TMA-staged tiles, IDP4A, register blocking
+// ---------------------------------------------------------------------------
+constexpr int TILE_THREADS = 256;
+// |bias| up to this keeps every sum s = bias + 9 products (each at most
+// 128 * 128) inside [-2^22, 2^22), where the float trick is exact
+constexpr int FAST_BIAS = (1 << 22) - 9 * 128 * 128 - 1;
+
+struct TileParams {
+  const int8_t* w;      // packed [9, C]
+  const float* mult;    // [C]
+  const int32_t* bias;  // [C] or null
+  int8_t* y;            // [B, OH, OW, C]
+  int C, OH, OW;
+  int TH, TW, CR;       // output tile: rows, columns, channel run
+  int BH, BW;           // input box: rows, columns
+  int n_c, n_w, n_h;    // tiles along channels, columns, rows
+  unsigned tiles;       // B * n_h * n_w * n_c
+  int pad_h, pad_w;
+  unsigned buf_bytes;   // one staging buffer: an input box, rounded up to 128
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A tile id split into (image, row tile, column tile, channel run).
+struct Tile {
+  int b, th, tw, cr;
+};
+
+__device__ __forceinline__ Tile split_tile(unsigned t, const TileParams& p) {
+  Tile r;
+  r.cr = (int)(t % (unsigned)p.n_c);
+  t /= (unsigned)p.n_c;
+  r.tw = (int)(t % (unsigned)p.n_w);
+  t /= (unsigned)p.n_w;
+  r.th = (int)(t % (unsigned)p.n_h);
+  r.b = (int)(t / (unsigned)p.n_h);
+  return r;
+}
+
+// Words u[j] = the 4 channels at column j -> t[k] = channel k's bytes of
+// columns 0..3 (a 4 x 4 byte transpose in 8 PRMTs).
+__device__ __forceinline__ void transpose4(uint32_t u0, uint32_t u1, uint32_t u2, uint32_t u3,
+                                           uint32_t (&t)[4]) {
+  const uint32_t a_lo = __byte_perm(u0, u1, 0x5140), a_hi = __byte_perm(u0, u1, 0x7362);
+  const uint32_t b_lo = __byte_perm(u2, u3, 0x5140), b_hi = __byte_perm(u2, u3, 0x7362);
+  t[0] = __byte_perm(a_lo, b_lo, 0x5410);
+  t[1] = __byte_perm(a_lo, b_lo, 0x7632);
+  t[2] = __byte_perm(a_hi, b_hi, 0x5410);
+  t[3] = __byte_perm(a_hi, b_hi, 0x7632);
+}
+
+// One row of the staged tile as a thread reads it: at stride 1, a[k] holds
+// channel k at the row's 4 columns; at stride 2, a[k] columns 0..3 and
+// e[k] columns 2..4 (byte 3 is multiplied by a zero weight).
+template <int S>
+struct Row {
+  uint32_t a[4];
+  uint32_t e[S == 2 ? 4 : 1];
+};
+
+template <int S>
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ src, int Q, Row<S>& r) {
+  transpose4(src[0], src[Q], src[2 * Q], src[3 * Q], r.a);
+  if constexpr (S == 2) {
+    const uint32_t u4 = src[4 * Q];
+    r.e[0] = __byte_perm(r.a[0], u4, 0x0432);
+    r.e[1] = __byte_perm(r.a[1], u4, 0x0532);
+    r.e[2] = __byte_perm(r.a[2], u4, 0x0632);
+    r.e[3] = __byte_perm(r.a[3], u4, 0x0732);
+  }
+}
+
+// sat_int8(rint(float(s) * m)) in the low byte (see the note).
+__device__ __forceinline__ uint32_t requant_bits(int s, float m, bool fast) {
+  const float f = fast ? __fsub_rn(__int_as_float(s + 0x4B400000), 12582912.0f)
+                       : __int2float_rn(s);
+  const float v = fminf(fmaxf(__fmul_rn(f, m), -128.0f), 127.0f);
+  return (uint32_t)__float_as_int(__fadd_rn(v, 12582912.0f));
+}
+
+__device__ __forceinline__ uint32_t pack4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  return __byte_perm(__byte_perm(r0, r1, 0x0040), __byte_perm(r2, r3, 0x0040), 0x5410);
+}
+
+
+// What a thread holds for one tile: its channels' kernel-row weight words,
+// multipliers and biases, and where its outputs go.
+template <int S>
+struct Thread {
+  uint32_t wa[3][4];                 // kernel row kh, channel k: [w0, w1, w2, 0]
+  uint32_t wb[S == 1 ? 3 : 1][4];    // stride 1: [0, w0, w1, w2]
+  float m[4];
+  int bias[4];
+  int8_t* y;        // the tile's output row 0 at this thread's first column
+  long long y_row;  // bytes from one output row to the next
+  int y_col;        // bytes from one output column to the next (C)
+  bool col1;        // the second column lies inside the image
+};
+
+// Loads the thread's weights (packed [9, C], 4 channels from c), mult and
+// bias; returns whether every bias keeps the float trick exact.
+template <int S>
+__device__ __forceinline__ bool load_thread(Thread<S>& th, const TileParams& p, int c) {
+  const int cw = p.C >> 2;  // a tap row in words
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+    const uint32_t* pw = reinterpret_cast<const uint32_t*>(p.w + kh * 3 * p.C + c);
+    transpose4(__ldg(pw), __ldg(pw + cw), __ldg(pw + 2 * cw), 0u, th.wa[kh]);
+    if constexpr (S == 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) th.wb[kh][k] = th.wa[kh][k] << 8;
+    }
+  }
+  bool fast = true;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    th.m[k] = __ldg(p.mult + c + k);
+    th.bias[k] = p.bias != nullptr ? __ldg(p.bias + c + k) : 0;
+    fast = fast && th.bias[k] >= -FAST_BIAS && th.bias[k] <= FAST_BIAS;
+  }
+  return fast;
+}
+
+// Output row i of the tile from staged input rows r0, r1, r2 (kernel rows
+// 0, 1, 2): both columns, 4 channels, requantised and stored.
+template <int S, bool FAST>
+__device__ __forceinline__ void out_row(const Thread<S>& th, const Row<S>& r0, const Row<S>& r1,
+                                        const Row<S>& r2, int i) {
+  uint32_t q0[4], q1[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int s0 = __dp4a((int)r0.a[k], (int)th.wa[0][k], th.bias[k]);
+    s0 = __dp4a((int)r1.a[k], (int)th.wa[1][k], s0);
+    s0 = __dp4a((int)r2.a[k], (int)th.wa[2][k], s0);
+    int s1;
+    if constexpr (S == 1) {
+      s1 = __dp4a((int)r0.a[k], (int)th.wb[0][k], th.bias[k]);
+      s1 = __dp4a((int)r1.a[k], (int)th.wb[1][k], s1);
+      s1 = __dp4a((int)r2.a[k], (int)th.wb[2][k], s1);
+    } else {
+      s1 = __dp4a((int)r0.e[k], (int)th.wa[0][k], th.bias[k]);
+      s1 = __dp4a((int)r1.e[k], (int)th.wa[1][k], s1);
+      s1 = __dp4a((int)r2.e[k], (int)th.wa[2][k], s1);
+    }
+    q0[k] = requant_bits(s0, th.m[k], FAST);
+    q1[k] = requant_bits(s1, th.m[k], FAST);
+  }
+  int8_t* dst = th.y + i * th.y_row;
+  *reinterpret_cast<uint32_t*>(dst) = pack4(q0[0], q0[1], q0[2], q0[3]);
+  if (th.col1) *reinterpret_cast<uint32_t*>(dst + th.y_col) = pack4(q1[0], q1[1], q1[2], q1[3]);
+}
+
+// The thread's `rows` output rows of one tile. src: its first word in box
+// row 0; Q: words a box column; rs: words a box row. The last rows read
+// rotate through registers (unrolled so that no row is copied).
+template <int S, bool FAST>
+__device__ __forceinline__ void run_tile(const uint32_t* __restrict__ src, int Q, int rs,
+                                         int rows, const Thread<S>& th) {
+  if constexpr (S == 1) {
+    Row<1> a, b, c;
+    load_row<1>(src, Q, a);
+    load_row<1>(src + rs, Q, b);
+    const uint32_t* nxt = src + 2 * rs;
+    int i = 0;
+    for (; i + 3 <= rows; i += 3) {
+      load_row<1>(nxt, Q, c);
+      out_row<1, FAST>(th, a, b, c, i);
+      load_row<1>(nxt + rs, Q, a);
+      out_row<1, FAST>(th, b, c, a, i + 1);
+      load_row<1>(nxt + 2 * rs, Q, b);
+      out_row<1, FAST>(th, c, a, b, i + 2);
+      nxt += 3 * rs;
+    }
+    if (i < rows) {
+      load_row<1>(nxt, Q, c);
+      out_row<1, FAST>(th, a, b, c, i);
+      if (i + 1 < rows) {
+        load_row<1>(nxt + rs, Q, a);
+        out_row<1, FAST>(th, b, c, a, i + 1);
+      }
+    }
+  } else {
+    Row<2> e0, o, e1;
+    load_row<2>(src, Q, e0);
+    const uint32_t* nxt = src + rs;
+    int i = 0;
+    for (; i + 2 <= rows; i += 2) {
+      load_row<2>(nxt, Q, o);
+      load_row<2>(nxt + rs, Q, e1);
+      out_row<2, FAST>(th, e0, o, e1, i);
+      load_row<2>(nxt + 2 * rs, Q, o);
+      load_row<2>(nxt + 3 * rs, Q, e0);
+      out_row<2, FAST>(th, e1, o, e0, i + 1);
+      nxt += 4 * rs;
+    }
+    if (i < rows) {
+      load_row<2>(nxt, Q, o);
+      load_row<2>(nxt + rs, Q, e1);
+      out_row<2, FAST>(th, e0, o, e1, i);
+    }
+  }
+}
+
+// Persistent blocks over output tiles, two staged input tiles a block: tile
+// k + 1's TMA load is in flight while tile k computes. Thread tid owns
+// channel quad tid % Q and column pair tid / Q of every tile.
+template <int S>
+__global__ void __launch_bounds__(TILE_THREADS)
+    qconv_grouped_int8_requant_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                                           const TileParams p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t buf0 = smem_u32(smem);
+  const uint32_t bar0 = buf0 + 2 * p.buf_bytes, bar1 = bar0 + 8;
+  const int Q = p.CR >> 2;
+  const int tid = threadIdx.x;
+  const int q = tid % Q, pc = tid / Q;
+  const uint32_t box = (uint32_t)(p.BH * p.BW * p.CR);
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // tile t's input box into staging slot s, by thread 0
+  auto load_tile = [&](unsigned t, int s) {
+    const Tile tl = split_tile(t, p);
+    const uint32_t bar = s ? bar1 : bar0;
+    mbar_arrive_tx(bar, box);
+    tma_load_4d(buf0 + s * p.buf_bytes, &xmap, bar, tl.cr * p.CR, tl.tw * p.TW * S - p.pad_w,
+                tl.th * p.TH * S - p.pad_h, tl.b);
+  };
+  if (tid == 0 && blockIdx.x < p.tiles) load_tile(blockIdx.x, 0);
+  int it = 0;
+  for (unsigned t = blockIdx.x; t < p.tiles; t += gridDim.x, ++it) {
+    const int s = it & 1;
+    if (tid == 0 && t + gridDim.x < p.tiles) load_tile(t + gridDim.x, s ^ 1);
+    const Tile tl = split_tile(t, p);
+    const int c = tl.cr * p.CR + 4 * q;
+    const int ow = tl.tw * p.TW + 2 * pc;
+    const int oh0 = tl.th * p.TH;
+    const bool active = pc < (p.TW >> 1) && c < p.C && ow < p.OW;
+    Thread<S> th;
+    bool fast = true;
+    if (active) {  // the weights load while the tile's bytes arrive
+      fast = load_thread<S>(th, p, c);
+      th.y = p.y + (((long long)tl.b * p.OH + oh0) * p.OW + ow) * p.C + c;
+      th.y_row = (long long)p.OW * p.C;
+      th.y_col = p.C;
+      th.col1 = ow + 1 < p.OW;
+    }
+    mbar_wait(s ? bar1 : bar0, (it >> 1) & 1);
+    if (active) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(smem + s * p.buf_bytes) +
+                            2 * S * pc * Q + q;
+      const int rows = min(p.TH, p.OH - oh0);
+      if (fast)
+        run_tile<S, true>(src, Q, p.BW * Q, rows, th);
+      else
+        run_tile<S, false>(src, Q, p.BW * Q, rows, th);
+    }
+    __syncthreads();  // slot s is read; the next iteration's load may reuse it
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled as the CUDA runtime already loaded it, so the
+// library links no libcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(sym);
+  }
+  return fn;
+}
+
+// The largest dynamic shared memory a block may have (227 KB).
+constexpr size_t MAX_SMEM = 232448;
+
+template <int S>
+cudaError_t launch_tile(const void* x, int B, int H, int W, const TileParams& p, size_t smem,
+                        int threads, cudaStream_t st) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  // x int8 [B, H, W, C] as a 4-D tensor map, innermost dimension first;
+  // boxes of CR x BW x BH x 1; reads outside the tensor return zeros
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {(cuuint64_t)p.C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)p.C, (cuuint64_t)W * p.C,
+                                 (cuuint64_t)H * W * p.C};
+  const cuuint32_t box[4] = {(cuuint32_t)p.CR, (cuuint32_t)p.BW, (cuuint32_t)p.BH, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, box, elem,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kern = qconv_grouped_int8_requant_tile_kernel<S>;
+  static size_t opted_in = 0;  // the shared memory this instantiation may use
+  static size_t occ_smem = 0;  // the (shared memory, threads) occ was taken at
+  static int occ_threads = 0;
+  static int occ = 0;          // blocks an SM holds there
+  cudaError_t e;
+  if (smem > opted_in) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  if (smem != occ_smem || threads != occ_threads) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem);
+    if (e != cudaSuccess) return e;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    occ_smem = smem;
+    occ_threads = threads;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const long long resident = (long long)sms * occ;
+  const unsigned blocks = (unsigned)(p.tiles < resident ? p.tiles : resident);
+  kern<<<blocks, threads, smem, st>>>(map, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x, w (packed), mult f32 [O], bias int32 [O] or null, y int8 [M, O]. mode:
-// 0 depthwise char4 (requires Cg = Og = 1, C % 4 == 0 and x 4-byte
-// aligned), 1 any. The output
+// x, w (packed), mult f32 [O], bias int32 [O] or null, y int8 [M, O].
+// tile: null for the general form (any group > 1), or the tile form's plan
+// (depthwise 3x3, stride 1 or 2 in both dimensions, C % 16 == 0, x 16-byte
+// aligned) as grouped_plan gives it (qconv_grouped_int8.py::tile_args):
+// {TH, TW, channel run, box rows, box columns, staging buffer bytes, shared
+// memory bytes, threads, row tiles, column tiles, channel runs}. The output
 // pointer must be 4-byte aligned when O % 4 == 0. Launches on `stream`;
-// returns the launch's error.
+// returns the launch's error, or cudaErrorInvalidValue for arguments the
+// form does not take.
 extern "C" cudaError_t qconv_grouped_int8_requant_launch(
     const void* x, const void* w, const void* mult, const void* bias, void* y, int B,
     int H, int W, int C, int OH, int OW, int O, int Cg, int KH, int KW, int stride_h,
-    int stride_w, int pad_h, int pad_w, int mode, void* stream) {
+    int stride_w, int pad_h, int pad_w, const int* tile, void* stream) {
   const long long M = (long long)B * OH * OW;
   if (M <= 0 || O <= 0) return cudaSuccess;
   if (x == nullptr || w == nullptr || mult == nullptr || y == nullptr || Cg <= 0 ||
@@ -143,6 +564,50 @@ extern "C" cudaError_t qconv_grouped_int8_requant_launch(
   if (O % group != 0) return cudaErrorInvalidValue;
   const int Og = O / group;
   if (O % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 4 != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile != nullptr) {
+    const int s = stride_h;
+    if (Cg != 1 || Og != 1 || KH != 3 || KW != 3 || stride_w != s || (s != 1 && s != 2) ||
+        C % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(w) % 4 != 0)
+      return cudaErrorInvalidValue;
+    TileParams p;
+    p.w = static_cast<const int8_t*>(w);
+    p.mult = static_cast<const float*>(mult);
+    p.bias = static_cast<const int32_t*>(bias);
+    p.y = static_cast<int8_t*>(y);
+    p.C = C;
+    p.OH = OH;
+    p.OW = OW;
+    p.TH = tile[0];
+    p.TW = tile[1];
+    p.CR = tile[2];
+    p.BH = tile[3];
+    p.BW = tile[4];
+    const long long buf = tile[5], smem = tile[6];
+    const int threads = tile[7];
+    p.n_h = tile[8];
+    p.n_w = tile[9];
+    p.n_c = tile[10];
+    p.pad_h = pad_h;
+    p.pad_w = pad_w;
+    const long long tiles = (long long)B * p.n_h * p.n_w * p.n_c;
+    // the limits: a thread's reads inside the box, tiles covering the
+    // output, TMA's box (sides <= 256, rows of 16-byte multiples), the
+    // block's threads and shared memory (two buffers, then two barriers)
+    if (p.TH < 1 || p.TW < 2 || p.TW % 2 != 0 || p.CR < 16 || p.CR % 16 != 0 ||
+        p.CR > 256 || p.BH < (p.TH - 1) * s + 3 || p.BW < (p.TW - 1) * s + 3 || p.BH > 256 ||
+        p.BW > 256 || (long long)p.n_h * p.TH < OH || (long long)p.n_w * p.TW < OW ||
+        (long long)p.n_c * p.CR < C || p.n_h < 1 || p.n_w < 1 || p.n_c < 1 ||
+        buf % 128 != 0 || buf < (long long)p.BH * p.BW * p.CR || smem < 2 * buf + 16 ||
+        smem > (long long)MAX_SMEM || threads % 32 != 0 ||
+        threads < (p.CR / 4) * (p.TW / 2) || threads > TILE_THREADS || tiles >= (1LL << 31))
+      return cudaErrorInvalidValue;
+    p.buf_bytes = (unsigned)buf;
+    p.tiles = (unsigned)tiles;
+    return s == 1 ? launch_tile<1>(x, B, H, W, p, (size_t)smem, threads, st)
+                  : launch_tile<2>(x, B, H, W, p, (size_t)smem, threads, st);
+  }
   Params p;
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
@@ -168,15 +633,6 @@ extern "C" cudaError_t qconv_grouped_int8_requant_launch(
   const long long threads = M * (p.Op / 4);
   const long long blocks = (threads + 255) / 256;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 0) {
-    if (Cg != 1 || Og != 1 || C % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 4 != 0)
-      return cudaErrorInvalidValue;
-    qconv_grouped_int8_requant_kernel<0><<<(unsigned)blocks, 256, 0, st>>>(p);
-  } else if (mode == 1) {
-    qconv_grouped_int8_requant_kernel<1><<<(unsigned)blocks, 256, 0, st>>>(p);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  qconv_grouped_int8_requant_kernel<<<(unsigned)blocks, 256, 0, st>>>(p);
   return cudaGetLastError();
 }

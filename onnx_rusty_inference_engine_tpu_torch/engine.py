@@ -25,7 +25,9 @@ raises).
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
+import threading
 import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -39,7 +41,8 @@ from .ops.registry import LoweringContext, UnsupportedOpError, get_emitter
 from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
 
 __all__ = ["lower", "Engine", "InferenceResult", "resolve_device",
-           "captures", "capture", "Replay", "signature", "side_stream"]
+           "captures", "capture", "collector_held", "Replay", "signature",
+           "side_stream"]
 
 # ops that need no emitter when their inputs are known before the run
 # (Shape/Size always are; the foldable ops when fed static values)
@@ -180,6 +183,36 @@ class Replay:
         counters.add(self.gains)
 
 
+_hold_lock = threading.Lock()
+_holds = 0
+_collector_was_on = False
+
+
+@contextlib.contextmanager
+def collector_held():
+    """Keep Python's cycle collector off for the block. A collection while
+    a stream captures may free an unreachable CUDAGraph (one held only by
+    a reference cycle, as a dropped Engine's graphs are); its destruction
+    is not permitted during a capture and invalidates the capture under
+    way, which then fails at its end (cudaErrorStreamCaptureInvalidated).
+    The collector is process-wide, so is the hold: nested and concurrent
+    holds keep it off until the last one ends, which restores the state
+    the first one found. Unreachable cycles are collected after."""
+    global _holds, _collector_was_on
+    with _hold_lock:
+        if _holds == 0:
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _holds += 1
+    try:
+        yield
+    finally:
+        with _hold_lock:
+            _holds -= 1
+            if _holds == 0 and _collector_was_on:
+                gc.enable()
+
+
 def capture(fn: Callable, *, stream, pool=None, generators=()
             ) -> Tuple[object, Replay]:
     """Capture `fn()` into one CUDA graph on the side stream `stream`:
@@ -189,15 +222,17 @@ def capture(fn: Callable, *, stream, pool=None, generators=()
     ordered after the current stream's. The counters' gain over the
     capture is taken back out: nothing ran. `generators` are the
     torch.Generators fn draws from: each replay advances them as the
-    eager calls would. A capture that fails raises."""
+    eager calls would. The cycle collector is held off meanwhile
+    (`collector_held`). A capture that fails raises."""
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
     before = counters.snapshot()
     # thread_local: a server captures on its dispatcher thread while
     # client threads may touch the card
-    with torch.cuda.graph(graph, pool=pool, stream=stream,
-                          capture_error_mode="thread_local"):
+    with collector_held(), torch.cuda.graph(
+            graph, pool=pool, stream=stream,
+            capture_error_mode="thread_local"):
         out = fn()
     gains = counters.delta(before)
     counters.add(gains, -1)

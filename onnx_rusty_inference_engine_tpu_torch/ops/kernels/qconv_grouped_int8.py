@@ -7,19 +7,21 @@ the bias add and `_requant`
 (onnx_rusty_inference_engine_tpu/ops/quantized.py:126-146). On the card no
 library call takes an int8 grouped conv, and cuDNN in f32 may pick a
 rounding (Winograd, FFT) algorithm, so the port computes it in a kernel of
-its own: `csrc/qconv_grouped_int8.cu`, a direct convolution over
-channels-last int8, one thread per output pixel and run of 4 output
-channels, int32 sums, the requant of `_requant` in registers, a
-channels-last int8 output. Its source note says what bounds it on the
-H100.
+its own, `csrc/qconv_grouped_int8.cu`: int32 sums, the requant of
+`_requant` in registers, channels-last int8 in and out. Its source note
+says what bounds it on the H100 and how each form works.
+
+`grouped_plan` picks the kernel's form from the shapes, and for the tile
+form the whole launch: "tile" (depthwise 3x3 at stride 1 or 2, C % 16 ==
+0, x 16-byte aligned: TMA-staged input tiles, IDP4A, register blocking)
+or "general" (any other group > 1: one thread per output pixel and 4
+output channels). The kernel's entry point takes the tile form's plan as
+it is and only checks it against its limits.
 
 On the card the wrapper reads a channels-last input as it is (any other is
 copied channels-last) and returns a [B, O, OH, OW] view with
 `torch.channels_last` strides of the kernel's [B*OH*OW, O] output, as
 `qconv_int8_requant` does, so the ops between convs keep the layout.
-`grouped_mode` picks the kernel's form from the shapes: "depthwise" (one
-input channel per output channel, C % 4 == 0: char4 loads) or "general"
-(any other group > 1).
 
 The wrapper takes a tensor on the CPU to the kernel's plain PyTorch
 version (`qconv_grouped_int8_requant_plain`, exact float64 sums through
@@ -40,14 +42,25 @@ from . import _build
 from .qmatmul_int8 import _requant, check_operand, mult_vector
 
 __all__ = ["qconv_grouped_int8_requant", "qconv_grouped_int8_requant_plain",
-           "pack_qconv_grouped_weight", "grouped_mode", "conv_groups",
-           "MODES", "RUN"]
+           "pack_qconv_grouped_weight", "grouped_mode", "grouped_plan",
+           "input_align", "conv_groups", "tile_args", "FORMS", "RUN"]
 
 # output channels per thread; packed weight columns are padded to it
 RUN = 4
 
-# form name -> the mode id the C entry point takes
-MODES = {"depthwise": 0, "general": 1}
+# the kernel's forms, the keys of `.schedules`
+FORMS = ("tile", "general")
+
+# the tile form: the most threads a block (the kernel's launch bound), the
+# bytes one staged input tile may take (two are in flight a block, so three
+# blocks fit an SM's 227 KB), the widest C taken whole as one channel run,
+# the other channel runs (TMA boxes of 16-byte multiples), the largest TMA
+# box side
+TILE_THREADS = 256
+TILE_BUF = 32 * 1024
+TILE_WHOLE = 160
+TILE_RUNS = (64, 48, 32, 16)
+BOX_MAX = 256
 
 # the largest taps per output (Cg * KH * KW) whose int32 sums cannot
 # overflow: every product is at most 128 * 128 in magnitude
@@ -67,13 +80,83 @@ def conv_groups(x_shape: Sequence[int], w_shape: Sequence[int]) -> int:
 
 
 def grouped_mode(C: int, Cg: int, O: int, group: int,
-                 x_aligned: bool = True) -> str:
+                 kernel: Sequence[int], stride: Sequence[int],
+                 x_align: int = 16) -> str:
     """The kernel's form for a conv of C input channels in `group` groups
-    of Cg, O output channels: "depthwise" for one input channel per output
-    channel with C % 4 == 0 and x 4-byte aligned, "general" otherwise."""
-    if Cg == 1 and O == group and C % 4 == 0 and x_aligned:
-        return "depthwise"
+    of Cg, O output channels, a kernel of kernel = (KH, KW) at `stride`,
+    over an input whose address is a multiple of `x_align` bytes: "tile"
+    for a depthwise 3x3 at stride 1 or 2 with C % 16 == 0 and x 16-byte
+    aligned, "general" otherwise."""
+    if (Cg == 1 and O == group and tuple(kernel) == (3, 3)
+            and tuple(stride) in ((1, 1), (2, 2)) and C % 16 == 0
+            and x_align % 16 == 0):
+        return "tile"
     return "general"
+
+
+def _tile(B: int, C: int, OH: int, OW: int, s: int) -> dict:
+    """The tile form's launch for a depthwise 3x3 at stride s. The channel
+    run: C itself up to TILE_WHOLE channels, so that each row of the TMA
+    box is one contiguous run of bytes (chip_smoke.py's grouped kernel
+    lines time the run TILE_RUNS alone would give beside it), else the one
+    of TILE_RUNS that wastes the fewest channels, the widest of those. A
+    thread takes 4 channels and 2 columns, so a block's run x columns are
+    (run / 4) x (TW / 2) threads, at most TILE_THREADS: TW is the widest
+    that splits OW evenly into that many. TH: the most rows whose input
+    box (with its halo) fits TILE_BUF, split evenly into OH. The staging
+    buffer is the box rounded up to 128 bytes; a block holds two and
+    their two 8-byte barriers."""
+    runs = ((C,) if C <= TILE_WHOLE else ()) + tuple(TILE_RUNS)
+    run = min(runs, key=lambda r: (-(-C // r) * r - C, -r))
+    pairs = -(-OW // 2)
+    p_max = min(TILE_THREADS // (run // 4), ((BOX_MAX - 3) // s + 1) // 2)
+    n_w = -(-pairs // p_max)
+    tw = 2 * -(-pairs // n_w)
+    bw = (tw - 1) * s + 3
+    rows = max(1, min((TILE_BUF // (bw * run) - 3) // s + 1,
+                      (BOX_MAX - 3) // s + 1))
+    n_h = -(-OH // rows)
+    th = -(-OH // n_h)
+    bh = (th - 1) * s + 3
+    buf = -(-bh * bw * run // 128) * 128
+    grid = (B, -(-OH // th), -(-OW // tw), -(-C // run))
+    return {"tile": (th, tw), "run": run, "box": (bh, bw, run), "buf": buf,
+            "smem": 2 * buf + 16,
+            "threads": -(-(run // 4) * (tw // 2) // 32) * 32,
+            "grid": grid, "tiles": grid[0] * grid[1] * grid[2] * grid[3]}
+
+
+def tile_args(plan: dict) -> Tuple[int, ...]:
+    """The tile form's plan as the kernel's entry point takes it: TH, TW,
+    channel run, box rows and columns, staging buffer bytes, shared
+    memory, threads, and row, column and channel tiles an image."""
+    (th, tw), (bh, bw, run) = plan["tile"], plan["box"]
+    return (th, tw, run, bh, bw, plan["buf"], plan["smem"], plan["threads"],
+            *plan["grid"][1:])
+
+
+def grouped_plan(x_shape: Sequence[int], w_shape: Sequence[int],
+                 stride: Sequence[int], padding: Padding,
+                 x_align: int = 16) -> dict:
+    """How the kernel runs a grouped conv of x [B, C, H, W] by w [O, Cg,
+    KH, KW]: the form (`grouped_mode`, the key `.schedules` counts) and,
+    for the tile form, the launch the kernel takes (`tile_args`): the
+    output tile (TH, TW), the channel run, the input box (rows, columns,
+    channels), the staging buffer, the block's shared memory and threads,
+    and the grid of tiles (B, row tiles, column tiles, channel runs),
+    which persistent blocks walk. The general form: one 256-thread block
+    per 256 (pixel, 4 channels) pairs."""
+    B, C, H, W = x_shape
+    O, Cg, KH, KW = w_shape
+    group = conv_groups(x_shape, w_shape)
+    OH, OW = _out_hw(H, W, KH, KW, stride, padding)
+    form = grouped_mode(C, Cg, O, group, (KH, KW), stride, x_align)
+    if form == "tile":
+        return {"form": form, **_tile(B, C, OH, OW, stride[0])}
+    threads = B * OH * OW * (-(-O // RUN))
+    return {"form": form, "tile": None, "run": None, "box": None,
+            "buf": None, "smem": 0, "threads": 256,
+            "grid": (-(-threads // 256),), "tiles": None}
 
 
 def pack_qconv_grouped_weight(w: torch.Tensor) -> torch.Tensor:
@@ -88,6 +171,11 @@ def pack_qconv_grouped_weight(w: torch.Tensor) -> torch.Tensor:
                       device=w.device)
     out[:, :O] = w.permute(2, 3, 1, 0).reshape(KH * KW * Cg, O)
     return out
+
+
+def address_align(ptr: int) -> int:
+    """The largest power of two up to 16 that divides an address."""
+    return min(16, ptr & -ptr) if ptr else 16
 
 
 def _out_hw(H: int, W: int, KH: int, KW: int, stride: Sequence[int],
@@ -125,10 +213,18 @@ def qconv_grouped_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
 def _lib_fn():
     fn = _build.load("qconv_grouped_int8").qconv_grouped_int8_requant_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
+
+
+def input_align(x: torch.Tensor) -> int:
+    """The alignment of the channels-last bytes the kernel reads for x
+    [B, C, H, W]: x's own where its channels-last view is contiguous, else
+    that of the fresh copy the wrapper makes (16)."""
+    xl = x.permute(0, 2, 3, 1)
+    return address_align(xl.data_ptr()) if xl.is_contiguous() else 16
 
 
 def qconv_grouped_int8_requant(x: torch.Tensor, w: torch.Tensor,
@@ -144,18 +240,28 @@ def qconv_grouped_int8_requant(x: torch.Tensor, w: torch.Tensor,
     [B,O,OH,OW].
 
     On the card `packed` must be `pack_qconv_grouped_weight(w)`, made once
-    per weight, and the result is channels-last (see the module note)."""
+    per weight, and the result is channels-last (see the module note); the
+    kernel runs in the form `grouped_plan` gives, counted in `.schedules`."""
     if x.device.type == "cpu":
         return qconv_grouped_int8_requant_plain(x, w, mult, bias,
                                                 stride=stride,
                                                 padding=padding)
+    y, form = _launch(x, w, mult, bias, stride, padding, packed)
+    qconv_grouped_int8_requant.launches += 1
+    qconv_grouped_int8_requant.schedules[form] += 1
+    return y
+
+
+def _launch(x, w, mult, bias, stride, padding, packed):
+    """Check the operands and launch the kernel once on the card, in the
+    form `grouped_plan` gives. Counts nothing. -> (y, the form)."""
     fn = "qconv_grouped_int8_requant"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {x.device}")
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
                          f"are not a 2-D conv")
-    group = conv_groups(x.shape, w.shape)
+    conv_groups(x.shape, w.shape)
     B, C, H, W = x.shape
     O, Cg, KH, KW = w.shape
     (pt, pb), (pl, pr) = padding
@@ -181,23 +287,27 @@ def qconv_grouped_int8_requant(x: torch.Tensor, w: torch.Tensor,
     if (min(dims[:12]) <= 0 or max(dims) >= 2 ** 31
             or Cg * KH * KW > MAX_TAPS or B * OH * OW >= 2 ** 40):
         raise ValueError(f"{fn}: dims out of range {dims}")
+    plan = grouped_plan(x.shape, w.shape, (sh, sw), padding,
+                        input_align(x))
     xl = x.permute(0, 2, 3, 1)
     if not xl.is_contiguous():
         xl = xl.contiguous()
-    mode = grouped_mode(C, Cg, O, group, xl.data_ptr() % 4 == 0)
+    tile = None
+    if plan["form"] == "tile":
+        args = tile_args(plan)
+        tile = (ctypes.c_int * len(args))(*args)
     y = torch.empty((B * OH * OW, O), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = _lib_fn()(
             xl.data_ptr(), packed.data_ptr(), mult.data_ptr(),
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            *dims, MODES[mode], torch.cuda.current_stream(dev).cuda_stream)
+            *dims, ctypes.addressof(tile) if tile is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{fn}: launch in {mode} mode failed with "
-                           f"cudaError {err}")
-    qconv_grouped_int8_requant.launches += 1
-    qconv_grouped_int8_requant.schedules[mode] += 1
-    return y.view(B, OH, OW, O).permute(0, 3, 1, 2)
+        raise RuntimeError(f"{fn}: launch in the {plan['form']} form failed "
+                           f"with cudaError {err}")
+    return y.view(B, OH, OW, O).permute(0, 3, 1, 2), plan["form"]
 
 
 qconv_grouped_int8_requant.launches = 0
-qconv_grouped_int8_requant.schedules = dict.fromkeys(MODES, 0)
+qconv_grouped_int8_requant.schedules = dict.fromkeys(FORMS, 0)

@@ -22,18 +22,28 @@ __all__ = ["InferenceServer", "ServerStats"]
 
 
 class ServerStats:
+    """Requests, batches and rows served. `padding_overhead` is the share
+    of the rows run that were padding: rows, not requests, because a
+    request may carry several examples (the JAX package's ServerStats
+    counts requests against rows, onnx_rusty_inference_engine_tpu/serve.py:41)."""
+
     def __init__(self) -> None:
         self.requests = 0
         self.batches = 0
+        self.rows = 0
         self.padded = 0
         self.latencies: List[float] = []
         self._lock = threading.Lock()
 
-    def record(self, n_real: int, n_padded: int, latencies: Sequence[float]):
+    def record(self, n_requests: int, n_rows: int, n_padded: int,
+               latencies: Sequence[float]):
+        """One batch: n_requests requests of n_rows examples in all, run
+        as a bucket of n_padded rows."""
         with self._lock:
-            self.requests += n_real
+            self.requests += n_requests
             self.batches += 1
-            self.padded += n_padded - n_real
+            self.rows += n_rows
+            self.padded += n_padded - n_rows
             self.latencies.extend(latencies)
 
     def summary(self) -> Dict[str, float]:
@@ -42,7 +52,7 @@ class ServerStats:
             return {
                 "requests": self.requests,
                 "batches": self.batches,
-                "padding_overhead": self.padded / max(1, self.requests + self.padded),
+                "padding_overhead": self.padded / max(1, self.rows + self.padded),
                 "p50_latency_s": float(np.percentile(lat, 50)),
                 "p99_latency_s": float(np.percentile(lat, 99)),
             }
@@ -213,4 +223,5 @@ class InferenceServer:
                     {k: v[offset:offset + i.n] for k, v in out_np.items()})
                 lats.append(now - i.t_enqueue)
                 offset += i.n
-            self.stats.record(len(items), total, lats)
+            self.stats.record(len(items), sum(i.n for i in items), total,
+                              lats)

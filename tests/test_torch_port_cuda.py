@@ -32,6 +32,7 @@ import torch
 from onnx_rusty_inference_engine_tpu_torch import (
     Engine, calibrate, import_model, quantize_graph)
 from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+from onnx_rusty_inference_engine_tpu_torch.engine import collector_held
 from onnx_rusty_inference_engine_tpu_torch.models._builder import (
     GraphBuilder)
 from onnx_rusty_inference_engine_tpu_torch.generate import Generator
@@ -421,7 +422,7 @@ def test_attention_in_a_cuda_graph_equals_eager(cuda, mxu):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = kern.launches
-    with torch.cuda.graph(graph):
+    with collector_held(), torch.cuda.graph(graph):
         out = kern(q, k8, v8, bias, n_q_heads=H)
     assert kern.launches == before + 1
     for _ in range(3):
@@ -786,6 +787,67 @@ def _captured_cases():
             "bert_int8": (bert, feeds, q8.qmatmul_int8, 73)}
 
 
+def test_capture_holds_the_collector_off(cuda):
+    """A graph held only by a reference cycle, collected while another
+    graph captures, invalidates that capture (the capture then fails at
+    its end). capture() holds the cycle collector off: with a threshold
+    that collects at every allocation and such a cycle made inside the
+    capture, no collection starts there, and the replay is right. The
+    same allocations outside a capture do collect, and the cycle goes."""
+    import gc
+    import weakref
+
+    from onnx_rusty_inference_engine_tpu_torch.engine import (
+        capture, side_stream)
+
+    class Box:
+        pass
+
+    x = torch.arange(1024, dtype=torch.float32, device=cuda)
+    s = torch.cuda.Stream()
+    inside, runs, holder, dead = [False], [], [], []
+
+    def body(capturing=False):
+        inside[0] = capturing
+        if capturing:               # the old graph, held by a new cycle
+            box = Box()
+            box.replay, box.self = holder.pop(), box
+            dead.append(weakref.ref(box))
+            del box
+        _ = [[] for _ in range(5000)]
+        inside[0] = False
+        return x + 1
+
+    with side_stream(s):
+        x * 2
+        body()
+        holder.append(capture(lambda: x * 2, stream=s)[1])
+
+    def seen(phase, info):
+        if phase == "start":
+            runs.append(inside[0])
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(seen)
+    try:
+        gc.set_threshold(1)
+        with side_stream(s):
+            out, replay = capture(lambda: body(True), stream=s)
+        assert True not in runs
+        runs.clear()
+        _ = [[] for _ in range(5000)]
+        assert runs                        # the same churn collects outside
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(seen)
+    gc.collect()
+    assert dead[0]() is None
+    out.zero_()
+    replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + 1)
+
+
 @pytest.mark.parametrize("case", ["cnn_int8", "bert_int8"])
 def test_captured_engine_equals_eager_and_counts_replays(cuda, case):
     """An Engine's first call runs eagerly and captures; its replays, over
@@ -1088,7 +1150,7 @@ def _grouped_operands(B, C, H, W, O, group, ksz, rng, dev):
 def test_grouped_kernel_equals_plain_at_every_mobilenet_b256_depthwise(
         cuda, C, H, s):
     """Each of MobileNetV2's 17 depthwise convs at b256 (3x3, pad 1), on
-    channels-last input as the expand conv leaves it: the char4 form, bit
+    channels-last input as the expand conv leaves it: the tile form, bit
     for bit, and a channels-last int8 output."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
         qconv_grouped_int8 as g8)
@@ -1101,8 +1163,8 @@ def test_grouped_kernel_equals_plain_at_every_mobilenet_b256_depthwise(
         x, w, mult, bias, stride=(s, s), padding=((1, 1), (1, 1)),
         packed=g8.pack_qconv_grouped_weight(w))
     torch.cuda.synchronize()
-    assert (g8.qconv_grouped_int8_requant.schedules["depthwise"]
-            == before["depthwise"] + 1)
+    assert (g8.qconv_grouped_int8_requant.schedules["tile"]
+            == before["tile"] + 1)
     assert got.is_contiguous(memory_format=torch.channels_last)
     want = g8.qconv_grouped_int8_requant_plain(
         x, w, mult, bias, stride=(s, s), padding=((1, 1), (1, 1)))
@@ -1127,7 +1189,7 @@ GROUPED_CASES = {
 def test_grouped_kernel_equals_plain(cuda, case):
     """Unaligned channel counts, NCHW inputs, asymmetric padding, other
     kernel sizes and group > 1 beyond depthwise (the general form), bit
-    for bit; the launch counted in the form grouped_mode picks."""
+    for bit; the launch counted in the form grouped_plan picks."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
         qconv_grouped_int8 as g8)
 
@@ -1139,7 +1201,8 @@ def test_grouped_kernel_equals_plain(cuda, case):
     if layout == "cl":
         x = x.contiguous(memory_format=torch.channels_last)
     padding = ((pt, pb), (pl, pr))
-    mode = g8.grouped_mode(C, C // group, O, group)
+    mode = g8.grouped_plan(x.shape, w.shape, (s, s), padding,
+                           g8.input_align(x))["form"]
     before = dict(g8.qconv_grouped_int8_requant.schedules)
     got = g8.qconv_grouped_int8_requant(
         x, w, mult, bias, stride=(s, s), padding=padding,
@@ -1158,6 +1221,142 @@ def test_grouped_kernel_equals_plain(cuda, case):
                                                stride=(s, s),
                                                padding=padding)
     assert torch.equal(got, want)
+
+
+# the tile form at its edges: (B, C, H, W, stride, pads (t, b, l, r), the
+# plan's constants narrowed so that the shape splits into many tiles or a
+# channel run that does not divide C, the input's byte offset from an
+# aligned base: 4 and 1 take the general form)
+TILE_EDGE_CASES = {
+    "ragged_hw_s1": (2, 32, 29, 23, 1, (1, 1, 1, 1),
+                     {"TILE_BUF": 4096, "TILE_THREADS": 64}, 0),
+    "ragged_hw_s2": (2, 32, 29, 23, 2, (1, 1, 1, 1),
+                     {"TILE_BUF": 4096, "TILE_THREADS": 64}, 0),
+    "odd_hw_many_tiles_s2": (1, 16, 33, 35, 2, (1, 1, 1, 1),
+                             {"TILE_BUF": 2048, "TILE_THREADS": 32}, 0),
+    "c48_run32_s1": (2, 48, 15, 13, 1, (1, 1, 1, 1),
+                     {"TILE_RUNS": (32,), "TILE_WHOLE": 0}, 0),
+    "c48_run32_s2": (2, 48, 15, 13, 2, (1, 1, 1, 1),
+                     {"TILE_RUNS": (32,), "TILE_WHOLE": 0}, 0),
+    "c80_run64_s1": (2, 80, 9, 12, 1, (1, 1, 1, 1),
+                     {"TILE_RUNS": (64,), "TILE_WHOLE": 0}, 0),
+    "c80_run64_s2": (2, 80, 9, 12, 2, (1, 1, 1, 1),
+                     {"TILE_RUNS": (64,), "TILE_WHOLE": 0}, 0),
+    "spatial_1x1_s1": (3, 64, 1, 1, 1, (1, 1, 1, 1), {}, 0),
+    "spatial_1x1_s2": (3, 64, 1, 1, 2, (1, 1, 1, 1), {}, 0),
+    "batch1_s1": (1, 144, 56, 56, 1, (1, 1, 1, 1), {}, 0),
+    "batch1_s2": (1, 96, 112, 112, 2, (1, 1, 1, 1), {}, 0),
+    "odd_h_s2": (2, 32, 27, 20, 2, (1, 1, 1, 1), {}, 0),
+    "asym_pad_s2": (2, 32, 10, 11, 2, (1, 0, 2, 1), {}, 0),
+    "no_pad_s1": (2, 16, 9, 8, 1, (0, 0, 0, 0), {}, 0),
+    "unaligned_base4_s1": (2, 32, 14, 14, 1, (1, 1, 1, 1), {}, 4),
+    "unaligned_base1_s2": (2, 32, 14, 14, 2, (1, 1, 1, 1), {}, 1),
+}
+
+
+def _offset_input(x, offset):
+    """x [B, C, H, W] as a channels-last view whose data starts `offset`
+    bytes past an aligned allocation."""
+    B, C, H, W = x.shape
+    base = torch.empty(B * H * W * C + offset, dtype=torch.int8,
+                       device=x.device)
+    xl = base[offset:].view(B, H, W, C)
+    xl.copy_(x.permute(0, 2, 3, 1))
+    return xl.permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("case", list(TILE_EDGE_CASES))
+def test_grouped_tile_edges_equal_plain(cuda, case, monkeypatch):
+    """Depthwise 3x3 at both strides where tiles meet the image's edges:
+    H and W not multiples of the tile, a channel run that does not divide
+    C, 1x1 images, batch 1, odd H at stride 2, asymmetric and no padding,
+    and inputs off a 16-byte boundary (the general form); bit for bit,
+    counted in the form the plan gives."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8)
+
+    B, C, H, W, s, (pt, pb, pl, pr), consts, offset = TILE_EDGE_CASES[case]
+    for k, v in consts.items():
+        monkeypatch.setattr(g8, k, v)
+    x, w, mult, bias = _grouped_operands(B, C, H, W, C, C, 3,
+                                         np.random.default_rng(B * C + H),
+                                         cuda)
+    x = _offset_input(x, offset)
+    padding = ((pt, pb), (pl, pr))
+    plan = g8.grouped_plan(x.shape, w.shape, (s, s), padding,
+                           g8.input_align(x))
+    assert plan["form"] == ("tile" if offset == 0 else "general")
+    if "TILE_RUNS" in consts:
+        assert C % plan["run"] != 0
+    if "TILE_BUF" in consts:
+        assert plan["tiles"] >= 4 * B
+    before = dict(g8.qconv_grouped_int8_requant.schedules)
+    got = g8.qconv_grouped_int8_requant(
+        x, w, mult, bias, stride=(s, s), padding=padding,
+        packed=g8.pack_qconv_grouped_weight(w))
+    torch.cuda.synchronize()
+    after = g8.qconv_grouped_int8_requant.schedules
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == plan["form"]) for k in after}
+    want = g8.qconv_grouped_int8_requant_plain(x, w, mult, bias,
+                                               stride=(s, s),
+                                               padding=padding)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_grouped_tile_extreme_bias_and_ties(cuda, s):
+    """Biases up to 2^30 on every third channel (their sums leave the
+    range where the epilogue's float trick is exact, so those threads take
+    __int2float_rn), multipliers of 0.5 on every fifth (many results on a
+    rounding tie) and weights of -128: bit for bit."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8)
+
+    rng = np.random.default_rng(17 + s)
+    x, w, mult, bias = _grouped_operands(4, 64, 20, 18, 64, 64, 3, rng,
+                                         cuda)
+    w[::7] = -128
+    bias[::3] = torch.from_numpy(rng.integers(-2 ** 30, 2 ** 30, bias[::3]
+                                              .shape, dtype=np.int32)).to(cuda)
+    mult[::5] = 0.5
+    x = x.contiguous(memory_format=torch.channels_last)
+    kw = dict(stride=(s, s), padding=((1, 1), (1, 1)))
+    got = g8.qconv_grouped_int8_requant(
+        x, w, mult, bias, packed=g8.pack_qconv_grouped_weight(w), **kw)
+    assert torch.equal(got, g8.qconv_grouped_int8_requant_plain(
+        x, w, mult, bias, **kw))
+
+
+def test_grouped_forms_agree_at_a_tile_shape(cuda, monkeypatch):
+    """At a MobileNetV2 shape (b8) the tile form and the general form (the
+    same input 4 bytes off a 16-byte boundary) give the plain version's
+    bytes; a plan whose box does not hold its tile's reads is refused by
+    the kernel's entry point."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8)
+
+    x, w, mult, bias = _grouped_operands(8, 144, 56, 56, 144, 144, 3,
+                                         np.random.default_rng(5), cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    packed = g8.pack_qconv_grouped_weight(w)
+    kw = dict(stride=(1, 1), padding=((1, 1), (1, 1)))
+    want = g8.qconv_grouped_int8_requant_plain(x, w, mult, bias, **kw)
+    for offset, form in ((0, "tile"), (4, "general")):
+        got, used = g8._launch(_offset_input(x, offset), w, mult, bias,
+                               kw["stride"], kw["padding"], packed)
+        torch.cuda.synchronize()
+        assert used == form and torch.equal(got, want), form
+    tile = g8._tile
+
+    def short_box(*a):
+        plan = tile(*a)
+        bh, bw, run = plan["box"]
+        return {**plan, "box": (bh - 1, bw, run)}
+
+    monkeypatch.setattr(g8, "_tile", short_box)
+    with pytest.raises(RuntimeError, match="tile"):
+        g8._launch(x, w, mult, bias, kw["stride"], kw["padding"], packed)
 
 
 def test_grouped_kernel_in_a_cuda_graph_equals_eager(cuda):
@@ -1183,7 +1382,7 @@ def test_grouped_kernel_in_a_cuda_graph_equals_eager(cuda):
         run()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_held(), torch.cuda.graph(graph):
         out = run()
     for _ in range(2):
         out.zero_()

@@ -269,3 +269,41 @@ def test_unported_ops_and_dtypes_raise_at_build():
         Engine(to_port(b.model()), device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
         Engine(to_port(_narrow_model(13)), device="cpu", dtype="bfloat16")
+
+
+def test_collector_held_nests_across_threads_and_restores():
+    """collector_held keeps the cycle collector off from the first hold to
+    the end of the last, nested or on other threads, and restores the
+    state the first hold found: on stays on, off stays off."""
+    import gc
+    import threading
+
+    from onnx_rusty_inference_engine_tpu_torch.engine import collector_held
+
+    was = gc.isenabled()
+    try:
+        for start in (True, False):
+            gc.enable() if start else gc.disable()
+            inner_ready, outer_done = threading.Event(), threading.Event()
+            seen = []
+
+            def other():
+                with collector_held():
+                    inner_ready.set()
+                    outer_done.wait(5)
+                    seen.append(gc.isenabled())
+
+            with collector_held():
+                assert not gc.isenabled()
+                with collector_held():
+                    assert not gc.isenabled()
+                assert not gc.isenabled()
+                t = threading.Thread(target=other)
+                t.start()
+                assert inner_ready.wait(5)
+            outer_done.set()
+            t.join(5)
+            assert seen == [False]     # the other thread's hold outlived ours
+            assert gc.isenabled() == start
+    finally:
+        gc.enable() if was else gc.disable()

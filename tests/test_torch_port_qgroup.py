@@ -35,6 +35,8 @@ from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
     qconv_grouped_int8 as g8)
 from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
     UnsupportedOpError)
+from test_torch_port_cuda import (GROUPED_CASES, TILE_EDGE_CASES,
+                                  _mobilenet_depthwise_convs)
 from torch_port_util import run_op_port, to_port
 from util import make_model, node, run_op
 
@@ -125,17 +127,106 @@ def test_pack_grouped_weight_layout():
                 assert not row[6:].any()
 
 
-@pytest.mark.parametrize("C,Cg,O,group,aligned,mode", [
-    (32, 1, 32, 32, True, "depthwise"),
-    (960, 1, 960, 960, True, "depthwise"),
-    (32, 1, 32, 32, False, "general"),
-    (6, 1, 6, 6, True, "general"),
-    (16, 8, 24, 2, True, "general"),
-    (10, 5, 6, 2, True, "general"),
-    (8, 1, 16, 8, True, "general"),
+@pytest.mark.parametrize("C,Cg,O,group,kernel,stride,align,mode", [
+    (32, 1, 32, 32, (3, 3), (1, 1), 16, "tile"),
+    (960, 1, 960, 960, (3, 3), (2, 2), 16, "tile"),
+    (32, 1, 32, 32, (3, 3), (1, 1), 4, "general"),
+    (32, 1, 32, 32, (3, 3), (1, 2), 16, "general"),
+    (32, 1, 32, 32, (3, 3), (3, 3), 16, "general"),
+    (32, 1, 32, 32, (5, 5), (1, 1), 16, "general"),
+    (36, 1, 36, 36, (3, 3), (1, 1), 16, "general"),
+    (32, 1, 32, 32, (3, 3), (1, 1), 2, "general"),
+    (6, 1, 6, 6, (3, 3), (1, 1), 16, "general"),
+    (16, 8, 24, 2, (3, 3), (1, 1), 16, "general"),
+    (10, 5, 6, 2, (3, 3), (1, 1), 16, "general"),
+    (8, 1, 16, 8, (3, 3), (1, 1), 16, "general"),
 ])
-def test_grouped_mode(C, Cg, O, group, aligned, mode):
-    assert g8.grouped_mode(C, Cg, O, group, aligned) == mode
+def test_grouped_mode(C, Cg, O, group, kernel, stride, align, mode):
+    assert g8.grouped_mode(C, Cg, O, group, kernel, stride, align) == mode
+
+
+def test_address_align():
+    assert [g8.address_align(p) for p in (0, 1, 2, 4, 12, 48, 4096)] == \
+        [16, 1, 2, 4, 4, 16, 16]
+
+
+def _plan_shapes():
+    """(id, x shape, w shape, stride, padding, the plan's constants, the
+    input's alignment): MobileNetV2's 17 depthwise convs at b256 and every
+    grouped shape of the card tests, with their narrowed constants."""
+    out = [(f"mobilenet{i}_c{C}_h{H}_s{s}", (256, C, H, H), (C, 1, 3, 3),
+            (s, s), ((1, 1), (1, 1)), {}, 16)
+           for i, (C, H, s) in enumerate(_mobilenet_depthwise_convs())]
+    for name, (B, C, H, W, O, group, k, s, (pt, pb, pl, pr), _) in \
+            GROUPED_CASES.items():
+        out.append((name, (B, C, H, W), (O, C // group, k, k), (s, s),
+                    ((pt, pb), (pl, pr)), {}, 16))
+    for name, (B, C, H, W, s, (pt, pb, pl, pr), consts, offset) in \
+            TILE_EDGE_CASES.items():
+        out.append((name, (B, C, H, W), (C, 1, 3, 3), (s, s),
+                    ((pt, pb), (pl, pr)), consts, g8.address_align(offset)))
+    return out
+
+
+@pytest.mark.parametrize("name,xs,ws,stride,padding,consts,align",
+                         _plan_shapes(), ids=[c[0] for c in _plan_shapes()])
+def test_grouped_plan_covers_each_output_once(name, xs, ws, stride,
+                                              padding, consts, align,
+                                              monkeypatch):
+    """The tile form's plan at every shape, as the kernel's entry point
+    takes it (`tile_args`): its tiles, split as the kernel splits a tile id
+    (channel runs fastest, then columns, rows, images), and each tile's
+    threads (4 channels x 2 columns x the tile's rows, masked to the image)
+    write each output of one image exactly once; the grid counts every
+    image; the input boxes fit TMA (sides <= 256, runs of 16-byte
+    multiples) and every read stays inside its box; the staging buffers
+    hold a box; a block's threads and shared memory fit (256, 227 KB). The
+    form is the one the wrapper counts in `.schedules`: `grouped_mode` of
+    the shapes."""
+    for k, v in consts.items():
+        monkeypatch.setattr(g8, k, v)
+    B, C, H, W = xs
+    O, Cg, KH, KW = ws
+    plan = g8.grouped_plan(xs, ws, stride, padding, align)
+    assert plan["form"] == g8.grouped_mode(C, Cg, O, C // Cg, (KH, KW),
+                                           stride, align)
+    assert plan["form"] in g8.qconv_grouped_int8_requant.schedules
+    if name.startswith("mobilenet"):
+        assert plan["form"] == "tile"
+    if plan["form"] != "tile":
+        assert plan["tile"] is None and plan["grid"][0] > 0
+        return
+    s = stride[0]
+    (pt, pb), (pl, pr) = padding
+    OH, OW = (H + pt + pb - 3) // s + 1, (W + pl + pr - 3) // s + 1
+    th, tw, run, bh, bw, buf, smem, threads, n_h, n_w, n_c = \
+        g8.tile_args(plan)
+    assert (plan["run"], plan["box"]) == (run, (bh, bw, run))
+    assert tw % 2 == 0 and run % 16 == 0
+    assert (bh, bw) == ((th - 1) * s + 3, (tw - 1) * s + 3)
+    assert max(bh, bw, run) <= 256
+    # the last input row and column a thread reads lie inside the box
+    assert (th - 1) * s + 2 < bh and 2 * s * (tw // 2 - 1) + 2 + s < bw
+    q, p = run // 4, tw // 2
+    assert q * p <= threads <= 256 and threads % 32 == 0
+    assert buf % 128 == 0 and bh * bw * run <= buf < bh * bw * run + 128
+    assert 2 * buf + 16 <= smem <= 227 * 1024
+    assert plan["grid"] == (B, n_h, n_w, n_c)
+    assert plan["tiles"] == B * n_h * n_w * n_c
+    seen = np.zeros((OH, OW, C), np.int32)
+    for t in range(n_h * n_w * n_c):   # image 0's tiles
+        cr, rest = t % n_c, t // n_c
+        tw_i, th_i = rest % n_w, rest // n_w
+        oh0 = th_i * th
+        rows = min(th, OH - oh0)
+        assert rows >= 1
+        for tid in range(q * p):
+            c = cr * run + 4 * (tid % q)
+            ow = tw_i * tw + 2 * (tid // q)
+            if c >= C or ow >= OW:
+                continue
+            seen[oh0:oh0 + rows, ow:ow + 2, c:c + 4] += 1
+    assert (seen == 1).all(), (seen.min(), seen.max())
 
 
 def test_conv_groups_refuses_channels_that_do_not_split():

@@ -50,6 +50,7 @@ from onnx_rusty_inference_engine_tpu_torch.serve_llm import (
     DecodeServer, _Request, _device_select)
 from onnx_rusty_inference_engine_tpu_torch.serving.request import _uniform
 from torch_port_util import to_port
+from util import make_model, node
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V = TINY.vocab_size
@@ -497,6 +498,32 @@ def test_inference_server_warmup_runs_every_bucket(squeezenet_int8):
                           example_shape=(3, 224, 224), autostart=False)
     srv.stop()
     assert seen == [1, 2]
+
+
+def test_padding_overhead_counts_rows():
+    """Three requests of 3 examples each, packed into one 16-row bucket:
+    9 rows are real and 7 padding, so padding_overhead is 7/16 (rows
+    against rows; the JAX package's ServerStats counts the 3 requests
+    against the 16 rows), and `requests` stays 3."""
+    x = np.zeros((1, 4), np.float32)
+    model = make_model([node("Relu", ["x"], ["y"])], {"x": x}, ["y"])
+    srv = InferenceServer(Engine(to_port(model), device="cpu"),
+                          batch_buckets=(16,), max_delay_s=0.5,
+                          autostart=False)
+    rng = np.random.default_rng(0)
+    reqs = [rng.standard_normal((3, 4)).astype(np.float32)
+            for _ in range(3)]
+    futs = [srv.submit(r) for r in reqs]
+    srv.start()
+    try:
+        outs = [f.result(timeout=60)["y"] for f in futs]
+    finally:
+        srv.stop()
+    summary = srv.stats.summary()
+    assert summary["requests"] == 3 and summary["batches"] == 1
+    assert summary["padding_overhead"] == 7 / 16
+    for r, o in zip(reqs, outs):
+        np.testing.assert_array_equal(o, np.maximum(r, 0))
 
 
 # --------------------------------------------------------------------------
