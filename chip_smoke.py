@@ -209,9 +209,43 @@ Phases, each printing JSON lines:
              CLI as subprocesses: `run` with resnet50.pb's golden case
              (MATCH), `inspect` of the three models (no unsupported op),
              `bench --quantize int8 --batch 256`.
+18b. precision - after phase 18: the bf16 dtype policy and dynamic W8A8
+             (quantize_matmuls_w8a8, MatMulInteger on the int8 kernel's
+             int32 epilogue). BERT-base at B 32, T 128 (phase 9's inputs)
+             as Engine(g), Engine(g, dtype="bfloat16") and
+             Engine(quantize_matmuls_w8a8(g)): sequences/s from replayed
+             graphs, bf16 and W8A8 against fp32 (max |d| / max|ref|,
+             bounds 0.02 and 0.1); counts set to 0 just before the W8A8
+             Engine's first call and read after its replays: 73
+             MatMulInteger launches a forward, all on the int32 epilogue,
+             no other kernel; each distinct MatMulInteger shape on the
+             card's own int8 activations bit-equal to qmatmul_int8_plain,
+             timed beside torch._int_mm on a column-major B (kernel
+             lines, "path": "precision"). GPT-2 124M and the phase-18 Llama at batch 8,
+             prompt 64 through Generator(prefill_dtype=...) in fp32,
+             bfloat16 and w8a8, without and with int4_weights: one launch
+             per MatMulInteger and per MatMulNBits in the first prefill,
+             prefill tokens/s replayed, device ms by op type (no int4),
+             logits against fp32 (W8A8: rel < 0.05 for GPT-2, 0.1 for
+             Llama, and top-1 flips within 0.15 of bf16's), then 4 decode
+             steps; Llama's W8A8 error again on weights and prompts from
+             seed 1. The bf16 Llama prefill's int4 calls that take bf16
+             A (planar weights; and the same prefill on ORT-layout
+             weights, interleaved) on their own activations (probe_graph
+             on the MatMulNBits inputs) within 1e-5 x
+             max|out| of the plain twins and equal to the kernel on the
+             same values as f32 A, timed beside torch._weight_int4pack_mm
+             with bf16 A. DecodeServer(prefill_dtype="w8a8") on GPT-2 124M
+             serving 16 requests: tokens/s; then 16 requests queued in
+             two waves of 8 with one prompt length each (64, 32) before
+             a second server starts, so each wave's rows line up as an
+             isolated Generator(batch=8, prefill_dtype="w8a8")'s do:
+             every served token equal to that Generator's.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
-             after a line with the script's seconds so far; the rows of the
+             then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
+             route, both int4 kernels with bf16 A), after a line with the
+             script's seconds so far; the rows of the
              kernels the Llama path runs carry its numbers in `llama_path`,
              those of the vision path in `vision_path` (by model).
 
@@ -311,7 +345,7 @@ def _wrappers():
 
 # the per-variant counts some wrappers keep beside `launches`: int4
 # schedules, int8 GEMM epilogues, int8 conv A producers
-_SPLITS = ("schedules", "epilogues", "producers")
+_SPLITS = ("schedules", "a_dtypes", "epilogues", "producers")
 
 
 def reset_counts() -> None:
@@ -3186,6 +3220,534 @@ def phase_vision_cli(smi: str) -> None:
           "bench": bench, "seconds": time.perf_counter() - t0, "card": smi})
 
 
+# --------------------------------------------------------------------------
+# bf16 and dynamic W8A8
+# --------------------------------------------------------------------------
+PREC_ITERS = 10     # replayed forwards or prefills per timing
+PREC_STEPS = 4      # decode steps after each prefill scheme
+# BERT-base against fp32 (max |d| / max|ref| per output, B 32 x T 128):
+# W8A8 quantizes every activation per row into int8 over 12 layers, held
+# to the JAX tests' bound for a deep INT8 network (ResNet-50, 0.1); bf16
+# rounds the weights (2^-9), held to 0.02
+BERT_W8A8_REL, BERT_BF16_REL = 0.1, 0.02
+# decoder prefill logits against fp32: GPT-2 at tests/test_w8a8.py:96-97's
+# bounds (a 2-layer GPT-2 there); the Llama decoder at the deep-INT8 bound
+# above, since the JAX package's own W8A8 already parts from fp32 by 0.05
+# on a 4-layer Llama at dim 512 (tests/test_torch_port_precision.py::
+# test_w8a8_llama_error_tracks_jax, on the CPU)
+PREFILL_W8A8_REL = {"gpt2": 0.05, "llama": 0.1}
+PREFILL_FLIPS_OVER_BF16 = 0.15
+
+
+def _replayed_ms(eng, dev_feed) -> float:
+    """Device ms of one replay of eng's captured graph for dev_feed (the
+    first call captures it)."""
+    with torch.no_grad():
+        eng(dev_feed)
+        return cuda_ms(lambda: eng(dev_feed), PREC_ITERS)
+
+
+def _matmul_integer_row(gq, eng8, dev_feed, launches: int, smi: str) -> dict:
+    """Each distinct MatMulInteger shape of the W8A8 BERT graph on the
+    card's own int8 activations: the kernel (int32 epilogue) bit-equal to
+    qmatmul_int8_plain on the card, its time replayed, the plain version's
+    and torch._int_mm's, the bound; and the kernels line's row, summed
+    over one forward."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qmatmul_int8 as q8)
+
+    int8_tile, qmatmul_int8 = q8.int8_tile, q8.qmatmul_int8
+    qmatmul_int8_plain = q8.qmatmul_int8_plain
+    nodes = [n for n in gq.nodes if n.op_type == "MatMulInteger"]
+    with torch.no_grad():
+        card = P.lower(probe_graph(gq, [n.inputs[0] for n in nodes]),
+                       eng8.device, eng8.packed)(eng8.params, dev_feed)
+    shapes = {}
+    for n in nodes:
+        a = card[n.inputs[0]]
+        K, N = eng8.params[n.inputs[1]].shape
+        key = (a.numel() // K, K, N)
+        sh = shapes.setdefault(key, {"count": 0, "node": n.inputs[1],
+                                     "a": a.reshape(-1, K).contiguous(),
+                                     "b": eng8.params[n.inputs[1]]})
+        sh["count"] += 1
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "ops_ms": 0.0, "bytes_ms": 0.0}
+    for (M, K, N), sh in shapes.items():
+        a, b = sh["a"], sh["b"]
+        packed = eng8.packed.get(sh["node"])
+
+        def kern():
+            return qmatmul_int8(a, b, packed=packed)
+
+        got, want = kern(), qmatmul_int8_plain(a, b)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"MatMulInteger kernel vs plain at M={M} K={K} N={N}")
+        ms = graph_ms(kern, PREC_ITERS)
+        plain_ms = cuda_ms(lambda: qmatmul_int8_plain(a, b), 3)
+        # B column-major, as the other int8 rows time the library: the
+        # layout of cuBLASLt's int8 tensor-core GEMM
+        bt = b.t().contiguous()
+        library_ms = graph_ms(lambda: torch._int_mm(a, bt.t()), PREC_ITERS)
+        require(torch.equal(torch._int_mm(a, bt.t()), want), "torch._int_mm")
+        ops, nbytes = 2 * M * K * N, M * K + K * N + 4 * M * N
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     INT8_OPS_PER_S)
+        emit({"phase": "kernel", "kernel": "qmatmul_int8",
+              "instance": "MatMulInteger (int32 epilogue)",
+              "path": "precision", "node": sh["node"], "M": M, "K": K,
+              "N": N, "count_per_forward": sh["count"],
+              "tile": list(int8_tile(M, N, -(-K // 16) * 16)),
+              "bit_equal_plain": True, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "library": "torch._int_mm",
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "tops": ops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6,
+              "card": smi})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("library_ms", library_ms),
+                     ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+            tot[k] += sh["count"] * v
+    source, replaces = KERNEL_ROWS["qmatmul_int8"]
+    return {
+        "name": "qmatmul_int8_matmul_integer", "route": "cuda",
+        "source": source, "replaces": replaces,
+        "wrapper": "qmatmul_int8 (int32 epilogue), through MatMulInteger",
+        "launches": launches, "max_abs_err": 0.0, "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                     else "bytes"),
+        "library_ms": tot["library_ms"],
+        "per": f"one W8A8 BERT-base forward (B {BERT_BATCH}, T {BERT_SEQ}): "
+               f"ms, plain_ms, bound_ms and library_ms (torch._int_mm) sum "
+               f"its {len(nodes)} MatMulIntegers; ms and library_ms "
+               f"replayed, plain_ms eager",
+        "distinct_shapes": len(shapes), "card": smi}
+
+
+def _precision_bert(smi: str) -> dict:
+    """BERT-base at B 32, T 128 as Engine(g), Engine(g, dtype="bfloat16")
+    and Engine(quantize_matmuls_w8a8(g)). Returns the MatMulInteger row."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models.bert import (
+        BASE, build_bert)
+    from onnx_rusty_inference_engine_tpu_torch.quant import (
+        quantize_matmuls_w8a8)
+
+    feed = _bert_feed(BASE.vocab_size)
+    dev_feed = {k: torch.as_tensor(v, device="cuda")
+                for k, v in feed.items()}
+    g = P.import_model(build_bert(BASE, batch=BERT_BATCH, seq_len=BERT_SEQ,
+                                  seed=0))
+    gq = quantize_matmuls_w8a8(g)
+    n_mi = sum(n.op_type == "MatMulInteger" for n in gq.nodes)
+    require(n_mi == 6 * BASE.n_layer + 1 == 73,
+            f"73 MatMulIntegers in W8A8 BERT-base: {n_mi}")
+    out, ms = {}, {}
+    for name, graph, dtype in (("fp32", g, "float32"),
+                               ("bf16", g, "bfloat16"),
+                               ("w8a8", gq, "float32")):
+        eng = P.Engine(graph, dtype=dtype)
+        if name == "w8a8":  # the main path: counts over the replays too
+            reset_counts()
+        with torch.no_grad():
+            out[name] = {k: v.float() for k, v in eng(dev_feed).items()}
+        ms[name] = _replayed_ms(eng, dev_feed)
+        if name == "w8a8":  # the first call, then 2 + PREC_ITERS replays
+            counts = read_counts()
+            launches = counts["qmatmul_int8"]
+            require(launches == n_mi * (3 + PREC_ITERS)
+                    and sum(counts.values()) == launches,
+                    f"W8A8 BERT: {n_mi} MatMulInteger launches per forward "
+                    f"and no other kernel: {counts}")
+            epilogues = read_splits("qmatmul_int8")["epilogues"]
+            require(epilogues == {"int32": launches, "requant": 0},
+                    f"every MatMulInteger on the int32 epilogue: "
+                    f"{epilogues}")
+            row = _matmul_integer_row(gq, eng, dev_feed, launches, smi)
+            ops_ms = _ms_by_op(eng, dev_feed, 2)
+        del eng
+        torch.cuda.empty_cache()
+    for name in out:
+        for k in OUTS:
+            require(bool(torch.isfinite(out[name][k]).all()),
+                    f"{name} {k} finite")
+    rel = {name: {k: _rel_err(out[name][k], out["fp32"][k]) for k in OUTS}
+           for name in ("bf16", "w8a8")}
+    emit({"phase": "precision", "model": "bert-base (BASE, seed 0)",
+          "batch": BERT_BATCH, "seq_len": BERT_SEQ,
+          "sequences_per_s": {k: BERT_BATCH / v * 1e3 for k, v in ms.items()},
+          "replayed_ms": ms, "rel_err_vs_fp32": rel,
+          "w8a8_ops_ms": ops_ms,
+          "bounds": {"w8a8": BERT_W8A8_REL, "bf16": BERT_BF16_REL},
+          "matmul_integer_nodes": n_mi, "w8a8_forwards": 3 + PREC_ITERS,
+          "launches": row["launches"], "card": smi})
+    for k in OUTS:
+        require(rel["w8a8"][k] < BERT_W8A8_REL, f"W8A8 BERT {k}: {rel}")
+        require(rel["bf16"][k] < BERT_BF16_REL, f"bf16 BERT {k}: {rel}")
+    return row
+
+
+def _bf16a_calls(eng, dev_feed, planar: bool) -> list:
+    """The int4 wrapper calls of one forward of eng whose A is bf16, on
+    the card's own activations (probe_graph on the inputs of its
+    MatMulNBits of one layout): [(a [M, K], packed, scales f32, n, nblk,
+    blk)], as the MatMulNBits emitter hands them to the wrapper."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qmatmul_int4 as q4)
+
+    def is_planar(n):
+        lay = n.attr("layout", "")
+        return (lay.decode() if isinstance(lay, bytes) else lay) == "planar"
+
+    nodes = [n for n in eng.graph.nodes
+             if n.op_type == "MatMulNBits" and is_planar(n) == planar]
+    with torch.no_grad():
+        card = P.lower(probe_graph(eng.graph, [x for n in nodes
+                                               for x in n.inputs[:3]]),
+                       eng.device, eng.packed)(eng.params, dev_feed)
+    calls = []
+    for n in nodes:
+        a, packed = card[n.inputs[0]], card[n.inputs[1]]
+        if a.dtype != torch.bfloat16:
+            continue
+        K, N = int(n.attr("K")), int(n.attr("N"))
+        scales = card[n.inputs[2]].to(torch.float32)
+        if planar:
+            nblk, blk = q4.planar_layout(K, int(n.attr("block_size", K)))
+        else:
+            nblk = scales.shape[1]
+            blk = q4.interleaved_layout(K, packed.shape[1], nblk)
+        calls.append((a.reshape(-1, K).contiguous(), packed, scales, N,
+                      nblk, blk))
+    return calls
+
+
+def _bf16a_row(name: str, calls, launches: int, smi: str) -> dict:
+    """The bf16-A instance of int4 kernel `name` on the card's own bf16
+    activations of one prefill (`calls`, from _bf16a_calls): within 1e-5
+    x max|out| of the plain twin, times replayed, the library call with
+    bf16 A, the bound; the kernels line's row, summed over one prefill."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qmatmul_int4 as q4)
+
+    kern_fn, plain_fn = getattr(q4, name), getattr(q4, name + "_plain")
+    planar = name == "qmatmul_int4_planar"
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "ops_ms": 0.0, "bytes_ms": 0.0}
+    max_abs = 0.0
+    require(calls, f"{name}: bf16-A launches in the prefill")
+    for a, packed, scales, n, nblk, blk in calls:
+        M, K = a.shape
+        Nw = packed.shape[0]
+        p = packed.to(torch.int32)
+        if planar:
+            kw = {"qblock": blk, "n": n}
+            q = torch.cat([p & 0xF, p >> 4], dim=1)
+            scales_k, bs = scales, blk
+        else:
+            kw = {"n": n}
+            q = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(Nw, K)
+            scales_k, bs = scales.t(), 2 * blk
+
+        def kern():
+            return kern_fn(a, packed, scales, **kw)
+
+        def plain():
+            return plain_fn(a, packed, scales, **kw)
+
+        got, want = kern(), plain()
+        as_f32 = kern_fn(a.float(), packed, scales, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(err <= 1e-5 * float(want.abs().max()),
+                f"{name} bf16 A vs plain at M={M} K={K} N={n}: {err}")
+        require(torch.equal(got, as_f32), f"{name}: bf16 A gives what the "
+                f"same values as f32 A give, M={M} K={K} N={n}")
+        max_abs = max(max_abs, err)
+        ms = graph_ms(kern, PREC_ITERS)
+        ms_f32 = graph_ms(lambda: kern_fn(a.float(), packed, scales, **kw),
+                          PREC_ITERS)
+        plain_ms = cuda_ms(plain, 3)
+        lib_label, lib = _int4_library(a, q, scales_k, bs)
+        library_ms = graph_ms(lib, PREC_ITERS)
+        ops = 2 * M * n * K
+        nbytes = M * K * 2 + n * K // 2 + scales.numel() // Nw * n * 4 \
+            + M * n * 4
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     BF16_OPS_PER_S)
+        emit({"phase": "kernel", "kernel": name, "instance": "bf16 A",
+              "path": "precision", "M": M, "K": K, "N": n, "Nw": Nw,
+              "schedule": q4.int4_schedule(M, K, nblk, blk),
+              "max_abs_err": err, "ms": ms, "ms_same_values_f32_a": ms_f32,
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "library": lib_label, "bound_ms": bound_ms,
+              "bound_by": bound_by, "gb_per_s": nbytes / ms / 1e6,
+              "tflops": ops / ms / 1e9, "card": smi})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms), ("library_ms", library_ms),
+                     ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+            tot[k] += v
+    source, replaces = KERNEL_ROWS[name]
+    return {
+        "name": f"{name}_bf16a", "route": "cuda", "source": source,
+        "replaces": replaces, "wrapper": f"{name} with bf16 A",
+        "launches": launches, "max_abs_err": max_abs, "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                     else "bytes"),
+        "library_ms": tot["library_ms"],
+        "per": f"one bf16 Llama prefill (batch {DEC_BATCH}, prompt "
+               f"{PROMPT}, {LLAMA_LAYERS} layers): the sum over its "
+               f"{len(calls)} bf16-A launches (layer 0's q, k and v; the "
+               f"residual stream is f32 after the first attention, as JAX "
+               f"promotes it); ms and library_ms replayed, plain_ms eager",
+        "card": smi}
+
+
+def _flips(got, ref) -> float:
+    return float((got.argmax(-1) != ref.argmax(-1)).float().mean())
+
+
+def _w8a8_other_seed(family: str, cfg, seed: int) -> dict:
+    """W8A8 against fp32 on weights and prompts drawn from `seed`: the
+    prefill graph Generator builds, as Engine(g) and as the bf16 Engine
+    of quantize_matmuls_w8a8(g) (what prefill_dtype="w8a8" runs)."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models import decoder_family
+    from onnx_rusty_inference_engine_tpu_torch.quant import (
+        quantize_matmuls_w8a8)
+
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (DEC_BATCH, PROMPT))
+    dev_feed = {"input_ids": torch.as_tensor(prompts, device="cuda")}
+    g = P.import_model(decoder_family(family)[0](
+        cfg, batch=DEC_BATCH, seq_len=PROMPT, seed=seed, with_presents=True))
+    out = {}
+    for name, graph, dtype in (("fp32", g, "float32"),
+                               ("w8a8", quantize_matmuls_w8a8(g),
+                                "bfloat16")):
+        eng = P.Engine(graph, dtype=dtype)
+        with torch.no_grad():
+            out[name] = eng(dev_feed)["logits"].float()
+        del eng
+        torch.cuda.empty_cache()
+    return {"seed": seed,
+            "rel_err_vs_fp32": _rel_err(out["w8a8"], out["fp32"]),
+            "top1_flips_vs_fp32": _flips(out["w8a8"], out["fp32"])}
+
+
+def _precision_decoder(family: str, cfg, smi: str, ort: bool = False):
+    """Prefill through Generator(prefill_dtype=...) in fp32, bf16 and W8A8,
+    each without and with int4_weights, then PREC_STEPS decode steps:
+    prefill tokens/s (replayed), logits against fp32 (rel and top-1
+    flips). Llama (ort=True) also: the bf16 prefill's int4 launches with
+    bf16 A, planar and (weights in the ORT layout) interleaved. Returns
+    {kernel row name: row}."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qmatmul_int4 as q4)
+
+    prompts = _decode_prompts(cfg)
+    dev_feed = {"input_ids": torch.as_tensor(prompts, device="cuda")}
+    tokens = DEC_BATCH * PROMPT
+    res, rows = {}, {}
+    ref = None
+    for pd in ("float32", "bfloat16", "w8a8"):
+        for int4 in (False, True):
+            if pd == "float32" and int4:
+                continue  # the fp32 + int4 prefill: phases 6 and 18
+            t0 = time.perf_counter()
+            gen = _generator(cfg, family=family, prefill_dtype=pd,
+                             int4_weights=int4)
+            build_s = time.perf_counter() - t0
+            key = pd + ("+int4" if int4 else "")
+            n_mi = sum(n.op_type == "MatMulInteger"
+                       for n in gen.prefill.graph.nodes)
+            n4 = sum(n.op_type == "MatMulNBits"
+                     for n in gen.prefill.graph.nodes)
+            require((n_mi > 0) == (pd == "w8a8")
+                    and (n4 > 0) == (int4 and pd != "w8a8"),
+                    f"{family} {key}: prefill graph {n_mi} MatMulInteger, "
+                    f"{n4} MatMulNBits")
+            reset_counts()
+            with torch.no_grad():
+                logits = gen.prefill(dev_feed)["logits"].float()
+            counts, a_dt = read_counts(), read_splits(
+                "qmatmul_int4_planar").get("a_dtypes", {})
+            require(counts["qmatmul_int8"] == n_mi
+                    and counts["qmatmul_int4_planar"] == n4,
+                    f"{family} {key}: one launch per MatMulInteger and per "
+                    f"MatMulNBits: {counts}")
+            require(bool(torch.isfinite(logits).all()), f"{key} logits")
+            ms = _replayed_ms(gen.prefill, dev_feed)
+            if ref is None:
+                ref = logits
+            r = {"prefill_tokens_per_s": tokens / ms * 1e3,
+                 "prefill_ms": ms, "build_s": build_s,
+                 "launches": {k: v for k, v in counts.items() if v},
+                 "int4_a_dtypes": a_dt}
+            if not int4:  # where a prefill's device time goes, by op type
+                r["ops_ms"] = _ms_by_op(gen.prefill, dev_feed, 2)
+            if pd != "float32":
+                r["rel_err_vs_fp32"] = _rel_err(logits, ref)
+                r["top1_flips_vs_fp32"] = _flips(logits, ref)
+            toks, _ = gen.generate(prompts, PREC_STEPS)
+            require(toks.shape == (DEC_BATCH, PREC_STEPS) and toks.min() >= 0
+                    and toks.max() < cfg.vocab_size, f"{key} decode steps")
+            r["tokens_row0"] = toks[0].tolist()
+            if ort and pd == "bfloat16" and int4:
+                rows["qmatmul_int4_planar_bf16a"] = _bf16a_row(
+                    "qmatmul_int4_planar",
+                    _bf16a_calls(gen.prefill, dev_feed, True),
+                    a_dt.get("bfloat16", 0), smi)
+            if ort and pd == "bfloat16" and not int4:
+                # the same bf16 prefill on ORT-layout int4 weights (the
+                # prefill graph alone: packing the decode graph's too
+                # would add a second pass over a billion weights)
+                gen._engines(ort_int4_weights(gen.prefill.graph),
+                             gen.decode.graph)
+                reset_counts()
+                with torch.no_grad():
+                    ort_logits = gen.prefill(dev_feed)["logits"].float()
+                counts = read_counts()
+                a_ort = read_splits("qmatmul_int4_bf16")["a_dtypes"]
+                require(a_ort["bfloat16"] > 0 and counts[
+                    "qmatmul_int4_bf16"] == sum(a_ort.values()),
+                    f"ORT-layout bf16 prefill: {counts} {a_ort}")
+                r["ort_layout_int4"] = {
+                    "launches": counts["qmatmul_int4_bf16"],
+                    "a_dtypes": a_ort,
+                    "rel_err_vs_fp32": _rel_err(ort_logits, ref),
+                    "prefill_ms": _replayed_ms(gen.prefill, dev_feed)}
+                rows["qmatmul_int4_bf16_bf16a"] = _bf16a_row(
+                    "qmatmul_int4_bf16",
+                    _bf16a_calls(gen.prefill, dev_feed, False),
+                    a_ort["bfloat16"], smi)
+            res[key] = r
+            del gen
+            torch.cuda.empty_cache()
+    for int4 in ("", "+int4"):
+        if "bfloat16" + int4 not in res:
+            continue
+        q, bf = res["w8a8" + int4], res["bfloat16" + int4]
+        require(q["rel_err_vs_fp32"] < PREFILL_W8A8_REL[family]
+                and q["top1_flips_vs_fp32"] <= bf["top1_flips_vs_fp32"]
+                + PREFILL_FLIPS_OVER_BF16,
+                f"{family} W8A8{int4} prefill against fp32: {q} (bf16 {bf})")
+    other = None
+    if family == "llama":  # a second draw of the error Llama is held to
+        other = _w8a8_other_seed(family, cfg, 1)
+        require(other["rel_err_vs_fp32"] < PREFILL_W8A8_REL[family],
+                f"{family} W8A8 prefill against fp32, seed 1: {other}")
+    emit({"phase": "precision", "model": family, "batch": DEC_BATCH,
+          "prompt": PROMPT, "decode_steps": PREC_STEPS,
+          "bounds": {"w8a8_rel": PREFILL_W8A8_REL[family],
+                     "w8a8_flips_over_bf16": PREFILL_FLIPS_OVER_BF16},
+          "schemes": res, "w8a8_other_seed": other, "card": smi})
+    return rows
+
+
+def _precision_server(smi: str) -> None:
+    """DecodeServer(prefill_dtype="w8a8") on GPT-2 124M (8 slots, buckets
+    16/32/64, fp32 decode): tokens/s over SERVE_REQS requests after a
+    warm-up per bucket. Then a second such server, started with SERVE_REQS
+    requests already queued in two waves of SERVE_SLOTS, each wave one
+    bucket length (PREC_WAVES): a wave fills slots 0..7 in one admission
+    pass and its rows step together from one position, as the rows of an
+    isolated Generator(batch=SERVE_SLOTS, prefill_dtype="w8a8") do; every
+    served token equals that Generator's on the wave's prompts."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+    from onnx_rusty_inference_engine_tpu_torch.serve_llm import DecodeServer
+
+    cfg = GPT2Config()
+    prompts = _serve_requests(cfg)
+    new = PREC_SERVE_NEW
+
+    def server():
+        return DecodeServer(cfg, slots=SERVE_SLOTS,
+                            prompt_len=SERVE_BUCKETS[-1], max_len=MAX_LEN,
+                            prompt_buckets=SERVE_BUCKETS,
+                            prefill_dtype="w8a8", autostart=False)
+
+    srv = server()
+    warm = [srv.submit(p[:b], 2) for p, b in zip(prompts, SERVE_BUCKETS)]
+    srv.start()
+    for f in warm:
+        f.result(timeout=600)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [f.result(timeout=600)
+            for f in [srv.submit(p, new) for p in prompts]]
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    srv.stop()
+    del srv
+    torch.cuda.empty_cache()
+    require(all(len(o) == new for o in outs), "served W8A8 tokens")
+    require(counts["qmatmul_int8"] > 0
+            and counts["qmatmul_int8"] % (4 * cfg.n_layer + 1) == 0,
+            f"the W8A8 prefills' MatMulIntegers: {counts}")
+    rng = np.random.default_rng(2)
+    waves = [rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, n))
+             for n in PREC_WAVES]
+    srv = server()
+    futs = [srv.submit(p, new) for w in waves for p in w]
+    srv.start()
+    served = [np.asarray(f.result(timeout=600)) for f in futs]
+    srv.stop()
+    del srv
+    torch.cuda.empty_cache()
+    for i, w in enumerate(waves):
+        g = Generator(cfg, batch=SERVE_SLOTS, prompt_len=w.shape[1],
+                      max_len=MAX_LEN, prefill_dtype="w8a8")
+        want = g.generate(w, new)[0]
+        got = np.stack(served[i * SERVE_SLOTS:(i + 1) * SERVE_SLOTS])
+        require(np.array_equal(got, want),
+                f"wave {i} (prompt {w.shape[1]}): served tokens equal an "
+                f"isolated W8A8 Generator's; rows agreeing "
+                f"{(got == want).mean(axis=1).tolist()}")
+        del g
+        torch.cuda.empty_cache()
+    emit({"phase": "precision", "server": "DecodeServer",
+          "model": "gpt2 124M (SMALL, seed 0), prefill_dtype w8a8, fp32 "
+                   "decode", "slots": SERVE_SLOTS, "requests": SERVE_REQS,
+          "new_tokens": new, "prompt_buckets": SERVE_BUCKETS,
+          "served_tokens_per_s": SERVE_REQS * new / wall, "wall_s": wall,
+          "launches": counts, "waves_prompt_len": list(PREC_WAVES),
+          "waves_equal_isolated_generator": True, "card": smi})
+
+
+PREC_SERVE_NEW = 16
+PREC_WAVES = (64, 32)   # prompt lengths of the two held waves (buckets)
+
+
+def phase_precision(smi: str) -> list:
+    """The bf16 dtype policy and dynamic W8A8 on the card: BERT-base,
+    GPT-2 124M and Llama prefill, the W8A8 DecodeServer. Returns the
+    kernels line's new rows."""
+    from onnx_rusty_inference_engine_tpu_torch.models import host_memo
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+    from onnx_rusty_inference_engine_tpu_torch.models.llama import (
+        LlamaConfig)
+
+    t0 = time.perf_counter()
+    rows = [_precision_bert(smi)]
+    _precision_decoder("gpt2", GPT2Config(), smi)
+    with host_memo():
+        bf16a = _precision_decoder("llama", LlamaConfig(n_layer=LLAMA_LAYERS),
+                                   smi, ort=True)
+    rows += [bf16a["qmatmul_int4_planar_bf16a"],
+             bf16a["qmatmul_int4_bf16_bf16a"]]
+    _precision_server(smi)
+    emit({"phase": "precision_done", "seconds": time.perf_counter() - t0})
+    return rows
+
+
 def phase_vision(smi: str):
     """The vision slice: goldens, the three models, served ResNet-50 INT8,
     the CLI. Returns (each int8 kernel's sums by model, for the kernels
@@ -3282,7 +3844,11 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_int4_sweep(smi)
             phase_serve(smi)
-            llama = phase_llama(smi)
+            from onnx_rusty_inference_engine_tpu_torch.models import (
+                host_memo)
+            with host_memo():  # the precision phase reuses Llama's weights
+                llama = phase_llama(smi)
+                rows += phase_precision(smi)
             for row in rows:
                 if row["name"] in llama:
                     row["llama_path"] = llama[row["name"]]

@@ -2,11 +2,13 @@
 onnx_rusty_inference_engine_tpu/cli.py.
 
     python -m onnx_rusty_inference_engine_tpu_torch.cli run --model m.onnx
-        --input in.pb [--golden out.pb] [--batch N] [--quantize int8]
-    ... bench --model m.onnx [--batch 64] [--steps 100] [--quantize int8]
+        --input in.pb [--golden out.pb] [--batch N] [--quantize int8|w8a8]
+        [--dtype float32|bfloat16]
+    ... bench --model m.onnx [--batch 64] [--steps 100] [--quantize ...]
     ... inspect --model m.onnx
     ... quantize --model m.onnx --out q.onnx [--calib-input in.pb]
-    ... generate [--family gpt2|llama] [--int4] [--kv-dtype int8] ...
+    ... generate [--family gpt2|llama] [--int4] [--kv-dtype int8]
+        [--prefill-dtype float32|bfloat16|w8a8] ...
     ... serve --model m.onnx [--port 8000]          (POST /v1/infer)
     ... serve-llm [--family gpt2|llama] [--port 8001] (POST /v1/generate)
 
@@ -45,9 +47,6 @@ def _unported(args) -> List[Tuple[str, str]]:
     """(flag as given, ROADMAP item) for every flag of this command whose
     machinery the port does not have yet."""
     checks = (
-        ("--dtype bfloat16", "1.2/1.6",
-         getattr(args, "dtype", "float32") != "float32"),
-        ("--quantize w8a8", "1.6", getattr(args, "quantize", None) == "w8a8"),
         ("--bias-correct", "1.4", getattr(args, "bias_correct", False)),
         ("--calibration mse", "1.4",
          getattr(args, "calibration", None) == "mse"),
@@ -55,8 +54,6 @@ def _unported(args) -> List[Tuple[str, str]]:
          bool(getattr(args, "draft_layers", 0))),
         (f"--spec-k {getattr(args, 'spec_k', 4)}", "1.9/1.10b",
          getattr(args, "spec_k", 4) != 4),
-        (f"--prefill-dtype {getattr(args, 'prefill_dtype', '')}", "1.6",
-         getattr(args, "prefill_dtype", "float32") != "float32"),
         (f"--family {getattr(args, 'family', '')}", "1.8",
          getattr(args, "family", "gpt2") in ("moe", "t5", "asr")),
         ("--beam", "1.9", getattr(args, "beam", 1) > 1),
@@ -97,6 +94,12 @@ def _build_engine(args, graph=None):
                                 graph)]
         graph = quantize_graph(graph, calibration_inputs=calib,
                                device=args.device)
+    elif getattr(args, "quantize", None) == "w8a8":
+        # calibration-free dynamic W8A8: per-row activation scales in the
+        # graph, the int8 x int8 products on the int8 kernel
+        from .quant import quantize_matmuls_w8a8
+
+        graph = quantize_matmuls_w8a8(graph)
     return Engine(graph, dtype=getattr(args, "dtype", "float32"),
                   device=args.device)
 
@@ -268,6 +271,7 @@ def cmd_generate(args) -> int:
     gen = Generator(cfg, batch=1, prompt_len=ids.shape[1],
                     max_len=args.max_len, kv_dtype=args.kv_dtype,
                     int4_weights=args.int4, family=args.family,
+                    prefill_dtype=args.prefill_dtype,
                     device_loop=args.device_loop, device=args.device)
     toks, _ = gen.generate(ids, args.new)
     print(json.dumps({"family": args.family, "prompt": ids[0].tolist(),
@@ -287,7 +291,8 @@ def cmd_serve_llm(args) -> int:
                        max_len=args.max_len, kv_dtype=args.kv_dtype,
                        int4_weights=args.int4, family=args.family,
                        multi_step=args.multi_step,
-                       prompt_cache=args.prompt_cache, len_buckets=lb,
+                       prompt_cache=args.prompt_cache,
+                       prefill_dtype=args.prefill_dtype, len_buckets=lb,
                        device=args.device)
     if args.step_timeout > 0:
         srv.step_timeout = args.step_timeout   # armed by the dispatcher
@@ -376,7 +381,8 @@ def main(argv: Optional[list] = None) -> int:
     pg.add_argument("--prefill-dtype", dest="prefill_dtype",
                     default="float32",
                     choices=["float32", "bfloat16", "w8a8"],
-                    help="prefill compute scheme; only float32 is ported")
+                    help="prefill compute scheme: w8a8 = dynamic int8 x "
+                         "int8 MatMuls in a bf16 prefill")
     pg.add_argument("--family", default="gpt2",
                     choices=["gpt2", "llama", "moe", "t5", "asr"])
     pg.add_argument("--draft-layers", dest="draft_layers", type=int,
@@ -415,8 +421,7 @@ def main(argv: Optional[list] = None) -> int:
     psl.add_argument("--prefill-dtype", dest="prefill_dtype",
                      default="float32",
                      choices=["float32", "bfloat16", "w8a8"],
-                     help="bucketed-prefill compute scheme; only float32 "
-                          "is ported")
+                     help="bucketed-prefill compute scheme")
     psl.add_argument("--family", default="gpt2",
                      choices=["gpt2", "llama", "moe"])
     psl.add_argument("--multi-step", dest="multi_step", type=int, default=0,

@@ -4,8 +4,10 @@
 // Planar: replaces onnx_rusty_inference_engine_tpu/ops/kernels/
 // qmatmul_int4.py::qmatmul_int4_planar (body _int4_mm_planar_kernel).
 //
-//   A      f32 [M, K] activations, rounded to bf16 (round to nearest even)
-//          as the TPU kernel casts them in-kernel;
+//   A      f32 or bf16 [M, K] activations; f32 is rounded to bf16 (round to
+//          nearest even) as the TPU kernel casts them in-kernel, bf16 (the
+//          bf16 Engine's activations) is read as it is, the same values in
+//          half the bytes;
 //   packed uint8 [Nw, K/2]: byte j of row n = (q[n, j] + 8) | (q[n, j + K/2] + 8) << 4
 //          (quant.pack_int4_planar; Nw >= N, rows past N are padding);
 //   scales f32 [2*nbh, Nw], k-major: row t = block t of the low half,
@@ -28,6 +30,9 @@
 //          A_even @ LO^T + A_odd @ HI^T per block, then its scale. The TPU
 //          wrapper's strided a[:, 0::2], a[:, 1::2] copies become a pair of
 //          loads per byte here.
+//
+// Every schedule is a template on A's type (TA: float or __nv_bfloat16);
+// only A's loads differ between the two, the arithmetic is the same.
 //
 // The weights stay packed in device memory; each byte is unpacked in
 // registers (nibble.cuh). Every product is exact (a bf16 value times an
@@ -90,6 +95,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "nibble.cuh"
 
@@ -112,11 +118,17 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// one activation as the f32 the FMAs take: f32 rounded to bf16, bf16 widened
+__device__ __forceinline__ float a_value(float x) { return bf16_round(x); }
+__device__ __forceinline__ float a_value(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 // nblk quant blocks of blk half-K bytes: (nbh, bs) planar, (nb, qbh)
 // interleaved.
-template <bool kInterleaved, bool kWordLoads>
+template <bool kInterleaved, bool kWordLoads, typename TA>
 __global__ void __launch_bounds__(THREADS)
-qmatmul_int4_kernel(const float* __restrict__ a,
+qmatmul_int4_kernel(const TA* __restrict__ a,
                     const uint8_t* __restrict__ packed,
                     const float* __restrict__ scales,
                     float* __restrict__ out, int M, int K, int N, int Nw,
@@ -154,10 +166,10 @@ qmatmul_int4_kernel(const float* __restrict__ a,
         const int m = m0 + r;
         float lo = 0.f, hi = 0.f;
         if (lane < jn && m < M) {
-          const float* row = a + static_cast<int64_t>(m) * K;
+          const TA* row = a + static_cast<int64_t>(m) * K;
           const int j = k0 + lane;
-          lo = bf16_round(row[kInterleaved ? 2 * j : j]);
-          hi = bf16_round(row[kInterleaved ? 2 * j + 1 : Kh + j]);
+          lo = a_value(row[kInterleaved ? 2 * j : j]);
+          hi = a_value(row[kInterleaved ? 2 * j + 1 : Kh + j]);
         }
         st.alo[lane][r] = lo;
         st.ahi[lane][r] = hi;
@@ -290,7 +302,20 @@ constexpr int MM_STAGE = 32;  // packed bytes per row per stage: two 16-byte ste
 constexpr int MM_RING = 3;    // weight stages in flight
 constexpr int MM_LDB = MM_STAGE + 16;  // weight row stride: word reads hit 32 banks
 constexpr int MM_LDA = 128 + 64;       // A row stride (64 bf16 + pad): 16-byte reads conflict-free
-constexpr int MM_A_VECS = MM_BM * 16 / MM_THREADS;  // float4 of A per thread per stage
+constexpr int MM_A_VECS = MM_BM * 16 / MM_THREADS;  // 4-element A vectors per thread per stage
+
+// 4 consecutive activations in registers, as loaded: float4 (f32 A) or
+// uint2 (bf16 A, four bf16 in order)
+template <typename TA> struct AVec;
+template <> struct AVec<float> { using T = float4; };
+template <> struct AVec<__nv_bfloat16> { using T = uint2; };
+
+// 4 activations as the 4 bf16 an mma reads, low k in the low half
+__device__ __forceinline__ uint2 bf16x4(const float4& v) {
+  return make_uint2(bits_of(__floats2bfloat162_rn(v.x, v.y)),
+                    bits_of(__floats2bfloat162_rn(v.z, v.w)));
+}
+__device__ __forceinline__ uint2 bf16x4(const uint2& v) { return v; }
 
 static_assert(MM_BN * MM_STAGE / 16 == MM_THREADS, "one weight copy per thread");
 
@@ -320,14 +345,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// A for the stage at packed byte kb0, as f32 into registers. Vector v of
-// thread tid is row (tid + v * THREADS) / 16, quarter q = (...) % 16 of the
-// stage's 64 k: interleaved k = 2 kb0 + 4q; planar q < 8 low half
+// A for the stage at packed byte kb0, as loaded into registers. Vector v
+// of thread tid is row (tid + v * THREADS) / 16, quarter q = (...) % 16 of
+// the stage's 64 k: interleaved k = 2 kb0 + 4q; planar q < 8 low half
 // k = kb0 + 4q, q >= 8 high half K/2 + kb0 + 4(q - 8). Zero past M or K.
-template <bool kInterleaved>
-__device__ __forceinline__ void mma_fetch_a(float4 (&ra)[MM_A_VECS],
-                                            const float* __restrict__ a, int tid,
+template <bool kInterleaved, typename TA>
+__device__ __forceinline__ void mma_fetch_a(typename AVec<TA>::T (&ra)[MM_A_VECS],
+                                            const TA* __restrict__ a, int tid,
                                             int m0, int kb0, int M, int K) {
+  using V = typename AVec<TA>::T;
 #pragma unroll
   for (int v = 0; v < MM_A_VECS; ++v) {
     const int idx = tid + v * MM_THREADS;
@@ -343,9 +369,9 @@ __device__ __forceinline__ void mma_fetch_a(float4 (&ra)[MM_A_VECS],
       ok = kh < K / 2;
       k = (q < 8 ? 0 : K / 2) + kh;
     }
-    ra[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+    ra[v] = V{};
     if (ok && m < M)
-      ra[v] = *reinterpret_cast<const float4*>(a + static_cast<int64_t>(m) * K + k);
+      ra[v] = *reinterpret_cast<const V*>(a + static_cast<int64_t>(m) * K + k);
   }
 }
 
@@ -353,8 +379,8 @@ __device__ __forceinline__ void mma_fetch_a(float4 (&ra)[MM_A_VECS],
 // 16-byte step s and thread column t as the fragments read it: interleaved
 // k in order (bytes 8q); planar [low k 4t..4t+3][high k 4t..4t+3] at
 // bytes 64 s + 16 t.
-template <bool kInterleaved>
-__device__ __forceinline__ void mma_store_a(uint8_t* As, const float4 (&ra)[MM_A_VECS],
+template <bool kInterleaved, typename V>
+__device__ __forceinline__ void mma_store_a(uint8_t* As, const V (&ra)[MM_A_VECS],
                                             int tid) {
 #pragma unroll
   for (int v = 0; v < MM_A_VECS; ++v) {
@@ -363,9 +389,7 @@ __device__ __forceinline__ void mma_store_a(uint8_t* As, const float4 (&ra)[MM_A
     const int off = kInterleaved
         ? 8 * q
         : 64 * ((q & 7) >> 2) + 16 * (q & 3) + (q < 8 ? 0 : 8);
-    *reinterpret_cast<uint2*>(As + (idx >> 4) * MM_LDA + off) =
-        make_uint2(bits_of(__floats2bfloat162_rn(ra[v].x, ra[v].y)),
-                   bits_of(__floats2bfloat162_rn(ra[v].z, ra[v].w)));
+    *reinterpret_cast<uint2*>(As + (idx >> 4) * MM_LDA + off) = bf16x4(ra[v]);
   }
 }
 
@@ -382,9 +406,9 @@ __device__ __forceinline__ void mma_fill_b(uint8_t* Bs,
              ok ? packed + static_cast<int64_t>(n0 + row) * Kh + kb : packed, ok);
 }
 
-template <bool kInterleaved>
+template <bool kInterleaved, typename TA>
 __global__ void __launch_bounds__(MM_THREADS)
-int4_mma_kernel(const float* __restrict__ a, const uint8_t* __restrict__ packed,
+int4_mma_kernel(const TA* __restrict__ a, const uint8_t* __restrict__ packed,
                 const float* __restrict__ scales, float* __restrict__ out,
                 int M, int K, int N, int Nw, int nblk, int blk) {
   __shared__ __align__(16) uint8_t As[2][MM_BM * MM_LDA];
@@ -418,7 +442,7 @@ int4_mma_kernel(const float* __restrict__ a, const uint8_t* __restrict__ packed,
     if (s < nstages) mma_fill_b(Bs[s], packed, tid, n0, s * MM_STAGE, N, Kh);
     cp_async_commit();
   }
-  float4 ra[MM_A_VECS];
+  typename AVec<TA>::T ra[MM_A_VECS];
   mma_fetch_a<kInterleaved>(ra, a, tid, m0, 0, M, K);
 
   for (int st = 0; st < nstages; ++st) {
@@ -548,9 +572,9 @@ constexpr size_t small_m_smem(int MB, int K) {
 // its chunks sub, sub + LPR, ... of each quant block. KS warps share a row
 // tile and split its quant blocks (warp kw takes t = kw, kw + KS, ...); a
 // block of blockDim.x / 32 warps works on that many / KS row tiles at once.
-template <bool kInterleaved, int MB, int LPR>
+template <bool kInterleaved, int MB, int LPR, typename TA>
 __global__ void __launch_bounds__(32 * SM_WARPS)
-int4_small_m_kernel(const float* __restrict__ a,
+int4_small_m_kernel(const TA* __restrict__ a,
                     const uint8_t* __restrict__ packed,
                     const float* __restrict__ scales,
                     float* __restrict__ out, int M, int K, int N, int Nw,
@@ -574,16 +598,21 @@ int4_small_m_kernel(const float* __restrict__ a,
   const int cpb = blk / 16;      // 16-byte chunks per quant block
   const int ntiles = (N + RPW - 1) / RPW;
 
-  // A: every 16-byte copy in flight at once, then each thread rounds its
-  // own copies to bf16 (round to nearest even) in place; rows past M zero
+  // f32 A: every 16-byte copy in flight at once, then each thread rounds
+  // its own copies to bf16 (round to nearest even) in place; rows past M
+  // zero. bf16 A: loaded 8 at a time after the first weight batch is in
+  // flight, and widened on its way into shared memory.
+  constexpr bool kF32 = std::is_same<TA, float>::value;
   const int K4 = K / 4;
-  for (int idx = tid; idx < MB * K4; idx += threads) {
-    const int m = idx / K4;
-    cp_async16(as + 4 * idx,
-               m < M ? a + static_cast<int64_t>(m) * K + 4 * (idx - m * K4) : a,
-               m < M);
+  if constexpr (kF32) {
+    for (int idx = tid; idx < MB * K4; idx += threads) {
+      const int m = idx / K4;
+      cp_async16(as + 4 * idx,
+                 m < M ? a + static_cast<int64_t>(m) * K + 4 * (idx - m * K4) : a,
+                 m < M);
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   // the first row tile's first batch of weights, in flight while A lands
   uint4 x[CB];
@@ -602,12 +631,28 @@ int4_small_m_kernel(const float* __restrict__ a,
     load_batch(packed + static_cast<int64_t>(n_first < N ? n_first : 0) * Kh,
                n_first < N, kw, 0);
 
-  cp_async_wait<0>();
-  for (int idx = tid; idx < MB * K4; idx += threads) {
-    float4 v = *reinterpret_cast<float4*>(as + 4 * idx);
-    v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
-                    bf16_round(v.w));
-    *reinterpret_cast<float4*>(as + 4 * idx) = v;
+  if constexpr (kF32) {
+    cp_async_wait<0>();
+    for (int idx = tid; idx < MB * K4; idx += threads) {
+      float4 v = *reinterpret_cast<float4*>(as + 4 * idx);
+      v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                      bf16_round(v.w));
+      *reinterpret_cast<float4*>(as + 4 * idx) = v;
+    }
+  } else {
+    const int K8 = K / 8;
+    for (int idx = tid; idx < MB * K8; idx += threads) {
+      const int m = idx / K8;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M)
+        w = *reinterpret_cast<const uint4*>(a + static_cast<int64_t>(m) * K +
+                                            8 * (idx - m * K8));
+      float* dst = as + 8 * idx;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
+    }
   }
   __syncthreads();
 
@@ -782,8 +827,8 @@ __global__ void nibble_probe_kernel(const uint8_t* __restrict__ p,
 // Schedule ids, as ops/kernels/qmatmul_int4.py::SCHEDULES numbers them.
 enum Schedule : int { kGeneral = 0, kSmallM = 1, kMma = 2 };
 
-template <bool kInterleaved>
-cudaError_t launch_general(const float* a, const uint8_t* packed,
+template <bool kInterleaved, typename TA>
+cudaError_t launch_general(const TA* a, const uint8_t* packed,
                            const float* scales, float* out, int M, int K, int N,
                            int Nw, int nblk, int blk, cudaStream_t st) {
   const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM));
@@ -791,21 +836,21 @@ cudaError_t launch_general(const float* a, const uint8_t* packed,
   const bool words = (K / 2) % 4 == 0 && blk % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(packed) % 4 == 0;
   if (words)
-    qmatmul_int4_kernel<kInterleaved, true><<<grid, THREADS, 0, st>>>(
+    qmatmul_int4_kernel<kInterleaved, true, TA><<<grid, THREADS, 0, st>>>(
         a, packed, scales, out, M, K, N, Nw, nblk, blk);
   else
-    qmatmul_int4_kernel<kInterleaved, false><<<grid, THREADS, 0, st>>>(
+    qmatmul_int4_kernel<kInterleaved, false, TA><<<grid, THREADS, 0, st>>>(
         a, packed, scales, out, M, K, N, Nw, nblk, blk);
   return cudaGetLastError();
 }
 
 // Blocks loop over row tiles, at most as many as fit on the card at once,
 // so that A is staged once per block.
-template <bool kInterleaved, int MB, int LPR>
-cudaError_t launch_small_m(const float* a, const uint8_t* packed,
+template <bool kInterleaved, int MB, int LPR, typename TA>
+cudaError_t launch_small_m(const TA* a, const uint8_t* packed,
                            const float* scales, float* out, int M, int K, int N,
                            int Nw, int nblk, int blk, cudaStream_t st) {
-  auto kern = int4_small_m_kernel<kInterleaved, MB, LPR>;
+  auto kern = int4_small_m_kernel<kInterleaved, MB, LPR, TA>;
   const size_t smem = small_m_smem(MB, K);
   int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -841,22 +886,22 @@ cudaError_t launch_small_m(const float* a, const uint8_t* packed,
 // warps), fewer for wide N (fewer lane sums to add). The rule is what an
 // H100 measured fastest at GPT-2 124M's decode shapes among 1, 2, 4 and 8
 // (PERF.md).
-template <bool kInterleaved, int MB>
-cudaError_t launch_small_m_rows(const float* a, const uint8_t* packed,
+template <bool kInterleaved, int MB, typename TA>
+cudaError_t launch_small_m_rows(const TA* a, const uint8_t* packed,
                                 const float* scales, float* out, int M, int K,
                                 int N, int Nw, int nblk, int blk,
                                 cudaStream_t st) {
   if (N >= 16384 || (N >= 2048 && !kInterleaved))
-    return launch_small_m<kInterleaved, MB, 2>(a, packed, scales, out, M, K,
+    return launch_small_m<kInterleaved, MB, 2, TA>(a, packed, scales, out, M, K,
                                                N, Nw, nblk, blk, st);
   if (N >= 2048 || K > 1024)
-    return launch_small_m<kInterleaved, MB, 4>(a, packed, scales, out, M, K,
+    return launch_small_m<kInterleaved, MB, 4, TA>(a, packed, scales, out, M, K,
                                                N, Nw, nblk, blk, st);
-  return launch_small_m<kInterleaved, MB, 8>(a, packed, scales, out, M, K, N,
+  return launch_small_m<kInterleaved, MB, 8, TA>(a, packed, scales, out, M, K, N,
                                              Nw, nblk, blk, st);
 }
 
-template <bool kInterleaved>
+template <bool kInterleaved, typename TA>
 cudaError_t launch_int4(const void* av, const void* pv, const void* sv,
                         void* ov, int M, int K, int N, int Nw, int nblk,
                         int blk, int schedule, void* stream) {
@@ -864,7 +909,7 @@ cudaError_t launch_int4(const void* av, const void* pv, const void* sv,
   if (K <= 0 || K % 2 || nblk <= 0 || blk <= 0 || nblk * blk != K / 2 ||
       N > Nw)
     return cudaErrorInvalidValue;
-  const float* a = static_cast<const float*>(av);
+  const TA* a = static_cast<const TA*>(av);
   const uint8_t* packed = static_cast<const uint8_t*>(pv);
   const float* scales = static_cast<const float*>(sv);
   float* out = static_cast<float*>(ov);
@@ -874,14 +919,14 @@ cudaError_t launch_int4(const void* av, const void* pv, const void* sv,
                        reinterpret_cast<uintptr_t>(packed) % 16 == 0;
   switch (schedule) {
     case kGeneral:
-      return launch_general<kInterleaved>(a, packed, scales, out, M, K, N, Nw,
+      return launch_general<kInterleaved, TA>(a, packed, scales, out, M, K, N, Nw,
                                           nblk, blk, st);
     case kSmallM: {
       if (M > SM_MAX_M || blk % 16 || !aligned) return cudaErrorInvalidValue;
       if (M <= 8)
-        return launch_small_m_rows<kInterleaved, 8>(a, packed, scales, out, M,
+        return launch_small_m_rows<kInterleaved, 8, TA>(a, packed, scales, out, M,
                                                     K, N, Nw, nblk, blk, st);
-      return launch_small_m_rows<kInterleaved, 16>(a, packed, scales, out, M, K,
+      return launch_small_m_rows<kInterleaved, 16, TA>(a, packed, scales, out, M, K,
                                                    N, Nw, nblk, blk, st);
     }
     case kMma: {
@@ -889,7 +934,7 @@ cudaError_t launch_int4(const void* av, const void* pv, const void* sv,
       const dim3 grid((unsigned)((N + MM_BN - 1) / MM_BN),
                       (unsigned)((M + MM_BM - 1) / MM_BM));
       if (grid.y > 65535u) return cudaErrorInvalidValue;
-      int4_mma_kernel<kInterleaved><<<grid, MM_THREADS, 0, st>>>(
+      int4_mma_kernel<kInterleaved, TA><<<grid, MM_THREADS, 0, st>>>(
           a, packed, scales, out, M, K, N, Nw, nblk, blk);
       return cudaGetLastError();
     }
@@ -898,10 +943,25 @@ cudaError_t launch_int4(const void* av, const void* pv, const void* sv,
   }
 }
 
+// A's type by the id the entry points take: 0 f32, 1 bf16
+template <bool kInterleaved>
+cudaError_t launch_int4_a(const void* a, const void* packed, const void* scales,
+                          void* out, int M, int K, int N, int Nw, int nblk,
+                          int blk, int schedule, int a_dtype, void* stream) {
+  if (a_dtype == 0)
+    return launch_int4<kInterleaved, float>(a, packed, scales, out, M, K, N,
+                                            Nw, nblk, blk, schedule, stream);
+  if (a_dtype == 1)
+    return launch_int4<kInterleaved, __nv_bfloat16>(
+        a, packed, scales, out, M, K, N, Nw, nblk, blk, schedule, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// a: f32 [M, K]; packed: uint8 [Nw, K/2]; scales: f32 [2*nbh, Nw];
-// out: f32 [M, N] with N <= Nw. nbh * bs must equal K/2. schedule: 0
+// a: [M, K], f32 (a_dtype 0) or bf16 (a_dtype 1); packed: uint8 [Nw, K/2];
+// scales: f32 [2*nbh, Nw]; out: f32 [M, N] with N <= Nw. nbh * bs must
+// equal K/2. schedule: 0
 // general, 1 small_m (M <= 16, bs a power-of-2 multiple of 16, a and packed
 // 16-byte aligned, 2 * K * (8 or 16) bytes of shared memory), 2 mma (bs a
 // multiple of 16, a and packed 16-byte aligned); cudaErrorInvalidValue
@@ -909,20 +969,23 @@ cudaError_t launch_int4(const void* av, const void* pv, const void* sv,
 // the launch's error code.
 extern "C" cudaError_t qmatmul_int4_planar_launch(
     const void* a, const void* packed, const void* scales, void* out, int M,
-    int K, int N, int Nw, int nbh, int bs, int schedule, void* stream) {
-  return launch_int4<false>(a, packed, scales, out, M, K, N, Nw, nbh, bs,
-                            schedule, stream);
+    int K, int N, int Nw, int nbh, int bs, int schedule, int a_dtype,
+    void* stream) {
+  return launch_int4_a<false>(a, packed, scales, out, M, K, N, Nw, nbh, bs,
+                              schedule, a_dtype, stream);
 }
 
-// a: f32 [M, K]; packed: uint8 [Nw, K/2] (interleaved); scales: f32 [Nw, nb];
+// a: [M, K], f32 or bf16 as a_dtype says; packed: uint8 [Nw, K/2]
+// (interleaved); scales: f32 [Nw, nb];
 // out: f32 [M, N] with N <= Nw. nb * qbh must equal K/2. schedule as for
 // the planar entry point, with qbh in the place of bs. Launches on `stream`
 // and returns the launch's error code.
 extern "C" cudaError_t qmatmul_int4_bf16_launch(
     const void* a, const void* packed, const void* scales, void* out, int M,
-    int K, int N, int Nw, int nb, int qbh, int schedule, void* stream) {
-  return launch_int4<true>(a, packed, scales, out, M, K, N, Nw, nb, qbh,
-                           schedule, stream);
+    int K, int N, int Nw, int nb, int qbh, int schedule, int a_dtype,
+    void* stream) {
+  return launch_int4_a<true>(a, packed, scales, out, M, K, N, Nw, nb, qbh,
+                             schedule, a_dtype, stream);
 }
 
 // p: uint8 [n]; lo, hi: f32 [n] = the two nibbles of each byte, minus 8, by

@@ -17,9 +17,12 @@ One Engine's graphs share one memory pool. On the CPU every call runs
 eagerly.
 
 `Engine(graph)` runs on the card; only an explicit `device="cpu"` runs on
-the CPU. Not ported yet: the bfloat16 dtype policy and the host
-prolog/epilog for string and image front-end ops (a graph that needs it
-raises).
+the CPU. `dtype="bfloat16"` is the JAX Engine's policy: the graph's f32
+weights go to the device as bf16, its other constants stay f32, f32 inputs
+are cast to bf16 on the way in and bf16 outputs back to f32 on the way out;
+mixed operands promote as in JAX (ops/standard.py::promote). Not ported
+yet: the host prolog/epilog for string and image front-end ops (a graph
+that needs it raises).
 """
 
 from __future__ import annotations
@@ -252,6 +255,40 @@ def side_stream(stream):
     cur.wait_stream(stream)
 
 
+# the compute dtype policies Engine takes, by name
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _policy_dtype(dtype) -> torch.dtype:
+    """`Engine(dtype=...)` as a torch dtype: "float32" or "bfloat16" (or
+    those dtypes given as numpy or torch dtypes)."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).split(".")[-1]
+    else:
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if name not in _DTYPES:
+        raise NotImplementedError(
+            f"Engine dtype {dtype!r}: the policies are {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _with_policy(fn: Callable, dtype: torch.dtype) -> Callable:
+    """fn with the JAX Engine's cast-in / cast-out around it: f32 inputs
+    to `dtype`, `dtype` outputs back to f32 (engine.py:216-235 in the JAX
+    package)."""
+    if dtype == torch.float32:
+        return fn
+
+    def cast(params, inputs, statics=None):
+        inputs = {k: v.to(dtype) if v.dtype == torch.float32 else v
+                  for k, v in inputs.items()}
+        out = fn(params, inputs, statics)
+        return {k: v.to(torch.float32) if v.dtype == dtype else v
+                for k, v in out.items()}
+
+    return cast
+
+
 def _same_value(a, b) -> bool:
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         return a is b
@@ -297,19 +334,21 @@ class Engine:
     graph: imported Graph.
     device: where it runs; "cuda" (the default) raises when no card is
         present, only an explicit "cpu" runs on the CPU.
-    dtype: compute dtype policy for float tensors; only "float32" is ported.
+    dtype: compute dtype policy for float tensors, "float32" or
+        "bfloat16" (the graph's f32 weights held in bf16, f32 inputs cast
+        in and bf16 outputs cast out).
     share_params_with: an Engine whose device weights this one reuses
-        where a weight of the same name has the same value (the decode
-        graphs of one server's cache lengths share every weight and
-        differ in their length-dependent tables).
+        where a weight of the same name has the same value and the same
+        dtype on the device under this Engine's policy (the decode graphs
+        of one server's cache lengths share every weight and differ in
+        their length-dependent tables; a bf16 prefill Engine shares no
+        float weight with an f32 decode Engine).
     """
 
     def __init__(self, graph: Graph, *, device="cuda",
                  dtype: str = "float32",
                  share_params_with: Optional["Engine"] = None):
-        if np.dtype(dtype) != np.float32:
-            raise NotImplementedError(
-                f"Engine dtype {dtype!r}: only float32 is ported")
+        self.dtype = _policy_dtype(dtype)
         self.device = resolve_device(device)
         for spec in graph.inputs:
             if spec.dtype == object:
@@ -325,17 +364,28 @@ class Engine:
             raise ValueError("share_params_with: weight sets differ")
         shared = {} if donor is None else {
             k: donor.params[k] for k in graph.weight_names
-            if donor.device == self.device and _same_value(
-                graph.constants[k], donor.graph.constants[k])}
+            if donor.device == self.device
+            and donor.params[k].dtype == self._held_dtype(graph.constants[k])
+            and _same_value(graph.constants[k], donor.graph.constants[k])}
         self.params = {**shared, **params_from_numpy(
             {k: graph.constants[k] for k in graph.weight_names
-             if k not in shared}, self.device)}
+             if k not in shared}, self.device, float32_as=self.dtype)}
         self.packed = prepack_int8_weights(graph, self.params)
-        self._fn = lower(graph, self.device, self.packed)
+        self._fn = _with_policy(lower(graph, self.device, self.packed),
+                                self.dtype)
         self._statics: Dict[tuple, dict] = {}    # signature -> static values
         self._graphs: Dict[tuple, _Captured] = {}  # signature -> its graph
         self._pool = None     # one memory pool for all of them
         self._stream = None   # the side stream they are captured on
+
+    def _held_dtype(self, value) -> torch.dtype:
+        """The dtype a weight of this value has on the device under this
+        Engine's policy."""
+        if isinstance(value, torch.Tensor):
+            dt = value.dtype
+        else:
+            dt = torch.from_numpy(np.zeros(0, np.asarray(value).dtype)).dtype
+        return self.dtype if dt == torch.float32 else dt
 
     def _canon_inputs(self, inputs, device) -> Dict[str, torch.Tensor]:
         """The feed as name -> tensor on `device`; device None keeps a

@@ -26,13 +26,21 @@ graph per sampling configuration, which later blocks replay; the sampling
 `torch.Generator` is registered with the graph, so a replay draws what the
 host loop draws. `return_logits=True` runs the host loop, as in JAX.
 
+`prefill_dtype` sets the prefill Engine's scheme, as in JAX: "float32",
+"bfloat16" (the bf16 dtype policy, engine.py), or "w8a8": a bf16 prefill
+Engine on the graph quant.quantize_matmuls_w8a8 rewrote, whose MatMuls run
+as int8 x int8 MatMulIntegers on the int8 kernel. With int4_weights the
+"bfloat16" prefill runs the int4 graph (bf16 activations into the int4
+kernels) and the "w8a8" rewrite takes the place of the prefill's int4
+quantization; decode keeps its own scheme either way.
+
 `Generator(...)` runs on the card; only an explicit `device="cpu"` runs on
 the CPU, where every kernel is its plain version and a block is a Python
 loop.
 
 Not ported yet (each raises NotImplementedError): the moe family (ROADMAP
 1.8), `scan_layers` (1.5b), `mesh` / `param_sharding_fn` / `pipeline_axis`
-(1.12), `lora_bank` (1.8) and `prefill_dtype` other than "float32" (1.6).
+(1.12) and `lora_bank` (1.8).
 """
 
 from __future__ import annotations
@@ -104,8 +112,6 @@ class Generator:
             raise _not_ported("scan_layers", "1.5b")
         if lora_bank is not None:
             raise _not_ported("lora_bank", "1.8")
-        if prefill_dtype != "float32":
-            raise _not_ported(f"prefill_dtype={prefill_dtype!r}", "1.6")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch
@@ -140,18 +146,28 @@ class Generator:
         decode_graph = import_model(
             build_decode(cfg, batch=batch, max_len=max_len, seed=seed,
                          **dkw))
+        # w8a8: dynamic W8A8 MatMuls in a bf16 prefill Engine, in place of
+        # the prefill's int4 quantization; decode keeps its own scheme
+        w8a8_prefill = prefill_dtype == "w8a8"
+        self.prefill_dtype = "bfloat16" if w8a8_prefill else prefill_dtype
         if int4_weights:
             from .quant import quantize_weights_int4
 
-            prefill_graph = quantize_weights_int4(prefill_graph)
+            if not w8a8_prefill:
+                prefill_graph = quantize_weights_int4(prefill_graph)
             decode_graph = quantize_weights_int4(decode_graph)
+        if w8a8_prefill:
+            from .quant import quantize_matmuls_w8a8
+
+            prefill_graph = quantize_matmuls_w8a8(prefill_graph)
         self._engines(prefill_graph, decode_graph)
         # per-(layer, kind, head) scales, calibrated from the prefill
         self._kv_scales: Optional[Dict[str, torch.Tensor]] = None
         self.device_loop = int(device_loop)
 
     def _engines(self, prefill_graph: Graph, decode_graph: Graph) -> None:
-        self.prefill = Engine(prefill_graph, device=self.device)
+        self.prefill = Engine(prefill_graph, device=self.device,
+                              dtype=self.prefill_dtype)
         self.decode = Engine(decode_graph, device=self.device)
         self._gen: Optional[torch.Generator] = None
         # sampling configuration -> its K-step block (state and graph)

@@ -1,8 +1,9 @@
 """The kernel wrappers' launch counters, read and moved as one.
 
 Each wrapper counts its launches on the host, in `.launches` and, for some,
-per variant in `.schedules` (int4; the grouped conv's forms), `.epilogues`
-(int8 GEMM) and `.producers` (int8 conv). A CUDA graph replays the kernels
+per variant in `.schedules` (int4; the grouped conv's forms), `.a_dtypes`
+(int4: the activations' type), `.epilogues` (int8 GEMM) and `.producers`
+(int8 conv). A CUDA graph replays the kernels
 without calling the wrappers, and capturing one calls them without
 launching anything. So whoever captures a graph takes the counters' change
 over the capture back out, and adds it again on every replay
@@ -15,7 +16,7 @@ from typing import Dict, Tuple
 
 __all__ = ["wrappers", "snapshot", "delta", "add"]
 
-SPLITS = ("schedules", "epilogues", "producers")
+SPLITS = ("schedules", "a_dtypes", "epilogues", "producers")
 
 Key = Tuple[str, str, str]
 

@@ -12,10 +12,12 @@ in registers by the shared device functions in `csrc/nibble.cuh`; the
 source note says what bounds each schedule on the H100 and what its design
 does about that.
 
-Three schedules (`int4_schedule` picks one from the shape before the
-launch): `small_m` streams the weights for decode-sized M, `mma` runs on the
-bf16 tensor cores for prefill-sized M, and `general` takes every other
-shape (odd quant blocks, unaligned operands). The C entry point refuses a
+Both take A as f32 or as bf16 (the bf16 Engine's activations; the kernel
+rounds f32 A to bf16 itself, so the same values give the same result in
+either type). Three schedules (`int4_schedule` picks one from the shape
+before the launch): `small_m` streams the weights for decode-sized M,
+`mma` runs on the bf16 tensor cores for prefill-sized M, and `general`
+takes every other shape (odd quant blocks, unaligned operands). The C entry point refuses a
 schedule whose constraints do not hold; the wrapper then raises.
 
 `nibble_probe` runs one of those unpack functions alone over a uint8
@@ -26,7 +28,8 @@ Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
 (`*_plain`), and launches the kernel for a tensor on the card, or raises.
 `qmatmul_int4_planar.launches`, `qmatmul_int4_bf16.launches` and
 `nibble_probe.launches` count launches; `qmatmul_int4_planar.schedules` and
-`qmatmul_int4_bf16.schedules` count them per schedule.
+`qmatmul_int4_bf16.schedules` count them per schedule, their `.a_dtypes`
+per type of A.
 """
 
 from __future__ import annotations
@@ -41,11 +44,13 @@ from . import _build
 
 __all__ = ["planar_layout", "qmatmul_int4_planar", "qmatmul_int4_planar_plain",
            "interleaved_layout", "qmatmul_int4_bf16", "qmatmul_int4_bf16_plain",
-           "int4_schedule", "SCHEDULES", "SMALL_M_MAX", "NIBBLE_VARIANTS",
-           "nibble_probe", "nibble_probe_plain"]
+           "int4_schedule", "SCHEDULES", "A_DTYPES", "SMALL_M_MAX",
+           "NIBBLE_VARIANTS", "nibble_probe", "nibble_probe_plain"]
 
 # schedule name -> the id the C entry points take
 SCHEDULES = {"general": 0, "small_m": 1, "mma": 2}
+# A's dtype, by name -> (torch dtype, the id the C entry points take)
+A_DTYPES = {"float32": (torch.float32, 0), "bfloat16": (torch.bfloat16, 1)}
 # The largest M that goes to small_m: the crossover with mma that
 # chip_smoke.py's M sweep measured on an H100 (PERF.md): at M = 16 small_m
 # still wins in the planar layout but not in the interleaved one. small_m
@@ -100,8 +105,8 @@ def qmatmul_int4_planar_plain(a: torch.Tensor, packed: torch.Tensor,
                               n: Optional[int] = None) -> torch.Tensor:
     """The TPU kernel's arithmetic: A rounded to bf16, each quant block's
     dot in f32 (exact products, f32 sums), then acc + dlo * s_lo + dhi *
-    s_hi block after block. a f32 [M, K], packed uint8 [Nw, K/2], scales
-    f32 [2*nbh, Nw] -> f32 [M, n] (n defaults to Nw)."""
+    s_hi block after block. a f32 or bf16 [M, K], packed uint8 [Nw, K/2],
+    scales f32 [2*nbh, Nw] -> f32 [M, n] (n defaults to Nw)."""
     M, K = a.shape
     Nw, Kh = packed.shape
     nbh, bs = planar_layout(K, qblock)
@@ -139,8 +144,9 @@ def qmatmul_int4_bf16_plain(a: torch.Tensor, packed: torch.Tensor,
     """The TPU kernel `_int4_mm_kernel`'s arithmetic: A rounded to bf16;
     per quant block t the f32 dot of A's even lanes with the low nibbles
     plus that of its odd lanes with the high nibbles (exact products, f32
-    sums); then acc + dot * s[:, t] block after block. a f32 [M, K], packed
-    uint8 [Nw, K/2], scales f32 [Nw, nb] -> f32 [M, n] (n defaults to Nw)."""
+    sums); then acc + dot * s[:, t] block after block. a f32 or bf16 [M,
+    K], packed uint8 [Nw, K/2], scales f32 [Nw, nb] -> f32 [M, n] (n
+    defaults to Nw)."""
     M, K = a.shape
     Nw, Kh = packed.shape
     nb = scales.shape[1]
@@ -182,9 +188,10 @@ def _stream(dev) -> int:
 def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
                         scales: torch.Tensor, *, qblock: int = 256,
                         n: Optional[int] = None) -> torch.Tensor:
-    """Planar-packed int4 matmul: a f32 [M, K] @ the [K, N] weight that
-    `quant.pack_int4_planar(w, qblock)` packed into `packed` uint8 [Nw, K/2]
-    and `scales` f32 [2*nbh, Nw] -> f32 [M, n] (n <= Nw, default Nw)."""
+    """Planar-packed int4 matmul: a f32 or bf16 [M, K] @ the [K, N] weight
+    that `quant.pack_int4_planar(w, qblock)` packed into `packed` uint8
+    [Nw, K/2] and `scales` f32 [2*nbh, Nw] -> f32 [M, n] (n <= Nw, default
+    Nw)."""
     if a.device.type == "cpu":
         return qmatmul_int4_planar_plain(a, packed, scales, qblock=qblock,
                                          n=n)
@@ -209,21 +216,24 @@ def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
 
 qmatmul_int4_planar.launches = 0
 qmatmul_int4_planar.schedules = dict.fromkeys(SCHEDULES, 0)
+qmatmul_int4_planar.a_dtypes = dict.fromkeys(A_DTYPES, 0)
 
 
 def _launch(wrapper, a: torch.Tensor, packed: torch.Tensor,
             scales: torch.Tensor, n: int, nblk: int, blk: int,
             schedule: Optional[str] = None) -> torch.Tensor:
     """Check the operands and launch `wrapper`'s kernel (its C entry point
-    is `<name>_launch`) on `schedule` (default: int4_schedule's pick), and
-    count the launch: out f32 [M, n]."""
+    is `<name>_launch`) on `schedule` (default: int4_schedule's pick) for
+    A's dtype, and count the launch: out f32 [M, n]."""
     name = wrapper.__name__
     M, K = a.shape
     Nw = packed.shape[0]
     if max(M, K, Nw) >= 2 ** 31:
         raise ValueError(f"{name}: dims out of range {M, K, Nw}")
     dev = a.device
-    _check(name, "a", a, torch.float32, dev)
+    a_dtype = next((k for k, (dt, _) in A_DTYPES.items() if dt == a.dtype),
+                   "float32")
+    _check(name, "a", a, A_DTYPES[a_dtype][0], dev)
     _check(name, "packed", packed, torch.uint8, dev)
     _check(name, "scales", scales, torch.float32, dev)
     if schedule is None:
@@ -231,25 +241,27 @@ def _launch(wrapper, a: torch.Tensor, packed: torch.Tensor,
             a.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0))
     out = torch.empty((M, n), dtype=torch.float32, device=dev)
     fn = _fn(f"{name}_launch",
-             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         err = fn(a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                  out.data_ptr(), M, K, n, Nw, nblk, blk, SCHEDULES[schedule],
-                 _stream(dev))
+                 A_DTYPES[a_dtype][1], _stream(dev))
     if err != 0:
-        raise RuntimeError(f"{name}: launch on schedule {schedule} failed "
-                           f"with cudaError {err}")
+        raise RuntimeError(f"{name}: launch on schedule {schedule} with "
+                           f"{a_dtype} A failed with cudaError {err}")
     wrapper.launches += 1
     wrapper.schedules[schedule] += 1
+    wrapper.a_dtypes[a_dtype] += 1
     return out
 
 
 def qmatmul_int4_bf16(a: torch.Tensor, packed: torch.Tensor,
                       scales: torch.Tensor, *, n: Optional[int] = None
                       ) -> torch.Tensor:
-    """Interleaved-packed int4 matmul: a f32 [M, K] @ the [K, N] weight that
-    `quant.pack_int4(w, qblock)` packed into `packed` uint8 [Nw, K/2] and
-    `scales` f32 [Nw, K/qblock] -> f32 [M, n] (n <= Nw, default Nw)."""
+    """Interleaved-packed int4 matmul: a f32 or bf16 [M, K] @ the [K, N]
+    weight that `quant.pack_int4(w, qblock)` packed into `packed` uint8
+    [Nw, K/2] and `scales` f32 [Nw, K/qblock] -> f32 [M, n] (n <= Nw,
+    default Nw)."""
     if a.device.type == "cpu":
         return qmatmul_int4_bf16_plain(a, packed, scales, n=n)
     if a.device.type != "cuda":
@@ -272,6 +284,7 @@ def qmatmul_int4_bf16(a: torch.Tensor, packed: torch.Tensor,
 
 qmatmul_int4_bf16.launches = 0
 qmatmul_int4_bf16.schedules = dict.fromkeys(SCHEDULES, 0)
+qmatmul_int4_bf16.a_dtypes = dict.fromkeys(A_DTYPES, 0)
 
 
 # the unpack device functions of csrc/nibble.cuh, by the schedule that uses

@@ -22,10 +22,14 @@ reads (`pack_qmatmul_weight`). The activations are read as they come when
 K is a multiple of 16 (TMA's row stride), and copied into a zero-padded
 buffer otherwise.
 
+MatMulInteger (ops/quantized.py) reaches the int32 epilogue through
+`matmul_integer_int8`, which takes an activation of any rank [..., K] to
+the 2-D product and back.
+
 Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch
 version (`*_plain`), and launches the kernel for a tensor on the card, or
-raises. `qmatmul_int8.launches` counts the kernel's launches through both
-wrappers, `qmatmul_int8.epilogues` counts them per epilogue.
+raises. `qmatmul_int8.launches` counts the kernel's launches through every
+wrapper, `qmatmul_int8.epilogues` counts them per epilogue.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from . import _build
 
 __all__ = ["qmatmul_int8", "qmatmul_int8_plain", "qmatmul_int8_requant",
            "qmatmul_int8_requant_plain", "pack_qmatmul_weight", "int8_tile",
-           "Int8Tile", "EPILOGUES", "K_ALIGN", "MAX_K"]
+           "Int8Tile", "EPILOGUES", "K_ALIGN", "MAX_K",
+           "matmul_integer_int8", "as_int8", "colsum_key"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -138,6 +143,20 @@ def pack_qmatmul_weight(b: torch.Tensor) -> torch.Tensor:
                       device=b.device)
     out[:, :K] = b.t()
     return out
+
+
+def as_int8(t: torch.Tensor) -> torch.Tensor:
+    """An int8 or uint8 tensor as int8: uint8 shifted by -128 (its top bit
+    flipped), int8 as it is. One elementwise pass for uint8."""
+    if t.dtype == torch.uint8:
+        return torch.bitwise_xor(t, 0x80).view(torch.int8)
+    return t
+
+
+def colsum_key(name: str) -> str:
+    """The key under which `weights.prepack_int8_weights` keeps a
+    MatMulInteger weight's int32 column sums."""
+    return f"{name}::colsum"
 
 
 # --------------------------------------------------------------------------
@@ -278,6 +297,22 @@ def qmatmul_int8(a: torch.Tensor, b: torch.Tensor, *,
 
 qmatmul_int8.launches = 0
 qmatmul_int8.epilogues = dict.fromkeys(EPILOGUES, 0)
+
+
+def matmul_integer_int8(a: torch.Tensor, b: torch.Tensor, *,
+                        packed: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """int8 a [..., K] @ int8 b [K, N] -> int32 [..., N], exact: the
+    leading dims of a flattened into the rows of one `qmatmul_int8`
+    (int32 epilogue). On the card `packed` is `pack_qmatmul_weight(b)`; a
+    shape the kernel refuses raises with its shape."""
+    if a.dim() < 1 or b.dim() != 2 or a.shape[-1] != b.shape[0]:
+        raise ValueError(f"matmul_integer_int8: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} (the kernel takes a [..., K] @ "
+                         f"a 2-D b [K, N])")
+    K, N = b.shape
+    acc = qmatmul_int8(a.reshape(-1, K).contiguous(), b, packed=packed)
+    return acc.reshape(*a.shape[:-1], N)
 
 
 def qmatmul_int8_requant(a: torch.Tensor, b: torch.Tensor, mult: torch.Tensor,

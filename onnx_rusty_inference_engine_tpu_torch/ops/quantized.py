@@ -1,5 +1,6 @@
 """Quantized ONNX op emitters: QuantizeLinear / DequantizeLinear /
-QLinearConv / QLinearMatMul / QLinearAdd / QLinearMul / MatMulNBits.
+QLinearConv / QLinearMatMul / QLinearAdd / QLinearMul / MatMulNBits /
+MatMulInteger / DynamicQuantizeLinear.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/quantized.py
 for the INT8 CNN (SqueezeNet, ResNet-50, MobileNetV2), BERT and ViT paths
@@ -25,8 +26,20 @@ function.
 QLinearAdd and QLinearMul (the quantizer's residual adds) dequantize,
 combine and requantize elementwise in PyTorch, as the JAX emitter does.
 
-MatMulNBits runs on the int4 kernels (ops/kernels/qmatmul_int4.py) in both
-nibble layouts: planar (quant.quantize_weights_int4) at every K and block
+MatMulInteger (the dynamic W8A8 rewrite's contraction, quant.
+quantize_matmuls_w8a8, and ORT's quantize_dynamic form) runs its int8 x
+int8 product on the int32 epilogue of ops/kernels/qmatmul_int8.py, for an
+a of any rank and a 2-D b, int8 or uint8 each, with every zero-point form
+ONNX gives (a_zero_point per tensor or per row, b_zero_point per tensor or
+per column, either one a runtime tensor): uint8 operands are shifted into
+int8 and the zero points folded in by small int32 corrections after the
+kernel, so the result is the exact int32 the JAX emitter computes.
+DynamicQuantizeLinear stays elementwise PyTorch, as JAX keeps it outside
+Pallas.
+
+MatMulNBits runs on the int4 kernels (ops/kernels/qmatmul_int4.py), with
+f32 or bf16 activations (the bf16 Engine's), in both nibble layouts:
+planar (quant.quantize_weights_int4) at every K and block
 size the quantizer gives, and the interleaved ORT layout of quant.pack_int4
 (packed [N, K/2], scales [N, K/block]) at every even K and every even block
 that divides it. The JAX package's dense-dequant fallbacks, for layouts its
@@ -45,9 +58,11 @@ from .kernels.qconv_grouped_int8 import qconv_grouped_int8_requant
 from .kernels.qconv_int8 import qconv_int8_requant
 from .kernels.qmatmul_int4 import (interleaved_layout, qmatmul_int4_bf16,
                                    qmatmul_int4_planar)
-from .kernels.qmatmul_int8 import qmatmul_int8, qmatmul_int8_requant
+from .kernels.qmatmul_int8 import (as_int8, colsum_key, matmul_integer_int8,
+                                   pack_qmatmul_weight, qmatmul_int8,
+                                   qmatmul_int8_requant)
 from .registry import LoweringContext, UnsupportedOpError, register
-from .standard import _conv_padding
+from .standard import _conv_padding, promote
 
 
 def _per_axis(t: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
@@ -74,7 +89,7 @@ def quantize_linear(ctx: LoweringContext, node: Node, ins):
     # a true division, as the JAX emitter's; scale is a tensor on x's
     # device (PyTorch turns division by a CPU scalar into a multiply by
     # its reciprocal, which moves ties by one step)
-    y = torch.round(x / scale)
+    y = torch.round(torch.true_divide(*promote(x, scale)))
     if zp is not None:
         y = y + zp.to(y.dtype)
     return (y.clamp(info.min, info.max).to(qdtype),)
@@ -258,7 +273,13 @@ def matmul_nbits(ctx: LoweringContext, node: Node, ins):
     if isinstance(layout, bytes):
         layout = layout.decode()
     lead = a.shape[:-1]
-    a2 = a.reshape(-1, K).to(torch.float32).contiguous()
+    # the kernels take f32 or bf16 A and f32 scales (bf16 under the bf16
+    # Engine's policy: exactly widened, as the JAX kernel's f32 product
+    # with a bf16 scale widens it)
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        a = a.to(torch.float32)
+    a2 = a.reshape(-1, K).contiguous()
+    scales = scales.to(torch.float32)
     if layout == "planar":
         out = qmatmul_int4_planar(a2, packed, scales,
                                   qblock=int(node.attr("block_size", K)), n=N)
@@ -277,3 +298,102 @@ def matmul_nbits(ctx: LoweringContext, node: Node, ins):
             f"MatMulNBits {node.name or node.outputs[0]!r}: {e}") from None
     out = qmatmul_int4_bf16(a2, packed, scales, n=N)
     return (out.reshape(*lead, N).to(a.dtype),)
+
+
+# --------------------------------------------------------------------------
+# MatMulInteger / DynamicQuantizeLinear (dynamic quantization)
+# --------------------------------------------------------------------------
+def _shifted(zp: Optional[torch.Tensor], shift: int):
+    """shift - zp as int32 (a Python int where zp is absent, None where
+    that is 0): the term that takes the kernel's operand back to the
+    zero-point-corrected one."""
+    if zp is None:
+        return shift or None
+    return shift - zp.to(torch.int32)
+
+
+def _matmul_integer_zero_points(node: Node, a, b, a_zp, b_zp):
+    """(alpha, beta) with a - a_zp = a' + alpha and b - b_zp = b' + beta
+    for the kernel's int8 operands a' = a - s and b' = b - t (s, t = 128
+    for uint8, else 0): alpha per row [..., M, 1] or per tensor, beta per
+    column [N] or per tensor, None where 0 by construction. Raises for a
+    zero point of any other shape."""
+    name = node.name or node.outputs[0]
+    N = b.shape[1]
+    if a_zp is not None and a_zp.numel() > 1:
+        rows = a.shape[-2] if a.dim() >= 2 else 1
+        if a_zp.dim() == 1 and a_zp.numel() == rows:
+            # ONNX: an M-element vector is per row of a 2-D a
+            a_zp = a_zp.reshape(rows, 1)
+        elif not (a_zp.dim() >= 2 and a_zp.shape[-1] == 1):
+            raise UnsupportedOpError(
+                f"MatMulInteger {name!r}: a_zero_point "
+                f"{tuple(a_zp.shape)} with a {tuple(a.shape)} is neither "
+                f"per tensor nor per row")
+    if b_zp is not None:
+        if b_zp.numel() not in (1, N):
+            raise UnsupportedOpError(
+                f"MatMulInteger {name!r}: b_zero_point {tuple(b_zp.shape)} "
+                f"with b {tuple(b.shape)} is neither per tensor nor per "
+                f"column")
+        b_zp = b_zp.reshape(-1) if b_zp.numel() > 1 else b_zp.reshape(())
+    return (_shifted(a_zp, 128 if a.dtype == torch.uint8 else 0),
+            _shifted(b_zp, 128 if b.dtype == torch.uint8 else 0))
+
+
+@register("MatMulInteger")
+def matmul_integer(ctx: LoweringContext, node: Node, ins):
+    """(a - a_zp) @ (b - b_zp) in exact int32. The kernel takes the int8
+    operands a' and b' (`as_int8`); then sum_k (a' + alpha)(b' +
+    beta) = a' @ b' + alpha * colsum(b') + beta * rowsum(a') + K * alpha *
+    beta, three small broadcasts over the int32 result (each skipped
+    where its term is 0 by construction)."""
+    a, b = ins[0], ins[1]
+    a_zp = ins[2] if len(ins) > 2 and ins[2] is not None else None
+    b_zp = ins[3] if len(ins) > 3 and ins[3] is not None else None
+    name = node.name or node.outputs[0]
+    if a.dtype not in (torch.int8, torch.uint8) \
+            or b.dtype not in (torch.int8, torch.uint8):
+        raise UnsupportedOpError(f"MatMulInteger {name!r}: {a.dtype} x "
+                                 f"{b.dtype} (ONNX gives int8 or uint8)")
+    if b.dim() != 2 or a.dim() < 1 or a.shape[-1] != b.shape[0]:
+        raise UnsupportedOpError(
+            f"MatMulInteger {name!r}: a {tuple(a.shape)} @ b "
+            f"{tuple(b.shape)} (the kernel takes a 2-D b [K, N])")
+    alpha, beta = _matmul_integer_zero_points(node, a, b, a_zp, b_zp)
+    ai, bi = as_int8(a), as_int8(b)
+    bname = node.inputs[1]
+    packed = ctx.packed.get(bname)
+    if packed is None and a.device.type == "cuda":
+        # a weight computed at run time: laid out for the kernel per call
+        packed = pack_qmatmul_weight(bi)
+    acc = matmul_integer_int8(ai, bi, packed=packed)
+    if alpha is not None:
+        colsum = ctx.packed.get(colsum_key(bname))
+        if colsum is None:
+            colsum = bi.sum(dim=0, dtype=torch.int32)
+        acc = acc + alpha * colsum
+    if beta is not None:
+        acc = acc + beta * ai.sum(dim=-1, keepdim=True, dtype=torch.int32)
+        if alpha is not None:
+            acc = acc + b.shape[0] * alpha * beta
+    return (acc,)
+
+
+@register("DynamicQuantizeLinear")
+def dynamic_quantize_linear(ctx: LoweringContext, node: Node, ins):
+    """uint8 per-tensor quantization, the ONNX spec's arithmetic in x's
+    dtype, as the JAX emitter: (y, scale f32, zero point uint8). The
+    division by 255 runs as XLA runs the JAX emitter's division by that
+    literal: a multiply by its reciprocal, rounded to x's dtype."""
+    x = ins[0]
+    x_min = torch.clamp_max(torch.amin(x), 0.0)
+    x_max = torch.clamp_min(torch.amax(x), 0.0)
+    inv = float(torch.tensor(1.0 / 255.0, dtype=x.dtype))
+    scale = (x_max - x_min) * inv
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    zp = torch.clamp(torch.round(0.0 - x_min / scale), 0.0, 255.0)
+    # + an f32 zero point: f32 from here on, also for a bf16 x
+    y = torch.add(*promote(torch.round(x / scale), zp.to(torch.float32)))
+    y = torch.clamp(y, 0.0, 255.0)
+    return (y.to(torch.uint8), scale.to(torch.float32), zp.to(torch.uint8))

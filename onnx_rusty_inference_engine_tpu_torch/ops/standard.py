@@ -4,8 +4,9 @@ The port's counterpart of onnx_rusty_inference_engine_tpu/ops/standard.py,
 holding the emitters SqueezeNet 1.0 needs in fp32 and in its INT8 form
 (Conv, Relu, MaxPool, Concat, Dropout, GlobalAveragePool, Softmax), those
 the GPT-2 graphs need (the binary elementwise family, MatMul, Gelu, Where,
-Cast, Reshape, Transpose, Split, Gather, Identity, LayerNormalization) and
-those BERT adds (Tanh, Slice). Each keeps the JAX emitter's semantics: NCHW layout,
+Cast, Reshape, Transpose, Split, Gather, Identity, LayerNormalization),
+those BERT adds (Tanh, Slice) and those the dynamic W8A8 rewrite adds (Abs,
+Max, Min, ReduceMax). Each keeps the JAX emitter's semantics: NCHW layout,
 ONNX pads as (lo, hi) pairs applied explicitly (so asymmetric pads and
 ceil_mode follow the JAX package's arithmetic), opset < 13 Softmax
 flattening, Gather's wrap-and-clamp of indices.
@@ -13,11 +14,17 @@ flattening, Gather's wrap-and-clamp of indices.
 fp32 Conv, MatMul and Gemm run in full fp32, as the JAX package's
 Precision.HIGHEST does: TF32 (cuDNN's default for convs) is switched off
 around the call.
+
+Operands of mixed float types promote as JAX promotes them (`promote`):
+the JAX lowering closes over the graph's non-weight constants as strongly
+typed arrays, so a bf16 activation times an f32 0-d constant is f32 there,
+where PyTorch would keep bf16. Under the fp32 dtype policy nothing mixes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import List, Sequence, Tuple
 
@@ -100,6 +107,21 @@ def matmul_fp32_exact():
         yield
     finally:
         flags.allow_tf32 = prev
+
+
+def promote(*xs):
+    """The operands (tensors, or Python numbers, which are left as they
+    are) cast to one dtype, the one `jnp.result_type` gives for strongly
+    typed arrays: a 0-d tensor counts like any other, where PyTorch would
+    let a dimensioned operand's dtype of the same kind win (bf16 [n] * f32
+    0-d is bf16 in PyTorch, f32 in JAX). Only where the tensors' dtypes
+    differ and one of them is floating; among floats, and for integers
+    with floats, PyTorch's `promote_types` and JAX's lattice agree."""
+    dts = [x.dtype for x in xs if isinstance(x, torch.Tensor)]
+    if len(set(dts)) < 2 or not any(d.is_floating_point for d in dts):
+        return xs
+    dt = functools.reduce(torch.promote_types, dts)
+    return tuple(x.to(dt) if isinstance(x, torch.Tensor) else x for x in xs)
 
 
 def _torch_dtype(np_dtype) -> torch.dtype:
@@ -238,9 +260,12 @@ def softmax(ctx: LoweringContext, node: Node, ins):
 # --------------------------------------------------------------------------
 @register("MatMul")
 def matmul(ctx: LoweringContext, node: Node, ins):
-    a, b = ins
+    """In the promoted dtype; the result takes a's dtype, as the JAX
+    emitter casts it (bf16 x f32 is an f32 product, returned as bf16)."""
+    dt = ins[0].dtype
+    a, b = promote(*ins)
     with matmul_fp32_exact():
-        return (torch.matmul(a, b),)
+        return (torch.matmul(a, b).to(dt),)
 
 
 @register("Gemm")
@@ -256,11 +281,13 @@ def gemm(ctx: LoweringContext, node: Node, ins):
         a = a.T
     if int(node.attr("transB", 0)):
         b = b.T
+    dt = a.dtype
+    a, b = promote(a, b)
     with matmul_fp32_exact():
         out = alpha * torch.matmul(a, b)
     if c is not None and beta != 0.0:
         out = out + beta * c
-    return (out.to(a.dtype),)
+    return (out.to(dt),)
 
 
 # --------------------------------------------------------------------------
@@ -268,7 +295,7 @@ def gemm(ctx: LoweringContext, node: Node, ins):
 # --------------------------------------------------------------------------
 def _binary(fn):
     def emit(ctx, node, ins):
-        return (fn(ins[0], ins[1]),)
+        return (fn(*promote(ins[0], ins[1])),)
     return emit
 
 
@@ -303,6 +330,23 @@ register("Sigmoid")(_unary(torch.sigmoid))
 register("Neg")(_unary(torch.neg))
 register("Floor")(_unary(torch.floor))
 register("Round")(_unary(torch.round))  # half to even, as jnp.round
+register("Abs")(_unary(torch.abs))
+
+
+def _variadic(fn):
+    """Min / Max / Sum-style: fold fn over the inputs left to right, in
+    the dtype all of them promote to."""
+    def emit(ctx, node, ins):
+        xs = promote(*ins)
+        out = xs[0]
+        for x in xs[1:]:
+            out = fn(out, x)
+        return (out,)
+    return emit
+
+
+register("Max")(_variadic(torch.maximum))
+register("Min")(_variadic(torch.minimum))
 
 
 @register("Clip")
@@ -316,6 +360,7 @@ def clip(ctx: LoweringContext, node: Node, ins):
         lo = ins[1]
     if hi is None and len(ins) > 2 and ins[2] is not None:
         hi = ins[2]
+    x, lo, hi = promote(x, lo, hi)
     if lo is not None:
         x = torch.clamp_min(x, lo)
     if hi is not None:
@@ -333,7 +378,7 @@ def gelu(ctx: LoweringContext, node: Node, ins):
 
 @register("Where")
 def where(ctx: LoweringContext, node: Node, ins):
-    return (torch.where(ins[0], ins[1], ins[2]),)
+    return (torch.where(ins[0], *promote(ins[1], ins[2])),)
 
 
 @register("Cast")
@@ -497,6 +542,34 @@ def split(ctx: LoweringContext, node: Node, ins):
     if sizes is None:
         sizes = [x.shape[axis] // n_out] * n_out
     return tuple(torch.split(x, [int(s) for s in sizes], dim=axis))
+
+
+# --------------------------------------------------------------------------
+# Reductions
+# --------------------------------------------------------------------------
+def _reduce(fn):
+    """A Reduce* emitter: axes from the attribute (before opset 18) or a
+    constant input; none reduces every axis, unless noop_with_empty_axes
+    says to pass the input through. fn(x, dims, keepdim)."""
+    def emit(ctx: LoweringContext, node: Node, ins):
+        x = ins[0]
+        axes = node.attr("axes")
+        if axes is None and len(ins) > 1 and ins[1] is not None:
+            axes = ctx.require_constant(node.inputs[1],
+                                        "Reduce axes").tolist()
+        keepdims = bool(int(node.attr("keepdims", 1)))
+        if axes is None:
+            if int(node.attr("noop_with_empty_axes", 0)):
+                return (x,)
+            dims = tuple(range(x.dim()))
+        else:
+            dims = tuple(int(a) % x.dim() for a in axes)
+        return (fn(x, dims, keepdims),)
+    return emit
+
+
+register("ReduceMax")(_reduce(
+    lambda x, dims, keepdim: torch.amax(x, dim=dims, keepdim=keepdim)))
 
 
 def _wrap_indices(idx: torch.Tensor, dim: int) -> torch.Tensor:

@@ -17,8 +17,10 @@ Scheme
 INT4 weight-only (`pack_int4`, `pack_int4_planar`, `quantize_weights_int4`)
 and the int4 KV cache's packing (`pack_int4_kv`) are the JAX package's
 arithmetic, line for line, so both packages pack the same bytes and
-scales. Not ported yet: the "mse" calibration method, `bias_correct`,
-W8A8, and int4 over a Scan body.
+scales. Dynamic W8A8 (`quantize_matmuls_w8a8`) is the JAX package's
+rewrite node for node, with the same constants bit for bit. Not ported
+yet: the "mse" calibration method, `bias_correct`, and int4 over a Scan
+body.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from .graph import Graph, Node, prune_dead, topo_sort
 from .models._builder import memo
 
 __all__ = ["calibrate", "quantize_graph", "QuantConfig", "pack_int4",
-           "pack_int4_planar", "quantize_weights_int4", "pack_int4_kv"]
+           "pack_int4_planar", "quantize_weights_int4",
+           "quantize_matmuls_w8a8", "pack_int4_kv"]
 
 
 @dataclasses.dataclass
@@ -538,6 +541,85 @@ def quantize_weights_int4(
     )
     prune_dead(g4)
     return g4
+
+
+def _w8(w: np.ndarray):
+    """W8A8's weight: (int8 values, f32 per-column scales max|w| / 127)."""
+    w_scale = np.maximum(np.abs(w).max(axis=0), 1e-12) / 127.0
+    wq = np.clip(np.round(w / w_scale), -127, 127).astype(np.int8)
+    return wq, w_scale
+
+
+def quantize_matmuls_w8a8(graph: Graph, min_elems: int = 4096) -> Graph:
+    """Dynamic W8A8: every MatMul whose weight is a constant 2-D float
+    tensor of at least `min_elems` elements becomes an int8 x int8
+    MatMulInteger between per-row quantized activations and per-column
+    quantized weights, then two Muls that dequantize.
+
+    Weights: per-output-column symmetric int8, scale max|w| / 127 (floored
+    at 1e-12 / 127), values clipped to [-127, 127]. Activations: quantized
+    per row inside the graph (amax over the contraction axis / 127, at
+    least 1e-12), so no calibration pass is needed. Between the Round and
+    the int8 Cast a Clip to [-127, 127] saturates: under the bf16 Engine
+    the rounded scale can put x / s at 127.5, which rounds to 128, and a
+    conversion out of int8's range is undefined on the card (it may wrap
+    to -128). On the card the MatMulInteger runs on the int8 tensor-core
+    kernel (ops/kernels/qmatmul_int8.py, int32 epilogue).
+
+    The JAX package's rewrite, node for node and constant for constant
+    (its quant.py:782-854)."""
+    new_nodes: List[Node] = []
+    consts = dict(graph.constants)
+    weights = list(graph.weight_names)
+    for node in graph.nodes:
+        w = consts.get(node.inputs[1]) if (
+            node.op_type == "MatMul" and len(node.inputs) == 2) else None
+        if (w is None or not isinstance(w, np.ndarray) or w.ndim != 2
+                or w.size < min_elems
+                or not np.issubdtype(w.dtype, np.floating)):
+            new_nodes.append(node)
+            continue
+        x, y = node.inputs[0], node.outputs[0]
+        # inside models.host_memo, one quantization per weight array (the
+        # entry keeps the array, so its id stays its own)
+        _, wq, w_scale = memo(("w8", id(w)), lambda w=w: (w, *_w8(w)))
+        wqn, wsn = f"{node.inputs[1]}__w8", f"{node.inputs[1]}__w8s"
+        consts[wqn] = wq
+        consts[wsn] = w_scale.astype(np.float32)
+        weights += [wqn, wsn]
+        p = f"{y}__w8a8"
+        consts[f"{p}_qmax"] = np.float32(127.0)
+        consts[f"{p}_qmin"] = np.float32(-127.0)
+        consts[f"{p}_eps"] = np.float32(1e-12)
+        new_nodes += [
+            Node("Abs", [x], [f"{p}_abs"]),
+            Node("ReduceMax", [f"{p}_abs"], [f"{p}_amax"],
+                 attrs={"axes": [-1], "keepdims": 1}),
+            Node("Div", [f"{p}_amax", f"{p}_qmax"], [f"{p}_s0"]),
+            Node("Max", [f"{p}_s0", f"{p}_eps"], [f"{p}_s"]),
+            Node("Div", [x, f"{p}_s"], [f"{p}_xs"]),
+            Node("Round", [f"{p}_xs"], [f"{p}_xr"]),
+            # saturate before the int8 Cast (see above)
+            Node("Clip", [f"{p}_xr", f"{p}_qmin", f"{p}_qmax"],
+                 [f"{p}_xc"]),
+            Node("Cast", [f"{p}_xc"], [f"{p}_xq"], attrs={"to": 3}),  # INT8
+            Node("MatMulInteger", [f"{p}_xq", wqn], [f"{p}_i32"]),
+            Node("Cast", [f"{p}_i32"], [f"{p}_f"], attrs={"to": 1}),
+            Node("Mul", [f"{p}_f", f"{p}_s"], [f"{p}_da"]),
+            Node("Mul", [f"{p}_da", wsn], list(node.outputs),
+                 node.name),
+        ]
+    gq = Graph(
+        name=f"{graph.name}_w8a8",
+        nodes=new_nodes,
+        constants=consts,
+        inputs=graph.inputs,
+        outputs=list(graph.outputs),
+        opset=graph.opset,
+        weight_names=weights,
+    )
+    prune_dead(gq)
+    return gq
 
 
 def pack_int4_kv(kv: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

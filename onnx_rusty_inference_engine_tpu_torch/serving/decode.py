@@ -25,9 +25,15 @@ llama): the decode graph carries the QDQ, and the server quantizes prefill
 K/V into the slot with the same per-head scales it feeds the graph. Cache
 shapes come from the decode graph (GQA families carry n_kv_head heads).
 
+`prefill_dtype` sets the bucketed prefill Engines' scheme, as in JAX:
+"float32", "bfloat16", or "w8a8" (a bf16 Engine on the graph
+quant.quantize_matmuls_w8a8 rewrote, in place of the prefill's int4
+quantization); the decode engines keep theirs, and share no float weight
+with a bf16 prefill Engine. Chunked prefill has no prefill engines and
+refuses any other prefill_dtype than "float32".
+
 Not ported yet (each raises NotImplementedError): `lora_bank` (ROADMAP
-1.8), `mesh` / `param_sharding_fn` (1.12), `prefill_dtype` other than
-"float32" (1.6) and the moe family (1.8).
+1.8), `mesh` / `param_sharding_fn` (1.12) and the moe family (1.8).
 """
 
 from __future__ import annotations
@@ -109,8 +115,6 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
                 "chunked_prefill=True (prompts ride the decode chunk "
                 "graph, there are no prefill engines); drop the knob or "
                 "use bucketed prefill")
-        if prefill_dtype != "float32":
-            raise _not_ported(f"prefill_dtype={prefill_dtype!r}", "1.6")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.B = slots
@@ -194,11 +198,20 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
                 cfg, batch=slots, max_len=max_len, seed=seed,
                 chunk=self.chunk))), device=self.device)
         self._prefill_engines: Dict[int, Engine] = {}
+        w8a8_prefill = prefill_dtype == "w8a8"
 
         def make_prefill(bucket: int) -> Engine:
-            return Engine(quantized(import_model(build_prefill(
+            g = import_model(build_prefill(
                 cfg, batch=1, seq_len=bucket, with_presents=True,
-                seed=seed, **pkw))), device=self.device)
+                seed=seed, **pkw))
+            if w8a8_prefill:
+                from ..quant import quantize_matmuls_w8a8
+
+                g = quantize_matmuls_w8a8(g)
+            else:
+                g = quantized(g)
+            return Engine(g, device=self.device, dtype=(
+                "bfloat16" if w8a8_prefill else prefill_dtype))
 
         self._make_prefill = make_prefill
         # decode engines keyed by cache length; all share ONE set of

@@ -10,9 +10,15 @@ the HTTP front ends (http_serve.py), against the JAX package's.
   JAX CLI's keys (and, for inspect and quantize, its values); `generate`
   prints the JAX CLI's tokens; `bench --batch N` feeds N examples a
   forward also where the file declares a static batch of 1 (the JAX CLI
-  feeds 1 and reports N); every flag whose machinery the port lacks
-  exits with code 2 and names its ROADMAP item; without --device the CLI
-  asks for the card, and raises where there is none.
+  feeds 1 and reports N); the precision flags (--dtype bfloat16,
+  --quantize w8a8, --prefill-dtype) give the JAX CLI's output (floats
+  within 1e-5 x max under bf16, and `run --dtype bfloat16` parting from
+  the port's fp32 `run` by at least half what JAX's bf16 run parts from
+  its fp32 one; 1e-4 under W8A8's fp32 Engine; tokens
+  equal; `serve` and `serve-llm` through the server each CLI builds, one
+  request); every flag whose machinery the port lacks exits with code 2
+  and names its ROADMAP item; without --device the CLI asks for the card,
+  and raises where there is none.
 - serve_http and serve_generate_http on port 0, one request each: the
   response equals the JAX server's on the same tiny model (ViT TINY logits
   within 1e-4, as tests/test_http_serve.py holds its MNIST; GPT-2 TINY
@@ -165,17 +171,120 @@ def test_cli_generate_matches_jax(capsys):
     assert json.loads(out_t) == json.loads(out_j)
 
 
+# the flags that exited 2 until bf16 and W8A8 were ported: each now runs
+# and gives the JAX CLI's output
+PRECISION_FLAGS = [
+    ["run", "--dtype", "bfloat16"],
+    ["run", "--quantize", "w8a8"],
+    ["bench", "--dtype", "bfloat16"],
+    ["bench", "--quantize", "w8a8"],
+    ["serve", "--quantize", "w8a8"],
+    ["generate", "--prefill-dtype", "bfloat16"],
+    ["serve-llm", "--prefill-dtype", "w8a8"],
+]
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _close(got, want, tol) -> bool:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) <= tol * float(
+        np.abs(want).max())
+
+
+def _served(main, argv, capsys, monkeypatch, module):
+    """What the CLI's `serve` / `serve-llm` builds, handed to a stand-in
+    for the blocking HTTP loop, which answers one request: ViT logits, or
+    a GPT-2 greedy continuation."""
+    got = {}
+
+    def infer(engine, port=0, **kw):
+        x = np.random.default_rng(4).standard_normal(
+            (1, 3, J_VIT_TINY.image_size, J_VIT_TINY.image_size))
+        got["y"] = np.asarray(next(iter(engine.run(
+            {engine.graph.input_names[0]: x.astype(np.float32)}
+        ).outputs.values())))
+
+    def generate(srv, port=0, **kw):
+        try:
+            got["y"] = [int(t) for t in srv.submit(
+                np.array([3, 1, 4, 1], np.int64), 4).result(timeout=300)]
+        finally:
+            srv.stop()
+
+    monkeypatch.setattr(module, "serve_http", infer)
+    monkeypatch.setattr(module, "serve_generate_http", generate)
+    rc, _, _ = _main(main, argv, capsys)
+    return rc, got["y"]
+
+
+@pytest.mark.parametrize("argv", PRECISION_FLAGS,
+                         ids=[" ".join(a) for a in PRECISION_FLAGS])
+def test_cli_precision_flag_matches_jax(argv, files, capsys, monkeypatch):
+    from onnx_rusty_inference_engine_tpu import http_serve as j_http
+    from onnx_rusty_inference_engine_tpu_torch import http_serve as t_http
+
+    cmd, rest = argv[0], argv[1:]
+    model = str(files / "vit.onnx")
+    x = np.random.default_rng(2).standard_normal(
+        (1, 3, J_VIT_TINY.image_size, J_VIT_TINY.image_size))
+    j_io.write_tensor_file(str(files / "vit_run.pb"), "pixel_values",
+                           x.astype(np.float32))
+    if cmd == "run":
+        rest = ["--model", model, "--input", str(files / "vit_run.pb")] + rest
+    elif cmd == "bench":
+        rest = ["--model", model, "--batch", "1", "--steps", "2"] + rest
+    elif cmd == "serve":
+        rest = ["--model", model, "--port", "0"] + rest
+    elif cmd == "serve-llm":
+        rest = ["--port", "0", "--slots", "2", "--prompt-len", "8",
+                "--max-len", "24"] + rest
+    t_rest = rest + ["--device", "cpu"]
+    tol = 1e-5 if "bfloat16" in argv else 1e-4
+    if cmd in ("serve", "serve-llm"):
+        rc_j, want = _served(j_cli.main, [cmd] + rest, capsys, monkeypatch,
+                             j_http)
+        rc_t, got = _served(t_cli.main, [cmd] + t_rest, capsys, monkeypatch,
+                            t_http)
+        assert rc_j == rc_t == 0
+        assert (got == want) if cmd == "serve-llm" else _close(got, want,
+                                                               tol)
+        return
+    rc_j, out_j, _ = _main(j_cli.main, [cmd] + rest, capsys)
+    rc_t, out_t, _ = _main(t_cli.main, [cmd] + t_rest, capsys)
+    assert rc_j == rc_t == 0
+    want, got = json.loads(out_j), json.loads(out_t)
+    assert sorted(got) == sorted(want)
+    if cmd == "run":
+        assert got["output_shapes"] == want["output_shapes"]
+        assert got["top1"] == want["top1"]
+        for k, v in want["outputs"].items():
+            assert _close(got["outputs"][k], v, tol), k
+        if "bfloat16" in argv:  # the policy moves the output as JAX's
+            rest32 = [a for a in rest if a not in ("--dtype", "bfloat16")]
+            _, j32, _ = _main(j_cli.main, [cmd] + rest32, capsys)
+            _, t32, _ = _main(t_cli.main, [cmd] + rest32 + ["--device",
+                                                            "cpu"], capsys)
+            j32, t32 = json.loads(j32)["outputs"], json.loads(t32)["outputs"]
+            for k, v in want["outputs"].items():
+                moved = _rel(v, j32[k])
+                assert moved > 1e-3, k
+                assert _rel(got["outputs"][k], t32[k]) >= 0.5 * moved, k
+    elif cmd == "bench":
+        assert got["quantize"] == want["quantize"]
+        assert got["device"] == "cpu" and got["images_per_sec"] > 0
+    else:
+        assert got == want
+
+
 UNPORTED = [
-    (["run", "--dtype", "bfloat16"], "1.2/1.6"),
-    (["run", "--quantize", "w8a8"], "1.6"),
     (["run", "--dump-stats"], "1.11"),
-    (["bench", "--dtype", "bfloat16"], "1.2/1.6"),
-    (["bench", "--quantize", "w8a8"], "1.6"),
-    (["serve", "--quantize", "w8a8"], "1.6"),
     (["quantize", "--out", "x.onnx", "--bias-correct"], "1.4"),
     (["quantize", "--out", "x.onnx", "--calibration", "mse"], "1.4"),
     (["generate", "--draft-layers", "1"], "1.9/1.10b"),
-    (["generate", "--prefill-dtype", "bfloat16"], "1.6"),
     (["generate", "--family", "moe"], "1.8"),
     (["generate", "--family", "t5"], "1.8"),
     (["generate", "--beam", "2"], "1.9"),
@@ -185,7 +294,6 @@ UNPORTED = [
     (["generate", "--spec-k", "2"], "1.9/1.10b"),
     (["serve-llm", "--spec-k", "8"], "1.9/1.10b"),
     (["serve-llm", "--draft-layers", "1"], "1.9/1.10b"),
-    (["serve-llm", "--prefill-dtype", "w8a8"], "1.6"),
     (["serve-llm", "--family", "moe"], "1.8"),
 ]
 

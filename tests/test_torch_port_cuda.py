@@ -1444,3 +1444,159 @@ def test_classifier_head_n1000_equals_plain(cuda, M, K):
     assert torch.equal(got, q8.qmatmul_int8_requant_plain(a, b, mult, bias))
     got32 = q8.qmatmul_int8(a, b, packed=packed)
     assert torch.equal(got32, q8.qmatmul_int8_plain(a, b))
+
+
+# --------------------------------------------------------------------------
+# bf16 and dynamic W8A8: MatMulInteger on the int8 kernel, bf16 A into the
+# int4 kernels, the bf16 and W8A8 Engines captured
+# --------------------------------------------------------------------------
+# (lead, M, K, N): W8A8 BERT-base at B 32, T 128 (a [32, 128, K]); GPT-2
+# 124M's prefill at batch 8, prompt 64, its lm_head's odd N = 50,257
+# among them; Llama's FFN at dim 4096; K not a multiple of 16 (a padded
+# copy of a) with a small odd N
+MATMUL_INTEGER_CASES = {
+    "bert_qkvo": (32, 128, 768, 768), "bert_ffn_in": (32, 128, 768, 3072),
+    "bert_ffn_out": (32, 128, 3072, 768),
+    "gpt2_prefill_qkv": (8, 64, 768, 2304),
+    "gpt2_lm_head_odd_n": (8, 64, 768, 50257),
+    "llama_prefill_ffn": (8, 64, 4096, 16384),
+    "odd_k_odd_n": (3, 5, 13, 7)}
+
+
+@pytest.mark.parametrize("case", list(MATMUL_INTEGER_CASES))
+def test_matmul_integer_kernel_equals_plain(cuda, case):
+    lead, M, K, N = MATMUL_INTEGER_CASES[case]
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (lead, M, K), np.int8)
+                         ).to(cuda)
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N), np.int8)).to(cuda)
+    before = dict(q8.qmatmul_int8.epilogues)
+    got = q8.matmul_integer_int8(a, b, packed=q8.pack_qmatmul_weight(b))
+    torch.cuda.synchronize()
+    assert q8.qmatmul_int8.epilogues["int32"] == before["int32"] + 1
+    assert got.dtype == torch.int32 and got.shape == (lead, M, N)
+    want = q8.qmatmul_int8_plain(a.reshape(-1, K), b).reshape(lead, M, N)
+    assert torch.equal(got, want)
+
+
+def _matmul_integer_graph(form, rng):
+    """One MatMulInteger node in a zero-point form (see the cases below),
+    and its feed."""
+    adt, bdt, azp, bzp = form
+    gen = {np.uint8: lambda s: rng.integers(0, 256, s).astype(np.uint8),
+           np.int8: lambda s: rng.integers(-128, 128, s).astype(np.int8)}
+    M, K, N = 37, 96, 40
+    b = GraphBuilder("mi", opset=13)
+    a = b.input("a", [2, M, K], dtype=adt)
+    names = [a, b.init("b", gen[bdt]((K, N))), "", ""]
+    feed = {"a": gen[adt]((2, M, K))}
+    if azp == "scalar":
+        names[2] = b.init("a_zp", gen[adt](()))
+    elif azp == "row":
+        names[2] = b.init("a_zp", gen[adt]((M, 1)))
+    elif azp == "input":
+        names[2] = b.input("a_zp", [], dtype=adt)
+        feed["a_zp"] = gen[adt](())
+    if bzp == "col":
+        names[3] = b.init("b_zp", gen[bdt]((N,)))
+    elif bzp == "scalar":
+        names[3] = b.init("b_zp", gen[bdt](()))
+    names = names[:max(i for i, n in enumerate(names) if n) + 1]
+    b.output(b.node("MatMulInteger", names, ["y"])[0])
+    return import_model(b.model()), feed
+
+
+@pytest.mark.parametrize("form", [
+    (np.int8, np.int8, None, None), (np.uint8, np.int8, "scalar", None),
+    (np.uint8, np.int8, None, None), (np.uint8, np.int8, "row", None),
+    (np.int8, np.int8, None, "col"), (np.uint8, np.uint8, "scalar", "col"),
+    (np.uint8, np.int8, "input", "scalar")],
+    ids=["i8", "u8_a_zp", "u8_no_zp", "u8_a_row", "b_col", "u8u8_both",
+         "a_zp_input_b_scalar"])
+def test_matmul_integer_zero_points_on_card_equal_cpu(cuda, form):
+    """Every zero-point form through the emitter: the kernel's int32 plus
+    the corrections equals the CPU's exactly, one int32-epilogue launch."""
+    graph, feed = _matmul_integer_graph(form, np.random.default_rng(3))
+    before = dict(q8.qmatmul_int8.epilogues)
+    eng = Engine(graph)
+    with torch.no_grad():
+        card = eng._fn(eng.params, {k: torch.as_tensor(v, device=cuda)
+                                    for k, v in feed.items()})
+    torch.cuda.synchronize()
+    assert q8.qmatmul_int8.epilogues["int32"] >= before["int32"] + 1
+    host = Engine(graph, device="cpu")(feed)
+    assert torch.equal(card["y"].cpu(), host["y"])
+
+
+# (M, K, N, block): the bf16 prefill's int4 shapes at M = 512 (GPT-2's qkv,
+# Llama's layer-0 q and k at dim 4096), a decode-sized M on small_m, and an
+# odd quant block on general
+INT4_BF16A_CASES = {"prefill_qkv": (512, 768, 2304, 256),
+                    "llama_q": (512, 4096, 4096, 256),
+                    "llama_k": (512, 4096, 1024, 256),
+                    "small_m": (8, 768, 768, 256),
+                    "general_block42": (17, 84, 40, 42)}
+
+
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+@pytest.mark.parametrize("case", list(INT4_BF16A_CASES))
+def test_int4_kernels_take_bf16_a(cuda, case, layout):
+    """bf16 A: within 1e-5 x max|out| of the plain twin, and equal to the
+    kernel on the same values given as f32 A (the kernel rounds f32 A to
+    bf16 itself); counted as a bf16-A launch."""
+    M, K, N, block = INT4_BF16A_CASES[case]
+    if layout == "interleaved" and block == 42:
+        block = 84  # an interleaved block of 42 bytes
+    kern, plain, a, packed, scales, kw = _int4_operands(
+        layout, M, K, N, block, np.random.default_rng(M + K), cuda)
+    ab = a.to(torch.bfloat16)
+    before = dict(kern.a_dtypes)
+    got = kern(ab, packed, scales, **kw)
+    torch.cuda.synchronize()
+    assert kern.a_dtypes["bfloat16"] == before["bfloat16"] + 1
+    want = plain(ab, packed, scales, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (M, N)
+    assert _rel_err(got, want) <= 1e-5
+    assert torch.equal(got, kern(ab.float(), packed, scales, **kw))
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "w8a8", "w8a8_bf16"])
+def test_precision_engines_replay_equals_eager(cuda, scheme):
+    """BERT with BERT-base's 12 layers at hidden 64 as a bf16 Engine, a
+    W8A8 Engine (fp32 policy) and a W8A8 Engine under bf16: the captured
+    graph's replays equal the eager function bit for bit, outputs f32;
+    73 MatMulInteger launches per replayed W8A8 forward."""
+    from onnx_rusty_inference_engine_tpu_torch.quant import (
+        quantize_matmuls_w8a8)
+
+    cfg = BertConfig(vocab_size=500, max_positions=64, hidden=64, n_layer=12,
+                     n_head=4)
+    B, T = 2, 16
+    g = import_model(build_bert(cfg, batch=B, seq_len=T, seed=0))
+    if scheme != "bf16":
+        g = quantize_matmuls_w8a8(g, min_elems=1024)
+    eng = Engine(g, dtype="float32" if scheme == "w8a8" else "bfloat16")
+    rng = np.random.default_rng(1)
+    feed = {"input_ids": rng.integers(0, cfg.vocab_size, (B, T)),
+            "token_type_ids": rng.integers(0, 2, (B, T)),
+            "attention_mask": (np.arange(T)[None] < np.array([[T], [11]])
+                               ).astype(np.int64)}
+    dev = {k: torch.as_tensor(v, device=cuda) for k, v in feed.items()}
+    first = eng(feed)                             # eager + capture
+    with torch.no_grad():
+        eager = eng._fn(eng.params, dev)
+    torch.cuda.synchronize()
+    before = q8.qmatmul_int8.launches
+    for _ in range(3):
+        got = eng(feed)                           # replays
+        for name, v in eager.items():
+            assert v.dtype == torch.float32, name
+            assert torch.equal(got[name], v), name
+            assert torch.equal(first[name], v), name
+    torch.cuda.synchronize()
+    per = 73 if scheme != "bf16" else 0
+    assert q8.qmatmul_int8.launches - before == 3 * per
+    host = Engine(g, device="cpu",
+                  dtype="float32" if scheme == "w8a8" else "bfloat16")(feed)
+    for name, v in host.items():
+        assert _rel_err(got[name].cpu(), v) <= 2e-2, name

@@ -267,8 +267,18 @@ def test_unported_ops_and_dtypes_raise_at_build():
                     equation="ij,jk->ik")[0])
     with pytest.raises(UnsupportedOpError, match="Einsum"):
         Engine(to_port(b.model()), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        Engine(to_port(_narrow_model(13)), device="cpu", dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        Engine(to_port(_narrow_model(13)), device="cpu", dtype="float16")
+    # the bf16 policy is ported: it builds, and runs as JAX's does
+    m = _narrow_model(13)
+    x = np.random.default_rng(8).standard_normal(
+        _feed()["x"].shape).astype(np.float32)
+    got = Engine(to_port(m), device="cpu", dtype="bfloat16").run({"x": x})
+    want = JEngine(j_import(m), dtype="bfloat16").run({"x": x})
+    for k, v in want.outputs.items():
+        assert got[k].dtype == np.float32
+        np.testing.assert_allclose(got[k], np.asarray(v), rtol=0,
+                                   atol=1e-5 * float(np.abs(v).max()))
 
 
 def test_collector_held_nests_across_threads_and_restores():

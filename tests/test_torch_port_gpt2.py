@@ -266,10 +266,19 @@ def test_unported_options_raise():
                      ({"kv_dtype": "int4", "family": "moe"}, "1.8"),
                      ({"mesh": object()}, "1.12"),
                      ({"pipeline_axis": "pipe"}, "1.12"),
-                     ({"lora_bank": {}}, "1.8"),
-                     ({"prefill_dtype": "w8a8"}, "1.6")):
+                     ({"lora_bank": {}}, "1.8")):
         with pytest.raises(NotImplementedError, match=item):
             Generator(TINY, device="cpu", **kw)
+    # prefill_dtype is ported: a bf16 prefill Engine on the W8A8 graph,
+    # whose first tokens are JAX's (tests/test_torch_port_precision.py
+    # holds the rest)
+    gen = Generator(TINY, device="cpu", prefill_dtype="w8a8")
+    assert gen.prefill.dtype == torch.bfloat16
+    assert "MatMulInteger" in {n.op_type for n in gen.prefill.graph.nodes}
+    prompt = np.arange(8, dtype=np.int64)[None] % TINY.vocab_size
+    want, _ = JGenerator(_jcfg(TINY), prefill_dtype="w8a8").generate(
+        prompt, 3)
+    assert np.array_equal(gen.generate(prompt, 3)[0], want)
 
 
 def test_generator_needs_a_card_unless_told_cpu():

@@ -740,15 +740,25 @@ def test_watchdog_still_fires_on_a_stuck_known_graph():
     ({"mesh": object()}, "1.12"),
     ({"param_sharding_fn": lambda n, a: None}, "1.12"),
     ({"kv_dtype": "int4", "family": "moe"}, "1.8"),
-    ({"prefill_dtype": "w8a8"}, "1.6"),
-    ({"prefill_dtype": "bfloat16"}, "1.6"),
     ({"family": "moe"}, "1.8"),
-], ids=["lora_bank", "mesh", "param_sharding_fn", "int4_kv_moe", "w8a8",
-        "bf16_prefill", "moe"])
+], ids=["lora_bank", "mesh", "param_sharding_fn", "int4_kv_moe", "moe"])
 def test_unported_server_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         DecodeServer(TINY, slots=1, max_len=16, device="cpu",
                      autostart=False, **kw)
+
+
+@pytest.mark.parametrize("prefill_dtype", ["w8a8", "bfloat16"],
+                         ids=["w8a8", "bf16_prefill"])
+def test_server_prefill_dtype_with_int8_kv_matches_jax(prefill_dtype):
+    """The bucketed prefill Engines in bf16 or W8A8 (ported since these
+    options raised): with an INT8 KV cache, whose per-head scales come from
+    the bf16 prefill's presents, the served greedy tokens equal JAX's."""
+    (j, _), (t, _) = _both(
+        dict(slots=2, prompt_len=8, max_len=24, kv_dtype="int8",
+             prompt_buckets=(4, 8), prefill_dtype=prefill_dtype),
+        _staggered(57, 4, (2, 9), (2, 6)))
+    assert t == j
 
 
 def test_unported_adapter_and_chunked_prefill_dtype():
