@@ -241,13 +241,40 @@ Phases, each printing JSON lines:
              a second server starts, so each wave's rows line up as an
              isolated Generator(batch=8, prefill_dtype="w8a8")'s do:
              every served token equal to that Generator's.
+19b. qoperator - after phase 19: ONNX Runtime's QOperator INT8 files
+             (tests/torch_port_qoperator.py: quantize_static's QOperator
+             form, per-channel int8 weights, asymmetric activations) of
+             SqueezeNet 1.0 and MobileNetV2 at 224x224, b256, random
+             weights from seed 0, calibrated on x[:8], in both activation
+             types (QUInt8, QInt8), as ONNX bytes through an Engine each
+             (every forward a captured graph). Counts set to 0 just before
+             each form's Engine and read just after its forwards:
+             SqueezeNet 26 qconv_int8_requant per forward, MobileNetV2 35 +
+             17 qconv_grouped_int8_requant + 1 qmatmul_int8 (its QGemm),
+             every QUInt8 conv on the kernel's uint8-A instance, per form
+             (uint8 x, zero-point pad, y zero point, uint8 y); each kernel
+             row's launches are these counts. Every kernel call of an eager forward of each file equal
+             to its plain version on the card's own operands (kernel lines,
+             "path": "qoperator"); the QUInt8 forward, every quantized
+             tensor less 128, equal to the QInt8 one; INT8 against fp32
+             (SqueezeNet: top-1 equal or rel < 0.1; MobileNetV2: top-1
+             equal or max |softmax d| < 0.15); images/s; device ms by op
+             type. A ConvInteger node (uint8 x, per-channel w zero point)
+             on the int32 epilogue, exact. The CLI as subprocesses:
+             `quantize --calibration mse --bias-correct` and minmax
+             `quantize` on SqueezeNet, `run` on both files; mse + bias
+             correction's mean |INT8 - fp32| on 64 held-out images below
+             minmax's.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
              route, both int4 kernels with bf16 A), after a line with the
              script's seconds so far; the rows of the
              kernels the Llama path runs carry its numbers in `llama_path`,
-             those of the vision path in `vision_path` (by model).
+             those of the vision path in `vision_path` (by model); then one
+             row per kernel and QOperator form of phase 19b (`instance`,
+             sums per forward of its first model, the others in
+             `qoperator_path`; launches from each form's own counts).
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -345,7 +372,7 @@ def _wrappers():
 
 # the per-variant counts some wrappers keep beside `launches`: int4
 # schedules, int8 GEMM epilogues, int8 conv A producers
-_SPLITS = ("schedules", "a_dtypes", "epilogues", "producers")
+_SPLITS = ("schedules", "a_dtypes", "epilogues", "producers", "forms")
 
 
 def reset_counts() -> None:
@@ -2071,6 +2098,15 @@ def device_busy(fn, reps: int) -> dict:
             "device_ops": n / reps}
 
 
+def _no_forms(module: str) -> dict:
+    """Zero launches in each QOperator form a kernel module counts (the
+    port's own quantizer's graphs take none)."""
+    import importlib
+
+    return dict.fromkeys(importlib.import_module(
+        f"{PKG}.ops.kernels.{module}").FORMS, 0)
+
+
 def phase_capture(model: str, eng8, feed: dict, kernel: str,
                   per_forward: int, splits: dict, feed2: dict) -> None:
     """The INT8 Engine's captured graph (made by the main path's first
@@ -2905,9 +2941,11 @@ def _vision_qmm_lines(model: str, qgraph, eng8, card, forwards: int
 
 def _predicted_splits(qgraph, eng8, card) -> dict:
     """The per-variant launches one INT8 forward should make, from the
-    shapes: each group-1 conv's producer (`conv_plan`), each grouped
-    conv's form (`grouped_plan`), every QLinearMatMul on the requant
-    epilogue (the quantizer's y_zero_point is 0 and its bias int32)."""
+    shapes: each group-1 conv's producer (`conv_plan`), on the requant
+    epilogue, each grouped conv's form (`grouped_plan`), every
+    QLinearMatMul on the requant epilogue (the quantizer's y_zero_point is
+    0 and its bias int32), and none in a QOperator form (the quantizer's
+    zero points are 0 and its types int8)."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
         qconv_grouped_int8 as g8, qconv_int8 as c8, qmatmul_int8 as q8)
 
@@ -2925,11 +2963,17 @@ def _predicted_splits(qgraph, eng8, card) -> dict:
             forms[g8.grouped_plan(x.shape, w.shape, stride, padding,
                                   g8.input_align(x))["form"]] += 1
     n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
-    out = {"qconv_int8_requant": {"producers": producers},
-           "qmatmul_int8": {"epilogues": {**dict.fromkeys(q8.EPILOGUES, 0),
-                                          "requant": n_qmm}}}
+    no_forms = dict.fromkeys(c8.FORMS, 0)
+    out = {"qconv_int8_requant": {
+        "producers": producers, "forms": no_forms,
+        "epilogues": {**dict.fromkeys(c8.EPILOGUES, 0),
+                      "requant": sum(producers.values())}},
+        "qmatmul_int8": {"epilogues": {**dict.fromkeys(q8.EPILOGUES, 0),
+                                       "requant": n_qmm},
+                         "forms": dict.fromkeys(q8.FORMS, 0)}}
     if any(forms.values()):
-        out["qconv_grouped_int8_requant"] = {"schedules": forms}
+        out["qconv_grouped_int8_requant"] = {"schedules": forms,
+                                             "forms": no_forms}
     return out
 
 
@@ -3791,6 +3835,491 @@ def phase_vision(smi: str):
     return paths, grouped
 
 
+# --------------------------------------------------------------------------
+# ONNX Runtime's QOperator INT8 files
+# --------------------------------------------------------------------------
+# model -> (input, logits, launches per forward of either form)
+QOP = {
+    "squeezenet": ("data_0", "pool10_1", {"qconv_int8_requant": 26}),
+    "mobilenetv2": ("input", "logits",
+                    {"qconv_int8_requant": 35,
+                     "qconv_grouped_int8_requant": 17, "qmatmul_int8": 1}),
+}
+QOP_FORMS = ("uint8", "int8")  # ORT's QUInt8 and QInt8 activation types
+QOP_ITERS = 5                  # replayed forwards per Engine and form
+QOP_HELD_OUT = 64              # images the CLI's quantizers are scored on
+
+# the kernel wrappers the QOperator emitters call, by name in
+# ops/quantized.py -> their plain versions
+_QOP_WRAPPERS = {
+    "qconv_int8_requant": ("qconv_int8", "qconv_int8_requant_plain"),
+    "qconv_int8": ("qconv_int8", "qconv_int8_plain"),
+    "qconv_grouped_int8_requant": ("qconv_grouped_int8",
+                                   "qconv_grouped_int8_requant_plain"),
+    "qconv_grouped_int8": ("qconv_grouped_int8", "qconv_grouped_int8_plain"),
+    "qmatmul_int8_requant": ("qmatmul_int8", "qmatmul_int8_requant_plain"),
+    "qmatmul_int8": ("qmatmul_int8", "qmatmul_int8_plain"),
+}
+
+
+def _wrapper_and_plain(name: str):
+    """A kernel wrapper the QOperator emitters call, and its plain
+    version."""
+    import importlib
+
+    mod, plain = _QOP_WRAPPERS[name]
+    m = importlib.import_module(f"{PKG}.ops.kernels.{mod}")
+    return getattr(m, name), getattr(m, plain)
+
+
+@contextlib.contextmanager
+def _recorded_kernel_calls(calls: list):
+    """Every kernel wrapper call of the QOperator emitters, recorded as
+    (wrapper, args, kwargs, output): the card's own operands of each node's
+    kernel launch."""
+    from onnx_rusty_inference_engine_tpu_torch.ops import quantized
+
+    real = {k: getattr(quantized, k) for k in _QOP_WRAPPERS}
+
+    def recorder(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return call
+
+    for k in real:
+        setattr(quantized, k, recorder(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in real.items():
+            setattr(quantized, k, fn)
+
+
+def _qop_call_key(name, args, kw):
+    """What a recorded call's timing depends on: the wrapper, its operand
+    shapes and types, and its geometry and zero-point arguments."""
+    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in args
+                   if isinstance(a, torch.Tensor) and a.dim() >= 2)
+    geo = tuple((k, str(v)) for k, v in sorted(kw.items())
+                if k not in ("packed",))
+    return name, shapes, geo
+
+
+def _qop_kernel_work(name, args, kw, out):
+    """(operations, bytes) a recorded call needs: 2 x MACs over in-bounds
+    taps (a padding tap holds the zero point, so every tap counts), each
+    input read once, the output written once."""
+    if name.startswith("qmatmul"):
+        a, b = args[0], args[1]
+        M, K = a.shape
+        N = b.shape[1]
+        return 2 * M * N * K, (M * K + K * N + out.numel()
+                               * out.element_size() + 8 * N)
+    x, w = args[0], args[1]
+    B, C, H, W = x.shape
+    O, Cg, KH, KW = w.shape
+    macs = out.numel() * Cg * KH * KW
+    return 2 * macs, (x.numel() + w.numel() + 8 * O
+                      + out.numel() * out.element_size())
+
+
+# wrapper -> the kernel (counter and kernels-line row) it launches
+_QOP_KERNEL = {"qconv_int8_requant": "qconv_int8_requant",
+               "qconv_int8": "qconv_int8_requant",
+               "qconv_grouped_int8_requant": "qconv_grouped_int8_requant",
+               "qconv_grouped_int8": "qconv_grouped_int8_requant",
+               "qmatmul_int8_requant": "qmatmul_int8",
+               "qmatmul_int8": "qmatmul_int8"}
+
+# what each QOperator run's kernel instances are: the file's form, or the
+# ConvInteger node
+QOP_LABELS = {"uint8": "QUInt8: uint8 x, zero points",
+              "int8": "QInt8: int8 x, zero points",
+              "convinteger": "ConvInteger: int32 epilogue, uint8 x, "
+                             "zero points"}
+
+
+def _qop_library(name, args, kw):
+    """torch._int_mm, PyTorch's int8 product (int32 out, no bias, requant or
+    zero point), on a recorded call's operands where the call is one: a
+    1x1, stride-1, unpadded conv or a GEMM of int8 by int8 with M > 16 and
+    K, N multiples of 8 (_int_mm's shapes); else None."""
+    a, w = args[0], args[1]
+    if a.dtype != torch.int8 or w.dtype != torch.int8:
+        return None
+    if name == "qconv_int8_requant":
+        if (w.shape[2:] != (1, 1) or tuple(kw.get("stride", (1, 1)))
+                != (1, 1) or any(p for side in kw.get("padding", ())
+                                 for p in side)):
+            return None
+        a = a.permute(0, 2, 3, 1).reshape(-1, a.shape[1])
+        b = w.reshape(w.shape[0], w.shape[1])
+    elif name == "qmatmul_int8_requant":
+        b = w.t().contiguous()  # column-major B, as _int_mm wants it
+    else:
+        return None
+    M, K = a.shape
+    if M <= 16 or K % 8 or b.shape[0] % 8:
+        return None
+    return graph_ms(lambda: torch._int_mm(a, b.t()), ITERS)
+
+
+def _qop_no_library(kernel: str, label: str) -> str:
+    """Why a row of kernel instances has no library time."""
+    if label.startswith(("QUInt8", "ConvInteger")):
+        return ("none: torch._int_mm, PyTorch's one int8 product, takes an "
+                "int8 A, not a uint8 x, and no PyTorch call pads with a "
+                "zero point")
+    if kernel == "qconv_grouped_int8_requant":
+        return "none: PyTorch has no int8 grouped conv"
+    return "none: PyTorch has no int8 conv"
+
+
+def _qop_lines(model: str, form: str, calls: list, counts: dict,
+               forwards: int, smi: str) -> dict:
+    """Each recorded call bit-equal to its plain version on the card's own
+    operands; then one kernel line per distinct call (kernel, plain and
+    library times, bound), and the sums per kernel over one forward.
+    `counts` are the launches of the main path's run of this form, read
+    from the wrappers' counters: each kernel's row takes its launches from
+    there, after checking them against the calls of one forward x
+    `forwards`."""
+    tot = {}
+    timed = {}
+    for name, args, kw, out in calls:
+        kern, plain = _wrapper_and_plain(name)
+        pkw = {k: v for k, v in kw.items() if k != "packed"}
+        want = plain(*args, **pkw)
+        err = int((out.int() - want.int()).abs().max()) if out.numel() else 0
+        require(torch.equal(out, want), f"qoperator {model} {form}: {name} "
+                f"== plain on the card's operands (max |diff| {err})")
+        key = _qop_call_key(name, args, kw)
+        if key not in timed:
+            ms = graph_ms(lambda: kern(*args, **kw), ITERS)
+            _, plain_ms = _timed(lambda: plain(*args, **pkw))
+            library_ms = _qop_library(name, args, kw)
+            ops, nbytes = _qop_kernel_work(name, args, kw, out)
+            bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                         INT8_OPS_PER_S)
+            timed[key] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+            emit({"phase": "kernel", "kernel": name, "path": "qoperator",
+                  "model": model, "form": form, "instance": QOP_LABELS[form],
+                  "shapes": [list(a.shape) for a in args
+                             if isinstance(a, torch.Tensor)
+                             and a.dim() >= 2],
+                  "args": {k: str(v) for k, v in kw.items()
+                           if k != "packed"},
+                  "equal": True, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+                  "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+                  "card": smi})
+        t = timed[key]
+        kern = tot.setdefault(_QOP_KERNEL[name], dict.fromkeys(
+            ("per_forward", "ms", "plain_ms", "bound_ms", "ops_ms",
+             "bytes_ms", "library_ms", "ms_same_shapes_as_library",
+             "with_library"), 0.0))
+        kern["per_forward"] += 1
+        for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
+            kern[k] += t[k]
+        if t["library_ms"] is not None:
+            kern["with_library"] += 1
+            kern["library_ms"] += t["library_ms"]
+            kern["ms_same_shapes_as_library"] += t["ms"]
+    require({k: int(v["per_forward"]) * forwards for k, v in tot.items()}
+            == {k: v for k, v in counts.items() if v},
+            f"qoperator {model} {form}: the calls of one forward x "
+            f"{forwards} forwards against the main path's launches {counts}")
+    for kernel, v in tot.items():
+        v["launches"] = counts[kernel]
+        v["bound_by"] = ("operations" if v.pop("ops_ms") >= v.pop("bytes_ms")
+                         else "bytes")
+        n, k = int(v["per_forward"]), int(v.pop("with_library"))
+        if k == 0:
+            v["library_ms"] = v["ms_same_shapes_as_library"] = None
+            v["library"] = _qop_no_library(kernel, QOP_LABELS[form])
+        else:
+            v["library"] = ("torch._int_mm (int32 out, no bias, requant or "
+                            "zero point)")
+            if k < n:
+                v["library"] += (f" over the {k} of its {n} calls a forward "
+                                 f"that are 1x1 int8 products; "
+                                 + _qop_no_library(kernel, QOP_LABELS[form])
+                                 + " for the other "
+                                 f"{n - k}")
+    return tot
+
+
+def phase_qoperator_model(model: str, smi: str) -> dict:
+    """One CNN at 224x224, b256, in ONNX Runtime's QOperator form, both
+    activation types, through the port's entry points: calibrate on x[:8],
+    the QUInt8 and QInt8 files (tests/torch_port_qoperator.py, as ONNX
+    bytes), one Engine each (every forward a captured graph). Counts set
+    to 0 just before, read just after: the launches per forward, per form.
+    Then every kernel call of an eager forward of each file bit-equal to its
+    plain version on the card's own operands (the kernel lines); the QUInt8
+    forward, every quantized tensor less 128, equal to the QInt8 one; INT8
+    against fp32 at the bounds of the symmetric INT8 phases; images/s and
+    device ms by op type. Returns the instances' sums."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_qoperator import qoperator_graph, reparsed
+
+    inp, logits, per_forward = QOP[model]
+    t0 = time.perf_counter()
+    graph = P.import_model({"squeezenet": P.build_squeezenet,
+                            "mobilenetv2": P.build_mobilenetv2}[model]())
+    x = np.random.default_rng(0).standard_normal(
+        (BATCH, 3, 224, 224)).astype(np.float32)
+    feed = {inp: x}
+    dev_feed = {inp: torch.as_tensor(x, device="cuda")}
+    with torch.no_grad():
+        y32 = P.lower(probe_graph(graph, [logits]), "cuda")(
+            P.Engine(graph).params, dev_feed)[logits].float()
+
+    # the main path, counted per form
+    ranges = P.calibrate(graph, [{inp: x[:CALIB]}])
+    graphs = {f: reparsed(qoperator_graph(graph, ranges, f))
+              for f in QOP_FORMS}
+    engines, ys, ms, counts, splits = {}, {}, {}, {}, {}
+    for f, g in graphs.items():
+        reset_counts()
+        engines[f] = P.Engine(g)
+        ys[f] = engines[f](feed)[logits]
+        ms[f] = cuda_ms(lambda: engines[f](dev_feed), QOP_ITERS, 1)
+        counts[f] = {k: v for k, v in read_counts().items() if v}
+        splits[f] = {k: read_splits(k) for k in counts[f]}
+    main_s = time.perf_counter() - t0
+    forwards = 2 + QOP_ITERS  # the first call, a warm-up, the timed ones
+    for f in QOP_FORMS:
+        require(counts[f] == {k: n * forwards
+                              for k, n in per_forward.items()},
+                f"qoperator {model} {f}: {per_forward} launches per "
+                f"forward over {forwards} forwards: {counts[f]}")
+        n_u8 = counts[f]["qconv_int8_requant"] if f == "uint8" else 0
+        require(splits[f]["qconv_int8_requant"]["forms"]["uint8_x"] == n_u8,
+                f"qoperator {model} {f}: uint8 A on the QUInt8 convs only: "
+                f"{splits[f]}")
+    for t in ys.values():
+        require(tuple(t.shape)[:2] == (BATCH, 1000)
+                and bool(torch.isfinite(t).all()),
+                f"qoperator {model}: logits {tuple(t.shape)}")
+
+    # every kernel call on the card's own operands, and the twins
+    calls, rows, card = {}, {}, {}
+    for f, g in graphs.items():
+        calls[f] = []
+        names = [o for n in g.nodes for o in n.outputs]
+        with torch.no_grad(), _recorded_kernel_calls(calls[f]):
+            card[f] = P.lower(probe_graph(g, names), "cuda",
+                              engines[f].packed)(engines[f].params,
+                                                 dev_feed)
+        rows[f] = _qop_lines(model, f, calls[f], counts[f], forwards, smi)
+    n_q = 0
+    for name, v in card["uint8"].items():
+        w = card["int8"][name]
+        if v.dtype == torch.uint8:
+            n_q += 1
+            v = (v.to(torch.int16) - 128).to(torch.int8)
+        require(torch.equal(v, w), f"qoperator {model}: QUInt8 {name} less "
+                f"128 == QInt8")
+    require(torch.equal(ys["uint8"], ys["int8"]),
+            f"qoperator {model}: QUInt8 logits == QInt8 logits")
+    del card
+
+    # INT8 against fp32, at the symmetric INT8 phases' bounds
+    y8 = ys["uint8"].float().reshape(BATCH, -1)
+    y32 = y32.reshape(BATCH, -1)
+    top1 = float((y8.argmax(1) == y32.argmax(1)).float().mean())
+    rel = float((y8 - y32).abs().max() / y32.abs().max())
+    soft = float((y8.softmax(1) - y32.softmax(1)).abs().max())
+    if model == "squeezenet":
+        ok, bound_s = top1 == 1.0 or rel < 0.1, "top-1 equal or rel < 0.1"
+    else:
+        ok, bound_s = (top1 == 1.0 or soft < 0.15,
+                       "top-1 equal or max |softmax d| < 0.15")
+    by_op = _ms_by_op(engines["uint8"], dev_feed, 3)
+    emit({"phase": "qoperator", "model": model, "size": "224x224",
+          "batch": BATCH, "main_path_s": main_s, "forwards": forwards,
+          "images_per_s": {f: BATCH / ms[f] * 1e3 for f in QOP_FORMS},
+          "launches": counts, "launches_per_forward": per_forward,
+          "splits": splits,
+          "kernel_calls_equal_plain": {f: len(c) for f, c in calls.items()},
+          "uint8_tensors_equal_int8_plus_128": n_q,
+          "int8_vs_fp32": {"top1_agreement": top1,
+                           "max_abs_over_max_ref": rel,
+                           "max_abs_softmax": soft, "bound": bound_s},
+          "ms_by_op_uint8": by_op, "instances": rows, "card": smi})
+    require(ok, f"qoperator {model}: INT8 against fp32 ({bound_s}): top-1 "
+            f"{top1}, rel {rel}, softmax {soft}")
+    del engines, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_qoperator_cli(smi: str) -> dict:
+    """The CLI as subprocesses on SqueezeNet 1.0 (224x224): `quantize
+    --calibration mse --bias-correct` and plain minmax `quantize` on an
+    8-image calibration file, then `run` on each written file against the
+    fp32 golden; then both files' mean |INT8 - fp32| of the logits on
+    QOP_HELD_OUT other images, in-process: mse + bias correction must be
+    the smaller, as tests/test_quant.py holds bias correction in JAX."""
+    import tempfile
+
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+    from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    calib = rng.standard_normal((CALIB, 3, 224, 224)).astype(np.float32)
+    held = rng.standard_normal((QOP_HELD_OUT, 3, 224, 224)).astype(
+        np.float32)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        model = os.path.join(d, "squeezenet.onnx")
+        onnx_io.save_model(model, P.build_squeezenet())
+        onnx_io.write_tensor_file(os.path.join(d, "calib.pb"), "data_0",
+                                  calib)
+        onnx_io.write_tensor_file(os.path.join(d, "in.pb"), "data_0",
+                                  held[:1])
+        fp32 = P.Engine(P.import_onnx(model))
+        onnx_io.write_tensor_file(os.path.join(d, "out.pb"), "softmaxout_1",
+                                  fp32.run({"data_0": held[:1]})[
+                                      "softmaxout_1"])
+        files = {"mse_bias_correct": ["--calibration", "mse",
+                                      "--bias-correct"],
+                 "minmax": []}
+        res = {}
+        for k, flags in files.items():
+            res[f"quantize_{k}"] = _finish(_cli(
+                "quantize", "--model", model, "--out",
+                os.path.join(d, f"{k}.onnx"), "--calib-input",
+                os.path.join(d, "calib.pb"), *flags))
+        for k in files:
+            res[f"run_{k}"] = _finish(_cli(
+                "run", "--model", os.path.join(d, f"{k}.onnx"), "--input",
+                os.path.join(d, "in.pb"), "--golden",
+                os.path.join(d, "out.pb"), "--rtol", "1", "--atol", "1"))
+        for k, (rc, out, err) in res.items():
+            require(rc == 0, f"cli {k} exited {rc}: {err[-2000:]}")
+        dev = {"data_0": torch.as_tensor(held, device="cuda")}
+        with torch.no_grad():
+            ref = P.lower(probe_graph(fp32.graph, ["pool10_1"]), "cuda")(
+                fp32.params, dev)["pool10_1"]
+            err = {}
+            for k in files:
+                e = P.Engine(P.import_onnx(os.path.join(d, f"{k}.onnx")))
+                got = P.lower(probe_graph(e.graph, ["pool10_1"]), "cuda",
+                              e.packed)(e.params, dev)["pool10_1"]
+                err[k] = float((got.float() - ref).abs().mean())
+    line = {"phase": "qoperator_cli",
+            "quantize": {k: json.loads(res[f"quantize_{k}"][1])
+                         for k in files},
+            "run": {k: res[f"run_{k}"][1].strip().splitlines()[-1]
+                    for k in files},
+            "mean_abs_err_logits": err, "held_out_images": QOP_HELD_OUT,
+            "seconds": time.perf_counter() - t0, "card": smi}
+    emit(line)
+    require(err["mse_bias_correct"] < err["minmax"],
+            f"cli: mse + bias correction's mean error {err}")
+    return line
+
+
+def phase_qoperator(smi: str) -> list:
+    """The QOperator slice: both models in both forms, a ConvInteger node
+    on the int32 epilogue, the CLI; the kernels line's rows of the new
+    instances."""
+    t0 = time.perf_counter()
+    per_model = {m: phase_qoperator_model(m, smi) for m in QOP}
+    convint = phase_convinteger(smi)
+    phase_qoperator_cli(smi)
+    emit({"phase": "qoperator_done", "seconds": time.perf_counter() - t0})
+    return _qop_rows(per_model, convint, smi)
+
+
+def phase_convinteger(smi: str) -> dict:
+    """ConvInteger (ORT's quantize_dynamic conv) through an Engine: one node
+    at SqueezeNet fire2's expand3x3 shape (b256, 16 -> 64 channels at
+    54x54, pad 1), uint8 x with zero point 131 against int8 weights with a
+    per-channel zero point, on the conv kernel's int32 epilogue (and its
+    window sums); exact against the plain versions on the card's operands.
+    Counts set to 0 just before, read just after."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.graph import (Graph,
+                                                             InputSpec, Node)
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, (BATCH, 16, 54, 54)).astype(np.uint8)
+    w = rng.integers(-127, 128, (64, 16, 3, 3)).astype(np.int8)
+    wzp = rng.integers(-3, 4, (64,)).astype(np.int8)
+    g = Graph(name="convinteger", nodes=[Node(
+        "ConvInteger", ["x", "w", "xzp", "wzp"], ["y"], "fire2_expand3x3",
+        {"kernel_shape": [3, 3], "pads": [1, 1, 1, 1]})],
+        constants={"w": w, "xzp": np.uint8(131), "wzp": wzp},
+        inputs=[InputSpec("x", x.shape, np.dtype(np.uint8))],
+        outputs=["y"], opset=13, weight_names=["w"])
+    eng = P.Engine(g)
+    dev = {"x": torch.as_tensor(x, device="cuda")}
+    reset_counts()
+    y = eng(dev)["y"]
+    ms = cuda_ms(lambda: eng(dev), QOP_ITERS, 1)
+    counts = {k: v for k, v in read_counts().items() if v}
+    forwards = 2 + QOP_ITERS
+    require(counts == {"qconv_int8_requant": 2 * forwards}
+            and read_splits("qconv_int8_requant")["epilogues"]["int32"]
+            == 2 * forwards,
+            f"ConvInteger: 2 int32 launches a forward: {counts}")
+    calls = []
+    with torch.no_grad(), _recorded_kernel_calls(calls):
+        y2 = P.lower(g, "cuda", eng.packed)(eng.params, dev)["y"]
+    require(torch.equal(y, y2) and y.dtype == torch.int32,
+            "ConvInteger eager == replayed")
+    rows = _qop_lines("convinteger", "convinteger", calls, counts,
+                      forwards, smi)
+    emit({"phase": "convinteger", "ms": ms, "launches": counts,
+          "instances": rows, "card": smi})
+    return rows
+
+
+def _qop_rows(per_model: dict, convint: dict, smi: str) -> list:
+    """The kernels line's rows of this slice's new instances, one per
+    kernel and QOperator form (QOP_LABELS), each with the per-forward sums
+    of its first model, and the others in `qoperator_path`; `launches`
+    sums the main path's counts of every model's run of that form."""
+    merged = {}
+    for model, forms in per_model.items():
+        for form, kernels in forms.items():
+            for kname, v in kernels.items():
+                merged.setdefault((kname, QOP_LABELS[form]), {})[
+                    f"{model} {form}"] = v
+    for kname, v in convint.items():
+        merged[(kname, QOP_LABELS["convinteger"])] = {"convinteger": v}
+    out = []
+    for (kname, label), paths in merged.items():
+        source, replaces = KERNEL_ROWS[kname]
+        first_path, first = next(iter(paths.items()))
+        out.append({
+            "name": kname, "instance": label, "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": sum(v["launches"] for v in paths.values()),
+            "max_abs_err": 0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "library": first["library"],
+            "ms_same_shapes_as_library": first["ms_same_shapes_as_library"],
+            "per": f"one {first_path} forward (224x224, b256): the sums "
+                   f"of its {int(first['per_forward'])} launches",
+            "qoperator_path": paths, "card": smi})
+    return out
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -3811,7 +4340,9 @@ def main() -> int:
             rows = [phase_kernels(qgraph, eng8, card, launches, smi)]
             phase_capture("squeezenet1.0 int8 224x224", eng8, feed,
                           "qconv_int8_requant", 26,
-                          {"producers": {"tma": 17, "gather": 9}},
+                          {"producers": {"tma": 17, "gather": 9},
+                           "epilogues": {"int32": 0, "requant": 26},
+                           "forms": _no_forms("qconv_int8")},
                           {"data_0": np.random.default_rng(1).standard_normal(
                               feed["data_0"].shape).astype(np.float32)})
             del eng, eng8, card
@@ -3832,7 +4363,8 @@ def main() -> int:
                                               smi))
             phase_capture("bert-base int8 B32 T128", eng8, feed,
                           "qmatmul_int8", 73,
-                          {"epilogues": {"int32": 0, "requant": 73}},
+                          {"epilogues": {"int32": 0, "requant": 73},
+                           "forms": _no_forms("qmatmul_int8")},
                           {k: np.roll(v, 1, axis=0) for k, v in feed.items()})
             del eng, eng8, card
             torch.cuda.empty_cache()
@@ -3857,6 +4389,7 @@ def main() -> int:
                 if row["name"] in vision:
                     row["vision_path"] = vision[row["name"]]
             rows.insert(1, grouped)
+            rows += phase_qoperator(smi)
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]
@@ -3865,6 +4398,10 @@ def main() -> int:
             emit({"kernels": rows})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    return _finish_ok()
+
+
+def _finish_ok() -> int:
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

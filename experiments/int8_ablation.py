@@ -49,7 +49,7 @@ from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (  # noqa: E402
 HEADER = "int8_wgmma.cuh"
 VARIANTS = {
     "full": [],
-    "no_mma": [("        Wgmma<BN>::mma(acc, sw128_desc(a_slot + kk * 32), "
+    "no_mma": [("        Wgmma<BN, AU8>::mma(acc, sw128_desc(a_slot + kk * 32), "
                 "sw128_desc(b_slot + kk * 32),\n"
                 "                       (kt | kk) != 0);", "        ;")],
     "no_epilogue": [("      uint8_t* stage = staging + wg * 64 * LDS;\n",
@@ -64,8 +64,8 @@ VARIANTS = {
                   "full0 + 8 * s, kt * BK, n0);\n",
                   "          mbar_arrive_tx(full0 + 8 * s, A_BYTES);\n"
                   "          tma_load_2d(slot, &tm_a, full0 + 8 * s, kt * BK, m0);\n")],
-    "no_copy": [("      cp_async_zfill<G>(slot + (uint32_t)(r0 + 16 * i) * BK + col + j * G, src, ok);",
-                 "      if (src == nullptr) cp_async_zfill<G>(slot, src, ok);")],
+    "no_copy": [("        cp_async_zfill<G>(dst, src, ok);",
+                 "        if (src == nullptr) cp_async_zfill<G>(dst, src, ok);")],
     "no_store": [("        if (wg * 64 + r >= rows || n >= p.N) continue;\n",
                   "        if (wg * 64 + r >= rows || n >= p.N || p.N > 0) "
                   "continue;\n")],
@@ -109,7 +109,8 @@ def build_variant(name: str) -> dict:
             f.write(src)
         so = os.path.join(src_dir, f"lib{lib}.so")
         procs[lib] = (so, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+             "-o", so, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for lib, (so, proc) in procs.items():

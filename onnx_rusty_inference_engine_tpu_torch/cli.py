@@ -7,6 +7,7 @@ onnx_rusty_inference_engine_tpu/cli.py.
     ... bench --model m.onnx [--batch 64] [--steps 100] [--quantize ...]
     ... inspect --model m.onnx
     ... quantize --model m.onnx --out q.onnx [--calib-input in.pb]
+        [--calibration minmax|percentile|mse] [--bias-correct]
     ... generate [--family gpt2|llama] [--int4] [--kv-dtype int8]
         [--prefill-dtype float32|bfloat16|w8a8] ...
     ... serve --model m.onnx [--port 8000]          (POST /v1/infer)
@@ -47,9 +48,6 @@ def _unported(args) -> List[Tuple[str, str]]:
     """(flag as given, ROADMAP item) for every flag of this command whose
     machinery the port does not have yet."""
     checks = (
-        ("--bias-correct", "1.4", getattr(args, "bias_correct", False)),
-        ("--calibration mse", "1.4",
-         getattr(args, "calibration", None) == "mse"),
         ("--draft-layers", "1.9/1.10b",
          bool(getattr(args, "draft_layers", 0))),
         (f"--spec-k {getattr(args, 'spec_k', 4)}", "1.9/1.10b",
@@ -241,6 +239,10 @@ def cmd_quantize(args) -> int:
         config=QuantConfig(calibration=args.calibration,
                            percentile=args.percentile),
         device=args.device)
+    if args.bias_correct and calib:
+        from .quant import bias_correct
+
+        qgraph = bias_correct(qgraph, graph, calib, device=args.device)
     save_graph(args.out, qgraph)
     n_q = sum(1 for n in qgraph.nodes if n.op_type.startswith("QLinear"))
     print(json.dumps({"out": args.out, "qlinear_nodes": n_q,
@@ -458,12 +460,12 @@ def main(argv: Optional[list] = None) -> int:
                     help="TensorProto .pb used for range calibration")
     pq.add_argument("--calibration", default="minmax",
                     choices=["minmax", "percentile", "mse"],
-                    help="activation-range calibration method (mse is not "
-                         "ported yet, ROADMAP 1.4)")
+                    help="activation-range calibration method")
     pq.add_argument("--percentile", type=float, default=99.99)
     pq.add_argument("--bias-correct", dest="bias_correct",
                     action="store_true",
-                    help="not ported yet (ROADMAP 1.4)")
+                    help="post-quantization bias correction on the "
+                         "--calib-input batch")
     _device_flag(pq)
     pq.set_defaults(fn=cmd_quantize)
 

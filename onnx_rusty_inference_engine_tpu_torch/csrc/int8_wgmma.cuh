@@ -4,8 +4,10 @@
 //
 //   out[m, n] = epilogue(sum_k A[m, k] * Bp[n, k])
 //
-// A is int8 [M, K] and Bp int8 [N, Kp] (a packed weight: K-contiguous rows,
-// zero past K). Both are read K-major, the only layout wgmma takes for 8-bit
+// A is int8 [M, K] (uint8 where the template's AU8 is set: wgmma takes a
+// .u8 A against an .s8 B, so uint8 activations reach the tensor cores
+// unshifted) and Bp int8 [N, Kp] (a packed weight: K-contiguous rows, zero
+// past K). Both are read K-major, the only layout wgmma takes for 8-bit
 // types, in 128-byte K slices.
 //
 // Block: WGM consumer warpgroups (64 output rows each, BM = 64 * WGM) and one
@@ -16,7 +18,7 @@
 // the wgmma descriptors name; an mbarrier pair per slot (full: the bytes
 // landed; empty: both warpgroups' products on it are done) hands slots back
 // and forth, so loads stay in flight while the tensor cores work. Each
-// consumer warpgroup runs wgmma.m64nBNk32.s32.s8.s8 (four per slice) into
+// consumer warpgroup runs wgmma.m64nBNk32.s32.{s8,u8}.s8 (four per slice) into
 // BN / 2 int32 registers a thread, and keeps one slice's products in flight
 // while it waits on the next slice.
 //
@@ -29,12 +31,17 @@
 //             threads with cp.async: a thread owns one 16-byte column of the
 //             slice for BM / 16 rows and fills it in runs of 16, 8 or 4
 //             bytes (one tap's channels each, as C's divisibility allows),
-//             zero-filling padding taps. Bp still comes by TMA.
+//             taps at dilation (dil_h, dil_w). A padding tap is zero-filled
+//             by the copy, or, where the conv pads with a zero point
+//             (Params::pad_word != 0), stored as that byte by the thread.
+//             Bp still comes by TMA.
 // Epilogues (compile-time):
 //   EPI_INT32    int32 [M, N], exact (the caller keeps |sum| < 2^31);
-//   EPI_REQUANT  int8 [M, N] = sat(rn(fmul_rn(i2f_rn(acc + bias[n]),
-//                mult[n]))), staged through shared memory so that each row
-//                leaves in 16-byte stores along N.
+//   EPI_REQUANT  int8 or uint8 [M, N] = clamp(rn(fmul_rn(i2f_rn(acc +
+//                bias[n]), mult[n])), q_lo, q_hi) + y_zp, ONNX's requant
+//                with its output zero point ([q_lo, q_hi] is the output
+//                type's range less y_zp), staged through shared memory so
+//                that each row leaves in 16-byte stores along N.
 // Persistent blocks: each walks output tiles; the producer fills the ring
 // for the next tile while the consumers run this one's epilogue.
 //
@@ -68,6 +75,7 @@ constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory an H100 block can o
 constexpr int MAX_STAGES = 8;
 
 enum { A_TMA = 0, A_GATHER = 1 };
+
 enum { EPI_INT32 = 0, EPI_REQUANT = 1 };
 
 // n / d for 0 <= n, n * d < 2^32: a shift where d is a power of two, else
@@ -106,6 +114,13 @@ struct Params {
   int H, W, C, OH, OW, KW, stride_h, stride_w, pad_h, pad_w;
   int gran;       // bytes per cp.async: 16, 8 or 4 (divides C)
   FastDiv div_c, div_kw;  // k / C and tap / KW without a division
+  int dil_h, dil_w;
+  // the byte a padding tap holds, four times (the x zero point; 0: the
+  // copy zero-fills)
+  uint32_t pad_word;
+  // EPI_REQUANT: the output type's range less y_zp, and y_zp
+  float q_lo, q_hi;
+  int y_zp;
   // Bp resident: the block's one N tile of Bp (all K) is loaded into shared
   // memory once, and the ring carries A alone
   int b_resident;
@@ -193,7 +208,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// generic-proxy writes (cp.async) made visible to the async proxy (wgmma)
+// generic-proxy writes (cp.async, the pad stores) made visible to the async
+// proxy (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -215,14 +231,25 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// min(max(__float2int_rn(y), -128), 127) for a finite y, without the
-// conversion unit (16 results a clock on an SM, against 128 for the float
-// pipe): clamp first (the same result, as rounding is monotonic and the
-// bounds are integers), then add 1.5 * 2^23, a float sum that rounds y half
-// to even into the low mantissa bits.
-__device__ __forceinline__ int f32_to_s8(float y) {
-  const float c = fminf(fmaxf(y, -128.f), 127.f);
+// min(max(__float2int_rn(y), lo), hi) for a finite y and integer bounds
+// inside (-2^22, 2^22), without the conversion unit (16 results a clock on
+// an SM, against 128 for the float pipe): clamp first (the same result, as
+// rounding is monotonic and the bounds are integers), then add 1.5 * 2^23,
+// a float sum that rounds y half to even into the low mantissa bits.
+__device__ __forceinline__ int f32_to_q(float y, float lo, float hi) {
+  const float c = fminf(fmaxf(y, lo), hi);
   return __float_as_int(__fadd_rn(c, 12582912.f)) - 0x4B400000;
+}
+
+// G bytes of shared memory at dst set to the word v, repeated
+template <int G>
+__device__ __forceinline__ void st_shared_fill(uint32_t dst, uint32_t v) {
+  if (G == 16)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(dst), "r"(v) : "memory");
+  else if (G == 8)
+    asm volatile("st.shared.v2.u32 [%0], {%1, %1};" ::"r"(dst), "r"(v) : "memory");
+  else
+    asm volatile("st.shared.u32 [%0], %1;" ::"r"(dst), "r"(v) : "memory");
 }
 
 // Keeps the compiler from moving accumulator reads above a wgmma wait.
@@ -240,193 +267,23 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// wgmma.m64nNk32.s32.s8.s8, A and B from shared memory; d += A * B, or
-// d = A * B where scale_d is 0. PTX names every accumulator register.
+// wgmma.m64nNk32.s32.{s8,u8}.s8 (int8_wgmma_mma.cuh): Wgmma<N, AU8>::mma,
+// A uint8 where AU8 (wgmma takes a .u8 A against an .s8 B), else int8.
+#define I8G_WGMMA WgmmaS8
+#define I8G_ATYPE ".s8"
+#include "int8_wgmma_mma.cuh"
+#undef I8G_WGMMA
+#undef I8G_ATYPE
+#define I8G_WGMMA WgmmaU8
+#define I8G_ATYPE ".u8"
+#include "int8_wgmma_mma.cuh"
+#undef I8G_WGMMA
+#undef I8G_ATYPE
+
+template <int N, bool AU8>
+struct Wgmma : WgmmaS8<N> {};
 template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<48> {
-  static __device__ __forceinline__ void mma(int (&d)[24], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, %24, %25, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<96> {
-  static __device__ __forceinline__ void mma(int (&d)[48], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<192> {
-  static __device__ __forceinline__ void mma(int (&d)[96], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<256> {
-  static __device__ __forceinline__ void mma(int (&d)[128], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p;\n}\n"
-      :
-      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-      "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-      "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-      "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-      "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
+struct Wgmma<N, true> : WgmmaU8<N> {};
 
 // ---------------------------------------------------------------------------
 // the producers
@@ -436,7 +293,9 @@ struct Wgmma<256> {
 // r0 + 16 i. `img`, `ih0`, `iw0` locate each row's output pixel (img < 0: a
 // row past M). Padding taps, bytes past K and rows past M are zero-filled:
 // the lanes of a warp hold different columns, and one predicated copy for
-// all of them runs faster than lanes that skip theirs.
+// all of them runs faster than lanes that skip theirs. With a pad word they
+// hold it instead: the padding's zero point; past K and past M it meets a
+// zero weight or a row no one stores.
 template <int G, int RPT>
 __device__ __forceinline__ void gather_slice(const Params& p, uint32_t slot, int kt, int c,
                                              int r0, const int64_t (&img)[RPT],
@@ -450,15 +309,20 @@ __device__ __forceinline__ void gather_slice(const Params& p, uint32_t slot, int
     const int tap = fdiv(k, p.div_c);
     const int ch = k - tap * p.C;
     const int kh = fdiv(tap, p.div_kw);
-    const int kw = tap - kh * p.KW;
+    const int dh = kh * p.dil_h;
+    const int dw = (tap - kh * p.KW) * p.dil_w;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int ih = ih0[i] + kh;
-      const int iw = iw0[i] + kw;
+      const int ih = ih0[i] + dh;
+      const int iw = iw0[i] + dw;
       const bool ok = k_ok && img[i] >= 0 && (unsigned)ih < (unsigned)p.H &&
                       (unsigned)iw < (unsigned)p.W;
       const int8_t* src = ok ? p.x + img[i] + ((int64_t)ih * p.W + iw) * p.C + ch : p.x;
-      cp_async_zfill<G>(slot + (uint32_t)(r0 + 16 * i) * BK + col + j * G, src, ok);
+      const uint32_t dst = slot + (uint32_t)(r0 + 16 * i) * BK + col + j * G;
+      if (ok || p.pad_word == 0)
+        cp_async_zfill<G>(dst, src, ok);
+      else
+        st_shared_fill<G>(dst, p.pad_word);
     }
   }
 }
@@ -500,7 +364,7 @@ __device__ __forceinline__ void cp_async_wait_lag(int lag) {
 // fastest, so the blocks in flight share A's rows in L2). The producer runs
 // through every slice of every tile on one slot counter `it`, so it fills
 // the ring for the next tile while the consumers run this one's epilogue.
-template <int PROD, int EPI, int BN, int WGM>
+template <int PROD, int EPI, int BN, int WGM, bool AU8>
 __global__ void __launch_bounds__(WGM * 128 + (PROD == A_TMA ? 32 : 128), BN >= 96 ? 1 : 2)
 I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
            const __grid_constant__ CUtensorMap tm_b, const Params p) {
@@ -639,7 +503,7 @@ I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 32; ++kk)
-        Wgmma<BN>::mma(acc, sw128_desc(a_slot + kk * 32), sw128_desc(b_slot + kk * 32),
+        Wgmma<BN, AU8>::mma(acc, sw128_desc(a_slot + kk * 32), sw128_desc(b_slot + kk * 32),
                        (kt | kk) != 0);
       wgmma_commit();
       wgmma_wait<1>();  // the previous slice's products are done: free its slot
@@ -683,8 +547,10 @@ I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
         const int b1 = (p.bias != nullptr && n + 1 < p.N) ? p.bias[n + 1] : 0;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int q0 = f32_to_s8(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h] + b0), mu0));
-          const int q1 = f32_to_s8(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1] + b1), mu1));
+          const int q0 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h] + b0), mu0),
+                                  p.q_lo, p.q_hi) + p.y_zp;
+          const int q1 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1] + b1), mu1),
+                                  p.q_lo, p.q_hi) + p.y_zp;
           *reinterpret_cast<uint16_t*>(stage + (row_in_wg + 8 * h) * LDS + 8 * j + col_in_j) =
               (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
         }
@@ -764,13 +630,13 @@ inline cudaError_t encode_rows(CUtensorMap* map, const void* base, uint64_t rows
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int PROD, int EPI, int BN, int WGM>
+template <int PROD, int EPI, int BN, int WGM, bool AU8>
 cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params& p,
                         cudaStream_t st) {
   constexpr int BM = 64 * WGM;
   constexpr int THREADS = WGM * 128 + (PROD == A_TMA ? 32 : 128);
   const size_t smem = smem_bytes(BM, BN, p.stages, p.b_resident ? p.num_k : 0);
-  auto kern = I8G_KERNEL<PROD, EPI, BN, WGM>;
+  auto kern = I8G_KERNEL<PROD, EPI, BN, WGM, AU8>;
   static size_t opted_in = 0;  // the shared memory this instantiation may use
   static size_t occ_smem = 0;  // blocks an SM holds at that shared memory
   static int occ = 0;
@@ -799,18 +665,18 @@ cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params
   return cudaGetLastError();
 }
 
-template <int PROD, int EPI, int WGM>
+template <int PROD, int EPI, int WGM, bool AU8>
 cudaError_t launch_bn(int bn, const CUtensorMap& a, const CUtensorMap& b, const Params& p,
                       cudaStream_t st) {
   switch (bn) {
-    case 16: return launch_tile<PROD, EPI, 16, WGM>(a, b, p, st);
-    case 32: return launch_tile<PROD, EPI, 32, WGM>(a, b, p, st);
-    case 48: return launch_tile<PROD, EPI, 48, WGM>(a, b, p, st);
-    case 64: return launch_tile<PROD, EPI, 64, WGM>(a, b, p, st);
-    case 96: return launch_tile<PROD, EPI, 96, WGM>(a, b, p, st);
-    case 128: return launch_tile<PROD, EPI, 128, WGM>(a, b, p, st);
-    case 192: return launch_tile<PROD, EPI, 192, WGM>(a, b, p, st);
-    case 256: return launch_tile<PROD, EPI, 256, WGM>(a, b, p, st);
+    case 16: return launch_tile<PROD, EPI, 16, WGM, AU8>(a, b, p, st);
+    case 32: return launch_tile<PROD, EPI, 32, WGM, AU8>(a, b, p, st);
+    case 48: return launch_tile<PROD, EPI, 48, WGM, AU8>(a, b, p, st);
+    case 64: return launch_tile<PROD, EPI, 64, WGM, AU8>(a, b, p, st);
+    case 96: return launch_tile<PROD, EPI, 96, WGM, AU8>(a, b, p, st);
+    case 128: return launch_tile<PROD, EPI, 128, WGM, AU8>(a, b, p, st);
+    case 192: return launch_tile<PROD, EPI, 192, WGM, AU8>(a, b, p, st);
+    case 256: return launch_tile<PROD, EPI, 256, WGM, AU8>(a, b, p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -825,7 +691,7 @@ inline bool tile_fits(int bm, int bn, int stages, int resident_k) {
 // Encodes Bp's map (and A's, for A_TMA: a [M, K] with K a multiple of 16)
 // and launches the tile (bm, bn, stages; p.b_resident: Bp resident, which
 // needs N <= bn), after checking that it fits.
-template <int PROD, int EPI>
+template <int PROD, int EPI, bool AU8 = false>
 cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int bn,
                    cudaStream_t st) {
   p.num_k = (Kp + BK - 1) / BK;
@@ -843,8 +709,8 @@ cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int 
     e = encode_rows(&ta, a, (uint64_t)p.M, (uint64_t)Kp, (uint32_t)bm);
     if (e != cudaSuccess) return e;
   }
-  return bm == 64 ? launch_bn<PROD, EPI, 1>(bn, ta, tb, p, st)
-                  : launch_bn<PROD, EPI, 2>(bn, ta, tb, p, st);
+  return bm == 64 ? launch_bn<PROD, EPI, 1, AU8>(bn, ta, tb, p, st)
+                  : launch_bn<PROD, EPI, 2, AU8>(bn, ta, tb, p, st);
 }
 
 }  // namespace

@@ -10,15 +10,18 @@
 // the int8 values through cuDNN in f32 would let cuDNN pick a rounding
 // (Winograd or FFT) algorithm, so this kernel computes it exactly.
 //
-//   x  int8 [B, H, W, C] channels-last (the previous conv's output as it
-//      leaves the int8 kernels), C = group * Cg;
+//   x  int8 or uint8 [B, H, W, C] channels-last (the previous conv's
+//      output as it leaves the int8 kernels), C = group * Cg;
 //   w  int8 [KH, KW, Cg, Op]: tap (kh, kw), input channel c of the group,
 //      output channel o; Op = O rounded up to 4, zero past O
 //      (ops/kernels/qconv_grouped_int8.py::pack_qconv_grouped_weight);
-//   y  int8 [M, O], M = B*OH*OW: channels-last output;
-//   y[m, o] = sat_int8(rint(float(sum_{kh,kw,c} x[b, ih, iw, g*Cg + c]
-//             * w[kh, kw, c, o] + bias[o]) * mult[o])),  g = o / Og,
-//   Og = O / group, padding taps contributing 0.
+//   y  int8 or uint8 [M, O], M = B*OH*OW: channels-last output;
+//   y[m, o] = clamp(rint(float(sum_{kh,kw,c} x[b, ih, iw, g*Cg + c]
+//             * w[kh, kw, c, o] + bias[o]) * mult[o]) + y_zp, y's range),
+//   g = o / Og, Og = O / group, ih = oh * stride_h - pad_h + kh * dil_h (iw
+//   likewise), padding taps holding pad_x (ONNX pads a quantized conv with
+//   the x zero point, which the caller folds into the bias as -zx * sum w).
+//   The general form can also leave the exact int32 sums (+ bias) instead.
 //
 // Two forms; the wrapper picks one from the shape
 // (qconv_grouped_int8.py::grouped_plan) and counts it:
@@ -39,8 +42,9 @@
 //     starts a 4-D TMA load of the input tile with its halo,
 //     ((TH-1)*s+3) x ((TW-1)*s+3) x CR bytes, over a tensor map of
 //     [B, H, W, C]: reads outside the image come back as zeros, which is
-//     the padding, because the port's QLinearConv is symmetric (zero point
-//     0). Blocks are persistent over tiles (channel runs fastest, so
+//     the padding where the x zero point is 0; for another zero point the
+//     block stores it over a border tile's out-of-image bytes in shared
+//     memory before it reads them. Blocks are persistent over tiles (channel runs fastest, so
 //     blocks in flight together share their halos in L2) and double-
 //     buffered: the next tile's load is in flight while this one computes.
 //   - Index math per tile: each thread splits the tile id once per tile;
@@ -56,13 +60,15 @@
 //     one IDP4A against [w0, w1, w2, 0] of a kernel row gives output column
 //     c's three taps of that row, one against [0, w0, w1, w2] column c+1's
 //     (at stride 2, a PRMT forms [x(c+2), x(c+3), x(c+4), -] for the
-//     second column). The sums start at the bias.
+//     second column). The sums start at the bias. A uint8 x takes the
+//     mixed-sign dp4a.u32.s32, as fast as the signed one.
 //   - Epilogue in registers, with no conversion instruction (each runs at a
 //     quarter of the rate of an add): float(s) = (0x4B400000 + s as a float)
 //     - 1.5*2^23, exact for |s| < 2^22 (a channel whose bias could leave
 //     that range takes __int2float_rn); then __fmul_rn by mult, a clamp to
-//     [-128, 127] and __fadd_rn(v, 1.5*2^23), whose low byte is rint(v),
-//     half to even, as __float2int_rn rounds. Three PRMTs pack 4 channels
+//     y's range less y_zp and __fadd_rn(v, 1.5*2^23), whose low byte is
+//     rint(v), half to even, as __float2int_rn rounds; + y_zp in the
+//     integer bits. Three PRMTs pack 4 channels
 //     and one 4-byte store writes them: the lanes of a warp hold
 //     neighbouring channel words, so a warp's store is contiguous bytes
 //     within each output pixel (a 16-byte store per thread would need 16
@@ -75,8 +81,9 @@
 //   buffer, the threads and the grid; the entry point takes them as they
 //   are and refuses a plan whose box does not hold its tile's reads, whose
 //   tiles do not cover the output or that does not fit a block.
-// general (any other group > 1): one thread per output pixel and run of 4
-//   output channels, each output channel reading its own group's bytes.
+// general (any other group > 1, and dilated convs): one thread per output
+//   pixel and run of 4 output channels, each output channel reading its own
+//   group's bytes.
 // The sums are int32 in registers; only int8 leaves the kernel.
 //
 // Rounding: round half to even, as jnp.round does; the multiply by
@@ -100,11 +107,20 @@ struct Params {
   const int8_t* w;
   const float* mult;
   const int32_t* bias;  // null: no bias
-  int8_t* y;
+  void* y;              // int8 / uint8 [M, O], or int32 where out_i32
   long long M;
-  int H, W, C, OH, OW, O, Op, Cg, Og, KH, KW, stride_h, stride_w, pad_h, pad_w;
+  int H, W, C, OH, OW, O, Op, Cg, Og, KH, KW, stride_h, stride_w, pad_h, pad_w, dil_h, dil_w;
+  int pad_x;            // the value a padding tap holds
+  int out_i32;
+  int q_lo, q_hi, y_zp; // y's range less y_zp, and y_zp
 };
 
+template <bool XU8>
+__device__ __forceinline__ int xval(int8_t v) {
+  return XU8 ? (int)(uint8_t)v : (int)v;
+}
+
+template <bool XU8>
 __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const Params p) {
   const int runs = p.Op >> 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -119,25 +135,40 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
   int acc[4] = {0, 0, 0, 0};
   const int8_t* xb = p.x + b * p.H * p.W * p.C;
   for (int kh = 0; kh < p.KH; ++kh) {
-    const int ih = oh * p.stride_h - p.pad_h + kh;
-    if (ih < 0 || ih >= p.H) continue;
+    const int ih = oh * p.stride_h - p.pad_h + kh * p.dil_h;
+    const bool row_in = ih >= 0 && ih < p.H;
+    if (!row_in && p.pad_x == 0) continue;
     for (int kw = 0; kw < p.KW; ++kw) {
-      const int iw = ow * p.stride_w - p.pad_w + kw;
-      if (iw < 0 || iw >= p.W) continue;
-      const int8_t* px = xb + ((long long)ih * p.W + iw) * p.C;
+      const int iw = ow * p.stride_w - p.pad_w + kw * p.dil_w;
+      const bool in = row_in && iw >= 0 && iw < p.W;
+      if (!in && p.pad_x == 0) continue;
+      const int8_t* px = xb + (in ? ((long long)ih * p.W + iw) * p.C : 0);
       const int8_t* pw = p.w + (long long)(kh * p.KW + kw) * p.Cg * p.Op + o0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int o = o0 + j;
         if (o >= p.O) break;
-        const int8_t* pg = px + (o / p.Og) * p.Cg;
         int s = 0;
-        for (int c = 0; c < p.Cg; ++c) s += (int)pg[c] * (int)pw[(long long)c * p.Op + j];
+        if (in) {
+          const int8_t* pg = px + (o / p.Og) * p.Cg;
+          for (int c = 0; c < p.Cg; ++c)
+            s += xval<XU8>(pg[c]) * (int)pw[(long long)c * p.Op + j];
+        } else {  // a padding tap: every input channel holds pad_x
+          for (int c = 0; c < p.Cg; ++c) s += (int)pw[(long long)c * p.Op + j];
+          s *= p.pad_x;
+        }
         acc[j] += s;
       }
     }
   }
 
+  if (p.out_i32) {
+    int32_t* dst = static_cast<int32_t*>(p.y) + m * p.O + o0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (o0 + j < p.O) dst[j] = acc[j] + (p.bias != nullptr ? p.bias[o0 + j] : 0);
+    return;
+  }
   int8_t q[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -146,11 +177,11 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
     if (o < p.O) {
       const int s = acc[j] + (p.bias != nullptr ? p.bias[o] : 0);
       v = __float2int_rn(__fmul_rn(__int2float_rn(s), p.mult[o]));
-      v = v < -128 ? -128 : (v > 127 ? 127 : v);
+      v = (v < p.q_lo ? p.q_lo : (v > p.q_hi ? p.q_hi : v)) + p.y_zp;
     }
-    q[j] = (int8_t)v;
+    q[j] = (int8_t)(v & 0xFF);
   }
-  int8_t* dst = p.y + m * p.O + o0;
+  int8_t* dst = static_cast<int8_t*>(p.y) + m * p.O + o0;
   if (p.O % 4 == 0) {
     *reinterpret_cast<char4*>(dst) = make_char4(q[0], q[1], q[2], q[3]);
   } else {
@@ -165,8 +196,12 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
 // ---------------------------------------------------------------------------
 constexpr int TILE_THREADS = 256;
 // |bias| up to this keeps every sum s = bias + 9 products (each at most
-// 128 * 128) inside [-2^22, 2^22), where the float trick is exact
-constexpr int FAST_BIAS = (1 << 22) - 9 * 128 * 128 - 1;
+// 128 * 128, or 255 * 128 for a uint8 x) inside [-2^22, 2^22), where the
+// float trick is exact
+template <bool XU8>
+__host__ __device__ constexpr int fast_bias() {
+  return (1 << 22) - 9 * (XU8 ? 255 : 128) * 128 - 1;
+}
 
 struct TileParams {
   const int8_t* w;      // packed [9, C]
@@ -180,6 +215,10 @@ struct TileParams {
   unsigned tiles;       // B * n_h * n_w * n_c
   int pad_h, pad_w;
   unsigned buf_bytes;   // one staging buffer: an input box, rounded up to 128
+  int H, W;             // the image, for the border tiles' padding
+  uint32_t pad_word;    // the x zero point's byte, four times (0: none)
+  float q_lo, q_hi;     // y's range less y_zp
+  int y_zp;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -207,6 +246,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// sum_i x_i * w_i + c over the 4 bytes: x signed, or unsigned (XU8)
+template <bool XU8>
+__device__ __forceinline__ int dot4(uint32_t x, uint32_t w, int c) {
+  if constexpr (XU8) {
+    int d;
+    asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(x), "r"(w), "r"(c));
+    return d;
+  } else {
+    return __dp4a((int)x, (int)w, c);
+  }
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -267,11 +322,11 @@ __device__ __forceinline__ void load_row(const uint32_t* __restrict__ src, int Q
   }
 }
 
-// sat_int8(rint(float(s) * m)) in the low byte (see the note).
-__device__ __forceinline__ uint32_t requant_bits(int s, float m, bool fast) {
+// clamp(rint(float(s) * m), lo, hi) in the low byte (see the note).
+__device__ __forceinline__ uint32_t requant_bits(int s, float m, bool fast, float lo, float hi) {
   const float f = fast ? __fsub_rn(__int_as_float(s + 0x4B400000), 12582912.0f)
                        : __int2float_rn(s);
-  const float v = fminf(fmaxf(__fmul_rn(f, m), -128.0f), 127.0f);
+  const float v = fminf(fmaxf(__fmul_rn(f, m), lo), hi);
   return (uint32_t)__float_as_int(__fadd_rn(v, 12582912.0f));
 }
 
@@ -292,11 +347,13 @@ struct Thread {
   long long y_row;  // bytes from one output row to the next
   int y_col;        // bytes from one output column to the next (C)
   bool col1;        // the second column lies inside the image
+  float lo, hi;     // y's range less y_zp
+  int zp;           // y_zp
 };
 
 // Loads the thread's weights (packed [9, C], 4 channels from c), mult and
 // bias; returns whether every bias keeps the float trick exact.
-template <int S>
+template <int S, bool XU8>
 __device__ __forceinline__ bool load_thread(Thread<S>& th, const TileParams& p, int c) {
   const int cw = p.C >> 2;  // a tap row in words
 #pragma unroll
@@ -313,34 +370,37 @@ __device__ __forceinline__ bool load_thread(Thread<S>& th, const TileParams& p, 
   for (int k = 0; k < 4; ++k) {
     th.m[k] = __ldg(p.mult + c + k);
     th.bias[k] = p.bias != nullptr ? __ldg(p.bias + c + k) : 0;
-    fast = fast && th.bias[k] >= -FAST_BIAS && th.bias[k] <= FAST_BIAS;
+    fast = fast && th.bias[k] >= -fast_bias<XU8>() && th.bias[k] <= fast_bias<XU8>();
   }
+  th.lo = p.q_lo;
+  th.hi = p.q_hi;
+  th.zp = p.y_zp;
   return fast;
 }
 
 // Output row i of the tile from staged input rows r0, r1, r2 (kernel rows
 // 0, 1, 2): both columns, 4 channels, requantised and stored.
-template <int S, bool FAST>
+template <int S, bool XU8, bool FAST>
 __device__ __forceinline__ void out_row(const Thread<S>& th, const Row<S>& r0, const Row<S>& r1,
                                         const Row<S>& r2, int i) {
   uint32_t q0[4], q1[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    int s0 = __dp4a((int)r0.a[k], (int)th.wa[0][k], th.bias[k]);
-    s0 = __dp4a((int)r1.a[k], (int)th.wa[1][k], s0);
-    s0 = __dp4a((int)r2.a[k], (int)th.wa[2][k], s0);
+    int s0 = dot4<XU8>(r0.a[k], th.wa[0][k], th.bias[k]);
+    s0 = dot4<XU8>(r1.a[k], th.wa[1][k], s0);
+    s0 = dot4<XU8>(r2.a[k], th.wa[2][k], s0);
     int s1;
     if constexpr (S == 1) {
-      s1 = __dp4a((int)r0.a[k], (int)th.wb[0][k], th.bias[k]);
-      s1 = __dp4a((int)r1.a[k], (int)th.wb[1][k], s1);
-      s1 = __dp4a((int)r2.a[k], (int)th.wb[2][k], s1);
+      s1 = dot4<XU8>(r0.a[k], th.wb[0][k], th.bias[k]);
+      s1 = dot4<XU8>(r1.a[k], th.wb[1][k], s1);
+      s1 = dot4<XU8>(r2.a[k], th.wb[2][k], s1);
     } else {
-      s1 = __dp4a((int)r0.e[k], (int)th.wa[0][k], th.bias[k]);
-      s1 = __dp4a((int)r1.e[k], (int)th.wa[1][k], s1);
-      s1 = __dp4a((int)r2.e[k], (int)th.wa[2][k], s1);
+      s1 = dot4<XU8>(r0.e[k], th.wa[0][k], th.bias[k]);
+      s1 = dot4<XU8>(r1.e[k], th.wa[1][k], s1);
+      s1 = dot4<XU8>(r2.e[k], th.wa[2][k], s1);
     }
-    q0[k] = requant_bits(s0, th.m[k], FAST);
-    q1[k] = requant_bits(s1, th.m[k], FAST);
+    q0[k] = requant_bits(s0, th.m[k], FAST, th.lo, th.hi) + th.zp;
+    q1[k] = requant_bits(s1, th.m[k], FAST, th.lo, th.hi) + th.zp;
   }
   int8_t* dst = th.y + i * th.y_row;
   *reinterpret_cast<uint32_t*>(dst) = pack4(q0[0], q0[1], q0[2], q0[3]);
@@ -350,7 +410,7 @@ __device__ __forceinline__ void out_row(const Thread<S>& th, const Row<S>& r0, c
 // The thread's `rows` output rows of one tile. src: its first word in box
 // row 0; Q: words a box column; rs: words a box row. The last rows read
 // rotate through registers (unrolled so that no row is copied).
-template <int S, bool FAST>
+template <int S, bool XU8, bool FAST>
 __device__ __forceinline__ void run_tile(const uint32_t* __restrict__ src, int Q, int rs,
                                          int rows, const Thread<S>& th) {
   if constexpr (S == 1) {
@@ -361,19 +421,19 @@ __device__ __forceinline__ void run_tile(const uint32_t* __restrict__ src, int Q
     int i = 0;
     for (; i + 3 <= rows; i += 3) {
       load_row<1>(nxt, Q, c);
-      out_row<1, FAST>(th, a, b, c, i);
+      out_row<1, XU8, FAST>(th, a, b, c, i);
       load_row<1>(nxt + rs, Q, a);
-      out_row<1, FAST>(th, b, c, a, i + 1);
+      out_row<1, XU8, FAST>(th, b, c, a, i + 1);
       load_row<1>(nxt + 2 * rs, Q, b);
-      out_row<1, FAST>(th, c, a, b, i + 2);
+      out_row<1, XU8, FAST>(th, c, a, b, i + 2);
       nxt += 3 * rs;
     }
     if (i < rows) {
       load_row<1>(nxt, Q, c);
-      out_row<1, FAST>(th, a, b, c, i);
+      out_row<1, XU8, FAST>(th, a, b, c, i);
       if (i + 1 < rows) {
         load_row<1>(nxt + rs, Q, a);
-        out_row<1, FAST>(th, b, c, a, i + 1);
+        out_row<1, XU8, FAST>(th, b, c, a, i + 1);
       }
     }
   } else {
@@ -384,16 +444,16 @@ __device__ __forceinline__ void run_tile(const uint32_t* __restrict__ src, int Q
     for (; i + 2 <= rows; i += 2) {
       load_row<2>(nxt, Q, o);
       load_row<2>(nxt + rs, Q, e1);
-      out_row<2, FAST>(th, e0, o, e1, i);
+      out_row<2, XU8, FAST>(th, e0, o, e1, i);
       load_row<2>(nxt + 2 * rs, Q, o);
       load_row<2>(nxt + 3 * rs, Q, e0);
-      out_row<2, FAST>(th, e1, o, e0, i + 1);
+      out_row<2, XU8, FAST>(th, e1, o, e0, i + 1);
       nxt += 4 * rs;
     }
     if (i < rows) {
       load_row<2>(nxt, Q, o);
       load_row<2>(nxt + rs, Q, e1);
-      out_row<2, FAST>(th, e0, o, e1, i);
+      out_row<2, XU8, FAST>(th, e0, o, e1, i);
     }
   }
 }
@@ -401,7 +461,7 @@ __device__ __forceinline__ void run_tile(const uint32_t* __restrict__ src, int Q
 // Persistent blocks over output tiles, two staged input tiles a block: tile
 // k + 1's TMA load is in flight while tile k computes. Thread tid owns
 // channel quad tid % Q and column pair tid / Q of every tile.
-template <int S>
+template <int S, bool XU8>
 __global__ void __launch_bounds__(TILE_THREADS)
     qconv_grouped_int8_requant_tile_kernel(const __grid_constant__ CUtensorMap xmap,
                                            const TileParams p) {
@@ -439,21 +499,36 @@ __global__ void __launch_bounds__(TILE_THREADS)
     Thread<S> th;
     bool fast = true;
     if (active) {  // the weights load while the tile's bytes arrive
-      fast = load_thread<S>(th, p, c);
+      fast = load_thread<S, XU8>(th, p, c);
       th.y = p.y + (((long long)tl.b * p.OH + oh0) * p.OW + ow) * p.C + c;
       th.y_row = (long long)p.OW * p.C;
       th.y_col = p.C;
       th.col1 = ow + 1 < p.OW;
     }
     mbar_wait(s ? bar1 : bar0, (it >> 1) & 1);
+    if (p.pad_word != 0) {
+      // a border tile: its out-of-image bytes hold the x zero point, not
+      // TMA's zeros (the condition is the block's, so is the barrier)
+      const int r0 = oh0 * S - p.pad_h, c0 = tl.tw * p.TW * S - p.pad_w;
+      if (r0 < 0 || c0 < 0 || r0 + p.BH > p.H || c0 + p.BW > p.W) {
+        uint32_t* buf = reinterpret_cast<uint32_t*>(smem + s * p.buf_bytes);
+        for (int px = tid; px < p.BH * p.BW; px += blockDim.x) {
+          const int r = px / p.BW, cc = px - r * p.BW;
+          if (r0 + r >= 0 && r0 + r < p.H && c0 + cc >= 0 && c0 + cc < p.W) continue;
+          for (int k = 0; k < Q; ++k) buf[px * Q + k] = p.pad_word;
+        }
+        fence_proxy_async();  // before a later TMA load rewrites these bytes
+        __syncthreads();
+      }
+    }
     if (active) {
       const uint32_t* src = reinterpret_cast<const uint32_t*>(smem + s * p.buf_bytes) +
                             2 * S * pc * Q + q;
       const int rows = min(p.TH, p.OH - oh0);
       if (fast)
-        run_tile<S, true>(src, Q, p.BW * Q, rows, th);
+        run_tile<S, XU8, true>(src, Q, p.BW * Q, rows, th);
       else
-        run_tile<S, false>(src, Q, p.BW * Q, rows, th);
+        run_tile<S, XU8, false>(src, Q, p.BW * Q, rows, th);
     }
     __syncthreads();  // slot s is read; the next iteration's load may reuse it
   }
@@ -490,7 +565,7 @@ EncodeTiledFn encode_tiled() {
 // The largest dynamic shared memory a block may have (227 KB).
 constexpr size_t MAX_SMEM = 232448;
 
-template <int S>
+template <int S, bool XU8>
 cudaError_t launch_tile(const void* x, int B, int H, int W, const TileParams& p, size_t smem,
                         int threads, cudaStream_t st) {
   EncodeTiledFn fn = encode_tiled();
@@ -508,7 +583,7 @@ cudaError_t launch_tile(const void* x, int B, int H, int W, const TileParams& p,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  auto kern = qconv_grouped_int8_requant_tile_kernel<S>;
+  auto kern = qconv_grouped_int8_requant_tile_kernel<S, XU8>;
   static size_t opted_in = 0;  // the shared memory this instantiation may use
   static size_t occ_smem = 0;  // the (shared memory, threads) occ was taken at
   static int occ_threads = 0;
@@ -541,24 +616,29 @@ cudaError_t launch_tile(const void* x, int B, int H, int W, const TileParams& p,
 
 }  // namespace
 
-// x, w (packed), mult f32 [O], bias int32 [O] or null, y int8 [M, O].
-// tile: null for the general form (any group > 1), or the tile form's plan
-// (depthwise 3x3, stride 1 or 2 in both dimensions, C % 16 == 0, x 16-byte
-// aligned) as grouped_plan gives it (qconv_grouped_int8.py::tile_args):
-// {TH, TW, channel run, box rows, box columns, staging buffer bytes, shared
-// memory bytes, threads, row tiles, column tiles, channel runs}. The output
-// pointer must be 4-byte aligned when O % 4 == 0. Launches on `stream`;
-// returns the launch's error, or cudaErrorInvalidValue for arguments the
-// form does not take.
-extern "C" cudaError_t qconv_grouped_int8_requant_launch(
+// x (uint8 where x_u8, else int8), w (packed), mult f32 [O], bias int32 [O]
+// or null, y [M, O]: uint8 where y_u8, else int8, or int32 where out_i32
+// (the general form only; mult unused). pad_x: the value a padding tap
+// holds, in x's type; y_zp in y's. tile: null for the general form (any
+// group > 1), or the tile form's plan (depthwise 3x3, stride 1 or 2 in both
+// dimensions, no dilation, C % 16 == 0, x 16-byte aligned) as grouped_plan
+// gives it (qconv_grouped_int8.py::tile_args): {TH, TW, channel run, box
+// rows, box columns, staging buffer bytes, shared memory bytes, threads, row
+// tiles, column tiles, channel runs}. The output pointer must be 4-byte
+// aligned when O % 4 == 0. Launches on `stream`; returns the launch's error,
+// or cudaErrorInvalidValue for arguments the form does not take.
+extern "C" cudaError_t qconv_grouped_int8_launch(
     const void* x, const void* w, const void* mult, const void* bias, void* y, int B,
     int H, int W, int C, int OH, int OW, int O, int Cg, int KH, int KW, int stride_h,
-    int stride_w, int pad_h, int pad_w, const int* tile, void* stream) {
+    int stride_w, int pad_h, int pad_w, int dil_h, int dil_w, int x_u8, int pad_x,
+    int y_zp, int y_u8, int out_i32, const int* tile, void* stream) {
   const long long M = (long long)B * OH * OW;
   if (M <= 0 || O <= 0) return cudaSuccess;
-  if (x == nullptr || w == nullptr || mult == nullptr || y == nullptr || Cg <= 0 ||
-      C % Cg != 0 || KH <= 0 || KW <= 0 || stride_h <= 0 || stride_w <= 0 || pad_h < 0 ||
-      pad_w < 0)
+  const int x_lo = x_u8 ? 0 : -128, y_lo = y_u8 ? 0 : -128;
+  if (x == nullptr || w == nullptr || (mult == nullptr && !out_i32) || y == nullptr ||
+      Cg <= 0 || C % Cg != 0 || KH <= 0 || KW <= 0 || stride_h <= 0 || stride_w <= 0 ||
+      pad_h < 0 || pad_w < 0 || dil_h < 1 || dil_w < 1 || pad_x < x_lo || pad_x > x_lo + 255 ||
+      y_zp < y_lo || y_zp > y_lo + 255)
     return cudaErrorInvalidValue;
   const int group = C / Cg;
   if (O % group != 0) return cudaErrorInvalidValue;
@@ -568,8 +648,8 @@ extern "C" cudaError_t qconv_grouped_int8_requant_launch(
   if (tile != nullptr) {
     const int s = stride_h;
     if (Cg != 1 || Og != 1 || KH != 3 || KW != 3 || stride_w != s || (s != 1 && s != 2) ||
-        C % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(w) % 4 != 0)
+        dil_h != 1 || dil_w != 1 || out_i32 || C % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 4 != 0)
       return cudaErrorInvalidValue;
     TileParams p;
     p.w = static_cast<const int8_t*>(w);
@@ -591,6 +671,12 @@ extern "C" cudaError_t qconv_grouped_int8_requant_launch(
     p.n_c = tile[10];
     p.pad_h = pad_h;
     p.pad_w = pad_w;
+    p.H = H;
+    p.W = W;
+    p.pad_word = (uint32_t)(pad_x & 0xFF) * 0x01010101u;
+    p.q_lo = (float)(y_lo - y_zp);
+    p.q_hi = (float)(y_lo + 255 - y_zp);
+    p.y_zp = y_zp;
     const long long tiles = (long long)B * p.n_h * p.n_w * p.n_c;
     // the limits: a thread's reads inside the box, tiles covering the
     // output, TMA's box (sides <= 256, rows of 16-byte multiples), the
@@ -605,15 +691,18 @@ extern "C" cudaError_t qconv_grouped_int8_requant_launch(
       return cudaErrorInvalidValue;
     p.buf_bytes = (unsigned)buf;
     p.tiles = (unsigned)tiles;
-    return s == 1 ? launch_tile<1>(x, B, H, W, p, (size_t)smem, threads, st)
-                  : launch_tile<2>(x, B, H, W, p, (size_t)smem, threads, st);
+    if (x_u8)
+      return s == 1 ? launch_tile<1, true>(x, B, H, W, p, (size_t)smem, threads, st)
+                    : launch_tile<2, true>(x, B, H, W, p, (size_t)smem, threads, st);
+    return s == 1 ? launch_tile<1, false>(x, B, H, W, p, (size_t)smem, threads, st)
+                  : launch_tile<2, false>(x, B, H, W, p, (size_t)smem, threads, st);
   }
   Params p;
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
   p.mult = static_cast<const float*>(mult);
   p.bias = static_cast<const int32_t*>(bias);
-  p.y = static_cast<int8_t*>(y);
+  p.y = y;
   p.M = M;
   p.H = H;
   p.W = W;
@@ -630,9 +719,19 @@ extern "C" cudaError_t qconv_grouped_int8_requant_launch(
   p.stride_w = stride_w;
   p.pad_h = pad_h;
   p.pad_w = pad_w;
+  p.dil_h = dil_h;
+  p.dil_w = dil_w;
+  p.pad_x = pad_x;
+  p.out_i32 = out_i32;
+  p.q_lo = y_lo - y_zp;
+  p.q_hi = y_lo + 255 - y_zp;
+  p.y_zp = y_zp;
   const long long threads = M * (p.Op / 4);
   const long long blocks = (threads + 255) / 256;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  qconv_grouped_int8_requant_kernel<<<(unsigned)blocks, 256, 0, st>>>(p);
+  if (x_u8)
+    qconv_grouped_int8_requant_kernel<true><<<(unsigned)blocks, 256, 0, st>>>(p);
+  else
+    qconv_grouped_int8_requant_kernel<false><<<(unsigned)blocks, 256, 0, st>>>(p);
   return cudaGetLastError();
 }

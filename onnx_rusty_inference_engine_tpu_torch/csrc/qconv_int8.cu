@@ -1,19 +1,27 @@
 // int8 implicit-GEMM convolution with a fused int32-bias + f32 requant
-// epilogue, for Hopper (sm_90a), on the int8 tensor cores (wgmma).
+// epilogue, or an exact int32 output, for Hopper (sm_90a), on the int8
+// tensor cores (wgmma).
 //
 // Replaces the TPU kernel onnx_rusty_inference_engine_tpu/ops/kernels/
 // qmatmul.py::qmatmul_int8_requant (body _mm_requant_kernel) and its 1x1-conv
-// wrapper qconv1x1_int8_requant. One entry point covers every symmetric,
-// group-1 QLinearConv: 1x1, kxk with padding, and strided.
+// wrapper qconv1x1_int8_requant. One entry point covers every group-1
+// QLinearConv (1x1, kxk with padding, strided, dilated; 1-D as H = 1) and
+// ConvInteger, with ONNX Runtime's QOperator forms: uint8 or int8
+// activations with a zero point, uint8 or int8 output with one.
 //
-//   x  int8 [B, H, W, C] channels-last, C a multiple of 4 (the wrapper pads
-//      other C with zero channels);
+//   x  int8 or uint8 (x_u8) [B, H, W, C] channels-last, C a multiple of 4
+//      (the wrapper pads other C with zero channels);
 //   w  int8 [N, Kp]: row n = output channel n's taps in (kh, kw, c) order,
 //      K = KH*KW*C, zero past K, Kp = K rounded up to 16
 //      (ops/kernels/qconv_int8.py::pack_qconv_weight);
-//   y  int8 [M, N], M = B*OH*OW: channels-last output, which the next conv
-//      reads as it is;
-//   y[m, n] = sat_int8(rint(float(sum_k x[m, k] * w[n, k] + bias[n]) * mult[n])).
+//   requant: y int8 or uint8 [M, N], M = B*OH*OW, channels-last (the next
+//      conv reads it as it is):
+//      y[m, n] = clamp(rint(float(sum_k x[m, k] * w[n, k] + bias[n]) * mult[n])
+//                + y_zp, the output type's range);
+//   int32:   y int32 [M, N] = sum_k x[m, k] * w[n, k], exact.
+// Padding taps hold pad_byte (the x zero point): ONNX pads a quantized conv
+// with it, so with the zero point folded into the bias
+// (-zx * sum_k w[n, k], by the caller) every tap of the window is x - zx.
 //
 // The mainloop is csrc/int8_wgmma.cuh. Two A producers:
 //   producer 0 (TMA): a 1x1, stride-1, unpadded conv with C % 16 == 0 is a
@@ -21,7 +29,7 @@
 //   producer 1 (gather): any other conv; the im2col matrix is never
 //     written to device memory, each block gathers its A tile straight from
 //     x by cp.async into the ring (16-, 8- or 4-byte runs, one tap's
-//     channels each), zero-filling padding taps.
+//     channels each), filling padding taps with zeros or the pad byte.
 // The int32 sums stay in registers and only int8 leaves the kernel, as the
 // TPU kernel kept them in VMEM.
 //
@@ -32,7 +40,9 @@
 // bounds those. The design keeps both rates in reach: wgmma fed from a ring
 // of asynchronous copies for the first kind, an N tile sized to the layer
 // (16-256 wide, so a squeeze wastes no tensor-core columns) and coalesced
-// 16-byte int8 stores for the second.
+// 16-byte int8 stores for the second. The zero points cost nothing per
+// multiply: the x zero point lives in the bias and the pad bytes, a uint8 x
+// goes to wgmma's .u8 A as it is, and y_zp is one add in the epilogue.
 //
 // Rounding: __float2int_rn (half to even), as jnp.round does; never roundf.
 
@@ -40,22 +50,30 @@
 #define I8G_KERNEL qconv_int8_requant_kernel
 #include "int8_wgmma.cuh"
 
-// mult: f32 [N]; bias: int32 [N] or null. producer 0 requires KH = KW = 1,
-// unit strides, no padding and C % 16 == 0; producer 1 requires C % 4 == 0.
+// x_u8: x is uint8 (wgmma's .u8 A), else int8.
+// epilogue: 0 = int32 (mult, bias unused; producer 1 only), 1 = requant
+// (mult f32 [N], bias int32 [N] or null, y uint8 where y_u8 else int8).
+// producer 0 requires KH = KW = 1, unit strides, no padding and C % 16 == 0;
+// producer 1 requires C % 4 == 0. pad_byte: the byte a padding tap holds.
 // (bm, bn, stages, b_resident): the tile the wrapper chose
 // (qmatmul_int8.py::int8_tile); one that does not fit is refused with
 // cudaErrorInvalidValue. Launches on `stream`; returns the launch's error.
-extern "C" cudaError_t qconv_int8_requant_launch(
+extern "C" cudaError_t qconv_int8_launch(
     const void* x, const void* w, const void* mult, const void* bias, void* y, int B,
     int H, int W, int C, int OH, int OW, int N, int KH, int KW, int stride_h,
-    int stride_w, int pad_h, int pad_w, int Kp, int producer, int bm, int bn, int stages,
+    int stride_w, int pad_h, int pad_w, int dil_h, int dil_w, int Kp, int producer,
+    int epilogue, int x_u8, int pad_byte, int y_zp, int y_u8, int bm, int bn, int stages,
     int b_resident, void* stream) {
   const long long M = (long long)B * OH * OW;
   if (M <= 0 || N <= 0) return cudaSuccess;
   const long long K = (long long)KH * KW * C;
-  if (M >= (1LL << 31) || K <= 0 || Kp < K || Kp - K >= 16 || mult == nullptr ||
-      C % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+  if (M >= (1LL << 31) || K <= 0 || Kp < K || Kp - K >= 16 || C % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || dil_h < 1 || dil_w < 1 ||
+      pad_byte < 0 || pad_byte > 255 || (epilogue != 0 && epilogue != 1) ||
+      (epilogue == 1 && mult == nullptr))
     return cudaErrorInvalidValue;
+  const int lo = y_u8 ? 0 : -128, hi = y_u8 ? 255 : 127;
+  if (y_zp < lo || y_zp > hi) return cudaErrorInvalidValue;
   i8g::Params p = {};
   p.M = (int)M;
   p.N = N;
@@ -65,12 +83,16 @@ extern "C" cudaError_t qconv_int8_requant_launch(
   p.out = y;
   p.mult = static_cast<const float*>(mult);
   p.bias = static_cast<const int32_t*>(bias);
+  p.q_lo = (float)(lo - y_zp);
+  p.q_hi = (float)(hi - y_zp);
+  p.y_zp = y_zp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (producer == 0) {
     if (KH != 1 || KW != 1 || stride_h != 1 || stride_w != 1 || pad_h != 0 ||
-        pad_w != 0 || OH != H || OW != W || C % 16 != 0 || Kp != C)
+        pad_w != 0 || OH != H || OW != W || C % 16 != 0 || Kp != C || epilogue != 1)
       return cudaErrorInvalidValue;
-    return i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT>(x, w, Kp, p, bm, bn, st);
+    return x_u8 ? i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, true>(x, w, Kp, p, bm, bn, st)
+                : i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, false>(x, w, Kp, p, bm, bn, st);
   }
   if (producer != 1) return cudaErrorInvalidValue;
   p.x = static_cast<const int8_t*>(x);
@@ -84,9 +106,16 @@ extern "C" cudaError_t qconv_int8_requant_launch(
   p.stride_w = stride_w;
   p.pad_h = pad_h;
   p.pad_w = pad_w;
+  p.dil_h = dil_h;
+  p.dil_w = dil_w;
+  p.pad_word = (uint32_t)pad_byte * 0x01010101u;
   p.gran = C % 16 == 0 ? 16 : (C % 8 == 0 ? 8 : 4);
   p.div_c = i8g::make_fastdiv((uint32_t)C);
   p.div_kw = i8g::make_fastdiv((uint32_t)KW);
   if (K * C >= (1LL << 32)) return cudaErrorInvalidValue;  // make_fastdiv's range
-  return i8g::launch<i8g::A_GATHER, i8g::EPI_REQUANT>(x, w, Kp, p, bm, bn, st);
+  if (epilogue == 0)
+    return x_u8 ? i8g::launch<i8g::A_GATHER, i8g::EPI_INT32, true>(x, w, Kp, p, bm, bn, st)
+                : i8g::launch<i8g::A_GATHER, i8g::EPI_INT32, false>(x, w, Kp, p, bm, bn, st);
+  return x_u8 ? i8g::launch<i8g::A_GATHER, i8g::EPI_REQUANT, true>(x, w, Kp, p, bm, bn, st)
+              : i8g::launch<i8g::A_GATHER, i8g::EPI_REQUANT, false>(x, w, Kp, p, bm, bn, st);
 }

@@ -13,9 +13,13 @@
 //        (ops/kernels/qmatmul_int8.py::pack_qmatmul_weight, made once per
 //        weight when an Engine is built);
 //   int32 epilogue:   out int32 [M, N] = a @ b, exact;
-//   requant epilogue: out int8 [M, N] = sat(rn((a @ b + bias) * mult)), per
-//        column n, the TPU kernel's f32 arithmetic with explicit _rn
-//        intrinsics (no contraction into an FMA can move a tie).
+//   requant epilogue: out int8 or uint8 [M, N] = clamp(rn((a @ b + bias) *
+//        mult) + y_zp, the output type's range), per column n, the TPU
+//        kernel's f32 arithmetic with explicit _rn intrinsics (no
+//        contraction into an FMA can move a tie) and ONNX's output zero
+//        point. A uint8 a, an a zero point and a b zero point are the
+//        wrapper's (ops/quantized.py): shifted to int8, folded into the bias
+//        or corrected after the int32 epilogue.
 //
 // The mainloop is csrc/int8_wgmma.cuh: A and B reach a 2-8 slot shared-memory
 // ring by TMA, and consumer warpgroups run wgmma.m64nNk32.s32.s8.s8 on it.
@@ -35,17 +39,19 @@
 #include "int8_wgmma.cuh"
 
 // epilogue: 0 = int32 (mult, bias unused), 1 = requant (mult f32 [N], bias
-// int32 [N] or null, out int8). (bm, bn, stages, b_resident): the tile the
-// wrapper chose (qmatmul_int8.py::int8_tile); one that does not fit is
-// refused with cudaErrorInvalidValue. Launches on `stream`; returns the
-// launch's error.
+// int32 [N] or null, out uint8 where y_u8 else int8, y_zp in its range).
+// (bm, bn, stages, b_resident): the tile the wrapper chose
+// (qmatmul_int8.py::int8_tile); one that does not fit is refused with
+// cudaErrorInvalidValue. Launches on `stream`; returns the launch's error.
 extern "C" cudaError_t qmatmul_int8_launch(const void* a, const void* bp, void* out,
                                            const void* mult, const void* bias, int M,
-                                           int N, int K, int epilogue, int bm, int bn,
-                                           int stages, int b_resident, void* stream) {
+                                           int N, int K, int epilogue, int y_zp, int y_u8,
+                                           int bm, int bn, int stages, int b_resident,
+                                           void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
+  const int lo = y_u8 ? 0 : -128, hi = y_u8 ? 255 : 127;
   if (K <= 0 || K % 16 != 0 || (epilogue != 0 && epilogue != 1) ||
-      (epilogue == 1 && mult == nullptr))
+      (epilogue == 1 && mult == nullptr) || y_zp < lo || y_zp > hi)
     return cudaErrorInvalidValue;
   i8g::Params p = {};
   p.M = M;
@@ -56,6 +62,9 @@ extern "C" cudaError_t qmatmul_int8_launch(const void* a, const void* bp, void* 
   p.out = out;
   p.mult = static_cast<const float*>(mult);
   p.bias = static_cast<const int32_t*>(bias);
+  p.q_lo = (float)(lo - y_zp);
+  p.q_hi = (float)(hi - y_zp);
+  p.y_zp = y_zp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (epilogue == 0)
     return i8g::launch<i8g::A_TMA, i8g::EPI_INT32>(a, bp, K, p, bm, bn, st);

@@ -2,8 +2,9 @@
 
 Each wrapper counts its launches on the host, in `.launches` and, for some,
 per variant in `.schedules` (int4; the grouped conv's forms), `.a_dtypes`
-(int4: the activations' type), `.epilogues` (int8 GEMM) and `.producers`
-(int8 conv). A CUDA graph replays the kernels
+(int4: the activations' type), `.epilogues` (int8 GEMM and conv),
+`.producers` (int8 conv) and `.forms` (the int8 kernels' zero-point and
+uint8 forms, several of which one launch may be). A CUDA graph replays the kernels
 without calling the wrappers, and capturing one calls them without
 launching anything. So whoever captures a graph takes the counters' change
 over the capture back out, and adds it again on every replay
@@ -16,7 +17,7 @@ from typing import Dict, Tuple
 
 __all__ = ["wrappers", "snapshot", "delta", "add"]
 
-SPLITS = ("schedules", "a_dtypes", "epilogues", "producers")
+SPLITS = ("schedules", "a_dtypes", "epilogues", "producers", "forms")
 
 Key = Tuple[str, str, str]
 

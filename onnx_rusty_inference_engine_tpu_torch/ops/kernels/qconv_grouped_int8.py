@@ -8,15 +8,19 @@ the bias add and `_requant`
 library call takes an int8 grouped conv, and cuDNN in f32 may pick a
 rounding (Winograd, FFT) algorithm, so the port computes it in a kernel of
 its own, `csrc/qconv_grouped_int8.cu`: int32 sums, the requant of
-`_requant` in registers, channels-last int8 in and out. Its source note
-says what bounds it on the H100 and how each form works.
+`_requant` in registers, channels-last int8 or uint8 in and out, with
+ONNX Runtime's QOperator forms (a uint8 x, padding taps holding the x zero
+point, an output zero point, dilation in the general form). Its source
+note says what bounds it on the H100 and how each form works.
 
 `grouped_plan` picks the kernel's form from the shapes, and for the tile
 form the whole launch: "tile" (depthwise 3x3 at stride 1 or 2, C % 16 ==
 0, x 16-byte aligned: TMA-staged input tiles, IDP4A, register blocking)
-or "general" (any other group > 1: one thread per output pixel and 4
-output channels). The kernel's entry point takes the tile form's plan as
-it is and only checks it against its limits.
+or "general" (any other group > 1, a dilated one, and the int32 output:
+one thread per output pixel and 4 output channels). The kernel's entry
+point takes the tile form's plan as it is and only checks it against its
+limits. `qconv_grouped_int8` is the general form's exact int32 output
+(+ bias), for a weight with a zero point.
 
 On the card the wrapper reads a channels-last input as it is (any other is
 copied channels-last) and returns a [B, O, OH, OW] view with
@@ -27,7 +31,8 @@ The wrapper takes a tensor on the CPU to the kernel's plain PyTorch
 version (`qconv_grouped_int8_requant_plain`, exact float64 sums through
 `F.conv2d(groups=...)`, then `_requant`), and launches the kernel for a
 tensor on the card, or raises. `qconv_grouped_int8_requant.launches`
-counts the kernel's launches, `.schedules` counts them per form.
+counts the kernel's launches through both wrappers, `.schedules` counts
+them per form, `.forms` per QOperator form (qconv_int8.FORMS).
 """
 
 from __future__ import annotations
@@ -36,12 +41,15 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
-from .qmatmul_int8 import _requant, check_operand, mult_vector
+from .qconv_int8 import FORMS as QFORMS
+from .qconv_int8 import conv_sums_plain
+from .qmatmul_int8 import (_requant, check_operand, check_qtype, count_forms,
+                           mult_vector)
 
 __all__ = ["qconv_grouped_int8_requant", "qconv_grouped_int8_requant_plain",
+           "qconv_grouped_int8", "qconv_grouped_int8_plain",
            "pack_qconv_grouped_weight", "grouped_mode", "grouped_plan",
            "input_align", "conv_groups", "tile_args", "FORMS", "RUN"]
 
@@ -81,15 +89,18 @@ def conv_groups(x_shape: Sequence[int], w_shape: Sequence[int]) -> int:
 
 def grouped_mode(C: int, Cg: int, O: int, group: int,
                  kernel: Sequence[int], stride: Sequence[int],
-                 x_align: int = 16) -> str:
+                 x_align: int = 16, dilation: Sequence[int] = (1, 1),
+                 int32: bool = False) -> str:
     """The kernel's form for a conv of C input channels in `group` groups
-    of Cg, O output channels, a kernel of kernel = (KH, KW) at `stride`,
-    over an input whose address is a multiple of `x_align` bytes: "tile"
-    for a depthwise 3x3 at stride 1 or 2 with C % 16 == 0 and x 16-byte
-    aligned, "general" otherwise."""
+    of Cg, O output channels, a kernel of kernel = (KH, KW) at `stride` and
+    `dilation`, over an input whose address is a multiple of `x_align`
+    bytes: "tile" for an undilated depthwise 3x3 at stride 1 or 2 with
+    C % 16 == 0 and x 16-byte aligned on the requant output, "general"
+    otherwise (and for the int32 output)."""
     if (Cg == 1 and O == group and tuple(kernel) == (3, 3)
             and tuple(stride) in ((1, 1), (2, 2)) and C % 16 == 0
-            and x_align % 16 == 0):
+            and x_align % 16 == 0 and tuple(dilation) == (1, 1)
+            and not int32):
         return "tile"
     return "general"
 
@@ -137,7 +148,8 @@ def tile_args(plan: dict) -> Tuple[int, ...]:
 
 def grouped_plan(x_shape: Sequence[int], w_shape: Sequence[int],
                  stride: Sequence[int], padding: Padding,
-                 x_align: int = 16) -> dict:
+                 x_align: int = 16, dilation: Sequence[int] = (1, 1),
+                 int32: bool = False) -> dict:
     """How the kernel runs a grouped conv of x [B, C, H, W] by w [O, Cg,
     KH, KW]: the form (`grouped_mode`, the key `.schedules` counts) and,
     for the tile form, the launch the kernel takes (`tile_args`): the
@@ -149,8 +161,9 @@ def grouped_plan(x_shape: Sequence[int], w_shape: Sequence[int],
     B, C, H, W = x_shape
     O, Cg, KH, KW = w_shape
     group = conv_groups(x_shape, w_shape)
-    OH, OW = _out_hw(H, W, KH, KW, stride, padding)
-    form = grouped_mode(C, Cg, O, group, (KH, KW), stride, x_align)
+    OH, OW = _out_hw(H, W, KH, KW, stride, padding, dilation)
+    form = grouped_mode(C, Cg, O, group, (KH, KW), stride, x_align,
+                        dilation, int32)
     if form == "tile":
         return {"form": form, **_tile(B, C, OH, OW, stride[0])}
     threads = B * OH * OW * (-(-O // RUN))
@@ -179,10 +192,11 @@ def address_align(ptr: int) -> int:
 
 
 def _out_hw(H: int, W: int, KH: int, KW: int, stride: Sequence[int],
-            padding: Padding) -> Tuple[int, int]:
+            padding: Padding, dilation: Sequence[int] = (1, 1)
+            ) -> Tuple[int, int]:
     (pt, pb), (pl, pr) = padding
-    return ((H + pt + pb - KH) // stride[0] + 1,
-            (W + pl + pr - KW) // stride[1] + 1)
+    return ((H + pt + pb - (KH - 1) * dilation[0] - 1) // stride[0] + 1,
+            (W + pl + pr - (KW - 1) * dilation[1] - 1) // stride[1] + 1)
 
 
 # --------------------------------------------------------------------------
@@ -192,28 +206,44 @@ def qconv_grouped_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
                                      mult: torch.Tensor,
                                      bias: Optional[torch.Tensor] = None, *,
                                      stride: Sequence[int] = (1, 1),
-                                     padding: Padding = ((0, 0), (0, 0))
+                                     padding: Padding = ((0, 0), (0, 0)),
+                                     dilation: Sequence[int] = (1, 1),
+                                     pad_value: int = 0, y_zp: int = 0,
+                                     out_dtype: torch.dtype = torch.int8
                                      ) -> torch.Tensor:
-    """x int8 [B,C,H,W], w int8 [O,C/group,KH,KW], mult f32 [O] or scalar,
-    bias int32 [O] -> int8 [B,O,OH,OW]. The sums are taken in float64,
-    where every partial sum of int8 products is an exact integer, so the
-    int32 result equals the kernel's whatever the order."""
-    group = conv_groups(x.shape, w.shape)
-    (pt, pb), (pl, pr) = padding
-    xd = F.pad(x.to(torch.float64), (pl, pr, pt, pb))
-    with torch.backends.cudnn.flags(enabled=False):
-        acc = F.conv2d(xd, w.to(torch.float64), stride=tuple(stride),
-                       groups=group)
-    return _requant(acc.to(torch.int32), mult, bias, channel_dim=1)
+    """x int8 or uint8 [B,C,H,W], w int8 [O,C/group,KH,KW], mult f32 [O]
+    or scalar, bias int32 [O] -> out_dtype [B,O,OH,OW]. The sums are taken
+    in float64 (`conv_sums_plain`, padding taps holding pad_value), where
+    every partial sum of 8-bit products is an exact integer, so the int32
+    result equals the kernel's whatever the order."""
+    acc = conv_sums_plain(x, w, stride, padding, dilation, pad_value,
+                          groups=conv_groups(x.shape, w.shape))
+    return _requant(acc, mult, bias, channel_dim=1, y_zp=y_zp,
+                    out_dtype=out_dtype)
+
+
+def qconv_grouped_int8_plain(x: torch.Tensor, w: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None, *,
+                             stride: Sequence[int] = (1, 1),
+                             padding: Padding = ((0, 0), (0, 0)),
+                             dilation: Sequence[int] = (1, 1),
+                             pad_value: int = 0) -> torch.Tensor:
+    """The int32 output's function: the exact sums (+ bias) -> int32
+    [B,O,OH,OW]."""
+    acc = conv_sums_plain(x, w, stride, padding, dilation, pad_value,
+                          groups=conv_groups(x.shape, w.shape))
+    if bias is not None:
+        acc = acc + bias.to(torch.int32).reshape(1, -1, 1, 1)
+    return acc
 
 
 # --------------------------------------------------------------------------
 # the kernel
 # --------------------------------------------------------------------------
 def _lib_fn():
-    fn = _build.load("qconv_grouped_int8").qconv_grouped_int8_requant_launch
+    fn = _build.load("qconv_grouped_int8").qconv_grouped_int8_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 21
                        + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
@@ -232,29 +262,60 @@ def qconv_grouped_int8_requant(x: torch.Tensor, w: torch.Tensor,
                                bias: Optional[torch.Tensor] = None, *,
                                stride: Sequence[int] = (1, 1),
                                padding: Padding = ((0, 0), (0, 0)),
+                               dilation: Sequence[int] = (1, 1),
+                               pad_value: int = 0, y_zp: int = 0,
+                               out_dtype: torch.dtype = torch.int8,
                                packed: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
-    """Symmetric grouped int8 QLinearConv: x int8 [B,C,H,W], w int8
+    """Grouped QLinearConv: x int8 or uint8 [B,C,H,W], w int8
     [O,C/group,KH,KW], mult f32 [O] or scalar (x_s * w_s / y_s), bias int32
-    [O] or None, padding ((top, bottom), (left, right)) -> int8
-    [B,O,OH,OW].
+    [O] or None, padding ((top, bottom), (left, right)) whose taps hold
+    pad_value (x's zero point), y_zp in out_dtype (int8 or uint8) ->
+    out_dtype [B,O,OH,OW].
 
     On the card `packed` must be `pack_qconv_grouped_weight(w)`, made once
     per weight, and the result is channels-last (see the module note); the
     kernel runs in the form `grouped_plan` gives, counted in `.schedules`."""
     if x.device.type == "cpu":
-        return qconv_grouped_int8_requant_plain(x, w, mult, bias,
-                                                stride=stride,
-                                                padding=padding)
-    y, form = _launch(x, w, mult, bias, stride, padding, packed)
-    qconv_grouped_int8_requant.launches += 1
-    qconv_grouped_int8_requant.schedules[form] += 1
+        check_qtype("qconv_grouped_int8_requant", out_dtype, y_zp)
+        return qconv_grouped_int8_requant_plain(
+            x, w, mult, bias, stride=stride, padding=padding,
+            dilation=dilation, pad_value=pad_value, y_zp=y_zp,
+            out_dtype=out_dtype)
+    return _count(*_launch(x, w, mult, bias, stride, padding, packed,
+                           dilation, pad_value, y_zp, out_dtype))
+
+
+def qconv_grouped_int8(x: torch.Tensor, w: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, *,
+                       stride: Sequence[int] = (1, 1),
+                       padding: Padding = ((0, 0), (0, 0)),
+                       dilation: Sequence[int] = (1, 1), pad_value: int = 0,
+                       packed: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The exact int32 sums (+ bias) of a grouped conv -> int32 [B,O,OH,OW],
+    on the general form; counted on `qconv_grouped_int8_requant`."""
+    if x.device.type == "cpu":
+        return qconv_grouped_int8_plain(x, w, bias, stride=stride,
+                                        padding=padding, dilation=dilation,
+                                        pad_value=pad_value)
+    return _count(*_launch(x, w, None, bias, stride, padding, packed,
+                           dilation, pad_value, 0, torch.int32))
+
+
+def _count(y, form, flags):
+    w_ = qconv_grouped_int8_requant
+    w_.launches += 1
+    w_.schedules[form] += 1
+    count_forms(w_.forms, **flags)
     return y
 
 
-def _launch(x, w, mult, bias, stride, padding, packed):
+def _launch(x, w, mult, bias, stride, padding, packed, dilation=(1, 1),
+            pad_value=0, y_zp=0, out_dtype=torch.int8):
     """Check the operands and launch the kernel once on the card, in the
-    form `grouped_plan` gives. Counts nothing. -> (y, the form)."""
+    form `grouped_plan` gives; out_dtype torch.int32 is the int32 output.
+    Counts nothing. -> (y, the form, the QOperator forms it took)."""
     fn = "qconv_grouped_int8_requant"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {x.device}")
@@ -268,27 +329,36 @@ def _launch(x, w, mult, bias, stride, padding, packed):
     if min(pt, pb, pl, pr) < 0:
         raise ValueError(f"{fn}: negative padding {padding}")
     sh, sw = (int(s) for s in stride)
-    OH, OW = _out_hw(H, W, KH, KW, (sh, sw), padding)
+    dh, dw = (int(d) for d in dilation)
+    OH, OW = _out_hw(H, W, KH, KW, (sh, sw), padding, (dh, dw))
     if packed is None:
         raise ValueError(f"{fn}: on the card the weight must be pre-packed "
                          f"(pack_qconv_grouped_weight)")
     dev = x.device
-    if x.dtype != torch.int8:
-        raise ValueError(f"{fn}: x wants torch.int8, got {x.dtype}")
+    if x.dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"{fn}: x wants torch.int8 or torch.uint8, got "
+                         f"{x.dtype}")
+    info = torch.iinfo(x.dtype)
+    if not info.min <= pad_value <= info.max:
+        raise ValueError(f"{fn}: pad_value {pad_value} outside {x.dtype}")
     check_operand(fn, "packed", packed, torch.int8, dev)
     if tuple(packed.shape) != (KH * KW * Cg, -(-O // RUN) * RUN):
         raise ValueError(f"{fn}: packed weight {tuple(packed.shape)} is not "
                          f"pack_qconv_grouped_weight's layout of w "
                          f"{tuple(w.shape)}")
-    mult = mult_vector(mult, O)
-    check_operand(fn, "mult", mult, torch.float32, dev, O)
+    int32 = out_dtype == torch.int32
+    if not int32:
+        mult = mult_vector(mult, O)
+        check_operand(fn, "mult", mult, torch.float32, dev, O)
+        check_qtype(fn, out_dtype, y_zp)
     check_operand(fn, "bias", bias, torch.int32, dev, O)
-    dims = (B, H, W, C, OH, OW, O, Cg, KH, KW, sh, sw, pt, pl)
-    if (min(dims[:12]) <= 0 or max(dims) >= 2 ** 31
-            or Cg * KH * KW > MAX_TAPS or B * OH * OW >= 2 ** 40):
+    dims = (B, H, W, C, OH, OW, O, Cg, KH, KW, sh, sw, pt, pl, dh, dw)
+    if (min(dims[:12] + dims[14:]) <= 0 or max(dims) >= 2 ** 31
+            or Cg * KH * KW > MAX_TAPS // (2 if x.dtype == torch.uint8 else 1)
+            or B * OH * OW >= 2 ** 40):
         raise ValueError(f"{fn}: dims out of range {dims}")
     plan = grouped_plan(x.shape, w.shape, (sh, sw), padding,
-                        input_align(x))
+                        input_align(x), (dh, dw), int32)
     xl = x.permute(0, 2, 3, 1)
     if not xl.is_contiguous():
         xl = xl.contiguous()
@@ -296,18 +366,26 @@ def _launch(x, w, mult, bias, stride, padding, packed):
     if plan["form"] == "tile":
         args = tile_args(plan)
         tile = (ctypes.c_int * len(args))(*args)
-    y = torch.empty((B * OH * OW, O), dtype=torch.int8, device=dev)
+    y = torch.empty((B * OH * OW, O), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         err = _lib_fn()(
-            xl.data_ptr(), packed.data_ptr(), mult.data_ptr(),
+            xl.data_ptr(), packed.data_ptr(),
+            mult.data_ptr() if mult is not None else None,
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            *dims, ctypes.addressof(tile) if tile is not None else None,
+            *dims, int(x.dtype == torch.uint8), pad_value, y_zp,
+            int(out_dtype == torch.uint8), int(int32),
+            ctypes.addressof(tile) if tile is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch in the {plan['form']} form failed "
                            f"with cudaError {err}")
-    return y.view(B, OH, OW, O).permute(0, 3, 1, 2), plan["form"]
+    flags = dict(uint8_x=x.dtype == torch.uint8,
+                 zero_point_pad=pad_value != 0 and any((pt, pb, pl, pr)),
+                 y_zero_point=y_zp != 0, uint8_y=out_dtype == torch.uint8,
+                 dilated=(dh, dw) != (1, 1), int32=int32)
+    return y.view(B, OH, OW, O).permute(0, 3, 1, 2), plan["form"], flags
 
 
 qconv_grouped_int8_requant.launches = 0
 qconv_grouped_int8_requant.schedules = dict.fromkeys(FORMS, 0)
+qconv_grouped_int8_requant.forms = dict.fromkeys(QFORMS, 0)

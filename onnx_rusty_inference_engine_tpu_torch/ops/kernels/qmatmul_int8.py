@@ -8,8 +8,9 @@ Hopper counterpart of the TPU kernels
 the int8 tensor-core mainloop of `csrc/int8_wgmma.cuh` (wgmma fed by TMA
 through a ring of shared-memory slots), with two epilogues: `qmatmul_int8`
 returns the exact int32 product, `qmatmul_int8_requant` adds the int32 bias,
-multiplies by the f32 multiplier, rounds half to even and saturates, so
-that only int8 leaves the kernel. The source notes say what bounds the
+multiplies by the f32 multiplier, rounds half to even, adds the output zero
+point and saturates to the output type (int8 or uint8), so that only that
+type leaves the kernel. The source notes say what bounds the
 kernel on the H100 and what the design does about that.
 
 `int8_tile` picks the tile and the ring depth from the shape, in Python,
@@ -29,7 +30,8 @@ the 2-D product and back.
 Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch
 version (`*_plain`), and launches the kernel for a tensor on the card, or
 raises. `qmatmul_int8.launches` counts the kernel's launches through every
-wrapper, `qmatmul_int8.epilogues` counts them per epilogue.
+wrapper, `qmatmul_int8.epilogues` counts them per epilogue, `.forms` those
+with an output zero point (`y_zero_point`) or a uint8 output (`uint8_y`).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from . import _build
 __all__ = ["qmatmul_int8", "qmatmul_int8_plain", "qmatmul_int8_requant",
            "qmatmul_int8_requant_plain", "pack_qmatmul_weight", "int8_tile",
            "Int8Tile", "EPILOGUES", "K_ALIGN", "MAX_K",
-           "matmul_integer_int8", "as_int8", "colsum_key"]
+           "matmul_integer_int8", "as_int8", "colsum_key", "folded_bias_key",
+           "ones_key", "QTYPES", "FORMS"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -55,6 +58,12 @@ MAX_K = (2 ** 31 - 1) // (128 * 128)
 
 # epilogue name -> the id the C entry point takes
 EPILOGUES = {"int32": 0, "requant": 1}
+
+# the requant epilogue's output types
+QTYPES = (torch.int8, torch.uint8)
+
+# the forms `.forms` counts (a launch may be of several)
+FORMS = ("y_zero_point", "uint8_y")
 
 # the kernel's tile (csrc/int8_wgmma.cuh): BN is one wgmma N, BM 64 rows per
 # consumer warpgroup, each ring slot 128 K bytes of both operands
@@ -153,9 +162,25 @@ def as_int8(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def colsum_key(name: str) -> str:
+def folded_bias_key(node_output: str) -> str:
     """The key under which `weights.prepack_int8_weights` keeps a
-    MatMulInteger weight's int32 column sums."""
+    QLinearConv's or QLinearMatMul's int32 bias with its input zero point
+    folded in (bias - zx * `colsum_key`'s sums)."""
+    return f"{node_output}::bias"
+
+
+def ones_key(name: str) -> str:
+    """The key under which `weights.prepack_int8_weights` keeps the packed
+    all-ones weight (one output per group) whose sums, the window sums of x,
+    a conv weight's zero point multiplies."""
+    return f"{name}::ones"
+
+
+def colsum_key(name: str) -> str:
+    """The key under which `weights.prepack_int8_weights` keeps the int32
+    sums of an int8 weight (of its `as_int8` form) over its contraction
+    axis, one per output: a [K, N] matrix's column sums, a conv weight's
+    sums per output channel. The zero-point corrections read them."""
     return f"{name}::colsum"
 
 
@@ -170,9 +195,12 @@ def qmatmul_int8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _requant(acc: torch.Tensor, mult: torch.Tensor,
-             bias: Optional[torch.Tensor], channel_dim: int) -> torch.Tensor:
-    """`_mm_requant_kernel`'s epilogue: (acc + bias) as f32, * mult, round
-    half to even, saturate to int8. mult / bias run along `channel_dim`."""
+             bias: Optional[torch.Tensor], channel_dim: int, y_zp: int = 0,
+             out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """`_mm_requant_kernel`'s epilogue with ONNX's output zero point, in the
+    JAX emitter's `_requant` order: (acc + bias) as f32, * mult, round half
+    to even, + y_zp, saturate to `out_dtype` (int8 or uint8). mult / bias
+    run along `channel_dim`."""
     shape = [1] * acc.dim()
     shape[channel_dim] = -1
     if bias is not None:
@@ -181,16 +209,23 @@ def _requant(acc: torch.Tensor, mult: torch.Tensor,
     if mult.numel() > 1:
         mult = mult.reshape(shape)
     y = torch.round(acc.to(torch.float32) * mult)
-    return y.clamp(-128, 127).to(torch.int8)
+    if y_zp:
+        y = y + float(y_zp)
+    info = torch.iinfo(out_dtype)
+    return y.clamp(info.min, info.max).to(out_dtype)
 
 
 def qmatmul_int8_requant_plain(a: torch.Tensor, b: torch.Tensor,
                                mult: torch.Tensor,
-                               bias: Optional[torch.Tensor] = None
+                               bias: Optional[torch.Tensor] = None, *,
+                               y_zp: int = 0,
+                               out_dtype: torch.dtype = torch.int8
                                ) -> torch.Tensor:
-    """int8 [M,K] @ int8 [K,N] (+ bias) * mult -> int8 [M,N]."""
+    """int8 [M,K] @ int8 [K,N] (+ bias) * mult (+ y_zp) -> out_dtype
+    [M,N]."""
     acc = (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
-    return _requant(acc, mult, bias, channel_dim=-1)
+    return _requant(acc, mult, bias, channel_dim=-1, y_zp=y_zp,
+                    out_dtype=out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -199,7 +234,7 @@ def qmatmul_int8_requant_plain(a: torch.Tensor, b: torch.Tensor,
 def _lib_fn():
     fn = _build.load("qmatmul_int8").qmatmul_int8_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -229,10 +264,28 @@ def mult_vector(mult: torch.Tensor, n: int) -> torch.Tensor:
     return mult.contiguous()
 
 
+def check_qtype(fn: str, out_dtype: torch.dtype, y_zp: int) -> None:
+    """Raise unless out_dtype is int8 or uint8 and y_zp lies in its range."""
+    if out_dtype not in QTYPES:
+        raise ValueError(f"{fn}: out_dtype {out_dtype} (the requant "
+                         f"epilogue gives int8 or uint8)")
+    info = torch.iinfo(out_dtype)
+    if not info.min <= y_zp <= info.max:
+        raise ValueError(f"{fn}: y_zp {y_zp} outside {out_dtype}")
+
+
+def count_forms(counter: dict, **on: bool) -> None:
+    """Add one to each of `counter`'s forms that is on for a launch."""
+    for form, flag in on.items():
+        if flag:
+            counter[form] += 1
+
+
 def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
             packed: Optional[torch.Tensor], epilogue: str,
             mult: Optional[torch.Tensor] = None,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+            bias: Optional[torch.Tensor] = None, y_zp: int = 0,
+            out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """Check the operands, launch one epilogue of the kernel on the tile
     `int8_tile` picks, and count the launch."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -258,8 +311,9 @@ def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
         mult = mult_vector(mult, N)
         check_operand(fn, "mult", mult, torch.float32, dev, N)
         check_operand(fn, "bias", bias, torch.int32, dev, N)
+        check_qtype(fn, out_dtype, y_zp)
     out = torch.empty((M, N), device=dev, dtype=(
-        torch.int32 if epilogue == "int32" else torch.int8))
+        torch.int32 if epilogue == "int32" else out_dtype))
     if M == 0 or N == 0:
         return out  # nothing to launch
     if Kp != K or a.data_ptr() % 16:  # TMA's rows: 16-byte stride and base
@@ -272,13 +326,16 @@ def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), packed.data_ptr(), out.data_ptr(),
             mult.data_ptr() if mult is not None else None,
             bias.data_ptr() if bias is not None else None, M, N, Kp,
-            EPILOGUES[epilogue], *tile,
+            EPILOGUES[epilogue], y_zp, int(out_dtype == torch.uint8), *tile,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch with the {epilogue} epilogue on "
                            f"{tile} failed with cudaError {err}")
     qmatmul_int8.launches += 1
     qmatmul_int8.epilogues[epilogue] += 1
+    if epilogue == "requant":
+        count_forms(qmatmul_int8.forms, y_zero_point=y_zp != 0,
+                    uint8_y=out_dtype == torch.uint8)
     return out
 
 
@@ -297,6 +354,7 @@ def qmatmul_int8(a: torch.Tensor, b: torch.Tensor, *,
 
 qmatmul_int8.launches = 0
 qmatmul_int8.epilogues = dict.fromkeys(EPILOGUES, 0)
+qmatmul_int8.forms = dict.fromkeys(FORMS, 0)
 
 
 def matmul_integer_int8(a: torch.Tensor, b: torch.Tensor, *,
@@ -317,16 +375,20 @@ def matmul_integer_int8(a: torch.Tensor, b: torch.Tensor, *,
 
 def qmatmul_int8_requant(a: torch.Tensor, b: torch.Tensor, mult: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, *,
+                         y_zp: int = 0, out_dtype: torch.dtype = torch.int8,
                          packed: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """int8 [M,K] @ int8 [K,N] + bias, * mult -> int8 [M,N]: the TPU
-    kernel's signature, mult f32 [N] or scalar, bias int32 [N] or None.
+    """int8 [M,K] @ int8 [K,N] + bias, * mult, + y_zp -> out_dtype (int8 or
+    uint8) [M,N]: the TPU kernel's signature with ONNX's output zero point,
+    mult f32 [N] or scalar, bias int32 [N] or None.
 
     On the card `packed` must be `pack_qmatmul_weight(b)`; the launch is
     counted on `qmatmul_int8` (the same kernel, requant epilogue)."""
     if a.device.type == "cpu":
-        return qmatmul_int8_requant_plain(a, b, mult, bias)
+        check_qtype("qmatmul_int8_requant", out_dtype, y_zp)
+        return qmatmul_int8_requant_plain(a, b, mult, bias, y_zp=y_zp,
+                                          out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"qmatmul_int8_requant: no kernel for {a.device}")
     return _launch("qmatmul_int8_requant", a, b, packed, "requant", mult,
-                   bias)
+                   bias, y_zp, out_dtype)

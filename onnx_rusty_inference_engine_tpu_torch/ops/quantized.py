@@ -1,6 +1,7 @@
 """Quantized ONNX op emitters: QuantizeLinear / DequantizeLinear /
-QLinearConv / QLinearMatMul / QLinearAdd / QLinearMul / MatMulNBits /
-MatMulInteger / DynamicQuantizeLinear.
+QLinearConv / ConvInteger / QLinearMatMul / QGemm / MatMulNBits /
+MatMulInteger / DynamicQuantizeLinear, and ONNX Runtime's QLinear contrib
+ops.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/quantized.py
 for the INT8 CNN (SqueezeNet, ResNet-50, MobileNetV2), BERT and ViT paths
@@ -8,23 +9,32 @@ and the INT4 decode paths.
 Requant math (ONNX QLinear convention): y = saturate(round(acc * (x_s *
 w_s / y_s)) + y_zp), rounding half to even.
 
-QLinearConv runs on the hand-written kernels in the cases the quantizer
-emits: 2-D, no dilation, int8 operands, and all three zero points
-statically 0; group 1 on the implicit-GEMM kernel (ops/kernels/
-qconv_int8.py), group > 1 (MobileNetV2's depthwise convs) on the direct
-grouped kernel (ops/kernels/qconv_grouped_int8.py). QLinearMatMul runs
-its int8 x int8 -> product on the kernel of ops/kernels/qmatmul_int8.py for
-int8 operands, a 2-D b, an a of any rank and both input zero points
-statically 0. Where y_zero_point is statically 0 too (the quantizer's
-form), the kernel's requant epilogue adds the bias and requantizes, and
-only int8 leaves it; otherwise it returns int32 and the bias add and the
-requant run in PyTorch, in the JAX emitter's order. Both give the JAX emitter's values bit
-for bit. Every other QLinearConv or QLinearMatMul raises UnsupportedOpError
-naming the case, on the CPU as on the card, so both devices run the same
-function.
+Every form of ONNX Runtime's QOperator files runs on the hand-written
+kernels: int8 or uint8 activations with zero points, int8 or uint8 weights
+(zero point per tensor or per channel), int8 or uint8 outputs with zero
+points. QLinearConv (1-D and 2-D, any stride, padding and dilation) and
+ConvInteger run group 1 on the implicit-GEMM kernel (ops/kernels/
+qconv_int8.py; a uint8 x on its uint8-A build) and group > 1 on the grouped
+kernel (ops/kernels/qconv_grouped_int8.py): the x zero point is the
+padding's value and, as -zx * sum w, part of the int32 bias; the epilogue
+adds the y zero point and saturates to y's type. A weight zero point needs
+the window sums of x: the int32 output of the same kernel on the weight and
+on an all-ones weight, corrected and requantized in PyTorch in the JAX
+emitter's order. QLinearMatMul (an a of any rank, a 2-D or batched b) and
+QGemm run on ops/kernels/qmatmul_int8.py: uint8 operands shifted into int8
+(`as_int8`), a's zero point folded into the bias as -za * colsum(b), y's in
+the requant epilogue; a b zero point takes the int32 epilogue and
+MatMulInteger's corrections. Every result but QGemm's quantized form (at
+most 1 LSB: its multiplier folds alpha and y_s) is the JAX emitter's value
+bit for bit, and for a uint8 output the ONNX spec's (the JAX emitter
+saturates every output to int8). Only a 3-D conv raises
+UnsupportedOpError, on the CPU as on the card, so both devices run the
+same function.
 
-QLinearAdd and QLinearMul (the quantizer's residual adds) dequantize,
-combine and requantize elementwise in PyTorch, as the JAX emitter does.
+QLinearAdd, QLinearMul (the quantizer's residual adds), QLinearSigmoid,
+QLinearLeakyRelu, QLinearGlobalAveragePool, QLinearAveragePool and
+QLinearConcat dequantize, compute and requantize elementwise in PyTorch,
+in the input's type, as the JAX emitters do.
 
 MatMulInteger (the dynamic W8A8 rewrite's contraction, quant.
 quantize_matmuls_w8a8, and ORT's quantize_dynamic form) runs its int8 x
@@ -54,15 +64,19 @@ import numpy as np
 import torch
 
 from ..graph import Node
-from .kernels.qconv_grouped_int8 import qconv_grouped_int8_requant
-from .kernels.qconv_int8 import qconv_int8_requant
+from .kernels.qconv_grouped_int8 import (pack_qconv_grouped_weight,
+                                         qconv_grouped_int8,
+                                         qconv_grouped_int8_requant)
+from .kernels.qconv_int8 import (pack_qconv_weight, qconv_int8,
+                                 qconv_int8_requant)
 from .kernels.qmatmul_int4 import (interleaved_layout, qmatmul_int4_bf16,
                                    qmatmul_int4_planar)
-from .kernels.qmatmul_int8 import (as_int8, colsum_key, matmul_integer_int8,
-                                   pack_qmatmul_weight, qmatmul_int8,
-                                   qmatmul_int8_requant)
+from .kernels.qmatmul_int8 import (QTYPES, _requant, as_int8, colsum_key,
+                                   folded_bias_key, matmul_integer_int8,
+                                   ones_key, pack_qmatmul_weight,
+                                   qmatmul_int8, qmatmul_int8_requant)
 from .registry import LoweringContext, UnsupportedOpError, register
-from .standard import _conv_padding, promote
+from .standard import _conv_padding, average_pool, promote
 
 
 def _per_axis(t: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
@@ -111,109 +125,342 @@ def dequantize_linear(ctx: LoweringContext, node: Node, ins):
 
 
 # --------------------------------------------------------------------------
-# QLinearConv
+# zero points
 # --------------------------------------------------------------------------
-def _static_zp_is_zero(ctx: LoweringContext, name: str) -> bool:
-    v = ctx.constant(name) if name else None
-    return v is not None and not np.any(v)
+def _shift(dtype: torch.dtype) -> int:
+    """What `as_int8` subtracts from a tensor of this dtype."""
+    return 128 if dtype == torch.uint8 else 0
 
 
-def _unsupported_qconv(ctx: LoweringContext, node: Node, x, w, spatial,
-                       dilations, group) -> Optional[str]:
-    """Why the kernel cannot run this QLinearConv, or None."""
-    if spatial != 2:
-        return f"{spatial}-D spatial (the kernel is 2-D)"
+def _zero_point(ctx: LoweringContext, node: Node, idx: int, what: str,
+                t: Optional[torch.Tensor], per_tensor: bool = True):
+    """Input idx's zero point as the kernels take it, less `_shift` of the
+    operand `t` it belongs to: a Python int (per_tensor), else an int64
+    numpy array of 1 or N values. Absent: 0 less the shift. The kernels'
+    padding and epilogues take it on the host, so it must be known before
+    the run: a zero point computed at run time raises."""
+    name = node.inputs[idx] if len(node.inputs) > idx else ""
+    shift = _shift(t.dtype) if t is not None else 0
+    if not name:
+        return -shift if per_tensor else np.asarray([-shift], np.int64)
+    v = ctx.constant(name)
+    if v is None:
+        raise UnsupportedOpError(
+            f"{node.op_type} {node.name or node.outputs[0]!r}: "
+            f"{what}_zero_point {name!r} is computed at run time (the "
+            f"kernels take a constant zero point)")
+    v = np.asarray(v).astype(np.int64).reshape(-1) - shift
+    if per_tensor:
+        if v.size != 1:
+            raise UnsupportedOpError(
+                f"{node.op_type} {node.name or node.outputs[0]!r}: "
+                f"{what}_zero_point has {v.size} values (ONNX gives one)")
+        return int(v[0])
+    return v
+
+
+def _out_dtype(y_zp: Optional[torch.Tensor], like: torch.Tensor):
+    """ONNX: the output takes y_zero_point's type (the input's where there
+    is none)."""
+    return y_zp.dtype if y_zp is not None else like.dtype
+
+
+def _zp_tensor(t: Optional[torch.Tensor], operand: torch.Tensor):
+    """A zero point input on the device less `_shift` of its operand, as
+    int32 (a Python int where the input is absent). Made from the input
+    tensor, which the engine placed on the device before the run: a
+    capture takes no host copy."""
+    shift = _shift(operand.dtype)
+    if t is None:
+        return -shift
+    return t.to(torch.int32).reshape(-1) - shift
+
+
+# --------------------------------------------------------------------------
+# QLinearConv / ConvInteger
+# --------------------------------------------------------------------------
+def _unsupported_qconv(x, w, spatial, group) -> Optional[str]:
+    """Why the kernels cannot run this conv, or None."""
+    if spatial not in (1, 2):
+        return (f"{spatial}-D spatial (ROADMAP 1.4: the kernels take 1-D "
+                f"and 2-D convs)")
     if group < 1 or x.shape[1] != w.shape[1] * group \
             or w.shape[0] % group:
         return (f"group={group} with x {tuple(x.shape)} and w "
                 f"{tuple(w.shape)} (channels do not split into the groups)")
-    if any(d != 1 for d in dilations):
-        return f"dilations={dilations} (dilated convs are not ported)"
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        return f"{x.dtype} x {w.dtype} operands (the kernel takes int8)"
-    for idx, what in ((2, "x"), (5, "w"), (7, "y")):
-        if not _static_zp_is_zero(ctx, node.inputs[idx]):
-            return (f"{what}_zero_point is not a constant 0 (asymmetric "
-                    f"quantization is not ported)")
+    if x.dtype not in QTYPES or w.dtype not in QTYPES:
+        return f"{x.dtype} x {w.dtype} operands (ONNX gives int8 or uint8)"
     return None
+
+
+class _Conv:
+    """One QLinearConv or ConvInteger as the kernels take it: 1-D convs as
+    H = 1, the weight as int8 (`as_int8`) with its zero point shifted to
+    match, the packed weights from the Engine (or packed per call on the
+    card for a weight computed at run time)."""
+
+    def __init__(self, ctx: LoweringContext, node: Node, ins, w_in: int,
+                 zx_in: int, zw_in: int):
+        x, w = ins[0], ins[w_in]
+        name = node.name or node.outputs[0]
+        spatial = x.dim() - 2
+        self.group = int(node.attr("group", 1))
+        why = _unsupported_qconv(x, w, spatial, self.group)
+        if why is not None:
+            raise UnsupportedOpError(f"{node.op_type} {name!r}: {why}")
+        kernel = node.attr("kernel_shape", list(w.shape[2:]))
+        strides = [int(s) for s in node.attr("strides", [1] * spatial)]
+        dilations = [int(d) for d in node.attr("dilations", [1] * spatial)]
+        padding = _conv_padding(node, x.shape[2:], kernel, strides,
+                                dilations)
+        self.flat = spatial == 1
+        if self.flat:  # a 1-D conv as a 2-D one of height 1
+            x, w = x.unsqueeze(2), w.unsqueeze(2)
+            strides, dilations = [1] + strides, [1] + dilations
+            padding = [(0, 0)] + list(padding)
+        self.x, self.geom = x, dict(stride=strides, padding=padding,
+                                    dilation=dilations)
+        self.zx = _zero_point(ctx, node, zx_in, "x", None)
+        self.zw = _zero_point(ctx, node, zw_in, "w", w, per_tensor=False)
+        self.zw_t = _zp_tensor(ins[zw_in] if len(ins) > zw_in else None, w)
+        self.wname = node.inputs[w_in]
+        self.packed = ctx.packed.get(self.wname)
+        self.ctx = ctx
+        self.w = w
+        if self.packed is None and x.device.type == "cuda":
+            # a weight computed at run time: laid out for the kernel per call
+            self.packed = _pack_conv(as_int8(w), self.group)
+        # the plain versions read the int8 values; the kernel, the layout
+        self.wk = as_int8(w) if x.device.type == "cpu" else w
+
+    def wsum(self) -> torch.Tensor:
+        """The int8 weight's sums per output channel (int32 [O])."""
+        s = self.ctx.packed.get(colsum_key(self.wname))
+        if s is None:
+            s = as_int8(self.w).sum(dim=(1, 2, 3), dtype=torch.int32)
+        return s
+
+    def out(self, y: torch.Tensor) -> torch.Tensor:
+        return y.squeeze(2) if self.flat else y
+
+    def sums(self) -> torch.Tensor:
+        """The exact int32 sum_window (x - zx) * (w - zw) [B, O, OH, OW],
+        padding taps holding zx: the kernel's int32 epilogue on x and w,
+        then -zx * sum w, and where w has a zero point, -zw * sum_window x
+        (the window sums of an all-ones weight, one per group, by the same
+        kernel) + taps * zx * zw."""
+        x, wk, zx, g = self.x, self.wk, self.zx, self.group
+        if g == 1:
+            acc = qconv_int8(x, wk, **self.geom, pad_value=zx,
+                             packed=self.packed)
+        else:
+            acc = qconv_grouped_int8(x, wk, None, **self.geom, pad_value=zx,
+                                     packed=self.packed)
+        if zx:
+            acc = acc - zx * self.wsum().reshape(1, -1, 1, 1)
+        if np.any(self.zw):
+            O, Cg, KH, KW = self.w.shape
+            ones = torch.ones((g, Cg, KH, KW), dtype=torch.int8,
+                              device=x.device)
+            packed = self.ctx.packed.get(ones_key(self.wname))
+            if packed is None and x.device.type == "cuda":
+                packed = _pack_conv(ones, g)
+            conv = qconv_int8 if g == 1 else qconv_grouped_int8
+            extra = {} if g == 1 else {"bias": None}
+            xsum = conv(x, ones, **extra, **self.geom, pad_value=zx,
+                        packed=packed)
+            xsum = xsum.repeat_interleave(O // g, dim=1)
+            zw = self.zw_t
+            if isinstance(zw, torch.Tensor):
+                zw = zw.reshape(1, -1, 1, 1)
+            acc = acc - zw * xsum + (Cg * KH * KW * zx) * zw
+        return acc
+
+
+def _pack_conv(w: torch.Tensor, group: int) -> torch.Tensor:
+    """An int8 conv weight [O, C/group, KH, KW] in its kernel's layout."""
+    return (pack_qconv_weight if group == 1 else pack_qconv_grouped_weight)(w)
 
 
 @register("QLinearConv")
 def qlinear_conv(ctx: LoweringContext, node: Node, ins):
+    """ONNX QLinearConv in every QOperator form: int8 or uint8 x and y with
+    zero points, int8 or uint8 w with a zero point per tensor or per
+    channel, any group, dilation, 1-D and 2-D. Where w's zero point is 0
+    (ONNX Runtime's symmetric weights) it is one launch: x's zero point is
+    the pad value and, as -zx * sum w, part of the int32 bias; the epilogue
+    adds y's zero point and saturates to y's type. Otherwise the int32
+    sums (`_Conv.sums`) get the bias and the JAX emitter's requant in
+    PyTorch."""
     (x, x_s, x_zp, w, w_s, w_zp, y_s, y_zp) = ins[:8]
     bias = ins[8] if len(ins) > 8 else None
-    spatial = x.dim() - 2
-    kernel = node.attr("kernel_shape", list(w.shape[2:]))
-    strides = [int(s) for s in node.attr("strides", [1] * spatial)]
-    dilations = [int(d) for d in node.attr("dilations", [1] * spatial)]
-    group = int(node.attr("group", 1))
-    why = _unsupported_qconv(ctx, node, x, w, spatial, dilations, group)
-    if why is not None:
-        raise UnsupportedOpError(
-            f"QLinearConv {node.name or node.outputs[0]!r}: {why}")
-    padding = _conv_padding(node, x.shape[2:], kernel, strides, dilations)
+    c = _Conv(ctx, node, ins, 3, 2, 5)
+    zy = _zero_point(ctx, node, 7, "y", None)
+    y_dtype = _out_dtype(y_zp, x)
     # the multiplier in fp32 and in the JAX emitter's order
     mult = (x_s.to(torch.float32) * w_s.to(torch.float32)
             / y_s.to(torch.float32))
-    conv = qconv_int8_requant if group == 1 else qconv_grouped_int8_requant
-    return (conv(x, w, mult, bias, stride=strides, padding=padding,
-                 packed=ctx.packed.get(node.inputs[3])),)
+    if np.any(c.zw):
+        return (c.out(_requant(c.sums(), mult, bias, channel_dim=1,
+                               y_zp=zy, out_dtype=y_dtype)),)
+    b = bias
+    if c.zx:
+        b = ctx.packed.get(folded_bias_key(node.outputs[0]))
+        if b is None:
+            b = -c.zx * c.wsum()
+            if bias is not None:
+                b = b + bias.to(torch.int32)
+    conv = qconv_int8_requant if c.group == 1 else qconv_grouped_int8_requant
+    return (c.out(conv(c.x, c.wk, mult, b, **c.geom, pad_value=c.zx,
+                       y_zp=zy, out_dtype=y_dtype, packed=c.packed)),)
+
+
+@register("ConvInteger")
+def conv_integer(ctx: LoweringContext, node: Node, ins):
+    """ONNX ConvInteger: the exact int32 sum_window (x - x_zp)(w - w_zp),
+    int8 or uint8 operands, w_zp per tensor or per output channel, any
+    group, 1-D and 2-D, on the conv kernels' int32 output."""
+    c = _Conv(ctx, node, ins, 1, 2, 3)
+    return (c.out(c.sums()),)
 
 
 # --------------------------------------------------------------------------
-# QLinearMatMul
+# QLinearMatMul / QGemm
 # --------------------------------------------------------------------------
-def _requant(acc: torch.Tensor, mult: torch.Tensor,
-             y_zp: Optional[torch.Tensor]) -> torch.Tensor:
-    """The JAX emitter's `_requant`: acc as f32 * mult, round half to even,
-    + y_zp, saturate to int8."""
-    y = torch.round(acc.to(torch.float32) * mult)
-    if y_zp is not None:
-        y = y + y_zp.to(torch.float32)
-    return y.clamp(-128, 127).to(torch.int8)
-
-
-def _unsupported_qmatmul(ctx: LoweringContext, node: Node, a,
-                         b) -> Optional[str]:
+def _unsupported_qmatmul(a, b) -> Optional[str]:
     """Why the kernel cannot run this QLinearMatMul, or None."""
-    if a.dtype != torch.int8 or b.dtype != torch.int8:
-        return f"{a.dtype} x {b.dtype} operands (the kernel takes int8)"
-    if b.dim() != 2:
-        return f"a {b.dim()}-D b (the kernel takes a 2-D weight)"
-    for idx, what in ((2, "a"), (5, "b")):
-        if not _static_zp_is_zero(ctx, node.inputs[idx]):
-            return (f"{what}_zero_point is not a constant 0 (asymmetric "
-                    f"quantization is not ported)")
+    if a.dtype not in QTYPES or b.dtype not in QTYPES:
+        return f"{a.dtype} x {b.dtype} operands (ONNX gives int8 or uint8)"
+    if b.dim() < 2 or a.dim() < 1 or a.shape[-1] != b.shape[-2] \
+            or (b.dim() > 2 and a.dim() < 2):
+        return f"a {tuple(a.shape)} @ b {tuple(b.shape)}"
     return None
+
+
+def _int8_product(ctx: LoweringContext, bname: Optional[str], ai, b, za,
+                  zb, zb_t, bias, mult, zy, y_dtype, packed):
+    """One 2-D b [K, N] (int8 or uint8) against ai = as_int8(a) [..., K],
+    a's zero point za and b's zb (numpy, 1 or N values; zb_t the same on
+    the device, `_zp_tensor`) already less their `_shift`s: requantized to y_dtype (int8 or uint8) with y's zero point
+    zy, or, where mult is None, the exact int32 (a - za)(b - zb) + bias.
+    Where b has no zero point, -za * colsum(b) joins the bias and the
+    kernel's requant epilogue does the rest; otherwise the int32 epilogue
+    and the corrections of MatMulInteger, then the JAX emitter's requant."""
+    K, N = b.shape
+    a2 = ai.reshape(-1, K).contiguous()
+    bi = as_int8(b) if packed is None or a2.device.type == "cpu" else b
+    if packed is None and a2.device.type == "cuda":
+        packed = pack_qmatmul_weight(bi)  # a weight computed at run time
+
+    def colsum():
+        s = ctx.packed.get(colsum_key(bname)) if bname else None
+        return s if s is not None else as_int8(b).sum(dim=0,
+                                                     dtype=torch.int32)
+
+    if bias is not None:
+        bias = bias.to(torch.int32)
+    if mult is not None and not np.any(zb) and mult.numel() in (1, N):
+        if za:
+            b_f = -za * colsum()
+            bias = b_f if bias is None else bias + b_f
+        y = qmatmul_int8_requant(a2, bi, mult, bias, y_zp=zy,
+                                 out_dtype=y_dtype, packed=packed)
+        return y.reshape(*ai.shape[:-1], N)
+    acc = qmatmul_int8(a2, bi, packed=packed)
+    if za:
+        acc = acc - za * colsum()
+    if np.any(zb):
+        acc = acc - zb_t * a2.sum(dim=-1, keepdim=True, dtype=torch.int32)
+        if za:
+            acc = acc + K * za * zb_t
+    if bias is not None:
+        acc = acc + bias
+    acc = acc.reshape(*ai.shape[:-1], N)
+    if mult is None:
+        return acc
+    return _requant(acc, mult, None, channel_dim=-1, y_zp=zy,
+                    out_dtype=y_dtype)
 
 
 @register("QLinearMatMul")
 def qlinear_matmul(ctx: LoweringContext, node: Node, ins):
+    """ONNX QLinearMatMul in every QOperator form: int8 or uint8 a, b and
+    y, zero points on all three (b's per tensor or per column), an a of any
+    rank, and a batched b (>= 3-D, one launch per batch entry). uint8
+    operands are shifted into int8 (`as_int8`) and the zero points moved
+    with them; see `_int8_product`."""
     (a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp) = ins[:8]
     bias = ins[8] if len(ins) > 8 else None
-    why = _unsupported_qmatmul(ctx, node, a, b)
+    why = _unsupported_qmatmul(a, b)
     if why is not None:
         raise UnsupportedOpError(
             f"QLinearMatMul {node.name or node.outputs[0]!r}: {why}")
-    K, N = b.shape
-    # the leading dims of a flattened: the product jnp.matmul computes
-    a2 = a.reshape(-1, K).contiguous()
-    packed = ctx.packed.get(node.inputs[3])
+    za = _zero_point(ctx, node, 2, "a", a)
+    zb = _zero_point(ctx, node, 5, "b", b, per_tensor=False)
+    zb_t = _zp_tensor(b_zp, b)
+    zy = _zero_point(ctx, node, 7, "y", None)
+    y_dtype = _out_dtype(y_zp, a)
     # in fp32 and in the JAX emitter's order, from tensors on the device (a
     # true division: a CPU scalar divisor becomes a reciprocal multiply on
     # the card); a 1-D b_s is per output column, broadcast over the last dim
     mult = (a_s.to(torch.float32) * b_s.to(torch.float32)
             / y_s.to(torch.float32))
-    if (_static_zp_is_zero(ctx, node.inputs[7]) and mult.numel() in (1, N)
-            and (bias is None or (bias.dtype == torch.int32
-                                  and bias.numel() == N))):
-        # the emitter's requant with y_zp = 0 is the kernel's epilogue
-        y = qmatmul_int8_requant(a2, b, mult, bias, packed=packed)
-        return (y.reshape(*a.shape[:-1], N),)
-    acc = qmatmul_int8(a2, b, packed=packed).reshape(*a.shape[:-1], N)
-    if bias is not None:
-        acc = acc + bias
-    return (_requant(acc, mult, y_zp),)
+    ai = as_int8(a)
+    bname = node.inputs[3]
+    if b.dim() == 2:
+        return (_int8_product(ctx, bname, ai, b, za, zb, zb_t, bias, mult,
+                              zy, y_dtype, ctx.packed.get(bname)),)
+    # a batched b: one product per batch entry of the broadcast batch dims
+    K, N = b.shape[-2:]
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    M = a.shape[-2]
+    ae = ai.expand(*batch, M, K).reshape(-1, M, K)
+    be = b.expand(*batch, K, N).reshape(-1, K, N)
+    out = torch.stack([_int8_product(ctx, None, ae[i], be[i], za, zb, zb_t,
+                                     bias, mult, zy, y_dtype, None)
+                       for i in range(ae.shape[0])])
+    return (out.reshape(*batch, M, N),)
+
+
+@register("QGemm", domain="com.microsoft")
+def qgemm(ctx: LoweringContext, node: Node, ins):
+    """ONNX Runtime's QGemm: (alpha * (A - a_zp)(B - b_zp) + C) at scale
+    a_s * b_s, transA / transB, an int32 bias C, requantized to y's type
+    with y's zero point, or left in f32 where y_scale is absent (the JAX
+    emitter's order: alpha * f32(acc + C) * (a_s * b_s)). The quantized
+    form runs on the requant epilogue with mult = alpha * a_s * b_s / y_s,
+    which rounds where the JAX emitter's f32 division by y_s may not: at
+    most 1 LSB apart at a tie."""
+    (a, a_s, a_zp, b, b_s, b_zp) = ins[:6]
+    bias = ins[6] if len(ins) > 6 else None
+    y_s = ins[7] if len(ins) > 7 else None
+    y_zp = ins[8] if len(ins) > 8 else None
+    name = node.name or node.outputs[0]
+    if a.dim() != 2 or b.dim() != 2:
+        raise UnsupportedOpError(f"QGemm {name!r}: a {tuple(a.shape)}, b "
+                                 f"{tuple(b.shape)} (ONNX gives 2-D)")
+    alpha = float(node.attr("alpha", 1.0))
+    if int(node.attr("transA", 0)):
+        a = a.t().contiguous()
+    if int(node.attr("transB", 0)):
+        b = b.t()  # per-column b_s already follows the output dim
+    why = _unsupported_qmatmul(a, b)
+    if why is not None:
+        raise UnsupportedOpError(f"QGemm {name!r}: {why}")
+    za = _zero_point(ctx, node, 2, "a", a)
+    zb = _zero_point(ctx, node, 5, "b", b, per_tensor=False)
+    zb_t = _zp_tensor(b_zp, b)
+    scale = a_s.to(torch.float32) * b_s.to(torch.float32)
+    bname = node.inputs[3]
+    packed = ctx.packed.get(bname)
+    if y_s is None:  # the float output form
+        acc = _int8_product(ctx, bname, as_int8(a), b, za, zb, zb_t, bias,
+                            None, 0, None, packed)
+        return (alpha * acc.to(torch.float32) * scale,)
+    mult = alpha * scale / y_s.to(torch.float32)
+    return (_int8_product(ctx, bname, as_int8(a), b, za, zb, zb_t, bias,
+                          mult, _zero_point(ctx, node, 8, "y", None),
+                          _out_dtype(y_zp, a), packed),)
 
 
 # --------------------------------------------------------------------------
@@ -255,6 +502,54 @@ def _qlinear_binary(fn):
 
 register("QLinearAdd", domain="com.microsoft")(_qlinear_binary(torch.add))
 register("QLinearMul", domain="com.microsoft")(_qlinear_binary(torch.mul))
+
+
+# --------------------------------------------------------------------------
+# the other QLinear contrib ops of ONNX Runtime's QOperator files: dequantize
+# -> f32 op -> requantize elementwise in PyTorch, in the input's type, as the
+# JAX emitters (which keep them outside Pallas)
+# --------------------------------------------------------------------------
+def _qlinear_unary(fn):
+    def emit(ctx: LoweringContext, node: Node, ins):
+        x, x_s, x_zp, y_s = ins[0], ins[1], ins[2], ins[3]
+        y_zp = ins[4] if len(ins) > 4 else None
+        return (_q(fn(node, _dq(x, x_s, x_zp)), y_s, y_zp, x.dtype),)
+    return emit
+
+
+register("QLinearSigmoid", domain="com.microsoft")(
+    _qlinear_unary(lambda n, x: torch.sigmoid(x)))
+register("QLinearLeakyRelu", domain="com.microsoft")(_qlinear_unary(
+    lambda n, x: torch.where(x >= 0, x,
+                             x * float(np.float32(n.attr("alpha", 0.01))))))
+
+
+@register("QLinearGlobalAveragePool", domain="com.microsoft")
+def qlinear_global_average_pool(ctx: LoweringContext, node: Node, ins):
+    x, x_s, x_zp, y_s = ins[0], ins[1], ins[2], ins[3]
+    y_zp = ins[4] if len(ins) > 4 else None
+    spatial = tuple(range(2, x.dim()))
+    if int(node.attr("channels_last", 0)):
+        spatial = tuple(range(1, x.dim() - 1))
+    out = _dq(x, x_s, x_zp).mean(dim=spatial, keepdim=True)
+    return (_q(out, y_s, y_zp, x.dtype),)
+
+
+@register("QLinearAveragePool", domain="com.microsoft")
+def qlinear_average_pool(ctx: LoweringContext, node: Node, ins):
+    x, x_s, x_zp, y_s = ins[0], ins[1], ins[2], ins[3]
+    y_zp = ins[4] if len(ins) > 4 else None
+    (out,) = average_pool(ctx, node, [_dq(x, x_s, x_zp)])
+    return (_q(out, y_s, y_zp, x.dtype),)
+
+
+@register("QLinearConcat", domain="com.microsoft")
+def qlinear_concat(ctx: LoweringContext, node: Node, ins):
+    y_s, y_zp = ins[0], ins[1]
+    parts = [_dq(ins[i], ins[i + 1], ins[i + 2])
+             for i in range(2, len(ins), 3)]
+    out = torch.cat(parts, dim=int(node.attr("axis", 1)))
+    return (_q(out, y_s, y_zp, ins[2].dtype),)
 
 
 # --------------------------------------------------------------------------

@@ -206,6 +206,43 @@ def max_pool(ctx: LoweringContext, node: Node, ins):
     return (out.to(x.dtype),)
 
 
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+@register("AveragePool")
+def average_pool(ctx: LoweringContext, node: Node, ins):
+    """The JAX emitter's: each window's sum over x zero-padded (ceil_mode
+    extends the end padding), divided by the kernel's size, or, with
+    padding and count_include_pad 0, by the window's count of real
+    elements. Dilated windows are not taken (ONNX added them in opset 19;
+    the JAX emitter's reduce_window takes them)."""
+    x = ins[0]
+    spatial = x.dim() - 2
+    if spatial not in (1, 2, 3):
+        raise UnsupportedOpError(f"AveragePool: {spatial}-D spatial")
+    padding, kernel, strides, dilations = _pool(node, x)
+    if any(d != 1 for d in dilations):
+        raise UnsupportedOpError(f"AveragePool: dilations {dilations}")
+
+    def window_sum(t: torch.Tensor) -> torch.Tensor:
+        t = _pad(t, padding, 0.0)
+        if spatial == 1:
+            return F.avg_pool2d(t.unsqueeze(2), (1, kernel[0]),
+                                (1, strides[0]),
+                                divisor_override=1).squeeze(2)
+        return _AVG_POOL[spatial](t, kernel, strides, divisor_override=1)
+
+    out = window_sum(x)
+    if int(node.attr("count_include_pad", 0)) or not any(
+            lo or hi for lo, hi in padding):
+        # a true division by a tensor on x's device, as XLA divides
+        return (out / torch.tensor(float(math.prod(kernel)),
+                                   dtype=out.dtype, device=out.device),)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return (out / window_sum(ones),)
+
+
 @register("GlobalAveragePool")
 def global_average_pool(ctx: LoweringContext, node: Node, ins):
     x = ins[0]

@@ -18,9 +18,9 @@ INT4 weight-only (`pack_int4`, `pack_int4_planar`, `quantize_weights_int4`)
 and the int4 KV cache's packing (`pack_int4_kv`) are the JAX package's
 arithmetic, line for line, so both packages pack the same bytes and
 scales. Dynamic W8A8 (`quantize_matmuls_w8a8`) is the JAX package's
-rewrite node for node, with the same constants bit for bit. Not ported
-yet: the "mse" calibration method, `bias_correct`, and int4 over a Scan
-body.
+rewrite node for node, with the same constants bit for bit. The "mse"
+calibration method and `bias_correct` are the JAX package's algorithms on
+the port's engine. Not ported yet: int4 over a Scan body.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ from .engine import lower, resolve_device
 from .graph import Graph, Node, prune_dead, topo_sort
 from .models._builder import memo
 
-__all__ = ["calibrate", "quantize_graph", "QuantConfig", "pack_int4",
-           "pack_int4_planar", "quantize_weights_int4",
+__all__ = ["calibrate", "quantize_graph", "QuantConfig", "bias_correct",
+           "pack_int4", "pack_int4_planar", "quantize_weights_int4",
            "quantize_matmuls_w8a8", "pack_int4_kv"]
 
 
@@ -53,7 +53,8 @@ class QuantConfig:
     # depthwise convs unquantized)
     exclude: Optional[callable] = None
     # activation-range calibration: "minmax" records plain min/max;
-    # "percentile" clips to the given |x| percentile (outlier-robust)
+    # "percentile" clips to the given |x| percentile (outlier-robust);
+    # "mse" picks the clip that minimizes int8 reconstruction error
     calibration: str = "minmax"
     percentile: float = 99.99
 
@@ -86,10 +87,13 @@ def calibrate(
     quantization range for every intermediate value.
 
     method="minmax" records plain (min, max); "percentile" records the
-    symmetric range at the given |x| percentile."""
-    if method not in ("minmax", "percentile"):
-        raise ValueError(f"unknown or unported calibration method: "
-                         f"{method!r} (have minmax, percentile)")
+    symmetric range at the given |x| percentile; "mse" sweeps candidate
+    clips (0.3..1.0 of amax, one grid per tensor from its amax over every
+    batch) and keeps the one whose int8 round trip has the least squared
+    error summed over every batch (the JAX package's two passes and single
+    global argmin)."""
+    if method not in ("minmax", "percentile", "mse"):
+        raise ValueError(f"unknown calibration method: {method!r}")
     if calibration_inputs is None:
         rng = np.random.default_rng(0)
         feed = {
@@ -117,21 +121,62 @@ def calibrate(
         amax = _percentile(val.to(torch.float32).abs(), percentile)
         return -amax, amax
 
+    def runs():
+        with torch.no_grad():
+            for feed in calibration_inputs:
+                out = fn(params, {k: as_device_tensor(v, device)
+                                  for k, v in feed.items()})
+                yield {k: v for k, v in out.items() if v.is_floating_point()}
+
+    if method == "mse":
+        return _mse_ranges(runs)
     ranges: Dict[str, Tuple[float, float]] = {}
-    with torch.no_grad():
-        for feed in calibration_inputs:
-            out = fn(params, {k: as_device_tensor(v, device)
-                              for k, v in feed.items()})
-            for name, val in out.items():
-                if not val.is_floating_point():
-                    continue
-                lo, hi = batch_range(val)
-                if name in ranges:
-                    plo, phi = ranges[name]
-                    ranges[name] = (min(plo, lo), max(phi, hi))
-                else:
-                    ranges[name] = (lo, hi)
+    for out in runs():
+        for name, val in out.items():
+            lo, hi = batch_range(val)
+            if name in ranges:
+                plo, phi = ranges[name]
+                ranges[name] = (min(plo, lo), max(phi, hi))
+            else:
+                ranges[name] = (lo, hi)
     return ranges
+
+
+def _mse_errors(val: torch.Tensor, cands: np.ndarray) -> np.ndarray:
+    """Each candidate clip's summed int8 round-trip squared error of |val|,
+    the JAX package's f32 arithmetic per element (scales cands / 127 in
+    f32, round half to even, clip to [0, 127]), summed in float64."""
+    a = val.to(torch.float32).abs().reshape(-1)
+    scales = torch.tensor(cands, dtype=torch.float32,
+                          device=a.device) / 127.0
+    out = np.empty(len(cands))
+    for i, s in enumerate(scales):
+        q = torch.clamp(torch.round(a / s), 0, 127)
+        out[i] = float(((q * s - a) ** 2).sum(dtype=torch.float64))
+    return out
+
+
+def _mse_ranges(runs) -> Dict[str, Tuple[float, float]]:
+    """calibrate(method="mse"): pass 1 records each tensor's global amax,
+    which fixes one shared candidate grid; pass 2 sums each candidate's
+    error over the batches and takes one global argmin (with one batch, the
+    one-shot sweep)."""
+    amaxes: Dict[str, float] = {}
+    for out in runs():
+        for name, val in out.items():
+            a = float(val.to(torch.float32).abs().max())
+            amaxes[name] = max(amaxes.get(name, 0.0), a)
+    grids = {name: max(a, 1e-8) * np.linspace(0.3, 1.0, 15)
+             for name, a in amaxes.items()}
+    errs: Dict[str, np.ndarray] = {}
+    for out in runs():
+        for name, val in out.items():
+            if name in grids:
+                errs[name] = errs.get(name, 0.0) + _mse_errors(val,
+                                                               grids[name])
+    return {name: (-float(grids[name][np.argmin(e)]),
+                   float(grids[name][np.argmin(e)]))
+            for name, e in errs.items()}
 
 
 def _static_clip_bounds(graph: Graph, node: Node
@@ -418,6 +463,95 @@ def quantize_graph(
     avail = set(qgraph.constants) | {i.name for i in qgraph.inputs}
     qgraph.nodes = topo_sort(qgraph.nodes, avail)
     prune_dead(qgraph)
+    return qgraph
+
+
+def bias_correct(
+    qgraph: Graph,
+    fgraph: Graph,
+    calibration_inputs: Sequence[Dict[str, np.ndarray]],
+    device="cuda",
+) -> Graph:
+    """Post-quantization bias correction (DFQ-style, Nagel et al. 2019), the
+    JAX package's algorithm on the port's engine.
+
+    Quantization noise has a nonzero per-channel mean (weight rounding is
+    deterministic), which shifts every activation distribution; absorbing
+    E[fp32_out - int8_out] into the int32 bias removes the shift for free
+    at inference. Every QLinearConv / QLinearMatMul gets a bias input
+    (zeros) before the probe is built; then, in topological order, each
+    target's per-channel mean error over the calibration set (saturated
+    elements excluded: with clip- or relu-pinned output scales the int8
+    saturation is the activation bound, not rounding noise), measured with
+    every upstream correction applied, adds round(mean_err / (x_s * w_s))
+    to its int32 bias. Mutates and returns qgraph."""
+    from .weights import as_device_tensor, params_from_numpy
+
+    device = resolve_device(device)
+    targets = [n for n in qgraph.nodes
+               if n.op_type in ("QLinearConv", "QLinearMatMul")]
+    if not targets:
+        return qgraph
+    for n in targets:
+        if not (len(n.inputs) > 8 and n.inputs[8]):
+            w_s = np.asarray(qgraph.constants[n.inputs[4]]).reshape(-1)
+            bname = f"{n.outputs[0]}__bcorr"
+            qgraph.constants[bname] = np.zeros((w_s.size,), np.int32)
+            qgraph.weight_names.append(bname)
+            n.inputs = list(n.inputs)[:8] + [bname]
+
+    out_names = [n.outputs[0] for n in targets]
+
+    def make_probe(graph: Graph):
+        made = {x for nd in graph.nodes for x in nd.outputs}
+        p = Graph(name=graph.name, nodes=graph.nodes,
+                  constants=graph.constants, inputs=graph.inputs,
+                  outputs=[o for o in out_names if o in made],
+                  opset=graph.opset, opsets=dict(graph.opsets),
+                  weight_names=graph.weight_names)
+        return lower(p, device)
+
+    def run(fn, params) -> Dict[str, np.ndarray]:
+        acc: Dict[str, list] = {}
+        with torch.no_grad():
+            for feed in calibration_inputs:
+                out = fn(params, {k: as_device_tensor(v, device)
+                                  for k, v in feed.items()})
+                for k, v in out.items():
+                    acc.setdefault(k, []).append(
+                        v.cpu().numpy().astype(np.float64))
+        return {k: np.concatenate(v) for k, v in acc.items()}
+
+    def params_of(graph: Graph) -> Dict[str, torch.Tensor]:
+        return params_from_numpy(
+            {k: graph.constants[k] for k in graph.weight_names}, device)
+
+    f_out = run(make_probe(fgraph), params_of(fgraph))
+    q_fn = make_probe(qgraph)
+    q_params = params_of(qgraph)
+    for n in targets:
+        name = n.outputs[0]
+        if name not in f_out:
+            continue
+        q_out = run(q_fn, q_params)
+        y_s = float(np.asarray(qgraph.constants[n.inputs[6]]).reshape(-1)[0])
+        qv = q_out[name]
+        err = f_out[name] - qv * y_s
+        interior = (qv > -127) & (qv < 127)
+        # per-output-channel mean: channel axis 1 for conv, -1 for matmul
+        ch_axis = 1 if n.op_type == "QLinearConv" else err.ndim - 1
+        axes = tuple(a for a in range(err.ndim) if a != ch_axis)
+        cnt = np.maximum(interior.sum(axis=axes), 1)
+        mean_err = np.where(interior, err, 0.0).sum(axis=axes) / cnt
+        x_s = float(np.asarray(qgraph.constants[n.inputs[1]]).reshape(-1)[0])
+        w_s = np.asarray(qgraph.constants[n.inputs[4]]).reshape(-1)
+        delta = np.round(mean_err / (x_s * w_s)).astype(np.int64)
+        bname = n.inputs[8]
+        b = np.asarray(qgraph.constants[bname]).astype(np.int64)
+        new_b = np.clip(b + delta, np.iinfo(np.int32).min,
+                        np.iinfo(np.int32).max).astype(np.int32)
+        qgraph.constants[bname] = new_b
+        q_params[bname] = torch.from_numpy(new_b).to(device)
     return qgraph
 
 

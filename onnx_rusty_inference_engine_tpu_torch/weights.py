@@ -2,15 +2,16 @@
 
 The JAX package keeps weights as numpy `graph.constants` and lets jit place
 them; here they become torch tensors on the engine's device once, at
-`Engine` build, and the QLinearConv, QLinearMatMul and MatMulInteger
-weights are also re-laid once into the layouts their int8 kernels read (the
+`Engine` build, and the QLinearConv, ConvInteger, QLinearMatMul, QGemm and
+MatMulInteger weights are also re-laid once into the layouts their int8
+kernels read, with the sums and folded biases their zero points need (the
 JAX package re-lays conv weights inside jit on every call,
 ops/kernels/qmatmul.py:172).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -18,7 +19,8 @@ import torch
 from .graph import Graph
 from .ops.kernels.qconv_grouped_int8 import pack_qconv_grouped_weight
 from .ops.kernels.qconv_int8 import pack_qconv_weight
-from .ops.kernels.qmatmul_int8 import as_int8, colsum_key, pack_qmatmul_weight
+from .ops.kernels.qmatmul_int8 import (as_int8, colsum_key, folded_bias_key,
+                                       ones_key, pack_qmatmul_weight)
 
 __all__ = ["as_device_tensor", "params_from_numpy", "prepack_int8_weights"]
 
@@ -55,50 +57,123 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], device,
     return out
 
 
+_QTYPES = (torch.int8, torch.uint8)
+
+
+def _conv4(w: torch.Tensor) -> torch.Tensor:
+    """A 1-D conv weight [O, C, K] as the 2-D one of height 1 the kernels
+    run; a 2-D one as it is."""
+    return w.unsqueeze(2) if w.dim() == 3 else w
+
+
 def _packer(node):
-    """(the index of the node's int8 weight input, its rank, the dtypes it
-    may have, and the function that lays it out for its kernel), or None
-    for a node no int8 kernel reads."""
-    if node.op_type == "QLinearMatMul":
-        return 3, 2, (torch.int8,), pack_qmatmul_weight
-    if node.op_type == "MatMulInteger":
-        return 1, 2, (torch.int8, torch.uint8), \
-            lambda w: pack_qmatmul_weight(as_int8(w))
-    if node.op_type == "QLinearConv":
-        if int(node.attr("group", 1)) == 1:
-            return 3, 4, (torch.int8,), pack_qconv_weight
-        return 3, 4, (torch.int8,), pack_qconv_grouped_weight
+    """(the index of the node's weight input, the ranks it may have, the
+    function that lays its int8 form (`as_int8`) out for its kernel, and
+    the one that sums that form per output), or None for a node no int8
+    kernel reads."""
+    op = node.op_type
+    if op in ("QLinearMatMul", "MatMulInteger", "QGemm"):
+        trans = op == "QGemm" and int(node.attr("transB", 0))
+
+        def logical(w):  # [K, N]
+            return as_int8(w.t() if trans else w)
+
+        return ((1 if op == "MatMulInteger" else 3), (2,),
+                lambda w: pack_qmatmul_weight(logical(w)),
+                lambda w: logical(w).sum(dim=0, dtype=torch.int32))
+    if op in ("QLinearConv", "ConvInteger"):
+        pack = (pack_qconv_weight if int(node.attr("group", 1)) == 1
+                else pack_qconv_grouped_weight)
+        return ((3 if op == "QLinearConv" else 1), (3, 4),
+                lambda w: pack(as_int8(_conv4(w))),
+                lambda w: as_int8(_conv4(w)).sum(dim=(1, 2, 3),
+                                                 dtype=torch.int32))
     return None
+
+
+def _const_int(graph: Graph, node, idx: int) -> Optional[np.ndarray]:
+    """A zero-point input known before the run, as int64 (None: absent or
+    computed at run time)."""
+    name = node.inputs[idx] if len(node.inputs) > idx else ""
+    v = graph.constants.get(name) if name else None
+    return None if v is None else np.asarray(v).astype(np.int64).reshape(-1)
+
+
+def _x_zero_point(graph: Graph, node) -> bool:
+    """Whether the node's activation has a zero point its correction needs
+    the weight's sums for: a MatMulInteger's a_zero_point input (constant
+    or not); a conv's or QLinear product's constant zero point, less 128
+    for a uint8 QLinearMatMul or QGemm operand (which `as_int8` shifts),
+    other than 0."""
+    if node.op_type == "MatMulInteger":
+        return len(node.inputs) > 2 and bool(node.inputs[2])
+    z = _const_int(graph, node, 2)
+    if z is None:
+        return False
+    name = node.inputs[2]
+    shift = (128 if node.op_type in ("QLinearMatMul", "QGemm")
+             and np.asarray(graph.constants[name]).dtype == np.uint8 else 0)
+    return bool(np.any(z - shift))
+
+
+def _conv_extras(graph: Graph, node, name: str, w: torch.Tensor,
+                 colsum: torch.Tensor, params, packed: dict) -> None:
+    """What a QLinearConv's or ConvInteger's zero points need ahead of the
+    run: with a weight zero point, the packed all-ones weight of the window
+    sums (`ones_key`); for a QLinearConv with an x zero point and none on
+    the weight, its bias with -zx * sum w folded in (`folded_bias_key`)."""
+    qlinear = node.op_type == "QLinearConv"
+    zx = _const_int(graph, node, 2)
+    zw = _const_int(graph, node, 5 if qlinear else 3)
+    shift = 128 if w.dtype == torch.uint8 else 0
+    w_zero = (zw is None and not shift) or (
+        zw is not None and not np.any(zw - shift))
+    if not w_zero:
+        group = int(node.attr("group", 1))
+        ones = torch.ones((group, w.shape[1]) + tuple(_conv4(w).shape[2:]),
+                          dtype=torch.int8, device=w.device)
+        packed[ones_key(name)] = (pack_qconv_weight if group == 1
+                                  else pack_qconv_grouped_weight)(ones)
+    elif qlinear and colsum is not None and zx.size == 1:
+        b = -int(zx[0]) * colsum
+        bname = node.inputs[8] if len(node.inputs) > 8 else ""
+        if bname:
+            if bname not in params:
+                return  # the emitter folds it per call
+            b = b + params[bname].to(torch.int32)
+        packed[folded_bias_key(node.outputs[0])] = b
 
 
 def prepack_int8_weights(graph: Graph, params: Mapping[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
     """Weight name -> kernel layout (`pack_qconv_weight`,
     `pack_qconv_grouped_weight` for group > 1, `pack_qmatmul_weight`) for
-    every QLinearConv, QLinearMatMul and MatMulInteger whose weight (int8,
-    and for MatMulInteger also uint8, taken as int8 by `as_int8`), 4-D and
-    2-D respectively, sits in `params` on a CUDA device. The weight of a
-    MatMulInteger with an a_zero_point also keeps the int32 column sums of
-    its int8 form under `colsum_key(name)`, which that zero point's
-    correction reads (a uint8 A without one sums them per call). On the CPU
-    the plain versions read the weights as they are, and nothing is
-    packed."""
+    every QLinearConv, ConvInteger, QLinearMatMul, QGemm and MatMulInteger
+    whose weight (int8 or uint8, taken as int8 by `as_int8`; 2-D, and 3-D
+    or 4-D for a conv) sits in `params` on a CUDA device. A weight whose
+    node's activation has a zero point (`_x_zero_point`) also keeps the
+    int32 sums of its int8 form per output under `colsum_key(name)`, which
+    that zero point's correction reads, and a conv what `_conv_extras`
+    adds. On the CPU the plain versions read the weights as
+    they are, and nothing is packed."""
     packed: Dict[str, torch.Tensor] = {}
     for node in graph.nodes:
         packer = _packer(node)
         if packer is None:
             continue
-        idx, rank, dtypes, pack = packer
+        idx, ranks, pack, sums = packer
         if len(node.inputs) <= idx:
             continue
         name = node.inputs[idx]
         w = params.get(name)
-        if (w is not None and w.device.type == "cuda"
-                and w.dtype in dtypes and w.dim() == rank
-                and name not in packed):
+        if (w is None or w.device.type != "cuda" or w.dtype not in _QTYPES
+                or w.dim() not in ranks):
+            continue
+        if name not in packed:
             packed[name] = pack(w)
-            if node.op_type == "MatMulInteger" and len(node.inputs) > 2 \
-                    and node.inputs[2]:
-                packed[colsum_key(name)] = as_int8(w).sum(
-                    dim=0, dtype=torch.int32)
+        if colsum_key(name) not in packed and _x_zero_point(graph, node):
+            packed[colsum_key(name)] = sums(w)
+        if node.op_type in ("QLinearConv", "ConvInteger"):
+            _conv_extras(graph, node, name, w, packed.get(colsum_key(name)),
+                         params, packed)
     return packed

@@ -210,9 +210,10 @@ def test_int8_forward_calls_the_int8_gemm_once_per_qlinear_matmul(
     calls = []
     real = quantized.qmatmul_int8_requant
 
-    def counting(a, b, mult, bias=None, *, packed=None):
+    def counting(a, b, mult, bias=None, *, packed=None, **kw):
         calls.append((tuple(a.shape), tuple(b.shape), packed))
-        return real(a, b, mult, bias, packed=packed)
+        assert kw in ({}, {"y_zp": 0, "out_dtype": torch.int8})
+        return real(a, b, mult, bias, packed=packed, **kw)
 
     def int32_route(*args, **kw):
         raise AssertionError("QLinearMatMul took the int32 route")

@@ -50,6 +50,7 @@ from onnx_rusty_inference_engine_tpu.serve_llm import (
 from onnx_rusty_inference_engine_tpu_torch import cli as t_cli
 from onnx_rusty_inference_engine_tpu_torch import onnx_make_inference
 from onnx_rusty_inference_engine_tpu_torch.engine import Engine
+from onnx_rusty_inference_engine_tpu_torch.graph import import_onnx
 from onnx_rusty_inference_engine_tpu_torch.http_serve import (
     serve_generate_http, serve_http)
 from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import TINY
@@ -137,6 +138,48 @@ def test_cli_json_keys_match_jax(cmd, files, capsys, tmp_path):
             {k: v for k, v in want.items() if k != "out"}
     if cmd == "bench":
         assert got["device"] == "cpu" and got["images_per_sec"] > 0
+
+
+@pytest.mark.parametrize("flags", [["--calibration", "mse"],
+                                   ["--bias-correct"],
+                                   ["--calibration", "mse", "--bias-correct"]],
+                         ids=["mse", "bias_correct", "mse_bias_correct"])
+def test_cli_quantize_mse_and_bias_correct_match_jax(flags, files, capsys,
+                                                     tmp_path):
+    """`quantize --calibration mse` and `--bias-correct`, once refused with
+    exit 2 (ROADMAP 1.4), write the JAX CLI's graph: the same JSON, the
+    same nodes, the int8 weights equal, the scales within 1e-5 (the two
+    packages' f32 LayerNorms part by an ulp, and a range with them) and
+    the int32 biases, corrected or not, within 1 of JAX's."""
+    model = str(files / "vit.onnx")
+    x = np.random.default_rng(3).standard_normal(
+        (1, 3, J_VIT_TINY.image_size, J_VIT_TINY.image_size))
+    j_io.write_tensor_file(str(tmp_path / "in.pb"), "pixel_values",
+                           x.astype(np.float32))
+    args = ["quantize", "--model", model, "--calib-input",
+            str(tmp_path / "in.pb"), *flags]
+    rc_j, out_j, _ = _main(j_cli.main, args + ["--out", str(tmp_path / "j")],
+                           capsys)
+    rc_t, out_t, _ = _main(t_cli.main, args + ["--out", str(tmp_path / "t"),
+                                               "--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0
+    want, got = json.loads(out_j), json.loads(out_t)
+    assert {k: v for k, v in got.items() if k != "out"} == \
+        {k: v for k, v in want.items() if k != "out"}
+    jg, tg = import_onnx(str(tmp_path / "j")), import_onnx(str(tmp_path / "t"))
+    assert [(n.op_type, n.inputs) for n in tg.nodes] == \
+        [(n.op_type, n.inputs) for n in jg.nodes]
+    assert sorted(tg.constants) == sorted(jg.constants)
+    for k, v in jg.constants.items():
+        got_k = tg.constants[k]
+        assert got_k.dtype == v.dtype and got_k.shape == v.shape, k
+        if v.dtype == np.float32:
+            np.testing.assert_allclose(got_k, v, rtol=1e-5, err_msg=k)
+        elif v.dtype == np.int32:
+            d = np.abs(got_k.astype(np.int64) - v.astype(np.int64))
+            assert d.max(initial=0) <= 1, k
+        else:
+            np.testing.assert_array_equal(got_k, v, err_msg=k)
 
 
 def test_cli_bench_runs_at_the_requested_batch(files, capsys, monkeypatch):
@@ -282,8 +325,6 @@ def test_cli_precision_flag_matches_jax(argv, files, capsys, monkeypatch):
 
 UNPORTED = [
     (["run", "--dump-stats"], "1.11"),
-    (["quantize", "--out", "x.onnx", "--bias-correct"], "1.4"),
-    (["quantize", "--out", "x.onnx", "--calibration", "mse"], "1.4"),
     (["generate", "--draft-layers", "1"], "1.9/1.10b"),
     (["generate", "--family", "moe"], "1.8"),
     (["generate", "--family", "t5"], "1.8"),

@@ -1343,8 +1343,8 @@ def test_grouped_forms_agree_at_a_tile_shape(cuda, monkeypatch):
     kw = dict(stride=(1, 1), padding=((1, 1), (1, 1)))
     want = g8.qconv_grouped_int8_requant_plain(x, w, mult, bias, **kw)
     for offset, form in ((0, "tile"), (4, "general")):
-        got, used = g8._launch(_offset_input(x, offset), w, mult, bias,
-                               kw["stride"], kw["padding"], packed)
+        got, used, _ = g8._launch(_offset_input(x, offset), w, mult, bias,
+                                  kw["stride"], kw["padding"], packed)
         torch.cuda.synchronize()
         assert used == form and torch.equal(got, want), form
     tile = g8._tile
@@ -1600,3 +1600,178 @@ def test_precision_engines_replay_equals_eager(cuda, scheme):
                   dtype="float32" if scheme == "w8a8" else "bfloat16")(feed)
     for name, v in host.items():
         assert _rel_err(got[name].cpu(), v) <= 2e-2, name
+
+
+# --------------------------------------------------------------------------
+# ONNX Runtime's QOperator forms on the int8 kernels: uint8 or int8 x, the
+# x zero point as the padding's value, y's zero point and type, dilation,
+# the int32 epilogue; zero points at both ends of each type, padding on
+# every border, odd sizes
+# --------------------------------------------------------------------------
+# x dtype -> (x zero point, y zero point) pairs
+QOP_ZERO_POINTS = {torch.uint8: [(0, 0), (1, 1), (128, 127), (255, 255)],
+                   torch.int8: [(0, 0), (1, -1), (127, -128), (-128, 127)]}
+QOP_ZP_CASES = [(dt, zx, zy) for dt, pairs in QOP_ZERO_POINTS.items()
+                for zx, zy in pairs]
+QOP_ZP_IDS = [f"{str(dt)[6:]}_zx{zx}_zy{zy}" for dt, zx, zy in QOP_ZP_CASES]
+
+# (B, C, H, W, O, kernel, stride, pads (t, b, l, r), dilation)
+QOP_CONV_SHAPES = {
+    "3x3_pad1_odd": (2, 20, 9, 7, 24, 3, 1, (1, 1, 1, 1), 1),
+    "3x3_s2_every_border": (1, 32, 11, 10, 40, 3, 2, (2, 1, 1, 2), 1),
+    "5x5_dilated2_c8": (2, 8, 13, 12, 16, 5, 1, (4, 3, 4, 2), 2),
+    "1x1_tma_c32": (2, 32, 7, 5, 48, 1, 1, (0, 0, 0, 0), 1),
+    "7x7_c3_s2_pad3": (2, 3, 17, 19, 16, 7, 2, (3, 3, 3, 3), 1),
+}
+
+
+def _qop_x(dt, shape, rng, cuda):
+    info = torch.iinfo(dt)
+    return torch.from_numpy(rng.integers(info.min, info.max + 1, shape)
+                            .astype(np.uint8 if dt == torch.uint8
+                                    else np.int8)).to(cuda)
+
+
+@pytest.mark.parametrize("shape", list(QOP_CONV_SHAPES))
+@pytest.mark.parametrize("dt,zx,zy", QOP_ZP_CASES, ids=QOP_ZP_IDS)
+def test_qoperator_conv_forms_equal_plain(cuda, shape, dt, zx, zy):
+    """The group-1 kernel's requant epilogue (y of x's type, y's zero
+    point) and int32 epilogue, each bit-equal to its plain version on the
+    card, with the launch counted per producer, epilogue and form."""
+    B, C, H, W, O, ksz, s, (pt, pb, pl, pr), d = QOP_CONV_SHAPES[shape]
+    rng = np.random.default_rng(21)
+    x = _qop_x(dt, (B, C, H, W), rng, cuda)
+    _, w, mult, bias = _qconv_operands(B, C, H, W, O, ksz, True, True, rng,
+                                       cuda)
+    packed = k.pack_qconv_weight(w)
+    kw = dict(stride=(s, s), padding=((pt, pb), (pl, pr)), dilation=(d, d),
+              pad_value=zx)
+    before = (k.qconv_int8_requant.launches,
+              dict(k.qconv_int8_requant.forms))
+    got = k.qconv_int8_requant(x, w, mult, bias, **kw, y_zp=zy,
+                               out_dtype=dt, packed=packed)
+    got32 = k.qconv_int8(x, w, **kw, packed=packed)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got32.dtype == torch.int32
+    assert torch.equal(got, k.qconv_int8_requant_plain(
+        x, w, mult, bias, **kw, y_zp=zy, out_dtype=dt))
+    assert torch.equal(got32, k.qconv_int8_plain(x, w, **kw))
+    forms = k.qconv_int8_requant.forms
+    assert k.qconv_int8_requant.launches == before[0] + 2
+    assert forms["int32"] == before[1]["int32"] + 1
+    assert forms["uint8_x"] == before[1]["uint8_x"] + 2 * (dt == torch.uint8)
+    assert forms["zero_point_pad"] == before[1]["zero_point_pad"] + 2 * (
+        zx != 0 and pt + pb + pl + pr > 0)
+
+
+# (B, C, H, W, O, group, kernel, stride, pad, dilation, form)
+QOP_GROUPED_SHAPES = {
+    "dw_s1_odd": (2, 32, 15, 13, 32, 32, 3, 1, 1, 1, "tile"),
+    "dw_s2_odd": (2, 48, 17, 15, 48, 48, 3, 2, 1, 1, "tile"),
+    "dw_s1_c160_whole_run": (1, 160, 9, 9, 160, 160, 3, 1, 1, 1, "tile"),
+    "group2_cg4": (2, 8, 9, 11, 12, 2, 3, 1, 1, 1, "general"),
+    "dw_dilated2": (1, 16, 12, 10, 16, 16, 3, 1, 2, 2, "general"),
+}
+
+
+@pytest.mark.parametrize("shape", list(QOP_GROUPED_SHAPES))
+@pytest.mark.parametrize("dt,zx,zy", QOP_ZP_CASES, ids=QOP_ZP_IDS)
+def test_qoperator_grouped_forms_equal_plain(cuda, shape, dt, zx, zy):
+    """The grouped kernel on a uint8 or int8 x with a zero point as the
+    padding (in the tile form stored over each border tile's halo in
+    shared memory), y's zero point and type, dilation in the general form,
+    and the general form's int32 output, bit-equal to the plain versions."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8)
+
+    B, C, H, W, O, g, ksz, s, p, d, form = QOP_GROUPED_SHAPES[shape]
+    rng = np.random.default_rng(22)
+    _, w, mult, bias = _grouped_operands(B, C, H, W, O, g, ksz, rng, cuda)
+    x = _qop_x(dt, (B, C, H, W), rng, cuda).contiguous(
+        memory_format=torch.channels_last)
+    packed = g8.pack_qconv_grouped_weight(w)
+    kw = dict(stride=(s, s), padding=((p, p), (p, p)), dilation=(d, d),
+              pad_value=zx)
+    before = dict(g8.qconv_grouped_int8_requant.schedules)
+    got = g8.qconv_grouped_int8_requant(x, w, mult, bias, **kw, y_zp=zy,
+                                        out_dtype=dt, packed=packed)
+    got32 = g8.qconv_grouped_int8(x, w, bias, **kw, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, g8.qconv_grouped_int8_requant_plain(
+        x, w, mult, bias, **kw, y_zp=zy, out_dtype=dt))
+    assert torch.equal(got32, g8.qconv_grouped_int8_plain(x, w, bias, **kw))
+    want = dict(before)
+    want[form] += 1
+    want["general"] += 1  # the int32 output
+    assert g8.qconv_grouped_int8_requant.schedules == want
+
+
+@pytest.mark.parametrize("M,K,N", [(37, 72, 40), (129, 200, 1000),
+                                   (256, 1280, 1000)])
+@pytest.mark.parametrize("dt,zy", [(torch.int8, -128), (torch.int8, 5),
+                                   (torch.uint8, 0), (torch.uint8, 128),
+                                   (torch.uint8, 255)])
+def test_qoperator_gemm_requant_forms_equal_plain(cuda, M, K, N, dt, zy):
+    """The GEMM's requant epilogue with y's zero point and a uint8 output,
+    bit-equal to its plain version."""
+    rng = np.random.default_rng(23)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K), np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N), np.int8)).to(cuda)
+    mult = torch.from_numpy((np.abs(rng.standard_normal(N)) * 3e-4 + 1e-5)
+                            .astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.integers(-3000, 3000, (N,), np.int32)
+                            ).to(cuda)
+    got = q8.qmatmul_int8_requant(a, b, mult, bias, y_zp=zy, out_dtype=dt,
+                                  packed=q8.pack_qmatmul_weight(b))
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    assert torch.equal(got, q8.qmatmul_int8_requant_plain(
+        a, b, mult, bias, y_zp=zy, out_dtype=dt))
+
+
+def test_qoperator_int32_routes_in_a_captured_engine(cuda):
+    """A ConvInteger with a per-channel w zero point (the conv kernel's
+    int32 output and its window sums), a grouped QLinearConv with a weight
+    zero point and a QLinearMatMul with b and a zero points (the GEMM's
+    int32 route), in one Engine on the card: the first call (eager, then
+    captured) and a replay equal the CPU Engine exactly; no zero point is
+    copied from the host during the capture."""
+    from onnx_rusty_inference_engine_tpu_torch.graph import (
+        Graph, InputSpec, Node)
+
+    rng = np.random.default_rng(31)
+    x = rng.integers(0, 256, (2, 8, 9, 9)).astype(np.uint8)
+    consts = {
+        "w": rng.integers(-127, 128, (6, 8, 3, 3)).astype(np.int8),
+        "xzp": np.uint8(131), "wzp": rng.integers(-3, 4, (6,)).astype(
+            np.int8),
+        "xs": np.float32(0.05), "gw": rng.integers(
+            -127, 128, (8, 2, 3, 3)).astype(np.int8),
+        "gws": np.float32(0.01), "gwzp": np.int8(2), "ys": np.float32(0.4),
+        "yzp": np.uint8(120),
+        "b": rng.integers(0, 256, (10, 5)).astype(np.uint8),
+        "bs": np.float32(0.02), "bzp": np.uint8(125), "ms": np.float32(0.3),
+        "mzp": np.uint8(100)}
+    nodes = [
+        Node("ConvInteger", ["x", "w", "xzp", "wzp"], ["ci"], "ci",
+             {"kernel_shape": [3, 3], "pads": [1, 1, 1, 1]}),
+        Node("QLinearConv", ["x", "xs", "xzp", "gw", "gws", "gwzp", "ys",
+                             "yzp"], ["gc"], "gc",
+             {"kernel_shape": [3, 3], "pads": [1, 2, 0, 1], "group": 4}),
+        Node("QLinearMatMul", ["gc", "ys", "yzp", "b", "bs", "bzp", "ms",
+                               "mzp"], ["mm"], "mm")]
+    g = Graph(name="int32_routes", nodes=nodes, constants=consts,
+              inputs=[InputSpec("x", x.shape, np.dtype(np.uint8))],
+              outputs=["ci", "mm"], opset=13,
+              weight_names=["w", "gw", "b"])
+    want = Engine(g, device="cpu").run({"x": x}).outputs
+    eng = Engine(g)
+    dev = {"x": torch.as_tensor(x, device=cuda)}
+    first = {k: v.cpu().numpy() for k, v in eng(dev).items()}
+    x2 = rng.integers(0, 256, x.shape).astype(np.uint8)
+    want2 = Engine(g, device="cpu").run({"x": x2}).outputs
+    second = {k: v.cpu().numpy() for k, v in eng(
+        {"x": torch.as_tensor(x2, device=cuda)}).items()}
+    for k in ("ci", "mm"):
+        np.testing.assert_array_equal(first[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(second[k], want2[k], err_msg=k)

@@ -97,8 +97,11 @@ def test_narrow_model_int8_matches_jax(opset):
 # percentile: the port interpolates in float32 as jnp.quantile(|x|, q / 100)
 # does, bit for bit; jnp.percentile itself lands up to ~5e-4 of a step
 # between neighbours away from that (its q / 100 path), hence 1e-3 there
+# mse: the same grid (each tensor's amax x linspace(0.3, 1, 15)) and the
+# same argmin, so the same range within 1e-6
 @pytest.mark.parametrize("method,rtol", [("minmax", 1e-4),
-                                         ("percentile", 1e-3)])
+                                         ("percentile", 1e-3),
+                                         ("mse", 1e-6)])
 def test_calibration_methods_match_jax(method, rtol):
     m = _narrow_model(13)
     want = j_calibrate(j_import(m), [_feed(), _feed()], method=method)
@@ -122,9 +125,12 @@ def test_percentile_matches_jnp_quantile():
         assert _percentile(torch.from_numpy(a), q) == want
 
 
-def test_unported_calibration_method_raises():
-    with pytest.raises(ValueError, match="mse"):
-        calibrate(to_port(_narrow_model(13)), [_feed()], method="mse",
+def test_unknown_calibration_method_raises():
+    """mse, once pinned here as a refusal, is ported (held against JAX in
+    test_calibration_methods_match_jax); a method neither package has is
+    refused."""
+    with pytest.raises(ValueError, match="entropy"):
+        calibrate(to_port(_narrow_model(13)), [_feed()], method="entropy",
                   device="cpu")
 
 

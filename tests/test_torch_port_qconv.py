@@ -188,18 +188,31 @@ def _qconv_inits(x_zp=0, w_zp=0, y_zp=0, C=4, O=4, ksz=3):
 
 
 @pytest.mark.parametrize("why,inits,attrs", [
-    ("asymmetric", _qconv_inits(x_zp=3), {}),
-    ("asymmetric", _qconv_inits(y_zp=-2), {}),
     # grouped convs are ported (test_torch_port_qgroup.py); a group count
     # that does not split the channels is still refused
     ("group", _qconv_inits(C=2), {"group": 3}),
-    ("dilat", _qconv_inits(), {"dilations": [2, 2]}),
 ])
 def test_unported_qlinearconv_raises(why, inits, attrs):
     x = np.random.default_rng(0).integers(-128, 128, (1, 4, 9, 9), np.int8)
     with pytest.raises(UnsupportedOpError, match=why):
         run_op_port("QLinearConv", {"x": x}, inits, kernel_shape=[3, 3],
                     **attrs)
+
+
+@pytest.mark.parametrize("what,inits,attrs", [
+    ("asymmetric", _qconv_inits(x_zp=3), {}),
+    ("asymmetric", _qconv_inits(y_zp=-2), {}),
+    ("dilat", _qconv_inits(), {"dilations": [2, 2]}),
+])
+def test_formerly_refused_qlinearconv_matches_jax(what, inits, attrs):
+    """The cases test_unported_qlinearconv_raises pinned as refusals before
+    the QOperator forms were ported (an x or y zero point, a dilation) now
+    run, and give the JAX emitter's values."""
+    x = np.random.default_rng(0).integers(-128, 128, (1, 4, 9, 9), np.int8)
+    kw = dict(kernel_shape=[3, 3], **attrs)
+    (want,) = run_op("QLinearConv", {"x": x}, inits, **kw)
+    (got,) = run_op_port("QLinearConv", {"x": x}, inits, **kw)
+    _agree(got, want)
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():
@@ -309,3 +322,34 @@ def test_channels_last_input_views_or_pads():
     got = k.channels_last_input(x3)
     assert got.shape == (2, 5, 6, 4) and not got[..., 3].any()
     assert torch.equal(got[..., :3], x3.permute(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("xdt,zx,zy", [(torch.uint8, 131, 200),
+                                       (torch.uint8, 0, 0),
+                                       (torch.int8, -128, 5),
+                                       (torch.int8, 7, -128)])
+def test_plain_versions_take_the_qoperator_forms(xdt, zx, zy):
+    """The kernel's plain versions, which the card is held to: padding
+    taps hold pad_value, the requant epilogue adds y_zp and saturates to
+    out_dtype (x's type here), the int32 epilogue returns the exact sums,
+    at a dilation; against a float64 reference written out here."""
+    rng = np.random.default_rng(9)
+    info = torch.iinfo(xdt)
+    x = torch.from_numpy(rng.integers(info.min, info.max + 1, (2, 5, 9, 8))
+                         .astype(np.uint8 if xdt == torch.uint8 else np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (6, 5, 3, 3), np.int8))
+    mult = torch.from_numpy((np.abs(rng.standard_normal(6)) * 2e-3 + 1e-4)
+                            .astype(np.float32))
+    bias = torch.from_numpy(rng.integers(-4000, 4000, (6,), np.int32))
+    kw = dict(stride=(2, 1), padding=((2, 1), (0, 2)), dilation=(2, 1),
+              pad_value=zx)
+    xd = torch.nn.functional.pad(x.double(), (0, 2, 2, 1), value=float(zx))
+    sums = torch.nn.functional.conv2d(xd, w.double(), stride=(2, 1),
+                                      dilation=(2, 1))
+    assert torch.equal(k.qconv_int8_plain(x, w, **kw), sums.int())
+    y = torch.round((sums + bias.double().reshape(1, -1, 1, 1)).float()
+                    * mult.reshape(1, -1, 1, 1)) + zy
+    want = y.clamp(info.min, info.max).to(xdt)
+    got = k.qconv_int8_requant(x, w, mult, bias, **kw, y_zp=zy,
+                               out_dtype=xdt)
+    assert got.dtype == xdt and torch.equal(got, want)

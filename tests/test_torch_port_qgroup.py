@@ -33,8 +33,6 @@ from onnx_rusty_inference_engine_tpu.ops.quantized import _requant as j_requant
 from onnx_rusty_inference_engine_tpu_torch.engine import Engine
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
     qconv_grouped_int8 as g8)
-from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
-    UnsupportedOpError)
 from test_torch_port_cuda import (GROUPED_CASES, TILE_EDGE_CASES,
                                   _mobilenet_depthwise_convs)
 from torch_port_util import run_op_port, to_port
@@ -237,16 +235,21 @@ def test_conv_groups_refuses_channels_that_do_not_split():
         g8.conv_groups((1, 10, 5, 5), (6, 4, 3, 3))
 
 
-def test_dilated_grouped_qlinearconv_still_raises():
+def test_dilated_grouped_qlinearconv_matches_jax():
+    """Formerly pinned as a refusal: a dilated depthwise conv now runs (the
+    grouped kernel's general form) and gives the JAX emitter's values."""
     rng = np.random.default_rng(0)
     x = rng.integers(-128, 128, (1, 8, 9, 9), dtype=np.int8)
     inits = {"x_s": np.float32(0.05), "x_zp": np.int8(0),
              "w": rng.integers(-127, 128, (8, 1, 3, 3), dtype=np.int8),
              "w_s": np.float32(0.01), "w_zp": np.int8(0),
              "y_s": np.float32(0.5), "y_zp": np.int8(0)}
-    with pytest.raises(UnsupportedOpError, match="dilation"):
-        run_op_port("QLinearConv", {"x": x}, inits, kernel_shape=[3, 3],
-                    group=8, dilations=[2, 2])
+    kw = dict(kernel_shape=[3, 3], group=8, dilations=[2, 2])
+    (want,) = run_op("QLinearConv", {"x": x}, inits, **kw)
+    (got,) = run_op_port("QLinearConv", {"x": x}, inits, **kw)
+    assert got.dtype == want.dtype == np.int8
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff == 0).mean() > 0.99
 
 
 def _binary_case(op, dtype, seed):
@@ -292,3 +295,31 @@ def _run_binary(engine, importer, op, feeds, inits):
     names = ["a", "a_s", "a_zp", "b", "b_s", "b_zp", "y_s", "y_zp"]
     m = make_model([node(op, names, ["out0"])], feeds, ["out0"], inits, 13)
     return engine(importer(m)).run(feeds).outputs["out0"]
+
+
+@pytest.mark.parametrize("xdt,zx,zy", [(torch.uint8, 128, 255),
+                                       (torch.int8, -128, -3)])
+def test_grouped_plain_versions_take_the_qoperator_forms(xdt, zx, zy):
+    """The grouped kernel's plain versions: padding taps hold pad_value,
+    the requant adds y_zp and saturates to out_dtype, the int32 output is
+    the exact sums plus the bias; against a float64 reference."""
+    rng = np.random.default_rng(10)
+    info = torch.iinfo(xdt)
+    x = torch.from_numpy(rng.integers(info.min, info.max + 1, (2, 8, 7, 9))
+                         .astype(np.uint8 if xdt == torch.uint8 else np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (8, 2, 3, 3), np.int8))
+    mult = torch.from_numpy((np.abs(rng.standard_normal(8)) * 4e-3 + 1e-4)
+                            .astype(np.float32))
+    bias = torch.from_numpy(rng.integers(-3000, 3000, (8,), np.int32))
+    kw = dict(stride=(1, 2), padding=((1, 1), (2, 0)), dilation=(1, 2),
+              pad_value=zx)
+    xd = torch.nn.functional.pad(x.double(), (2, 0, 1, 1), value=float(zx))
+    sums = torch.nn.functional.conv2d(xd, w.double(), stride=(1, 2),
+                                      dilation=(1, 2), groups=4)
+    sums = sums + bias.double().reshape(1, -1, 1, 1)
+    assert torch.equal(g8.qconv_grouped_int8(x, w, bias, **kw), sums.int())
+    y = torch.round(sums.float() * mult.reshape(1, -1, 1, 1)) + zy
+    got = g8.qconv_grouped_int8_requant(x, w, mult, bias, **kw, y_zp=zy,
+                                        out_dtype=xdt)
+    assert got.dtype == xdt
+    assert torch.equal(got, y.clamp(info.min, info.max).to(xdt))

@@ -41,8 +41,6 @@ from onnx_rusty_inference_engine_tpu_torch.generate import Generator
 from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
     qmatmul_int4 as q4, qmatmul_int8 as q8)
-from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
-    UnsupportedOpError)
 from chip_smoke import ort_int4_generator
 from torch_port_util import run_op_port
 from util import run_op
@@ -247,14 +245,16 @@ def test_qlinear_matmul_fused_route_matches_jax_emitter(case, kernels,
 @pytest.mark.parametrize("y_zp", [3, -5])
 def test_nonzero_y_zero_point_takes_the_int32_route(y_zp, kernels,
                                                     qmm_routes, monkeypatch):
-    """A constant y_zero_point other than 0 is not the kernel epilogue's
-    function: the port takes the int32 product and requantizes in PyTorch,
-    still equal to the JAX emitter."""
+    """A constant y_zero_point other than 0, which once took the int32
+    product and PyTorch's requant (hence the name), is now the requant
+    epilogue's own (it adds y_zp before it saturates), still equal to the
+    JAX emitter. A b zero point takes the int32 route
+    (test_torch_port_qoperator.py)."""
     a = np.random.default_rng(4).integers(-128, 128, (9, 64), dtype=np.int8)
     inits = dict(_qmatmul_inits(64, 33, True, True), y_zp=np.int8(y_zp))
     want = _jax_qlinear_matmul(a, inits, kernels, monkeypatch)
     (got,) = run_op_port("QLinearMatMul", {"a": a}, inits)
-    assert qmm_routes == ["int32"]
+    assert qmm_routes == ["requant"]
     np.testing.assert_array_equal(got, want)
 
 
@@ -301,19 +301,24 @@ def _uint8(inits):
     return out
 
 
-@pytest.mark.parametrize("why,a_dtype,inits", [
+@pytest.mark.parametrize("what,a_dtype,inits", [
     ("asymmetric", np.int8, dict(_qmatmul_inits(16, 8, True, False),
                                  a_zp=np.int8(3))),
     ("asymmetric", np.int8, dict(_qmatmul_inits(16, 8, False, False),
                                  b_zp=np.array([-1], np.int8))),
     ("uint8", np.uint8, _uint8(_qmatmul_inits(16, 8, True, False))),
-    ("2-D weight", np.int8, dict(_qmatmul_inits(16, 8, False, False),
-                                 b=np.ones((2, 16, 8), np.int8))),
+    ("batched weight", np.int8, dict(_qmatmul_inits(16, 8, False, False),
+                                     b=np.ones((2, 16, 8), np.int8))),
 ])
-def test_unported_qlinear_matmul_raises(why, a_dtype, inits):
+def test_formerly_refused_qlinear_matmul_matches_jax(what, a_dtype, inits):
+    """The cases once pinned here as refusals (an a or b zero point, uint8
+    operands, a batched b) run, and give the JAX emitter's values."""
     a = np.random.default_rng(0).integers(0, 100, (4, 16)).astype(a_dtype)
-    with pytest.raises(UnsupportedOpError, match=why):
-        run_op_port("QLinearMatMul", {"a": a}, inits)
+    (want,) = run_op("QLinearMatMul", {"a": a}, inits)
+    (got,) = run_op_port("QLinearMatMul", {"a": a}, inits)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff == 0).mean() > 0.99
 
 
 # --------------------------------------------------------------------------
