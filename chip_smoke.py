@@ -27,9 +27,11 @@ Phases, each printing JSON lines:
 4. profile - where one fp32 and one INT8 forward spend device time, by
              kernel, from torch.profiler (device busy share of the wall
              time under the profiler), the copy kernels left per forward,
-             and a second profiled forward with each node in a range named
-             by its op type: device ms of PyTorch's kernels by op type (the
-             int8 kernels, launched through ctypes, fall in no range).
+             and a second profiled forward with the Engine's own node
+             ranges (`<OpType>.<node>`): device ms by op type, the hand
+             kernels' inside them (each launch lies under its `oriet::`
+             op, and so under its node's range), and each `oriet::` op's
+             own device ms.
 5. kernel  - one line per distinct QLinearConv shape of that run: the
              kernel against its plain version on the same (real) inputs on
              the card, bit for bit; kernel and library (torch._int_mm, 1x1
@@ -154,16 +156,16 @@ Phases, each printing JSON lines:
              batch's pageable copy to the card and np.concatenate alone.
 18. llama   - after phase 17: the Llama decoder (GQA, RoPE, SwiGLU,
              RMSNorm) at LlamaConfig()'s widths (dim 4096, 32 heads on 8 KV
-             heads of 128, FFN 16384, vocab 32000) with 4 of its 32 layers,
-             random weights from seed 0, every graph built inside
-             models.host_memo (weights drawn and packed once; host build
+             heads of 128, FFN 16384, vocab 32000) with LLAMA_LAYERS (1)
+             of its 32 layers, random weights from seed 0 (host build
              seconds printed). Generator(family="llama") with INT4 planar
              weights, an INT8 KV cache and fused attention at phase 6's
              batch, prompt, max_len and new tokens: counts set to 0 just
-             before, read just after: 29 int4 launches per prefill (all on
-             mma) and per step (25 on small_m, the 4 down projections at
-             K = 16384 on mma: every launch on int4_schedule's pick), 4
-             attention launches per step; prefill + 4 steps re-run through
+             before, read just after, for L layers: 7 L + 1 int4 launches
+             per prefill (all on mma) and per step (6 L + 1 on small_m, the
+             L down projections at K = 16384 on mma: every launch on
+             int4_schedule's pick), L attention launches per step;
+             prefill + 4 steps re-run through
              the plain versions on the CPU (logits within 1e-2 *
              max|logit|). The same with ORIET_ATTN_I8=1 (its own counts);
              device_loop = 8 (tokens equal the host loop's, counts over the
@@ -265,6 +267,28 @@ Phases, each printing JSON lines:
              `quantize` on SqueezeNet, `run` on both files; mse + bias
              correction's mean |INT8 - fp32| on 64 held-out images below
              minmax's.
+19c. export - after phase 19b: four Engines built from ONNX files as a
+             user builds them (import_onnx, calibrate + quantize_graph, or
+             quantize_weights_int4; random weights from seed 0):
+             SqueezeNet 1.0 INT8 and MobileNetV2 INT8 at 224x224, b256,
+             BERT-base INT8 at B 32, T 128, and GPT-2 124M's INT4-planar,
+             INT8-KV, fused-attention decode step at batch 8, max_len 256.
+             Each is written with export_aot.export_engine and loaded and
+             run in a fresh process (this script with --export-child),
+             which must import no ONNX codec, graph or op registry (it
+             exits non-zero otherwise): its outputs, eager and replayed,
+             equal the Engine's bit for bit, its launches per replayed
+             forward equal the Engine's kernel by kernel and split by
+             split. One line per model: the artifact's bytes and the weight
+             bytes it holds, the export seconds, the cold start (process
+             start to first output) of the artifact and of the importer
+             path (import_onnx -> quantize -> Engine) in a fresh process,
+             the two processes started together, and both replayed
+             throughputs (CUDA events, device-resident inputs; the
+             artifact's once the importer's process has exited). Then the CLI's `profile` on SqueezeNet INT8 at b256:
+             its trace must hold a QLinearConv range per node and forward,
+             every int8 conv launch under one. The phase's seconds on a
+             line of their own.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
@@ -275,6 +299,11 @@ Phases, each printing JSON lines:
              row per kernel and QOperator form of phase 19b (`instance`,
              sums per forward of its first model, the others in
              `qoperator_path`; launches from each form's own counts).
+
+The whole run is one models.host_memo block: every GPT-2 and Llama graph
+of one config and seed (Generators, servers, precision schemes, export
+files) draws and int4-packs its weights once. Every phase line carries
+t_s, the script's seconds so far.
 
 Then the nvidia-smi line again and, last, {"ok": true, "device": ...}. Any
 failed check raises: the script exits non-zero and prints no last line. It
@@ -347,7 +376,14 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
 }
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the script's seconds so far
+    (`t_s`), so that a run cut at its time limit shows where it was."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -490,7 +526,8 @@ def _squeezenet_golden_input() -> np.ndarray:
 def phase_slice():
     import onnx_rusty_inference_engine_tpu_torch as P
     from onnx_rusty_inference_engine_tpu_torch import onnx_io
-    from onnx_rusty_inference_engine_tpu_torch.debug import probe_graph
+    from onnx_rusty_inference_engine_tpu_torch.debug import (
+        dump_intermediates, intermediates)
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qconv_int8 import (
         qconv_int8_requant)
     from onnx_rusty_inference_engine_tpu_torch.utils.timing import (
@@ -551,31 +588,30 @@ def phase_slice():
                           "gather": 9 * int8_forwards},
             f"A producers per INT8 forward: {producers} for {int8_forwards}")
 
-    # every intermediate of the INT8 graph, on the card at b256 and through
-    # the plain versions on the CPU for the first CPU_CHECK images
-    probe = probe_graph(qgraph)
-    with torch.no_grad():
-        card = P.lower(probe, "cuda", eng8.packed)(
-            eng8.params, {"data_0": torch.as_tensor(x, device="cuda")})
-        host = P.Engine(probe, device="cpu")(
-            {"data_0": x[:CPU_CHECK]})
+    # every intermediate of the INT8 graph (debug.py), on the card at b256
+    # (as device tensors, with the Engine's weights) and through the plain
+    # versions on the CPU for the first CPU_CHECK images
+    card = intermediates(qgraph, feed, device="cuda", params=eng8.params,
+                         packed=eng8.packed)
+    host = dump_intermediates(qgraph, {"data_0": x[:CPU_CHECK]},
+                              device="cpu")
     n_eq = n_all = 0
     worst = 0
     for name, v in host.items():
-        if v.dtype != torch.int8:
+        if v.dtype != np.int8:
             continue
-        c = card[name][:CPU_CHECK].cpu()
+        c = card[name][:CPU_CHECK].cpu().numpy()
         n_eq += int((c == v).sum())
-        n_all += v.numel()
-        worst = max(worst, int((c.int() - v.int()).abs().max()))
-    out_err = float((card["softmaxout_1"][:CPU_CHECK].cpu()
-                     - host["softmaxout_1"]).abs().max())
+        n_all += v.size
+        worst = max(worst, int(np.abs(c.astype(np.int32) - v).max()))
+    out_err = float(np.abs(card["softmaxout_1"][:CPU_CHECK].cpu().numpy()
+                           - host["softmaxout_1"]).max())
     frac = n_eq / n_all
     require(frac > 0.99, f"card vs plain INT8 intermediates: {frac} equal")
     require(out_err <= 1e-3, f"card vs plain INT8 softmax: {out_err}")
     top1_agree = float((y8.reshape(BATCH, -1).argmax(1)
                         == y32.reshape(BATCH, -1).argmax(1)).float().mean())
-    layouts = _layouts(probe, card)
+    layouts = _layouts(qgraph, card)
     require(layouts["QLinearConv"]["channels_last"]
             == layouts["QLinearConv"]["outputs"] == n_qconv,
             f"every QLinearConv leaves channels-last: {layouts}")
@@ -666,7 +702,7 @@ def phase_profile(eng, eng8, feed, reps: int = 3, *, model: str = "",
         copies = [evt for evt in prof.key_averages()
                   if evt.device_type == torch.autograd.DeviceType.CUDA
                   and "copy" in evt.key.lower() and "CatArray" not in evt.key]
-        ops_ms = _ms_by_op(e, dev_feed, reps)
+        ops_ms, kernel_ops_ms = _ms_by_op(e, dev_feed, reps)
         emit({"phase": "profile", "engine": f"{model}{name}", "batch": batch,
               "wall_ms_per_forward_profiled": wall_ms,
               "device_busy_ms_per_forward": busy,
@@ -678,44 +714,26 @@ def phase_profile(eng, eng8, feed, reps: int = 3, *, model: str = "",
               "copy_ms_per_forward": sum(kernels.get(evt.key, 0.0)
                                          for evt in copies),
               "ops_ms_per_forward": ops_ms,
+              # the hand kernels' own device ms, each under its oriet:: op
+              # (and so under its node's range)
+              "kernel_ops_ms_per_forward": kernel_ops_ms,
               # what the emitters of the ops that run the int8 kernel still
-              # launch around it: their ranges hold PyTorch's kernels only
-              # (the int8 kernel, launched through ctypes, is not
-              # attributed to a range; its time is in buckets_ms)
-              f"{glue_op}_glue_ms": ops_ms.get(glue_op, 0.0),
+              # launch around it: their ranges' time less the kernel's own
+              f"{glue_op}_glue_ms": ops_ms.get(glue_op, 0.0) - sum(
+                  kernel_ops_ms.values()),
               "top_kernels_ms": [[k[:90], v] for k, v in top]})
 
 
-@contextlib.contextmanager
-def _op_ranges():
-    """Every emitter call of an Engine run inside a profiler range named
-    "op:<op type>", so that device time can be read by ONNX op type."""
-    from onnx_rusty_inference_engine_tpu_torch import engine as E
-
-    real = E.get_emitter
-
-    def ranged(*args, **kw):
-        emitter = real(*args, **kw)
-
-        def run(ctx, node, ins):
-            with torch.profiler.record_function(f"op:{node.op_type}"):
-                return emitter(ctx, node, ins)
-        return run
-
-    E.get_emitter = ranged
-    try:
-        yield
-    finally:
-        E.get_emitter = real
-
-
-def _ms_by_op(e, dev_feed, reps: int) -> dict:
-    """Device ms per forward of engine e by ONNX op type: the device time
-    of the kernels each op's emitter launched, from a profiled run with the
-    emitters in named ranges."""
+def _ms_by_op(e, dev_feed, reps: int) -> tuple:
+    """Device ms per forward of engine e by ONNX op type, and of each hand
+    kernel's op: from a profiled run, the device time of the kernels
+    launched under each node's range (`<OpType>.<node>`, entered by the
+    Engine itself while a profiler is active) summed by op type, and that
+    under each `oriet::` op."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), _op_ranges():
+    op_types = {n.op_type for n in e.graph.nodes}
+    with torch.no_grad():
         e._fn(e.params, dev_feed)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -723,15 +741,19 @@ def _ms_by_op(e, dev_feed, reps: int) -> dict:
             for _ in range(reps):
                 e._fn(e.params, dev_feed)
             torch.cuda.synchronize()
-    ops = {}
+    ops, kernels = {}, {}
     for evt in prof.key_averages():
-        if (evt.key.startswith("op:")
-                and evt.device_type == torch.autograd.DeviceType.CPU):
-            us = getattr(evt, "device_time_total", None)
-            if us is None:
-                us = evt.cuda_time_total
-            ops[evt.key[3:]] = ops.get(evt.key[3:], 0.0) + us / 1e3 / reps
-    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        op_type = evt.key.split(".", 1)[0]
+        if "." in evt.key and op_type in op_types:
+            ops[op_type] = ops.get(op_type, 0.0) + us / 1e3 / reps
+        elif evt.key.startswith("oriet::"):
+            kernels[evt.key] = us / 1e3 / reps
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1])), kernels
 
 
 def _conv_work(x, w, stride, padding):
@@ -2407,7 +2429,7 @@ def phase_serve_cnn(smi: str) -> None:
 # --------------------------------------------------------------------------
 # Llama decode: GQA, RoPE, SwiGLU, RMSNorm at LlamaConfig()'s widths
 # --------------------------------------------------------------------------
-LLAMA_LAYERS = 4           # of LlamaConfig()'s 32: the depth cut
+LLAMA_LAYERS = 1           # of LlamaConfig()'s 32: the depth cut
 LLAMA_SERVE_NEW = 32       # new tokens per served request
 
 
@@ -2431,9 +2453,10 @@ def _step_weight_bytes(gen) -> int:
 def _llama_main_path(gen, prompts, what: str, attention: str = None):
     """Drive gen.generate once with every count set to 0 just before and
     read just after: (tokens, counts, seconds). Holds every int4 launch to
-    its schedule (the prefill all on mma; a step's 4 down projections,
-    K = 16384, on mma and its other 25 launches on small_m), 29 int4
-    launches per pass and 4 `attention` launches per step."""
+    its schedule (the prefill all on mma; a step's L down projections,
+    K = 16384, on mma and its other 6 L + 1 launches on small_m), 7 L + 1
+    int4 launches per pass and L `attention` launches per step, for L =
+    LLAMA_LAYERS."""
     L = LLAMA_LAYERS
     steps = NEW - 1
     n4_pre, n4_dec, _ = _llama_counts(gen)
@@ -2442,14 +2465,16 @@ def _llama_main_path(gen, prompts, what: str, attention: str = None):
     toks, _ = gen.generate(prompts, NEW)
     counts = read_counts()
     seconds = time.perf_counter() - t0
-    require(n4_pre == n4_dec == 7 * L + 1, f"{what}: 29 MatMulNBits per "
-            f"graph: {n4_pre}, {n4_dec}")
+    require(n4_pre == n4_dec == 7 * L + 1, f"{what}: {7 * L + 1} "
+            f"MatMulNBits per graph: {n4_pre}, {n4_dec}")
     require(counts["qmatmul_int4_planar"] == n4_pre + n4_dec * steps,
-            f"{what}: 29 int4 launches per prefill and per step: {counts}")
+            f"{what}: {7 * L + 1} int4 launches per prefill and per step: "
+            f"{counts}")
     schedules = _int4_schedules(gen, "qmatmul_int4_planar", steps)
     require(schedules == {"general": 0, "small_m": (6 * L + 1) * steps,
                           "mma": n4_pre + L * steps},
-            f"{what}: the prefill on mma, per step 25 small_m and 4 mma: "
+            f"{what}: the prefill on mma, per step {6 * L + 1} small_m and "
+            f"{L} mma: "
             f"{schedules}")
     attn = {"decode_attention_int8": 0, "decode_attention_int8_mxu": 0}
     if attention:
@@ -2490,7 +2515,7 @@ def phase_llama(smi: str) -> dict:
         gen = _generator(cfg, family="llama", kv_dtype="int8",
                          int4_weights=True, fused_attention=True)
         out["build_s"] = time.perf_counter() - t0
-        require(_llama_counts(gen)[2] == L, "4 fused attentions")
+        require(_llama_counts(gen)[2] == L, f"{L} fused attentions")
         toks, counts, schedules, out["main_path_s"] = _llama_main_path(
             gen, prompts, "fused", "decode_attention_int8")
         t0 = time.perf_counter()
@@ -2536,8 +2561,8 @@ def phase_llama(smi: str) -> dict:
         require(counts_dl["qmatmul_int4_planar"] == (7 * L + 1) * (
                     1 + blocks * K)
                 and counts_dl["decode_attention_int8"] == L * blocks * K,
-                f"29 int4 and 4 attention launches per step over {blocks} "
-                f"replayed blocks: {counts_dl}")
+                f"{7 * L + 1} int4 and {L} attention launches per step over "
+                f"{blocks} replayed blocks: {counts_dl}")
         out.update(device_loop={"K": K, "blocks": blocks,
                                 "greedy_equals_host": True,
                                 "launches": counts_dl,
@@ -2557,8 +2582,8 @@ def phase_llama(smi: str) -> dict:
         rows["qmatmul_int4_planar"] = int4_kernel_row(
             gen, "qmatmul_int4_planar", counts["qmatmul_int4_planar"], smi,
             per=f"one {L}-layer Llama decode step at batch 8 (llama-7b "
-                f"widths): the sum over its 29 launches (7 per layer + the "
-                f"lm_head)")
+                f"widths): the sum over its {7 * L + 1} launches (7 per layer "
+                f"+ the lm_head)")
         rows.update(_llama_attention_rows(gen, prompts, counts, counts_i8,
                                           smi))
         del gen
@@ -3194,11 +3219,11 @@ def _cli(*args: str) -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True)
 
 
-def _finish(proc: subprocess.Popen, timeout: int = 600):
-    """(exit code, stdout, stderr) of a CLI subprocess; killed past
-    `timeout` seconds."""
+def _finish(proc: subprocess.Popen, stdin: str = None, timeout: int = 600):
+    """(exit code, stdout, stderr) of a subprocess, given `stdin`; killed
+    past `timeout` seconds."""
     try:
-        out, err = proc.communicate(timeout=timeout)
+        out, err = proc.communicate(stdin, timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
         out, err = proc.communicate()
@@ -3411,7 +3436,7 @@ def _precision_bert(smi: str) -> dict:
                     f"every MatMulInteger on the int32 epilogue: "
                     f"{epilogues}")
             row = _matmul_integer_row(gq, eng, dev_feed, launches, smi)
-            ops_ms = _ms_by_op(eng, dev_feed, 2)
+            ops_ms = _ms_by_op(eng, dev_feed, 2)[0]
         del eng
         torch.cuda.empty_cache()
     for name in out:
@@ -3635,7 +3660,7 @@ def _precision_decoder(family: str, cfg, smi: str, ort: bool = False):
                  "launches": {k: v for k, v in counts.items() if v},
                  "int4_a_dtypes": a_dt}
             if not int4:  # where a prefill's device time goes, by op type
-                r["ops_ms"] = _ms_by_op(gen.prefill, dev_feed, 2)
+                r["ops_ms"] = _ms_by_op(gen.prefill, dev_feed, 2)[0]
             if pd != "float32":
                 r["rel_err_vs_fp32"] = _rel_err(logits, ref)
                 r["top1_flips_vs_fp32"] = _flips(logits, ref)
@@ -4144,7 +4169,7 @@ def phase_qoperator_model(model: str, smi: str) -> dict:
     else:
         ok, bound_s = (top1 == 1.0 or soft < 0.15,
                        "top-1 equal or max |softmax d| < 0.15")
-    by_op = _ms_by_op(engines["uint8"], dev_feed, 3)
+    by_op = _ms_by_op(engines["uint8"], dev_feed, 3)[0]
     emit({"phase": "qoperator", "model": model, "size": "224x224",
           "batch": BATCH, "main_path_s": main_s, "forwards": forwards,
           "images_per_s": {f: BATCH / ms[f] * 1e3 for f in QOP_FORMS},
@@ -4196,17 +4221,19 @@ def phase_qoperator_cli(smi: str) -> dict:
         files = {"mse_bias_correct": ["--calibration", "mse",
                                       "--bias-correct"],
                  "minmax": []}
-        res = {}
-        for k, flags in files.items():
-            res[f"quantize_{k}"] = _finish(_cli(
-                "quantize", "--model", model, "--out",
-                os.path.join(d, f"{k}.onnx"), "--calib-input",
-                os.path.join(d, "calib.pb"), *flags))
-        for k in files:
-            res[f"run_{k}"] = _finish(_cli(
-                "run", "--model", os.path.join(d, f"{k}.onnx"), "--input",
-                os.path.join(d, "in.pb"), "--golden",
-                os.path.join(d, "out.pb"), "--rtol", "1", "--atol", "1"))
+        # both quantizers at once, then both runs at once: no timed step
+        procs = {f"quantize_{k}": _cli(
+            "quantize", "--model", model, "--out",
+            os.path.join(d, f"{k}.onnx"), "--calib-input",
+            os.path.join(d, "calib.pb"), *flags)
+            for k, flags in files.items()}
+        res = {k: _finish(p) for k, p in procs.items()}
+        procs = {f"run_{k}": _cli(
+            "run", "--model", os.path.join(d, f"{k}.onnx"), "--input",
+            os.path.join(d, "in.pb"), "--golden",
+            os.path.join(d, "out.pb"), "--rtol", "1", "--atol", "1")
+            for k in files}
+        res.update({k: _finish(p) for k, p in procs.items()})
         for k, (rc, out, err) in res.items():
             require(rc == 0, f"cli {k} exited {rc}: {err[-2000:]}")
         dev = {"data_0": torch.as_tensor(held, device="cuda")}
@@ -4320,19 +4347,425 @@ def _qop_rows(per_model: dict, convint: dict, smi: str) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# export: the deployment artifact, loaded in a fresh process
+# --------------------------------------------------------------------------
+EXPORT_ITERS = 20   # replayed forwards timed per Engine and per artifact
+EXPORT_REPS = 3     # replayed forwards whose launches are counted
+
+# model -> (output checked for shape, per-second unit, launches per
+# forward): the four Engines of the phase, each built the way a user
+# would build it from an ONNX file (_export_pipeline)
+EXPORT = {
+    "squeezenet1.0 int8 b256": ("softmaxout_1", "images",
+                                {"qconv_int8_requant": 26}),
+    "mobilenetv2 int8 b256": ("output", "images",
+                              {"qconv_int8_requant": 35,
+                               "qconv_grouped_int8_requant": 17,
+                               "qmatmul_int8": 1}),
+    "bert-base int8 B32 T128": ("pooler_output", "sequences",
+                                {"qmatmul_int8": 73}),
+    "gpt2 124M int4 int8kv decode step b8": ("logits", "tokens",
+                                             {"qmatmul_int4_planar": 49,
+                                              "decode_attention_int8": 12}),
+}
+
+# what a loaded artifact must not have imported
+IMPORTER_MODULES = tuple(f"{PKG}.{m}" for m in ("onnx_io", "graph",
+                                                "ops.registry"))
+
+
+def _export_files(model: str, d: str) -> None:
+    """Write the model's fp32 graph (random weights from seed 0) as
+    d/model.onnx and its feed as d/feed.npz: SqueezeNet and MobileNetV2 at
+    224x224, b256 (x from default_rng(0)); BERT-base at B 32, T 128 (phase
+    9's feed); GPT-2 124M's INT8-KV, fused-attention decode step at batch 8
+    and max_len 256 (phase 6's shapes), fed token ids, position 64 (a
+    64-token prompt) and random int8 caches and KV scales."""
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+
+    rng = np.random.default_rng(0)
+    if model.startswith(("squeezenet", "mobilenet")):
+        import onnx_rusty_inference_engine_tpu_torch as P
+
+        proto = (P.build_squeezenet() if model.startswith("squeezenet")
+                 else P.build_mobilenetv2())
+        x = rng.standard_normal((BATCH, 3, 224, 224)).astype(np.float32)
+        feed = {"data_0" if model.startswith("squeezenet") else "input": x}
+    elif model.startswith("bert"):
+        from onnx_rusty_inference_engine_tpu_torch.models.bert import (
+            BASE, build_bert)
+
+        proto = build_bert(BASE, batch=BERT_BATCH, seq_len=BERT_SEQ, seed=0)
+        feed = _bert_feed(BASE.vocab_size)
+    else:
+        from onnx_rusty_inference_engine_tpu_torch.models import (
+            build_gpt2_decode)
+        from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import (
+            GPT2Config)
+
+        cfg = GPT2Config()
+        proto = build_gpt2_decode(cfg, batch=DEC_BATCH, max_len=MAX_LEN,
+                                  kv_dtype="int8", fused_attention=True,
+                                  seed=0)
+        hd = cfg.n_embd // cfg.n_head
+        feed = {"input_ids": rng.integers(0, cfg.vocab_size, (DEC_BATCH, 1)),
+                "pos": np.full((DEC_BATCH,), PROMPT, dtype=np.int64)}
+        for i in range(cfg.n_layer):
+            for kind in ("key", "value"):
+                feed[f"past_{kind}_{i}"] = rng.integers(
+                    -127, 128, (DEC_BATCH, cfg.n_head, MAX_LEN, hd)
+                ).astype(np.int8)
+                feed[f"kv_scale_{kind}_{i}"] = (
+                    rng.random(cfg.n_head) * 0.05 + 0.01).astype(np.float32)
+    onnx_io.save_model(os.path.join(d, "model.onnx"), proto)
+    np.savez(os.path.join(d, "feed.npz"), **feed)
+
+
+def _export_pipeline(model: str, d: str):
+    """(Engine, feed) as a user builds them from d/model.onnx: import_onnx,
+    then calibrate and quantize_graph, or, for the decode step,
+    quantize_weights_int4; then Engine on the card. The CNNs calibrate on
+    their first CALIB images; BERT, whose graph bakes its batch into its
+    Reshapes, on its whole feed (phase 9's B = 8 calibration graph would
+    be a second file)."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.quant import (
+        quantize_weights_int4)
+
+    graph = P.import_onnx(os.path.join(d, "model.onnx"))
+    feed = dict(np.load(os.path.join(d, "feed.npz")))
+    if model.startswith("gpt2"):
+        graph = quantize_weights_int4(graph)
+    else:
+        calib = ({k: v[:CALIB] for k, v in feed.items()}
+                 if not model.startswith("bert") else feed)
+        graph = P.quantize_graph(graph, ranges=P.calibrate(graph, [calib]))
+    return P.Engine(graph), feed
+
+
+def _replayed(run, feed, iters: int):
+    """(per-forward device ms of `run` (an Engine or a loaded artifact,
+    already warm) on device-resident inputs, by CUDA events around
+    `iters` calls; launches per call, `"kernel|counter|variant"` ->
+    count, over EXPORT_REPS calls; the device kernels of one profiled
+    call, name -> [count, device ms])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import counters
+
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in feed.items()}
+    with torch.no_grad():
+        run(dev)
+        torch.cuda.synchronize()
+        before = counters.snapshot()
+        for _ in range(EXPORT_REPS):
+            run(dev)
+        torch.cuda.synchronize()
+        gains = {"|".join(k): n / EXPORT_REPS
+                 for k, n in counters.delta(before).items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            run(dev)
+        end.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(dev)
+            torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            kernels[evt.key[:120]] = [evt.count, us / 1e3]
+    return start.elapsed_time(end) / iters, gains, kernels
+
+
+def _kernel_diff(a: dict, b: dict) -> dict:
+    """The kernels whose count per call differs between two _replayed
+    profiles: name -> [count in a, count in b]."""
+    return {k: [a.get(k, [0])[0], b.get(k, [0])[0]]
+            for k in sorted(set(a) | set(b))
+            if a.get(k, [0])[0] != b.get(k, [0])[0]}
+
+
+def export_child(argv) -> int:
+    """`chip_smoke.py --export-child artifact|importer MODEL DIR`: a fresh
+    process that runs d/feed.npz once through the loaded artifact (d/
+    a.oriet.npz) or through the importer path (_export_pipeline) and prints
+    one JSON line: the wall clock at its first output (synchronized),
+    its outputs' file, and, for the artifact, the modules it imported,
+    its replayed ms and launches per forward. The artifact child exits 3
+    if it imported the ONNX codec, the graph or the op registry."""
+    kind, model, d = argv
+    t_main = time.time()  # the interpreter, numpy and torch imported
+    sys.path.insert(0, HERE)
+    torch.cuda.init()
+    t_cuda = time.time()
+    if kind == "artifact":
+        from onnx_rusty_inference_engine_tpu_torch.export_aot import (
+            load_exported)
+
+        m = load_exported(os.path.join(d, "a.oriet.npz"))
+        feed = dict(np.load(os.path.join(d, "feed.npz")))
+    else:
+        m, feed = _export_pipeline(model, d)
+    t_ready = time.time()
+    first = m(feed)
+    torch.cuda.synchronize()
+    t_first = time.time()
+    out = {"first_output_at": t_first, "main_at": t_main, "cuda_at": t_cuda,
+           "ready_at": t_ready,
+           "dynamo_imported": "torch._dynamo" in sys.modules}
+    if kind == "artifact":
+        replayed = m(feed)
+        np.savez(os.path.join(d, "artifact_out.npz"),
+                 **{f"first:{k}": v.cpu().numpy() for k, v in first.items()},
+                 **{f"replayed:{k}": v.cpu().numpy()
+                    for k, v in replayed.items()})
+        sys.stdin.readline()  # the importer child has exited: time alone
+        out["ms"], out["launches_per_forward"], out["kernels"] = _replayed(
+            m, feed, EXPORT_ITERS)
+        out["load_split_s"] = m.load_split_s
+        out["importer_modules"] = [n for n in IMPORTER_MODULES
+                                   if n in sys.modules]
+        out["jax_imported"] = any(n == "jax" or n.startswith("jax.")
+                                  for n in sys.modules)
+    print(json.dumps(out), flush=True)
+    if kind == "artifact" and (out["importer_modules"]
+                               or out["jax_imported"]):
+        return 3
+    return 0
+
+
+def _children(model: str, d: str) -> dict:
+    """Run export_child for the artifact and for the importer path, both
+    fresh processes started together (their cold starts side by side, in
+    the same conditions); the artifact child times its replays once the
+    importer child has exited. kind -> its JSON line plus `cold_start_s`,
+    from just before its process starts to its first output. A child that
+    fails fails the phase; none outlives it."""
+    kids = {}
+    try:
+        for kind in ("artifact", "importer"):
+            t0 = time.time()
+            kids[kind] = (t0, subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--export-child", kind, model, d], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=HERE))
+        return {kind: _child_result(model, kind, *kids[kind])
+                for kind in ("importer", "artifact")}
+    finally:
+        for _, proc in kids.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _child_result(model: str, kind: str, t0: float,
+                  proc: subprocess.Popen) -> dict:
+    """One export_child's JSON line (the artifact child is let go on to
+    its replays here) and where its cold start went."""
+    rc, stdout, stderr = _finish(proc, "\n")
+    require(rc == 0, f"{model}: the {kind} child exited {rc}:\n"
+            f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    out["cold_start_s"] = out["first_output_at"] - t0
+    # where the cold start went: process start and imports, CUDA's
+    # context, loading (the artifact) or importing, quantizing and
+    # building (the Engine), the first call (eager run and capture)
+    out["cold_start_split_s"] = {
+        "process_and_imports": out["main_at"] - t0,
+        "cuda_init": out["cuda_at"] - out["main_at"],
+        "load_or_build": out["ready_at"] - out["cuda_at"],
+        "first_call": out["first_output_at"] - out["ready_at"]}
+    return out
+
+
+def phase_export_model(model: str, d: str, smi: str) -> dict:
+    """One model: its Engine from the ONNX file; export_engine; the
+    artifact run in a fresh process that imports no ONNX codec, graph or
+    op registry; its outputs (first, eager, and replayed) equal the
+    Engine's bit for bit; its launches per replayed forward equal the
+    Engine's, kernel by kernel and split by split; cold starts of the
+    artifact and of the importer path, each in a fresh process, the two
+    started together; replayed throughput of both."""
+    from onnx_rusty_inference_engine_tpu_torch.export_aot import (
+        export_engine)
+
+    out_name, unit, per_forward = EXPORT[model]
+    t0 = time.perf_counter()
+    _export_files(model, d)
+    files_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng, feed = _export_pipeline(model, d)
+    want = {k: v.cpu().numpy() for k, v in eng(feed).items()}
+    build_s = time.perf_counter() - t0
+    batch = int(next(iter(feed.values())).shape[0])
+    require(want[out_name].shape[0] == batch
+            and np.isfinite(want[out_name]).all(),
+            f"{model}: {out_name} {want[out_name].shape} finite")
+    eng_ms, eng_gains, eng_kernels = _replayed(eng, feed, EXPORT_ITERS)
+    want_gains = {f"{k}|launches|": n for k, n in per_forward.items()}
+    require({k: n for k, n in eng_gains.items() if k.endswith("|launches|")}
+            == want_gains,
+            f"{model}: Engine launches per forward {eng_gains}")
+    art = os.path.join(d, "a.oriet.npz")
+    t0 = time.perf_counter()
+    export_engine(eng, feed, art)
+    export_s = time.perf_counter() - t0
+    with np.load(art) as z:
+        weight_bytes = sum(z[k].nbytes for k in z.files
+                           if k.startswith(("p:", "k:")))
+        program_bytes = z["__exported__:cuda"].nbytes
+    del eng
+    torch.cuda.empty_cache()
+
+    kids = _children(model, d)
+    loaded, importer = kids["artifact"], kids["importer"]
+    with np.load(os.path.join(d, "artifact_out.npz")) as z:
+        for when in ("first", "replayed"):
+            for k, v in want.items():
+                got = z[f"{when}:{k}"]
+                require(got.dtype == v.dtype and np.array_equal(got, v),
+                        f"{model}: the artifact's {when} {k} equals the "
+                        f"Engine's bit for bit")
+    require(loaded["launches_per_forward"] == eng_gains,
+            f"{model}: launches per replayed forward, artifact "
+            f"{loaded['launches_per_forward']} vs Engine {eng_gains}")
+    return {"phase": "export", "model": model, "batch": batch,
+            "artifact_bytes": os.path.getsize(art),
+            "weight_bytes": weight_bytes, "program_bytes": program_bytes,
+            "export_s": export_s, "files_s": files_s,
+            "engine_build_s": build_s,
+            "cold_start_s": {"artifact": loaded["cold_start_s"],
+                             "importer": importer["cold_start_s"]},
+            "cold_starts_side_by_side": True,
+            "cold_start_split_s": {
+                "artifact": loaded["cold_start_split_s"],
+                "importer": importer["cold_start_split_s"]},
+            "artifact_load_split_s": loaded["load_split_s"],
+            "dynamo_imported": {"artifact": loaded["dynamo_imported"],
+                                "importer": importer["dynamo_imported"]},
+            f"{unit}_per_s_replayed": {
+                "artifact": batch / loaded["ms"] * 1e3,
+                "engine": batch / eng_ms * 1e3},
+            "ms_replayed": {"artifact": loaded["ms"], "engine": eng_ms},
+            "artifact_over_engine": eng_ms / loaded["ms"],
+            # one profiled replayed call each: device kernels and busy ms,
+            # and the kernels whose count differs (artifact, Engine)
+            "kernels_per_call": {
+                "artifact": sum(n for n, _ in loaded["kernels"].values()),
+                "engine": sum(n for n, _ in eng_kernels.values())},
+            "busy_ms_per_call": {
+                "artifact": sum(ms for _, ms in loaded["kernels"].values()),
+                "engine": sum(ms for _, ms in eng_kernels.values())},
+            "kernel_count_diff": _kernel_diff(loaded["kernels"],
+                                              eng_kernels),
+            "outputs_equal_bit_for_bit": True,
+            "launches_per_forward": eng_gains,
+            "child_imported": loaded["importer_modules"],
+            "device": smi}
+
+
+def _trace_attribution(trace_dir: str, kernel: str) -> dict:
+    """From the chrome trace `profile` wrote: each `QLinearConv.<node>`
+    range, the device time of the `kernel` launches made under it (the
+    launch's runtime call within the range on its thread, matched to the
+    kernel by correlation id)."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("ph") == "X"
+              and e.get("name", "").startswith("QLinearConv.")
+              and e.get("cat") == "user_annotation"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel in e.get("name", "")]
+    held, under = [], set()
+    for k in kernels:
+        launch = launches.get(k["args"].get("correlation"))
+        r = None if launch is None else next(
+            (i for i, r in enumerate(ranges) if r["tid"] == launch["tid"]
+             and r["ts"] <= launch["ts"] <= r["ts"] + r["dur"]), None)
+        if r is not None:
+            held.append(k["dur"])
+            under.add(r)
+    return {"ranges": len(ranges), "kernels": len(kernels),
+            "kernels_under_ranges": len(held),
+            "ranges_holding_the_kernel": len(under),
+            "kernel_ms_under_ranges": sum(held) / 1e3,
+            "kernel_ms": sum(k["dur"] for k in kernels) / 1e3}
+
+
+def phase_export(smi: str) -> None:
+    """The four Engines of EXPORT through export_engine and a fresh
+    process each (phase_export_model), then `profile` once on SqueezeNet
+    INT8 (the CLI, as a user runs it: a process of its own; a trace taken
+    after this process's many profiler sessions can lack a kernel): its
+    trace must hold a QLinearConv range per node and forward, with every
+    int8 conv kernel's device time under one."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    for model in EXPORT:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(HERE, "build")) as d:
+            emit(phase_export_model(model, d, smi))
+        torch.cuda.empty_cache()
+    steps = 2
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        _export_files("squeezenet1.0 int8 b256", d)
+        t0 = time.perf_counter()
+        rc, out, err = _finish(_cli(
+            "profile", "--model", os.path.join(d, "model.onnx"),
+            "--quantize", "int8", "--batch", str(BATCH), "--steps",
+            str(steps), "--trace-dir", os.path.join(d, "trace")))
+        require(rc == 0, f"profile exited {rc}: {err[-3000:]}")
+        body = json.loads(out.strip().splitlines()[-1])
+        require(body["steps"] == steps and "forwards" in body,
+                f"profile's JSON {body}")
+        seen = _trace_attribution(os.path.join(d, "trace"),
+                                  "qconv_int8_requant")
+    require(seen["ranges"] == seen["kernels"] == 26 * steps
+            and seen["kernels_under_ranges"] == 26 * steps
+            and seen["ranges_holding_the_kernel"] == 26 * steps
+            and seen["kernel_ms_under_ranges"] > 0,
+            f"profile: every int8 conv launch under its QLinearConv range "
+            f"{seen}")
+    emit({"phase": "export_profile", "model": "squeezenet1.0 int8 b256",
+          "steps": steps, "seconds": time.perf_counter() - t0, **seen})
+    emit({"phase": "export_seconds",
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
     require(os.path.isdir(os.path.join(HERE, PKG)),
             f"the package {PKG}/ beside this script")
     sys.path.insert(0, HERE)
+    from onnx_rusty_inference_engine_tpu_torch.models import host_memo
+
     t_start = time.perf_counter()
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
+        # host_memo: the GPT-2 and Llama graphs of one config and seed, in
+        # every phase, draw and pack their weights once
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                         deterministic=False,
-                                        allow_tf32=False):
+                                        allow_tf32=False), host_memo():
             smi = phase_device()
             phase_build()
             eng, qgraph, eng8, card, launches, feed = phase_slice()
@@ -4376,11 +4809,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_int4_sweep(smi)
             phase_serve(smi)
-            from onnx_rusty_inference_engine_tpu_torch.models import (
-                host_memo)
-            with host_memo():  # the precision phase reuses Llama's weights
-                llama = phase_llama(smi)
-                rows += phase_precision(smi)
+            llama = phase_llama(smi)
+            rows += phase_precision(smi)
             for row in rows:
                 if row["name"] in llama:
                     row["llama_path"] = llama[row["name"]]
@@ -4390,6 +4820,7 @@ def main() -> int:
                     row["vision_path"] = vision[row["name"]]
             rows.insert(1, grouped)
             rows += phase_qoperator(smi)
+            phase_export(smi)
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]
@@ -4410,4 +4841,6 @@ def _finish_ok() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--export-child"]:
+        sys.exit(export_child(sys.argv[2:]))
     sys.exit(main())

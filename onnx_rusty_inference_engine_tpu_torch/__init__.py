@@ -10,16 +10,34 @@ included) and decode attention run on hand-written Hopper kernels
 MobileNetV2, ViT, BERT, GPT-2 and Llama (models/), servers (serve.py,
 serving/, http_serve.py), `onnx_make_inference` (api.py) and a CLI
 (`python -m onnx_rusty_inference_engine_tpu_torch.cli`) sit on top. This
-package imports no JAX and nothing of the JAX package.
+package imports no JAX and nothing of the JAX package. Its names are
+imported on first use, so that a loaded artifact (export_aot.py) imports
+only the modules it runs.
 """
 
-from . import onnx_io
-from .api import onnx_make_inference
-from .engine import Engine, InferenceResult, lower
-from .graph import Graph, import_model, import_onnx
-from .models import (build_mobilenetv2, build_resnet50, build_squeezenet,
-                     build_vit)
-from .quant import QuantConfig, calibrate, quantize_graph
+import importlib
+
+# name -> the submodule that defines it; imported on first access (PEP 562),
+# so that a process that imports only some submodules (a loaded artifact,
+# export_aot.py, which must not import the ONNX codec, the graph or the op
+# registry) does not import the rest
+_LAZY = {
+    "onnx_io": None,
+    "onnx_make_inference": "api",
+    "Engine": "engine",
+    "InferenceResult": "engine",
+    "lower": "engine",
+    "Graph": "graph",
+    "import_model": "graph",
+    "import_onnx": "graph",
+    "build_mobilenetv2": "models",
+    "build_resnet50": "models",
+    "build_squeezenet": "models",
+    "build_vit": "models",
+    "QuantConfig": "quant",
+    "calibrate": "quant",
+    "quantize_graph": "quant",
+}
 
 __all__ = [
     "onnx_io",
@@ -38,3 +56,16 @@ __all__ = [
     "build_mobilenetv2",
     "build_vit",
 ]
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f".{_LAZY[name] or name}", __name__)
+    value = module if _LAZY[name] is None else getattr(module, name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -3,9 +3,13 @@ onnx_rusty_inference_engine_tpu/cli.py.
 
     python -m onnx_rusty_inference_engine_tpu_torch.cli run --model m.onnx
         --input in.pb [--golden out.pb] [--batch N] [--quantize int8|w8a8]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--dump-stats] [--dump-tensors out.npz]
     ... bench --model m.onnx [--batch 64] [--steps 100] [--quantize ...]
     ... inspect --model m.onnx
+    ... profile --model m.onnx [--trace-dir DIR] [--batch 8] [--steps 10]
+    ... export --model m.onnx --out m.oriet.npz [--input in.pb]
+        [--platforms cpu,cuda] [--quantize ...] [--dtype ...]
+    ... run-exported --artifact m.oriet.npz --input in.pb [--golden out.pb]
     ... quantize --model m.onnx --out q.onnx [--calib-input in.pb]
         [--calibration minmax|percentile|mse] [--bias-correct]
     ... generate [--family gpt2|llama] [--int4] [--kv-dtype int8]
@@ -18,8 +22,11 @@ The subcommands take the JAX CLI's flags and print its JSON. The port adds
 "cpu" runs on the CPU): the JAX package picks its platform from the
 environment, the port is told. `bench` reports the device by name
 (`torch.cuda.get_device_name()`, or "cpu"). A flag whose machinery the port
-lacks exits with code 2 and names the ROADMAP item that ports it. `profile`,
-`export` and `run-exported` are not ported yet (ROADMAP 1.11).
+lacks exits with code 2 and names the ROADMAP item that ports it.
+`profile` traces eager forwards (a replayed CUDA graph runs no Python, so
+it would carry no node ranges) and says so in its JSON (`forwards`);
+`export` writes the port's artifact (export_aot.py), which `run-exported`
+runs with no ONNX importer behind it.
 """
 
 from __future__ import annotations
@@ -59,9 +66,6 @@ def _unported(args) -> List[Tuple[str, str]]:
         ("--adapter", "1.8", bool(getattr(args, "adapter", 0))),
         (f"--lora-rank {getattr(args, 'lora_rank', 8)}", "1.8",
          getattr(args, "lora_rank", 8) != 8),
-        ("--dump-stats / --dump-tensors", "1.11",
-         bool(getattr(args, "dump_stats", False)
-              or getattr(args, "dump_tensors", None))),
     )
     return [(flag, item) for flag, item, on in checks if on]
 
@@ -123,6 +127,20 @@ def cmd_run(args) -> int:
         for i, n in enumerate(graph.nodes):
             print(f"[node {i:3d}] {n.op_type:20s} {n.name} "
                   f"{n.inputs} -> {n.outputs}", file=sys.stderr)
+
+    if args.dump_stats or args.dump_tensors:
+        # every intermediate tensor from ONE eager probe-graph run
+        # (debug.py), as the JAX CLI surfaces them
+        from .debug import dump_intermediates, tensor_stats
+
+        vals = dump_intermediates(graph, feed, device=args.device)
+        if args.dump_tensors:
+            np.savez(args.dump_tensors, **vals)
+            print(f"wrote {len(vals)} tensors to {args.dump_tensors}",
+                  file=sys.stderr)
+        if args.dump_stats:
+            for row in tensor_stats(vals):
+                print(json.dumps(row), file=sys.stderr)
 
     res = engine.run(feed)
     print(json.dumps({
@@ -250,6 +268,100 @@ def cmd_quantize(args) -> int:
     return 0
 
 
+def _synthetic_feed(graph, batch: int) -> dict:
+    """Every input at `batch`, standard-normal values in its dtype (the
+    JAX CLI's synthetic feed)."""
+    rng = np.random.default_rng(0)
+    return {s.name: rng.standard_normal(
+        s.concrete_shape(batch=batch)).astype(s.dtype) for s in graph.inputs}
+
+
+def cmd_profile(args) -> int:
+    """Trace `--steps` eager forwards after a warm-up (utils/profiling.py):
+    each node's kernels under a `<OpType>.<node name>` range, each hand
+    kernel under its `oriet::` op."""
+    import torch
+
+    from .graph import import_onnx
+    from .utils.profiling import trace
+
+    graph = import_onnx(args.model)
+    engine = _build_engine(args, graph)
+    spec = graph.inputs[0]
+    shape = list(spec.concrete_shape(batch=args.batch))
+    shape[0] = args.batch  # as `bench`: the batch even over a static 1
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(spec.dtype)
+    feed = {spec.name: torch.as_tensor(x, device=engine.device)}
+    with torch.no_grad():
+        engine.forward(feed)  # builds the kernels outside the trace
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+        with trace(args.trace_dir):
+            for _ in range(args.steps):
+                engine.forward(feed)
+    print(json.dumps({"trace_dir": args.trace_dir, "steps": args.steps,
+                      "view": f"tensorboard --logdir {args.trace_dir}",
+                      "forwards": "eager: a replayed CUDA graph runs no "
+                                  "Python and carries no node ranges"}))
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Write the port's artifact (export_aot.py): the Engine's program and
+    weights, optionally quantized first, for one or both platforms."""
+    from .export_aot import export_engine
+    from .graph import import_onnx
+
+    graph = import_onnx(args.model)
+    engine = _build_engine(args, graph)
+    feed = (_read_feed(args.input, graph) if args.input
+            else _synthetic_feed(graph, args.batch))
+    platforms = args.platforms.split(",") if args.platforms else None
+    export_engine(engine, feed, args.out, platforms=platforms)
+    print(json.dumps({
+        "artifact": args.out,
+        "bytes": os.path.getsize(args.out),
+        "platforms": platforms or [engine.device.type],
+        "inputs": {k: list(np.shape(v)) for k, v in feed.items()},
+    }))
+    return 0
+
+
+def cmd_run_exported(args) -> int:
+    """Run an artifact: no ONNX importer, graph or op registry in the
+    path (the .pb inputs are read with the tensor codec)."""
+    from . import onnx_io
+    from .export_aot import load_exported
+
+    m = load_exported(args.artifact, device=args.device)
+    feed = {}
+    for spec_str in args.input:
+        name, path = _split_input_spec(spec_str)
+        t = onnx_io.read_tensor_file(path)
+        feed[name or t.name or list(m.input_specs)[len(feed)]] = t.array
+    t0 = time.perf_counter()
+    out = m.run(feed)
+    latency = time.perf_counter() - t0
+    print(json.dumps({
+        "outputs": {k: v.reshape(v.shape[0], -1)[:, :16].tolist()
+                    for k, v in out.items()},
+        "output_shapes": {k: list(v.shape) for k, v in out.items()},
+        "latency_s": latency,
+        "platforms": m.platforms,
+    }, indent=2))
+    if args.golden:
+        g = onnx_io.read_tensor_file(args.golden)
+        out_name = g.name if g.name in out else next(iter(out))
+        got = out[out_name][:1].reshape(g.array.shape)
+        ok = np.allclose(got, g.array, rtol=args.rtol, atol=args.atol)
+        err = float(np.max(np.abs(got - g.array)))
+        print(f"golden: {'MATCH' if ok else 'MISMATCH'} "
+              f"(max_abs_err={err:.3e})")
+        return 0 if ok else 1
+    return 0
+
+
 def _decoder_config(args):
     if args.family == "gpt2":
         from .models.gpt2 import GPT2Config
@@ -331,9 +443,10 @@ def main(argv: Optional[list] = None) -> int:
     pr.add_argument("--log-ops", action="store_true",
                     help="per-node log (parity with reference debug_prints)")
     pr.add_argument("--dump-stats", action="store_true",
-                    help="not ported yet (ROADMAP 1.11)")
+                    help="print per-intermediate-tensor min/max/mean/shape "
+                         "JSON rows to stderr (probe-graph run)")
     pr.add_argument("--dump-tensors", metavar="OUT.npz",
-                    help="not ported yet (ROADMAP 1.11)")
+                    help="save every intermediate tensor to a .npz")
     _device_flag(pr)
     pr.set_defaults(fn=cmd_run)
 
@@ -351,6 +464,50 @@ def main(argv: Optional[list] = None) -> int:
     pi = sub.add_parser("inspect", help="print graph summary")
     pi.add_argument("--model", required=True)
     pi.set_defaults(fn=cmd_inspect)
+
+    pp = sub.add_parser("profile", help="capture a torch.profiler trace "
+                                        "with ONNX-node-name ranges")
+    pp.add_argument("--model", required=True)
+    pp.add_argument("--trace-dir", dest="trace_dir", default="/tmp/oriet_tb")
+    pp.add_argument("--batch", type=int, default=8)
+    pp.add_argument("--steps", type=int, default=10)
+    pp.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    pp.add_argument("--quantize", choices=["int8", "w8a8"])
+    pp.add_argument("--input")
+    _device_flag(pp)
+    pp.set_defaults(fn=cmd_profile)
+
+    pe = sub.add_parser("export",
+                        help="AOT-export: the Engine's program (torch.export)"
+                             " + weights as one artifact (load with "
+                             "run-exported; no ONNX importer needed at serve "
+                             "time)")
+    pe.add_argument("--model", required=True)
+    pe.add_argument("--out", required=True, help="artifact path (.npz)")
+    pe.add_argument("--batch", type=int, default=1)
+    pe.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    pe.add_argument("--quantize", choices=["int8", "w8a8"])
+    pe.add_argument("--input", action="append",
+                    help="TensorProto .pb fixing input shapes (and int8 "
+                         "calibration); default: synthetic at --batch")
+    pe.add_argument("--platforms",
+                    help='comma-separated targets, "cpu", "cuda" or '
+                         '"cpu,cuda" (default: --device)')
+    _device_flag(pe)
+    pe.set_defaults(fn=cmd_export)
+
+    pre = sub.add_parser("run-exported",
+                         help="run an AOT artifact on a TensorProto input")
+    pre.add_argument("--artifact", required=True)
+    pre.add_argument("--input", required=True, action="append",
+                     help="TensorProto .pb; repeatable, optionally name=path")
+    pre.add_argument("--golden")
+    pre.add_argument("--rtol", type=float, default=1e-4)
+    pre.add_argument("--atol", type=float, default=1e-3)
+    _device_flag(pre)
+    pre.set_defaults(fn=cmd_run_exported)
 
     ps = sub.add_parser("serve", help="HTTP inference server "
                                       "(continuous batching)")

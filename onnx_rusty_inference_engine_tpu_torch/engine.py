@@ -27,40 +27,25 @@ that needs it raises).
 
 from __future__ import annotations
 
-import contextlib
-import gc
-import os
-import threading
 import time
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .graph import _FOLDABLE, Graph, _fold_one, _shape_slice
-from . import ops  # noqa: F401  (importing ops fills the registry)
-from .ops.kernels import counters
 from .ops.registry import LoweringContext, UnsupportedOpError, get_emitter
+from .runtime import (Replay, capture, captures, collector_held,
+                      resolve_device, side_stream, signature)
 from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
 
-__all__ = ["lower", "Engine", "InferenceResult", "resolve_device",
-           "captures", "capture", "collector_held", "Replay", "signature",
-           "side_stream"]
+__all__ = ["lower", "lower_packed", "node_label", "Engine",
+           "InferenceResult", "resolve_device", "captures", "capture",
+           "collector_held", "Replay", "signature", "side_stream"]
 
 # ops that need no emitter when their inputs are known before the run
 # (Shape/Size always are; the foldable ops when fed static values)
 _STATIC_OPS = {"Shape", "Size"} | _FOLDABLE
-
-
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device without a card raises
-    instead of quietly running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} asked for but no CUDA device is "
-            f"available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
@@ -73,6 +58,25 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
     holds the pre-packed QLinearConv and QLinearMatMul weights the kernels
     read on the card (`weights.prepack_int8_weights`; `Engine` makes
     them)."""
+    fn = lower_packed(graph, device)
+    packed = {} if packed is None else packed
+
+    def bound(params, inputs, statics=None):
+        return fn(params, packed, inputs, statics)
+
+    return bound
+
+
+def lower_packed(graph: Graph, device):
+    """`lower`'s function with the packed weights an argument:
+    `f(params, packed, inputs, statics=None)`. torch.export traces it
+    (export_aot.py), so that the weights and the packed weights are inputs
+    of the program, stored once beside it, and not constants inside it.
+
+    Each emitter call runs inside a profiler range named
+    `<OpType>.<node name>` (the node's first output where it has no name),
+    the label of the JAX lowering's `jax.named_scope`, while a profiler is
+    active; with none active no range is entered."""
     device = resolve_device(device)
     consts = params_from_numpy(
         {k: v for k, v in graph.constants.items()
@@ -81,6 +85,7 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
         device)
 
     def fn(params: Mapping[str, torch.Tensor],
+           packed: Mapping[str, torch.Tensor],
            inputs: Mapping[str, torch.Tensor],
            statics: Optional[dict] = None) -> Dict[str, torch.Tensor]:
         """`statics`, where given, keeps the static values (numpy, and on
@@ -108,6 +113,7 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
             ctx.static_env[name] = val
             env[name] = t
 
+        profiling = torch._C._autograd._profiler_enabled()
         for node in graph.nodes:
             # static propagation: Shape/Size of a tensor are known from its
             # shape; foldable ops over static values stay static
@@ -134,13 +140,23 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
 
             emitter = get_emitter(node.op_type, node.domain)
             ins = [env[i] if i else None for i in node.inputs]
-            outs = emitter(ctx, node, ins)
+            if profiling:
+                with torch.profiler.record_function(node_label(node)):
+                    outs = emitter(ctx, node, ins)
+            else:
+                outs = emitter(ctx, node, ins)
             for name, val in zip(node.outputs, outs):
                 if name:
                     env[name] = val
         return {o: env[o] for o in graph.outputs}
 
     return fn
+
+
+def node_label(node) -> str:
+    """`<OpType>.<node name>`, the node's first output standing in for a
+    missing name: the range an emitter call runs in under a profiler."""
+    return f"{node.op_type}.{node.name or node.outputs[0]}"
 
 
 def _batch_polymorphic(graph: Graph, inputs: Mapping[str, torch.Tensor]
@@ -156,103 +172,6 @@ def _batch_polymorphic(graph: Graph, inputs: Mapping[str, torch.Tensor]
         if isinstance(d0, str) or (v.dim() >= 1 and v.shape[0] != d0):
             return True
     return False
-
-
-def captures(device) -> bool:
-    """Whether work on `device` runs as captured CUDA graphs: on the card
-    it does, on the CPU everything runs eagerly."""
-    return torch.device(device).type == "cuda"
-
-
-def signature(feed: Mapping[str, torch.Tensor]) -> tuple:
-    """What a captured graph is specific to: each input's name, shape and
-    dtype, and the ORIET_ATTN_I8 switch that ops/fused.py reads (a graph
-    captured with it freezes its choice of attention kernel)."""
-    return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(
-        feed.items())), bool(os.environ.get("ORIET_ATTN_I8")))
-
-
-class Replay:
-    """A captured CUDA graph. Calling it replays the graph on the current
-    stream and adds the launches the capture recorded to the kernel
-    wrappers' counters."""
-
-    def __init__(self, graph, gains: dict):
-        self.graph = graph
-        self.gains = gains
-
-    def __call__(self) -> None:
-        self.graph.replay()
-        counters.add(self.gains)
-
-
-_hold_lock = threading.Lock()
-_holds = 0
-_collector_was_on = False
-
-
-@contextlib.contextmanager
-def collector_held():
-    """Keep Python's cycle collector off for the block. A collection while
-    a stream captures may free an unreachable CUDAGraph (one held only by
-    a reference cycle, as a dropped Engine's graphs are); its destruction
-    is not permitted during a capture and invalidates the capture under
-    way, which then fails at its end (cudaErrorStreamCaptureInvalidated).
-    The collector is process-wide, so is the hold: nested and concurrent
-    holds keep it off until the last one ends, which restores the state
-    the first one found. Unreachable cycles are collected after."""
-    global _holds, _collector_was_on
-    with _hold_lock:
-        if _holds == 0:
-            _collector_was_on = gc.isenabled()
-            gc.disable()
-        _holds += 1
-    try:
-        yield
-    finally:
-        with _hold_lock:
-            _holds -= 1
-            if _holds == 0 and _collector_was_on:
-                gc.enable()
-
-
-def capture(fn: Callable, *, stream, pool=None, generators=()
-            ) -> Tuple[object, Replay]:
-    """Capture `fn()` into one CUDA graph on the side stream `stream`:
-    (what fn returned, its tensors now the graph's static outputs; the
-    Replay). fn must have run once with the same shapes before (kernels
-    built, static values fixed), on `stream`, whose work the caller has
-    ordered after the current stream's. The counters' gain over the
-    capture is taken back out: nothing ran. `generators` are the
-    torch.Generators fn draws from: each replay advances them as the
-    eager calls would. The cycle collector is held off meanwhile
-    (`collector_held`). A capture that fails raises."""
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    before = counters.snapshot()
-    # thread_local: a server captures on its dispatcher thread while
-    # client threads may touch the card
-    with collector_held(), torch.cuda.graph(
-            graph, pool=pool, stream=stream,
-            capture_error_mode="thread_local"):
-        out = fn()
-    gains = counters.delta(before)
-    counters.add(gains, -1)
-    return out, Replay(graph, gains)
-
-
-@contextlib.contextmanager
-def side_stream(stream):
-    """`with side_stream(s):` runs the block on stream `s`, ordered after
-    the current stream's work so far, and orders the current stream's
-    later work after it. Warm-up runs and captures go there, as CUDA
-    graphs want."""
-    cur = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
-        yield stream
-    cur.wait_stream(stream)
 
 
 # the compute dtype policies Engine takes, by name

@@ -10,7 +10,9 @@ Gelu MLP, final LayerNorm, tied lm_head MatMul. Optionally takes
 static (P and T fixed per graph). The same seed gives the JAX package's
 graph node for node and weight for weight.
 
-kv_dtype="int4" builds the nibble-packed KV cache (models/q4.py). Not
+kv_dtype="int4" builds the nibble-packed KV cache (models/q4.py).
+Inside `_builder.host_memo()` every build of one config and seed reuses the
+weights (and the tied lm_head's transpose) the first one drew. Not
 ported yet (ROADMAP 1.5b): the Scan-over-layers decode graph
 (scan_layers=True) raises NotImplementedError.
 """
@@ -22,7 +24,7 @@ import dataclasses
 import numpy as np
 
 from .. import onnx_io
-from ._builder import GraphBuilder
+from ._builder import GraphBuilder, memo
 
 
 @dataclasses.dataclass
@@ -42,9 +44,27 @@ TINY = GPT2Config(vocab_size=256, n_positions=64, n_embd=64, n_layer=2, n_head=4
 SMALL = GPT2Config()
 
 
+def _weight_key(cfg: GPT2Config, seed: int) -> tuple:
+    """What a build's weight draws depend on: the widths, depth and seed."""
+    return ("gpt2", cfg.vocab_size, cfg.n_positions, cfg.n_embd,
+            cfg.n_layer, cfg.n_head, seed)
+
+
+def _weight(b: GraphBuilder, name: str, shape, scale: float) -> str:
+    """A seeded weight drawn from b.rng (inside host_memo, the array drawn
+    first for the same build key and name). `b.wkey` is `_weight_key`."""
+    return b.init(name, memo(b.wkey + (name,), lambda: (
+        b.rng.standard_normal(shape) * scale).astype(np.float32)))
+
+
+def _lm_head(b: GraphBuilder) -> str:
+    """The tied lm_head: wte transposed (inside host_memo, made once)."""
+    return b.init("wte_T", memo(b.wkey + ("wte_T",), lambda: (
+        np.ascontiguousarray(b.g.initializers["wte"].T))))
+
+
 def _linear(b: GraphBuilder, x: str, name: str, d_in: int, d_out: int) -> str:
-    w = b.init(f"{name}_w", (b.rng.standard_normal((d_in, d_out))
-                             * 0.02).astype(np.float32))
+    w = _weight(b, f"{name}_w", (d_in, d_out), 0.02)
     bias = b.zeros(f"{name}_b", (d_out,))
     (y,) = b.node("MatMul", [x, w], [f"{name}_mm"])
     (y,) = b.node("Add", [y, bias], [f"{name}_y"])
@@ -70,6 +90,7 @@ def build_gpt2(
     seed: int = 0,
 ) -> onnx_io.ModelProto:
     b = GraphBuilder("gpt2", opset=opset, seed=seed)
+    b.wkey = _weight_key(cfg, seed)
     B, T, P = batch, seq_len, past_len
     D, H, hd = cfg.n_embd, cfg.n_head, cfg.head_dim
 
@@ -83,10 +104,8 @@ def build_gpt2(
         else:
             pasts.append((None, None))
 
-    wte = b.init("wte", (b.rng.standard_normal((cfg.vocab_size, D))
-                         * 0.02).astype(np.float32))
-    wpe = b.init("wpe", (b.rng.standard_normal((cfg.n_positions, D))
-                         * 0.01).astype(np.float32))
+    wte = _weight(b, "wte", (cfg.vocab_size, D), 0.02)
+    wpe = _weight(b, "wpe", (cfg.n_positions, D), 0.01)
     pos = b.init("positions", np.arange(P, P + T, dtype=np.int64))
 
     (tok,) = b.node("Gather", [wte, ids], ["tok_emb"], axis=0)
@@ -144,8 +163,7 @@ def build_gpt2(
         (x,) = b.node("Add", [x, h], [f"blk{i}_res2"])
 
     x = _layernorm(b, x, "ln_f", D)
-    wte_t = b.init("wte_T", np.ascontiguousarray(
-        b.g.initializers["wte"].T))
+    wte_t = _lm_head(b)
     (logits,) = b.node("MatMul", [x, wte_t], ["logits"])
 
     b.output(logits, [B, T, cfg.vocab_size])
@@ -225,6 +243,7 @@ def build_gpt2_decode(
             "scan_layers=True (the Scan-over-layers decode graph) is not "
             "ported yet: ROADMAP 1.5b")
     b = GraphBuilder("gpt2_decode", opset=opset, seed=seed)
+    b.wkey = _weight_key(cfg, seed)
     B, T = batch, chunk
     D, H, hd = cfg.n_embd, cfg.n_head, cfg.head_dim
 
@@ -246,10 +265,8 @@ def build_gpt2_decode(
         else None
     zp8 = b.init("kv_zp8", np.int8(0)) if int8_kv else None
 
-    wte = b.init("wte", (b.rng.standard_normal((cfg.vocab_size, D))
-                         * 0.02).astype(np.float32))
-    wpe = b.init("wpe", (b.rng.standard_normal((cfg.n_positions, D))
-                         * 0.01).astype(np.float32))
+    wte = _weight(b, "wte", (cfg.vocab_size, D), 0.02)
+    wpe = _weight(b, "wpe", (cfg.n_positions, D), 0.01)
 
     (tok,) = b.node("Gather", [wte, ids], ["tok_emb"], axis=0)  # [B,T,D]
     arange = b.init("cache_positions", np.arange(max_len, dtype=np.int64))
@@ -422,7 +439,7 @@ def build_gpt2_decode(
         (x,) = b.node("Add", [x, h], [f"blk{i}_res2"])
 
     x = _layernorm(b, x, "ln_f", D)
-    wte_t = b.init("wte_T", np.ascontiguousarray(b.g.initializers["wte"].T))
+    wte_t = _lm_head(b)
     (logits,) = b.node("MatMul", [x, wte_t], ["logits"])
 
     b.output(logits, [B, T, cfg.vocab_size])

@@ -1,3 +1,4 @@
-"""ONNX op emitters; importing this package fills the registry."""
-
-from . import fused, quantized, standard  # noqa: F401
+"""ONNX op emitters (standard.py, quantized.py, fused.py) and the kernels
+they call (kernels/). The registry (registry.py) imports the emitter
+modules on its first lookup, so importing a kernel module alone (as a
+loaded artifact does) imports neither the emitters nor the registry."""

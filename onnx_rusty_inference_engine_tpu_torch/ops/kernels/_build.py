@@ -2,9 +2,12 @@
 
 Each source is compiled by `nvcc` for sm_90a into one shared library with a
 plain C interface, loaded with ctypes. The library lands in `build/kernels/`
-beside the package, in a directory keyed by a hash of the source, the
-shared headers (csrc/*.cuh) and the flags, so an edited source or header
-rebuilds and an unchanged one is reused.
+beside the package, or in `$ORIET_COMPILE_CACHE/kernels` where that
+variable names a directory (the port's counterpart of the JAX package's
+persistent compile cache: the kernels are all the port compiles; read at
+build time), in a directory keyed by a hash of the source, the shared
+headers (csrc/*.cuh) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.
 `build_all` starts one nvcc per source, all at once.
 """
 
@@ -21,6 +24,7 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+CACHE_ENV = "ORIET_COMPILE_CACHE"
 
 # kernel library name -> its source under csrc/
 SOURCES: Dict[str, str] = {"qconv_int8": "qconv_int8.cu",
@@ -59,6 +63,13 @@ def nvcc() -> str:
         "PATH or set CUDA_HOME)")
 
 
+def build_dir() -> str:
+    """Where the libraries go: `$ORIET_COMPILE_CACHE/kernels`, else
+    BUILD_DIR."""
+    cache = os.environ.get(CACHE_ENV)
+    return os.path.join(cache, "kernels") if cache else BUILD_DIR
+
+
 def _target(name: str) -> str:
     src = os.path.join(CSRC_DIR, SOURCES[name])
     h = hashlib.sha256()
@@ -67,7 +78,7 @@ def _target(name: str) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}",
+    return os.path.join(build_dir(), f"{name}-{h.hexdigest()[:16]}",
                         f"lib{name}.so")
 
 

@@ -18,9 +18,13 @@ the scales folded as the kernel receives them. The TPU kernel rounded q and
 p to bf16 for its dots; this one does not. `decode_attention_int8_mxu`
 keeps the TPU kernel's int8 x int8 arithmetic step for step.
 
-Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
-(`*_plain`), and launches the kernel for a tensor on the card, or raises.
-Each wrapper's `.launches` counts its kernel's launches.
+Each kernel is a `torch.library` operator, `oriet::decode_attention_int8`
+and `oriet::decode_attention_int8_mxu`: on the CPU the kernel's plain
+PyTorch version (`*_plain`), on the card the launch (the cluster size is
+picked there, from the shapes), and a fake implementation giving the f32
+[B*H, 1, hd] result for torch.export. The wrappers raise for a tensor on
+neither device and call the op. Each wrapper's `.launches` counts its
+kernel's launches (in the card's implementation).
 
 Two plain functions describe what a launch does: `attn_split` picks the
 cluster size C (the CTAs that split one (batch, kv group)'s cache rows), and
@@ -34,8 +38,10 @@ import ctypes
 
 import torch
 
-from ..standard import matmul_fp32_exact
+from ...utils.fp32 import matmul_fp32_exact
 from . import _build
+from ._ops import define
+from .qmatmul_int8 import check_device
 
 __all__ = ["decode_attention_int8", "decode_attention_int8_plain",
            "decode_attention_int8_mxu", "decode_attention_int8_mxu_plain",
@@ -232,18 +238,52 @@ def _launch(name: str, q, k8, v8, bias, n_q_heads: int, *,
     return out
 
 
-def decode_attention_int8(q: torch.Tensor, k8: torch.Tensor,
-                          v8: torch.Tensor, bias: torch.Tensor, *,
-                          n_q_heads: int) -> torch.Tensor:
-    """Fused decode attention in f32 -> f32 [B*H, 1, hd]."""
-    if q.device.type == "cpu":
-        return decode_attention_int8_plain(q, k8, v8, bias,
-                                           n_q_heads=n_q_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_int8: no kernel for {q.device}")
+# --------------------------------------------------------------------------
+# the ops
+# --------------------------------------------------------------------------
+def _attn_cpu(q, k8, v8, bias, n_q_heads):
+    return decode_attention_int8_plain(q, k8, v8, bias, n_q_heads=n_q_heads)
+
+
+def _attn_cuda(q, k8, v8, bias, n_q_heads):
     out = _launch("decode_attention_int8", q, k8, v8, bias, n_q_heads)
     decode_attention_int8.launches += 1
     return out
+
+
+def _attn_mxu_cpu(q, k8, v8, bias, n_q_heads):
+    return decode_attention_int8_mxu_plain(q, k8, v8, bias,
+                                           n_q_heads=n_q_heads)
+
+
+def _attn_mxu_cuda(q, k8, v8, bias, n_q_heads):
+    out = _launch("decode_attention_int8_mxu", q, k8, v8, bias, n_q_heads)
+    decode_attention_int8_mxu.launches += 1
+    return out
+
+
+def _attn_fake(q, k8, v8, bias, n_q_heads):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+_ATTN_SCHEMA = ("(Tensor q, Tensor k8, Tensor v8, Tensor bias, int n_q_heads)"
+                " -> Tensor")
+_attn_op = define("decode_attention_int8" + _ATTN_SCHEMA, _attn_cpu,
+                  _attn_cuda, _attn_fake)
+_attn_mxu_op = define("decode_attention_int8_mxu" + _ATTN_SCHEMA,
+                      _attn_mxu_cpu, _attn_mxu_cuda, _attn_fake)
+
+
+# --------------------------------------------------------------------------
+# the wrappers
+# --------------------------------------------------------------------------
+def decode_attention_int8(q: torch.Tensor, k8: torch.Tensor,
+                          v8: torch.Tensor, bias: torch.Tensor, *,
+                          n_q_heads: int) -> torch.Tensor:
+    """Fused decode attention in f32 -> f32 [B*H, 1, hd]
+    (`oriet::decode_attention_int8`)."""
+    check_device("decode_attention_int8", q)
+    return _attn_op(q, k8, v8, bias, int(n_q_heads))
 
 
 decode_attention_int8.launches = 0
@@ -252,16 +292,10 @@ decode_attention_int8.launches = 0
 def decode_attention_int8_mxu(q: torch.Tensor, k8: torch.Tensor,
                               v8: torch.Tensor, bias: torch.Tensor, *,
                               n_q_heads: int) -> torch.Tensor:
-    """int8 x int8 fused decode attention -> f32 [B*H, 1, hd]."""
-    if q.device.type == "cpu":
-        return decode_attention_int8_mxu_plain(q, k8, v8, bias,
-                                               n_q_heads=n_q_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_int8_mxu: no kernel for "
-                         f"{q.device}")
-    out = _launch("decode_attention_int8_mxu", q, k8, v8, bias, n_q_heads)
-    decode_attention_int8_mxu.launches += 1
-    return out
+    """int8 x int8 fused decode attention -> f32 [B*H, 1, hd]
+    (`oriet::decode_attention_int8_mxu`)."""
+    check_device("decode_attention_int8_mxu", q)
+    return _attn_mxu_op(q, k8, v8, bias, int(n_q_heads))
 
 
 decode_attention_int8_mxu.launches = 0

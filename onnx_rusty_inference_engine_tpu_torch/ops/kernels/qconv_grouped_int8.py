@@ -27,10 +27,15 @@ copied channels-last) and returns a [B, O, OH, OW] view with
 `torch.channels_last` strides of the kernel's [B*OH*OW, O] output, as
 `qconv_int8_requant` does, so the ops between convs keep the layout.
 
-The wrapper takes a tensor on the CPU to the kernel's plain PyTorch
-version (`qconv_grouped_int8_requant_plain`, exact float64 sums through
-`F.conv2d(groups=...)`, then `_requant`), and launches the kernel for a
-tensor on the card, or raises. `qconv_grouped_int8_requant.launches`
+Both outputs are `torch.library` operators (defined in _ops.py),
+`oriet::qconv_grouped_int8_requant` and `oriet::qconv_grouped_int8`: on
+the CPU the kernel's plain PyTorch version
+(`qconv_grouped_int8_requant_plain`, exact float64 sums through
+`F.conv2d(groups=...)`, then `_requant`), on the card the launch, and a
+fake implementation giving the result's shape, dtype and strides
+(`qconv_int8.conv_fake`) for torch.export. The plan is chosen in the
+card's implementation, from the shapes and the input's alignment. The
+wrappers raise for a tensor on neither device and call the op. `qconv_grouped_int8_requant.launches`
 counts the kernel's launches through both wrappers, `.schedules` counts
 them per form, `.forms` per QOperator form (qconv_int8.FORMS).
 """
@@ -43,10 +48,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from ._ops import define
 from .qconv_int8 import FORMS as QFORMS
-from .qconv_int8 import conv_sums_plain
-from .qmatmul_int8 import (_requant, check_operand, check_qtype, count_forms,
-                           mult_vector)
+from .qconv_int8 import (CONV_ARGS, conv_fake, conv_sums_plain,
+                         nested_padding, schema_padding)
+from .qmatmul_int8 import (_requant, as_mult, check_device, check_operand,
+                           check_qtype, count_forms, mult_vector)
 
 __all__ = ["qconv_grouped_int8_requant", "qconv_grouped_int8_requant_plain",
            "qconv_grouped_int8", "qconv_grouped_int8_plain",
@@ -257,52 +264,6 @@ def input_align(x: torch.Tensor) -> int:
     return address_align(xl.data_ptr()) if xl.is_contiguous() else 16
 
 
-def qconv_grouped_int8_requant(x: torch.Tensor, w: torch.Tensor,
-                               mult: torch.Tensor,
-                               bias: Optional[torch.Tensor] = None, *,
-                               stride: Sequence[int] = (1, 1),
-                               padding: Padding = ((0, 0), (0, 0)),
-                               dilation: Sequence[int] = (1, 1),
-                               pad_value: int = 0, y_zp: int = 0,
-                               out_dtype: torch.dtype = torch.int8,
-                               packed: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
-    """Grouped QLinearConv: x int8 or uint8 [B,C,H,W], w int8
-    [O,C/group,KH,KW], mult f32 [O] or scalar (x_s * w_s / y_s), bias int32
-    [O] or None, padding ((top, bottom), (left, right)) whose taps hold
-    pad_value (x's zero point), y_zp in out_dtype (int8 or uint8) ->
-    out_dtype [B,O,OH,OW].
-
-    On the card `packed` must be `pack_qconv_grouped_weight(w)`, made once
-    per weight, and the result is channels-last (see the module note); the
-    kernel runs in the form `grouped_plan` gives, counted in `.schedules`."""
-    if x.device.type == "cpu":
-        check_qtype("qconv_grouped_int8_requant", out_dtype, y_zp)
-        return qconv_grouped_int8_requant_plain(
-            x, w, mult, bias, stride=stride, padding=padding,
-            dilation=dilation, pad_value=pad_value, y_zp=y_zp,
-            out_dtype=out_dtype)
-    return _count(*_launch(x, w, mult, bias, stride, padding, packed,
-                           dilation, pad_value, y_zp, out_dtype))
-
-
-def qconv_grouped_int8(x: torch.Tensor, w: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None, *,
-                       stride: Sequence[int] = (1, 1),
-                       padding: Padding = ((0, 0), (0, 0)),
-                       dilation: Sequence[int] = (1, 1), pad_value: int = 0,
-                       packed: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """The exact int32 sums (+ bias) of a grouped conv -> int32 [B,O,OH,OW],
-    on the general form; counted on `qconv_grouped_int8_requant`."""
-    if x.device.type == "cpu":
-        return qconv_grouped_int8_plain(x, w, bias, stride=stride,
-                                        padding=padding, dilation=dilation,
-                                        pad_value=pad_value)
-    return _count(*_launch(x, w, None, bias, stride, padding, packed,
-                           dilation, pad_value, 0, torch.int32))
-
-
 def _count(y, form, flags):
     w_ = qconv_grouped_int8_requant
     w_.launches += 1
@@ -384,6 +345,119 @@ def _launch(x, w, mult, bias, stride, padding, packed, dilation=(1, 1),
                  y_zero_point=y_zp != 0, uint8_y=out_dtype == torch.uint8,
                  dilated=(dh, dw) != (1, 1), int32=int32)
     return y.view(B, OH, OW, O).permute(0, 3, 1, 2), plan["form"], flags
+
+
+# --------------------------------------------------------------------------
+# the ops
+# --------------------------------------------------------------------------
+def _qconv_grouped_int8_requant_cpu(x, w, mult, bias, packed, stride,
+                                    padding, dilation, pad_value, y_zp,
+                                    out_dtype):
+    check_qtype("qconv_grouped_int8_requant", out_dtype, y_zp)
+    return qconv_grouped_int8_requant_plain(
+        x, w, mult, bias, stride=stride, padding=nested_padding(padding),
+        dilation=dilation, pad_value=pad_value, y_zp=y_zp,
+        out_dtype=out_dtype)
+
+
+def _qconv_grouped_int8_requant_cuda(x, w, mult, bias, packed, stride,
+                                     padding, dilation, pad_value, y_zp,
+                                     out_dtype):
+    return _count(*_launch(x, w, mult, bias, stride, nested_padding(padding),
+                           packed, dilation, pad_value, y_zp, out_dtype))
+
+
+def _qconv_grouped_int8_requant_fake(x, w, mult, bias, packed, stride,
+                                     padding, dilation, pad_value, y_zp,
+                                     out_dtype):
+    return conv_fake(x, w, stride, padding, dilation, out_dtype)
+
+
+_qconv_grouped_int8_requant_op = define(
+    "qconv_grouped_int8_requant(Tensor x, Tensor w, Tensor mult, "
+    f"Tensor? bias, Tensor? packed, {CONV_ARGS}, int y_zp, "
+    "ScalarType out_dtype) -> Tensor",
+    _qconv_grouped_int8_requant_cpu, _qconv_grouped_int8_requant_cuda,
+    _qconv_grouped_int8_requant_fake)
+
+
+def _qconv_grouped_int8_cpu(x, w, bias, packed, stride, padding, dilation,
+                            pad_value):
+    return qconv_grouped_int8_plain(x, w, bias, stride=stride,
+                                    padding=nested_padding(padding),
+                                    dilation=dilation, pad_value=pad_value)
+
+
+def _qconv_grouped_int8_cuda(x, w, bias, packed, stride, padding, dilation,
+                             pad_value):
+    return _count(*_launch(x, w, None, bias, stride, nested_padding(padding),
+                           packed, dilation, pad_value, 0, torch.int32))
+
+
+def _qconv_grouped_int8_fake(x, w, bias, packed, stride, padding, dilation,
+                             pad_value):
+    return conv_fake(x, w, stride, padding, dilation, torch.int32)
+
+
+_qconv_grouped_int8_op = define(
+    "qconv_grouped_int8(Tensor x, Tensor w, Tensor? bias, Tensor? packed, "
+    f"{CONV_ARGS}) -> Tensor",
+    _qconv_grouped_int8_cpu, _qconv_grouped_int8_cuda,
+    _qconv_grouped_int8_fake)
+
+
+# --------------------------------------------------------------------------
+# the wrappers
+# --------------------------------------------------------------------------
+def qconv_grouped_int8_requant(x: torch.Tensor, w: torch.Tensor,
+                               mult: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None, *,
+                               stride: Sequence[int] = (1, 1),
+                               padding: Padding = ((0, 0), (0, 0)),
+                               dilation: Sequence[int] = (1, 1),
+                               pad_value: int = 0, y_zp: int = 0,
+                               out_dtype: torch.dtype = torch.int8,
+                               packed: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Grouped QLinearConv: x int8 or uint8 [B,C,H,W], w int8
+    [O,C/group,KH,KW], mult f32 [O] or scalar (x_s * w_s / y_s), bias int32
+    [O] or None, padding ((top, bottom), (left, right)) whose taps hold
+    pad_value (x's zero point), y_zp in out_dtype (int8 or uint8) ->
+    out_dtype [B,O,OH,OW].
+
+    On the card `packed` must be `pack_qconv_grouped_weight(w)`, made once
+    per weight, and the result is channels-last (see the module note); the
+    kernel runs in the form `grouped_plan` gives, counted in `.schedules`
+    (`oriet::qconv_grouped_int8_requant`)."""
+    _check("qconv_grouped_int8_requant", x, w)
+    return _qconv_grouped_int8_requant_op(
+        x, w, as_mult(mult, x), bias, packed, [int(s) for s in stride],
+        schema_padding(padding), [int(d) for d in dilation], int(pad_value),
+        int(y_zp), out_dtype)
+
+
+def qconv_grouped_int8(x: torch.Tensor, w: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, *,
+                       stride: Sequence[int] = (1, 1),
+                       padding: Padding = ((0, 0), (0, 0)),
+                       dilation: Sequence[int] = (1, 1), pad_value: int = 0,
+                       packed: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The exact int32 sums (+ bias) of a grouped conv -> int32 [B,O,OH,OW],
+    on the general form; counted on `qconv_grouped_int8_requant`
+    (`oriet::qconv_grouped_int8`)."""
+    _check("qconv_grouped_int8", x, w)
+    return _qconv_grouped_int8_op(
+        x, w, bias, packed, [int(s) for s in stride], schema_padding(padding),
+        [int(d) for d in dilation], int(pad_value))
+
+
+def _check(fn: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    check_device(fn, x)
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         f"are not a 2-D conv")
+    conv_groups(x.shape, w.shape)
 
 
 qconv_grouped_int8_requant.launches = 0

@@ -31,12 +31,18 @@ with its channels zero-padded to a multiple of 4 where they are not.
 product) on the requant epilogue, "gather" (an implicit im2col by cp.async)
 for every other.
 
-The wrappers take a tensor on the CPU to the kernel's plain PyTorch
-versions (`qconv_int8_requant_plain`, `qconv_int8_plain`: contiguous NCHW
-results, the same values), and launch the kernel for a tensor on the card,
-or raise. `qconv_int8_requant.launches` counts the kernel's launches
-through both wrappers, `.producers` per A producer, `.epilogues` per
-epilogue, `.forms` the launches of each QOperator form (FORMS).
+Each epilogue is a `torch.library` operator, `oriet::qconv_int8_requant`
+and `oriet::qconv_int8`: on the CPU the kernel's plain PyTorch versions
+(`qconv_int8_requant_plain`, `qconv_int8_plain`: contiguous NCHW results,
+the same values), on the card the launch, and a fake implementation that
+gives the output's shape, dtype and strides (channels-last on the card,
+contiguous on the CPU) from the operands, for torch.export. The schema
+holds the padding as four ints (top, bottom, left, right). The wrappers
+keep their signatures, raise for a tensor on neither device and call the
+op. `qconv_int8_requant.launches` counts the kernel's launches through
+both wrappers (in the card's implementation), `.producers` per A
+producer, `.epilogues` per epilogue, `.forms` the launches of each
+QOperator form (FORMS).
 """
 
 from __future__ import annotations
@@ -48,13 +54,16 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .qmatmul_int8 import (EPILOGUES, _requant, check_operand, check_qtype,
-                           count_forms, int8_tile, mult_vector)
+from ._ops import define
+from .qmatmul_int8 import (EPILOGUES, _requant, as_mult, check_device,
+                           check_operand, check_qtype, count_forms, int8_tile,
+                           mult_vector)
 
 __all__ = ["qconv_int8_requant", "qconv_int8_requant_plain", "qconv_int8",
            "qconv_int8_plain", "pack_qconv_weight", "conv_channels",
            "conv_producer", "conv_plan", "conv_out_hw", "channels_last_input",
-           "PRODUCERS", "K_ALIGN", "FORMS"]
+           "PRODUCERS", "K_ALIGN", "FORMS", "schema_padding",
+           "nested_padding", "conv_fake"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -213,48 +222,6 @@ def channels_last_input(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def qconv_int8_requant(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None, *,
-                       stride: Sequence[int] = (1, 1),
-                       padding: Padding = ((0, 0), (0, 0)),
-                       dilation: Sequence[int] = (1, 1), pad_value: int = 0,
-                       y_zp: int = 0, out_dtype: torch.dtype = torch.int8,
-                       packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Group-1 QLinearConv: x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW],
-    mult f32 [O] or scalar (x_s * w_s / y_s), bias int32 [O] or None,
-    padding ((top, bottom), (left, right)) whose taps hold pad_value (x's
-    zero point), y_zp in out_dtype (int8 or uint8) -> out_dtype
-    [B,O,OH,OW].
-
-    On the card `packed` must be `pack_qconv_weight(w)`, made once per
-    weight, and the result is channels-last (see the module note)."""
-    if x.device.type == "cpu":
-        check_qtype("qconv_int8_requant", out_dtype, y_zp)
-        return qconv_int8_requant_plain(
-            x, w, mult, bias, stride=stride, padding=padding,
-            dilation=dilation, pad_value=pad_value, y_zp=y_zp,
-            out_dtype=out_dtype)
-    return _launch("qconv_int8_requant", x, w, packed, "requant", mult,
-                   bias, stride, padding, dilation, pad_value, y_zp,
-                   out_dtype)
-
-
-def qconv_int8(x: torch.Tensor, w: torch.Tensor, *,
-               stride: Sequence[int] = (1, 1),
-               padding: Padding = ((0, 0), (0, 0)),
-               dilation: Sequence[int] = (1, 1), pad_value: int = 0,
-               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The int32 epilogue: x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW]
-    -> the exact int32 sums [B,O,OH,OW], padding taps holding pad_value.
-    On the card `packed` is `pack_qconv_weight(w)`; counted on
-    `qconv_int8_requant` (the same kernel, int32 epilogue)."""
-    if x.device.type == "cpu":
-        return qconv_int8_plain(x, w, stride=stride, padding=padding,
-                                dilation=dilation, pad_value=pad_value)
-    return _launch("qconv_int8", x, w, packed, "int32", None, None, stride,
-                   padding, dilation, pad_value)
-
-
 def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
             padding, dilation, pad_value: int, y_zp: int = 0,
             out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
@@ -328,6 +295,138 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
                 uint8_y=epilogue == "requant" and out_dtype == torch.uint8,
                 dilated=(dh, dw) != (1, 1), int32=epilogue == "int32")
     return y.view(B, OH, OW, O).permute(0, 3, 1, 2)
+
+
+# --------------------------------------------------------------------------
+# the ops
+# --------------------------------------------------------------------------
+def schema_padding(padding: Padding) -> list:
+    """((top, bottom), (left, right)) as the ops' four ints."""
+    (pt, pb), (pl, pr) = padding
+    return [int(pt), int(pb), int(pl), int(pr)]
+
+
+def nested_padding(pads: Sequence[int]) -> Padding:
+    """The ops' four ints back as ((top, bottom), (left, right))."""
+    return ((pads[0], pads[1]), (pads[2], pads[3]))
+
+
+def conv_fake(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+              pads: Sequence[int], dilation: Sequence[int],
+              dtype: torch.dtype) -> torch.Tensor:
+    """The result the conv ops give, as an empty tensor: [B, O, OH, OW],
+    on the card a channels-last view of a [B*OH*OW, O] matrix (what the
+    kernels write), on the CPU contiguous (what the plain versions
+    give)."""
+    B, _, H, W = x.shape
+    O, _, KH, KW = w.shape
+    OH, OW = conv_out_hw(H, W, KH, KW, stride, nested_padding(pads),
+                         dilation)
+    if x.device.type == "cuda":
+        return x.new_empty((B * OH * OW, O), dtype=dtype).view(
+            B, OH, OW, O).permute(0, 3, 1, 2)
+    return x.new_empty((B, O, OH, OW), dtype=dtype)
+
+
+# the schema of the convs' ops, after the name: padding is (top, bottom,
+# left, right)
+CONV_ARGS = ("int[] stride, int[] padding, int[] dilation, int pad_value")
+
+
+def _qconv_int8_requant_cpu(x, w, mult, bias, packed, stride, padding,
+                            dilation, pad_value, y_zp, out_dtype):
+    check_qtype("qconv_int8_requant", out_dtype, y_zp)
+    return qconv_int8_requant_plain(
+        x, w, mult, bias, stride=stride, padding=nested_padding(padding),
+        dilation=dilation, pad_value=pad_value, y_zp=y_zp,
+        out_dtype=out_dtype)
+
+
+def _qconv_int8_requant_cuda(x, w, mult, bias, packed, stride, padding,
+                             dilation, pad_value, y_zp, out_dtype):
+    return _launch("qconv_int8_requant", x, w, packed, "requant", mult,
+                   bias, stride, nested_padding(padding), dilation,
+                   pad_value, y_zp, out_dtype)
+
+
+def _qconv_int8_requant_fake(x, w, mult, bias, packed, stride, padding,
+                             dilation, pad_value, y_zp, out_dtype):
+    return conv_fake(x, w, stride, padding, dilation, out_dtype)
+
+
+_qconv_int8_requant_op = define(
+    "qconv_int8_requant(Tensor x, Tensor w, Tensor mult, Tensor? bias, "
+    f"Tensor? packed, {CONV_ARGS}, int y_zp, ScalarType out_dtype) -> Tensor",
+    _qconv_int8_requant_cpu, _qconv_int8_requant_cuda,
+    _qconv_int8_requant_fake)
+
+
+def _qconv_int8_cpu(x, w, packed, stride, padding, dilation, pad_value):
+    return qconv_int8_plain(x, w, stride=stride,
+                            padding=nested_padding(padding),
+                            dilation=dilation, pad_value=pad_value)
+
+
+def _qconv_int8_cuda(x, w, packed, stride, padding, dilation, pad_value):
+    return _launch("qconv_int8", x, w, packed, "int32", None, None, stride,
+                   nested_padding(padding), dilation, pad_value)
+
+
+def _qconv_int8_fake(x, w, packed, stride, padding, dilation, pad_value):
+    return conv_fake(x, w, stride, padding, dilation, torch.int32)
+
+
+_qconv_int8_op = define(
+    f"qconv_int8(Tensor x, Tensor w, Tensor? packed, {CONV_ARGS}) -> Tensor",
+    _qconv_int8_cpu, _qconv_int8_cuda, _qconv_int8_fake)
+
+
+# --------------------------------------------------------------------------
+# the wrappers
+# --------------------------------------------------------------------------
+def _check_conv(fn: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    check_device(fn, x)
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         f"are not a 2-D conv")
+
+
+def qconv_int8_requant(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, *,
+                       stride: Sequence[int] = (1, 1),
+                       padding: Padding = ((0, 0), (0, 0)),
+                       dilation: Sequence[int] = (1, 1), pad_value: int = 0,
+                       y_zp: int = 0, out_dtype: torch.dtype = torch.int8,
+                       packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Group-1 QLinearConv: x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW],
+    mult f32 [O] or scalar (x_s * w_s / y_s), bias int32 [O] or None,
+    padding ((top, bottom), (left, right)) whose taps hold pad_value (x's
+    zero point), y_zp in out_dtype (int8 or uint8) -> out_dtype
+    [B,O,OH,OW] (`oriet::qconv_int8_requant`).
+
+    On the card `packed` must be `pack_qconv_weight(w)`, made once per
+    weight, and the result is channels-last (see the module note)."""
+    _check_conv("qconv_int8_requant", x, w)
+    return _qconv_int8_requant_op(
+        x, w, as_mult(mult, x), bias, packed, [int(s) for s in stride],
+        schema_padding(padding), [int(d) for d in dilation], int(pad_value),
+        int(y_zp), out_dtype)
+
+
+def qconv_int8(x: torch.Tensor, w: torch.Tensor, *,
+               stride: Sequence[int] = (1, 1),
+               padding: Padding = ((0, 0), (0, 0)),
+               dilation: Sequence[int] = (1, 1), pad_value: int = 0,
+               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int32 epilogue: x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW]
+    -> the exact int32 sums [B,O,OH,OW], padding taps holding pad_value
+    (`oriet::qconv_int8`). On the card `packed` is
+    `pack_qconv_weight(w)`; counted on `qconv_int8_requant` (the same
+    kernel, int32 epilogue)."""
+    _check_conv("qconv_int8", x, w)
+    return _qconv_int8_op(x, w, packed, [int(s) for s in stride],
+                          schema_padding(padding),
+                          [int(d) for d in dilation], int(pad_value))
 
 
 qconv_int8_requant.launches = 0

@@ -24,8 +24,13 @@ schedule whose constraints do not hold; the wrapper then raises.
 array: the port of `experiments/cast_probe.py::mk`, the TPU probe of the
 same unpack.
 
-Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch version
-(`*_plain`), and launches the kernel for a tensor on the card, or raises.
+Each product is a `torch.library` operator, `oriet::qmatmul_int4_planar`
+and `oriet::qmatmul_int4_bf16`: on the CPU the kernel's plain PyTorch
+version (`*_plain`), on the card the launch (the schedule is picked there,
+from the shapes and the operands' alignment), and a fake implementation
+giving the f32 [M, n] result for torch.export. The wrappers check the
+device and the layout and call the op. `nibble_probe` gets no op: no graph
+calls it, it only probes the unpack on its own.
 `qmatmul_int4_planar.launches`, `qmatmul_int4_bf16.launches` and
 `nibble_probe.launches` count launches; `qmatmul_int4_planar.schedules` and
 `qmatmul_int4_bf16.schedules` count them per schedule, their `.a_dtypes`
@@ -39,8 +44,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..standard import matmul_fp32_exact
+from ...utils.fp32 import matmul_fp32_exact
 from . import _build
+from ._ops import define
+from .qmatmul_int8 import check_device
 
 __all__ = ["planar_layout", "qmatmul_int4_planar", "qmatmul_int4_planar_plain",
            "interleaved_layout", "qmatmul_int4_bf16", "qmatmul_int4_bf16_plain",
@@ -185,18 +192,65 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# --------------------------------------------------------------------------
+# the ops
+# --------------------------------------------------------------------------
+def _int4_fake(a, packed, scales, n):
+    return a.new_empty((a.shape[0], n), dtype=torch.float32)
+
+
+def _planar_cpu(a, packed, scales, qblock, n):
+    return qmatmul_int4_planar_plain(a, packed, scales, qblock=qblock,
+                                     n=n).contiguous()
+
+
+def _planar_cuda(a, packed, scales, qblock, n):
+    nbh, bs = planar_layout(a.shape[1], qblock)
+    return _launch(qmatmul_int4_planar, a, packed, scales, n, nbh, bs)
+
+
+def _planar_fake(a, packed, scales, qblock, n):
+    return _int4_fake(a, packed, scales, n)
+
+
+_planar_op = define(
+    "qmatmul_int4_planar(Tensor a, Tensor packed, Tensor scales, "
+    "int qblock, int n) -> Tensor", _planar_cpu, _planar_cuda, _planar_fake)
+
+
+def _interleaved_cpu(a, packed, scales, n):
+    return qmatmul_int4_bf16_plain(a, packed, scales, n=n).contiguous()
+
+
+def _interleaved_cuda(a, packed, scales, n):
+    qbh = interleaved_layout(a.shape[1], packed.shape[1], scales.shape[1])
+    return _launch(qmatmul_int4_bf16, a, packed, scales, n, scales.shape[1],
+                   qbh)
+
+
+def _interleaved_fake(a, packed, scales, n):
+    return _int4_fake(a, packed, scales, n)
+
+
+_interleaved_op = define(
+    "qmatmul_int4_bf16(Tensor a, Tensor packed, Tensor scales, int n) "
+    "-> Tensor", _interleaved_cpu, _interleaved_cuda, _interleaved_fake)
+
+
+# --------------------------------------------------------------------------
+# the wrappers
+# --------------------------------------------------------------------------
 def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
                         scales: torch.Tensor, *, qblock: int = 256,
                         n: Optional[int] = None) -> torch.Tensor:
     """Planar-packed int4 matmul: a f32 or bf16 [M, K] @ the [K, N] weight
     that `quant.pack_int4_planar(w, qblock)` packed into `packed` uint8
     [Nw, K/2] and `scales` f32 [2*nbh, Nw] -> f32 [M, n] (n <= Nw, default
-    Nw)."""
-    if a.device.type == "cpu":
-        return qmatmul_int4_planar_plain(a, packed, scales, qblock=qblock,
-                                         n=n)
-    if a.device.type != "cuda":
-        raise ValueError(f"qmatmul_int4_planar: no kernel for {a.device}")
+    Nw; `oriet::qmatmul_int4_planar`)."""
+    check_device("qmatmul_int4_planar", a)
+    if a.device.type == "cpu":  # the plain version takes any shape it can
+        return _planar_op(a, packed, scales, int(qblock),
+                          packed.shape[0] if n is None else int(n))
     if a.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
         raise ValueError(f"qmatmul_int4_planar: want a [M,K], packed "
                          f"[Nw,K/2], scales [2*nbh,Nw]; got {tuple(a.shape)}, "
@@ -211,7 +265,7 @@ def qmatmul_int4_planar(a: torch.Tensor, packed: torch.Tensor,
                          f"{tuple(packed.shape)}, scales "
                          f"{tuple(scales.shape)}, n={n} do not fit the planar "
                          f"layout (nbh={nbh}, bs={bs})")
-    return _launch(qmatmul_int4_planar, a, packed, scales, n, nbh, bs)
+    return _planar_op(a, packed, scales, int(qblock), n)
 
 
 qmatmul_int4_planar.launches = 0
@@ -261,11 +315,11 @@ def qmatmul_int4_bf16(a: torch.Tensor, packed: torch.Tensor,
     """Interleaved-packed int4 matmul: a f32 or bf16 [M, K] @ the [K, N]
     weight that `quant.pack_int4(w, qblock)` packed into `packed` uint8
     [Nw, K/2] and `scales` f32 [Nw, K/qblock] -> f32 [M, n] (n <= Nw,
-    default Nw)."""
-    if a.device.type == "cpu":
-        return qmatmul_int4_bf16_plain(a, packed, scales, n=n)
-    if a.device.type != "cuda":
-        raise ValueError(f"qmatmul_int4_bf16: no kernel for {a.device}")
+    default Nw; `oriet::qmatmul_int4_bf16`)."""
+    check_device("qmatmul_int4_bf16", a)
+    if a.device.type == "cpu":  # the plain version takes any shape it can
+        return _interleaved_op(a, packed, scales,
+                               packed.shape[0] if n is None else int(n))
     if a.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
         raise ValueError(f"qmatmul_int4_bf16: want a [M,K], packed "
                          f"[Nw,K/2], scales [Nw,nb]; got {tuple(a.shape)}, "
@@ -279,7 +333,7 @@ def qmatmul_int4_bf16(a: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"qmatmul_int4_bf16: packed {tuple(packed.shape)}, "
                          f"scales {tuple(scales.shape)}, n={n} do not fit "
                          f"the interleaved layout")
-    return _launch(qmatmul_int4_bf16, a, packed, scales, n, nb, qbh)
+    return _interleaved_op(a, packed, scales, n)
 
 
 qmatmul_int4_bf16.launches = 0

@@ -27,11 +27,19 @@ MatMulInteger (ops/quantized.py) reaches the int32 epilogue through
 `matmul_integer_int8`, which takes an activation of any rank [..., K] to
 the 2-D product and back.
 
-Each wrapper takes a tensor on the CPU to the kernel's plain PyTorch
-version (`*_plain`), and launches the kernel for a tensor on the card, or
-raises. `qmatmul_int8.launches` counts the kernel's launches through every
-wrapper, `qmatmul_int8.epilogues` counts them per epilogue, `.forms` those
-with an output zero point (`y_zero_point`) or a uint8 output (`uint8_y`).
+Each epilogue is a `torch.library` operator, `oriet::qmatmul_int8` and
+`oriet::qmatmul_int8_requant`, with three implementations: on the CPU the
+kernel's plain PyTorch version (`*_plain`), on the card the launch, and a
+fake one that gives the output's shape, dtype and strides from the
+operands alone, so that torch.export can trace a graph that runs the
+kernel (export_aot.py) and the profiler puts the launch under its op. The
+wrappers keep their signatures, check the device (a tensor on neither the
+CPU nor the card raises) and call the op; `matmul_integer_int8` is a
+reshape around `oriet::qmatmul_int8`. `qmatmul_int8.launches` counts the
+kernel's launches through every wrapper (inside the card's
+implementation, so that a loaded program's eager call counts too),
+`qmatmul_int8.epilogues` counts them per epilogue, `.forms` those with an
+output zero point (`y_zero_point`) or a uint8 output (`uint8_y`).
 """
 
 from __future__ import annotations
@@ -42,12 +50,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from ._ops import define
 
 __all__ = ["qmatmul_int8", "qmatmul_int8_plain", "qmatmul_int8_requant",
            "qmatmul_int8_requant_plain", "pack_qmatmul_weight", "int8_tile",
            "Int8Tile", "EPILOGUES", "K_ALIGN", "MAX_K",
            "matmul_integer_int8", "as_int8", "colsum_key", "folded_bias_key",
-           "ones_key", "QTYPES", "FORMS"]
+           "ones_key", "QTYPES", "FORMS", "check_device", "as_mult"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -274,6 +283,21 @@ def check_qtype(fn: str, out_dtype: torch.dtype, y_zp: int) -> None:
         raise ValueError(f"{fn}: y_zp {y_zp} outside {out_dtype}")
 
 
+def check_device(fn: str, t: torch.Tensor) -> None:
+    """Raise unless t lies on the CPU (the plain version) or the card (the
+    kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for {t.device}")
+
+
+def as_mult(mult, like: torch.Tensor) -> torch.Tensor:
+    """The requant multiplier as a tensor on `like`'s device (the ops'
+    schema takes a tensor; a Python number becomes a 0-d f32 tensor)."""
+    if isinstance(mult, torch.Tensor):
+        return mult
+    return torch.tensor(float(mult), dtype=torch.float32, device=like.device)
+
+
 def count_forms(counter: dict, **on: bool) -> None:
     """Add one to each of `counter`'s forms that is on for a launch."""
     for form, flag in on.items():
@@ -339,17 +363,66 @@ def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+# --------------------------------------------------------------------------
+# the ops
+# --------------------------------------------------------------------------
+def _qmatmul_int8_cpu(a, b, packed):
+    return qmatmul_int8_plain(a, b)
+
+
+def _qmatmul_int8_cuda(a, b, packed):
+    return _launch("qmatmul_int8", a, b, packed, "int32")
+
+
+def _qmatmul_int8_fake(a, b, packed):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=torch.int32)
+
+
+_qmatmul_int8_op = define(
+    "qmatmul_int8(Tensor a, Tensor b, Tensor? packed) -> Tensor",
+    _qmatmul_int8_cpu, _qmatmul_int8_cuda, _qmatmul_int8_fake)
+
+
+def _qmatmul_int8_requant_cpu(a, b, mult, bias, packed, y_zp, out_dtype):
+    check_qtype("qmatmul_int8_requant", out_dtype, y_zp)
+    return qmatmul_int8_requant_plain(a, b, mult, bias, y_zp=y_zp,
+                                      out_dtype=out_dtype)
+
+
+def _qmatmul_int8_requant_cuda(a, b, mult, bias, packed, y_zp, out_dtype):
+    return _launch("qmatmul_int8_requant", a, b, packed, "requant", mult,
+                   bias, y_zp, out_dtype)
+
+
+def _qmatmul_int8_requant_fake(a, b, mult, bias, packed, y_zp, out_dtype):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+
+
+_qmatmul_int8_requant_op = define(
+    "qmatmul_int8_requant(Tensor a, Tensor b, Tensor mult, Tensor? bias, "
+    "Tensor? packed, int y_zp, ScalarType out_dtype) -> Tensor",
+    _qmatmul_int8_requant_cpu, _qmatmul_int8_requant_cuda,
+    _qmatmul_int8_requant_fake)
+
+
+def _check_2d(fn: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    check_device(fn, a)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"{fn}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+
+
+# --------------------------------------------------------------------------
+# the wrappers
+# --------------------------------------------------------------------------
 def qmatmul_int8(a: torch.Tensor, b: torch.Tensor, *,
                  packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """int8 a [M, K] @ int8 b [K, N] -> int32 [M, N], exact.
+    """int8 a [M, K] @ int8 b [K, N] -> int32 [M, N], exact
+    (`oriet::qmatmul_int8`).
 
     On the card `packed` must be `pack_qmatmul_weight(b)`, made once per
     weight; the kernel reads it and not b."""
-    if a.device.type == "cpu":
-        return qmatmul_int8_plain(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"qmatmul_int8: no kernel for {a.device}")
-    return _launch("qmatmul_int8", a, b, packed, "int32")
+    _check_2d("qmatmul_int8", a, b)
+    return _qmatmul_int8_op(a, b, packed)
 
 
 qmatmul_int8.launches = 0
@@ -368,6 +441,7 @@ def matmul_integer_int8(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"matmul_integer_int8: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} (the kernel takes a [..., K] @ "
                          f"a 2-D b [K, N])")
+    check_device("matmul_integer_int8", a)
     K, N = b.shape
     acc = qmatmul_int8(a.reshape(-1, K).contiguous(), b, packed=packed)
     return acc.reshape(*a.shape[:-1], N)
@@ -380,15 +454,11 @@ def qmatmul_int8_requant(a: torch.Tensor, b: torch.Tensor, mult: torch.Tensor,
                          ) -> torch.Tensor:
     """int8 [M,K] @ int8 [K,N] + bias, * mult, + y_zp -> out_dtype (int8 or
     uint8) [M,N]: the TPU kernel's signature with ONNX's output zero point,
-    mult f32 [N] or scalar, bias int32 [N] or None.
+    mult f32 [N] or scalar, bias int32 [N] or None
+    (`oriet::qmatmul_int8_requant`).
 
     On the card `packed` must be `pack_qmatmul_weight(b)`; the launch is
     counted on `qmatmul_int8` (the same kernel, requant epilogue)."""
-    if a.device.type == "cpu":
-        check_qtype("qmatmul_int8_requant", out_dtype, y_zp)
-        return qmatmul_int8_requant_plain(a, b, mult, bias, y_zp=y_zp,
-                                          out_dtype=out_dtype)
-    if a.device.type != "cuda":
-        raise ValueError(f"qmatmul_int8_requant: no kernel for {a.device}")
-    return _launch("qmatmul_int8_requant", a, b, packed, "requant", mult,
-                   bias, y_zp, out_dtype)
+    _check_2d("qmatmul_int8_requant", a, b)
+    return _qmatmul_int8_requant_op(a, b, as_mult(mult, a), bias, packed,
+                                    int(y_zp), out_dtype)

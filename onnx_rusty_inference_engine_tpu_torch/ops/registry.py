@@ -35,12 +35,19 @@ def register(*op_types: str, domain: str = ""):
     return deco
 
 
+def _load_emitters() -> None:
+    """Import the emitter modules, whose `register` calls fill the
+    registry (once; later calls find them imported)."""
+    from . import fused, quantized, standard  # noqa: F401
+
+
 def get_emitter(op_type: str, domain: str = "") -> Callable:
     """Dispatch by (domain, op_type).
 
     Lookup order: the node's own domain first, then the default domain
     (many exporters leave node.domain empty even for contrib ops, and some
     stamp com.microsoft on nodes lowered with default-domain semantics)."""
+    _load_emitters()
     dom = _norm_domain(domain)
     fn = _REGISTRY.get((dom, op_type))
     if fn is None and dom:
@@ -57,6 +64,7 @@ def get_emitter(op_type: str, domain: str = "") -> Callable:
 
 
 def supported_ops():
+    _load_emitters()
     return sorted({op for _, op in _REGISTRY})
 
 

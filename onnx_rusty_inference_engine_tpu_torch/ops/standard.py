@@ -23,7 +23,6 @@ where PyTorch would keep bf16. Under the fp32 dtype policy nothing mixes.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from typing import List, Sequence, Tuple
@@ -34,6 +33,8 @@ import torch.nn.functional as F
 
 from .. import onnx_io
 from ..graph import Node, _broadcast_expand, _resolve_reshape
+from ..utils.fp32 import cudnn_fp32_exact as _fp32_exact
+from ..utils.fp32 import matmul_fp32_exact  # noqa: F401  (re-exported)
 from .registry import LoweringContext, UnsupportedOpError, register
 
 Padding = List[Tuple[int, int]]
@@ -87,26 +88,6 @@ def _pad(x: torch.Tensor, padding: Padding, value: float) -> torch.Tensor:
     for lo, hi in reversed(padding):  # F.pad lists the last dim first
         flat += [int(lo), int(hi)]
     return F.pad(x, flat, value=value)
-
-
-def _fp32_exact():
-    """cuDNN flags as they are, with TF32 off (fp32 convs in full fp32)."""
-    c = torch.backends.cudnn
-    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
-                   deterministic=c.deterministic, allow_tf32=False)
-
-
-@contextlib.contextmanager
-def matmul_fp32_exact():
-    """CUDA matmul flags as they are, with TF32 off (fp32 matrix products
-    in full fp32), restored on exit."""
-    flags = torch.backends.cuda.matmul
-    prev = flags.allow_tf32
-    flags.allow_tf32 = False
-    try:
-        yield
-    finally:
-        flags.allow_tf32 = prev
 
 
 def promote(*xs):

@@ -324,7 +324,6 @@ def test_cli_precision_flag_matches_jax(argv, files, capsys, monkeypatch):
 
 
 UNPORTED = [
-    (["run", "--dump-stats"], "1.11"),
     (["generate", "--draft-layers", "1"], "1.9/1.10b"),
     (["generate", "--family", "moe"], "1.8"),
     (["generate", "--family", "t5"], "1.8"),

@@ -45,9 +45,12 @@ from onnx_rusty_inference_engine_tpu_torch.ops.kernels import decode_attn as da
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qconv_int8 as k
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int4 as q4
 from onnx_rusty_inference_engine_tpu_torch.ops.kernels import qmatmul_int8 as q8
+from onnx_rusty_inference_engine_tpu_torch.models.squeezenet import (
+    build_squeezenet)
 from onnx_rusty_inference_engine_tpu_torch.quant import (
-    pack_int4, pack_int4_planar)
+    pack_int4, pack_int4_planar, quantize_weights_int4)
 from chip_smoke import _int4_picks, ort_int4_generator
+from torch_port_opcases import OPS, op_case
 
 pytestmark = pytest.mark.cuda
 
@@ -1775,3 +1778,155 @@ def test_qoperator_int32_routes_in_a_captured_engine(cuda):
     for k in ("ci", "mm"):
         np.testing.assert_array_equal(first[k], want[k], err_msg=k)
         np.testing.assert_array_equal(second[k], want2[k], err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# the kernels as torch.library ops, and the exported artifact on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("name", OPS)
+def test_op_passes_opcheck_on_the_card(cuda, name):
+    """Each `oriet::` op's CUDA implementation (the launch) against its
+    fake one (shape, dtype, strides: channels-last convs), its schema and
+    dynamic-shape tracing; ops 4 and 6 (interleaved int4, int8 x int8
+    attention) run on no exported path of the smoke."""
+    op, args = op_case(name, cuda)
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def _launch_gains(fn, reps: int = 3) -> dict:
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import counters
+
+    before = counters.snapshot()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return counters.delta(before)
+
+
+def _round_trip(eng, feed, tmp_path, platforms=None):
+    """(the Engine's outputs, the loaded artifact's first call and its
+    replay, the artifact, launches over 3 replays of each) on the card."""
+    from onnx_rusty_inference_engine_tpu_torch.export_aot import (
+        export_engine, load_exported)
+
+    want = eng.run(feed).outputs
+    path = str(tmp_path / "a.oriet.npz")
+    export_engine(eng, feed, path, platforms=platforms)
+    m = load_exported(path)
+    first, replayed = m.run(feed), m.run(feed)
+    gains = (_launch_gains(lambda: eng(feed)), _launch_gains(lambda: m(feed)))
+    return want, first, replayed, path, gains
+
+
+def _assert_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_export_round_trip_int8_squeezenet(cuda, tmp_path):
+    """Bit for bit against the Engine, eager and replayed; the same
+    launches per replayed forward (26 conv launches, 17 TMA + 9 gather)."""
+    g = import_model(build_squeezenet())
+    x = np.random.default_rng(0).standard_normal((8, 3, 64, 64))
+    feed = {"data_0": x.astype(np.float32)}
+    q = quantize_graph(g, ranges=calibrate(g, [feed], device="cpu"))
+    want, first, replayed, _, (e_gain, m_gain) = _round_trip(
+        Engine(q), feed, tmp_path)
+    _assert_equal(first, want)
+    _assert_equal(replayed, want)
+    assert m_gain == e_gain
+    assert e_gain[("qconv_int8_requant", "launches", "")] == 26 * 3
+
+
+@pytest.mark.parametrize("attn", ["f32", "int8_mxu"])
+def test_export_round_trip_decode_step(cuda, tmp_path, monkeypatch, attn):
+    """GPT-2's INT4-planar, INT8-KV, fused-attention decode step (2 layers,
+    n_embd 256) with each attention kernel: bit for bit, the same
+    launches (9 int4 and 2 attention per step)."""
+    from onnx_rusty_inference_engine_tpu_torch.models import (
+        build_gpt2_decode)
+
+    if attn == "int8_mxu":
+        monkeypatch.setenv("ORIET_ATTN_I8", "1")
+    cfg = GPT2Config(vocab_size=512, n_positions=64, n_embd=256, n_layer=2,
+                     n_head=4)
+    g = quantize_weights_int4(import_model(build_gpt2_decode(
+        cfg, batch=2, max_len=32, kv_dtype="int8", fused_attention=True)))
+    rng = np.random.default_rng(0)
+    feed = {"input_ids": rng.integers(0, 512, (2, 1)),
+            "pos": np.array([5, 9])}
+    for i in range(2):
+        for kind in ("key", "value"):
+            feed[f"past_{kind}_{i}"] = rng.integers(
+                -127, 128, (2, 4, 32, 64)).astype(np.int8)
+            feed[f"kv_scale_{kind}_{i}"] = (
+                rng.random(4) * 0.05 + 0.01).astype(np.float32)
+    want, first, replayed, _, (e_gain, m_gain) = _round_trip(
+        Engine(g), feed, tmp_path)
+    _assert_equal(first, want)
+    _assert_equal(replayed, want)
+    assert m_gain == e_gain
+    kernel = ("decode_attention_int8_mxu" if attn == "int8_mxu"
+              else "decode_attention_int8")
+    assert e_gain[(kernel, "launches", "")] == 2 * 3
+    assert e_gain[("qmatmul_int4_planar", "launches", "")] == 9 * 3
+
+
+def test_export_round_trip_int32_routes(cuda, tmp_path):
+    """ConvInteger, a grouped conv with a weight zero point and an
+    asymmetric QLinearMatMul (the int32 routes of qconv_int8,
+    qconv_grouped_int8 and qmatmul_int8) through export: bit for bit."""
+    from onnx_rusty_inference_engine_tpu_torch.graph import (
+        Graph, InputSpec, Node)
+
+    rng = np.random.default_rng(31)
+    x = rng.integers(0, 256, (2, 8, 9, 9)).astype(np.uint8)
+    consts = {
+        "w": rng.integers(-127, 128, (6, 8, 3, 3)).astype(np.int8),
+        "xzp": np.uint8(131), "wzp": rng.integers(-3, 4, (6,)).astype(
+            np.int8),
+        "xs": np.float32(0.05), "gw": rng.integers(
+            -127, 128, (8, 2, 3, 3)).astype(np.int8),
+        "gws": np.float32(0.01), "gwzp": np.int8(2), "ys": np.float32(0.4),
+        "yzp": np.uint8(120),
+        "b": rng.integers(0, 256, (10, 5)).astype(np.uint8),
+        "bs": np.float32(0.02), "bzp": np.uint8(125), "ms": np.float32(0.3),
+        "mzp": np.uint8(100)}
+    nodes = [
+        Node("ConvInteger", ["x", "w", "xzp", "wzp"], ["ci"], "ci",
+             {"kernel_shape": [3, 3], "pads": [1, 1, 1, 1]}),
+        Node("QLinearConv", ["x", "xs", "xzp", "gw", "gws", "gwzp", "ys",
+                             "yzp"], ["gc"], "gc",
+             {"kernel_shape": [3, 3], "pads": [1, 2, 0, 1], "group": 4}),
+        Node("QLinearMatMul", ["gc", "ys", "yzp", "b", "bs", "bzp", "ms",
+                               "mzp"], ["mm"], "mm")]
+    g = Graph(name="int32_routes", nodes=nodes, constants=consts,
+              inputs=[InputSpec("x", x.shape, np.dtype(np.uint8))],
+              outputs=["ci", "mm"], opset=13,
+              weight_names=["w", "gw", "b"])
+    want, first, replayed, _, (e_gain, m_gain) = _round_trip(
+        Engine(g), {"x": x}, tmp_path)
+    _assert_equal(first, want)
+    _assert_equal(replayed, want)
+    assert m_gain == e_gain
+
+
+def test_cpu_cuda_artifact_runs_on_both_devices(cuda, tmp_path):
+    """One artifact with both programs: on the card bit for bit with the
+    card's Engine, on the CPU bit for bit with a CPU Engine (the plain
+    versions)."""
+    from onnx_rusty_inference_engine_tpu_torch.export_aot import (
+        load_exported)
+
+    g = import_model(build_squeezenet())
+    x = np.random.default_rng(2).standard_normal((2, 3, 64, 64))
+    feed = {"data_0": x.astype(np.float32)}
+    q = quantize_graph(g, ranges=calibrate(g, [feed], device="cpu"))
+    want, first, _, path, _ = _round_trip(Engine(q), feed, tmp_path,
+                                          platforms=["cpu", "cuda"])
+    _assert_equal(first, want)
+    on_cpu = load_exported(path, device="cpu")
+    assert on_cpu.platforms == ["cpu", "cuda"]
+    _assert_equal(on_cpu.run(feed), Engine(q, device="cpu").run(feed).outputs)

@@ -23,7 +23,7 @@ from onnx_rusty_inference_engine_tpu_torch import quant as t_quant
 from onnx_rusty_inference_engine_tpu_torch.generate import Generator
 from onnx_rusty_inference_engine_tpu_torch.graph import import_model
 from onnx_rusty_inference_engine_tpu_torch.models import (
-    build_gpt2, build_gpt2_decode, decoder_family)
+    build_gpt2, build_gpt2_decode, decoder_family, host_memo)
 from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
     UnsupportedOpError)
@@ -237,6 +237,32 @@ def test_decode_graph_equals_jax_with_int4(variant):
     jq, tq = j_quantize_int4(jg), t_quant.quantize_weights_int4(tg)
     assert_graphs_equal(jq, tq)  # packed bytes and scales bit-equal
     assert sum(n.op_type == "MatMulNBits" for n in tq.nodes) == 4 * 2 + 1
+
+
+def test_host_memo_shares_weights_and_packings():
+    """Inside host_memo the decode graph reuses the prefill graph's weight
+    arrays, the lm_head's transpose and their int4 packings; each graph
+    still equals JAX's (built without a memo), and another seed draws
+    other weights."""
+    jd = j_quantize_int4(j_import(j_gpt2.build_gpt2_decode(
+        _jcfg(TINY), batch=2, max_len=16, kv_dtype="int8",
+        fused_attention=True)))
+    with host_memo():
+        a = import_model(build_gpt2(TINY, batch=1, seq_len=8))
+        b = import_model(build_gpt2_decode(TINY, batch=2, max_len=16,
+                                           kv_dtype="int8",
+                                           fused_attention=True))
+        qa = t_quant.quantize_weights_int4(a)
+        qb = t_quant.quantize_weights_int4(b)
+        other = import_model(build_gpt2(TINY, batch=1, seq_len=8, seed=1))
+    for name in ("wte", "wte_T", "blk1_mlp_proj_w"):
+        assert b.constants[name] is a.constants[name]
+    assert qb.constants["wte_T__w4"] is qa.constants["wte_T__w4"]
+    assert not np.array_equal(other.constants["blk0_attn_qkv_w"],
+                              a.constants["blk0_attn_qkv_w"])
+    assert_graphs_equal(jd, qb)
+    assert_graphs_equal(j_quantize_int4(j_import(j_gpt2.build_gpt2(
+        _jcfg(TINY), batch=1, seq_len=8))), qa)
 
 
 @pytest.mark.parametrize("K,N,block", [(768, 300, 256), (3072, 64, 256),
