@@ -211,6 +211,43 @@ Phases, each printing JSON lines:
              CLI as subprocesses: `run` with resnet50.pb's golden case
              (MATCH), `inspect` of the three models (no unsupported op),
              `bench --quantize int8 --batch 256`.
+18c. scan_decode - after phase 18: the scan-over-layers decode graphs
+             (Generator(scan_layers=True): one Scan over stacked per-layer
+             weights, stacked KV cache) with INT4 planar weights and an
+             INT8 KV cache, attention unfused (JAX takes no fused attention
+             with scan_layers), against the per-layer Generator with the
+             same arguments: GPT-2 124M (all 12 layers) and Llama at
+             LlamaConfig()'s widths with 2 of 32 layers (so that the Scan
+             iterates), batch 8, 64-token prompts, max_len 256, 64 greedy
+             tokens. Counts set to 0 just before each form's main path and
+             read just after: 49 (Llama: 15) int4 launches per prefill and
+             per step in both forms, each on the schedule int4_schedule
+             picks, no other kernel; tokens equal; the prefill and 4
+             teacher-forced steps of both forms equal bit for bit (logits
+             and every layer's cache); the scan form's prefill and 4 steps
+             re-run through the plain versions on the CPU (logits within
+             1e-2 x max|logit|). Per form: the replayed step (device busy
+             and wall ms, device ops), tokens/s, copy and concat kernels
+             per step (the Scan's stacked outputs); then the scan form with
+             device_loop = 8 (tokens equal its host loop's, int4 launches
+             per step over the replayed blocks, tokens/s). GPT-2's kernel
+             lines of the scan form's int4 shapes, on layer 0's slices of
+             the stacked weights; one line per model.
+18d. control_flow - after 18c: ONNX If / Loop / Scan, sequence state and
+             LSTM / GRU / RNN graphs built from seed 0, each through an
+             Engine on the card (first call eager then captured, replays,
+             eager forwards) against the port's CPU run of the same graph
+             and feed, TF32 off: an If on a predicate computed at run time
+             over [4096, 1024] f32 branches (both values, one captured
+             graph); a Loop of 32 trips over a [1024, 1024] state that exits
+             after 20; a Loop with a tensor and a sequence state (8 trips,
+             ConcatFromSequence, SequenceLength); a reverse Scan over two
+             scan inputs (T 64, the second on its axis 1, output reversed
+             on axis 1); a bidirectional LSTM, a GRU and an RNN at T 128,
+             B 64, input 512, hidden 512. Bounds: 1e-5 x max|out| for
+             If/Loop/Scan, rtol 1e-4 / atol 1e-5 for the RNNs. One line
+             per graph: the errors, the replayed ms (device busy and wall),
+             device ops per replay, eager wall ms.
 18b. precision - after phase 18: the bf16 dtype policy and dynamic W8A8
              (quantize_matmuls_w8a8, MatMulInteger on the int8 kernel's
              int32 epilogue). BERT-base at B 32, T 128 (phase 9's inputs)
@@ -299,6 +336,8 @@ Phases, each printing JSON lines:
              row per kernel and QOperator form of phase 19b (`instance`,
              sums per forward of its first model, the others in
              `qoperator_path`; launches from each form's own counts).
+             qmatmul_int4_planar's row carries the GPT-2 scan form's step
+             in `scan_path`.
 
 The whole run is one models.host_memo block: every GPT-2 and Llama graph
 of one config and seed (Generators, servers, precision schemes, export
@@ -1030,30 +1069,48 @@ def _plain_rerun(gen, prompts, toks, same_cache: bool = False):
     return (errs, agree, own) if same_cache else (errs, agree)
 
 
+def matmul_nbits_nodes(graph):
+    """(MatMulNBits node, launches per pass of the graph) over the graph
+    and the bodies of its Scan nodes, which launch theirs once per
+    iteration (the trip count: a stacked scan input's leading dim)."""
+    out = []
+    for node in graph.nodes:
+        if node.op_type == "MatMulNBits":
+            out.append((node, 1))
+        elif node.op_type == "Scan":
+            from onnx_rusty_inference_engine_tpu_torch.graph import (
+                _node_from_proto)
+
+            n_state = len(node.inputs) - int(node.attr("num_scan_inputs"))
+            trips = graph.constants[node.inputs[n_state]].shape[0]
+            out += [(_node_from_proto(b), trips)
+                    for b in node.attr("body").nodes
+                    if b.op_type == "MatMulNBits"]
+    return out
+
+
 def _int4_picks(gen, name: str, m_prefill: int, m_step: int,
                 steps: int) -> dict:
     """Launches per schedule that qmatmul_int4.int4_schedule picks for the
     MatMulNBits nodes of gen's main path: its prefill graph once at
-    M = m_prefill and its decode graph `steps` times at M = m_step. `name`
-    says the layout: qmatmul_int4_planar (planar_layout of K and
-    block_size) or qmatmul_int4_bf16 (interleaved, nb blocks of the
-    scales)."""
+    M = m_prefill and its decode graph `steps` times at M = m_step (a
+    Scan body's nodes once per iteration). `name` says the layout:
+    qmatmul_int4_planar (planar_layout of K and block_size) or
+    qmatmul_int4_bf16 (interleaved, nb blocks of the scales)."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
         qmatmul_int4 as q4)
 
     picks = dict.fromkeys(q4.SCHEDULES, 0)
     for graph, M, passes in ((gen.prefill.graph, m_prefill, 1),
                              (gen.decode.graph, m_step, steps)):
-        for node in graph.nodes:
-            if node.op_type != "MatMulNBits":
-                continue
+        for node, reps in matmul_nbits_nodes(graph):
             K = int(node.attr("K"))
             if name == "qmatmul_int4_planar":
                 nblk, blk = q4.planar_layout(K, int(node.attr("block_size")))
             else:
                 nblk = graph.constants[node.inputs[2]].shape[1]
                 blk = K // 2 // nblk
-            picks[q4.int4_schedule(M, K, nblk, blk)] += passes
+            picks[q4.int4_schedule(M, K, nblk, blk)] += passes * reps
     return picks
 
 
@@ -1197,12 +1254,21 @@ def phase_decode_profile(gen, prompts, reps: int = 5, *,
         buckets[b] = buckets.get(b, 0.0) + ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    # PyTorch's copy kernels, and its concatenations (a Scan's stacked
+    # outputs), per step
+    cuda_evts = [evt for evt in prof.key_averages()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(evt.count for evt in cuda_evts if "copy" in evt.key.lower()
+                 and "CatArray" not in evt.key) / reps
+    cats = sum(evt.count for evt in cuda_evts if "CatArray" in evt.key) / reps
     line = {"phase": "profile", "engine": engine, "batch": DEC_BATCH,
             "pos": PROMPT, "wall_ms_per_step": plain_wall_ms,
             "wall_ms_per_step_profiled": wall_ms,
             "device_busy_ms_per_step": busy,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
             "device_ops_per_step": launches / reps,
+            "copy_kernels_per_step": copies,
+            "concat_kernels_per_step": cats,
             "buckets_ms": dict(sorted(buckets.items(),
                                       key=lambda kv: -kv[1])),
             "busy_share_by_bucket": {k: v / busy for k, v in buckets.items()}
@@ -1245,6 +1311,27 @@ def _int4_library(a, q, scales_k, bs):
             lambda: torch.matmul(ab, w))
 
 
+def decode_int4_weights(gen) -> list:
+    """(MatMulNBits node, packed weight, scales, launches per pass) of
+    gen's decode graph on the card: a Scan body's nodes with layer 0's
+    slice of their stacked weights (a view, as the Scan hands each
+    iteration) and one launch per layer."""
+    params, out = gen.decode.params, []
+    for node in gen.decode.graph.nodes:
+        if node.op_type == "MatMulNBits":
+            out.append((node, params[node.inputs[1]],
+                        params[node.inputs[2]], 1))
+    scans = [n for n in gen.decode.graph.nodes if n.op_type == "Scan"]
+    for scan in scans:
+        outer = dict(zip((vi.name for vi in scan.attr("body").inputs),
+                         scan.inputs))
+        for node, reps in matmul_nbits_nodes(gen.decode.graph):
+            if node.inputs[1] in outer:
+                out.append((node, params[outer[node.inputs[1]]][0],
+                            params[outer[node.inputs[2]]][0], reps))
+    return out
+
+
 GPT2_INT4_PER = ("one GPT-2 124M decode step at batch 8: the sum over its 49 "
                  "launches (4 per layer + the lm_head)")
 
@@ -1262,22 +1349,19 @@ def int4_kernel_row(gen, name: str, launches: int, smi: str,
     kern_fn, plain_fn = getattr(q4, name), getattr(q4, name + "_plain")
     planar = name == "qmatmul_int4_planar"
     rng = np.random.default_rng(1)
-    params = gen.decode.params
     shapes = {}
-    for node in gen.decode.graph.nodes:
-        if node.op_type != "MatMulNBits":
-            continue
+    for node, packed, scales, reps in decode_int4_weights(gen):
         K, N = int(node.attr("K")), int(node.attr("N"))
         for M, phase in ((DEC_BATCH * PROMPT, "prefill"),
                          (DEC_BATCH, "step")):
             key = (M, K, N)
             if key in shapes:
-                shapes[key]["count"] += 1
+                shapes[key]["count"] += reps
                 continue
-            shapes[key] = {"count": 1, "phase": phase, "node": node.inputs[1],
+            shapes[key] = {"count": reps, "phase": phase,
+                           "node": node.inputs[1],
                            "bs": int(node.attr("block_size")),
-                           "packed": params[node.inputs[1]],
-                           "scales": params[node.inputs[2]]}
+                           "packed": packed, "scales": scales}
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
             "ops_ms": 0.0, "bytes_ms": 0.0}
     pre = dict(step)
@@ -4749,6 +4833,415 @@ def phase_export(smi: str) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# --------------------------------------------------------------------------
+# Scan-over-layers decode: GPT-2 124M and Llama, scan form vs per-layer
+# --------------------------------------------------------------------------
+SCAN_LLAMA_LAYERS = 2      # of LlamaConfig()'s 32: the Scan iterates
+SCAN_STEP_REPS = 20        # replays per step timing
+
+
+def _replayed_step(gen) -> dict:
+    """The decode Engine's captured step graph (the main path's one input
+    signature), replayed back to back: wall and device-busy ms per step,
+    the device ops per replay (device_busy)."""
+    graphs = list(gen.decode._graphs.values())
+    require(len(graphs) == 1, f"one captured decode signature: "
+                              f"{len(graphs)}")
+    with torch.no_grad():
+        return device_busy(graphs[0].replay, SCAN_STEP_REPS)
+
+
+def _scan_form(cfg, family: str, per_step: int, prompts, label: str,
+               smi: str) -> dict:
+    """The scan-over-layers decode (INT4 planar weights, INT8 KV, attention
+    unfused as JAX requires) against the per-layer form with the same
+    arguments, on the card: counts set to 0 just before each form's main
+    path (gen.generate, NEW greedy tokens) and read just after; `per_step`
+    int4 launches per prefill and per step in both; tokens equal; the
+    prefill and CPU_STEPS teacher-forced steps of the two forms equal bit
+    for bit (logits and every layer's cache); the scan form's logits
+    within 1e-2 x max|logit| of the plain versions on the CPU; replayed
+    step ms, tokens/s, copy kernels per step for both; then the scan form
+    with device_loop = SERVE_K. Returns the line's fields."""
+    steps = NEW - 1
+    out = {"model": label, "batch": DEC_BATCH, "prompt": PROMPT,
+           "max_len": MAX_LEN, "new_tokens": NEW, "card": smi}
+    gens, toks, counts = {}, {}, {}
+    for form, kw in (("per_layer", {}), ("scan", {"scan_layers": True})):
+        t0 = time.perf_counter()
+        gens[form] = gen = _generator(cfg, family=family, kv_dtype="int8",
+                                      int4_weights=True, **kw)
+        out[f"{form}_build_s"] = time.perf_counter() - t0
+        n4 = (sum(reps for _, reps in matmul_nbits_nodes(
+            gen.prefill.graph)), sum(reps for _, reps in matmul_nbits_nodes(
+                gen.decode.graph)))
+        require(n4 == (per_step, per_step), f"{label} {form}: {per_step} "
+                f"MatMulNBits per prefill and per step: {n4}")
+        reset_counts()
+        t0 = time.perf_counter()
+        toks[form], _ = gen.generate(prompts, NEW)
+        counts[form] = read_counts()
+        out[f"{form}_main_path_s"] = time.perf_counter() - t0
+        c = counts[form]
+        require(c["qmatmul_int4_planar"] == per_step * (1 + steps)
+                and sum(c.values()) == c["qmatmul_int4_planar"],
+                f"{label} {form}: {per_step} int4 launches per prefill and "
+                f"per step and no other kernel: {c}")
+        out[f"{form}_int4_schedules"] = _int4_schedules(
+            gen, "qmatmul_int4_planar", steps)
+    scan, per = gens["scan"], gens["per_layer"]
+    require(np.array_equal(toks["scan"], toks["per_layer"]),
+            f"{label}: the scan form's {DEC_BATCH} x {NEW} greedy tokens "
+            f"equal the per-layer form's")
+    require(out["scan_int4_schedules"] == out["per_layer_int4_schedules"],
+            f"{label}: the same int4 schedules in both forms")
+
+    # the two forms on the same inputs: bit for bit
+    ls, cs = scan.start(prompts)
+    lp, cp = per.start(prompts)
+    diffs = [float((ls - lp).abs().max())]
+    cache_equal = True
+    for t in range(CPU_STEPS):
+        tok = torch.from_numpy(toks["scan"][:, t]).cuda()
+        ls, cs = scan.step(cs, tok, PROMPT + t)
+        lp, cp = per.step(cp, tok, PROMPT + t)
+        diffs.append(float((ls - lp).abs().max()))
+        for i in range(cfg.n_layer):
+            for kind in ("key", "value"):
+                cache_equal &= bool(torch.equal(
+                    cs[f"past_{kind}"][i], cp[f"past_{kind}_{i}"]))
+    require(max(diffs) == 0.0 and cache_equal,
+            f"{label}: the scan form's logits and cache equal the "
+            f"per-layer form's bit for bit: {diffs}, cache {cache_equal}")
+    t0 = time.perf_counter()
+    errs, agree = _plain_rerun(scan, prompts, toks["scan"])
+    out.update(launches={f: counts[f] for f in counts},
+               int4_per_step=per_step,
+               tokens_equal=True, logits_max_abs_diff_vs_per_layer=diffs,
+               cache_equal_per_layer=True,
+               card_vs_plain_rel_err=errs, plain_greedy_agreement=agree,
+               plain_rerun_s=time.perf_counter() - t0,
+               tokens_row0=toks["scan"][0, :16].tolist())
+
+    # replayed steps, tokens/s, copies per step
+    for form, gen in gens.items():
+        out[f"{form}_step_replay"] = _replayed_step(gen)
+        out[f"{form}_tokens_per_s"] = _decode_tokens_per_s(gen, prompts)
+        prof = phase_decode_profile(
+            gen, prompts, reps=3, engine=f"{label} decode step ({form}, "
+                                          f"int4, int8 KV, unfused)")
+        out[f"{form}_copy_kernels_per_step"] = prof["copy_kernels_per_step"]
+        out[f"{form}_concat_kernels_per_step"] = prof[
+            "concat_kernels_per_step"]
+        out[f"{form}_device_ops_per_step"] = prof["device_ops_per_step"]
+    out["scan_added_copy_kernels_per_step"] = sum(
+        out[f"scan_{k}_kernels_per_step"] - out[f"per_layer_{k}_kernels_per_"
+                                                f"step"]
+        for k in ("copy", "concat"))
+    out["scan_vs_per_layer_replayed_step"] = (
+        out["scan_step_replay"]["busy_ms"]
+        / out["per_layer_step_replay"]["busy_ms"])
+
+    # the scan form with device_loop = K
+    K = SERVE_K
+    blocks = -(-steps // K)
+    scan.device_loop = K
+    try:
+        first = scan.generate(prompts, NEW)[0]       # eager block, capture
+        block = scan._blocks[next(iter(scan._blocks))]
+        reset_counts()
+        again = scan.generate(prompts, NEW)[0]       # replays
+        counts_dl = read_counts()
+        tps_dl = _decode_tokens_per_s(scan, prompts)
+        with torch.no_grad():
+            block_t = device_busy(block["replay"], 5)
+    finally:
+        scan.device_loop = 0
+    require(np.array_equal(first, toks["scan"])
+            and np.array_equal(again, toks["scan"]),
+            f"{label}: the scan form's device_loop tokens equal its host "
+            f"loop's")
+    require(counts_dl["qmatmul_int4_planar"] == per_step * (1 + blocks * K),
+            f"{label}: {per_step} int4 launches per step over {blocks} "
+            f"replayed blocks: {counts_dl}")
+    out["scan_device_loop"] = {
+        "K": K, "blocks": blocks, "greedy_equals_host": True,
+        "launches": counts_dl, "tokens_per_s": tps_dl,
+        "block_replay": block_t, "step_wall_ms": block_t["wall_ms"] / K,
+        "step_busy_ms": block_t["busy_ms"] / K}
+    out["_gens"] = gens
+    return out
+
+
+def phase_scan_decode(smi: str) -> dict:
+    """The scan-over-layers decode graphs on the card: GPT-2 124M (all 12
+    layers) and Llama at LlamaConfig()'s widths with SCAN_LLAMA_LAYERS of
+    its 32 layers (so that the Scan iterates), each through _scan_form;
+    one line per model. Returns the qmatmul_int4_planar numbers of one
+    GPT-2 scan-form step (its kernel lines, with the Scan body's weights
+    as the slices of the stacked weights each iteration gets) for the
+    kernels line."""
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+    from onnx_rusty_inference_engine_tpu_torch.models.llama import (
+        LlamaConfig)
+
+    gcfg = GPT2Config()
+    g = _scan_form(gcfg, "gpt2", 4 * gcfg.n_layer + 1,
+                   _decode_prompts(gcfg), "gpt2 124M (SMALL, seed 0)", smi)
+    gens = g.pop("_gens")
+    row = int4_kernel_row(
+        gens["scan"], "qmatmul_int4_planar",
+        g["launches"]["scan"]["qmatmul_int4_planar"], smi,
+        per="one GPT-2 124M scan-form decode step at batch 8: the sum over "
+            "its 49 launches (the Scan body's 4 per layer, on layer 0's "
+            "slices of the stacked weights, + the lm_head)")
+    emit({"phase": "scan_decode", **g})
+    del gens
+    torch.cuda.empty_cache()
+
+    L = SCAN_LLAMA_LAYERS
+    lcfg = LlamaConfig(n_layer=L)
+    llama = _scan_form(
+        lcfg, "llama", 7 * L + 1, _decode_prompts(lcfg),
+        f"llama-7b widths (LlamaConfig(): dim 4096, 32 heads / 8 KV heads "
+        f"of 128, FFN 16384, vocab 32000), {L} of 32 layers, seed 0", smi)
+    llama.pop("_gens")
+    emit({"phase": "scan_decode", **llama})
+    torch.cuda.empty_cache()
+    return {k: row[k] for k in ("launches", "max_abs_err", "max_rel_err",
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "per")}
+
+
+# --------------------------------------------------------------------------
+# ONNX control flow and recurrence: If / Loop / Scan, sequences, RNNs
+# --------------------------------------------------------------------------
+RNN_T, RNN_B, RNN_I, RNN_H = 128, 64, 512, 512  # a speech / series encoder
+
+
+def _sub(b_name: str, inputs, outputs, build) -> object:
+    """An attribute subgraph with untyped declared inputs and outputs (they
+    bind by position): `build(bb)` adds its nodes and initializers."""
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+    from onnx_rusty_inference_engine_tpu_torch.models._builder import (
+        GraphBuilder)
+
+    bb = GraphBuilder(b_name, opset=17)
+    bb.g.inputs = [onnx_io.ValueInfo(name=n) for n in inputs]
+    bb.g.outputs = [onnx_io.ValueInfo(name=n) for n in outputs]
+    build(bb)
+    return bb.g
+
+
+def control_flow_graphs(seed: int = 0) -> dict:
+    """name -> (Graph, [(feed label, feed)], bound): the control-flow and
+    recurrence graphs the control_flow phase runs, weights and inputs from
+    `seed`. bound "max": 1e-5 x max|out|; "rnn": rtol 1e-4, atol 1e-5."""
+    from onnx_rusty_inference_engine_tpu_torch.graph import import_model
+    from onnx_rusty_inference_engine_tpu_torch.models._builder import (
+        GraphBuilder)
+
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    graphs = {}
+
+    # If on a predicate computed at run time, [4096, 1024] branches
+    b = GraphBuilder("if_runtime_predicate", opset=17)
+    b.input("x", [4096, 1024])
+    b.init("wb", f32(1024, 1024, scale=1024 ** -0.5))
+    b.init("zero", np.float32(0.0))
+    b.node("ReduceMax", ["x"], ["mx"], keepdims=0)
+    b.node("Greater", ["mx", "zero"], ["p"])
+
+    def then_b(bb):
+        bb.init("wa", f32(1024, 1024, scale=1024 ** -0.5))
+        bb.node("MatMul", ["x", "wa"], ["o"])
+
+    def else_b(bb):
+        bb.node("MatMul", ["x", "wb"], ["m"])
+        bb.node("Tanh", ["m"], ["o"])
+
+    b.node("If", ["p"], ["y"], then_branch=_sub("then", [], ["o"], then_b),
+           else_branch=_sub("else", [], ["o"], else_b))
+    b.output("y", [4096, 1024])
+    x = np.abs(f32(4096, 1024))
+    graphs["if_runtime_predicate"] = (
+        import_model(b.model()), [("then", {"x": x}), ("else", {"x": -x})],
+        "max")
+
+    # Loop of 32 trips over a [1024, 1024] state that exits after 20; the
+    # weight is orthogonal, so a trip neither grows nor shrinks the
+    # state's rounding differences (tanh only contracts them)
+    b = GraphBuilder("loop_early_exit", opset=17)
+    b.input("s0", [1024, 1024])
+    b.input("c0", [])
+    b.init("M", np.array(32, np.int64))
+    b.init("w", np.linalg.qr(f32(1024, 1024))[0].astype(np.float32))
+    b.init("cond", np.array(True))
+
+    def loop_b(bb):
+        bb.init("one", np.float32(1.0))
+        bb.init("stop", np.float32(20.0))
+        bb.node("MatMul", ["s_in", "w"], ["sw"])
+        bb.node("Tanh", ["sw"], ["s_out"])
+        bb.node("Add", ["c_in", "one"], ["c_out"])
+        bb.node("Less", ["c_out", "stop"], ["cond_out"])
+
+    b.node("Loop", ["M", "cond", "s0", "c0"], ["s", "c"],
+           body=_sub("loop_body", ["i", "cond_in", "s_in", "c_in"],
+                     ["cond_out", "s_out", "c_out"], loop_b))
+    b.output("s", [1024, 1024])
+    b.output("c", [])
+    graphs["loop_early_exit"] = (
+        import_model(b.model()),
+        [("from_0", {"s0": f32(1024, 1024), "c0": np.float32(0.0)})], "max")
+
+    # Loop with sequence state: a tensor state and a sequence it appends to
+    b = GraphBuilder("loop_sequence_state", opset=17)
+    b.input("h0", [256, 1024])
+    b.init("M", np.array(8, np.int64))
+    b.init("w", f32(1024, 1024, scale=1024 ** -0.5))
+    b.node("SequenceEmpty", [], ["seq0"])
+
+    def seq_b(bb):
+        bb.node("Identity", ["cond_in"], ["cond_out"])
+        bb.node("MatMul", ["h_in", "w"], ["hw"])
+        bb.node("Tanh", ["hw"], ["h_out"])
+        bb.node("SequenceInsert", ["seq_in", "h_out"], ["seq_out"])
+
+    b.node("Loop", ["M", "", "h0", "seq0"], ["h", "seq"],
+           body=_sub("seq_body", ["i", "cond_in", "h_in", "seq_in"],
+                     ["cond_out", "h_out", "seq_out"], seq_b))
+    b.node("ConcatFromSequence", ["seq"], ["hs"], axis=0, new_axis=1)
+    b.node("SequenceLength", ["seq"], ["n"])
+    b.output("hs", [256, 8, 1024])
+    b.output("n", [], dtype=np.int64)
+    graphs["loop_sequence_state"] = (
+        import_model(b.model()), [("h0", {"h0": f32(256, 1024)})], "max")
+
+    # reverse Scan over two scan inputs (the second on its axis 1)
+    T, B, D = 64, 256, 512
+    b = GraphBuilder("scan_reverse_two_inputs", opset=17)
+    b.input("h0", [B, D])
+    b.input("xs", [T, B, D])
+    b.input("zs", [B, T, D])
+    b.init("w", f32(D, D, scale=D ** -0.5))
+
+    def scan_b(bb):
+        bb.node("MatMul", ["h", "w"], ["hw"])
+        bb.node("Add", ["hw", "x_t"], ["a"])
+        bb.node("Add", ["a", "z_t"], ["a2"])
+        bb.node("Tanh", ["a2"], ["h2"])
+        bb.node("Sub", ["h2", "x_t"], ["y"])
+
+    b.node("Scan", ["h0", "xs", "zs"], ["hT", "ys"],
+           body=_sub("scan_body", ["h", "x_t", "z_t"], ["h2", "y"], scan_b),
+           num_scan_inputs=2,
+           scan_input_axes=[0, 1], scan_input_directions=[1, 1],
+           scan_output_axes=[1], scan_output_directions=[1])
+    b.output("hT", [B, D])
+    b.output("ys", [B, T, D])
+    graphs["scan_reverse_two_inputs"] = (
+        import_model(b.model()),
+        [("h0", {"h0": f32(B, D), "xs": f32(T, B, D), "zs": f32(B, T, D)})],
+        "max")
+
+    # LSTM (bidirectional), GRU and RNN at a speech encoder's size
+    T, B, I, H = RNN_T, RNN_B, RNN_I, RNN_H
+    for op, gates, dirs, outs, attrs in (
+            ("LSTM", 4, 2, ["y", "y_h", "y_c"],
+             {"direction": "bidirectional"}),
+            ("GRU", 3, 1, ["y", "y_h"], {}),
+            ("RNN", 1, 1, ["y", "y_h"], {})):
+        b = GraphBuilder(op.lower(), opset=17)
+        b.input("x", [T, B, I])
+        b.init("W", f32(dirs, gates * H, I, scale=I ** -0.5))
+        b.init("R", f32(dirs, gates * H, H, scale=H ** -0.5))
+        b.init("B", f32(dirs, 2 * gates * H, scale=0.1))
+        b.node(op, ["x", "W", "R", "B"], outs, hidden_size=H, **attrs)
+        for o in outs:
+            b.output(o)
+        graphs[op.lower()] = (import_model(b.model()),
+                              [("x", {"x": f32(T, B, I)})], "rnn")
+    return graphs
+
+
+def _cf_check(got: dict, want: dict, bound: str) -> float:
+    """Max |card - CPU| / max|CPU| over the outputs, held to the bound."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        require(tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype,
+                f"{k}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} "
+                f"{w.dtype}")
+        if not w.dtype.is_floating_point:
+            require(torch.equal(g, w), f"{k}: integers equal")
+            continue
+        top = float(w.abs().max())
+        err = float((g - w).abs().max())
+        worst = max(worst, err / top if top else err)
+        if bound == "rnn":
+            require(torch.allclose(g, w, rtol=1e-4, atol=1e-5),
+                    f"{k}: rtol 1e-4, atol 1e-5 of the CPU's ({err})")
+        else:
+            require(err <= 1e-5 * top, f"{k}: {err} > 1e-5 x {top}")
+    return worst
+
+
+def phase_control_flow(smi: str) -> None:
+    """Each control_flow_graphs() graph on the card through an Engine: the
+    first call (eager, then captured), a replay of every feed and an eager
+    forward of every feed, each held against the port's CPU run of the
+    same graph and feed (TF32 off); an If's two predicate values share one
+    captured graph, which must pick by the predicate on the device. Per
+    graph: the replayed ms (device busy and wall), the device ops per
+    replay, the eager wall ms; one line each."""
+    from onnx_rusty_inference_engine_tpu_torch.engine import Engine
+    from onnx_rusty_inference_engine_tpu_torch.weights import (
+        as_device_tensor)
+
+    for name, (graph, feeds, bnd) in control_flow_graphs().items():
+        t0 = time.perf_counter()
+        cpu = Engine(graph, device="cpu")
+        want = {label: cpu(feed) for label, feed in feeds}
+        cpu_s = time.perf_counter() - t0
+        eng = Engine(graph)
+        errs = {}
+        with torch.no_grad():
+            label0, feed0 = feeds[0]
+            errs[f"first_call_{label0}"] = _cf_check(eng(feed0),
+                                                     want[label0], bnd)
+            for label, feed in feeds:
+                dev = {k: as_device_tensor(v, eng.device)
+                       for k, v in feed.items()}
+                errs[f"replay_{label}"] = _cf_check(eng(feed), want[label],
+                                                    bnd)
+                errs[f"eager_{label}"] = _cf_check(eng.forward(dev),
+                                                   want[label], bnd)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.forward(dev)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            require(len(eng._graphs) == 1, f"{name}: one captured graph")
+            replay = device_busy(next(iter(eng._graphs.values())).replay, 5)
+        emit({"phase": "control_flow", "graph": name,
+              "nodes": [n.op_type for n in graph.nodes],
+              "inputs": {k: list(np.shape(v)) for k, v in feeds[0][1].items()},
+              "feeds": [label for label, _ in feeds],
+              "bound": ("1e-5 x max|out|" if bnd == "max"
+                        else "rtol 1e-4, atol 1e-5"),
+              "max_rel_err_vs_cpu": errs, "replayed_ms": replay["busy_ms"],
+              "replayed_wall_ms": replay["wall_ms"],
+              "launches_per_replay": replay["device_ops"],
+              "eager_wall_ms": eager_ms, "cpu_s": cpu_s, "card": smi})
+        del eng, cpu
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -4810,6 +5303,11 @@ def main() -> int:
             phase_int4_sweep(smi)
             phase_serve(smi)
             llama = phase_llama(smi)
+            scan = phase_scan_decode(smi)
+            for row in rows:
+                if row["name"] == "qmatmul_int4_planar":
+                    row["scan_path"] = scan
+            phase_control_flow(smi)
             rows += phase_precision(smi)
             for row in rows:
                 if row["name"] in llama:
@@ -4824,7 +5322,8 @@ def main() -> int:
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]
-                + llama["qmatmul_int4_planar"]["launches"], smi))
+                + llama["qmatmul_int4_planar"]["launches"]
+                + scan["launches"], smi))
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})
             emit({"kernels": rows})
     finally:

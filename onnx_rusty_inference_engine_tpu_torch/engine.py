@@ -33,8 +33,9 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from .graph import _FOLDABLE, Graph, _fold_one, _shape_slice
-from .ops.registry import LoweringContext, UnsupportedOpError, get_emitter
+from .graph import _FOLDABLE, Graph, _node_from_proto
+from .ops.registry import (LoweringContext, UnsupportedOpError, get_emitter,
+                           node_label, prepare_subgraphs, subgraphs_of)
 from .runtime import (Replay, capture, captures, collector_held,
                       resolve_device, side_stream, signature)
 from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
@@ -84,6 +85,8 @@ def lower_packed(graph: Graph, device):
          and not (isinstance(v, np.ndarray) and v.dtype == object)},
         device)
 
+    subgraphs = prepare_subgraphs(graph, device)
+
     def fn(params: Mapping[str, torch.Tensor],
            packed: Mapping[str, torch.Tensor],
            inputs: Mapping[str, torch.Tensor],
@@ -95,68 +98,13 @@ def lower_packed(graph: Graph, device):
         env: Dict[str, torch.Tensor] = dict(consts)
         env.update(params)
         env.update(inputs)
-        ctx = LoweringContext(graph, env, packed)
+        ctx = LoweringContext(graph, env, packed, device=device,
+                              statics=statics, subgraphs=subgraphs)
         ctx.batch_polymorphic = _batch_polymorphic(graph, inputs)
-
-        def static_value(name):
-            if name in graph.constants:
-                return graph.constants[name]
-            return ctx.static_env.get(name)
-
-        def put_static(name, val):
-            if statics is not None and name in statics:
-                val, t = statics[name]
-            else:
-                t = torch.as_tensor(val, device=device)
-                if statics is not None:
-                    statics[name] = (val, t)
-            ctx.static_env[name] = val
-            env[name] = t
-
-        profiling = torch._C._autograd._profiler_enabled()
-        for node in graph.nodes:
-            # static propagation: Shape/Size of a tensor are known from its
-            # shape; foldable ops over static values stay static
-            if node.op_type in ("Shape", "Size") and node.inputs[0] in env:
-                shp = tuple(env[node.inputs[0]].shape)
-                if node.op_type == "Shape":
-                    val = np.asarray(shp[_shape_slice(node, len(shp))],
-                                     dtype=np.int64)
-                else:
-                    val = np.asarray(int(np.prod(shp)), dtype=np.int64)
-                put_static(node.outputs[0], val)
-                continue
-            if node.op_type in _FOLDABLE and len(node.outputs) == 1 and all(
-                    (not i) or static_value(i) is not None
-                    for i in node.inputs):
-                try:
-                    folded = _fold_one(
-                        node, {i: static_value(i) for i in node.inputs if i})
-                except Exception:
-                    folded = None
-                if folded is not None:
-                    put_static(node.outputs[0], np.asarray(folded))
-                    continue
-
-            emitter = get_emitter(node.op_type, node.domain)
-            ins = [env[i] if i else None for i in node.inputs]
-            if profiling:
-                with torch.profiler.record_function(node_label(node)):
-                    outs = emitter(ctx, node, ins)
-            else:
-                outs = emitter(ctx, node, ins)
-            for name, val in zip(node.outputs, outs):
-                if name:
-                    env[name] = val
+        ctx.run_nodes(graph.nodes)
         return {o: env[o] for o in graph.outputs}
 
     return fn
-
-
-def node_label(node) -> str:
-    """`<OpType>.<node name>`, the node's first output standing in for a
-    missing name: the range an emitter call runs in under a profiler."""
-    return f"{node.op_type}.{node.name or node.outputs[0]}"
 
 
 def _batch_polymorphic(graph: Graph, inputs: Mapping[str, torch.Tensor]
@@ -202,10 +150,16 @@ def _with_policy(fn: Callable, dtype: torch.dtype) -> Callable:
         inputs = {k: v.to(dtype) if v.dtype == torch.float32 else v
                   for k, v in inputs.items()}
         out = fn(params, inputs, statics)
-        return {k: v.to(torch.float32) if v.dtype == dtype else v
+        return {k: _each(v, lambda t: t.to(torch.float32)
+                         if t.dtype == dtype else t)
                 for k, v in out.items()}
 
     return cast
+
+
+def _each(v, fn):
+    """fn of a tensor, or of each tensor of a sequence value (a list)."""
+    return [fn(t) for t in v] if isinstance(v, list) else fn(v)
 
 
 def _same_value(a, b) -> bool:
@@ -274,7 +228,10 @@ class Engine:
                 raise UnsupportedOpError(
                     f"input {spec.name!r} is a string tensor: the host "
                     f"prolog is not ported")
-        for node in graph.nodes:  # an op the port lacks fails here, not mid-run
+        # an op the port lacks fails here, not mid-run (subgraphs' too)
+        for node in graph.nodes + [
+                _node_from_proto(n) for g in subgraphs_of(graph.nodes)
+                for n in g.nodes]:
             if node.op_type not in _STATIC_OPS:
                 get_emitter(node.op_type, node.domain)
         self.graph = graph
@@ -357,7 +314,8 @@ class Engine:
             for k, v in host.items():
                 cap.inputs[k].copy_(v, non_blocking=v.device.type == "cuda")
             cap.replay()
-            return {k: v.clone() for k, v in cap.outputs.items()}
+            return {k: _each(v, torch.Tensor.clone)
+                    for k, v in cap.outputs.items()}
 
     def _first_call(self, key: tuple, feed: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
@@ -373,5 +331,6 @@ class Engine:
 
     def run(self, inputs) -> InferenceResult:
         t0 = time.perf_counter()
-        out = {k: v.cpu().numpy() for k, v in self(inputs).items()}
+        out = {k: _each(v, lambda t: t.cpu().numpy())
+               for k, v in self(inputs).items()}
         return InferenceResult(out, time.perf_counter() - t0)

@@ -38,9 +38,16 @@ quantization; decode keeps its own scheme either way.
 the CPU, where every kernel is its plain version and a block is a Python
 loop.
 
+`scan_layers=True` decodes with the scan-over-layers graph (one Scan over
+stacked per-layer weights): the cache is stacked, past_key / past_value
+[n_layer, B, H, max_len, hd], the INT8 scales [n_layer, H], seeded from
+the prefill's per-layer presents; the host loop, device_loop=K (K steps
+replayed as one CUDA graph over the stacked cache) and the plain versions
+on the CPU all take it.
+
 Not ported yet (each raises NotImplementedError): the moe family (ROADMAP
-1.8), `scan_layers` (1.5b), `mesh` / `param_sharding_fn` / `pipeline_axis`
-(1.12) and `lora_bank` (1.8).
+1.8), `mesh` / `param_sharding_fn` / `pipeline_axis` (1.12) and
+`lora_bank` (1.8).
 """
 
 from __future__ import annotations
@@ -108,8 +115,6 @@ class Generator:
             raise _not_ported("a device mesh", "1.12")
         if pipeline_axis is not None:
             raise _not_ported("pipeline_axis", "1.12")
-        if scan_layers:
-            raise _not_ported("scan_layers", "1.5b")
         if lora_bank is not None:
             raise _not_ported("lora_bank", "1.8")
         self.device = resolve_device(device)
@@ -135,6 +140,12 @@ class Generator:
             raise NotImplementedError(
                 f"{family}: in-graph quantized KV cache not implemented")
         dkw = {"kv_dtype": kv_dtype} if int8_kv_ok else {}
+        # scan-over-layers decode graph: ONE Scan over stacked weights;
+        # the cache I/O becomes stacked, past_key/past_value
+        # [n_layer, B, H, max_len, hd] with kv_scale_key/_value [n_layer, H]
+        self._stacked = bool(scan_layers)
+        if scan_layers:
+            dkw["scan_layers"] = True
         if fused_attention:
             # one kernel per layer over the int8 cache (ops/fused.py)
             dkw["fused_attention"] = True
@@ -187,14 +198,18 @@ class Generator:
 
     # -- cache quantization (INT8 / INT4 KV; the decode GRAPH carries the
     # QDQ) -------------------------------------------------------------------
-    def _store(self, kv: torch.Tensor, scale_name: str) -> torch.Tensor:
+    def _store(self, kv: torch.Tensor, scale_name: str,
+               layer: Optional[int] = None) -> torch.Tensor:
+        """kv [B,H,L,hd] in the cache's form: quantized with the scales of
+        `scale_name` (row `layer` of the stacked [L, H] scales)."""
         if self._int4_kv:
             from .quant import pack_int4_kv
 
             return pack_int4_kv(
                 kv, self._kv_scales[scale_name].reshape(1, -1, 1, 1))
         if self._kv_q:
-            s = self._kv_scales[scale_name].reshape(1, -1, 1, 1)
+            s = self._kv_scales[scale_name]
+            s = (s if layer is None else s[layer]).reshape(1, -1, 1, 1)
             return torch.clamp(torch.round(kv / s), -127, 127).to(torch.int8)
         return kv.to(torch.float32)
 
@@ -214,6 +229,12 @@ class Generator:
                 kv = prefill_out[f"present_{kind}_{i}"]
                 amax = kv.abs().amax(dim=(0, 2, 3)).clamp_min(1e-6)
                 self._kv_scales[f"kv_scale_{kind}_{i}"] = amax / qmax
+        if self._stacked:  # the stacked graph takes kv_scale_key [L, H]
+            self._kv_scales = {
+                f"kv_scale_{kind}": torch.stack(
+                    [self._kv_scales[f"kv_scale_{kind}_{i}"]
+                     for i in range(self.cfg.n_layer)])
+                for kind in ("key", "value")}
 
     # -- prefill and one decode step ---------------------------------------
     def start(self, input_ids) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -224,12 +245,18 @@ class Generator:
         out = self.prefill({"input_ids": ids})
         self.calibrate_kv(out)
         cache: Dict[str, torch.Tensor] = {}
-        for i in range(self.cfg.n_layer):
-            for kind in ("key", "value"):
+        for kind in ("key", "value"):
+            full = []
+            for i in range(self.cfg.n_layer):
                 kv = out[f"present_{kind}_{i}"]  # [B,H,P,hd]
                 kv_full = F.pad(kv, (0, 0, 0, self.max_len - kv.shape[2]))
-                cache[f"past_{kind}_{i}"] = self._store(
-                    kv_full, f"kv_scale_{kind}_{i}")
+                if self._stacked:
+                    full.append(self._store(kv_full, f"kv_scale_{kind}", i))
+                else:
+                    cache[f"past_{kind}_{i}"] = self._store(
+                        kv_full, f"kv_scale_{kind}_{i}")
+            if self._stacked:  # [L, B, H, max_len, hd]
+                cache[f"past_{kind}"] = torch.stack(full)
         return out["logits"], cache
 
     def step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -244,9 +271,8 @@ class Generator:
         if self._kv_q:
             feed.update(self._kv_scales)
         out = self.decode(feed)
-        new_cache = {f"past_{kind}_{i}": out[f"present_{kind}_{i}"]
-                     for i in range(self.cfg.n_layer)
-                     for kind in ("key", "value")}
+        new_cache = {name: out[name.replace("past_", "present_", 1)]
+                     for name in cache}
         return out["logits"], new_cache
 
     # -- token selection -----------------------------------------------------

@@ -44,6 +44,24 @@ def memo(key: Hashable, make: Callable[[], object]):
     return value
 
 
+def stacked(key: Hashable, parts: Sequence[np.ndarray]) -> np.ndarray:
+    """np.stack(parts): a scan-over-layers graph's stacked per-layer
+    weights. Inside `host_memo` the stack made first under `key`, which
+    also remembers its parts (`stack_parts`), so that the int4 quantizer
+    packs each layer once for both decode forms."""
+    arr = memo(key, lambda: np.stack(parts))
+    if _memo is not None:
+        _memo.setdefault(("stack_parts", id(arr)), (arr, list(parts)))
+    return arr
+
+
+def stack_parts(arr: np.ndarray) -> Optional[List[np.ndarray]]:
+    """The per-layer arrays `stacked` made `arr` from, inside the
+    `host_memo` block it was made in; else None."""
+    hit = None if _memo is None else _memo.get(("stack_parts", id(arr)))
+    return None if hit is None else hit[1]
+
+
 class GraphBuilder:
     def __init__(self, name: str, opset: int = 13, seed: int = 0):
         self.g = onnx_io.GraphProto(name=name)

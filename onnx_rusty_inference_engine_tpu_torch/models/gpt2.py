@@ -12,9 +12,9 @@ graph node for node and weight for weight.
 
 kv_dtype="int4" builds the nibble-packed KV cache (models/q4.py).
 Inside `_builder.host_memo()` every build of one config and seed reuses the
-weights (and the tied lm_head's transpose) the first one drew. Not
-ported yet (ROADMAP 1.5b): the Scan-over-layers decode graph
-(scan_layers=True) raises NotImplementedError.
+weights (and the tied lm_head's transpose) the first one drew; the
+Scan-over-layers decode graph (scan_layers=True) stacks the same per-layer
+arrays, so both decode forms share their weights.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 
 from .. import onnx_io
-from ._builder import GraphBuilder, memo
+from ._builder import GraphBuilder, memo, stacked
 
 
 @dataclasses.dataclass
@@ -225,8 +225,13 @@ def build_gpt2_decode(
     domain, and the whole cache unpacked and dequantized for the attention
     (models/q4.py); quant.pack_int4_kv packs a prefill into the same form.
 
-    Not ported yet (ROADMAP 1.5b): scan_layers=True raises
-    NotImplementedError.
+    scan_layers=True emits the layer stack as ONE ONNX Scan node over
+    STACKED per-layer weights (`_build_gpt2_decode_scan`): the cache
+    interface becomes stacked, inputs past_key/past_value
+    [n_layer,B,H,max_len,hd] (+ kv_scale_key/kv_scale_value [n_layer,H] for
+    int8), outputs present_key/present_value with the same shapes. It
+    takes neither fused_attention nor chunk nor the int4 KV cache, as in
+    JAX (ValueError).
     """
     int4_kv = kv_dtype == "int4"
     int8_kv = (not int4_kv) and np.dtype(kv_dtype) == np.int8
@@ -239,9 +244,12 @@ def build_gpt2_decode(
     if fused_attention and chunk != 1:
         raise ValueError("fused_attention supports chunk=1 only")
     if scan_layers:
-        raise NotImplementedError(
-            "scan_layers=True (the Scan-over-layers decode graph) is not "
-            "ported yet: ROADMAP 1.5b")
+        if fused_attention or chunk != 1:
+            raise ValueError(
+                "scan_layers is incompatible with fused_attention/chunk")
+        return _build_gpt2_decode_scan(cfg, batch=batch, max_len=max_len,
+                                       opset=opset, seed=seed,
+                                       kv_dtype=kv_dtype)
     b = GraphBuilder("gpt2_decode", opset=opset, seed=seed)
     b.wkey = _weight_key(cfg, seed)
     B, T = batch, chunk
@@ -448,4 +456,179 @@ def build_gpt2_decode(
                  dtype=cache_np)
         b.output(f"present_value_{i}", [B, H, max_len, cache_hd],
                  dtype=cache_np)
+    return b.model()
+
+
+def _build_gpt2_decode_scan(
+    cfg: GPT2Config,
+    *,
+    batch: int,
+    max_len: int,
+    opset: int,
+    seed: int,
+    kv_dtype: str,
+) -> onnx_io.ModelProto:
+    """Scan-over-layers decode graph (see build_gpt2_decode's docstring):
+    the JAX package's `_build_gpt2_decode_scan`, node for node.
+
+    Weights are drawn from the SAME seeded rng in the SAME order as the
+    per-layer builder (wte, wpe, then per layer qkv/proj/fc/mproj), under
+    the per-layer builder's names inside host_memo, so the per-layer and
+    scan-form graphs are parameter-identical and the prefill graph
+    (build_gpt2, same seed) still pairs with either.
+    """
+    b = GraphBuilder("gpt2_decode_scan", opset=opset, seed=seed)
+    b.wkey = _weight_key(cfg, seed)
+    B, T, ML = batch, 1, max_len
+    D, H, hd = cfg.n_embd, cfg.n_head, cfg.head_dim
+    NL = cfg.n_layer
+    int8_kv = np.dtype(kv_dtype) == np.int8
+    cache_np = np.int8 if int8_kv else np.float32
+
+    ids = b.input("input_ids", [B, T], dtype=np.int64)
+    pos = b.input("pos", [B], dtype=np.int64)
+    b.input("past_key", [NL, B, H, ML, hd], dtype=cache_np)
+    b.input("past_value", [NL, B, H, ML, hd], dtype=cache_np)
+    if int8_kv:
+        b.input("kv_scale_key", [NL, H])
+        b.input("kv_scale_value", [NL, H])
+
+    wte = _weight(b, "wte", (cfg.vocab_size, D), 0.02)
+    _weight(b, "wpe", (cfg.n_positions, D), 0.01)
+
+    # stacked per-layer weights, rng order matching the per-layer builder
+    shapes = {"qkv_w": ("attn_qkv", (D, 3 * D)),
+              "proj_w": ("attn_proj", (D, D)),
+              "fc_w": ("mlp_fc", (D, 4 * D)),
+              "mproj_w": ("mlp_proj", (4 * D, D))}
+    per = {k: [] for k in shapes}
+    for i in range(NL):
+        for k, (name, shape) in shapes.items():
+            per[k].append(b.g.initializers.pop(
+                _weight(b, f"blk{i}_{name}_w", shape, 0.02)))
+    stacks = {
+        "ln1_g": np.ones((NL, D), np.float32),
+        "ln1_b": np.zeros((NL, D), np.float32),
+        "qkv_w": per["qkv_w"],
+        "qkv_b": np.zeros((NL, 3 * D), np.float32),
+        "proj_w": per["proj_w"],
+        "proj_b": np.zeros((NL, D), np.float32),
+        "ln2_g": np.ones((NL, D), np.float32),
+        "ln2_b": np.zeros((NL, D), np.float32),
+        "fc_w": per["fc_w"],
+        "fc_b": np.zeros((NL, 4 * D), np.float32),
+        "mproj_w": per["mproj_w"],
+        "mproj_b": np.zeros((NL, D), np.float32),
+    }
+    for name, arr in stacks.items():
+        if isinstance(arr, list):
+            arr = stacks[name] = stacked(b.wkey + (f"stack_{name}",), arr)
+        b.init(f"stack_{name}", arr)
+
+    # embeddings + per-slot position bookkeeping (shared across layers,
+    # captured by the Scan body from the outer scope)
+    (tok,) = b.node("Gather", [wte, ids], ["tok_emb"], axis=0)
+    (pe,) = b.node("Gather", ["wpe", pos], ["pos_emb"], axis=0)
+    (pe,) = b.node("Reshape", [pe, b.init(
+        "shape_B_1_D", np.array([B, 1, D], np.int64))], ["pos_emb3"])
+    (x0,) = b.node("Add", [tok, pe], ["h0"])
+
+    arange = b.init("cache_positions", np.arange(ML, dtype=np.int64))
+    (pos2d,) = b.node("Reshape", [pos, b.init(
+        "shape_B_1", np.array([B, 1], np.int64))], ["pos2d"])
+    (is_now,) = b.node("Equal", [arange, pos2d], ["is_now"])
+    b.node("Reshape", [is_now, b.init(
+        "shape_B_1_L_1", np.array([B, 1, ML, 1], np.int64))], ["is_now4"])
+    (valid,) = b.node("LessOrEqual", [arange, pos2d], ["valid"])
+    neg = b.init("neg_inf", np.float32(-1e9))
+    zero = b.init("zero_f", np.float32(0.0))
+    (attn_bias,) = b.node("Where", [valid, zero, neg], ["attn_bias"])
+    b.node("Reshape", [attn_bias, b.init(
+        "shape_B_1_1_L", np.array([B, 1, 1, ML], np.int64))], ["attn_bias4"])
+
+    # ---- Scan body: one transformer layer ---------------------------------
+    bb = GraphBuilder("gpt2_layer", opset=opset)
+    x_in = bb.input("x_in", [B, T, D])                    # state
+    w = {name: bb.input(f"l_{name}", list(arr.shape[1:]))
+         for name, arr in stacks.items()}                 # scan-input slices
+    pk = bb.input("l_past_k", [B, H, ML, hd], dtype=cache_np)
+    pv = bb.input("l_past_v", [B, H, ML, hd], dtype=cache_np)
+    if int8_kv:
+        sk = bb.input("l_sk", [H])
+        sv = bb.input("l_sv", [H])
+        zp8 = bb.init("kv_zp8", np.int8(0))
+
+    scale = bb.init("attn_scale", np.float32(1.0 / np.sqrt(hd)))
+    shape_split = bb.init("shape_bthd", np.array([B, T, H, hd], np.int64))
+    shape_merge = bb.init("shape_btd", np.array([B, T, D], np.int64))
+
+    def _lin(x, wname, bname, tag):
+        (y,) = bb.node("MatMul", [x, w[wname]], [f"{tag}_mm"])
+        (y,) = bb.node("Add", [y, w[bname]], [f"{tag}_y"])
+        return y
+
+    def _ln(x, g, bias, tag):
+        (y,) = bb.node("LayerNormalization", [x, w[g], w[bias]], [f"{tag}_y"],
+                       axis=-1, epsilon=1e-5)
+        return y
+
+    ln1 = _ln(x_in, "ln1_g", "ln1_b", "ln1")
+    qkv = _lin(ln1, "qkv_w", "qkv_b", "attn_qkv")
+    q, k, v = bb.node("Split", [qkv], ["q", "k", "v"], axis=-1,
+                      split=[D, D, D])
+
+    def _heads(t, tag):
+        (r,) = bb.node("Reshape", [t, shape_split], [f"{tag}_r"])
+        (tr,) = bb.node("Transpose", [r], [f"{tag}_t"], perm=[0, 2, 1, 3])
+        return tr
+
+    qh, kh, vh = _heads(q, "qh"), _heads(k, "kh"), _heads(v, "vh")
+    if int8_kv:
+        (kh8,) = bb.node("QuantizeLinear", [kh, sk, zp8], ["k_q8"], axis=1)
+        (vh8,) = bb.node("QuantizeLinear", [vh, sv, zp8], ["v_q8"], axis=1)
+        (kc8,) = bb.node("Where", ["is_now4", kh8, pk], ["present_k"])
+        (vc8,) = bb.node("Where", ["is_now4", vh8, pv], ["present_v"])
+        (kc,) = bb.node("DequantizeLinear", [kc8, sk, zp8], ["k_dq"], axis=1)
+        (vc,) = bb.node("DequantizeLinear", [vc8, sv, zp8], ["v_dq"], axis=1)
+    else:
+        (kc,) = bb.node("Where", ["is_now4", kh, pk], ["present_k"])
+        (vc,) = bb.node("Where", ["is_now4", vh, pv], ["present_v"])
+
+    (kt,) = bb.node("Transpose", [kc], ["kT"], perm=[0, 1, 3, 2])
+    (att,) = bb.node("MatMul", [qh, kt], ["scores"])
+    (att,) = bb.node("Mul", [att, scale], ["scaled"])
+    (att,) = bb.node("Add", [att, "attn_bias4"], ["masked"])
+    (att,) = bb.node("Softmax", [att], ["probs"], axis=-1)
+    (ctxt,) = bb.node("MatMul", [att, vc], ["ctx"])
+    (ctxt,) = bb.node("Transpose", [ctxt], ["ctx_t"], perm=[0, 2, 1, 3])
+    (ctxt,) = bb.node("Reshape", [ctxt, shape_merge], ["ctx_m"])
+    proj = _lin(ctxt, "proj_w", "proj_b", "attn_proj")
+    (x1,) = bb.node("Add", [x_in, proj], ["res1"])
+
+    ln2 = _ln(x1, "ln2_g", "ln2_b", "ln2")
+    h = _lin(ln2, "fc_w", "fc_b", "mlp_fc")
+    (h,) = bb.node("Gelu", [h], ["gelu"], approximate="tanh")
+    h = _lin(h, "mproj_w", "mproj_b", "mlp_proj")
+    (x2,) = bb.node("Add", [x1, h], ["res2"])
+
+    bb.output(x2, [B, T, D])                              # state out
+    bb.output("present_k", [B, H, ML, hd], dtype=cache_np)  # scan outputs
+    bb.output("present_v", [B, H, ML, hd], dtype=cache_np)
+
+    # ---- the Scan node -----------------------------------------------------
+    scan_ins = ([f"stack_{name}" for name in stacks]
+                + ["past_key", "past_value"]
+                + (["kv_scale_key", "kv_scale_value"] if int8_kv else []))
+    (xf, _, _) = b.node(
+        "Scan", [x0] + scan_ins,
+        ["x_final", "present_key", "present_value"],
+        body=bb.g, num_scan_inputs=len(scan_ins))
+
+    xn = _layernorm(b, xf, "ln_f", D)
+    wte_t = _lm_head(b)
+    (logits,) = b.node("MatMul", [xn, wte_t], ["logits"])
+
+    b.output(logits, [B, T, cfg.vocab_size])
+    b.output("present_key", [NL, B, H, ML, hd], dtype=cache_np)
+    b.output("present_value", [NL, B, H, ML, hd], dtype=cache_np)
     return b.model()

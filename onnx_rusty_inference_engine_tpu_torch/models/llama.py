@@ -19,9 +19,8 @@ FIXED-size KV cache with PER-SLOT positions (pos [B]) — directly servable
 by the continuous-batching machinery.
 
 Inside `_builder.host_memo()` every build of one config and seed reuses the
-weights the first one drew. Not ported yet (ROADMAP 1.5b): the
-Scan-over-layers decode graph (scan_layers=True) raises
-NotImplementedError.
+weights the first one drew; the Scan-over-layers decode graph
+(scan_layers=True) stacks the same per-layer arrays.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import dataclasses
 import numpy as np
 
 from .. import onnx_io
-from ._builder import GraphBuilder, memo
+from ._builder import GraphBuilder, memo, stacked
 
 
 @dataclasses.dataclass
@@ -263,8 +262,8 @@ def build_llama_decode(
     4-bit values per byte — half the int8 cache's bytes) with the
     same pack/unpack arithmetic as gpt2 (quant.pack_int4_kv inverts it).
 
-    scan_layers=True (the scan-over-layers form) is not ported yet
-    (ROADMAP 1.5b) and raises NotImplementedError."""
+    scan_layers=True emits the scan-over-layers form with stacked weights
+    and a stacked cache interface (see gpt2.build_gpt2_decode)."""
     int4_kv = kv_dtype == "int4"
     int8_kv = (not int4_kv) and np.dtype(kv_dtype) == np.int8
     if int4_kv and (fused_attention or scan_layers):
@@ -276,9 +275,12 @@ def build_llama_decode(
     if fused_attention and chunk != 1:
         raise ValueError("fused_attention supports chunk=1 only")
     if scan_layers:
-        raise NotImplementedError(
-            "scan_layers=True (the Scan-over-layers decode graph) is not "
-            "ported yet: ROADMAP 1.5b")
+        if fused_attention or chunk != 1:
+            raise ValueError(
+                "scan_layers is incompatible with fused_attention/chunk")
+        return _build_llama_decode_scan(cfg, batch=batch, max_len=max_len,
+                                        opset=opset, seed=seed,
+                                        kv_dtype=kv_dtype)
     b = GraphBuilder("llama_decode", opset=opset, seed=seed)
     b.wkey = _weight_key(cfg, seed)
     B, T = batch, chunk
@@ -482,3 +484,196 @@ def build_llama_decode(
                  dtype=cache_np)
     return b.model()
 
+
+
+def _build_llama_decode_scan(
+    cfg: LlamaConfig,
+    *,
+    batch: int,
+    max_len: int,
+    opset: int,
+    seed: int,
+    kv_dtype: str,
+) -> onnx_io.ModelProto:
+    """Scan-over-layers llama decode (see gpt2._build_gpt2_decode_scan): the
+    JAX package's `_build_llama_decode_scan`, node for node.
+
+    Same seeded rng order as the per-layer builder (emb, then per layer
+    wq/wk/wv/wo/wg/wu/wd, then lm_head), under the per-layer builder's
+    names inside host_memo, so both forms share weights.
+    Cache interface: past_key/past_value [n_layer,B,Hkv,max_len,hd],
+    kv_scale_key/kv_scale_value [n_layer,Hkv] for int8.
+    """
+    b = GraphBuilder("llama_decode_scan", opset=opset, seed=seed)
+    b.wkey = _weight_key(cfg, seed)
+    B, T, ML = batch, 1, max_len
+    D, H, Hkv, hd = cfg.dim, cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    NL, FF = cfg.n_layer, cfg.ffn_mult * cfg.dim
+    rep = H // Hkv
+    int8_kv = np.dtype(kv_dtype) == np.int8
+    cache_np = np.int8 if int8_kv else np.float32
+
+    ids = b.input("input_ids", [B, T], dtype=np.int64)
+    pos = b.input("pos", [B], dtype=np.int64)
+    b.input("past_key", [NL, B, Hkv, ML, hd], dtype=cache_np)
+    b.input("past_value", [NL, B, Hkv, ML, hd], dtype=cache_np)
+    if int8_kv:
+        b.input("kv_scale_key", [NL, Hkv])
+        b.input("kv_scale_value", [NL, Hkv])
+
+    emb = _weight(b, "tok_embeddings", (cfg.vocab_size, D), 0.02)
+
+    shapes = {"wq": (D, H * hd), "wk": (D, Hkv * hd), "wv": (D, Hkv * hd),
+              "wo": (D, D), "wg": (D, FF), "wu": (D, FF), "wd": (FF, D)}
+    per = {k: [] for k in shapes}
+    for i in range(NL):
+        for k, shape in shapes.items():
+            per[k].append(b.g.initializers.pop(
+                _weight(b, f"l{i}_{k}_w", shape, shape[0] ** -0.5)))
+    stacks = {k: stacked(b.wkey + (f"stack_{k}",), v)
+              for k, v in per.items()}
+    stacks["attn_norm_w"] = np.ones((NL, D), np.float32)
+    stacks["ffn_norm_w"] = np.ones((NL, D), np.float32)
+    for name, arr in stacks.items():
+        b.init(f"stack_{name}", arr)
+
+    (x0,) = b.node("Gather", [emb, ids], ["h0"], axis=0)
+
+    cos_t, sin_t = _rope_tables(cfg)
+    (cos,) = b.node("Gather", [b.init("rope_cos", cos_t), pos], ["cos_g"],
+                    axis=0)
+    b.node("Reshape", [cos, b.init(
+        "cs_shape", np.array([B, 1, 1, hd], np.int64))], ["cos4"])
+    (sin,) = b.node("Gather", [b.init("rope_sin", sin_t), pos], ["sin_g"],
+                    axis=0)
+    b.node("Reshape", [sin, b.init("cs_shape2", np.array(
+        [B, 1, 1, hd], np.int64))], ["sin4"])
+
+    arange = b.init("cache_positions", np.arange(ML, dtype=np.int64))
+    (pos2d,) = b.node("Reshape", [pos, b.init(
+        "shape_B_1", np.array([B, 1], np.int64))], ["pos2d"])
+    (is_now,) = b.node("Equal", [arange, pos2d], ["is_now"])
+    b.node("Reshape", [is_now, b.init(
+        "shape_B_1_L_1", np.array([B, 1, ML, 1], np.int64))], ["is_now4"])
+    (valid,) = b.node("LessOrEqual", [arange, pos2d], ["valid"])
+    neg = b.init("neg_inf", np.float32(-1e9))
+    zero = b.init("zero_f", np.float32(0.0))
+    (attn_bias,) = b.node("Where", [valid, zero, neg], ["attn_bias"])
+    b.node("Reshape", [attn_bias, b.init(
+        "shape_B_1_1_L", np.array([B, 1, 1, ML], np.int64))], ["attn_bias4"])
+
+    # ---- Scan body: one llama layer ---------------------------------------
+    bb = GraphBuilder("llama_layer", opset=opset)
+    x_in = bb.input("x_in", [B, T, D])
+    w = {name: bb.input(f"l_{name}", list(arr.shape[1:]))
+         for name, arr in stacks.items()}
+    pk = bb.input("l_past_k", [B, Hkv, ML, hd], dtype=cache_np)
+    pv = bb.input("l_past_v", [B, Hkv, ML, hd], dtype=cache_np)
+    if int8_kv:
+        sk = bb.input("l_sk", [Hkv])
+        sv = bb.input("l_sv", [Hkv])
+        zp8 = bb.init("kv_zp8", np.int8(0))
+
+    qshape = bb.init("q_shape", np.array([B, T, H, hd], np.int64))
+    kvshape = bb.init("kv_shape", np.array([B, T, Hkv, hd], np.int64))
+    sc = bb.init("attn_scale", np.float32(1.0 / np.sqrt(hd)))
+    merge = bb.init("merge_shape", np.array([B, T, D], np.int64))
+
+    def _norm(x, wname, tag):
+        (y,) = bb.node("SimplifiedLayerNormalization", [x, w[wname]],
+                       [f"{tag}_y"], axis=-1, epsilon=1e-5)
+        return y
+
+    def _mm(x, wname, tag):
+        (y,) = bb.node("MatMul", [x, w[wname]], [f"{tag}_y"])
+        return y
+
+    def _heads(t, tag, shape):
+        (r,) = bb.node("Reshape", [t, shape], [f"{tag}_r"])
+        (tr,) = bb.node("Transpose", [r], [f"{tag}_t"], perm=[0, 2, 1, 3])
+        return tr
+
+    def _rope(x, tag):
+        half = bb.init(f"{tag}_half", np.array([hd // 2], np.int64))
+        zero_i = bb.init(f"{tag}_zero", np.array([0], np.int64))
+        end = bb.init(f"{tag}_end", np.array([hd], np.int64))
+        ax = bb.init(f"{tag}_ax", np.array([-1], np.int64))
+        (hi,) = bb.node("Slice", [x, half, end, ax], [f"{tag}_hi"])
+        (lo,) = bb.node("Slice", [x, zero_i, half, ax], [f"{tag}_lo"])
+        (nhi,) = bb.node("Neg", [hi], [f"{tag}_nhi"])
+        (rot,) = bb.node("Concat", [nhi, lo], [f"{tag}_rot"], axis=-1)
+        (xc,) = bb.node("Mul", [x, "cos4"], [f"{tag}_xc"])
+        (xs,) = bb.node("Mul", [rot, "sin4"], [f"{tag}_xs"])
+        (out,) = bb.node("Add", [xc, xs], [f"{tag}_roped"])
+        return out
+
+    def _expand(x, tag):
+        if rep == 1:
+            return x
+        (u,) = bb.node("Unsqueeze", [x, bb.init(
+            f"{tag}_u_ax", np.array([2], np.int64))], [f"{tag}_u"])
+        eshape = bb.init(f"{tag}_eshape",
+                         np.array([B, Hkv, rep, ML, hd], np.int64))
+        (e,) = bb.node("Expand", [u, eshape], [f"{tag}_e"])
+        mshape = bb.init(f"{tag}_mshape",
+                         np.array([B, Hkv * rep, ML, hd], np.int64))
+        (out,) = bb.node("Reshape", [e, mshape], [f"{tag}_exp"])
+        return out
+
+    xn = _norm(x_in, "attn_norm_w", "attn_norm")
+    qh = _rope(_heads(_mm(xn, "wq", "q"), "qh", qshape), "qrope")
+    kh = _rope(_heads(_mm(xn, "wk", "k"), "kh", kvshape), "krope")
+    vh = _heads(_mm(xn, "wv", "v"), "vh", kvshape)
+
+    if int8_kv:
+        (kh8,) = bb.node("QuantizeLinear", [kh, sk, zp8], ["k_q8"], axis=1)
+        (vh8,) = bb.node("QuantizeLinear", [vh, sv, zp8], ["v_q8"], axis=1)
+        (kc8,) = bb.node("Where", ["is_now4", kh8, pk], ["present_k"])
+        (vc8,) = bb.node("Where", ["is_now4", vh8, pv], ["present_v"])
+        (kc,) = bb.node("DequantizeLinear", [kc8, sk, zp8], ["k_dq"], axis=1)
+        (vc,) = bb.node("DequantizeLinear", [vc8, sv, zp8], ["v_dq"], axis=1)
+    else:
+        (kc,) = bb.node("Where", ["is_now4", kh, pk], ["present_k"])
+        (vc,) = bb.node("Where", ["is_now4", vh, pv], ["present_v"])
+
+    ke = _expand(kc, "kexp")
+    ve = _expand(vc, "vexp")
+    (kt,) = bb.node("Transpose", [ke], ["kT"], perm=[0, 1, 3, 2])
+    (att,) = bb.node("MatMul", [qh, kt], ["scores"])
+    (att,) = bb.node("Mul", [att, sc], ["scaled"])
+    (att,) = bb.node("Add", [att, "attn_bias4"], ["masked"])
+    (att,) = bb.node("Softmax", [att], ["probs"], axis=-1)
+    (ctxt,) = bb.node("MatMul", [att, ve], ["ctx"])
+    (ctxt,) = bb.node("Transpose", [ctxt], ["ctx_t"], perm=[0, 2, 1, 3])
+    (ctxt,) = bb.node("Reshape", [ctxt, merge], ["ctx_m"])
+    o = _mm(ctxt, "wo", "o")
+    (x1,) = bb.node("Add", [x_in, o], ["res1"])
+
+    hn = _norm(x1, "ffn_norm_w", "ffn_norm")
+    gate = _mm(hn, "wg", "gate")
+    (gact,) = bb.node("Sigmoid", [gate], ["gsig"])
+    (gact,) = bb.node("Mul", [gate, gact], ["silu"])
+    up = _mm(hn, "wu", "up")
+    (h,) = bb.node("Mul", [gact, up], ["swiglu"])
+    h = _mm(h, "wd", "down")
+    (x2,) = bb.node("Add", [x1, h], ["res2"])
+
+    bb.output(x2, [B, T, D])
+    bb.output("present_k", [B, Hkv, ML, hd], dtype=cache_np)
+    bb.output("present_v", [B, Hkv, ML, hd], dtype=cache_np)
+
+    scan_ins = ([f"stack_{name}" for name in stacks]
+                + ["past_key", "past_value"]
+                + (["kv_scale_key", "kv_scale_value"] if int8_kv else []))
+    (xf, _, _) = b.node(
+        "Scan", [x0] + scan_ins,
+        ["x_final", "present_key", "present_value"],
+        body=bb.g, num_scan_inputs=len(scan_ins))
+
+    xn = _rmsnorm(b, xf, "norm_f", D)
+    lm = _weight(b, "lm_head", (D, cfg.vocab_size), 0.02)
+    (logits,) = b.node("MatMul", [xn, lm], ["logits"])
+    b.output(logits, [B, T, cfg.vocab_size])
+    b.output("present_key", [NL, B, Hkv, ML, hd], dtype=cache_np)
+    b.output("present_value", [NL, B, Hkv, ML, hd], dtype=cache_np)
+    return b.model()

@@ -20,7 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .graph import Graph, Node, prune_dead
+from .graph import Graph, Node, node_deps, prune_dead
 
 __all__ = ["fuse_conv_bias_add", "fold_batchnorm",
            "fuse_layernorm", "fuse_gelu_erf",
@@ -28,9 +28,15 @@ __all__ = ["fuse_conv_bias_add", "fold_batchnorm",
 
 
 def _consumer_count(g: Graph) -> Dict[str, int]:
+    """Readers of each tensor: node inputs, graph outputs, and the
+    If/Loop/Scan nodes whose subgraphs read it from the outer scope (their
+    `__captures__`, graph._subgraph_captures). Without the captures a
+    fusion would take a tensor only a subgraph also reads for a private
+    intermediate and rename it away (the JAX package's passes.py:30-37
+    counts node inputs only)."""
     counts: Dict[str, int] = {}
     for n in g.nodes:
-        for i in n.inputs:
+        for i in node_deps(n):
             counts[i] = counts.get(i, 0) + 1
     for o in g.outputs:
         counts[o] = counts.get(o, 0) + 1

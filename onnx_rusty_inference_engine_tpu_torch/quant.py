@@ -609,6 +609,136 @@ def pack_int4_planar(w: np.ndarray, block_size: int = 256
         scales.transpose(1, 2, 0).reshape(2 * nbh, N))
 
 
+def _pack_planar(w: np.ndarray, block_size: int):
+    """pack_int4_planar of one weight array, inside models.host_memo once
+    per array (the entry keeps the array, so its id stays its own)."""
+    _, packed, scales = memo(
+        ("int4_planar", id(w), block_size),
+        lambda: (w, *pack_int4_planar(w.astype(np.float32), block_size)))
+    return packed, scales
+
+
+def _int4_scan_body(node: Node, consts: Dict[str, np.ndarray],
+                    weights: List[str], min_elems: int,
+                    block_size: int) -> Node:
+    """INT4-quantize the stacked per-layer weights of a scan-over-layers
+    decode graph (models/gpt2._build_gpt2_decode_scan): the JAX package's
+    `_int4_scan_body`, constant for constant.
+
+    For each Scan input that is a stacked 3-D float constant [n_layer,K,N]
+    consumed in the body ONLY as the B operand of one MatMul: pack every
+    layer (pack_int4_planar), stack to packed [n_layer,Nw,K//2] + scales
+    [n_layer,2*nbh,Nw], replace the single scan input with these two, and
+    rewrite the body MatMul to MatMulNBits over the per-iteration slices.
+    Inside models.host_memo each layer is packed once: a stack built by
+    models._builder.stacked is packed from its per-layer arrays, the very
+    packings the per-layer graph's quantization makes, and the stacked
+    packing itself is made once per stack."""
+    from . import onnx_io
+    from .models._builder import _attr, stack_parts
+    from .ops.kernels.qmatmul_int4 import planar_layout
+
+    body = node.attr("body")
+    n_scan = int(node.attr("num_scan_inputs"))
+    n_state = len(node.inputs) - n_scan
+    body_in_names = [vi.name for vi in body.inputs]
+    outer_for = {body_in_names[j]: j for j in range(n_state,
+                                                    len(body_in_names))}
+
+    # body tensor usage counts (a weight consumed twice can't be rewritten)
+    use_count: Dict[str, int] = {}
+    for bn in body.nodes:
+        for i in bn.input:
+            if i:
+                use_count[i] = use_count.get(i, 0) + 1
+
+    scan_inputs = list(node.inputs)
+    body_inputs = list(body.inputs)
+    new_body_nodes = []
+    changed = False
+
+    def pack_stack(w_stack):
+        parts = stack_parts(w_stack)
+        if parts is None:
+            parts = [w_stack[l] for l in range(w_stack.shape[0])]
+        packs, scls = zip(*(_pack_planar(p, block_size) for p in parts))
+        packed = np.stack(packs)   # [NL, N, K//2]
+        scales = np.stack(scls)    # [NL, 2*nbh, N] (k-major)
+        n_pad = -(-packed.shape[1] // 256) * 256 - packed.shape[1]
+        if n_pad:  # N pre-padded to a multiple of 256, as in JAX
+            packed = np.pad(packed, ((0, 0), (0, n_pad), (0, 0)))
+            scales = np.pad(scales, ((0, 0), (0, 0), (0, n_pad)))
+        return w_stack, packed, scales
+
+    for bn in body.nodes:
+        if (bn.op_type == "MatMul" and len(bn.input) == 2
+                and bn.input[1] in outer_for
+                and use_count.get(bn.input[1], 0) == 1):
+            slice_name = bn.input[1]
+            outer_name = scan_inputs[
+                [vi.name for vi in body_inputs].index(slice_name)]
+            w_stack = consts.get(outer_name)
+            if (w_stack is not None and w_stack.ndim == 3
+                    and w_stack[0].size >= min_elems
+                    and np.issubdtype(w_stack.dtype, np.floating)
+                    and w_stack.shape[1] % 2 == 0):
+                _, K, N = w_stack.shape
+                _, packed, scales = memo(
+                    ("int4_planar_stack", id(w_stack), block_size),
+                    lambda w_stack=w_stack: pack_stack(w_stack))
+                pname, sname = f"{outer_name}__w4", f"{outer_name}__w4s"
+                consts[pname] = packed
+                consts[sname] = scales
+                weights.append(pname)
+                weights.append(sname)
+                # swap the outer scan input, append the scales input
+                j = scan_inputs.index(outer_name)
+                scan_inputs[j] = pname
+                scan_inputs.insert(j + 1, sname)
+                bslice_p, bslice_s = f"{slice_name}__w4", f"{slice_name}__w4s"
+                jb = [vi.name for vi in body_inputs].index(slice_name)
+                body_inputs[jb] = onnx_io.ValueInfo(
+                    name=bslice_p, elem_type=onnx_io.NUMPY_TO_DTYPE[
+                        np.dtype(np.uint8)],
+                    shape=list(packed.shape[1:]))
+                body_inputs.insert(jb + 1, onnx_io.ValueInfo(
+                    name=bslice_s, elem_type=onnx_io.NUMPY_TO_DTYPE[
+                        np.dtype(np.float32)],
+                    shape=list(scales.shape[1:])))
+                nb = onnx_io.NodeProto(
+                    op_type="MatMulNBits",
+                    input=[bn.input[0], bslice_p, bslice_s],
+                    output=list(bn.output), name=bn.name,
+                    domain="com.microsoft")
+                for k_, v_ in {"K": K, "N": N, "bits": 4,
+                               "layout": "planar",
+                               "block_size":
+                               planar_layout(K, block_size)[1]}.items():
+                    nb.attributes[k_] = _attr(k_, v_)
+                new_body_nodes.append(nb)
+                changed = True
+                n_scan += 1
+                continue
+        new_body_nodes.append(bn)
+
+    if not changed:
+        return node
+    # never mutate the caller's body GraphProto: node.attr("body") is the
+    # SAME object the input graph's Scan node holds; rewriting it in place
+    # would leave that graph's Scan feeding fp32 stacks to a body that
+    # expects packed uint8 + scales. Shallow-copy and give it fresh lists.
+    import copy
+
+    body = copy.copy(body)
+    body.nodes = new_body_nodes
+    body.inputs = body_inputs
+    attrs = dict(node.attrs)
+    attrs["body"] = body
+    attrs["num_scan_inputs"] = n_scan
+    return Node(node.op_type, scan_inputs, list(node.outputs), node.name,
+                attrs, node.domain)
+
+
 def quantize_weights_int4(
     graph: Graph,
     min_elems: int = 4096,
@@ -616,7 +746,9 @@ def quantize_weights_int4(
 ) -> Graph:
     """Rewrite MatMul nodes with large constant 2-D weights into
     MatMulNBits(bits=4, layout="planar") nodes (weight-only; activations
-    stay floating). Embedding Gathers and small weights are untouched."""
+    stay floating), and the stacked weights a Scan body multiplies by into
+    the same over each iteration's slice (`_int4_scan_body`). Embedding
+    Gathers and small weights are untouched."""
     from .ops.kernels.qmatmul_int4 import planar_layout
 
     new_nodes: List[Node] = []
@@ -624,22 +756,16 @@ def quantize_weights_int4(
     weights = list(graph.weight_names)
     for node in graph.nodes:
         if node.op_type == "Scan":
-            raise NotImplementedError(
-                "quantize_weights_int4: int4 weights inside a Scan body "
-                "(the scan_layers decode graph) are not ported yet: ROADMAP "
-                "1.5")
+            new_nodes.append(_int4_scan_body(node, consts, weights,
+                                             min_elems, block_size))
+            continue
         if node.op_type == "MatMul" and len(node.inputs) == 2:
             w = consts.get(node.inputs[1])
             if (w is not None and w.ndim == 2 and w.size >= min_elems
                     and np.issubdtype(w.dtype, np.floating)
                     and w.shape[0] % 2 == 0):
                 K, N = w.shape
-                # inside models.host_memo, one packing per weight array (the
-                # entry keeps the array, so its id stays its own)
-                _, packed, scales = memo(
-                    ("int4_planar", id(w), block_size),
-                    lambda w=w: (w, *pack_int4_planar(w.astype(np.float32),
-                                                      block_size)))
+                packed, scales = _pack_planar(w, block_size)
                 # N pre-padded to a multiple of 256, as the JAX quantizer
                 # pads it for its TPU kernel's blocks: the graphs of the two
                 # packages stay equal (the kernel here writes only N columns)

@@ -1930,3 +1930,126 @@ def test_cpu_cuda_artifact_runs_on_both_devices(cuda, tmp_path):
     on_cpu = load_exported(path, device="cpu")
     assert on_cpu.platforms == ["cpu", "cuda"]
     _assert_equal(on_cpu.run(feed), Engine(q, device="cpu").run(feed).outputs)
+
+
+# --------------------------------------------------------------------------
+# control flow and the scan-over-layers decode
+# --------------------------------------------------------------------------
+# 12 layers at a narrow width: the Scan iterates as GPT-2 124M's does, and
+# every int4 product takes the planar kernel (K // 2 a multiple of 128)
+SCAN_GPT2 = GPT2Config(vocab_size=512, n_positions=64, n_embd=256,
+                       n_layer=12, n_head=4)
+
+
+def _scan_pair(cuda, **kw):
+    ids = np.random.default_rng(4).integers(0, SCAN_GPT2.vocab_size, (2, 8))
+    gens = {form: Generator(SCAN_GPT2, batch=2, prompt_len=8, max_len=32,
+                            kv_dtype="int8", int4_weights=True,
+                            scan_layers=form == "scan", device=cuda, **kw)
+            for form in ("per_layer", "scan")}
+    return gens, ids
+
+
+def test_scan_decode_on_card_equals_per_layer(cuda):
+    """The scan form on the card: greedy tokens, and logits and cache of
+    teacher-forced steps, equal the per-layer form's bit for bit (the same
+    kernels on the same shapes); 49 int4 launches per step in both, each
+    on the same schedule."""
+    gens, ids = _scan_pair(cuda)
+    toks, counts = {}, {}
+    for form, gen in gens.items():
+        q4.qmatmul_int4_planar.launches = 0
+        q4.qmatmul_int4_planar.schedules = dict.fromkeys(q4.SCHEDULES, 0)
+        toks[form], _ = gen.generate(ids, 8)
+        torch.cuda.synchronize()
+        counts[form] = (q4.qmatmul_int4_planar.launches,
+                        dict(q4.qmatmul_int4_planar.schedules))
+    np.testing.assert_array_equal(toks["scan"], toks["per_layer"])
+    assert counts["scan"] == counts["per_layer"]
+    assert counts["scan"][0] == 49 * 8
+    (ls, cs), (lp, cp) = (gens[f].start(ids) for f in ("scan", "per_layer"))
+    assert torch.equal(ls, lp)
+    for t in range(3):
+        tok = torch.from_numpy(toks["scan"][:, t]).to(cuda)
+        ls, cs = gens["scan"].step(cs, tok, 8 + t)
+        lp, cp = gens["per_layer"].step(cp, tok, 8 + t)
+        assert torch.equal(ls, lp)
+        for i in range(SCAN_GPT2.n_layer):
+            assert torch.equal(cs["past_key"][i], cp[f"past_key_{i}"])
+            assert torch.equal(cs["past_value"][i], cp[f"past_value_{i}"])
+
+
+def test_scan_decode_device_loop_on_card(cuda):
+    """device_loop = K over the stacked cache, K not dividing the steps:
+    the host loop's tokens, greedy and sampled."""
+    gens, ids = _scan_pair(cuda)
+    gen = gens["scan"]
+    want, _ = gen.generate(ids, 10)
+    samp = dict(temperature=0.8, top_k=20, sample_seed=5)
+    want_s, _ = gen.generate(ids, 10, **samp)
+    gen.device_loop = 4
+    for _ in range(2):  # the eager block and capture, then replays
+        np.testing.assert_array_equal(gen.generate(ids, 10)[0], want)
+        np.testing.assert_array_equal(gen.generate(ids, 10, **samp)[0],
+                                      want_s)
+
+
+def test_int4_kernel_on_stacked_weight_slices(cuda):
+    """The planar kernel on layer slices of a stacked [NL, Nw, K/2] weight
+    (contiguous views at an offset, as a Scan hands each iteration) picks
+    the schedule and gives the result of the same weights held apart."""
+    rng = np.random.default_rng(8)
+    K, N, NL = 768, 2304, 3
+    packs, scales = zip(*(pack_int4_planar(rng.standard_normal(
+        (K, N)).astype(np.float32) * 0.02) for _ in range(NL)))
+    stack = torch.from_numpy(np.stack(packs)).to(cuda)
+    sstack = torch.from_numpy(np.stack(scales)).to(cuda)
+    for M in (8, 512):
+        a = torch.from_numpy(rng.standard_normal((M, K)).astype(
+            np.float32)).to(cuda)
+        for layer in range(NL):
+            p, s = stack[layer], sstack[layer]
+            assert p.is_contiguous()
+            assert (p.storage_offset() == 0) == (layer == 0)
+            before = dict(q4.qmatmul_int4_planar.schedules)
+            got = q4.qmatmul_int4_planar(a, p, s, qblock=256)
+            picked = {k for k, v in q4.qmatmul_int4_planar.schedules.items()
+                      if v != before[k]}
+            want = q4.qmatmul_int4_planar(a, p.clone(), s.clone(),
+                                          qblock=256)
+            assert picked == {"small_m" if M == 8 else "mma"}
+            assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def control_flow():
+    from chip_smoke import control_flow_graphs
+
+    return control_flow_graphs(seed=1)
+
+
+@pytest.mark.parametrize("name", [
+    "if_runtime_predicate", "loop_early_exit", "loop_sequence_state",
+    "scan_reverse_two_inputs", "lstm", "gru", "rnn"])
+def test_control_flow_graph_on_card_equals_cpu(cuda, control_flow, name):
+    """The smoke's control-flow and recurrence graphs on the card: the
+    first call, replays and eager forwards of every feed against the CPU
+    (1e-5 x max|out| for If/Loop/Scan, rtol 1e-4 / atol 1e-5 for the
+    RNNs); an If's two predicate values replay one captured graph."""
+    from chip_smoke import _cf_check
+
+    graph, feeds, bound = control_flow[name]
+    cpu = Engine(graph, device="cpu")
+    eng = Engine(graph, device=cuda)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for label, feed in feeds + feeds:  # first call, then replays
+                _cf_check(eng(feed), cpu(feed), bound)
+                dev = {k: torch.as_tensor(v).to(cuda)
+                       for k, v in feed.items()}
+                _cf_check(eng.forward(dev), cpu(feed), bound)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert len(eng._graphs) == 1

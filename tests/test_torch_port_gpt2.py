@@ -279,17 +279,19 @@ def test_int4_packing_bit_equal(K, N, block):
 
 
 def test_unported_options_raise():
-    # the int4 KV cache and the llama family are ported (tests/
-    # test_torch_port_int4_kv.py, test_torch_port_llama.py); the Scan
-    # graph and moe still raise, also combined with them
-    with pytest.raises(NotImplementedError, match="1.5"):
-        build_gpt2_decode(TINY, kv_dtype="int8", scan_layers=True)
-    with pytest.raises(NotImplementedError, match="1.5"):
-        build_gpt2_decode(TINY, scan_layers=True)
+    # the int4 KV cache, the llama family and the Scan graph are ported
+    # (tests/test_torch_port_int4_kv.py, test_torch_port_llama.py,
+    # test_torch_port_scan_decode.py); moe and the mesh options still raise
     with pytest.raises(NotImplementedError, match="1.8"):
         decoder_family("moe")
-    for kw, item in (({"scan_layers": True}, "1.5"),
-                     ({"kv_dtype": "int4", "family": "moe"}, "1.8"),
+    # scan_layers takes neither fused attention, nor chunks, nor int4 KV
+    for kw, match in (({"kv_dtype": "int8", "fused_attention": True},
+                       "incompatible with fused_attention/chunk"),
+                      ({"chunk": 2}, "incompatible with fused_attention/chunk"),
+                      ({"kv_dtype": "int4"}, "int4 KV")):
+        with pytest.raises(ValueError, match=match):
+            build_gpt2_decode(TINY, scan_layers=True, **kw)
+    for kw, item in (({"kv_dtype": "int4", "family": "moe"}, "1.8"),
                      ({"mesh": object()}, "1.12"),
                      ({"pipeline_axis": "pipe"}, "1.12"),
                      ({"lora_bank": {}}, "1.8")):

@@ -198,16 +198,19 @@ def test_host_memo_shares_weights_and_packings():
 
 
 def test_unported_and_invalid_options_raise():
-    with pytest.raises(NotImplementedError, match="1.5b"):
-        build_llama_decode(TINY, scan_layers=True)
     with pytest.raises(ValueError, match="int4 KV"):
         build_llama_decode(TINY, kv_dtype="int4", fused_attention=True)
     with pytest.raises(ValueError, match="fused_attention"):
         build_llama_decode(TINY, fused_attention=True)
     with pytest.raises(NotImplementedError, match="1.8"):
         decoder_family("moe")
-    with pytest.raises(NotImplementedError, match="1.5b"):
-        Generator(TINY, family="llama", scan_layers=True, device="cpu")
+    # scan_layers takes neither fused attention, nor chunks, nor int4 KV
+    for kw, match in (({"kv_dtype": "int8", "fused_attention": True},
+                       "incompatible with fused_attention/chunk"),
+                      ({"chunk": 2}, "incompatible with fused_attention/chunk"),
+                      ({"kv_dtype": "int4"}, "int4 KV")):
+        with pytest.raises(ValueError, match=match):
+            build_llama_decode(TINY, scan_layers=True, **kw)
 
 
 # --------------------------------------------------------------------------

@@ -38,8 +38,41 @@ def run_op_port(op_type: str, inputs: Dict[str, np.ndarray],
     return [res.outputs[o] for o in out_names]
 
 
+def _value_infos(vis) -> list:
+    return [(v.name, v.elem_type, None if v.shape is None else list(v.shape))
+            for v in vis]
+
+
+def _subgraphs_equal(a, b) -> bool:
+    """Two GraphProtos (attribute subgraphs), one of each package, equal:
+    name, declared inputs and outputs, initializers, and every node with
+    its attributes (nested subgraphs too)."""
+    if not (a.name == b.name
+            and _value_infos(a.inputs) == _value_infos(b.inputs)
+            and _value_infos(a.outputs) == _value_infos(b.outputs)
+            and sorted(a.initializers) == sorted(b.initializers)
+            and all(values_equal(v, b.initializers[k])
+                    for k, v in a.initializers.items())
+            and len(a.nodes) == len(b.nodes)):
+        return False
+    for x, y in zip(a.nodes, b.nodes):
+        if ((x.op_type, x.input, x.output, x.name, x.domain)
+                != (y.op_type, y.input, y.output, y.name, y.domain)
+                or sorted(x.attributes) != sorted(y.attributes)):
+            return False
+        for k, at in x.attributes.items():
+            va, vb = at.value, y.attributes[k].value
+            if isinstance(va, j_io.TensorData):
+                va, vb = va.array, vb.array
+            if not values_equal(va, vb):
+                return False
+    return True
+
+
 def values_equal(a, b) -> bool:
     """Equality of attribute / constant values across the two packages."""
+    if isinstance(a, j_io.GraphProto) and isinstance(b, t_io.GraphProto):
+        return _subgraphs_equal(a, b)
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         a, b = np.asarray(a), np.asarray(b)
         return (a.dtype == b.dtype and a.shape == b.shape
