@@ -308,7 +308,8 @@ Phases, each printing JSON lines:
              user builds them (import_onnx, calibrate + quantize_graph, or
              quantize_weights_int4; random weights from seed 0):
              SqueezeNet 1.0 INT8 and MobileNetV2 INT8 at 224x224, b256,
-             BERT-base INT8 at B 32, T 128, and GPT-2 124M's INT4-planar,
+             BERT-base INT8 (4 of its 12 layers, full widths; cut for the
+             time limit) at B 32, T 128, and GPT-2 124M's INT4-planar,
              INT8-KV, fused-attention decode step at batch 8, max_len 256.
              Each is written with export_aot.export_engine and loaded and
              run in a fresh process (this script with --export-child),
@@ -326,6 +327,36 @@ Phases, each printing JSON lines:
              its trace must hold a QLinearConv range per node and forward,
              every int8 conv launch under one. The phase's seconds on a
              line of their own.
+19d. op_library - after 19c: the op library the port took over from the
+             JAX package's ops/standard.py, ops/extra.py,
+             ops/contrib_transformers.py and ops/core_attention.py. Every
+             case of tests/torch_port_oplib.py (one or more per op:
+             attribute variants, TopK ties, every Pad mode, every Resize
+             mode and coordinate transform, the spec's forms where the JAX
+             emitter differs, the random ops) as a one-node graph through
+             an Engine on the card, eager and replayed (one captured
+             graph), against the port's CPU run of the same graph and
+             inputs: exact for integer, boolean and index outputs, else
+             the case's CPU-test tolerance; one line per emitter module
+             with its worst errors. The ORT attention ops (Attention,
+             MultiHeadAttention, SkipLayerNormalization, the core
+             Attention) at BERT-base widths (B 32, T 128, 12 x 64) and
+             GroupQueryAttention at Llama's heads (32 on 8 of 128, B 4,
+             S 256), against the CPU (rtol 1e-4, atol 1e-4) and timed
+             replayed. Then UNet (UNetConfig(): base 16, depth 3, 2
+             classes) at 256x256, b32, fp32 and INT8 (calibrate on x[:8],
+             quantize_graph: 11 QLinearConvs, the 3 ConvTransposes fp32),
+             and the audio encoder (AudioEncoderConfig(): whisper-tiny's
+             front end and widths) on 30 s clips (480,000 samples, 2,998
+             frames, 1,499 positions), b16; random weights from seed 0,
+             inputs from default_rng(0), each forward a captured graph.
+             The first 2 images / clips against the port's CPU run (fp32
+             within 1e-3 x max|ref|, INT8 argmax agreement with the CPU's
+             INT8 >= 0.99); counts set to 0 just before the INT8 UNet's
+             first call and read after its forwards: 11 qconv_int8_requant
+             launches a forward, no other kernel; INT8 UNet's per-pixel
+             argmax agreement with fp32 > 0.95 (the JAX test's bound);
+             images/s and clips/s from replays; device ms by op type.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
@@ -353,6 +384,7 @@ it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -4436,6 +4468,9 @@ def _qop_rows(per_model: dict, convint: dict, smi: str) -> list:
 # --------------------------------------------------------------------------
 EXPORT_ITERS = 20   # replayed forwards timed per Engine and per artifact
 EXPORT_REPS = 3     # replayed forwards whose launches are counted
+# BERT-base's depth in this phase, at its full widths (the smoke's time
+# limit; phase 9 runs all 12 layers)
+EXPORT_BERT_LAYERS = 4
 
 # model -> (output checked for shape, per-second unit, launches per
 # forward): the four Engines of the phase, each built the way a user
@@ -4447,8 +4482,9 @@ EXPORT = {
                               {"qconv_int8_requant": 35,
                                "qconv_grouped_int8_requant": 17,
                                "qmatmul_int8": 1}),
-    "bert-base int8 B32 T128": ("pooler_output", "sequences",
-                                {"qmatmul_int8": 73}),
+    "bert-base 4 of 12 layers int8 B32 T128": (
+        "pooler_output", "sequences",
+        {"qmatmul_int8": 6 * EXPORT_BERT_LAYERS + 1}),
     "gpt2 124M int4 int8kv decode step b8": ("logits", "tokens",
                                              {"qmatmul_int4_planar": 49,
                                               "decode_attention_int8": 12}),
@@ -4463,7 +4499,7 @@ def _export_files(model: str, d: str) -> None:
     """Write the model's fp32 graph (random weights from seed 0) as
     d/model.onnx and its feed as d/feed.npz: SqueezeNet and MobileNetV2 at
     224x224, b256 (x from default_rng(0)); BERT-base at B 32, T 128 (phase
-    9's feed); GPT-2 124M's INT8-KV, fused-attention decode step at batch 8
+    9's feed) with EXPORT_BERT_LAYERS of its 12 layers; GPT-2 124M's INT8-KV, fused-attention decode step at batch 8
     and max_len 256 (phase 6's shapes), fed token ids, position 64 (a
     64-token prompt) and random int8 caches and KV scales."""
     from onnx_rusty_inference_engine_tpu_torch import onnx_io
@@ -4480,7 +4516,8 @@ def _export_files(model: str, d: str) -> None:
         from onnx_rusty_inference_engine_tpu_torch.models.bert import (
             BASE, build_bert)
 
-        proto = build_bert(BASE, batch=BERT_BATCH, seq_len=BERT_SEQ, seed=0)
+        cfg = dataclasses.replace(BASE, n_layer=EXPORT_BERT_LAYERS)
+        proto = build_bert(cfg, batch=BERT_BATCH, seq_len=BERT_SEQ, seed=0)
         feed = _bert_feed(BASE.vocab_size)
     else:
         from onnx_rusty_inference_engine_tpu_torch.models import (
@@ -5242,6 +5279,242 @@ def phase_control_flow(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# the op library's families at full width
+UNET_BATCH, UNET_SIZE = 32, 256
+UNET_QCONVS = 11     # QLinearConvs of UNetConfig()'s INT8 graph
+AUDIO_BATCH, AUDIO_SAMPLES = 16, 480000   # 30 s clips at 16 kHz
+FAMILY_CPU = 2       # images / clips re-run on the CPU
+FAMILY_ITERS = 3     # replayed forwards timed per Engine
+
+
+def _oplib():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_port_oplib
+
+    return torch_port_oplib
+
+
+def _graph_replay_ms(eng, iters: int) -> float:
+    """Device ms per replay of the Engine's one captured graph."""
+    require(len(eng._graphs) == 1, "one captured graph")
+    return cuda_ms(next(iter(eng._graphs.values())).replay, iters)
+
+
+def _wide_attention_cases(oplib) -> list:
+    """The ORT attention ops at BERT-base widths (B 32, T 128, 12 heads of
+    64) and GroupQueryAttention at LlamaConfig()'s heads (32 on 8 KV
+    heads of 128; B 4, S 256), inputs from seed 0."""
+    r = np.random.default_rng(0)
+    B, T, D, H = 32, 128, 768, 12
+
+    def f(*shape, scale=1.0):
+        return (r.standard_normal(shape) * scale).astype(np.float32)
+
+    lens = r.integers(32, T + 1, B).astype(np.int32)
+    keymask = (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    tol = (1e-4, 1e-4)
+    ms = "com.microsoft"
+    x = f(B, T, D)
+    cases = [
+        oplib.case("Attention_bert", "Attention", {"x": x},
+                   {"w": f(D, 3 * D, scale=D ** -0.5), "b": f(3 * D),
+                    "m": lens}, domain=ms, tol=tol, num_heads=H),
+        oplib.case("MultiHeadAttention_bert", "MultiHeadAttention",
+                   {"q": x, "k": f(B, T, D), "v": f(B, T, D)},
+                   {"kpm": keymask}, ins=["q", "k", "v", "", "kpm"],
+                   domain=ms, tol=tol, num_heads=H),
+        oplib.case("SkipLayerNormalization_bert", "SkipLayerNormalization",
+                   {"x": x, "skip": f(B, T, D)},
+                   {"g": f(D), "beta": f(D), "bias": f(D)}, domain=ms,
+                   tol=tol, epsilon=1e-12),
+        oplib.case("Attention_core_bert", "Attention",
+                   {"q": f(B, H, T, 64), "k": f(B, H, T, 64),
+                    "v": f(B, H, T, 64)}, opset=23, tol=tol, is_causal=1),
+    ]
+    Bq, S, Hq, Hkv, hd = 4, 256, 32, 8, 128
+    ang = r.uniform(0, 3, (S, hd // 2)).astype(np.float32)
+    cases.append(oplib.case(
+        "GroupQueryAttention_llama", "GroupQueryAttention",
+        {"q": f(Bq, S, Hq * hd), "k": f(Bq, S, Hkv * hd),
+         "v": f(Bq, S, Hkv * hd)},
+        {"sl": (r.integers(S // 2, S, Bq)).astype(np.int32),
+         "tot": np.array(S, np.int32), "cos": np.cos(ang),
+         "sin": np.sin(ang)},
+        ins=["q", "k", "v", "", "", "sl", "tot", "cos", "sin"], domain=ms,
+        tol=tol, num_heads=Hq, kv_num_heads=Hkv, do_rotary=1))
+    return cases
+
+
+def phase_op_library(smi: str) -> dict:
+    """The op library this slice took over from the JAX package: every
+    case of tests/torch_port_oplib.py (one or more per op) through an
+    Engine on the card, eager and replayed, against the port's CPU run of
+    the same graph and inputs (exact for integer, boolean and index
+    outputs, else the CPU tests' tolerance); one line per emitter module
+    with its worst errors. The ORT attention ops at BERT-base widths and
+    GroupQueryAttention at Llama's heads, each against the CPU and timed
+    replayed. Then UNet (UNetConfig(), 256x256, b32) fp32 and INT8 and the
+    audio encoder (AudioEncoderConfig(), 30 s clips, b16), random weights
+    from seed 0, each forward a captured graph: the first FAMILY_CPU
+    images / clips against the port's CPU run; counts set to 0 just before
+    the INT8 UNet's first call and read after its forwards: exactly
+    UNET_QCONVS qconv_int8_requant launches a forward and no other kernel;
+    INT8 UNet's per-pixel argmax agreement with fp32 > 0.95 (the JAX
+    test's bound); images/s and clips/s from replays; device ms by op
+    type. Returns the INT8 UNet's qconv_int8_requant counts."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models.audio import (
+        AudioEncoderConfig, build_audio_encoder)
+    from onnx_rusty_inference_engine_tpu_torch.models.unet import (
+        UNetConfig, build_unet)
+    from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
+        get_emitter)
+
+    oplib = _oplib()
+    t_phase = time.perf_counter()
+    by_module = {}
+    for c in oplib.ALL_CASES:
+        mod = get_emitter(c.op, c.domain).__module__.rsplit(".", 1)[-1]
+        errs, eng = oplib.card_vs_cpu(c)
+        row = by_module.setdefault(mod, {"cases": 0, "ops": set(),
+                                         "eager": 0.0, "replayed": 0.0})
+        row["cases"] += 1
+        row["ops"].add(c.op)
+        for k in ("eager", "replayed"):
+            row[k] = max(row[k], errs[k])
+        del eng
+    for mod, row in sorted(by_module.items()):
+        emit({"phase": "op_library", "module": mod, "cases": row["cases"],
+              "ops": len(row["ops"]),
+              "worst_abs_err_vs_cpu": {"eager": row["eager"],
+                                       "replayed": row["replayed"]},
+              "bound": "exact for integer, boolean and index outputs, "
+                       "else the case's CPU-test tolerance"})
+    cases_s = time.perf_counter() - t_phase
+
+    for c in _wide_attention_cases(oplib):
+        t0 = time.perf_counter()
+        errs, eng = oplib.card_vs_cpu(c)
+        emit({"phase": "op_library", "wide": c.id, "op": c.op,
+              "inputs": {k: list(v.shape) for k, v in c.feeds.items()},
+              "worst_abs_err_vs_cpu": errs, "bound": "rtol 1e-4, atol 1e-4",
+              "replayed_ms": _graph_replay_ms(eng, 20),
+              "seconds": time.perf_counter() - t0, "card": smi})
+        del eng
+    torch.cuda.empty_cache()
+
+    # UNet fp32 and INT8
+    t0 = time.perf_counter()
+    cfg = UNetConfig()
+    graph = P.import_model(build_unet(cfg, batch=UNET_BATCH, size=UNET_SIZE))
+    small = P.import_model(build_unet(cfg, batch=FAMILY_CPU, size=UNET_SIZE))
+    x = np.random.default_rng(0).standard_normal(
+        (UNET_BATCH, 3, UNET_SIZE, UNET_SIZE)).astype(np.float32)
+    dev = {"image": torch.as_tensor(x, device="cuda")}
+    eng = P.Engine(graph)
+    y32 = eng(dev)["mask_logits"]
+    y32r = eng(dev)["mask_logits"]
+    fp32_ms = _graph_replay_ms(eng, FAMILY_ITERS)
+    want = P.Engine(small, device="cpu").run(
+        {"image": x[:FAMILY_CPU]}).outputs["mask_logits"]
+    ranges = P.calibrate(graph, [{"image": x[:8]}])
+    qgraph = P.quantize_graph(graph, ranges=ranges)
+    qsmall = P.quantize_graph(small, ranges=ranges)
+    ops = {}
+    for n in qgraph.nodes:
+        ops[n.op_type] = ops.get(n.op_type, 0) + 1
+    require(ops.get("QLinearConv") == UNET_QCONVS
+            and ops.get("ConvTranspose") == cfg.depth,
+            f"unet int8 nodes: {ops}")
+    eng8 = P.Engine(qgraph)
+    reset_counts()
+    y8 = eng8(dev)["mask_logits"]
+    y8r = eng8(dev)["mask_logits"]
+    int8_ms = _graph_replay_ms(eng8, FAMILY_ITERS)
+    counts = read_counts()
+    forwards = 2 + FAMILY_ITERS + 1   # _graph_replay_ms's cuda_ms warms once
+    require({k: v for k, v in counts.items() if v}
+            == {"qconv_int8_requant": UNET_QCONVS * forwards},
+            f"unet int8: {UNET_QCONVS} qconv_int8_requant a forward over "
+            f"{forwards} forwards: {counts}")
+    want8 = P.Engine(qsmall, device="cpu").run(
+        {"image": x[:FAMILY_CPU]}).outputs["mask_logits"]
+    errs = {}
+    for label, got, ref in (("fp32_eager", y32, want),
+                            ("fp32_replayed", y32r, want),
+                            ("int8_eager", y8, want8),
+                            ("int8_replayed", y8r, want8)):
+        g = got[:FAMILY_CPU].cpu().numpy()
+        errs[label] = float(np.abs(g - ref).max() / np.abs(ref).max())
+        if label.startswith("fp32"):
+            require(errs[label] <= 1e-3, f"unet {label}: {errs[label]} > "
+                    f"1e-3 x max|ref|")
+        else:
+            agree = float((g.argmax(1) == ref.argmax(1)).mean())
+            errs[label + "_argmax_agreement"] = agree
+            require(agree >= 0.99, f"unet {label}: argmax agreement with "
+                    f"the CPU's INT8 {agree} < 0.99")
+    agree = float((y8.argmax(1) == y32.argmax(1)).float().mean())
+    require(agree > 0.95, f"unet int8 vs fp32 argmax agreement {agree}")
+    ms32, _ = _ms_by_op(eng, dev, 2)
+    ms8, k8 = _ms_by_op(eng8, dev, 2)
+    emit({"phase": "op_library", "model": "unet", "config": vars(cfg),
+          "size": UNET_SIZE, "batch": UNET_BATCH,
+          "fp32_images_per_s": UNET_BATCH / fp32_ms * 1e3,
+          "int8_images_per_s": UNET_BATCH / int8_ms * 1e3,
+          "fp32_replayed_ms": fp32_ms, "int8_replayed_ms": int8_ms,
+          "max_rel_err_vs_cpu": errs,
+          "bound": "fp32 1e-3 x max|ref|; INT8 argmax agreement with the "
+                   "CPU's INT8 >= 0.99",
+          "int8_vs_fp32_argmax_agreement": agree, "int8_nodes": ops,
+          "launches": {k: v for k, v in counts.items() if v},
+          "int8_forwards": forwards, "fp32_ms_by_op": ms32,
+          "int8_ms_by_op": ms8, "int8_kernel_ms": k8,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    del eng, eng8, y32, y32r, y8, y8r
+    torch.cuda.empty_cache()
+
+    # the audio encoder on 30 s clips
+    t0 = time.perf_counter()
+    acfg = AudioEncoderConfig()
+    graph = P.import_model(build_audio_encoder(
+        acfg, batch=AUDIO_BATCH, n_samples=AUDIO_SAMPLES))
+    small = P.import_model(build_audio_encoder(
+        acfg, batch=FAMILY_CPU, n_samples=AUDIO_SAMPLES))
+    wav = (np.random.default_rng(0).standard_normal(
+        (AUDIO_BATCH, AUDIO_SAMPLES)) * 0.1).astype(np.float32)
+    dev = {"audio": torch.as_tensor(wav, device="cuda")}
+    eng = P.Engine(graph)
+    ya = eng(dev)["logits"]
+    yar = eng(dev)["logits"]
+    audio_ms = _graph_replay_ms(eng, FAMILY_ITERS)
+    want = P.Engine(small, device="cpu").run(
+        {"audio": wav[:FAMILY_CPU]}).outputs["logits"]
+    errs = {}
+    for label, got in (("eager", ya), ("replayed", yar)):
+        g = got[:FAMILY_CPU].cpu().numpy()
+        errs[label] = float(np.abs(g - want).max() / np.abs(want).max())
+        require(errs[label] <= 1e-3,
+                f"audio {label}: {errs[label]} > 1e-3 x max|ref|")
+    require(tuple(ya.shape) == (AUDIO_BATCH, acfg.num_classes)
+            and bool(torch.isfinite(ya).all()), "audio logits")
+    msa, _ = _ms_by_op(eng, dev, 2)
+    n_frames = (AUDIO_SAMPLES - acfg.n_fft) // acfg.hop + 1
+    emit({"phase": "op_library", "model": "audio_encoder",
+          "config": vars(acfg), "samples": AUDIO_SAMPLES,
+          "frames": n_frames, "positions": n_frames // 2,
+          "batch": AUDIO_BATCH, "clips_per_s": AUDIO_BATCH / audio_ms * 1e3,
+          "replayed_ms": audio_ms, "max_rel_err_vs_cpu": errs,
+          "bound": "1e-3 x max|ref|", "ms_by_op": msa,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    del eng, ya, yar
+    torch.cuda.empty_cache()
+    emit({"phase": "op_library", "seconds": time.perf_counter() - t_phase,
+          "cases_s": cases_s})
+    return {"launches": counts["qconv_int8_requant"],
+            "per_forward": UNET_QCONVS, "forwards": forwards}
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -5319,6 +5592,9 @@ def main() -> int:
             rows.insert(1, grouped)
             rows += phase_qoperator(smi)
             phase_export(smi)
+            unet = phase_op_library(smi)
+            next(row for row in rows if row["name"] == "qconv_int8_requant"
+                 )["unet_path"] = unet
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]

@@ -215,8 +215,7 @@ def cmd_inspect(args) -> int:
     counts = {}
     for n in graph.nodes:
         counts[n.op_type] = counts.get(n.op_type, 0) + 1
-    # Shape and Size need no emitter: the engine knows them from the shapes
-    have = set(supported_ops()) | {"Shape", "Size"}
+    have = set(supported_ops())
     print(json.dumps({
         "name": graph.name,
         "opset": graph.opset,

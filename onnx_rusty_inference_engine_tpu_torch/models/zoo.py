@@ -24,8 +24,7 @@ _ASSETS = os.path.join(_REPO, "assets", "torch")
 # models whose files the repository does not ship yet
 NOT_SHIPPED = {"mnist": "mnist-8.onnx", "matmul_2d": "model.onnx"}
 # families of the JAX zoo that the port has no builder for yet
-NOT_PORTED = ("unet", "t5_encoder", "audio_encoder", "moe", "detection",
-              "asr_encoder")
+NOT_PORTED = ("t5_encoder", "moe", "detection", "asr_encoder")
 
 
 def _synth(name: str, build: Callable) -> str:
@@ -69,6 +68,20 @@ def _vit_path() -> str:
     return _synth("vit-tiny.synth", lambda: build_vit(TINY))
 
 
+def _unet_path() -> str:
+    from .unet import TINY, build_unet
+
+    return _synth("unet-tiny.synth", lambda: build_unet(TINY))
+
+
+def _audio_path() -> str:
+    from .audio import TINY, build_audio_encoder
+
+    return _synth("audio-encoder-tiny.synth",
+                  lambda: build_audio_encoder(TINY, batch=1,
+                                              n_samples=1024))
+
+
 def _llama_path() -> str:
     from .llama import TINY, build_llama
 
@@ -110,6 +123,8 @@ MODELS: Dict[str, Callable[[], str]] = {
     "mobilenetv2": _mobilenetv2_path,
     "bert": _bert_path,
     "vit": _vit_path,
+    "unet": _unet_path,
+    "audio_encoder": _audio_path,
     "llama": _llama_path,
     "gpt2": _gpt2_path,
     **{name: _not_ported(name) for name in NOT_PORTED},

@@ -1,4 +1,5 @@
-"""ONNX op emitters (standard.py, quantized.py, fused.py) and the kernels
-they call (kernels/). The registry (registry.py) imports the emitter
+"""ONNX op emitters (standard.py, extra.py, contrib_transformers.py,
+core_attention.py, quantized.py, fused.py, control_flow.py, sequences.py,
+rnn.py) and the kernels they call (kernels/). The registry (registry.py) imports the emitter
 modules on its first lookup, so importing a kernel module alone (as a
 loaded artifact does) imports neither the emitters nor the registry."""

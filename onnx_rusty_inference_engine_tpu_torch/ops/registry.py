@@ -40,8 +40,9 @@ def register(*op_types: str, domain: str = ""):
 def _load_emitters() -> None:
     """Import the emitter modules, whose `register` calls fill the
     registry (once; later calls find them imported)."""
-    from . import (control_flow, fused, quantized, rnn,  # noqa: F401
-                   sequences, standard)
+    from . import (contrib_transformers, control_flow,  # noqa: F401
+                   core_attention, extra, fused, quantized, rnn, sequences,
+                   standard)
 
 
 def get_emitter(op_type: str, domain: str = "") -> Callable:
@@ -151,6 +152,22 @@ class LoweringContext:
                                             []).append((val, t))
         self.static_env[name] = val
         self.env[name] = t
+        return t
+
+    def device_constant(self, key: str, make) -> torch.Tensor:
+        """A value an emitter makes on the host (`make()`: index tables,
+        windows, filter banks, random draws) as a tensor on the device.
+        With `statics` it is made once per input signature and scope and
+        reused, so that a later run copies nothing from the host and may
+        be captured; `key` names it within the scope, and carries whatever
+        of the node's input shapes the value depends on."""
+        if self.statics is None:
+            return torch.as_tensor(np.asarray(make()), device=self.device)
+        k = ("__const__", self.scope, key)
+        t = self.statics.get(k)
+        if t is None:
+            t = self.statics[k] = torch.as_tensor(np.asarray(make()),
+                                                  device=self.device)
         return t
 
     def run_nodes(self, nodes) -> None:

@@ -1,12 +1,11 @@
 """fp32/generic ONNX op emitters -> PyTorch.
 
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/standard.py,
-holding the emitters SqueezeNet 1.0 needs in fp32 and in its INT8 form
-(Conv, Relu, MaxPool, Concat, Dropout, GlobalAveragePool, Softmax), those
-the GPT-2 graphs need (the binary elementwise family, MatMul, Gelu, Where,
-Cast, Reshape, Transpose, Split, Gather, Identity, LayerNormalization),
-those BERT adds (Tanh, Slice) and those the dynamic W8A8 rewrite adds (Abs,
-Max, Min, ReduceMax). Each keeps the JAX emitter's semantics: NCHW layout,
+with every op type it registers: the convolutions and pools, the
+elementwise, activation and reduction families, the shape and index ops,
+Pad, the norms, Resize, GridSample and Einsum. Each keeps the JAX
+emitter's semantics (where that emitter departs from the ONNX spec, the
+port follows the spec and says so in the emitter): NCHW layout,
 ONNX pads as (lo, hi) pairs applied explicitly (so asymmetric pads and
 ceil_mode follow the JAX package's arithmetic), opset < 13 Softmax
 flattening, Gather's wrap-and-clamp of indices.
@@ -32,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import onnx_io
-from ..graph import Node, _broadcast_expand, _resolve_reshape
+from ..graph import (Node, _broadcast_expand, _resolve_reshape,
+                     _shape_slice)
 from ..utils.fp32 import cudnn_fp32_exact as _fp32_exact
 from ..utils.fp32 import matmul_fp32_exact  # noqa: F401  (re-exported)
 from .registry import LoweringContext, UnsupportedOpError, register
@@ -135,6 +135,43 @@ def conv(ctx: LoweringContext, node: Node, ins):
     return (out,)
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("ConvTranspose")
+def conv_transpose(ctx: LoweringContext, node: Node, ins):
+    """The JAX emitter's arithmetic: the output of a transposed conv with
+    no padding, (in - 1) * stride + (k - 1) * dilation + 1 long, then
+    `pads` begin cut from the front and `pads` end less `output_padding`
+    from the back (a negative cut is zeros, as the JAX emitter's wider
+    padding gives). Weights [C_in, C_out / group, *k], as PyTorch's.
+    `output_shape` and `auto_pad` are refused: the JAX emitter reads
+    neither, and the port does not implement them."""
+    x, w = ins[0], ins[1]
+    b = ins[2] if len(ins) > 2 else None
+    spatial = x.dim() - 2
+    if spatial not in _CONV_T:
+        raise UnsupportedOpError(f"ConvTranspose: {spatial}-D spatial")
+    if node.attr("output_shape") is not None:
+        raise UnsupportedOpError("ConvTranspose: output_shape is not ported")
+    if _str(node.attr("auto_pad", "NOTSET")) not in ("NOTSET", ""):
+        raise UnsupportedOpError("ConvTranspose: auto_pad is not ported")
+    strides = [int(v) for v in node.attr("strides", [1] * spatial)]
+    dilations = [int(v) for v in node.attr("dilations", [1] * spatial)]
+    group = int(node.attr("group", 1))
+    pads = [int(v) for v in node.attr("pads", [0] * (2 * spatial))]
+    out_pads = [int(v) for v in node.attr("output_padding", [0] * spatial)]
+    with _fp32_exact():
+        y = _CONV_T[spatial](x, w, None, stride=strides, groups=group,
+                             dilation=dilations)
+    y = _pad(y, [(-pads[i], out_pads[i] - pads[i + spatial])
+                 for i in range(spatial)], 0.0)
+    if b is not None:
+        y = y + b.reshape((1, -1) + (1,) * spatial)
+    return (y,)
+
+
 # --------------------------------------------------------------------------
 # Pooling
 # --------------------------------------------------------------------------
@@ -222,6 +259,33 @@ def average_pool(ctx: LoweringContext, node: Node, ins):
     ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
                       device=x.device)
     return (out / window_sum(ones),)
+
+
+@register("GlobalMaxPool")
+def global_max_pool(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    return (torch.amax(x, dim=tuple(range(2, x.dim())), keepdim=True),)
+
+
+@register("MaxUnpool")
+def max_unpool(ctx: LoweringContext, node: Node, ins):
+    """Each value put at its flat index into a zero tensor of the output
+    shape (the `output_shape` input, else the pooling arithmetic); the
+    indices count over the whole tensor, as MaxPool's Indices do."""
+    x, idx = ins[0], ins[1]
+    if len(ins) > 2 and ins[2] is not None:
+        out_shape = tuple(int(v) for v in ctx.require_constant(
+            node.inputs[2], "MaxUnpool output_shape"))
+    else:
+        kh, kw = [int(k) for k in node.attr("kernel_shape")]
+        sh, sw = [int(v) for v in node.attr("strides", [1, 1])]
+        pads = [int(p) for p in node.attr("pads", [0, 0, 0, 0])]
+        N, C, OH, OW = x.shape
+        out_shape = (N, C, (OH - 1) * sh + kh - pads[0] - pads[2],
+                     (OW - 1) * sw + kw - pads[1] - pads[3])
+    flat = torch.zeros(math.prod(out_shape), dtype=x.dtype, device=x.device)
+    flat[idx.reshape(-1).to(torch.int64)] = x.reshape(-1)
+    return (flat.reshape(out_shape),)
 
 
 @register("GlobalAveragePool")
@@ -606,3 +670,849 @@ def gather(ctx: LoweringContext, node: Node, ins):
     out = torch.index_select(x, axis, flat)
     return (out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
                         + tuple(x.shape[axis + 1:])),)
+
+
+# --------------------------------------------------------------------------
+# The rest of the JAX module's op set: elementwise and activations,
+# reductions, shape and index ops, Pad, norms, Resize, GridSample, Einsum
+# --------------------------------------------------------------------------
+# ONNX index outputs (ArgMax, ArgMin, TopK's indices) in the dtype the JAX
+# Engine returns them: int32, JAX's index type with x64 off
+INDEX_DTYPE = torch.int32
+
+# integer types PyTorch keeps without shift, bitwise-not or remainder
+# kernels (on the CPU and the card alike)
+_SHELL_UINTS = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def repeat_each(t: torch.Tensor, r: int, dim: int) -> torch.Tensor:
+    """Each slice along `dim` repeated r times in place (jnp.repeat with an
+    int count): a broadcast and a reshape, so that nothing of it reads the
+    host inside a captured run."""
+    dim %= t.dim()
+    shape = list(t.shape)
+    t = t.unsqueeze(dim + 1).expand(shape[:dim + 1] + [r] + shape[dim + 1:])
+    shape[dim] *= r
+    return t.reshape(shape)
+
+
+def _str(v) -> str:
+    """A string attribute (wire-parsed ones arrive as bytes)."""
+    return v.decode() if isinstance(v, bytes) else str(v)
+
+
+def _no_shell_uint(op: str, *xs) -> None:
+    for x in xs:
+        if x.dtype in _SHELL_UINTS:
+            raise UnsupportedOpError(
+                f"{op}: PyTorch has no {op} kernel for {x.dtype}")
+
+
+register("Exp")(_unary(torch.exp))
+register("Log")(_unary(torch.log))
+register("Sqrt")(_unary(torch.sqrt))
+register("Ceil")(_unary(torch.ceil))
+register("Sign")(_unary(torch.sign))
+register("Erf")(_unary(torch.erf))
+register("Not")(_unary(torch.logical_not))
+register("Sin")(_unary(torch.sin))
+register("Cos")(_unary(torch.cos))
+register("IsNaN")(_unary(torch.isnan))
+register("Reciprocal")(_unary(lambda x: 1.0 / x))
+register("Softplus")(_unary(F.softplus))
+register("Softsign")(_unary(lambda x: x / (1 + torch.abs(x))))
+register("HardSwish")(_unary(
+    lambda x: x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)))
+register("Mish")(_unary(lambda x: x * torch.tanh(F.softplus(x))))
+
+
+@register("IsInf")
+def is_inf(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    pos = bool(int(node.attr("detect_positive", 1)))
+    neg = bool(int(node.attr("detect_negative", 1)))
+    if pos and neg:
+        return (torch.isinf(x),)
+    if pos:
+        return (torch.isposinf(x),)
+    if neg:
+        return (torch.isneginf(x),)
+    return (torch.zeros_like(x, dtype=torch.bool),)
+
+
+@register("LeakyRelu")
+def leaky_relu(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    return (torch.where(x >= 0, x, float(node.attr("alpha", 0.01)) * x),)
+
+
+@register("Elu")
+def elu(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    a = float(node.attr("alpha", 1.0))
+    return (torch.where(x > 0, x, a * torch.expm1(x)),)
+
+
+@register("Selu")
+def selu(ctx: LoweringContext, node: Node, ins):
+    """gamma * (x > 0 ? x : alpha * (exp(x) - 1)) with the node's alpha and
+    gamma (the ONNX defaults where absent). The JAX emitter ignores both
+    attributes and always uses jax.nn.selu's constants."""
+    x = ins[0]
+    a = float(node.attr("alpha", 1.67326319217681884765625))
+    g = float(node.attr("gamma", 1.05070102214813232421875))
+    return (g * torch.where(x > 0, x, a * torch.expm1(x)),)
+
+
+@register("HardSigmoid")
+def hard_sigmoid(ctx: LoweringContext, node: Node, ins):
+    a = float(node.attr("alpha", 0.2))
+    b = float(node.attr("beta", 0.5))
+    return (torch.clamp(a * ins[0] + b, 0.0, 1.0),)
+
+
+@register("Celu")
+def celu(ctx: LoweringContext, node: Node, ins):
+    a = float(node.attr("alpha", 1.0))
+    x = ins[0]
+    return (torch.clamp_min(x, 0)
+            + torch.clamp_max(a * (torch.exp(x / a) - 1), 0.0),)
+
+
+@register("ThresholdedRelu")
+def thresholded_relu(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    return (torch.where(x > float(node.attr("alpha", 1.0)), x,
+                        torch.zeros((), dtype=x.dtype, device=x.device)),)
+
+
+@register("Shrink")
+def shrink(ctx: LoweringContext, node: Node, ins):
+    lambd = float(node.attr("lambd", 0.5))
+    bias = float(node.attr("bias", 0.0))
+    x = ins[0]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return (torch.where(x < -lambd, x + bias,
+                        torch.where(x > lambd, x - bias, zero)),)
+
+
+@register("PRelu")
+def prelu(ctx: LoweringContext, node: Node, ins):
+    x, slope = promote(*ins)
+    return (torch.where(x >= 0, x, x * slope),)
+
+
+@register("Mod")
+def mod(ctx: LoweringContext, node: Node, ins):
+    """fmod 1: C's fmod (the dividend's sign); fmod 0: the divisor's sign,
+    as Python's %."""
+    a, b = promote(*ins)
+    _no_shell_uint("Mod", a)
+    if int(node.attr("fmod", 0)):
+        return (torch.fmod(a, b),)
+    return (torch.remainder(a, b),)
+
+
+@register("BitShift")
+def bit_shift(ctx: LoweringContext, node: Node, ins):
+    x, y = ins
+    _no_shell_uint("BitShift", x)
+    if _str(node.attr("direction", "LEFT")).upper() == "LEFT":
+        return (torch.bitwise_left_shift(x, y),)
+    return (torch.bitwise_right_shift(x, y),)
+
+
+register("Sum")(_variadic(torch.add))
+
+
+@register("Mean")
+def op_mean(ctx: LoweringContext, node: Node, ins):
+    (total,) = _variadic(torch.add)(ctx, node, ins)
+    return (total / len(ins),)
+
+
+@register("CastLike")
+def cast_like(ctx: LoweringContext, node: Node, ins):
+    return (ins[0].to(ins[1].dtype),)
+
+
+@register("LogSoftmax")
+def log_softmax(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    axis = _softmax_axis(ctx, node)
+    if ctx.opset < 13:
+        ax = axis % x.dim()
+        lead = math.prod(x.shape[:ax]) if ax else 1
+        return (torch.log_softmax(x.reshape(lead, -1), dim=-1)
+                .reshape(x.shape),)
+    return (torch.log_softmax(x, dim=axis),)
+
+
+@register("Hardmax")
+def hardmax(ctx: LoweringContext, node: Node, ins):
+    """One-hot of the first maximum along `axis`. Before opset 13 the
+    input is flattened to 2-D at `axis` first, as the spec says (and as
+    Softmax is); the JAX emitter takes the axis as it is at every opset."""
+    x = ins[0]
+    axis = _softmax_axis(ctx, node)
+    shape = x.shape
+    if ctx.opset < 13:
+        ax = axis % x.dim()
+        x = x.reshape(math.prod(shape[:ax]) if ax else 1, -1)
+        axis = 1
+    out = F.one_hot(torch.argmax(x, dim=axis), x.shape[axis])
+    return (torch.movedim(out, -1, axis % x.dim()).to(x.dtype)
+            .reshape(shape),)
+
+
+# --------------------------------------------------------------------------
+# Reductions (the Reduce* axes forms of `_reduce`)
+# --------------------------------------------------------------------------
+def _all_dims(x, dims):
+    """An empty axes list reduces every axis, as the spec says (with
+    noop_with_empty_axes 0; `_reduce` passed the input through
+    otherwise)."""
+    return dims if dims else tuple(range(x.dim()))
+
+
+def _prod(x, dims, keepdim):
+    for d in sorted(_all_dims(x, dims), reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def _sum(x, dims, keepdim):
+    return torch.sum(x, dim=_all_dims(x, dims), keepdim=keepdim)
+
+
+register("ReduceMean")(_reduce(
+    lambda x, dims, keepdim: torch.mean(x, dim=_all_dims(x, dims),
+                                        keepdim=keepdim)))
+register("ReduceSum")(_reduce(_sum))
+register("ReduceMin")(_reduce(
+    lambda x, dims, keepdim: torch.amin(x, dim=_all_dims(x, dims),
+                                        keepdim=keepdim)))
+register("ReduceProd")(_reduce(_prod))
+register("ReduceL1")(_reduce(
+    lambda x, dims, keepdim: _sum(torch.abs(x), dims, keepdim)))
+register("ReduceL2")(_reduce(
+    lambda x, dims, keepdim: torch.sqrt(_sum(x * x, dims, keepdim))))
+register("ReduceSumSquare")(_reduce(
+    lambda x, dims, keepdim: _sum(x * x, dims, keepdim)))
+register("ReduceLogSum")(_reduce(
+    lambda x, dims, keepdim: torch.log(_sum(x, dims, keepdim))))
+register("ReduceLogSumExp")(_reduce(
+    lambda x, dims, keepdim: torch.logsumexp(x, dim=_all_dims(x, dims),
+                                             keepdim=keepdim)))
+
+
+def _arg_reduce(fn):
+    """ArgMax / ArgMin: the first extreme index, or with select_last_index
+    the last (the reversed axis's first, mapped back)."""
+    def emit(ctx: LoweringContext, node: Node, ins):
+        x = ins[0]
+        axis = int(node.attr("axis", 0)) % x.dim()
+        keepdims = bool(int(node.attr("keepdims", 1)))
+        if int(node.attr("select_last_index", 0)):
+            out = x.shape[axis] - 1 - fn(torch.flip(x, (axis,)), dim=axis,
+                                         keepdim=keepdims)
+        else:
+            out = fn(x, dim=axis, keepdim=keepdims)
+        return (out.to(INDEX_DTYPE),)
+    return emit
+
+
+register("ArgMax")(_arg_reduce(torch.argmax))
+register("ArgMin")(_arg_reduce(torch.argmin))
+
+
+@register("TopK")
+def topk(ctx: LoweringContext, node: Node, ins):
+    """The k largest (or smallest) along `axis`, in order; equal values in
+    ascending index order, as lax.top_k gives them: a stable sort, where
+    torch.topk on the card promises no order among ties."""
+    x = ins[0]
+    if len(ins) > 1 and ins[1] is not None:
+        k = int(ctx.require_constant(node.inputs[1], "TopK k").reshape(-1)[0])
+    else:
+        k = int(node.attr("k"))
+    axis = int(node.attr("axis", -1)) % x.dim()
+    largest = bool(int(node.attr("largest", 1)))
+    v, i = torch.sort(x, dim=axis, descending=largest, stable=True)
+    return (v.narrow(axis, 0, k), i.narrow(axis, 0, k).to(INDEX_DTYPE))
+
+
+# --------------------------------------------------------------------------
+# Shape ops (emitters for what static propagation does not reach)
+# --------------------------------------------------------------------------
+@register("Squeeze")
+def squeeze(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    axes = node.attr("axes")
+    if axes is None and len(ins) > 1 and node.inputs[1]:
+        axes = ctx.require_constant(node.inputs[1], "Squeeze axes").tolist()
+    if axes is None:
+        return (x.reshape([d for d in x.shape if d != 1]),)
+    drop = {int(a) % x.dim() for a in axes}
+    return (x.reshape([d for i, d in enumerate(x.shape) if i not in drop]),)
+
+
+@register("Shape")
+def shape_op(ctx: LoweringContext, node: Node, ins):
+    dims = tuple(ins[0].shape)[_shape_slice(node, ins[0].dim())]
+    return (ctx.device_constant(f"{node.outputs[0]}:{dims}",
+                                lambda: np.asarray(dims, np.int64)),)
+
+
+@register("Size")
+def size_op(ctx: LoweringContext, node: Node, ins):
+    n = ins[0].numel()
+    return (ctx.device_constant(f"{node.outputs[0]}:{n}",
+                                lambda: np.asarray(n, np.int64)),)
+
+
+@register("Constant")
+def constant_node(ctx: LoweringContext, node: Node, ins):
+    for key in ("value", "value_float", "value_int", "value_floats",
+                "value_ints"):
+        if key in node.attrs:
+            val = np.asarray(node.attrs[key])
+            return (ctx.device_constant(node.outputs[0], lambda: val),)
+    raise UnsupportedOpError(
+        "Constant node without a supported value attribute")
+
+
+@register("ConstantOfShape")
+def constant_of_shape(ctx: LoweringContext, node: Node, ins):
+    shape = ctx.require_constant(node.inputs[0], "ConstantOfShape shape")
+    val = node.attr("value")
+    fill = (np.asarray(val).reshape(-1)[0] if val is not None
+            else np.float32(0))
+    return (torch.full(tuple(int(d) for d in shape), fill.item(),
+                       dtype=_torch_dtype(fill.dtype), device=ctx.device),)
+
+
+@register("Range")
+def range_op(ctx: LoweringContext, node: Node, ins):
+    vals = [ctx.require_constant(node.inputs[i], f"Range {w}")
+            for i, w in enumerate(("start", "limit", "delta"))]
+    dt = _torch_dtype(np.asarray(vals[0]).dtype)
+    start, limit, delta = (np.asarray(v).item() for v in vals)
+    return (torch.arange(start, limit, delta, dtype=dt, device=ctx.device),)
+
+
+@register("Tile")
+def tile(ctx: LoweringContext, node: Node, ins):
+    reps = ctx.require_constant(node.inputs[1], "Tile repeats")
+    return (ins[0].repeat(tuple(int(r) for r in reps)),)
+
+
+@register("EyeLike")
+def eye_like(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    k = int(node.attr("k", 0))
+    to = node.attr("dtype")
+    dt = (_torch_dtype(onnx_io.DTYPE_TO_NUMPY[int(to)]) if to is not None
+          else x.dtype)
+    n, m = x.shape
+    rows = torch.arange(n, device=x.device)[:, None]
+    cols = torch.arange(m, device=x.device)[None, :]
+    return ((cols - rows == k).to(dt),)
+
+
+@register("Trilu")
+def trilu(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    k = 0
+    if len(node.inputs) > 1 and node.inputs[1]:
+        k = int(ctx.require_constant(node.inputs[1], "Trilu k").reshape(()))
+    if int(node.attr("upper", 1)):
+        return (torch.triu(x, k),)
+    return (torch.tril(x, k),)
+
+
+@register("OneHot")
+def one_hot(ctx: LoweringContext, node: Node, ins):
+    """off + (on - off) * onehot in float32, cast to the values' dtype, as
+    the JAX emitter computes it. A negative index counts from the end of
+    the depth, as the spec says (the JAX emitter's jax.nn.one_hot gives an
+    all-off row for it); out of [-depth, depth) the row is all off."""
+    indices, _, values = ins
+    d = int(ctx.require_constant(node.inputs[1],
+                                 "OneHot depth").reshape(-1)[0])
+    rank = indices.dim() + 1
+    axis = int(node.attr("axis", -1)) % rank
+    idx = indices.to(torch.int64)
+    idx = torch.where(idx < 0, idx + d, idx).unsqueeze(axis)
+    shape = [1] * rank
+    shape[axis] = d
+    hot = (idx == torch.arange(d, device=idx.device).reshape(shape))
+    off, on = values[0], values[1]
+    return ((hot.to(torch.float32) * (on - off) + off).to(values.dtype),)
+
+
+@register("SpaceToDepth")
+def space_to_depth(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    bs = int(node.attr("blocksize"))
+    N, C, H, W = x.shape
+    y = x.reshape(N, C, H // bs, bs, W // bs, bs).permute(0, 3, 5, 1, 2, 4)
+    return (y.reshape(N, C * bs * bs, H // bs, W // bs),)
+
+
+@register("DepthToSpace")
+def depth_to_space(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    bs = int(node.attr("blocksize"))
+    N, C, H, W = x.shape
+    if _str(node.attr("mode", "DCR")) == "DCR":
+        y = x.reshape(N, bs, bs, C // (bs * bs), H, W)
+        y = y.permute(0, 3, 4, 1, 5, 2)
+    else:  # CRD
+        y = x.reshape(N, C // (bs * bs), bs, bs, H, W)
+        y = y.permute(0, 1, 4, 2, 5, 3)
+    return (y.reshape(N, C // (bs * bs), H * bs, W * bs),)
+
+
+# --------------------------------------------------------------------------
+# Index ops
+# --------------------------------------------------------------------------
+def _wrap(idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """A negative index counted from the end (no clamp)."""
+    idx = idx.to(torch.int64)
+    return torch.where(idx < 0, idx + dim, idx)
+
+
+@register("GatherElements")
+def gather_elements(ctx: LoweringContext, node: Node, ins):
+    x, idx = ins
+    axis = int(node.attr("axis", 0)) % x.dim()
+    return (torch.gather(x, axis, _wrap_indices(idx, x.shape[axis])),)
+
+
+def _flat_index(idx: torch.Tensor, dims: Sequence[int],
+                fix=_wrap_indices) -> torch.Tensor:
+    """Row-major flat index of the tuples in idx [..., k] into `dims` (k
+    long), each component put in range by `fix(component, dim)`: wrapped
+    and clamped, as the JAX emitters' gathers clip, by default."""
+    flat = torch.zeros(idx.shape[:-1], dtype=torch.int64, device=idx.device)
+    for j, d in enumerate(dims):
+        flat = flat * d + fix(idx[..., j], d)
+    return flat
+
+
+@register("GatherND")
+def gather_nd(ctx: LoweringContext, node: Node, ins):
+    data, indices = ins
+    b = int(node.attr("batch_dims", 0))
+    k = indices.shape[-1]
+    batch = tuple(data.shape[:b])
+    nb = math.prod(batch)
+    tail = tuple(data.shape[b + k:])
+    d = data.reshape((nb, math.prod(data.shape[b:b + k])) + tail)
+    flat = _flat_index(indices.reshape(nb, -1, k), data.shape[b:b + k])
+    out = d[torch.arange(nb, device=d.device)[:, None], flat]
+    return (out.reshape(tuple(indices.shape[:-1]) + tail),)
+
+
+_SCATTER_REDUCE = {"add": "sum", "mul": "prod", "max": "amax",
+                   "min": "amin"}
+
+
+@register("ScatterND")
+def scatter_nd(ctx: LoweringContext, node: Node, ins):
+    """data with updates put (or added, multiplied, maxed, minned) at the
+    index tuples. With reduction "none", duplicate indices leave which
+    update lands undefined, as the spec does."""
+    data, indices, updates = ins
+    red = _str(node.attr("reduction", "none"))
+    if red != "none" and red not in _SCATTER_REDUCE:
+        raise UnsupportedOpError(f"ScatterND reduction {red!r}")
+    k = indices.shape[-1]
+    tail = tuple(data.shape[k:])
+    out = data.reshape((math.prod(data.shape[:k]),) + tail).clone()
+    flat = _flat_index(indices, data.shape[:k], _wrap).reshape(-1)
+    upd = updates.reshape((-1,) + tail).to(data.dtype)
+    if red == "none":
+        out[flat] = upd
+    else:
+        idx = flat.reshape((-1,) + (1,) * len(tail)).expand(upd.shape)
+        out.scatter_reduce_(0, idx, upd, _SCATTER_REDUCE[red],
+                            include_self=True)
+    return (out.reshape(data.shape),)
+
+
+@register("ScatterElements")
+def scatter_elements(ctx: LoweringContext, node: Node, ins):
+    data, indices, updates = ins
+    axis = int(node.attr("axis", 0)) % data.dim()
+    red = _str(node.attr("reduction", "none"))
+    if red != "none" and red not in _SCATTER_REDUCE:
+        raise UnsupportedOpError(f"ScatterElements reduction {red!r}")
+    idx = _wrap(indices, data.shape[axis])
+    upd = updates.to(data.dtype)
+    if red == "none":
+        return (torch.scatter(data, axis, idx, upd),)
+    return (torch.scatter_reduce(data, axis, idx, upd, _SCATTER_REDUCE[red],
+                                 include_self=True),)
+
+
+@register("CumSum")
+def cumsum(ctx: LoweringContext, node: Node, ins):
+    """The exclusive form is the inclusive sum less x, as the JAX emitter
+    computes it."""
+    x = ins[0]
+    axis = int(ctx.require_constant(node.inputs[1],
+                                    "CumSum axis").reshape(())) % x.dim()
+    exclusive = int(node.attr("exclusive", 0))
+    reverse = int(node.attr("reverse", 0))
+    if reverse:
+        x = torch.flip(x, (axis,))
+    y = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    if exclusive:
+        y = y - x
+    if reverse:
+        y = torch.flip(y, (axis,))
+    return (y,)
+
+
+@register("ReverseSequence")
+def reverse_sequence(ctx: LoweringContext, node: Node, ins):
+    """Per-batch reversal of each sequence's valid prefix (the RNN
+    emitters' _flip_valid, on the attribute axes)."""
+    from .rnn import _flip_valid
+
+    x, seq_lens = ins
+    batch_axis = int(node.attr("batch_axis", 1))
+    time_axis = int(node.attr("time_axis", 0))
+    xm = torch.movedim(x, (time_axis, batch_axis), (0, 1))
+    return (torch.movedim(_flip_valid(xm, seq_lens), (0, 1),
+                          (time_axis, batch_axis)),)
+
+
+# --------------------------------------------------------------------------
+# Pad
+# --------------------------------------------------------------------------
+def _pad_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
+    """Source index of each position of an axis of length n padded by
+    (lo, hi) in mode edge, wrap or reflect (numpy's reflect, which a
+    pad wider than the axis repeats)."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    if mode == "wrap":
+        return torch.remainder(i, n)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j >= n, period - j, j)
+
+
+@register("Pad")
+def pad(ctx: LoweringContext, node: Node, ins):
+    """constant, reflect, edge and wrap; negative pads crop first (past
+    the axis's length, to an empty axis). From opset 18 an `axes` input
+    names the axes the pads are for; the JAX emitter reads pads as if
+    they covered every axis and ignores `axes`."""
+    x = ins[0]
+    mode = _str(node.attr("mode", "constant"))
+    if mode not in ("constant", "reflect", "edge", "wrap"):
+        raise UnsupportedOpError(f"Pad mode {mode!r}")
+    cval = None
+    if ctx.opset >= 11 or len(node.inputs) > 1:
+        pads = [int(p) for p in
+                ctx.require_constant(node.inputs[1], "Pad pads").tolist()]
+        if len(ins) > 2 and ins[2] is not None:
+            c = ctx.constant(node.inputs[2])
+            cval = float(np.asarray(c).reshape(-1)[0]) if c is not None \
+                else ins[2]
+    else:
+        pads = [int(p) for p in node.attr("pads")]
+        cval = float(node.attr("value", 0.0))
+    n = x.dim()
+    if len(ins) > 3 and ins[3] is not None:
+        axes = [int(a) % n for a in
+                ctx.require_constant(node.inputs[3], "Pad axes").tolist()]
+    else:
+        axes = list(range(n))
+    width = [(0, 0)] * n
+    for j, ax in enumerate(axes):
+        width[ax] = (pads[j], pads[j + len(axes)])
+    if any(lo < 0 or hi < 0 for lo, hi in width):
+        sl = []
+        for i, (lo, hi) in enumerate(width):
+            start = min(max(0, -lo), x.shape[i])
+            sl.append(slice(start, max(start, x.shape[i] - max(0, -hi))))
+        x = x[tuple(sl)]
+        width = [(max(0, lo), max(0, hi)) for lo, hi in width]
+    if mode == "constant":
+        if cval is None or isinstance(cval, float):
+            return (_pad(x, width, 0.0 if cval is None else cval),)
+        # a fill known only at run time: pad with zeros, then put the
+        # fill where the mask of the input's own positions is off
+        inside = _pad(torch.ones_like(x, dtype=torch.bool), width, False)
+        return (torch.where(inside, _pad(x, width, 0.0),
+                            cval.reshape(()).to(x.dtype)),)
+    for ax, (lo, hi) in enumerate(width):
+        if lo or hi:
+            x = torch.index_select(
+                x, ax, _pad_index(x.shape[ax], lo, hi, mode, x.device))
+    return (x,)
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+@register("InstanceNormalization")
+def instance_norm(ctx: LoweringContext, node: Node, ins):
+    x, scale, bias = ins
+    eps = float(node.attr("epsilon", 1e-5))
+    dims = tuple(range(2, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = torch.square(x - mean).mean(dim=dims, keepdim=True)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return ((x - mean) * torch.rsqrt(var + eps) * scale.reshape(shape)
+            + bias.reshape(shape),)
+
+
+@register("LRN")
+def lrn(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    size = int(node.attr("size"))
+    alpha = float(node.attr("alpha", 1e-4))
+    beta = float(node.attr("beta", 0.75))
+    bias = float(node.attr("bias", 1.0))
+    lo = (size - 1) // 2
+    sq = _pad(torch.square(x).movedim(1, -1), [(lo, size - 1 - lo)], 0.0)
+    sums = sq.unfold(-1, size, 1).sum(-1).movedim(-1, 1)
+    return (x / torch.pow(bias + (alpha / size) * sums, beta),)
+
+
+@register("MeanVarianceNormalization")
+def mean_variance_normalization(ctx: LoweringContext, node: Node, ins):
+    x = ins[0]
+    dims = tuple(int(a) for a in node.attr("axes", [0, 2, 3]))
+    mean = x.mean(dim=dims, keepdim=True)
+    std = torch.sqrt(((x - mean) ** 2).mean(dim=dims, keepdim=True))
+    return ((x - mean) / (std + 1e-9),)
+
+
+@register("GroupNormalization")
+def group_normalization(ctx: LoweringContext, node: Node, ins):
+    """Statistics per (sample, group); scale and bias per channel (opset
+    21), or per group where they hold num_groups values (opset 18)."""
+    x, scale, bias = ins[0], ins[1], ins[2]
+    eps = float(node.attr("epsilon", 1e-5))
+    g = int(node.attr("num_groups"))
+    N, C = x.shape[0], x.shape[1]
+    xg = x.reshape((N, g, C // g) + tuple(x.shape[2:]))
+    dims = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=dims, keepdim=True)
+    var = torch.square(xg - mean).mean(dim=dims, keepdim=True)
+    xn = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    if scale.numel() == g:
+        scale = repeat_each(scale, C // g, 0)
+        bias = repeat_each(bias, C // g, 0)
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    return (xn * scale.reshape(shape) + bias.reshape(shape),)
+
+
+# --------------------------------------------------------------------------
+# Resize / Upsample
+# --------------------------------------------------------------------------
+def _resize_src(i, di: int, do: int, scale: float, coord: str):
+    """Output index -> source coordinate per coordinate_transformation_mode
+    (the spec's formulas, in terms of the scale; numpy or torch vectors)."""
+    if coord == "align_corners":
+        return i * ((di - 1) / max(do - 1, 1))
+    if coord == "asymmetric":
+        return i / scale
+    if coord == "pytorch_half_pixel":
+        return (i + 0.5) / scale - 0.5 if do > 1 else i * 0.0
+    if coord == "half_pixel":
+        return (i + 0.5) / scale - 0.5
+    if coord == "half_pixel_symmetric":
+        adjustment = do / (scale * di)
+        offset = di / 2 * (1 - adjustment)
+        return offset + (i + 0.5) / scale - 0.5
+    raise UnsupportedOpError(
+        f"Resize: coordinate_transformation_mode {coord!r} not supported")
+
+
+_NEAREST = {"floor": np.floor, "ceil": np.ceil,
+            "round_prefer_ceil": lambda s: np.floor(s + 0.5),
+            "round_prefer_floor": lambda s: np.ceil(s - 0.5)}
+
+
+def _cubic_weights(t: torch.Tensor, a: float) -> torch.Tensor:
+    """Keys' cubic convolution weights of the taps at offsets -1, 0, 1, 2
+    from floor(src), t = src - floor(src): [..., 4]."""
+    d = torch.stack([t + 1, t, 1 - t, 2 - t], dim=-1)
+    near = ((a + 2) * d - (a + 3)) * d * d + 1
+    far = ((a * d - 5 * a) * d + 8 * a) * d - 4 * a
+    return torch.where(d <= 1, near, far)
+
+
+def _resize_cubic_axis(x, ax: int, do: int, scale: float, coord: str,
+                       a: float, exclude_outside: bool):
+    """The spec's cubic along `ax`: four taps about each source coordinate,
+    indices past the edge clamped to it, or with exclude_outside their
+    weights dropped and the rest renormalized."""
+    di = x.shape[ax]
+    src = _resize_src(torch.arange(do, dtype=torch.float64,
+                                   device=x.device), di, do, scale, coord)
+    base = torch.floor(src)
+    w = _cubic_weights(src - base, a)                         # [do, 4]
+    taps = base.to(torch.int64)[:, None] + torch.arange(
+        -1, 3, device=x.device)[None]                         # [do, 4]
+    if exclude_outside:
+        w = torch.where((taps >= 0) & (taps < di), w, 0.0)
+        w = w / w.sum(-1, keepdim=True)
+    taps = taps.clamp(0, di - 1)
+    xm = torch.movedim(x, ax, -1)
+    g = xm[..., taps.reshape(-1)].reshape(xm.shape[:-1] + (do, 4))
+    return torch.movedim((g * w.to(x.dtype)).sum(-1), -1, ax)
+
+
+@register("Resize", "Upsample")
+def resize(ctx: LoweringContext, node: Node, ins):
+    """Resize (opset 10+) / Upsample (opset 7-9), as the JAX emitter:
+    output sizes from static scales or sizes; the coordinate transforms
+    from the spec, in terms of the scale; nearest as a gather of the
+    source indices the nearest_mode rounding gives (computed on the host
+    in float64, as the JAX emitter does); linear as a per-axis gather and
+    lerp in float32. The opset-10 Resize takes its scales from input 1,
+    as the spec says. Cubic follows the spec (cubic_coeff_a, default
+    -0.75, and exclude_outside) under any coordinate transform; the JAX
+    emitter runs jax.image.resize, Keys' a = -0.5 with its out-of-range
+    taps dropped, and half_pixel alone."""
+    x = ins[0]
+    mode = _str(node.attr("mode", "nearest"))
+    coord = _str(node.attr("coordinate_transformation_mode", "half_pixel"))
+    out_shape = None
+    if node.op_type == "Upsample" or ctx.opset < 11:
+        # Upsample, and the opset-10 Resize, whose scales are input 1 (the
+        # JAX emitter looks for them at input 2, where opset 11 put them)
+        scales = (node.attr("scales")
+                  or ctx.require_constant(node.inputs[1], "Resize scales"))
+        scales = np.asarray(scales, dtype=np.float64).reshape(-1)
+    else:
+        scales = None
+        if len(node.inputs) > 2 and node.inputs[2]:
+            sc = ctx.constant(node.inputs[2])
+            if sc is not None and sc.size:
+                scales = np.asarray(sc, np.float64).reshape(-1)
+        if scales is None and len(node.inputs) > 3 and node.inputs[3]:
+            sizes = ctx.require_constant(node.inputs[3], "Resize sizes")
+            out_shape = tuple(int(v) for v in sizes.reshape(-1))
+    if out_shape is None:
+        if scales is None:
+            raise UnsupportedOpError("Resize needs static scales or sizes")
+        out_shape = tuple(int(np.floor(d * sc))
+                          for d, sc in zip(x.shape, scales))
+    axis_scales = (tuple(float(v) for v in scales) if scales is not None
+                   else tuple(do / di for do, di in zip(out_shape, x.shape)))
+    legacy = node.op_type == "Upsample" or ctx.opset < 11
+    if legacy:
+        coord = "asymmetric"
+    if mode == "nearest":
+        nm = "floor" if legacy else _str(
+            node.attr("nearest_mode", "round_prefer_floor"))
+        if nm not in _NEAREST:
+            raise UnsupportedOpError(f"Resize nearest_mode {nm!r}")
+        out = x
+        for ax, (do, di) in enumerate(zip(out_shape, x.shape)):
+            if do == di:
+                continue
+
+            def table(ax=ax, do=do, di=di):
+                src = _resize_src(np.arange(do, dtype=np.float64), di, do,
+                                  axis_scales[ax], coord)
+                return np.clip(_NEAREST[nm](src), 0, di - 1).astype(np.int64)
+
+            idx = ctx.device_constant(
+                f"{node.outputs[0]}:nearest{ax}:{tuple(x.shape)}", table)
+            out = torch.index_select(out, ax, idx)
+        return (out,)
+    if mode == "linear":
+        out = x.to(torch.float32)
+        for ax, (do, di) in enumerate(zip(out_shape, x.shape)):
+            if do == di:
+                continue
+            src = _resize_src(torch.arange(do, dtype=torch.float32,
+                                           device=x.device), di, do,
+                              axis_scales[ax], coord)
+            src = torch.clamp(src, 0.0, di - 1)
+            lo = torch.floor(src).to(torch.int64)
+            hi = torch.clamp_max(lo + 1, di - 1)
+            shape = [1] * out.dim()
+            shape[ax] = do
+            w = (src - lo).reshape(shape)
+            out = (torch.index_select(out, ax, lo) * (1 - w)
+                   + torch.index_select(out, ax, hi) * w)
+        return (out.to(x.dtype),)
+    if mode == "cubic":
+        a = float(node.attr("cubic_coeff_a", -0.75))
+        excl = bool(int(node.attr("exclude_outside", 0)))
+        out = x.to(torch.float32)
+        for ax, (do, di) in enumerate(zip(out_shape, x.shape)):
+            if do != di:
+                out = _resize_cubic_axis(out, ax, do, axis_scales[ax],
+                                         coord, a, excl)
+        return (out.to(x.dtype),)
+    raise UnsupportedOpError(f"Resize mode {mode!r}")
+
+
+# --------------------------------------------------------------------------
+# GridSample, Einsum
+# --------------------------------------------------------------------------
+@register("GridSample")
+def grid_sample(ctx: LoweringContext, node: Node, ins):
+    """2-D GridSample as the JAX emitter gathers it: bilinear or nearest
+    (round half to even), zeros or border padding, align_corners. x
+    [N, C, H, W], grid [N, Ho, Wo, 2] in [-1, 1] -> [N, C, Ho, Wo]."""
+    x, grid = ins
+    mode = _str(node.attr("mode", "linear"))
+    pad = _str(node.attr("padding_mode", "zeros"))
+    align = int(node.attr("align_corners", 0))
+    if x.dim() != 4:
+        raise UnsupportedOpError("GridSample: only 2-D (NCHW) supported")
+    if mode in ("cubic", "bicubic") or pad == "reflection":
+        raise UnsupportedOpError(
+            f"GridSample: mode={mode}/padding={pad} not supported")
+    N, C, H, W = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+
+    def unnorm(g, size):
+        if align:
+            return (g + 1) * (size - 1) / 2
+        return ((g + 1) * size - 1) / 2
+
+    ix, iy = unnorm(gx, W), unnorm(gy, H)
+    n_idx = torch.arange(N, device=x.device).reshape(N, 1, 1)
+
+    def fetch(yi, xi):
+        inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        v = x[n_idx, :, yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+        v = torch.movedim(v, -1, 1)                    # [N, C, Ho, Wo]
+        if pad == "zeros":
+            v = torch.where(inb[:, None], v, torch.zeros((), dtype=v.dtype,
+                                                         device=v.device))
+        return v
+
+    if mode == "nearest":
+        return (fetch(torch.round(iy).to(torch.int64),
+                      torch.round(ix).to(torch.int64)),)
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    wx, wy = (ix - x0)[:, None], (iy - y0)[:, None]
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    top = fetch(y0i, x0i) * (1 - wx) + fetch(y0i, x0i + 1) * wx
+    bot = fetch(y0i + 1, x0i) * (1 - wx) + fetch(y0i + 1, x0i + 1) * wx
+    return ((top * (1 - wy) + bot * wy).to(x.dtype),)
+
+
+@register("Einsum")
+def einsum(ctx: LoweringContext, node: Node, ins):
+    with matmul_fp32_exact():
+        return (torch.einsum(_str(node.attr("equation")), *ins),)

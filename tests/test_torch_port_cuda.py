@@ -2053,3 +2053,48 @@ def test_control_flow_graph_on_card_equals_cpu(cuda, control_flow, name):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     assert len(eng._graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# the op library (tests/torch_port_oplib.py) and its model families
+# ---------------------------------------------------------------------------
+import torch_port_oplib as oplib  # noqa: E402
+
+
+@pytest.mark.parametrize("c", oplib.ALL_CASES,
+                         ids=[c.id for c in oplib.ALL_CASES])
+def test_op_library_case_on_card_equals_cpu(cuda, c):
+    """Every op-library case through an Engine on the card, eager and
+    replayed, against the port's CPU run: exact for integer, boolean and
+    index outputs (TopK's stable ties, the random ops' fixed draws), else
+    the CPU tests' tolerance; one captured graph."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            oplib.card_vs_cpu(c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_unet_tiny_int8_on_card(cuda):
+    """UNet TINY's INT8 graph on the card: every QLinearConv on the hand
+    kernel (2 * depth + 2 + depth launches a forward, replays included),
+    argmax agreement with the CPU's INT8 run >= 0.99."""
+    from chip_smoke import read_counts, reset_counts
+    from onnx_rusty_inference_engine_tpu_torch.models.unet import (
+        TINY, build_unet)
+
+    g = import_model(build_unet(TINY, batch=2, size=32))
+    x = np.random.default_rng(1).standard_normal((2, 3, 32, 32)).astype(
+        np.float32)
+    q = quantize_graph(g, ranges=calibrate(g, [{"image": x}], device=cuda))
+    want = Engine(q, device="cpu").run({"image": x})["mask_logits"]
+    eng = Engine(q, device=cuda)
+    reset_counts()
+    for _ in range(3):
+        got = eng.run({"image": x})["mask_logits"]
+        assert (got.argmax(1) == want.argmax(1)).mean() >= 0.99
+    n = 3 * TINY.depth + 2
+    assert {k: v for k, v in read_counts().items() if v} == {
+        "qconv_int8_requant": 3 * n}
