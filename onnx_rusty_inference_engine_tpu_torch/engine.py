@@ -33,9 +33,10 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from .graph import _FOLDABLE, Graph, _node_from_proto
-from .ops.registry import (LoweringContext, UnsupportedOpError, get_emitter,
-                           node_label, prepare_subgraphs, subgraphs_of)
+from .graph import Graph, _node_from_proto
+from .ops.registry import (STATIC_OPS, LoweringContext, UnsupportedOpError,
+                           get_emitter, node_label, prepare_subgraphs,
+                           subgraphs_of)
 from .runtime import (Replay, capture, captures, collector_held,
                       resolve_device, side_stream, signature)
 from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
@@ -43,10 +44,6 @@ from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
 __all__ = ["lower", "lower_packed", "node_label", "Engine",
            "InferenceResult", "resolve_device", "captures", "capture",
            "collector_held", "Replay", "signature", "side_stream"]
-
-# ops that need no emitter when their inputs are known before the run
-# (Shape/Size always are; the foldable ops when fed static values)
-_STATIC_OPS = {"Shape", "Size"} | _FOLDABLE
 
 
 def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
@@ -232,7 +229,7 @@ class Engine:
         for node in graph.nodes + [
                 _node_from_proto(n) for g in subgraphs_of(graph.nodes)
                 for n in g.nodes]:
-            if node.op_type not in _STATIC_OPS:
+            if node.op_type not in STATIC_OPS:
                 get_emitter(node.op_type, node.domain)
         self.graph = graph
         donor = share_params_with

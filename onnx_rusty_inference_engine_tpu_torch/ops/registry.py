@@ -21,6 +21,13 @@ from ..graph import (_FOLDABLE, Graph, _fold_one, _node_from_proto,
 _REGISTRY: Dict[tuple, Callable] = {}
 
 
+# ops that need no emitter when their inputs are known before the run:
+# run_nodes makes Shape/Size of a tensor, and the foldable ops over static
+# values, static values (Shape, Size, Constant, ConstantOfShape and Range
+# run only so, and have no emitter)
+STATIC_OPS = frozenset({"Shape", "Size"} | _FOLDABLE)
+
+
 class UnsupportedOpError(NotImplementedError):
     """Clean error for ops (or op variants) the port cannot run."""
 
@@ -69,7 +76,7 @@ def get_emitter(op_type: str, domain: str = "") -> Callable:
 
 def supported_ops():
     _load_emitters()
-    return sorted({op for _, op in _REGISTRY})
+    return sorted({op for _, op in _REGISTRY} | STATIC_OPS)
 
 
 class LoweringContext:

@@ -3,7 +3,9 @@
 The port's counterpart of onnx_rusty_inference_engine_tpu/ops/standard.py,
 with every op type it registers: the convolutions and pools, the
 elementwise, activation and reduction families, the shape and index ops,
-Pad, the norms, Resize, GridSample and Einsum. Each keeps the JAX
+Pad, the norms, Resize, GridSample and Einsum. Shape, Size, Constant,
+ConstantOfShape and Range have no emitter: `LoweringContext.run_nodes`
+makes them static values (registry.STATIC_OPS). Each keeps the JAX
 emitter's semantics (where that emitter departs from the ONNX spec, the
 port follows the spec and says so in the emitter): NCHW layout,
 ONNX pads as (lo, hi) pairs applied explicitly (so asymmetric pads and
@@ -31,8 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import onnx_io
-from ..graph import (Node, _broadcast_expand, _resolve_reshape,
-                     _shape_slice)
+from ..graph import Node, _broadcast_expand, _resolve_reshape
 from ..utils.fp32 import cudnn_fp32_exact as _fp32_exact
 from ..utils.fp32 import matmul_fp32_exact  # noqa: F401  (re-exported)
 from .registry import LoweringContext, UnsupportedOpError, register
@@ -943,7 +944,8 @@ def topk(ctx: LoweringContext, node: Node, ins):
 
 
 # --------------------------------------------------------------------------
-# Shape ops (emitters for what static propagation does not reach)
+# Shape ops (Squeeze also where static propagation does not reach; Shape,
+# Size, Constant, ConstantOfShape and Range run only as static values)
 # --------------------------------------------------------------------------
 @register("Squeeze")
 def squeeze(ctx: LoweringContext, node: Node, ins):
@@ -955,50 +957,6 @@ def squeeze(ctx: LoweringContext, node: Node, ins):
         return (x.reshape([d for d in x.shape if d != 1]),)
     drop = {int(a) % x.dim() for a in axes}
     return (x.reshape([d for i, d in enumerate(x.shape) if i not in drop]),)
-
-
-@register("Shape")
-def shape_op(ctx: LoweringContext, node: Node, ins):
-    dims = tuple(ins[0].shape)[_shape_slice(node, ins[0].dim())]
-    return (ctx.device_constant(f"{node.outputs[0]}:{dims}",
-                                lambda: np.asarray(dims, np.int64)),)
-
-
-@register("Size")
-def size_op(ctx: LoweringContext, node: Node, ins):
-    n = ins[0].numel()
-    return (ctx.device_constant(f"{node.outputs[0]}:{n}",
-                                lambda: np.asarray(n, np.int64)),)
-
-
-@register("Constant")
-def constant_node(ctx: LoweringContext, node: Node, ins):
-    for key in ("value", "value_float", "value_int", "value_floats",
-                "value_ints"):
-        if key in node.attrs:
-            val = np.asarray(node.attrs[key])
-            return (ctx.device_constant(node.outputs[0], lambda: val),)
-    raise UnsupportedOpError(
-        "Constant node without a supported value attribute")
-
-
-@register("ConstantOfShape")
-def constant_of_shape(ctx: LoweringContext, node: Node, ins):
-    shape = ctx.require_constant(node.inputs[0], "ConstantOfShape shape")
-    val = node.attr("value")
-    fill = (np.asarray(val).reshape(-1)[0] if val is not None
-            else np.float32(0))
-    return (torch.full(tuple(int(d) for d in shape), fill.item(),
-                       dtype=_torch_dtype(fill.dtype), device=ctx.device),)
-
-
-@register("Range")
-def range_op(ctx: LoweringContext, node: Node, ins):
-    vals = [ctx.require_constant(node.inputs[i], f"Range {w}")
-            for i, w in enumerate(("start", "limit", "delta"))]
-    dt = _torch_dtype(np.asarray(vals[0]).dtype)
-    start, limit, delta = (np.asarray(v).item() for v in vals)
-    return (torch.arange(start, limit, delta, dtype=dt, device=ctx.device),)
 
 
 @register("Tile")

@@ -2080,8 +2080,9 @@ def test_op_library_case_on_card_equals_cpu(cuda, c):
 def test_unet_tiny_int8_on_card(cuda):
     """UNet TINY's INT8 graph on the card: every QLinearConv on the hand
     kernel (2 * depth + 2 + depth launches a forward, replays included),
-    argmax agreement with the CPU's INT8 run >= 0.99."""
-    from chip_smoke import read_counts, reset_counts
+    the dequantized logits at most 1 step of the output's scale from the
+    CPU's INT8 run, eager and replayed."""
+    from chip_smoke import output_steps, read_counts, reset_counts
     from onnx_rusty_inference_engine_tpu_torch.models.unet import (
         TINY, build_unet)
 
@@ -2094,7 +2095,7 @@ def test_unet_tiny_int8_on_card(cuda):
     reset_counts()
     for _ in range(3):
         got = eng.run({"image": x})["mask_logits"]
-        assert (got.argmax(1) == want.argmax(1)).mean() >= 0.99
+        assert output_steps(q, "mask_logits", got, want) <= 1
     n = 3 * TINY.depth + 2
     assert {k: v for k, v in read_counts().items() if v} == {
         "qconv_int8_requant": 3 * n}

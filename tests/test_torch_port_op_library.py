@@ -32,12 +32,9 @@ from onnx_rusty_inference_engine_tpu import onnx_io as j_io
 from onnx_rusty_inference_engine_tpu.engine import Engine as JEngine
 from onnx_rusty_inference_engine_tpu.graph import import_model as j_import
 from onnx_rusty_inference_engine_tpu_torch.engine import Engine
-from onnx_rusty_inference_engine_tpu_torch.graph import Node
 from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
-    LoweringContext, UnsupportedOpError, get_emitter, supported_ops)
+    UnsupportedOpError, get_emitter, supported_ops)
 from torch_port_util import run_op_port, to_port
-
-import torch
 
 
 def run_jax(c):
@@ -143,39 +140,52 @@ def test_topk_ties_lower_index_first():
     np.testing.assert_array_equal(i, [[3, 0, 5]])
 
 
-def test_static_op_emitters_run_directly():
-    """Shape, Size, Constant, ConstantOfShape and Range are folded at
-    import or known from the shapes in a run, so their emitters are the
-    fallback; run them directly against the JAX emitters'."""
-    from onnx_rusty_inference_engine_tpu.graph import Node as JNode
-    from onnx_rusty_inference_engine_tpu.ops.registry import (
-        LoweringContext as JCtx, get_emitter as j_get)
-    import jax.numpy as jnp
+STATIC_ONLY = ("Shape", "Size", "Constant", "ConstantOfShape", "Range")
 
-    g = to_port(lib.model(lib.CASES[0], j_io))
-    jg = j_import(lib.model(lib.CASES[0], j_io))
-    ctx, jctx = LoweringContext(g, {}), JCtx(jg, {})
-    for c in (ctx, jctx):
-        c.static_env.update({"shp": np.array([2, 3], np.int64),
-                             "r0": np.float32(1.0), "r1": np.float32(10.0),
-                             "r2": np.float32(3.0)})
-    x = np.arange(12, dtype=np.float32).reshape(3, 4)
-    val = np.float32(2.5) * np.ones((2, 2), np.float32)
-    for op, ins, attrs, feed in (
-            ("Shape", ["x"], {}, [x]), ("Size", ["x"], {}, [x]),
-            ("Shape", ["x"], {"start": 1}, [x]),
-            ("Constant", [], {"value": val}, []),
-            ("ConstantOfShape", ["shp"],
-             {"value": np.array([7.0], np.float32)}, [None]),
-            ("Range", ["r0", "r1", "r2"], {}, [None, None, None])):
-        (got,) = get_emitter(op)(ctx, Node(op, ins, ["y"], attrs=attrs),
-                                 [None if f is None else torch.as_tensor(f)
-                                  for f in feed])
-        (want,) = j_get(op)(jctx, JNode(op, ins, ["y"], attrs=attrs),
-                            [None if f is None else jnp.asarray(f)
-                             for f in feed])
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
-                                      err_msg=op)
+
+@pytest.mark.parametrize("shape", [(2, 3), (4, 1, 5)])
+def test_static_ops_fold_at_run_time(shape):
+    """Shape, Size, Constant, ConstantOfShape and Range have no emitter:
+    the import folds them, and in a run `run_nodes` makes them static
+    values from the input's shape. A graph whose ConstantOfShape and Range
+    read Shape and Size of a graph input (nothing the import can fold)
+    gives the JAX Engine's outputs, exactly, on two input shapes."""
+    for op in STATIC_ONLY:
+        assert op in supported_ops()
+        with pytest.raises(UnsupportedOpError):
+            get_emitter(op)
+    io = j_io
+    n = io.NodeProto
+    nodes = [
+        n(op_type="Shape", input=["x"], output=["s"]),
+        n(op_type="ConstantOfShape", input=["s"], output=["c"],
+          attributes={"value": lib._attr(io, "value",
+                                         np.array([2.5], np.float32))}),
+        n(op_type="Add", input=["x", "c"], output=["y"]),
+        n(op_type="Size", input=["x"], output=["k"]),
+        n(op_type="Constant", input=[], output=["one"],
+          attributes={"value": lib._attr(io, "value",
+                                         np.array(1, np.int64))}),
+        n(op_type="Constant", input=[], output=["two"],
+          attributes={"value": lib._attr(io, "value",
+                                         np.array(2, np.int64))}),
+        n(op_type="Range", input=["one", "k", "two"], output=["r"]),
+    ]
+    g = io.GraphProto(name="t")
+    g.nodes = nodes
+    g.inputs.append(io.ValueInfo(name="x", elem_type=io.NUMPY_TO_DTYPE[
+        np.dtype(np.float32)], shape=[-1] * len(shape)))
+    for name in ("y", "s", "k", "r"):
+        g.outputs.append(io.ValueInfo(name=name))
+    m = io.ModelProto(graph=g, opset_version=13)
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    jm = j_io.parse_model(j_io.serialize_model(m))
+    want = JEngine(j_import(jm)).run({"x": x}).outputs
+    got = Engine(to_port(m), device="cpu").run({"x": x}).outputs
+    for name in ("y", "s", "k", "r"):
+        np.testing.assert_array_equal(got[name], np.asarray(want[name]),
+                                      err_msg=name)
+    np.testing.assert_array_equal(got["r"], np.arange(1, x.size, 2))
 
 
 # ---------------------------------------------------------------------------
