@@ -359,7 +359,40 @@ Phases, each printing JSON lines:
              call and read after its forwards: 11 qconv_int8_requant launches a
              forward, no other kernel; INT8 UNet's per-pixel argmax agreement
              with fp32 > 0.95 (the JAX test's bound); images/s and clips/s from
-             replays; device ms by op type.
+             replays; device ms by op type; a kernel line per distinct
+             QLinearConv shape of the INT8 UNet (bound, plain) and
+             torch._int_mm's time on its 1x1 head conv (row 1's
+             `unet_path`). The op library's cases include the bounded,
+             loss, RoI and ai.onnx.ml ops (numeric labels).
+19e. detection_ml - after 19d: each forward one captured graph, replayed,
+             with its replayed ms and peak device memory
+             (max_memory_allocated), weights from seed 0, inputs from
+             default_rng(0): the SSD family (DetectionConfig(320, 80
+             classes, 2 anchors, 64 channels, 100 boxes a class, IoU 0.5,
+             score 0.05), b8: 12,800 boxes, 64,000 rows) with in-graph
+             NMS, its first image against the port's CPU run at b1 (boxes
+             and scores within 1e-5 x max|ref|), the NMS node bit for bit
+             (the card's boxes and scores of the first 2 images through
+             the CPU NMS give the card's rows), the rows of image 0 that
+             differ end to end counted, the NMS alone replayed; XGBoost's
+             binary trees (500 of depth 8, 28 features, one-sided
+             logistic, the blocked layout) behind Imputer and Scaler with
+             ZipMap after, b4096: the first 256 rows' labels equal and
+             probabilities within 1e-5 of the CPU, ZipMap's maps equal to
+             the probabilities; an RBF SVC (10 classes, 784 features,
+             4,000 support vectors, Platt pairwise coupling), b1024: the
+             first 128 rows as the trees; a text pipeline (StringNormalizer
+             -> StringSplit -> TfIdfVectorizer, 1- and 2-grams, pool
+             20,000 -> LinearClassifier, 20 classes) on 256 documents of
+             200 tokens from a 5,000-word vocabulary: the host prolog's ms
+             and the device's apart, the whole batch against the CPU; RoI
+             heads (RoiAlign on [2, 256, 200, 272], 1,000 rois, 7x7, ratio
+             2, scale 0.25; MaxRoiPool on [1, 512, 38, 50], 300 rois, 1/16;
+             DeformConv v2 on [8, 256, 50, 68], 3x3, 256 out, with mask):
+             the first 64 rois or the first image against the CPU at
+             test_roi_ops.py's bounds; SoftmaxCrossEntropyLoss over [8,
+             50257, 128] with ignore_index -100 on 10% of targets, mean,
+             against the CPU (rtol 2e-5). The phase's peak under 25 GB.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
@@ -5530,6 +5563,7 @@ def phase_op_library(smi: str) -> dict:
     require(agree > 0.95, f"unet int8 vs fp32 argmax agreement {agree}")
     ms32, _ = _ms_by_op(eng, dev, 2)
     ms8, k8 = _ms_by_op(eng8, dev, 2)
+    unet_convs = _unet_conv_row(qgraph, eng8, x, forwards)
     emit({"phase": "op_library", "model": "unet", "config": vars(cfg),
           "size": UNET_SIZE, "batch": UNET_BATCH,
           "fp32_images_per_s": UNET_BATCH / fp32_ms * 1e3,
@@ -5607,7 +5641,576 @@ def phase_op_library(smi: str) -> dict:
     emit({"phase": "op_library", "seconds": time.perf_counter() - t_phase,
           "cases_s": cases_s})
     return {"launches": counts["qconv_int8_requant"],
-            "per_forward": UNET_QCONVS, "forwards": forwards}
+            "per_forward": UNET_QCONVS, "forwards": forwards, **unet_convs}
+
+
+def _unet_conv_row(qgraph, eng8, x: np.ndarray, forwards: int) -> dict:
+    """The INT8 UNet's 11 QLinearConvs at their own shapes (b32, 256x256):
+    a kernel line per distinct shape, on the card's own inputs, equal to
+    the plain version, with the kernel, plain and bound times
+    (`_vision_conv_lines`); and the library call of the one 1x1 conv, the
+    2-class head (models/unet.py:75): torch._int_mm on its input as
+    [B * H * W, C] with its 2 output channels padded to 8, the least
+    _int_mm takes. The 3x3 convs have no library call: torch._int_mm
+    serves 1x1 only. Returns the sums over one forward."""
+    from onnx_rusty_inference_engine_tpu_torch.debug import intermediates
+
+    card = intermediates(qgraph, {"image": x}, device="cuda",
+                         params=eng8.params, packed=eng8.packed)
+    tot = _vision_conv_lines("unet", qgraph, eng8, card, forwards,
+                             grouped=False)
+    head = [n for n in qgraph.nodes if n.op_type == "QLinearConv"
+            and tuple(eng8.params[n.inputs[3]].shape[2:]) == (1, 1)]
+    require(len(head) == 1, f"unet: one 1x1 QLinearConv, {len(head)}")
+    a = card[head[0].inputs[0]]
+    w = eng8.params[head[0].inputs[3]]
+    a2 = a.permute(0, 2, 3, 1).reshape(-1, a.shape[1])
+    b = torch.zeros(8, w.shape[1], dtype=torch.int8, device="cuda")
+    b[:w.shape[0]] = w.reshape(w.shape[0], w.shape[1])
+    library_ms = graph_ms(lambda: torch._int_mm(a2, b.t()), ITERS)
+    del card
+    torch.cuda.empty_cache()
+    return {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+            "distinct_shapes": tot["distinct_shapes"],
+            "library_ms": library_ms,
+            "library": "torch._int_mm on the 1x1 head conv only ([B*H*W, "
+                       f"{w.shape[1]}] x [{w.shape[1]}, 8], outputs padded "
+                       "from 2); none for the 3x3 convs"}
+
+
+# the detection_ml phase: bounded outputs, losses, RoI ops, ai.onnx.ml and
+# the host stages at full width (seed 0 weights, default_rng(0) inputs)
+ML = "ai.onnx.ml"
+DET_BATCH = 8
+DET_CPU_NMS = 2      # images whose card boxes and scores go through CPU NMS
+TREES, TREE_DEPTH, TREE_FEATS = 500, 8, 28
+TREE_BATCH, TREE_CPU = 4096, 256
+SVM_CLASSES, SVM_FEATS, SVM_SV = 10, 784, 4000
+SVM_BATCH, SVM_CPU = 1024, 128
+TEXT_DOCS, TEXT_LEN, TEXT_VOCAB, TEXT_POOL, TEXT_CLASSES = 256, 200, 5000, \
+    20000, 20
+ROI_CPU = 64         # rois held against the CPU
+LOSS_SHAPE = (8, 50257, 128)   # GPT-2's vocabulary over 128 positions
+DML_ITERS = 5        # replays timed per path
+DML_REL_TOL = 1e-5   # x max|ref|: detection boxes and scores
+
+
+def _detection_config():
+    from onnx_rusty_inference_engine_tpu_torch.models.detection import (
+        DetectionConfig)
+
+    return DetectionConfig(image_size=320, n_classes=80, anchors_per_cell=2,
+                           backbone_ch=64, max_out=100, iou_threshold=0.5,
+                           score_threshold=0.05)
+
+
+def _one_node(op: str, feeds: dict, inits: dict = None, n_out: int = 1,
+              domain: str = "", opset: int = 13, **attrs):
+    """A one-node graph over `feeds` (inputs, in order) and `inits`
+    (initializers, after them), as the port imports it."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models._builder import (
+        GraphBuilder)
+
+    b = GraphBuilder(op.lower(), opset=opset)
+    names = [b.input(k, list(v.shape), v.dtype) for k, v in feeds.items()]
+    names += [b.init(k, v) for k, v in (inits or {}).items()]
+    outs = b.node(op, names, [f"out{i}" for i in range(n_out)],
+                  domain=domain, **attrs)
+    for o in outs:
+        b.output(o)
+    return P.import_model(b.model())
+
+
+def _captured(graph, feed: dict) -> tuple:
+    """An Engine on the card over `feed` (device tensors, or host values
+    for a graph with a host prolog): its first call (eager, then captured)
+    and its second (replayed), the replayed ms, and the peak device memory
+    from the Engine's making to its replays."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = P.Engine(graph)
+    eager = eng(feed)
+    replayed = eng(feed)
+    ms = _graph_replay_ms(eng, DML_ITERS)
+    return eng, eager, replayed, ms, torch.cuda.max_memory_allocated()
+
+
+def _on_card(arrays: dict) -> dict:
+    return {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
+
+
+def _cpu(graph, feed: dict) -> dict:
+    import onnx_rusty_inference_engine_tpu_torch as P
+
+    return P.Engine(graph, device="cpu").run(feed).outputs
+
+
+def _max_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _dml_line(path: str, t0: float, ms: float, peak: int, smi: str,
+              **kw) -> None:
+    emit({"phase": "detection_ml", "path": path, "replayed_ms": ms,
+          "peak_bytes": peak, "peak_gb": peak / 1e9, **kw,
+          "seconds": time.perf_counter() - t0, "card": smi})
+
+
+def _dml_detection(smi: str) -> dict:
+    """The SSD family at COCO's export settings, b8, in-graph NMS."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models.detection import (
+        build_detection)
+
+    t0 = time.perf_counter()
+    cfg = _detection_config()
+    S, C, M = cfg.n_boxes, cfg.n_classes, cfg.max_out
+    x = np.random.default_rng(0).standard_normal(
+        (DET_BATCH, 3, cfg.image_size, cfg.image_size)).astype(np.float32)
+    dev = _on_card({"image": x})
+    eng, eager, out, ms, peak = _captured(
+        P.import_model(build_detection(cfg, batch=DET_BATCH)), dev)
+    require(torch.equal(eager["selected_indices"], out["selected_indices"]),
+            "detection: eager and replayed NMS rows equal")
+    boxes = out["boxes"].cpu().numpy()
+    scores = out["scores"].cpu().numpy()
+    sel = out["selected_indices"].cpu().numpy()
+    require(sel.shape == (DET_BATCH * C * M, 3)
+            and sel.dtype == np.int32, f"detection rows {sel.shape}")
+    ref = _cpu(P.import_model(build_detection(cfg, batch=1)),
+               {"image": x[:1]})
+    errs = {"boxes": _max_rel(boxes[:1], ref["boxes"]),
+            "scores": _max_rel(scores[:1], ref["scores"])}
+    for k, v in errs.items():
+        require(v <= DML_REL_TOL, f"detection {k}: {v} > {DML_REL_TOL} x "
+                f"max|ref|")
+    # the NMS node bit for bit: the card's boxes and scores through the
+    # port's NMS on the CPU give the card's rows
+    k = DET_CPU_NMS
+    nms = _one_node("NonMaxSuppression",
+                    {"boxes": boxes[:k], "scores": scores[:k]},
+                    {"max_out": np.array(M, np.int64),
+                     "iou": np.array(cfg.iou_threshold, np.float32),
+                     "score": np.array(cfg.score_threshold, np.float32)},
+                    opset=11)
+    t_nms = time.perf_counter()
+    cpu_rows = _cpu(nms, {"boxes": boxes[:k], "scores": scores[:k]})["out0"]
+    nms_cpu_s = time.perf_counter() - t_nms
+    require(np.array_equal(cpu_rows, sel[:k * C * M]),
+            f"detection: the card's NMS rows of the first {k} images equal "
+            f"the CPU NMS on the card's boxes and scores")
+    e2e = int((sel[:C * M] != ref["selected_indices"]).any(axis=1).sum())
+    valid = sel[:, 0] >= 0
+    for b in range(DET_BATCH):  # rows grouped (batch, class), -1 padding
+        rows = sel[b * C * M:(b + 1) * C * M]
+        require(((rows[:, 0] == b) | (rows[:, 0] == -1)).all()
+                and (rows[rows[:, 0] < 0] == -1).all(),
+                "detection: rows grouped by image, padding -1")
+    # the NMS alone on the card's b8 boxes and scores, replayed
+    _, _, nms_out, nms_ms, _ = _captured(
+        _one_node("NonMaxSuppression", {"boxes": boxes, "scores": scores},
+                  {"max_out": np.array(M, np.int64),
+                   "iou": np.array(cfg.iou_threshold, np.float32),
+                   "score": np.array(cfg.score_threshold, np.float32)},
+                  opset=11), _on_card({"boxes": boxes, "scores": scores}))
+    require(torch.equal(nms_out["out0"].cpu(), out["selected_indices"].cpu()),
+            "detection: the NMS node alone gives the graph's rows")
+    by_op, _ = _ms_by_op(eng, dev, 1)
+    _dml_line("ssd_detection", t0, ms, peak, smi, config=vars(cfg),
+              batch=DET_BATCH, boxes=S, rows=DET_BATCH * C * M,
+              valid_rows=int(valid.sum()),
+              images_per_s=DET_BATCH / ms * 1e3, nms_replayed_ms=nms_ms,
+              iou_matrix_bytes_not_made=DET_BATCH * S * S * 4,
+              max_rel_err_vs_cpu=errs,
+              bound=f"boxes and scores {DML_REL_TOL} x max|ref| (image 0 "
+                    f"against the CPU at b1); NMS rows equal",
+              nms_rows_equal_images=k, nms_cpu_s=nms_cpu_s,
+              e2e_rows_differing_image0=e2e, ms_by_op=by_op)
+    del eng, eager, out, dev
+    return {"ms": ms, "nms_ms": nms_ms, "peak": peak}
+
+
+def _tree_graph(oplib, batch: int):
+    """XGBoost's binary export behind sklearn's Imputer and Scaler, with
+    ZipMap after: TREES trees of depth TREE_DEPTH, one-sided logistic.
+    The ml ops take any batch: the CPU runs the same graph on fewer
+    rows."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models._builder import (
+        GraphBuilder)
+
+    r = np.random.default_rng(0)
+    attrs = oplib.forest_attrs(r, TREES, TREE_DEPTH, TREE_FEATS, 1,
+                               kind="class", weight_scale=0.1)
+    attrs["class_ids"] = [1] * len(attrs["class_ids"])
+    mean = r.standard_normal(TREE_FEATS).astype(np.float32)
+    std = r.uniform(0.5, 2.0, TREE_FEATS).astype(np.float32)
+    b = GraphBuilder("xgboost_pipeline", opset=13)
+    x = b.input("x", [batch, TREE_FEATS])
+    b.node("Imputer", [x], ["x1"], domain=ML,
+           imputed_value_floats=mean.tolist())
+    b.node("Scaler", ["x1"], ["x2"], domain=ML, offset=mean.tolist(),
+           scale=(1 / std).tolist())
+    b.node("TreeEnsembleClassifier", ["x2"], ["label", "probabilities"],
+           domain=ML, classlabels_int64s=[0, 1], post_transform="LOGISTIC",
+           base_values=[0.1], **attrs)
+    b.node("ZipMap", ["probabilities"], ["probs"], domain=ML,
+           classlabels_int64s=[0, 1])
+    for o in ("label", "probabilities", "probs"):
+        b.output(o)
+    return P.import_model(b.model()), mean, std
+
+
+def _dml_trees(oplib, smi: str) -> dict:
+    from onnx_rusty_inference_engine_tpu_torch.ops import ml
+
+    t0 = time.perf_counter()
+    graph, mean, std = _tree_graph(oplib, TREE_BATCH)
+    r = np.random.default_rng(0)
+    x = (r.standard_normal((TREE_BATCH, TREE_FEATS)) * std + mean).astype(
+        np.float32)
+    x[r.random(x.shape) < 0.02] = np.nan
+    dev = _on_card({"x": x})
+    eng, eager, out, ms, peak = _captured(graph, dev)
+    require(torch.equal(eager["label"], out["label"]),
+            "trees: eager and replayed labels equal")
+    lab = out["label"].cpu().numpy()
+    prob = out["probabilities"].cpu().numpy()
+    maps = out["probs"]
+    require(len(maps) == TREE_BATCH and all(
+        m == {0: float(p[0]), 1: float(p[1])} for m, p in zip(maps, prob)),
+        "trees: ZipMap's maps equal the probabilities")
+    t1 = time.perf_counter()
+    eng(dev)
+    call_ms = (time.perf_counter() - t1) * 1e3
+    ref = _cpu(graph, {"x": x[:TREE_CPU]})
+    require(np.array_equal(lab[:TREE_CPU], ref["label"]),
+            "trees: labels equal the CPU's")
+    err = float(np.abs(prob[:TREE_CPU] - ref["probabilities"]).max())
+    require(err <= DML_REL_TOL, f"trees: probabilities {err} > 1e-5")
+    n_int, n_leaf = 2 ** TREE_DEPTH - 1, 2 ** TREE_DEPTH
+    _dml_line("gradient_boosted_trees", t0, ms, peak, smi, trees=TREES,
+              depth=TREE_DEPTH, features=TREE_FEATS, batch=TREE_BATCH,
+              blocked=TREES * n_int * TREES * n_leaf > ml._BLOCKED_THRESHOLD,
+              path_matrix_shape=[TREES, n_int, n_leaf],
+              rows_per_s=TREE_BATCH / ms * 1e3, call_wall_ms=call_ms,
+              max_abs_err_vs_cpu=err, labels_equal_rows=TREE_CPU,
+              positive_share=float(lab.mean()),
+              bound="labels equal, probabilities 1e-5, ZipMap = "
+                    "probabilities")
+    del eng, eager, out, dev
+    return {"ms": ms, "peak": peak}
+
+
+def _svm_graph(batch: int):
+    """An RBF SVC at sklearn's gamma "scale" over 10 clusters of 784
+    features, libsvm's layout (400 support vectors a class), with Platt
+    scaling: probabilities by pairwise coupling; and its input. The CPU
+    runs the same graph on fewer rows."""
+    r = np.random.default_rng(0)
+    K, F, nsv = SVM_CLASSES, SVM_FEATS, SVM_SV
+    per = nsv // K
+    centers = r.standard_normal((K, F)).astype(np.float32)
+    sv = (np.repeat(centers, per, 0)
+          + r.standard_normal((nsv, F))).astype(np.float32)
+    alpha = np.abs(r.standard_normal((K - 1, nsv))).astype(np.float32) * 0.05
+    coef = np.zeros((K - 1, nsv), np.float32)
+    for i in range(K):       # class i's SVs: + against later classes
+        cols = slice(i * per, (i + 1) * per)
+        for j in range(K):
+            if j != i:
+                row = j - 1 if j > i else j
+                coef[row, cols] = alpha[row, cols] * (1 if j > i else -1)
+    n_pairs = K * (K - 1) // 2
+    graph = _one_node(
+        "SVMClassifier", {"x": np.zeros((batch, F), np.float32)}, n_out=2,
+        domain=ML, classlabels_int64s=list(range(K)), kernel_type="RBF",
+        kernel_params=[1.0 / F, 0.0, 3.0],
+        support_vectors=sv.reshape(-1).tolist(),
+        vectors_per_class=[per] * K, coefficients=coef.reshape(-1).tolist(),
+        rho=(r.standard_normal(n_pairs) * 0.1).astype(np.float32).tolist(),
+        prob_a=(-r.uniform(1.0, 2.0, n_pairs)).astype(np.float32).tolist(),
+        prob_b=(r.standard_normal(n_pairs) * 0.1).astype(np.float32)
+        .tolist())
+    x = (centers[r.integers(0, K, SVM_BATCH)]
+         + r.standard_normal((SVM_BATCH, F))).astype(np.float32)
+    return graph, x
+
+
+def _dml_svm(smi: str) -> dict:
+    t0 = time.perf_counter()
+    graph, x = _svm_graph(SVM_BATCH)
+    dev = _on_card({"x": x})
+    eng, eager, out, ms, peak = _captured(graph, dev)
+    lab = out["out0"].cpu().numpy()
+    prob = out["out1"].cpu().numpy()
+    require(np.array_equal(eager["out0"].cpu().numpy(), lab),
+            "svm: eager and replayed labels equal")
+    ref = _cpu(graph, {"x": x[:SVM_CPU]})
+    require(np.array_equal(lab[:SVM_CPU], ref["out0"]),
+            "svm: labels equal the CPU's")
+    err = float(np.abs(prob[:SVM_CPU] - ref["out1"]).max())
+    require(err <= DML_REL_TOL, f"svm: probabilities {err} > 1e-5")
+    require(np.allclose(prob.sum(-1), 1.0, atol=1e-4), "svm: distributions")
+    _dml_line("svm_rbf_coupling", t0, ms, peak, smi, classes=SVM_CLASSES,
+              pairs=SVM_CLASSES * (SVM_CLASSES - 1) // 2,
+              features=SVM_FEATS, support_vectors=SVM_SV, batch=SVM_BATCH,
+              rows_per_s=SVM_BATCH / ms * 1e3, max_abs_err_vs_cpu=err,
+              labels_equal_rows=SVM_CPU,
+              distinct_labels=int(len(np.unique(lab))),
+              bound="labels equal, probabilities 1e-5")
+    del eng, eager, out, dev
+    return {"ms": ms, "peak": peak}
+
+
+def _text_graph(batch: int):
+    """sklearn's text pipeline: StringNormalizer (lower case) ->
+    StringSplit -> TfIdfVectorizer (1- and 2-grams, TFIDF) ->
+    LinearClassifier (softmax). StringNormalizer takes [C] or [1, C]
+    strings only (the spec; host.py), so the documents enter as strings
+    of TEXT_LEN space-joined tokens and StringSplit makes the
+    [docs, TEXT_LEN] tokens."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch.models._builder import (
+        GraphBuilder)
+
+    r = np.random.default_rng(0)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = sorted({"".join(r.choice(letters, n))
+                    for n in r.integers(3, 9, 3 * TEXT_VOCAB)})
+    vocab = [vocab[i] for i in r.permutation(len(vocab))[:TEXT_VOCAB]]
+    freq = 1.0 / np.arange(1, TEXT_VOCAB + 1)        # Zipf's law
+    freq /= freq.sum()
+    n_bi = TEXT_POOL - TEXT_VOCAB
+    pairs = r.choice(TEXT_VOCAB, (n_bi * 2, 2), p=freq)
+    pairs = np.unique(pairs, axis=0)[:n_bi]
+    pool = vocab + [vocab[i] for p in pairs for i in p]
+    n_pool = TEXT_VOCAB + len(pairs)
+    b = GraphBuilder("text_pipeline", opset=13)
+    docs = b.input("docs", [batch], np.dtype(object))
+    b.node("StringNormalizer", [docs], ["lower"],
+           case_change_action="LOWER")
+    b.node("StringSplit", ["lower"], ["tokens", "n_tokens"], delimiter=" ")
+    b.node("TfIdfVectorizer", ["tokens"], ["tfidf"], mode="TFIDF",
+           min_gram_length=1, max_gram_length=2, max_skip_count=0,
+           ngram_counts=[0, TEXT_VOCAB], ngram_indexes=list(range(n_pool)),
+           pool_strings=pool,
+           weights=r.uniform(1.0, 5.0, n_pool).astype(np.float32).tolist())
+    b.node("LinearClassifier", ["tfidf"], ["label", "probabilities"],
+           domain=ML, classlabels_int64s=list(range(TEXT_CLASSES)),
+           coefficients=(r.standard_normal(TEXT_CLASSES * n_pool) * 0.05)
+           .astype(np.float32).tolist(),
+           intercepts=(r.standard_normal(TEXT_CLASSES) * 0.1)
+           .astype(np.float32).tolist(), post_transform="SOFTMAX")
+    b.output("label")
+    b.output("probabilities")
+    words = np.array(vocab, dtype=object)[r.choice(
+        TEXT_VOCAB, (TEXT_DOCS, TEXT_LEN), p=freq)]
+    caps = r.random(words.shape)
+    words = np.where(caps < 0.2, np.char.upper(words.astype(str)),
+                     np.where(caps < 0.4, np.char.capitalize(
+                         words.astype(str)), words.astype(str)))
+    text = np.empty(TEXT_DOCS, dtype=object)
+    text[:] = [" ".join(row) for row in words]
+    return P.import_model(b.model()), text, n_pool
+
+
+def _dml_text(smi: str) -> dict:
+    t0 = time.perf_counter()
+    graph, text, n_pool = _text_graph(TEXT_DOCS)
+    feed = {"docs": text}
+    eng, eager, out, ms, peak = _captured(graph, feed)
+    require(eng._host is not None and eng._host.boundary == ["tfidf"],
+            "text: the prolog hands TF-IDF to the device")
+    t1 = time.perf_counter()
+    dev_feed, _ = eng._host.split_feed(feed, eng.graph.input_names,
+                                       lambda v: v)
+    prolog_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    eng(feed)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t1) * 1e3
+    lab = out["label"].cpu().numpy()
+    prob = out["probabilities"].cpu().numpy()
+    require(np.array_equal(eager["label"].cpu().numpy(), lab),
+            "text: eager and replayed labels equal")
+    ref = _cpu(graph, feed)
+    require(np.array_equal(lab, ref["label"]), "text: labels equal the CPU's")
+    err = float(np.abs(prob - ref["probabilities"]).max())
+    require(err <= DML_REL_TOL, f"text: probabilities {err} > 1e-5")
+    nnz = int((dev_feed["tfidf"] != 0).sum())
+    _dml_line("text_pipeline", t0, ms, peak, smi, docs=TEXT_DOCS,
+              tokens_per_doc=TEXT_LEN, vocabulary=TEXT_VOCAB, pool=n_pool,
+              classes=TEXT_CLASSES, tfidf_nonzeros=nnz,
+              host_prolog_ms=prolog_ms, device_replayed_ms=ms,
+              call_wall_ms=call_ms, docs_per_s=TEXT_DOCS / call_ms * 1e3,
+              max_abs_err_vs_cpu=err, bound="labels equal, probabilities "
+                                            "1e-5 (whole batch)")
+    del eng, eager, out
+    return {"ms": ms, "prolog_ms": prolog_ms, "peak": peak}
+
+
+def _rois(r, n: int, height: int, width: int, batch: int) -> tuple:
+    """n boxes (x1, y1, x2, y2) inside a height x width image, 16-400
+    pixels a side, and their image indices."""
+    wh = r.uniform(16, 400, (n, 2))
+    lo = r.uniform(0, 1, (n, 2)) * np.maximum([width, height] - wh, 1)
+    boxes = np.concatenate([lo, lo + wh], 1).astype(np.float32)
+    return boxes, r.integers(0, batch, n).astype(np.int64)
+
+
+def _dml_roi(smi: str) -> dict:
+    """RoiAlign on FPN's P2 (800 x 1088 images, stride 4), MaxRoiPool on
+    VGG's conv5 (stride 16), DeformConv v2 at a detector neck's widths."""
+    r = np.random.default_rng(0)
+    res = {}
+    t0 = time.perf_counter()
+    x = r.standard_normal((2, 256, 200, 272)).astype(np.float32)
+    rois, bidx = _rois(r, 1000, 800, 1088, 2)
+    attrs = dict(output_height=7, output_width=7, sampling_ratio=2,
+                 spatial_scale=0.25, mode="avg")
+    feeds = {"x": x, "rois": rois, "b": bidx}
+    _, eager, out, ms, peak = _captured(
+        _one_node("RoiAlign", feeds, opset=16, **attrs), _on_card(feeds))
+    small = {"x": x, "rois": rois[:ROI_CPU], "b": bidx[:ROI_CPU]}
+    want = _cpu(_one_node("RoiAlign", small, opset=16, **attrs),
+                small)["out0"]
+    got = out["out0"][:ROI_CPU].cpu().numpy()
+    require(np.allclose(got, want, rtol=1e-4, atol=1e-5)
+            and np.allclose(eager["out0"][:ROI_CPU].cpu().numpy(), want,
+                            rtol=1e-4, atol=1e-5),
+            f"roi_align: the first rois against the CPU (rtol 1e-4, atol "
+            f"1e-5): max |d| {np.abs(got - want).max()}")
+    _dml_line("roi_align", t0, ms, peak, smi, features=list(x.shape),
+              rois=len(rois), **attrs, rois_per_s=len(rois) / ms * 1e3,
+              max_abs_err_vs_cpu=float(np.abs(got - want).max()),
+              bound=f"rtol 1e-4, atol 1e-5 on the first {ROI_CPU} rois")
+    res["roi_align_ms"] = ms
+    res["peak"] = peak
+
+    t0 = time.perf_counter()
+    x = r.standard_normal((1, 512, 38, 50)).astype(np.float32)
+    boxes, _ = _rois(r, 300, 608, 800, 1)
+    rois = np.concatenate([np.zeros((300, 1), np.float32), boxes], 1)
+    attrs = dict(pooled_shape=[7, 7], spatial_scale=1 / 16)
+    feeds = {"x": x, "rois": rois}
+    _, eager, out, ms, peak = _captured(
+        _one_node("MaxRoiPool", feeds, **attrs), _on_card(feeds))
+    small = {"x": x, "rois": rois[:ROI_CPU]}
+    want = _cpu(_one_node("MaxRoiPool", small, **attrs), small)["out0"]
+    got = out["out0"][:ROI_CPU].cpu().numpy()
+    require(np.allclose(got, want, rtol=1e-5, atol=1e-6)
+            and np.allclose(eager["out0"][:ROI_CPU].cpu().numpy(), want,
+                            rtol=1e-5, atol=1e-6),
+            f"max_roi_pool: the first rois against the CPU: max |d| "
+            f"{np.abs(got - want).max()}")
+    _dml_line("max_roi_pool", t0, ms, peak, smi, features=list(x.shape),
+              rois=len(rois), **attrs, rois_per_s=len(rois) / ms * 1e3,
+              max_abs_err_vs_cpu=float(np.abs(got - want).max()),
+              bound=f"rtol 1e-5, atol 1e-6 on the first {ROI_CPU} rois")
+    res["max_roi_pool_ms"] = ms
+    res["peak"] = max(res["peak"], peak)
+
+    t0 = time.perf_counter()
+    N, C, H, W, M = 8, 256, 50, 68, 256
+    feeds = {"x": r.standard_normal((N, C, H, W)).astype(np.float32),
+             "off": (r.standard_normal((N, 18, H, W)) * 2).astype(
+                 np.float32),
+             "mask": r.uniform(0, 1, (N, 9, H, W)).astype(np.float32)}
+    inits = {"w": (r.standard_normal((M, C, 3, 3)) * (9 * C) ** -0.5
+                   ).astype(np.float32),
+             "b": (r.standard_normal(M) * 0.1).astype(np.float32)}
+    attrs = dict(kernel_shape=[3, 3], pads=[1, 1, 1, 1])
+
+    def deform(f):
+        import onnx_rusty_inference_engine_tpu_torch as P
+        from onnx_rusty_inference_engine_tpu_torch.models._builder import (
+            GraphBuilder)
+
+        b = GraphBuilder("deform_conv", opset=19)
+        for k, v in f.items():
+            b.input(k, list(v.shape))
+        for k, v in inits.items():
+            b.init(k, v)
+        b.node("DeformConv", ["x", "w", "off", "b", "mask"], ["out0"],
+               **attrs)
+        b.output("out0")
+        return P.import_model(b.model())
+
+    _, eager, out, ms, peak = _captured(deform(feeds), _on_card(feeds))
+    small = {k: v[:1] for k, v in feeds.items()}
+    want = _cpu(deform(small), small)["out0"]
+    got = out["out0"][:1].cpu().numpy()
+    require(np.allclose(got, want, rtol=1e-3, atol=1e-4)
+            and np.allclose(eager["out0"][:1].cpu().numpy(), want,
+                            rtol=1e-3, atol=1e-4),
+            f"deform_conv: the first image against the CPU: max |d| "
+            f"{np.abs(got - want).max()}")
+    _dml_line("deform_conv_v2", t0, ms, peak, smi, x=[N, C, H, W],
+              out_channels=M, **attrs, images_per_s=N / ms * 1e3,
+              tflops=2 * N * M * C * 9 * H * W / ms / 1e9,
+              max_abs_err_vs_cpu=float(np.abs(got - want).max()),
+              bound="rtol 1e-3, atol 1e-4 on the first image")
+    res["deform_conv_ms"] = ms
+    res["peak"] = max(res["peak"], peak)
+    return res
+
+
+def _dml_loss(smi: str) -> dict:
+    t0 = time.perf_counter()
+    r = np.random.default_rng(0)
+    B, V, T = LOSS_SHAPE
+    s = r.standard_normal(LOSS_SHAPE).astype(np.float32)
+    t = r.integers(0, V, (B, T)).astype(np.int64)
+    t[r.random((B, T)) < 0.1] = -100
+    feeds = {"s": s, "t": t}
+    graph = _one_node("SoftmaxCrossEntropyLoss", feeds, opset=13,
+                      reduction="mean", ignore_index=-100)
+    _, eager, out, ms, peak = _captured(graph, _on_card(feeds))
+    want = float(_cpu(graph, feeds)["out0"])
+    got = float(out["out0"])
+    rel = abs(got - want) / abs(want)
+    require(rel <= 2e-5 and abs(float(eager["out0"]) - want)
+            <= 2e-5 * abs(want), f"loss: {got} against the CPU's {want}")
+    _dml_line("softmax_cross_entropy", t0, ms, peak, smi,
+              scores=list(LOSS_SHAPE), ignored=int((t == -100).sum()),
+              loss=got, rel_err_vs_cpu=rel, gb_per_s=s.nbytes / ms / 1e6,
+              bound="rtol 2e-5")
+    return {"ms": ms, "peak": peak}
+
+
+def phase_detection_ml(smi: str) -> dict:
+    """Bounded outputs, losses, RoI ops, ai.onnx.ml and the host stages at
+    full width, each forward one captured graph, replayed: the SSD family
+    at COCO's export settings with in-graph NMS, XGBoost's binary trees
+    behind sklearn's Imputer and Scaler with ZipMap after, an RBF SVC with
+    Platt coupling, a text pipeline with a host prolog, RoI heads
+    (RoiAlign, MaxRoiPool, DeformConv v2) and GPT-2's vocabulary's
+    cross-entropy; each against the port's CPU run (see each path's
+    bound), with its replayed ms and peak device memory."""
+    oplib = _oplib()
+    t0 = time.perf_counter()
+    res = {"detection": _dml_detection(smi)}
+    torch.cuda.empty_cache()
+    res["trees"] = _dml_trees(oplib, smi)
+    torch.cuda.empty_cache()
+    res["svm"] = _dml_svm(smi)
+    res["text"] = _dml_text(smi)
+    torch.cuda.empty_cache()
+    res["roi"] = _dml_roi(smi)
+    torch.cuda.empty_cache()
+    res["loss"] = _dml_loss(smi)
+    torch.cuda.empty_cache()
+    peak = max(v["peak"] for v in res.values())
+    require(peak < 25e9, f"detection_ml: peak {peak / 1e9} GB")
+    emit({"phase": "detection_ml", "seconds": time.perf_counter() - t0,
+          "peak_gb": peak / 1e9})
+    return res
 
 
 def main() -> int:
@@ -5690,6 +6293,7 @@ def main() -> int:
             unet = phase_op_library(smi)
             next(row for row in rows if row["name"] == "qconv_int8_requant"
                  )["unet_path"] = unet
+            phase_detection_ml(smi)
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]

@@ -20,9 +20,15 @@ eagerly.
 the CPU. `dtype="bfloat16"` is the JAX Engine's policy: the graph's f32
 weights go to the device as bf16, its other constants stay f32, f32 inputs
 are cast to bf16 on the way in and bf16 outputs back to f32 on the way out;
-mixed operands promote as in JAX (ops/standard.py::promote). Not ported
-yet: the host prolog/epilog for string and image front-end ops (a graph
-that needs it raises).
+mixed operands promote as in JAX (ops/standard.py::promote).
+
+A graph that begins with string or image ops, or ends in maps and strings,
+is split as in the JAX Engine (host.py): the host prolog runs in numpy
+before the device graph and its numeric products join the feed (a new
+product shape is a new signature, and so a new captured graph); the host
+epilog runs after it on the device outputs it reads. Their outputs are
+host values (numpy arrays, ZipMap's list of dicts) beside the device
+tensors. A graph with no device outputs runs no device graph at all.
 """
 
 from __future__ import annotations
@@ -34,9 +40,9 @@ import numpy as np
 import torch
 
 from .graph import Graph, _node_from_proto
-from .ops.registry import (STATIC_OPS, LoweringContext, UnsupportedOpError,
-                           get_emitter, node_label, prepare_subgraphs,
-                           subgraphs_of)
+from .host import named_feed, split_host_epilog, split_host_prolog
+from .ops.registry import (STATIC_OPS, LoweringContext, get_emitter,
+                           node_label, prepare_subgraphs, subgraphs_of)
 from .runtime import (Replay, capture, captures, collector_held,
                       resolve_device, side_stream, signature)
 from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
@@ -220,11 +226,13 @@ class Engine:
                  share_params_with: Optional["Engine"] = None):
         self.dtype = _policy_dtype(dtype)
         self.device = resolve_device(device)
-        for spec in graph.inputs:
-            if spec.dtype == object:
-                raise UnsupportedOpError(
-                    f"input {spec.name!r} is a string tensor: the host "
-                    f"prolog is not ported")
+        # string / image front-end ops run on the host before the device
+        # graph, map / string tails after it (host.py); a call takes the
+        # graph's inputs and returns its outputs, wherever they are made
+        self.input_names = list(graph.input_names)
+        self.output_names = list(graph.outputs)
+        self._host, graph = split_host_prolog(graph)
+        graph, self._epilog = split_host_epilog(graph)
         # an op the port lacks fails here, not mid-run (subgraphs' too)
         for node in graph.nodes + [
                 _node_from_proto(n) for g in subgraphs_of(graph.nodes)
@@ -294,10 +302,25 @@ class Engine:
         statics = self._statics.setdefault(signature(feed), {})
         return self._fn(self.params, feed, statics)
 
-    def __call__(self, inputs) -> Dict[str, torch.Tensor]:
-        """Run once; outputs stay on the device and belong to the caller.
-        On the card the first call of a signature runs eagerly and
-        captures the graph; later calls replay it."""
+    def __call__(self, inputs) -> Dict[str, object]:
+        """Run once; device outputs stay on the device and belong to the
+        caller. On the card the first call of a signature runs eagerly and
+        captures the graph; later calls replay it. The host prolog runs
+        before, the host epilog after, where the graph has them."""
+        if self._host is None and self._epilog is None:
+            return self._device_call(inputs)
+        feed = named_feed(inputs, self.input_names)
+        host_out: Dict[str, object] = {}
+        if self._host is not None:
+            feed, host_out = self._host.split_feed(
+                feed, self.graph.input_names, _numpy)
+        out = self._device_call(feed) if self.graph.outputs else {}
+        out.update(host_out)
+        if self._epilog is not None:
+            out = self._epilog.apply(out, feed, _numpy)
+        return out
+
+    def _device_call(self, inputs) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             if not captures(self.device):
                 return self._fn(self.params,
@@ -328,6 +351,20 @@ class Engine:
 
     def run(self, inputs) -> InferenceResult:
         t0 = time.perf_counter()
-        out = {k: _each(v, lambda t: t.cpu().numpy())
-               for k, v in self(inputs).items()}
+        out = {k: to_host(v) for k, v in self(inputs).items()}
         return InferenceResult(out, time.perf_counter() - t0)
+
+
+def _numpy(v):
+    """A feed or output value on the host: a tensor as numpy, anything
+    else as it is (numpy arrays, strings, ZipMap's maps)."""
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+def to_host(v):
+    """An output as the caller gets it from `run`: numpy arrays; a
+    sequence output a list of them; ZipMap's list of dicts as it is."""
+    if isinstance(v, list):
+        return [e if isinstance(e, dict) else np.asarray(_numpy(e))
+                for e in v]
+    return np.asarray(_numpy(v))

@@ -13,8 +13,13 @@ and bundles the serialized program with the weights into one `.npz`:
                             loading packs nothing
     __exported__:{platform} `torch.export.save` bytes, one program per
                             platform ("cpu", "cuda")
+    __prolog__, __epilog__  the host stages (host.py), where the graph has
+                            them: their nodes and constants as a small
+                            serialized ONNX graph, as the JAX exporter
+                            bundles them
     __meta__                JSON: format "oriet-aot-torch-v1", platforms,
-                            inputs (shape, dtype), outputs, graph_name
+                            inputs (shape, dtype), outputs, graph_name;
+                            host_prolog / host_epilog where present
 
 The weights are inputs of the program, stored once beside it, never
 constants inside it. The hand kernels are `torch.library` ops
@@ -29,12 +34,13 @@ there. On the card the first call runs eagerly and captures a CUDA graph
 (engine.capture, as `Engine.__call__` does: the same counters, the same
 collector hold); later calls replay it. An exported program runs its convs
 and matrix products under the caller's TF32 flags, so every call runs
-under `utils.fp32.fp32_exact`, as the emitters do.
+under `utils.fp32.fp32_exact`, as the emitters do. Only an artifact with
+host stages parses ONNX on load: its stages' small graphs, which run in
+numpy before and after the program, as in the Engine.
 
-Not in this port yet: host prolog and epilog stages (string and image
-front-end ops; ROADMAP 1.7, `host.py`) and sharded artifacts (ROADMAP
-1.12). A JAX artifact (format "oriet-aot-v1", StableHLO) is refused by
-name; so is any other file.
+Not in this port yet: sharded artifacts (ROADMAP 1.12). A JAX artifact
+(format "oriet-aot-v1", StableHLO) is refused by name; so is any other
+file.
 """
 
 from __future__ import annotations
@@ -98,6 +104,37 @@ def _from_numpy(a: np.ndarray, bf16: bool, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _stage_blob(nodes, constants: Mapping[str, np.ndarray]) -> np.ndarray:
+    """A host stage's nodes and constants as a serialized ONNX graph (the
+    JAX exporter's form), as uint8 for the npz."""
+    from . import onnx_io
+    from .models._builder import _attr
+
+    gp = onnx_io.GraphProto(name="host_stage")
+    for n in nodes:
+        proto = onnx_io.NodeProto(op_type=n.op_type, input=list(n.inputs),
+                                  output=list(n.outputs), name=n.name,
+                                  domain=n.domain)
+        for k, v in n.attrs.items():
+            if not k.startswith("__"):
+                proto.attributes[k] = _attr(k, v)
+        gp.nodes.append(proto)
+    gp.initializers = dict(constants)
+    blob = onnx_io.serialize_model(
+        onnx_io.ModelProto(graph=gp, opset_version=13))
+    return np.frombuffer(blob, dtype=np.uint8)
+
+
+def _stage_nodes(blob: np.ndarray):
+    """(nodes, constants) of a `_stage_blob`."""
+    from . import onnx_io
+    from .graph import _node_from_proto
+
+    m = onnx_io.parse_model(bytes(blob))
+    return ([_node_from_proto(n) for n in m.graph.nodes],
+            dict(m.graph.initializers))
+
+
 def _platforms(engine, platforms: Optional[Sequence[str]]) -> List[str]:
     out = list(platforms) if platforms else [engine.device.type]
     for p in out:
@@ -118,16 +155,20 @@ def export_engine(engine, example_inputs: Mapping[str, np.ndarray],
     defaults to the Engine's device; one program is traced per platform,
     each on that platform's device, over one copy of the weights. The
     int8 kernels' packed weights are the Engine's, or, for a CUDA program
-    of a CPU Engine, packed here."""
+    of a CPU Engine, packed here. A host prolog and epilog (host.py) are
+    bundled beside the program, which holds the device graph only; the
+    example inputs go through the prolog to give the device feed."""
     from .engine import _with_policy, lower_packed
+    from .host import named_feed
     from .weights import prepack_int8_weights
 
     graph = engine.graph
-    if any(spec.dtype == object for spec in graph.inputs):
-        raise NotImplementedError(
-            "a graph with string inputs needs the host prolog, which the "
-            "port does not have yet (ROADMAP 1.7, host.py)")
+    host, epilog = engine._host, engine._epilog
     platforms = _platforms(engine, platforms)
+    if host is not None:
+        example_inputs, _ = host.split_feed(
+            named_feed(example_inputs, engine.input_names),
+            graph.input_names, _host)
     feed = engine._canon_inputs(example_inputs, None)
     feed = {s.name: feed[s.name] for s in graph.inputs if s.name in feed}
     packed = engine.packed
@@ -163,7 +204,7 @@ def export_engine(engine, example_inputs: Mapping[str, np.ndarray],
         "inputs": {k: {"shape": list(v.shape),
                        "dtype": str(v.dtype).split(".")[-1]}
                    for k, v in feed.items()},
-        "outputs": list(graph.outputs),
+        "outputs": list(engine.output_names),
         "graph_name": graph.name,
         "bf16_params": bf16_params,
         "params": sorted(engine.params),
@@ -171,6 +212,26 @@ def export_engine(engine, example_inputs: Mapping[str, np.ndarray],
     }
     payload = {f"p:{k}": _to_numpy(v) for k, v in engine.params.items()}
     payload.update({f"k:{k}": _to_numpy(v) for k, v in packed.items()})
+    if host is not None:
+        meta["host_prolog"] = {
+            "boundary": list(host.boundary),
+            "host_outputs": list(host.host_outputs),
+            "consumed_inputs": list(host.consumed_inputs),
+            "orig_input_names": list(host.orig_input_names),
+        }
+        payload["__prolog__"] = _stage_blob(host.nodes, host.constants)
+    if epilog is not None:
+        meta["host_epilog"] = {
+            "boundary": list(epilog.boundary),
+            "consumed_inputs": list(epilog.consumed_inputs),
+            "outputs": list(epilog.outputs),
+            "extra_boundary": list(epilog.extra_boundary),
+            "transforms": sorted(epilog.transforms),
+        }
+        consts = dict(epilog.constants)
+        consts.update({f"__xform__:{k}": np.asarray(v, dtype=object)
+                       for k, v in epilog.transforms.items()})
+        payload["__epilog__"] = _stage_blob(epilog.nodes, consts)
     for p, blob in programs.items():
         payload[f"__exported__:{p}"] = np.frombuffer(blob, dtype=np.uint8)
     payload["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"),
@@ -196,13 +257,16 @@ class ExportedModel:
     ONNX importer, graph or op registry behind it.
 
     `__call__` returns the outputs as tensors on the device (the caller's
-    own), `run` as numpy arrays. On the card the first call runs eagerly
-    and captures the program into a CUDA graph over static input and
-    output buffers; later calls copy the feed in and replay it, adding the
-    launches the capture recorded to the kernel wrappers' counters."""
+    own), and the host stages' outputs as host values; `run` all of them
+    on the host. On the card the first call runs eagerly and captures the
+    program into a CUDA graph over static input and output buffers; later
+    calls copy the feed in and replay it, adding the launches the capture
+    recorded to the kernel wrappers' counters. A host prolog runs before
+    the program and an epilog after it, as in the Engine."""
 
     def __init__(self, program, params: Dict[str, torch.Tensor],
-                 packed: Dict[str, torch.Tensor], meta: dict, device):
+                 packed: Dict[str, torch.Tensor], meta: dict, device,
+                 host=None, epilog=None):
         self.program = program
         t0 = time.perf_counter()
         self._module = program.module()
@@ -218,6 +282,8 @@ class ExportedModel:
         self._captured = None  # (static inputs, static outputs, replay)
         self._stream = None
         self._pool = None
+        self._host = host      # host.HostProlog, or None
+        self._epilog = epilog  # host.HostEpilog, or None
 
     def _feed(self, inputs) -> Dict[str, torch.Tensor]:
         """The feed as name -> tensor (on the CPU or where it lies), in
@@ -252,7 +318,25 @@ class ExportedModel:
         with torch.no_grad(), fp32_exact():
             return dict(self._module(self.params, self.packed, feed))
 
-    def __call__(self, inputs) -> Dict[str, torch.Tensor]:
+    def __call__(self, inputs) -> Dict[str, object]:
+        if self._host is None and self._epilog is None:
+            return self._device_call(inputs)
+        from .host import named_feed
+
+        feed = named_feed(inputs, self._host.orig_input_names
+                          if self._host is not None
+                          else list(self.input_specs))
+        host_out: Dict[str, object] = {}
+        if self._host is not None:
+            feed, host_out = self._host.split_feed(feed, self.input_specs,
+                                                   _host)
+        out = self._device_call(feed)
+        out.update(host_out)
+        if self._epilog is not None:
+            out = self._epilog.apply(out, feed, _host)
+        return out
+
+    def _device_call(self, inputs) -> Dict[str, torch.Tensor]:
         host = self._feed(inputs)
         if not captures(self.device):
             return self.forward({k: v.to(self.device)
@@ -285,17 +369,49 @@ class ExportedModel:
         return {k: _host(v) for k, v in self(inputs).items()}
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as numpy; bf16 as f32 (numpy has no bf16)."""
-    t = t.detach().cpu()
+def _host(v):
+    """An output on the host: a tensor as numpy, bf16 as f32 (numpy has
+    no bf16); a list element by element, ZipMap's maps as they are; a host
+    value as it is."""
+    if isinstance(v, list):
+        return [_host(e) for e in v]
+    if not isinstance(v, torch.Tensor):
+        return v
+    t = v.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _host_stages(z, meta: dict) -> tuple:
+    """The artifact's host prolog and epilog (host.py), or None each."""
+    host = epilog = None
+    if "host_prolog" in meta:
+        from .host import HostProlog
+
+        nodes, consts = _stage_nodes(z["__prolog__"])
+        hp = meta["host_prolog"]
+        host = HostProlog(nodes, consts, hp["boundary"], hp["host_outputs"],
+                          hp["consumed_inputs"], hp["orig_input_names"])
+    if "host_epilog" in meta:
+        from .host import HostEpilog
+
+        nodes, consts = _stage_nodes(z["__epilog__"])
+        he = meta["host_epilog"]
+        xform = "__xform__:"
+        transforms = {k[len(xform):]: v for k, v in consts.items()
+                      if k.startswith(xform)}
+        consts = {k: v for k, v in consts.items() if not k.startswith(xform)}
+        epilog = HostEpilog(nodes, consts, transforms, he["boundary"],
+                            he["consumed_inputs"], he["outputs"],
+                            he["extra_boundary"])
+    return host, epilog
 
 
 def load_exported(path: str, device="cuda") -> ExportedModel:
     """Load an artifact written by `export_engine` onto `device` (the card
-    unless told "cpu"). No ONNX parsing, no graph, no op registry, no
-    weight packing: the kernel modules register their ops, the program
-    for the device is deserialized and the weights are placed there."""
+    unless told "cpu"). No graph, no op registry, no weight packing: the
+    kernel modules register their ops, the program for the device is
+    deserialized and the weights are placed there. ONNX is parsed only
+    for an artifact's host stages."""
     t0 = time.perf_counter()
     with np.load(path) as z:
         if "__meta__" not in z.files:
@@ -314,10 +430,11 @@ def load_exported(path: str, device="cuda") -> ExportedModel:
             raise NotImplementedError(
                 f"{path}: a sharded artifact ({meta['nr_devices']} devices) "
                 f"needs the device mesh (ROADMAP 1.12)")
-        if "host_prolog" in meta or "host_epilog" in meta:
-            raise NotImplementedError(
-                f"{path}: host prolog and epilog stages are not ported yet "
-                f"(ROADMAP 1.7, host.py)")
+        for stage, blob in (("host_prolog", "__prolog__"),
+                            ("host_epilog", "__epilog__")):
+            if stage in meta and blob not in z.files:
+                raise ValueError(f"{path}: the meta names a {stage} but "
+                                 f"the artifact has no {blob} stage")
         dev = resolve_device(device)
         if dev.type not in meta["platforms"]:
             raise ValueError(f"{path}: no program for {dev.type!r}; the "
@@ -335,8 +452,9 @@ def load_exported(path: str, device="cuda") -> ExportedModel:
                   for k in meta["params"]}
         packed = {k: _from_numpy(z[f"k:{k}"], False, dev)
                   for k in meta["packed"]}
+        host, epilog = _host_stages(z, meta)
         t4 = time.perf_counter()
-    model = ExportedModel(program, params, packed, meta, dev)
+    model = ExportedModel(program, params, packed, meta, dev, host, epilog)
     model.load_split_s.update(meta_and_ops=t1 - t0, import_dynamo=t2 - t1,
                               deserialize=t3 - t2, weights=t4 - t3)
     return model

@@ -1,6 +1,6 @@
 """Model builders: ONNX ModelProtos synthesized offline with seeded weights
-(SqueezeNet, ResNet-50, MobileNetV2, ViT, UNet, the audio encoder,
-BERT, GPT-2, Llama), the zoo that
+(SqueezeNet, ResNet-50, MobileNetV2, ViT, UNet, the audio encoder, the
+SSD detection head, BERT, GPT-2, Llama), the zoo that
 names them (`get_model_path`), and the decoder-family registry that
 generate.Generator and serving.DecodeServer build their graphs through."""
 
@@ -10,6 +10,7 @@ from .mobilenet import build_mobilenetv2  # noqa: F401
 from .vit import ViTConfig, build_vit  # noqa: F401
 from .unet import UNetConfig, build_unet  # noqa: F401
 from .audio import AudioEncoderConfig, build_audio_encoder  # noqa: F401
+from .detection import DetectionConfig, build_detection  # noqa: F401
 from .gpt2 import GPT2Config, build_gpt2, build_gpt2_decode  # noqa: F401
 from .bert import BertConfig, build_bert  # noqa: F401
 from .llama import LlamaConfig, build_llama, build_llama_decode  # noqa: F401

@@ -24,7 +24,7 @@ _ASSETS = os.path.join(_REPO, "assets", "torch")
 # models whose files the repository does not ship yet
 NOT_SHIPPED = {"mnist": "mnist-8.onnx", "matmul_2d": "model.onnx"}
 # families of the JAX zoo that the port has no builder for yet
-NOT_PORTED = ("t5_encoder", "moe", "detection", "asr_encoder")
+NOT_PORTED = ("t5_encoder", "moe", "asr_encoder")
 
 
 def _synth(name: str, build: Callable) -> str:
@@ -82,6 +82,13 @@ def _audio_path() -> str:
                                               n_samples=1024))
 
 
+def _detection_path() -> str:
+    from .detection import TINY, build_detection
+
+    return _synth("detection-ssd.synth",
+                  lambda: build_detection(TINY, batch=1))
+
+
 def _llama_path() -> str:
     from .llama import TINY, build_llama
 
@@ -125,6 +132,7 @@ MODELS: Dict[str, Callable[[], str]] = {
     "vit": _vit_path,
     "unet": _unet_path,
     "audio_encoder": _audio_path,
+    "detection": _detection_path,
     "llama": _llama_path,
     "gpt2": _gpt2_path,
     **{name: _not_ported(name) for name in NOT_PORTED},

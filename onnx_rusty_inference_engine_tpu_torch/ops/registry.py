@@ -47,9 +47,9 @@ def register(*op_types: str, domain: str = ""):
 def _load_emitters() -> None:
     """Import the emitter modules, whose `register` calls fill the
     registry (once; later calls find them imported)."""
-    from . import (contrib_transformers, control_flow,  # noqa: F401
-                   core_attention, extra, fused, quantized, rnn, sequences,
-                   standard)
+    from . import (bounded, contrib_transformers, control_flow,  # noqa: F401
+                   core_attention, extra, fused, losses, ml, quantized, rnn,
+                   sequences, standard, vision_roi)
 
 
 def get_emitter(op_type: str, domain: str = "") -> Callable:
@@ -176,6 +176,18 @@ class LoweringContext:
             t = self.statics[k] = torch.as_tensor(np.asarray(make()),
                                                   device=self.device)
         return t
+
+    def host_constant(self, key: str, make):
+        """A host object an emitter derives from its node alone (the tree
+        ensembles' tables): made once per input signature and scope where
+        the run keeps its static values (`statics`), else made now."""
+        if self.statics is None:
+            return make()
+        k = ("__host__", self.scope, key)
+        hit = self.statics.get(k)
+        if hit is None:
+            hit = self.statics[k] = make()
+        return hit
 
     def run_nodes(self, nodes) -> None:
         """Run `nodes` in order into `env`: Shape/Size of a tensor and the

@@ -106,6 +106,16 @@ def promote(*xs):
     return tuple(x.to(dt) if isinstance(x, torch.Tensor) else x for x in xs)
 
 
+def true_div(a, c: float):
+    """a / c as a true division on every device: on the card PyTorch turns
+    a division by a Python number into a multiply by its reciprocal, one
+    rounding more, which moves a sample point or a bin boundary by an ulp
+    against the CPU. Numpy arrays divide as they are."""
+    if not isinstance(a, torch.Tensor):
+        return a / c
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
+
+
 def _torch_dtype(np_dtype) -> torch.dtype:
     """The torch dtype of a numpy dtype (bool, ints, floats)."""
     return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype

@@ -20,7 +20,7 @@ arithmetic, line for line, so both packages pack the same bytes and
 scales. Dynamic W8A8 (`quantize_matmuls_w8a8`) is the JAX package's
 rewrite node for node, with the same constants bit for bit. The "mse"
 calibration method and `bias_correct` are the JAX package's algorithms on
-the port's engine. Not ported yet: int4 over a Scan body.
+the port's engine.
 """
 
 from __future__ import annotations

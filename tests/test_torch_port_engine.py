@@ -267,10 +267,11 @@ def test_no_card_no_silent_cpu():
 
 
 def test_unported_ops_and_dtypes_raise_at_build():
-    b = GraphBuilder("nonzero", opset=13)
+    # CastMap: the one spec op neither package has (docs/spec_ops_*.txt)
+    b = GraphBuilder("castmap", opset=13)
     x = b.input("x", [2, 4])
-    b.output(b.node("NonZero", [x], ["y"])[0])
-    with pytest.raises(UnsupportedOpError, match="NonZero"):
+    b.output(b.node("CastMap", [x], ["y"], domain="ai.onnx.ml")[0])
+    with pytest.raises(UnsupportedOpError, match="CastMap"):
         Engine(to_port(b.model()), device="cpu")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         Engine(to_port(_narrow_model(13)), device="cpu", dtype="float16")

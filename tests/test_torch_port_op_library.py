@@ -1,15 +1,18 @@
 """The port's op library against the JAX package's emitters, one node at a
-time on the CPU: every op the port took over from ops/standard.py and
-ops/extra.py (tests/torch_port_oplib.py's CASES), on the same inputs from
-a seeded numpy generator.
+time on the CPU: every op the port took over from ops/standard.py,
+ops/extra.py, ops/bounded.py, ops/losses.py, ops/vision_roi.py and
+ops/ml.py (tests/torch_port_oplib.py's CASES), on the same inputs from a
+seeded numpy generator.
 
 Tolerances, per case in the table: integer, boolean and index outputs
 exact (TopK ties and ArgMax's select_last_index included); elementwise
 float ops rtol 1e-5, atol 1e-6; sums and products over tens of terms
-(reductions, norms, ConvTranspose, Einsum) rtol = atol = 1e-5; transforms
-(DFT, STFT) rtol = atol = 1e-4. Where the JAX emitter breaks the ONNX spec
-(SPEC_CASES) the port is held to a numpy reference of the spec at the
-case's tolerance, and the JAX emitter is shown to differ. The random ops
+(reductions, norms, ConvTranspose, Einsum, losses, the ml products)
+rtol = atol = 1e-5; transforms (DFT, STFT) rtol = atol = 1e-4; RoiAlign
+rtol 1e-4, atol 1e-5 and DeformConv 1e-3, 1e-4 (test_roi_ops.py's).
+Where the JAX emitter breaks the ONNX spec (SPEC_CASES) the port is held
+to a numpy reference of the spec at the case's tolerance, and the JAX
+emitter is shown to differ. The random ops
 are held to their contract: the same node gives the same tensor on every
 run (a seeded node on any graph; a seedless one by its output's name), and
 the draws have the moments of their distribution (mean and standard
@@ -17,8 +20,8 @@ deviation within 5 standard errors; Bernoulli and Multinomial frequencies
 within 5 standard errors of p).
 
 The structural tests pin the registry: every op the port registers has a
-case in some test_torch_port_* table, and the JAX registry's ops the port
-lacks are exactly the queued modules' 24.
+case in some test_torch_port_* table, and the port's registry is the JAX
+registry's 223 op types.
 """
 
 import glob
@@ -259,30 +262,15 @@ def test_random_moments():
 # ---------------------------------------------------------------------------
 # the registry
 # ---------------------------------------------------------------------------
-# the JAX package's ops the port has not taken over yet: ops/bounded.py,
-# ops/losses.py, ops/vision_roi.py and ops/ml.py (ROADMAP 1.7)
-QUEUED = {
-    "bounded": ["Compress", "NonMaxSuppression", "NonZero", "Unique"],
-    "losses": ["NegativeLogLikelihoodLoss", "SoftmaxCrossEntropyLoss"],
-    "vision_roi": ["DeformConv", "MaxRoiPool", "RoiAlign"],
-    "ml": ["ArrayFeatureExtractor", "Binarizer", "FeatureVectorizer",
-           "Imputer", "LabelEncoder", "LinearClassifier", "LinearRegressor",
-           "Normalizer", "OneHotEncoder", "SVMClassifier", "SVMRegressor",
-           "Scaler", "TreeEnsemble", "TreeEnsembleClassifier",
-           "TreeEnsembleRegressor"],
-}
-
-
-def test_port_lacks_exactly_the_queued_ops():
+def test_port_registry_is_the_jax_registry():
+    """The port registers every op type of the JAX registry (223, with
+    the ops it runs only as static values) and no other."""
     import onnx_rusty_inference_engine_tpu.ops  # noqa: F401
     from onnx_rusty_inference_engine_tpu.ops.registry import (
         supported_ops as j_supported)
 
-    missing = set(j_supported()) - set(supported_ops())
-    assert missing == {op for ops in QUEUED.values() for op in ops}
-    assert len(missing) == 24
-    assert len(supported_ops()) == len(j_supported()) - 24 == 199
-    assert not set(supported_ops()) - set(j_supported())
+    assert supported_ops() == j_supported()
+    assert len(supported_ops()) == 223
 
 
 def test_every_port_op_has_a_case():

@@ -1,6 +1,8 @@
 """One-node cases of every op the port's op library took over from the JAX
-package's ops/standard.py, ops/extra.py, ops/contrib_transformers.py and
-ops/core_attention.py: the op, its inputs (graph inputs, and initializers
+package's ops/standard.py, ops/extra.py, ops/contrib_transformers.py,
+ops/core_attention.py, ops/bounded.py, ops/losses.py, ops/vision_roi.py
+and ops/ml.py (numeric labels only: string labels run on the host): the
+op, its inputs (graph inputs, and initializers
 for what must be known before the run), its attributes and the tolerance a
 float output is held to (None: exact, as integer, boolean and index
 outputs always are).
@@ -512,6 +514,217 @@ def _rope_caches(r, max_pos, half):
     return np.cos(ang), np.sin(ang)
 
 
+# ---------------------------------------------------------------------------
+# ops/bounded.py, ops/losses.py, ops/vision_roi.py, ops/ml.py
+# ---------------------------------------------------------------------------
+ROI = (1e-4, 1e-5)      # test_roi_ops.py's bounds
+DEFORM = (1e-3, 1e-4)
+ML = "ai.onnx.ml"
+
+
+def forest_attrs(r: np.random.Generator, n_trees: int, depth: int,
+                 n_feat: int, n_out: int, kind: str = "target",
+                 weight_scale: float = 1.0) -> dict:
+    """Random full binary trees of one depth in the ai.onnx.ml v3
+    attribute form (`kind` "target" for the regressor, "class" for the
+    classifier): nodes numbered breadth first per tree (node i's children
+    2i + 1 and 2i + 2), every node BRANCH_LEQ on a random feature and
+    threshold, missing values going either way; n_out leaf weights per
+    leaf."""
+    n_int, n_node = 2 ** depth - 1, 2 ** (depth + 1) - 1
+    ids = np.arange(n_node)
+    internal = ids < n_int
+    feats = np.where(internal, r.integers(0, n_feat, (n_trees, n_node)), 0)
+    values = np.where(internal, r.standard_normal((n_trees, n_node)), 0.0)
+    miss = np.where(internal, r.integers(0, 2, (n_trees, n_node)), 0)
+    leaves = ids[~internal]
+    n_leaf = leaves.size
+    attrs = {
+        "nodes_treeids": np.repeat(np.arange(n_trees), n_node).tolist(),
+        "nodes_nodeids": np.tile(ids, n_trees).tolist(),
+        "nodes_featureids": feats.reshape(-1).tolist(),
+        "nodes_modes": (["BRANCH_LEQ"] * n_int + ["LEAF"] * n_leaf)
+        * n_trees,
+        "nodes_values": values.astype(np.float32).reshape(-1).tolist(),
+        "nodes_truenodeids": np.tile(np.where(internal, 2 * ids + 1, 0),
+                                     n_trees).tolist(),
+        "nodes_falsenodeids": np.tile(np.where(internal, 2 * ids + 2, 0),
+                                      n_trees).tolist(),
+        "nodes_missing_value_tracks_true": miss.reshape(-1).tolist(),
+        f"{kind}_treeids": np.repeat(np.arange(n_trees),
+                                     n_leaf * n_out).tolist(),
+        f"{kind}_nodeids": np.tile(np.repeat(leaves, n_out),
+                                   n_trees).tolist(),
+        f"{kind}_ids": np.tile(np.arange(n_out),
+                               n_trees * n_leaf).tolist(),
+        f"{kind}_weights": (r.standard_normal(n_trees * n_leaf * n_out)
+                            * weight_scale).astype(np.float32).tolist(),
+    }
+    return attrs
+
+
+def _bounded_losses_roi() -> List[Case]:
+    r = _rng("bounded")
+    x = _f(r, 3, 4) * (r.random((3, 4)) > 0.5)
+    out = [case("NonZero", "NonZero", {"x": x}, tol=None),
+           case("NonZero_bool", "NonZero", {"x": r.random(7) > 0.5},
+                tol=None)]
+    xc = _f(r, 4, 5)
+    out.append(case("Compress_axis1", "Compress", {"x": xc},
+                    {"cond": r.random(5) > 0.5}, tol=None, axis=1))
+    out.append(case("Compress_flat", "Compress", {"x": xc},
+                    {"cond": r.random(20) > 0.5}, tol=None))
+    xu = r.integers(0, 6, 16).astype(np.int64)
+    for srt in (1, 0):
+        out.append(case(f"Unique_sorted{srt}", "Unique", {"x": xu},
+                        opset=11, n_out=4, tol=None, sorted=srt))
+    boxes = (r.random((2, 20, 4)) * 10).astype(np.float32)
+    scores = r.random((2, 3, 20)).astype(np.float32)
+    nms = {"max_out": np.array(5, np.int64),
+           "iou": np.array(0.5, np.float32),
+           "score": np.array(0.2, np.float32)}
+    out.append(case("NonMaxSuppression", "NonMaxSuppression",
+                    {"boxes": boxes, "scores": scores}, nms, opset=11,
+                    tol=None))
+    centers = np.concatenate([boxes[..., :2], boxes[..., 2:] / 3], -1)
+    out.append(case("NonMaxSuppression_center", "NonMaxSuppression",
+                    {"boxes": centers, "scores": scores}, nms, opset=11,
+                    tol=None, center_point_box=1))
+
+    logp = np.log(r.dirichlet(np.ones(5), size=(4, 3))).astype(np.float32)
+    logp = np.moveaxis(logp, -1, 1).copy()
+    t = r.integers(0, 5, (4, 3)).astype(np.int64)
+    out.append(case("NegativeLogLikelihoodLoss",
+                    "NegativeLogLikelihoodLoss", {"logp": logp, "t": t},
+                    {"w": _f(r, 5, lo=0.5, hi=2.0)}, tol=F32_SUM,
+                    ignore_index=2))
+    sc = _f(r, 6, 7, scale=3.0)
+    ts = r.integers(0, 7, 6).astype(np.int64)
+    ts[::3] = -100
+    out.append(case("SoftmaxCrossEntropyLoss_none",
+                    "SoftmaxCrossEntropyLoss", {"s": sc, "t": ts},
+                    n_out=2, tol=F32_SUM, reduction="none",
+                    ignore_index=-100))
+    out.append(case("SoftmaxCrossEntropyLoss_mean",
+                    "SoftmaxCrossEntropyLoss",
+                    {"s": _f(r, 3, 6, 4), "t": r.integers(
+                        0, 6, (3, 4)).astype(np.int64)},
+                    {"w": _f(r, 6, lo=0.2, hi=1.5)}, tol=F32_SUM))
+
+    xr = _f(r, 2, 3, 12, 10)
+    rois = np.array([[0.4, 1.1, 7.2, 9.0], [2.0, 0.0, 9.5, 5.5],
+                     [-1.0, 0.0, 9.9, 11.9]], np.float32)
+    bidx = np.array([0, 1, 1], np.int64)
+    out.append(case("RoiAlign_avg", "RoiAlign",
+                    {"x": xr, "rois": rois, "b": bidx}, tol=ROI,
+                    output_height=4, output_width=3, sampling_ratio=2,
+                    spatial_scale=1.0))
+    out.append(case("RoiAlign_max", "RoiAlign",
+                    {"x": xr, "rois": rois, "b": bidx}, tol=ROI,
+                    output_height=2, output_width=3, sampling_ratio=3,
+                    spatial_scale=0.5, mode="max",
+                    coordinate_transformation_mode="output_half_pixel"))
+    out.append(case("RoiAlign_adaptive", "RoiAlign", {"x": xr},
+                    {"rois": rois[:2], "b": bidx[:2]}, tol=ROI,
+                    output_height=3, output_width=3, sampling_ratio=0))
+    out.append(case("MaxRoiPool", "MaxRoiPool", {"x": _f(r, 2, 3, 9, 11)},
+                    {"rois": np.array([[0, 1.0, 1.0, 8.0, 6.0],
+                                       [1, 0.0, 0.0, 10.0, 8.0],
+                                       [0, 4.0, 4.0, 4.0, 4.0]],
+                                      np.float32)},
+                    tol=F32, pooled_shape=[3, 4], spatial_scale=1.0))
+    N, C, H, W, M = 1, 4, 9, 8, 4
+    out.append(case("DeformConv", "DeformConv",
+                    {"x": _f(r, N, C, H, W),
+                     "off": _f(r, N, 2 * 2 * 3 * 2, 5, 10, scale=1.7)},
+                    {"w": _f(r, M, C // 2, 2, 3), "b": _f(r, M),
+                     "mask": _f(r, N, 2 * 2 * 3, 5, 10, lo=0.0, hi=1.0)},
+                    ins=["x", "w", "off", "b", "mask"], opset=19,
+                    tol=DEFORM, kernel_shape=[2, 3], strides=[2, 1],
+                    pads=[1, 2, 1, 2], dilations=[2, 1], group=2,
+                    offset_group=2))
+    return out
+
+
+def _ml() -> List[Case]:
+    r = _rng("ml")
+    x = _f(r, 6, 4)
+
+    def ml(cid, op, feeds, inits=None, tol=F32, **kw):
+        return case(cid, op, feeds, inits, domain=ML, tol=tol, **kw)
+
+    xn = x.copy()
+    xn[1, 2] = xn[4, 0] = np.nan
+    coef = _f(r, 3, 4)
+    sv = _f(r, 6, 4)
+    pairs = 3
+    out = [
+        ml("Scaler", "Scaler", {"x": x}, offset=[0.5, -1.0, 0.0, 2.0],
+           scale=[2.0, 1.0, 0.5, -1.0]),
+        ml("Normalizer", "Normalizer", {"x": x}, norm="L2"),
+        ml("Binarizer", "Binarizer", {"x": x}, threshold=0.3),
+        ml("Imputer", "Imputer", {"x": xn},
+           imputed_value_floats=[1.0, 2.0, 3.0, 4.0]),
+        ml("ArrayFeatureExtractor", "ArrayFeatureExtractor", {"x": x},
+           {"idx": np.array([3, 0, 2, 9], np.int64)}),
+        ml("FeatureVectorizer", "FeatureVectorizer",
+           {"a": x, "b": r.integers(0, 4, (6, 2)).astype(np.int64)},
+           inputdimensions=[3, 3]),
+        ml("OneHotEncoder", "OneHotEncoder",
+           {"x": r.integers(0, 5, (6, 2)).astype(np.int64)},
+           cats_int64s=[1, 2, 4]),
+        ml("LabelEncoder", "LabelEncoder",
+           {"x": r.integers(0, 5, (6, 2)).astype(np.int64)},
+           keys_int64s=[1, 2, 4], values_floats=[0.5, -1.5, 2.5],
+           default_float=9.0),
+        ml("LinearRegressor", "LinearRegressor", {"x": x}, tol=F32_SUM,
+           coefficients=coef[:2].reshape(-1).tolist(),
+           intercepts=[0.5, -0.5], targets=2),
+        ml("LinearClassifier", "LinearClassifier", {"x": x}, n_out=2,
+           tol=F32_SUM, coefficients=coef.reshape(-1).tolist(),
+           intercepts=[0.1, 0.0, -0.1], classlabels_int64s=[7, 8, 9],
+           post_transform="SOFTMAX"),
+        ml("SVMRegressor", "SVMRegressor", {"x": x}, tol=F32_SUM,
+           coefficients=_f(r, 6).tolist(),
+           support_vectors=sv.reshape(-1).tolist(), n_supports=6,
+           rho=[0.05], kernel_type="RBF", kernel_params=[0.4, 0.0, 3.0]),
+        ml("SVMClassifier_coupling", "SVMClassifier", {"x": x}, n_out=2,
+           tol=F32_SUM, coefficients=_f(r, 12).tolist(),
+           support_vectors=sv.reshape(-1).tolist(),
+           vectors_per_class=[2, 2, 2], rho=[0.1, -0.2, 0.05],
+           kernel_type="RBF", kernel_params=[0.5, 0.0, 3.0],
+           prob_a=(-_f(r, pairs, lo=0.8, hi=1.6)).tolist(),
+           prob_b=_f(r, pairs, scale=0.1).tolist(),
+           classlabels_int64s=[0, 1, 2]),
+        ml("SVMClassifier_votes", "SVMClassifier", {"x": x}, n_out=2,
+           tol=F32_SUM, coefficients=_f(r, 12).tolist(),
+           support_vectors=sv.reshape(-1).tolist(),
+           vectors_per_class=[2, 2, 2], rho=[0.1, -0.2, 0.05],
+           kernel_type="POLY", kernel_params=[0.5, 0.1, 2.0],
+           classlabels_int64s=[10, 20, 30]),
+        ml("TreeEnsembleRegressor", "TreeEnsembleRegressor", {"x": xn},
+           tol=F32_SUM, n_targets=2, base_values=[0.25, -0.5],
+           **forest_attrs(r, 4, 3, 4, 2)),
+    ]
+    binary = forest_attrs(r, 3, 3, 4, 1, kind="class")
+    binary["class_ids"] = [1] * len(binary["class_ids"])
+    out.append(ml("TreeEnsembleClassifier", "TreeEnsembleClassifier",
+                  {"x": xn}, n_out=2, tol=F32_SUM,
+                  classlabels_int64s=[0, 1], post_transform="LOGISTIC",
+                  **binary))
+    out.append(ml("TreeEnsemble", "TreeEnsemble", {"x": x[:, :2]},
+                  tol=F32_SUM, nodes_featureids=[0, 0, 1],
+                  nodes_splits=np.array([0.0, 0.5, -0.2], np.float32),
+                  nodes_modes=np.array([0, 1, 2], np.uint8),
+                  nodes_truenodeids=[0, 1, 3], nodes_falsenodeids=[1, 2, 4],
+                  nodes_trueleafs=[1, 1, 1], nodes_falseleafs=[0, 1, 1],
+                  tree_roots=[0, 2], leaf_targetids=[0, 1, 0, 1, 0],
+                  leaf_weights=np.array([1.5, 2.5, 4.0, -1.0, 0.5],
+                                        np.float32),
+                  n_targets=2, aggregate_function=1))
+    return out
+
+
 def _attention() -> List[Case]:
     out = []
     r = _rng("attention")
@@ -765,7 +978,7 @@ def _random() -> List[Case]:
     ]
 
 
-CASES = _standard() + _extra()
+CASES = _standard() + _extra() + _bounded_losses_roi() + _ml()
 ATTENTION_CASES = _attention()
 SPEC_CASES = _spec()
 SPEC_REFS = _spec_refs()
