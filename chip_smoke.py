@@ -21,7 +21,7 @@ Phases, each printing JSON lines:
              forward: 17 on its TMA producer, 9 on its gather). The
              card's
              INT8 intermediates are held against the plain versions run on
-             the CPU for the first 8 images; which 4-D intermediates are
+             the CPU for the first 4 images; which 4-D intermediates are
              channels-last on the card, by op type. fp32 and INT8 images/s
              from CUDA events over warmed, device-resident runs.
 4. profile - where one fp32 and one INT8 forward spend device time, by
@@ -87,8 +87,8 @@ Phases, each printing JSON lines:
              0 just before, read just after: 73 qmatmul_int8 launches per
              INT8 forward (6 per layer + the pooler), all on its requant
              epilogue, and no other kernel.
-             The first 8 sequences re-run through the plain versions on the
-             CPU (a B = 8 build, quantized with the card's ranges): fp32
+             The first 4 sequences re-run through the plain versions on the
+             CPU (a B = 4 build, quantized with the card's ranges): fp32
              outputs within 1e-4 * max|out|; every QLinearMatMul, fed the
              card's own int8 input, equal to the card's output bit for bit;
              the INT8 outputs' mean |INT8 - fp32| on the card within 1.25x
@@ -145,7 +145,7 @@ Phases, each printing JSON lines:
              default_rng(0) and 64 new tokens each, at multi_step 0 and 8
              (a warm-up request per bucket first): the tokens of
              multi_step 8 equal multi_step 0's for every request;
-             agreement of the first 4 with an isolated batch-1 Generator
+             agreement of the first 2 with an isolated batch-1 Generator
              reported, not held; served tokens/s, p50/p99 request latency,
              a K-step replay's wall against its device busy time. Then
              InferenceServer on SqueezeNet 1.0 INT8 at 224x224, buckets
@@ -200,7 +200,7 @@ Phases, each printing JSON lines:
              launches' ms, GB/s and share of the bound beside the first
              design's recorded 3.482 ms), every
              QLinearAdd against its plain re-run on the CPU for the first
-             8 images; INT8 against fp32 at the JAX tests' bounds (ResNet:
+             4 images; INT8 against fp32 at the JAX tests' bounds (ResNet:
              top-1 equal or max |d| / max|ref| < 0.1; MobileNetV2: top-1
              or max |d| < 0.15; ViT: correlation > 0.95); channels-last
              kept through QLinearConv and QLinearAdd; images/s from
@@ -216,11 +216,12 @@ Phases, each printing JSON lines:
              weights, stacked KV cache) with INT4 planar weights and an
              INT8 KV cache, attention unfused (JAX takes no fused attention
              with scan_layers), against the per-layer Generator with the
-             same arguments: GPT-2 124M (all 12 layers) and Llama at
-             LlamaConfig()'s widths with 2 of 32 layers (so that the Scan
-             iterates), batch 8, 64-token prompts, max_len 256, 64 greedy
-             tokens. Counts set to 0 just before each form's main path and
-             read just after: 49 (Llama: 15) int4 launches per prefill and
+             same arguments: GPT-2 124M (all 12 layers: its Scan iterates
+             12 times) and Llama at LlamaConfig()'s widths with 1 of 32
+             layers (phase 18's depth and weights; its Scan runs once),
+             batch 8, 64-token prompts, max_len 256, 64 greedy tokens.
+             Counts set to 0 just before each form's main path and
+             read just after: 49 (Llama: 8) int4 launches per prefill and
              per step in both forms, each on the schedule int4_schedule
              picks, no other kernel; tokens equal; the prefill and 4
              teacher-forced steps of both forms equal bit for bit (logits
@@ -393,6 +394,54 @@ Phases, each printing JSON lines:
              test_roi_ops.py's bounds; SoftmaxCrossEntropyLoss over [8,
              50257, 128] with ignore_index -100 on 10% of targets, mean,
              against the CPU (rtol 2e-5). The phase's peak under 25 GB.
+6b. families - the model families at full width (its multi-LoRA path
+             after phase 8, on phase 6's Generator; the others after
+             19e), every decode step a captured graph, replayed,
+             weights from seed 0, inputs from default_rng(0); each path's
+             line has its rate, peak device memory
+             (max_memory_allocated) and launches. Multi-LoRA GPT-2 124M
+             (make_adapter_stack: 8 adapters of rank 16 over the attn and
+             mlp projections, alpha 16; INT4 weights, INT8 KV, fused
+             attention): adapter 0 on every row gives phase 6's logits bit
+             for bit, with 49 int4 and 12 attention launches per step; an
+             8-slot DecodeServer serves one request per adapter, each
+             token of it the pick of an isolated batch-1 Generator on that
+             adapter (16 new tokens), teacher-forced on the served
+             tokens with the server's KV scales, or a near-tie there (a
+             top-2 margin under NEAR_TIE of the logits' range: the server
+             decodes at M = 8), and not adapter 0's picks; an fp32 b8 x
+             128 prefill with row k on adapter k within 1e-4 x max|ref|
+             of fold_adapter(k)'s graph.
+             The MoE decoder at GPT-2 small's widths with Switch-base-8's
+             8 experts of d_ff 3072, MOE_LAYERS of 12 layers deep: the
+             fp32 b8 x 128 prefill's first 2 rows within 1e-5 x max|ref|
+             of the CPU, the routed-expert histogram and the smallest
+             router margin, 8 decode steps against the prefill (1e-4);
+             INT4 + INT8 KV, 16 new tokens, the host loop and
+             device_loop 8 with equal tokens, int4 launches per step the
+             decode graph's MatMulNBits count; an 8-slot server against
+             isolated runs, as for LoRA. T5-small (T5Config()) through
+             Seq2SeqGenerator at b16, src 512, max_len 128, 32 new
+             tokens: fp32, the first 2 rows' encoder output and cross K/V
+             and each teacher-forced step's logits within 1e-4 x max|ref|
+             of the CPU (T5_REL_TOL: T5's unscaled scores amplify
+             rounding, so that an fp32 run is ~3e-5 from a float64 one),
+             with the readings behind that bound (the CPU's and the
+             card's encoder against a float64 CPU run, and the card's
+             with TF32 on against the CPU); INT8 KV (calib_steps 4) with
+             INT4 weights, the
+             int8 cache and scales at the switch byte for byte numpy's
+             quantization of the card's own fp32 cache, int4 launches per
+             encoder call and per step each graph's MatMulNBits count.
+             Whisper-style ASR (ASRConfig(): whisper-tiny's front end and
+             encoder, 2 decoder layers) on 30 s clips at 16 kHz, b8, 32
+             new tokens, the first clip against the CPU at 1e-5, as T5
+             (fp32 and INT8 KV). The port's benchmarks/accuracy.py on
+             SqueezeNet 1.0 (8 x 32 held-out inputs): its three lines
+             (INT8 values reported, not held), 26 int8 conv launches per
+             INT8 forward, the fp32 top-1 of the first batch equal to the
+             CPU's (near-ties, a top-2 margin under 1e-4 of the range,
+             excused).
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
@@ -404,7 +453,9 @@ Phases, each printing JSON lines:
              sums per forward of its first model, the others in
              `qoperator_path`; launches from each form's own counts).
              qmatmul_int4_planar's row carries the GPT-2 scan form's step
-             in `scan_path`.
+             in `scan_path`; the rows of the kernels the families run
+             (int4 planar, decode attention, the int8 conv) carry their
+             launches by path in `families_path`.
 
 The whole run is one models.host_memo block: every GPT-2 and Llama graph
 of one config and seed (Generators, servers, precision schemes, export
@@ -1914,6 +1965,8 @@ OUTS = ("last_hidden_state", "pooler_output")
 
 
 def _rel_err(got, want) -> float:
+    """max|got - want| / max|want|, of tensors (on any device) or arrays."""
+    got, want = (torch.as_tensor(t).cpu() for t in (got, want))
     return float((got - want).abs().max() / want.abs().max())
 
 
@@ -4911,7 +4964,7 @@ def phase_export(smi: str) -> None:
 # --------------------------------------------------------------------------
 # Scan-over-layers decode: GPT-2 124M and Llama, scan form vs per-layer
 # --------------------------------------------------------------------------
-SCAN_LLAMA_LAYERS = 2      # of LlamaConfig()'s 32: the Scan iterates
+SCAN_LLAMA_LAYERS = 1      # of LlamaConfig()'s 32 (phase 18's depth)
 SCAN_STEP_REPS = 20        # replays per step timing
 
 
@@ -5050,8 +5103,8 @@ def _scan_form(cfg, family: str, per_step: int, prompts, label: str,
 
 def phase_scan_decode(smi: str) -> dict:
     """The scan-over-layers decode graphs on the card: GPT-2 124M (all 12
-    layers) and Llama at LlamaConfig()'s widths with SCAN_LLAMA_LAYERS of
-    its 32 layers (so that the Scan iterates), each through _scan_form;
+    layers: its Scan iterates) and Llama at LlamaConfig()'s widths with
+    SCAN_LLAMA_LAYERS of its 32 layers, each through _scan_form;
     one line per model. Returns the qmatmul_int4_planar numbers of one
     GPT-2 scan-form step (its kernel lines, with the Scan body's weights
     as the slices of the stacked weights each iteration gets) for the
@@ -6213,6 +6266,587 @@ def phase_detection_ml(smi: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# families: multi-LoRA GPT-2, the MoE decoder, T5-small and Whisper-style
+# ASR through Seq2SeqGenerator, and the INT8 accuracy benchmark
+# --------------------------------------------------------------------------
+LORA_ADAPTERS, LORA_RANK, LORA_ALPHA = 8, 16, 16.0
+LORA_NEW = 16
+LORA_FOLD_SEQ = 128        # the fp32 prefill held against fold_adapter
+MOE_LAYERS = 4             # of GPT-2 small's 12: the depth cut
+MOE_PROMPT, MOE_NEW, MOE_LOOP = 128, 16, 8
+MOE_DECODE_CHECK = 8       # decode steps held against the prefill
+T5_BATCH, T5_SRC, T5_MAX, T5_NEW = 16, 512, 128, 32
+ASR_BATCH, ASR_SAMPLES, ASR_MAX, ASR_NEW = 8, 480000, 32, 32
+ACC_MODEL, ACC_BATCHES, ACC_BATCH = "squeezenet", 8, 32
+FAM_REL_TOL = 1e-5         # x max|ref|: the card against the CPU
+# T5 scores are unscaled and its embeddings of std 1, so its encoder
+# amplifies rounding: at t5-small's widths an fp32 run is ~3e-5 x max from
+# a float64 one, and the JAX and PyTorch encoders part by 3.9e-5 on the CPU
+# (tests/test_torch_port_seq2seq.py::test_t5_small_encoder_parts_on_the_cpu;
+# the t5 line prints the card's and the CPU's distance from float64, and
+# the card's error with TF32 on)
+T5_REL_TOL = 1e-4
+NEAR_TIE = 1e-3            # x the logits' range: one INT8 KV code's reach
+
+
+def _fam_line(path: str, t0: float, smi: str, **kw) -> None:
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "families", "path": path, **kw, "peak_bytes": peak,
+          "peak_gb": peak / 1e9, "seconds": time.perf_counter() - t0,
+          "card": smi})
+
+
+def _mm_nbits(graph) -> int:
+    return sum(n.op_type == "MatMulNBits" for n in graph.nodes)
+
+
+def _wall(fn) -> tuple:
+    """(fn(), wall seconds of a synchronized run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _with_scales(gen, scales: dict):
+    """gen with the server's KV scales: a server calibrates its cache from
+    its first prompt, an isolated Generator from its own; with one set of
+    scales both quantize the same K/V to the same bytes."""
+    gen._kv_scales = dict(scales)
+    return gen
+
+
+def _served_vs_isolated(what: str, served: list, prompts, gen) -> dict:
+    """Each served request's tokens against the isolated Generator `gen`
+    (batch 1, on the server's KV scales), teacher-forced on the served
+    tokens: at every step gen's own greedy pick must be the served token,
+    or else the pick is a near-tie (gen's top-2 margin under NEAR_TIE of
+    its logits' range). The server decodes its slots at M = 8 and gen at
+    M = 1, and the card's products may sum in another order at another
+    M; through the INT8 cache, a last-bit difference can move a K/V code
+    by one step. Returns the picks checked and the near-ties met."""
+    picks, ties = 0, []
+    for k, got in enumerate(served):
+        logits, cache = gen.start(prompts[k][None])
+        lg = logits[:, -1]
+        for t, tok in enumerate(got):
+            if t:
+                lg, cache = gen.step(cache, torch.tensor(
+                    [got[t - 1]], device=gen.device), prompts.shape[1] + t - 1)
+                lg = lg[:, -1]
+            row = lg.cpu().numpy()[0]
+            picks += 1
+            if int(row.argmax()) != int(tok):
+                top2 = np.sort(row)[-2:]
+                margin = float((top2[1] - top2[0]) / (row.max() - row.min()))
+                ties.append({"request": k, "step": t, "rel_margin": margin})
+                require(margin < NEAR_TIE, f"{what}: request {k}'s served "
+                        f"token {t} is not its isolated pick (margin "
+                        f"{margin})")
+    return {"picks": picks, "near_ties": ties}
+
+
+def _fam_lora(gen, prompts, smi: str) -> dict:
+    """GPT-2 124M with a multi-LoRA bank on phase 6's path."""
+    from onnx_rusty_inference_engine_tpu_torch.engine import Engine
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+    from onnx_rusty_inference_engine_tpu_torch.graph import import_model
+    from onnx_rusty_inference_engine_tpu_torch.lora import (
+        attach_lora, fold_adapter, make_adapter_stack)
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import build_gpt2
+    from onnx_rusty_inference_engine_tpu_torch.serving import DecodeServer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, B, P = gen.cfg, prompts.shape[0], prompts.shape[1]
+    bank = make_adapter_stack(
+        import_model(build_gpt2(cfg, batch=1, seq_len=8,
+                                with_presents=False)),
+        n_adapters=LORA_ADAPTERS, rank=LORA_RANK, targets=("attn", "mlp"),
+        seed=0)
+    lkw = dict(lora_bank=bank, lora_alpha=LORA_ALPHA, kv_dtype="int8",
+               int4_weights=True, device="cuda")
+    # (a) adapter 0 on every row: phase 6's base Generator, bit for bit
+    lgen = Generator(cfg, batch=B, prompt_len=P, max_len=gen.max_len,
+                     fused_attention=True, adapter=0, **lkw)
+    n4, n4_pre = _mm_nbits(lgen.decode.graph), _mm_nbits(lgen.prefill.graph)
+    n_attn = sum(n.op_type == "FusedDecodeAttention"
+                 for n in lgen.decode.graph.nodes)
+    require(n4 == _mm_nbits(gen.decode.graph) == 4 * cfg.n_layer + 1
+            and n_attn == cfg.n_layer, f"lora: {n4} int4, {n_attn} attention")
+    want_toks, want_logits = gen.generate(prompts, LORA_NEW,
+                                          return_logits=True)
+    reset_counts()
+    toks, logits = lgen.generate(prompts, LORA_NEW, return_logits=True)
+    counts = read_counts()
+    steps = LORA_NEW - 1
+    require(all(np.array_equal(a, b) for a, b in zip(logits, want_logits))
+            and np.array_equal(toks, want_toks),
+            "lora: adapter 0's logits bit for bit those of the base")
+    require(counts["qmatmul_int4_planar"] == n4_pre + n4 * steps
+            and counts["decode_attention_int8"] == n_attn * steps,
+            f"lora: 49 int4 and 12 attention launches per step: {counts}")
+    _, wall = _wall(lambda: lgen.generate(prompts, LORA_NEW))
+    _, wall_base = _wall(lambda: gen.generate(prompts, LORA_NEW))
+    del lgen
+    # (b) one request per adapter through an 8-slot server, each against
+    # an isolated Generator on its adapter
+    srv = DecodeServer(cfg, slots=LORA_ADAPTERS, prompt_len=P,
+                       max_len=P + LORA_NEW, **lkw)
+    try:
+        futs = [srv.submit(prompts[k % B], LORA_NEW, adapter=k)
+                for k in range(LORA_ADAPTERS)]
+        served, swall = _wall(lambda: [f.result(timeout=600)
+                                        for f in futs])
+        scales = srv._kv_scales
+    finally:
+        srv.stop()
+    iso = _with_scales(Generator(cfg, batch=1, prompt_len=P,
+                                 max_len=P + LORA_NEW, **lkw), scales)
+    vs_iso = {"picks": 0, "near_ties": []}
+    for k in range(LORA_ADAPTERS):
+        iso._lora_idx.fill_(k)
+        one = _served_vs_isolated("lora", served[k:k + 1],
+                                  prompts[k % B:k % B + 1], iso)
+        vs_iso["picks"] += one["picks"]
+        vs_iso["near_ties"] += [dict(t, request=k)
+                                for t in one["near_ties"]]
+    # the control: the last request's tokens are not adapter 0's picks
+    iso._lora_idx.fill_(0)
+    k = LORA_ADAPTERS - 1
+    logits, cache = iso.start(prompts[k % B][None])
+    control = int(logits[0, -1].argmax() != served[k][0])
+    for t in range(1, LORA_NEW):
+        lg, cache = iso.step(cache, torch.tensor([served[k][t - 1]],
+                                                 device=iso.device), P + t - 1)
+        control += int(lg[0, -1].argmax() != served[k][t])
+    require(control > 0, "lora: the adapters change the picks")
+    del iso
+    # (c) fp32 base, one prefill: adapter k's rows against fold_adapter(k)
+    g = import_model(build_gpt2(cfg, batch=LORA_ADAPTERS,
+                                seq_len=LORA_FOLD_SEQ, with_presents=False))
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LORA_ADAPTERS, LORA_FOLD_SEQ)), device="cuda")
+    with torch.no_grad():
+        out = Engine(attach_lora(g, bank, alpha=LORA_ALPHA),
+                     device="cuda").forward({
+            "input_ids": ids, "lora_idx": torch.arange(
+                LORA_ADAPTERS, device="cuda")})["logits"]
+        base = Engine(g, device="cuda")
+        fold_err = []
+        for k in range(LORA_ADAPTERS):
+            ref = Engine(fold_adapter(g, bank, k, alpha=LORA_ALPHA),
+                         device="cuda", share_params_with=base).forward(
+                {"input_ids": ids})["logits"][k]
+            fold_err.append(_rel_err(out[k], ref))
+    del base
+    require(max(fold_err) <= 1e-4, f"lora vs fold_adapter: {fold_err}")
+    _fam_line("multi_lora_gpt2", t0, smi, model="gpt2 124M (seed 0)",
+              bank={"adapters": LORA_ADAPTERS, "rank": LORA_RANK,
+                    "targets": len(bank), "alpha": LORA_ALPHA},
+              batch=B, prompt=P, new_tokens=LORA_NEW,
+              adapter0_bit_equal=True, launches=counts,
+              per_step={"qmatmul_int4_planar": n4,
+                        "decode_attention_int8": n_attn},
+              tokens_per_s=B * LORA_NEW / wall,
+              base_tokens_per_s=B * LORA_NEW / wall_base,
+              served_tokens_per_s=LORA_ADAPTERS * LORA_NEW / swall,
+              served_vs_isolated=vs_iso,
+              control_picks_unlike_adapter0=control,
+              fold_rel_err=fold_err, bound="1e-4 x max|ref|")
+    return {"qmatmul_int4_planar": {
+                "launches": counts["qmatmul_int4_planar"], "per_step": n4},
+            "decode_attention_int8": {
+                "launches": counts["decode_attention_int8"],
+                "per_step": n_attn}}
+
+
+def _device_loop_logits(gen, prompts, n_new: int) -> tuple:
+    """gen.generate(prompts, n_new) on its device loop, with the logits of
+    every pick: (tokens, logits [n_new, B, V], the buffers). Each pick's
+    logits are copied, inside the blocks' graph, into row `at % rows` of a
+    buffer, `at` counting on the device, so the replays record them too.
+    The graph keeps writing there on later replays: the caller holds the
+    buffers as long as gen."""
+    rows = n_new + gen.device_loop
+    buf = torch.zeros((rows, gen.batch, gen.cfg.vocab_size),
+                      device=gen.device)
+    at = torch.zeros((1,), dtype=torch.int64, device=gen.device)
+    select = gen._select
+
+    def recording(logits, *args, **kw):
+        buf.index_copy_(0, torch.remainder(at, rows),
+                        logits[None].to(torch.float32))
+        at.add_(1)
+        return select(logits, *args, **kw)
+
+    gen._select = recording
+    try:
+        toks, _ = gen.generate(prompts, n_new)
+    finally:
+        del gen._select
+    return toks, buf[:n_new].cpu().numpy(), (buf, at)
+
+
+def _moe_config():
+    from onnx_rusty_inference_engine_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig(vocab_size=50257, n_positions=1024, n_embd=768,
+                     n_head=12, n_expert=8, d_ff=3072, n_layer=MOE_LAYERS)
+
+
+def _fam_moe(smi: str) -> dict:
+    """GPT-2 small's widths with Switch-base-8's experts, MOE_LAYERS deep."""
+    from onnx_rusty_inference_engine_tpu_torch.engine import Engine
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+    from onnx_rusty_inference_engine_tpu_torch.graph import import_model
+    from onnx_rusty_inference_engine_tpu_torch.models.moe import build_moe
+    from onnx_rusty_inference_engine_tpu_torch.serving import DecodeServer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _moe_config()
+    B, P, ML = 8, MOE_PROMPT, MOE_PROMPT + MOE_NEW
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))
+    ids = torch.as_tensor(prompts, device="cuda")
+    # fp32 weights: the prefill against the CPU, the routing, and the
+    # cached decode against the prefill
+    g32 = Generator(cfg, family="moe", batch=B, prompt_len=P, max_len=ML,
+                    device="cuda")
+    with torch.no_grad():
+        pre = g32.prefill.forward({"input_ids": ids})
+        cpu = Engine(import_model(build_moe(
+            cfg, batch=FAMILY_CPU, seq_len=P, with_presents=True)),
+            device="cpu").run({"input_ids": prompts[:FAMILY_CPU]}).outputs
+        n_cpu = FAMILY_CPU * P
+        pre_err = _rel_err(pre["logits"][:FAMILY_CPU], cpu["logits"])
+        hist, margin, route_equal = [], [], True
+        for i in range(cfg.n_layer):
+            rp = pre[f"router_probs_{i}"].cpu().numpy()
+            hist.append(np.bincount(rp.argmax(-1),
+                                    minlength=cfg.n_expert).tolist())
+            top2 = np.sort(rp, axis=-1)[:, -2:]
+            margin.append(float((top2[:, 1] - top2[:, 0]).min()))
+            route_equal &= bool(np.array_equal(
+                rp[:n_cpu].argmax(-1), cpu[f"router_probs_{i}"].argmax(-1)))
+        require(pre_err <= FAM_REL_TOL,
+                f"moe prefill vs the CPU: {pre_err} (routing equal: "
+                f"{route_equal}, smallest margins {margin})")
+        cache = {s.name: torch.zeros(s.concrete_shape(batch=B),
+                                     device="cuda")
+                 for s in g32.decode.graph.inputs
+                 if s.name.startswith("past_")}
+        dec_err = []
+        for t in range(MOE_DECODE_CHECK):
+            o = g32.decode.forward({
+                "input_ids": ids[:, t:t + 1].contiguous(),
+                "pos": torch.full((B,), t, dtype=torch.int64,
+                                  device="cuda"), **cache})
+            cache = {k: o[k.replace("past_", "present_")] for k in cache}
+            dec_err.append(_rel_err(o["logits"][:, 0], pre["logits"][:, t]))
+        require(max(dec_err) <= 1e-4, f"moe decode vs prefill: {dec_err}")
+    del g32, pre, cache, o
+    # INT4 weights + INT8 KV: the host loop and the device loop
+    gen = Generator(cfg, family="moe", batch=B, prompt_len=P, max_len=ML,
+                    kv_dtype="int8", int4_weights=True,
+                    device_loop=MOE_LOOP, device="cuda")
+    n4, n4_pre = _mm_nbits(gen.decode.graph), _mm_nbits(gen.prefill.graph)
+    reset_counts()
+    host_toks, host_logits = gen.generate(prompts, MOE_NEW,
+                                          return_logits=True)
+    counts = read_counts()
+    require(counts["qmatmul_int4_planar"] == n4_pre + n4 * (MOE_NEW - 1),
+            f"moe: {n4} int4 launches per step: {counts}")
+    loop_toks, loop_logits, held = _device_loop_logits(gen, prompts,
+                                                       MOE_NEW)
+    want = np.stack([host_logits[0][:, -1]]
+                    + [x[:, -1] for x in host_logits[1:]])
+    require(np.array_equal(loop_toks, host_toks)
+            and np.array_equal(loop_logits, want),
+            "moe: device_loop tokens and logits bit for bit the host loop's")
+    _, wall_loop = _wall(lambda: gen.generate(prompts, MOE_NEW))
+    gen.device_loop = 0
+    try:
+        _, wall_host = _wall(lambda: gen.generate(prompts, MOE_NEW))
+    finally:
+        gen.device_loop = MOE_LOOP
+    del gen, held
+    # the server against isolated runs (on the server's KV scales)
+    srv = DecodeServer(cfg, family="moe", slots=B, prompt_len=P,
+                       max_len=ML, kv_dtype="int8", int4_weights=True,
+                       device="cuda")
+    try:
+        futs = [srv.submit(prompts[k], MOE_NEW) for k in range(B)]
+        served, swall = _wall(lambda: [f.result(timeout=600)
+                                        for f in futs])
+        scales = srv._kv_scales
+    finally:
+        srv.stop()
+    iso = _with_scales(Generator(cfg, family="moe", batch=1, prompt_len=P,
+                                 max_len=ML, kv_dtype="int8",
+                                 int4_weights=True, device="cuda"), scales)
+    vs_iso = _served_vs_isolated("moe", served, prompts, iso)
+    del iso
+    _fam_line("moe_decoder", t0, smi, model=dataclasses.asdict(cfg),
+              depth_cut=f"{cfg.n_layer} of 12 layers", batch=B, prompt=P,
+              new_tokens=MOE_NEW, prefill_rel_err_vs_cpu=pre_err,
+              routing_equal_cpu=route_equal, expert_histogram=hist,
+              smallest_router_margin=margin, decode_vs_prefill=dec_err,
+              launches=counts, int4_per_step=n4, int4_per_prefill=n4_pre,
+              device_loop=MOE_LOOP, device_loop_logits_bit_equal=True,
+              tokens_per_s_host_loop=B * MOE_NEW / wall_host,
+              tokens_per_s_device_loop=B * MOE_NEW / wall_loop,
+              served_tokens_per_s=B * MOE_NEW / swall,
+              served_vs_isolated=vs_iso, bound="1e-5 x max|ref|")
+    return {"qmatmul_int4_planar": {
+        "launches": counts["qmatmul_int4_planar"], "per_step": n4}}
+
+
+def _teacher_forced(gen, src, toks, rows: int) -> tuple:
+    """gen encodes src and steps through the reference's greedy tokens
+    (row r takes the reference's row r % rows): (encoder outputs, the
+    logits of every step)."""
+    enc = gen.start(src)
+    B = src.shape[0]
+    feed = np.zeros((B,), np.int64)
+    logits = []
+    for t in range(toks.shape[1]):
+        logits.append(gen.step(torch.as_tensor(
+            feed, device=gen.device)).cpu().numpy()[:rows, 0])
+        feed = toks[np.arange(B) % rows, t]
+    return enc, logits
+
+
+def _cpu_greedy(gen, src, n_new: int) -> tuple:
+    """The CPU's greedy run through start/step: (encoder outputs, tokens
+    [rows, n_new], logits of every step)."""
+    enc = gen.start(src)
+    tok = torch.zeros((src.shape[0],), dtype=torch.int64)
+    toks, logits = [], []
+    for _ in range(n_new):
+        lg = gen.step(tok)[:, 0]
+        logits.append(lg.numpy())
+        tok = lg.argmax(-1)
+        toks.append(tok.numpy())
+    return enc, np.stack(toks, 1), logits
+
+
+def _int8_switch(gen, src, n_new: int) -> tuple:
+    """gen.generate(src, n_new) with its switch to int8 recorded: (tokens,
+    the wall seconds, the int8 cache and scales byte for byte those of
+    numpy's quantization, the JAX formula, of the card's own fp32 cache)."""
+    seen = {}
+    real = gen.quantize_cache
+
+    def spy(amax, cache):
+        scales, q = real(amax, cache)
+        seen.update(fp32={k: v.cpu().numpy() for k, v in cache.items()},
+                    scales={k: v.cpu().numpy() for k, v in scales.items()},
+                    q={k: v.cpu().numpy() for k, v in q.items()})
+        return scales, q
+
+    gen.quantize_cache = spy
+    try:
+        toks, wall = _wall(lambda: gen.generate(src, n_new))
+    finally:
+        del gen.quantize_cache
+    n_bytes = 0
+    for name, kv in seen["fp32"].items():
+        _, kind, i = name.split("_")
+        amax = np.abs(kv).max(axis=(0, 2, 3))
+        s = (np.maximum(amax, 1e-6) / 127.0).astype(np.float32)
+        q = np.clip(np.round(kv / s.reshape(1, -1, 1, 1)), -127,
+                    127).astype(np.int8)
+        require(seen["scales"][f"kv_scale_{kind}_{i}"].tobytes()
+                == s.tobytes() and seen["q"][name].tobytes() == q.tobytes(),
+                f"{name}: the int8 switch byte for byte numpy's")
+        n_bytes += q.nbytes
+    return toks[0], wall, n_bytes
+
+
+def _t5_floor(gen, cpu_graph, src, cpu_enc: dict, enc: dict,
+              rows: int) -> dict:
+    """Why T5 is held at T5_REL_TOL: the first rows' encoder outputs
+    against a float64 run of the same graph on the CPU, from the CPU's
+    fp32 run and from the card's (two fp32 runs, each its own distance
+    from the exact result); and the card's encoder with TF32 on in its
+    MatMul emitters (ops.standard's matmul_fp32_exact a no-op under
+    _tf32()) against the CPU's fp32 run: the error that the bound is
+    there to catch."""
+    from onnx_rusty_inference_engine_tpu_torch.engine import Engine
+    from onnx_rusty_inference_engine_tpu_torch.ops import standard
+
+    B, S = src.shape
+    exact = Engine(dataclasses.replace(cpu_graph, constants={
+        k: v.astype(np.float64) if v.dtype == np.float32 else v
+        for k, v in cpu_graph.constants.items()}), device="cpu").run({
+            "src_ids": src[:rows],
+            "src_len": np.full((rows,), S, np.int64)}).outputs
+    real = standard.matmul_fp32_exact
+    standard.matmul_fp32_exact = contextlib.nullcontext
+    try:
+        with _tf32():
+            tf32 = gen.encoder.forward({
+                "src_ids": torch.as_tensor(src, device="cuda"),
+                "src_len": torch.full((B,), S, dtype=torch.int64,
+                                      device="cuda")})
+    finally:
+        standard.matmul_fp32_exact = real
+    return {"cpu_fp32_vs_f64": max(_rel_err(cpu_enc[k], v)
+                                   for k, v in exact.items()),
+            "card_vs_f64": max(_rel_err(enc[k][:rows], v)
+                               for k, v in exact.items()),
+            "card_tf32_vs_cpu": max(_rel_err(tf32[k][:rows], v)
+                                    for k, v in cpu_enc.items())}
+
+
+def _fam_seq2seq(family: str, cfg, src, max_len: int, n_new: int,
+                 smi: str, int4: bool) -> dict:
+    """One encoder-decoder family on the card: (i) fp32, its first rows'
+    encoder outputs and teacher-forced logits against the CPU; (ii) INT8
+    KV (calib_steps 4, with int4 weights where `int4`), the switch byte
+    for byte, int4 launches per encoder call and per step."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import (
+        Seq2SeqGenerator)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = src.shape
+    rows = FAMILY_CPU if family == "t5" else 1
+    kw = dict(family=family, src_len=S, max_len=max_len)
+    cpu = Seq2SeqGenerator(cfg, batch=rows, device="cpu", **kw)
+    cpu_enc, cpu_toks, cpu_logits = _cpu_greedy(cpu, src[:rows], n_new)
+    cpu_graph = cpu.encoder.graph
+    del cpu
+    gen = Seq2SeqGenerator(cfg, batch=B, device="cuda", **kw)
+    enc, logits = _teacher_forced(gen, src, cpu_toks, rows)
+    enc_err = {k: _rel_err(enc[k][:rows], v) for k, v in cpu_enc.items()}
+    step_err = [_rel_err(a, b) for a, b in zip(logits, cpu_logits)]
+    tol = T5_REL_TOL if family == "t5" else FAM_REL_TOL
+    require(max(enc_err.values()) <= tol and max(step_err) <= tol,
+            f"{family}: encoder {enc_err}, steps {step_err}")
+    floor = (_t5_floor(gen, cpu_graph, src, cpu_enc, enc, rows)
+             if family == "t5" else {})
+    gen.generate(src, n_new)                     # captures the step
+    (toks32, _), wall32 = _wall(lambda: gen.generate(src, n_new))
+    del gen
+    q = Seq2SeqGenerator(cfg, batch=B, device="cuda", kv_dtype="int8",
+                         calib_steps=4, int4_weights=int4, **kw)
+    n_enc, n_dec = _mm_nbits(q.encoder.graph), _mm_nbits(q.decode.graph)
+    require(n_dec == _mm_nbits(q.decode_fp32.graph), "shadow int4 count")
+    reset_counts()
+    toks8, _, n_bytes = _int8_switch(q, src, n_new)
+    counts = read_counts()
+    require(counts["qmatmul_int4_planar"] == n_enc + n_dec * n_new,
+            f"{family}: {n_enc} int4 per encoder call, {n_dec} per step: "
+            f"{counts}")
+    _, wall8 = _wall(lambda: q.generate(src, n_new))
+    del q
+    unit = "tokens" if family == "t5" else "clips"
+    rate = (lambda w: B * n_new / w) if family == "t5" else \
+        (lambda w: B / w)
+    line = dict(batch=B, src_len=S, max_len=max_len, new_tokens=n_new,
+                enc_rel_err_vs_cpu=enc_err,
+                teacher_forced_max_rel_err=max(step_err),
+                int8_switch_byte_equal=n_bytes, launches=counts,
+                int4_per_encoder_call=n_enc, int4_per_step=n_dec,
+                int8_agree_fp32=float((toks8 == toks32).mean()),
+                bound=f"{tol} x max|ref|", **floor,
+                **{f"{unit}_per_s_fp32": rate(wall32),
+                   f"{unit}_per_s_int8": rate(wall8)})
+    _fam_line(family, t0, smi, model=dataclasses.asdict(cfg), **line)
+    if not counts["qmatmul_int4_planar"]:
+        return {}
+    return {"qmatmul_int4_planar": {
+        "launches": counts["qmatmul_int4_planar"],
+        "per_encoder_call": n_enc, "per_step": n_dec}}
+
+
+def _fam_accuracy(smi: str) -> dict:
+    """The port's benchmarks/accuracy.py on SqueezeNet 1.0 (224x224):
+    the three lines; the fp32 Engine's first batch against the CPU's."""
+    from onnx_rusty_inference_engine_tpu_torch.benchmarks import accuracy
+    from onnx_rusty_inference_engine_tpu_torch.engine import Engine
+    from onnx_rusty_inference_engine_tpu_torch.graph import import_model
+    from onnx_rusty_inference_engine_tpu_torch.models.squeezenet import (
+        build_squeezenet)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    top = accuracy.top1s(ACC_MODEL, ACC_BATCHES, ACC_BATCH, "cuda")
+    counts = read_counts()
+    n_q = 26 * len(accuracy.METHODS) * ACC_BATCHES
+    require(counts["qconv_int8_requant"] == n_q,
+            f"accuracy: 26 int8 conv launches per INT8 forward: {counts}")
+    rng = np.random.default_rng(7)            # the script's draws
+    rng.standard_normal((8, 3, 224, 224))
+    x = rng.standard_normal((ACC_BATCH, 3, 224, 224)).astype(np.float32)
+    ref = Engine(import_model(build_squeezenet()), device="cpu").run(
+        {"data_0": x}).outputs
+    ref = next(iter(ref.values())).reshape(ACC_BATCH, -1)
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    tie = top2[:, 1] - top2[:, 0] < 1e-4 * (ref.max(-1) - ref.min(-1))
+    differ = top["fp32"][:ACC_BATCH] != ref.argmax(-1)
+    require(not (differ & ~tie).any(), "accuracy: the fp32 top-1 of the "
+            "first batch equals the CPU's")
+    for line in accuracy.lines(ACC_MODEL, top):
+        emit({"phase": "families", "path": "int8_accuracy", **line,
+              "card": smi})
+    _fam_line("int8_accuracy", t0, smi, model=ACC_MODEL,
+              held_out=ACC_BATCHES * ACC_BATCH, launches=counts,
+              fp32_first_batch_equal_cpu=int((~differ).sum()),
+              near_ties_excused=int((differ & tie).sum()))
+    return {"qconv_int8_requant": {
+        "launches": counts["qconv_int8_requant"], "per_int8_forward": 26}}
+
+
+def phase_families_lora(gen, prompts, smi: str) -> dict:
+    """The families phase's first path, on phase 6's Generator: multi-LoRA
+    GPT-2. Returns its kernels' launches and its seconds."""
+    t0 = time.perf_counter()
+    res = _fam_lora(gen, prompts, smi)
+    torch.cuda.empty_cache()
+    return {"lora": res, "seconds": time.perf_counter() - t0}
+
+
+def phase_families(smi: str, lora: dict) -> dict:
+    """The model families of ROADMAP's [1.8] at full width, each decode
+    step a captured graph, replayed: multi-LoRA on phase 6's GPT-2 path
+    (run before, `phase_families_lora`), the MoE decoder, T5-small and
+    Whisper-style ASR through Seq2SeqGenerator, the INT8 accuracy
+    benchmark. Returns each kernel's launches on these paths, by path."""
+    from onnx_rusty_inference_engine_tpu_torch.models.asr import ASRConfig
+    from onnx_rusty_inference_engine_tpu_torch.models.t5 import T5Config
+
+    t0 = time.perf_counter()
+    res = {"lora": lora["lora"], "moe": _fam_moe(smi)}
+    torch.cuda.empty_cache()
+    r = np.random.default_rng(0)
+    t5 = T5Config()
+    res["t5"] = _fam_seq2seq(
+        "t5", t5, r.integers(0, t5.vocab_size, (T5_BATCH, T5_SRC)),
+        T5_MAX, T5_NEW, smi, int4=True)
+    torch.cuda.empty_cache()
+    audio = (r.standard_normal((ASR_BATCH, ASR_SAMPLES)) * 0.1).astype(
+        np.float32)
+    res["asr"] = _fam_seq2seq("asr", ASRConfig(), audio, ASR_MAX, ASR_NEW,
+                              smi, int4=False)
+    torch.cuda.empty_cache()
+    res["accuracy"] = _fam_accuracy(smi)
+    torch.cuda.empty_cache()
+    emit({"phase": "families",
+          "seconds": time.perf_counter() - t0 + lora["seconds"],
+          "lora_seconds": lora["seconds"]})
+    by_kernel: dict = {}
+    for path, kernels in res.items():
+        for name, got in kernels.items():
+            by_kernel.setdefault(name, {})[path] = got
+    return by_kernel
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -6249,6 +6883,7 @@ def main() -> int:
             phase_device_loop(gen, prompts, toks, toks_i8)
             rows += phase_decode_kernels(gen, prompts, counts, counts_i8,
                                          smi)
+            lora = phase_families_lora(gen, prompts, smi)
             del gen
             torch.cuda.empty_cache()
             phase_attn_sweep(smi)
@@ -6294,11 +6929,17 @@ def main() -> int:
             next(row for row in rows if row["name"] == "qconv_int8_requant"
                  )["unet_path"] = unet
             phase_detection_ml(smi)
+            fam = phase_families(smi, lora)
+            for row in rows:
+                if row["name"] in fam and "instance" not in row:
+                    row["families_path"] = fam[row["name"]]
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]
                 + llama["qmatmul_int4_planar"]["launches"]
-                + scan["launches"], smi))
+                + scan["launches"]
+                + sum(p["launches"] for p in fam.get(
+                    "qmatmul_int4_planar", {}).values()), smi))
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})
             emit({"kernels": rows})
     finally:

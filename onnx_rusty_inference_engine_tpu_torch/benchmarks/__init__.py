@@ -1,7 +1,7 @@
 """Benchmarks of the port, each a module with `main(argv)`: the
 counterparts of the JAX package's benchmarks/gpt2_decode.py,
-llama_decode.py, prefill.py and serve_latency.py, with the same flags and
-the same metric names in their JSON lines.
+llama_decode.py, prefill.py, serve_latency.py and accuracy.py, with the
+same flags and the same metric names in their JSON lines.
 
     python -m onnx_rusty_inference_engine_tpu_torch.benchmarks.gpt2_decode
 

@@ -3,11 +3,13 @@ every host dispatch included, the number a client sees, for the host loop
 (device_loop 0) and K-step blocks replayed as one CUDA graph each
 (device_loop K). The port's counterpart of benchmarks/serve_latency.py,
 with its flags and JSON lines, at GPT-2 124M's widths (12 layers, 768)
-with INT4 weights and an INT8 KV cache by default. The moe family and
---adapters (a LoRA bank) are not ported yet and raise.
+with INT4 weights and an INT8 KV cache by default. --adapters N attaches a
+seeded N-adapter LoRA bank over the attention and MLP projections and
+decodes on adapter 1.
 
     python -m onnx_rusty_inference_engine_tpu_torch.benchmarks.serve_latency \\
-        [--new 96] [--loops 0,8,24] [--family gpt2|llama] [--cpu]
+        [--new 96] [--loops 0,8,24] [--family gpt2|llama|moe]
+        [--adapters N] [--cpu]
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ def make_cfg(family: str, d: int, layers: int, max_len: int):
                            n_kv_head=max(1, d // 192),
                            max_positions=max_len)
     if family == "moe":
-        from ..models import decoder_family
-        decoder_family("moe")  # raises: not ported yet
+        from ..models.moe import MoEConfig
+        return MoEConfig(n_embd=d, n_layer=layers, n_head=d // 64,
+                         n_positions=max_len)
     raise SystemExit(f"unknown family {family}")
 
 
@@ -49,8 +52,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--family", default="gpt2",
                     choices=["gpt2", "llama", "moe"])
     ap.add_argument("--adapters", type=int, default=0,
-                    help="attach a seeded N-adapter LoRA bank (not ported "
-                         "yet: raises)")
+                    help="attach a seeded N-adapter LoRA bank (overhead "
+                         "measurement; gpt2 only)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="> 0: sampled device loop (selection on the card)")
     ap.add_argument("--int4", action="store_true", default=True)
@@ -67,7 +70,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     gkw = dict(kv_dtype="int8", int4_weights=args.int4, family=args.family,
                device=dev)
     if args.adapters:
-        gkw["lora_bank"] = {}  # Generator raises: ROADMAP 1.8
+        from ..graph import import_model
+        from ..lora import make_adapter_stack
+        from ..models import decoder_family
+
+        build_prefill, _, _ = decoder_family(args.family)
+        pg = import_model(build_prefill(cfg, batch=args.batch, seq_len=8,
+                                        with_presents=True, past_len=0))
+        gkw["lora_bank"] = make_adapter_stack(pg, n_adapters=args.adapters,
+                                              rank=8,
+                                              targets=("attn", "mlp"))
+        gkw["adapter"] = 1
     skw = ({"temperature": args.temperature, "sample_seed": 7}
            if args.temperature > 0 else {})
     results = {}

@@ -12,10 +12,11 @@ onnx_rusty_inference_engine_tpu/cli.py.
     ... run-exported --artifact m.oriet.npz --input in.pb [--golden out.pb]
     ... quantize --model m.onnx --out q.onnx [--calib-input in.pb]
         [--calibration minmax|percentile|mse] [--bias-correct]
-    ... generate [--family gpt2|llama] [--int4] [--kv-dtype int8]
-        [--prefill-dtype float32|bfloat16|w8a8] ...
+    ... generate [--family gpt2|llama|moe|t5|asr] [--int4] [--kv-dtype int8]
+        [--prefill-dtype float32|bfloat16|w8a8] [--adapters N --adapter K
+        --lora-rank R] ...
     ... serve --model m.onnx [--port 8000]          (POST /v1/infer)
-    ... serve-llm [--family gpt2|llama] [--port 8001] (POST /v1/generate)
+    ... serve-llm [--family gpt2|llama|moe] [--port 8001] (POST /v1/generate)
 
 The subcommands take the JAX CLI's flags and print its JSON. The port adds
 `--device` (default "cuda": the card, which raises where there is none;
@@ -59,13 +60,7 @@ def _unported(args) -> List[Tuple[str, str]]:
          bool(getattr(args, "draft_layers", 0))),
         (f"--spec-k {getattr(args, 'spec_k', 4)}", "1.9/1.10b",
          getattr(args, "spec_k", 4) != 4),
-        (f"--family {getattr(args, 'family', '')}", "1.8",
-         getattr(args, "family", "gpt2") in ("moe", "t5", "asr")),
         ("--beam", "1.9", getattr(args, "beam", 1) > 1),
-        ("--adapters", "1.8", bool(getattr(args, "adapters", 0))),
-        ("--adapter", "1.8", bool(getattr(args, "adapter", 0))),
-        (f"--lora-rank {getattr(args, 'lora_rank', 8)}", "1.8",
-         getattr(args, "lora_rank", 8) != 8),
     )
     return [(flag, item) for flag, item, on in checks if on]
 
@@ -368,6 +363,12 @@ def _decoder_config(args):
         return GPT2Config(vocab_size=args.vocab, n_positions=args.max_len,
                           n_embd=args.d, n_layer=args.layers,
                           n_head=args.heads)
+    if args.family == "moe":
+        from .models.moe import MoEConfig
+
+        return MoEConfig(vocab_size=args.vocab, n_positions=args.max_len,
+                         n_embd=args.d, n_layer=args.layers,
+                         n_head=args.heads)
     from .models.llama import LlamaConfig
 
     return LlamaConfig(vocab_size=args.vocab, max_positions=args.max_len,
@@ -375,21 +376,86 @@ def _decoder_config(args):
                        n_kv_head=max(1, args.heads // 2))
 
 
+def _generate_seq2seq(args) -> int:
+    """generate --family t5|asr: a Seq2SeqGenerator over a TINY-sized
+    model (t5 at the flags' widths; asr at its TINY config on a 200 Hz
+    tone of 512 samples)."""
+    from .generate import Seq2SeqGenerator
+
+    if args.family == "t5":
+        from .models.t5 import T5Config
+
+        cfg = T5Config(vocab_size=args.vocab, d_model=args.d,
+                       n_layer=args.layers, n_head=args.heads,
+                       d_ff=4 * args.d)
+        src = np.asarray([int(t) for t in args.prompt_ids.split(",")],
+                         dtype=np.int64)[None]
+        gen = Seq2SeqGenerator(cfg, batch=1, src_len=src.shape[1],
+                               max_len=args.max_len,
+                               kv_dtype=args.kv_dtype,
+                               int4_weights=args.int4, device=args.device)
+        toks, _ = gen.generate(src, args.new)
+        print(json.dumps({"family": "t5", "src": src[0].tolist(),
+                          "generated": toks[0].tolist(),
+                          "kv_dtype": args.kv_dtype, "int4": args.int4}))
+        return 0
+    from .models.asr import TINY as ASR_TINY
+
+    n = 512
+    t = np.arange(n) / ASR_TINY.sample_rate
+    audio = np.sin(2 * np.pi * 200 * t)[None].astype(np.float32)
+    gen = Seq2SeqGenerator(ASR_TINY, batch=1, src_len=n,
+                           max_len=min(args.max_len, ASR_TINY.n_positions),
+                           family="asr", kv_dtype=args.kv_dtype,
+                           device=args.device)
+    toks, _ = gen.generate(audio, args.new)
+    print(json.dumps({"family": "asr", "n_samples": n,
+                      "generated": toks[0].tolist(),
+                      "kv_dtype": args.kv_dtype}))
+    return 0
+
+
 def cmd_generate(args) -> int:
     from .generate import Generator
 
+    if args.kv_dtype == "int4" and args.family not in ("gpt2", "llama"):
+        print("error: --kv-dtype int4 needs a nibble-packing decode graph "
+              "(gpt2/llama families)", file=sys.stderr)
+        return 2
+    if args.family in ("t5", "asr"):
+        return _generate_seq2seq(args)
     cfg = _decoder_config(args)
     ids = np.asarray([int(t) for t in args.prompt_ids.split(",")],
                      dtype=np.int64)[None]
+    lkw = {}
+    if args.adapters:
+        # a seeded bank over the attention and MLP projections; --adapter
+        # selects the row's adapter (0 = the base model)
+        from .graph import import_model
+        from .lora import make_adapter_stack
+        from .models import decoder_family
+
+        build_prefill = decoder_family(args.family)[0]
+        pg = import_model(build_prefill(cfg, batch=1,
+                                        seq_len=ids.shape[1]))
+        pats = (("attn", "mlp") if args.family in ("gpt2", "moe")
+                else ("_wq", "_wk", "_wv", "_wo"))
+        lkw = {"lora_bank": make_adapter_stack(
+                   pg, n_adapters=args.adapters, rank=args.lora_rank,
+                   targets=pats),
+               "adapter": args.adapter}
     gen = Generator(cfg, batch=1, prompt_len=ids.shape[1],
                     max_len=args.max_len, kv_dtype=args.kv_dtype,
                     int4_weights=args.int4, family=args.family,
                     prefill_dtype=args.prefill_dtype,
-                    device_loop=args.device_loop, device=args.device)
+                    device_loop=args.device_loop, device=args.device, **lkw)
     toks, _ = gen.generate(ids, args.new)
-    print(json.dumps({"family": args.family, "prompt": ids[0].tolist(),
-                      "generated": toks[0].tolist(),
-                      "kv_dtype": args.kv_dtype, "int4": args.int4}))
+    out = {"family": args.family, "prompt": ids[0].tolist(),
+           "generated": toks[0].tolist(),
+           "kv_dtype": args.kv_dtype, "int4": args.int4}
+    if args.adapters:
+        out["adapter"] = args.adapter
+    print(json.dumps(out))
     return 0
 
 
@@ -554,11 +620,11 @@ def main(argv: Optional[list] = None) -> int:
     pg.add_argument("--beam", type=int, default=1, metavar="K",
                     help="not ported yet (ROADMAP 1.9)")
     pg.add_argument("--adapters", type=int, default=0, metavar="N",
-                    help="not ported yet (ROADMAP 1.8)")
+                    help="attach a seeded N-adapter LoRA bank (multi-LoRA "
+                         "in one graph)")
     pg.add_argument("--adapter", type=int, default=0,
-                    help="not ported yet (ROADMAP 1.8)")
-    pg.add_argument("--lora-rank", dest="lora_rank", type=int, default=8,
-                    help="not ported yet (ROADMAP 1.8)")
+                    help="adapter index for the generation (0 = base)")
+    pg.add_argument("--lora-rank", dest="lora_rank", type=int, default=8)
     _device_flag(pg)
     pg.set_defaults(fn=cmd_generate)
 

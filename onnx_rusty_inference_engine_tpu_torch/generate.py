@@ -45,9 +45,19 @@ the prefill's per-layer presents; the host loop, device_loop=K (K steps
 replayed as one CUDA graph over the stacked cache) and the plain versions
 on the CPU all take it.
 
-Not ported yet (each raises NotImplementedError): the moe family (ROADMAP
-1.8), `mesh` / `param_sharding_fn` / `pipeline_axis` (1.12) and
-`lora_bank` (1.8).
+`lora_bank` attaches a multi-LoRA bank (lora.py) to both graphs after the
+int4 rewrite (the base trunk quantizes, the adapters stay fp32; the bank's
+keys match through the `__w4` rename) and before the W8A8 one; `adapter`
+(one index, or one per row) rides every prefill, step and block as the
+`lora_idx` input, a device tensor that the captured graphs read by
+address.
+
+Not ported yet (each raises NotImplementedError): `mesh` /
+`param_sharding_fn` / `pipeline_axis` (ROADMAP 1.12).
+
+`Seq2SeqGenerator` drives the encoder-decoder families (t5, asr): the
+encoder Engine once per request, then a host loop over the captured
+decode step (see its docstring).
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ import torch.nn.functional as F
 from .engine import Engine, capture, captures, resolve_device, side_stream
 from .graph import Graph, import_model
 
-__all__ = ["Generator"]
+__all__ = ["Generator", "Seq2SeqGenerator"]
 
 
 def _clone(v):
@@ -115,8 +125,6 @@ class Generator:
             raise _not_ported("a device mesh", "1.12")
         if pipeline_axis is not None:
             raise _not_ported("pipeline_axis", "1.12")
-        if lora_bank is not None:
-            raise _not_ported("lora_bank", "1.8")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch
@@ -132,10 +140,10 @@ class Generator:
         from .models import decoder_family
 
         build_prefill, build_decode, int8_kv_ok = decoder_family(family)
-        if self._int4_kv and family not in ("gpt2", "llama"):
+        if self._int4_kv and family not in ("gpt2", "llama", "moe"):
             raise NotImplementedError(
                 f"{family}: the int4 KV cache needs a nibble-packing decode "
-                f"graph (gpt2 and llama only)")
+                f"graph (gpt2 and llama, and moe)")
         if self._kv_q and not int8_kv_ok:
             raise NotImplementedError(
                 f"{family}: in-graph quantized KV cache not implemented")
@@ -167,6 +175,20 @@ class Generator:
             if not w8a8_prefill:
                 prefill_graph = quantize_weights_int4(prefill_graph)
             decode_graph = quantize_weights_int4(decode_graph)
+        # multi-LoRA after int4 (the adapters stay fp32) and before W8A8
+        # (whose rewrite then takes the base MatMuls and leaves the small
+        # bank products floating)
+        self._lora_idx: Optional[torch.Tensor] = None
+        if lora_bank is not None:
+            from .lora import attach_lora
+
+            prefill_graph = attach_lora(prefill_graph, lora_bank,
+                                        alpha=lora_alpha)
+            decode_graph = attach_lora(decode_graph, lora_bank,
+                                       alpha=lora_alpha)
+            self._lora_idx = torch.as_tensor(np.broadcast_to(
+                np.asarray(adapter, np.int64), (batch,)).copy(),
+                device=self.device)
         if w8a8_prefill:
             from .quant import quantize_matmuls_w8a8
 
@@ -194,7 +216,17 @@ class Generator:
         if self._kv_scales is not None:
             other._kv_scales = {k: v.to(other.device)
                                 for k, v in self._kv_scales.items()}
+        if self._lora_idx is not None:
+            other._lora_idx = self._lora_idx.to(other.device)
         return other
+
+    def _lora_feed(self, feed: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """The feed with the per-row adapter indices, where a bank is
+        attached."""
+        if self._lora_idx is not None:
+            feed["lora_idx"] = self._lora_idx
+        return feed
 
     # -- cache quantization (INT8 / INT4 KV; the decode GRAPH carries the
     # QDQ) -------------------------------------------------------------------
@@ -242,7 +274,7 @@ class Generator:
         cache seeded with the prefill presents, padded to max_len)."""
         ids = torch.as_tensor(input_ids, dtype=torch.int64,
                               device=self.device)
-        out = self.prefill({"input_ids": ids})
+        out = self.prefill(self._lora_feed({"input_ids": ids}))
         self.calibrate_kv(out)
         cache: Dict[str, torch.Tensor] = {}
         for kind in ("key", "value"):
@@ -270,7 +302,7 @@ class Generator:
         feed.update(cache)  # int8 pasts flow straight back in
         if self._kv_q:
             feed.update(self._kv_scales)
-        out = self.decode(feed)
+        out = self.decode(self._lora_feed(feed))
         new_cache = {name: out[name.replace("past_", "present_", 1)]
                      for name in cache}
         return out["logits"], new_cache
@@ -352,7 +384,7 @@ class Generator:
             feed = {"input_ids": tok.reshape(self.batch, 1), "pos": pos}
             feed.update(cache)
             feed.update(scales)
-            out = self.decode.forward(feed)
+            out = self.decode.forward(self._lora_feed(feed))
             cache = {name: out[name.replace("past_", "present_", 1)]
                      for name in cache}
             if seen is not None:
@@ -516,3 +548,273 @@ class Generator:
                 all_logits.append(step_logits.cpu().numpy())
         out_toks = torch.stack(tokens, dim=1).cpu().numpy()
         return (out_toks, all_logits) if return_logits else out_toks
+
+
+class Seq2SeqGenerator:
+    """Encoder-decoder generation (models.seq2seq_family: "t5" tokens ->
+    tokens, "asr" waveform -> tokens): encode once, then greedy or sampled
+    decode over a fixed self-attention KV cache and the static cross K/V.
+    The port's counterpart of the JAX package's Seq2SeqGenerator, with its
+    host loop.
+
+    The encoder (with the cross-KV projection) is one Engine call per
+    request, a captured graph on the card. The decode step is one captured
+    graph per decode Engine, replayed once per token: it reads the token,
+    the position, the cache, the cross K/V (and `src_len`) from buffers
+    made once, writes the presents back into the cache buffers and the
+    logits into a buffer. The cross K/V are copied into their buffers once
+    per request. The cache, the calibration's amax and the tokens stay on
+    the device; the tokens are read once at the end (the logits once per
+    step, where the caller asks for them).
+
+    kv_dtype="int8": the decoder has no prefill to calibrate from, so the
+    first `calib_steps` tokens run a shadow fp32 decode graph and collect
+    the per-(layer, kind, head) amax over its cache; the fp32 cache is then
+    quantized once (`quantize_cache`: scales max(amax, 1e-6) / 127, round
+    half to even, both divisions true ones on the device) and generation
+    goes on in the int8-QDQ graph.
+
+    Sampling keeps Generator's seed contract: a torch.Generator seeded
+    with `sample_seed` (reproducible, not JAX's PRNG values); greedy is
+    argmax. Runs on the card unless `device="cpu"`.
+    """
+
+    # the device selection of Generator, with its sampling scalars and its
+    # seeded torch.Generator
+    _select = Generator._select
+    _sampling_consts = Generator._sampling_consts
+    _generator = Generator._generator
+
+    def __init__(
+        self,
+        cfg,
+        *,
+        batch: int = 1,
+        src_len: int = 16,
+        max_len: int = 32,
+        seed: int = 0,
+        mesh=None,
+        param_sharding_fn=None,
+        kv_dtype: str = "float32",
+        int4_weights: bool = False,
+        calib_steps: int = 4,
+        family: str = "t5",
+        device="cuda",
+    ):
+        if mesh is not None or param_sharding_fn is not None:
+            raise NotImplementedError("Seq2SeqGenerator: a device mesh is "
+                                      "not ported yet (ROADMAP 1.12)")
+        from .models import seq2seq_family
+
+        self.device = resolve_device(device)
+        self.fam = seq2seq_family(family)
+        self.cfg = cfg
+        self.batch = batch
+        self.src_len = src_len
+        self.enc_len = self.fam.enc_len(cfg, src_len)
+        self.max_len = max_len
+        self.kv_dtype = np.dtype(kv_dtype)
+        self._int8 = self.kv_dtype == np.int8
+        if self._int8 and calib_steps < 1:
+            raise ValueError("int8 KV needs calib_steps >= 1 (the shadow "
+                             "fp32 steps that set the scales)")
+        self.calib_steps = calib_steps
+
+        def decode_graph(**kw):
+            return import_model(self.fam.build_decode(
+                cfg, batch=batch, max_len=max_len, src_len=self.enc_len,
+                seed=seed, **kw))
+
+        graphs = [import_model(self.fam.build_encoder(
+            cfg, batch=batch, src_len=src_len, seed=seed)),
+            decode_graph(kv_dtype=kv_dtype)]
+        if self._int8:
+            graphs.append(decode_graph())
+        if int4_weights:
+            from .quant import quantize_weights_int4
+
+            graphs = [quantize_weights_int4(g) for g in graphs]
+        self.encoder = Engine(graphs[0], device=self.device)
+        self.decode = Engine(graphs[1], device=self.device)
+        self.decode_fp32 = (Engine(graphs[2], device=self.device)
+                            if self._int8 else None)
+        self._gen: Optional[torch.Generator] = None
+        self._bufs: Optional[dict] = None
+        self._steps: Dict[str, object] = {}   # engine -> its step's Replay
+        self._t = 0
+
+    # -- the step's buffers and graph ----------------------------------------
+    def _buffers(self) -> dict:
+        """Every tensor the captured steps read or write, made once."""
+        if self._bufs is None:
+            dev, B = self.device, self.batch
+            specs = {s.name: s for s in self.decode.graph.inputs}
+
+            def zeros(name, dtype):
+                return torch.zeros(specs[name].concrete_shape(batch=B),
+                                   dtype=dtype, device=dev)
+
+            past = [n for n in specs if n.startswith("past_")]
+            bufs = {
+                "tok": torch.zeros((B,), dtype=torch.int64, device=dev),
+                "pos": torch.zeros((B,), dtype=torch.int64, device=dev),
+                "cross": {n: zeros(n, torch.float32) for n in specs
+                          if n.startswith("cross_")},
+                "cache32": {n: zeros(n, torch.float32) for n in past},
+                "logits": torch.zeros(
+                    (B, 1, self.cfg.vocab_size), dtype=torch.float32,
+                    device=dev)}
+            if self.fam.src_mask:
+                bufs["cross"]["src_len"] = zeros("src_len", torch.int64)
+            if self._int8:
+                bufs["cache8"] = {n: zeros(n, torch.int8) for n in past}
+                bufs["scales"] = {n: zeros(n, torch.float32) for n in specs
+                                  if n.startswith("kv_scale_")}
+            self._bufs = bufs
+        return self._bufs
+
+    def _step_body(self, eng: Engine, cache: dict, scales: dict) -> None:
+        """One decode step on the buffers, in place: nothing here reads
+        the device or copies from the host, so it may be captured."""
+        b = self._bufs
+        feed = {"input_ids": b["tok"].reshape(self.batch, 1),
+                "pos": b["pos"]}
+        feed.update(b["cross"])
+        feed.update(cache)
+        feed.update(scales)
+        out = eng.forward(feed)
+        for name, buf in cache.items():
+            buf.copy_(out[name.replace("past_", "present_", 1)])
+        b["logits"].copy_(out["logits"])
+
+    def _run_step(self, calibrating: bool) -> None:
+        """The step on the shadow fp32 graph (calibrating, or the fp32 KV
+        path) or on the int8 graph: its replay, captured after an eager
+        first run on the card."""
+        b = self._bufs
+        if self._int8 and not calibrating:
+            eng, cache, scales = self.decode, b["cache8"], b["scales"]
+        else:
+            eng, cache, scales = (self.decode_fp32 or self.decode,
+                                  b["cache32"], {})
+        if not captures(self.device):
+            self._step_body(eng, cache, scales)
+            return
+        key = "int8" if scales else "fp32"
+        replay = self._steps.get(key)
+        if replay is not None:
+            replay()
+            return
+        with side_stream(eng.side_stream()) as s:
+            self._step_body(eng, cache, scales)
+            _, self._steps[key] = capture(
+                lambda: self._step_body(eng, cache, scales), stream=s,
+                pool=eng.graph_pool())
+
+    # -- encode, step, quantize ----------------------------------------------
+    def start(self, src_ids: np.ndarray,
+              src_lengths: Optional[np.ndarray] = None
+              ) -> Dict[str, torch.Tensor]:
+        """Encode the source [B, src_len] (tokens or waveform, per family)
+        and reset the decode state: the cross K/V (and `src_len`) go into
+        the step's buffers, the cache is zeroed. Returns the encoder's
+        outputs (enc_out and the cross K/V) on the device."""
+        B, S = tuple(src_ids.shape)
+        assert (B, S) == (self.batch, self.src_len)
+        b = self._buffers()
+        if src_lengths is None:
+            src_lengths = np.full((B,), S, np.int64)
+        feed = {self.fam.enc_input: np.asarray(src_ids).astype(
+            self.fam.prompt_dtype)}
+        if self.fam.src_mask:
+            feed["src_len"] = np.asarray(src_lengths).astype(np.int64)
+            b["cross"]["src_len"].copy_(torch.from_numpy(feed["src_len"]))
+        enc = self.encoder(feed)
+        for name, buf in b["cross"].items():
+            if name.startswith("cross_"):
+                buf.copy_(enc[name])
+        for cache in (b["cache32"], b.get("cache8", {})):
+            for buf in cache.values():
+                buf.zero_()
+        self._amax: Dict[str, torch.Tensor] = {}
+        self._t = 0
+        return enc
+
+    def step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step at the next position: tokens [B] -> logits
+        [B, 1, V] (a fresh tensor on the device). With an int8 cache, the
+        first calib_steps steps run the shadow fp32 graph and collect the
+        amax; the last of them quantizes the cache."""
+        b, t = self._bufs, self._t
+        b["tok"].copy_(tokens.reshape(-1))
+        b["pos"].fill_(t)
+        calibrating = self._int8 and t < self.calib_steps
+        self._run_step(calibrating)
+        if calibrating:
+            for name, kv in b["cache32"].items():
+                a = kv.abs().amax(dim=(0, 2, 3))
+                prev = self._amax.get(name)
+                self._amax[name] = a if prev is None else torch.maximum(
+                    prev, a)
+            if t == self.calib_steps - 1:
+                scales, cache8 = self.quantize_cache(self._amax,
+                                                     b["cache32"])
+                for name, v in scales.items():
+                    b["scales"][name].copy_(v)
+                for name, v in cache8.items():
+                    b["cache8"][name].copy_(v)
+        self._t = t + 1
+        return b["logits"].clone()
+
+    def quantize_cache(self, amax: Dict[str, torch.Tensor],
+                       cache: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
+        """The switch to int8: per-(layer, kind, head) scales
+        max(amax, 1e-6) / 127 (kv_scale_{kind}_{i}) and the fp32 cache
+        quantized with them (past_{kind}_{i}, int8). Both divisions are by
+        a device tensor: a true division on the card too, as the JAX
+        package's numpy and jnp divisions are."""
+        qmax = torch.tensor(127.0, dtype=torch.float32, device=self.device)
+        scales, q = {}, {}
+        for name, kv in cache.items():
+            kind, i = name.split("_")[1], name.rsplit("_", 1)[1]
+            s = amax[name].clamp_min(1e-6) / qmax
+            scales[f"kv_scale_{kind}_{i}"] = s
+            q[name] = torch.clamp(torch.round(kv / s.reshape(1, -1, 1, 1)),
+                                  -127, 127).to(torch.int8)
+        return scales, q
+
+    # -- generation ------------------------------------------------------
+    def generate(self, src_ids: np.ndarray, n_new: int,
+                 start_token: int = 0,
+                 return_logits: bool = False,
+                 temperature: float = 0.0,
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 sample_seed: int = 0,
+                 src_lengths: Optional[np.ndarray] = None):
+        """Encode the source [B, src_len] (tokens or waveform, per
+        family); decode n_new tokens. src_lengths [B]: true per-row
+        source lengths for padding-masked families (default: full).
+        Returns (tokens [B, n_new], every step's logits as numpy arrays
+        when return_logits, else None)."""
+        assert n_new <= self.max_len
+        if self._int8 and n_new <= self.calib_steps:
+            import logging
+            logging.getLogger(__name__).warning(
+                "n_new=%d <= calib_steps=%d: every step runs the shadow "
+                "fp32 graph; the int8 cache never engages", n_new,
+                self.calib_steps)
+        self.start(src_ids, src_lengths)
+        gen = self._generator(sample_seed)
+        consts = self._sampling_consts(temperature, 1.0)
+        next_tok = torch.full((self.batch,), start_token, dtype=torch.int64,
+                              device=self.device)
+        tokens, all_logits = [], [] if return_logits else None
+        for _ in range(n_new):
+            logits = self.step(next_tok)
+            next_tok = self._select(logits[:, -1, :], gen, consts,
+                                    temperature, top_k, top_p)
+            tokens.append(next_tok)
+            if return_logits:
+                all_logits.append(logits.cpu().numpy())
+        return torch.stack(tokens, dim=1).cpu().numpy(), all_logits

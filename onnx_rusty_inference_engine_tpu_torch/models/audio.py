@@ -56,8 +56,8 @@ def encoder_trunk(b: GraphBuilder, cfg: AudioEncoderConfig,
     """Shared waveform->hidden-states trunk: in-graph log-mel frontend +
     GELU conv stem + sinusoidal positions + pre-LN transformer encoder.
     Declares the "audio" input; returns (hidden_name [B, S, D], S).
-    The JAX package's ASR encoder (models/asr.py) shares it; the port has
-    only the classification encoder (build_audio_encoder) so far."""
+    The classification encoder (build_audio_encoder) and the ASR encoder
+    (models/asr.py) share it."""
     B, D, H, hd = batch, cfg.d_model, cfg.n_head, cfg.head_dim
     n_frames = (n_samples - cfg.n_fft) // cfg.hop + 1
     bins = cfg.n_fft // 2 + 1

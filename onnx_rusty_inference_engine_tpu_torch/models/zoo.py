@@ -6,8 +6,8 @@ on first use with seeded weights and cached under `assets/torch/` (git
 ignores `assets/`), a directory of the port's own, so the two packages never
 share a file. The zoo reads nothing outside this checkout: `mnist` and
 `matmul_2d` are files the repository does not ship yet, so they raise
-FileNotFoundError until they are in it. The families the port lacks raise
-NotImplementedError.
+FileNotFoundError until they are in it. Every other name of the JAX zoo is
+synthesized here, byte for byte as the JAX builder makes it.
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ _ASSETS = os.path.join(_REPO, "assets", "torch")
 
 # models whose files the repository does not ship yet
 NOT_SHIPPED = {"mnist": "mnist-8.onnx", "matmul_2d": "model.onnx"}
-# families of the JAX zoo that the port has no builder for yet
-NOT_PORTED = ("t5_encoder", "moe", "asr_encoder")
+# families of the JAX zoo that the port has no builder for: none is left
+NOT_PORTED = ()
 
 
 def _synth(name: str, build: Callable) -> str:
@@ -105,21 +105,32 @@ def _gpt2_path() -> str:
                                      with_presents=False))
 
 
+def _t5_encoder_path() -> str:
+    from .t5 import TINY, build_t5_encoder
+
+    return _synth("t5-tiny-encoder.synth",
+                  lambda: build_t5_encoder(TINY, batch=1, src_len=16))
+
+
+def _moe_path() -> str:
+    from .moe import TINY, build_moe
+
+    return _synth("moe-tiny.synth",
+                  lambda: build_moe(TINY, batch=1, seq_len=16))
+
+
+def _asr_encoder_path() -> str:
+    from .asr import TINY, build_asr_encoder
+
+    return _synth("asr-encoder.synth",
+                  lambda: build_asr_encoder(TINY, batch=1, n_samples=512))
+
+
 def _not_shipped(name: str) -> Callable[[], str]:
     def path() -> str:
         raise FileNotFoundError(
             f"model {name!r} ({NOT_SHIPPED[name]}) is not in the repository; "
             f"it is available once its file is committed")
-    return path
-
-
-def _not_ported(name: str) -> Callable[[], str]:
-    def path() -> str:
-        have = sorted(k for k in MODELS
-                      if k not in NOT_PORTED and k not in NOT_SHIPPED)
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP 1.8); the port has "
-            f"{have}")
     return path
 
 
@@ -135,7 +146,9 @@ MODELS: Dict[str, Callable[[], str]] = {
     "detection": _detection_path,
     "llama": _llama_path,
     "gpt2": _gpt2_path,
-    **{name: _not_ported(name) for name in NOT_PORTED},
+    "t5_encoder": _t5_encoder_path,
+    "moe": _moe_path,
+    "asr_encoder": _asr_encoder_path,
 }
 
 

@@ -487,12 +487,14 @@ def identity(ctx: LoweringContext, node: Node, ins):
 
 @register("RMSNormalization", "SimplifiedLayerNormalization")
 def rms_normalization(ctx: LoweringContext, node: Node, ins):
-    """x * rsqrt(mean(x^2) + eps) * scale, the mean of squares in fp32."""
+    """x * rsqrt(mean(x^2) + eps) * scale, the mean of squares in fp32 (or
+    in float64 for a float64 x)."""
     x, scale = ins[0], ins[1]
     axis = int(node.attr("axis", -1))
     eps = float(node.attr("epsilon", 1e-5))
     dims = tuple(range(axis % x.dim(), x.dim()))
-    ms = torch.square(x.to(torch.float32)).mean(dim=dims, keepdim=True)
+    ms = torch.square(x.to(torch.promote_types(x.dtype, torch.float32))
+                      ).mean(dim=dims, keepdim=True)
     return ((x * torch.rsqrt(ms + eps).to(x.dtype)) * scale,)
 
 

@@ -32,8 +32,18 @@ quantization); the decode engines keep theirs, and share no float weight
 with a bf16 prefill Engine. Chunked prefill has no prefill engines and
 refuses any other prefill_dtype than "float32".
 
-Not ported yet (each raises NotImplementedError): `lora_bank` (ROADMAP
-1.8), `mesh` / `param_sharding_fn` (1.12) and the moe family (1.8).
+`lora_bank` attaches a multi-LoRA bank (lora.py) to every graph the
+server runs (decode, shadow, each prefill bucket), after the int4 rewrite
+as generate.Generator attaches it, so a served row computes what an
+isolated Generator on its adapter computes. (The JAX server attaches
+before the int4 rewrite, which then quantizes a bank's stacked matrices
+once they reach 4,096 elements.) `submit(adapter=k)` writes k into the
+slot's entry of the `lora_idx` device buffer when the slot is filled;
+every step and block reads that buffer, so one captured graph serves a
+mixed-adapter batch. The prompt cache is keyed by (adapter, prompt).
+
+Not ported yet (each raises NotImplementedError): `mesh` /
+`param_sharding_fn` (ROADMAP 1.12).
 """
 
 from __future__ import annotations
@@ -105,8 +115,6 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         len_buckets: Optional[Sequence[int]] = None,
         device="cuda",
     ):
-        if lora_bank is not None:
-            raise _not_ported("lora_bank", "1.8")
         if mesh is not None or param_sharding_fn is not None:
             raise _not_ported("a device mesh", "1.12")
         if chunked_prefill and prefill_dtype != "float32":
@@ -133,10 +141,10 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         from ..models import decoder_family
 
         build_prefill, build_decode, int8_kv_ok = decoder_family(family)
-        if self._int4_kv and family not in ("gpt2", "llama"):
+        if self._int4_kv and family not in ("gpt2", "llama", "moe"):
             raise NotImplementedError(
                 "int4 KV serving needs a nibble-packing decode graph (gpt2 "
-                "and llama only)")
+                "and llama, and moe)")
         if self.kv_dtype == np.int8 and not int8_kv_ok:
             raise NotImplementedError(
                 f"{family}: in-graph INT8 KV cache not implemented")
@@ -175,12 +183,22 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             or self._len_buckets is None) else self._len_buckets[0]
         self.cache_resizes = 0
 
+        self._lora = lora_bank is not None
+
         def quantized(g):
+            """The int4 rewrite, then the adapter bank (fp32)."""
             if int4_weights:
                 from ..quant import quantize_weights_int4
 
                 g = quantize_weights_int4(g)
-            return g
+            return attach(g)
+
+        def attach(g):
+            if not self._lora:
+                return g
+            from ..lora import attach_lora
+
+            return attach_lora(g, lora_bank, alpha=lora_alpha)
 
         def make_decode_graph(L: int):
             return quantized(import_model(build_decode(
@@ -207,7 +225,7 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             if w8a8_prefill:
                 from ..quant import quantize_matmuls_w8a8
 
-                g = quantize_matmuls_w8a8(g)
+                g = quantize_matmuls_w8a8(attach(g))
             else:
                 g = quantized(g)
             return Engine(g, device=self.device, dtype=(
@@ -235,6 +253,10 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         self._pos = np.full((slots,), max_len - 1, np.int64)  # parked
         self._last_tok = np.zeros((slots,), np.int64)
         self._pending: List[Optional[np.ndarray]] = [None] * slots
+        # each slot's adapter: the `lora_idx` input of every step and block
+        self._adapter = (torch.zeros((slots,), dtype=torch.int64,
+                                     device=self.device)
+                         if self._lora else None)
         self._init_sampling_state(slots, cfg.vocab_size,
                                   bool(self.multi_step))
         # chunked x multi_step: pending prompt suffixes live ON DEVICE so
@@ -344,11 +366,12 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         limit = self.max_len if self.chunked else self.prompt_len
         assert 1 <= prompt_ids.size <= limit
         assert prompt_ids.size + max_new_tokens <= self.max_len
-        if adapter:
-            raise _not_ported("adapter (LoRA)", "1.8")
+        if adapter and not self._lora:
+            raise ValueError("adapter requested but server has no lora_bank")
         r = _Request(prompt_ids, max_new_tokens, eos_id, stop_sequences,
-                     temperature=temperature, top_k=top_k, top_p=top_p,
-                     min_p=min_p, seed=seed, on_token=on_token,
+                     adapter=adapter, temperature=temperature,
+                     top_k=top_k, top_p=top_p, min_p=min_p, seed=seed,
+                     on_token=on_token,
                      logit_bias=logit_bias,
                      frequency_penalty=frequency_penalty,
                      presence_penalty=presence_penalty)
@@ -402,35 +425,40 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
 
     # -- prompt/prefix KV cache (dispatcher thread only) -----------------
     @staticmethod
-    def _pkey(prompt: np.ndarray) -> bytes:
-        return prompt.tobytes()
+    def _pkey(prompt: np.ndarray, adapter: int) -> bytes:
+        # KV rows depend on the adapter, so it is part of the identity
+        return np.int64(adapter).tobytes() + prompt.tobytes()
 
-    def _pcache_put(self, prompt: np.ndarray, kv: Dict[str, torch.Tensor],
+    def _pcache_put(self, prompt: np.ndarray, adapter: int,
+                    kv: Dict[str, torch.Tensor],
                     last_logits: Optional[np.ndarray] = None) -> None:
         if not self.prompt_cache:
             return
-        key = self._pkey(prompt)
-        self._pcache[key] = {"prompt": prompt.copy(), "kv": kv,
-                             "last_logits": last_logits}
+        key = self._pkey(prompt, adapter)
+        self._pcache[key] = {"prompt": prompt.copy(), "adapter": adapter,
+                             "kv": kv, "last_logits": last_logits}
         self._pcache.move_to_end(key)
         while len(self._pcache) > self.prompt_cache:
             self._pcache.popitem(last=False)
 
-    def _pcache_exact(self, prompt: np.ndarray) -> Optional[dict]:
-        key = self._pkey(prompt)
+    def _pcache_exact(self, prompt: np.ndarray,
+                      adapter: int) -> Optional[dict]:
+        key = self._pkey(prompt, adapter)
         e = self._pcache.get(key)
         if e is not None:
             self._pcache.move_to_end(key)
         return e
 
-    def _pcache_prefix(self, prompt: np.ndarray):
-        """Longest COMMON prefix between `prompt` and any cached entry.
-        KV rows are causal (row t depends only on tokens <= t), so any
-        shared prefix's rows transfer exactly. At least 1 token is left
-        to stream (it produces the first-token logits). Returns (entry,
-        n_common) or (None, 0)."""
+    def _pcache_prefix(self, prompt: np.ndarray, adapter: int):
+        """Longest COMMON prefix between `prompt` and any same-adapter
+        cached entry. KV rows are causal (row t depends only on tokens
+        <= t), so any shared prefix's rows transfer exactly. At least 1
+        token is left to stream (it produces the first-token logits).
+        Returns (entry, n_common) or (None, 0)."""
         best, best_n = None, 0
         for e in self._pcache.values():
+            if e["adapter"] != adapter:
+                continue
             p = e["prompt"]
             n = int(min(p.size, prompt.size - 1))
             neq = np.nonzero(p[:n] != prompt[:n])[0]
@@ -439,7 +467,8 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             if n > best_n:
                 best, best_n = e, n
         if best is not None:
-            self._pcache.move_to_end(self._pkey(best["prompt"]))
+            self._pcache.move_to_end(
+                self._pkey(best["prompt"], best["adapter"]))
         return best, best_n
 
     def _pcache_usable(self, e: Optional[dict]) -> bool:
@@ -465,7 +494,8 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             # the longest cached prefix. The slot is claimed LAST: if the
             # lookup or the KV writes raise, _fail must not leave a dead
             # request occupying the slot.
-            hit, n = self._pcache_prefix(r.prompt)
+            self._set_adapter(slot, r)
+            hit, n = self._pcache_prefix(r.prompt, r.adapter)
             if n > 0 and self._pcache_usable(hit):
                 for name, q in hit["kv"].items():
                     self._cache[name][slot, :, :n] = q[:, :n]
@@ -486,7 +516,8 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             self._req[slot] = r
             return
         plen = r.prompt.size
-        hit = self._pcache_exact(r.prompt)
+        self._set_adapter(slot, r)
+        hit = self._pcache_exact(r.prompt, r.adapter)
         if self._pcache_usable(hit):
             for name, q in hit["kv"].items():
                 self._cache[name][slot, :, :plen] = q
@@ -499,7 +530,10 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
             bucket, prefill = self._prefill_for(plen)
             padded = np.zeros((1, bucket), np.int64)
             padded[0, :plen] = r.prompt
-            out = prefill({"input_ids": padded})
+            pfeed = {"input_ids": padded}
+            if self._lora:
+                pfeed["lora_idx"] = np.array([r.adapter], np.int64)
+            out = prefill(pfeed)
             presents = {f"past_{kind}_{i}": out[f"present_{kind}_{i}"]
                         for i in range(self.cfg.n_layer)
                         for kind in ("key", "value")}      # [1,H,Pb,hd]
@@ -514,7 +548,7 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
                     store[name] = q[:, :plen].clone()
             last = _fetch(out["logits"][0, plen - 1])
             first = _select_token(last, r)
-            self._pcache_put(r.prompt, store, last)
+            self._pcache_put(r.prompt, r.adapter, store, last)
         r.emit(first)
         self.tokens_out += 1
         if (len(r.tokens) >= r.max_new or first == r.eos_id
@@ -526,14 +560,24 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         self._pos[slot] = plen
         self._last_tok[slot] = first
 
+    def _set_adapter(self, slot: int, r: _Request) -> None:
+        """Write the request's adapter into its slot's `lora_idx` entry."""
+        if self._lora:
+            self._adapter[slot].fill_(r.adapter)
+
     # -- dispatcher -------------------------------------------------------
+    def _lora_feed(self, feed: dict) -> dict:
+        if self._lora:
+            feed["lora_idx"] = self._adapter
+        return feed
+
     def _feed(self, ids: np.ndarray, calibrating: bool = False) -> dict:
         feed = {"input_ids": torch.from_numpy(ids),
                 "pos": torch.from_numpy(self._pos.copy())}
         feed.update(self._cache)
         if self.kv_dtype == np.int8 and not calibrating:
             feed.update(self._kv_scales)
-        return feed
+        return self._lora_feed(feed)
 
     def _take_presents(self, out: Dict[str, torch.Tensor]) -> None:
         for name in self._cache:
@@ -611,7 +655,7 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
                     # prompt fully ingested: keep its KV rows so later
                     # requests sharing this prefix skip the prefill stream
                     plen = int(self._pos[s])
-                    self._pcache_put(r.prompt, {
+                    self._pcache_put(r.prompt, r.adapter, {
                         name: v[s, :, :plen].clone()
                         for name, v in self._cache.items()})
                 tok = _select_token(logits[s, fed[s] - 1], r)

@@ -126,7 +126,7 @@ class _MultiStepMixin:
                 feed = {"input_ids": tok.reshape(B, 1), "pos": pos}
                 feed.update(cur)
                 feed.update(scales)
-                out = eng.forward(feed)
+                out = eng.forward(self._lora_feed(feed))
                 logits = out["logits"][:, -1, :]
                 if sampled:
                     logits = _bias_penalize(
@@ -191,7 +191,7 @@ class _MultiStepMixin:
                 feed = {"input_ids": ids, "pos": pos}
                 feed.update(cur)
                 feed.update(scales)
-                out = eng.forward(feed)
+                out = eng.forward(self._lora_feed(feed))
                 logits = out["logits"].to(torch.float32)          # [B, C, V]
                 last = logits.gather(1, (n_feed - 1)[:, None, None].expand(
                     B, 1, V))[:, 0]
@@ -254,6 +254,6 @@ class _MultiStepMixin:
             if fed_total and self._pending[s] is not None:
                 self._pending[s] = self._pending[s][fed_total:]
             if plen_done is not None and self.prompt_cache:
-                self._pcache_put(r.prompt, {
+                self._pcache_put(r.prompt, r.adapter, {
                     name: v[s, :, :plen_done].clone()
                     for name, v in self._cache.items()})

@@ -323,24 +323,55 @@ def test_cli_precision_flag_matches_jax(argv, files, capsys, monkeypatch):
         assert got == want
 
 
+# the flags whose machinery the port lacks, with the ROADMAP item each
+# names; None: the flags of the model families, the LoRA bank and the MoE
+# server, which exited 2 until those were ported and now run and give the
+# JAX CLI's output
 UNPORTED = [
     (["generate", "--draft-layers", "1"], "1.9/1.10b"),
-    (["generate", "--family", "moe"], "1.8"),
-    (["generate", "--family", "t5"], "1.8"),
+    (["generate", "--family", "moe"], None),
+    (["generate", "--family", "t5"], None),
     (["generate", "--beam", "2"], "1.9"),
-    (["generate", "--adapters", "2"], "1.8"),
-    (["generate", "--adapter", "2"], "1.8"),
-    (["generate", "--lora-rank", "4"], "1.8"),
+    (["generate", "--adapters", "2"], None),
+    (["generate", "--adapter", "2"], None),
+    (["generate", "--lora-rank", "4"], None),
     (["generate", "--spec-k", "2"], "1.9/1.10b"),
     (["serve-llm", "--spec-k", "8"], "1.9/1.10b"),
     (["serve-llm", "--draft-layers", "1"], "1.9/1.10b"),
-    (["serve-llm", "--family", "moe"], "1.8"),
+    (["serve-llm", "--family", "moe"], None),
 ]
 
 
+def _ported_flag_matches_jax(argv, capsys, monkeypatch):
+    """A flag that now runs: the port's CLI on the CPU prints the JAX
+    CLI's JSON (`generate`), or serves the JAX server's greedy tokens
+    (`serve-llm`)."""
+    from onnx_rusty_inference_engine_tpu import http_serve as j_http
+    from onnx_rusty_inference_engine_tpu_torch import http_serve as t_http
+
+    if argv[0] == "serve-llm":
+        rest = ["--port", "0", "--slots", "2", "--prompt-len", "8",
+                "--max-len", "24"] + argv[1:]
+        rc_j, want = _served(j_cli.main, ["serve-llm"] + rest, capsys,
+                             monkeypatch, j_http)
+        rc_t, got = _served(t_cli.main, ["serve-llm"] + rest
+                            + ["--device", "cpu"], capsys, monkeypatch,
+                            t_http)
+        assert rc_j == rc_t == 0 and got == want
+        return
+    rc_j, out_j, _ = _main(j_cli.main, argv + ["--new", "5"], capsys)
+    rc_t, out_t, _ = _main(t_cli.main, argv + ["--new", "5", "--device",
+                                               "cpu"], capsys)
+    assert rc_j == rc_t == 0
+    assert json.loads(out_t) == json.loads(out_j)
+
+
 @pytest.mark.parametrize("argv,item", UNPORTED,
-                         ids=[" ".join(a) for a, _ in UNPORTED])
-def test_cli_unported_flag_exits_2(argv, item, capsys):
+                         ids=[" ".join(a) for a in [a for a, _ in UNPORTED]])
+def test_cli_unported_flag_exits_2(argv, item, capsys, monkeypatch):
+    if item is None:
+        _ported_flag_matches_jax(argv, capsys, monkeypatch)
+        return
     cmd, rest = argv[0], argv[1:]
     if cmd in ("run", "bench", "serve", "quantize"):
         rest = ["--model", "m.onnx"] + rest
@@ -349,6 +380,32 @@ def test_cli_unported_flag_exits_2(argv, item, capsys):
     rc, out, err = _main(t_cli.main, [cmd] + rest, capsys)
     assert rc == 2 and out == ""
     assert f"ROADMAP {item}" in err
+
+
+FAMILY_FLAGS = [
+    ["generate", "--family", "asr"],
+    ["generate", "--family", "t5", "--kv-dtype", "int8", "--int4"],
+    ["generate", "--family", "moe", "--kv-dtype", "int8", "--int4"],
+    ["generate", "--adapters", "2", "--adapter", "1"],
+    ["generate", "--adapters", "3", "--adapter", "2", "--lora-rank", "4",
+     "--family", "moe"],
+    ["generate", "--family", "llama", "--adapters", "2", "--adapter", "1"],
+]
+
+
+@pytest.mark.parametrize("argv", FAMILY_FLAGS,
+                         ids=[" ".join(a) for a in FAMILY_FLAGS])
+def test_cli_family_and_adapter_flags_match_jax(argv, capsys, monkeypatch):
+    _ported_flag_matches_jax(argv, capsys, monkeypatch)
+
+
+def test_cli_int4_kv_refused_beyond_gpt2_and_llama(capsys):
+    for cli in (j_cli, t_cli):
+        rc, out, err = _main(cli.main, ["generate", "--family", "moe",
+                                        "--kv-dtype", "int4", "--device",
+                                        "cpu"][: 5 if cli is j_cli else 7],
+                             capsys)
+        assert rc == 2 and out == "" and "nibble-packing" in err
 
 
 def test_cli_defaults_to_the_card(files):

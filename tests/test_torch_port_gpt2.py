@@ -281,9 +281,12 @@ def test_int4_packing_bit_equal(K, N, block):
 def test_unported_options_raise():
     # the int4 KV cache, the llama family and the Scan graph are ported
     # (tests/test_torch_port_int4_kv.py, test_torch_port_llama.py,
-    # test_torch_port_scan_decode.py); moe and the mesh options still raise
-    with pytest.raises(NotImplementedError, match="1.8"):
-        decoder_family("moe")
+    # test_torch_port_scan_decode.py), and so are moe and the LoRA bank
+    # (test_torch_port_moe.py, test_torch_port_lora.py); the mesh options
+    # still raise
+    from onnx_rusty_inference_engine_tpu_torch.models import moe
+
+    assert decoder_family("moe")[:2] == (moe.build_moe, moe.build_moe_decode)
     # scan_layers takes neither fused attention, nor chunks, nor int4 KV
     for kw, match in (({"kv_dtype": "int8", "fused_attention": True},
                        "incompatible with fused_attention/chunk"),
@@ -291,12 +294,16 @@ def test_unported_options_raise():
                       ({"kv_dtype": "int4"}, "int4 KV")):
         with pytest.raises(ValueError, match=match):
             build_gpt2_decode(TINY, scan_layers=True, **kw)
-    for kw, item in (({"kv_dtype": "int4", "family": "moe"}, "1.8"),
-                     ({"mesh": object()}, "1.12"),
-                     ({"pipeline_axis": "pipe"}, "1.12"),
-                     ({"lora_bank": {}}, "1.8")):
+    for kw, item in (({"mesh": object()}, "1.12"),
+                     ({"pipeline_axis": "pipe"}, "1.12")):
         with pytest.raises(NotImplementedError, match=item):
             Generator(TINY, device="cpu", **kw)
+    # the int4 KV cache of the moe family runs; an empty bank is refused
+    # by attach_lora, as in JAX
+    gen4 = Generator(moe.TINY, device="cpu", kv_dtype="int4", family="moe")
+    assert gen4.decode.graph.inputs[2].dtype == np.int8
+    with pytest.raises(ValueError, match="empty adapter bank"):
+        Generator(TINY, device="cpu", lora_bank={})
     # prefill_dtype is ported: a bf16 prefill Engine on the W8A8 graph,
     # whose first tokens are JAX's (tests/test_torch_port_precision.py
     # holds the rest)

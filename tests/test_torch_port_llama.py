@@ -202,8 +202,8 @@ def test_unported_and_invalid_options_raise():
         build_llama_decode(TINY, kv_dtype="int4", fused_attention=True)
     with pytest.raises(ValueError, match="fused_attention"):
         build_llama_decode(TINY, fused_attention=True)
-    with pytest.raises(NotImplementedError, match="1.8"):
-        decoder_family("moe")
+    # the moe family is ported (test_torch_port_moe.py)
+    assert decoder_family("moe")[2] is True
     # scan_layers takes neither fused attention, nor chunks, nor int4 KV
     for kw, match in (({"kv_dtype": "int8", "fused_attention": True},
                        "incompatible with fused_attention/chunk"),

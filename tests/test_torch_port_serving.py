@@ -605,7 +605,7 @@ def test_failed_chunked_admission_frees_slot():
     try:
         orig = srv._pcache_prefix
 
-        def bad(prompt):
+        def bad(prompt, adapter):
             raise RuntimeError("cache lookup exploded")
 
         srv._pcache_prefix = bad
@@ -735,17 +735,43 @@ def test_watchdog_still_fires_on_a_stuck_known_graph():
 # --------------------------------------------------------------------------
 # options not ported yet, and the package's imports
 # --------------------------------------------------------------------------
+# the mesh options raise, naming their ROADMAP item; the LoRA bank and
+# the moe family (item None) raised until they were ported, and now serve
+# the JAX server's greedy tokens (an empty bank is refused, as in JAX)
 @pytest.mark.parametrize("kw,item", [
-    ({"lora_bank": {}}, "1.8"),
+    ({"lora_bank": {}}, None),
     ({"mesh": object()}, "1.12"),
     ({"param_sharding_fn": lambda n, a: None}, "1.12"),
-    ({"kv_dtype": "int4", "family": "moe"}, "1.8"),
-    ({"family": "moe"}, "1.8"),
+    ({"kv_dtype": "int4", "family": "moe"}, None),
+    ({"family": "moe"}, None),
 ], ids=["lora_bank", "mesh", "param_sharding_fn", "int4_kv_moe", "moe"])
 def test_unported_server_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        DecodeServer(TINY, slots=1, max_len=16, device="cpu",
-                     autostart=False, **kw)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            DecodeServer(TINY, slots=1, max_len=16, device="cpu",
+                         autostart=False, **kw)
+        return
+    if "lora_bank" in kw:
+        with pytest.raises(ValueError, match="empty adapter bank"):
+            DecodeServer(TINY, slots=1, max_len=16, device="cpu",
+                         autostart=False, **kw)
+        return
+    from onnx_rusty_inference_engine_tpu.models.moe import TINY as J_MOE
+    from onnx_rusty_inference_engine_tpu_torch.models.moe import (
+        TINY as MOE)
+
+    reqs = _staggered(63, 3, (2, 7), (3, 6))
+    outs = []
+    for srv in (JDecodeServer(J_MOE, slots=2, prompt_len=6, max_len=24,
+                              **kw),
+                DecodeServer(MOE, slots=2, prompt_len=6, max_len=24,
+                             device="cpu", **kw)):
+        try:
+            outs.append([[int(t) for t in f.result(timeout=300)] for f in
+                         [srv.submit(p, n) for p, n, _ in reqs]])
+        finally:
+            srv.stop()
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("prefill_dtype", ["w8a8", "bfloat16"],
@@ -762,8 +788,10 @@ def test_server_prefill_dtype_with_int8_kv_matches_jax(prefill_dtype):
 
 
 def test_unported_adapter_and_chunked_prefill_dtype():
+    # an adapter is served once a bank is attached; without one it is
+    # refused, as in JAX (test_torch_port_lora.py serves mixed adapters)
     srv = _srv(slots=1, max_len=16, autostart=False)
-    with pytest.raises(NotImplementedError, match="1.8"):
+    with pytest.raises(ValueError, match="lora_bank"):
         srv.submit(np.arange(3), 2, adapter=1)
     srv.stop()
     # as in JAX: chunked prefill has no prefill engines to take the knob

@@ -232,7 +232,7 @@ def test_zoo_names_the_port_families(tmp_path, monkeypatch):
     synthesized under the port's own assets directory, byte for byte the
     JAX builder's model; SqueezeNet is always synthesized there too, and
     the models the repository does not ship raise rather than being looked
-    for outside the checkout; the families the port lacks raise naming 1.8."""
+    for outside the checkout; no family of the JAX zoo is left unported."""
     from onnx_rusty_inference_engine_tpu.models import zoo as j_zoo
     from onnx_rusty_inference_engine_tpu_torch.models import zoo
 
@@ -247,8 +247,20 @@ def test_zoo_names_the_port_families(tmp_path, monkeypatch):
     for name in zoo.NOT_SHIPPED:
         with pytest.raises(FileNotFoundError, match="not in the repository"):
             zoo.get_model_path(name)
-    for name in zoo.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="1.8"):
-            zoo.get_model_path(name)
+    # t5_encoder, moe and asr_encoder were the families the port lacked:
+    # NOT_PORTED is empty, and each synthesizes the JAX builder's bytes
+    assert zoo.NOT_PORTED == ()
+    from onnx_rusty_inference_engine_tpu.models import asr as j_asr
+    from onnx_rusty_inference_engine_tpu.models import moe as j_moe
+    from onnx_rusty_inference_engine_tpu.models import t5 as j_t5
+
+    for name, want in (
+            ("t5_encoder", j_t5.build_t5_encoder(j_t5.TINY, batch=1,
+                                                 src_len=16)),
+            ("moe", j_moe.build_moe(j_moe.TINY, batch=1, seq_len=16)),
+            ("asr_encoder", j_asr.build_asr_encoder(j_asr.TINY, batch=1,
+                                                    n_samples=512))):
+        with open(zoo.get_model_path(name), "rb") as f:
+            assert f.read() == j_io.serialize_model(want), name
     with pytest.raises(KeyError):
         zoo.get_model_path("no_such_model")
