@@ -309,9 +309,11 @@ Phases, each printing JSON lines:
              user builds them (import_onnx, calibrate + quantize_graph, or
              quantize_weights_int4; random weights from seed 0):
              SqueezeNet 1.0 INT8 and MobileNetV2 INT8 at 224x224, b256,
-             BERT-base INT8 (4 of its 12 layers, full widths; cut for the
-             time limit) at B 32, T 128, and GPT-2 124M's INT4-planar,
-             INT8-KV, fused-attention decode step at batch 8, max_len 256.
+             BERT-base INT8 (EXPORT_BERT_LAYERS = 2 of its 12 layers,
+             full widths; cut for the time limit) at B 32, T 128, and
+             GPT-2 124M's INT4-planar, INT8-KV, fused-attention decode
+             step (EXPORT_GPT2_LAYERS = 2 of its 12 layers, full widths;
+             cut for the time limit) at batch 8, max_len 256.
              Each is written with export_aot.export_engine and loaded and
              run in a fresh process (this script with --export-child),
              which must import no ONNX codec, graph or op registry (it
@@ -442,6 +444,37 @@ Phases, each printing JSON lines:
              INT8 forward, the fp32 top-1 of the first batch equal to the
              CPU's (near-ties, a top-2 margin under 1e-4 of the range,
              excused).
+6c. decoding - decoding beyond greedy and the rest of serving (after
+             6b), weights from seed 0, one line per path. Beam search on
+             GPT-2 124M with INT4 weights (BeamGenerator, b4 x beam 4,
+             prompt 64, 32 new): the host loop and the device loop (every
+             step after the first one CUDA graph, its first call eager
+             and captured, the timed call a replay) give the same beams,
+             scores within 1e-5 relative; 49 qmatmul_int4_planar launches
+             per prefill and per step on both loops; beam=1's tokens the
+             picks of an isolated batch-1 greedy Generator teacher-forced
+             on them (near-ties, NEAR_TIE, excused); tokens/s of both
+             loops and the block's replay ms. Seq2SeqBeamGenerator on
+             T5-small (b4 x beam 4, src 512, 32 new): both loops agree.
+             SpeculativeGenerator on GPT-2 124M fp32 (b8, prompt 64, k 4,
+             32 new), the draft the target (acceptance 1.0) and a 2-layer
+             draft at the same widths (draft_seed 1, as the CLI's
+             --draft-layers builds it): rows that differ from the greedy
+             Generator's teacher-forced against the isolated one;
+             acceptance and tokens/s beside the greedy Generator's.
+             SpeculativeServer (8 slots, 16 requests of 48 repeated-motif
+             tokens x 32 new, k 4): the 2-layer draft and prompt lookup
+             (ngram 2), each in host rounds and in blocks of 4 rounds;
+             the first run's first 4 requests, and any request another
+             run serves otherwise, teacher-forced against the isolated
+             greedy Generator; every cache row finite after each run
+             (parked lanes'); a sampled request's tokens alone equal its
+             tokens beside 7 greedy ones (the block's seed contract).
+             Seq2SeqServer on T5-small (8 slots, 16 requests of 512
+             tokens x 32 new, encoder_cache 4, one source repeated) at
+             multi_step 0 and 8: one encoder-cache hit each, every token
+             the pick of a batch-16 Seq2SeqGenerator teacher-forced on the
+             served tokens.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
@@ -455,7 +488,8 @@ Phases, each printing JSON lines:
              qmatmul_int4_planar's row carries the GPT-2 scan form's step
              in `scan_path`; the rows of the kernels the families run
              (int4 planar, decode attention, the int8 conv) carry their
-             launches by path in `families_path`.
+             launches by path in `families_path`, and int4 planar's row
+             the beam path's launches (6c) in `decoding_path`.
 
 The whole run is one models.host_memo block: every GPT-2 and Llama graph
 of one config and seed (Generators, servers, precision schemes, export
@@ -4560,7 +4594,10 @@ EXPORT_REPS = 3     # replayed forwards whose launches are counted
 # BERT-base's depth in this phase, at its full widths (the smoke's time
 # limit: all 12 layers add ~60 s to the phase on an H100; phase 9 runs
 # all 12)
-EXPORT_BERT_LAYERS = 4
+EXPORT_BERT_LAYERS = 2
+# GPT-2 124M's depth in this phase, at its full widths (the same limit;
+# phase 6 and the decoding phase run all 12 layers)
+EXPORT_GPT2_LAYERS = 2
 
 # model -> (output checked for shape, per-second unit, launches per
 # forward): the four Engines of the phase, each built the way a user
@@ -4572,12 +4609,13 @@ EXPORT = {
                               {"qconv_int8_requant": 35,
                                "qconv_grouped_int8_requant": 17,
                                "qmatmul_int8": 1}),
-    "bert-base 4 of 12 layers int8 B32 T128": (
+    f"bert-base {EXPORT_BERT_LAYERS} of 12 layers int8 B32 T128": (
         "pooler_output", "sequences",
         {"qmatmul_int8": 6 * EXPORT_BERT_LAYERS + 1}),
-    "gpt2 124M int4 int8kv decode step b8": ("logits", "tokens",
-                                             {"qmatmul_int4_planar": 49,
-                                              "decode_attention_int8": 12}),
+    f"gpt2 124M {EXPORT_GPT2_LAYERS} of 12 layers int4 int8kv decode step "
+    "b8": ("logits", "tokens",
+           {"qmatmul_int4_planar": 4 * EXPORT_GPT2_LAYERS + 1,
+            "decode_attention_int8": EXPORT_GPT2_LAYERS}),
 }
 
 # what a loaded artifact must not have imported
@@ -4590,7 +4628,8 @@ def _export_files(model: str, d: str) -> None:
     d/model.onnx and its feed as d/feed.npz: SqueezeNet and MobileNetV2 at
     224x224, b256 (x from default_rng(0)); BERT-base at B 32, T 128 (phase
     9's feed) with EXPORT_BERT_LAYERS of its 12 layers; GPT-2 124M's
-    INT8-KV, fused-attention decode step at batch 8 and max_len 256
+    INT8-KV, fused-attention decode step (EXPORT_GPT2_LAYERS of its 12
+    layers) at batch 8 and max_len 256
     (phase 6's shapes), fed token ids, position 64 (a 64-token prompt)
     and random int8 caches and KV scales."""
     from onnx_rusty_inference_engine_tpu_torch import onnx_io
@@ -4616,7 +4655,7 @@ def _export_files(model: str, d: str) -> None:
         from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import (
             GPT2Config)
 
-        cfg = GPT2Config()
+        cfg = GPT2Config(n_layer=EXPORT_GPT2_LAYERS)
         proto = build_gpt2_decode(cfg, batch=DEC_BATCH, max_len=MAX_LEN,
                                   kv_dtype="int8", fused_attention=True,
                                   seed=0)
@@ -6273,7 +6312,7 @@ def phase_detection_ml(smi: str) -> dict:
 LORA_ADAPTERS, LORA_RANK, LORA_ALPHA = 8, 16, 16.0
 LORA_NEW = 16
 LORA_FOLD_SEQ = 128        # the fp32 prefill held against fold_adapter
-MOE_LAYERS = 4             # of GPT-2 small's 12: the depth cut
+MOE_LAYERS = 2             # of GPT-2 small's 12: the depth cut
 MOE_PROMPT, MOE_NEW, MOE_LOOP = 128, 16, 8
 MOE_DECODE_CHECK = 8       # decode steps held against the prefill
 T5_BATCH, T5_SRC, T5_MAX, T5_NEW = 16, 512, 128, 32
@@ -6847,6 +6886,351 @@ def phase_families(smi: str, lora: dict) -> dict:
     return by_kernel
 
 
+# --------------------------------------------------------------------------
+# decoding beyond greedy and the rest of serving
+# --------------------------------------------------------------------------
+BEAM_BATCH, BEAM_K, BEAM_NEW = 4, 4, 32
+S2S_BEAM_BATCH, S2S_SRC, S2S_NEW = 4, 512, 32
+SPEC_K, SPEC_NEW, SPEC_DRAFT_LAYERS = 4, 32, 2
+SPEC_SLOTS, SPEC_REQS, SPEC_PLEN, SPEC_ROUNDS = 8, 16, 48, 4
+S2S_SLOTS, S2S_REQS, S2S_K = 8, 16, 8
+SPEC_SAMPLED = dict(temperature=0.8, seed=5)
+
+
+def _dec_line(path: str, t0: float, smi: str, **kw) -> None:
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "decoding", "path": path, **kw, "peak_gb": peak / 1e9,
+          "seconds": time.perf_counter() - t0, "card": smi})
+
+
+def _score_rel(got, want) -> float:
+    """The largest elementwise |got - want| / |want| of two beams' scores
+    (summed log-probs, never 0)."""
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(want))
+                        / np.abs(np.asarray(want))))
+
+
+def _dec_beam(cfg, smi: str) -> dict:
+    """BeamGenerator on GPT-2 124M with INT4 weights: the host loop, the
+    device loop (every step after the first one CUDA graph), beam=1
+    against the greedy Generator."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import (
+        BeamGenerator, Generator)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    B, K, N, P = BEAM_BATCH, BEAM_K, BEAM_NEW, PROMPT
+    prompts = _decode_prompts(cfg)[:B]
+    kw = dict(batch=B, prompt_len=P, max_len=P + N, int4_weights=True)
+    bg = BeamGenerator(cfg, beam=K, **kw)
+    n_pre, n_step = _mm_nbits(bg.prefill.graph), _mm_nbits(bg.decode.graph)
+    require(n_pre == n_step == 4 * cfg.n_layer + 1,
+            f"beam: 49 MatMulNBits per graph: {n_pre}, {n_step}")
+    want = n_pre + (N - 1) * n_step
+    bg.generate(prompts, 2)                  # captures the prefill and step
+    reset_counts()
+    (ht, hs), host_s = _wall(lambda: bg.generate(prompts, N))
+    host_counts = read_counts()
+    bg.device_loop = True
+    first = bg.generate(prompts, N)          # the eager block, the capture
+    reset_counts()
+    (dt, ds), dev_s = _wall(lambda: bg.generate(prompts, N))
+    dev_counts = read_counts()
+    require(host_counts["qmatmul_int4_planar"] == want
+            and dev_counts["qmatmul_int4_planar"] == want,
+            f"beam: {n_pre} int4 launches per prefill and {n_step} per step "
+            f"({want}): host {host_counts}, device {dev_counts}")
+    rel = max(_score_rel(ds, hs), _score_rel(first[1], hs))
+    require(np.array_equal(dt, ht) and np.array_equal(first[0], ht)
+            and rel <= 1e-5, f"beam: the device loop's beams are the host "
+            f"loop's (scores {rel})")
+    block_ms = cuda_ms(bg.steps._graphs[("beam", N, None)], 3)
+    del bg
+    b1 = BeamGenerator(cfg, beam=1, **kw)
+    t1, _ = b1.generate(prompts, N)
+    del b1
+    iso = Generator(cfg, batch=1, prompt_len=P, max_len=P + N,
+                    int4_weights=True)
+    vs_iso = _served_vs_isolated("beam=1", [list(r) for r in t1], prompts,
+                                 iso)
+    del iso
+    _dec_line("beam", t0, smi, model="gpt2 124M (SMALL, seed 0), int4 "
+              "planar, fp32 KV", batch=B, beam=K, prompt=P, new_tokens=N,
+              launches_host_loop=host_counts, launches_device_loop=dev_counts,
+              int4_per_prefill=n_pre, int4_per_step=n_step,
+              device_equals_host=True, device_vs_host_score_rel=rel,
+              tokens_per_s_host_loop=B * N / host_s,
+              tokens_per_s_device_loop=B * N / dev_s,
+              block_replay_ms=block_ms, block_steps=N - 1,
+              beam1_vs_greedy=vs_iso, scores_row0=float(hs[0]),
+              tokens_row0=ht[0, :16].tolist())
+    return {"beam_host_loop": host_counts["qmatmul_int4_planar"],
+            "beam_device_loop": dev_counts["qmatmul_int4_planar"],
+            "per_prefill": n_pre, "per_step": n_step}
+
+
+def _dec_seq2seq_beam(t5cfg, smi: str) -> None:
+    """Seq2SeqBeamGenerator on T5-small: the host loop and the device
+    loop agree."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import (
+        Seq2SeqBeamGenerator)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    B, N = S2S_BEAM_BATCH, S2S_NEW
+    src = np.random.default_rng(1).integers(0, t5cfg.vocab_size,
+                                            (B, S2S_SRC))
+    bg = Seq2SeqBeamGenerator(t5cfg, batch=B, beam=BEAM_K, src_len=S2S_SRC,
+                              max_len=N)
+    bg.generate(src, 2)                       # captures the encoder, step
+    (ht, hs), host_s = _wall(lambda: bg.generate(src, N))
+    bg.device_loop = True
+    bg.generate(src, N)
+    (dt, ds), dev_s = _wall(lambda: bg.generate(src, N))
+    rel = _score_rel(ds, hs)
+    require(np.array_equal(dt, ht) and rel <= 1e-5,
+            f"t5 beam: the device loop's beams are the host loop's ({rel})")
+    block_ms = cuda_ms(bg.steps._graphs[("beam", N, None)], 3)
+    del bg
+    _dec_line("seq2seq_beam", t0, smi, model="t5-small (T5Config(), seed "
+              "0), fp32", batch=B, beam=BEAM_K, src_len=S2S_SRC,
+              new_tokens=N, device_equals_host=True,
+              device_vs_host_score_rel=rel,
+              tokens_per_s_host_loop=B * N / host_s,
+              tokens_per_s_device_loop=B * N / dev_s,
+              block_replay_ms=block_ms, tokens_row0=ht[0, :16].tolist())
+
+
+def _dec_speculative(cfg, smi: str) -> None:
+    """SpeculativeGenerator on GPT-2 124M fp32, the draft the target and a
+    2-layer draft, against the target's greedy Generator."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import (
+        Generator, SpeculativeGenerator)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    B, P, N, k = DEC_BATCH, PROMPT, SPEC_NEW, SPEC_K
+    prompts = _decode_prompts(cfg)
+    ML = P + N + k
+    greedy = Generator(cfg, batch=B, prompt_len=P, max_len=ML)
+    greedy.generate(prompts, 2)
+    (gt, _), greedy_s = _wall(lambda: greedy.generate(prompts, N))
+    del greedy
+    iso = None          # the isolated greedy Generator, where a row differs
+    runs = {}
+    for name, dcfg, dseed in (
+            ("draft_is_target", None, 0),
+            ("draft_2_layers",
+             dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS), 1)):
+        sg = SpeculativeGenerator(cfg, dcfg, batch=B, prompt_len=P,
+                                  max_len=ML, k=k, draft_seed=dseed)
+        sg.generate(prompts, k + 1)                # captures every call
+        sg.accepted_total = sg.proposed_total = 0
+        (st, _), wall = _wall(lambda: sg.generate(prompts, N))
+        acc = sg.acceptance_rate
+        del sg
+        if dcfg is None:
+            require(acc == 1.0, f"speculative: the target as its own "
+                    f"draft accepts every proposal ({acc})")
+        differ = [r for r in range(B) if not np.array_equal(st[r], gt[r])]
+        if differ and iso is None:
+            iso = Generator(cfg, batch=1, prompt_len=P, max_len=ML)
+        vs_iso = _served_vs_isolated(name, [list(st[r]) for r in differ],
+                                     prompts[differ], iso)
+        runs[name] = {"acceptance_rate": acc, "tokens_per_s": B * N / wall,
+                      "rows_equal_greedy": B - len(differ),
+                      "differing_rows_vs_isolated": vs_iso}
+    del iso
+    _dec_line("speculative", t0, smi, model="gpt2 124M (SMALL, seed 0), "
+              "fp32", batch=B, prompt=P, new_tokens=N, k=k,
+              draft_layers=SPEC_DRAFT_LAYERS, runs=runs,
+              greedy_tokens_per_s=B * N / greedy_s)
+
+
+def _spec_prompts(cfg) -> np.ndarray:
+    """SPEC_REQS prompts of SPEC_PLEN tokens, each a random motif of 3-8
+    tokens repeated: text that prompt lookup can continue."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(SPEC_REQS):
+        motif = rng.integers(0, cfg.vocab_size, (int(rng.integers(3, 9)),))
+        out.append(np.tile(motif, -(-SPEC_PLEN // motif.size))[:SPEC_PLEN])
+    return np.stack(out)
+
+
+def _dec_spec_server(cfg, smi: str) -> None:
+    """SpeculativeServer on GPT-2 124M fp32: a 2-layer draft and prompt
+    lookup, each in host rounds and in blocks of SPEC_ROUNDS rounds."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+    from onnx_rusty_inference_engine_tpu_torch.serving import (
+        SpeculativeServer)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _spec_prompts(cfg)
+    N, k, PL = SPEC_NEW, SPEC_K, PROMPT
+    ML = PL + N + k
+    draft = dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS)
+    runs, outs = {}, {}
+    for name, kw in (("draft_host_rounds", {}),
+                     ("draft_multi_step", {"multi_step": SPEC_ROUNDS}),
+                     ("ngram_host_rounds", {"ngram": 2}),
+                     ("ngram_multi_step", {"ngram": 2,
+                                           "multi_step": SPEC_ROUNDS})):
+        srv = SpeculativeServer(cfg, None if kw.get("ngram") else draft,
+                                slots=SPEC_SLOTS, prompt_len=PL, max_len=ML,
+                                k=k, draft_seed=1, autostart=False, **kw)
+        try:
+            warm = srv.submit(prompts[0][:8], 6)   # captures every graph
+            srv.start()
+            warm.result(timeout=600)
+            srv.steps = srv.tokens_out = srv.requests_done = 0
+            srv._occupancy_sum = srv.accepted_total = srv.proposed_total = 0
+            srv._latencies.clear()
+            futs = [srv.submit(p, N) for p in prompts]
+            outs[name], wall = _wall(lambda: [f.result(timeout=600)
+                                              for f in futs])
+            st = srv.stats()
+            caches = list(srv._t_cache.values()) + list(
+                srv._d_cache.values())
+            require(all(bool(torch.isfinite(c).all()) for c in caches),
+                    f"{name}: every cache row finite, parked lanes' too")
+            seed_contract = None
+            if name == "draft_multi_step":
+                # a sampled request alone, then beside greedy ones in
+                # every other slot
+                alone = srv.submit(prompts[1], N, **SPEC_SAMPLED).result(
+                    timeout=600)
+                fs = [srv.submit(p, N) for p in prompts[2:SPEC_SLOTS + 1]]
+                at = len(fs) // 2
+                fs.insert(at, srv.submit(prompts[1], N, **SPEC_SAMPLED))
+                beside = [f.result(timeout=600) for f in fs][at]
+                require(beside == alone, "draft_multi_step: a sampled "
+                        "request's tokens do not depend on its neighbours")
+                seed_contract = {"sampling": SPEC_SAMPLED,
+                                 "tokens_row": alone[:16]}
+        finally:
+            srv.stop()
+        del srv
+        torch.cuda.empty_cache()
+        runs[name] = {"served_tokens_per_s": SPEC_REQS * N / wall,
+                      "acceptance_rate": st["acceptance_rate"],
+                      "dispatches": st["decode_steps"],
+                      "tokens_per_dispatch": st["tokens_per_step"],
+                      "p50_latency_s": st["p50_latency_s"],
+                      "seed_contract": seed_contract}
+    # served == isolated greedy: the first requests of the first run
+    # teacher-forced, and every request another run serves differently
+    iso = Generator(cfg, batch=1, prompt_len=SPEC_PLEN, max_len=ML)
+    ref = outs["draft_host_rounds"]
+    vs = {"draft_host_rounds": _served_vs_isolated(
+        "draft_host_rounds", ref[:ISOLATED_CHECK],
+        prompts[:ISOLATED_CHECK], iso)}
+    for name, got in outs.items():
+        differ = [r for r in range(SPEC_REQS) if got[r] != ref[r]]
+        runs[name]["requests_equal_first_run"] = SPEC_REQS - len(differ)
+        if differ:
+            vs[name] = _served_vs_isolated(name, [got[r] for r in differ],
+                                           prompts[differ], iso)
+    del iso
+    _dec_line("spec_server", t0, smi, model="gpt2 124M (SMALL, seed 0), "
+              "fp32", slots=SPEC_SLOTS, requests=SPEC_REQS,
+              prompt=SPEC_PLEN, new_tokens=N, k=k,
+              draft_layers=SPEC_DRAFT_LAYERS, ngram=2,
+              rounds_per_block=SPEC_ROUNDS, runs=runs, served_vs_isolated=vs)
+
+
+def _dec_seq2seq_server(t5cfg, smi: str) -> None:
+    """Seq2SeqServer on T5-small at multi_step 0 and S2S_K, with an
+    encoder cache and one repeated source, against an isolated
+    Seq2SeqGenerator teacher-forced on the served tokens."""
+    from onnx_rusty_inference_engine_tpu_torch.generate import (
+        Seq2SeqGenerator)
+    from onnx_rusty_inference_engine_tpu_torch.serving import Seq2SeqServer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(2)
+    srcs = rng.integers(0, t5cfg.vocab_size, (S2S_REQS, S2S_SRC))
+    srcs[5] = srcs[3]             # a hit: sources 1-4 are in the LRU of 4
+    N = S2S_NEW
+    runs, outs = {}, {}
+    for K in (0, S2S_K):
+        srv = Seq2SeqServer(t5cfg, slots=S2S_SLOTS, src_len=S2S_SRC,
+                            max_len=N, encoder_cache=4, multi_step=K,
+                            autostart=False)
+        try:
+            warm = srv.submit(rng.integers(0, t5cfg.vocab_size, (S2S_SRC,)),
+                              K + 2)
+            srv.start()
+            warm.result(timeout=600)
+            srv.encoder_cache_hits = 0
+            srv.steps = srv.tokens_out = srv._occupancy_sum = 0
+            srv._latencies.clear()
+            futs = [srv.submit(s, N) for s in srcs]
+            outs[K], wall = _wall(lambda: [f.result(timeout=600)
+                                           for f in futs])
+            st = srv.stats()
+        finally:
+            srv.stop()
+        del srv
+        require(st["encoder_cache_hits"] == 1,
+                f"seq2seq server: one encoder-cache hit ({st})")
+        runs[K] = {"served_tokens_per_s": S2S_REQS * N / wall,
+                   "dispatches": st["decode_steps"],
+                   "encoder_cache_hits": st["encoder_cache_hits"],
+                   "p50_latency_s": st["p50_latency_s"]}
+    iso = Seq2SeqGenerator(t5cfg, batch=S2S_REQS, src_len=S2S_SRC,
+                           max_len=N)
+    picks, ties = 0, []
+    for K, got in outs.items():
+        toks = np.asarray(got)
+        _, logits = _teacher_forced(iso, srcs, toks, S2S_REQS)
+        for t, lg in enumerate(logits):
+            for r in range(S2S_REQS):
+                picks += 1
+                if int(lg[r].argmax()) != int(toks[r, t]):
+                    top2 = np.sort(lg[r])[-2:]
+                    margin = float((top2[1] - top2[0])
+                                   / (lg[r].max() - lg[r].min()))
+                    ties.append({"multi_step": K, "request": r, "step": t,
+                                 "rel_margin": margin})
+                    require(margin < NEAR_TIE, f"seq2seq server "
+                            f"(multi_step {K}): request {r}'s token {t} is "
+                            f"not its isolated pick (margin {margin})")
+    del iso
+    _dec_line("seq2seq_server", t0, smi, model="t5-small (T5Config(), seed "
+              "0), fp32", slots=S2S_SLOTS, requests=S2S_REQS,
+              src_len=S2S_SRC, new_tokens=N, encoder_cache=4,
+              runs={f"multi_step_{K}": r for K, r in runs.items()},
+              served_vs_isolated={"picks": picks, "near_ties": ties},
+              multi_step_equals_single=outs[0] == outs[S2S_K])
+
+
+def phase_decoding(smi: str) -> dict:
+    """Decoding beyond greedy and the rest of serving (ROADMAP [1.9] and
+    [1.10b]): beam search (host loop and device loop), Seq2Seq beam
+    search, speculative decoding, SpeculativeServer and Seq2SeqServer.
+    Returns the int4 kernel's launches on the beam path."""
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+    from onnx_rusty_inference_engine_tpu_torch.models.t5 import T5Config
+
+    t0 = time.perf_counter()
+    cfg, t5cfg = GPT2Config(), T5Config()
+    beam = _dec_beam(cfg, smi)
+    torch.cuda.empty_cache()
+    _dec_seq2seq_beam(t5cfg, smi)
+    torch.cuda.empty_cache()
+    _dec_speculative(cfg, smi)
+    torch.cuda.empty_cache()
+    _dec_spec_server(cfg, smi)
+    torch.cuda.empty_cache()
+    _dec_seq2seq_server(t5cfg, smi)
+    torch.cuda.empty_cache()
+    emit({"phase": "decoding", "seconds": time.perf_counter() - t0})
+    return {"qmatmul_int4_planar": beam}
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -6933,13 +7317,19 @@ def main() -> int:
             for row in rows:
                 if row["name"] in fam and "instance" not in row:
                     row["families_path"] = fam[row["name"]]
+            dec = phase_decoding(smi)
+            for row in rows:
+                if row["name"] in dec and "instance" not in row:
+                    row["decoding_path"] = dec[row["name"]]
+            beam = dec["qmatmul_int4_planar"]
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]
                 + llama["qmatmul_int4_planar"]["launches"]
                 + scan["launches"]
                 + sum(p["launches"] for p in fam.get(
-                    "qmatmul_int4_planar", {}).values()), smi))
+                    "qmatmul_int4_planar", {}).values())
+                + beam["beam_host_loop"] + beam["beam_device_loop"], smi))
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})
             emit({"kernels": rows})
     finally:

@@ -14,16 +14,16 @@ onnx_rusty_inference_engine_tpu/cli.py.
         [--calibration minmax|percentile|mse] [--bias-correct]
     ... generate [--family gpt2|llama|moe|t5|asr] [--int4] [--kv-dtype int8]
         [--prefill-dtype float32|bfloat16|w8a8] [--adapters N --adapter K
-        --lora-rank R] ...
+        --lora-rank R] [--beam K] [--draft-layers N --spec-k k] ...
     ... serve --model m.onnx [--port 8000]          (POST /v1/infer)
-    ... serve-llm [--family gpt2|llama|moe] [--port 8001] (POST /v1/generate)
+    ... serve-llm [--family gpt2|llama|moe] [--draft-layers N --spec-k k]
+        [--port 8001]                               (POST /v1/generate)
 
 The subcommands take the JAX CLI's flags and print its JSON. The port adds
 `--device` (default "cuda": the card, which raises where there is none;
 "cpu" runs on the CPU): the JAX package picks its platform from the
 environment, the port is told. `bench` reports the device by name
-(`torch.cuda.get_device_name()`, or "cpu"). A flag whose machinery the port
-lacks exits with code 2 and names the ROADMAP item that ports it.
+(`torch.cuda.get_device_name()`, or "cpu").
 `profile` traces eager forwards (a replayed CUDA graph runs no Python, so
 it would carry no node ranges) and says so in its JSON (`forwards`);
 `export` writes the port's artifact (export_aot.py), which `run-exported`
@@ -37,7 +37,7 @@ import json
 import os
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -50,19 +50,6 @@ def _split_input_spec(spec: str):
         name, _, path = spec.partition("=")
         return name, path
     return "", spec
-
-
-def _unported(args) -> List[Tuple[str, str]]:
-    """(flag as given, ROADMAP item) for every flag of this command whose
-    machinery the port does not have yet."""
-    checks = (
-        ("--draft-layers", "1.9/1.10b",
-         bool(getattr(args, "draft_layers", 0))),
-        (f"--spec-k {getattr(args, 'spec_k', 4)}", "1.9/1.10b",
-         getattr(args, "spec_k", 4) != 4),
-        ("--beam", "1.9", getattr(args, "beam", 1) > 1),
-    )
-    return [(flag, item) for flag, item, on in checks if on]
 
 
 def _read_feed(specs, graph) -> dict:
@@ -378,8 +365,8 @@ def _decoder_config(args):
 
 def _generate_seq2seq(args) -> int:
     """generate --family t5|asr: a Seq2SeqGenerator over a TINY-sized
-    model (t5 at the flags' widths; asr at its TINY config on a 200 Hz
-    tone of 512 samples)."""
+    model (t5 at the flags' widths, or a Seq2SeqBeamGenerator with --beam;
+    asr at its TINY config on a 200 Hz tone of 512 samples)."""
     from .generate import Seq2SeqGenerator
 
     if args.family == "t5":
@@ -390,6 +377,20 @@ def _generate_seq2seq(args) -> int:
                        d_ff=4 * args.d)
         src = np.asarray([int(t) for t in args.prompt_ids.split(",")],
                          dtype=np.int64)[None]
+        if args.beam > 1:
+            from .generate import Seq2SeqBeamGenerator
+
+            bg = Seq2SeqBeamGenerator(cfg, batch=1, beam=args.beam,
+                                      src_len=src.shape[1],
+                                      max_len=args.max_len,
+                                      device_loop=bool(args.device_loop),
+                                      device=args.device)
+            toks, scores = bg.generate(src, args.new)
+            print(json.dumps({"family": "t5", "src": src[0].tolist(),
+                              "generated": toks[0].tolist(),
+                              "beam": args.beam,
+                              "score": round(float(scores[0]), 4)}))
+            return 0
         gen = Seq2SeqGenerator(cfg, batch=1, src_len=src.shape[1],
                                max_len=args.max_len,
                                kv_dtype=args.kv_dtype,
@@ -427,6 +428,38 @@ def cmd_generate(args) -> int:
     cfg = _decoder_config(args)
     ids = np.asarray([int(t) for t in args.prompt_ids.split(",")],
                      dtype=np.int64)[None]
+    if args.beam > 1:
+        from .generate import BeamGenerator
+
+        bg = BeamGenerator(cfg, batch=1, beam=args.beam,
+                           prompt_len=ids.shape[1], max_len=args.max_len,
+                           family=args.family, int4_weights=args.int4,
+                           device_loop=bool(args.device_loop),
+                           device=args.device)
+        toks, scores = bg.generate(ids, args.new)
+        print(json.dumps({"family": args.family, "prompt": ids[0].tolist(),
+                          "generated": toks[0].tolist(), "beam": args.beam,
+                          "score": round(float(scores[0]), 4)}))
+        return 0
+    if args.draft_layers:
+        # lossless speculative decoding: a smaller same-vocab draft
+        # proposes, the target verifies each chunk in one call
+        import dataclasses
+
+        from .generate import SpeculativeGenerator
+
+        dcfg = dataclasses.replace(cfg, n_layer=args.draft_layers)
+        gen = SpeculativeGenerator(
+            cfg, dcfg, batch=1, prompt_len=ids.shape[1],
+            max_len=args.max_len, k=args.spec_k, family=args.family,
+            draft_seed=1, device=args.device)
+        toks, _ = gen.generate(ids, args.new)
+        print(json.dumps({"family": args.family, "prompt": ids[0].tolist(),
+                          "generated": [int(t) for t in toks[0]],
+                          "speculative": True,
+                          "draft_layers": args.draft_layers,
+                          "acceptance_rate": round(gen.acceptance_rate, 3)}))
+        return 0
     lkw = {}
     if args.adapters:
         # a seeded bank over the attention and MLP projections; --adapter
@@ -464,15 +497,42 @@ def cmd_serve_llm(args) -> int:
     from .serving import DecodeServer
 
     cfg = _decoder_config(args)
-    lb = ([int(x) for x in args.len_buckets.split(",")]
-          if args.len_buckets else None)
-    srv = DecodeServer(cfg, slots=args.slots, prompt_len=args.prompt_len,
-                       max_len=args.max_len, kv_dtype=args.kv_dtype,
-                       int4_weights=args.int4, family=args.family,
-                       multi_step=args.multi_step,
-                       prompt_cache=args.prompt_cache,
-                       prefill_dtype=args.prefill_dtype, len_buckets=lb,
-                       device=args.device)
+    if args.draft_layers:
+        # lossless speculative serving: served tokens == target greedy.
+        # SpeculativeServer runs fp32 weights and KV with no prompt cache:
+        # refuse the flags it would silently ignore
+        bad = [flag for flag, on in (
+            ("--kv-dtype", args.kv_dtype != "float32"),
+            ("--int4", args.int4),
+            ("--len-buckets", bool(args.len_buckets)),
+            ("--prefill-dtype", args.prefill_dtype != "float32"),
+            ("--prompt-cache", args.prompt_cache)) if on]
+        if bad:
+            print(f"error: {', '.join(bad)} not supported with "
+                  "--draft-layers (SpeculativeServer is fp32, no prompt "
+                  "cache)", file=sys.stderr)
+            return 2
+        import dataclasses
+
+        from .serving import SpeculativeServer
+
+        dcfg = dataclasses.replace(cfg, n_layer=args.draft_layers)
+        srv = SpeculativeServer(cfg, dcfg, slots=args.slots,
+                                prompt_len=args.prompt_len,
+                                max_len=args.max_len, k=args.spec_k,
+                                family=args.family, draft_seed=1,
+                                multi_step=args.multi_step,
+                                device=args.device)
+    else:
+        lb = ([int(x) for x in args.len_buckets.split(",")]
+              if args.len_buckets else None)
+        srv = DecodeServer(cfg, slots=args.slots, prompt_len=args.prompt_len,
+                           max_len=args.max_len, kv_dtype=args.kv_dtype,
+                           int4_weights=args.int4, family=args.family,
+                           multi_step=args.multi_step,
+                           prompt_cache=args.prompt_cache,
+                           prefill_dtype=args.prefill_dtype, len_buckets=lb,
+                           device=args.device)
     if args.step_timeout > 0:
         srv.step_timeout = args.step_timeout   # armed by the dispatcher
     print(f"serving on :{args.port} (POST /v1/generate)", file=sys.stderr)
@@ -610,15 +670,20 @@ def main(argv: Optional[list] = None) -> int:
     pg.add_argument("--family", default="gpt2",
                     choices=["gpt2", "llama", "moe", "t5", "asr"])
     pg.add_argument("--draft-layers", dest="draft_layers", type=int,
-                    default=0, help="not ported yet (ROADMAP 1.9)")
+                    default=0,
+                    help="enable lossless speculative decoding with an "
+                         "N-layer draft of the same family/vocab")
     pg.add_argument("--device-loop", dest="device_loop", type=int,
                     default=0, metavar="K",
                     help="run K decode steps per dispatch as one replayed "
-                         "CUDA graph, sampling on the device")
+                         "CUDA graph, sampling on the device; with --beam, "
+                         "any nonzero value runs every beam step as one "
+                         "graph")
     pg.add_argument("--spec-k", dest="spec_k", type=int, default=4,
-                    help="not ported yet (ROADMAP 1.9/1.10b)")
+                    help="speculation chunk size (draft proposes k-1)")
     pg.add_argument("--beam", type=int, default=1, metavar="K",
-                    help="not ported yet (ROADMAP 1.9)")
+                    help="beam search with K beams (decoder families and "
+                         "t5)")
     pg.add_argument("--adapters", type=int, default=0, metavar="N",
                     help="attach a seeded N-adapter LoRA bank (multi-LoRA "
                          "in one graph)")
@@ -658,9 +723,11 @@ def main(argv: Optional[list] = None) -> int:
                           "covering live requests")
     psl.add_argument("--draft-layers", dest="draft_layers", type=int,
                      default=0, metavar="N",
-                     help="not ported yet (ROADMAP 1.9/1.10b)")
+                     help="serve with lossless speculative decoding: an "
+                          "N-layer same-vocab draft proposes, the target "
+                          "verifies each chunk (SpeculativeServer)")
     psl.add_argument("--spec-k", dest="spec_k", type=int, default=4,
-                     help="not ported yet (ROADMAP 1.9/1.10b)")
+                     help="speculation chunk size (draft proposes k-1)")
     psl.add_argument("--prompt-cache", dest="prompt_cache", type=int,
                      default=0, metavar="N",
                      help="cache up to N prompts' KV (LRU): exact-match "
@@ -692,12 +759,6 @@ def main(argv: Optional[list] = None) -> int:
     pq.set_defaults(fn=cmd_quantize)
 
     args = p.parse_args(argv)
-    bad = _unported(args)
-    if bad:
-        print("error: " + "; ".join(f"{flag} is not ported yet (ROADMAP "
-                                    f"{item})" for flag, item in bad),
-              file=sys.stderr)
-        return 2
     return args.fn(args)
 
 

@@ -49,7 +49,8 @@ from .weights import as_device_tensor, params_from_numpy, prepack_int8_weights
 
 __all__ = ["lower", "lower_packed", "node_label", "Engine",
            "InferenceResult", "resolve_device", "captures", "capture",
-           "collector_held", "Replay", "signature", "side_stream"]
+           "collector_held", "Replay", "signature", "side_stream",
+           "run_captured"]
 
 
 def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
@@ -353,6 +354,35 @@ class Engine:
         t0 = time.perf_counter()
         out = {k: to_host(v) for k, v in self(inputs).items()}
         return InferenceResult(out, time.perf_counter() - t0)
+
+
+def run_captured(graphs: dict, key, body: Callable[[], None], eng: Engine,
+                 generators=()) -> None:
+    """Run `body()`, which reads and writes only tensors made before its
+    first run (buffers the caller keeps), on `eng`'s device: on the CPU
+    eagerly; on the card the first run for `key` is eager (it builds the
+    kernels and fixes the static values) and is then captured into
+    `graphs[key]` on `eng`'s side stream and memory pool; later runs replay
+    that graph. `generators`: the torch.Generators body draws from. A
+    capture that fails raises."""
+    if not captures(eng.device):
+        body()
+        return
+    replay = graphs.get(key)
+    if replay is not None:
+        replay()
+        return
+    with side_stream(eng.side_stream()) as s:
+        body()
+        _, graphs[key] = capture(body, stream=s, pool=eng.graph_pool(),
+                                 generators=generators)
+
+
+def _fetch(x: torch.Tensor) -> np.ndarray:
+    """Device -> host for the generators' and servers' bookkeeping: a
+    numpy copy (a CPU tensor's own memory would change under in-place
+    cache writes)."""
+    return x.detach().to("cpu", copy=True).numpy()
 
 
 def _numpy(v):

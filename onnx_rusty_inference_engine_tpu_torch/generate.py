@@ -58,6 +58,15 @@ Not ported yet (each raises NotImplementedError): `mesh` /
 `Seq2SeqGenerator` drives the encoder-decoder families (t5, asr): the
 encoder Engine once per request, then a host loop over the captured
 decode step (see its docstring).
+
+Beyond greedy: `SpeculativeGenerator` (a draft proposes k - 1 tokens, the
+target verifies k in one chunk call; greedy verification or host rejection
+sampling), `BeamGenerator` over the decoder families and
+`Seq2SeqBeamGenerator` over the encoder-decoder ones. Beams are batch
+rows of one decode graph at batch B * K; the host keeps the scores and the
+token history (`_beam_loop`, `_beam_finalize`, `_beam_backtrack`, numpy as
+in the JAX package), and `device_loop=True` runs every beam step as one
+CUDA graph (see `_BeamSteps`).
 """
 
 from __future__ import annotations
@@ -69,10 +78,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .engine import Engine, capture, captures, resolve_device, side_stream
+from .engine import Engine, _fetch, captures, resolve_device, run_captured
 from .graph import Graph, import_model
+from .ops.standard import _torch_dtype
 
-__all__ = ["Generator", "Seq2SeqGenerator"]
+__all__ = ["Generator", "Seq2SeqGenerator", "SpeculativeGenerator",
+           "BeamGenerator", "Seq2SeqBeamGenerator"]
 
 
 def _clone(v):
@@ -439,17 +450,9 @@ class Generator:
         while len(out) < n_steps:
             if sel["eos_id"] is not None and bool(st["done"].all()):
                 break
-            if blk["replay"] is not None:
-                blk["replay"]()
-            elif on_card:
-                with side_stream(self.decode.side_stream()) as s:
-                    self._block_body(st, sel)     # warm-up: the first block
-                    _, blk["replay"] = capture(
-                        lambda: self._block_body(st, sel), stream=s,
-                        pool=self.decode.graph_pool(),
-                        generators=(gen,) if sel["temperature"] else ())
-            else:
-                self._block_body(st, sel)
+            run_captured(blk, "replay", lambda: self._block_body(st, sel),
+                         self.decode,
+                         generators=(gen,) if sel["temperature"] else ())
             toks = st["toks"].cpu().numpy().copy()  # the CPU shares memory
             out.extend(toks[:, j] for j in range(min(K, n_steps - len(out))))
         return out
@@ -697,19 +700,8 @@ class Seq2SeqGenerator:
         else:
             eng, cache, scales = (self.decode_fp32 or self.decode,
                                   b["cache32"], {})
-        if not captures(self.device):
-            self._step_body(eng, cache, scales)
-            return
-        key = "int8" if scales else "fp32"
-        replay = self._steps.get(key)
-        if replay is not None:
-            replay()
-            return
-        with side_stream(eng.side_stream()) as s:
-            self._step_body(eng, cache, scales)
-            _, self._steps[key] = capture(
-                lambda: self._step_body(eng, cache, scales), stream=s,
-                pool=eng.graph_pool())
+        run_captured(self._steps, "int8" if scales else "fp32",
+                     lambda: self._step_body(eng, cache, scales), eng)
 
     # -- encode, step, quantize ----------------------------------------------
     def start(self, src_ids: np.ndarray,
@@ -818,3 +810,626 @@ class Seq2SeqGenerator:
             if return_logits:
                 all_logits.append(logits.cpu().numpy())
         return torch.stack(tokens, dim=1).cpu().numpy(), all_logits
+
+
+def _pad_len(kv: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Prefill presents [B, H, P, hd] padded with zeros to [B, H, max_len,
+    hd]."""
+    return F.pad(kv, (0, 0, 0, max_len - kv.shape[2]))
+
+
+class SpeculativeGenerator:
+    """Greedy speculative decoding: a small DRAFT model proposes k - 1
+    tokens autoregressively; the TARGET model verifies the chunk of k
+    (the current token and the k - 1 proposals) in ONE chunk-decode call
+    (build_decode(chunk=k)) and emits the accepted prefix plus one
+    corrected or bonus token. Greedy verification is lossless: the output
+    equals the target's own greedy decode, whatever the draft proposes.
+    The port's counterpart of the JAX package's SpeculativeGenerator.
+
+    Four Engines: the target prefill, the target chunk-verify, the draft
+    prefill and the draft decode, each call a replayed CUDA graph on the
+    card. Per-slot positions let every row accept a different prefix
+    length; cache rows past a row's position are never attended and are
+    overwritten as the position advances. The last draft token's KV row is
+    written too (its logits unused): a full-acceptance round moves the
+    position past it, and an unwritten row would be attended by every
+    later draft step and degrade acceptance.
+
+    temperature > 0: speculative rejection sampling on the host (Leviathan
+    et al.) from `np.random.default_rng(sample_seed)`, the JAX package's
+    numpy stream: a draft token x ~ q is accepted with probability
+    min(1, p(x) / q(x)); on rejection the emitted token is drawn from
+    normalize(max(p - q, 0)); after k - 1 acceptances a bonus token is
+    drawn from the last p. Runs on the card unless `device="cpu"`.
+    """
+
+    def __init__(
+        self,
+        target_cfg,
+        draft_cfg=None,
+        *,
+        batch: int = 1,
+        prompt_len: int = 8,
+        max_len: int = 64,
+        k: int = 4,
+        target_seed: int = 0,
+        draft_seed: int = 1,
+        family: str = "gpt2",
+        mesh=None,
+        param_sharding_fn=None,
+        device="cuda",
+    ):
+        if mesh is not None or param_sharding_fn is not None:
+            raise NotImplementedError("SpeculativeGenerator: a device mesh "
+                                      "is not ported yet (ROADMAP 1.12)")
+        from .models import decoder_family
+
+        build_prefill, build_decode, _ = decoder_family(family)
+        self.device = resolve_device(device)
+        self.k = k
+        self.batch = batch
+        self.prompt_len = prompt_len
+        self.max_len = max_len
+        self.tcfg = target_cfg
+        dcfg = draft_cfg if draft_cfg is not None else target_cfg
+        self.dcfg = dcfg
+        assert dcfg.vocab_size == target_cfg.vocab_size
+
+        pkw = ({"past_len": 0, "with_presents": True} if family == "gpt2"
+               else {"with_presents": True})
+
+        def engine(build, cfg, seed, **kw):
+            return Engine(import_model(build(cfg, batch=batch, seed=seed,
+                                             **kw)), device=self.device)
+
+        self.t_prefill = engine(build_prefill, target_cfg, target_seed,
+                                seq_len=prompt_len, **pkw)
+        self.t_verify = engine(build_decode, target_cfg, target_seed,
+                               max_len=max_len, chunk=k)
+        self.d_prefill = engine(build_prefill, dcfg, draft_seed,
+                                seq_len=prompt_len, **pkw)
+        self.d_decode = engine(build_decode, dcfg, draft_seed,
+                               max_len=max_len)
+        self.accepted_total = 0
+        self.proposed_total = 0
+
+    def _seed_cache(self, out: dict, cfg) -> Dict[str, torch.Tensor]:
+        return {f"past_{kind}_{i}": _pad_len(out[f"present_{kind}_{i}"],
+                                             self.max_len)
+                for i in range(cfg.n_layer) for kind in ("key", "value")}
+
+    @staticmethod
+    def _call(eng: Engine, cache: Dict[str, torch.Tensor], ids: np.ndarray,
+              pos: np.ndarray) -> torch.Tensor:
+        """One decode or verify call: the cache updated in place (its dict
+        entries now the presents), the logits returned."""
+        out = eng({"input_ids": ids, "pos": pos, **cache})
+        for name in cache:
+            cache[name] = out[name.replace("past_", "present_", 1)]
+        return out["logits"]
+
+    def generate(self, input_ids: np.ndarray, n_new: int,
+                 temperature: float = 0.0, sample_seed: int = 0):
+        """Decode n_new tokens per row: (tokens [B, n_new], None).
+        temperature == 0: greedy verification, the output identical to the
+        target's own greedy decode. temperature > 0: rejection sampling,
+        the output distributed as plain sampling from the target at that
+        temperature."""
+        B, P = input_ids.shape
+        assert (B, P) == (self.batch, self.prompt_len)
+        assert P + n_new + self.k <= self.max_len, "raise max_len"
+        k = self.k
+        sampling = temperature > 0.0
+        host_rng = np.random.default_rng(sample_seed)
+
+        def soft(logits2d):
+            z = np.asarray(logits2d, np.float64) / temperature
+            z -= z.max(axis=-1, keepdims=True)
+            e = np.exp(z)
+            return e / e.sum(axis=-1, keepdims=True)
+
+        ids = np.asarray(input_ids).astype(np.int64)
+        t_out = self.t_prefill({"input_ids": ids})
+        t_cache = self._seed_cache(t_out, self.tcfg)
+        d_cache = self._seed_cache(self.d_prefill({"input_ids": ids}),
+                                   self.dcfg)
+
+        first_logits = _fetch(t_out["logits"][:, -1, :])
+        if sampling:
+            pf = soft(first_logits)
+            cur = np.array([host_rng.choice(pf.shape[-1], p=pf[b])
+                            for b in range(B)], dtype=np.int64)
+        else:
+            cur = first_logits.argmax(-1).astype(np.int64)       # [B]
+        pos = np.full((B,), P, dtype=np.int64)
+        emitted = [[int(c)] for c in cur]
+
+        while min(len(e) for e in emitted) < n_new:
+            # 1) the draft proposes k-1 continuations of cur (so the verify
+            #    chunk holds exactly k tokens: cur, d1..d_{k-1})
+            drafts = [cur]
+            d_tok = cur
+            q_dists = []       # q_j [B, V]: the dist draft token j+1 came from
+            for j in range(k - 1):
+                dl = _fetch(self._call(self.d_decode, d_cache,
+                                      d_tok[:, None], pos + j)[:, -1, :])
+                if sampling:
+                    q = soft(dl)
+                    q_dists.append(q)
+                    d_tok = np.array([host_rng.choice(q.shape[-1], p=q[b])
+                                      for b in range(B)], dtype=np.int64)
+                else:
+                    d_tok = dl.argmax(-1).astype(np.int64)
+                drafts.append(d_tok)
+            # the LAST draft token's KV row too (logits unused)
+            self._call(self.d_decode, d_cache, d_tok[:, None], pos + k - 1)
+            chunk = np.stack(drafts, axis=1)                     # [B, k]
+
+            # 2) one target call verifies the whole chunk
+            t_logits = _fetch(self._call(self.t_verify, t_cache, chunk, pos))
+            tpred = t_logits.argmax(-1).astype(np.int64)         # [B, k]
+
+            # 3) per-row acceptance: greedy prefix match, or rejection
+            #    sampling when temperature > 0
+            new_cur = np.empty_like(cur)
+            for b in range(B):
+                if len(emitted[b]) >= n_new:
+                    # row already done: advance by 1 real token to keep
+                    # positions consistent (its row still decoded)
+                    new_cur[b] = tpred[b, 0]
+                    pos[b] += 1
+                    continue
+                if sampling:
+                    p_dists = soft(t_logits[b])                  # [k, V]
+                    out_toks = []
+                    m = 0
+                    for j in range(k - 1):
+                        x = int(chunk[b, j + 1])
+                        qx = q_dists[j][b, x]
+                        px = p_dists[j, x]
+                        if host_rng.random() < min(1.0, px / max(qx, 1e-30)):
+                            out_toks.append(x)
+                            m += 1
+                            continue
+                        res = np.maximum(p_dists[j] - q_dists[j][b], 0.0)
+                        tot = res.sum()
+                        if tot <= 0:  # q covers p exactly; resample p
+                            res, tot = p_dists[j], 1.0
+                        out_toks.append(int(host_rng.choice(
+                            res.shape[-1], p=res / tot)))
+                        break
+                    else:
+                        # every draft accepted: bonus token from p_{k-1}
+                        out_toks.append(int(host_rng.choice(
+                            p_dists[k - 1].shape[-1], p=p_dists[k - 1])))
+                    emitted[b].extend(out_toks)
+                    new_cur[b] = out_toks[-1]
+                    pos[b] += len(out_toks)
+                    self.accepted_total += m
+                    self.proposed_total += k - 1
+                    continue
+                m = 0
+                while m < k - 1 and chunk[b, m + 1] == tpred[b, m]:
+                    m += 1
+                emitted[b].extend(int(t) for t in tpred[b, :m + 1])
+                new_cur[b] = tpred[b, m]
+                pos[b] += m + 1
+                self.accepted_total += m
+                self.proposed_total += k - 1
+            cur = new_cur
+            # draft cache rows past each row's pos are stale and masked;
+            # feeding `cur` at `pos` re-syncs the draft to the accepted
+            # stream
+
+        toks = np.stack([np.asarray(e[:n_new]) for e in emitted])
+        return toks, None
+
+    @property
+    def acceptance_rate(self) -> float:
+        return (self.accepted_total / self.proposed_total
+                if self.proposed_total else 0.0)
+
+
+# -- beam search -------------------------------------------------------------
+def _beam_loop(step_logp, reorder, tokens, scores, finished, *,
+               B: int, K: int, V: int, n_new: int,
+               eos_id: Optional[int], length_penalty: float,
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Shared beam bookkeeping for steps 1..n_new-1 (step 0 seeded the
+    K beams). step_logp(last [B*K], t) -> log-probs [B*K, V] (and must
+    stage its presents); reorder(rows [B*K]) commits the device cache
+    for the chosen beams. Returns (best tokens [B, n_new], scores [B])."""
+    last = tokens[:, :, -1].reshape(B * K)
+    for t in range(1, n_new):
+        if finished.all():
+            break
+        lp = step_logp(last, t).reshape(B, K, V)
+        if eos_id is not None:
+            # frozen beams: single eos continuation at 0 extra cost
+            frozen = np.full((V,), -np.inf)
+            frozen[eos_id] = 0.0
+            lp = np.where(finished[:, :, None], frozen, lp)
+        total = scores[:, :, None] + lp                 # [B, K, V]
+        flat = total.reshape(B, K * V)
+        sel = np.argsort(flat, axis=-1)[:, ::-1][:, :K]  # [B, K]
+        scores = np.take_along_axis(flat, sel, axis=-1)
+        src_beam = sel // V                             # [B, K]
+        tok = sel % V
+
+        tokens = np.concatenate(
+            [np.take_along_axis(tokens, src_beam[:, :, None], axis=1),
+             tok[:, :, None]], axis=2)
+        finished = np.take_along_axis(finished, src_beam, axis=1)
+        if eos_id is not None:
+            finished = finished | (tok == eos_id)
+
+        # reorder the device cache by global beam row (batch-dim take)
+        reorder((np.arange(B)[:, None] * K + src_beam).reshape(-1))
+        last = tok.reshape(B * K)
+
+    return _beam_finalize(tokens, scores, n_new=n_new, eos_id=eos_id,
+                          length_penalty=length_penalty)
+
+
+def _beam_finalize(tokens: np.ndarray, scores: np.ndarray, *, n_new: int,
+                   eos_id: Optional[int], length_penalty: float,
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Final best-beam selection shared by the host loop and the device
+    loop: GNMT length penalty, argmax over beams, eos-padding to n_new."""
+    B = tokens.shape[0]
+    if length_penalty:
+        lens = tokens.shape[2] - (0 if eos_id is None
+                                  else (tokens == eos_id).sum(2))
+        final = scores / np.maximum(lens, 1) ** length_penalty
+    else:
+        final = scores
+    best = final.argmax(axis=1)                         # [B]
+    out_toks = tokens[np.arange(B), best]               # [B, <=n_new]
+    if out_toks.shape[1] < n_new:
+        pad_tok = eos_id if eos_id is not None else 0
+        out_toks = np.concatenate(
+            [out_toks, np.full((B, n_new - out_toks.shape[1]),
+                               pad_tok, out_toks.dtype)], axis=1)
+    return out_toks, scores[np.arange(B), best]
+
+
+def _beam_backtrack(top0: np.ndarray, parents: np.ndarray,
+                    toks: np.ndarray) -> np.ndarray:
+    """Reconstruct [B, K, T+1] beam histories from per-step parent
+    pointers: the host-side half of the device beam loop (which records
+    (src_beam, token) per step instead of reordering a token buffer on
+    the device)."""
+    T, B, K = parents.shape
+    seq = np.zeros((B, K, T + 1), np.int64)
+    bi = np.arange(B)[:, None]
+    cur = np.tile(np.arange(K), (B, 1))
+    for t in range(T - 1, -1, -1):
+        seq[:, :, t + 1] = toks[t][bi, cur]
+        cur = parents[t][bi, cur]
+    seq[:, :, 0] = np.take_along_axis(top0, cur, axis=1)
+    return seq
+
+
+class _BeamSteps:
+    """The decode Engine of a beam search at batch B * K and the buffers
+    its graphs read and write by address: the step's token and position,
+    the KV cache, the constant inputs (a seq2seq family's cross K/V and
+    `src_len`), the staged presents and the log-probs.
+
+    - `step(last, pos)`: one decode step (captured on the card after an
+      eager first run, then replayed): the presents go to the staging
+      buffers, log_softmax(logits) in f32 to `logp`, read by the host.
+    - `reorder(rows)`: the cache becomes the staged presents' rows `rows`
+      (index_select on dim 0, written into the cache buffers in place);
+      `commit()` takes the staged presents as they are.
+    - `run_device(...)`: every beam step 1..n_new-1 as one graph per
+      (n_new, eos_id): the decode forward, log_softmax in f32, the frozen
+      beams' mask (a finished beam's only continuation is eos at 0),
+      torch.topk over [B, K*V], each beam's parent and token written at
+      its static step into [T, B, K] buffers, and the cache gathered by
+      global beam row. The host then backtracks and finalizes.
+    """
+
+    def __init__(self, decode: Engine, B: int, K: int, V: int):
+        self.eng, self.B, self.K, self.V = decode, B, K, V
+        dev = decode.device
+        BK = B * K
+        specs = {s.name: s for s in decode.graph.inputs}
+
+        def zeros(name, dtype=None):
+            spec = specs[name]
+            return torch.zeros(spec.concrete_shape(batch=BK),
+                               dtype=dtype or _torch_dtype(spec.dtype),
+                               device=dev)
+
+        self.past = [n for n in specs if n.startswith("past_")]
+        self.cache = {n: zeros(n, torch.float32) for n in self.past}
+        self.stage = {n: torch.empty_like(v) for n, v in self.cache.items()}
+        self.const = {n: zeros(n) for n in specs
+                      if n.startswith("cross_") or n == "src_len"}
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.tok = torch.zeros((BK,), **i64)
+        self.pos = torch.zeros((BK,), **i64)
+        self.rows = torch.zeros((BK,), **i64)
+        self.base = (torch.arange(B, **i64) * K)[:, None]   # [B, 1]
+        self.logp = torch.zeros((BK, V), dtype=torch.float32, device=dev)
+        self._graphs: Dict[object, object] = {}
+        self._dev: Dict[tuple, dict] = {}
+
+    def _forward(self, tok, pos, cache) -> Dict[str, torch.Tensor]:
+        feed = {"input_ids": tok.reshape(-1, 1), "pos": pos}
+        feed.update(cache)
+        feed.update(self.const)
+        return self.eng.forward(feed)
+
+    @staticmethod
+    def _logp(out) -> torch.Tensor:
+        return torch.log_softmax(out["logits"][:, -1, :].to(torch.float32),
+                                 dim=-1)
+
+    def _step_body(self) -> None:
+        out = self._forward(self.tok, self.pos, self.cache)
+        self.logp.copy_(self._logp(out))
+        for n in self.past:
+            self.stage[n].copy_(out[n.replace("past_", "present_", 1)])
+
+    def step(self, last: np.ndarray, pos: int) -> np.ndarray:
+        """Decode `last` [B*K] at position `pos`: log-probs [B*K, V]."""
+        self.tok.copy_(torch.from_numpy(np.ascontiguousarray(last, np.int64)))
+        self.pos.fill_(pos)
+        run_captured(self._graphs, "step", self._step_body, self.eng)
+        return _fetch(self.logp)
+
+    def commit(self) -> None:
+        for n in self.past:
+            self.cache[n].copy_(self.stage[n])
+
+    def reorder(self, rows: np.ndarray) -> None:
+        self.rows.copy_(torch.from_numpy(np.ascontiguousarray(rows,
+                                                         np.int64)))
+        for n in self.past:
+            torch.index_select(self.stage[n], 0, self.rows, out=self.cache[n])
+
+    def _device_body(self, st: dict, T: int, eos_id: Optional[int]) -> None:
+        B, K, V = self.B, self.K, self.V
+        last, scores, fin, pos = st["last"], st["scores"], st["fin"], \
+            st["pos"]
+        cache = self.cache
+        for t in range(T):
+            out = self._forward(last, pos, cache)
+            lp = self._logp(out).reshape(B, K, V)
+            if eos_id is not None:
+                lp = torch.where(fin[:, :, None], st["frozen"], lp)
+            flat = (scores[:, :, None] + lp).reshape(B, K * V)
+            scores, idx = torch.topk(flat, K, dim=-1)
+            src = idx // V                                  # [B, K]
+            tok = idx % V
+            fin = fin.gather(1, src)
+            if eos_id is not None:
+                fin = fin | (tok == eos_id)
+            rows = (self.base + src).reshape(-1)
+            cache = {n: out[n.replace("past_", "present_", 1)].index_select(
+                0, rows) for n in self.past}
+            st["parents"][t].copy_(src)
+            st["toks"][t].copy_(tok)
+            last, pos = tok.reshape(-1), pos + 1
+        st["scores"].copy_(scores)
+        st["fin"].copy_(fin)
+        for n in self.past:
+            self.cache[n].copy_(cache[n])
+
+    def run_device(self, top: np.ndarray, scores: np.ndarray,
+                   finished: np.ndarray, pos: int, n_new: int,
+                   eos_id: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """Beam steps 1..n_new-1 from the seeded beams (`top` [B, K], their
+        scores and finished flags) over the cache as it stands, the first
+        at position `pos`: (the histories [B, K, n_new], the scores)."""
+        B, K, V = self.B, self.K, self.V
+        T = n_new - 1
+        dev = self.eng.device
+        key = (n_new, eos_id)
+        st = self._dev.get(key)
+        if st is None:
+            frozen = torch.full((V,), -float("inf"), device=dev)
+            if eos_id is not None:
+                frozen[eos_id] = 0.0
+            st = self._dev[key] = {
+                "last": torch.zeros((B * K,), dtype=torch.int64, device=dev),
+                "pos": torch.zeros((B * K,), dtype=torch.int64, device=dev),
+                "scores": torch.zeros((B, K), dtype=torch.float32,
+                                      device=dev),
+                "fin": torch.zeros((B, K), dtype=torch.bool, device=dev),
+                "parents": torch.zeros((T, B, K), dtype=torch.int64,
+                                       device=dev),
+                "toks": torch.zeros((T, B, K), dtype=torch.int64,
+                                    device=dev),
+                "frozen": frozen}
+        st["last"].copy_(torch.from_numpy(np.ascontiguousarray(
+            top.reshape(-1), np.int64)))
+        st["pos"].fill_(pos)
+        st["scores"].copy_(torch.from_numpy(np.ascontiguousarray(
+            scores, np.float32)))
+        st["fin"].copy_(torch.from_numpy(np.ascontiguousarray(finished)))
+        if T > 0:
+            run_captured(self._graphs, ("beam",) + key,
+                         lambda: self._device_body(st, T, eos_id), self.eng)
+        seq = _beam_backtrack(top, _fetch(st["parents"]), _fetch(st["toks"]))
+        return seq, _fetch(st["scores"])
+
+
+class BeamGenerator:
+    """Beam search over a decoder family (gpt2, llama, moe or a registered
+    family). The port's counterpart of the JAX package's BeamGenerator.
+
+    Beams are batch rows: the prefill graph runs at batch B, its presents
+    are padded to max_len and tiled K x (row b*K + k) into a batch-B*K
+    fixed-size cache, and every step is ONE decode graph over all B*K beams
+    (per-slot `pos [B*K]`). Reordering the beams is an index_select on the
+    cache's batch dim, written into the buffers the captured step reads
+    (`_BeamSteps`). The host keeps the scores [B, K] and the token
+    history. With int4_weights both graphs run the int4 kernel, the prefill
+    at M = B*P and each step at M = B*K.
+
+    eos_id: finished beams are frozen (their only continuation is eos at
+    zero log-prob), so they compete on their final score while live beams
+    keep expanding. Scores are summed token log-probs; length_penalty
+    divides them by len**alpha at the final selection (GNMT; 0 = off).
+
+    device_loop=True runs every step after the first as one CUDA graph per
+    (n_new, eos_id): eager on its first call, captured after, replayed
+    later; on the CPU the same body runs as a Python loop. The beams
+    equal the host loop's (its scores within float rounding). Runs on the
+    card unless `device="cpu"`.
+    """
+
+    def __init__(self, cfg, *, batch: int = 1, beam: int = 4,
+                 prompt_len: int = 8, max_len: int = 32, seed: int = 0,
+                 family: str = "gpt2", int4_weights: bool = False,
+                 device_loop: bool = False, device="cuda"):
+        from .models import decoder_family
+
+        assert beam >= 1
+        self.device = resolve_device(device)
+        self.device_loop = bool(device_loop)
+        self.cfg, self.B, self.K = cfg, batch, beam
+        self.prompt_len, self.max_len = prompt_len, max_len
+        build_prefill, build_decode, _ = decoder_family(family)
+        pkw = ({"past_len": 0, "with_presents": True} if family == "gpt2"
+               else {"with_presents": True})
+        pg = import_model(build_prefill(cfg, batch=batch,
+                                        seq_len=prompt_len, seed=seed,
+                                        **pkw))
+        dg = import_model(build_decode(cfg, batch=batch * beam,
+                                       max_len=max_len, seed=seed))
+        if int4_weights:
+            from .quant import quantize_weights_int4
+
+            pg = quantize_weights_int4(pg)
+            dg = quantize_weights_int4(dg)
+        self.prefill = Engine(pg, device=self.device)
+        self.decode = Engine(dg, device=self.device)
+        self.steps = _BeamSteps(self.decode, batch, beam, cfg.vocab_size)
+
+    def generate(self, input_ids: np.ndarray, n_new: int,
+                 eos_id: Optional[int] = None,
+                 length_penalty: float = 0.0,
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (tokens [B, n_new], scores [B]) of each row's best beam."""
+        B, K, P = self.B, self.K, self.prompt_len
+        assert input_ids.shape == (B, P)
+        assert P + n_new <= self.max_len
+        V = self.cfg.vocab_size
+        st = self.steps
+
+        out = self.prefill({"input_ids": np.asarray(input_ids).astype(
+            np.int64)})
+        logp = _fetch(_BeamSteps._logp(out))                 # [B, V]
+        top = np.argsort(logp, axis=-1)[:, ::-1][:, :K]     # [B, K]
+        scores = np.take_along_axis(logp, top, axis=-1)     # [B, K]
+        tokens = top[:, :, None]                            # [B, K, 1]
+        finished = np.zeros((B, K), bool)
+        if eos_id is not None:
+            finished |= top == eos_id
+
+        # tile the presents K x along the batch: beam rows are b*K + k
+        for name in st.past:
+            kv = out[name.replace("past_", "present_", 1)]  # [B, H, P, hd]
+            st.cache[name].copy_(torch.repeat_interleave(
+                _pad_len(kv, self.max_len), K, dim=0))
+
+        if self.device_loop:
+            seq, fscores = st.run_device(top, scores, finished, P, n_new,
+                                         eos_id)
+            return _beam_finalize(seq, fscores, n_new=n_new, eos_id=eos_id,
+                                  length_penalty=length_penalty)
+        return _beam_loop(lambda last, t: st.step(last, P + t - 1),
+                          st.reorder, tokens, scores, finished,
+                          B=B, K=K, V=V, n_new=n_new, eos_id=eos_id,
+                          length_penalty=length_penalty)
+
+
+class Seq2SeqBeamGenerator:
+    """Beam search for the encoder-decoder families (models.seq2seq_family:
+    "t5" tokens -> tokens, "asr" waveform -> tokens). The port's
+    counterpart of the JAX package's Seq2SeqBeamGenerator.
+
+    The encoder runs once at batch B; its cross K/V (and, for t5, the
+    source lengths) are tiled K x once into the buffers the decode graph
+    reads at batch B*K. Step 0 feeds start_token on every row, so all
+    beams are equal and its presents commit as they are; `_beam_loop` (or,
+    with device_loop=True, one CUDA graph for every later step) then
+    expands and reorders exactly as BeamGenerator does. fp32 KV, as in
+    JAX. Runs on the card unless `device="cpu"`.
+    """
+
+    def __init__(self, cfg, *, batch: int = 1, beam: int = 4,
+                 src_len: int = 16, max_len: int = 32, seed: int = 0,
+                 family: str = "t5", device_loop: bool = False,
+                 device="cuda"):
+        from .models import seq2seq_family
+
+        assert beam >= 1
+        self.device = resolve_device(device)
+        self.device_loop = bool(device_loop)
+        self.fam = seq2seq_family(family)
+        self.cfg, self.B, self.K = cfg, batch, beam
+        self.src_len = src_len
+        self.enc_len = self.fam.enc_len(cfg, src_len)
+        self.max_len = max_len
+        self.encoder = Engine(import_model(self.fam.build_encoder(
+            cfg, batch=batch, src_len=src_len, seed=seed)),
+            device=self.device)
+        self.decode = Engine(import_model(self.fam.build_decode(
+            cfg, batch=batch * beam, max_len=max_len, src_len=self.enc_len,
+            seed=seed)), device=self.device)
+        self.steps = _BeamSteps(self.decode, batch, beam, cfg.vocab_size)
+
+    def generate(self, src_ids: np.ndarray, n_new: int,
+                 start_token: int = 0,
+                 eos_id: Optional[int] = None,
+                 length_penalty: float = 0.0,
+                 src_lengths: Optional[np.ndarray] = None,
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (tokens [B, n_new], scores [B]) of each row's best beam."""
+        B, K = self.B, self.K
+        assert src_ids.shape == (B, self.src_len)
+        assert n_new <= self.max_len
+        V = self.cfg.vocab_size
+        st = self.steps
+
+        if src_lengths is None:
+            src_lengths = np.full((B,), self.src_len, np.int64)
+        lens = np.asarray(src_lengths).astype(np.int64)
+        enc_feed = {self.fam.enc_input: np.asarray(src_ids).astype(
+            self.fam.prompt_dtype)}
+        if self.fam.src_mask:
+            enc_feed["src_len"] = lens
+            st.const["src_len"].copy_(torch.from_numpy(np.repeat(lens, K)))
+        enc = self.encoder(enc_feed)
+        for name, buf in st.const.items():
+            if name.startswith("cross_"):
+                buf.copy_(torch.repeat_interleave(enc[name], K, dim=0))
+        for buf in st.cache.values():
+            buf.zero_()
+
+        # step 0: every beam row feeds start_token; the rows are equal, so
+        # the presents commit as they are (no tiling)
+        lp0 = st.step(np.full((B * K,), start_token, np.int64), 0)
+        st.commit()
+        lp0 = lp0.reshape(B, K, V)[:, 0]                # [B, V]
+        top = np.argsort(lp0, axis=-1)[:, ::-1][:, :K]  # [B, K]
+        scores = np.take_along_axis(lp0, top, axis=-1)
+        tokens = top[:, :, None]
+        finished = np.zeros((B, K), bool)
+        if eos_id is not None:
+            finished |= top == eos_id
+
+        if self.device_loop:
+            seq, fscores = st.run_device(top, scores, finished, 1, n_new,
+                                         eos_id)
+            return _beam_finalize(seq, fscores, n_new=n_new, eos_id=eos_id,
+                                  length_penalty=length_penalty)
+        return _beam_loop(st.step, st.reorder, tokens, scores, finished,
+                          B=B, K=K, V=V, n_new=n_new, eos_id=eos_id,
+                          length_penalty=length_penalty)

@@ -11,10 +11,12 @@ Package map:
   base.py         _ServerBase (slot pool, dispatcher, lifecycle, stats)
   decode.py       DecodeServer (decoder-only continuous batching)
   decode_multi.py K-step blocks (mixin)
-
-Seq2SeqServer and SpeculativeServer are not ported yet (ROADMAP 1.10b).
+  seq2seq.py      Seq2SeqServer (encoder-decoder families)
+  spec.py         SpeculativeServer (lossless speculative serving)
 """
 
 from .decode import DecodeServer  # noqa: F401
+from .seq2seq import Seq2SeqServer  # noqa: F401
+from .spec import SpeculativeServer  # noqa: F401
 
-__all__ = ["DecodeServer"]
+__all__ = ["DecodeServer", "Seq2SeqServer", "SpeculativeServer"]

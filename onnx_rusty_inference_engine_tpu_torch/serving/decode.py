@@ -56,11 +56,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..engine import Engine, resolve_device
+from ..engine import Engine, _fetch, resolve_device
 from ..graph import import_model
 from .base import _ServerBase
 from .decode_multi import _MultiStepMixin
-from .request import _Request, _fetch, _hits_stop, _select_token
+from .request import _Request, _hits_stop, _select_token
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:

@@ -22,8 +22,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from ..engine import capture, captures, side_stream
-from .request import _bias_penalize, _device_select, _fetch, _hits_stop
+from ..engine import _fetch, run_captured
+from .request import _bias_penalize, _device_select, _hits_stop
 
 
 class _MultiStepMixin:
@@ -85,17 +85,7 @@ class _MultiStepMixin:
         card its graph's replay, captured after an eager first run."""
         key = (kind, self._cur_len)
         self._new_graph(key)
-        blocks = self._blocks
-        if not captures(self.device):
-            body()
-        elif key in blocks:
-            blocks[key]()
-        else:
-            eng = self.decode
-            with side_stream(eng.side_stream()) as s:
-                body()
-                _, blocks[key] = capture(body, stream=s,
-                                         pool=eng.graph_pool())
+        run_captured(self._blocks, key, body, self.decode)
 
     def _scales(self) -> Dict[str, torch.Tensor]:
         return self._kv_scales if self.kv_dtype == np.int8 else {}

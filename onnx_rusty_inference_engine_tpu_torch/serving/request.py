@@ -128,13 +128,6 @@ def _select_token(logits: np.ndarray, r: _Request) -> int:
     return int(r.rng.choice(l.size, p=p))
 
 
-def _fetch(x: torch.Tensor) -> np.ndarray:
-    """Device -> host for serving bookkeeping: a numpy copy (a CPU
-    tensor's own memory would change under the server's in-place cache
-    writes)."""
-    return x.detach().to("cpu", copy=True).numpy()
-
-
 def _bias_penalize(logits, bias, fpen, ppen, counts):
     """Shared logit epilogue of every multi_step block: additive
     logit_bias rows + OpenAI frequency/presence penalties from the
@@ -164,12 +157,18 @@ def _hash32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _uniform(seeds: torch.Tensor, pos: torch.Tensor, V: int) -> torch.Tensor:
+def _uniform(seeds: torch.Tensor, pos: torch.Tensor, V: int,
+             draw: int = 0) -> torch.Tensor:
     """Uniforms in (0, 1), [B, V] float32, a function of (seed, position,
-    vocabulary index) only: row b, column v is hash(hash(hash(seed_b) ^
-    pos_b) ^ v) to 24 bits."""
+    draw index, column) only: row b, column v is hash(t_b ^ v) to 24 bits,
+    where t_b = hash(hash(seed_b) ^ pos_b), hashed once more with `draw`
+    where it is not 0. Draw 0 is the stream of _device_select; the
+    speculative server's rounds take several draws at one position, each
+    under its own index."""
     s = _hash32(_hash32(seeds & _M32) ^ ((seeds >> 32) & _M32))
     t = _hash32(s ^ (pos.to(torch.int64) & _M32))              # [B]
+    if draw:
+        t = _hash32(t ^ (int(draw) & _M32))
     v = torch.arange(V, dtype=torch.int64, device=seeds.device)
     x = _hash32(t[:, None] ^ v[None, :])                          # [B, V]
     return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))

@@ -16,8 +16,10 @@ the HTTP front ends (http_serve.py), against the JAX package's.
   the port's fp32 `run` by at least half what JAX's bf16 run parts from
   its fp32 one; 1e-4 under W8A8's fp32 Engine; tokens
   equal; `serve` and `serve-llm` through the server each CLI builds, one
-  request); every flag whose machinery the port lacks exits with code 2
-  and names its ROADMAP item; without --device the CLI asks for the card,
+  request); every flag that exited 2 while the port lacked its machinery
+  (the model families, the LoRA bank, beam search, speculative decoding
+  and serving) gives the JAX CLI's output; without --device the CLI asks
+  for the card,
   and raises where there is none.
 - serve_http and serve_generate_http on port 0, one request each: the
   response equals the JAX server's on the same tiny model (ViT TINY logits
@@ -323,21 +325,22 @@ def test_cli_precision_flag_matches_jax(argv, files, capsys, monkeypatch):
         assert got == want
 
 
-# the flags whose machinery the port lacks, with the ROADMAP item each
-# names; None: the flags of the model families, the LoRA bank and the MoE
-# server, which exited 2 until those were ported and now run and give the
-# JAX CLI's output
+# the flags whose machinery the port lacked, with the ROADMAP item each
+# named; None: the flags of the model families, the LoRA bank, the MoE
+# server, beam search and speculative decoding and serving, which exited 2
+# until those were ported and now run and give the JAX CLI's output
 UNPORTED = [
-    (["generate", "--draft-layers", "1"], "1.9/1.10b"),
+    (["generate", "--draft-layers", "1"], None),
     (["generate", "--family", "moe"], None),
     (["generate", "--family", "t5"], None),
-    (["generate", "--beam", "2"], "1.9"),
+    (["generate", "--beam", "2"], None),
+    (["generate", "--family", "t5", "--beam", "2"], None),
     (["generate", "--adapters", "2"], None),
     (["generate", "--adapter", "2"], None),
     (["generate", "--lora-rank", "4"], None),
-    (["generate", "--spec-k", "2"], "1.9/1.10b"),
-    (["serve-llm", "--spec-k", "8"], "1.9/1.10b"),
-    (["serve-llm", "--draft-layers", "1"], "1.9/1.10b"),
+    (["generate", "--spec-k", "2"], None),
+    (["serve-llm", "--spec-k", "8"], None),
+    (["serve-llm", "--draft-layers", "1"], None),
     (["serve-llm", "--family", "moe"], None),
 ]
 
@@ -369,17 +372,10 @@ def _ported_flag_matches_jax(argv, capsys, monkeypatch):
 @pytest.mark.parametrize("argv,item", UNPORTED,
                          ids=[" ".join(a) for a in [a for a, _ in UNPORTED]])
 def test_cli_unported_flag_exits_2(argv, item, capsys, monkeypatch):
-    if item is None:
-        _ported_flag_matches_jax(argv, capsys, monkeypatch)
-        return
-    cmd, rest = argv[0], argv[1:]
-    if cmd in ("run", "bench", "serve", "quantize"):
-        rest = ["--model", "m.onnx"] + rest
-    if cmd == "run":
-        rest += ["--input", "x.pb"]
-    rc, out, err = _main(t_cli.main, [cmd] + rest, capsys)
-    assert rc == 2 and out == ""
-    assert f"ROADMAP {item}" in err
+    """Each flag that exited 2 while its machinery was missing now runs
+    and gives the JAX CLI's output; no flag is left unported."""
+    assert item is None
+    _ported_flag_matches_jax(argv, capsys, monkeypatch)
 
 
 FAMILY_FLAGS = [
@@ -406,6 +402,20 @@ def test_cli_int4_kv_refused_beyond_gpt2_and_llama(capsys):
                                         "cpu"][: 5 if cli is j_cli else 7],
                              capsys)
         assert rc == 2 and out == "" and "nibble-packing" in err
+
+
+def test_cli_speculative_serving_refuses_what_it_would_ignore(capsys):
+    """serve-llm --draft-layers is fp32 with no prompt cache: both CLIs
+    refuse the flags the SpeculativeServer would ignore, before building
+    anything."""
+    argv = ["serve-llm", "--port", "0", "--draft-layers", "1", "--int4",
+            "--kv-dtype", "int8", "--prompt-cache", "2"]
+    got = [_main(cli.main, argv + extra, capsys)
+           for cli, extra in ((j_cli, []), (t_cli, ["--device", "cpu"]))]
+    assert got[0] == got[1]
+    rc, out, err = got[1]
+    assert rc == 2 and out == ""
+    assert "--kv-dtype, --int4, --prompt-cache not supported" in err
 
 
 def test_cli_defaults_to_the_card(files):
