@@ -11,7 +11,9 @@ Phases, each printing JSON lines:
              scoped to this script's run).
 2. build   - compiles every kernel source in csrc/ with nvcc for sm_90a,
              one nvcc per source, all at once; ptxas's registers, shared
-             memory and spills for each kernel entry.
+             memory and spills for each kernel entry; beside them the
+             native C++ ONNX parser (g++, native_loader), which
+             import_onnx takes from here on (the CLI's children too).
 3. slice   - SqueezeNet: the port's entry points at 224x224 (random weights
              from seed 0); golden check at b1 against
              tests/goldens/squeezenet.pb; fp32 Engine at b256; calibrate on
@@ -106,11 +108,13 @@ Phases, each printing JSON lines:
              to qmatmul_int8_plain on the card; kernel and library
              (torch._int_mm) times from a replayed CUDA graph, the plain
              time, the card's bound, TOP/s and GB/s.
-12. ort_decode - the GPT-2 decode path of phase 6 with every MatMul that
+12. ort_decode - the GPT-2 decode path of phase 6, at GPT2_SIDE_LAYERS
+             (4) of its 12 layers, with every MatMul that
              quantize_weights_int4 would take rewritten into the interleaved
              ORT MatMulNBits form (quant.pack_int4, no `layout`), carried
-             as ONNX bytes into the Generator: 49 qmatmul_int4_bf16 launches
-             per prefill (on mma) and per step (on small_m), none planar;
+             as ONNX bytes into the Generator: 4L + 1 (17) qmatmul_int4_bf16
+             launches per prefill (on mma) and per step (on small_m), none
+             planar;
              prefill + 4 steps
              re-run through the plain versions on the CPU (logits within
              1e-2 * max|logit|); tokens/s.
@@ -139,7 +143,8 @@ Phases, each printing JSON lines:
              both loops, also with an eos id no row emits (the host loop
              then reads `done` every step, the device loop once a block);
              a block's wall against its device busy time.
-17. serve   - after phase 14: DecodeServer on GPT-2 124M (8 slots, INT4
+17. serve   - after phase 14: DecodeServer on GPT-2 124M's widths at
+             GPT2_SIDE_LAYERS (4) of its 12 layers (8 slots, INT4
              planar weights, INT8 KV, max_len 256, prompt buckets 16/32/
              64), 16 requests with prompts of 16-64 tokens from
              default_rng(0) and 64 new tokens each, at multi_step 0 and 8
@@ -261,7 +266,9 @@ Phases, each printing JSON lines:
              no other kernel; each distinct MatMulInteger shape on the
              card's own int8 activations bit-equal to qmatmul_int8_plain,
              timed beside torch._int_mm on a column-major B (kernel
-             lines, "path": "precision"). GPT-2 124M and the phase-18 Llama at batch 8,
+             lines, "path": "precision"). GPT-2 124M's widths at
+             GPT2_SIDE_LAYERS (4) of 12 layers and the phase-18 Llama at
+             batch 8,
              prompt 64 through Generator(prefill_dtype=...) in fp32,
              bfloat16 and w8a8, without and with int4_weights: one launch
              per MatMulInteger and per MatMulNBits in the first prefill,
@@ -275,7 +282,8 @@ Phases, each printing JSON lines:
              on the MatMulNBits inputs) within 1e-5 x
              max|out| of the plain twins and equal to the kernel on the
              same values as f32 A, timed beside torch._weight_int4pack_mm
-             with bf16 A. DecodeServer(prefill_dtype="w8a8") on GPT-2 124M
+             with bf16 A. DecodeServer(prefill_dtype="w8a8") on GPT-2 124M's
+             widths (GPT2_SIDE_LAYERS layers)
              serving 16 requests: tokens/s; then 16 requests queued in
              two waves of 8 with one prompt length each (64, 32) before
              a second server starts, so each wave's rows line up as an
@@ -456,13 +464,15 @@ Phases, each printing JSON lines:
              on them (near-ties, NEAR_TIE, excused); tokens/s of both
              loops and the block's replay ms. Seq2SeqBeamGenerator on
              T5-small (b4 x beam 4, src 512, 32 new): both loops agree.
-             SpeculativeGenerator on GPT-2 124M fp32 (b8, prompt 64, k 4,
+             SpeculativeGenerator on GPT-2 124M's widths at
+             GPT2_SIDE_LAYERS (4) of 12 layers, fp32 (b8, prompt 64, k 4,
              32 new), the draft the target (acceptance 1.0) and a 2-layer
              draft at the same widths (draft_seed 1, as the CLI's
              --draft-layers builds it): rows that differ from the greedy
              Generator's teacher-forced against the isolated one;
              acceptance and tokens/s beside the greedy Generator's.
-             SpeculativeServer (8 slots, 16 requests of 48 repeated-motif
+             SpeculativeServer (the same 4-layer target; 8 slots, 16
+             requests of 48 repeated-motif
              tokens x 32 new, k 4): the 2-layer draft and prompt lookup
              (ngram 2), each in host rounds and in blocks of 4 rounds;
              the first run's first 4 requests, and any request another
@@ -475,6 +485,33 @@ Phases, each printing JSON lines:
              multi_step 0 and 8: one encoder-cache hit each, every token
              the pick of a batch-16 Seq2SeqGenerator teacher-forced on the
              served tokens.
+6d. int8_whole - the INT8 path and the front end made whole (after 6c),
+             weights from seed 0, one line per path. `native`: the native
+             C++ parser (native_loader, built with g++ into build/native)
+             and the Python codec parse SqueezeNet 1.0's, BERT-base's and
+             GPT-2 124M's bytes to ModelProtos equal field by field, both
+             parse times on the card's host; a build failure fails it.
+             `r3d18`: R3D-18 (tests/torch_port_video.py, published widths,
+             BatchNorm folded) on b16 clips of 3x16x112x112, fp32 and INT8
+             (calibrated on x[:2]); counts set to 0 just before, read just
+             after: 20 qconv_int8_requant launches per INT8 forward, every
+             one the 3-D form on the gather producer, and the fc's
+             qmatmul_int8; every kernel call of a forward bit-equal to its
+             plain version on the card's operands for the first 2 clips;
+             clips/s; INT8 against fp32. `depthwise3d`: a depthwise
+             3x3x3 QLinearConv at R3D layer1's activation (b16, 64
+             channels, 16x56x56) on the grouped kernel's 3-D form, and a
+             3-D ConvInteger there with a per-channel w zero point, exact.
+             `squeezenet_dynamic`: SqueezeNet 1.0 in ONNX Runtime's
+             quantize_dynamic form (tests/torch_port_dynamic.py) at b256:
+             26 ConvInteger launches per forward, each reading its pad
+             value from device memory (`device_zero_point`), each call's
+             int32 bit-equal to its plain version (2 images), the captured
+             graph replayed on two inputs whose zero points differ, each
+             equal to its eager run; images/s. `runtime_zp`: one-node
+             QLinearConv, QLinearMatMul and QGemm with run-time x and y
+             zero points, eager and replayed, equal to the CPU. `bf16_input`:
+             a BFLOAT16 graph input fed a bf16 tensor, equal to the CPU.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
@@ -489,7 +526,9 @@ Phases, each printing JSON lines:
              in `scan_path`; the rows of the kernels the families run
              (int4 planar, decode attention, the int8 conv) carry their
              launches by path in `families_path`, and int4 planar's row
-             the beam path's launches (6c) in `decoding_path`.
+             the beam path's launches (6c) in `decoding_path`; then the
+             rows of 6d's new instances (the 3-D conv, the 3-D grouped
+             conv, the device-zero-point form), each with `instance`.
 
 The whole run is one models.host_memo block: every GPT-2 and Llama graph
 of one config and seed (Generators, servers, precision schemes, export
@@ -529,6 +568,13 @@ HBM_BYTES_PER_S = 3.35e12
 
 # GPT-2 decode path
 DEC_BATCH, PROMPT, MAX_LEN, NEW = 8, 64, 256, 64
+# GPT-2 124M's depth, at its full widths, on the side paths that repeat
+# phase 6's per-layer shapes: the ORT-layout decode (12), the DecodeServer
+# (17), the precision phase's GPT-2 prefill schemes and W8A8 server (18b)
+# and the speculative target of 6c (its draft: SPEC_DRAFT_LAYERS). The
+# smoke's time limit; phases 6, 6b, 6c's beam paths and 18c run all 12.
+GPT2_SIDE_LAYERS = 4
+GPT2_SIDE = f"gpt2 124M widths, {GPT2_SIDE_LAYERS} of 12 layers, seed 0"
 CPU_STEPS = 4       # decode steps re-run through the plain versions
 DEC_ITERS = 50      # timed launches per decode kernel shape
 
@@ -692,17 +738,35 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Every kernel source (one nvcc each, all at once) and, beside them on
+    a thread, the native C++ ONNX parser (g++), so that the CLI's child
+    processes find it built."""
+    import threading
+
+    from onnx_rusty_inference_engine_tpu_torch import native_loader
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
+    native = {}
+
+    def build_native():
+        native["lib"] = native_loader.get_lib()
+        native["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build_native)
+    thread.start()
     built = _build.build_all()
+    thread.join()
+    require(native["lib"] is not None, "the native parser builds")
     # each kernel's entry line, then its registers, shared memory and spills
     regs = {name: [ln.strip() for ln in info.log.splitlines()
                    if "entry function" in ln or "registers" in ln
                    or "spill" in ln or "arning" in ln]
             for name, info in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": sorted(built), "ptxas": regs})
+          "kernels": sorted(built), "ptxas": regs,
+          "native_parser": {"library": native_loader.library_path(),
+                            "seconds": native["s"]}})
 
 
 def _squeezenet_golden_input() -> np.ndarray:
@@ -1936,7 +2000,7 @@ def ort_int4_generator(gen):
 def phase_ort_decode():
     from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 
-    cfg = GPT2Config()  # SMALL, as phase_decode
+    cfg = GPT2Config(n_layer=GPT2_SIDE_LAYERS)  # SMALL's widths
     prompts = _decode_prompts(cfg)
     t0 = time.perf_counter()
     gen = _generator(cfg, kv_dtype="int8", fused_attention=True)
@@ -1953,8 +2017,8 @@ def phase_ort_decode():
     n_attn = sum(n.op_type == "FusedDecodeAttention"
                  for n in gen.decode.graph.nodes)
     require(n4_pre == n4_dec == 4 * cfg.n_layer + 1 and n_attn == cfg.n_layer,
-            f"49 MatMulNBits per graph and 12 fused attentions: {n4_pre}, "
-            f"{n4_dec}, {n_attn}")
+            f"4L + 1 MatMulNBits per graph and L fused attentions: "
+            f"{n4_pre}, {n4_dec}, {n_attn}")
 
     # the main path
     reset_counts()
@@ -1964,22 +2028,23 @@ def phase_ort_decode():
     main_s = time.perf_counter() - t0
     steps = NEW - 1
     require(counts["qmatmul_int4_bf16"] == n4_pre + n4_dec * steps,
-            f"49 interleaved int4 launches per prefill and per step: {counts}")
+            f"4L + 1 interleaved int4 launches per prefill and per step: "
+            f"{counts}")
     schedules = _int4_schedules(gen, "qmatmul_int4_bf16", steps)
     require(schedules == {"general": 0, "small_m": n4_dec * steps,
                           "mma": n4_pre},
             f"GPT-2: every prefill launch on mma, every step launch on "
             f"small_m: {schedules}")
     require(counts["decode_attention_int8"] == n_attn * steps,
-            f"12 attention launches per step: {counts}")
+            f"L attention launches per step: {counts}")
     require(sum(counts.values()) == counts["qmatmul_int4_bf16"]
             + counts["decode_attention_int8"],
             f"no planar int4 or other kernel on this path: {counts}")
     require(toks.shape == (DEC_BATCH, NEW) and toks.min() >= 0
             and toks.max() < cfg.vocab_size, f"tokens {toks.shape}")
     errs, agree = _plain_rerun(gen, prompts, toks)
-    emit({"phase": "ort_decode", "model": "gpt2 124M (SMALL, seed 0), "
-          "interleaved (ORT MatMulNBits) int4 weights, block 256",
+    emit({"phase": "ort_decode", "model": f"{GPT2_SIDE}, interleaved "
+          "(ORT MatMulNBits) int4 weights, block 256",
           "batch": DEC_BATCH, "prompt": PROMPT, "max_len": MAX_LEN,
           "new_tokens": NEW, "build_s": build_s, "onnx_bytes": onnx_bytes,
           "main_path_s": main_s, "launches": counts,
@@ -2525,12 +2590,13 @@ def _run_decode_server(cfg, prompts, K: int, new: int = SERVE_NEW, **kw):
 
 
 def phase_serve(smi: str) -> None:
-    """DecodeServer on GPT-2 124M at multi_step 0 and SERVE_K, the same
-    SERVE_REQS requests; InferenceServer on SqueezeNet 1.0 INT8."""
+    """DecodeServer on GPT-2 124M's widths (GPT2_SIDE_LAYERS layers) at
+    multi_step 0 and SERVE_K, the same SERVE_REQS requests; InferenceServer
+    on SqueezeNet 1.0 INT8."""
     from onnx_rusty_inference_engine_tpu_torch.generate import Generator
     from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
 
-    cfg = GPT2Config()
+    cfg = GPT2Config(n_layer=GPT2_SIDE_LAYERS)
     prompts = _serve_requests(cfg)
     res = {}
     for K in (0, SERVE_K):
@@ -2564,7 +2630,7 @@ def phase_serve(smi: str) -> None:
     for K, r in res.items():
         st = r["stats"]
         emit({"phase": "serve", "server": "DecodeServer",
-              "model": "gpt2 124M (SMALL, seed 0), int4 planar, int8 KV",
+              "model": f"{GPT2_SIDE}, int4 planar, int8 KV",
               "slots": SERVE_SLOTS, "requests": SERVE_REQS,
               "new_tokens": SERVE_NEW, "prompt_buckets": SERVE_BUCKETS,
               "max_len": MAX_LEN, "multi_step": K,
@@ -3951,7 +4017,8 @@ def _precision_decoder(family: str, cfg, smi: str, ort: bool = False):
         other = _w8a8_other_seed(family, cfg, 1)
         require(other["rel_err_vs_fp32"] < PREFILL_W8A8_REL[family],
                 f"{family} W8A8 prefill against fp32, seed 1: {other}")
-    emit({"phase": "precision", "model": family, "batch": DEC_BATCH,
+    emit({"phase": "precision", "model": family, "layers": cfg.n_layer,
+          "batch": DEC_BATCH,
           "prompt": PROMPT, "decode_steps": PREC_STEPS,
           "bounds": {"w8a8_rel": PREFILL_W8A8_REL[family],
                      "w8a8_flips_over_bf16": PREFILL_FLIPS_OVER_BF16},
@@ -3960,8 +4027,8 @@ def _precision_decoder(family: str, cfg, smi: str, ort: bool = False):
 
 
 def _precision_server(smi: str) -> None:
-    """DecodeServer(prefill_dtype="w8a8") on GPT-2 124M (8 slots, buckets
-    16/32/64, fp32 decode): tokens/s over SERVE_REQS requests after a
+    """DecodeServer(prefill_dtype="w8a8") on GPT-2 124M's widths
+    (GPT2_SIDE_LAYERS layers; 8 slots, buckets 16/32/64, fp32 decode): tokens/s over SERVE_REQS requests after a
     warm-up per bucket. Then a second such server, started with SERVE_REQS
     requests already queued in two waves of SERVE_SLOTS, each wave one
     bucket length (PREC_WAVES): a wave fills slots 0..7 in one admission
@@ -3972,7 +4039,7 @@ def _precision_server(smi: str) -> None:
     from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
     from onnx_rusty_inference_engine_tpu_torch.serve_llm import DecodeServer
 
-    cfg = GPT2Config()
+    cfg = GPT2Config(n_layer=GPT2_SIDE_LAYERS)
     prompts = _serve_requests(cfg)
     new = PREC_SERVE_NEW
 
@@ -4022,7 +4089,7 @@ def _precision_server(smi: str) -> None:
         del g
         torch.cuda.empty_cache()
     emit({"phase": "precision", "server": "DecodeServer",
-          "model": "gpt2 124M (SMALL, seed 0), prefill_dtype w8a8, fp32 "
+          "model": f"{GPT2_SIDE}, prefill_dtype w8a8, fp32 "
                    "decode", "slots": SERVE_SLOTS, "requests": SERVE_REQS,
           "new_tokens": new, "prompt_buckets": SERVE_BUCKETS,
           "served_tokens_per_s": SERVE_REQS * new / wall, "wall_s": wall,
@@ -4045,7 +4112,7 @@ def phase_precision(smi: str) -> list:
 
     t0 = time.perf_counter()
     rows = [_precision_bert(smi)]
-    _precision_decoder("gpt2", GPT2Config(), smi)
+    _precision_decoder("gpt2", GPT2Config(n_layer=GPT2_SIDE_LAYERS), smi)
     with host_memo():
         bf16a = _precision_decoder("llama", LlamaConfig(n_layer=LLAMA_LAYERS),
                                    smi, ort=True)
@@ -4181,11 +4248,9 @@ def _qop_kernel_work(name, args, kw, out):
         N = b.shape[1]
         return 2 * M * N * K, (M * K + K * N + out.numel()
                                * out.element_size() + 8 * N)
-    x, w = args[0], args[1]
-    B, C, H, W = x.shape
-    O, Cg, KH, KW = w.shape
-    macs = out.numel() * Cg * KH * KW
-    return 2 * macs, (x.numel() + w.numel() + 8 * O
+    x, w = args[0], args[1]  # a conv of any rank: w [O, Cg, kernel...]
+    macs = out.numel() * int(np.prod(w.shape[1:]))
+    return 2 * macs, (x.numel() + w.numel() + 8 * w.shape[0]
                       + out.numel() * out.element_size())
 
 
@@ -7002,8 +7067,9 @@ def _dec_seq2seq_beam(t5cfg, smi: str) -> None:
 
 
 def _dec_speculative(cfg, smi: str) -> None:
-    """SpeculativeGenerator on GPT-2 124M fp32, the draft the target and a
-    2-layer draft, against the target's greedy Generator."""
+    """SpeculativeGenerator on `cfg` (GPT-2 124M's widths at
+    GPT2_SIDE_LAYERS layers) in fp32, the draft the target and a 2-layer
+    draft, against the target's greedy Generator."""
     from onnx_rusty_inference_engine_tpu_torch.generate import (
         Generator, SpeculativeGenerator)
 
@@ -7041,7 +7107,7 @@ def _dec_speculative(cfg, smi: str) -> None:
                       "rows_equal_greedy": B - len(differ),
                       "differing_rows_vs_isolated": vs_iso}
     del iso
-    _dec_line("speculative", t0, smi, model="gpt2 124M (SMALL, seed 0), "
+    _dec_line("speculative", t0, smi, model=f"{GPT2_SIDE}, "
               "fp32", batch=B, prompt=P, new_tokens=N, k=k,
               draft_layers=SPEC_DRAFT_LAYERS, runs=runs,
               greedy_tokens_per_s=B * N / greedy_s)
@@ -7059,8 +7125,9 @@ def _spec_prompts(cfg) -> np.ndarray:
 
 
 def _dec_spec_server(cfg, smi: str) -> None:
-    """SpeculativeServer on GPT-2 124M fp32: a 2-layer draft and prompt
-    lookup, each in host rounds and in blocks of SPEC_ROUNDS rounds."""
+    """SpeculativeServer on `cfg` (GPT-2 124M's widths at GPT2_SIDE_LAYERS
+    layers) in fp32: a 2-layer draft and prompt lookup, each in host
+    rounds and in blocks of SPEC_ROUNDS rounds."""
     from onnx_rusty_inference_engine_tpu_torch.generate import Generator
     from onnx_rusty_inference_engine_tpu_torch.serving import (
         SpeculativeServer)
@@ -7133,7 +7200,7 @@ def _dec_spec_server(cfg, smi: str) -> None:
             vs[name] = _served_vs_isolated(name, [got[r] for r in differ],
                                            prompts[differ], iso)
     del iso
-    _dec_line("spec_server", t0, smi, model="gpt2 124M (SMALL, seed 0), "
+    _dec_line("spec_server", t0, smi, model=f"{GPT2_SIDE}, "
               "fp32", slots=SPEC_SLOTS, requests=SPEC_REQS,
               prompt=SPEC_PLEN, new_tokens=N, k=k,
               draft_layers=SPEC_DRAFT_LAYERS, ngram=2,
@@ -7221,14 +7288,600 @@ def phase_decoding(smi: str) -> dict:
     torch.cuda.empty_cache()
     _dec_seq2seq_beam(t5cfg, smi)
     torch.cuda.empty_cache()
-    _dec_speculative(cfg, smi)
+    side = GPT2Config(n_layer=GPT2_SIDE_LAYERS)
+    _dec_speculative(side, smi)
     torch.cuda.empty_cache()
-    _dec_spec_server(cfg, smi)
+    _dec_spec_server(side, smi)
     torch.cuda.empty_cache()
     _dec_seq2seq_server(t5cfg, smi)
     torch.cuda.empty_cache()
     emit({"phase": "decoding", "seconds": time.perf_counter() - t0})
     return {"qmatmul_int4_planar": beam}
+
+
+# --------------------------------------------------------------------------
+# int8_whole: 3-D QLinearConv / ConvInteger (R3D-18), zero points computed
+# at run time (ONNX Runtime's dynamically quantized SqueezeNet), the native
+# C++ parser, a bf16 graph input
+# --------------------------------------------------------------------------
+WHOLE_BATCH = 16        # R3D-18 clips per forward (3 x 16 x 112 x 112)
+WHOLE_CLIPS = 2         # clips (images) re-run through the plain versions
+WHOLE_ITERS = 3         # replayed forwards timed per Engine
+WHOLE_KERNEL_ITERS = 3  # launches per captured graph in a kernel timing
+# the depthwise 3x3x3 of channel-separated nets, at R3D-18 layer1's
+# activation: 64 channels, 16 x 56 x 56
+DW3D_SHAPE = (WHOLE_BATCH, 64, 16, 56, 56)
+# R3D-18 INT8 logits against fp32, as the vision phase's INT8 bounds
+WHOLE_INT8_BOUND = "top-1 agreement >= 0.75 or max |d| / max |ref| < 0.1"
+
+
+def _same_proto(a, b) -> bool:
+    """Two parses of the port's onnx_io equal field by field: arrays by
+    dtype, shape and values, bf16 tensors by their bits. A ValueInfo with
+    no dims: shape None from the C++ parser, [] from the Python codec (the
+    JAX package's two parsers differ so too; the importer reads both as
+    ())."""
+    import dataclasses
+
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and torch.equal(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+    if isinstance(a, onnx_io.ValueInfo) and isinstance(b, onnx_io.ValueInfo):
+        a = dataclasses.replace(a, shape=a.shape or None)
+        b = dataclasses.replace(b, shape=b.shape or None)
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return type(a) is type(b) and all(
+            _same_proto(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_same_proto(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_proto(x, y) for x, y in zip(a, b)))
+    return type(a) is type(b) and a == b
+
+
+def _whole_native(smi: str) -> dict:
+    """The native C++ parser against the pure-Python codec on the bytes of
+    SqueezeNet 1.0, BERT-base and GPT-2 124M (random weights, seed 0):
+    equal field by field, with both parse times on the card's host. The
+    library must build (a build failure fails the phase)."""
+    import tempfile
+
+    from onnx_rusty_inference_engine_tpu_torch import native_loader, onnx_io
+    from onnx_rusty_inference_engine_tpu_torch.models import (bert, gpt2,
+                                                              squeezenet)
+
+    t0 = time.perf_counter()
+    lib = native_loader.get_lib()  # built beside the kernels (phase 2)
+    require(lib is not None, "native: the C++ parser builds and loads")
+    models = {
+        "squeezenet1.0": lambda: squeezenet.build_squeezenet(),
+        "bert-base": lambda: bert.build_bert(bert.BASE, batch=BERT_BATCH,
+                                             seq_len=BERT_SEQ, seed=0),
+        "gpt2-124M": lambda: gpt2.build_gpt2(gpt2.SMALL, batch=DEC_BATCH,
+                                             seq_len=PROMPT),
+    }
+    out = {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        for name, build in models.items():
+            path = os.path.join(d, f"{name}.onnx")
+            onnx_io.save_model(path, build())
+            t1 = time.perf_counter()
+            native = native_loader.load_model_native(path)
+            native_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            python = onnx_io.load_model(path)
+            python_s = time.perf_counter() - t1
+            require(native is not None and _same_proto(native, python),
+                    f"native: {name}'s native parse equals the Python "
+                    f"codec's field by field")
+            out[name] = {"bytes": os.path.getsize(path),
+                         "nodes": len(native.graph.nodes),
+                         "initializers": len(native.graph.initializers),
+                         "native_parse_s": native_s,
+                         "python_parse_s": python_s,
+                         "equal_field_by_field": True}
+            del native, python
+    line = {"phase": "int8_whole", "path": "native",
+            "library": native_loader.library_path(), "models": out, "seconds": time.perf_counter() - t0, "card": smi}
+    emit(line)
+    return line
+
+
+def _conv3d_library_ms(name, args, kw):
+    """F.conv3d in fp32 through cuDNN (TF32 off) on the call's operands as
+    floats: the one PyTorch call of a 3-D conv (PyTorch has no int8 3-D
+    conv), for context only; None for other calls."""
+    import torch.nn.functional as F
+
+    x, w = args[0], args[1]
+    if x.dim() != 5 or name.startswith("qmatmul"):
+        return None
+    xf = x.float().contiguous(memory_format=torch.channels_last_3d)
+    wf = w.float()
+    pads = kw.get("padding", ((0, 0),) * 3)
+    if any(lo != hi for lo, hi in pads):
+        return None
+    groups = x.shape[1] // w.shape[1]
+    return graph_ms(lambda: F.conv3d(
+        xf, wf, stride=tuple(kw.get("stride", (1, 1, 1))),
+        padding=tuple(lo for lo, _ in pads),
+        dilation=tuple(kw.get("dilation") or (1, 1, 1)), groups=groups),
+        WHOLE_KERNEL_ITERS, 2)
+
+
+def _whole_calls(path: str, calls: list, counts: dict, forwards: int,
+                 library, no_library: str) -> dict:
+    """Each recorded kernel call of one forward bit-equal to its plain
+    version on the card's own operands, on the first WHOLE_CLIPS clips
+    (images); its kernel time (the whole batch, from a replayed CUDA
+    graph), its plain time (those clips), `library(name, args, kw)`'s time
+    and its bound; summed per kernel over the forward. The counts of the
+    main path's run must be the calls x `forwards`."""
+    tot = {}
+    for name, args, kw, out in calls:
+        kern, plain = _wrapper_and_plain(name)
+        pkw = {k: v for k, v in kw.items() if k != "packed"}
+        head = tuple(a[:WHOLE_CLIPS] if i == 0 else a
+                     for i, a in enumerate(args))
+        want, plain_ms = _timed(lambda: plain(*head, **pkw))
+        got = out[:WHOLE_CLIPS]
+        err = int((got.int() - want.int()).abs().max())
+        require(torch.equal(got, want), f"int8_whole {path}: {name} == "
+                f"plain on the card's operands (max |diff| {err})")
+        ms = graph_ms(lambda: kern(*args, **kw), WHOLE_KERNEL_ITERS, 2)
+        lib_ms = library(name, args, kw)
+        ops, nbytes = _qop_kernel_work(name, args, kw, out)
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
+                                                     INT8_OPS_PER_S)
+        v = tot.setdefault(_QOP_KERNEL[name], dict.fromkeys(
+            ("per_forward", "ms", "plain_ms", "bound_ms", "ops_ms",
+             "bytes_ms", "library_ms"), 0.0))
+        v["per_forward"] += 1
+        v["ms"] += ms
+        v["plain_ms"] += plain_ms
+        v["bound_ms"] += bound_ms
+        v["ops_ms"] += ops_ms
+        v["bytes_ms"] += bytes_ms
+        v["library_ms"] = (None if lib_ms is None or v["library_ms"] is None
+                           else v["library_ms"] + lib_ms)
+    require({k: int(v["per_forward"]) * forwards for k, v in tot.items()}
+            == {k: n for k, n in counts.items() if n},
+            f"int8_whole {path}: the calls of one forward x {forwards} "
+            f"forwards against the main path's launches {counts}")
+    for kernel, v in tot.items():
+        v["launches"] = counts[kernel]
+        v["bound_by"] = ("operations" if v.pop("ops_ms") >= v.pop("bytes_ms")
+                         else "bytes")
+        v["plain_per"] = (f"the first {WHOLE_CLIPS} clips (images) of the "
+                          f"batch")
+        v["library"] = ("F.conv3d fp32 (cuDNN, TF32 off) on the operands as "
+                        "floats: not int8, context only"
+                        if v["library_ms"] is not None else no_library)
+    return tot
+
+
+def _eager_calls(eng, dev_feed) -> list:
+    """The kernel wrapper calls of one eager forward of `eng`."""
+    calls = []
+    with torch.no_grad(), _recorded_kernel_calls(calls):
+        eng.forward(dev_feed)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _whole_r3d(smi: str) -> dict:
+    """R3D-18 (torchvision's r3d_18, Kinetics-400, published widths: 20
+    convs; BatchNorm folded; random weights from seed 0;
+    tests/torch_port_video.py) on b16 clips of 3 x 16 x 112 x 112 through
+    the Engine: fp32 (F.conv3d), then calibrate (minmax) on x[:2],
+    quantize_graph and the INT8 Engine. Counts set to 0 just before, read
+    just after: 20 qconv_int8_requant launches per forward, every one the
+    3-D form on the gather producer, and the fc's qmatmul_int8. Each
+    QLinearConv's output bit-equal to its plain version on the card's
+    operands for the first 2 clips; clips/s of both from CUDA events over
+    replayed forwards; the INT8 logits against fp32."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_video import R3D_CLIP, R3D_INPUT, R3D_LOGITS, build_r3d18
+
+    t0 = time.perf_counter()
+    graph = P.import_model(build_r3d18())
+    x = np.random.default_rng(0).standard_normal(
+        (WHOLE_BATCH, *R3D_CLIP)).astype(np.float32)
+    feed = {R3D_INPUT: x}
+    dev = {R3D_INPUT: torch.as_tensor(x, device="cuda")}
+    eng = P.Engine(graph)
+    y32 = eng(feed)[R3D_LOGITS].float()
+    fp32_ms = cuda_ms(lambda: eng(dev), WHOLE_ITERS, 1)
+    ranges = P.calibrate(graph, [{R3D_INPUT: x[:2]}])
+    qgraph = P.quantize_graph(graph, ranges=ranges)
+    n_qconv = sum(n.op_type == "QLinearConv" for n in qgraph.nodes)
+    reset_counts()
+    eng8 = P.Engine(qgraph)
+    y8 = eng8(feed)[R3D_LOGITS].float()
+    int8_ms = cuda_ms(lambda: eng8(dev), WHOLE_ITERS, 1)
+    counts = {k: v for k, v in read_counts().items() if v}
+    splits = read_splits("qconv_int8_requant")
+    forwards = 2 + WHOLE_ITERS
+    per_forward = {"qconv_int8_requant": 20, "qmatmul_int8": 1}
+    require(n_qconv == 20 and counts == {k: n * forwards
+                                         for k, n in per_forward.items()},
+            f"r3d18: {per_forward} launches per INT8 forward over "
+            f"{forwards} forwards: {counts}")
+    require(splits["forms"]["3d"] == 20 * forwards
+            and splits["producers"] == {"tma": 0, "gather": 20 * forwards},
+            f"r3d18: every conv launch the 3-D form on the gather producer: "
+            f"{splits}")
+    require(bool(torch.isfinite(y8).all())
+            and tuple(y8.shape) == (WHOLE_BATCH, 400),
+            f"r3d18: INT8 logits {tuple(y8.shape)} finite")
+    main_s = time.perf_counter() - t0
+    calls = _eager_calls(eng8, dev)
+    rows = _whole_calls("r3d18", calls, counts, forwards,
+                        _conv3d_library_ms,
+                        "none: PyTorch has no int8 3-D conv")
+    top1 = float((y8.argmax(1) == y32.argmax(1)).float().mean())
+    rel = float((y8 - y32).abs().max() / y32.abs().max())
+    line = {"phase": "int8_whole", "path": "r3d18",
+            "model": "r3d_18 (torchvision video ResNet, Kinetics-400 head, "
+                     "published widths, seed 0)",
+            "clip": list(R3D_CLIP), "batch": WHOLE_BATCH,
+            "clips_per_s": {"fp32": WHOLE_BATCH / fp32_ms * 1e3,
+                            "int8": WHOLE_BATCH / int8_ms * 1e3},
+            "forward_ms": {"fp32": fp32_ms, "int8": int8_ms},
+            "launches": counts, "launches_per_forward": per_forward,
+            "splits": splits, "kernel_calls_equal_plain": len(calls),
+            "plain_clips": WHOLE_CLIPS,
+            "int8_vs_fp32": {"top1_agreement": top1,
+                             "max_abs_over_max_ref": rel,
+                             "bound": WHOLE_INT8_BOUND},
+            "main_path_s": main_s, "kernels": rows,
+            "seconds": time.perf_counter() - t0, "card": smi}
+    emit(line)
+    require(top1 >= 0.75 or rel < 0.1,
+            f"r3d18: INT8 against fp32 ({WHOLE_INT8_BOUND}): top-1 {top1}, "
+            f"rel {rel}")
+    return rows
+
+
+def _one_node_graph(op, inputs, consts, feeds, attrs=None, domain=""):
+    """A graph of one `op` node over `inputs` (ONNX order), `consts` as its
+    constants (weights) and `feeds` name -> (shape, dtype) as its inputs."""
+    from onnx_rusty_inference_engine_tpu_torch.graph import (Graph,
+                                                             InputSpec, Node)
+
+    return Graph(name=op.lower(), nodes=[Node(op, list(inputs), ["y"], op,
+                                              dict(attrs or {}), domain)],
+                 constants=dict(consts),
+                 inputs=[InputSpec(k, shape, np.dtype(dt))
+                         for k, (shape, dt) in feeds.items()],
+                 outputs=["y"], opset=13,
+                 weight_names=[k for k, v in consts.items()
+                               if np.ndim(v) >= 1])
+
+
+def _whole_depthwise3d(smi: str) -> dict:
+    """The channel-separated nets' depthwise 3x3x3 (ir-CSN, X3D) as one
+    QLinearConv node at R3D-18 layer1's activation (b16, 64 channels,
+    group 64, 16 x 56 x 56, pad 1; int8 x with zero point 3, per-channel
+    w_s), on the grouped kernel's 3-D (general) form; and a 3-D ConvInteger
+    at the same shape (uint8 x with zero point 131, a per-channel w zero
+    point). Counts set to 0 just before, read just after; every kernel
+    call bit-equal to its plain version on the card's operands; the
+    ConvInteger's output exact against the CPU's for the first 2 clips."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    B, C = DW3D_SHAPE[:2]
+    x = rng.integers(-128, 128, DW3D_SHAPE).astype(np.int8)
+    w = rng.integers(-127, 128, (C, 1, 3, 3, 3)).astype(np.int8)
+    attrs = {"kernel_shape": [3, 3, 3], "pads": [1] * 6, "group": C}
+    consts = {"x_s": np.float32(0.05), "x_zp": np.int8(3), "w": w,
+              "w_s": (np.abs(rng.standard_normal(C)) * 0.01 + 2e-3
+                      ).astype(np.float32),
+              "w_zp": np.zeros(C, np.int8), "y_s": np.float32(0.2),
+              "y_zp": np.int8(-4),
+              "b": rng.integers(-2000, 2000, C).astype(np.int32)}
+    qg = _one_node_graph("QLinearConv", ["x", "x_s", "x_zp", "w", "w_s",
+                                         "w_zp", "y_s", "y_zp", "b"],
+                         consts, {"x": (DW3D_SHAPE, np.int8)}, attrs)
+    xu = rng.integers(0, 256, DW3D_SHAPE).astype(np.uint8)
+    ci = _one_node_graph("ConvInteger", ["x", "w", "x_zp", "w_zp"],
+                         {"w": w, "x_zp": np.uint8(131),
+                          "w_zp": rng.integers(-3, 4, C).astype(np.int8)},
+                         {"x": (DW3D_SHAPE, np.uint8)}, attrs)
+    out, rows = {}, {}
+    for path, g, xin, per_forward in (("depthwise3d", qg, x, 1),
+                                      ("convinteger3d", ci, xu, 2)):
+        dev = {"x": torch.as_tensor(xin, device="cuda")}
+        reset_counts()
+        eng = P.Engine(g)
+        y = eng(dev)["y"]
+        ms = cuda_ms(lambda: eng(dev), WHOLE_ITERS, 1)
+        counts = {k: v for k, v in read_counts().items() if v}
+        splits = read_splits("qconv_grouped_int8_requant")
+        forwards = 2 + WHOLE_ITERS
+        require(counts == {"qconv_grouped_int8_requant":
+                           per_forward * forwards}
+                and splits["forms"]["3d"] == per_forward * forwards
+                and splits["schedules"]["general"] == per_forward * forwards,
+                f"{path}: {per_forward} 3-D grouped launches a forward on "
+                f"the general form: {counts} {splits}")
+        calls = _eager_calls(eng, dev)
+        rows[path] = _whole_calls(path, calls, counts, forwards,
+                                  _conv3d_library_ms,
+                                  "none: PyTorch has no int8 grouped conv")
+        line = {"ms": ms, "launches": counts, "splits": splits,
+                "kernel_calls_equal_plain": len(calls)}
+        if path == "convinteger3d":
+            cpu = P.Engine(g, device="cpu").run(
+                {"x": xin[:WHOLE_CLIPS]}).outputs["y"]
+            require(np.array_equal(y[:WHOLE_CLIPS].cpu().numpy(), cpu),
+                    "convinteger3d: the card's int32 == the CPU's")
+            line["equal_cpu_clips"] = WHOLE_CLIPS
+        out[path] = line
+    emit({"phase": "int8_whole", "path": "depthwise3d",
+          "shape": list(DW3D_SHAPE), "group": C, "nodes": out,
+          "kernels": rows, "seconds": time.perf_counter() - t0, "card": smi})
+    return rows["depthwise3d"]
+
+
+def _dql_zero_point(x: torch.Tensor) -> int:
+    """DynamicQuantizeLinear's zero point of x (its emitter's arithmetic)."""
+    x_min = torch.clamp_max(x.amin(), 0.0)
+    x_max = torch.clamp_min(x.amax(), 0.0)
+    scale = (x_max - x_min) * float(torch.tensor(1.0 / 255.0))
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return int(torch.clamp(torch.round(0.0 - x_min / scale), 0, 255))
+
+
+def _whole_squeezenet_dynamic(smi: str) -> dict:
+    """SqueezeNet 1.0 (224x224, b256, seed 0) in ONNX Runtime's
+    quantize_dynamic form (tests/torch_port_dynamic.py: each Conv a
+    DynamicQuantizeLinear -> ConvInteger -> Cast -> Mul -> Add) through
+    the Engine. Counts set to 0 just before, read just after: 26
+    ConvInteger launches per forward on the int32 epilogue, every one
+    reading its pad value (the x zero point DynamicQuantizeLinear computes)
+    from device memory. Each node's int32 bit-equal to its plain version on
+    the card's operands (first 2 images); the captured graph replayed on
+    two inputs whose zero points differ, each output equal to its own
+    eager run; images/s."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_dynamic import dynamic_bytes, reparsed
+
+    t0 = time.perf_counter()
+    graph = reparsed(dynamic_bytes(P.import_model(P.build_squeezenet())))
+    logits = graph.outputs[0]
+    rng = np.random.default_rng(5)
+    xs = [rng.standard_normal((BATCH, 3, 224, 224)).astype(np.float32),
+          (rng.standard_normal((BATCH, 3, 224, 224)) * 0.5 + 1.5).astype(
+              np.float32)]
+    devs = [{"data_0": torch.as_tensor(x, device="cuda")} for x in xs]
+    zps = [_dql_zero_point(d["data_0"]) for d in devs]
+    require(zps[0] != zps[1], f"squeezenet_dynamic: the two inputs' zero "
+            f"points differ: {zps}")
+    reset_counts()
+    eng = P.Engine(graph)
+    first = eng(devs[0])[logits]
+    ms = cuda_ms(lambda: eng(devs[0]), WHOLE_ITERS, 1)
+    replayed = [eng(d)[logits] for d in devs]
+    counts = {k: v for k, v in read_counts().items() if v}
+    splits = read_splits("qconv_int8_requant")
+    forwards = 2 + WHOLE_ITERS + 2
+    n = 26 * forwards
+    require(counts == {"qconv_int8_requant": n}
+            and splits["epilogues"]["int32"] == n
+            and splits["forms"]["device_zero_point"] == n
+            and splits["forms"]["uint8_x"] == n,
+            f"squeezenet_dynamic: 26 ConvInteger launches a forward, each on "
+            f"the int32 epilogue with its zero point in device memory: "
+            f"{counts} {splits}")
+    require(len(eng._graphs) == 1, "squeezenet_dynamic: one captured graph")
+    with torch.no_grad():
+        eager = [eng.forward(d)[logits] for d in devs]
+    for i in range(2):
+        require(torch.equal(replayed[i], eager[i]),
+                f"squeezenet_dynamic: the replay on input {i} (zero point "
+                f"{zps[i]}) equals its eager run")
+    require(torch.equal(first, eager[0]) and not torch.equal(eager[0],
+                                                             eager[1]),
+            "squeezenet_dynamic: first call == eager; the inputs differ")
+    require(bool(torch.isfinite(first).all()),
+            "squeezenet_dynamic: finite logits")
+    calls = _eager_calls(eng, devs[0])
+    rows = _whole_calls("squeezenet_dynamic", calls, counts, forwards,
+                        lambda *a: None,
+                        _qop_no_library("qconv_int8_requant",
+                                        QOP_LABELS["convinteger"]))
+    line = {"phase": "int8_whole", "path": "squeezenet_dynamic",
+            "model": "squeezenet1.0 in onnxruntime quantize_dynamic form "
+                     "(QInt8 weights, per tensor)",
+            "size": "224x224", "batch": BATCH,
+            "images_per_s": BATCH / ms * 1e3, "forward_ms": ms,
+            "launches": counts, "splits": splits,
+            "input_zero_points": zps, "replays_equal_eager": 2,
+            "kernel_calls_equal_plain": len(calls), "kernels": rows,
+            "seconds": time.perf_counter() - t0, "card": smi}
+    emit(line)
+    return rows
+
+
+def _whole_runtime_zp(smi: str) -> dict:
+    """One-node QLinearConv, QLinearMatMul and QGemm whose x (a) and y
+    zero points are graph inputs (computed before the node, as far as it
+    knows): each Engine's first call (eager) and a replay with other zero
+    points, both bit-equal to the plain versions (the CPU Engine); the
+    kernels read the zero points from device memory."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    cases = {
+        "QLinearConv": (
+            ["x", "x_s", "x_zp", "w", "w_s", "w_zp", "y_s", "y_zp", "b"],
+            {"x_s": np.float32(0.05),
+             "w": rng.integers(-127, 128, (64, 32, 3, 3)).astype(np.int8),
+             "w_s": np.float32(0.004), "w_zp": np.int8(0),
+             "y_s": np.float32(0.4),
+             "b": rng.integers(-4000, 4000, 64).astype(np.int32)},
+            {"x": ((32, 32, 28, 28), np.uint8)}, {"kernel_shape": [3, 3],
+                                                  "pads": [1, 1, 1, 1]},
+            "", "qconv_int8_requant"),
+        "QLinearMatMul": (
+            ["x", "x_s", "x_zp", "w", "w_s", "w_zp", "y_s", "y_zp"],
+            {"x_s": np.float32(0.04),
+             "w": rng.integers(-127, 128, (768, 768)).astype(np.int8),
+             "w_s": np.float32(0.002), "w_zp": np.int8(0),
+             "y_s": np.float32(0.5)},
+            {"x": ((512, 768), np.uint8)}, {}, "", "qmatmul_int8"),
+        "QGemm": (
+            ["x", "x_s", "x_zp", "w", "w_s", "w_zp", "b", "y_s", "y_zp"],
+            {"x_s": np.float32(0.03),
+             "w": rng.integers(-127, 128, (1000, 1024)).astype(np.int8),
+             "w_s": np.float32(0.002), "w_zp": np.int8(0),
+             "b": rng.integers(-2000, 2000, 1000).astype(np.int32),
+             "y_s": np.float32(0.4)},
+            {"x": ((256, 1024), np.uint8)}, {"transB": 1}, "com.microsoft",
+            "qmatmul_int8"),
+    }
+    out = {}
+    for op, (inputs, consts, feeds, attrs, domain, kernel) in cases.items():
+        feeds = {**feeds, "x_zp": ((), np.uint8), "y_zp": ((), np.uint8)}
+        g = _one_node_graph(op, inputs, consts, feeds, attrs, domain)
+        xv = rng.integers(0, 256, feeds["x"][0]).astype(np.uint8)
+        zsets = [(np.uint8(131), np.uint8(120)), (np.uint8(7), np.uint8(250))]
+        reset_counts()
+        eng = P.Engine(g)
+        cpu = P.Engine(g, device="cpu")
+        got = []
+        for zx, zy in zsets:
+            f = {"x": xv, "x_zp": np.asarray(zx), "y_zp": np.asarray(zy)}
+            got.append((eng(f)["y"].cpu().numpy(), cpu.run(f).outputs["y"]))
+        counts = {k: v for k, v in read_counts().items() if v}
+        splits = read_splits(kernel)
+        require(len(eng._graphs) == 1 and counts == {kernel: 2}
+                and splits["forms"]["device_zero_point"] == 2,
+                f"runtime_zp {op}: one eager launch and one replayed, both "
+                f"reading y's zero point from the device: {counts} "
+                f"{splits}")
+        for i, (card, want) in enumerate(got):
+            require(np.array_equal(card, want),
+                    f"runtime_zp {op}: {'eager' if i == 0 else 'replayed'} "
+                    f"== the plain versions (zero points {zsets[i]})")
+        require(not np.array_equal(got[0][0], got[1][0]),
+                f"runtime_zp {op}: the zero points move the output")
+        out[op] = {"launches": counts, "forms": splits["forms"],
+                   "eager_and_replayed_equal_plain": True}
+    line = {"phase": "int8_whole", "path": "runtime_zp", "nodes": out,
+            "seconds": time.perf_counter() - t0, "card": smi}
+    emit(line)
+    return line
+
+
+def _whole_bf16_input(smi: str) -> dict:
+    """A graph with a BFLOAT16 input, parsed from ONNX bytes (import_onnx,
+    the native parser), fed a bf16 tensor: the input spec is bf16, the
+    outputs equal the CPU Engine's, eager and replayed."""
+    import tempfile
+
+    import onnx_rusty_inference_engine_tpu_torch as P
+    from onnx_rusty_inference_engine_tpu_torch import onnx_io
+
+    t0 = time.perf_counter()
+    g = onnx_io.GraphProto(name="bf16_input")
+    g.inputs.append(onnx_io.ValueInfo(name="x", elem_type=onnx_io.BFLOAT16,
+                                      shape=[64, 4096]))
+    w = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4096,)).astype(np.float32)).to(torch.bfloat16)
+    g.initializers = {"w": w}
+    g.nodes = [onnx_io.NodeProto("Cast", ["x"], ["xf"], attributes={
+                   "to": onnx_io.Attribute(name="to", i=onnx_io.FLOAT)}),
+               onnx_io.NodeProto("Cast", ["w"], ["wf"], attributes={
+                   "to": onnx_io.Attribute(name="to", i=onnx_io.FLOAT)}),
+               onnx_io.NodeProto("Mul", ["xf", "wf"], ["y"])]
+    g.outputs = [onnx_io.ValueInfo(name="y")]
+    model = onnx_io.ModelProto(graph=g, opset_version=13,
+                               opset_imports={"": 13})
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        path = os.path.join(d, "bf16_input.onnx")
+        onnx_io.save_model(path, model)
+        graph = P.import_onnx(path)
+    require(graph.inputs[0].dtype == torch.bfloat16,
+            f"bf16_input: the input spec is bf16: {graph.inputs[0]}")
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (64, 4096)).astype(np.float32)).to(torch.bfloat16)
+    eng, cpu = P.Engine(graph), P.Engine(graph, device="cpu")
+    want = cpu({"x": x})["y"]
+    got = [eng({"x": x.cuda()})["y"].cpu() for _ in range(2)]
+    require(len(eng._graphs) == 1
+            and all(torch.equal(v, want) for v in got),
+            "bf16_input: the card's outputs (eager, replayed) == the CPU's")
+    line = {"phase": "int8_whole", "path": "bf16_input",
+            "input": {"name": "x", "dtype": "bfloat16", "shape": [64, 4096]},
+            "output_dtype": str(want.dtype), "eager_and_replayed_equal_cpu": True,
+            "seconds": time.perf_counter() - t0, "card": smi}
+    emit(line)
+    return line
+
+
+def phase_int8_whole(smi: str) -> list:
+    """The INT8 path and the front end made whole: the native parser,
+    R3D-18 INT8 (3-D QLinearConv), the depthwise 3-D conv and a 3-D
+    ConvInteger, ORT's dynamically quantized SqueezeNet (run-time zero
+    points through a captured graph), one-node run-time zero points, a
+    bf16 graph input. Returns the kernels line's rows of the new
+    instances."""
+    t0 = time.perf_counter()
+    _whole_native(smi)
+    r3d = _whole_r3d(smi)
+    torch.cuda.empty_cache()
+    dw = _whole_depthwise3d(smi)
+    sqd = _whole_squeezenet_dynamic(smi)
+    torch.cuda.empty_cache()
+    _whole_runtime_zp(smi)
+    _whole_bf16_input(smi)
+    emit({"phase": "int8_whole", "path": "done",
+          "seconds": time.perf_counter() - t0})
+    rows = []
+    for kname, label, v, per in (
+            ("qconv_int8_requant", "3-D (gather producer): R3D-18 INT8",
+             r3d["qconv_int8_requant"],
+             f"one R3D-18 INT8 forward (b{WHOLE_BATCH} clips of "
+             f"3x16x112x112): the sums of its 20 launches"),
+            ("qconv_grouped_int8_requant",
+             "3-D depthwise 3x3x3 (general form)",
+             dw["qconv_grouped_int8_requant"],
+             f"one launch at {list(DW3D_SHAPE)}, group 64"),
+            ("qconv_int8_requant",
+             "device zero point: ORT dynamic SqueezeNet ConvInteger "
+             "(int32 epilogue, uint8 x)",
+             sqd["qconv_int8_requant"],
+             f"one SqueezeNet 1.0 forward (224x224, b{BATCH}): the sums of "
+             f"its 26 launches")):
+        source, replaces = KERNEL_ROWS[kname]
+        rows.append({
+            "name": kname, "instance": label, "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": v["launches"], "max_abs_err": 0, "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "plain_per": v["plain_per"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": v["library_ms"], "library": v["library"],
+            "per": per, "int8_whole_path": True, "card": smi})
+    return rows
 
 
 def main() -> int:
@@ -7322,6 +7975,7 @@ def main() -> int:
                 if row["name"] in dec and "instance" not in row:
                     row["decoding_path"] = dec[row["name"]]
             beam = dec["qmatmul_int4_planar"]
+            rows += phase_int8_whole(smi)
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]

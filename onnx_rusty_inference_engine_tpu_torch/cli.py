@@ -102,7 +102,9 @@ def cmd_run(args) -> int:
             len(feed)]
         x = t.array
         if args.batch and args.batch > 1:
-            x = np.repeat(x, args.batch, axis=0)
+            x = (x.repeat_interleave(args.batch, dim=0)
+                 if not isinstance(x, np.ndarray)
+                 else np.repeat(x, args.batch, axis=0))
         feed[key] = x
 
     if args.log_ops:
@@ -174,8 +176,7 @@ def cmd_bench(args) -> int:
     # the leading dim is the batch even where the file declares a static 1
     # (the JAX CLI keeps the 1 and reports --batch: cli.py:127-142)
     shape[0] = args.batch
-    rng = np.random.default_rng(0)
-    x = rng.standard_normal(shape).astype(spec.dtype)
+    x = _standard_normal(np.random.default_rng(0), shape, spec.dtype)
     ips, device = _throughput(engine, {spec.name: x}, args.steps)
     print(json.dumps({
         "model": args.model,
@@ -204,7 +205,8 @@ def cmd_inspect(args) -> int:
         "n_nodes": len(graph.nodes),
         "op_histogram": counts,
         "inputs": [{"name": i.name, "shape": list(i.shape),
-                    "dtype": str(i.dtype)} for i in graph.inputs],
+                    "dtype": str(i.dtype).replace("torch.", "")}
+                   for i in graph.inputs],
         "outputs": graph.outputs,
         "n_weights": len(graph.weight_names),
         "weight_bytes": int(sum(graph.constants[w].nbytes
@@ -249,12 +251,23 @@ def cmd_quantize(args) -> int:
     return 0
 
 
+def _standard_normal(rng, shape, dtype):
+    """Standard-normal values of `shape` in an input's dtype: numpy, or a
+    torch.bfloat16 tensor for a BFLOAT16 input (numpy has none here)."""
+    import torch
+
+    x = rng.standard_normal(shape)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    return x.astype(dtype)
+
+
 def _synthetic_feed(graph, batch: int) -> dict:
     """Every input at `batch`, standard-normal values in its dtype (the
     JAX CLI's synthetic feed)."""
     rng = np.random.default_rng(0)
-    return {s.name: rng.standard_normal(
-        s.concrete_shape(batch=batch)).astype(s.dtype) for s in graph.inputs}
+    return {s.name: _standard_normal(rng, s.concrete_shape(batch=batch),
+                                     s.dtype) for s in graph.inputs}
 
 
 def cmd_profile(args) -> int:
@@ -271,8 +284,7 @@ def cmd_profile(args) -> int:
     spec = graph.inputs[0]
     shape = list(spec.concrete_shape(batch=args.batch))
     shape[0] = args.batch  # as `bench`: the batch even over a static 1
-    rng = np.random.default_rng(0)
-    x = rng.standard_normal(shape).astype(spec.dtype)
+    x = _standard_normal(np.random.default_rng(0), shape, spec.dtype)
     feed = {spec.name: torch.as_tensor(x, device=engine.device)}
     with torch.no_grad():
         engine.forward(feed)  # builds the kernels outside the trace

@@ -27,21 +27,32 @@
 //             stride-1, unpadded conv's channels-last input): TMA, which
 //             also fills rows past M and bytes past K with zeros;
 //   A_GATHER  the implicit im2col of a conv over channels-last int8 x
-//             [B, H, W, C], C a multiple of 4, K ordered (kh, kw, c), by 128
-//             threads with cp.async: a thread owns one 16-byte column of the
-//             slice for BM / 16 rows and fills it in runs of 16, 8 or 4
-//             bytes (one tap's channels each, as C's divisibility allows),
-//             taps at dilation (dil_h, dil_w). A padding tap is zero-filled
-//             by the copy, or, where the conv pads with a zero point
-//             (Params::pad_word != 0), stored as that byte by the thread.
+//             [B, D, H, W, C], C a multiple of 4, K ordered (kd, kh, kw, c),
+//             by 128 threads with cp.async: a thread owns one 16-byte column
+//             of the slice for BM / 16 rows and fills it in runs of 16, 8 or
+//             4 bytes (one tap's channels each, as C's divisibility allows),
+//             taps at dilation (dil_d, dil_h, dil_w). The depth is a run-time
+//             size: a 2-D conv is D = OD = KD = 1 of the same code (a depth
+//             tap that is always 0 and always inside). A padding tap is
+//             zero-filled by the copy, or, where the conv pads with a zero
+//             point (Params::pad_word != 0, or the int32 at Params::x_zp in
+//             device memory), stored as that byte by the thread.
 //             Bp still comes by TMA.
 // Epilogues (compile-time):
 //   EPI_INT32    int32 [M, N], exact (the caller keeps |sum| < 2^31);
 //   EPI_REQUANT  int8 or uint8 [M, N] = clamp(rn(fmul_rn(i2f_rn(acc +
 //                bias[n]), mult[n])), q_lo, q_hi) + y_zp, ONNX's requant
 //                with its output zero point ([q_lo, q_hi] is the output
-//                type's range less y_zp), staged through shared memory so
-//                that each row leaves in 16-byte stores along N.
+//                type's range less y_zp; where Params::y_zp_dev is set, y_zp
+//                is read from device memory and the range derived from it in
+//                the kernel), staged through shared memory so that each row
+//                leaves in 16-byte stores along N.
+// Zero points in device memory (a zero point the graph computes at run
+// time, e.g. DynamicQuantizeLinear's): each is one int32 read once per
+// thread, so a CUDA graph that captures the launch reads the value of each
+// replay. A value outside its type's range is saturated to it (the JAX
+// emitters' arithmetic widens and clips the same way; ONNX gives a zero
+// point x's or y's own type, so it never is).
 // Persistent blocks: each walks output tiles; the producer fills the ring
 // for the next tile while the consumers run this one's epilogue.
 //
@@ -109,18 +120,29 @@ struct Params {
   void* out;      // int32 or int8 [M, N]
   const float* mult;     // EPI_REQUANT: f32 [N]
   const int32_t* bias;   // EPI_REQUANT: int32 [N] or null
-  // A_GATHER: x int8 [B, H, W, C] channels-last, output [B, OH, OW]
+  // A_GATHER: x int8 [B, D, H, W, C] channels-last, output [B, OD, OH, OW]
+  // (a 2-D conv: D = OD = KD = 1, stride_d = dil_d = 1, pad_d = 0, and
+  // depth3 0, which takes the gather's 2-D instance)
+  int depth3;
   const int8_t* x;
-  int H, W, C, OH, OW, KW, stride_h, stride_w, pad_h, pad_w;
+  int D, H, W, C, OD, OH, OW, KW, KHW, stride_d, stride_h, stride_w, pad_d, pad_h, pad_w;
   int gran;       // bytes per cp.async: 16, 8 or 4 (divides C)
-  FastDiv div_c, div_kw;  // k / C and tap / KW without a division
-  int dil_h, dil_w;
+  FastDiv div_c, div_khw, div_kw;  // k / C, tap / (KH KW), (tap % KH KW) / KW
+  int dil_d, dil_h, dil_w;
   // the byte a padding tap holds, four times (the x zero point; 0: the
   // copy zero-fills)
   uint32_t pad_word;
+  // where set, the x zero point in device memory (int32), in place of
+  // pad_word; x_lo: the lowest value of x's type (0 or -128)
+  const int32_t* x_zp;
+  int x_lo;
   // EPI_REQUANT: the output type's range less y_zp, and y_zp
   float q_lo, q_hi;
   int y_zp;
+  // EPI_REQUANT: where set, y_zp in device memory (int32), in place of the
+  // three above; y_lo: the lowest value of y's type (0 or -128)
+  const int32_t* y_zp_dev;
+  int y_lo;
   // Bp resident: the block's one N tile of Bp (all K) is loaded into shared
   // memory once, and the ring carries A alone
   int b_resident;
@@ -290,16 +312,20 @@ struct Wgmma<N, true> : WgmmaU8<N> {};
 // ---------------------------------------------------------------------------
 // One 128-byte K slice of the im2col rows of A into the slot at `slot`
 // (A_GATHER): this thread's 16-byte column c, in runs of G bytes, for rows
-// r0 + 16 i. `img`, `ih0`, `iw0` locate each row's output pixel (img < 0: a
-// row past M). Padding taps, bytes past K and rows past M are zero-filled:
-// the lanes of a warp hold different columns, and one predicated copy for
-// all of them runs faster than lanes that skip theirs. With a pad word they
-// hold it instead: the padding's zero point; past K and past M it meets a
-// zero weight or a row no one stores.
-template <int G, int RPT>
-__device__ __forceinline__ void gather_slice(const Params& p, uint32_t slot, int kt, int c,
-                                             int r0, const int64_t (&img)[RPT],
-                                             const int (&ih0)[RPT],
+// r0 + 16 i. `img`, `id0`, `ih0`, `iw0` locate each row's output pixel
+// (img < 0: a row past M). Padding taps, bytes past K and rows past M are
+// zero-filled: the lanes of a warp hold different columns, and one
+// predicated copy for all of them runs faster than lanes that skip theirs.
+// With a pad word they hold it instead: the padding's zero point; past K
+// and past M it meets a zero weight or a row no one stores.
+// D3: a 3-D conv (a depth tap and a depth bound); otherwise the 2-D code,
+// whose instructions a 2-D conv pays no more for the 3-D form (the gather
+// is bound by its instructions per copied run).
+template <int G, int RPT, bool D3>
+__device__ __forceinline__ void gather_slice(const Params& p, uint32_t pad_word, uint32_t slot,
+                                             int kt, int c, int r0,
+                                             const int64_t (&img)[RPT],
+                                             const int (&id0)[RPT], const int (&ih0)[RPT],
                                              const int (&iw0)[RPT]) {
   const uint32_t col = (uint32_t)((c ^ (r0 & 7)) * 16);  // swizzled 16-byte column
 #pragma unroll
@@ -308,46 +334,53 @@ __device__ __forceinline__ void gather_slice(const Params& p, uint32_t slot, int
     const bool k_ok = k < p.K;
     const int tap = fdiv(k, p.div_c);
     const int ch = k - tap * p.C;
-    const int kh = fdiv(tap, p.div_kw);
+    const int kd = D3 ? fdiv(tap, p.div_khw) : 0;
+    const int t2 = tap - kd * p.KHW;
+    const int kh = fdiv(t2, p.div_kw);
+    const int dd = kd * p.dil_d;
     const int dh = kh * p.dil_h;
-    const int dw = (tap - kh * p.KW) * p.dil_w;
+    const int dw = (t2 - kh * p.KW) * p.dil_w;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
+      const int id = D3 ? id0[i] + dd : 0;
       const int ih = ih0[i] + dh;
       const int iw = iw0[i] + dw;
-      const bool ok = k_ok && img[i] >= 0 && (unsigned)ih < (unsigned)p.H &&
-                      (unsigned)iw < (unsigned)p.W;
-      const int8_t* src = ok ? p.x + img[i] + ((int64_t)ih * p.W + iw) * p.C + ch : p.x;
+      const bool ok = k_ok && img[i] >= 0 && (!D3 || (unsigned)id < (unsigned)p.D) &&
+                      (unsigned)ih < (unsigned)p.H && (unsigned)iw < (unsigned)p.W;
+      const int64_t pix = D3 ? ((int64_t)id * p.H + ih) * p.W + iw : (int64_t)ih * p.W + iw;
+      const int8_t* src = ok ? p.x + img[i] + pix * p.C + ch : p.x;
       const uint32_t dst = slot + (uint32_t)(r0 + 16 * i) * BK + col + j * G;
-      if (ok || p.pad_word == 0)
+      if (ok || pad_word == 0)
         cp_async_zfill<G>(dst, src, ok);
       else
-        st_shared_fill<G>(dst, p.pad_word);
+        st_shared_fill<G>(dst, pad_word);
     }
   }
 }
 
 // Where output row m reads its input: x offset of its image (-1 past M) and
-// the top-left tap's (ih, iw).
-__device__ __forceinline__ void row_origin(const Params& p, int m, int64_t& img, int& ih0,
-                                           int& iw0) {
+// the first tap's (id, ih, iw) (id 0 for a 2-D conv).
+template <bool D3>
+__device__ __forceinline__ void row_origin(const Params& p, int m, int64_t& img, int& id0,
+                                           int& ih0, int& iw0) {
   if (m >= p.M) {
     img = -1;
-    ih0 = iw0 = 0;
+    id0 = ih0 = iw0 = 0;
     return;
   }
   const int plane = p.OH * p.OW;
-  const int b = m / plane;
-  const int pix = m - b * plane;
+  const int vol = D3 ? p.OD * plane : plane;
+  const int b = m / vol;
+  const int vox = m - b * vol;
+  const int od = D3 ? vox / plane : 0;
+  const int pix = vox - od * plane;
   const int oh = pix / p.OW;
-  img = (int64_t)b * p.H * p.W * p.C;
+  img = (int64_t)b * (D3 ? p.D : 1) * p.H * p.W * p.C;
+  id0 = D3 ? od * p.stride_d - p.pad_d : 0;
   ih0 = oh * p.stride_h - p.pad_h;
   iw0 = (pix - oh * p.OW) * p.stride_w - p.pad_w;
 }
 
-// ---------------------------------------------------------------------------
-// the kernel
-// ---------------------------------------------------------------------------
 // Waits until this thread's cp.async groups but the newest `lag` have landed.
 __device__ __forceinline__ void cp_async_wait_lag(int lag) {
   if (lag >= 3)
@@ -360,6 +393,71 @@ __device__ __forceinline__ void cp_async_wait_lag(int lag) {
     cp_async_wait<0>();
 }
 
+// The gather producer's walk over the block's tiles (A_GATHER): each tile's
+// rows located once, then every 128-byte K slice gathered into the ring,
+// published `lag` slices behind. Returns the slot counter it reached.
+template <bool D3, int RPT>
+__device__ __forceinline__ int gather_tiles(const Params& p, uint32_t pad_word,
+                                            const CUtensorMap& tm_b, uint32_t ring,
+                                            int SLOT, int A_BYTES, int B_BYTES,
+                                            uint32_t full0, uint32_t empty0, bool bres,
+                                            int tiles, int n_tiles, int BM, int BN, int S,
+                                            int pt, int lag) {
+  const int c = pt & 7;
+  const int r0 = pt >> 3;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * BM;
+    const int n0 = tile % n_tiles * BN;
+    int64_t img[RPT];
+    int id0[RPT], ih0[RPT], iw0[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      row_origin<D3>(p, m0 + r0 + 16 * i, img[i], id0[i], ih0[i], iw0[i]);
+    for (int kt = 0; kt < p.num_k; ++kt, ++it) {
+      const int s = it % S;
+      if (it >= S) mbar_wait(empty0 + 8 * s, (it / S - 1) & 1);
+      const uint32_t slot = ring + s * SLOT;
+      if (pt == 0 && bres) {
+        mbar_arrive(full0 + 8 * s);
+      } else if (pt == 0) {
+        mbar_arrive_tx(full0 + 8 * s, B_BYTES);
+        tma_load_2d(slot + A_BYTES, &tm_b, full0 + 8 * s, kt * BK, n0);
+      }
+      if (p.gran == 16)
+        gather_slice<16, RPT, D3>(p, pad_word, slot, kt, c, r0, img, id0, ih0, iw0);
+      else if (p.gran == 8)
+        gather_slice<8, RPT, D3>(p, pad_word, slot, kt, c, r0, img, id0, ih0, iw0);
+      else
+        gather_slice<4, RPT, D3>(p, pad_word, slot, kt, c, r0, img, id0, ih0, iw0);
+      cp_async_commit();
+      if (it >= lag) {  // slice it - lag has landed: publish it
+        cp_async_wait_lag(lag);
+        fence_proxy_async();
+        mbar_arrive(full0 + 8 * ((it - lag) % S));
+      }
+    }
+  }
+  return it;
+}
+
+// The tiles whose instances carry the gather's 3-D form: BM 128 (WGM 2), BN
+// 64 or 128 (ops/kernels/qconv_int8.py, TILE_3D_BM / TILE_3D_BN). The 3-D
+// form is a second copy of the producer's loop; in every instance it
+// would cost the build as much again.
+template <int BN, int WGM>
+constexpr bool D3_TILE = WGM == 2 && (BN == 64 || BN == 128);
+
+inline bool d3_tile(int bm, int bn) { return bm == 128 && (bn == 64 || bn == 128); }
+
+// v saturated to the 8-bit type whose lowest value is lo
+__device__ __forceinline__ int sat8(int v, int lo) {
+  return v < lo ? lo : (v > lo + 255 ? lo + 255 : v);
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
 // Persistent: block b takes output tiles b, b + gridDim.x, ... (N tiles
 // fastest, so the blocks in flight share A's rows in L2). The producer runs
 // through every slice of every tile on one slot counter `it`, so it fills
@@ -431,44 +529,24 @@ I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
     } else {
       // thread pt owns 16-byte column pt % 8 of rows pt / 8 + 16 i
       constexpr int RPT = BM / 16;
-      const int c = pt & 7;
-      const int r0 = pt >> 3;
       // slices a thread keeps in flight before it publishes the oldest. A
       // consumer frees slot j once it has slice j + 1, so the producer,
       // waiting for slot it - S, must have published it - S + 1: lag <= S - 2
       const int lag = S - 2 < 3 ? S - 2 : 3;
-      int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / n_tiles * BM;
-        const int n0 = tile % n_tiles * BN;
-        int64_t img[RPT];
-        int ih0[RPT], iw0[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) row_origin(p, m0 + r0 + 16 * i, img[i], ih0[i], iw0[i]);
-        for (int kt = 0; kt < p.num_k; ++kt, ++it) {
-          const int s = it % S;
-          if (it >= S) mbar_wait(empty0 + 8 * s, (it / S - 1) & 1);
-          const uint32_t slot = ring + s * SLOT;
-          if (pt == 0 && bres) {
-            mbar_arrive(full0 + 8 * s);
-          } else if (pt == 0) {
-            mbar_arrive_tx(full0 + 8 * s, B_BYTES);
-            tma_load_2d(slot + A_BYTES, &tm_b, full0 + 8 * s, kt * BK, n0);
-          }
-          if (p.gran == 16)
-            gather_slice<16, RPT>(p, slot, kt, c, r0, img, ih0, iw0);
-          else if (p.gran == 8)
-            gather_slice<8, RPT>(p, slot, kt, c, r0, img, ih0, iw0);
-          else
-            gather_slice<4, RPT>(p, slot, kt, c, r0, img, ih0, iw0);
-          cp_async_commit();
-          if (it >= lag) {  // slice it - lag has landed: publish it
-            cp_async_wait_lag(lag);
-            fence_proxy_async();
-            mbar_arrive(full0 + 8 * ((it - lag) % S));
-          }
-        }
-      }
+      // the pad byte: the launch's, or the x zero point in device memory
+      const uint32_t pad_word =
+          p.x_zp != nullptr ? (uint32_t)(sat8(*p.x_zp, p.x_lo) & 0xFF) * 0x01010101u
+                            : p.pad_word;
+      // the 3-D form only in the D3_TILE instances (launch refuses it
+      // elsewhere), so the build compiles it into few of them
+      const int it =
+          (D3_TILE<BN, WGM> && p.depth3)
+              ? gather_tiles<D3_TILE<BN, WGM>, RPT>(p, pad_word, tm_b, ring, SLOT, A_BYTES,
+                                                    B_BYTES, full0, empty0, bres, tiles,
+                                                    n_tiles, BM, BN, S, pt, lag)
+              : gather_tiles<false, RPT>(p, pad_word, tm_b, ring, SLOT, A_BYTES, B_BYTES,
+                                         full0, empty0, bres, tiles, n_tiles, BM, BN, S, pt,
+                                         lag);
       cp_async_wait<0>();
       fence_proxy_async();
       for (int j = it - lag > 0 ? it - lag : 0; j < it; ++j) mbar_arrive(full0 + 8 * (j % S));
@@ -488,6 +566,15 @@ I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
   int acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0;
+  // the requant's y_zp and range: the launch's, or derived from y_zp in
+  // device memory
+  float q_lo = p.q_lo, q_hi = p.q_hi;
+  int y_zp = p.y_zp;
+  if (EPI == EPI_REQUANT && p.y_zp_dev != nullptr) {
+    y_zp = sat8(*p.y_zp_dev, p.y_lo);
+    q_lo = (float)(p.y_lo - y_zp);
+    q_hi = (float)(p.y_lo + 255 - y_zp);
+  }
 
   if (bres) mbar_wait(b_full, 0);
   int it = 0;
@@ -548,9 +635,9 @@ I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int q0 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h] + b0), mu0),
-                                  p.q_lo, p.q_hi) + p.y_zp;
+                                  q_lo, q_hi) + y_zp;
           const int q1 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1] + b1), mu1),
-                                  p.q_lo, p.q_hi) + p.y_zp;
+                                  q_lo, q_hi) + y_zp;
           *reinterpret_cast<uint16_t*>(stage + (row_in_wg + 8 * h) * LDS + 8 * j + col_in_j) =
               (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
         }
@@ -696,6 +783,7 @@ cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int 
                    cudaStream_t st) {
   p.num_k = (Kp + BK - 1) / BK;
   if (!tile_fits(bm, bn, p.stages, p.b_resident ? p.num_k : 0) ||
+      (PROD == A_GATHER && p.depth3 && !d3_tile(bm, bn)) ||
       p.M <= 0 || p.N <= 0 || Kp <= 0 || Kp % 16 != 0 ||
       reinterpret_cast<uintptr_t>(bp) % 16 != 0 || (p.b_resident && p.N > bn) ||
       (long long)((p.M + bm - 1) / bm) * ((p.N + bn - 1) / bn) >= (1LL << 31))

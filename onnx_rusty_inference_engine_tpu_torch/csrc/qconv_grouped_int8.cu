@@ -10,18 +10,20 @@
 // the int8 values through cuDNN in f32 would let cuDNN pick a rounding
 // (Winograd or FFT) algorithm, so this kernel computes it exactly.
 //
-//   x  int8 or uint8 [B, H, W, C] channels-last (the previous conv's
-//      output as it leaves the int8 kernels), C = group * Cg;
-//   w  int8 [KH, KW, Cg, Op]: tap (kh, kw), input channel c of the group,
-//      output channel o; Op = O rounded up to 4, zero past O
+//   x  int8 or uint8 [B, D, H, W, C] channels-last (the previous conv's
+//      output as it leaves the int8 kernels), C = group * Cg; a 2-D conv
+//      is D = 1;
+//   w  int8 [KD, KH, KW, Cg, Op]: tap (kd, kh, kw), input channel c of the
+//      group, output channel o; Op = O rounded up to 4, zero past O
 //      (ops/kernels/qconv_grouped_int8.py::pack_qconv_grouped_weight);
-//   y  int8 or uint8 [M, O], M = B*OH*OW: channels-last output;
-//   y[m, o] = clamp(rint(float(sum_{kh,kw,c} x[b, ih, iw, g*Cg + c]
-//             * w[kh, kw, c, o] + bias[o]) * mult[o]) + y_zp, y's range),
-//   g = o / Og, Og = O / group, ih = oh * stride_h - pad_h + kh * dil_h (iw
-//   likewise), padding taps holding pad_x (ONNX pads a quantized conv with
-//   the x zero point, which the caller folds into the bias as -zx * sum w).
-//   The general form can also leave the exact int32 sums (+ bias) instead.
+//   y  int8 or uint8 [M, O], M = B*OD*OH*OW: channels-last output;
+//   y[m, o] = clamp(rint(float(sum_{kd,kh,kw,c} x[b, id, ih, iw, g*Cg + c]
+//             * w[kd, kh, kw, c, o] + bias[o]) * mult[o]) + y_zp, y's range),
+//   g = o / Og, Og = O / group, ih = oh * stride_h - pad_h + kh * dil_h (id,
+//   iw likewise), padding taps holding pad_x (ONNX pads a quantized conv
+//   with the x zero point, which the caller folds into the bias as
+//   -zx * sum w). The general form can also leave the exact int32 sums
+//   (+ bias) instead.
 //
 // Two forms; the wrapper picks one from the shape
 // (qconv_grouped_int8.py::grouped_plan) and counts it:
@@ -81,9 +83,14 @@
 //   buffer, the threads and the grid; the entry point takes them as they
 //   are and refuses a plan whose box does not hold its tile's reads, whose
 //   tiles do not cover the output or that does not fit a block.
-// general (any other group > 1, and dilated convs): one thread per output
-//   pixel and run of 4 output channels, each output channel reading its own
-//   group's bytes.
+// general (any other group > 1, dilated and 3-D convs, and zero points in
+//   device memory): one thread per output pixel and run of 4 output
+//   channels, each output channel reading its own group's bytes, over the
+//   taps in depth, rows and columns (the depth a run-time size: a 2-D conv
+//   is its D = KD = 1 case). Where x_zp or y_zp_dev is set, the kernel
+//   reads that zero point, an int32 in device memory (one the graph
+//   computes at run time), saturated to its type's range, in place of the
+//   launch's pad_x or y_zp.
 // The sums are int32 in registers; only int8 leaves the kernel.
 //
 // Rounding: round half to even, as jnp.round does; the multiply by
@@ -109,11 +116,19 @@ struct Params {
   const int32_t* bias;  // null: no bias
   void* y;              // int8 / uint8 [M, O], or int32 where out_i32
   long long M;
-  int H, W, C, OH, OW, O, Op, Cg, Og, KH, KW, stride_h, stride_w, pad_h, pad_w, dil_h, dil_w;
+  int D, H, W, C, OD, OH, OW, O, Op, Cg, Og, KD, KH, KW, stride_d, stride_h, stride_w, pad_d,
+      pad_h, pad_w, dil_d, dil_h, dil_w;
   int pad_x;            // the value a padding tap holds
   int out_i32;
   int q_lo, q_hi, y_zp; // y's range less y_zp, and y_zp
+  const int32_t* x_zp;      // null, or pad_x in device memory
+  const int32_t* y_zp_dev;  // null, or y_zp in device memory
+  int x_lo, y_lo;           // the lowest values of x's and y's types
 };
+
+__device__ __forceinline__ int sat8(int v, int lo) {
+  return v < lo ? lo : (v > lo + 255 ? lo + 255 : v);
+}
 
 template <bool XU8>
 __device__ __forceinline__ int xval(int8_t v) {
@@ -130,34 +145,42 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
   const int ow = (int)(m % p.OW);
   const long long r = m / p.OW;
   const int oh = (int)(r % p.OH);
-  const long long b = r / p.OH;
+  const long long r2 = r / p.OH;
+  const int od = (int)(r2 % p.OD);
+  const long long b = r2 / p.OD;
+  const int pad_x = p.x_zp != nullptr ? sat8(*p.x_zp, p.x_lo) : p.pad_x;
 
   int acc[4] = {0, 0, 0, 0};
-  const int8_t* xb = p.x + b * p.H * p.W * p.C;
-  for (int kh = 0; kh < p.KH; ++kh) {
-    const int ih = oh * p.stride_h - p.pad_h + kh * p.dil_h;
-    const bool row_in = ih >= 0 && ih < p.H;
-    if (!row_in && p.pad_x == 0) continue;
-    for (int kw = 0; kw < p.KW; ++kw) {
-      const int iw = ow * p.stride_w - p.pad_w + kw * p.dil_w;
-      const bool in = row_in && iw >= 0 && iw < p.W;
-      if (!in && p.pad_x == 0) continue;
-      const int8_t* px = xb + (in ? ((long long)ih * p.W + iw) * p.C : 0);
-      const int8_t* pw = p.w + (long long)(kh * p.KW + kw) * p.Cg * p.Op + o0;
+  const int8_t* xb = p.x + b * p.D * p.H * p.W * p.C;
+  for (int kd = 0; kd < p.KD; ++kd) {
+    const int id = od * p.stride_d - p.pad_d + kd * p.dil_d;
+    const bool plane_in = id >= 0 && id < p.D;
+    if (!plane_in && pad_x == 0) continue;
+    for (int kh = 0; kh < p.KH; ++kh) {
+      const int ih = oh * p.stride_h - p.pad_h + kh * p.dil_h;
+      const bool row_in = plane_in && ih >= 0 && ih < p.H;
+      if (!row_in && pad_x == 0) continue;
+      for (int kw = 0; kw < p.KW; ++kw) {
+        const int iw = ow * p.stride_w - p.pad_w + kw * p.dil_w;
+        const bool in = row_in && iw >= 0 && iw < p.W;
+        if (!in && pad_x == 0) continue;
+        const int8_t* px = xb + (in ? (((long long)id * p.H + ih) * p.W + iw) * p.C : 0);
+        const int8_t* pw = p.w + (long long)((kd * p.KH + kh) * p.KW + kw) * p.Cg * p.Op + o0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = o0 + j;
-        if (o >= p.O) break;
-        int s = 0;
-        if (in) {
-          const int8_t* pg = px + (o / p.Og) * p.Cg;
-          for (int c = 0; c < p.Cg; ++c)
-            s += xval<XU8>(pg[c]) * (int)pw[(long long)c * p.Op + j];
-        } else {  // a padding tap: every input channel holds pad_x
-          for (int c = 0; c < p.Cg; ++c) s += (int)pw[(long long)c * p.Op + j];
-          s *= p.pad_x;
+        for (int j = 0; j < 4; ++j) {
+          const int o = o0 + j;
+          if (o >= p.O) break;
+          int s = 0;
+          if (in) {
+            const int8_t* pg = px + (o / p.Og) * p.Cg;
+            for (int c = 0; c < p.Cg; ++c)
+              s += xval<XU8>(pg[c]) * (int)pw[(long long)c * p.Op + j];
+          } else {  // a padding tap: every input channel holds pad_x
+            for (int c = 0; c < p.Cg; ++c) s += (int)pw[(long long)c * p.Op + j];
+            s *= pad_x;
+          }
+          acc[j] += s;
         }
-        acc[j] += s;
       }
     }
   }
@@ -169,6 +192,12 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
       if (o0 + j < p.O) dst[j] = acc[j] + (p.bias != nullptr ? p.bias[o0 + j] : 0);
     return;
   }
+  int q_lo = p.q_lo, q_hi = p.q_hi, y_zp = p.y_zp;
+  if (p.y_zp_dev != nullptr) {
+    y_zp = sat8(*p.y_zp_dev, p.y_lo);
+    q_lo = p.y_lo - y_zp;
+    q_hi = p.y_lo + 255 - y_zp;
+  }
   int8_t q[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -177,7 +206,7 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
     if (o < p.O) {
       const int s = acc[j] + (p.bias != nullptr ? p.bias[o] : 0);
       v = __float2int_rn(__fmul_rn(__int2float_rn(s), p.mult[o]));
-      v = (v < p.q_lo ? p.q_lo : (v > p.q_hi ? p.q_hi : v)) + p.y_zp;
+      v = (v < q_lo ? q_lo : (v > q_hi ? q_hi : v)) + y_zp;
     }
     q[j] = (int8_t)(v & 0xFF);
   }
@@ -619,26 +648,31 @@ cudaError_t launch_tile(const void* x, int B, int H, int W, const TileParams& p,
 // x (uint8 where x_u8, else int8), w (packed), mult f32 [O], bias int32 [O]
 // or null, y [M, O]: uint8 where y_u8, else int8, or int32 where out_i32
 // (the general form only; mult unused). pad_x: the value a padding tap
-// holds, in x's type; y_zp in y's. tile: null for the general form (any
-// group > 1), or the tile form's plan (depthwise 3x3, stride 1 or 2 in both
-// dimensions, no dilation, C % 16 == 0, x 16-byte aligned) as grouped_plan
+// holds, in x's type; y_zp in y's; x_zp, y_zp_dev: null, or int32s in
+// device memory read in their place (the general form only). A 2-D conv
+// passes D = OD = KD = 1, stride_d = dil_d = 1, pad_d = 0. tile: null for
+// the general form (any group > 1), or the tile form's plan (2-D depthwise
+// 3x3, stride 1 or 2 in both dimensions, no dilation, C % 16 == 0, x
+// 16-byte aligned) as grouped_plan
 // gives it (qconv_grouped_int8.py::tile_args): {TH, TW, channel run, box
 // rows, box columns, staging buffer bytes, shared memory bytes, threads, row
 // tiles, column tiles, channel runs}. The output pointer must be 4-byte
 // aligned when O % 4 == 0. Launches on `stream`; returns the launch's error,
 // or cudaErrorInvalidValue for arguments the form does not take.
 extern "C" cudaError_t qconv_grouped_int8_launch(
-    const void* x, const void* w, const void* mult, const void* bias, void* y, int B,
-    int H, int W, int C, int OH, int OW, int O, int Cg, int KH, int KW, int stride_h,
-    int stride_w, int pad_h, int pad_w, int dil_h, int dil_w, int x_u8, int pad_x,
-    int y_zp, int y_u8, int out_i32, const int* tile, void* stream) {
-  const long long M = (long long)B * OH * OW;
+    const void* x, const void* w, const void* mult, const void* bias, void* y,
+    const void* x_zp, const void* y_zp_dev, int B, int D, int H, int W, int C, int OD,
+    int OH, int OW, int O, int Cg, int KD, int KH, int KW, int stride_d, int stride_h,
+    int stride_w, int pad_d, int pad_h, int pad_w, int dil_d, int dil_h, int dil_w, int x_u8,
+    int pad_x, int y_zp, int y_u8, int out_i32, const int* tile, void* stream) {
+  const long long M = (long long)B * OD * OH * OW;
   if (M <= 0 || O <= 0) return cudaSuccess;
   const int x_lo = x_u8 ? 0 : -128, y_lo = y_u8 ? 0 : -128;
   if (x == nullptr || w == nullptr || (mult == nullptr && !out_i32) || y == nullptr ||
-      Cg <= 0 || C % Cg != 0 || KH <= 0 || KW <= 0 || stride_h <= 0 || stride_w <= 0 ||
-      pad_h < 0 || pad_w < 0 || dil_h < 1 || dil_w < 1 || pad_x < x_lo || pad_x > x_lo + 255 ||
-      y_zp < y_lo || y_zp > y_lo + 255)
+      Cg <= 0 || C % Cg != 0 || KD <= 0 || KH <= 0 || KW <= 0 || D <= 0 || stride_d <= 0 ||
+      stride_h <= 0 || stride_w <= 0 || pad_d < 0 || pad_h < 0 || pad_w < 0 || dil_d < 1 ||
+      dil_h < 1 || dil_w < 1 || pad_x < x_lo || pad_x > x_lo + 255 || y_zp < y_lo ||
+      y_zp > y_lo + 255)
     return cudaErrorInvalidValue;
   const int group = C / Cg;
   if (O % group != 0) return cudaErrorInvalidValue;
@@ -648,7 +682,8 @@ extern "C" cudaError_t qconv_grouped_int8_launch(
   if (tile != nullptr) {
     const int s = stride_h;
     if (Cg != 1 || Og != 1 || KH != 3 || KW != 3 || stride_w != s || (s != 1 && s != 2) ||
-        dil_h != 1 || dil_w != 1 || out_i32 || C % 16 != 0 ||
+        dil_h != 1 || dil_w != 1 || out_i32 || C % 16 != 0 || D != 1 || OD != 1 ||
+        KD != 1 || pad_d != 0 || x_zp != nullptr || y_zp_dev != nullptr ||
         reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 4 != 0)
       return cudaErrorInvalidValue;
     TileParams p;
@@ -704,24 +739,34 @@ extern "C" cudaError_t qconv_grouped_int8_launch(
   p.bias = static_cast<const int32_t*>(bias);
   p.y = y;
   p.M = M;
+  p.D = D;
   p.H = H;
   p.W = W;
   p.C = C;
+  p.OD = OD;
   p.OH = OH;
   p.OW = OW;
   p.O = O;
   p.Op = (O + 3) / 4 * 4;
   p.Cg = Cg;
   p.Og = Og;
+  p.KD = KD;
   p.KH = KH;
   p.KW = KW;
+  p.stride_d = stride_d;
   p.stride_h = stride_h;
   p.stride_w = stride_w;
+  p.pad_d = pad_d;
   p.pad_h = pad_h;
   p.pad_w = pad_w;
+  p.dil_d = dil_d;
   p.dil_h = dil_h;
   p.dil_w = dil_w;
   p.pad_x = pad_x;
+  p.x_zp = static_cast<const int32_t*>(x_zp);
+  p.y_zp_dev = static_cast<const int32_t*>(y_zp_dev);
+  p.x_lo = x_lo;
+  p.y_lo = y_lo;
   p.out_i32 = out_i32;
   p.q_lo = y_lo - y_zp;
   p.q_hi = y_lo + 255 - y_zp;

@@ -5,28 +5,32 @@
 // Replaces the TPU kernel onnx_rusty_inference_engine_tpu/ops/kernels/
 // qmatmul.py::qmatmul_int8_requant (body _mm_requant_kernel) and its 1x1-conv
 // wrapper qconv1x1_int8_requant. One entry point covers every group-1
-// QLinearConv (1x1, kxk with padding, strided, dilated; 1-D as H = 1) and
-// ConvInteger, with ONNX Runtime's QOperator forms: uint8 or int8
-// activations with a zero point, uint8 or int8 output with one.
+// QLinearConv (1x1, kxk with padding, strided, dilated; 3-D, 2-D, and 1-D
+// as H = 1) and ConvInteger, with ONNX Runtime's QOperator forms: uint8 or
+// int8 activations with a zero point, uint8 or int8 output with one, each
+// zero point a launch argument or an int32 in device memory.
 //
-//   x  int8 or uint8 (x_u8) [B, H, W, C] channels-last, C a multiple of 4
-//      (the wrapper pads other C with zero channels);
-//   w  int8 [N, Kp]: row n = output channel n's taps in (kh, kw, c) order,
-//      K = KH*KW*C, zero past K, Kp = K rounded up to 16
+//   x  int8 or uint8 (x_u8) [B, D, H, W, C] channels-last, C a multiple of
+//      4 (the wrapper pads other C with zero channels); a 2-D conv is D = 1;
+//   w  int8 [N, Kp]: row n = output channel n's taps in (kd, kh, kw, c)
+//      order, K = KD*KH*KW*C, zero past K, Kp = K rounded up to 16
 //      (ops/kernels/qconv_int8.py::pack_qconv_weight);
-//   requant: y int8 or uint8 [M, N], M = B*OH*OW, channels-last (the next
-//      conv reads it as it is):
+//   requant: y int8 or uint8 [M, N], M = B*OD*OH*OW, channels-last (the
+//      next conv reads it as it is):
 //      y[m, n] = clamp(rint(float(sum_k x[m, k] * w[n, k] + bias[n]) * mult[n])
 //                + y_zp, the output type's range);
 //   int32:   y int32 [M, N] = sum_k x[m, k] * w[n, k], exact.
 // Padding taps hold pad_byte (the x zero point): ONNX pads a quantized conv
 // with it, so with the zero point folded into the bias
 // (-zx * sum_k w[n, k], by the caller) every tap of the window is x - zx.
+// The depth is a run-time size, not a template parameter: the 3-D form is
+// the same instances (a depth tap in the gather's index math and bounds
+// test), and a 2-D conv runs it at D = OD = KD = 1.
 //
 // The mainloop is csrc/int8_wgmma.cuh. Two A producers:
 //   producer 0 (TMA): a 1x1, stride-1, unpadded conv with C % 16 == 0 is a
 //     plain matrix product over the channels-last input [M, C];
-//   producer 1 (gather): any other conv; the im2col matrix is never
+//   producer 1 (gather): any other conv, every 3-D one; the im2col matrix is never
 //     written to device memory, each block gathers its A tile straight from
 //     x by cp.async into the ring (16-, 8- or 4-byte runs, one tap's
 //     channels each), filling padding taps with zeros or the pad byte.
@@ -53,24 +57,29 @@
 // x_u8: x is uint8 (wgmma's .u8 A), else int8.
 // epilogue: 0 = int32 (mult, bias unused; producer 1 only), 1 = requant
 // (mult f32 [N], bias int32 [N] or null, y uint8 where y_u8 else int8).
-// producer 0 requires KH = KW = 1, unit strides, no padding and C % 16 == 0;
-// producer 1 requires C % 4 == 0. pad_byte: the byte a padding tap holds.
+// producer 0 requires KD = KH = KW = 1, unit strides, no padding, OD = D
+// and C % 16 == 0; producer 1 requires C % 4 == 0. pad_byte: the byte a
+// padding tap holds; x_zp: null, or an int32 in device memory that the
+// kernel reads in its place (producer 0 has no padding to fill). y_zp_dev: null, or an int32 in
+// device memory that the requant epilogue reads in place of y_zp. A value
+// read from the device is saturated to its type's range.
 // (bm, bn, stages, b_resident): the tile the wrapper chose
 // (qmatmul_int8.py::int8_tile); one that does not fit is refused with
 // cudaErrorInvalidValue. Launches on `stream`; returns the launch's error.
 extern "C" cudaError_t qconv_int8_launch(
-    const void* x, const void* w, const void* mult, const void* bias, void* y, int B,
-    int H, int W, int C, int OH, int OW, int N, int KH, int KW, int stride_h,
-    int stride_w, int pad_h, int pad_w, int dil_h, int dil_w, int Kp, int producer,
+    const void* x, const void* w, const void* mult, const void* bias, void* y,
+    const void* x_zp, const void* y_zp_dev, int B, int D, int H, int W, int C, int OD,
+    int OH, int OW, int N, int KD, int KH, int KW, int stride_d, int stride_h, int stride_w,
+    int pad_d, int pad_h, int pad_w, int dil_d, int dil_h, int dil_w, int Kp, int producer,
     int epilogue, int x_u8, int pad_byte, int y_zp, int y_u8, int bm, int bn, int stages,
     int b_resident, void* stream) {
-  const long long M = (long long)B * OH * OW;
+  const long long M = (long long)B * OD * OH * OW;
   if (M <= 0 || N <= 0) return cudaSuccess;
-  const long long K = (long long)KH * KW * C;
+  const long long K = (long long)KD * KH * KW * C;
   if (M >= (1LL << 31) || K <= 0 || Kp < K || Kp - K >= 16 || C % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || dil_h < 1 || dil_w < 1 ||
-      pad_byte < 0 || pad_byte > 255 || (epilogue != 0 && epilogue != 1) ||
-      (epilogue == 1 && mult == nullptr))
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || dil_d < 1 || dil_h < 1 || dil_w < 1 ||
+      D < 1 || KD < 1 || stride_d < 1 || pad_d < 0 || pad_byte < 0 || pad_byte > 255 ||
+      (epilogue != 0 && epilogue != 1) || (epilogue == 1 && mult == nullptr))
     return cudaErrorInvalidValue;
   const int lo = y_u8 ? 0 : -128, hi = y_u8 ? 255 : 127;
   if (y_zp < lo || y_zp > hi) return cudaErrorInvalidValue;
@@ -86,33 +95,49 @@ extern "C" cudaError_t qconv_int8_launch(
   p.q_lo = (float)(lo - y_zp);
   p.q_hi = (float)(hi - y_zp);
   p.y_zp = y_zp;
+  p.y_zp_dev = static_cast<const int32_t*>(y_zp_dev);
+  p.y_lo = lo;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (producer == 0) {
-    if (KH != 1 || KW != 1 || stride_h != 1 || stride_w != 1 || pad_h != 0 ||
-        pad_w != 0 || OH != H || OW != W || C % 16 != 0 || Kp != C || epilogue != 1)
+    if (KD != 1 || KH != 1 || KW != 1 || stride_d != 1 || stride_h != 1 || stride_w != 1 ||
+        pad_d != 0 || pad_h != 0 || pad_w != 0 || OD != D || OH != H || OW != W ||
+        C % 16 != 0 || Kp != C || epilogue != 1)
       return cudaErrorInvalidValue;
     return x_u8 ? i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, true>(x, w, Kp, p, bm, bn, st)
                 : i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, false>(x, w, Kp, p, bm, bn, st);
   }
   if (producer != 1) return cudaErrorInvalidValue;
   p.x = static_cast<const int8_t*>(x);
+  // the gather's 3-D instance unless the depth is the 2-D conv's (one plane,
+  // one tap, no padding): then its 2-D instance gives the same sums
+  p.depth3 = !(D == 1 && KD == 1 && pad_d == 0);
+  p.D = D;
   p.H = H;
   p.W = W;
   p.C = C;
+  p.OD = OD;
   p.OH = OH;
   p.OW = OW;
   p.KW = KW;
+  p.KHW = KH * KW;
+  p.stride_d = stride_d;
   p.stride_h = stride_h;
   p.stride_w = stride_w;
+  p.pad_d = pad_d;
   p.pad_h = pad_h;
   p.pad_w = pad_w;
+  p.dil_d = dil_d;
   p.dil_h = dil_h;
   p.dil_w = dil_w;
   p.pad_word = (uint32_t)pad_byte * 0x01010101u;
+  p.x_zp = static_cast<const int32_t*>(x_zp);
+  p.x_lo = x_u8 ? 0 : -128;
   p.gran = C % 16 == 0 ? 16 : (C % 8 == 0 ? 8 : 4);
   p.div_c = i8g::make_fastdiv((uint32_t)C);
+  p.div_khw = i8g::make_fastdiv((uint32_t)(KH * KW));
   p.div_kw = i8g::make_fastdiv((uint32_t)KW);
-  if (K * C >= (1LL << 32)) return cudaErrorInvalidValue;  // make_fastdiv's range
+  if (K * C >= (1LL << 32) || (long long)KD * KH * KW * KH * KW >= (1LL << 32))
+    return cudaErrorInvalidValue;  // make_fastdiv's range
   if (epilogue == 0)
     return x_u8 ? i8g::launch<i8g::A_GATHER, i8g::EPI_INT32, true>(x, w, Kp, p, bm, bn, st)
                 : i8g::launch<i8g::A_GATHER, i8g::EPI_INT32, false>(x, w, Kp, p, bm, bn, st);

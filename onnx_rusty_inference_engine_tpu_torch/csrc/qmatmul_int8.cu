@@ -39,13 +39,17 @@
 #include "int8_wgmma.cuh"
 
 // epilogue: 0 = int32 (mult, bias unused), 1 = requant (mult f32 [N], bias
-// int32 [N] or null, out uint8 where y_u8 else int8, y_zp in its range).
+// int32 [N] or null, out uint8 where y_u8 else int8, y_zp in its range;
+// y_zp_dev: null, or an int32 in device memory that the epilogue reads in
+// place of y_zp, saturated to the output type's range: a zero point the
+// graph computes at run time).
 // (bm, bn, stages, b_resident): the tile the wrapper chose
 // (qmatmul_int8.py::int8_tile); one that does not fit is refused with
 // cudaErrorInvalidValue. Launches on `stream`; returns the launch's error.
 extern "C" cudaError_t qmatmul_int8_launch(const void* a, const void* bp, void* out,
                                            const void* mult, const void* bias, int M,
                                            int N, int K, int epilogue, int y_zp, int y_u8,
+                                           const void* y_zp_dev,
                                            int bm, int bn, int stages, int b_resident,
                                            void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
@@ -65,6 +69,8 @@ extern "C" cudaError_t qmatmul_int8_launch(const void* a, const void* bp, void* 
   p.q_lo = (float)(lo - y_zp);
   p.q_hi = (float)(hi - y_zp);
   p.y_zp = y_zp;
+  p.y_zp_dev = static_cast<const int32_t*>(y_zp_dev);
+  p.y_lo = lo;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (epilogue == 0)
     return i8g::launch<i8g::A_TMA, i8g::EPI_INT32>(a, bp, K, p, bm, bn, st);

@@ -17,6 +17,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from . import onnx_io
 from .onnx_io import ModelProto, NodeProto
@@ -39,9 +40,13 @@ class Node:
 
 @dataclasses.dataclass
 class InputSpec:
+    """A graph input: its name, shape (a str for a symbolic dim) and dtype,
+    a numpy dtype, or `torch.bfloat16` for a BFLOAT16 input (numpy has no
+    bfloat16 here; the JAX package's InputSpec carries ml_dtypes')."""
+
     name: str
     shape: Tuple[Union[int, str], ...]
-    dtype: np.dtype
+    dtype: Union[np.dtype, torch.dtype]
 
     def concrete_shape(self, batch: Optional[int] = None) -> Tuple[int, ...]:
         out = []
@@ -423,8 +428,11 @@ def import_model(model: ModelProto) -> Graph:
         shape = tuple(
             d if isinstance(d, int) else (d or "N") for d in (vi.shape or ())
         )
-        dtype = onnx_io.DTYPE_TO_NUMPY.get(vi.elem_type or onnx_io.FLOAT,
-                                           np.dtype(np.float32))
+        if vi.elem_type == onnx_io.BFLOAT16:
+            dtype = torch.bfloat16
+        else:
+            dtype = onnx_io.DTYPE_TO_NUMPY.get(vi.elem_type or onnx_io.FLOAT,
+                                               np.dtype(np.float32))
         inputs.append(InputSpec(name=vi.name, shape=shape, dtype=dtype))
 
     g = Graph(
@@ -465,12 +473,15 @@ def export_model(g: Graph) -> ModelProto:
                 continue
             proto.attributes[k] = _attr(k, v)
         gp.nodes.append(proto)
-    gp.initializers = {k: np.ascontiguousarray(v)
+    # a bf16 constant stays a torch tensor (onnx_io encodes it as BFLOAT16)
+    gp.initializers = {k: v if isinstance(v, torch.Tensor)
+                       else np.ascontiguousarray(v)
                        for k, v in g.constants.items()}
     for spec in g.inputs:
         gp.inputs.append(onnx_io.ValueInfo(
             name=spec.name,
-            elem_type=onnx_io.NUMPY_TO_DTYPE[spec.dtype],
+            elem_type=(onnx_io.BFLOAT16 if spec.dtype == torch.bfloat16
+                       else onnx_io.NUMPY_TO_DTYPE[spec.dtype]),
             shape=[d if isinstance(d, int) else str(d) for d in spec.shape],
         ))
     for o in g.outputs:
@@ -490,5 +501,13 @@ def save_graph(path: str, g: Graph) -> None:
 
 
 def import_onnx(path: str) -> Graph:
-    """Load + import an ONNX file with the pure-Python wire codec."""
-    return import_model(onnx_io.load_model(path))
+    """Load + import an ONNX file. Prefers the native C++ parser
+    (native_loader.py / native/onnx_loader.cc); falls back to the
+    pure-Python wire codec where it is off (ORIET_NATIVE=0), cannot be
+    built (with a warning), or cannot decode a tensor of the file."""
+    from .native_loader import load_model_native
+
+    model = load_model_native(path)
+    if model is None:
+        model = onnx_io.load_model(path)
+    return import_model(model)

@@ -14,10 +14,15 @@ point, an output zero point, dilation in the general form). Its source
 note says what bounds it on the H100 and how each form works.
 
 `grouped_plan` picks the kernel's form from the shapes, and for the tile
-form the whole launch: "tile" (depthwise 3x3 at stride 1 or 2, C % 16 ==
-0, x 16-byte aligned: TMA-staged input tiles, IDP4A, register blocking)
-or "general" (any other group > 1, a dilated one, and the int32 output:
-one thread per output pixel and 4 output channels). The kernel's entry
+form the whole launch: "tile" (2-D depthwise 3x3 at stride 1 or 2, C % 16
+== 0, x 16-byte aligned: TMA-staged input tiles, IDP4A, register
+blocking) or "general" (any other group > 1, a dilated one, every 3-D
+conv (x [B, C, D, H, W] by w [O, Cg, KD, KH, KW]: a depth loop over the
+taps, the depth a run-time size), a zero point read from device memory,
+and the int32 output: one thread per output pixel and 4 output
+channels). `pad_value` and `y_zp` may be ints or one-element tensors on
+the card (zero points computed at run time), which the kernel reads in
+the run. The kernel's entry
 point takes the tile form's plan as it is and only checks it against its
 limits. `qconv_grouped_int8` is the general form's exact int32 output
 (+ bias), for a weight with a zero point.
@@ -43,6 +48,7 @@ them per form, `.forms` per QOperator form (qconv_int8.FORMS).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -50,10 +56,12 @@ import torch
 from . import _build
 from ._ops import define
 from .qconv_int8 import FORMS as QFORMS
-from .qconv_int8 import (CONV_ARGS, conv_fake, conv_sums_plain,
-                         nested_padding, schema_padding)
-from .qmatmul_int8 import (_requant, as_mult, check_device, check_operand,
-                           check_qtype, count_forms, mult_vector)
+from .qconv_int8 import (CONV_ARGS, ZP_ARGS, _as_3d, _spatial_args, _zp,
+                         conv_fake, conv_out_size, conv_sums_plain,
+                         nested_padding, op_zero_points)
+from .qmatmul_int8 import (ZeroPoint, _requant, as_mult, check_device,
+                           check_operand, check_qtype, count_forms,
+                           mult_vector, zero_point_arg)
 
 __all__ = ["qconv_grouped_int8_requant", "qconv_grouped_int8_requant_plain",
            "qconv_grouped_int8", "qconv_grouped_int8_plain",
@@ -85,7 +93,7 @@ Padding = Sequence[Tuple[int, int]]
 
 
 def conv_groups(x_shape: Sequence[int], w_shape: Sequence[int]) -> int:
-    """The group count of a conv of x [B, C, H, W] by w [O, Cg, KH, KW]:
+    """The group count of a conv of x [B, C, ...] by w [O, Cg, ...]:
     C / Cg; raises where the channels do not split into groups."""
     C, (O, Cg) = x_shape[1], w_shape[:2]
     if Cg <= 0 or C % Cg or O % (C // Cg):
@@ -97,17 +105,18 @@ def conv_groups(x_shape: Sequence[int], w_shape: Sequence[int]) -> int:
 def grouped_mode(C: int, Cg: int, O: int, group: int,
                  kernel: Sequence[int], stride: Sequence[int],
                  x_align: int = 16, dilation: Sequence[int] = (1, 1),
-                 int32: bool = False) -> str:
+                 int32: bool = False, device_zp: bool = False) -> str:
     """The kernel's form for a conv of C input channels in `group` groups
-    of Cg, O output channels, a kernel of kernel = (KH, KW) at `stride` and
-    `dilation`, over an input whose address is a multiple of `x_align`
-    bytes: "tile" for an undilated depthwise 3x3 at stride 1 or 2 with
-    C % 16 == 0 and x 16-byte aligned on the requant output, "general"
-    otherwise (and for the int32 output)."""
+    of Cg, O output channels, a kernel of kernel = (KH, KW) (3-D: (KD, KH,
+    KW)) at `stride` and `dilation`, over an input whose address is a
+    multiple of `x_align` bytes: "tile" for an undilated 2-D depthwise 3x3
+    at stride 1 or 2 with C % 16 == 0 and x 16-byte aligned on the requant
+    output with its zero points known before the run, "general" otherwise
+    (every 3-D conv, the int32 output, a zero point in device memory)."""
     if (Cg == 1 and O == group and tuple(kernel) == (3, 3)
             and tuple(stride) in ((1, 1), (2, 2)) and C % 16 == 0
             and x_align % 16 == 0 and tuple(dilation) == (1, 1)
-            and not int32):
+            and not int32 and not device_zp):
         return "tile"
     return "general"
 
@@ -155,41 +164,47 @@ def tile_args(plan: dict) -> Tuple[int, ...]:
 
 def grouped_plan(x_shape: Sequence[int], w_shape: Sequence[int],
                  stride: Sequence[int], padding: Padding,
-                 x_align: int = 16, dilation: Sequence[int] = (1, 1),
-                 int32: bool = False) -> dict:
+                 x_align: int = 16, dilation: Optional[Sequence[int]] = None,
+                 int32: bool = False, device_zp: bool = False) -> dict:
     """How the kernel runs a grouped conv of x [B, C, H, W] by w [O, Cg,
-    KH, KW]: the form (`grouped_mode`, the key `.schedules` counts) and,
+    KH, KW] (or x [B, C, D, H, W] by w [O, Cg, KD, KH, KW]): the form
+    (`grouped_mode`, the key `.schedules` counts) and,
     for the tile form, the launch the kernel takes (`tile_args`): the
     output tile (TH, TW), the channel run, the input box (rows, columns,
     channels), the staging buffer, the block's shared memory and threads,
     and the grid of tiles (B, row tiles, column tiles, channel runs),
     which persistent blocks walk. The general form: one 256-thread block
     per 256 (pixel, 4 channels) pairs."""
-    B, C, H, W = x_shape
-    O, Cg, KH, KW = w_shape
+    B, C = x_shape[:2]
+    O, Cg = w_shape[:2]
+    kernel = tuple(w_shape[2:])
+    dilation = tuple(dilation or (1,) * len(kernel))
     group = conv_groups(x_shape, w_shape)
-    OH, OW = _out_hw(H, W, KH, KW, stride, padding, dilation)
-    form = grouped_mode(C, Cg, O, group, (KH, KW), stride, x_align,
-                        dilation, int32)
+    out = conv_out_size(x_shape[2:], kernel, stride, padding, dilation)
+    form = grouped_mode(C, Cg, O, group, kernel, stride, x_align,
+                        dilation, int32, device_zp)
     if form == "tile":
-        return {"form": form, **_tile(B, C, OH, OW, stride[0])}
-    threads = B * OH * OW * (-(-O // RUN))
+        return {"form": form, **_tile(B, C, *out, stride[0])}
+    threads = B * math.prod(out) * (-(-O // RUN))
     return {"form": form, "tile": None, "run": None, "box": None,
             "buf": None, "smem": 0, "threads": 256,
             "grid": (-(-threads // 256),), "tiles": None}
 
 
 def pack_qconv_grouped_weight(w: torch.Tensor) -> torch.Tensor:
-    """int8 [O, Cg, KH, KW] -> int8 [KH*KW*Cg, Op]: row (kh, kw, c) holds
-    every output channel's weight at that tap, Op = O rounded up to RUN,
-    zero past O."""
-    if w.dtype != torch.int8 or w.dim() != 4:
+    """int8 [O, Cg, KH, KW] (or [O, Cg, KD, KH, KW]) -> int8 [KH*KW*Cg, Op]
+    ([KD*KH*KW*Cg, Op]): row (kh, kw, c) ((kd, kh, kw, c)) holds every
+    output channel's weight at that tap, Op = O rounded up to RUN, zero
+    past O."""
+    if w.dtype != torch.int8 or w.dim() not in (4, 5):
         raise ValueError(f"pack_qconv_grouped_weight: want int8 "
-                         f"[O,Cg,KH,KW], got {w.dtype} {tuple(w.shape)}")
-    O, Cg, KH, KW = w.shape
-    out = torch.zeros((KH * KW * Cg, -(-O // RUN) * RUN), dtype=torch.int8,
+                         f"[O,Cg,KH,KW] or [O,Cg,KD,KH,KW], got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    O, Cg = w.shape[:2]
+    rows = math.prod(w.shape[2:]) * Cg
+    out = torch.zeros((rows, -(-O // RUN) * RUN), dtype=torch.int8,
                       device=w.device)
-    out[:, :O] = w.permute(2, 3, 1, 0).reshape(KH * KW * Cg, O)
+    out[:, :O] = w.permute(*range(2, w.dim()), 1, 0).reshape(rows, O)
     return out
 
 
@@ -198,28 +213,22 @@ def address_align(ptr: int) -> int:
     return min(16, ptr & -ptr) if ptr else 16
 
 
-def _out_hw(H: int, W: int, KH: int, KW: int, stride: Sequence[int],
-            padding: Padding, dilation: Sequence[int] = (1, 1)
-            ) -> Tuple[int, int]:
-    (pt, pb), (pl, pr) = padding
-    return ((H + pt + pb - (KH - 1) * dilation[0] - 1) // stride[0] + 1,
-            (W + pl + pr - (KW - 1) * dilation[1] - 1) // stride[1] + 1)
-
-
 # --------------------------------------------------------------------------
 # plain version: exact sums, then the fp32 epilogue
 # --------------------------------------------------------------------------
 def qconv_grouped_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
                                      mult: torch.Tensor,
                                      bias: Optional[torch.Tensor] = None, *,
-                                     stride: Sequence[int] = (1, 1),
-                                     padding: Padding = ((0, 0), (0, 0)),
-                                     dilation: Sequence[int] = (1, 1),
-                                     pad_value: int = 0, y_zp: int = 0,
+                                     stride: Optional[Sequence[int]] = None,
+                                     padding: Optional[Padding] = None,
+                                     dilation: Optional[Sequence[int]] = None,
+                                     pad_value: ZeroPoint = 0,
+                                     y_zp: ZeroPoint = 0,
                                      out_dtype: torch.dtype = torch.int8
                                      ) -> torch.Tensor:
     """x int8 or uint8 [B,C,H,W], w int8 [O,C/group,KH,KW], mult f32 [O]
-    or scalar, bias int32 [O] -> out_dtype [B,O,OH,OW]. The sums are taken
+    or scalar, bias int32 [O] -> out_dtype [B,O,OH,OW] (3-D likewise; the
+    zero points ints or one-element tensors). The sums are taken
     in float64 (`conv_sums_plain`, padding taps holding pad_value), where
     every partial sum of 8-bit products is an exact integer, so the int32
     result equals the kernel's whatever the order."""
@@ -231,16 +240,17 @@ def qconv_grouped_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
 
 def qconv_grouped_int8_plain(x: torch.Tensor, w: torch.Tensor,
                              bias: Optional[torch.Tensor] = None, *,
-                             stride: Sequence[int] = (1, 1),
-                             padding: Padding = ((0, 0), (0, 0)),
-                             dilation: Sequence[int] = (1, 1),
-                             pad_value: int = 0) -> torch.Tensor:
+                             stride: Optional[Sequence[int]] = None,
+                             padding: Optional[Padding] = None,
+                             dilation: Optional[Sequence[int]] = None,
+                             pad_value: ZeroPoint = 0) -> torch.Tensor:
     """The int32 output's function: the exact sums (+ bias) -> int32
-    [B,O,OH,OW]."""
+    [B,O,OH,OW] ([B,O,OD,OH,OW])."""
     acc = conv_sums_plain(x, w, stride, padding, dilation, pad_value,
                           groups=conv_groups(x.shape, w.shape))
     if bias is not None:
-        acc = acc + bias.to(torch.int32).reshape(1, -1, 1, 1)
+        acc = acc + bias.to(torch.int32).reshape(
+            (1, -1) + (1,) * (x.dim() - 2))
     return acc
 
 
@@ -250,7 +260,7 @@ def qconv_grouped_int8_plain(x: torch.Tensor, w: torch.Tensor,
 def _lib_fn():
     fn = _build.load("qconv_grouped_int8").qconv_grouped_int8_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 21
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 27
                        + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
@@ -258,9 +268,9 @@ def _lib_fn():
 
 def input_align(x: torch.Tensor) -> int:
     """The alignment of the channels-last bytes the kernel reads for x
-    [B, C, H, W]: x's own where its channels-last view is contiguous, else
-    that of the fresh copy the wrapper makes (16)."""
-    xl = x.permute(0, 2, 3, 1)
+    [B, C, H, W] (or [B, C, D, H, W]): x's own where its channels-last view
+    is contiguous, else that of the fresh copy the wrapper makes (16)."""
+    xl = x.permute(0, *range(2, x.dim()), 1)
     return address_align(xl.data_ptr()) if xl.is_contiguous() else 16
 
 
@@ -272,26 +282,33 @@ def _count(y, form, flags):
     return y
 
 
-def _launch(x, w, mult, bias, stride, padding, packed, dilation=(1, 1),
-            pad_value=0, y_zp=0, out_dtype=torch.int8):
+def _launch(x, w, mult, bias, stride, padding, packed, dilation=None,
+            pad_value: ZeroPoint = 0, y_zp: ZeroPoint = 0,
+            out_dtype=torch.int8):
     """Check the operands and launch the kernel once on the card, in the
     form `grouped_plan` gives; out_dtype torch.int32 is the int32 output.
     Counts nothing. -> (y, the form, the QOperator forms it took)."""
     fn = "qconv_grouped_int8_requant"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {x.device}")
-    if x.dim() != 4 or w.dim() != 4:
+    if x.dim() not in (4, 5) or w.dim() != x.dim():
         raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
-                         f"are not a 2-D conv")
+                         f"are not a 2-D or 3-D conv")
+    spatial = x.dim() - 2
+    dilation = tuple(dilation or (1,) * spatial)
+    if len(stride) != spatial or len(padding) != spatial \
+            or len(dilation) != spatial:
+        raise ValueError(f"{fn}: stride {stride}, padding {padding} and "
+                         f"dilation {dilation} of a {spatial}-D conv")
     conv_groups(x.shape, w.shape)
-    B, C, H, W = x.shape
-    O, Cg, KH, KW = w.shape
-    (pt, pb), (pl, pr) = padding
-    if min(pt, pb, pl, pr) < 0:
+    (B, C, D, H, W), (O, KD, KH, KW), (sd, sh, sw), pads, (dd, dh, dw) = \
+        _as_3d(x.shape, w.shape, stride, padding, dilation)
+    Cg = w.shape[1]
+    if min(p for side in pads for p in side) < 0:
         raise ValueError(f"{fn}: negative padding {padding}")
-    sh, sw = (int(s) for s in stride)
-    dh, dw = (int(d) for d in dilation)
-    OH, OW = _out_hw(H, W, KH, KW, (sh, sw), padding, (dh, dw))
+    (pf, _), (pt, _), (pl, _) = pads
+    OD, OH, OW = conv_out_size((D, H, W), (KD, KH, KW), (sd, sh, sw), pads,
+                               (dd, dh, dw))
     if packed is None:
         raise ValueError(f"{fn}: on the card the weight must be pre-packed "
                          f"(pack_qconv_grouped_weight)")
@@ -299,52 +316,64 @@ def _launch(x, w, mult, bias, stride, padding, packed, dilation=(1, 1),
     if x.dtype not in (torch.int8, torch.uint8):
         raise ValueError(f"{fn}: x wants torch.int8 or torch.uint8, got "
                          f"{x.dtype}")
-    info = torch.iinfo(x.dtype)
-    if not info.min <= pad_value <= info.max:
-        raise ValueError(f"{fn}: pad_value {pad_value} outside {x.dtype}")
+    pad_int, pad_dev = zero_point_arg(fn, pad_value, x.dtype, dev)
     check_operand(fn, "packed", packed, torch.int8, dev)
-    if tuple(packed.shape) != (KH * KW * Cg, -(-O // RUN) * RUN):
+    if tuple(packed.shape) != (KD * KH * KW * Cg, -(-O // RUN) * RUN):
         raise ValueError(f"{fn}: packed weight {tuple(packed.shape)} is not "
                          f"pack_qconv_grouped_weight's layout of w "
                          f"{tuple(w.shape)}")
     int32 = out_dtype == torch.int32
+    y_int, y_dev = 0, None
     if not int32:
         mult = mult_vector(mult, O)
         check_operand(fn, "mult", mult, torch.float32, dev, O)
-        check_qtype(fn, out_dtype, y_zp)
+        check_qtype(fn, out_dtype, 0)
+        y_int, y_dev = zero_point_arg(fn, y_zp, out_dtype, dev)
     check_operand(fn, "bias", bias, torch.int32, dev, O)
-    dims = (B, H, W, C, OH, OW, O, Cg, KH, KW, sh, sw, pt, pl, dh, dw)
-    if (min(dims[:12] + dims[14:]) <= 0 or max(dims) >= 2 ** 31
-            or Cg * KH * KW > MAX_TAPS // (2 if x.dtype == torch.uint8 else 1)
-            or B * OH * OW >= 2 ** 40):
+    dims = (B, D, H, W, C, OD, OH, OW, O, Cg, KD, KH, KW, sd, sh, sw, pf, pt,
+            pl, dd, dh, dw)
+    if (min(dims[:16] + dims[19:]) <= 0 or max(dims) >= 2 ** 31
+            or Cg * KD * KH * KW > MAX_TAPS // (
+                2 if x.dtype == torch.uint8 else 1)
+            or B * OD * OH * OW >= 2 ** 40):
         raise ValueError(f"{fn}: dims out of range {dims}")
-    plan = grouped_plan(x.shape, w.shape, (sh, sw), padding,
-                        input_align(x), (dh, dw), int32)
-    xl = x.permute(0, 2, 3, 1)
+    device_zp = pad_dev is not None or y_dev is not None
+    plan = grouped_plan(x.shape, w.shape, stride, padding, input_align(x),
+                        dilation, int32, device_zp)
+    xl = x.permute(0, *range(2, x.dim()), 1)
     if not xl.is_contiguous():
         xl = xl.contiguous()
     tile = None
     if plan["form"] == "tile":
         args = tile_args(plan)
         tile = (ctypes.c_int * len(args))(*args)
-    y = torch.empty((B * OH * OW, O), dtype=out_dtype, device=dev)
+    y = torch.empty((B * OD * OH * OW, O), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         err = _lib_fn()(
             xl.data_ptr(), packed.data_ptr(),
             mult.data_ptr() if mult is not None else None,
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            *dims, int(x.dtype == torch.uint8), pad_value, y_zp,
+            pad_dev.data_ptr() if pad_dev is not None else None,
+            y_dev.data_ptr() if y_dev is not None else None,
+            *dims, int(x.dtype == torch.uint8), pad_int, y_int,
             int(out_dtype == torch.uint8), int(int32),
             ctypes.addressof(tile) if tile is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch in the {plan['form']} form failed "
                            f"with cudaError {err}")
+    padded = any(p for side in pads for p in side)
     flags = dict(uint8_x=x.dtype == torch.uint8,
-                 zero_point_pad=pad_value != 0 and any((pt, pb, pl, pr)),
-                 y_zero_point=y_zp != 0, uint8_y=out_dtype == torch.uint8,
-                 dilated=(dh, dw) != (1, 1), int32=int32)
-    return y.view(B, OH, OW, O).permute(0, 3, 1, 2), plan["form"], flags
+                 zero_point_pad=padded and (pad_dev is not None
+                                            or pad_int != 0),
+                 y_zero_point=y_dev is not None or y_int != 0,
+                 uint8_y=out_dtype == torch.uint8,
+                 dilated=(dd, dh, dw) != (1, 1, 1), int32=int32,
+                 device_zero_point=device_zp, **{"3d": spatial == 3})
+    out_sizes = (OD, OH, OW)[3 - spatial:]
+    return (y.view(B, *out_sizes, O).permute(0, spatial + 1,
+                                             *range(1, spatial + 1)),
+            plan["form"], flags)
 
 
 # --------------------------------------------------------------------------
@@ -352,56 +381,59 @@ def _launch(x, w, mult, bias, stride, padding, packed, dilation=(1, 1),
 # --------------------------------------------------------------------------
 def _qconv_grouped_int8_requant_cpu(x, w, mult, bias, packed, stride,
                                     padding, dilation, pad_value, y_zp,
-                                    out_dtype):
+                                    out_dtype, zp_x=None, zp_y=None):
     check_qtype("qconv_grouped_int8_requant", out_dtype, y_zp)
     return qconv_grouped_int8_requant_plain(
         x, w, mult, bias, stride=stride, padding=nested_padding(padding),
-        dilation=dilation, pad_value=pad_value, y_zp=y_zp,
-        out_dtype=out_dtype)
+        dilation=dilation, pad_value=_zp(pad_value, zp_x),
+        y_zp=_zp(y_zp, zp_y), out_dtype=out_dtype)
 
 
 def _qconv_grouped_int8_requant_cuda(x, w, mult, bias, packed, stride,
                                      padding, dilation, pad_value, y_zp,
-                                     out_dtype):
+                                     out_dtype, zp_x=None, zp_y=None):
     return _count(*_launch(x, w, mult, bias, stride, nested_padding(padding),
-                           packed, dilation, pad_value, y_zp, out_dtype))
+                           packed, dilation, _zp(pad_value, zp_x),
+                           _zp(y_zp, zp_y), out_dtype))
 
 
 def _qconv_grouped_int8_requant_fake(x, w, mult, bias, packed, stride,
                                      padding, dilation, pad_value, y_zp,
-                                     out_dtype):
+                                     out_dtype, zp_x=None, zp_y=None):
     return conv_fake(x, w, stride, padding, dilation, out_dtype)
 
 
 _qconv_grouped_int8_requant_op = define(
     "qconv_grouped_int8_requant(Tensor x, Tensor w, Tensor mult, "
     f"Tensor? bias, Tensor? packed, {CONV_ARGS}, int y_zp, "
-    "ScalarType out_dtype) -> Tensor",
+    f"ScalarType out_dtype, {ZP_ARGS}) -> Tensor",
     _qconv_grouped_int8_requant_cpu, _qconv_grouped_int8_requant_cuda,
     _qconv_grouped_int8_requant_fake)
 
 
 def _qconv_grouped_int8_cpu(x, w, bias, packed, stride, padding, dilation,
-                            pad_value):
+                            pad_value, zp_x=None, zp_y=None):
     return qconv_grouped_int8_plain(x, w, bias, stride=stride,
                                     padding=nested_padding(padding),
-                                    dilation=dilation, pad_value=pad_value)
+                                    dilation=dilation,
+                                    pad_value=_zp(pad_value, zp_x))
 
 
 def _qconv_grouped_int8_cuda(x, w, bias, packed, stride, padding, dilation,
-                             pad_value):
+                             pad_value, zp_x=None, zp_y=None):
     return _count(*_launch(x, w, None, bias, stride, nested_padding(padding),
-                           packed, dilation, pad_value, 0, torch.int32))
+                           packed, dilation, _zp(pad_value, zp_x), 0,
+                           torch.int32))
 
 
 def _qconv_grouped_int8_fake(x, w, bias, packed, stride, padding, dilation,
-                             pad_value):
+                             pad_value, zp_x=None, zp_y=None):
     return conv_fake(x, w, stride, padding, dilation, torch.int32)
 
 
 _qconv_grouped_int8_op = define(
     "qconv_grouped_int8(Tensor x, Tensor w, Tensor? bias, Tensor? packed, "
-    f"{CONV_ARGS}) -> Tensor",
+    f"{CONV_ARGS}, {ZP_ARGS}) -> Tensor",
     _qconv_grouped_int8_cpu, _qconv_grouped_int8_cuda,
     _qconv_grouped_int8_fake)
 
@@ -412,51 +444,57 @@ _qconv_grouped_int8_op = define(
 def qconv_grouped_int8_requant(x: torch.Tensor, w: torch.Tensor,
                                mult: torch.Tensor,
                                bias: Optional[torch.Tensor] = None, *,
-                               stride: Sequence[int] = (1, 1),
-                               padding: Padding = ((0, 0), (0, 0)),
-                               dilation: Sequence[int] = (1, 1),
-                               pad_value: int = 0, y_zp: int = 0,
+                               stride: Optional[Sequence[int]] = None,
+                               padding: Optional[Padding] = None,
+                               dilation: Optional[Sequence[int]] = None,
+                               pad_value: ZeroPoint = 0,
+                               y_zp: ZeroPoint = 0,
                                out_dtype: torch.dtype = torch.int8,
                                packed: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """Grouped QLinearConv: x int8 or uint8 [B,C,H,W], w int8
-    [O,C/group,KH,KW], mult f32 [O] or scalar (x_s * w_s / y_s), bias int32
-    [O] or None, padding ((top, bottom), (left, right)) whose taps hold
-    pad_value (x's zero point), y_zp in out_dtype (int8 or uint8) ->
-    out_dtype [B,O,OH,OW].
+    [O,C/group,KH,KW] (3-D: [B,C,D,H,W], [O,C/group,KD,KH,KW]), mult f32
+    [O] or scalar (x_s * w_s / y_s), bias int32 [O] or None, padding
+    ((top, bottom), (left, right)) whose taps hold pad_value (x's zero
+    point), y_zp in out_dtype (int8 or uint8) -> out_dtype [B,O,OH,OW]
+    ([B,O,OD,OH,OW]); the zero points ints or one-element tensors on x's
+    device.
 
     On the card `packed` must be `pack_qconv_grouped_weight(w)`, made once
     per weight, and the result is channels-last (see the module note); the
     kernel runs in the form `grouped_plan` gives, counted in `.schedules`
     (`oriet::qconv_grouped_int8_requant`)."""
     _check("qconv_grouped_int8_requant", x, w)
+    stride, pads, dilation = _spatial_args(x, stride, padding, dilation)
+    px, py, tx, ty = op_zero_points(pad_value, y_zp)
     return _qconv_grouped_int8_requant_op(
-        x, w, as_mult(mult, x), bias, packed, [int(s) for s in stride],
-        schema_padding(padding), [int(d) for d in dilation], int(pad_value),
-        int(y_zp), out_dtype)
+        x, w, as_mult(mult, x), bias, packed, stride, pads, dilation, px,
+        py, out_dtype, tx, ty)
 
 
 def qconv_grouped_int8(x: torch.Tensor, w: torch.Tensor,
                        bias: Optional[torch.Tensor] = None, *,
-                       stride: Sequence[int] = (1, 1),
-                       padding: Padding = ((0, 0), (0, 0)),
-                       dilation: Sequence[int] = (1, 1), pad_value: int = 0,
+                       stride: Optional[Sequence[int]] = None,
+                       padding: Optional[Padding] = None,
+                       dilation: Optional[Sequence[int]] = None,
+                       pad_value: ZeroPoint = 0,
                        packed: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """The exact int32 sums (+ bias) of a grouped conv -> int32 [B,O,OH,OW],
-    on the general form; counted on `qconv_grouped_int8_requant`
-    (`oriet::qconv_grouped_int8`)."""
+    """The exact int32 sums (+ bias) of a grouped conv -> int32 [B,O,OH,OW]
+    ([B,O,OD,OH,OW]), on the general form; counted on
+    `qconv_grouped_int8_requant` (`oriet::qconv_grouped_int8`)."""
     _check("qconv_grouped_int8", x, w)
-    return _qconv_grouped_int8_op(
-        x, w, bias, packed, [int(s) for s in stride], schema_padding(padding),
-        [int(d) for d in dilation], int(pad_value))
+    stride, pads, dilation = _spatial_args(x, stride, padding, dilation)
+    px, _, tx, _ = op_zero_points(pad_value)
+    return _qconv_grouped_int8_op(x, w, bias, packed, stride, pads,
+                                  dilation, px, tx, None)
 
 
 def _check(fn: str, x: torch.Tensor, w: torch.Tensor) -> None:
     check_device(fn, x)
-    if x.dim() != 4 or w.dim() != 4:
+    if x.dim() not in (4, 5) or w.dim() != x.dim():
         raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
-                         f"are not a 2-D conv")
+                         f"are not a 2-D or 3-D conv")
     conv_groups(x.shape, w.shape)
 
 

@@ -6,7 +6,9 @@ Hopper counterpart of the TPU kernel
 (Pallas body `_mm_requant_kernel`) and of its 1x1-conv wrapper
 `qconv1x1_int8_requant`. The CUDA source is `csrc/qconv_int8.cu`: one
 implicit-GEMM kernel for every group-1 QLinearConv and ConvInteger (1x1,
-kxk with padding, strided, dilated) on the int8 tensor-core mainloop it
+kxk with padding, strided, dilated; 2-D, and 3-D as x [B, C, D, H, W] by
+w [O, C, KD, KH, KW], the depth a run-time size of the same kernel
+instances) on the int8 tensor-core mainloop it
 shares with the int8 GEMM (`csrc/int8_wgmma.cuh`), reading channels-last
 int8 or uint8 activations, accumulating in int32 and leaving only the
 output type in device memory. Its source note says what bounds it on the
@@ -18,18 +20,23 @@ its int8-A one; padding taps hold `pad_value` (the conv's x zero
 point; the caller folds -zx * sum w into the bias); the requant epilogue
 adds `y_zp` and saturates to int8 or uint8 (`out_dtype`). `qconv_int8`
 returns the int32 sums (ConvInteger, and the QLinearConv whose weight has
-a zero point), always on the gather producer.
+a zero point), always on the gather producer. `pad_value` and `y_zp` may
+each be an int (known before the run) or a one-element integer tensor on
+the operand's device (a zero point the graph computes at run time, e.g.
+DynamicQuantizeLinear's): the kernel then reads it from device memory, so
+a captured CUDA graph replays with each run's value.
 
 Channels-last between convs: on the card the wrapper returns a
-[B, O, OH, OW] tensor with `torch.channels_last` strides, a view of the
-kernel's [B*OH*OW, O] output, and reads a channels-last input without a
-copy. Any other input is copied channels-last first (`channels_last_input`),
-with its channels zero-padded to a multiple of 4 where they are not.
+[B, O, OH, OW] tensor with `torch.channels_last` strides (3-D: [B, O, OD,
+OH, OW] with `torch.channels_last_3d` strides), a view of the kernel's
+[B*OH*OW, O] output, and reads a channels-last input without a copy. Any
+other input is copied channels-last first (`channels_last_input`), with
+its channels zero-padded to a multiple of 4 where they are not.
 
 `conv_plan` picks how the kernel fetches A (`conv_producer`) and the tile:
-"tma" for a 1x1, stride-1, unpadded conv with C % 16 == 0 (a plain matrix
-product) on the requant epilogue, "gather" (an implicit im2col by cp.async)
-for every other.
+"tma" for a 2-D 1x1, stride-1, unpadded conv with C % 16 == 0 (a plain
+matrix product) on the requant epilogue, "gather" (an implicit im2col by
+cp.async) for every other, and every 3-D conv.
 
 Each epilogue is a `torch.library` operator, `oriet::qconv_int8_requant`
 and `oriet::qconv_int8`: on the CPU the kernel's plain PyTorch versions
@@ -37,17 +44,20 @@ and `oriet::qconv_int8`: on the CPU the kernel's plain PyTorch versions
 the same values), on the card the launch, and a fake implementation that
 gives the output's shape, dtype and strides (channels-last on the card,
 contiguous on the CPU) from the operands, for torch.export. The schema
-holds the padding as four ints (top, bottom, left, right). The wrappers
-keep their signatures, raise for a tensor on neither device and call the
-op. `qconv_int8_requant.launches` counts the kernel's launches through
-both wrappers (in the card's implementation), `.producers` per A
-producer, `.epilogues` per epilogue, `.forms` the launches of each
-QOperator form (FORMS).
+holds the padding as two ints per spatial dimension ((top, bottom, left,
+right); 3-D: front and back first), and the zero points read from device
+memory as two optional tensors. The wrappers keep their signatures, raise
+for a tensor on neither device and call the op.
+`qconv_int8_requant.launches` counts the kernel's launches through both
+wrappers (in the card's implementation), `.producers` per A producer,
+`.epilogues` per epilogue, `.forms` the launches of each QOperator form
+(FORMS).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -55,15 +65,16 @@ import torch.nn.functional as F
 
 from . import _build
 from ._ops import define
-from .qmatmul_int8 import (EPILOGUES, _requant, as_mult, check_device,
-                           check_operand, check_qtype, count_forms, int8_tile,
-                           mult_vector)
+from .qmatmul_int8 import (EPILOGUES, ZeroPoint, _requant, as_mult,
+                           check_device, check_operand, check_qtype,
+                           count_forms, int8_tile, mult_vector,
+                           zero_point_arg)
 
 __all__ = ["qconv_int8_requant", "qconv_int8_requant_plain", "qconv_int8",
            "qconv_int8_plain", "pack_qconv_weight", "conv_channels",
-           "conv_producer", "conv_plan", "conv_out_hw", "channels_last_input",
-           "PRODUCERS", "K_ALIGN", "FORMS", "schema_padding",
-           "nested_padding", "conv_fake"]
+           "conv_producer", "conv_plan", "conv_out_hw", "conv_out_size",
+           "channels_last_input", "PRODUCERS", "K_ALIGN", "FORMS",
+           "schema_padding", "nested_padding", "conv_fake", "op_zero_points"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -72,11 +83,17 @@ K_ALIGN = 16
 # producer name -> the id the C entry point takes
 PRODUCERS = {"tma": 0, "gather": 1}
 
+# the tiles whose kernel instances carry the gather's 3-D form (BM 128, BN
+# 64 or 128: csrc/int8_wgmma.cuh, D3_TILE): a 3-D conv takes one of them
+TILE_3D_BM = (128,)
+TILE_3D_BN = (64, 128)
+
 # the QOperator forms `.forms` counts (a launch may be of several): a uint8
 # x, padding taps holding a non-zero pad value, an output zero point, a
-# uint8 output, a dilation, the int32 epilogue
+# uint8 output, a dilation, the int32 epilogue, a zero point the kernel reads
+# from device memory (computed at run time), a 3-D conv
 FORMS = ("uint8_x", "zero_point_pad", "y_zero_point", "uint8_y", "dilated",
-         "int32")
+         "int32", "device_zero_point", "3d")
 
 Padding = Sequence[Tuple[int, int]]
 
@@ -104,41 +121,59 @@ def conv_producer(C: int, KH: int, KW: int, stride: Sequence[int],
     return "gather"
 
 
+def conv_out_size(size: Sequence[int], kernel: Sequence[int],
+                  stride: Sequence[int], padding: Padding,
+                  dilation: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
+    """The output's spatial sizes ((OH, OW), or (OD, OH, OW)) of a conv
+    over an input of spatial `size`."""
+    dilation = dilation or (1,) * len(size)
+    return tuple((n + lo + hi - (k - 1) * d - 1) // s + 1
+                 for n, k, s, (lo, hi), d in zip(size, kernel, stride,
+                                                 padding, dilation))
+
+
 def conv_out_hw(H: int, W: int, KH: int, KW: int, stride: Sequence[int],
                 padding: Padding, dilation: Sequence[int] = (1, 1)
                 ) -> Tuple[int, int]:
     """The output's (OH, OW)."""
-    (pt, pb), (pl, pr) = padding
-    return ((H + pt + pb - (KH - 1) * dilation[0] - 1) // stride[0] + 1,
-            (W + pl + pr - (KW - 1) * dilation[1] - 1) // stride[1] + 1)
+    return conv_out_size((H, W), (KH, KW), stride, padding, dilation)
 
 
 def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
               stride: Sequence[int], padding: Padding,
-              dilation: Sequence[int] = (1, 1), epilogue: str = "requant"):
-    """(producer, tile) for a conv of x [B, C, H, W] by w [O, C, KH, KW]:
-    what the wrapper passes the kernel."""
-    B, C, H, W = x_shape
-    O, _, KH, KW = w_shape
-    OH, OW = conv_out_hw(H, W, KH, KW, stride, padding, dilation)
+              dilation: Optional[Sequence[int]] = None,
+              epilogue: str = "requant"):
+    """(producer, tile) for a conv of x [B, C, H, W] by w [O, C, KH, KW]
+    (or x [B, C, D, H, W] by w [O, C, KD, KH, KW]): what the wrapper passes
+    the kernel. Every 3-D conv takes the gather producer, on a tile of
+    TILE_3D_BM x TILE_3D_BN."""
+    B, C = x_shape[:2]
+    O, kernel = w_shape[0], tuple(w_shape[2:])
+    out = conv_out_size(x_shape[2:], kernel, stride, padding, dilation)
     Cp = conv_channels(C)
-    tile = int8_tile(B * OH * OW, O, _round_up(KH * KW * Cp, K_ALIGN))
-    return conv_producer(Cp, KH, KW, stride, padding, epilogue), tile
+    M, K = B * math.prod(out), _round_up(math.prod(kernel) * Cp, K_ALIGN)
+    if len(kernel) != 2:  # the instances with the gather's 3-D form
+        bn = next((b for b in TILE_3D_BN if b >= O), TILE_3D_BN[-1])
+        return "gather", int8_tile(M, O, K, bms=TILE_3D_BM, bns=(bn,))
+    return (conv_producer(Cp, *kernel, stride, padding, epilogue),
+            int8_tile(M, O, K))
 
 
 def pack_qconv_weight(w: torch.Tensor) -> torch.Tensor:
-    """int8 [O, C, KH, KW] -> int8 [O, Kp]: row o holds output channel o's
-    taps in (kh, kw, c) order over Cp = conv_channels(C) channels (zero past
-    C), the order of K in the kernel's implicit GEMM, zero-padded to Kp =
-    KH*KW*Cp rounded up to K_ALIGN."""
-    if w.dtype != torch.int8 or w.dim() != 4:
-        raise ValueError(f"pack_qconv_weight: want int8 [O,C,KH,KW], got "
-                         f"{w.dtype} {tuple(w.shape)}")
-    O, C, KH, KW = w.shape
+    """int8 [O, C, KH, KW] (or [O, C, KD, KH, KW]) -> int8 [O, Kp]: row o
+    holds output channel o's taps in (kh, kw, c) order ((kd, kh, kw, c))
+    over Cp = conv_channels(C) channels (zero past C), the order of K in
+    the kernel's implicit GEMM, zero-padded to Kp = KH*KW*Cp (KD*KH*KW*Cp)
+    rounded up to K_ALIGN."""
+    if w.dtype != torch.int8 or w.dim() not in (4, 5):
+        raise ValueError(f"pack_qconv_weight: want int8 [O,C,KH,KW] or "
+                         f"[O,C,KD,KH,KW], got {w.dtype} {tuple(w.shape)}")
+    O, C = w.shape[:2]
+    kernel = tuple(w.shape[2:])
     Cp = conv_channels(C)
-    taps = torch.zeros((O, KH, KW, Cp), dtype=torch.int8, device=w.device)
-    taps[..., :C] = w.permute(0, 2, 3, 1)
-    K = KH * KW * Cp
+    taps = torch.zeros((O, *kernel, Cp), dtype=torch.int8, device=w.device)
+    taps[..., :C] = w.permute(0, *range(2, w.dim()), 1)
+    K = math.prod(kernel) * Cp
     out = torch.zeros((O, _round_up(K, K_ALIGN)), dtype=torch.int8,
                       device=w.device)
     out[:, :K] = taps.reshape(O, K)
@@ -149,46 +184,61 @@ def pack_qconv_weight(w: torch.Tensor) -> torch.Tensor:
 # plain versions: exact int32 accumulation, then the fp32 epilogue
 # --------------------------------------------------------------------------
 def conv_sums_plain(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
-                    padding: Padding, dilation: Sequence[int] = (1, 1),
-                    pad_value: int = 0, groups: int = 1) -> torch.Tensor:
-    """sum over each window of x (int8 or uint8 [B,C,H,W], padded with
-    pad_value) times w (int8 [O,C/groups,KH,KW]) -> int32 [B,O,OH,OW]. The
-    sums are taken in float64, where every partial sum of 8-bit products
+                    padding: Padding, dilation: Optional[Sequence[int]] = None,
+                    pad_value: ZeroPoint = 0, groups: int = 1) -> torch.Tensor:
+    """sum over each window of x (int8 or uint8 [B,C,H,W] or [B,C,D,H,W],
+    padded with pad_value) times w (int8 [O,C/groups,KH,KW] or
+    [O,C/groups,KD,KH,KW]) -> int32 [B,O,OH,OW] ([B,O,OD,OH,OW]). The sums
+    are taken in float64, where every partial sum of 8-bit products
     (|.| < 256*128*K) is an exact integer, so the result equals the
-    kernels'."""
-    (pt, pb), (pl, pr) = padding
-    xd = F.pad(x.to(torch.float64), (pl, pr, pt, pb), value=float(pad_value))
+    kernels'. A tensor pad_value (one element, on x's device) is taken out
+    of x before zero padding and its sum with each output channel's weights
+    added back: the same exact sums, with no host read."""
+    spatial = x.dim() - 2
+    padding = padding or ((0, 0),) * spatial
+    flat = [p for lo_hi in reversed(list(padding)) for p in lo_hi]
+    xd, wd = x.to(torch.float64), w.to(torch.float64)
+    pv = None
+    if isinstance(pad_value, torch.Tensor):
+        pv = pad_value.to(torch.float64).reshape(())
+        xd, pad_value = xd - pv, 0
+    xd = F.pad(xd, flat, value=float(pad_value))
+    conv = F.conv3d if spatial == 3 else F.conv2d
     # cuDNN may pick an inexact (FFT) algorithm; PyTorch's own conv is a
     # float64 GEMM, exact here
     with torch.backends.cudnn.flags(enabled=False):
-        acc = F.conv2d(xd, w.to(torch.float64), stride=tuple(stride),
-                       dilation=tuple(dilation), groups=groups)
+        acc = conv(xd, wd, stride=tuple(stride or (1,) * spatial),
+                   dilation=tuple(dilation or (1,) * spatial), groups=groups)
+    if pv is not None:
+        acc = acc + pv * wd.sum(dim=tuple(range(1, w.dim()))).reshape(
+            (1, -1) + (1,) * spatial)
     return acc.to(torch.int32)
 
 
 def qconv_int8_plain(x: torch.Tensor, w: torch.Tensor, *,
-                     stride: Sequence[int] = (1, 1),
-                     padding: Padding = ((0, 0), (0, 0)),
-                     dilation: Sequence[int] = (1, 1),
-                     pad_value: int = 0) -> torch.Tensor:
+                     stride: Optional[Sequence[int]] = None,
+                     padding: Optional[Padding] = None,
+                     dilation: Optional[Sequence[int]] = None,
+                     pad_value: ZeroPoint = 0) -> torch.Tensor:
     """The int32 epilogue's function: x int8 or uint8 [B,C,H,W], w int8
-    [O,C,KH,KW] -> int32 [B,O,OH,OW], padding taps holding pad_value."""
+    [O,C,KH,KW] (3-D: [B,C,D,H,W], [O,C,KD,KH,KW]) -> int32 [B,O,OH,OW]
+    ([B,O,OD,OH,OW]), padding taps holding pad_value."""
     return conv_sums_plain(x, w, stride, padding, dilation, pad_value)
 
 
 def qconv_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
                              mult: torch.Tensor,
                              bias: Optional[torch.Tensor] = None, *,
-                             stride: Sequence[int] = (1, 1),
-                             padding: Padding = ((0, 0), (0, 0)),
-                             dilation: Sequence[int] = (1, 1),
-                             pad_value: int = 0, y_zp: int = 0,
+                             stride: Optional[Sequence[int]] = None,
+                             padding: Optional[Padding] = None,
+                             dilation: Optional[Sequence[int]] = None,
+                             pad_value: ZeroPoint = 0, y_zp: ZeroPoint = 0,
                              out_dtype: torch.dtype = torch.int8
                              ) -> torch.Tensor:
     """x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW], mult f32 [O] or
-    scalar, bias int32 [O] -> out_dtype [B,O,OH,OW]: the exact sums (padding
-    taps holding pad_value) + bias, * mult, rounded half to even, + y_zp,
-    saturated."""
+    scalar, bias int32 [O] -> out_dtype [B,O,OH,OW] (3-D likewise): the
+    exact sums (padding taps holding pad_value) + bias, * mult, rounded half
+    to even, + y_zp, saturated."""
     acc = conv_sums_plain(x, w, stride, padding, dilation, pad_value)
     return _requant(acc, mult, bias, channel_dim=1, y_zp=y_zp,
                     out_dtype=out_dtype)
@@ -200,46 +250,63 @@ def qconv_int8_requant_plain(x: torch.Tensor, w: torch.Tensor,
 def _lib_fn():
     fn = _build.load("qconv_int8").qconv_int8_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 26
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 32
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def channels_last_input(x: torch.Tensor) -> torch.Tensor:
-    """x int8 or uint8 [B, C, H, W] as the kernel reads it: [B, H, W, Cp]
-    contiguous, Cp = conv_channels(C), 16-byte aligned. A channels-last,
+    """x int8 or uint8 [B, C, H, W] (or [B, C, D, H, W]) as the kernel
+    reads it: [B, H, W, Cp] ([B, D, H, W, Cp]) contiguous, Cp =
+    conv_channels(C), 16-byte aligned. A channels-last (channels_last_3d),
     aligned x with Cp == C is returned as a view; any other is copied."""
-    B, C, H, W = x.shape
+    C = x.shape[1]
     Cp = conv_channels(C)
-    xl = x.permute(0, 2, 3, 1)
+    xl = x.permute(0, *range(2, x.dim()), 1)
     if Cp == C:
         if xl.is_contiguous() and xl.data_ptr() % 16 == 0:
             return xl
         return xl.contiguous()  # a new allocation: aligned
-    out = torch.zeros((B, H, W, Cp), dtype=x.dtype, device=x.device)
+    out = torch.zeros((*xl.shape[:-1], Cp), dtype=x.dtype, device=x.device)
     out[..., :C] = xl
     return out
 
 
+def _as_3d(x_shape, w_shape, stride, padding, dilation):
+    """A 2-D or 3-D conv's sizes as the kernel takes them, 2-D as depth 1:
+    ((B, C, D, H, W), (O, KD, KH, KW), strides, padding pairs and
+    dilations over (depth, height, width))."""
+    lead = 5 - len(x_shape)
+    return ((*x_shape[:2], *(1,) * lead, *x_shape[2:]),
+            (w_shape[0], *(1,) * lead, *w_shape[2:]),
+            (*(1,) * lead, *(int(s) for s in stride)),
+            (*((0, 0),) * lead, *((int(lo), int(hi)) for lo, hi in padding)),
+            (*(1,) * lead, *(int(d) for d in dilation)))
+
+
 def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
-            padding, dilation, pad_value: int, y_zp: int = 0,
+            padding, dilation, pad_value: ZeroPoint, y_zp: ZeroPoint = 0,
             out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """Check the operands, launch one epilogue of the kernel on the card on
     the producer and tile `conv_plan` gives, and count the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {x.device}")
-    if x.dim() != 4 or w.dim() != 4 or x.shape[1] != w.shape[1]:
+    if x.dim() not in (4, 5) or w.dim() != x.dim() or x.shape[1] != w.shape[1]:
         raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
-                         f"are not a group-1 2-D conv")
-    B, C, H, W = x.shape
-    O, _, KH, KW = w.shape
-    (pt, pb), (pl, pr) = padding
-    if min(pt, pb, pl, pr) < 0:
+                         f"are not a group-1 2-D or 3-D conv")
+    spatial = x.dim() - 2
+    if len(stride) != spatial or len(padding) != spatial \
+            or len(dilation) != spatial:
+        raise ValueError(f"{fn}: stride {stride}, padding {padding} and "
+                         f"dilation {dilation} of a {spatial}-D conv")
+    (B, C, D, H, W), (O, KD, KH, KW), (sd, sh, sw), pads, (dd, dh, dw) = \
+        _as_3d(x.shape, w.shape, stride, padding, dilation)
+    if min(p for side in pads for p in side) < 0:
         raise ValueError(f"{fn}: negative padding {padding}")
-    sh, sw = (int(s) for s in stride)
-    dh, dw = (int(d) for d in dilation)
-    OH, OW = conv_out_hw(H, W, KH, KW, (sh, sw), padding, (dh, dw))
+    (pf, _), (pt, _), (pl, _) = pads
+    OD, OH, OW = conv_out_size((D, H, W), (KD, KH, KW), (sd, sh, sw), pads,
+                               (dd, dh, dw))
     if packed is None:
         raise ValueError(f"{fn}: on the card the weight must be pre-packed "
                          f"(pack_qconv_weight)")
@@ -247,29 +314,30 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
     if x.dtype not in (torch.int8, torch.uint8):
         raise ValueError(f"{fn}: x wants torch.int8 or torch.uint8, got "
                          f"{x.dtype}")
-    info = torch.iinfo(x.dtype)
-    if not info.min <= pad_value <= info.max:
-        raise ValueError(f"{fn}: pad_value {pad_value} outside {x.dtype}")
+    pad_int, pad_dev = zero_point_arg(fn, pad_value, x.dtype, dev)
     check_operand(fn, "packed", packed, torch.int8, dev)
     Cp = conv_channels(C)
-    Kp = _round_up(KH * KW * Cp, K_ALIGN)
+    Kp = _round_up(KD * KH * KW * Cp, K_ALIGN)
     if tuple(packed.shape) != (O, Kp):
         raise ValueError(f"{fn}: packed weight {tuple(packed.shape)} is not "
                          f"pack_qconv_weight's layout of w {tuple(w.shape)}")
+    y_int, y_dev = 0, None
     if epilogue == "requant":
         mult = mult_vector(mult, O)
         check_operand(fn, "mult", mult, torch.float32, dev, O)
         check_operand(fn, "bias", bias, torch.int32, dev, O)
-        check_qtype(fn, out_dtype, y_zp)
-    dims = (B, H, W, Cp, OH, OW, O, KH, KW, sh, sw, pt, pl, dh, dw, Kp)
-    M = B * OH * OW
-    if (min(dims[:11] + dims[13:]) <= 0 or min(dims[11:13]) < 0
+        check_qtype(fn, out_dtype, 0)
+        y_int, y_dev = zero_point_arg(fn, y_zp, out_dtype, dev)
+    dims = (B, D, H, W, Cp, OD, OH, OW, O, KD, KH, KW, sd, sh, sw, pf, pt, pl,
+            dd, dh, dw, Kp)
+    M = B * OD * OH * OW
+    if (min(dims[:15] + dims[18:]) <= 0 or min(dims[15:18]) < 0
             or max(dims) >= 2 ** 31 or M >= 2 ** 31):
         raise ValueError(f"{fn}: dims out of range {dims}")
     if packed.data_ptr() % 16:
         raise ValueError(f"{fn}: packed weight not 16-byte aligned")
-    producer, tile = conv_plan(x.shape, w.shape, (sh, sw), padding,
-                               (dh, dw), epilogue)
+    producer, tile = conv_plan(x.shape, w.shape, stride, padding, dilation,
+                               epilogue)
     x_cl = channels_last_input(x)
     y = torch.empty((M, O), device=dev, dtype=(
         torch.int32 if epilogue == "int32" else out_dtype))
@@ -278,8 +346,11 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
             x_cl.data_ptr(), packed.data_ptr(),
             mult.data_ptr() if mult is not None else None,
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            pad_dev.data_ptr() if pad_dev is not None else None,
+            y_dev.data_ptr() if y_dev is not None else None,
             *dims, PRODUCERS[producer], EPILOGUES[epilogue],
-            int(x.dtype == torch.uint8), pad_value & 0xFF, y_zp, int(out_dtype == torch.uint8), *tile,
+            int(x.dtype == torch.uint8), pad_int & 0xFF, y_int,
+            int(out_dtype == torch.uint8), *tile,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch with the {producer} producer and "
@@ -289,95 +360,117 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
     w_.launches += 1
     w_.producers[producer] += 1
     w_.epilogues[epilogue] += 1
+    padded = any(p for side in pads for p in side)
     count_forms(w_.forms, uint8_x=x.dtype == torch.uint8,
-                zero_point_pad=pad_value != 0 and any((pt, pb, pl, pr)),
-                y_zero_point=y_zp != 0,
+                zero_point_pad=padded and (pad_dev is not None or pad_int != 0),
+                y_zero_point=y_dev is not None or y_int != 0,
                 uint8_y=epilogue == "requant" and out_dtype == torch.uint8,
-                dilated=(dh, dw) != (1, 1), int32=epilogue == "int32")
-    return y.view(B, OH, OW, O).permute(0, 3, 1, 2)
+                dilated=(dd, dh, dw) != (1, 1, 1), int32=epilogue == "int32",
+                device_zero_point=pad_dev is not None or y_dev is not None,
+                **{"3d": spatial == 3})
+    out_sizes = (OD, OH, OW)[3 - spatial:]
+    return y.view(B, *out_sizes, O).permute(0, spatial + 1,
+                                            *range(1, spatial + 1))
 
 
 # --------------------------------------------------------------------------
 # the ops
 # --------------------------------------------------------------------------
 def schema_padding(padding: Padding) -> list:
-    """((top, bottom), (left, right)) as the ops' four ints."""
-    (pt, pb), (pl, pr) = padding
-    return [int(pt), int(pb), int(pl), int(pr)]
+    """((top, bottom), (left, right)) (3-D: ((front, back), (top, bottom),
+    (left, right))) as the ops' flat ints."""
+    return [int(p) for side in padding for p in side]
 
 
 def nested_padding(pads: Sequence[int]) -> Padding:
-    """The ops' four ints back as ((top, bottom), (left, right))."""
-    return ((pads[0], pads[1]), (pads[2], pads[3]))
+    """The ops' flat ints back as ((top, bottom), (left, right)) (3-D: with
+    (front, back) first)."""
+    return tuple((pads[i], pads[i + 1]) for i in range(0, len(pads), 2))
 
 
 def conv_fake(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
               pads: Sequence[int], dilation: Sequence[int],
               dtype: torch.dtype) -> torch.Tensor:
-    """The result the conv ops give, as an empty tensor: [B, O, OH, OW],
-    on the card a channels-last view of a [B*OH*OW, O] matrix (what the
-    kernels write), on the CPU contiguous (what the plain versions
-    give)."""
-    B, _, H, W = x.shape
-    O, _, KH, KW = w.shape
-    OH, OW = conv_out_hw(H, W, KH, KW, stride, nested_padding(pads),
-                         dilation)
+    """The result the conv ops give, as an empty tensor: [B, O, OH, OW]
+    ([B, O, OD, OH, OW]), on the card a channels-last view of a
+    [B*OH*OW, O] matrix (what the kernels write), on the CPU contiguous
+    (what the plain versions give)."""
+    B, O, spatial = x.shape[0], w.shape[0], x.dim() - 2
+    out = conv_out_size(x.shape[2:], w.shape[2:], stride,
+                        nested_padding(pads), dilation)
     if x.device.type == "cuda":
-        return x.new_empty((B * OH * OW, O), dtype=dtype).view(
-            B, OH, OW, O).permute(0, 3, 1, 2)
-    return x.new_empty((B, O, OH, OW), dtype=dtype)
+        return x.new_empty((B * math.prod(out), O), dtype=dtype).view(
+            B, *out, O).permute(0, spatial + 1, *range(1, spatial + 1))
+    return x.new_empty((B, O, *out), dtype=dtype)
 
 
 # the schema of the convs' ops, after the name: padding is (top, bottom,
-# left, right)
+# left, right), with (front, back) first for a 3-D conv
 CONV_ARGS = ("int[] stride, int[] padding, int[] dilation, int pad_value")
+# the zero points in device memory, after the rest: where given, the kernel
+# reads x's (the pad value) and y's from them in place of the ints
+ZP_ARGS = "Tensor? zp_x=None, Tensor? zp_y=None"
+
+
+def _zp(value: int, t: Optional[torch.Tensor]) -> ZeroPoint:
+    """The ops' zero point: the tensor where given, else the int."""
+    return t if t is not None else value
 
 
 def _qconv_int8_requant_cpu(x, w, mult, bias, packed, stride, padding,
-                            dilation, pad_value, y_zp, out_dtype):
+                            dilation, pad_value, y_zp, out_dtype, zp_x=None,
+                            zp_y=None):
     check_qtype("qconv_int8_requant", out_dtype, y_zp)
     return qconv_int8_requant_plain(
         x, w, mult, bias, stride=stride, padding=nested_padding(padding),
-        dilation=dilation, pad_value=pad_value, y_zp=y_zp,
-        out_dtype=out_dtype)
+        dilation=dilation, pad_value=_zp(pad_value, zp_x),
+        y_zp=_zp(y_zp, zp_y), out_dtype=out_dtype)
 
 
 def _qconv_int8_requant_cuda(x, w, mult, bias, packed, stride, padding,
-                             dilation, pad_value, y_zp, out_dtype):
+                             dilation, pad_value, y_zp, out_dtype, zp_x=None,
+                             zp_y=None):
     return _launch("qconv_int8_requant", x, w, packed, "requant", mult,
                    bias, stride, nested_padding(padding), dilation,
-                   pad_value, y_zp, out_dtype)
+                   _zp(pad_value, zp_x), _zp(y_zp, zp_y), out_dtype)
 
 
 def _qconv_int8_requant_fake(x, w, mult, bias, packed, stride, padding,
-                             dilation, pad_value, y_zp, out_dtype):
+                             dilation, pad_value, y_zp, out_dtype, zp_x=None,
+                             zp_y=None):
     return conv_fake(x, w, stride, padding, dilation, out_dtype)
 
 
 _qconv_int8_requant_op = define(
     "qconv_int8_requant(Tensor x, Tensor w, Tensor mult, Tensor? bias, "
-    f"Tensor? packed, {CONV_ARGS}, int y_zp, ScalarType out_dtype) -> Tensor",
+    f"Tensor? packed, {CONV_ARGS}, int y_zp, ScalarType out_dtype, "
+    f"{ZP_ARGS}) -> Tensor",
     _qconv_int8_requant_cpu, _qconv_int8_requant_cuda,
     _qconv_int8_requant_fake)
 
 
-def _qconv_int8_cpu(x, w, packed, stride, padding, dilation, pad_value):
+def _qconv_int8_cpu(x, w, packed, stride, padding, dilation, pad_value,
+                    zp_x=None, zp_y=None):
     return qconv_int8_plain(x, w, stride=stride,
                             padding=nested_padding(padding),
-                            dilation=dilation, pad_value=pad_value)
+                            dilation=dilation,
+                            pad_value=_zp(pad_value, zp_x))
 
 
-def _qconv_int8_cuda(x, w, packed, stride, padding, dilation, pad_value):
+def _qconv_int8_cuda(x, w, packed, stride, padding, dilation, pad_value,
+                     zp_x=None, zp_y=None):
     return _launch("qconv_int8", x, w, packed, "int32", None, None, stride,
-                   nested_padding(padding), dilation, pad_value)
+                   nested_padding(padding), dilation, _zp(pad_value, zp_x))
 
 
-def _qconv_int8_fake(x, w, packed, stride, padding, dilation, pad_value):
+def _qconv_int8_fake(x, w, packed, stride, padding, dilation, pad_value,
+                     zp_x=None, zp_y=None):
     return conv_fake(x, w, stride, padding, dilation, torch.int32)
 
 
 _qconv_int8_op = define(
-    f"qconv_int8(Tensor x, Tensor w, Tensor? packed, {CONV_ARGS}) -> Tensor",
+    f"qconv_int8(Tensor x, Tensor w, Tensor? packed, {CONV_ARGS}, "
+    f"{ZP_ARGS}) -> Tensor",
     _qconv_int8_cpu, _qconv_int8_cuda, _qconv_int8_fake)
 
 
@@ -386,47 +479,73 @@ _qconv_int8_op = define(
 # --------------------------------------------------------------------------
 def _check_conv(fn: str, x: torch.Tensor, w: torch.Tensor) -> None:
     check_device(fn, x)
-    if x.dim() != 4 or w.dim() != 4:
+    if x.dim() not in (4, 5) or w.dim() != x.dim():
         raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
-                         f"are not a 2-D conv")
+                         f"are not a 2-D or 3-D conv")
+
+
+def op_zero_points(pad_value: ZeroPoint, y_zp: ZeroPoint = 0):
+    """The conv ops' zero-point arguments: (pad_value, y_zp) as ints, and
+    (zp_x, zp_y) the tensors among them (None for an int)."""
+    def split(z):
+        return (0, z) if isinstance(z, torch.Tensor) else (int(z), None)
+
+    (px, tx), (py, ty) = split(pad_value), split(y_zp)
+    return px, py, tx, ty
+
+
+def _spatial_args(x: torch.Tensor, stride, padding, dilation):
+    """stride, padding and dilation as the ops' int lists: ones, zeros and
+    ones over x's spatial dims where not given."""
+    spatial = x.dim() - 2
+    return ([int(s) for s in (stride or (1,) * spatial)],
+            schema_padding(padding or ((0, 0),) * spatial),
+            [int(d) for d in (dilation or (1,) * spatial)])
 
 
 def qconv_int8_requant(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                        bias: Optional[torch.Tensor] = None, *,
-                       stride: Sequence[int] = (1, 1),
-                       padding: Padding = ((0, 0), (0, 0)),
-                       dilation: Sequence[int] = (1, 1), pad_value: int = 0,
-                       y_zp: int = 0, out_dtype: torch.dtype = torch.int8,
+                       stride: Optional[Sequence[int]] = None,
+                       padding: Optional[Padding] = None,
+                       dilation: Optional[Sequence[int]] = None,
+                       pad_value: ZeroPoint = 0, y_zp: ZeroPoint = 0,
+                       out_dtype: torch.dtype = torch.int8,
                        packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Group-1 QLinearConv: x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW],
-    mult f32 [O] or scalar (x_s * w_s / y_s), bias int32 [O] or None,
-    padding ((top, bottom), (left, right)) whose taps hold pad_value (x's
-    zero point), y_zp in out_dtype (int8 or uint8) -> out_dtype
-    [B,O,OH,OW] (`oriet::qconv_int8_requant`).
+    """Group-1 QLinearConv: x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW]
+    (3-D: [B,C,D,H,W], [O,C,KD,KH,KW], stride, padding and dilation of
+    three), mult f32 [O] or scalar (x_s * w_s / y_s), bias int32 [O] or
+    None, padding ((top, bottom), (left, right)) whose taps hold pad_value
+    (x's zero point), y_zp in out_dtype (int8 or uint8) -> out_dtype
+    [B,O,OH,OW] ([B,O,OD,OH,OW]) (`oriet::qconv_int8_requant`). pad_value
+    and y_zp: ints, or one-element tensors on x's device that the kernel
+    reads in the run.
 
     On the card `packed` must be `pack_qconv_weight(w)`, made once per
     weight, and the result is channels-last (see the module note)."""
     _check_conv("qconv_int8_requant", x, w)
+    stride, pads, dilation = _spatial_args(x, stride, padding, dilation)
+    px, py, tx, ty = op_zero_points(pad_value, y_zp)
     return _qconv_int8_requant_op(
-        x, w, as_mult(mult, x), bias, packed, [int(s) for s in stride],
-        schema_padding(padding), [int(d) for d in dilation], int(pad_value),
-        int(y_zp), out_dtype)
+        x, w, as_mult(mult, x), bias, packed, stride, pads, dilation, px,
+        py, out_dtype, tx, ty)
 
 
 def qconv_int8(x: torch.Tensor, w: torch.Tensor, *,
-               stride: Sequence[int] = (1, 1),
-               padding: Padding = ((0, 0), (0, 0)),
-               dilation: Sequence[int] = (1, 1), pad_value: int = 0,
+               stride: Optional[Sequence[int]] = None,
+               padding: Optional[Padding] = None,
+               dilation: Optional[Sequence[int]] = None,
+               pad_value: ZeroPoint = 0,
                packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int32 epilogue: x int8 or uint8 [B,C,H,W], w int8 [O,C,KH,KW]
-    -> the exact int32 sums [B,O,OH,OW], padding taps holding pad_value
-    (`oriet::qconv_int8`). On the card `packed` is
-    `pack_qconv_weight(w)`; counted on `qconv_int8_requant` (the same
-    kernel, int32 epilogue)."""
+    (or 3-D) -> the exact int32 sums [B,O,OH,OW] ([B,O,OD,OH,OW]), padding
+    taps holding pad_value (an int, or a one-element tensor on x's device)
+    (`oriet::qconv_int8`). On the card `packed` is `pack_qconv_weight(w)`;
+    counted on `qconv_int8_requant` (the same kernel, int32 epilogue)."""
     _check_conv("qconv_int8", x, w)
-    return _qconv_int8_op(x, w, packed, [int(s) for s in stride],
-                          schema_padding(padding),
-                          [int(d) for d in dilation], int(pad_value))
+    stride, pads, dilation = _spatial_args(x, stride, padding, dilation)
+    px, _, tx, _ = op_zero_points(pad_value)
+    return _qconv_int8_op(x, w, packed, stride, pads, dilation, px, tx,
+                          None)
 
 
 qconv_int8_requant.launches = 0

@@ -39,13 +39,17 @@ reshape around `oriet::qmatmul_int8`. `qmatmul_int8.launches` counts the
 kernel's launches through every wrapper (inside the card's
 implementation, so that a loaded program's eager call counts too),
 `qmatmul_int8.epilogues` counts them per epilogue, `.forms` those with an
-output zero point (`y_zero_point`) or a uint8 output (`uint8_y`).
+output zero point (`y_zero_point`), a uint8 output (`uint8_y`) or an
+output zero point the kernel reads from device memory
+(`device_zero_point`: `y_zp` given as a one-element tensor, a zero point
+the graph computes at run time; a captured CUDA graph then replays with
+each run's value).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -56,7 +60,8 @@ __all__ = ["qmatmul_int8", "qmatmul_int8_plain", "qmatmul_int8_requant",
            "qmatmul_int8_requant_plain", "pack_qmatmul_weight", "int8_tile",
            "Int8Tile", "EPILOGUES", "K_ALIGN", "MAX_K",
            "matmul_integer_int8", "as_int8", "colsum_key", "folded_bias_key",
-           "ones_key", "QTYPES", "FORMS", "check_device", "as_mult"]
+           "ones_key", "QTYPES", "FORMS", "check_device", "as_mult",
+           "zero_point_arg", "ZeroPoint"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -71,8 +76,11 @@ EPILOGUES = {"int32": 0, "requant": 1}
 # the requant epilogue's output types
 QTYPES = (torch.int8, torch.uint8)
 
+# a zero point: known before the run, or a one-element tensor on the device
+ZeroPoint = Union[int, torch.Tensor]
+
 # the forms `.forms` counts (a launch may be of several)
-FORMS = ("y_zero_point", "uint8_y")
+FORMS = ("y_zero_point", "uint8_y", "device_zero_point")
 
 # the kernel's tile (csrc/int8_wgmma.cuh): BN is one wgmma N, BM 64 rows per
 # consumer warpgroup, each ring slot 128 K bytes of both operands
@@ -115,7 +123,8 @@ def tile_smem(tile: Int8Tile, K: int) -> int:
     return smem_bytes(tile.bm, tile.bn, tile.stages, resident_k)
 
 
-def int8_tile(M: int, N: int, K: int) -> Int8Tile:
+def int8_tile(M: int, N: int, K: int, bms: Sequence[int] = (64, 128),
+              bns: Optional[Sequence[int]] = None) -> Int8Tile:
     """The tile for an int8 product [M, K] x [K, N]. (BM, BN) minimizes the
     time each SM spends, modelled as ceil(tiles / NUM_SMS) waves of a
     tile's work BM * BN plus a fixed TILE_OVERHEAD (a tile's epilogue,
@@ -129,18 +138,19 @@ def int8_tile(M: int, N: int, K: int) -> Int8Tile:
     narrow convs otherwise). The ring is the deepest of at most MAX_STAGES
     slots that fits in shared memory, in half of it for BN <= 64 (two such
     blocks share an SM). The kernel is persistent, so the ring runs on
-    across tiles and K does not bound its depth."""
-    if N <= BN_CHOICES[-1]:
-        bns = [next(c for c in BN_CHOICES if c >= N)]
-    else:
-        bns = [128, 192, 256]
+    across tiles and K does not bound its depth. `bms` and `bns`, where
+    given, are the only (BM, BN) the choice may take (the 3-D conv's
+    instances, qconv_int8.conv_plan)."""
+    if bns is None:
+        bns = ([next(c for c in BN_CHOICES if c >= N)]
+               if N <= BN_CHOICES[-1] else [128, 192, 256])
 
     def work(tile):
         bm, bn = tile
         tiles = -(-M // bm) * -(-N // bn)
         return (-(-tiles // NUM_SMS) * (bm * bn + TILE_OVERHEAD), -bm * bn)
 
-    bm, bn = min(((bm, bn) for bm in (64, 128) for bn in bns), key=work)
+    bm, bn = min(((bm, bn) for bm in bms for bn in bns), key=work)
     budget = SMEM_LIMIT // 2 if bn <= 64 else SMEM_LIMIT
     num_k = -(-K // STAGE_K)
     resident = N <= bn and num_k * bn * STAGE_K <= B_RESIDENT_MAX
@@ -204,12 +214,13 @@ def qmatmul_int8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _requant(acc: torch.Tensor, mult: torch.Tensor,
-             bias: Optional[torch.Tensor], channel_dim: int, y_zp: int = 0,
+             bias: Optional[torch.Tensor], channel_dim: int, y_zp=0,
              out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """`_mm_requant_kernel`'s epilogue with ONNX's output zero point, in the
     JAX emitter's `_requant` order: (acc + bias) as f32, * mult, round half
     to even, + y_zp, saturate to `out_dtype` (int8 or uint8). mult / bias
-    run along `channel_dim`."""
+    run along `channel_dim`. y_zp: an int, or a one-element tensor on acc's
+    device (a zero point computed at run time)."""
     shape = [1] * acc.dim()
     shape[channel_dim] = -1
     if bias is not None:
@@ -218,7 +229,9 @@ def _requant(acc: torch.Tensor, mult: torch.Tensor,
     if mult.numel() > 1:
         mult = mult.reshape(shape)
     y = torch.round(acc.to(torch.float32) * mult)
-    if y_zp:
+    if isinstance(y_zp, torch.Tensor):
+        y = y + y_zp.to(torch.float32).reshape(())
+    elif y_zp:
         y = y + float(y_zp)
     info = torch.iinfo(out_dtype)
     return y.clamp(info.min, info.max).to(out_dtype)
@@ -227,7 +240,7 @@ def _requant(acc: torch.Tensor, mult: torch.Tensor,
 def qmatmul_int8_requant_plain(a: torch.Tensor, b: torch.Tensor,
                                mult: torch.Tensor,
                                bias: Optional[torch.Tensor] = None, *,
-                               y_zp: int = 0,
+                               y_zp=0,
                                out_dtype: torch.dtype = torch.int8
                                ) -> torch.Tensor:
     """int8 [M,K] @ int8 [K,N] (+ bias) * mult (+ y_zp) -> out_dtype
@@ -243,8 +256,9 @@ def qmatmul_int8_requant_plain(a: torch.Tensor, b: torch.Tensor,
 def _lib_fn():
     fn = _build.load("qmatmul_int8").qmatmul_int8_launch
     if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
-            + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -298,6 +312,24 @@ def as_mult(mult, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(float(mult), dtype=torch.float32, device=like.device)
 
 
+def zero_point_arg(fn: str, zp: ZeroPoint, dtype: torch.dtype, dev
+                   ) -> Tuple[int, Optional[torch.Tensor]]:
+    """A zero point as the kernels take it: (the launch's int, None) for
+    one known before the run, range-checked against `dtype`; (0, an int32
+    one-element tensor on `dev`) for one in device memory, which the
+    kernel reads (and saturates to `dtype`'s range) in the run."""
+    if isinstance(zp, torch.Tensor):
+        if zp.numel() != 1 or zp.device != dev or zp.is_floating_point():
+            raise ValueError(f"{fn}: a zero point in device memory wants one "
+                             f"integer element on {dev}, got {zp.dtype} "
+                             f"{tuple(zp.shape)} on {zp.device}")
+        return 0, zp.to(torch.int32).reshape(1).contiguous()
+    info = torch.iinfo(dtype)
+    if not info.min <= zp <= info.max:
+        raise ValueError(f"{fn}: zero point {zp} outside {dtype}")
+    return int(zp), None
+
+
 def count_forms(counter: dict, **on: bool) -> None:
     """Add one to each of `counter`'s forms that is on for a launch."""
     for form, flag in on.items():
@@ -308,10 +340,11 @@ def count_forms(counter: dict, **on: bool) -> None:
 def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
             packed: Optional[torch.Tensor], epilogue: str,
             mult: Optional[torch.Tensor] = None,
-            bias: Optional[torch.Tensor] = None, y_zp: int = 0,
+            bias: Optional[torch.Tensor] = None, y_zp=0,
             out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """Check the operands, launch one epilogue of the kernel on the tile
-    `int8_tile` picks, and count the launch."""
+    `int8_tile` picks, and count the launch. y_zp: an int, or a
+    one-element tensor the kernel reads in the run."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"{fn}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     M, K = a.shape
@@ -331,11 +364,13 @@ def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
                          f"sums need 0 < K <= {MAX_K})")
     if packed.data_ptr() % 16:
         raise ValueError(f"{fn}: packed weight not 16-byte aligned")
+    y_dev = None
     if epilogue == "requant":
         mult = mult_vector(mult, N)
         check_operand(fn, "mult", mult, torch.float32, dev, N)
         check_operand(fn, "bias", bias, torch.int32, dev, N)
-        check_qtype(fn, out_dtype, y_zp)
+        check_qtype(fn, out_dtype, 0)
+        y_zp, y_dev = zero_point_arg(fn, y_zp, out_dtype, dev)
     out = torch.empty((M, N), device=dev, dtype=(
         torch.int32 if epilogue == "int32" else out_dtype))
     if M == 0 or N == 0:
@@ -350,7 +385,8 @@ def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), packed.data_ptr(), out.data_ptr(),
             mult.data_ptr() if mult is not None else None,
             bias.data_ptr() if bias is not None else None, M, N, Kp,
-            EPILOGUES[epilogue], y_zp, int(out_dtype == torch.uint8), *tile,
+            EPILOGUES[epilogue], y_zp, int(out_dtype == torch.uint8),
+            y_dev.data_ptr() if y_dev is not None else None, *tile,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch with the {epilogue} epilogue on "
@@ -358,8 +394,10 @@ def _launch(fn: str, a: torch.Tensor, b: torch.Tensor,
     qmatmul_int8.launches += 1
     qmatmul_int8.epilogues[epilogue] += 1
     if epilogue == "requant":
-        count_forms(qmatmul_int8.forms, y_zero_point=y_zp != 0,
-                    uint8_y=out_dtype == torch.uint8)
+        count_forms(qmatmul_int8.forms,
+                    y_zero_point=y_dev is not None or y_zp != 0,
+                    uint8_y=out_dtype == torch.uint8,
+                    device_zero_point=y_dev is not None)
     return out
 
 
@@ -383,24 +421,29 @@ _qmatmul_int8_op = define(
     _qmatmul_int8_cpu, _qmatmul_int8_cuda, _qmatmul_int8_fake)
 
 
-def _qmatmul_int8_requant_cpu(a, b, mult, bias, packed, y_zp, out_dtype):
+def _qmatmul_int8_requant_cpu(a, b, mult, bias, packed, y_zp, out_dtype,
+                              zp_y=None):
     check_qtype("qmatmul_int8_requant", out_dtype, y_zp)
-    return qmatmul_int8_requant_plain(a, b, mult, bias, y_zp=y_zp,
-                                      out_dtype=out_dtype)
+    return qmatmul_int8_requant_plain(
+        a, b, mult, bias, y_zp=zp_y if zp_y is not None else y_zp,
+        out_dtype=out_dtype)
 
 
-def _qmatmul_int8_requant_cuda(a, b, mult, bias, packed, y_zp, out_dtype):
+def _qmatmul_int8_requant_cuda(a, b, mult, bias, packed, y_zp, out_dtype,
+                               zp_y=None):
     return _launch("qmatmul_int8_requant", a, b, packed, "requant", mult,
-                   bias, y_zp, out_dtype)
+                   bias, zp_y if zp_y is not None else y_zp, out_dtype)
 
 
-def _qmatmul_int8_requant_fake(a, b, mult, bias, packed, y_zp, out_dtype):
+def _qmatmul_int8_requant_fake(a, b, mult, bias, packed, y_zp, out_dtype,
+                               zp_y=None):
     return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
 
 
 _qmatmul_int8_requant_op = define(
     "qmatmul_int8_requant(Tensor a, Tensor b, Tensor mult, Tensor? bias, "
-    "Tensor? packed, int y_zp, ScalarType out_dtype) -> Tensor",
+    "Tensor? packed, int y_zp, ScalarType out_dtype, Tensor? zp_y=None) "
+    "-> Tensor",
     _qmatmul_int8_requant_cpu, _qmatmul_int8_requant_cuda,
     _qmatmul_int8_requant_fake)
 
@@ -449,16 +492,20 @@ def matmul_integer_int8(a: torch.Tensor, b: torch.Tensor, *,
 
 def qmatmul_int8_requant(a: torch.Tensor, b: torch.Tensor, mult: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, *,
-                         y_zp: int = 0, out_dtype: torch.dtype = torch.int8,
+                         y_zp=0, out_dtype: torch.dtype = torch.int8,
                          packed: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """int8 [M,K] @ int8 [K,N] + bias, * mult, + y_zp -> out_dtype (int8 or
     uint8) [M,N]: the TPU kernel's signature with ONNX's output zero point,
-    mult f32 [N] or scalar, bias int32 [N] or None
-    (`oriet::qmatmul_int8_requant`).
+    mult f32 [N] or scalar, bias int32 [N] or None, y_zp an int or a
+    one-element integer tensor on a's device that the kernel reads in the
+    run (`oriet::qmatmul_int8_requant`).
 
     On the card `packed` must be `pack_qmatmul_weight(b)`; the launch is
     counted on `qmatmul_int8` (the same kernel, requant epilogue)."""
     _check_2d("qmatmul_int8_requant", a, b)
+    if isinstance(y_zp, torch.Tensor):
+        return _qmatmul_int8_requant_op(a, b, as_mult(mult, a), bias, packed,
+                                        0, out_dtype, y_zp)
     return _qmatmul_int8_requant_op(a, b, as_mult(mult, a), bias, packed,
                                     int(y_zp), out_dtype)

@@ -12,8 +12,8 @@ w_s / y_s)) + y_zp), rounding half to even.
 Every form of ONNX Runtime's QOperator files runs on the hand-written
 kernels: int8 or uint8 activations with zero points, int8 or uint8 weights
 (zero point per tensor or per channel), int8 or uint8 outputs with zero
-points. QLinearConv (1-D and 2-D, any stride, padding and dilation) and
-ConvInteger run group 1 on the implicit-GEMM kernel (ops/kernels/
+points. QLinearConv (1-D, 2-D and 3-D, any stride, padding and dilation)
+and ConvInteger run group 1 on the implicit-GEMM kernel (ops/kernels/
 qconv_int8.py; a uint8 x on its uint8-A build) and group > 1 on the grouped
 kernel (ops/kernels/qconv_grouped_int8.py): the x zero point is the
 padding's value and, as -zx * sum w, part of the int32 bias; the epilogue
@@ -27,9 +27,17 @@ the requant epilogue; a b zero point takes the int32 epilogue and
 MatMulInteger's corrections. Every result but QGemm's quantized form (at
 most 1 LSB: its multiplier folds alpha and y_s) is the JAX emitter's value
 bit for bit, and for a uint8 output the ONNX spec's (the JAX emitter
-saturates every output to int8). Only a 3-D conv raises
-UnsupportedOpError, on the CPU as on the card, so both devices run the
-same function.
+saturates every output to int8).
+
+A zero point may be a graph constant or computed at run time (ONNX
+Runtime's `quantize_dynamic` form of a conv net feeds each ConvInteger the
+x zero point DynamicQuantizeLinear computes). A constant one reaches the
+kernels as a launch argument, and its corrections are made once, when the
+Engine is built (weights.prepack_int8_weights). A run-time one stays a
+device tensor (`_zero_point`): the kernels read the pad value and y's zero
+point from device memory, and the corrections (-zx * sum w, -za *
+colsum(b), the weight and b zero points' terms) are computed in the graph,
+so a captured CUDA graph replays with each run's values.
 
 QLinearAdd, QLinearMul (the quantizer's residual adds), QLinearSigmoid,
 QLinearLeakyRelu, QLinearGlobalAveragePool, QLinearAveragePool and
@@ -132,31 +140,37 @@ def _shift(dtype: torch.dtype) -> int:
     return 128 if dtype == torch.uint8 else 0
 
 
-def _zero_point(ctx: LoweringContext, node: Node, idx: int, what: str,
+def _zero_point(ctx: LoweringContext, node: Node, ins, idx: int, what: str,
                 t: Optional[torch.Tensor], per_tensor: bool = True):
     """Input idx's zero point as the kernels take it, less `_shift` of the
-    operand `t` it belongs to: a Python int (per_tensor), else an int64
-    numpy array of 1 or N values. Absent: 0 less the shift. The kernels'
-    padding and epilogues take it on the host, so it must be known before
-    the run: a zero point computed at run time raises."""
+    operand `t` it belongs to. Known before the run (a constant or absent,
+    absent being 0 less the shift): a Python int (per_tensor), else an
+    int64 numpy array of 1 or N values. Computed at run time: an int32
+    device tensor of 1 (per_tensor) or N values (`_zp_tensor`), which the
+    kernels read from device memory."""
     name = node.inputs[idx] if len(node.inputs) > idx else ""
     shift = _shift(t.dtype) if t is not None else 0
     if not name:
         return -shift if per_tensor else np.asarray([-shift], np.int64)
     v = ctx.constant(name)
-    if v is None:
-        raise UnsupportedOpError(
-            f"{node.op_type} {node.name or node.outputs[0]!r}: "
-            f"{what}_zero_point {name!r} is computed at run time (the "
-            f"kernels take a constant zero point)")
-    v = np.asarray(v).astype(np.int64).reshape(-1) - shift
+    if v is None:  # computed at run time: stays on the device
+        v = ins[idx].to(torch.int32).reshape(-1) - shift
+    else:
+        v = np.asarray(v).astype(np.int64).reshape(-1) - shift
+    n = v.numel() if isinstance(v, torch.Tensor) else v.size
     if per_tensor:
-        if v.size != 1:
+        if n != 1:
             raise UnsupportedOpError(
                 f"{node.op_type} {node.name or node.outputs[0]!r}: "
-                f"{what}_zero_point has {v.size} values (ONNX gives one)")
-        return int(v[0])
+                f"{what}_zero_point has {n} values (ONNX gives one)")
+        return v if isinstance(v, torch.Tensor) else int(v[0])
     return v
+
+
+def _nonzero(z) -> bool:
+    """Whether a zero point from `_zero_point` may be other than 0: one
+    computed at run time may be."""
+    return isinstance(z, torch.Tensor) or bool(np.any(z))
 
 
 def _out_dtype(y_zp: Optional[torch.Tensor], like: torch.Tensor):
@@ -181,9 +195,9 @@ def _zp_tensor(t: Optional[torch.Tensor], operand: torch.Tensor):
 # --------------------------------------------------------------------------
 def _unsupported_qconv(x, w, spatial, group) -> Optional[str]:
     """Why the kernels cannot run this conv, or None."""
-    if spatial not in (1, 2):
-        return (f"{spatial}-D spatial (ROADMAP 1.4: the kernels take 1-D "
-                f"and 2-D convs)")
+    if spatial not in (1, 2, 3) or w.dim() != x.dim():
+        return (f"{spatial}-D spatial with w {tuple(w.shape)} (ONNX convs "
+                f"over 1-3 spatial dims: the kernels take those)")
     if group < 1 or x.shape[1] != w.shape[1] * group \
             or w.shape[0] % group:
         return (f"group={group} with x {tuple(x.shape)} and w "
@@ -195,9 +209,10 @@ def _unsupported_qconv(x, w, spatial, group) -> Optional[str]:
 
 class _Conv:
     """One QLinearConv or ConvInteger as the kernels take it: 1-D convs as
-    H = 1, the weight as int8 (`as_int8`) with its zero point shifted to
-    match, the packed weights from the Engine (or packed per call on the
-    card for a weight computed at run time)."""
+    H = 1, 2-D and 3-D as they are, the weight as int8 (`as_int8`) with its
+    zero point shifted to match, the packed weights from the Engine (or
+    packed per call on the card for a weight computed at run time), each
+    zero point known before the run or a device tensor (`_zero_point`)."""
 
     def __init__(self, ctx: LoweringContext, node: Node, ins, w_in: int,
                  zx_in: int, zw_in: int):
@@ -220,8 +235,10 @@ class _Conv:
             padding = [(0, 0)] + list(padding)
         self.x, self.geom = x, dict(stride=strides, padding=padding,
                                     dilation=dilations)
-        self.zx = _zero_point(ctx, node, zx_in, "x", None)
-        self.zw = _zero_point(ctx, node, zw_in, "w", w, per_tensor=False)
+        self.spatial = x.dim() - 2  # of the kernels' operands
+        self.zx = _zero_point(ctx, node, ins, zx_in, "x", None)
+        self.zw = _zero_point(ctx, node, ins, zw_in, "w", w,
+                              per_tensor=False)
         self.zw_t = _zp_tensor(ins[zw_in] if len(ins) > zw_in else None, w)
         self.wname = node.inputs[w_in]
         self.packed = ctx.packed.get(self.wname)
@@ -237,8 +254,14 @@ class _Conv:
         """The int8 weight's sums per output channel (int32 [O])."""
         s = self.ctx.packed.get(colsum_key(self.wname))
         if s is None:
-            s = as_int8(self.w).sum(dim=(1, 2, 3), dtype=torch.int32)
+            s = as_int8(self.w).sum(dim=tuple(range(1, self.w.dim())),
+                                    dtype=torch.int32)
         return s
+
+    def per_channel(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-output-channel (or one-value) tensor shaped to broadcast
+        over the kernels' [B, O, spatial...] output."""
+        return t.reshape((1, -1) + (1,) * self.spatial)
 
     def out(self, y: torch.Tensor) -> torch.Tensor:
         return y.squeeze(2) if self.flat else y
@@ -256,11 +279,12 @@ class _Conv:
         else:
             acc = qconv_grouped_int8(x, wk, None, **self.geom, pad_value=zx,
                                      packed=self.packed)
-        if zx:
-            acc = acc - zx * self.wsum().reshape(1, -1, 1, 1)
-        if np.any(self.zw):
-            O, Cg, KH, KW = self.w.shape
-            ones = torch.ones((g, Cg, KH, KW), dtype=torch.int8,
+        if _nonzero(zx):
+            acc = acc - self.per_channel(zx * self.wsum())
+        if _nonzero(self.zw):
+            O, Cg = self.w.shape[:2]
+            kernel = tuple(self.w.shape[2:])
+            ones = torch.ones((g, Cg) + kernel, dtype=torch.int8,
                               device=x.device)
             packed = self.ctx.packed.get(ones_key(self.wname))
             if packed is None and x.device.type == "cuda":
@@ -272,40 +296,44 @@ class _Conv:
             xsum = xsum.repeat_interleave(O // g, dim=1)
             zw = self.zw_t
             if isinstance(zw, torch.Tensor):
-                zw = zw.reshape(1, -1, 1, 1)
-            acc = acc - zw * xsum + (Cg * KH * KW * zx) * zw
+                zw = self.per_channel(zw)
+            taps = Cg * int(np.prod(kernel))
+            acc = acc - zw * xsum + (taps * zx) * zw
         return acc
 
 
 def _pack_conv(w: torch.Tensor, group: int) -> torch.Tensor:
-    """An int8 conv weight [O, C/group, KH, KW] in its kernel's layout."""
+    """An int8 conv weight [O, C/group, KH, KW] (or [O, C/group, KD, KH,
+    KW]) in its kernel's layout."""
     return (pack_qconv_weight if group == 1 else pack_qconv_grouped_weight)(w)
 
 
 @register("QLinearConv")
 def qlinear_conv(ctx: LoweringContext, node: Node, ins):
     """ONNX QLinearConv in every QOperator form: int8 or uint8 x and y with
-    zero points, int8 or uint8 w with a zero point per tensor or per
-    channel, any group, dilation, 1-D and 2-D. Where w's zero point is 0
-    (ONNX Runtime's symmetric weights) it is one launch: x's zero point is
-    the pad value and, as -zx * sum w, part of the int32 bias; the epilogue
-    adds y's zero point and saturates to y's type. Otherwise the int32
-    sums (`_Conv.sums`) get the bias and the JAX emitter's requant in
-    PyTorch."""
+    zero points (known before the run or computed in it), int8 or uint8 w
+    with a zero point per tensor or per channel, any group, dilation, 1-D,
+    2-D and 3-D. Where w's zero point is 0 (ONNX Runtime's symmetric
+    weights) it is one launch: x's zero point is the pad value and, as
+    -zx * sum w, part of the int32 bias; the epilogue adds y's zero point
+    and saturates to y's type. Otherwise the int32 sums (`_Conv.sums`) get
+    the bias and the JAX emitter's requant in PyTorch."""
     (x, x_s, x_zp, w, w_s, w_zp, y_s, y_zp) = ins[:8]
     bias = ins[8] if len(ins) > 8 else None
     c = _Conv(ctx, node, ins, 3, 2, 5)
-    zy = _zero_point(ctx, node, 7, "y", None)
+    zy = _zero_point(ctx, node, ins, 7, "y", None)
     y_dtype = _out_dtype(y_zp, x)
     # the multiplier in fp32 and in the JAX emitter's order
     mult = (x_s.to(torch.float32) * w_s.to(torch.float32)
             / y_s.to(torch.float32))
-    if np.any(c.zw):
+    if _nonzero(c.zw):
         return (c.out(_requant(c.sums(), mult, bias, channel_dim=1,
                                y_zp=zy, out_dtype=y_dtype)),)
     b = bias
-    if c.zx:
-        b = ctx.packed.get(folded_bias_key(node.outputs[0]))
+    if _nonzero(c.zx):
+        # folded at Engine build for a constant zx; in the graph otherwise
+        b = (None if isinstance(c.zx, torch.Tensor)
+             else ctx.packed.get(folded_bias_key(node.outputs[0])))
         if b is None:
             b = -c.zx * c.wsum()
             if bias is not None:
@@ -318,8 +346,10 @@ def qlinear_conv(ctx: LoweringContext, node: Node, ins):
 @register("ConvInteger")
 def conv_integer(ctx: LoweringContext, node: Node, ins):
     """ONNX ConvInteger: the exact int32 sum_window (x - x_zp)(w - w_zp),
-    int8 or uint8 operands, w_zp per tensor or per output channel, any
-    group, 1-D and 2-D, on the conv kernels' int32 output."""
+    int8 or uint8 operands, w_zp per tensor or per output channel, either
+    zero point a constant or computed at run time (ONNX Runtime's
+    `quantize_dynamic` form: DynamicQuantizeLinear's), any group, 1-D, 2-D
+    and 3-D, on the conv kernels' int32 output."""
     c = _Conv(ctx, node, ins, 1, 2, 3)
     return (c.out(c.sums()),)
 
@@ -340,9 +370,11 @@ def _unsupported_qmatmul(a, b) -> Optional[str]:
 def _int8_product(ctx: LoweringContext, bname: Optional[str], ai, b, za,
                   zb, zb_t, bias, mult, zy, y_dtype, packed):
     """One 2-D b [K, N] (int8 or uint8) against ai = as_int8(a) [..., K],
-    a's zero point za and b's zb (numpy, 1 or N values; zb_t the same on
-    the device, `_zp_tensor`) already less their `_shift`s: requantized to y_dtype (int8 or uint8) with y's zero point
-    zy, or, where mult is None, the exact int32 (a - za)(b - zb) + bias.
+    a's zero point za and b's zb (`_zero_point`: known before the run, or
+    device tensors; zb_t the same on the device, `_zp_tensor`) already less
+    their `_shift`s: requantized to y_dtype (int8 or uint8) with y's zero
+    point zy, or, where mult is None, the exact int32 (a - za)(b - zb) +
+    bias.
     Where b has no zero point, -za * colsum(b) joins the bias and the
     kernel's requant epilogue does the rest; otherwise the int32 epilogue
     and the corrections of MatMulInteger, then the JAX emitter's requant."""
@@ -359,19 +391,19 @@ def _int8_product(ctx: LoweringContext, bname: Optional[str], ai, b, za,
 
     if bias is not None:
         bias = bias.to(torch.int32)
-    if mult is not None and not np.any(zb) and mult.numel() in (1, N):
-        if za:
+    if mult is not None and not _nonzero(zb) and mult.numel() in (1, N):
+        if _nonzero(za):
             b_f = -za * colsum()
             bias = b_f if bias is None else bias + b_f
         y = qmatmul_int8_requant(a2, bi, mult, bias, y_zp=zy,
                                  out_dtype=y_dtype, packed=packed)
         return y.reshape(*ai.shape[:-1], N)
     acc = qmatmul_int8(a2, bi, packed=packed)
-    if za:
+    if _nonzero(za):
         acc = acc - za * colsum()
-    if np.any(zb):
+    if _nonzero(zb):
         acc = acc - zb_t * a2.sum(dim=-1, keepdim=True, dtype=torch.int32)
-        if za:
+        if _nonzero(za):
             acc = acc + K * za * zb_t
     if bias is not None:
         acc = acc + bias
@@ -386,19 +418,20 @@ def _int8_product(ctx: LoweringContext, bname: Optional[str], ai, b, za,
 def qlinear_matmul(ctx: LoweringContext, node: Node, ins):
     """ONNX QLinearMatMul in every QOperator form: int8 or uint8 a, b and
     y, zero points on all three (b's per tensor or per column), an a of any
-    rank, and a batched b (>= 3-D, one launch per batch entry). uint8
-    operands are shifted into int8 (`as_int8`) and the zero points moved
-    with them; see `_int8_product`."""
+    rank, and a batched b (>= 3-D, one launch per batch entry), each zero
+    point a constant or computed at run time. uint8 operands are shifted
+    into int8 (`as_int8`) and the zero points moved with them; see
+    `_int8_product`."""
     (a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp) = ins[:8]
     bias = ins[8] if len(ins) > 8 else None
     why = _unsupported_qmatmul(a, b)
     if why is not None:
         raise UnsupportedOpError(
             f"QLinearMatMul {node.name or node.outputs[0]!r}: {why}")
-    za = _zero_point(ctx, node, 2, "a", a)
-    zb = _zero_point(ctx, node, 5, "b", b, per_tensor=False)
+    za = _zero_point(ctx, node, ins, 2, "a", a)
+    zb = _zero_point(ctx, node, ins, 5, "b", b, per_tensor=False)
     zb_t = _zp_tensor(b_zp, b)
-    zy = _zero_point(ctx, node, 7, "y", None)
+    zy = _zero_point(ctx, node, ins, 7, "y", None)
     y_dtype = _out_dtype(y_zp, a)
     # in fp32 and in the JAX emitter's order, from tensors on the device (a
     # true division: a CPU scalar divisor becomes a reciprocal multiply on
@@ -430,7 +463,8 @@ def qgemm(ctx: LoweringContext, node: Node, ins):
     emitter's order: alpha * f32(acc + C) * (a_s * b_s)). The quantized
     form runs on the requant epilogue with mult = alpha * a_s * b_s / y_s,
     which rounds where the JAX emitter's f32 division by y_s may not: at
-    most 1 LSB apart at a tie."""
+    most 1 LSB apart at a tie. Each zero point a constant or computed at
+    run time."""
     (a, a_s, a_zp, b, b_s, b_zp) = ins[:6]
     bias = ins[6] if len(ins) > 6 else None
     y_s = ins[7] if len(ins) > 7 else None
@@ -447,8 +481,8 @@ def qgemm(ctx: LoweringContext, node: Node, ins):
     why = _unsupported_qmatmul(a, b)
     if why is not None:
         raise UnsupportedOpError(f"QGemm {name!r}: {why}")
-    za = _zero_point(ctx, node, 2, "a", a)
-    zb = _zero_point(ctx, node, 5, "b", b, per_tensor=False)
+    za = _zero_point(ctx, node, ins, 2, "a", a)
+    zb = _zero_point(ctx, node, ins, 5, "b", b, per_tensor=False)
     zb_t = _zp_tensor(b_zp, b)
     scale = a_s.to(torch.float32) * b_s.to(torch.float32)
     bname = node.inputs[3]
@@ -459,7 +493,7 @@ def qgemm(ctx: LoweringContext, node: Node, ins):
         return (alpha * acc.to(torch.float32) * scale,)
     mult = alpha * scale / y_s.to(torch.float32)
     return (_int8_product(ctx, bname, as_int8(a), b, za, zb, zb_t, bias,
-                          mult, _zero_point(ctx, node, 8, "y", None),
+                          mult, _zero_point(ctx, node, ins, 8, "y", None),
                           _out_dtype(y_zp, a), packed),)
 
 

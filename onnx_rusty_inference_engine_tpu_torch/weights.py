@@ -62,7 +62,7 @@ _QTYPES = (torch.int8, torch.uint8)
 
 def _conv4(w: torch.Tensor) -> torch.Tensor:
     """A 1-D conv weight [O, C, K] as the 2-D one of height 1 the kernels
-    run; a 2-D one as it is."""
+    run; a 2-D or 3-D one as it is."""
     return w.unsqueeze(2) if w.dim() == 3 else w
 
 
@@ -84,10 +84,10 @@ def _packer(node):
     if op in ("QLinearConv", "ConvInteger"):
         pack = (pack_qconv_weight if int(node.attr("group", 1)) == 1
                 else pack_qconv_grouped_weight)
-        return ((3 if op == "QLinearConv" else 1), (3, 4),
+        return ((3 if op == "QLinearConv" else 1), (3, 4, 5),
                 lambda w: pack(as_int8(_conv4(w))),
-                lambda w: as_int8(_conv4(w)).sum(dim=(1, 2, 3),
-                                                 dtype=torch.int32))
+                lambda w: as_int8(w).sum(dim=tuple(range(1, w.dim())),
+                                         dtype=torch.int32))
     return None
 
 
@@ -102,14 +102,15 @@ def _const_int(graph: Graph, node, idx: int) -> Optional[np.ndarray]:
 def _x_zero_point(graph: Graph, node) -> bool:
     """Whether the node's activation has a zero point its correction needs
     the weight's sums for: a MatMulInteger's a_zero_point input (constant
-    or not); a conv's or QLinear product's constant zero point, less 128
-    for a uint8 QLinearMatMul or QGemm operand (which `as_int8` shifts),
-    other than 0."""
+    or not); a conv's or QLinear product's zero point computed at run time,
+    or a constant one, less 128 for a uint8 QLinearMatMul or QGemm operand
+    (which `as_int8` shifts), other than 0."""
+    present = len(node.inputs) > 2 and bool(node.inputs[2])
     if node.op_type == "MatMulInteger":
-        return len(node.inputs) > 2 and bool(node.inputs[2])
+        return present
     z = _const_int(graph, node, 2)
     if z is None:
-        return False
+        return present
     name = node.inputs[2]
     shift = (128 if node.op_type in ("QLinearMatMul", "QGemm")
              and np.asarray(graph.constants[name]).dtype == np.uint8 else 0)
@@ -119,22 +120,27 @@ def _x_zero_point(graph: Graph, node) -> bool:
 def _conv_extras(graph: Graph, node, name: str, w: torch.Tensor,
                  colsum: torch.Tensor, params, packed: dict) -> None:
     """What a QLinearConv's or ConvInteger's zero points need ahead of the
-    run: with a weight zero point, the packed all-ones weight of the window
-    sums (`ones_key`); for a QLinearConv with an x zero point and none on
-    the weight, its bias with -zx * sum w folded in (`folded_bias_key`)."""
+    run: with a weight zero point (or one computed at run time), the packed
+    all-ones weight of the window sums (`ones_key`); for a QLinearConv with
+    a constant x zero point and none on the weight, its bias with -zx *
+    sum w folded in (`folded_bias_key`; a run-time zx is folded in the
+    graph)."""
     qlinear = node.op_type == "QLinearConv"
     zx = _const_int(graph, node, 2)
-    zw = _const_int(graph, node, 5 if qlinear else 3)
+    zw_idx = 5 if qlinear else 3
+    zw = _const_int(graph, node, zw_idx)
+    zw_runtime = (zw is None and len(node.inputs) > zw_idx
+                  and bool(node.inputs[zw_idx]))
     shift = 128 if w.dtype == torch.uint8 else 0
-    w_zero = (zw is None and not shift) or (
-        zw is not None and not np.any(zw - shift))
+    w_zero = not zw_runtime and ((zw is None and not shift) or (
+        zw is not None and not np.any(zw - shift)))
     if not w_zero:
         group = int(node.attr("group", 1))
         ones = torch.ones((group, w.shape[1]) + tuple(_conv4(w).shape[2:]),
                           dtype=torch.int8, device=w.device)
         packed[ones_key(name)] = (pack_qconv_weight if group == 1
                                   else pack_qconv_grouped_weight)(ones)
-    elif qlinear and colsum is not None and zx.size == 1:
+    elif qlinear and colsum is not None and zx is not None and zx.size == 1:
         b = -int(zx[0]) * colsum
         bname = node.inputs[8] if len(node.inputs) > 8 else ""
         if bname:
@@ -149,8 +155,8 @@ def prepack_int8_weights(graph: Graph, params: Mapping[str, torch.Tensor]
     """Weight name -> kernel layout (`pack_qconv_weight`,
     `pack_qconv_grouped_weight` for group > 1, `pack_qmatmul_weight`) for
     every QLinearConv, ConvInteger, QLinearMatMul, QGemm and MatMulInteger
-    whose weight (int8 or uint8, taken as int8 by `as_int8`; 2-D, and 3-D
-    or 4-D for a conv) sits in `params` on a CUDA device. A weight whose
+    whose weight (int8 or uint8, taken as int8 by `as_int8`; 2-D, and 3-D,
+    4-D or 5-D for a conv) sits in `params` on a CUDA device. A weight whose
     node's activation has a zero point (`_x_zero_point`) also keeps the
     int32 sums of its int8 form per output under `colsum_key(name)`, which
     that zero point's correction reads, and a conv what `_conv_extras`

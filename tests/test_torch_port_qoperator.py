@@ -19,8 +19,6 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
-    UnsupportedOpError)
 from torch_port_util import run_op_port
 from util import run_op
 
@@ -121,7 +119,7 @@ def _spec_qconv(x, inits, group, k, attrs):
     flat = []
     for i in reversed(range(spatial)):
         flat += [pads[i], pads[i + spatial]]
-    conv = {1: F.conv1d, 2: F.conv2d}[spatial]
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[spatial]
     acc = conv(F.pad(xs, flat), torch.from_numpy(w),
                stride=attrs.get("strides", [1] * spatial),
                dilation=attrs.get("dilations", [1] * spatial),
@@ -181,20 +179,99 @@ def test_jax_qlinearconv_saturates_a_uint8_output_to_int8():
     assert err.max() == 128 and spec.min() == 0 and spec.max() == 255
 
 
-@pytest.mark.parametrize("op", ["QLinearConv", "ConvInteger"])
-def test_3d_convs_still_raise(op):
-    """The one QOperator form left (ROADMAP 1.4): a 3-D conv."""
-    rng = np.random.default_rng(0)
-    x = rng.integers(-128, 128, (1, 4, 5, 5, 5)).astype(np.int8)
-    w = rng.integers(-127, 128, (4, 4, 3, 3, 3)).astype(np.int8)
-    if op == "QLinearConv":
-        inits = {"x_s": np.float32(0.05), "x_zp": np.int8(0), "w": w,
-                 "w_s": np.float32(0.01), "w_zp": np.int8(0),
-                 "y_s": np.float32(0.5), "y_zp": np.int8(0)}
-    else:
-        inits = {"w": w}
-    with pytest.raises(UnsupportedOpError, match="1.4"):
-        run_op_port(op, {"x": x}, inits, kernel_shape=[3, 3, 3])
+# 3-D: (x shape, O, kernel, attrs, x_zp, w_zp, y_zp, per-channel w_s, group)
+QCONV3D_CASES = {
+    "3d_group1": ((2, 8, 5, 6, 7), 6, (3, 3, 3),
+                  dict(pads=[1, 1, 1, 1, 1, 1]), 5, 0, -3, True, 1),
+    "3d_depthwise": ((1, 16, 4, 7, 7), 16, (3, 3, 3),
+                     dict(pads=[1, 1, 1, 1, 1, 1]), -6, 0, 4, True, 16),
+    "3d_strided": ((2, 4, 7, 9, 8), 8, (3, 3, 3),
+                   dict(pads=[1, 1, 1, 1, 1, 1], strides=[2, 2, 1]), 3, 0,
+                   0, True, 1),
+    "3d_dilated": ((1, 4, 7, 7, 7), 4, (3, 3, 3),
+                   dict(pads=[2, 2, 2, 2, 2, 2], dilations=[2, 1, 2]), 9, 0,
+                   -5, False, 1),
+    "3d_asymmetric_pads": ((1, 8, 5, 6, 6), 6, (3, 7, 7),
+                           dict(pads=[1, 3, 2, 0, 3, 1],
+                                strides=[1, 2, 2]), -11, 0, 2, True, 1),
+    "3d_per_channel_wzp": ((1, 4, 4, 5, 5), 6, (3, 3, 3),
+                           dict(pads=[1, 1, 1, 1, 1, 1]), 2,
+                           [1, -2, 0, 3, 4, -1], 1, True, 1),
+    "3d_1x1x1_stride2": ((2, 16, 4, 6, 6), 32, (1, 1, 1),
+                         dict(strides=[2, 2, 2]), -4, 0, 3, True, 1),
+    "3d_grouped_wzp": ((1, 8, 4, 5, 5), 8, (3, 3, 3),
+                       dict(pads=[1, 1, 1, 1, 1, 1]), 2,
+                       [1, 0, -1, 2, 3, -3, 0, 1], 1, True, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(QCONV3D_CASES))
+def test_qlinearconv_3d_matches_jax(case):
+    """A 3-D QLinearConv (int8 x and y with zero points, per-channel or
+    per-tensor w_s, a w zero point per tensor or per channel, group 1,
+    depthwise and grouped) on the kernels' 3-D forms' plain versions:
+    equal to the JAX emitter's output bit for bit."""
+    shape, O, k, attrs, zx, zw, zy, per_ch, group = QCONV3D_CASES[case]
+    x, inits = _conv_case(21, shape, O, k, group=group, x_zp=zx, w_zp=zw,
+                          y_zp=zy, per_channel=per_ch)
+    kw = dict(kernel_shape=list(k), group=group, **attrs)
+    (want,) = run_op("QLinearConv", {"x": x}, inits, **kw)
+    (got,) = run_op_port("QLinearConv", {"x": x}, inits, **kw)
+    assert got.dtype == want.dtype == np.int8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["3d_group1", "3d_depthwise",
+                                  "3d_asymmetric_pads"])
+def test_qlinearconv_3d_uint8_matches_spec_and_jax_twin(case):
+    """uint8 x and y with zero points: the ONNX spec's values, and less 128
+    the JAX emitter's on the int8 twin."""
+    shape, O, k, attrs, zx, zw, zy, per_ch, group = QCONV3D_CASES[case]
+    x, inits = _conv_case(22, shape, O, k, group=group, dtype=np.uint8,
+                          x_zp=zx + 128, w_zp=zw, y_zp=zy + 128,
+                          per_channel=per_ch)
+    kw = dict(kernel_shape=list(k), group=group, **attrs)
+    (got,) = run_op_port("QLinearConv", {"x": x}, inits, **kw)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, _spec_qconv(x, inits, group, k,
+                                                   attrs))
+    twin = dict(inits, x_zp=_twin(inits["x_zp"]), y_zp=_twin(inits["y_zp"]))
+    (want,) = run_op("QLinearConv", {"x": _twin(x)}, twin, **kw)
+    np.testing.assert_array_equal(_twin(got), want)
+
+
+# (x dtype, w dtype, x_zp, w_zp, group, attrs)
+CONVINT3D_CASES = {
+    "3d_u8_x_s8_w": (np.uint8, np.int8, 131, None, 1,
+                     dict(pads=[1, 1, 1, 1, 1, 1])),
+    "3d_depthwise_per_channel": (np.uint8, np.int8, 120,
+                                 [1, -2, 0, 3, 4, -1], 6,
+                                 dict(pads=[1, 1, 1, 1, 1, 1])),
+    "3d_strided_dilated": (np.int8, np.int8, -5, 3, 1,
+                           dict(pads=[2, 1, 2, 2, 0, 2], strides=[2, 1, 2],
+                                dilations=[1, 2, 1])),
+    "3d_u8_both_per_channel": (np.uint8, np.uint8, 100,
+                               [128, 127, 130, 126, 125, 129], 2,
+                               dict(pads=[0, 1, 1, 0, 1, 1])),
+}
+
+
+@pytest.mark.parametrize("case", list(CONVINT3D_CASES))
+def test_convinteger_3d_matches_jax_exactly(case):
+    xd, wd, zx, zw, group, attrs = CONVINT3D_CASES[case]
+    rng = np.random.default_rng(23)
+    xi, wi = np.iinfo(xd), np.iinfo(wd)
+    x = rng.integers(xi.min, xi.max + 1, (2, 6, 5, 6, 7)).astype(xd)
+    w = rng.integers(wi.min, wi.max + 1,
+                     (6, 6 // group, 3, 3, 3)).astype(wd)
+    inits = {"w": w, "x_zp": xd(zx)}
+    if zw is not None:
+        inits["w_zp"] = np.asarray(zw, wd) if np.ndim(zw) else wd(zw)
+    kw = dict(kernel_shape=[3, 3, 3], group=group, **attrs)
+    (want,) = run_op("ConvInteger", {"x": x}, inits, **kw)
+    (got,) = run_op_port("ConvInteger", {"x": x}, inits, **kw)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
 
 
 # --------------------------------------------------------------------------
