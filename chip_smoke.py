@@ -512,6 +512,27 @@ Phases, each printing JSON lines:
              QLinearConv, QLinearMatMul and QGemm with run-time x and y
              zero points, eager and replayed, equal to the CPU. `bf16_input`:
              a BFLOAT16 graph input fed a bf16 tensor, equal to the CPU.
+6e. parallel - the mesh on the card, a world of one rank on NCCL (after
+             6d), weights from seed 0, one line per path with the backend,
+             the world size, the mesh, `shard_routes` (the sharded
+             Engine's nodes by route) and the rate beside the unsharded
+             run's on the same card (the collectives' cost at one rank,
+             not scaling). `squeezenet_int8`: SqueezeNet 1.0 INT8 224x224
+             b256 through Engine(mesh={data: 1, model: 1},
+             cnn_param_sharding, data_input_sharding): 26
+             qconv_int8_requant launches a forward, the output bit-equal
+             to the unsharded INT8 Engine's, its replay to its eager run.
+             `gpt2_tensor`: GPT-2 124M's widths at GPT2_SIDE_LAYERS layers,
+             INT4 planar + INT8 KV + fused attention, b8, prompt 64, 16 new
+             tokens, through Generator(mesh=, param_sharding_fn=the
+             north-star rule of tests/test_gpt2.py), host loop and
+             device_loop=8: tokens and int4 / attention launches equal
+             the unsharded Generator's. `gpt2_pipeline`: the same model
+             (unfused attention) through Generator(mesh={pipe: 1},
+             pipeline_axis="pipe"), both loops, tokens and launches equal.
+             `decode_server`: a DecodeServer sharded by the same rule, 8
+             slots, 8 requests x 16 tokens, served tokens equal the
+             unsharded server's.
 20. kernels - one line listing every ported kernel, one per TPU kernel,
              and the grouped int8 conv, which has no TPU kernel behind it,
              then the bf16-and-W8A8 instances (qmatmul_int8's MatMulInteger
@@ -528,7 +549,9 @@ Phases, each printing JSON lines:
              launches by path in `families_path`, and int4 planar's row
              the beam path's launches (6c) in `decoding_path`; then the
              rows of 6d's new instances (the 3-D conv, the 3-D grouped
-             conv, the device-zero-point form), each with `instance`.
+             conv, the device-zero-point form), each with `instance`;
+             the rows of the kernels 6e runs carry their launches by path
+             in `parallel_path`.
 
 The whole run is one models.host_memo block: every GPT-2 and Llama graph
 of one config and seed (Generators, servers, precision schemes, export
@@ -7884,6 +7907,203 @@ def phase_int8_whole(smi: str) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# 6e. parallel: the mesh on the card, a world of one rank on NCCL
+# --------------------------------------------------------------------------
+PAR_NEW = 16       # new tokens per GPT-2 run and per served request
+PAR_DL = 8         # the device loop's K
+PAR_ITERS = 5      # replayed forwards timed per SqueezeNet Engine
+
+
+def _north_star(mesh):
+    """tests/test_gpt2.py's north-star rule on the port's placements: the
+    packed int4 weights [N, K/2] on N, their scales [2 nbh, N] on N, other
+    2-D weights whose last dim divides by 4 on it, over "model"."""
+    from onnx_rusty_inference_engine_tpu_torch.parallel.sharding import (
+        placements, replicated)
+
+    def rule(name, arr):
+        if name.endswith("__w4") and arr.ndim == 2:
+            return placements(mesh, {"model": 0})
+        if name.endswith("__w4s") or (arr.ndim == 2
+                                      and arr.shape[-1] % 4 == 0):
+            return placements(mesh, {"model": 1})
+        return replicated(mesh)
+
+    return rule
+
+
+def _par_line(path: str, t0: float, mesh, smi: str, **kw) -> None:
+    import torch.distributed as dist
+
+    emit({"phase": "parallel", "path": path,
+          "backend": str(dist.get_backend()),
+          "world_size": dist.get_world_size(),
+          "mesh": dict(zip(mesh.mesh_dim_names,
+                           (int(n) for n in mesh.shape))),
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi, **kw})
+
+
+def _replayed_ips(eng, feed, batch: int) -> float:
+    """images/s of eng's replayed graph (CUDA events, PAR_ITERS calls)."""
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in feed.items()}
+    eng(dev)
+    return batch / (cuda_ms(lambda: eng(dev), PAR_ITERS) / 1e3)
+
+
+PAR_RUNS = 3       # timed runs per Generator and loop, after a warm one
+
+
+def _par_generate(gen, prompts, dl: int):
+    """(tokens, int4 and attention launches of one run, median wall s of
+    PAR_RUNS) of PAR_NEW-token runs at device_loop `dl`, after a warm run
+    (captures)."""
+    gen.device_loop = dl
+    gen.generate(prompts, PAR_NEW)
+    walls = []
+    for i in range(PAR_RUNS):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _ = gen.generate(prompts, PAR_NEW)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            c = read_counts()
+    return toks, {k: c[k] for k in ("qmatmul_int4_planar",
+                                    "decode_attention_int8")}, \
+        float(np.median(walls))
+
+
+def phase_parallel(smi: str) -> dict:
+    """The mesh paths on the card, a world of one rank on NCCL, each held
+    to its unsharded run: (a) SqueezeNet INT8 b256 through a sharded
+    Engine (cnn_param_sharding, data_input_sharding), (b) GPT-2 124M's
+    widths at GPT2_SIDE_LAYERS layers tensor-sharded by the north-star
+    rule (INT4 + INT8 KV + fused attention; host loop and device_loop),
+    (c) the same model pipelined over {pipe: 1} (unfused), (d) a sharded
+    DecodeServer. Returns {kernel: {path: launches}}."""
+    import onnx_rusty_inference_engine_tpu_torch as P
+    import torch.distributed as dist
+    from onnx_rusty_inference_engine_tpu_torch.generate import Generator
+    from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+    from onnx_rusty_inference_engine_tpu_torch.parallel import (
+        cnn_param_sharding, data_input_sharding, make_mesh)
+    from onnx_rusty_inference_engine_tpu_torch.serve_llm import DecodeServer
+
+    out: dict = {}
+    mesh = make_mesh({"data": 1, "model": 1})
+    require(dist.get_backend() == "nccl", "an NCCL process group on the card")
+
+    # (a) SqueezeNet 1.0 INT8, 224x224, b256
+    t0 = time.perf_counter()
+    graph = P.import_model(P.build_squeezenet())
+    x = np.random.default_rng(0).standard_normal(
+        (BATCH, 3, 224, 224)).astype(np.float32)
+    feed = {"data_0": x}
+    qgraph = P.quantize_graph(graph, ranges=P.calibrate(
+        graph, [{"data_0": x[:CALIB]}]))
+    plain = P.Engine(qgraph)
+    want = plain(feed)["softmaxout_1"]
+    eng = P.Engine(qgraph, mesh=mesh,
+                   param_sharding_fn=cnn_param_sharding(mesh),
+                   input_sharding_fn=data_input_sharding(mesh))
+    reset_counts()
+    got = eng(feed)["softmaxout_1"]
+    launches = read_counts()["qconv_int8_requant"]
+    require(launches == 26, f"26 qconv_int8_requant launches a sharded "
+            f"forward, got {launches}")
+    require(bool(torch.equal(got, want)),
+            "sharded INT8 SqueezeNet bit-equal to the unsharded Engine")
+    routes = eng.shard_routes
+    again = eng(feed)["softmaxout_1"]
+    require(bool(torch.equal(again, got)),
+            "sharded INT8 SqueezeNet's replay bit-equal to its eager run")
+    ips = _replayed_ips(eng, feed, BATCH)
+    ips_plain = _replayed_ips(plain, feed, BATCH)
+    out["qconv_int8_requant"] = {"squeezenet_int8": launches}
+    _par_line("squeezenet_int8", t0, mesh, smi, shard_routes=routes,
+              launches={"qconv_int8_requant": launches},
+              images_per_s=ips, unsharded_images_per_s=ips_plain,
+              bit_equal=True, replay_equal=True)
+    del plain, eng, want, got, again
+    torch.cuda.empty_cache()
+
+    # (b) GPT-2 124M's widths, tensor-sharded by the north-star rule
+    cfg = GPT2Config(n_layer=GPT2_SIDE_LAYERS)
+    prompts = _decode_prompts(cfg)
+    kw = dict(kv_dtype="int8", int4_weights=True, fused_attention=True)
+    for path, mkw, ref_kw in (
+            ("gpt2_tensor", dict(mesh=mesh,
+                                 param_sharding_fn=_north_star(mesh)), kw),
+            ("gpt2_pipeline", dict(mesh=make_mesh({"pipe": 1}),
+                                   pipeline_axis="pipe"),
+             dict(kv_dtype="int8", int4_weights=True))):
+        t0 = time.perf_counter()
+        ref = _generator(cfg, **ref_kw)
+        gen = _generator(cfg, **ref_kw, **mkw)
+        line = {}
+        for dl in (0, PAR_DL):
+            want, c_want, w_want = _par_generate(ref, prompts, dl)
+            toks, c, w = _par_generate(gen, prompts, dl)
+            require(np.array_equal(toks, want),
+                    f"{path} device_loop={dl}: tokens equal the unsharded "
+                    f"Generator's")
+            require(c == c_want, f"{path} device_loop={dl}: launches {c} "
+                    f"equal the unsharded {c_want}")
+            tok = DEC_BATCH * PAR_NEW
+            line[f"device_loop_{dl}"] = {
+                "launches": c, "tokens_per_s": tok / w,
+                "unsharded_tokens_per_s": tok / w_want}
+            for k, n in c.items():
+                if n:
+                    out.setdefault(k, {})[f"{path}_dl{dl}"] = n
+        routes = (gen.decode.shard_routes if path == "gpt2_tensor" else
+                  {"stages": gen.decode.n_stages,
+                   "layers_per_stage": gen.decode.layers_per_stage})
+        _par_line(path, t0, mkw["mesh"], smi, shard_routes=routes,
+                  tokens_equal=True, **line)
+        del ref, gen
+        torch.cuda.empty_cache()
+
+    # (d) DecodeServer, 8 slots, 8 requests x PAR_NEW tokens
+    t0 = time.perf_counter()
+    reqs = _serve_requests(cfg)[:SERVE_SLOTS]
+    served = {}
+    for name, skw in (("unsharded", {}),
+                      ("sharded", dict(mesh=mesh,
+                                       param_sharding_fn=_north_star(mesh)))):
+        srv = DecodeServer(cfg, slots=SERVE_SLOTS, prompt_len=PROMPT,
+                           max_len=MAX_LEN, kv_dtype="int8",
+                           int4_weights=True, autostart=False, **skw)
+        warm = srv.submit(reqs[0], 2)  # a first request captures graphs
+        srv.start()
+        warm.result(timeout=600)
+        reset_counts()
+        t1 = time.perf_counter()
+        futs = [srv.submit(p, PAR_NEW) for p in reqs]
+        toks = [[int(t) for t in f.result(timeout=600)] for f in futs]
+        wall = time.perf_counter() - t1
+        c = read_counts()
+        served[name] = (toks, wall, c["qmatmul_int4_planar"],
+                        srv.decode.shard_routes)
+        srv.stop()
+    require(served["sharded"][0] == served["unsharded"][0],
+            "sharded DecodeServer's tokens equal the unsharded server's")
+    out.setdefault("qmatmul_int4_planar", {})["decode_server"] = \
+        served["sharded"][2]
+    tok = SERVE_SLOTS * PAR_NEW
+    _par_line("decode_server", t0, mesh, smi,
+              shard_routes=served["sharded"][3], tokens_equal=True,
+              int4_launches=served["sharded"][2],
+              unsharded_int4_launches=served["unsharded"][2],
+              tokens_per_s=tok / served["sharded"][1],
+              unsharded_tokens_per_s=tok / served["unsharded"][1])
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     require(torch.cuda.is_available(),
             "a CUDA device (torch.cuda.is_available() is false)")
@@ -7976,6 +8196,10 @@ def main() -> int:
                     row["decoding_path"] = dec[row["name"]]
             beam = dec["qmatmul_int4_planar"]
             rows += phase_int8_whole(smi)
+            par = phase_parallel(smi)
+            for row in rows:
+                if row["name"] in par and "instance" not in row:
+                    row["parallel_path"] = par[row["name"]]
             rows.append(phase_nibble(
                 counts["qmatmul_int4_planar"]
                 + counts_ort["qmatmul_int4_bf16"]
@@ -7983,7 +8207,8 @@ def main() -> int:
                 + scan["launches"]
                 + sum(p["launches"] for p in fam.get(
                     "qmatmul_int4_planar", {}).values())
-                + beam["beam_host_loop"] + beam["beam_device_loop"], smi))
+                + beam["beam_host_loop"] + beam["beam_device_loop"]
+                + sum(par.get("qmatmul_int4_planar", {}).values()), smi))
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})
             emit({"kernels": rows})
     finally:

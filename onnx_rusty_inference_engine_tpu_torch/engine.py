@@ -29,6 +29,13 @@ product shape is a new signature, and so a new captured graph); the host
 epilog runs after it on the device outputs it reads. Their outputs are
 host values (numpy arrays, ZipMap's list of dicts) beside the device
 tensors. A graph with no device outputs runs no device graph at all.
+
+`Engine(mesh=, param_sharding_fn=, input_sharding_fn=)` is the JAX
+Engine's sharded form on torch.distributed (parallel/spmd.py): every rank
+of the mesh builds it and makes the same calls, holds only its shards of
+the sharded weights, runs each node on its shards with the collectives
+that make the outputs whole, and is captured and replayed as above, its
+collectives inside the graph.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ __all__ = ["lower", "lower_packed", "node_label", "Engine",
 
 
 def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
-          = None):
+          = None, spmd=None):
     """Build `f(params: dict[str, Tensor], inputs: dict[str, Tensor]) ->
     dict[str, Tensor]` that runs the graph on `device`.
 
@@ -62,8 +69,9 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
     points, folded values) are moved to the device here, once. `packed`
     holds the pre-packed QLinearConv and QLinearMatMul weights the kernels
     read on the card (`weights.prepack_int8_weights`; `Engine` makes
-    them)."""
-    fn = lower_packed(graph, device)
+    them). `spmd`, for a sharded Engine, runs the nodes on this rank's
+    shards with the mesh's collectives (parallel/spmd.py)."""
+    fn = lower_packed(graph, device, spmd)
     packed = {} if packed is None else packed
 
     def bound(params, inputs, statics=None):
@@ -72,7 +80,7 @@ def lower(graph: Graph, device, packed: Optional[Dict[str, torch.Tensor]]
     return bound
 
 
-def lower_packed(graph: Graph, device):
+def lower_packed(graph: Graph, device, spmd=None):
     """`lower`'s function with the packed weights an argument:
     `f(params, packed, inputs, statics=None)`. torch.export traces it
     (export_aot.py), so that the weights and the packed weights are inputs
@@ -105,6 +113,8 @@ def lower_packed(graph: Graph, device):
         ctx = LoweringContext(graph, env, packed, device=device,
                               statics=statics, subgraphs=subgraphs)
         ctx.batch_polymorphic = _batch_polymorphic(graph, inputs)
+        if spmd is not None:
+            return spmd.run(ctx, graph, inputs)
         ctx.run_nodes(graph.nodes)
         return {o: env[o] for o in graph.outputs}
 
@@ -214,6 +224,14 @@ class Engine:
     dtype: compute dtype policy for float tensors, "float32" or
         "bfloat16" (the graph's f32 weights held in bf16, f32 inputs cast
         in and bf16 outputs cast out).
+    mesh / param_sharding_fn / input_sharding_fn: a DeviceMesh
+        (parallel/mesh.py) and the rules (parallel/sharding.py) that place
+        the weights and the inputs on it. Every rank of the mesh builds the
+        Engine and makes the same calls; each holds only its shards of the
+        sharded weights (`params`), runs each node on its shards and
+        returns the whole outputs (parallel/spmd.py). `shard_routes` counts
+        the last eager run's nodes by route. With mesh=None nothing
+        changes.
     share_params_with: an Engine whose device weights this one reuses
         where a weight of the same name has the same value and the same
         dtype on the device under this Engine's policy (the decode graphs
@@ -224,9 +242,11 @@ class Engine:
 
     def __init__(self, graph: Graph, *, device="cuda",
                  dtype: str = "float32",
+                 mesh=None, param_sharding_fn=None, input_sharding_fn=None,
                  share_params_with: Optional["Engine"] = None):
         self.dtype = _policy_dtype(dtype)
         self.device = resolve_device(device)
+        self.mesh = mesh
         # string / image front-end ops run on the host before the device
         # graph, map / string tails after it (host.py); a call takes the
         # graph's inputs and returns its outputs, wherever they are made
@@ -240,6 +260,19 @@ class Engine:
                 for n in g.nodes]:
             if node.op_type not in STATIC_OPS:
                 get_emitter(node.op_type, node.domain)
+        self._spmd = None
+        if mesh is not None:
+            from .parallel.spmd import SpmdRun, shard_graph
+
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for an Engine "
+                                 f"on {self.device}")
+            graph, specs, routes = shard_graph(graph, mesh,
+                                               param_sharding_fn)
+            self._spmd = SpmdRun(mesh, specs, routes, input_sharding_fn)
+        elif param_sharding_fn is not None or input_sharding_fn is not None:
+            raise ValueError("param_sharding_fn / input_sharding_fn need a "
+                             "mesh")
         self.graph = graph
         donor = share_params_with
         if donor is not None and set(donor.params) != set(graph.weight_names):
@@ -253,12 +286,27 @@ class Engine:
             {k: graph.constants[k] for k in graph.weight_names
              if k not in shared}, self.device, float32_as=self.dtype)}
         self.packed = prepack_int8_weights(graph, self.params)
-        self._fn = _with_policy(lower(graph, self.device, self.packed),
-                                self.dtype)
+        self._fn = _with_policy(lower(graph, self.device, self.packed,
+                                      self._spmd), self.dtype)
         self._statics: Dict[tuple, dict] = {}    # signature -> static values
         self._graphs: Dict[tuple, _Captured] = {}  # signature -> its graph
         self._pool = None     # one memory pool for all of them
         self._stream = None   # the side stream they are captured on
+        if self._spmd is not None and captures(self.device):
+            # the communicators exist before the first capture
+            from .parallel.collectives import all_reduce
+
+            with torch.no_grad(), side_stream(self.side_stream()):
+                for key in self._spmd.group_keys():
+                    all_reduce(torch.zeros(1, device=self.device), key)
+
+    @property
+    def shard_routes(self) -> Optional[Dict[str, int]]:
+        """A sharded Engine's nodes by route in its last eager run
+        (parallel/spmd.py: the weight routes a-d, nodes run on local
+        activation shards or on whole tensors, and the activation and
+        output gathers); None without a mesh."""
+        return None if self._spmd is None else dict(self._spmd.counts)
 
     def _held_dtype(self, value) -> torch.dtype:
         """The dtype a weight of this value has on the device under this

@@ -38,7 +38,17 @@ under `utils.fp32.fp32_exact`, as the emitters do. Only an artifact with
 host stages parses ONNX on load: its stages' small graphs, which run in
 numpy before and after the program, as in the Engine.
 
-Not in this port yet: sharded artifacts (ROADMAP 1.12). A JAX artifact
+A sharded Engine (parallel/spmd.py) exports as one program for every
+rank: its collectives are `oriet::dist_*` ops that name their mesh dim's
+group by key, and its input blocks are cut inside it at run time, so the
+program holds no rank. Every rank calls `export_engine` (it gathers each
+rank's shards to rank 0, which writes the file): the meta records
+`nr_devices` and the mesh's shape, the replicated weights are stored once
+(`p:{name}`) and each rank's shards and packed weights under its rank
+(`p{r}:{name}`, `k{r}:{name}`). `load_exported(mesh=...)` on a world of at
+least `nr_devices` ranks (it makes the mesh from the meta where none is
+given) registers the mesh under the program's key and places this rank's
+shards; a smaller world raises, as in the JAX package. A JAX artifact
 (format "oriet-aot-v1", StableHLO) is refused by name; so is any other
 file.
 """
@@ -163,6 +173,7 @@ def export_engine(engine, example_inputs: Mapping[str, np.ndarray],
     from .weights import prepack_int8_weights
 
     graph = engine.graph
+    spmd = engine._spmd
     host, epilog = engine._host, engine._epilog
     platforms = _platforms(engine, platforms)
     if host is not None:
@@ -177,7 +188,7 @@ def export_engine(engine, example_inputs: Mapping[str, np.ndarray],
     programs = {}
     for p in platforms:
         dev = engine.device if engine.device.type == p else torch.device(p)
-        fn = lower_packed(graph, dev)
+        fn = lower_packed(graph, dev, spmd)
 
         def program(params, packed, inputs, fn=fn):
             # a fresh set of static values, under the Engine's dtype policy
@@ -234,10 +245,57 @@ def export_engine(engine, example_inputs: Mapping[str, np.ndarray],
         payload["__epilog__"] = _stage_blob(epilog.nodes, consts)
     for p, blob in programs.items():
         payload[f"__exported__:{p}"] = np.frombuffer(blob, dtype=np.uint8)
+    if spmd is not None:
+        if not _rank_payload(engine, packed, meta, payload):
+            return
     payload["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"),
                                         dtype=np.uint8)
     with open(out_path, "wb") as f:
         np.savez(f, **payload)
+    if spmd is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _rank_names(engine) -> List[str]:
+    """A sharded Engine's weights that differ between ranks: the sharded
+    ones and the per-output vectors cut for them."""
+    return sorted(k for k in engine.params
+                  if k in engine._spmd.specs or "@shard:" in k)
+
+
+def _rank_payload(engine, packed, meta: dict, payload: dict) -> bool:
+    """Gather every rank's shards and packed weights to rank 0 and put
+    them in the payload under their ranks, with the mesh in the meta.
+    True on rank 0 (which writes the file); the other ranks wait at the
+    barrier (export_engine's last step)."""
+    import torch.distributed as dist
+
+    from .parallel.collectives import mesh_key
+    from .parallel.mesh import axis_size
+
+    mesh = engine.mesh
+    own = _rank_names(engine)
+    local = {f"p:{k}": _to_numpy(engine.params[k]) for k in own}
+    local.update({f"k:{k}": _to_numpy(v) for k, v in packed.items()})
+    world = dist.get_world_size()
+    every = [None] * world if dist.get_rank() == 0 else None
+    dist.gather_object(local, every, dst=0)
+    if dist.get_rank() != 0:
+        dist.barrier()
+        return False
+    for k in own:
+        payload.pop(f"p:{k}")
+    for k in packed:
+        payload.pop(f"k:{k}")
+    for r, part in enumerate(every):
+        for k, v in part.items():
+            payload[f"{k[0]}{r}:{k[2:]}"] = v
+    meta.update(nr_devices=world,
+                mesh={a: axis_size(mesh, a) for a in mesh.mesh_dim_names},
+                mesh_key=mesh_key(mesh), rank_params=own)
+    return True
 
 
 def export_graph(graph, example_inputs: Mapping[str, np.ndarray],
@@ -406,12 +464,44 @@ def _host_stages(z, meta: dict) -> tuple:
     return host, epilog
 
 
-def load_exported(path: str, device="cuda") -> ExportedModel:
+def _mesh_for(path: str, meta: dict, mesh, dev):
+    """The mesh a sharded artifact runs on, registered under the key its
+    program names; raises where the world is smaller than the artifact's
+    or the mesh has another shape."""
+    import torch.distributed as dist
+
+    from .parallel import collectives as C
+    from .parallel.mesh import axis_size, make_mesh
+
+    nr = int(meta.get("nr_devices", 1))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < nr:
+        raise ValueError(f"{path}: artifact was exported for {nr} devices; "
+                         f"only {world} available")
+    if "mesh" not in meta:
+        raise ValueError(f"{path}: a sharded artifact ({nr} devices) "
+                         f"without its mesh in the meta")
+    if mesh is None:
+        mesh = make_mesh(meta["mesh"], device=dev)
+    have = {a: axis_size(mesh, a) for a in mesh.mesh_dim_names}
+    if have != meta["mesh"]:
+        raise ValueError(f"{path}: exported on the mesh {meta['mesh']}, "
+                         f"given {have}")
+    C.register_mesh(mesh)
+    if C.mesh_key(mesh) != meta["mesh_key"]:
+        raise ValueError(f"{path}: the program's mesh {meta['mesh_key']!r} "
+                         f"is not {C.mesh_key(mesh)!r}")
+    return mesh
+
+
+def load_exported(path: str, device="cuda", mesh=None) -> ExportedModel:
     """Load an artifact written by `export_engine` onto `device` (the card
     unless told "cpu"). No graph, no op registry, no weight packing: the
     kernel modules register their ops, the program for the device is
     deserialized and the weights are placed there. ONNX is parsed only
-    for an artifact's host stages."""
+    for an artifact's host stages. A sharded artifact runs on `mesh` (or
+    one made from its meta) and needs a world of at least its
+    `nr_devices` ranks; each rank places its own shards."""
     t0 = time.perf_counter()
     with np.load(path) as z:
         if "__meta__" not in z.files:
@@ -426,10 +516,7 @@ def load_exported(path: str, device="cuda") -> ExportedModel:
         if fmt != FORMAT:
             raise ValueError(f"{path}: not an oriet AOT artifact (format="
                              f"{fmt!r}; the PyTorch port reads {FORMAT!r})")
-        if int(meta.get("nr_devices", 1)) > 1:
-            raise NotImplementedError(
-                f"{path}: a sharded artifact ({meta['nr_devices']} devices) "
-                f"needs the device mesh (ROADMAP 1.12)")
+        sharded = int(meta.get("nr_devices", 1)) > 1 or "mesh" in meta
         for stage, blob in (("host_prolog", "__prolog__"),
                             ("host_epilog", "__epilog__")):
             if stage in meta and blob not in z.files:
@@ -439,6 +526,12 @@ def load_exported(path: str, device="cuda") -> ExportedModel:
         if dev.type not in meta["platforms"]:
             raise ValueError(f"{path}: no program for {dev.type!r}; the "
                              f"artifact holds {meta['platforms']}")
+        rank = ""
+        if sharded:
+            import torch.distributed as dist
+
+            mesh = _mesh_for(path, meta, mesh, dev)
+            rank = str(dist.get_rank())
         _register_kernel_ops()
         t1 = time.perf_counter()
         # torch.export.load imports torch._dynamo (and sympy): timed apart
@@ -448,9 +541,11 @@ def load_exported(path: str, device="cuda") -> ExportedModel:
             io.BytesIO(bytes(z[f"__exported__:{dev.type}"])))
         t3 = time.perf_counter()
         bf16 = set(meta.get("bf16_params", ()))
-        params = {k: _from_numpy(z[f"p:{k}"], k in bf16, dev)
+        own = set(meta.get("rank_params", ()))
+        params = {k: _from_numpy(z[f"p{rank if k in own else ''}:{k}"],
+                                 k in bf16, dev)
                   for k in meta["params"]}
-        packed = {k: _from_numpy(z[f"k:{k}"], False, dev)
+        packed = {k: _from_numpy(z[f"k{rank}:{k}"], False, dev)
                   for k in meta["packed"]}
         host, epilog = _host_stages(z, meta)
         t4 = time.perf_counter()

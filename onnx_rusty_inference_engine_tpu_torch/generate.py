@@ -52,8 +52,14 @@ keys match through the `__w4` rename) and before the W8A8 one; `adapter`
 `lora_idx` input, a device tensor that the captured graphs read by
 address.
 
-Not ported yet (each raises NotImplementedError): `mesh` /
-`param_sharding_fn` / `pipeline_axis` (ROADMAP 1.12).
+`mesh` / `param_sharding_fn` shard both Engines (parallel/spmd.py: each
+rank holds its shards, the outputs are whole on every rank, so every rank
+selects the same tokens). `pipeline_axis` runs both graphs as GPipe
+pipelines over that mesh dim, one process a stage (parallel/pipeline.py):
+each stage keeps its own layers' cache rows between steps and across the
+K steps of a `device_loop` block, and a LoRA bank's per-layer matrices
+stack per stage like any per-layer constant. It refuses scan_layers,
+fused_attention and the w8a8 prefill, as in JAX.
 
 `Seq2SeqGenerator` drives the encoder-decoder families (t5, asr): the
 encoder Engine once per request, then a host loop over the captured
@@ -102,11 +108,6 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"Generator: {what} is not ported yet "
-                               f"(ROADMAP {item})")
-
-
 class Generator:
     def __init__(
         self,
@@ -132,11 +133,25 @@ class Generator:
         device="cuda",
     ):
         assert max_len >= prompt_len
-        if mesh is not None or param_sharding_fn is not None:
-            raise _not_ported("a device mesh", "1.12")
-        if pipeline_axis is not None:
-            raise _not_ported("pipeline_axis", "1.12")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._param_sharding_fn = param_sharding_fn
+        # pipeline parallelism: prefill AND decode trunks GPipe-staged over
+        # mesh[pipeline_axis], one process a stage (parallel/pipeline.py);
+        # the KV cache stays stacked [lps, B, H, max_len, hd] on its stage
+        self.pipeline_axis = pipeline_axis
+        self._pipelined = pipeline_axis is not None
+        if self._pipelined:
+            if mesh is None:
+                raise ValueError("pipeline_axis requires a mesh")
+            if scan_layers or fused_attention:
+                raise NotImplementedError(
+                    "pipeline_axis is incompatible with scan_layers/"
+                    "fused_attention")
+            if prefill_dtype == "w8a8":
+                raise NotImplementedError(
+                    "pipelined prefill supports float32/bfloat16; the "
+                    "w8a8 dynamic-quant rewrite is not pipelined")
         self.cfg = cfg
         self.batch = batch
         self.prompt_len = prompt_len
@@ -205,14 +220,34 @@ class Generator:
 
             prefill_graph = quantize_matmuls_w8a8(prefill_graph)
         self._engines(prefill_graph, decode_graph)
-        # per-(layer, kind, head) scales, calibrated from the prefill
+        # per-(layer, kind, head) scales, calibrated from the prefill (and
+        # a pipelined decoder's stage rows of them)
         self._kv_scales: Optional[Dict[str, torch.Tensor]] = None
+        self._pipe_scales: Optional[Dict[str, torch.Tensor]] = None
         self.device_loop = int(device_loop)
 
     def _engines(self, prefill_graph: Graph, decode_graph: Graph) -> None:
-        self.prefill = Engine(prefill_graph, device=self.device,
-                              dtype=self.prefill_dtype)
-        self.decode = Engine(decode_graph, device=self.device)
+        if self._pipelined:
+            from .parallel.pipeline import PipelinedDecoder
+
+            # the decoder graphs carry the batch at dim 0 on every input
+            # but the per-head kv_scale_* scales: declared, so that the
+            # microbatching never relies on a dim == B coincidence
+            def pipe(g, **kw):
+                return PipelinedDecoder(
+                    g, self.mesh, axis=self.pipeline_axis,
+                    batch_inputs=[sp.name for sp in g.inputs
+                                  if not sp.name.startswith("kv_scale_")],
+                    device=self.device, **kw)
+
+            self.prefill = pipe(prefill_graph, dtype=self.prefill_dtype)
+            self.decode = pipe(decode_graph)
+        else:
+            ekw = dict(device=self.device, mesh=self.mesh,
+                       param_sharding_fn=self._param_sharding_fn)
+            self.prefill = Engine(prefill_graph, dtype=self.prefill_dtype,
+                                  **ekw)
+            self.decode = Engine(decode_graph, **ekw)
         self._gen: Optional[torch.Generator] = None
         # sampling configuration -> its K-step block (state and graph)
         self._blocks: Dict[tuple, dict] = {}
@@ -220,6 +255,9 @@ class Generator:
     def to(self, device) -> "Generator":
         """The same graphs and weights on another device (the KV scales
         calibrated so far come along)."""
+        if self.mesh is not None:
+            raise ValueError("Generator.to: a Generator on a mesh stays on "
+                             "its mesh's devices")
         other = object.__new__(Generator)
         other.__dict__.update(self.__dict__)
         other.device = resolve_device(device)
@@ -300,7 +338,48 @@ class Generator:
                         kv_full, f"kv_scale_{kind}_{i}")
             if self._stacked:  # [L, B, H, max_len, hd]
                 cache[f"past_{kind}"] = torch.stack(full)
+        if self._pipelined:
+            cache = self._stage_cache(cache)
         return out["logits"], cache
+
+    def _stage_cache(self, cache: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """A pipelined decoder's cache: this stage's layers' rows of the
+        per-layer cache stacked [lps, ...] under the canonical (layer 0)
+        names, and their KV scales likewise (`_pipe_scales`)."""
+        lo, hi = self.decode.stage_rows
+        out = {f"past_{kind}_0": torch.stack(
+            [cache[f"past_{kind}_{i}"] for i in range(lo, hi)])
+            for kind in ("key", "value")}
+        if self._pipe_scales is None:
+            # made once, as the scales are: the K-step graphs read them
+            # by address
+            self._pipe_scales = {} if not self._kv_q else {
+                f"kv_scale_{kind}_0": torch.stack(
+                    [self._kv_scales[f"kv_scale_{kind}_{i}"]
+                     for i in range(lo, hi)])
+                for kind in ("key", "value")}
+        return out
+
+    def _decode(self, feed: Dict[str, torch.Tensor],
+                cache: Dict[str, torch.Tensor], eager: bool
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One decode step from `feed` (tokens, positions, lora_idx) and the
+        cache: (logits [B, 1, V], the updated cache). `eager` runs the
+        decode graph's function itself (inside a K-step block), else its
+        captured call. A pipelined decoder takes this stage's stacked
+        cache and scales and returns this stage's presents."""
+        if self._pipelined:
+            stacked = {**cache, **self._pipe_scales}
+            out, ext = self.decode.stacked_call(feed, stacked, eager=eager)
+        else:
+            feed.update(cache)  # int8 pasts flow straight back in
+            if self._kv_q:
+                feed.update(self._kv_scales)
+            out = ext = (self.decode.forward if eager else self.decode)(feed)
+        return out["logits"], {name: ext[name.replace("past_", "present_",
+                                                      1)]
+                               for name in cache}
 
     def step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
              pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -310,13 +389,7 @@ class Generator:
         feed = {"input_ids": tokens.reshape(B, 1).to(torch.int64),
                 "pos": torch.full((B,), pos, dtype=torch.int64,
                                   device=self.device)}
-        feed.update(cache)  # int8 pasts flow straight back in
-        if self._kv_q:
-            feed.update(self._kv_scales)
-        out = self.decode(self._lora_feed(feed))
-        new_cache = {name: out[name.replace("past_", "present_", 1)]
-                     for name in cache}
-        return out["logits"], new_cache
+        return self._decode(self._lora_feed(feed), cache, eager=False)
 
     # -- token selection -----------------------------------------------------
     def _sampling_consts(self, temperature: float,
@@ -390,17 +463,13 @@ class Generator:
         tok, pos, cache, done, seen = (st["tok"], st["pos"], st["cache"],
                                        st["done"], st["seen"])
         eos_id = sel["eos_id"]
-        scales = self._kv_scales if self._kv_q else {}
         for j in range(self.device_loop):
             feed = {"input_ids": tok.reshape(self.batch, 1), "pos": pos}
-            feed.update(cache)
-            feed.update(scales)
-            out = self.decode.forward(self._lora_feed(feed))
-            cache = {name: out[name.replace("past_", "present_", 1)]
-                     for name in cache}
+            logits, cache = self._decode(self._lora_feed(feed), cache,
+                                         eager=True)
             if seen is not None:
                 seen.scatter_(1, tok[:, None], True)
-            tok = self._select(out["logits"][:, -1, :], st["gen"],
+            tok = self._select(logits[:, -1, :], st["gen"],
                                st["consts"], sel["temperature"],
                                sel["top_k"], sel["top_p"], seen,
                                sel["repetition_penalty"], sel["min_p"])
@@ -604,9 +673,6 @@ class Seq2SeqGenerator:
         family: str = "t5",
         device="cuda",
     ):
-        if mesh is not None or param_sharding_fn is not None:
-            raise NotImplementedError("Seq2SeqGenerator: a device mesh is "
-                                      "not ported yet (ROADMAP 1.12)")
         from .models import seq2seq_family
 
         self.device = resolve_device(device)
@@ -637,10 +703,11 @@ class Seq2SeqGenerator:
             from .quant import quantize_weights_int4
 
             graphs = [quantize_weights_int4(g) for g in graphs]
-        self.encoder = Engine(graphs[0], device=self.device)
-        self.decode = Engine(graphs[1], device=self.device)
-        self.decode_fp32 = (Engine(graphs[2], device=self.device)
-                            if self._int8 else None)
+        ekw = dict(device=self.device, mesh=mesh,
+                   param_sharding_fn=param_sharding_fn)
+        self.encoder = Engine(graphs[0], **ekw)
+        self.decode = Engine(graphs[1], **ekw)
+        self.decode_fp32 = Engine(graphs[2], **ekw) if self._int8 else None
         self._gen: Optional[torch.Generator] = None
         self._bufs: Optional[dict] = None
         self._steps: Dict[str, object] = {}   # engine -> its step's Replay
@@ -860,9 +927,6 @@ class SpeculativeGenerator:
         param_sharding_fn=None,
         device="cuda",
     ):
-        if mesh is not None or param_sharding_fn is not None:
-            raise NotImplementedError("SpeculativeGenerator: a device mesh "
-                                      "is not ported yet (ROADMAP 1.12)")
         from .models import decoder_family
 
         build_prefill, build_decode, _ = decoder_family(family)
@@ -881,7 +945,8 @@ class SpeculativeGenerator:
 
         def engine(build, cfg, seed, **kw):
             return Engine(import_model(build(cfg, batch=batch, seed=seed,
-                                             **kw)), device=self.device)
+                                             **kw)), device=self.device,
+                          mesh=mesh, param_sharding_fn=param_sharding_fn)
 
         self.t_prefill = engine(build_prefill, target_cfg, target_seed,
                                 seq_len=prompt_len, **pkw)

@@ -179,6 +179,21 @@ def build_moe(
     return b.model()
 
 
+def moe_param_sharding(mesh, n_parts: int):
+    """Expert-parallel sharding rule: stacked expert weights [E, D, F]
+    split on the EXPERT axis over "model"; everything else replicated.
+    A sharded Engine runs each expert MatMul on its rank's experts and
+    gathers the [E, N, F] product along E (parallel/spmd.py, route c)."""
+    from ..parallel.sharding import placements, replicated
+
+    def rule(name, arr):
+        if "_exp_w" in name and arr.ndim == 3 and arr.shape[0] % n_parts == 0:
+            return placements(mesh, {"model": 0})
+        return replicated(mesh)
+
+    return rule
+
+
 def build_moe_decode(
     cfg: MoEConfig = TINY,
     *,

@@ -343,6 +343,27 @@ def qlinear_conv(ctx: LoweringContext, node: Node, ins):
                        y_zp=zy, out_dtype=y_dtype, packed=c.packed)),)
 
 
+def qlinear_conv_int32(ctx: LoweringContext, node: Node, ins):
+    """A QLinearConv split at its int32 sums, for a row-parallel run
+    (parallel/spmd.py) that sums them over ranks before the requant:
+    (the exact int32 sums over this node's input channels, without the
+    bias; `finish`, which adds the bias and requantizes them as the
+    emitter's int32 form does)."""
+    (x, x_s, x_zp, w, w_s, w_zp, y_s, y_zp) = ins[:8]
+    bias = ins[8] if len(ins) > 8 else None
+    c = _Conv(ctx, node, ins, 3, 2, 5)
+    zy = _zero_point(ctx, node, ins, 7, "y", None)
+    y_dtype = _out_dtype(y_zp, x)
+    mult = (x_s.to(torch.float32) * w_s.to(torch.float32)
+            / y_s.to(torch.float32))
+
+    def finish(acc: torch.Tensor) -> torch.Tensor:
+        return c.out(_requant(acc, mult, bias, channel_dim=1, y_zp=zy,
+                              out_dtype=y_dtype))
+
+    return c.sums(), finish
+
+
 @register("ConvInteger")
 def conv_integer(ctx: LoweringContext, node: Node, ins):
     """ONNX ConvInteger: the exact int32 sum_window (x - x_zp)(w - w_zp),
@@ -453,6 +474,35 @@ def qlinear_matmul(ctx: LoweringContext, node: Node, ins):
                                      bias, mult, zy, y_dtype, None)
                        for i in range(ae.shape[0])])
     return (out.reshape(*batch, M, N),)
+
+
+def qlinear_matmul_int32(ctx: LoweringContext, node: Node, ins):
+    """A QLinearMatMul with a 2-D b split at its int32 sums, for a
+    row-parallel run (parallel/spmd.py): (the exact int32 (a - za)(b - zb)
+    over this node's K, without the bias; `finish`, which adds the bias
+    and requantizes them as the emitter does)."""
+    (a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp) = ins[:8]
+    bias = ins[8] if len(ins) > 8 else None
+    why = _unsupported_qmatmul(a, b) or (
+        None if b.dim() == 2 else f"a batched b {tuple(b.shape)}")
+    if why is not None:
+        raise UnsupportedOpError(
+            f"QLinearMatMul {node.name or node.outputs[0]!r}: {why}")
+    za = _zero_point(ctx, node, ins, 2, "a", a)
+    zb = _zero_point(ctx, node, ins, 5, "b", b, per_tensor=False)
+    zy = _zero_point(ctx, node, ins, 7, "y", None)
+    y_dtype = _out_dtype(y_zp, a)
+    mult = (a_s.to(torch.float32) * b_s.to(torch.float32)
+            / y_s.to(torch.float32))
+    acc = _int8_product(ctx, node.inputs[3], as_int8(a), b, za, zb,
+                        _zp_tensor(b_zp, b), None, None, zy, y_dtype,
+                        ctx.packed.get(node.inputs[3]))
+
+    def finish(acc: torch.Tensor) -> torch.Tensor:
+        return _requant(acc, mult, bias, channel_dim=-1, y_zp=zy,
+                        out_dtype=y_dtype)
+
+    return acc, finish
 
 
 @register("QGemm", domain="com.microsoft")

@@ -42,8 +42,13 @@ slot's entry of the `lora_idx` device buffer when the slot is filled;
 every step and block reads that buffer, so one captured graph serves a
 mixed-adapter batch. The prompt cache is keyed by (adapter, prompt).
 
-Not ported yet (each raises NotImplementedError): `mesh` /
-`param_sharding_fn` (ROADMAP 1.12).
+`mesh` / `param_sharding_fn` shard every Engine the server runs
+(parallel/spmd.py). Serving on a mesh is SPMD: every rank runs its own
+server with the same submissions in the same order (pre-queue them with
+autostart=False, then `start()`), so that the dispatchers issue their
+collectives in the same order; with the process group's `timeout` a dead
+peer fails the survivors' step, and the step's failure (or the watchdog's
+`step_timeout`) fails every pending future instead of hanging.
 """
 
 from __future__ import annotations
@@ -61,11 +66,6 @@ from ..graph import import_model
 from .base import _ServerBase
 from .decode_multi import _MultiStepMixin
 from .request import _Request, _hits_stop, _select_token
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"DecodeServer: {what} is not ported yet "
-                               f"(ROADMAP {item})")
 
 
 class DecodeServer(_MultiStepMixin, _ServerBase):
@@ -115,8 +115,6 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         len_buckets: Optional[Sequence[int]] = None,
         device="cuda",
     ):
-        if mesh is not None or param_sharding_fn is not None:
-            raise _not_ported("a device mesh", "1.12")
         if chunked_prefill and prefill_dtype != "float32":
             raise ValueError(
                 f"prefill_dtype={prefill_dtype!r} has no effect with "
@@ -124,6 +122,8 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
                 "graph, there are no prefill engines); drop the knob or "
                 "use bucketed prefill")
         self.device = resolve_device(device)
+        self._ekw = dict(device=self.device, mesh=mesh,
+                         param_sharding_fn=param_sharding_fn)
         self.cfg = cfg
         self.B = slots
         self.prompt_len = prompt_len
@@ -214,7 +214,7 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         if self.chunked and self.kv_dtype == np.int8:
             self._shadow = Engine(quantized(import_model(build_decode(
                 cfg, batch=slots, max_len=max_len, seed=seed,
-                chunk=self.chunk))), device=self.device)
+                chunk=self.chunk))), **self._ekw)
         self._prefill_engines: Dict[int, Engine] = {}
         w8a8_prefill = prefill_dtype == "w8a8"
 
@@ -228,15 +228,15 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
                 g = quantize_matmuls_w8a8(attach(g))
             else:
                 g = quantized(g)
-            return Engine(g, device=self.device, dtype=(
-                "bfloat16" if w8a8_prefill else prefill_dtype))
+            return Engine(g, dtype=(
+                "bfloat16" if w8a8_prefill else prefill_dtype), **self._ekw)
 
         self._make_prefill = make_prefill
         # decode engines keyed by cache length; all share ONE set of
         # device weights (the length only changes the cache and tables)
         self._decode_engines: Dict[int, Engine] = {
             self._cur_len: Engine(make_decode_graph(self._cur_len),
-                                  device=self.device)}
+                                  **self._ekw)}
 
         cache_t = torch.int8 if self.kv_dtype == np.int8 else torch.float32
         # the shadow-calibration phase keeps the cache fp32
@@ -277,7 +277,7 @@ class DecodeServer(_MultiStepMixin, _ServerBase):
         if eng is None:
             base = next(iter(self._decode_engines.values()))
             eng = Engine(self._make_decode_graph(self._cur_len),
-                         device=self.device, share_params_with=base)
+                         share_params_with=base, **self._ekw)
             self._decode_engines[self._cur_len] = eng
         return eng
 

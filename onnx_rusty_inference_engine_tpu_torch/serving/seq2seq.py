@@ -65,9 +65,6 @@ class Seq2SeqServer(_MultiStepMixin, _ServerBase):
         autostart: bool = True,
         device="cuda",
     ):
-        if mesh is not None or param_sharding_fn is not None:
-            raise NotImplementedError("Seq2SeqServer: a device mesh is not "
-                                      "ported yet (ROADMAP 1.12)")
         from ..models import seq2seq_family
 
         self.device = resolve_device(device)
@@ -78,11 +75,13 @@ class Seq2SeqServer(_MultiStepMixin, _ServerBase):
         self.max_len = max_len
         self.start_token = start_token
         self.n_layers = self.fam.n_layers(cfg)
+        ekw = dict(device=self.device, mesh=mesh,
+                   param_sharding_fn=param_sharding_fn)
         self.encoder = Engine(import_model(self.fam.build_encoder(
-            cfg, batch=1, src_len=src_len, seed=seed)), device=self.device)
+            cfg, batch=1, src_len=src_len, seed=seed)), **ekw)
         self.decode = Engine(import_model(self.fam.build_decode(
             cfg, batch=slots, max_len=max_len, src_len=self.enc_len,
-            seed=seed)), device=self.device)
+            seed=seed)), **ekw)
 
         dev = self.device
         specs = {s.name: s for s in self.decode.graph.inputs}

@@ -91,9 +91,6 @@ class SpeculativeServer(_ServerBase):
         multi_step: int = 0,
         device="cuda",
     ):
-        if mesh is not None or param_sharding_fn is not None:
-            raise NotImplementedError("SpeculativeServer: a device mesh is "
-                                      "not ported yet (ROADMAP 1.12)")
         from ..models import decoder_family
 
         build_prefill, build_decode, _ = decoder_family(family)
@@ -114,7 +111,8 @@ class SpeculativeServer(_ServerBase):
 
         def engine(build, cfg, seed, **kw):
             return Engine(import_model(build(cfg, seed=seed, **kw)),
-                          device=self.device)
+                          device=self.device, mesh=mesh,
+                          param_sharding_fn=param_sharding_fn)
 
         self.t_prefill = engine(build_prefill, target_cfg, target_seed,
                                 batch=1, seq_len=prompt_len, **pkw)

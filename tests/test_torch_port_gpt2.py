@@ -25,6 +25,7 @@ from onnx_rusty_inference_engine_tpu_torch.graph import import_model
 from onnx_rusty_inference_engine_tpu_torch.models import (
     build_gpt2, build_gpt2_decode, decoder_family, host_memo)
 from onnx_rusty_inference_engine_tpu_torch.models.gpt2 import GPT2Config
+from onnx_rusty_inference_engine_tpu_torch.parallel import make_mesh
 from onnx_rusty_inference_engine_tpu_torch.ops.registry import (
     UnsupportedOpError)
 from torch_port_util import assert_graphs_equal, run_op_port
@@ -282,8 +283,10 @@ def test_unported_options_raise():
     # the int4 KV cache, the llama family and the Scan graph are ported
     # (tests/test_torch_port_int4_kv.py, test_torch_port_llama.py,
     # test_torch_port_scan_decode.py), and so are moe and the LoRA bank
-    # (test_torch_port_moe.py, test_torch_port_lora.py); the mesh options
-    # still raise
+    # (test_torch_port_moe.py, test_torch_port_lora.py), and so are the
+    # mesh options (test_torch_port_parallel.py, _pipeline.py,
+    # _distributed.py): a pipeline without a mesh, over fused attention or
+    # behind a w8a8 prefill is still refused, as in JAX
     from onnx_rusty_inference_engine_tpu_torch.models import moe
 
     assert decoder_family("moe")[:2] == (moe.build_moe, moe.build_moe_decode)
@@ -294,10 +297,15 @@ def test_unported_options_raise():
                       ({"kv_dtype": "int4"}, "int4 KV")):
         with pytest.raises(ValueError, match=match):
             build_gpt2_decode(TINY, scan_layers=True, **kw)
-    for kw, item in (({"mesh": object()}, "1.12"),
-                     ({"pipeline_axis": "pipe"}, "1.12")):
-        with pytest.raises(NotImplementedError, match=item):
-            Generator(TINY, device="cpu", **kw)
+    with pytest.raises(ValueError, match="pipeline_axis requires a mesh"):
+        Generator(TINY, device="cpu", pipeline_axis="pipe")
+    mesh = make_mesh({"pipe": 1}, device="cpu")
+    for kw, match in (({"fused_attention": True, "kv_dtype": "int8"},
+                       "incompatible with scan_layers/fused_attention"),
+                      ({"prefill_dtype": "w8a8"}, "w8a8")):
+        with pytest.raises(NotImplementedError, match=match):
+            Generator(TINY, device="cpu", mesh=mesh, pipeline_axis="pipe",
+                      **kw)
     # the int4 KV cache of the moe family runs; an empty bank is refused
     # by attach_lora, as in JAX
     gen4 = Generator(moe.TINY, device="cpu", kv_dtype="int4", family="moe")
@@ -314,6 +322,49 @@ def test_unported_options_raise():
     want, _ = JGenerator(_jcfg(TINY), prefill_dtype="w8a8").generate(
         prompt, 3)
     assert np.array_equal(gen.generate(prompt, 3)[0], want)
+
+
+@pytest.mark.parametrize("how", ["north_star", "pipeline"])
+def test_generator_on_a_one_rank_mesh_equals_unsharded(how):
+    """A Generator on a mesh of one rank (what one card gives): with
+    tests/test_gpt2.py's north-star rule (INT4 + INT8 KV, every 2-D weight
+    on route a, its gathers over a group of one) or pipelined over
+    {pipe: 1}, host loop and device_loop=2, tokens and logits equal the
+    unsharded Generator's exactly. Several ranks:
+    test_torch_port_distributed.py and test_torch_port_pipeline.py."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ids = np.random.default_rng(4).integers(0, TINY.vocab_size,
+                                            (2, 4)).astype(np.int64)
+    kw = dict(batch=2, prompt_len=4, max_len=12, kv_dtype="int8",
+              device="cpu")
+    if how == "north_star":
+        kw["int4_weights"] = True
+        mesh = make_mesh({"data": 1, "model": 1}, device="cpu")
+
+        def rule(name, arr):
+            if name.endswith("__w4") and arr.ndim == 2:
+                return (Replicate(), Shard(0))
+            if name.endswith("__w4s") or (arr.ndim == 2
+                                          and arr.shape[-1] % 4 == 0):
+                return (Replicate(), Shard(1))
+            return (Replicate(), Replicate())
+
+        mkw = dict(mesh=mesh, param_sharding_fn=rule)
+    else:
+        mkw = dict(mesh=make_mesh({"pipe": 1}, device="cpu"),
+                   pipeline_axis="pipe")
+    want, wl = Generator(TINY, **kw).generate(ids, 4, return_logits=True)
+    gen = Generator(TINY, **kw, **mkw)
+    got, gl = gen.generate(ids, 4, return_logits=True)
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(gl, wl):
+        np.testing.assert_array_equal(a, b)
+    if how == "north_star":
+        assert gen.decode.shard_routes["a_column"] > 0
+    gen.device_loop = 2
+    np.testing.assert_array_equal(gen.generate(ids, 4)[0], want)
+
 
 
 def test_generator_needs_a_card_unless_told_cpu():

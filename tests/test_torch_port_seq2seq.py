@@ -320,10 +320,33 @@ def test_refusals():
     with pytest.raises(ValueError, match="calib_steps"):
         Seq2SeqGenerator(t5.TINY, kv_dtype="int8", calib_steps=0,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="1.12"):
-        Seq2SeqGenerator(t5.TINY, mesh=object(), device="cpu")
     assert isinstance(Seq2SeqGenerator(t5.TINY, device="cpu").start(
         _src(29, (1, 16)))["enc_out"], torch.Tensor)
+
+
+def test_seq2seq_generator_on_a_mesh_equals_unsharded():
+    """Seq2SeqGenerator on a mesh of one rank, every 2-D weight sharded on
+    its last dim (route a, its gathers over a group of one): tokens equal
+    the unsharded Generator's, fp32 and INT8 KV (test_refusals refused the
+    mesh until it was ported; two ranks: test_torch_port_distributed.py's
+    Seq2SeqServer)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from onnx_rusty_inference_engine_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"model": 1}, device="cpu")
+
+    def rule(name, arr):
+        return (Shard(1),) if arr.ndim == 2 else (Replicate(),)
+
+    src = _src(31, (1, 16))
+    for kv in ("float32", "int8"):
+        kw = dict(kv_dtype=kv, device="cpu")
+        want = Seq2SeqGenerator(t5.TINY, **kw).generate(src, 6)[0]
+        gen = Seq2SeqGenerator(t5.TINY, mesh=mesh, param_sharding_fn=rule,
+                               **kw)
+        np.testing.assert_array_equal(gen.generate(src, 6)[0], want)
+        assert gen.decode.shard_routes["a_column"] > 0
 
 
 def test_t5_small_encoder_parts_on_the_cpu():

@@ -735,21 +735,38 @@ def test_watchdog_still_fires_on_a_stuck_known_graph():
 # --------------------------------------------------------------------------
 # options not ported yet, and the package's imports
 # --------------------------------------------------------------------------
-# the mesh options raise, naming their ROADMAP item; the LoRA bank and
-# the moe family (item None) raised until they were ported, and now serve
-# the JAX server's greedy tokens (an empty bank is refused, as in JAX)
+# the LoRA bank, the moe family and the mesh raised until they were
+# ported, and now serve the JAX server's greedy tokens (an empty bank is
+# refused, as in JAX; a sharding rule without a mesh too)
 @pytest.mark.parametrize("kw,item", [
     ({"lora_bank": {}}, None),
-    ({"mesh": object()}, "1.12"),
-    ({"param_sharding_fn": lambda n, a: None}, "1.12"),
+    ({"mesh": "one rank"}, None),
+    ({"param_sharding_fn": lambda n, a: None}, "need a mesh"),
     ({"kv_dtype": "int4", "family": "moe"}, None),
     ({"family": "moe"}, None),
 ], ids=["lora_bank", "mesh", "param_sharding_fn", "int4_kv_moe", "moe"])
 def test_unported_server_options_raise(kw, item):
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             DecodeServer(TINY, slots=1, max_len=16, device="cpu",
                          autostart=False, **kw)
+        return
+    if "mesh" in kw:
+        # a mesh of one rank with cnn_param_sharding's placements forced
+        # on (every 2-D weight column-sharded over "model"): the JAX
+        # server's tokens (several ranks: test_torch_port_distributed.py)
+        from torch.distributed.tensor import Replicate, Shard
+
+        from onnx_rusty_inference_engine_tpu_torch.parallel import make_mesh
+
+        kw = dict(mesh=make_mesh({"model": 1}, device="cpu"),
+                  param_sharding_fn=lambda n, a: (
+                      (Shard(1),) if a.ndim == 2 else (Replicate(),)))
+        reqs = _staggered(64, 3, (2, 7), (3, 6))
+        want = _serve(False, dict(slots=2, prompt_len=6, max_len=24), reqs)
+        got = _serve(True, dict(slots=2, prompt_len=6, max_len=24, **kw),
+                     reqs)
+        assert got[0] == want[0]
         return
     if "lora_bank" in kw:
         with pytest.raises(ValueError, match="empty adapter bank"):
