@@ -495,13 +495,16 @@ Phases, each printing JSON lines:
              BatchNorm folded) on b16 clips of 3x16x112x112, fp32 and INT8
              (calibrated on x[:2]); counts set to 0 just before, read just
              after: 20 qconv_int8_requant launches per INT8 forward, every
-             one the 3-D form on the gather producer, and the fc's
-             qmatmul_int8; every kernel call of a forward bit-equal to its
-             plain version on the card's operands for the first 2 clips;
-             clips/s; INT8 against fp32. `depthwise3d`: a depthwise
-             3x3x3 QLinearConv at R3D layer1's activation (b16, 64
-             channels, 16x56x56) on the grouped kernel's 3-D form, and a
-             3-D ConvInteger there with a per-channel w zero point, exact.
+             one the 3-D form (the 13 stride-1 3x3x3 convs on the
+             staged-halo producer, the other 7 on the gather), and the
+             fc's qmatmul_int8; every kernel call of a forward bit-equal to
+             its plain version on the card's operands for the first 2
+             clips, and listed with its plan, ms and bound; clips/s; INT8
+             against fp32. `depthwise3d`: a depthwise 3x3x3 QLinearConv at
+             R3D layer1's activation (b16, 64 channels, 16x56x56) on the
+             grouped kernel's tile3d form, and a 3-D ConvInteger there
+             with a per-channel w zero point, exact (its int32 sums on the
+             general form).
              `squeezenet_dynamic`: SqueezeNet 1.0 in ONNX Runtime's
              quantize_dynamic form (tests/torch_port_dynamic.py) at b256:
              26 ConvInteger launches per forward, each reading its pad
@@ -864,7 +867,7 @@ def phase_slice():
     # conv1 gather their im2col
     producers = read_splits("qconv_int8_requant")["producers"]
     require(producers == {"tma": 17 * int8_forwards,
-                          "gather": 9 * int8_forwards},
+                          "gather": 9 * int8_forwards, "halo": 0},
             f"A producers per INT8 forward: {producers} for {int8_forwards}")
 
     # every intermediate of the INT8 graph (debug.py), on the card at b256
@@ -7442,14 +7445,37 @@ def _conv3d_library_ms(name, args, kw):
         WHOLE_KERNEL_ITERS, 2)
 
 
+def _call_plan(name, args, kw) -> str:
+    """How the kernel ran a recorded conv call: the group-1 conv's A
+    producer (`conv_plan`), the grouped conv's form (`grouped_plan`)."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_grouped_int8 as g8, qconv_int8 as c8)
+
+    x, w = args[0], args[1]
+    geo = (kw.get("stride") or (1,) * (x.dim() - 2),
+           kw.get("padding") or ((0, 0),) * (x.dim() - 2))
+    device_zp = any(isinstance(kw.get(z), torch.Tensor)
+                    for z in ("pad_value", "y_zp"))
+    if name.startswith("qconv_grouped"):
+        return g8.grouped_plan(x.shape, w.shape, *geo, g8.input_align(x),
+                               kw.get("dilation"),
+                               name == "qconv_grouped_int8", device_zp)["form"]
+    return c8.conv_plan(x.shape, w.shape, *geo, kw.get("dilation"),
+                        "int32" if name == "qconv_int8" else "requant")[0]
+
+
 def _whole_calls(path: str, calls: list, counts: dict, forwards: int,
                  library, no_library: str) -> dict:
     """Each recorded kernel call of one forward bit-equal to its plain
     version on the card's own operands, on the first WHOLE_CLIPS clips
     (images); its kernel time (the whole batch, from a replayed CUDA
-    graph), its plain time (those clips), `library(name, args, kw)`'s time
-    and its bound; summed per kernel over the forward. The counts of the
-    main path's run must be the calls x `forwards`."""
+    graph; where x is not channels-last, on a channels-last copy, the
+    wrapper's copy apart as `layout_copy_ms`), its plain time (those
+    clips), `library(name, args, kw)`'s time and its bound; summed per
+    kernel over the forward, and each conv call
+    listed under its kernel's `calls` (x and w shapes, stride, the plan's
+    producer or form, ms, bound_ms, bound_by). The counts of the main
+    path's run must be the calls x `forwards`."""
     tot = {}
     for name, args, kw, out in calls:
         kern, plain = _wrapper_and_plain(name)
@@ -7462,26 +7488,52 @@ def _whole_calls(path: str, calls: list, counts: dict, forwards: int,
         require(torch.equal(got, want), f"int8_whole {path}: {name} == "
                 f"plain on the card's operands (max |diff| {err})")
         ms = graph_ms(lambda: kern(*args, **kw), WHOLE_KERNEL_ITERS, 2)
+        # an input that is not channels-last (a graph input) is copied by the
+        # wrapper: the kernel alone is timed on a channels-last copy
+        copy_ms = 0.0
+        x = args[0]
+        if x.dim() == 5 and not x.permute(0, 2, 3, 4, 1).is_contiguous():
+            xc = (x.contiguous(memory_format=torch.channels_last_3d),)
+            kernel_ms = graph_ms(lambda: kern(*xc, *args[1:], **kw),
+                                 WHOLE_KERNEL_ITERS, 2)
+            copy_ms, ms = ms - kernel_ms, kernel_ms
         lib_ms = library(name, args, kw)
         ops, nbytes = _qop_kernel_work(name, args, kw, out)
         bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes,
                                                      INT8_OPS_PER_S)
         v = tot.setdefault(_QOP_KERNEL[name], dict.fromkeys(
             ("per_forward", "ms", "plain_ms", "bound_ms", "ops_ms",
-             "bytes_ms", "library_ms"), 0.0))
+             "bytes_ms", "library_ms", "layout_copy_ms"), 0.0))
         v["per_forward"] += 1
         v["ms"] += ms
+        v["layout_copy_ms"] += copy_ms
         v["plain_ms"] += plain_ms
         v["bound_ms"] += bound_ms
         v["ops_ms"] += ops_ms
         v["bytes_ms"] += bytes_ms
         v["library_ms"] = (None if lib_ms is None or v["library_ms"] is None
                            else v["library_ms"] + lib_ms)
+        if name.startswith("qconv"):
+            v.setdefault("calls", []).append({
+                "x": list(args[0].shape), "w": list(args[1].shape),
+                "stride": list(kw.get("stride") or ()),
+                "plan": _call_plan(name, args, kw), "ms": ms,
+                "layout_copy_ms": copy_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by})
     require({k: int(v["per_forward"]) * forwards for k, v in tot.items()}
             == {k: n for k, n in counts.items() if n},
             f"int8_whole {path}: the calls of one forward x {forwards} "
             f"forwards against the main path's launches {counts}")
     for kernel, v in tot.items():
+        by_plan = {}
+        for c in v.get("calls", ()):
+            b = by_plan.setdefault(c["plan"], {"calls": 0, "ms": 0.0,
+                                               "bound_ms": 0.0})
+            b["calls"] += 1
+            b["ms"] += c["ms"]
+            b["bound_ms"] += c["bound_ms"]
+        if by_plan:
+            v["by_plan"] = by_plan
         v["launches"] = counts[kernel]
         v["bound_by"] = ("operations" if v.pop("ops_ms") >= v.pop("bytes_ms")
                          else "bytes")
@@ -7509,7 +7561,8 @@ def _whole_r3d(smi: str) -> dict:
     the Engine: fp32 (F.conv3d), then calibrate (minmax) on x[:2],
     quantize_graph and the INT8 Engine. Counts set to 0 just before, read
     just after: 20 qconv_int8_requant launches per forward, every one the
-    3-D form on the gather producer, and the fc's qmatmul_int8. Each
+    3-D form, the 13 stride-1 3x3x3 convs on the staged-halo producer and
+    the other 7 on the gather, and the fc's qmatmul_int8. Each
     QLinearConv's output bit-equal to its plain version on the card's
     operands for the first 2 clips; clips/s of both from CUDA events over
     replayed forwards; the INT8 logits against fp32."""
@@ -7543,9 +7596,11 @@ def _whole_r3d(smi: str) -> dict:
             f"r3d18: {per_forward} launches per INT8 forward over "
             f"{forwards} forwards: {counts}")
     require(splits["forms"]["3d"] == 20 * forwards
-            and splits["producers"] == {"tma": 0, "gather": 20 * forwards},
-            f"r3d18: every conv launch the 3-D form on the gather producer: "
-            f"{splits}")
+            and splits["producers"] == {"tma": 0, "gather": 7 * forwards,
+                                        "halo": 13 * forwards},
+            f"r3d18: every conv launch the 3-D form, the 13 stride-1 3x3x3 "
+            f"on the staged-halo producer, the stem, the strided convs and "
+            f"the shortcuts on the gather: {splits}")
     require(bool(torch.isfinite(y8).all())
             and tuple(y8.shape) == (WHOLE_BATCH, 400),
             f"r3d18: INT8 logits {tuple(y8.shape)} finite")
@@ -7598,9 +7653,10 @@ def _whole_depthwise3d(smi: str) -> dict:
     """The channel-separated nets' depthwise 3x3x3 (ir-CSN, X3D) as one
     QLinearConv node at R3D-18 layer1's activation (b16, 64 channels,
     group 64, 16 x 56 x 56, pad 1; int8 x with zero point 3, per-channel
-    w_s), on the grouped kernel's 3-D (general) form; and a 3-D ConvInteger
-    at the same shape (uint8 x with zero point 131, a per-channel w zero
-    point). Counts set to 0 just before, read just after; every kernel
+    w_s), on the grouped kernel's tile3d form; and a 3-D ConvInteger at the
+    same shape (uint8 x with zero point 131, a per-channel w zero point),
+    its int32 sums on the general form. Counts set to 0 just before, read
+    just after; every kernel
     call bit-equal to its plain version on the card's operands; the
     ConvInteger's output exact against the CPU's for the first 2 clips."""
     import onnx_rusty_inference_engine_tpu_torch as P
@@ -7626,8 +7682,9 @@ def _whole_depthwise3d(smi: str) -> dict:
                           "w_zp": rng.integers(-3, 4, C).astype(np.int8)},
                          {"x": (DW3D_SHAPE, np.uint8)}, attrs)
     out, rows = {}, {}
-    for path, g, xin, per_forward in (("depthwise3d", qg, x, 1),
-                                      ("convinteger3d", ci, xu, 2)):
+    for path, g, xin, per_forward, form in (
+            ("depthwise3d", qg, x, 1, "tile3d"),
+            ("convinteger3d", ci, xu, 2, "general")):
         dev = {"x": torch.as_tensor(xin, device="cuda")}
         reset_counts()
         eng = P.Engine(g)
@@ -7639,9 +7696,9 @@ def _whole_depthwise3d(smi: str) -> dict:
         require(counts == {"qconv_grouped_int8_requant":
                            per_forward * forwards}
                 and splits["forms"]["3d"] == per_forward * forwards
-                and splits["schedules"]["general"] == per_forward * forwards,
+                and splits["schedules"][form] == per_forward * forwards,
                 f"{path}: {per_forward} 3-D grouped launches a forward on "
-                f"the general form: {counts} {splits}")
+                f"the {form} form: {counts} {splits}")
         calls = _eager_calls(eng, dev)
         rows[path] = _whole_calls(path, calls, counts, forwards,
                                   _conv3d_library_ms,
@@ -7881,12 +7938,14 @@ def phase_int8_whole(smi: str) -> list:
           "seconds": time.perf_counter() - t0})
     rows = []
     for kname, label, v, per in (
-            ("qconv_int8_requant", "3-D (gather producer): R3D-18 INT8",
+            ("qconv_int8_requant",
+             "3-D: staged-halo producer (13 stride-1 3x3x3) and gather "
+             "(stem, strided, shortcuts): R3D-18 INT8",
              r3d["qconv_int8_requant"],
              f"one R3D-18 INT8 forward (b{WHOLE_BATCH} clips of "
              f"3x16x112x112): the sums of its 20 launches"),
             ("qconv_grouped_int8_requant",
-             "3-D depthwise 3x3x3 (general form)",
+             "3-D depthwise 3x3x3 (tile3d form)",
              dw["qconv_grouped_int8_requant"],
              f"one launch at {list(DW3D_SHAPE)}, group 64"),
             ("qconv_int8_requant",
@@ -7903,7 +7962,9 @@ def phase_int8_whole(smi: str) -> list:
             "plain_ms": v["plain_ms"], "plain_per": v["plain_per"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": v["library_ms"], "library": v["library"],
-            "per": per, "int8_whole_path": True, "card": smi})
+            "layout_copy_ms": v["layout_copy_ms"],
+            "per": per, "by_plan": v.get("by_plan"),
+            "int8_whole_path": True, "card": smi})
     return rows
 
 
@@ -8128,7 +8189,7 @@ def main() -> int:
             rows = [phase_kernels(qgraph, eng8, card, launches, smi)]
             phase_capture("squeezenet1.0 int8 224x224", eng8, feed,
                           "qconv_int8_requant", 26,
-                          {"producers": {"tma": 17, "gather": 9},
+                          {"producers": {"tma": 17, "gather": 9, "halo": 0},
                            "epilogues": {"int32": 0, "requant": 26},
                            "forms": _no_forms("qconv_int8")},
                           {"data_0": np.random.default_rng(1).standard_normal(

@@ -38,6 +38,29 @@
 //             point (Params::pad_word != 0, or the int32 at Params::x_zp in
 //             device memory), stored as that byte by the thread.
 //             Bp still comes by TMA.
+//   A_HALO    a 3-D conv at unit stride and dilation over C % 32 == 0
+//             channels (the staged-halo producer; the requant epilogue).
+//             A tile is a box of output voxels, WGM * MB depth planes x 8
+//             rows x 8 columns (MB 8 x 8 planes a consumer warpgroup, one
+//             m64 accumulator each); one thread loads the tile's input box
+//             with its halo, (WGM * MB + KD - 1) x (8 + KH - 1) x (8 + KW -
+//             1) voxels, by one 5-D TMA load per 16 channels, channel-
+//             blocked in shared memory
+//             ([C/16][d][h][w][16]); reads outside the volume come back as
+//             zeros, and where the conv pads with a zero point the
+//             consumers store it over a border box's outside bytes. Each
+//             tap's A operand is then a wgmma descriptor into the box
+//             without swizzle: 8 consecutive columns of 16 channels are
+//             one 128-byte core matrix, the next 8-row group one box row
+//             further, the next 16 channels one channel block further. So
+//             each input byte leaves L2 about (box / tile) ~ 3.1 times a
+//             tile instead of once a tap (27 for 3x3x3), and the producer
+//             issues C/16 bulk copies a tile and no per-run address
+//             arithmetic. A box of more than 128 channels is staged in
+//             128-channel chunks (K walked chunk by chunk, tap by tap; Bp
+//             stays in (kd, kh, kw, c) order and its TMA loads take the
+//             chunk's columns); two box slots, so the next tile's box is in
+//             flight while this one's products run.
 // Epilogues (compile-time):
 //   EPI_INT32    int32 [M, N], exact (the caller keeps |sum| < 2^31);
 //   EPI_REQUANT  int8 or uint8 [M, N] = clamp(rn(fmul_rn(i2f_rn(acc +
@@ -85,7 +108,7 @@ constexpr int BK = 128;             // K bytes per slot: one 128-byte swizzle ro
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory an H100 block can opt into
 constexpr int MAX_STAGES = 8;
 
-enum { A_TMA = 0, A_GATHER = 1 };
+enum { A_TMA = 0, A_GATHER = 1, A_HALO = 2 };
 
 enum { EPI_INT32 = 0, EPI_REQUANT = 1 };
 
@@ -146,6 +169,14 @@ struct Params {
   // Bp resident: the block's one N tile of Bp (all K) is loaded into shared
   // memory once, and the ring carries A alone
   int b_resident;
+  // A_HALO: the input box's depth, rows and columns; bytes from one
+  // 16-channel block of the box to the next (a multiple of 128); the
+  // channels staged at once (C, or 128) and the chunks of C; the 128-byte
+  // K slices of one chunk; output tiles along depth, rows and columns of an
+  // image, and the M tiles (images x those); KD x KH x KW taps
+  int box_d, box_h, box_w, cb_pitch, chunk, n_chunks, chunk_k;
+  int n_td, n_th, n_tw, m_tiles, taps;
+  FastDiv div_chunk;
 };
 
 inline size_t smem_bytes(int bm, int bn, int stages, int resident_k = 0) {
@@ -156,6 +187,18 @@ inline size_t smem_bytes(int bm, int bn, int stages, int resident_k = 0) {
   const size_t slot = (size_t)(bm + (resident_k ? 0 : bn)) * BK;
   return 1024 + stages * slot + (size_t)resident_k * bn * BK + (size_t)bm * (bn + 16) +
          16 * (size_t)stages + 8;
+}
+
+// A_HALO's shared memory: the 1024-byte alignment slack, Bp's ring of
+// `stages` slots of bn x 128 bytes (or its resident_k slices), two input
+// box slots of box_bytes, the requant staging tile, the ring's barriers,
+// the resident Bp's, two full and two empty box barriers, and the taps'
+// box offsets (taps + 4 ints: a chunk's last slice may run 3 k32 steps
+// past the last tap, against zero weights)
+inline size_t halo_smem_bytes(int bm, int bn, int stages, int resident_k, int box_bytes,
+                              int taps) {
+  return 1024 + (size_t)(resident_k ? resident_k : stages) * bn * BK + 2 * (size_t)box_bytes +
+         (size_t)bm * (bn + 16) + 16 * (size_t)stages + 8 + 32 + 4 * (size_t)(taps + 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -200,6 +243,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3,
+                                            int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
       : "memory");
 }
 
@@ -287,6 +341,18 @@ __device__ __forceinline__ void fence_acc(int (&d)[R]) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma matrix descriptor of a K-major operand without swizzle (A_HALO's
+// box): each core matrix 8 rows x 16 bytes, contiguous; `lbo` bytes from
+// one core matrix to the next along K (the leading offset), `sbo` from one
+// 8-row group to the next (the stride offset); both multiples of 16.
+__device__ __forceinline__ uint64_t plain_desc_hi(uint32_t lbo, uint32_t sbo) {
+  return ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, uint64_t hi) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | hi;
 }
 
 // wgmma.m64nNk32.s32.{s8,u8}.s8 (int8_wgmma_mma.cuh): Wgmma<N, AU8>::mma,
@@ -458,14 +524,334 @@ __device__ __forceinline__ int sat8(int v, int lo) {
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
+// The epilogue of one tile: warpgroup wg's 64 x BN accumulator fragment to
+// the output rows row_m(r) names for the tile's rows r (-1: a row no one
+// stores), columns n0 + [0, BN) of N.
+template <int EPI, int BN, typename RowM>
+__device__ __forceinline__ void store_tile(const Params& p, const int (&acc)[BN / 2],
+                                           uint8_t* staging, int wg, int tid, int n0,
+                                           float q_lo, float q_hi, int y_zp, RowM row_m) {
+  constexpr int LDS = BN + 16;  // staging row stride (bytes)
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  // accumulator fragment (wgmma m64nN): acc[4j + 2h + e] is row
+  // 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e of the
+  // warpgroup's 64 x BN tile
+  const int row_in_wg = warp * 16 + (lane >> 2);
+  const int col_in_j = 2 * (lane & 3);
+  if constexpr (EPI == EPI_INT32) {
+    int32_t* out = static_cast<int32_t*>(p.out);
+    const bool vec = (p.N % 2 == 0) && (reinterpret_cast<uintptr_t>(out) % 8 == 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row_m(wg * 64 + row_in_wg + 8 * h);
+      if (m < 0) continue;
+      int32_t* orow = out + (int64_t)m * p.N;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + col_in_j;
+        const int v0 = acc[4 * j + 2 * h];
+        const int v1 = acc[4 * j + 2 * h + 1];
+        if (vec && n + 1 < p.N) {
+          *reinterpret_cast<int2*>(orow + n) = make_int2(v0, v1);
+        } else {
+          if (n < p.N) orow[n] = v0;
+          if (n + 1 < p.N) orow[n + 1] = v1;
+        }
+      }
+    }
+  } else {
+    uint8_t* stage = staging + wg * 64 * LDS;
+    named_barrier(2 + wg, 128);  // the warpgroup's previous tile has left
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + col_in_j;
+      const float mu0 = n < p.N ? p.mult[n] : 0.f;
+      const float mu1 = n + 1 < p.N ? p.mult[n + 1] : 0.f;
+      const int b0 = (p.bias != nullptr && n < p.N) ? p.bias[n] : 0;
+      const int b1 = (p.bias != nullptr && n + 1 < p.N) ? p.bias[n + 1] : 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q0 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h] + b0), mu0),
+                                q_lo, q_hi) + y_zp;
+        const int q1 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1] + b1), mu1),
+                                q_lo, q_hi) + y_zp;
+        *reinterpret_cast<uint16_t*>(stage + (row_in_wg + 8 * h) * LDS + 8 * j + col_in_j) =
+            (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
+      }
+    }
+    named_barrier(2 + wg, 128);
+    int8_t* out = static_cast<int8_t*>(p.out);
+    const int wtid = tid & 127;
+    const bool vec16 = (p.N % 16 == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+    const bool vec8 = (p.N % 8 == 0) && (reinterpret_cast<uintptr_t>(out) % 8 == 0);
+    constexpr int CPR = BN / 16;  // 16-byte chunks per row
+    for (int idx = wtid; idx < 64 * CPR; idx += 128) {
+      const int r = idx / CPR;
+      const int ch = idx - r * CPR;
+      const int n = n0 + 16 * ch;
+      if (n >= p.N) continue;
+      const int m = row_m(wg * 64 + r);
+      if (m < 0) continue;
+      const uint8_t* src = stage + r * LDS + 16 * ch;
+      int8_t* dst = out + (int64_t)m * p.N + n;
+      if (vec16 && n + 16 <= p.N) {
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+      } else if (vec8) {
+        *reinterpret_cast<int2*>(dst) = *reinterpret_cast<const int2*>(src);
+        if (n + 16 <= p.N)
+          *reinterpret_cast<int2*>(dst + 8) = *reinterpret_cast<const int2*>(src + 8);
+      } else {
+        for (int b = 0; b < 16 && n + b < p.N; ++b) dst[b] = (int8_t)src[b];
+      }
+    }
+  }
+}
+
+// the requant's y_zp and range: the launch's, or derived from y_zp in
+// device memory
+template <int EPI>
+__device__ __forceinline__ void requant_range(const Params& p, float& q_lo, float& q_hi,
+                                              int& y_zp) {
+  q_lo = p.q_lo;
+  q_hi = p.q_hi;
+  y_zp = p.y_zp;
+  if (EPI == EPI_REQUANT && p.y_zp_dev != nullptr) {
+    y_zp = sat8(*p.y_zp_dev, p.y_lo);
+    q_lo = (float)(p.y_lo - y_zp);
+    q_hi = (float)(p.y_lo + 255 - y_zp);
+  }
+}
+
+// A_HALO (the producer's note at the top of this file). Shared memory: Bp's
+// ring (or the resident Bp), two box slots, the staging tile, the barriers,
+// the taps' box offsets. One thread produces; each consumer warpgroup runs
+// MB depth planes of the tile's output box (WGM * MB planes), one m64
+// accumulator a plane, so that each Bp slice in shared memory serves MB
+// products and each Bp byte leaves L2 once per WGM * MB * 64 outputs.
+// Blocks are persistent over tiles (N tiles fastest, then columns, rows,
+// planes, images).
+template <int EPI, int BN, int WGM, int MB, bool AU8>
+__device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtensorMap& tm_b,
+                                          const Params& p) {
+  constexpr int BM = 64 * WGM;
+  constexpr int CONSUMERS = 128 * WGM;
+  constexpr int B_BYTES = BN * BK;
+  constexpr int R = BN / 2;
+  const bool bres = p.b_resident != 0;
+  const int S = p.stages;
+  const int cbs = p.chunk >> 4;  // 16-channel blocks a chunk
+  const int box_bytes = cbs * p.cb_pitch;
+  const int plane = p.box_h * p.box_w;  // voxels of one box plane
+  const uint32_t box_tx = (uint32_t)(cbs * p.box_d * plane * 16);
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const int ring_bytes = (bres ? p.num_k : S) * B_BYTES;
+  const uint32_t box0 = ring + ring_bytes;
+  uint8_t* ring_ptr = smem_raw + (ring - raw);
+  uint8_t* staging = ring_ptr + ring_bytes + 2 * box_bytes;  // BM x (BN + 16)
+  const uint32_t full0 = box0 + 2 * box_bytes + BM * (BN + 16);
+  const uint32_t empty0 = full0 + 8 * S;
+  const uint32_t b_full = empty0 + 8 * S;
+  const uint32_t box_full0 = b_full + 8;  // a box slot has landed
+  const uint32_t box_empty0 = box_full0 + 16;  // a box slot's readers are done
+  int* tap_off = reinterpret_cast<int*>(ring_ptr + (box_empty0 + 16 - ring));
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * WGM);  // one arrival per consumer warp
+    }
+    mbar_init(b_full, 1);
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(box_full0 + 8 * u, 1);
+      mbar_init(box_empty0 + 8 * u, 4 * WGM);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // tap t's offset in a channel block of the box ((kd, kh, kw) in box
+  // planes, rows and columns); the taps past the last (a slice's tail,
+  // against zero weights) read tap 0's
+  for (int t = tid; t < p.taps + 4; t += blockDim.x) {
+    int off = 0;
+    if (t < p.taps) {
+      const int kd = t / p.KHW, r = t - kd * p.KHW, kh = r / p.KW, kw = r - kh * p.KW;
+      off = ((kd * p.box_h + kh) * p.box_w + kw) * 16;
+    }
+    tap_off[t] = off;
+  }
+  __syncthreads();
+
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int tiles = p.m_tiles * n_tiles;
+  // a tile's image and first output voxel
+  auto locate = [&](int tile, int& b, int& od0, int& oh0, int& ow0) {
+    int mt = tile / n_tiles;
+    ow0 = mt % p.n_tw * 8;
+    mt /= p.n_tw;
+    oh0 = mt % p.n_th * 8;
+    mt /= p.n_th;
+    od0 = mt % p.n_td * (WGM * MB);
+    b = mt / p.n_td;
+  };
+  // K slice j of chunk q: its first column of Bp ((kd, kh, kw, c) order)
+  auto b_col = [&](int q, int j) { return p.n_chunks == 1 ? j * BK : j * p.C + q * p.chunk; };
+
+  if (tid >= CONSUMERS) {
+    // ------------------------------------------------------------ producer
+    if (tid != CONSUMERS) return;
+    if (bres) {  // the one N tile of Bp, all of K, once
+      mbar_arrive_tx(b_full, p.num_k * B_BYTES);
+      for (int kt = 0; kt < p.num_k; ++kt)
+        tma_load_2d(ring + kt * B_BYTES, &tm_b, b_full, kt * BK, 0);
+    }
+    // chunk q of a tile's input box into box slot u % 2
+    auto load_box = [&](int tile, int q, int u) {
+      int b, od0, oh0, ow0;
+      locate(tile, b, od0, oh0, ow0);
+      const uint32_t dst = box0 + (u & 1) * box_bytes;
+      const uint32_t bar = box_full0 + 8 * (u & 1);
+      mbar_arrive_tx(bar, box_tx);
+      for (int i = 0; i < cbs; ++i)
+        tma_load_5d(dst + i * p.cb_pitch, &tm_x, bar, q * p.chunk + 16 * i, ow0 - p.pad_w,
+                    oh0 - p.pad_h, od0 - p.pad_d, b);
+    };
+    if ((int)blockIdx.x < tiles) load_box(blockIdx.x, 0, 0);
+    int u = 0, it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = tile % n_tiles * BN;
+      for (int q = 0; q < p.n_chunks; ++q, ++u) {
+        // the next chunk's box, as soon as its slot's readers are done (they
+        // need nothing issued after this), ahead of this chunk's Bp slices
+        const bool last = q + 1 == p.n_chunks;
+        const int nt = last ? tile + (int)gridDim.x : tile;
+        if (nt < tiles) {
+          const int v = u + 1;
+          if (v >= 2) mbar_wait(box_empty0 + 8 * (v & 1), ((v >> 1) - 1) & 1);
+          load_box(nt, last ? 0 : q + 1, v);
+        }
+        if (bres) continue;
+        for (int j = 0; j < p.chunk_k; ++j, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty0 + 8 * s, (it / S - 1) & 1);
+          mbar_arrive_tx(full0 + 8 * s, B_BYTES);
+          tma_load_2d(ring + s * B_BYTES, &tm_b, full0 + 8 * s, b_col(q, j), n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  float q_lo, q_hi;
+  int y_zp;
+  requant_range<EPI>(p, q_lo, q_hi, y_zp);
+  // the pad byte: the launch's, or the x zero point in device memory
+  const uint32_t pad_word =
+      p.x_zp != nullptr ? (uint32_t)(sat8(*p.x_zp, p.x_lo) & 0xFF) * 0x01010101u : p.pad_word;
+  // A: 8-row groups one box row apart, K core matrices one channel block
+  const uint64_t a_hi = plain_desc_hi((uint32_t)p.cb_pitch, (uint32_t)(p.box_w * 16));
+  int acc[MB][R] = {};
+  if (bres) mbar_wait(b_full, 0);
+  int u = 0, it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int b, od0, oh0, ow0;
+    locate(tile, b, od0, oh0, ow0);
+    const int d0 = od0 - p.pad_d, h0 = oh0 - p.pad_h, w0 = ow0 - p.pad_w;  // box origin
+    const bool border = d0 < 0 || h0 < 0 || w0 < 0 || d0 + p.box_d > p.D ||
+                        h0 + p.box_h > p.H || w0 + p.box_w > p.W;
+    for (int q = 0; q < p.n_chunks; ++q, ++u) {
+      const int slot = u & 1;
+      const uint32_t box = box0 + slot * box_bytes;
+      mbar_wait(box_full0 + 8 * slot, (u >> 1) & 1);
+      if (pad_word != 0 && border) {
+        // the box's bytes outside the volume hold the pad byte, not TMA's
+        // zeros (the condition is the block's, so is the barrier)
+        const int vox = p.box_d * plane;
+        for (int e = tid; e < cbs * vox; e += CONSUMERS) {
+          const int cb = e / vox, v = e - cb * vox;
+          const int dd = v / plane, r = v - dd * plane;
+          const int hh = r / p.box_w, ww = r - hh * p.box_w;
+          if ((unsigned)(d0 + dd) < (unsigned)p.D && (unsigned)(h0 + hh) < (unsigned)p.H &&
+              (unsigned)(w0 + ww) < (unsigned)p.W)
+            continue;
+          st_shared_fill<16>(box + cb * p.cb_pitch + v * 16, pad_word);
+        }
+        fence_proxy_async();
+        named_barrier(1, CONSUMERS);
+      }
+      // this warpgroup's first output plane; the next MB - 1 follow it
+      const uint32_t a_base = box + wg * MB * plane * 16;
+      for (int j = 0; j < p.chunk_k; ++j, ++it) {
+        const int s = it % S;
+        uint32_t b_slot;
+        if (bres) {
+          b_slot = ring + (b_col(q, j) / BK) * B_BYTES;
+        } else {
+          mbar_wait(full0 + 8 * s, (it / S) & 1);
+          b_slot = ring + s * B_BYTES;
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 32; ++kk) {
+          const int kl = j * BK + kk * 32;      // the byte of the chunk's K walk
+          const int t = fdiv(kl, p.div_chunk);  // its tap
+          const uint32_t a = a_base + ((kl - t * p.chunk) >> 4) * p.cb_pitch + tap_off[t];
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            Wgmma<BN, AU8>::mma(acc[mb], plain_desc(a + mb * plane * 16, a_hi),
+                                sw128_desc(b_slot + kk * 32), (q | j | kk) != 0);
+        }
+        wgmma_commit();
+        // a ring slot: once the previous slice's products are done, free
+        // its slot; the resident Bp needs no wait until the chunk's end, so
+        // the tensor cores run the chunk's products back to back
+        if (!bres) {
+          wgmma_wait<1>();
+          if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S));
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) {
+        if (!bres) mbar_arrive(empty0 + 8 * ((it - 1) % S));
+        mbar_arrive(box_empty0 + 8 * slot);
+      }
+    }
+    // accumulator mb of warpgroup wg holds output plane od0 + wg * MB + mb
+    // (row r of the warpgroup: row r / 8, column r % 8)
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      fence_acc(acc[mb]);
+      store_tile<EPI, BN>(p, acc[mb], staging, wg, tid, tile % n_tiles * BN, q_lo, q_hi, y_zp,
+                          [&](int r) {
+                            const int d = od0 + (r >> 6) * MB + mb, h = oh0 + ((r >> 3) & 7),
+                                      w = ow0 + (r & 7);
+                            return (d < p.OD && h < p.OH && w < p.OW)
+                                       ? ((b * p.OD + d) * p.OH + h) * p.OW + w
+                                       : -1;
+                          });
+    }
+  }
+}
+
 // Persistent: block b takes output tiles b, b + gridDim.x, ... (N tiles
 // fastest, so the blocks in flight share A's rows in L2). The producer runs
 // through every slice of every tile on one slot counter `it`, so it fills
 // the ring for the next tile while the consumers run this one's epilogue.
-template <int PROD, int EPI, int BN, int WGM, bool AU8>
-__global__ void __launch_bounds__(WGM * 128 + (PROD == A_TMA ? 32 : 128), BN >= 96 ? 1 : 2)
+// A_HALO runs halo_body (MB planes a warpgroup); tm_a is then x's 5-D map.
+template <int PROD, int EPI, int BN, int WGM, bool AU8, int MB = 1>
+__global__ void __launch_bounds__(WGM * 128 + (PROD == A_GATHER ? 128 : 32),
+                                  BN >= 96 || MB > 1 ? 1 : 2)
 I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
            const __grid_constant__ CUtensorMap tm_b, const Params p) {
+  if constexpr (PROD == A_HALO) {
+    halo_body<EPI, BN, WGM, MB, AU8>(tm_a, tm_b, p);
+  } else {
   constexpr int BM = 64 * WGM;
   constexpr int CONSUMERS = 128 * WGM;
   constexpr int PRODUCERS = PROD == A_TMA ? 32 : 128;
@@ -556,25 +942,13 @@ I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
 
   // -------------------------------------------------------------- consumers
   const int wg = tid >> 7;  // rows 64 * wg of each tile
-  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  // accumulator fragment (wgmma m64nN): acc[4j + 2h + e] is row
-  // 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e of the
-  // warpgroup's 64 x BN tile
-  const int row_in_wg = warp * 16 + (lane >> 2);
-  const int col_in_j = 2 * (lane & 3);
   int acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0;
-  // the requant's y_zp and range: the launch's, or derived from y_zp in
-  // device memory
-  float q_lo = p.q_lo, q_hi = p.q_hi;
-  int y_zp = p.y_zp;
-  if (EPI == EPI_REQUANT && p.y_zp_dev != nullptr) {
-    y_zp = sat8(*p.y_zp_dev, p.y_lo);
-    q_lo = (float)(p.y_lo - y_zp);
-    q_hi = (float)(p.y_lo + 255 - y_zp);
-  }
+  float q_lo, q_hi;
+  int y_zp;
+  requant_range<EPI>(p, q_lo, q_hi, y_zp);
 
   if (bres) mbar_wait(b_full, 0);
   int it = 0;
@@ -599,74 +973,9 @@ I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S));
     fence_acc(acc);
-
-    if constexpr (EPI == EPI_INT32) {
-      int32_t* out = static_cast<int32_t*>(p.out);
-      const bool vec = (p.N % 2 == 0) && (reinterpret_cast<uintptr_t>(out) % 8 == 0);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wg * 64 + row_in_wg + 8 * h;
-        if (r >= rows) continue;
-        const int m = m0 + r;
-        int32_t* orow = out + (int64_t)m * p.N;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int n = n0 + 8 * j + col_in_j;
-          const int v0 = acc[4 * j + 2 * h];
-          const int v1 = acc[4 * j + 2 * h + 1];
-          if (vec && n + 1 < p.N) {
-            *reinterpret_cast<int2*>(orow + n) = make_int2(v0, v1);
-          } else {
-            if (n < p.N) orow[n] = v0;
-            if (n + 1 < p.N) orow[n + 1] = v1;
-          }
-        }
-      }
-    } else {
-      uint8_t* stage = staging + wg * 64 * LDS;
-      named_barrier(2 + wg, 128);  // the warpgroup's previous tile has left
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = n0 + 8 * j + col_in_j;
-        const float mu0 = n < p.N ? p.mult[n] : 0.f;
-        const float mu1 = n + 1 < p.N ? p.mult[n + 1] : 0.f;
-        const int b0 = (p.bias != nullptr && n < p.N) ? p.bias[n] : 0;
-        const int b1 = (p.bias != nullptr && n + 1 < p.N) ? p.bias[n + 1] : 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q0 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h] + b0), mu0),
-                                  q_lo, q_hi) + y_zp;
-          const int q1 = f32_to_q(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1] + b1), mu1),
-                                  q_lo, q_hi) + y_zp;
-          *reinterpret_cast<uint16_t*>(stage + (row_in_wg + 8 * h) * LDS + 8 * j + col_in_j) =
-              (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
-        }
-      }
-      named_barrier(2 + wg, 128);
-      int8_t* out = static_cast<int8_t*>(p.out);
-      const int wtid = tid & 127;
-      const bool vec16 = (p.N % 16 == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-      const bool vec8 = (p.N % 8 == 0) && (reinterpret_cast<uintptr_t>(out) % 8 == 0);
-      constexpr int CPR = BN / 16;  // 16-byte chunks per row
-      for (int idx = wtid; idx < 64 * CPR; idx += 128) {
-        const int r = idx / CPR;
-        const int ch = idx - r * CPR;
-        const int n = n0 + 16 * ch;
-        if (wg * 64 + r >= rows || n >= p.N) continue;
-        const int m = m0 + wg * 64 + r;
-        const uint8_t* src = stage + r * LDS + 16 * ch;
-        int8_t* dst = out + (int64_t)m * p.N + n;
-        if (vec16 && n + 16 <= p.N) {
-          *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
-        } else if (vec8) {
-          *reinterpret_cast<int2*>(dst) = *reinterpret_cast<const int2*>(src);
-          if (n + 16 <= p.N)
-            *reinterpret_cast<int2*>(dst + 8) = *reinterpret_cast<const int2*>(src + 8);
-        } else {
-          for (int b = 0; b < 16 && n + b < p.N; ++b) dst[b] = (int8_t)src[b];
-        }
-      }
-    }
+    store_tile<EPI, BN>(p, acc, staging, wg, tid, n0, q_lo, q_hi, y_zp,
+                        [&](int r) { return r < rows ? m0 + r : -1; });
+  }
   }
 }
 
@@ -717,13 +1026,16 @@ inline cudaError_t encode_rows(CUtensorMap* map, const void* base, uint64_t rows
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int PROD, int EPI, int BN, int WGM, bool AU8>
+template <int PROD, int EPI, int BN, int WGM, bool AU8, int MB = 1>
 cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params& p,
                         cudaStream_t st) {
   constexpr int BM = 64 * WGM;
-  constexpr int THREADS = WGM * 128 + (PROD == A_TMA ? 32 : 128);
-  const size_t smem = smem_bytes(BM, BN, p.stages, p.b_resident ? p.num_k : 0);
-  auto kern = I8G_KERNEL<PROD, EPI, BN, WGM, AU8>;
+  constexpr int THREADS = WGM * 128 + (PROD == A_GATHER ? 128 : 32);
+  const size_t smem =
+      PROD == A_HALO ? halo_smem_bytes(BM, BN, p.stages, p.b_resident ? p.num_k : 0,
+                                       (p.chunk >> 4) * p.cb_pitch, p.taps)
+                     : smem_bytes(BM, BN, p.stages, p.b_resident ? p.num_k : 0);
+  auto kern = I8G_KERNEL<PROD, EPI, BN, WGM, AU8, MB>;
   static size_t opted_in = 0;  // the shared memory this instantiation may use
   static size_t occ_smem = 0;  // blocks an SM holds at that shared memory
   static int occ = 0;
@@ -746,7 +1058,8 @@ cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
   }
-  const long long tiles = (long long)((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+  const long long m_tiles = PROD == A_HALO ? p.m_tiles : (p.M + BM - 1) / BM;
+  const long long tiles = m_tiles * ((p.N + BN - 1) / BN);
   const long long blocks = tiles < (long long)sms * occ ? tiles : (long long)sms * occ;
   kern<<<(unsigned)blocks, THREADS, smem, st>>>(a, b, p);
   return cudaGetLastError();
@@ -799,6 +1112,54 @@ cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int 
   }
   return bm == 64 ? launch_bn<PROD, EPI, 1, AU8>(bn, ta, tb, p, st)
                   : launch_bn<PROD, EPI, 2, AU8>(bn, ta, tb, p, st);
+}
+
+// A map of channels-last x [B, D, H, W, C] (bytes; C a multiple of 16,
+// base 16-byte aligned), loaded in boxes of 16 channels x box_w x box_h x
+// box_d x 1 image without swizzle (A_HALO's input box, one 16-channel block
+// a load); reads outside the tensor return zeros.
+inline cudaError_t encode_box5(CUtensorMap* map, const void* x, int B, const Params& p) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t C = (cuuint64_t)p.C;
+  const cuuint64_t dims[5] = {C, (cuuint64_t)p.W, (cuuint64_t)p.H, (cuuint64_t)p.D,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {C, C * p.W, C * p.W * p.H, C * p.W * p.H * p.D};
+  const cuuint32_t box[5] = {16, (cuuint32_t)p.box_w, (cuuint32_t)p.box_h,
+                             (cuuint32_t)p.box_d, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 5, const_cast<void*>(x), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A_HALO: encodes Bp's map and x's 5-D map (B images) and launches the
+// bm x bn tile (bm 128: a plane a consumer warpgroup, or 256: two; bn 64
+// or 128; p.b_resident: Bp resident, which needs N <= bn), after checking
+// that it fits.
+template <int EPI, bool AU8>
+cudaError_t launch_halo(const void* x, const void* bp, int Kp, int B, Params p, int bm,
+                        int bn, cudaStream_t st) {
+  p.num_k = (Kp + BK - 1) / BK;
+  const size_t smem = halo_smem_bytes(128, bn, p.stages, p.b_resident ? p.num_k : 0,
+                                      (p.chunk >> 4) * p.cb_pitch, p.taps);
+  if ((bm != 128 && bm != 256) || (bn != 64 && bn != 128) || p.stages < 2 ||
+      p.stages > MAX_STAGES ||
+      smem > (size_t)SMEM_LIMIT || p.M <= 0 || p.N <= 0 || Kp <= 0 || Kp % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bp) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      (p.b_resident && p.N > bn) || (long long)p.m_tiles * ((p.N + bn - 1) / bn) >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  cudaError_t e = encode_rows(&tb, bp, (uint64_t)p.N, (uint64_t)Kp, (uint32_t)bn);
+  if (e == cudaSuccess) e = encode_box5(&ta, x, B, p);
+  if (e != cudaSuccess) return e;
+  if (bm == 256)
+    return bn == 64 ? launch_tile<A_HALO, EPI, 64, 2, AU8, 2>(ta, tb, p, st)
+                    : launch_tile<A_HALO, EPI, 128, 2, AU8, 2>(ta, tb, p, st);
+  return bn == 64 ? launch_tile<A_HALO, EPI, 64, 2, AU8, 1>(ta, tb, p, st)
+                  : launch_tile<A_HALO, EPI, 128, 2, AU8, 1>(ta, tb, p, st);
 }
 
 }  // namespace

@@ -25,7 +25,7 @@
 //   -zx * sum w). The general form can also leave the exact int32 sums
 //   (+ bias) instead.
 //
-// Two forms; the wrapper picks one from the shape
+// Three forms; the wrapper picks one from the shape
 // (qconv_grouped_int8.py::grouped_plan) and counts it:
 //
 // tile: depthwise 3x3 at stride 1 or 2, C % 16 == 0, x 16-byte
@@ -83,9 +83,28 @@
 //   buffer, the threads and the grid; the entry point takes them as they
 //   are and refuses a plan whose box does not hold its tile's reads, whose
 //   tiles do not cover the output or that does not fit a block.
-// general (any other group > 1, dilated and 3-D convs, and zero points in
-//   device memory): one thread per output pixel and run of 4 output
-//   channels, each output channel reading its own group's bytes, over the
+// tile3d: the tile form carried into depth, for a depthwise 3x3x3 (the
+//   channel-separated video nets' conv: ir-CSN, X3D) at stride 1 or 2 in
+//   depth and stride 1 or 2 in rows and columns, no dilation, C % 16 == 0,
+//   x 16-byte aligned, the requant output, zero points known before the
+//   run. It does 54 operations per output byte, against the H100's ~590
+//   per byte of HBM: bound by bytes, as the 2-D form. A tile is TD planes
+//   x TH rows x TW columns x a channel run; one thread stages its input box
+//   with the halo, ((TD-1)*sd+3) x ((TH-1)*s+3) x ((TW-1)*s+3) x CR
+//   bytes, by one 5-D TMA load over [B, D, H, W, C], double-buffered, in
+//   persistent blocks. Where the conv pads with a non-zero byte, each
+//   thread reads it in place of the box's bytes outside the volume (its
+//   columns' mask once a tile, rows and planes as it reads them), so that
+//   no block-wide fill and barrier follows each border box.
+//   A thread owns 4 channels x 2 columns, walks the tile's planes and, in
+//   each, its rows with the last input rows of the three planes it reads
+//   rotating through registers; its channels' 27 taps stay in registers as
+//   nine kernel rows of [w0, w1, w2, 0] words (kept across tiles of the
+//   same channel run), one IDP4A per kernel row: 9 a column where the 2-D
+//   form needs 3. The epilogue is the tile form's.
+// general (any other group > 1, dilated and other 3-D convs, and zero
+//   points in device memory): one thread per output pixel and run of 4
+//   output channels, each output channel reading its own group's bytes, over the
 //   taps in depth, rows and columns (the depth a run-time size: a 2-D conv
 //   is its D = KD = 1 case). Where x_zp or y_zp_dev is set, the kernel
 //   reads that zero point, an int32 in device memory (one the graph
@@ -224,12 +243,12 @@ __global__ void __launch_bounds__(256) qconv_grouped_int8_requant_kernel(const P
 // tile: depthwise 3x3 over TMA-staged tiles, IDP4A, register blocking
 // ---------------------------------------------------------------------------
 constexpr int TILE_THREADS = 256;
-// |bias| up to this keeps every sum s = bias + 9 products (each at most
+// |bias| up to this keeps every sum s = bias + TAPS products (each at most
 // 128 * 128, or 255 * 128 for a uint8 x) inside [-2^22, 2^22), where the
 // float trick is exact
-template <bool XU8>
+template <bool XU8, int TAPS = 9>
 __host__ __device__ constexpr int fast_bias() {
-  return (1 << 22) - 9 * (XU8 ? 255 : 128) * 128 - 1;
+  return (1 << 22) - TAPS * (XU8 ? 255 : 128) * 128 - 1;
 }
 
 struct TileParams {
@@ -245,6 +264,9 @@ struct TileParams {
   int pad_h, pad_w;
   unsigned buf_bytes;   // one staging buffer: an input box, rounded up to 128
   int H, W;             // the image, for the border tiles' padding
+  // tile3d: output planes a tile, box planes, plane tiles, the depth's
+  // stride and padding, the volume's and the output's depth
+  int TD, BD, n_d, stride_d, pad_d, D, OD;
   uint32_t pad_word;    // the x zero point's byte, four times (0: none)
   float q_lo, q_hi;     // y's range less y_zp
   int y_zp;
@@ -302,6 +324,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
 // A tile id split into (image, row tile, column tile, channel run).
 struct Tile {
   int b, th, tw, cr;
@@ -339,11 +371,16 @@ struct Row {
   uint32_t e[S == 2 ? 4 : 1];
 };
 
-template <int S>
-__device__ __forceinline__ void load_row(const uint32_t* __restrict__ src, int Q, Row<S>& r) {
-  transpose4(src[0], src[Q], src[2 * Q], src[3 * Q], r.a);
+// PAD (tile3d): the words j whose bit is set in `out` (a column, row or
+// plane outside the volume) are read as `pad`, the x zero point four times,
+// in place of the box's bytes (TMA's zeros there)
+template <int S, bool PAD = false>
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ src, int Q, Row<S>& r,
+                                         uint32_t out = 0, uint32_t pad = 0) {
+  auto word = [&](int j) { return PAD && ((out >> j) & 1) ? pad : src[j * Q]; };
+  transpose4(word(0), word(1), word(2), word(3), r.a);
   if constexpr (S == 2) {
-    const uint32_t u4 = src[4 * Q];
+    const uint32_t u4 = word(4);
     r.e[0] = __byte_perm(r.a[0], u4, 0x0432);
     r.e[1] = __byte_perm(r.a[1], u4, 0x0532);
     r.e[2] = __byte_perm(r.a[2], u4, 0x0632);
@@ -564,6 +601,273 @@ __global__ void __launch_bounds__(TILE_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// tile3d: depthwise 3x3x3, the tile form carried into depth
+// ---------------------------------------------------------------------------
+// One input row as a thread reads it in each of the three input planes kd
+// of an output plane.
+template <int S>
+struct Row3 {
+  Row<S> k[3];
+};
+
+// Where a thread's reads leave the volume (PAD): bit j of `cols` its box
+// column j; `planes[kd]` all bits where input plane kd is outside; rows
+// from `r0` (the box's first row) against H.
+struct Outside {
+  uint32_t cols, planes[3];
+  int r0, H;
+  uint32_t pad;
+};
+
+template <int S, bool PAD>
+__device__ __forceinline__ void load_row3(const uint32_t* __restrict__ src, int Q, int ps,
+                                          Row3<S>& r, const Outside& o, int row) {
+  const uint32_t out = PAD ? o.cols | ((unsigned)(o.r0 + row) >= (unsigned)o.H ? 0x1Fu : 0u)
+                           : 0u;
+#pragma unroll
+  for (int kd = 0; kd < 3; ++kd)
+    load_row<S, PAD>(src + kd * ps, Q, r.k[kd], PAD ? out | o.planes[kd] : 0u, o.pad);
+}
+
+// What a thread holds for the tile3d form: its channels' 27 taps as nine
+// kernel rows (kd, kh) of [w0, w1, w2, 0] words (stride 1 also [0, w0, w1,
+// w2]), multipliers, biases, and where its outputs go.
+template <int S>
+struct Thread3 {
+  uint32_t wa[9][4];
+  uint32_t wb[S == 1 ? 9 : 1][4];
+  float m[4];
+  int bias[4];
+  long long y_row;  // bytes from one output row to the next
+  long long y_plane;  // ... one output plane to the next
+  int y_col;        // ... one output column to the next (C)
+  bool col1;        // the second column lies inside the volume
+  float lo, hi;
+  int zp;
+};
+
+// the thread's weights (packed [27, C], 4 channels from c), mult and bias;
+// returns whether every bias keeps the float trick exact (27 taps)
+template <int S, bool XU8>
+__device__ __forceinline__ bool load_thread3(Thread3<S>& th, const TileParams& p, int c) {
+  const int cw = p.C >> 2;
+#pragma unroll
+  for (int r = 0; r < 9; ++r) {
+    const uint32_t* pw = reinterpret_cast<const uint32_t*>(p.w + r * 3 * p.C + c);
+    transpose4(__ldg(pw), __ldg(pw + cw), __ldg(pw + 2 * cw), 0u, th.wa[r]);
+    if constexpr (S == 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) th.wb[r][k] = th.wa[r][k] << 8;
+    }
+  }
+  constexpr int lim = fast_bias<XU8, 27>();
+  bool fast = true;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    th.m[k] = __ldg(p.mult + c + k);
+    th.bias[k] = p.bias != nullptr ? __ldg(p.bias + c + k) : 0;
+    fast = fast && th.bias[k] >= -lim && th.bias[k] <= lim;
+  }
+  th.lo = p.q_lo;
+  th.hi = p.q_hi;
+  th.zp = p.y_zp;
+  return fast;
+}
+
+// One output row (both columns, 4 channels) from input rows r0, r1, r2
+// (kernel rows kh = 0, 1, 2) of the three planes: 9 IDP4A a column.
+template <int S, bool XU8, bool FAST>
+__device__ __forceinline__ void out_row3(const Thread3<S>& th, const Row3<S>& r0,
+                                         const Row3<S>& r1, const Row3<S>& r2, int8_t* dst) {
+  uint32_t q0[4], q1[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int s0 = th.bias[k], s1 = th.bias[k];
+#pragma unroll
+    for (int kd = 0; kd < 3; ++kd) {
+      s0 = dot4<XU8>(r0.k[kd].a[k], th.wa[3 * kd][k], s0);
+      s0 = dot4<XU8>(r1.k[kd].a[k], th.wa[3 * kd + 1][k], s0);
+      s0 = dot4<XU8>(r2.k[kd].a[k], th.wa[3 * kd + 2][k], s0);
+      if constexpr (S == 1) {
+        s1 = dot4<XU8>(r0.k[kd].a[k], th.wb[3 * kd][k], s1);
+        s1 = dot4<XU8>(r1.k[kd].a[k], th.wb[3 * kd + 1][k], s1);
+        s1 = dot4<XU8>(r2.k[kd].a[k], th.wb[3 * kd + 2][k], s1);
+      } else {
+        s1 = dot4<XU8>(r0.k[kd].e[k], th.wa[3 * kd][k], s1);
+        s1 = dot4<XU8>(r1.k[kd].e[k], th.wa[3 * kd + 1][k], s1);
+        s1 = dot4<XU8>(r2.k[kd].e[k], th.wa[3 * kd + 2][k], s1);
+      }
+    }
+    q0[k] = requant_bits(s0, th.m[k], FAST, th.lo, th.hi) + th.zp;
+    q1[k] = requant_bits(s1, th.m[k], FAST, th.lo, th.hi) + th.zp;
+  }
+  *reinterpret_cast<uint32_t*>(dst) = pack4(q0[0], q0[1], q0[2], q0[3]);
+  if (th.col1) *reinterpret_cast<uint32_t*>(dst + th.y_col) = pack4(q1[0], q1[1], q1[2], q1[3]);
+}
+
+// The thread's `rows` output rows of one output plane. src: its first word
+// in the plane's first input plane, row 0; Q: words a box column; rs: words
+// a box row; ps: words a box plane; y: the plane's output row 0. The last
+// rows read rotate through registers, as run_tile's. PAD: the reads outside
+// the volume (`o`) hold the pad word.
+template <int S, bool XU8, bool FAST, bool PAD>
+__device__ __forceinline__ void run_plane3(const uint32_t* __restrict__ src, int Q, int rs,
+                                           int ps, int rows, const Thread3<S>& th, int8_t* y,
+                                           const Outside& o) {
+  if constexpr (S == 1) {
+    Row3<1> a, b, c;
+    load_row3<1, PAD>(src, Q, ps, a, o, 0);
+    load_row3<1, PAD>(src + rs, Q, ps, b, o, 1);
+    const uint32_t* nxt = src + 2 * rs;
+    int i = 0;
+    for (; i + 3 <= rows; i += 3) {
+      load_row3<1, PAD>(nxt, Q, ps, c, o, i + 2);
+      out_row3<1, XU8, FAST>(th, a, b, c, y + i * th.y_row);
+      load_row3<1, PAD>(nxt + rs, Q, ps, a, o, i + 3);
+      out_row3<1, XU8, FAST>(th, b, c, a, y + (i + 1) * th.y_row);
+      load_row3<1, PAD>(nxt + 2 * rs, Q, ps, b, o, i + 4);
+      out_row3<1, XU8, FAST>(th, c, a, b, y + (i + 2) * th.y_row);
+      nxt += 3 * rs;
+    }
+    if (i < rows) {
+      load_row3<1, PAD>(nxt, Q, ps, c, o, i + 2);
+      out_row3<1, XU8, FAST>(th, a, b, c, y + i * th.y_row);
+      if (i + 1 < rows) {
+        load_row3<1, PAD>(nxt + rs, Q, ps, a, o, i + 3);
+        out_row3<1, XU8, FAST>(th, b, c, a, y + (i + 1) * th.y_row);
+      }
+    }
+  } else {
+    Row3<2> e0, m, e1;
+    load_row3<2, PAD>(src, Q, ps, e0, o, 0);
+    const uint32_t* nxt = src + rs;
+    int i = 0;
+    for (; i + 2 <= rows; i += 2) {
+      load_row3<2, PAD>(nxt, Q, ps, m, o, 2 * i + 1);
+      load_row3<2, PAD>(nxt + rs, Q, ps, e1, o, 2 * i + 2);
+      out_row3<2, XU8, FAST>(th, e0, m, e1, y + i * th.y_row);
+      load_row3<2, PAD>(nxt + 2 * rs, Q, ps, m, o, 2 * i + 3);
+      load_row3<2, PAD>(nxt + 3 * rs, Q, ps, e0, o, 2 * i + 4);
+      out_row3<2, XU8, FAST>(th, e1, m, e0, y + (i + 1) * th.y_row);
+      nxt += 4 * rs;
+    }
+    if (i < rows) {
+      load_row3<2, PAD>(nxt, Q, ps, m, o, 2 * i + 1);
+      load_row3<2, PAD>(nxt + rs, Q, ps, e1, o, 2 * i + 2);
+      out_row3<2, XU8, FAST>(th, e0, m, e1, y + i * th.y_row);
+    }
+  }
+}
+
+// A tile3d tile id split into (image, plane tile, row tile, column tile,
+// channel run).
+struct Tile3 {
+  int b, td, th, tw, cr;
+};
+
+__device__ __forceinline__ Tile3 split_tile3(unsigned t, const TileParams& p) {
+  Tile3 r;
+  r.cr = (int)(t % (unsigned)p.n_c);
+  t /= (unsigned)p.n_c;
+  r.tw = (int)(t % (unsigned)p.n_w);
+  t /= (unsigned)p.n_w;
+  r.th = (int)(t % (unsigned)p.n_h);
+  t /= (unsigned)p.n_h;
+  r.td = (int)(t % (unsigned)p.n_d);
+  r.b = (int)(t / (unsigned)p.n_d);
+  return r;
+}
+
+// Persistent blocks over output tiles (channel runs fastest, then columns,
+// rows, planes, images), two staged input boxes a block: tile k + 1's 5-D
+// TMA load is in flight while tile k computes. Thread tid owns channel quad
+// tid % Q and column pair tid / Q of every tile and walks its TD planes x
+// TH rows; its weights stay in registers while the channel run does. PAD:
+// the conv pads with a non-zero byte (a separate instance, so that the
+// common zero pad keeps its registers).
+template <int S, bool XU8, bool PAD>
+__global__ void __launch_bounds__(TILE_THREADS)
+    qconv_grouped_int8_requant_tile3d_kernel(const __grid_constant__ CUtensorMap xmap,
+                                             const TileParams p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t buf0 = smem_u32(smem);
+  const uint32_t bar0 = buf0 + 2 * p.buf_bytes, bar1 = bar0 + 8;
+  const int Q = p.CR >> 2;
+  const int tid = threadIdx.x;
+  const int q = tid % Q, pc = tid / Q;
+  const uint32_t box = (uint32_t)(p.BD * p.BH * p.BW * p.CR);
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto load_tile = [&](unsigned t, int s) {
+    const Tile3 tl = split_tile3(t, p);
+    const uint32_t bar = s ? bar1 : bar0;
+    mbar_arrive_tx(bar, box);
+    tma_load_5d(buf0 + s * p.buf_bytes, &xmap, bar, tl.cr * p.CR, tl.tw * p.TW * S - p.pad_w,
+                tl.th * p.TH * S - p.pad_h, tl.td * p.TD * p.stride_d - p.pad_d, tl.b);
+  };
+  if (tid == 0 && blockIdx.x < p.tiles) load_tile(blockIdx.x, 0);
+  Thread3<S> th;
+  bool fast = true;
+  int c_loaded = -1;  // the channel quad whose weights th holds
+  int it = 0;
+  for (unsigned t = blockIdx.x; t < p.tiles; t += gridDim.x, ++it) {
+    const int s = it & 1;
+    if (tid == 0 && t + gridDim.x < p.tiles) load_tile(t + gridDim.x, s ^ 1);
+    const Tile3 tl = split_tile3(t, p);
+    const int c = tl.cr * p.CR + 4 * q;
+    const int ow = tl.tw * p.TW + 2 * pc;
+    const int oh0 = tl.th * p.TH, od0 = tl.td * p.TD;
+    const bool active = pc < (p.TW >> 1) && c < p.C && ow < p.OW;
+    if (active && c != c_loaded) {  // the weights load while the box arrives
+      fast = load_thread3<S, XU8>(th, p, c);
+      th.y_row = (long long)p.OW * p.C;
+      th.y_plane = (long long)p.OH * p.OW * p.C;
+      th.y_col = p.C;
+      c_loaded = c;
+    }
+    mbar_wait(s ? bar1 : bar0, (it >> 1) & 1);
+    if (active) {
+      th.col1 = ow + 1 < p.OW;
+      const int rs = p.BW * Q, ps = p.BH * rs;
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(smem + s * p.buf_bytes) +
+                            2 * S * pc * Q + q;
+      const int rows = min(p.TH, p.OH - oh0), planes = min(p.TD, p.OD - od0);
+      int8_t* y = p.y + ((((long long)tl.b * p.OD + od0) * p.OH + oh0) * p.OW + ow) * p.C + c;
+      // where the conv pads with a non-zero byte, the thread reads it in
+      // place of the box's bytes outside the volume (TMA's zeros): its
+      // columns once a tile, its rows and planes as it reads them
+      const int d0 = od0 * p.stride_d - p.pad_d;
+      Outside o;
+      o.r0 = oh0 * S - p.pad_h;
+      o.H = p.H;
+      o.pad = p.pad_word;
+      o.cols = 0;
+      const int c0 = tl.tw * p.TW * S - p.pad_w + 2 * S * pc;
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+        if ((unsigned)(c0 + j) >= (unsigned)p.W) o.cols |= 1u << j;
+      for (int pd = 0; pd < planes; ++pd) {
+        const uint32_t* sp = src + pd * p.stride_d * ps;
+        int8_t* yp = y + pd * th.y_plane;
+        const int ipd = d0 + pd * p.stride_d;  // the plane's first input plane
+#pragma unroll
+        for (int kd = 0; kd < 3; ++kd)
+          o.planes[kd] = (unsigned)(ipd + kd) >= (unsigned)p.D ? 0x1Fu : 0u;
+        if (fast)
+          run_plane3<S, XU8, true, PAD>(sp, Q, rs, ps, rows, th, yp, o);
+        else
+          run_plane3<S, XU8, false, PAD>(sp, Q, rs, ps, rows, th, yp, o);
+      }
+    }
+    __syncthreads();  // slot s is read; the next iteration's load may reuse it
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -594,25 +898,35 @@ EncodeTiledFn encode_tiled() {
 // The largest dynamic shared memory a block may have (227 KB).
 constexpr size_t MAX_SMEM = 232448;
 
-template <int S, bool XU8>
+// D3: the tile3d form (x [B, D, H, W, C] as a 5-D map, boxes of CR x BW x
+// BH x BD x 1), else the tile form (x [B, H, W, C], 4-D, CR x BW x BH x 1);
+// reads outside the tensor return zeros
+template <int S, bool XU8, bool D3, bool PAD = false>
 cudaError_t launch_tile(const void* x, int B, int H, int W, const TileParams& p, size_t smem,
                         int threads, cudaStream_t st) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  // x int8 [B, H, W, C] as a 4-D tensor map, innermost dimension first;
-  // boxes of CR x BW x BH x 1; reads outside the tensor return zeros
+  // innermost dimension first
   CUtensorMap map;
-  const cuuint64_t dims[4] = {(cuuint64_t)p.C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)p.C, (cuuint64_t)W * p.C,
-                                 (cuuint64_t)H * W * p.C};
-  const cuuint32_t box[4] = {(cuuint32_t)p.CR, (cuuint32_t)p.BW, (cuuint32_t)p.BH, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, box, elem,
+  const int D = D3 ? p.D : 1;
+  const cuuint64_t C = (cuuint64_t)p.C;
+  const cuuint64_t dims5[5] = {C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint64_t strides5[4] = {C, C * W, C * W * H, C * W * H * D};
+  const cuuint32_t box5[5] = {(cuuint32_t)p.CR, (cuuint32_t)p.BW, (cuuint32_t)p.BH,
+                              (cuuint32_t)(D3 ? p.BD : 1), 1};
+  // the 2-D form's map: the depth dimension left out
+  const cuuint64_t dims4[4] = {C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides4[3] = {C, C * W, C * W * H};
+  const cuuint32_t box4[4] = {(cuuint32_t)p.CR, (cuuint32_t)p.BW, (cuuint32_t)p.BH, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, D3 ? 5 : 4, const_cast<void*>(x),
+         D3 ? dims5 : dims4, D3 ? strides5 : strides4, D3 ? box5 : box4, elem,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  auto kern = qconv_grouped_int8_requant_tile_kernel<S, XU8>;
+  auto kern = D3 ? qconv_grouped_int8_requant_tile3d_kernel<S, XU8, PAD>
+                 : qconv_grouped_int8_requant_tile_kernel<S, XU8>;
   static size_t opted_in = 0;  // the shared memory this instantiation may use
   static size_t occ_smem = 0;  // the (shared memory, threads) occ was taken at
   static int occ_threads = 0;
@@ -656,7 +970,9 @@ cudaError_t launch_tile(const void* x, int B, int H, int W, const TileParams& p,
 // 16-byte aligned) as grouped_plan
 // gives it (qconv_grouped_int8.py::tile_args): {TH, TW, channel run, box
 // rows, box columns, staging buffer bytes, shared memory bytes, threads, row
-// tiles, column tiles, channel runs}. The output pointer must be 4-byte
+// tiles, column tiles, channel runs}; for the tile3d form (KD = 3: a
+// depthwise 3x3x3, depth stride 1 or 2) three more: {TD, box planes, plane
+// tiles}. The output pointer must be 4-byte
 // aligned when O % 4 == 0. Launches on `stream`; returns the launch's error,
 // or cudaErrorInvalidValue for arguments the form does not take.
 extern "C" cudaError_t qconv_grouped_int8_launch(
@@ -681,9 +997,13 @@ extern "C" cudaError_t qconv_grouped_int8_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile != nullptr) {
     const int s = stride_h;
+    // the tile3d form: a depthwise 3x3x3, its depth stride 1 or 2
+    const bool d3 = KD == 3;
     if (Cg != 1 || Og != 1 || KH != 3 || KW != 3 || stride_w != s || (s != 1 && s != 2) ||
-        dil_h != 1 || dil_w != 1 || out_i32 || C % 16 != 0 || D != 1 || OD != 1 ||
-        KD != 1 || pad_d != 0 || x_zp != nullptr || y_zp_dev != nullptr ||
+        dil_h != 1 || dil_w != 1 || out_i32 || C % 16 != 0 ||
+        (d3 ? (stride_d != 1 && stride_d != 2) || dil_d != 1
+            : D != 1 || OD != 1 || KD != 1 || pad_d != 0) ||
+        x_zp != nullptr || y_zp_dev != nullptr ||
         reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 4 != 0)
       return cudaErrorInvalidValue;
     TileParams p;
@@ -708,11 +1028,18 @@ extern "C" cudaError_t qconv_grouped_int8_launch(
     p.pad_w = pad_w;
     p.H = H;
     p.W = W;
+    p.TD = d3 ? tile[11] : 1;
+    p.BD = d3 ? tile[12] : 1;
+    p.n_d = d3 ? tile[13] : 1;
+    p.stride_d = stride_d;
+    p.pad_d = pad_d;
+    p.D = D;
+    p.OD = OD;
     p.pad_word = (uint32_t)(pad_x & 0xFF) * 0x01010101u;
     p.q_lo = (float)(y_lo - y_zp);
     p.q_hi = (float)(y_lo + 255 - y_zp);
     p.y_zp = y_zp;
-    const long long tiles = (long long)B * p.n_h * p.n_w * p.n_c;
+    const long long tiles = (long long)B * p.n_d * p.n_h * p.n_w * p.n_c;
     // the limits: a thread's reads inside the box, tiles covering the
     // output, TMA's box (sides <= 256, rows of 16-byte multiples), the
     // block's threads and shared memory (two buffers, then two barriers)
@@ -720,17 +1047,33 @@ extern "C" cudaError_t qconv_grouped_int8_launch(
         p.CR > 256 || p.BH < (p.TH - 1) * s + 3 || p.BW < (p.TW - 1) * s + 3 || p.BH > 256 ||
         p.BW > 256 || (long long)p.n_h * p.TH < OH || (long long)p.n_w * p.TW < OW ||
         (long long)p.n_c * p.CR < C || p.n_h < 1 || p.n_w < 1 || p.n_c < 1 ||
-        buf % 128 != 0 || buf < (long long)p.BH * p.BW * p.CR || smem < 2 * buf + 16 ||
+        p.TD < 1 || p.n_d < 1 || (long long)p.n_d * p.TD < OD ||
+        (d3 && (p.BD < (p.TD - 1) * stride_d + 3 || p.BD > 256)) ||
+        buf % 128 != 0 || buf < (long long)p.BD * p.BH * p.BW * p.CR || smem < 2 * buf + 16 ||
         smem > (long long)MAX_SMEM || threads % 32 != 0 ||
         threads < (p.CR / 4) * (p.TW / 2) || threads > TILE_THREADS || tiles >= (1LL << 31))
       return cudaErrorInvalidValue;
     p.buf_bytes = (unsigned)buf;
     p.tiles = (unsigned)tiles;
+    if (d3 && p.pad_word != 0) {
+      if (x_u8)
+        return s == 1 ? launch_tile<1, true, true, true>(x, B, H, W, p, smem, threads, st)
+                      : launch_tile<2, true, true, true>(x, B, H, W, p, smem, threads, st);
+      return s == 1 ? launch_tile<1, false, true, true>(x, B, H, W, p, smem, threads, st)
+                    : launch_tile<2, false, true, true>(x, B, H, W, p, smem, threads, st);
+    }
+    if (d3) {
+      if (x_u8)
+        return s == 1 ? launch_tile<1, true, true>(x, B, H, W, p, smem, threads, st)
+                      : launch_tile<2, true, true>(x, B, H, W, p, smem, threads, st);
+      return s == 1 ? launch_tile<1, false, true>(x, B, H, W, p, smem, threads, st)
+                    : launch_tile<2, false, true>(x, B, H, W, p, smem, threads, st);
+    }
     if (x_u8)
-      return s == 1 ? launch_tile<1, true>(x, B, H, W, p, (size_t)smem, threads, st)
-                    : launch_tile<2, true>(x, B, H, W, p, (size_t)smem, threads, st);
-    return s == 1 ? launch_tile<1, false>(x, B, H, W, p, (size_t)smem, threads, st)
-                  : launch_tile<2, false>(x, B, H, W, p, (size_t)smem, threads, st);
+      return s == 1 ? launch_tile<1, true, false>(x, B, H, W, p, (size_t)smem, threads, st)
+                    : launch_tile<2, true, false>(x, B, H, W, p, (size_t)smem, threads, st);
+    return s == 1 ? launch_tile<1, false, false>(x, B, H, W, p, (size_t)smem, threads, st)
+                  : launch_tile<2, false, false>(x, B, H, W, p, (size_t)smem, threads, st);
   }
   Params p;
   p.x = static_cast<const int8_t*>(x);

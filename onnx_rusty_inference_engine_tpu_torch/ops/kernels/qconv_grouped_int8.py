@@ -14,16 +14,18 @@ point, an output zero point, dilation in the general form). Its source
 note says what bounds it on the H100 and how each form works.
 
 `grouped_plan` picks the kernel's form from the shapes, and for the tile
-form the whole launch: "tile" (2-D depthwise 3x3 at stride 1 or 2, C % 16
+forms the whole launch: "tile" (2-D depthwise 3x3 at stride 1 or 2, C % 16
 == 0, x 16-byte aligned: TMA-staged input tiles, IDP4A, register
-blocking) or "general" (any other group > 1, a dilated one, every 3-D
-conv (x [B, C, D, H, W] by w [O, Cg, KD, KH, KW]: a depth loop over the
-taps, the depth a run-time size), a zero point read from device memory,
-and the int32 output: one thread per output pixel and 4 output
-channels). `pad_value` and `y_zp` may be ints or one-element tensors on
-the card (zero points computed at run time), which the kernel reads in
-the run. The kernel's entry
-point takes the tile form's plan as it is and only checks it against its
+blocking), "tile3d" (its 3-D counterpart: depthwise 3x3x3 over x [B, C,
+D, H, W], depth stride 1 or 2, row and column stride 1 or 2, staged as
+5-D boxes, nine IDP4A a column) or "general" (any other group > 1, a
+dilated one, any other 3-D conv (a depth loop over the taps, the depth a
+run-time size), a zero point read from device memory, and the int32
+output: one thread per output pixel and 4 output channels). `pad_value`
+and `y_zp` may be ints or one-element tensors on the card (zero points
+computed at run time), which the kernel reads in the run. The kernel's
+entry point takes the tile forms' plans as they are and only checks them
+against its
 limits. `qconv_grouped_int8` is the general form's exact int32 output
 (+ bias), for a weight with a zero point.
 
@@ -48,6 +50,7 @@ them per form, `.forms` per QOperator form (qconv_int8.FORMS).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -72,7 +75,7 @@ __all__ = ["qconv_grouped_int8_requant", "qconv_grouped_int8_requant_plain",
 RUN = 4
 
 # the kernel's forms, the keys of `.schedules`
-FORMS = ("tile", "general")
+FORMS = ("tile", "tile3d", "general")
 
 # the tile form: the most threads a block (the kernel's launch bound), the
 # bytes one staged input tile may take (two are in flight a block, so three
@@ -84,6 +87,8 @@ TILE_BUF = 32 * 1024
 TILE_WHOLE = 160
 TILE_RUNS = (64, 48, 32, 16)
 BOX_MAX = 256
+# the tile3d form's staged box (two a block: two blocks fill an SM's 227 KB)
+TILE3D_BUF = 48 * 1024
 
 # the largest taps per output (Cg * KH * KW) whose int32 sums cannot
 # overflow: every product is at most 128 * 128 in magnitude
@@ -104,20 +109,27 @@ def conv_groups(x_shape: Sequence[int], w_shape: Sequence[int]) -> int:
 
 def grouped_mode(C: int, Cg: int, O: int, group: int,
                  kernel: Sequence[int], stride: Sequence[int],
-                 x_align: int = 16, dilation: Sequence[int] = (1, 1),
+                 x_align: int = 16, dilation: Optional[Sequence[int]] = None,
                  int32: bool = False, device_zp: bool = False) -> str:
     """The kernel's form for a conv of C input channels in `group` groups
     of Cg, O output channels, a kernel of kernel = (KH, KW) (3-D: (KD, KH,
     KW)) at `stride` and `dilation`, over an input whose address is a
-    multiple of `x_align` bytes: "tile" for an undilated 2-D depthwise 3x3
-    at stride 1 or 2 with C % 16 == 0 and x 16-byte aligned on the requant
-    output with its zero points known before the run, "general" otherwise
-    (every 3-D conv, the int32 output, a zero point in device memory)."""
-    if (Cg == 1 and O == group and tuple(kernel) == (3, 3)
-            and tuple(stride) in ((1, 1), (2, 2)) and C % 16 == 0
-            and x_align % 16 == 0 and tuple(dilation) == (1, 1)
+    multiple of `x_align` bytes: for an undilated depthwise conv with C %
+    16 == 0 and x 16-byte aligned on the requant output with its zero
+    points known before the run, "tile" where it is a 3x3 at stride 1 or 2
+    and "tile3d" where it is a 3x3x3 at depth stride 1 or 2 and row and
+    column stride 1 or 2 (the two equal); "general" otherwise (the int32
+    output, a zero point in device memory, dilation, any other kernel)."""
+    kernel, stride = tuple(kernel), tuple(stride)
+    if not (Cg == 1 and O == group and C % 16 == 0 and x_align % 16 == 0
+            and tuple(dilation or (1,) * len(kernel)) == (1,) * len(kernel)
             and not int32 and not device_zp):
+        return "general"
+    if kernel == (3, 3) and stride in ((1, 1), (2, 2)):
         return "tile"
+    if (kernel == (3, 3, 3) and stride[0] in (1, 2)
+            and stride[1:] in ((1, 1), (2, 2))):
+        return "tile3d"
     return "general"
 
 
@@ -153,10 +165,52 @@ def _tile(B: int, C: int, OH: int, OW: int, s: int) -> dict:
             "grid": grid, "tiles": grid[0] * grid[1] * grid[2] * grid[3]}
 
 
+@functools.lru_cache(maxsize=256)
+def _tile3d(B: int, C: int, OD: int, OH: int, OW: int, sd: int,
+            s: int) -> dict:
+    """The tile3d form's launch for a depthwise 3x3x3 at depth stride sd
+    and row and column stride s. The channel run and the columns as the
+    tile form's (`_tile`); then the planes TD and rows TH: of the even
+    splits of OD and OH whose input box ((TD-1)*sd+3 planes, (TH-1)*s+3
+    rows, the columns' halo, the run) fits TILE3D_BUF, the one whose boxes
+    stage the fewest bytes in all (the halo read again, the tiles past the
+    output), then the most rows (a thread reads each input row of a plane
+    once for its TH rows and the two of the halo)."""
+    run = _tile(B, C, OH, OW, s)
+    (_, tw), (_, bw, cr) = run["tile"], run["box"]
+    best = None
+    for n_d in range(1, OD + 1):
+        td = -(-OD // n_d)
+        if -(-OD // td) != n_d:
+            continue
+        bd = (td - 1) * sd + 3
+        for n_h in range(1, OH + 1):
+            th = -(-OH // n_h)
+            if -(-OH // th) != n_h:
+                continue
+            bh = (th - 1) * s + 3
+            if bd * bh * bw * cr > TILE3D_BUF or max(bd, bh) > BOX_MAX:
+                continue
+            key = (n_d * n_h * bd * bh, -th)
+            if best is None or key < best[0]:
+                best = (key, td, th, bd, bh)
+    _, td, th, bd, bh = best
+    buf = -(-bd * bh * bw * cr // 128) * 128
+    grid = (B, -(-OD // td), -(-OH // th), -(-OW // tw), -(-C // cr))
+    return {"tile": (td, th, tw), "run": cr, "box": (bd, bh, bw, cr),
+            "buf": buf, "smem": 2 * buf + 16, "threads": run["threads"],
+            "grid": grid, "tiles": math.prod(grid)}
+
+
 def tile_args(plan: dict) -> Tuple[int, ...]:
-    """The tile form's plan as the kernel's entry point takes it: TH, TW,
+    """A tile form's plan as the kernel's entry point takes it: TH, TW,
     channel run, box rows and columns, staging buffer bytes, shared
-    memory, threads, and row, column and channel tiles an image."""
+    memory, threads, and row, column and channel tiles an image; for the
+    tile3d form then TD, box planes and plane tiles."""
+    if plan["form"] == "tile3d":
+        (td, th, tw), (bd, bh, bw, run) = plan["tile"], plan["box"]
+        return (th, tw, run, bh, bw, plan["buf"], plan["smem"],
+                plan["threads"], *plan["grid"][2:], td, bd, plan["grid"][1])
     (th, tw), (bh, bw, run) = plan["tile"], plan["box"]
     return (th, tw, run, bh, bw, plan["buf"], plan["smem"], plan["threads"],
             *plan["grid"][1:])
@@ -173,8 +227,11 @@ def grouped_plan(x_shape: Sequence[int], w_shape: Sequence[int],
     output tile (TH, TW), the channel run, the input box (rows, columns,
     channels), the staging buffer, the block's shared memory and threads,
     and the grid of tiles (B, row tiles, column tiles, channel runs),
-    which persistent blocks walk. The general form: one 256-thread block
-    per 256 (pixel, 4 channels) pairs."""
+    which persistent blocks walk; for the tile3d form the same with
+    planes first (tile (TD, TH, TW), box (planes, rows, columns,
+    channels), grid (B, plane tiles, row, column, channel tiles);
+    `_tile3d`). The general form: one 256-thread block per 256 (pixel, 4
+    channels) pairs."""
     B, C = x_shape[:2]
     O, Cg = w_shape[:2]
     kernel = tuple(w_shape[2:])
@@ -185,6 +242,8 @@ def grouped_plan(x_shape: Sequence[int], w_shape: Sequence[int],
                         dilation, int32, device_zp)
     if form == "tile":
         return {"form": form, **_tile(B, C, *out, stride[0])}
+    if form == "tile3d":
+        return {"form": form, **_tile3d(B, C, *out, stride[0], stride[1])}
     threads = B * math.prod(out) * (-(-O // RUN))
     return {"form": form, "tile": None, "run": None, "box": None,
             "buf": None, "smem": 0, "threads": 256,
@@ -344,7 +403,7 @@ def _launch(x, w, mult, bias, stride, padding, packed, dilation=None,
     if not xl.is_contiguous():
         xl = xl.contiguous()
     tile = None
-    if plan["form"] == "tile":
+    if plan["form"] != "general":
         args = tile_args(plan)
         tile = (ctypes.c_int * len(args))(*args)
     y = torch.empty((B * OD * OH * OW, O), dtype=out_dtype, device=dev)

@@ -35,8 +35,13 @@ its channels zero-padded to a multiple of 4 where they are not.
 
 `conv_plan` picks how the kernel fetches A (`conv_producer`) and the tile:
 "tma" for a 2-D 1x1, stride-1, unpadded conv with C % 16 == 0 (a plain
-matrix product) on the requant epilogue, "gather" (an implicit im2col by
-cp.async) for every other, and every 3-D conv.
+matrix product) on the requant epilogue; "halo" (the staged-halo
+producer: a tile is a box of 2 or 4 planes x 8 x 8 output voxels, whose
+input box with its halo lands by TMA once a tile, each tap's A a wgmma
+descriptor into it) for a 3-D conv at unit stride and dilation over C %
+32 == 0 channels (C <= 128 or C % 128 == 0) on the requant epilogue,
+R3D-18's 13 stride-1 3x3x3 convs among them (`halo_plan`); "gather" (an
+implicit im2col by cp.async) for every other.
 
 Each epilogue is a `torch.library` operator, `oriet::qconv_int8_requant`
 and `oriet::qconv_int8`: on the CPU the kernel's plain PyTorch versions
@@ -65,7 +70,8 @@ import torch.nn.functional as F
 
 from . import _build
 from ._ops import define
-from .qmatmul_int8 import (EPILOGUES, ZeroPoint, _requant, as_mult,
+from .qmatmul_int8 import (EPILOGUES, MAX_STAGES, NUM_SMS, SMEM_LIMIT,
+                           STAGE_K, Int8Tile, ZeroPoint, _requant, as_mult,
                            check_device, check_operand, check_qtype,
                            count_forms, int8_tile, mult_vector,
                            zero_point_arg)
@@ -74,14 +80,24 @@ __all__ = ["qconv_int8_requant", "qconv_int8_requant_plain", "qconv_int8",
            "qconv_int8_plain", "pack_qconv_weight", "conv_channels",
            "conv_producer", "conv_plan", "conv_out_hw", "conv_out_size",
            "channels_last_input", "PRODUCERS", "K_ALIGN", "FORMS",
-           "schema_padding", "nested_padding", "conv_fake", "op_zero_points"]
+           "schema_padding", "nested_padding", "conv_fake", "op_zero_points",
+           "halo_plan", "HALO_PLANES", "HALO_ROWS"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
 K_ALIGN = 16
 
 # producer name -> the id the C entry point takes
-PRODUCERS = {"tma": 0, "gather": 1}
+PRODUCERS = {"tma": 0, "gather": 1, "halo": 2}
+
+# the staged-halo producer (csrc/int8_wgmma.cuh, A_HALO): a tile's output
+# box is 2 or 4 depth planes (BM 128 or 256: one or two 8 x 8 planes a
+# consumer warpgroup) of HALO_ROWS x HALO_ROWS voxels; the most channels of
+# the input box staged at once; its tiles' BN
+HALO_PLANES = (2, 4)
+HALO_ROWS = 8
+HALO_CHUNK = 128
+HALO_BN = (64, 128)
 
 # the tiles whose kernel instances carry the gather's 3-D form (BM 128, BN
 # 64 or 128: csrc/int8_wgmma.cuh, D3_TILE): a 3-D conv takes one of them
@@ -139,19 +155,104 @@ def conv_out_hw(H: int, W: int, KH: int, KW: int, stride: Sequence[int],
     return conv_out_size((H, W), (KH, KW), stride, padding, dilation)
 
 
+def halo_plan(C: int, N: int, kernel: Sequence[int], out: Sequence[int],
+              B: int) -> dict:
+    """The staged-halo producer's launch for a 3-D conv over C channels (C
+    % 32 == 0, C <= 128 or C % 128 == 0) to N outputs with a kernel of
+    (KD, KH, KW) and B images of `out` = (OD, OH, OW) outputs, as the C
+    entry point derives it: the output box's planes (4 where they cover OD
+    with no more waste than 2 and the tile fits, so that each weight slice
+    in shared memory serves two products and the weights leave L2 half as
+    often; else 2), the input box (depth, rows, columns) with its halo, one
+    16-channel block of it `cb_pitch` bytes (a multiple of 128), the
+    channels staged at once (`chunk`: C, or HALO_CHUNK) and the chunks, the
+    128-byte K slices of one chunk, the box's bytes, and the tile: BM 64 x
+    planes, BN 64 where N <= 64 or where 128-wide tiles would leave half
+    the SMs idle (at most NUM_SMS / 2 tiles: R3D-18's layer4), else 128,
+    the weights resident where N fits one tile and they fit beside two box
+    slots (else a ring of the most stages that fits), and the block's
+    shared memory (`halo_smem`)."""
+    OD, OH, OW = out
+    four = -(-OD // 4) * 4 <= -(-OD // 2) * 2
+    for planes in ((4, 2) if four else (2,)):
+        m_tiles = B * -(-OD // planes) * -(-OH // HALO_ROWS) * -(
+            -OW // HALO_ROWS)
+        narrow = (N > HALO_BN[0]
+                  and 2 * m_tiles * -(-N // HALO_BN[1]) <= NUM_SMS)
+        plan = _halo_plan(C, N, kernel, planes, narrow)
+        if plan["tile"].stages >= 2:
+            break
+    return plan
+
+
+def _halo_plan(C: int, N: int, kernel: Sequence[int], planes: int,
+               narrow: bool = False) -> dict:
+    taps = math.prod(kernel)
+    box = tuple(t + k - 1 for t, k in zip(
+        (planes, HALO_ROWS, HALO_ROWS), kernel))
+    cb_pitch = _round_up(math.prod(box) * 16, 128)
+    chunk = min(C, HALO_CHUNK)
+    n_chunks = C // chunk
+    chunk_k = -(-taps * C // STAGE_K) if n_chunks == 1 else taps
+    box_bytes = chunk // 16 * cb_pitch
+    bn = HALO_BN[0] if N <= HALO_BN[0] or narrow else HALO_BN[1]
+    num_k = -(-taps * C // STAGE_K)
+    resident = (N <= bn and halo_smem(bn, 2, num_k, box_bytes, taps)
+                <= SMEM_LIMIT)
+    if resident:
+        stages = 2
+    else:
+        fit = [s for s in range(2, MAX_STAGES + 1)
+               if halo_smem(bn, s, 0, box_bytes, taps) <= SMEM_LIMIT]
+        stages = fit[-1] if fit else 0
+    return {"planes": planes, "box": box, "cb_pitch": cb_pitch,
+            "chunk": chunk, "n_chunks": n_chunks, "chunk_k": chunk_k,
+            "box_bytes": box_bytes,
+            "tile": Int8Tile(planes * 64, bn, stages, resident),
+            "smem": halo_smem(bn, stages, num_k if resident else 0,
+                              box_bytes, taps)}
+
+
+def halo_smem(bn: int, stages: int, resident_k: int, box_bytes: int,
+              taps: int) -> int:
+    """The staged-halo producer's dynamic shared memory
+    (csrc/int8_wgmma.cuh::halo_smem_bytes): 1024 bytes to align, the
+    weights' ring of `stages` slots of bn x 128 bytes (or their
+    `resident_k` slices), two input box slots, the requant staging tile
+    (128 rows of bn + 16 bytes), the barriers, and the taps' box offsets."""
+    return (1024 + (resident_k or stages) * bn * STAGE_K + 2 * box_bytes
+            + 128 * (bn + 16) + 16 * stages + 8 + 32 + 4 * (taps + 4))
+
+
+def _halo_ok(C: int, kernel, stride, dilation, epilogue: str) -> bool:
+    """Whether a conv is the staged-halo producer's: 3-D, unit stride and
+    dilation, C % 32 == 0 with C <= 128 or C % 128 == 0, the requant
+    epilogue, and two box slots and a two-stage ring fit a block."""
+    if (len(kernel) != 3 or tuple(stride) != (1, 1, 1)
+            or tuple(dilation or (1, 1, 1)) != (1, 1, 1)
+            or epilogue != "requant" or C % 32
+            or (C > HALO_CHUNK and C % HALO_CHUNK) or max(kernel) > 64):
+        return False
+    return _halo_plan(C, HALO_BN[1], kernel, 2)["tile"].stages >= 2
+
+
 def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
               stride: Sequence[int], padding: Padding,
               dilation: Optional[Sequence[int]] = None,
               epilogue: str = "requant"):
     """(producer, tile) for a conv of x [B, C, H, W] by w [O, C, KH, KW]
     (or x [B, C, D, H, W] by w [O, C, KD, KH, KW]): what the wrapper passes
-    the kernel. Every 3-D conv takes the gather producer, on a tile of
-    TILE_3D_BM x TILE_3D_BN."""
+    the kernel. A 3-D conv at unit stride and dilation over C % 32 == 0
+    channels on the requant epilogue takes the staged-halo producer
+    (`halo_plan`'s tile); every other 3-D conv the gather producer, on a
+    tile of TILE_3D_BM x TILE_3D_BN."""
     B, C = x_shape[:2]
     O, kernel = w_shape[0], tuple(w_shape[2:])
     out = conv_out_size(x_shape[2:], kernel, stride, padding, dilation)
     Cp = conv_channels(C)
     M, K = B * math.prod(out), _round_up(math.prod(kernel) * Cp, K_ALIGN)
+    if _halo_ok(Cp, kernel, stride, dilation, epilogue):
+        return "halo", halo_plan(Cp, O, kernel, out, B)["tile"]
     if len(kernel) != 2:  # the instances with the gather's 3-D form
         bn = next((b for b in TILE_3D_BN if b >= O), TILE_3D_BN[-1])
         return "gather", int8_tile(M, O, K, bms=TILE_3D_BM, bns=(bn,))

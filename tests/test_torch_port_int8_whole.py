@@ -305,10 +305,12 @@ def test_dynamic_form_round_trips_as_bytes(dynamic):
     ((2, 8, 3, 5, 6), (20, 8, 2, 3, 1), (1, 1, 1), (0, 1, 0)),
 ])
 def test_3d_conv_plan_and_layouts(x_shape, w_shape, stride, pads):
-    """Every 3-D conv on the gather producer, on a tile whose instances
-    carry the 3-D form (TILE_3D_BM x TILE_3D_BN); the packed weight's rows
-    in (kd, kh, kw, c) order; a channels_last_3d input read in place; the
-    fake result's shape and strides those of the kernel's output view."""
+    """A stride-1 3-D conv over C % 32 == 0 channels on the staged-halo
+    producer (BM 64 x 2 or 4 planes, BN one of HALO_BN), every other on
+    the gather, on a tile whose instances carry the 3-D form (TILE_3D_BM x
+    TILE_3D_BN); the packed weight's rows in (kd, kh, kw, c) order; a
+    channels_last_3d input read in place; the fake result's shape and
+    strides those of the kernel's output view."""
     import torch
 
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
@@ -316,9 +318,14 @@ def test_3d_conv_plan_and_layouts(x_shape, w_shape, stride, pads):
 
     padding = tuple((p, p) for p in pads)
     producer, tile = k.conv_plan(x_shape, w_shape, stride, padding)
-    assert producer == "gather"
-    assert tile.bm in k.TILE_3D_BM and tile.bn in k.TILE_3D_BN
-    assert tile.bn >= min(w_shape[0], k.TILE_3D_BN[-1])
+    halo = tuple(stride) == (1, 1, 1) and w_shape[1] % 32 == 0
+    assert producer == ("halo" if halo else "gather")
+    if halo:
+        assert tile.bm in [64 * p for p in k.HALO_PLANES]
+        assert tile.bn in k.HALO_BN
+    else:
+        assert tile.bm in k.TILE_3D_BM and tile.bn in k.TILE_3D_BN
+        assert tile.bn >= min(w_shape[0], k.TILE_3D_BN[-1])
     rng = np.random.default_rng(37)
     w = torch.from_numpy(_q(rng, w_shape, np.int8))
     packed = k.pack_qconv_weight(w)

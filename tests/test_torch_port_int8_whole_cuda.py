@@ -10,11 +10,13 @@ without the suite's conftest.py (which imports JAX):
         tests/test_torch_port_int8_whole_cuda.py -q
 
 - The group-1 kernel's 3-D form (the gather producer, depth a run-time
-  size) bit-equal to its plain version at R3D-18's conv shapes (2 clips),
-  at ragged and strided, dilated and asymmetrically padded shapes, with
-  int8 and uint8 x, both epilogues, counted in the `3d` form.
-- The grouped kernel's 3-D form (the general form): depthwise 3x3x3 and
-  grouped, requant and int32, bit-equal to its plain version.
+  size, or the staged-halo producer where `conv_plan` names it) bit-equal
+  to its plain version at R3D-18's conv shapes (2 clips), at ragged and
+  strided, dilated and asymmetrically padded shapes, with int8 and uint8
+  x, both epilogues, counted in the `3d` form.
+- The grouped kernel's 3-D forms (tile3d where `grouped_plan` names it,
+  else the general form): depthwise 3x3x3 and grouped, requant and int32,
+  bit-equal to its plain version.
 - A zero point given as a device tensor: every kernel reads it in the run
   (counted `device_zero_point`), bit-equal to the same value given as an
   int; inside a captured CUDA graph a new value written into the tensor
@@ -100,7 +102,9 @@ def test_3d_conv_equals_plain(cuda, xs, O, kern, s, p, xdt):
     acc = k.qconv_int8(x, w, **kw, packed=packed)
     torch.cuda.synchronize()
     assert k.qconv_int8_requant.forms["3d"] == before["3d"] + 2
-    assert k.conv_plan(x.shape, w.shape, s, pad)[0] == "gather"
+    # the staged-halo producer: unit stride, C % 32 == 0, requant
+    assert k.conv_plan(x.shape, w.shape, s, pad)[0] == (
+        "halo" if s == (1, 1, 1) and xs[1] % 32 == 0 else "gather")
     want = k.qconv_int8_requant_plain(x, w, mult, bias, **kw, y_zp=5)
     assert got.shape == want.shape and torch.equal(got, want)
     assert torch.equal(acc, k.qconv_int8_plain(x, w, **kw))
@@ -142,8 +146,15 @@ def test_3d_grouped_conv_equals_plain(cuda, xs, O, group, s, xdt):
                                         packed=packed)
     acc = g8.qconv_grouped_int8(x, w, bias, **kw, packed=packed)
     torch.cuda.synchronize()
-    assert g8.qconv_grouped_int8_requant.schedules["general"] \
-        == before["general"] + 2
+    # the requant output on tile3d where the plan names it (a depthwise
+    # 3x3x3, C % 16 == 0), the int32 output on the general form
+    form = g8.grouped_plan(x.shape, w.shape, s, kw["padding"],
+                           g8.input_align(x))["form"]
+    assert form == ("tile3d" if O == group and xs[1] % 16 == 0
+                    else "general")
+    after = g8.qconv_grouped_int8_requant.schedules
+    assert after["general"] == before["general"] + 1 + (form == "general")
+    assert after["tile3d"] == before["tile3d"] + (form == "tile3d")
     assert torch.equal(got, g8.qconv_grouped_int8_requant_plain(
         x, w, mult, bias, **kw, y_zp=-3))
     assert torch.equal(acc, g8.qconv_grouped_int8_plain(x, w, bias, **kw))
