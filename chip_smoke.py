@@ -20,7 +20,9 @@ Phases, each printing JSON lines:
              x[:8]; quantize_graph; INT8 Engine at b256. Every kernel's
              launch count is set to 0 just before and read just after;
              every QLinearConv must launch the int8 kernel (26 per INT8
-             forward: 17 on its TMA producer, 9 on its gather). The
+             forward: 17 on its TMA producer, fires 2-5's expands on its
+             staged-halo producer, conv1 and fires 6-9's expands on its
+             gather: SQUEEZENET_PRODUCERS). The
              card's
              INT8 intermediates are held against the plain versions run on
              the CPU for the first 4 images; which 4-D intermediates are
@@ -131,7 +133,7 @@ Phases, each printing JSON lines:
              against its eager function on the same inputs, bit for bit,
              for the main path's input and a second one; a returned output
              not overwritten by the next call; launch counts per forward
-             over replays unchanged (26 convs: 17 TMA + 9 gather; 73 GEMMs,
+             over replays unchanged (26 convs: 17 TMA + 4 halo + 5 gather; 73 GEMMs,
              all requant); wall per forward eager, replayed through
              Engine.__call__ and as the bare graph replay, each beside the
              device busy time from torch.profiler (idle share).
@@ -508,7 +510,8 @@ Phases, each printing JSON lines:
              `squeezenet_dynamic`: SqueezeNet 1.0 in ONNX Runtime's
              quantize_dynamic form (tests/torch_port_dynamic.py) at b256:
              26 ConvInteger launches per forward, each reading its pad
-             value from device memory (`device_zero_point`), each call's
+             value from device memory (`device_zero_point`; 17 by TMA, 4
+             on the staged-halo producer, 5 gather), each call's
              int32 bit-equal to its plain version (2 images), the captured
              graph replayed on two inputs whose zero points differ, each
              equal to its eager run; images/s. `runtime_zp`: one-node
@@ -585,6 +588,13 @@ PKG = "onnx_rusty_inference_engine_tpu_torch"
 
 BATCH = 256
 CALIB = 8          # calibration images, as bench.py calibrates on x[:8]
+# SqueezeNet 1.0's 26 group-1 convs at b256 by A producer, in every INT8
+# form (static, QOperator, ORT's dynamic ConvInteger on the int32
+# epilogue): the 1x1s by TMA, the 3x3 expands of fires 2-5 (N 64 and 128)
+# on the staged-halo producer; conv1 (stride 2, 3 channels) and the
+# expands of fires 6-9 (N 192 and 256 over 26 x 26 and 12 x 12, which
+# conv_plan's fallback rule keeps there) on the gather
+SQUEEZENET_PRODUCERS = {"tma": 17, "halo": 4, "gather": 5}
 CPU_CHECK = 8      # images re-run through the plain versions on the CPU
 WARMUP, ITERS = 3, 20
 
@@ -863,12 +873,14 @@ def phase_slice():
             f"{launches} launches for {int8_forwards} INT8 forwards")
     require(sum(counts.values()) == launches,
             f"only the int8 conv kernel on SqueezeNet's path: {counts}")
-    # the 17 1x1 convs (C % 16 == 0) read A by TMA; the 8 3x3 expands and
-    # conv1 gather their im2col
+    # the 17 1x1 convs (C % 16 == 0) read A by TMA, fires 2-5's 3x3
+    # expands from a staged halo box, conv1 and the other expands by the
+    # gather
     producers = read_splits("qconv_int8_requant")["producers"]
-    require(producers == {"tma": 17 * int8_forwards,
-                          "gather": 9 * int8_forwards, "halo": 0},
-            f"A producers per INT8 forward: {producers} for {int8_forwards}")
+    require(producers == {k: n * int8_forwards
+                          for k, n in SQUEEZENET_PRODUCERS.items()},
+            f"A producers per INT8 forward: {producers} for {int8_forwards}"
+            f" ({SQUEEZENET_PRODUCERS} a forward)")
 
     # every intermediate of the INT8 graph (debug.py), on the card at b256
     # (as device tensors, with the Engine's weights) and through the plain
@@ -4461,6 +4473,12 @@ def phase_qoperator_model(model: str, smi: str) -> dict:
         require(splits[f]["qconv_int8_requant"]["forms"]["uint8_x"] == n_u8,
                 f"qoperator {model} {f}: uint8 A on the QUInt8 convs only: "
                 f"{splits[f]}")
+        if model == "squeezenet":
+            require(splits[f]["qconv_int8_requant"]["producers"]
+                    == {k: n * forwards
+                        for k, n in SQUEEZENET_PRODUCERS.items()},
+                    f"qoperator {model} {f}: {SQUEEZENET_PRODUCERS} a "
+                    f"forward by A producer: {splits[f]}")
     for t in ys.values():
         require(tuple(t.shape)[:2] == (BATCH, 1000)
                 and bool(torch.isfinite(t).all()),
@@ -7734,10 +7752,10 @@ def _whole_squeezenet_dynamic(smi: str) -> dict:
     the Engine. Counts set to 0 just before, read just after: 26
     ConvInteger launches per forward on the int32 epilogue, every one
     reading its pad value (the x zero point DynamicQuantizeLinear computes)
-    from device memory. Each node's int32 bit-equal to its plain version on
-    the card's operands (first 2 images); the captured graph replayed on
-    two inputs whose zero points differ, each output equal to its own
-    eager run; images/s."""
+    from device memory, SQUEEZENET_PRODUCERS by A producer. Each node's
+    int32 bit-equal to its plain version on the card's operands (first 2
+    images); the captured graph replayed on two inputs whose zero points
+    differ, each output equal to its own eager run; images/s."""
     import onnx_rusty_inference_engine_tpu_torch as P
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
@@ -7766,10 +7784,13 @@ def _whole_squeezenet_dynamic(smi: str) -> dict:
     require(counts == {"qconv_int8_requant": n}
             and splits["epilogues"]["int32"] == n
             and splits["forms"]["device_zero_point"] == n
-            and splits["forms"]["uint8_x"] == n,
+            and splits["forms"]["uint8_x"] == n
+            and splits["producers"] == {k: v * forwards for k, v in
+                                        SQUEEZENET_PRODUCERS.items()},
             f"squeezenet_dynamic: 26 ConvInteger launches a forward, each on "
-            f"the int32 epilogue with its zero point in device memory: "
-            f"{counts} {splits}")
+            f"the int32 epilogue with its zero point in device memory, "
+            f"{SQUEEZENET_PRODUCERS} a forward by A producer: {counts} "
+            f"{splits}")
     require(len(eng._graphs) == 1, "squeezenet_dynamic: one captured graph")
     with torch.no_grad():
         eager = [eng.forward(d)[logits] for d in devs]
@@ -8189,7 +8210,7 @@ def main() -> int:
             rows = [phase_kernels(qgraph, eng8, card, launches, smi)]
             phase_capture("squeezenet1.0 int8 224x224", eng8, feed,
                           "qconv_int8_requant", 26,
-                          {"producers": {"tma": 17, "gather": 9, "halo": 0},
+                          {"producers": dict(SQUEEZENET_PRODUCERS),
                            "epilogues": {"int32": 0, "requant": 26},
                            "forms": _no_forms("qconv_int8")},
                           {"data_0": np.random.default_rng(1).standard_normal(

@@ -7,7 +7,8 @@ one CUDA card.
 Builds variants of csrc/qconv_int8.cu (the staged-halo producer of the
 shared mainloop, csrc/int8_wgmma.cuh) and csrc/qconv_grouped_int8.cu (the
 tile3d form) from the package's own sources with one part changed by a
-text edit, and times each at R3D-18's four stride-1 3x3x3 shapes (b16)
+text edit, and times each at R3D-18's four stride-1 3x3x3 shapes (b16),
+four 2-D 3x3s on the same producer (SqueezeNet's and ResNet-50's, b256)
 and the depthwise 3x3x3 at R3D layer1's activation, through the package's
 wrappers (device ms from a replayed CUDA graph, chip_smoke.graph_ms). The
 ablations compute wrong values on purpose, so nothing is checked: it is a
@@ -64,11 +65,16 @@ from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (  # noqa: E402
 VARIANTS = {
     "full": [],
     "no_mma": [("int8_wgmma.cuh",
-                "            Wgmma<BN, AU8>::mma(acc[mb], plain_desc(a + mb * "
-                "plane * 16, a_hi),\n"
-                "                                sw128_desc(b_slot + kk * 32)"
+                "            Wgmma<BN, AU8>::mma(acc[mb], a + (uint64_t)(mb * "
+                "(patch >> 4)), sw128_desc(b),\n"
+                "                                (q | st) != 0);",
+                "            acc[mb][0] += (int)a;"),
+               ("int8_wgmma.cuh",
+                "              Wgmma<BN, AU8>::mma(acc[mb], a + (uint64_t)(mb * "
+                "(patch >> 4)),\n"
+                "                                  sw128_desc(b_slot + kk * 32)"
                 ", (q | j | kk) != 0);",
-                "            acc[mb][0] += (int)a;")],
+                "              acc[mb][0] += (int)a;")],
     "no_epilogue": [("int8_wgmma.cuh",
                      "      store_tile<EPI, BN>(p, acc[mb], staging, wg, tid, "
                      "tile % n_tiles * BN,",
@@ -77,14 +83,19 @@ VARIANTS = {
                      "tile % n_tiles * BN,")],
     "no_box": [("int8_wgmma.cuh",
                 "      mbar_arrive_tx(bar, box_tx);\n"
-                "      for (int i = 0; i < cbs; ++i)\n",
+                "      for (int i = 0; i < blocks; ++i)\n",
                 "      mbar_arrive(bar);\n"
-                "      for (int i = 0; i < cbs && box_tx == 0; ++i)\n")],
+                "      for (int i = 0; i < blocks && box_tx == 0; ++i)\n")],
     "a_sw128": [("int8_wgmma.cuh",
-                 "            Wgmma<BN, AU8>::mma(acc[mb], plain_desc(a + mb "
-                 "* plane * 16, a_hi),",
-                 "            Wgmma<BN, AU8>::mma(acc[mb], sw128_desc(b_slot "
-                 "+ kk * 32 + (a & 1024)),")],
+                 "            Wgmma<BN, AU8>::mma(acc[mb], a + (uint64_t)(mb "
+                 "* (patch >> 4)), sw128_desc(b),",
+                 "            Wgmma<BN, AU8>::mma(acc[mb], sw128_desc(b + "
+                 "((uint32_t)a & 1024)), sw128_desc(b),"),
+                ("int8_wgmma.cuh",
+                 "              Wgmma<BN, AU8>::mma(acc[mb], a + (uint64_t)(mb "
+                 "* (patch >> 4)),",
+                 "              Wgmma<BN, AU8>::mma(acc[mb], sw128_desc(b_slot "
+                 "+ kk * 32 + ((uint32_t)a & 1024)),")],
     "wait2": [("int8_wgmma.cuh",
                "          wgmma_wait<1>();\n"
                "          if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * "
@@ -156,6 +167,12 @@ SHAPES = [
     ("layer3", "halo", (16, 256, 4, 14, 14), 256, (1, 1, 1)),
     ("layer4", "halo", (16, 512, 2, 7, 7), 512, (1, 1, 1)),
     ("depthwise", "tile3d", (16, 64, 16, 56, 56), 64, (1, 1, 1)),
+    # 2-D convs on the same producer (b256): SqueezeNet's fire2, fire5 and
+    # fire6 expand3x3, ResNet-50's layer1 3x3
+    ("fire2", "halo2d", (256, 16, 54, 54), 64, (1, 1)),
+    ("fire5", "halo2d", (256, 32, 26, 26), 128, (1, 1)),
+    ("fire6", "halo2d", (256, 48, 26, 26), 192, (1, 1)),
+    ("resnet_l1", "halo2d", (256, 64, 56, 56), 64, (1, 1)),
     ("depthwise_s122", "tile3d", (16, 64, 16, 56, 56), 64, (1, 2, 2)),
 ]
 
@@ -207,13 +224,14 @@ def build_variant(name: str) -> tuple:
 def operands(kind, xs, O, stride, rng, pad_value=0):
     dev = torch.device("cuda")
     x = torch.from_numpy(rng.integers(-128, 128, xs, np.int8)).to(
-        dev).contiguous(memory_format=torch.channels_last_3d)
-    pad = ((1, 1),) * 3
+        dev).contiguous(memory_format=torch.channels_last_3d if len(xs) == 5
+                        else torch.channels_last)
+    pad = ((1, 1),) * (len(xs) - 2)
     mult = torch.full((O,), 1e-4, device=dev)
     bias = torch.zeros(O, dtype=torch.int32, device=dev)
-    if kind == "halo":
-        w = torch.from_numpy(rng.integers(-127, 128, (O, xs[1], 3, 3, 3),
-                                          np.int8)).to(dev)
+    if kind.startswith("halo"):
+        w = torch.from_numpy(rng.integers(-127, 128, (O, xs[1], 3, 3, 3)[
+            :len(xs)], np.int8)).to(dev)
         packed = k.pack_qconv_weight(w)
         return lambda: k.qconv_int8_requant(x, w, mult, bias, padding=pad,
                                             packed=packed)
@@ -265,11 +283,14 @@ def main() -> int:
             if args.shapes and sname not in args.shapes.split(","):
                 continue
             call = operands(kind, xs, O, stride, rng, args.dw_pad)
-            picked = (k.conv_plan(xs, (O, xs[1], 3, 3, 3), stride,
-                                  ((1, 1),) * 3)[1] if kind == "halo"
-                      else None)
+            picked = (k.conv_plan(xs, (O, xs[1], 3, 3, 3)[:len(xs)], stride,
+                                  ((1, 1),) * (len(xs) - 2))[1]
+                      if kind.startswith("halo") else None)
+            if kind == "halo2d":  # on the halo whatever conv_plan's rule
+                picked = k.halo_plan(xs[1], O, (3, 3), xs[2:],
+                                     xs[0])["tile"]
             runs = [(n, picked) for n in names]
-            runs += [("full", t) for t in extra if kind == "halo"
+            runs += [("full", t) for t in extra if kind.startswith("halo")
                      and t != picked]
             for variant, tile in runs:
                 _build._LOADED.update(built[variant])

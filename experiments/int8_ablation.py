@@ -174,6 +174,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     real_k_tile, real_q8_tile = k.int8_tile, q8.int8_tile
     real_producer = k.conv_producer
+    # the mainloop's gather and TMA producers: the 3x3 expands stay on the
+    # gather (conv_plan gives them the staged-halo producer, which
+    # experiments/conv3d_ablation.py measures)
+    k._halo_ok = lambda *a: False
     with open(args.out, "w") as out:
         for sname, kind, shape in SHAPES:
             if args.shapes and sname not in args.shapes.split(","):

@@ -38,29 +38,36 @@
 //             point (Params::pad_word != 0, or the int32 at Params::x_zp in
 //             device memory), stored as that byte by the thread.
 //             Bp still comes by TMA.
-//   A_HALO    a 3-D conv at unit stride and dilation over C % 32 == 0
-//             channels (the staged-halo producer; the requant epilogue).
-//             A tile is a box of output voxels, WGM * MB depth planes x 8
-//             rows x 8 columns (MB 8 x 8 planes a consumer warpgroup, one
-//             m64 accumulator each); one thread loads the tile's input box
-//             with its halo, (WGM * MB + KD - 1) x (8 + KH - 1) x (8 + KW -
-//             1) voxels, by one 5-D TMA load per 16 channels, channel-
-//             blocked in shared memory
-//             ([C/16][d][h][w][16]); reads outside the volume come back as
-//             zeros, and where the conv pads with a zero point the
+//   A_HALO    a 2-D or 3-D conv at unit stride and dilation over C % 16
+//             == 0 channels (the staged-halo producer; either epilogue).
+//             A tile is WGM * MB patches of 8 x 8 output pixels (MB a
+//             consumer warpgroup, one m64 accumulator each), stacked along
+//             depth in a 3-D conv (WGM * MB planes x 8 rows x 8 columns) and
+//             along rows in a 2-D one (8 * WGM * MB rows x 8 columns;
+//             Params::rows2d). One thread loads the tile's input box with
+//             its halo, (tile planes + KD - 1) x (tile rows + KH - 1) x (8 +
+//             KW - 1) voxels, by one 5-D TMA load per 16 channels, channel-
+//             blocked in shared memory ([C/16][d][h][w][16]); reads outside
+//             the volume come back as zeros, and where the conv pads with a
+//             zero point (the launch's, or the int32 at Params::x_zp) the
 //             consumers store it over a border box's outside bytes. Each
 //             tap's A operand is then a wgmma descriptor into the box
 //             without swizzle: 8 consecutive columns of 16 channels are
 //             one 128-byte core matrix, the next 8-row group one box row
-//             further, the next 16 channels one channel block further. So
-//             each input byte leaves L2 about (box / tile) ~ 3.1 times a
-//             tile instead of once a tap (27 for 3x3x3), and the producer
-//             issues C/16 bulk copies a tile and no per-run address
-//             arithmetic. A box of more than 128 channels is staged in
-//             128-channel chunks (K walked chunk by chunk, tap by tap; Bp
-//             stays in (kd, kh, kw, c) order and its TMA loads take the
-//             chunk's columns); two box slots, so the next tile's box is in
-//             flight while this one's products run.
+//             further, the next 16 channels one channel block further (the
+//             leading offset). A k32 step is two 16-channel blocks: where
+//             C % 32 == 16, a tap's last block pairs with the next tap's
+//             first, which the box holds a second time after its last
+//             block, so that the step's leading offset stays positive
+//             (cb_pitch + the two taps' distance in the box). So each input
+//             byte leaves L2 about (box / tile) times a tile (~3.1 for a
+//             3x3x3, ~1.3 for a 2-D 3x3) instead of once a tap, and the
+//             producer issues a bulk copy per 16 channels a tile and no
+//             per-run address arithmetic. A box of more than 128 channels
+//             is staged in 128-channel chunks (K walked chunk by chunk, tap
+//             by tap; Bp stays in (kd, kh, kw, c) order and its TMA loads
+//             take the chunk's columns); two box slots, so the next tile's
+//             box is in flight while this one's products run.
 // Epilogues (compile-time):
 //   EPI_INT32    int32 [M, N], exact (the caller keeps |sum| < 2^31);
 //   EPI_REQUANT  int8 or uint8 [M, N] = clamp(rn(fmul_rn(i2f_rn(acc +
@@ -91,6 +98,9 @@
 
 #ifndef I8G_KERNEL
 #error "define I8G_KERNEL, the kernel's name in the including library"
+#endif
+#ifndef I8G_TMA_INT32_BM128
+#define I8G_TMA_INT32_BM128 0
 #endif
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
@@ -173,11 +183,19 @@ struct Params {
   // 16-channel block of the box to the next (a multiple of 128); the
   // channels staged at once (C, or 128) and the chunks of C; the 128-byte
   // K slices of one chunk; output tiles along depth, rows and columns of an
-  // image, and the M tiles (images x those); KD x KH x KW taps
+  // image, and the M tiles (images x those); KD x KH x KW taps; a tile's
+  // output planes and rows; rows2d: its patches stacked along rows (a 2-D
+  // conv), else along depth
   int box_d, box_h, box_w, cb_pitch, chunk, n_chunks, chunk_k;
-  int n_td, n_th, n_tw, m_tiles, taps;
-  FastDiv div_chunk;
+  int n_td, n_th, n_tw, m_tiles, taps, tile_d, tile_h, rows2d;
 };
+
+// A_HALO: the box's 16-channel blocks, a chunk's own and, where they are
+// odd, a second copy of its first (for the k32 step that spans two taps)
+__host__ __device__ inline int halo_blocks(const Params& p) {
+  const int cbs = p.chunk >> 4;
+  return cbs + (cbs & 1);
+}
 
 inline size_t smem_bytes(int bm, int bn, int stages, int resident_k = 0) {
   // 1024 of slack to align the ring to the 1024-byte swizzle atom, the
@@ -192,13 +210,12 @@ inline size_t smem_bytes(int bm, int bn, int stages, int resident_k = 0) {
 // A_HALO's shared memory: the 1024-byte alignment slack, Bp's ring of
 // `stages` slots of bn x 128 bytes (or its resident_k slices), two input
 // box slots of box_bytes, the requant staging tile, the ring's barriers,
-// the resident Bp's, two full and two empty box barriers, and the taps'
-// box offsets (taps + 4 ints: a chunk's last slice may run 3 k32 steps
-// past the last tap, against zero weights)
+// the resident Bp's, two full and two empty box barriers, and the A
+// descriptors of a chunk's k32 steps (chunk_k * 4 of 8 bytes)
 inline size_t halo_smem_bytes(int bm, int bn, int stages, int resident_k, int box_bytes,
-                              int taps) {
+                              int chunk_k) {
   return 1024 + (size_t)(resident_k ? resident_k : stages) * bn * BK + 2 * (size_t)box_bytes +
-         (size_t)bm * (bn + 16) + 16 * (size_t)stages + 8 + 32 + 4 * (size_t)(taps + 4);
+         (size_t)bm * (bn + 16) + 16 * (size_t)stages + 8 + 32 + 32 * (size_t)chunk_k;
 }
 
 // ---------------------------------------------------------------------------
@@ -351,9 +368,6 @@ __device__ __forceinline__ uint64_t plain_desc_hi(uint32_t lbo, uint32_t sbo) {
   return ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
-__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, uint64_t hi) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | hi;
-}
 
 // wgmma.m64nNk32.s32.{s8,u8}.s8 (int8_wgmma_mma.cuh): Wgmma<N, AU8>::mma,
 // A uint8 where AU8 (wgmma takes a .u8 A against an .s8 B), else int8.
@@ -625,12 +639,13 @@ __device__ __forceinline__ void requant_range(const Params& p, float& q_lo, floa
 
 // A_HALO (the producer's note at the top of this file). Shared memory: Bp's
 // ring (or the resident Bp), two box slots, the staging tile, the barriers,
-// the taps' box offsets. One thread produces; each consumer warpgroup runs
-// MB depth planes of the tile's output box (WGM * MB planes), one m64
-// accumulator a plane, so that each Bp slice in shared memory serves MB
-// products and each Bp byte leaves L2 once per WGM * MB * 64 outputs.
-// Blocks are persistent over tiles (N tiles fastest, then columns, rows,
-// planes, images).
+// the k32 steps' A descriptors. Two threads produce (the boxes; Bp's slices, or
+// the block's resident N tile of it); each consumer warpgroup runs
+// MB patches of the tile's output box (WGM * MB patches of 8 x 8: planes,
+// or 8-row bands in a 2-D conv), one m64 accumulator a patch, so that each
+// Bp slice in shared memory serves MB products and each Bp byte leaves L2
+// once per WGM * MB * 64 outputs. Blocks are persistent over tiles (N
+// tiles fastest, then columns, rows, planes, images).
 template <int EPI, int BN, int WGM, int MB, bool AU8>
 __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtensorMap& tm_b,
                                           const Params& p) {
@@ -640,10 +655,14 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
   constexpr int R = BN / 2;
   const bool bres = p.b_resident != 0;
   const int S = p.stages;
-  const int cbs = p.chunk >> 4;  // 16-channel blocks a chunk
-  const int box_bytes = cbs * p.cb_pitch;
+  const int cbs = p.chunk >> 4;       // 16-channel blocks a chunk
+  const int blocks = halo_blocks(p);  // the box's: cbs, + a copy of block 0 where odd
+  const int box_bytes = blocks * p.cb_pitch;
   const int plane = p.box_h * p.box_w;  // voxels of one box plane
-  const uint32_t box_tx = (uint32_t)(cbs * p.box_d * plane * 16);
+  const uint32_t box_tx = (uint32_t)(blocks * p.box_d * plane * 16);
+  // bytes from one patch (m64 accumulator) of the box to the next: a plane,
+  // or 8 rows (rows2d)
+  const int patch = (p.rows2d ? 8 * p.box_w : plane) * 16;
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -657,7 +676,7 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
   const uint32_t b_full = empty0 + 8 * S;
   const uint32_t box_full0 = b_full + 8;  // a box slot has landed
   const uint32_t box_empty0 = box_full0 + 16;  // a box slot's readers are done
-  int* tap_off = reinterpret_cast<int*>(ring_ptr + (box_empty0 + 16 - ring));
+  uint64_t* step_desc = reinterpret_cast<uint64_t*>(ring_ptr + (box_empty0 + 16 - ring));
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -672,16 +691,29 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  // tap t's offset in a channel block of the box ((kd, kh, kw) in box
-  // planes, rows and columns); the taps past the last (a slice's tail,
-  // against zero weights) read tap 0's
-  for (int t = tid; t < p.taps + 4; t += blockDim.x) {
-    int off = 0;
-    if (t < p.taps) {
-      const int kd = t / p.KHW, r = t - kd * p.KHW, kh = r / p.KW, kw = r - kh * p.KW;
-      off = ((kd * p.box_h + kh) * p.box_w + kw) * 16;
+  // The K walk of a chunk is the same for every tile: the A descriptor of
+  // each k32 step, less the box's address, is made once. Step s reads the
+  // chunk's K bytes [32 s, 32 s + 32): tap t = 32 s / chunk (taps past the
+  // last, a slice's tail against zero weights, read the last tap's place)
+  // at its offset in a channel block of the box ((kd, kh, kw) in box
+  // planes, rows and columns), block cb of it; its second 16 bytes are
+  // the next block (the leading offset, one block), or after an odd
+  // chunk's last block the next tap's first, read from the box's copy of
+  // block 0 past the last (one block + the two taps' distance). 8-row
+  // groups are one box row apart (the stride offset).
+  {
+    auto tap_off = [&](int t) {
+      const int u = t < p.taps ? t : p.taps - 1;
+      const int kd = u / p.KHW, r = u - kd * p.KHW, kh = r / p.KW, kw = r - kh * p.KW;
+      return ((kd * p.box_h + kh) * p.box_w + kw) * 16;
+    };
+    for (int st = tid; st < p.chunk_k * (BK / 32); st += blockDim.x) {
+      const int kl = st * 32, t = kl / p.chunk, cb = (kl - t * p.chunk) >> 4;
+      const int off = cb * p.cb_pitch + tap_off(t);
+      const int lbo = p.cb_pitch + (cb == cbs - 1 ? tap_off(t + 1) - tap_off(t) : 0);
+      step_desc[st] = (uint64_t)(off >> 4) |
+                      plain_desc_hi((uint32_t)lbo, (uint32_t)(p.box_w * 16));
     }
-    tap_off[t] = off;
   }
   __syncthreads();
 
@@ -692,21 +724,39 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
     int mt = tile / n_tiles;
     ow0 = mt % p.n_tw * 8;
     mt /= p.n_tw;
-    oh0 = mt % p.n_th * 8;
+    oh0 = mt % p.n_th * p.tile_h;
     mt /= p.n_th;
-    od0 = mt % p.n_td * (WGM * MB);
+    od0 = mt % p.n_td * p.tile_d;
     b = mt / p.n_td;
   };
   // K slice j of chunk q: its first column of Bp ((kd, kh, kw, c) order)
   auto b_col = [&](int q, int j) { return p.n_chunks == 1 ? j * BK : j * p.C + q * p.chunk; };
 
   if (tid >= CONSUMERS) {
-    // ------------------------------------------------------------ producer
-    if (tid != CONSUMERS) return;
-    if (bres) {  // the one N tile of Bp, all of K, once
-      mbar_arrive_tx(b_full, p.num_k * B_BYTES);
-      for (int kt = 0; kt < p.num_k; ++kt)
-        tma_load_2d(ring + kt * B_BYTES, &tm_b, b_full, kt * BK, 0);
+    // ----------------------------------------------------------- producers
+    // two threads, one a warp, so that neither pipeline waits on the
+    // other's barriers: warp 0 loads the boxes, warp 1 Bp (its slices
+    // into the ring, or its N tile once where it is resident)
+    if ((tid & 31) != 0) return;
+    if (tid != CONSUMERS) {
+      const int n0 = (int)blockIdx.x % n_tiles * BN;  // the block's N tile, where resident
+      if (bres) {
+        mbar_arrive_tx(b_full, p.num_k * B_BYTES);
+        for (int kt = 0; kt < p.num_k; ++kt)
+          tma_load_2d(ring + kt * B_BYTES, &tm_b, b_full, kt * BK, n0);
+        return;
+      }
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int q = 0; q < p.n_chunks; ++q)
+          for (int j = 0; j < p.chunk_k; ++j, ++it) {
+            const int s = it % S;
+            if (it >= S) mbar_wait(empty0 + 8 * s, (it / S - 1) & 1);
+            mbar_arrive_tx(full0 + 8 * s, B_BYTES);
+            tma_load_2d(ring + s * B_BYTES, &tm_b, full0 + 8 * s, b_col(q, j),
+                        tile % n_tiles * BN);
+          }
+      return;
     }
     // chunk q of a tile's input box into box slot u % 2
     auto load_box = [&](int tile, int q, int u) {
@@ -715,30 +765,21 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
       const uint32_t dst = box0 + (u & 1) * box_bytes;
       const uint32_t bar = box_full0 + 8 * (u & 1);
       mbar_arrive_tx(bar, box_tx);
-      for (int i = 0; i < cbs; ++i)
-        tma_load_5d(dst + i * p.cb_pitch, &tm_x, bar, q * p.chunk + 16 * i, ow0 - p.pad_w,
-                    oh0 - p.pad_h, od0 - p.pad_d, b);
+      for (int i = 0; i < blocks; ++i)
+        tma_load_5d(dst + i * p.cb_pitch, &tm_x, bar, q * p.chunk + 16 * (i < cbs ? i : 0),
+                    ow0 - p.pad_w, oh0 - p.pad_h, od0 - p.pad_d, b);
     };
     if ((int)blockIdx.x < tiles) load_box(blockIdx.x, 0, 0);
-    int u = 0, it = 0;
+    int u = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int n0 = tile % n_tiles * BN;
       for (int q = 0; q < p.n_chunks; ++q, ++u) {
-        // the next chunk's box, as soon as its slot's readers are done (they
-        // need nothing issued after this), ahead of this chunk's Bp slices
+        // the next chunk's box, as soon as its slot's readers are done
         const bool last = q + 1 == p.n_chunks;
         const int nt = last ? tile + (int)gridDim.x : tile;
         if (nt < tiles) {
           const int v = u + 1;
           if (v >= 2) mbar_wait(box_empty0 + 8 * (v & 1), ((v >> 1) - 1) & 1);
           load_box(nt, last ? 0 : q + 1, v);
-        }
-        if (bres) continue;
-        for (int j = 0; j < p.chunk_k; ++j, ++it) {
-          const int s = it % S;
-          if (it >= S) mbar_wait(empty0 + 8 * s, (it / S - 1) & 1);
-          mbar_arrive_tx(full0 + 8 * s, B_BYTES);
-          tma_load_2d(ring + s * B_BYTES, &tm_b, full0 + 8 * s, b_col(q, j), n0);
         }
       }
     }
@@ -754,8 +795,6 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
   // the pad byte: the launch's, or the x zero point in device memory
   const uint32_t pad_word =
       p.x_zp != nullptr ? (uint32_t)(sat8(*p.x_zp, p.x_lo) & 0xFF) * 0x01010101u : p.pad_word;
-  // A: 8-row groups one box row apart, K core matrices one channel block
-  const uint64_t a_hi = plain_desc_hi((uint32_t)p.cb_pitch, (uint32_t)(p.box_w * 16));
   int acc[MB][R] = {};
   if (bres) mbar_wait(b_full, 0);
   int u = 0, it = 0;
@@ -771,47 +810,62 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
       mbar_wait(box_full0 + 8 * slot, (u >> 1) & 1);
       if (pad_word != 0 && border) {
         // the box's bytes outside the volume hold the pad byte, not TMA's
-        // zeros (the condition is the block's, so is the barrier)
-        const int vox = p.box_d * plane;
-        for (int e = tid; e < cbs * vox; e += CONSUMERS) {
-          const int cb = e / vox, v = e - cb * vox;
-          const int dd = v / plane, r = v - dd * plane;
-          const int hh = r / p.box_w, ww = r - hh * p.box_w;
-          if ((unsigned)(d0 + dd) < (unsigned)p.D && (unsigned)(h0 + hh) < (unsigned)p.H &&
-              (unsigned)(w0 + ww) < (unsigned)p.W)
-            continue;
-          st_shared_fill<16>(box + cb * p.cb_pitch + v * 16, pad_word);
+        // zeros (the condition is the block's, so is the barrier): a
+        // thread a box row of a 16-channel block, which it fills whole
+        // where the row lies outside, else its columns before and after
+        // the image
+        const int rows = blocks * p.box_d * p.box_h;
+        for (int e = tid; e < rows; e += CONSUMERS) {
+          const int hh = e % p.box_h, e2 = e / p.box_h;
+          const int dd = e2 % p.box_d, cb = e2 / p.box_d;
+          const uint32_t row = box + cb * p.cb_pitch + (dd * p.box_h + hh) * p.box_w * 16;
+          const bool inside =
+              (unsigned)(d0 + dd) < (unsigned)p.D && (unsigned)(h0 + hh) < (unsigned)p.H;
+          const int lo = inside ? min(max(-w0, 0), p.box_w) : p.box_w;
+          const int hi = inside ? max(min(p.W - w0, p.box_w), lo) : p.box_w;
+          for (int ww = 0; ww < lo; ++ww) st_shared_fill<16>(row + ww * 16, pad_word);
+          for (int ww = hi; ww < p.box_w; ++ww) st_shared_fill<16>(row + ww * 16, pad_word);
         }
         fence_proxy_async();
         named_barrier(1, CONSUMERS);
       }
-      // this warpgroup's first output plane; the next MB - 1 follow it
-      const uint32_t a_base = box + wg * MB * plane * 16;
-      for (int j = 0; j < p.chunk_k; ++j, ++it) {
-        const int s = it % S;
-        uint32_t b_slot;
-        if (bres) {
-          b_slot = ring + (b_col(q, j) / BK) * B_BYTES;
-        } else {
-          mbar_wait(full0 + 8 * s, (it / S) & 1);
-          b_slot = ring + s * B_BYTES;
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 32; ++kk) {
-          const int kl = j * BK + kk * 32;      // the byte of the chunk's K walk
-          const int t = fdiv(kl, p.div_chunk);  // its tap
-          const uint32_t a = a_base + ((kl - t * p.chunk) >> 4) * p.cb_pitch + tap_off[t];
+      // this warpgroup's first patch's address field; the next MB - 1
+      // follow it
+      const uint64_t a_base = ((box + wg * MB * patch) & 0x3FFFF) >> 4;
+      if (bres) {
+        // Bp resident: the chunk's k32 steps back to back, each a commit
+        // group of its own, and none past the chunk's K (a slice's tail of
+        // zero weights: C 16's 144-byte taps leave 3 of 8 steps, C 32's
+        // 288 3 of 12); no wait until the chunk's end
+        const int steps = (p.taps * p.chunk + 31) / 32;
+        for (int st = 0; st < steps; ++st) {
+          const uint64_t a = step_desc[st] + a_base;
+          const uint32_t b = ring + (b_col(q, st >> 2) / BK) * B_BYTES + (st & 3) * 32;
+          wgmma_fence();
 #pragma unroll
           for (int mb = 0; mb < MB; ++mb)
-            Wgmma<BN, AU8>::mma(acc[mb], plain_desc(a + mb * plane * 16, a_hi),
-                                sw128_desc(b_slot + kk * 32), (q | j | kk) != 0);
+            Wgmma<BN, AU8>::mma(acc[mb], a + (uint64_t)(mb * (patch >> 4)), sw128_desc(b),
+                                (q | st) != 0);
+          wgmma_commit();
         }
-        wgmma_commit();
-        // a ring slot: once the previous slice's products are done, free
-        // its slot; the resident Bp needs no wait until the chunk's end, so
-        // the tensor cores run the chunk's products back to back
-        if (!bres) {
+      } else {
+        for (int j = 0; j < p.chunk_k; ++j, ++it) {
+          const int s = it % S;
+          mbar_wait(full0 + 8 * s, (it / S) & 1);
+          const uint32_t b_slot = ring + s * B_BYTES;
+          wgmma_fence();
+          // every step of the slice (those past the chunk's K against zero
+          // weights: a branch among the products serializes them all)
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk) {
+            const uint64_t a = step_desc[j * (BK / 32) + kk] + a_base;
+#pragma unroll
+            for (int mb = 0; mb < MB; ++mb)
+              Wgmma<BN, AU8>::mma(acc[mb], a + (uint64_t)(mb * (patch >> 4)),
+                                  sw128_desc(b_slot + kk * 32), (q | j | kk) != 0);
+          }
+          wgmma_commit();
+          // once the previous slice's products are done, free its slot
           wgmma_wait<1>();
           if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S));
         }
@@ -822,14 +876,17 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
         mbar_arrive(box_empty0 + 8 * slot);
       }
     }
-    // accumulator mb of warpgroup wg holds output plane od0 + wg * MB + mb
-    // (row r of the warpgroup: row r / 8, column r % 8)
+    // accumulator mb of warpgroup wg holds patch wg * MB + mb: output plane
+    // od0 + that (3-D), or rows oh0 + 8 x that (rows2d); row r of the
+    // warpgroup is the patch's row (r / 8) % 8, column r % 8
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb) {
       fence_acc(acc[mb]);
       store_tile<EPI, BN>(p, acc[mb], staging, wg, tid, tile % n_tiles * BN, q_lo, q_hi, y_zp,
                           [&](int r) {
-                            const int d = od0 + (r >> 6) * MB + mb, h = oh0 + ((r >> 3) & 7),
+                            const int a = (r >> 6) * MB + mb;
+                            const int d = od0 + (p.rows2d ? 0 : a),
+                                      h = oh0 + (p.rows2d ? 8 * a : 0) + ((r >> 3) & 7),
                                       w = ow0 + (r & 7);
                             return (d < p.OD && h < p.OH && w < p.OW)
                                        ? ((b * p.OD + d) * p.OH + h) * p.OW + w
@@ -845,7 +902,7 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
 // the ring for the next tile while the consumers run this one's epilogue.
 // A_HALO runs halo_body (MB planes a warpgroup); tm_a is then x's 5-D map.
 template <int PROD, int EPI, int BN, int WGM, bool AU8, int MB = 1>
-__global__ void __launch_bounds__(WGM * 128 + (PROD == A_GATHER ? 128 : 32),
+__global__ void __launch_bounds__(WGM * 128 + (PROD == A_GATHER ? 128 : PROD == A_HALO ? 64 : 32),
                                   BN >= 96 || MB > 1 ? 1 : 2)
 I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
            const __grid_constant__ CUtensorMap tm_b, const Params p) {
@@ -1030,10 +1087,10 @@ template <int PROD, int EPI, int BN, int WGM, bool AU8, int MB = 1>
 cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params& p,
                         cudaStream_t st) {
   constexpr int BM = 64 * WGM;
-  constexpr int THREADS = WGM * 128 + (PROD == A_GATHER ? 128 : 32);
+  constexpr int THREADS = WGM * 128 + (PROD == A_GATHER ? 128 : PROD == A_HALO ? 64 : 32);
   const size_t smem =
       PROD == A_HALO ? halo_smem_bytes(BM, BN, p.stages, p.b_resident ? p.num_k : 0,
-                                       (p.chunk >> 4) * p.cb_pitch, p.taps)
+                                       halo_blocks(p) * p.cb_pitch, p.chunk_k)
                      : smem_bytes(BM, BN, p.stages, p.b_resident ? p.num_k : 0);
   auto kern = I8G_KERNEL<PROD, EPI, BN, WGM, AU8, MB>;
   static size_t opted_in = 0;  // the shared memory this instantiation may use
@@ -1059,8 +1116,16 @@ cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params
     if (e != cudaSuccess) return e;
   }
   const long long m_tiles = PROD == A_HALO ? p.m_tiles : (p.M + BM - 1) / BM;
-  const long long tiles = m_tiles * ((p.N + BN - 1) / BN);
-  const long long blocks = tiles < (long long)sms * occ ? tiles : (long long)sms * occ;
+  const long long n_tiles = (p.N + BN - 1) / BN;
+  const long long tiles = m_tiles * n_tiles;
+  long long blocks = tiles < (long long)sms * occ ? tiles : (long long)sms * occ;
+  // A_HALO with Bp resident over more than one N tile: each block keeps
+  // one N tile's slices, so the grid is a multiple of the N tiles (a
+  // block's tiles are then all of its N tile)
+  if (PROD == A_HALO && p.b_resident && n_tiles > 1) {
+    blocks = (long long)sms * occ / n_tiles * n_tiles;
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+  }
   kern<<<(unsigned)blocks, THREADS, smem, st>>>(a, b, p);
   return cudaGetLastError();
 }
@@ -1110,8 +1175,17 @@ cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int 
     e = encode_rows(&ta, a, (uint64_t)p.M, (uint64_t)Kp, (uint32_t)bm);
     if (e != cudaSuccess) return e;
   }
-  return bm == 64 ? launch_bn<PROD, EPI, 1, AU8>(bn, ta, tb, p, st)
-                  : launch_bn<PROD, EPI, 2, AU8>(bn, ta, tb, p, st);
+  // a library that defines I8G_TMA_INT32_BM128 (the conv's: its 1x1
+  // ConvInteger, ops/kernels/qconv_int8.py, TILE_TMA_INT32_BM) has the TMA
+  // producer's int32 instances at BM 128 alone, the tiles its plans pick,
+  // at half the build
+  if constexpr (PROD == A_TMA && EPI == EPI_INT32 && I8G_TMA_INT32_BM128) {
+    if (bm != 128) return cudaErrorInvalidValue;
+    return launch_bn<PROD, EPI, 2, AU8>(bn, ta, tb, p, st);
+  } else {
+    return bm == 64 ? launch_bn<PROD, EPI, 1, AU8>(bn, ta, tb, p, st)
+                    : launch_bn<PROD, EPI, 2, AU8>(bn, ta, tb, p, st);
+  }
 }
 
 // A map of channels-last x [B, D, H, W, C] (bytes; C a multiple of 16,
@@ -1136,20 +1210,20 @@ inline cudaError_t encode_box5(CUtensorMap* map, const void* x, int B, const Par
 }
 
 // A_HALO: encodes Bp's map and x's 5-D map (B images) and launches the
-// bm x bn tile (bm 128: a plane a consumer warpgroup, or 256: two; bn 64
-// or 128; p.b_resident: Bp resident, which needs N <= bn), after checking
-// that it fits.
+// bm x bn tile (bm 128: a patch a consumer warpgroup, or 256: two; bn 64
+// or 128; p.b_resident: Bp resident, each block's N tile of it where N >
+// bn), after checking that it fits.
 template <int EPI, bool AU8>
 cudaError_t launch_halo(const void* x, const void* bp, int Kp, int B, Params p, int bm,
                         int bn, cudaStream_t st) {
   p.num_k = (Kp + BK - 1) / BK;
   const size_t smem = halo_smem_bytes(128, bn, p.stages, p.b_resident ? p.num_k : 0,
-                                      (p.chunk >> 4) * p.cb_pitch, p.taps);
+                                      halo_blocks(p) * p.cb_pitch, p.chunk_k);
   if ((bm != 128 && bm != 256) || (bn != 64 && bn != 128) || p.stages < 2 ||
       p.stages > MAX_STAGES ||
       smem > (size_t)SMEM_LIMIT || p.M <= 0 || p.N <= 0 || Kp <= 0 || Kp % 16 != 0 ||
       reinterpret_cast<uintptr_t>(bp) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      (p.b_resident && p.N > bn) || (long long)p.m_tiles * ((p.N + bn - 1) / bn) >= (1LL << 31))
+      (long long)p.m_tiles * ((p.N + bn - 1) / bn) >= (1LL << 31))
     return cudaErrorInvalidValue;
   CUtensorMap ta, tb;
   cudaError_t e = encode_rows(&tb, bp, (uint64_t)p.N, (uint64_t)Kp, (uint32_t)bn);

@@ -29,20 +29,26 @@
 //
 // The mainloop is csrc/int8_wgmma.cuh. Three A producers:
 //   producer 0 (TMA): a 1x1, stride-1, unpadded conv with C % 16 == 0 is a
-//     plain matrix product over the channels-last input [M, C];
+//     plain matrix product over the channels-last input [M, C] (either
+//     epilogue: a 1x1 has no padding tap, so the x zero point never enters
+//     A);
 //   producer 1 (gather): any other conv; the im2col matrix is never
 //     written to device memory, each block gathers its A tile straight from
 //     x by cp.async into the ring (16-, 8- or 4-byte runs, one tap's
 //     channels each), filling padding taps with zeros or the pad byte;
-//   producer 2 (staged halo): a 3-D conv at unit stride and dilation over
-//     C % 32 == 0 channels (C <= 128 or C % 128 == 0; R3D-18's 13 stride-1
-//     3x3x3 convs), requant epilogue: a tile is a box of 2 (bm 128) or 4
-//     (bm 256) planes x 8 x 8 output voxels, its input box with the halo
+//   producer 2 (staged halo): a 2-D or 3-D conv at unit stride and
+//     dilation over C % 16 == 0 channels (C <= 128 or C % 128 == 0), either
+//     epilogue (R3D-18's 13 stride-1 3x3x3 convs; SqueezeNet's fires 2-5
+//     expands, ResNet-50's and UNet's stride-1 3x3s, as conv_plan's
+//     fallback rule gives them): a tile is 2 (bm 128)
+//     or 4 (bm 256) patches of 8 x 8 output pixels, stacked along depth (3-D)
+//     or rows (2-D: 16 or 32 rows x 8 columns), its input box with the halo
 //     lands by TMA once per tile (per 128-channel chunk), and each tap's A
 //     is a wgmma descriptor into it.
 //     The gather is bound by its instructions per copied run and reads each
-//     input byte from L2 once per tap (27 times for a 3x3x3); this producer
-//     has no per-run address arithmetic and reads it ~3.1 times a tile.
+//     input byte from L2 once per tap (9 times for a 3x3, 27 for a 3x3x3);
+//     this producer has no per-run address arithmetic and reads it ~1.3
+//     (2-D 3x3, 32 x 8 tiles) or ~3.1 (3x3x3) times a tile.
 // The int32 sums stay in registers and only int8 leaves the kernel, as the
 // TPU kernel kept them in VMEM.
 //
@@ -59,17 +65,20 @@
 //
 // Rounding: __float2int_rn (half to even), as jnp.round does; never roundf.
 
-// the mainloop's kernel, named for this library in profiles
+// the mainloop's kernel, named for this library in profiles; the TMA
+// producer's int32 epilogue (the 1x1 ConvInteger) at BM 128 alone
 #define I8G_KERNEL qconv_int8_requant_kernel
+#define I8G_TMA_INT32_BM128 1
 #include "int8_wgmma.cuh"
 
 // x_u8: x is uint8 (wgmma's .u8 A), else int8.
-// epilogue: 0 = int32 (mult, bias unused; producer 1 only), 1 = requant
-// (mult f32 [N], bias int32 [N] or null, y uint8 where y_u8 else int8).
+// epilogue: 0 = int32 (mult, bias unused), 1 = requant (mult f32 [N],
+// bias int32 [N] or null, y uint8 where y_u8 else int8).
 // producer 0 requires KD = KH = KW = 1, unit strides, no padding, OD = D
-// and C % 16 == 0; producer 1 requires C % 4 == 0; producer 2 unit
-// strides and dilations, C % 32 == 0 (C <= 128 or C % 128 == 0), Kp = K,
-// the requant epilogue and bm 128 or 256 (bn 64 or 128). pad_byte: the byte a
+// and C % 16 == 0 (and bm 128 on the int32 epilogue); producer 1 requires
+// C % 4 == 0; producer 2 unit strides and dilations, C % 16 == 0 (C <= 128
+// or C % 128 == 0), Kp = K and bm 128 or 256 (bn 64 or 128; a 2-D conv, D
+// = KD = 1 without depth padding, stacks the tile along rows). pad_byte: the byte a
 // padding tap holds; x_zp: null, or an int32 in device memory that the
 // kernel reads in its place (producer 0 has no padding to fill). y_zp_dev: null, or an int32 in
 // device memory that the requant epilogue reads in place of y_zp. A value
@@ -112,8 +121,11 @@ extern "C" cudaError_t qconv_int8_launch(
   if (producer == 0) {
     if (KD != 1 || KH != 1 || KW != 1 || stride_d != 1 || stride_h != 1 || stride_w != 1 ||
         pad_d != 0 || pad_h != 0 || pad_w != 0 || OD != D || OH != H || OW != W ||
-        C % 16 != 0 || Kp != C || epilogue != 1)
+        C % 16 != 0 || Kp != C)
       return cudaErrorInvalidValue;
+    if (epilogue == 0)
+      return x_u8 ? i8g::launch<i8g::A_TMA, i8g::EPI_INT32, true>(x, w, Kp, p, bm, bn, st)
+                  : i8g::launch<i8g::A_TMA, i8g::EPI_INT32, false>(x, w, Kp, p, bm, bn, st);
     return x_u8 ? i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, true>(x, w, Kp, p, bm, bn, st)
                 : i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, false>(x, w, Kp, p, bm, bn, st);
   }
@@ -150,28 +162,34 @@ extern "C" cudaError_t qconv_int8_launch(
   if (K * C >= (1LL << 32) || (long long)KD * KH * KW * KH * KW >= (1LL << 32))
     return cudaErrorInvalidValue;  // make_fastdiv's range
   if (producer == 2) {
-    // the output box: bm / 64 planes x 8 rows x 8 columns; its input box
-    // with the halo, in chunks of C (<= 128 channels) or 128 channels
+    // the output box: bm / 64 patches of 8 x 8, as planes (3-D) or as
+    // 8-row bands (2-D); its input box with the halo, in chunks of C (<= 128
+    // channels) or 128 channels
     if (stride_d != 1 || stride_h != 1 || stride_w != 1 || dil_d != 1 || dil_h != 1 ||
-        dil_w != 1 || C % 32 != 0 || (C > 128 && C % 128 != 0) || Kp != K || epilogue != 1 ||
+        dil_w != 1 || C % 16 != 0 || (C > 128 && C % 128 != 0) || Kp != K ||
         (bm != 128 && bm != 256) || KD > 64 || KH > 64 || KW > 64)
       return cudaErrorInvalidValue;
-    const int planes = bm / 64;
+    const int patches = bm / 64;
+    p.rows2d = !p.depth3;
+    p.tile_d = p.rows2d ? 1 : patches;
+    p.tile_h = p.rows2d ? 8 * patches : 8;
     p.taps = KD * KH * KW;
-    p.box_d = planes + KD - 1;
-    p.box_h = 8 + KH - 1;
+    p.box_d = p.tile_d + KD - 1;
+    p.box_h = p.tile_h + KH - 1;
     p.box_w = 8 + KW - 1;
     p.cb_pitch = (p.box_d * p.box_h * p.box_w * 16 + 127) / 128 * 128;
     p.chunk = C <= 128 ? C : 128;
     p.n_chunks = C / p.chunk;
     p.chunk_k = p.n_chunks == 1 ? (p.taps * C + i8g::BK - 1) / i8g::BK : p.taps;
-    p.div_chunk = i8g::make_fastdiv((uint32_t)p.chunk);
-    p.n_td = (OD + planes - 1) / planes;
-    p.n_th = (OH + 7) / 8;
+    p.n_td = (OD + p.tile_d - 1) / p.tile_d;
+    p.n_th = (OH + p.tile_h - 1) / p.tile_h;
     p.n_tw = (OW + 7) / 8;
     const long long m_tiles = (long long)B * p.n_td * p.n_th * p.n_tw;
     if (m_tiles >= (1LL << 31)) return cudaErrorInvalidValue;
     p.m_tiles = (int)m_tiles;
+    if (epilogue == 0)
+      return x_u8 ? i8g::launch_halo<i8g::EPI_INT32, true>(x, w, Kp, B, p, bm, bn, st)
+                  : i8g::launch_halo<i8g::EPI_INT32, false>(x, w, Kp, B, p, bm, bn, st);
     return x_u8 ? i8g::launch_halo<i8g::EPI_REQUANT, true>(x, w, Kp, B, p, bm, bn, st)
                 : i8g::launch_halo<i8g::EPI_REQUANT, false>(x, w, Kp, B, p, bm, bn, st);
   }

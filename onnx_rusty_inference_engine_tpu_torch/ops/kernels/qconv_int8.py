@@ -20,7 +20,8 @@ its int8-A one; padding taps hold `pad_value` (the conv's x zero
 point; the caller folds -zx * sum w into the bias); the requant epilogue
 adds `y_zp` and saturates to int8 or uint8 (`out_dtype`). `qconv_int8`
 returns the int32 sums (ConvInteger, and the QLinearConv whose weight has
-a zero point), always on the gather producer. `pad_value` and `y_zp` may
+a zero point), on the producer `conv_plan` gives the conv as for the
+requant epilogue. `pad_value` and `y_zp` may
 each be an int (known before the run) or a one-element integer tensor on
 the operand's device (a zero point the graph computes at run time, e.g.
 DynamicQuantizeLinear's): the kernel then reads it from device memory, so
@@ -33,15 +34,18 @@ OH, OW] with `torch.channels_last_3d` strides), a view of the kernel's
 other input is copied channels-last first (`channels_last_input`), with
 its channels zero-padded to a multiple of 4 where they are not.
 
-`conv_plan` picks how the kernel fetches A (`conv_producer`) and the tile:
-"tma" for a 2-D 1x1, stride-1, unpadded conv with C % 16 == 0 (a plain
-matrix product) on the requant epilogue; "halo" (the staged-halo
-producer: a tile is a box of 2 or 4 planes x 8 x 8 output voxels, whose
-input box with its halo lands by TMA once a tile, each tap's A a wgmma
-descriptor into it) for a 3-D conv at unit stride and dilation over C %
-32 == 0 channels (C <= 128 or C % 128 == 0) on the requant epilogue,
-R3D-18's 13 stride-1 3x3x3 convs among them (`halo_plan`); "gather" (an
-implicit im2col by cp.async) for every other.
+`conv_plan` picks how the kernel fetches A and the tile, on either
+epilogue: "halo" (the staged-halo producer: a tile is 2 or 4 patches of 8
+x 8 output pixels, stacked along depth in a 3-D conv and along rows in a
+2-D one, whose input box with its halo lands by TMA once a tile, each
+tap's A a wgmma descriptor into it; `halo_plan`) for a conv at unit stride
+and dilation over C % 16 == 0 channels (C <= 128 or C % 128 == 0), a 2-D
+one with a kernel larger than 1x1 by a fallback rule on its shape
+(`halo_2d_wins`): R3D-18's 13 stride-1 3x3x3s, SqueezeNet's expands of
+fires 2-5, ResNet-50's and UNet's stride-1 3x3s at 28 x 28 and over;
+otherwise (`conv_producer`) "tma" for a 2-D 1x1, stride-1, unpadded conv
+with C % 16 == 0 (a plain matrix product), and "gather" (an implicit
+im2col by cp.async) for every other.
 
 Each epilogue is a `torch.library` operator, `oriet::qconv_int8_requant`
 and `oriet::qconv_int8`: on the CPU the kernel's plain PyTorch versions
@@ -81,7 +85,8 @@ __all__ = ["qconv_int8_requant", "qconv_int8_requant_plain", "qconv_int8",
            "conv_producer", "conv_plan", "conv_out_hw", "conv_out_size",
            "channels_last_input", "PRODUCERS", "K_ALIGN", "FORMS",
            "schema_padding", "nested_padding", "conv_fake", "op_zero_points",
-           "halo_plan", "HALO_PLANES", "HALO_ROWS"]
+           "halo_plan", "halo_tile", "halo_waste", "halo_2d_wins",
+           "HALO_PLANES", "HALO_ROWS"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -91,18 +96,32 @@ K_ALIGN = 16
 PRODUCERS = {"tma": 0, "gather": 1, "halo": 2}
 
 # the staged-halo producer (csrc/int8_wgmma.cuh, A_HALO): a tile's output
-# box is 2 or 4 depth planes (BM 128 or 256: one or two 8 x 8 planes a
-# consumer warpgroup) of HALO_ROWS x HALO_ROWS voxels; the most channels of
-# the input box staged at once; its tiles' BN
+# box is 2 or 4 patches of HALO_ROWS x HALO_ROWS outputs (BM 128 or 256:
+# one or two patches a consumer warpgroup), depth planes of a 3-D conv or
+# 8-row bands of a 2-D one; the most channels of the input box staged at
+# once; its tiles' BN
 HALO_PLANES = (2, 4)
 HALO_ROWS = 8
 HALO_CHUNK = 128
 HALO_BN = (64, 128)
 
+# a 2-D conv goes back to the gather where the staged-halo producer's
+# weights would not stay resident in shared memory (a ring), or where N
+# takes more than one of its N tiles (N > 128: a box staged, and a tile's
+# fixed cost paid, once per N tile) and its tiles would cover more than
+# HALO_2D_WASTE times the output pixels (8-wide patches over 26 or 12
+# columns): at each such shape of SqueezeNet's and ResNet-50's the gather
+# measured faster on the H100 (PERF.md §6, the 2-D staged-halo findings)
+HALO_2D_WASTE = 1.4
+
 # the tiles whose kernel instances carry the gather's 3-D form (BM 128, BN
 # 64 or 128: csrc/int8_wgmma.cuh, D3_TILE): a 3-D conv takes one of them
 TILE_3D_BM = (128,)
 TILE_3D_BN = (64, 128)
+
+# the TMA producer's int32-epilogue instances (the 1x1 ConvInteger): BM 128
+# only (csrc/int8_wgmma.cuh, launch)
+TILE_TMA_INT32_BM = (128,)
 
 # the QOperator forms `.forms` counts (a launch may be of several): a uint8
 # x, padding taps holding a non-zero pad value, an output zero point, a
@@ -125,14 +144,16 @@ def conv_channels(C: int) -> int:
 
 
 def conv_producer(C: int, KH: int, KW: int, stride: Sequence[int],
-                  padding: Padding, epilogue: str = "requant") -> str:
-    """"tma" for a 1x1, stride-1, unpadded conv over C % 16 == 0 channels
-    on the requant epilogue (A is the channels-last input as a [B*H*W, C]
-    matrix, rows of a 16-byte multiple as TMA needs), "gather" for every
+                  padding: Padding) -> str:
+    """The A producer of a 2-D conv the staged-halo producer does not take
+    (`conv_plan`): "tma" for a 1x1, stride-1, unpadded conv over C % 16 ==
+    0 channels on either epilogue (A is the channels-last input as a
+    [B*H*W, C] matrix, rows of a 16-byte multiple as TMA needs; a 1x1 has
+    no padding tap, so the x zero point never enters A), "gather" for every
     other conv. C is the channels the kernel reads (`conv_channels`)."""
     if ((KH, KW) == (1, 1) and tuple(stride) == (1, 1)
             and not any(p for side in padding for p in side)
-            and C % 16 == 0 and epilogue == "requant"):
+            and C % 16 == 0):
         return "tma"
     return "gather"
 
@@ -155,83 +176,111 @@ def conv_out_hw(H: int, W: int, KH: int, KW: int, stride: Sequence[int],
     return conv_out_size((H, W), (KH, KW), stride, padding, dilation)
 
 
+def halo_tile(planes: int, spatial: int) -> Tuple[int, int, int]:
+    """The output box of a staged-halo tile of `planes` patches (planes,
+    rows, columns): the patches stacked along depth in a 3-D conv, along
+    rows in a 2-D one (depth 1)."""
+    if spatial == 2:
+        return 1, planes * HALO_ROWS, HALO_ROWS
+    return planes, HALO_ROWS, HALO_ROWS
+
+
 def halo_plan(C: int, N: int, kernel: Sequence[int], out: Sequence[int],
               B: int) -> dict:
-    """The staged-halo producer's launch for a 3-D conv over C channels (C
-    % 32 == 0, C <= 128 or C % 128 == 0) to N outputs with a kernel of
-    (KD, KH, KW) and B images of `out` = (OD, OH, OW) outputs, as the C
-    entry point derives it: the output box's planes (4 where they cover OD
-    with no more waste than 2 and the tile fits, so that each weight slice
-    in shared memory serves two products and the weights leave L2 half as
-    often; else 2), the input box (depth, rows, columns) with its halo, one
-    16-channel block of it `cb_pitch` bytes (a multiple of 128), the
-    channels staged at once (`chunk`: C, or HALO_CHUNK) and the chunks, the
-    128-byte K slices of one chunk, the box's bytes, and the tile: BM 64 x
-    planes, BN 64 where N <= 64 or where 128-wide tiles would leave half
-    the SMs idle (at most NUM_SMS / 2 tiles: R3D-18's layer4), else 128,
-    the weights resident where N fits one tile and they fit beside two box
-    slots (else a ring of the most stages that fits), and the block's
-    shared memory (`halo_smem`)."""
-    OD, OH, OW = out
-    four = -(-OD // 4) * 4 <= -(-OD // 2) * 2
-    for planes in ((4, 2) if four else (2,)):
-        m_tiles = B * -(-OD // planes) * -(-OH // HALO_ROWS) * -(
-            -OW // HALO_ROWS)
+    """The staged-halo producer's launch for a conv over C channels (C % 16
+    == 0, C <= 128 or C % 128 == 0) to N outputs with a kernel of (KH, KW)
+    or (KD, KH, KW) and B images of `out` = (OH, OW) or (OD, OH, OW)
+    outputs, as the C entry point derives it: the tile's patches (4 where
+    they cover the output's depth (3-D) or rows (2-D) with no more waste
+    than 2 and the tile fits, so that each weight slice in shared memory
+    serves two products and the weights leave L2 half as often; else 2)
+    and its output box (`out_box`: planes, rows, columns; `halo_tile`), the
+    input box (depth, rows, columns) with its halo, one 16-channel block of
+    it `cb_pitch` bytes (a multiple of 128), the channels staged at once
+    (`chunk`: C, or HALO_CHUNK) and the chunks, the 128-byte K slices of
+    one chunk, the box's bytes (its 16-channel blocks, and where a chunk
+    has an odd number of them a second copy of the first: the k32 step
+    that spans two taps reads it), and the tile: BM 64 x patches, BN 64
+    where N <= 64, where 64-wide tiles cover N with fewer padded columns
+    (N 192) or where 128-wide tiles would leave half the SMs idle (at most
+    NUM_SMS / 2 tiles: R3D-18's layer4), else 128, the weights resident
+    where their N tile's K slices fit beside two box slots (each block
+    keeps one N tile: the kernel's grid is a multiple of N's tiles), else
+    a ring of the most stages that fits; the patches that give resident
+    weights are taken over 4 patches on a ring; and the block's shared
+    memory (`halo_smem`). A 3-D conv of one output plane and a kernel one
+    deep is a 2-D one, as the C entry point runs it."""
+    if len(kernel) == 3 and kernel[0] == 1 and out[0] == 1:
+        kernel, out = kernel[1:], out[1:]
+    spatial = len(kernel)
+    out3 = (1,) * (3 - spatial) + tuple(out)
+    along = out3[0] if spatial == 3 else out3[1]
+    unit = 1 if spatial == 3 else HALO_ROWS
+    four = -(-along // (4 * unit)) * 4 <= -(-along // (2 * unit)) * 2
+    plans = []
+    for planes in (HALO_PLANES[::-1] if four else HALO_PLANES[:1]):
+        m_tiles = B * math.prod(-(-o // t) for o, t in zip(
+            out3, halo_tile(planes, spatial)))
         narrow = (N > HALO_BN[0]
                   and 2 * m_tiles * -(-N // HALO_BN[1]) <= NUM_SMS)
-        plan = _halo_plan(C, N, kernel, planes, narrow)
-        if plan["tile"].stages >= 2:
-            break
-    return plan
+        plans.append(_halo_plan(C, N, kernel, planes, narrow))
+    fits = [p for p in plans if p["tile"].stages >= 2] or plans
+    return next((p for p in fits if p["tile"].b_resident), fits[0])
 
 
 def _halo_plan(C: int, N: int, kernel: Sequence[int], planes: int,
                narrow: bool = False) -> dict:
     taps = math.prod(kernel)
-    box = tuple(t + k - 1 for t, k in zip(
-        (planes, HALO_ROWS, HALO_ROWS), kernel))
+    tile = halo_tile(planes, len(kernel))
+    kernel3 = (1,) * (3 - len(kernel)) + tuple(kernel)
+    box = tuple(t + k - 1 for t, k in zip(tile, kernel3))
     cb_pitch = _round_up(math.prod(box) * 16, 128)
     chunk = min(C, HALO_CHUNK)
     n_chunks = C // chunk
     chunk_k = -(-taps * C // STAGE_K) if n_chunks == 1 else taps
-    box_bytes = chunk // 16 * cb_pitch
-    bn = HALO_BN[0] if N <= HALO_BN[0] or narrow else HALO_BN[1]
+    blocks = chunk // 16 + chunk // 16 % 2
+    box_bytes = blocks * cb_pitch
+    lo, hi = HALO_BN
+    bn = (lo if N <= lo or narrow or -(-N // lo) * lo < -(-N // hi) * hi
+          else hi)
     num_k = -(-taps * C // STAGE_K)
-    resident = (N <= bn and halo_smem(bn, 2, num_k, box_bytes, taps)
-                <= SMEM_LIMIT)
+    resident = (halo_smem(bn, 2, num_k, box_bytes, chunk_k) <= SMEM_LIMIT
+                and -(-N // bn) <= NUM_SMS)
     if resident:
         stages = 2
     else:
         fit = [s for s in range(2, MAX_STAGES + 1)
-               if halo_smem(bn, s, 0, box_bytes, taps) <= SMEM_LIMIT]
+               if halo_smem(bn, s, 0, box_bytes, chunk_k) <= SMEM_LIMIT]
         stages = fit[-1] if fit else 0
     return {"planes": planes, "box": box, "cb_pitch": cb_pitch,
             "chunk": chunk, "n_chunks": n_chunks, "chunk_k": chunk_k,
-            "box_bytes": box_bytes,
+            "blocks": blocks, "box_bytes": box_bytes, "out_box": tile,
             "tile": Int8Tile(planes * 64, bn, stages, resident),
             "smem": halo_smem(bn, stages, num_k if resident else 0,
-                              box_bytes, taps)}
+                              box_bytes, chunk_k)}
 
 
 def halo_smem(bn: int, stages: int, resident_k: int, box_bytes: int,
-              taps: int) -> int:
+              chunk_k: int) -> int:
     """The staged-halo producer's dynamic shared memory
     (csrc/int8_wgmma.cuh::halo_smem_bytes): 1024 bytes to align, the
     weights' ring of `stages` slots of bn x 128 bytes (or their
     `resident_k` slices), two input box slots, the requant staging tile
-    (128 rows of bn + 16 bytes), the barriers, and the taps' box offsets."""
+    (128 rows of bn + 16 bytes), the barriers, and the A descriptor of
+    each k32 step of a chunk (4 a K slice, 8 bytes each)."""
     return (1024 + (resident_k or stages) * bn * STAGE_K + 2 * box_bytes
-            + 128 * (bn + 16) + 16 * stages + 8 + 32 + 4 * (taps + 4))
+            + 128 * (bn + 16) + 16 * stages + 8 + 32 + 32 * chunk_k)
 
 
-def _halo_ok(C: int, kernel, stride, dilation, epilogue: str) -> bool:
-    """Whether a conv is the staged-halo producer's: 3-D, unit stride and
-    dilation, C % 32 == 0 with C <= 128 or C % 128 == 0, the requant
-    epilogue, and two box slots and a two-stage ring fit a block."""
-    if (len(kernel) != 3 or tuple(stride) != (1, 1, 1)
-            or tuple(dilation or (1, 1, 1)) != (1, 1, 1)
-            or epilogue != "requant" or C % 32
-            or (C > HALO_CHUNK and C % HALO_CHUNK) or max(kernel) > 64):
+def _halo_ok(C: int, kernel, stride, dilation) -> bool:
+    """Whether a conv is the staged-halo producer's: 2-D with more than one
+    tap, or 3-D; unit stride and dilation, C % 16 == 0 with C <= 128 or C %
+    128 == 0, and two box slots and a two-stage ring fit a block."""
+    ones = (1,) * len(kernel)
+    if (len(kernel) not in (2, 3) or tuple(stride) != ones
+            or tuple(dilation or ones) != ones or C % 16
+            or (C > HALO_CHUNK and C % HALO_CHUNK) or max(kernel) > 64
+            or (len(kernel) == 2 and math.prod(kernel) == 1)):
         return False
     return _halo_plan(C, HALO_BN[1], kernel, 2)["tile"].stages >= 2
 
@@ -241,23 +290,54 @@ def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
               dilation: Optional[Sequence[int]] = None,
               epilogue: str = "requant"):
     """(producer, tile) for a conv of x [B, C, H, W] by w [O, C, KH, KW]
-    (or x [B, C, D, H, W] by w [O, C, KD, KH, KW]): what the wrapper passes
-    the kernel. A 3-D conv at unit stride and dilation over C % 32 == 0
-    channels on the requant epilogue takes the staged-halo producer
-    (`halo_plan`'s tile); every other 3-D conv the gather producer, on a
-    tile of TILE_3D_BM x TILE_3D_BN."""
+    (or x [B, C, D, H, W] by w [O, C, KD, KH, KW]) on either epilogue: what
+    the wrapper passes the kernel. A conv at unit stride and dilation over C
+    % 16 == 0 channels (C <= 128 or C % 128 == 0), 3-D, or 2-D with a
+    kernel larger than 1x1, takes the staged-halo producer (`halo_plan`'s
+    tile), the 2-D one by the fallback rule (`halo_2d_wins`): only where
+    its weights stay resident in shared memory and N fits one 128-wide N
+    tile or the halo's tiles cover at most HALO_2D_WASTE (1.4) times its
+    output pixels. So SqueezeNet's expands of fires 2-5 (N 64 and 128),
+    ResNet-50's stride-1 3x3s of layers 1 and 2 and UNet's six take it,
+    and the gather keeps SqueezeNet's expands of fires 6-9 (N 192 and 256
+    over 26 x 26 and 12 x 12, where 8-wide patches cover 1.5 and 1.8 times
+    the pixels) and ResNet-50's layers 3 and 4 (a ring of weights). Every
+    other 3-D conv takes the gather producer, on a tile of TILE_3D_BM x
+    TILE_3D_BN; every other 2-D conv `conv_producer`'s (the TMA producer's
+    int32 instances on BM TILE_TMA_INT32_BM)."""
     B, C = x_shape[:2]
     O, kernel = w_shape[0], tuple(w_shape[2:])
     out = conv_out_size(x_shape[2:], kernel, stride, padding, dilation)
     Cp = conv_channels(C)
     M, K = B * math.prod(out), _round_up(math.prod(kernel) * Cp, K_ALIGN)
-    if _halo_ok(Cp, kernel, stride, dilation, epilogue):
-        return "halo", halo_plan(Cp, O, kernel, out, B)["tile"]
+    if _halo_ok(Cp, kernel, stride, dilation):
+        plan = halo_plan(Cp, O, kernel, out, B)
+        if len(kernel) == 3 or halo_2d_wins(plan, O, out):
+            return "halo", plan["tile"]
     if len(kernel) != 2:  # the instances with the gather's 3-D form
         bn = next((b for b in TILE_3D_BN if b >= O), TILE_3D_BN[-1])
         return "gather", int8_tile(M, O, K, bms=TILE_3D_BM, bns=(bn,))
-    return (conv_producer(Cp, *kernel, stride, padding, epilogue),
-            int8_tile(M, O, K))
+    producer = conv_producer(Cp, *kernel, stride, padding)
+    if producer == "tma" and epilogue == "int32":
+        return producer, int8_tile(M, O, K, bms=TILE_TMA_INT32_BM)
+    return producer, int8_tile(M, O, K)
+
+
+def halo_waste(plan: dict, out: Sequence[int]) -> float:
+    """The output pixels a 2-D halo plan's tiles cover over the output's
+    (OH, OW): each dimension rounded up to the tile's."""
+    _, th, tw = plan["out_box"]
+    OH, OW = out[-2:]
+    return -(-OH // th) * th * -(-OW // tw) * tw / (OH * OW)
+
+
+def halo_2d_wins(plan: dict, N: int, out: Sequence[int]) -> bool:
+    """The fallback rule of a 2-D conv to N outputs the staged-halo
+    producer can take: it does where its weights stay resident and N fits
+    one of its N tiles or its tiles cover at most HALO_2D_WASTE times the
+    output pixels; the gather takes the rest."""
+    return plan["tile"].b_resident and (
+        N <= HALO_BN[1] or halo_waste(plan, out) <= HALO_2D_WASTE)
 
 
 def pack_qconv_weight(w: torch.Tensor) -> torch.Tensor:

@@ -86,9 +86,9 @@ def test_r3d_conv_takes_the_named_producer(i):
         assert tile.stages >= 2
     else:
         assert tile.bm in k.TILE_3D_BM and tile.bn in k.TILE_3D_BN
-    # the int32 epilogue (ConvInteger) stays on the gather
+    # the int32 epilogue (ConvInteger) takes the same producer
     assert k.conv_plan(xs, ws, stride, padding,
-                       epilogue="int32")[0] == "gather"
+                       epilogue="int32")[0] == producer
 
 
 def _halo_tiles(B, OD, OH, OW, TD):
@@ -152,12 +152,13 @@ def test_halo_plan_covers_the_output_and_fits(xs, ws, padding):
     (512, (3, 3, 3), (1, 1, 1), None, "requant", True),
     (96, (3, 3, 3), (1, 1, 1), None, "requant", True),
     (384, (3, 3, 3), (1, 1, 1), None, "requant", True),
-    (16, (3, 3, 3), (1, 1, 1), None, "requant", False),   # C % 32
+    (16, (3, 3, 3), (1, 1, 1), None, "requant", True),    # C % 32 == 16
+    (24, (3, 3, 3), (1, 1, 1), None, "requant", False),   # C % 16
     (160, (3, 3, 3), (1, 1, 1), None, "requant", False),  # C > 128, % 128
     (64, (3, 3, 3), (2, 2, 2), None, "requant", False),   # strided
     (64, (3, 3, 3), (1, 1, 1), (1, 2, 1), "requant", False),
-    (64, (3, 3, 3), (1, 1, 1), None, "int32", False),
-    (64, (3, 3), (1, 1), None, "requant", False),         # 2-D
+    (64, (3, 3, 3), (1, 1, 1), None, "int32", True),
+    (64, (3, 3), (1, 1), None, "requant", True),          # 2-D
 ])
 def test_halo_takes_exactly_its_convs(C, kernel, stride, dilation, epilogue,
                                       want):

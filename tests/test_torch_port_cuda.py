@@ -213,7 +213,8 @@ def test_gemm_form_equals_plain(cuda, M, K, N):
 def test_refused_tiles_raise_and_count_nothing(cuda, monkeypatch):
     """A tile the C entry points refuse (a BN the kernel lacks, a ring of 9
     slots, one past 227 KB of shared memory): the wrappers raise and count
-    no launch."""
+    no launch. The conv is a strided 3x3, which stays on the gather
+    (test_torch_port_conv2d_cuda.py refuses halo tiles)."""
     a = torch.zeros((64, 64), dtype=torch.int8, device=cuda)
     b = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
     packed = q8.pack_qmatmul_weight(b)
@@ -231,7 +232,8 @@ def test_refused_tiles_raise_and_count_nothing(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match="requant epilogue"):
             q8.qmatmul_int8_requant(a, b, mult, packed=packed)
         with pytest.raises(RuntimeError, match="gather producer"):
-            k.qconv_int8_requant(x, w, mult, packed=k.pack_qconv_weight(w))
+            k.qconv_int8_requant(x, w, mult, stride=(2, 2),
+                                 packed=k.pack_qconv_weight(w))
         assert (q8.qmatmul_int8.launches, q8.qmatmul_int8.epilogues,
                 k.qconv_int8_requant.launches) == before
 
@@ -1827,7 +1829,7 @@ def _assert_equal(got, want):
 
 def test_export_round_trip_int8_squeezenet(cuda, tmp_path):
     """Bit for bit against the Engine, eager and replayed; the same
-    launches per replayed forward (26 conv launches, 17 TMA + 9 gather)."""
+    launches per replayed forward (26 conv launches)."""
     g = import_model(build_squeezenet())
     x = np.random.default_rng(0).standard_normal((8, 3, 64, 64))
     feed = {"data_0": x.astype(np.float32)}

@@ -305,7 +305,7 @@ def test_dynamic_form_round_trips_as_bytes(dynamic):
     ((2, 8, 3, 5, 6), (20, 8, 2, 3, 1), (1, 1, 1), (0, 1, 0)),
 ])
 def test_3d_conv_plan_and_layouts(x_shape, w_shape, stride, pads):
-    """A stride-1 3-D conv over C % 32 == 0 channels on the staged-halo
+    """A stride-1 3-D conv over C % 16 == 0 channels on the staged-halo
     producer (BM 64 x 2 or 4 planes, BN one of HALO_BN), every other on
     the gather, on a tile whose instances carry the 3-D form (TILE_3D_BM x
     TILE_3D_BN); the packed weight's rows in (kd, kh, kw, c) order; a
@@ -318,7 +318,7 @@ def test_3d_conv_plan_and_layouts(x_shape, w_shape, stride, pads):
 
     padding = tuple((p, p) for p in pads)
     producer, tile = k.conv_plan(x_shape, w_shape, stride, padding)
-    halo = tuple(stride) == (1, 1, 1) and w_shape[1] % 32 == 0
+    halo = tuple(stride) == (1, 1, 1) and w_shape[1] % 16 == 0
     assert producer == ("halo" if halo else "gather")
     if halo:
         assert tile.bm in [64 * p for p in k.HALO_PLANES]

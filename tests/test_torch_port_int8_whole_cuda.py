@@ -102,9 +102,9 @@ def test_3d_conv_equals_plain(cuda, xs, O, kern, s, p, xdt):
     acc = k.qconv_int8(x, w, **kw, packed=packed)
     torch.cuda.synchronize()
     assert k.qconv_int8_requant.forms["3d"] == before["3d"] + 2
-    # the staged-halo producer: unit stride, C % 32 == 0, requant
+    # the staged-halo producer: unit stride, C % 16 == 0, either epilogue
     assert k.conv_plan(x.shape, w.shape, s, pad)[0] == (
-        "halo" if s == (1, 1, 1) and xs[1] % 32 == 0 else "gather")
+        "halo" if s == (1, 1, 1) and xs[1] % 16 == 0 else "gather")
     want = k.qconv_int8_requant_plain(x, w, mult, bias, **kw, y_zp=5)
     assert got.shape == want.shape and torch.equal(got, want)
     assert torch.equal(acc, k.qconv_int8_plain(x, w, **kw))

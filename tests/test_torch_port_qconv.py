@@ -267,15 +267,29 @@ SQUEEZENET_B256_CONVS = [
 @pytest.mark.parametrize("C,H,O,ksz,s,pad", SQUEEZENET_B256_CONVS)
 def test_tile_and_producer_fit_every_squeezenet_b256_conv(C, H, O, ksz, s,
                                                            pad):
-    """The tile the wrapper passes fits the kernel (a BN it has, a ring of at
-    least 2 slots within the H100's 227 KB of shared memory), covers N in
-    one block where N <= 256, and each conv goes to
-    the producer its shape allows: TMA for the 1x1s (C % 16 == 0), the
-    gather for the 3x3s and for conv1, whose 3 channels are read as 4."""
+    """Each conv goes to the producer its shape allows: TMA for the 1x1s (C
+    % 16 == 0), the staged-halo producer for the stride-1 3x3 expands to N
+    64 and 128 (test_torch_port_conv2d_plan.py holds its plans and its
+    fallback rule), the gather for the other expands and for conv1, whose
+    3 channels are read as 4. The tile the wrapper passes the TMA and
+    gather convs fits the kernel (a BN it has, a ring of at least 2 slots
+    within the H100's 227 KB of shared memory) and covers N in one block
+    where N <= 256; the 3x3 expands' gather tile (the plan the staged-halo
+    producer replaced, `int8_tile`) holds the same."""
     pads = ((pad, pad), (pad, pad))
     Cp = k.conv_channels(C)
     producer, tile = k.conv_plan((256, C, H, H), (O, C, ksz, ksz), (s, s),
                                  pads)
+    # the expands to N <= 128 on the staged-halo producer; to N 192 and 256
+    # over 26 x 26 and 12 x 12 its 8-wide patches cover 1.5 and 1.8 times
+    # the pixels and its fallback rule keeps them on the gather
+    assert producer == ("tma" if ksz == 1 else "halo" if s == 1 and O <= 128
+                        else "gather")
+    assert Cp == (4 if C == 3 else C)
+    if producer == "halo":
+        assert tile.bn in k.HALO_BN and tile.bm in (128, 256)
+        OH = H + 2 * pad - ksz + 1
+        tile = q8.int8_tile(256 * OH * OH, O, ksz * ksz * Cp)
     assert tile.bn in q8.BN_CHOICES and tile.bm in (64, 128)
     assert 2 <= tile.stages <= q8.MAX_STAGES
     Kp = -(-ksz * ksz * Cp // k.K_ALIGN) * k.K_ALIGN
@@ -289,8 +303,6 @@ def test_tile_and_producer_fit_every_squeezenet_b256_conv(C, H, O, ksz, s,
     else:
         assert -(-O // tile.bn) * tile.bn - O < 128
     assert tile.bm == 128  # every SqueezeNet grid has blocks for all SMs
-    assert producer == ("tma" if ksz == 1 else "gather")
-    assert Cp == (4 if C == 3 else C)
 
 
 @pytest.mark.parametrize("C,ksz,stride,pads,want", [
