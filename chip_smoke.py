@@ -588,13 +588,16 @@ PKG = "onnx_rusty_inference_engine_tpu_torch"
 
 BATCH = 256
 CALIB = 8          # calibration images, as bench.py calibrates on x[:8]
-# SqueezeNet 1.0's 26 group-1 convs at b256 by A producer, in every INT8
-# form (static, QOperator, ORT's dynamic ConvInteger on the int32
-# epilogue): the 1x1s by TMA, the 3x3 expands of fires 2-5 (N 64 and 128)
-# on the staged-halo producer; conv1 (stride 2, 3 channels) and the
-# expands of fires 6-9 (N 192 and 256 over 26 x 26 and 12 x 12, which
-# conv_plan's fallback rule keeps there) on the gather
+# SqueezeNet 1.0's 26 group-1 convs at b256 by A producer, in the static
+# and QOperator INT8 forms (the requant epilogue): the 1x1s by TMA, the 3x3
+# expands of fires 2-5 (N 64 and 128) on the staged-halo producer; conv1
+# (stride 2, 3 channels) and the expands of fires 6-9 (N 192 and 256 over
+# 26 x 26 and 12 x 12, which conv_plan's fallback rule keeps there) on the
+# gather. ORT's dynamic ConvInteger form (the int32 epilogue) has the
+# expands of fires 8-9 (N 256) on the staged-halo producer too, and the
+# expand1x1 of fires 2-3 (C 16) on the gather (conv_plan's rules).
 SQUEEZENET_PRODUCERS = {"tma": 17, "halo": 4, "gather": 5}
+SQUEEZENET_DYNAMIC_PRODUCERS = {"tma": 15, "halo": 6, "gather": 5}
 CPU_CHECK = 8      # images re-run through the plain versions on the CPU
 WARMUP, ITERS = 3, 20
 
@@ -7752,10 +7755,10 @@ def _whole_squeezenet_dynamic(smi: str) -> dict:
     the Engine. Counts set to 0 just before, read just after: 26
     ConvInteger launches per forward on the int32 epilogue, every one
     reading its pad value (the x zero point DynamicQuantizeLinear computes)
-    from device memory, SQUEEZENET_PRODUCERS by A producer. Each node's
-    int32 bit-equal to its plain version on the card's operands (first 2
-    images); the captured graph replayed on two inputs whose zero points
-    differ, each output equal to its own eager run; images/s."""
+    from device memory, SQUEEZENET_DYNAMIC_PRODUCERS by A producer. Each
+    node's int32 bit-equal to its plain version on the card's operands
+    (first 2 images); the captured graph replayed on two inputs whose zero
+    points differ, each output equal to its own eager run; images/s."""
     import onnx_rusty_inference_engine_tpu_torch as P
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
@@ -7785,12 +7788,13 @@ def _whole_squeezenet_dynamic(smi: str) -> dict:
             and splits["epilogues"]["int32"] == n
             and splits["forms"]["device_zero_point"] == n
             and splits["forms"]["uint8_x"] == n
-            and splits["producers"] == {k: v * forwards for k, v in
-                                        SQUEEZENET_PRODUCERS.items()},
+            and splits["producers"] == {
+                k: v * forwards
+                for k, v in SQUEEZENET_DYNAMIC_PRODUCERS.items()},
             f"squeezenet_dynamic: 26 ConvInteger launches a forward, each on "
             f"the int32 epilogue with its zero point in device memory, "
-            f"{SQUEEZENET_PRODUCERS} a forward by A producer: {counts} "
-            f"{splits}")
+            f"{SQUEEZENET_DYNAMIC_PRODUCERS} a forward by A producer: "
+            f"{counts} {splits}")
     require(len(eng._graphs) == 1, "squeezenet_dynamic: one captured graph")
     with torch.no_grad():
         eager = [eng.forward(d)[logits] for d in devs]

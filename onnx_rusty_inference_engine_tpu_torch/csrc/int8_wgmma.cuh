@@ -99,9 +99,6 @@
 #ifndef I8G_KERNEL
 #error "define I8G_KERNEL, the kernel's name in the including library"
 #endif
-#ifndef I8G_TMA_INT32_BM128
-#define I8G_TMA_INT32_BM128 0
-#endif
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
 #include <cuda_runtime.h>
@@ -1118,14 +1115,15 @@ cudaError_t launch_tile(const CUtensorMap& a, const CUtensorMap& b, const Params
   const long long m_tiles = PROD == A_HALO ? p.m_tiles : (p.M + BM - 1) / BM;
   const long long n_tiles = (p.N + BN - 1) / BN;
   const long long tiles = m_tiles * n_tiles;
-  long long blocks = tiles < (long long)sms * occ ? tiles : (long long)sms * occ;
+  long long blocks = (long long)sms * occ;
   // A_HALO with Bp resident over more than one N tile: each block keeps
   // one N tile's slices, so the grid is a multiple of the N tiles (a
-  // block's tiles are then all of its N tile)
+  // block's tiles are then all of its N tile; tiles is one too)
   if (PROD == A_HALO && p.b_resident && n_tiles > 1) {
-    blocks = (long long)sms * occ / n_tiles * n_tiles;
+    blocks = blocks / n_tiles * n_tiles;
     if (blocks == 0) return cudaErrorInvalidConfiguration;
   }
+  if (blocks > tiles) blocks = tiles;
   kern<<<(unsigned)blocks, THREADS, smem, st>>>(a, b, p);
   return cudaGetLastError();
 }
@@ -1155,8 +1153,10 @@ inline bool tile_fits(int bm, int bn, int stages, int resident_k) {
 
 // Encodes Bp's map (and A's, for A_TMA: a [M, K] with K a multiple of 16)
 // and launches the tile (bm, bn, stages; p.b_resident: Bp resident, which
-// needs N <= bn), after checking that it fits.
-template <int PROD, int EPI, bool AU8 = false>
+// needs N <= bn), after checking that it fits. ONLY_BM: 0 instances BM 64
+// and 128; 64 or 128 that BM alone (a call site's tiles at half the build),
+// any other bm refused.
+template <int PROD, int EPI, bool AU8 = false, int ONLY_BM = 0>
 cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int bn,
                    cudaStream_t st) {
   p.num_k = (Kp + BK - 1) / BK;
@@ -1175,13 +1175,10 @@ cudaError_t launch(const void* a, const void* bp, int Kp, Params p, int bm, int 
     e = encode_rows(&ta, a, (uint64_t)p.M, (uint64_t)Kp, (uint32_t)bm);
     if (e != cudaSuccess) return e;
   }
-  // a library that defines I8G_TMA_INT32_BM128 (the conv's: its 1x1
-  // ConvInteger, ops/kernels/qconv_int8.py, TILE_TMA_INT32_BM) has the TMA
-  // producer's int32 instances at BM 128 alone, the tiles its plans pick,
-  // at half the build
-  if constexpr (PROD == A_TMA && EPI == EPI_INT32 && I8G_TMA_INT32_BM128) {
-    if (bm != 128) return cudaErrorInvalidValue;
-    return launch_bn<PROD, EPI, 2, AU8>(bn, ta, tb, p, st);
+  if constexpr (ONLY_BM != 0) {
+    static_assert(ONLY_BM == 64 || ONLY_BM == 128, "ONLY_BM: 0, 64 or 128");
+    if (bm != ONLY_BM) return cudaErrorInvalidValue;
+    return launch_bn<PROD, EPI, ONLY_BM / 64, AU8>(bn, ta, tb, p, st);
   } else {
     return bm == 64 ? launch_bn<PROD, EPI, 1, AU8>(bn, ta, tb, p, st)
                     : launch_bn<PROD, EPI, 2, AU8>(bn, ta, tb, p, st);

@@ -65,11 +65,14 @@
 //
 // Rounding: __float2int_rn (half to even), as jnp.round does; never roundf.
 
-// the mainloop's kernel, named for this library in profiles; the TMA
-// producer's int32 epilogue (the 1x1 ConvInteger) at BM 128 alone
+// the mainloop's kernel, named for this library in profiles
 #define I8G_KERNEL qconv_int8_requant_kernel
-#define I8G_TMA_INT32_BM128 1
 #include "int8_wgmma.cuh"
+
+// the TMA producer's int32 epilogue (the 1x1 ConvInteger) is instanced at
+// this BM alone, the tiles its plans pick (ops/kernels/qconv_int8.py,
+// TILE_TMA_INT32_BM, which a test holds equal to it)
+constexpr int TMA_INT32_BM = 128;
 
 // x_u8: x is uint8 (wgmma's .u8 A), else int8.
 // epilogue: 0 = int32 (mult, bias unused), 1 = requant (mult f32 [N],
@@ -124,8 +127,10 @@ extern "C" cudaError_t qconv_int8_launch(
         C % 16 != 0 || Kp != C)
       return cudaErrorInvalidValue;
     if (epilogue == 0)
-      return x_u8 ? i8g::launch<i8g::A_TMA, i8g::EPI_INT32, true>(x, w, Kp, p, bm, bn, st)
-                  : i8g::launch<i8g::A_TMA, i8g::EPI_INT32, false>(x, w, Kp, p, bm, bn, st);
+      return x_u8 ? i8g::launch<i8g::A_TMA, i8g::EPI_INT32, true, TMA_INT32_BM>(
+                        x, w, Kp, p, bm, bn, st)
+                  : i8g::launch<i8g::A_TMA, i8g::EPI_INT32, false, TMA_INT32_BM>(
+                        x, w, Kp, p, bm, bn, st);
     return x_u8 ? i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, true>(x, w, Kp, p, bm, bn, st)
                 : i8g::launch<i8g::A_TMA, i8g::EPI_REQUANT, false>(x, w, Kp, p, bm, bn, st);
   }

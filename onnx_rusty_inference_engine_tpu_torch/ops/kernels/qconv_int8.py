@@ -40,11 +40,12 @@ x 8 output pixels, stacked along depth in a 3-D conv and along rows in a
 2-D one, whose input box with its halo lands by TMA once a tile, each
 tap's A a wgmma descriptor into it; `halo_plan`) for a conv at unit stride
 and dilation over C % 16 == 0 channels (C <= 128 or C % 128 == 0), a 2-D
-one with a kernel larger than 1x1 by a fallback rule on its shape
-(`halo_2d_wins`): R3D-18's 13 stride-1 3x3x3s, SqueezeNet's expands of
-fires 2-5, ResNet-50's and UNet's stride-1 3x3s at 28 x 28 and over;
-otherwise (`conv_producer`) "tma" for a 2-D 1x1, stride-1, unpadded conv
-with C % 16 == 0 (a plain matrix product), and "gather" (an implicit
+one with a kernel larger than 1x1 by a fallback rule on its shape and
+epilogue (`halo_2d_wins`): R3D-18's 13 stride-1 3x3x3s, SqueezeNet's
+expands of fires 2-5 (and of fires 8-9 on the int32 epilogue), ResNet-50's
+and UNet's stride-1 3x3s at 28 x 28 and over; otherwise (`conv_producer`)
+"tma" for a 2-D 1x1, stride-1, unpadded conv with C % 16 == 0 (a plain
+matrix product; on the int32 epilogue C >= 32), and "gather" (an implicit
 im2col by cp.async) for every other.
 
 Each epilogue is a `torch.library` operator, `oriet::qconv_int8_requant`
@@ -85,7 +86,7 @@ __all__ = ["qconv_int8_requant", "qconv_int8_requant_plain", "qconv_int8",
            "conv_producer", "conv_plan", "conv_out_hw", "conv_out_size",
            "channels_last_input", "PRODUCERS", "K_ALIGN", "FORMS",
            "schema_padding", "nested_padding", "conv_fake", "op_zero_points",
-           "halo_plan", "halo_tile", "halo_waste", "halo_2d_wins",
+           "halo_plan", "halo_tile", "halo_2d_wins",
            "HALO_PLANES", "HALO_ROWS"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
@@ -105,22 +106,14 @@ HALO_ROWS = 8
 HALO_CHUNK = 128
 HALO_BN = (64, 128)
 
-# a 2-D conv goes back to the gather where the staged-halo producer's
-# weights would not stay resident in shared memory (a ring), or where N
-# takes more than one of its N tiles (N > 128: a box staged, and a tile's
-# fixed cost paid, once per N tile) and its tiles would cover more than
-# HALO_2D_WASTE times the output pixels (8-wide patches over 26 or 12
-# columns): at each such shape of SqueezeNet's and ResNet-50's the gather
-# measured faster on the H100 (PERF.md §6, the 2-D staged-halo findings)
-HALO_2D_WASTE = 1.4
-
 # the tiles whose kernel instances carry the gather's 3-D form (BM 128, BN
 # 64 or 128: csrc/int8_wgmma.cuh, D3_TILE): a 3-D conv takes one of them
 TILE_3D_BM = (128,)
 TILE_3D_BN = (64, 128)
 
 # the TMA producer's int32-epilogue instances (the 1x1 ConvInteger): BM 128
-# only (csrc/int8_wgmma.cuh, launch)
+# only, the one BM csrc/qconv_int8.cu instances (its TMA_INT32_BM; a test
+# holds the two equal)
 TILE_TMA_INT32_BM = (128,)
 
 # the QOperator forms `.forms` counts (a launch may be of several): a uint8
@@ -146,8 +139,9 @@ def conv_channels(C: int) -> int:
 def conv_producer(C: int, KH: int, KW: int, stride: Sequence[int],
                   padding: Padding) -> str:
     """The A producer of a 2-D conv the staged-halo producer does not take
-    (`conv_plan`): "tma" for a 1x1, stride-1, unpadded conv over C % 16 ==
-    0 channels on either epilogue (A is the channels-last input as a
+    (`conv_plan`, which keeps the int32 epilogue's C 16 on the gather):
+    "tma" for a 1x1, stride-1, unpadded conv over C % 16 == 0 channels on
+    either epilogue (A is the channels-last input as a
     [B*H*W, C] matrix, rows of a 16-byte multiple as TMA needs; a 1x1 has
     no padding tap, so the x zero point never enters A), "gather" for every
     other conv. C is the channels the kernel reads (`conv_channels`)."""
@@ -201,12 +195,11 @@ def halo_plan(C: int, N: int, kernel: Sequence[int], out: Sequence[int],
     one chunk, the box's bytes (its 16-channel blocks, and where a chunk
     has an odd number of them a second copy of the first: the k32 step
     that spans two taps reads it), and the tile: BM 64 x patches, BN 64
-    where N <= 64, where 64-wide tiles cover N with fewer padded columns
-    (N 192) or where 128-wide tiles would leave half the SMs idle (at most
-    NUM_SMS / 2 tiles: R3D-18's layer4), else 128, the weights resident
-    where their N tile's K slices fit beside two box slots (each block
-    keeps one N tile: the kernel's grid is a multiple of N's tiles), else
-    a ring of the most stages that fits; the patches that give resident
+    where N <= 64 or where 128-wide tiles would leave half the SMs idle
+    (at most NUM_SMS / 2 tiles: R3D-18's layer4), else 128, the weights
+    resident where their N tile's K slices fit beside two box slots (each
+    block keeps one N tile: the kernel's grid is a multiple of N's tiles,
+    and at most the tiles), else a ring of the most stages that fits; the patches that give resident
     weights are taken over 4 patches on a ring; and the block's shared
     memory (`halo_smem`). A 3-D conv of one output plane and a kernel one
     deep is a 2-D one, as the C entry point runs it."""
@@ -241,8 +234,7 @@ def _halo_plan(C: int, N: int, kernel: Sequence[int], planes: int,
     blocks = chunk // 16 + chunk // 16 % 2
     box_bytes = blocks * cb_pitch
     lo, hi = HALO_BN
-    bn = (lo if N <= lo or narrow or -(-N // lo) * lo < -(-N // hi) * hi
-          else hi)
+    bn = lo if N <= lo or narrow else hi
     num_k = -(-taps * C // STAGE_K)
     resident = (halo_smem(bn, 2, num_k, box_bytes, chunk_k) <= SMEM_LIMIT
                 and -(-N // bn) <= NUM_SMS)
@@ -295,16 +287,19 @@ def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
     % 16 == 0 channels (C <= 128 or C % 128 == 0), 3-D, or 2-D with a
     kernel larger than 1x1, takes the staged-halo producer (`halo_plan`'s
     tile), the 2-D one by the fallback rule (`halo_2d_wins`): only where
-    its weights stay resident in shared memory and N fits one 128-wide N
-    tile or the halo's tiles cover at most HALO_2D_WASTE (1.4) times its
-    output pixels. So SqueezeNet's expands of fires 2-5 (N 64 and 128),
-    ResNet-50's stride-1 3x3s of layers 1 and 2 and UNet's six take it,
-    and the gather keeps SqueezeNet's expands of fires 6-9 (N 192 and 256
-    over 26 x 26 and 12 x 12, where 8-wide patches cover 1.5 and 1.8 times
-    the pixels) and ResNet-50's layers 3 and 4 (a ring of weights). Every
-    other 3-D conv takes the gather producer, on a tile of TILE_3D_BM x
-    TILE_3D_BN; every other 2-D conv `conv_producer`'s (the TMA producer's
-    int32 instances on BM TILE_TMA_INT32_BM)."""
+    its weights stay resident in shared memory, and N fits one 128-wide N
+    tile or, on the int32 epilogue, fills whole ones. So SqueezeNet's
+    expands of fires 2-5 (N 64 and 128), ResNet-50's stride-1 3x3s of
+    layers 1 and 2 and UNet's six take it on either epilogue, and the
+    expands of fires 8-9 (N 256) on the int32 one; the gather keeps
+    conv1, the expands of fires 6-7 (N 192) on either epilogue and of
+    fires 8-9 on the requant one, and ResNet-50's layers 3 and 4 (a ring
+    of weights). Every other 3-D conv takes the gather producer, on a tile
+    of TILE_3D_BM x TILE_3D_BN; every other 2-D conv `conv_producer`'s (the
+    TMA producer's int32 instances on BM TILE_TMA_INT32_BM), except that on
+    the int32 epilogue a 1x1 over C 16 (one 16-byte K slice) stays on the
+    gather: SqueezeNet's expand1x1 of fires 2-3 measured 2-5% slower on
+    TMA on the H100 (PERF.md §6, the 2-D staged-halo findings)."""
     B, C = x_shape[:2]
     O, kernel = w_shape[0], tuple(w_shape[2:])
     out = conv_out_size(x_shape[2:], kernel, stride, padding, dilation)
@@ -312,32 +307,29 @@ def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
     M, K = B * math.prod(out), _round_up(math.prod(kernel) * Cp, K_ALIGN)
     if _halo_ok(Cp, kernel, stride, dilation):
         plan = halo_plan(Cp, O, kernel, out, B)
-        if len(kernel) == 3 or halo_2d_wins(plan, O, out):
+        if len(kernel) == 3 or halo_2d_wins(plan, O, epilogue):
             return "halo", plan["tile"]
     if len(kernel) != 2:  # the instances with the gather's 3-D form
         bn = next((b for b in TILE_3D_BN if b >= O), TILE_3D_BN[-1])
         return "gather", int8_tile(M, O, K, bms=TILE_3D_BM, bns=(bn,))
     producer = conv_producer(Cp, *kernel, stride, padding)
     if producer == "tma" and epilogue == "int32":
+        if Cp == 16:  # measured slower on TMA than on the gather
+            return "gather", int8_tile(M, O, K)
         return producer, int8_tile(M, O, K, bms=TILE_TMA_INT32_BM)
     return producer, int8_tile(M, O, K)
 
 
-def halo_waste(plan: dict, out: Sequence[int]) -> float:
-    """The output pixels a 2-D halo plan's tiles cover over the output's
-    (OH, OW): each dimension rounded up to the tile's."""
-    _, th, tw = plan["out_box"]
-    OH, OW = out[-2:]
-    return -(-OH // th) * th * -(-OW // tw) * tw / (OH * OW)
-
-
-def halo_2d_wins(plan: dict, N: int, out: Sequence[int]) -> bool:
+def halo_2d_wins(plan: dict, N: int, epilogue: str) -> bool:
     """The fallback rule of a 2-D conv to N outputs the staged-halo
-    producer can take: it does where its weights stay resident and N fits
-    one of its N tiles or its tiles cover at most HALO_2D_WASTE times the
-    output pixels; the gather takes the rest."""
+    producer can take, on its shape and epilogue as measured on the H100
+    against the gather (PERF.md §6, the 2-D staged-halo findings): it does
+    where its weights stay resident and N fits one of its N tiles, or on
+    the int32 epilogue N fills whole ones (N % 128 == 0: N 256 measured
+    faster there; N 192, and N 256 on the requant epilogue in three of its
+    four SqueezeNet shapes and forms, slower); the gather takes the rest."""
     return plan["tile"].b_resident and (
-        N <= HALO_BN[1] or halo_waste(plan, out) <= HALO_2D_WASTE)
+        N <= HALO_BN[1] or (epilogue == "int32" and N % HALO_BN[1] == 0))
 
 
 def pack_qconv_weight(w: torch.Tensor) -> torch.Tensor:

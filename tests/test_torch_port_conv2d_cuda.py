@@ -18,8 +18,10 @@ without the suite's conftest.py (which imports JAX):
   written rule might send a shape to the gather.
 - The 3-D form over C 16 and 48 (the odd-block k32 steps), both epilogues.
 - The 1x1 ConvInteger (int32 epilogue, a device zero point) by TMA at
-  SqueezeNet's squeeze and expand shapes, and its window-sum launch (an
-  all-ones weight, N = 1).
+  SqueezeNet's squeeze and expand shapes (over C 16 by the gather), and
+  its window-sum launch (an all-ones weight, N = 1).
+- At batch 1, resident weights over several N tiles with fewer tiles than
+  SMs (the grid cut to the tiles), 2-D on the int32 epilogue and 3-D.
 - One captured graph replayed with two device zero points: each output
   equals its own eager run.
 - A halo tile the entry point refuses raises and counts nothing.
@@ -153,20 +155,24 @@ def test_halo_3d_odd_blocks_equal_plain(cuda, C, form):
 def test_1x1_convinteger_on_tma(cuda, C, O, hw):
     """ORT's dynamic SqueezeNet's 1x1 ConvIntegers: uint8 x, its zero point
     in device memory (no padding tap reads it), the int32 epilogue, by
-    TMA; and the window-sum launch of a weight with a zero point (an
-    all-ones weight, N = 1)."""
+    TMA (over C 16 by the gather, `conv_plan`'s rule); and the window-sum
+    launch of a weight with a zero point (an all-ones weight, N = 1)."""
     rng = np.random.default_rng(C + O)
     x, w, _, _ = _operands(rng, (3, C, hw, hw), (O, C, 1, 1), np.uint8,
                            cuda)
     zp = torch.tensor([113], dtype=torch.int32, device=cuda)
     ones = torch.ones((1, C, 1, 1), dtype=torch.int8, device=cuda)
+    producer = "gather" if C == 16 else "tma"
+    for ws in (w.shape, ones.shape):
+        assert k.conv_plan(x.shape, ws, (1, 1), ((0, 0), (0, 0)), None,
+                           "int32")[0] == producer
     before = dict(k.qconv_int8_requant.producers)
     got = k.qconv_int8(x, w, pad_value=zp, packed=k.pack_qconv_weight(w))
     xsum = k.qconv_int8(x, ones, pad_value=zp,
                         packed=k.pack_qconv_weight(ones))
     torch.cuda.synchronize()
-    assert k.qconv_int8_requant.producers == dict(before,
-                                                  tma=before["tma"] + 2)
+    assert k.qconv_int8_requant.producers == dict(
+        before, **{producer: before[producer] + 2})
     assert torch.equal(got, k.qconv_int8_plain(x, w, pad_value=zp))
     assert torch.equal(xsum, k.qconv_int8_plain(x, ones, pad_value=zp))
 
@@ -185,6 +191,33 @@ def test_squeezenet_expand_routes_to_the_halo(cuda):
     assert k.qconv_int8_requant.producers["halo"] == before + 1
     assert torch.equal(got, k.qconv_int8_requant_plain(
         x, w, mult, bias, padding=pad, pad_value=3))
+
+
+@pytest.mark.parametrize("xs,ws,epilogue", [
+    ((1, 64, 12, 12), (256, 64, 3, 3), "int32"),     # fire9's expand, b1
+    ((1, 64, 26, 26), (256, 64, 3, 3), "int32"),     # fire8's
+    ((1, 64, 4, 14, 14), (128, 64, 3, 3, 3), "requant"),  # 3-D, 2 N tiles
+])
+def test_halo_few_tiles_over_several_n_tiles(cuda, xs, ws, epilogue):
+    """At batch 1 a resident plan over two or more N tiles has fewer tiles
+    than the card has SMs: the grid stops at the tiles (each block keeping
+    one N tile), and every output is still written once, bit-equal."""
+    rng = np.random.default_rng(ws[0] + len(ws))
+    x, w, mult, bias = _operands(rng, xs, ws, np.uint8, cuda)
+    padding = ((1, 1),) * (len(ws) - 2)
+    out = k.conv_out_size(xs[2:], ws[2:], (1,) * len(padding), padding)
+    plan = k.halo_plan(xs[1], ws[0], ws[2:], out, xs[0])
+    assert plan["tile"].b_resident and ws[0] > plan["tile"].bn
+    assert k.conv_plan(xs, ws, (1,) * len(padding), padding, None,
+                       epilogue)[0] == "halo"
+    form = (FORMS[3] if epilogue == "int32"
+            else ("uint8", "dev131", "dev200", "uint8"))
+    before = k.qconv_int8_requant.producers["halo"]
+    got, want = _run(x, w, mult, bias, form, padding, (1,) * len(padding),
+                     k.pack_qconv_weight(w))
+    torch.cuda.synchronize()
+    assert k.qconv_int8_requant.producers["halo"] == before + 1
+    assert torch.equal(got, want)
 
 
 def test_captured_graph_replays_two_device_zero_points(cuda, halo_only):

@@ -6,9 +6,11 @@ no kernel and no model forward.
   nodes: SqueezeNet 1.0 b256 (static INT8 and ORT's dynamic form on the
   int32 epilogue), ResNet-50 b256 and UNet b32 256 x 256; a stride-1 kxk
   over C % 16 == 0 to the staged-halo producer where the fallback rule
-  (`halo_2d_wins`) keeps it there (N <= 128, or outputs of 54, 56, 28 and
-  UNet's 32-256), to the gather where it does not (SqueezeNet's N 192 and
-  256 over 26 and 12; ResNet-50's 14 and 7, a ring of weights).
+  (`halo_2d_wins`) keeps it there (weights resident and N <= 128, or on
+  the int32 epilogue N % 128 == 0), to the gather where it does not
+  (SqueezeNet's N 192, and N 256 on the requant epilogue; ResNet-50's 14
+  and 7, a ring of weights). The one BM of the TMA producer's int32
+  instances is the same in the plan and in the CUDA source.
 - Each 2-D halo plan's output boxes, walked as the kernel walks its tiles,
   cover the output once; its input box holds every tap's reads at H and W
   of 13, 27 and 54; its K walk takes each 16-byte K slice of the packed
@@ -21,6 +23,8 @@ no kernel and no model forward.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -84,10 +88,12 @@ UNET = _graph_convs(P.import_model(build_unet(UNetConfig(), batch=32,
 
 
 # the output sizes of the models' stride-1 3x3s that the fallback rule
-# keeps on the staged-halo producer, and those where it sends N > 128 (and
-# at 14 and 7 any N: ResNet-50's weights in a ring) to the gather
+# keeps on the staged-halo producer, those where it keeps N <= 128 there
+# (and on the int32 epilogue N % 128 == 0), and those where it sends any N
+# to the gather (ResNet-50's weights in a ring)
 HALO_SIZES = (54, 56, 28, 32, 64, 128, 256)
-GATHER_SIZES = (26, 12, 14, 7)
+BY_N_SIZES = (26, 12)
+GATHER_SIZES = (14, 7)
 
 
 def _eligible(xs, ws, stride):
@@ -97,16 +103,21 @@ def _eligible(xs, ws, stride):
             and ws[2:] != (1, 1))
 
 
-def _design(xs, ws, stride):
+def _design(xs, ws, stride, epilogue):
     """The producer the design names for a group-1 2-D conv of the models:
-    the halo for an eligible conv over an output of HALO_SIZES (the gather
-    for GATHER_SIZES), TMA for a stride-1 unpadded 1x1 over C % 16 == 0,
-    the gather for the rest (conv1's 3 channels, the strided convs)."""
+    the halo for an eligible conv over an output of HALO_SIZES, and of
+    BY_N_SIZES where N <= 128 or (int32) N % 128 == 0 (the gather for the
+    other N and for GATHER_SIZES), TMA for a stride-1 unpadded 1x1 over
+    C % 16 == 0 (on the int32 epilogue C >= 32), the gather for the rest
+    (conv1's 3 channels, the strided convs, the int32 1x1s over C 16)."""
     if _eligible(xs, ws, stride):
-        assert xs[2] in HALO_SIZES + GATHER_SIZES
-        small_n = ws[0] <= 128 and xs[2] not in (14, 7)
-        return "halo" if xs[2] in HALO_SIZES or small_n else "gather"
-    if stride == (1, 1) and k.conv_channels(xs[1]) % 16 == 0:
+        assert xs[2] in HALO_SIZES + BY_N_SIZES + GATHER_SIZES
+        n_ok = ws[0] <= 128 or (epilogue == "int32" and ws[0] % 128 == 0)
+        return ("halo" if xs[2] in HALO_SIZES
+                or (xs[2] in BY_N_SIZES and n_ok) else "gather")
+    C = k.conv_channels(xs[1])
+    if (stride == (1, 1) and C % 16 == 0
+            and not (epilogue == "int32" and C == 16)):
         return "tma"
     return "gather"
 
@@ -118,16 +129,19 @@ def _split(convs, epilogue="requant"):
     return split
 
 
-@pytest.mark.parametrize("epilogue", ["requant", "int32"])
-def test_squeezenet_b256_splits_by_producer(epilogue):
+@pytest.mark.parametrize("epilogue,tma,halo,gather", [
+    ("requant", 17, 4, 5), ("int32", 15, 6, 5)])
+def test_squeezenet_b256_splits_by_producer(epilogue, tma, halo, gather):
     """The static INT8 forward (requant) and ORT's dynamic one (int32, its
-    zero point in device memory): the 17 1x1s by TMA, the 3x3 expands of
-    fires 2-5 (N 64 and 128) on the staged-halo producer; conv1 and the
-    expands of fires 6-9 (N 192 and 256 over 26 x 26 and 12 x 12) on the
-    gather."""
+    zero point in device memory): the 1x1s by TMA (on the int32 epilogue
+    not fires 2-3's expand1x1 over C 16), the 3x3 expands of fires 2-5 (N
+    64 and 128) on the staged-halo producer, and on the int32 epilogue
+    those of fires 8-9 (N 256 over 26 x 26 and 12 x 12); conv1, the
+    expands of fires 6-7 (N 192), on the requant epilogue those of fires
+    8-9 and on the int32 one fires 2-3's expand1x1 on the gather."""
     assert len(SQUEEZENET) == 26
-    assert _split(SQUEEZENET, epilogue) == {"tma": 17, "halo": 4,
-                                            "gather": 5}
+    assert _split(SQUEEZENET, epilogue) == {"tma": tma, "halo": halo,
+                                            "gather": gather}
 
 
 MODELS = ([("squeezenet", c) for c in SQUEEZENET]
@@ -142,7 +156,8 @@ def test_conv_takes_the_named_producer(model, conv):
     for epilogue in ("requant", "int32"):
         producer, tile = k.conv_plan(xs, ws, stride, padding, None,
                                      epilogue)
-        assert producer == _design(xs, ws, stride), (name, epilogue)
+        assert producer == _design(xs, ws, stride, epilogue), (name,
+                                                               epilogue)
         if producer == "halo":
             assert tile.bm in (128, 256) and tile.bn in k.HALO_BN
             assert tile.stages >= 2
@@ -161,29 +176,48 @@ def test_model_splits():
     assert _split(UNET) == {"tma": 1, "halo": 6, "gather": 4}
 
 
-@pytest.mark.parametrize("xs,ws,waste,resident,wins", [
-    ((256, 16, 54, 54), (64, 16, 3, 3), 64 * 56 / 54 ** 2, True, True),
-    ((256, 32, 26, 26), (128, 32, 3, 3), 32 * 32 / 26 ** 2, True, True),
-    ((256, 64, 26, 26), (256, 64, 3, 3), 32 * 32 / 26 ** 2, True, False),
-    ((256, 48, 26, 26), (192, 48, 3, 3), 32 * 32 / 26 ** 2, True, False),
-    ((256, 64, 12, 12), (256, 64, 3, 3), 16 * 16 / 12 ** 2, True, False),
-    ((256, 64, 56, 56), (64, 64, 3, 3), 64 * 56 / 56 ** 2, True, True),
-    ((256, 128, 28, 28), (128, 128, 3, 3), 32 * 32 / 28 ** 2, True, True),
-    ((256, 256, 14, 14), (256, 256, 3, 3), 16 * 16 / 14 ** 2, False,
-     False),
-    ((256, 512, 7, 7), (512, 512, 3, 3), 16 * 8 / 7 ** 2, False, False),
-    ((32, 32, 256, 256), (16, 32, 3, 3), 1.0, True, True),
-])
-def test_fallback_rule(xs, ws, waste, resident, wins):
-    """`halo_2d_wins`: the weights stay resident, and N fits one N tile or
-    the halo's tiles cover at most HALO_2D_WASTE times the output pixels."""
+# (x, w, resident, wins on the requant epilogue, wins on the int32 one)
+FALLBACK_CASES = [
+    ((256, 16, 54, 54), (64, 16, 3, 3), True, True, True),
+    ((256, 32, 26, 26), (128, 32, 3, 3), True, True, True),
+    ((256, 64, 26, 26), (256, 64, 3, 3), True, False, True),
+    ((256, 48, 26, 26), (192, 48, 3, 3), True, False, False),
+    ((256, 64, 12, 12), (256, 64, 3, 3), True, False, True),
+    ((256, 64, 56, 56), (64, 64, 3, 3), True, True, True),
+    ((256, 128, 28, 28), (128, 128, 3, 3), True, True, True),
+    ((256, 256, 14, 14), (256, 256, 3, 3), False, False, False),
+    ((256, 512, 7, 7), (512, 512, 3, 3), False, False, False),
+    ((32, 32, 256, 256), (16, 32, 3, 3), True, True, True),
+]
+
+
+@pytest.mark.parametrize("epilogue", ["requant", "int32"])
+@pytest.mark.parametrize("xs,ws,resident,requant,int32", FALLBACK_CASES)
+def test_fallback_rule(xs, ws, resident, requant, int32, epilogue):
+    """`halo_2d_wins`: the weights stay resident, and N fits one N tile or,
+    on the int32 epilogue, fills whole ones."""
+    wins = int32 if epilogue == "int32" else requant
     out = k.conv_out_size(xs[2:], ws[2:], (1, 1), ((1, 1), (1, 1)))
     plan = k.halo_plan(xs[1], ws[0], ws[2:], out, xs[0])
-    assert k.halo_waste(plan, out) == pytest.approx(waste)
     assert plan["tile"].b_resident == resident
-    assert k.halo_2d_wins(plan, ws[0], out) == wins
-    assert k.conv_plan(xs, ws, (1, 1), ((1, 1), (1, 1)))[0] == (
-        "halo" if wins else "gather")
+    assert plan["tile"].bn == (64 if ws[0] <= 64 else 128)
+    assert k.halo_2d_wins(plan, ws[0], epilogue) == wins
+    assert k.conv_plan(xs, ws, (1, 1), ((1, 1), (1, 1)), None,
+                       epilogue)[0] == ("halo" if wins else "gather")
+
+
+def test_tma_int32_bm_matches_the_source():
+    """The TMA producer's int32 instances: the BM the plan gives is the one
+    BM csrc/qconv_int8.cu instances (its TMA_INT32_BM), so the two cannot
+    drift apart."""
+    src = (Path(k.__file__).resolve().parents[2] / "csrc"
+           / "qconv_int8.cu").read_text()
+    bms = re.findall(r"constexpr int TMA_INT32_BM = (\d+);", src)
+    assert [int(b) for b in bms] == list(k.TILE_TMA_INT32_BM)
+    assert src.count("TMA_INT32_BM>(") == 2
+    tile = k.conv_plan((256, 64, 12, 12), (256, 64, 1, 1), (1, 1),
+                       ((0, 0), (0, 0)), None, "int32")[1]
+    assert tile.bm == int(bms[0])
 
 
 def _halo_tiles(B, OH, OW, TH, TW):
@@ -212,7 +246,7 @@ def test_halo_plan_covers_the_output_and_fits(xs, ws, padding):
     producer, tile = k.conv_plan(xs, ws, (1, 1), padding)
     out = k.conv_out_size(xs[2:], kernel, (1, 1), padding)
     plan = k.halo_plan(C, ws[0], kernel, out, B)
-    assert producer == ("halo" if k.halo_2d_wins(plan, ws[0], out)
+    assert producer == ("halo" if k.halo_2d_wins(plan, ws[0], "requant")
                         else "gather")
     if producer == "halo":
         assert tile == plan["tile"]
@@ -343,6 +377,9 @@ def test_emulated_halo_k_walk_equals_plain(C, ks, xdt, pad_value):
     (64, (3, 3), (2, 2), None, "requant", "gather"),   # strided
     (64, (3, 3), (1, 1), (2, 2), "requant", "gather"),  # dilated
     (64, (1, 1), (1, 1), None, "int32", "tma"),
+    (32, (1, 1), (1, 1), None, "int32", "tma"),
+    (16, (1, 1), (1, 1), None, "int32", "gather"),    # C 16, int32
+    (16, (1, 1), (1, 1), None, "requant", "tma"),
     (64, (1, 1), (2, 2), None, "int32", "gather"),
     (16, (3, 3, 3), (1, 1, 1), None, "int32", "halo"),
 ])
