@@ -20,9 +20,10 @@ Phases, each printing JSON lines:
              x[:8]; quantize_graph; INT8 Engine at b256. Every kernel's
              launch count is set to 0 just before and read just after;
              every QLinearConv must launch the int8 kernel (26 per INT8
-             forward: 17 on its TMA producer, fires 2-5's expands on its
-             staged-halo producer, conv1 and fires 6-9's expands on its
-             gather: SQUEEZENET_PRODUCERS). The
+             forward: 17 on its TMA producer, conv1 (as its space-to-depth
+             rewrite, the `s2d` form, one a forward) and fires 2-5's
+             expands on its staged-halo producer, fires 6-9's expands on
+             its gather: SQUEEZENET_PRODUCERS). The
              card's
              INT8 intermediates are held against the plain versions run on
              the CPU for the first 4 images; which 4-D intermediates are
@@ -133,7 +134,7 @@ Phases, each printing JSON lines:
              against its eager function on the same inputs, bit for bit,
              for the main path's input and a second one; a returned output
              not overwritten by the next call; launch counts per forward
-             over replays unchanged (26 convs: 17 TMA + 4 halo + 5 gather; 73 GEMMs,
+             over replays unchanged (26 convs: 17 TMA + 5 halo + 4 gather, conv1 s2d; 73 GEMMs,
              all requant); wall per forward eager, replayed through
              Engine.__call__ and as the bare graph replay, each beside the
              device busy time from torch.profiler (idle share).
@@ -497,8 +498,9 @@ Phases, each printing JSON lines:
              BatchNorm folded) on b16 clips of 3x16x112x112, fp32 and INT8
              (calibrated on x[:2]); counts set to 0 just before, read just
              after: 20 qconv_int8_requant launches per INT8 forward, every
-             one the 3-D form (the 13 stride-1 3x3x3 convs on the
-             staged-halo producer, the other 7 on the gather), and the
+             one the 3-D form (the 13 stride-1 3x3x3 convs and the stem,
+             as its space-to-depth rewrite, on the staged-halo producer,
+             the other 6 on the gather), and the
              fc's qmatmul_int8; every kernel call of a forward bit-equal to
              its plain version on the card's operands for the first 2
              clips, and listed with its plan, ms and bound; clips/s; INT8
@@ -510,8 +512,9 @@ Phases, each printing JSON lines:
              `squeezenet_dynamic`: SqueezeNet 1.0 in ONNX Runtime's
              quantize_dynamic form (tests/torch_port_dynamic.py) at b256:
              26 ConvInteger launches per forward, each reading its pad
-             value from device memory (`device_zero_point`; 17 by TMA, 4
-             on the staged-halo producer, 5 gather), each call's
+             value from device memory (`device_zero_point`; 15 by TMA, 7
+             on the staged-halo producer, conv1 as its space-to-depth
+             rewrite among them, 4 gather), each call's
              int32 bit-equal to its plain version (2 images), the captured
              graph replayed on two inputs whose zero points differ, each
              equal to its eager run; images/s. `runtime_zp`: one-node
@@ -589,15 +592,17 @@ PKG = "onnx_rusty_inference_engine_tpu_torch"
 BATCH = 256
 CALIB = 8          # calibration images, as bench.py calibrates on x[:8]
 # SqueezeNet 1.0's 26 group-1 convs at b256 by A producer, in the static
-# and QOperator INT8 forms (the requant epilogue): the 1x1s by TMA, the 3x3
-# expands of fires 2-5 (N 64 and 128) on the staged-halo producer; conv1
-# (stride 2, 3 channels) and the expands of fires 6-9 (N 192 and 256 over
-# 26 x 26 and 12 x 12, which conv_plan's fallback rule keeps there) on the
-# gather. ORT's dynamic ConvInteger form (the int32 epilogue) has the
-# expands of fires 8-9 (N 256) on the staged-halo producer too, and the
-# expand1x1 of fires 2-3 (C 16) on the gather (conv_plan's rules).
-SQUEEZENET_PRODUCERS = {"tma": 17, "halo": 4, "gather": 5}
-SQUEEZENET_DYNAMIC_PRODUCERS = {"tma": 15, "halo": 6, "gather": 5}
+# and QOperator INT8 forms (the requant epilogue): the 1x1s by TMA; conv1
+# (stride 2, 3 channels, as its space-to-depth rewrite: a stride-1 4x4
+# over 16 channels, the `s2d` form) and the 3x3 expands of fires 2-5 (N 64
+# and 128) on the staged-halo producer; the expands of fires 6-9 (N 192
+# and 256 over 26 x 26 and 12 x 12, which conv_plan's fallback rule keeps
+# there) on the gather. ORT's dynamic ConvInteger form (the int32
+# epilogue) has the expands of fires 8-9 (N 256) on the staged-halo
+# producer too, and the expand1x1 of fires 2-3 (C 16) on the gather
+# (conv_plan's rules).
+SQUEEZENET_PRODUCERS = {"tma": 17, "halo": 5, "gather": 4}
+SQUEEZENET_DYNAMIC_PRODUCERS = {"tma": 15, "halo": 7, "gather": 4}
 CPU_CHECK = 8      # images re-run through the plain versions on the CPU
 WARMUP, ITERS = 3, 20
 
@@ -876,14 +881,18 @@ def phase_slice():
             f"{launches} launches for {int8_forwards} INT8 forwards")
     require(sum(counts.values()) == launches,
             f"only the int8 conv kernel on SqueezeNet's path: {counts}")
-    # the 17 1x1 convs (C % 16 == 0) read A by TMA, fires 2-5's 3x3
-    # expands from a staged halo box, conv1 and the other expands by the
-    # gather
-    producers = read_splits("qconv_int8_requant")["producers"]
+    # the 17 1x1 convs (C % 16 == 0) read A by TMA, conv1 (its space-to-
+    # depth rewrite) and fires 2-5's 3x3 expands from a staged halo box,
+    # the other expands by the gather
+    splits = read_splits("qconv_int8_requant")
+    producers = splits["producers"]
     require(producers == {k: n * int8_forwards
                           for k, n in SQUEEZENET_PRODUCERS.items()},
             f"A producers per INT8 forward: {producers} for {int8_forwards}"
             f" ({SQUEEZENET_PRODUCERS} a forward)")
+    require(splits["forms"]["s2d"] == int8_forwards,
+            f"conv1 as its space-to-depth rewrite once a forward: "
+            f"{splits['forms']} for {int8_forwards}")
 
     # every intermediate of the INT8 graph (debug.py), on the card at b256
     # (as device tensors, with the Engine's weights) and through the plain
@@ -954,6 +963,7 @@ def _layouts(graph, values) -> dict:
 
 # device kernel name fragment -> bucket, first match wins
 _BUCKETS = (("qconv_int8_requant", "qconv_int8_requant (int8 conv)"),
+            ("qconv_s2d", "qconv_s2d (the stem's space-to-depth layout)"),
             ("max_pool", "max-pool"), ("CatArray", "concat"),
             ("cat_", "concat"), ("softmax", "softmax"),
             ("reduce", "reductions (GlobalAveragePool)"),
@@ -1147,8 +1157,8 @@ def _qmm_shapes(qgraph, eng8, card) -> dict:
 
 def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels.qconv_int8 import (
-        channels_last_input, conv_plan, qconv_int8_requant,
-        qconv_int8_requant_plain)
+        conv_input, conv_plan, qconv_int8_requant, qconv_int8_requant_plain,
+        s2d_conv, space_to_depth_plain)
 
     shapes = _qconv_shapes(qgraph, eng8, card, grouped=False)
 
@@ -1178,10 +1188,17 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
                 f"channels-last output at {s['node']}")
         ms, ms_eager = graph_ms(kern, ITERS), cuda_ms(kern, ITERS)
         plain_ms = cuda_ms(plain, 3)
-        # the layout copy the wrapper makes of the main path's own input
-        copies = channels_last_input(x_main).data_ptr() != x_main.data_ptr()
-        copy_ms = graph_ms(lambda: channels_last_input(x_main),
-                           ITERS) if copies else 0.0
+        # the layout pass the wrapper makes of the main path's own input
+        # (conv1's: its space-to-depth rewrite), timed alone
+        def layout():
+            return conv_input(x_main, ws, stride, padding)
+
+        copies = layout().data_ptr() != x_main.data_ptr()
+        copy_ms = graph_ms(layout, ITERS) if copies else 0.0
+        geo = s2d_conv(xs, ws, stride, padding)
+        if geo is not None:  # the layout kernel against its plain version
+            require(torch.equal(layout(), space_to_depth_plain(x_main, geo)),
+                    f"space-to-depth layout kernel == plain at {s['node']}")
         library_ms = None
         if ws[2:] == (1, 1) and stride == (1, 1) and not any(
                 sum(padding, ())):
@@ -1230,10 +1247,11 @@ def phase_kernels(qgraph, eng8, card, launches: int, smi: str) -> dict:
         "per": "one INT8 SqueezeNet 1.0 forward at b256: ms, plain_ms and "
                "bound_ms sum its 26 QLinearConvs; ms is the wrapper's device "
                "time (CUDA-graph replay) on channels-last input, as the "
-               "previous conv leaves it (conv1's includes padding its 3 "
-               "channels to 4); layout_copy_ms sums the copies the wrapper "
-               "still makes of the main path's own inputs (conv1's NCHW "
-               "input), timed alone; library_ms sums torch._int_mm (int32 "
+               "previous conv leaves it (conv1's includes its space-to-depth "
+               "layout pass); layout_copy_ms sums the layout passes the "
+               "wrapper makes of the main path's own inputs (conv1's NCHW "
+               "input as its space-to-depth rewrite), timed alone; "
+               "library_ms sums torch._int_mm (int32 "
                "out, no epilogue, timed the same way) over the 1x1 convs "
                "only, as no PyTorch call computes an int8 kxk conv, and "
                "ms_same_shapes_as_library is the kernel's own sum over "
@@ -3062,6 +3080,7 @@ GROUPED_FIRST_DESIGN_MS = 3.482
 _VISION_BUCKETS = (
     ("qconv_grouped_int8_requant", "qconv_grouped_int8_requant (grouped)"),
     ("qconv_int8_requant", "qconv_int8_requant (int8 conv)"),
+    ("qconv_s2d", "qconv_s2d (the stem's space-to-depth layout)"),
     ("qmatmul_int8", "qmatmul_int8 (int8 GEMM)"),
     ("max_pool", "max-pool"), ("softmax", "softmax"),
     ("layer_norm", "LayerNorm"), ("reduce", "reductions"),
@@ -3313,15 +3332,17 @@ def _vision_qmm_lines(model: str, qgraph, eng8, card, forwards: int
 def _predicted_splits(qgraph, eng8, card) -> dict:
     """The per-variant launches one INT8 forward should make, from the
     shapes: each group-1 conv's producer (`conv_plan`), on the requant
-    epilogue, each grouped conv's form (`grouped_plan`), every
-    QLinearMatMul on the requant epilogue (the quantizer's y_zero_point is
-    0 and its bias int32), and none in a QOperator form (the quantizer's
-    zero points are 0 and its types int8)."""
+    epilogue, a stem (`stem_s2d`: ResNet-50's and MobileNetV2's conv1, ViT
+    has none) in the s2d form, each grouped conv's form (`grouped_plan`),
+    every QLinearMatMul on the requant epilogue (the quantizer's
+    y_zero_point is 0 and its bias int32), and none in a QOperator form
+    (the quantizer's zero points are 0 and its types int8)."""
     from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
         qconv_grouped_int8 as g8, qconv_int8 as c8, qmatmul_int8 as q8)
 
     producers = dict.fromkeys(c8.PRODUCERS, 0)
     forms = dict.fromkeys(g8.FORMS, 0)
+    conv_forms = dict.fromkeys(c8.FORMS, 0)
     for node in qgraph.nodes:
         if node.op_type != "QLinearConv":
             continue
@@ -3330,13 +3351,14 @@ def _predicted_splits(qgraph, eng8, card) -> dict:
         group = int(node.attr("group", 1))
         if group == 1:
             producers[c8.conv_plan(x.shape, w.shape, stride, padding)[0]] += 1
+            conv_forms["s2d"] += c8.stem_s2d(x.shape[1], w.shape[2:], stride)
         else:
             forms[g8.grouped_plan(x.shape, w.shape, stride, padding,
                                   g8.input_align(x))["form"]] += 1
     n_qmm = sum(n.op_type == "QLinearMatMul" for n in qgraph.nodes)
     no_forms = dict.fromkeys(c8.FORMS, 0)
     out = {"qconv_int8_requant": {
-        "producers": producers, "forms": no_forms,
+        "producers": producers, "forms": conv_forms,
         "epilogues": {**dict.fromkeys(c8.EPILOGUES, 0),
                       "requant": sum(producers.values())}},
         "qmatmul_int8": {"epilogues": {**dict.fromkeys(q8.EPILOGUES, 0),
@@ -4482,6 +4504,10 @@ def phase_qoperator_model(model: str, smi: str) -> dict:
                         for k, n in SQUEEZENET_PRODUCERS.items()},
                     f"qoperator {model} {f}: {SQUEEZENET_PRODUCERS} a "
                     f"forward by A producer: {splits[f]}")
+        # the stem (conv1) as its space-to-depth rewrite, once a forward
+        require(splits[f]["qconv_int8_requant"]["forms"]["s2d"] == forwards,
+                f"qoperator {model} {f}: the stem in the s2d form once a "
+                f"forward: {splits[f]}")
     for t in ys.values():
         require(tuple(t.shape)[:2] == (BATCH, 1000)
                 and bool(torch.isfinite(t).all()),
@@ -7485,13 +7511,45 @@ def _call_plan(name, args, kw) -> str:
                         "int32" if name == "qconv_int8" else "requant")[0]
 
 
+def _stem_geometry(name: str, args, kw):
+    """A recorded group-1 conv call's space-to-depth rewrite
+    (`qconv_int8.s2d_conv`), or None: not a stem, or not that kernel."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_int8 as c8)
+
+    if name not in ("qconv_int8_requant", "qconv_int8"):
+        return None
+    x, w = args[0], args[1]
+    sp = x.dim() - 2
+    return c8.s2d_conv(x.shape, w.shape, kw.get("stride") or (1,) * sp,
+                       kw.get("padding") or ((0, 0),) * sp,
+                       kw.get("dilation"))
+
+
+def _stem_layout_ms(path: str, x, geo: dict, pad_value) -> float:
+    """The stem's layout kernel (`qconv_int8.space_to_depth`) on the
+    card's own x, bit-equal to its plain version; its time alone (a
+    replayed CUDA graph)."""
+    from onnx_rusty_inference_engine_tpu_torch.ops.kernels import (
+        qconv_int8 as c8)
+
+    def layout():
+        return c8.space_to_depth(x, geo, pad_value)
+
+    require(torch.equal(layout(), c8.space_to_depth_plain(x, geo, pad_value)),
+            f"int8_whole {path}: the space-to-depth layout kernel == plain")
+    return graph_ms(layout, WHOLE_KERNEL_ITERS, 2)
+
+
 def _whole_calls(path: str, calls: list, counts: dict, forwards: int,
                  library, no_library: str) -> dict:
     """Each recorded kernel call of one forward bit-equal to its plain
     version on the card's own operands, on the first WHOLE_CLIPS clips
     (images); its kernel time (the whole batch, from a replayed CUDA
     graph; where x is not channels-last, on a channels-last copy, the
-    wrapper's copy apart as `layout_copy_ms`), its plain time (those
+    wrapper's copy apart as `layout_copy_ms`; a stem's space-to-depth
+    layout pass likewise apart, the kernel held to its plain version),
+    its plain time (those
     clips), `library(name, args, kw)`'s time and its bound; summed per
     kernel over the forward, and each conv call
     listed under its kernel's `calls` (x and w shapes, stride, the plan's
@@ -7510,10 +7568,16 @@ def _whole_calls(path: str, calls: list, counts: dict, forwards: int,
                 f"plain on the card's operands (max |diff| {err})")
         ms = graph_ms(lambda: kern(*args, **kw), WHOLE_KERNEL_ITERS, 2)
         # an input that is not channels-last (a graph input) is copied by the
-        # wrapper: the kernel alone is timed on a channels-last copy
+        # wrapper: the kernel alone is timed on a channels-last copy; a
+        # stem's input is laid out as its space-to-depth rewrite, a pass
+        # timed alone (and held to its plain version) and taken out of ms
         copy_ms = 0.0
         x = args[0]
-        if x.dim() == 5 and not x.permute(0, 2, 3, 4, 1).is_contiguous():
+        geo = _stem_geometry(name, args, kw)
+        if geo is not None:
+            copy_ms = _stem_layout_ms(path, x, geo, kw.get("pad_value", 0))
+            ms -= copy_ms
+        elif x.dim() == 5 and not x.permute(0, 2, 3, 4, 1).is_contiguous():
             xc = (x.contiguous(memory_format=torch.channels_last_3d),)
             kernel_ms = graph_ms(lambda: kern(*xc, *args[1:], **kw),
                                  WHOLE_KERNEL_ITERS, 2)
@@ -7582,8 +7646,9 @@ def _whole_r3d(smi: str) -> dict:
     the Engine: fp32 (F.conv3d), then calibrate (minmax) on x[:2],
     quantize_graph and the INT8 Engine. Counts set to 0 just before, read
     just after: 20 qconv_int8_requant launches per forward, every one the
-    3-D form, the 13 stride-1 3x3x3 convs on the staged-halo producer and
-    the other 7 on the gather, and the fc's qmatmul_int8. Each
+    3-D form, the 13 stride-1 3x3x3 convs and the stem (as its space-to-
+    depth rewrite, the s2d form) on the staged-halo producer and the other
+    6 on the gather, and the fc's qmatmul_int8. Each
     QLinearConv's output bit-equal to its plain version on the card's
     operands for the first 2 clips; clips/s of both from CUDA events over
     replayed forwards; the INT8 logits against fp32."""
@@ -7617,11 +7682,13 @@ def _whole_r3d(smi: str) -> dict:
             f"r3d18: {per_forward} launches per INT8 forward over "
             f"{forwards} forwards: {counts}")
     require(splits["forms"]["3d"] == 20 * forwards
-            and splits["producers"] == {"tma": 0, "gather": 7 * forwards,
-                                        "halo": 13 * forwards},
+            and splits["forms"]["s2d"] == forwards
+            and splits["producers"] == {"tma": 0, "gather": 6 * forwards,
+                                        "halo": 14 * forwards},
             f"r3d18: every conv launch the 3-D form, the 13 stride-1 3x3x3 "
-            f"on the staged-halo producer, the stem, the strided convs and "
-            f"the shortcuts on the gather: {splits}")
+            f"and the stem (as its space-to-depth rewrite) on the "
+            f"staged-halo producer, the strided convs and the shortcuts on "
+            f"the gather: {splits}")
     require(bool(torch.isfinite(y8).all())
             and tuple(y8.shape) == (WHOLE_BATCH, 400),
             f"r3d18: INT8 logits {tuple(y8.shape)} finite")
@@ -7755,7 +7822,8 @@ def _whole_squeezenet_dynamic(smi: str) -> dict:
     the Engine. Counts set to 0 just before, read just after: 26
     ConvInteger launches per forward on the int32 epilogue, every one
     reading its pad value (the x zero point DynamicQuantizeLinear computes)
-    from device memory, SQUEEZENET_DYNAMIC_PRODUCERS by A producer. Each
+    from device memory, SQUEEZENET_DYNAMIC_PRODUCERS by A producer, conv1
+    as its space-to-depth rewrite (the s2d form) once a forward. Each
     node's int32 bit-equal to its plain version on the card's operands
     (first 2 images); the captured graph replayed on two inputs whose zero
     points differ, each output equal to its own eager run; images/s."""
@@ -7788,6 +7856,7 @@ def _whole_squeezenet_dynamic(smi: str) -> dict:
             and splits["epilogues"]["int32"] == n
             and splits["forms"]["device_zero_point"] == n
             and splits["forms"]["uint8_x"] == n
+            and splits["forms"]["s2d"] == forwards
             and splits["producers"] == {
                 k: v * forwards
                 for k, v in SQUEEZENET_DYNAMIC_PRODUCERS.items()},
@@ -7964,8 +8033,9 @@ def phase_int8_whole(smi: str) -> list:
     rows = []
     for kname, label, v, per in (
             ("qconv_int8_requant",
-             "3-D: staged-halo producer (13 stride-1 3x3x3) and gather "
-             "(stem, strided, shortcuts): R3D-18 INT8",
+             "3-D: staged-halo producer (13 stride-1 3x3x3, the stem as "
+             "its space-to-depth rewrite) and gather (strided, shortcuts): "
+             "R3D-18 INT8",
              r3d["qconv_int8_requant"],
              f"one R3D-18 INT8 forward (b{WHOLE_BATCH} clips of "
              f"3x16x112x112): the sums of its 20 launches"),
@@ -8216,7 +8286,7 @@ def main() -> int:
                           "qconv_int8_requant", 26,
                           {"producers": dict(SQUEEZENET_PRODUCERS),
                            "epilogues": {"int32": 0, "requant": 26},
-                           "forms": _no_forms("qconv_int8")},
+                           "forms": {**_no_forms("qconv_int8"), "s2d": 1}},
                           {"data_0": np.random.default_rng(1).standard_normal(
                               feed["data_0"].shape).astype(np.float32)})
             del eng, eng8, card

@@ -23,15 +23,20 @@ Paths (b256 at 224 x 224 unless named):
   squeezenet_dynamic  ORT's dynamic form: ConvInteger, uint8 x, the zero
                       point computed at run time (tests/torch_port_dynamic.py)
   resnet50_int8       ResNet-50's group-1 convs, static INT8
+  mobilenetv2_int8    MobileNetV2's group-1 convs, static INT8 (its 17
+                      depthwise convs run on the grouped kernel, untimed)
   unet_int8           UNetConfig() at b32, 256 x 256, static INT8
   r3d18_int8          R3D-18 at b16 clips of 3 x 16 x 112 x 112, static INT8
                       (the 3-D form of the same producers, for comparison)
 
 `--root DIR` imports the package from another checkout (e.g. the parent
 unpacked by `git archive` into build/parent), so that two trees are
-measured in one chip call, one process each. `--gather` also times every
+measured in one chip call, one process each. A stem (a tree with
+`qconv_int8.s2d_conv`) also gets `layout_ms`, its space-to-depth layout
+pass alone. `--gather` also times every
 conv its tree's plan gives the staged-halo producer on the gather (the
-plan forced, the same operands), `--check` holds each call's output on the
+plan forced, the same operands; a stem as its rewrite, at 16-byte runs),
+`--check` holds each call's output on the
 first 2 images to the plain version (bit for bit), `--halo` times on the
 staged-halo producer every conv it can take that the plan's fallback rule
 leaves on the gather (`halo_ms`), `--halo-bn` and
@@ -55,7 +60,8 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PATHS = ("squeezenet_int8", "squeezenet_quint8", "squeezenet_qint8",
-         "squeezenet_dynamic", "resnet50_int8", "unet_int8", "r3d18_int8")
+         "squeezenet_dynamic", "resnet50_int8", "mobilenetv2_int8",
+         "unet_int8", "r3d18_int8")
 BATCH, UNET_BATCH, UNET_SIZE, CALIB, CHECK = 256, 32, 256, 8, 2
 
 
@@ -77,6 +83,9 @@ def _graph(P, path: str):
         inp, shape = "image", (UNET_BATCH, 3, UNET_SIZE, UNET_SIZE)
     elif path.startswith("resnet50"):
         g, inp = P.import_model(P.build_resnet50()), "data"
+        shape = (BATCH, 3, 224, 224)
+    elif path.startswith("mobilenetv2"):
+        g, inp = P.import_model(P.build_mobilenetv2()), "input"
         shape = (BATCH, 3, 224, 224)
     else:
         g, inp = P.import_model(P.build_squeezenet()), "data_0"
@@ -117,7 +126,7 @@ def main() -> int:
                     help="also time on the staged-halo producer every conv "
                          "it can take that the plan leaves on the gather")
     ap.add_argument("--halo-bn", type=int, default=0,
-                    help="the staged-halo producer's one BN (64 or 128)")
+                    help="the staged-halo producer's one BN (64, 96, 128)")
     ap.add_argument("--halo-planes", type=int, default=0,
                     help="the staged-halo producer's one patch count (2, 4)")
     args = ap.parse_args()
@@ -181,8 +190,22 @@ def main() -> int:
                                                 torch.Tensor),
                         "producer": producer, "tile": list(tile), "ms": ms,
                         "bound_ms": bound_ms, "bound_by": bound_by}
+                geo = (k.s2d_conv(cargs[0].shape, cargs[1].shape,
+                                  kw.get("stride") or (1,) * (y.dim() - 2),
+                                  kw.get("padding")
+                                  or ((0, 0),) * (y.dim() - 2),
+                                  kw.get("dilation"))
+                       if hasattr(k, "s2d_conv") else None)
+                if geo is not None:
+                    # a stem: its space-to-depth layout pass alone (the
+                    # wrapper's ms includes it)
+                    line["layout_ms"] = graph_ms(
+                        lambda: k.space_to_depth(cargs[0], geo,
+                                                 kw.get("pad_value", 0)),
+                        args.iters, 2)
                 if args.gather and producer == "halo":
-                    ws = cargs[1].shape
+                    # the same conv (a stem: its rewrite) on the gather
+                    ws = cargs[1].shape if geo is None else geo["w"]
                     M, K = y.numel() // ws[0], -(-int(np.prod(
                         ws[2:])) * k.conv_channels(ws[1]) // 16) * 16
                     if len(ws) == 5:  # the instances with the 3-D form

@@ -8,8 +8,11 @@ Builds variants of csrc/qconv_int8.cu (the staged-halo producer of the
 shared mainloop, csrc/int8_wgmma.cuh) and csrc/qconv_grouped_int8.cu (the
 tile3d form) from the package's own sources with one part changed by a
 text edit, and times each at R3D-18's four stride-1 3x3x3 shapes (b16),
-four 2-D 3x3s on the same producer (SqueezeNet's and ResNet-50's, b256)
-and the depthwise 3x3x3 at R3D layer1's activation, through the package's
+four 2-D 3x3s on the same producer (SqueezeNet's and ResNet-50's, b256),
+the four stems as their space-to-depth rewrite (and SqueezeNet's as
+ORT's dynamic ConvInteger on the int32 epilogue; stem lines also give
+`layout_ms`, the layout pass alone; `ms` includes it) and the depthwise
+3x3x3 at R3D layer1's activation, through the package's
 wrappers (device ms from a replayed CUDA graph, chip_smoke.graph_ms). The
 ablations compute wrong values on purpose, so nothing is checked: it is a
 measurement, not part of the port.
@@ -26,6 +29,10 @@ measurement, not part of the port.
   no_wb        (tile3d) the stride-1 second column's [0, w0, w1, w2] words
                shifted from [w0, w1, w2, 0] at each use, not kept
   lb2          (tile3d) launch bounds of two blocks an SM (<= 128 registers)
+  lb1halo      (halo) launch bounds of one block an SM for the BN-96
+               tiles of one patch a warpgroup (the first design; the
+               kernels hold two, so that one block's epilogue runs beside
+               the other's products)
   no_mb2       (build) no halo instances of two planes a warpgroup
   no_u8halo    (build) no halo instances for a uint8 x
   no_halo      (build) no halo instances
@@ -112,10 +119,12 @@ VARIANTS = {
                "        mbar_arrive(box_empty0")],
     "no_mb2": [("int8_wgmma.cuh",
                 "  if (bm == 256)\n"
-                "    return bn == 64 ? launch_tile<A_HALO, EPI, 64, 2, AU8, 2>"
-                "(ta, tb, p, st)\n"
-                "                    : launch_tile<A_HALO, EPI, 128, 2, AU8, "
-                "2>(ta, tb, p, st);\n",
+                "    return bn == 64   ? launch_tile<A_HALO, EPI, 64, 2, AU8, "
+                "2>(ta, tb, p, st)\n"
+                "           : bn == 96 ? launch_tile<A_HALO, EPI, 96, 2, AU8, "
+                "2>(ta, tb, p, st)\n"
+                "                      : launch_tile<A_HALO, EPI, 128, 2, "
+                "AU8, 2>(ta, tb, p, st);\n",
                 "  if (bm == 256) return cudaErrorInvalidValue;\n")],
     "no_u8halo": [("qconv_int8.cu",
                    "    return x_u8 ? i8g::launch_halo<i8g::EPI_REQUANT, true>"
@@ -152,6 +161,9 @@ VARIANTS = {
               ("qconv_grouped_int8.cu",
                "th.wb[3 * kd + 2][k], s1);",
                "(th.wa[3 * kd + 2][k] << 8), s1);")],
+    "lb1halo": [("int8_wgmma.cuh",
+                 "(PROD == A_HALO ? BN > 96 : BN >= 96) || MB > 1 ? 1 : 2)",
+                 "BN >= 96 || MB > 1 ? 1 : 2)")],
     "lb2": [("qconv_grouped_int8.cu",
              "__global__ void __launch_bounds__(TILE_THREADS)\n"
              "    qconv_grouped_int8_requant_tile3d_kernel",
@@ -174,7 +186,25 @@ SHAPES = [
     ("fire6", "halo2d", (256, 48, 26, 26), 192, (1, 1)),
     ("resnet_l1", "halo2d", (256, 64, 56, 56), 64, (1, 1)),
     ("depthwise_s122", "tile3d", (16, 64, 16, 56, 56), 64, (1, 2, 2)),
+    # the stems (NCHW graph inputs, 3 channels) as their space-to-depth
+    # rewrite on the same producer: SqueezeNet's, ResNet-50's and
+    # MobileNetV2's conv1 (b256), R3D-18's stem (b16); kernel and padding
+    # in STEMS
+    ("sq_conv1", "stem", (256, 3, 224, 224), 96, (2, 2)),
+    ("rn_conv1", "stem", (256, 3, 224, 224), 64, (2, 2)),
+    ("mb_conv1", "stem", (256, 3, 224, 224), 32, (2, 2)),
+    ("r3d_stem", "stem", (16, 3, 16, 112, 112), 64, (1, 2, 2)),
+    # SqueezeNet's conv1 as ORT's dynamic ConvInteger: uint8 x, the int32
+    # epilogue, the zero point in device memory
+    ("sq_conv1_int32", "stem", (256, 3, 224, 224), 96, (2, 2)),
 ]
+
+# the stems' kernel and padding
+STEMS = {"sq_conv1": ((7, 7), ((0, 0), (0, 0))),
+         "rn_conv1": ((7, 7), ((3, 3), (3, 3))),
+         "mb_conv1": ((3, 3), ((1, 1), (1, 1))),
+         "r3d_stem": ((3, 7, 7), ((1, 1), (3, 3), (3, 3))),
+         "sq_conv1_int32": ((7, 7), ((0, 0), (0, 0)))}
 
 
 def build_variant(name: str) -> tuple:
@@ -221,8 +251,23 @@ def build_variant(name: str) -> tuple:
     return libs, ptxas
 
 
-def operands(kind, xs, O, stride, rng, pad_value=0):
+def operands(kind, xs, O, stride, rng, pad_value=0, stem=None):
     dev = torch.device("cuda")
+    if kind == "stem":  # NCHW, as a graph input
+        kernel, pad = STEMS[stem]
+        x = torch.from_numpy(rng.integers(-128, 128, xs, np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-127, 128, (O, xs[1], *kernel),
+                                          np.int8)).to(dev)
+        mult = torch.full((O,), 1e-4, device=dev)
+        bias = torch.zeros(O, dtype=torch.int32, device=dev)
+        packed = k.pack_qconv_weight(w, stride)
+        if stem.endswith("int32"):
+            xu = x.view(torch.uint8)
+            zp = torch.tensor([117], dtype=torch.int32, device=dev)
+            return lambda: k.qconv_int8(xu, w, stride=stride, padding=pad,
+                                        pad_value=zp, packed=packed)
+        return lambda: k.qconv_int8_requant(x, w, mult, bias, stride=stride,
+                                            padding=pad, packed=packed)
     x = torch.from_numpy(rng.integers(-128, 128, xs, np.int8)).to(
         dev).contiguous(memory_format=torch.channels_last_3d if len(xs) == 5
                         else torch.channels_last)
@@ -282,16 +327,27 @@ def main() -> int:
         for sname, kind, xs, O, stride in SHAPES:
             if args.shapes and sname not in args.shapes.split(","):
                 continue
-            call = operands(kind, xs, O, stride, rng, args.dw_pad)
+            call = operands(kind, xs, O, stride, rng, args.dw_pad, sname)
             picked = (k.conv_plan(xs, (O, xs[1], 3, 3, 3)[:len(xs)], stride,
                                   ((1, 1),) * (len(xs) - 2))[1]
                       if kind.startswith("halo") else None)
+            layout_ms = None
+            if kind == "stem":  # the plan of its rewrite; its layout alone
+                kernel, pad = STEMS[sname]
+                picked = k.conv_plan(xs, (O, xs[1], *kernel), stride, pad,
+                                     None, "int32" if sname.endswith("int32")
+                                     else "requant")[1]
+                geo = k.s2d_conv(xs, (O, xs[1], *kernel), stride, pad)
+                xt = torch.zeros(xs, dtype=torch.int8, device="cuda")
+                layout_ms = graph_ms(lambda: k.space_to_depth(xt, geo),
+                                     args.iters)
+                del xt
             if kind == "halo2d":  # on the halo whatever conv_plan's rule
                 picked = k.halo_plan(xs[1], O, (3, 3), xs[2:],
                                      xs[0])["tile"]
             runs = [(n, picked) for n in names]
-            runs += [("full", t) for t in extra if kind.startswith("halo")
-                     and t != picked]
+            runs += [("full", t) for t in extra
+                     if kind.startswith(("halo", "stem")) and t != picked]
             for variant, tile in runs:
                 _build._LOADED.update(built[variant])
                 if tile is not None:
@@ -308,7 +364,7 @@ def main() -> int:
                         "dw_pad": args.dw_pad if kind == "tile3d" else None,
                         "tile": list(tile) if tile else None,
                         "picked": tile == picked, "ms": ms, "error": err,
-                        "card": smi}
+                        "layout_ms": layout_ms, "card": smi}
                 print(json.dumps(line), flush=True)
                 out.write(json.dumps(line) + "\n")
             torch.cuda.empty_cache()

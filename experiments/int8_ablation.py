@@ -132,7 +132,7 @@ def operands(kind, shape, rng):
                                           np.int8)).to(dev)
         mult = torch.full((O,), 1e-4, device=dev)
         bias = torch.zeros(O, dtype=torch.int32, device=dev)
-        packed = k.pack_qconv_weight(w)
+        packed = k.pack_qconv_weight(w, (s, s))
         pads = ((pad, pad), (pad, pad))
         OH = (H + 2 * pad - ksz) // s + 1
         dims = (B * OH * OH, O, packed.shape[1])

@@ -898,9 +898,15 @@ __device__ __forceinline__ void halo_body(const CUtensorMap& tm_x, const CUtenso
 // through every slice of every tile on one slot counter `it`, so it fills
 // the ring for the next tile while the consumers run this one's epilogue.
 // A_HALO runs halo_body (MB planes a warpgroup); tm_a is then x's 5-D map.
+// Two blocks an SM where BN < 96 with one patch a warpgroup, and for
+// A_HALO at BN 96 too (<= 102 registers; SqueezeNet's conv1 as its
+// space-to-depth rewrite): its K is two 128-byte slices, so a tile's
+// epilogue is half its time, and the second block's products run under
+// the first's epilogue (0.539 -> 0.430 ms on the H100 against one block;
+// PERF.md section 6, the space-to-depth stem findings).
 template <int PROD, int EPI, int BN, int WGM, bool AU8, int MB = 1>
 __global__ void __launch_bounds__(WGM * 128 + (PROD == A_GATHER ? 128 : PROD == A_HALO ? 64 : 32),
-                                  BN >= 96 || MB > 1 ? 1 : 2)
+                                  (PROD == A_HALO ? BN > 96 : BN >= 96) || MB > 1 ? 1 : 2)
 I8G_KERNEL(const __grid_constant__ CUtensorMap tm_a,
            const __grid_constant__ CUtensorMap tm_b, const Params p) {
   if constexpr (PROD == A_HALO) {
@@ -1207,16 +1213,17 @@ inline cudaError_t encode_box5(CUtensorMap* map, const void* x, int B, const Par
 }
 
 // A_HALO: encodes Bp's map and x's 5-D map (B images) and launches the
-// bm x bn tile (bm 128: a patch a consumer warpgroup, or 256: two; bn 64
-// or 128; p.b_resident: Bp resident, each block's N tile of it where N >
-// bn), after checking that it fits.
+// bm x bn tile (bm 128: a patch a consumer warpgroup, or 256: two; bn 64,
+// 96 (SqueezeNet's conv1, N 96, as its space-to-depth rewrite) or 128;
+// p.b_resident: Bp resident, each block's N tile of it where N > bn),
+// after checking that it fits.
 template <int EPI, bool AU8>
 cudaError_t launch_halo(const void* x, const void* bp, int Kp, int B, Params p, int bm,
                         int bn, cudaStream_t st) {
   p.num_k = (Kp + BK - 1) / BK;
   const size_t smem = halo_smem_bytes(128, bn, p.stages, p.b_resident ? p.num_k : 0,
                                       halo_blocks(p) * p.cb_pitch, p.chunk_k);
-  if ((bm != 128 && bm != 256) || (bn != 64 && bn != 128) || p.stages < 2 ||
+  if ((bm != 128 && bm != 256) || (bn != 64 && bn != 96 && bn != 128) || p.stages < 2 ||
       p.stages > MAX_STAGES ||
       smem > (size_t)SMEM_LIMIT || p.M <= 0 || p.N <= 0 || Kp <= 0 || Kp % 16 != 0 ||
       reinterpret_cast<uintptr_t>(bp) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
@@ -1227,10 +1234,12 @@ cudaError_t launch_halo(const void* x, const void* bp, int Kp, int B, Params p, 
   if (e == cudaSuccess) e = encode_box5(&ta, x, B, p);
   if (e != cudaSuccess) return e;
   if (bm == 256)
-    return bn == 64 ? launch_tile<A_HALO, EPI, 64, 2, AU8, 2>(ta, tb, p, st)
-                    : launch_tile<A_HALO, EPI, 128, 2, AU8, 2>(ta, tb, p, st);
-  return bn == 64 ? launch_tile<A_HALO, EPI, 64, 2, AU8, 1>(ta, tb, p, st)
-                  : launch_tile<A_HALO, EPI, 128, 2, AU8, 1>(ta, tb, p, st);
+    return bn == 64   ? launch_tile<A_HALO, EPI, 64, 2, AU8, 2>(ta, tb, p, st)
+           : bn == 96 ? launch_tile<A_HALO, EPI, 96, 2, AU8, 2>(ta, tb, p, st)
+                      : launch_tile<A_HALO, EPI, 128, 2, AU8, 2>(ta, tb, p, st);
+  return bn == 64   ? launch_tile<A_HALO, EPI, 64, 2, AU8, 1>(ta, tb, p, st)
+         : bn == 96 ? launch_tile<A_HALO, EPI, 96, 2, AU8, 1>(ta, tb, p, st)
+                    : launch_tile<A_HALO, EPI, 128, 2, AU8, 1>(ta, tb, p, st);
 }
 
 }  // namespace

@@ -69,6 +69,75 @@
 #define I8G_KERNEL qconv_int8_requant_kernel
 #include "int8_wgmma.cuh"
 
+// The stems' space-to-depth layout (ops/kernels/qconv_int8.py: stem_s2d,
+// s2d_conv): a stride-2 conv over C <= 4 channels runs as a stride-1 conv
+// over 16 on y int8 or uint8 [B, D, Hs, Ws, 16], pixel (i, j) channel
+// (2 sh + sw) * 4 + c = x[b, c, d, 2 i + sh - mh, 2 j + sw - mw], the pad
+// byte where that lies outside x or c >= C (mh, mw: 1 where the conv's
+// leading padding is odd, so that its padding covers whole pixels). x is
+// [B, C, D, H, W] at any strides (NCHW, or channels-last). It replaces no
+// TPU kernel: it is the stems' half of the rewrite (the JAX package runs
+// the original conv in lax.conv_general_dilated) and takes the place of
+// the copy that padded C to 4. Bound by bytes (x read once, y written
+// once): one thread a pixel, its 16 bytes stored at once (a warp's stores
+// one 512-byte run), its 4 C bytes loaded at x's strides (from NCHW a
+// warp's loads of one channel row are 64 bytes, two a byte pair apart).
+// The pad byte is the launch's, or the x zero point in device memory
+// (x_zp, saturated to x's type), read in the run, so a captured CUDA graph
+// replays with each run's value.
+__global__ void __launch_bounds__(256)
+    qconv_s2d_kernel(const uint8_t* __restrict__ x, uint4* __restrict__ y,
+                     const int32_t* x_zp, int x_lo, uint32_t pad_byte, int C, int D, int H,
+                     int W, long long sb, long long sc, long long sd, long long sh,
+                     long long sw, int Hs, int Ws, int mh, int mw, long long pixels) {
+  const long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= pixels) return;
+  const uint32_t pad =
+      x_zp != nullptr ? (uint32_t)(i8g::sat8(*x_zp, x_lo) & 0xFF) : pad_byte;
+  const int j = (int)(pix % Ws);
+  long long t = pix / Ws;
+  const int i = (int)(t % Hs);
+  t /= Hs;
+  const int d = (int)(t % D);
+  const uint8_t* xb = x + (t / D) * sb + d * sd;
+  uint32_t word[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {  // s = 2 sh + sw
+    const int ih = 2 * i + (s >> 1) - mh, iw = 2 * j + (s & 1) - mw;
+    const bool in = (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
+    const uint8_t* px = xb + ih * sh + iw * sw;
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      v |= (in && c < C ? (uint32_t)px[c * sc] : pad) << (8 * c);
+    word[s] = v;
+  }
+  y[pix] = make_uint4(word[0], word[1], word[2], word[3]);
+}
+
+// x int8 or uint8 (x_u8) [B, C, D, H, W] at element strides (sb, sc, sd,
+// sh, sw), C <= 4 -> y [B, D, Hs, Ws, 16] (16-byte aligned); mh, mw 0 or 1;
+// pad_byte the pad value's byte, or x_zp an int32 in device memory read in
+// its place. Launches on `stream`; returns the launch's error.
+extern "C" cudaError_t qconv_s2d_launch(const void* x, void* y, const void* x_zp, int B, int C,
+                                        int D, int H, int W, long long sb, long long sc,
+                                        long long sd, long long sh, long long sw, int Hs,
+                                        int Ws, int mh, int mw, int x_u8, int pad_byte,
+                                        void* stream) {
+  if (B < 1 || C < 1 || C > 4 || D < 1 || H < 1 || W < 1 || Hs < 1 || Ws < 1 ||
+      (mh != 0 && mh != 1) || (mw != 0 && mw != 1) || pad_byte < 0 || pad_byte > 255 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long pixels = (long long)B * D * Hs * Ws;
+  const long long blocks = (pixels + 255) / 256;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  qconv_s2d_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<uint4*>(y),
+      static_cast<const int32_t*>(x_zp), x_u8 ? 0 : -128, (uint32_t)pad_byte, C, D, H, W, sb,
+      sc, sd, sh, sw, Hs, Ws, mh, mw, pixels);
+  return cudaGetLastError();
+}
+
 // the TMA producer's int32 epilogue (the 1x1 ConvInteger) is instanced at
 // this BM alone, the tiles its plans pick (ops/kernels/qconv_int8.py,
 // TILE_TMA_INT32_BM, which a test holds equal to it)
@@ -80,7 +149,7 @@ constexpr int TMA_INT32_BM = 128;
 // producer 0 requires KD = KH = KW = 1, unit strides, no padding, OD = D
 // and C % 16 == 0 (and bm 128 on the int32 epilogue); producer 1 requires
 // C % 4 == 0; producer 2 unit strides and dilations, C % 16 == 0 (C <= 128
-// or C % 128 == 0), Kp = K and bm 128 or 256 (bn 64 or 128; a 2-D conv, D
+// or C % 128 == 0), Kp = K and bm 128 or 256 (bn 64, 96 or 128; a 2-D conv, D
 // = KD = 1 without depth padding, stacks the tile along rows). pad_byte: the byte a
 // padding tap holds; x_zp: null, or an int32 in device memory that the
 // kernel reads in its place (producer 0 has no padding to fill). y_zp_dev: null, or an int32 in

@@ -34,8 +34,19 @@ OH, OW] with `torch.channels_last_3d` strides), a view of the kernel's
 other input is copied channels-last first (`channels_last_input`), with
 its channels zero-padded to a multiple of 4 where they are not.
 
+The stride-2 stems over C <= 4 channels (SqueezeNet's conv1, the stems of
+ResNet-50, MobileNetV2 and R3D-18: `stem_s2d`) run as their space-to-depth
+rewrite (`s2d_conv`): each 2 x 2 block of input pixels of 4 channels is one
+pixel of 16, so a stride-2 k x k conv over C <= 4 is a stride-1
+ceil(k/2) x ceil(k/2) conv over 16 channels (a 3-D stem keeps its depth),
+which the staged-halo producer takes. The wrapper writes the rewritten
+input with the layout kernel (`space_to_depth`, in place of
+`channels_last_input`'s copy; its plain version `space_to_depth_plain`),
+and the weight is packed in the rewritten layout (`pack_qconv_weight(w,
+stride)`, `s2d_weight`). The plain versions compute the original conv.
+
 `conv_plan` picks how the kernel fetches A and the tile, on either
-epilogue: "halo" (the staged-halo producer: a tile is 2 or 4 patches of 8
+epilogue (a stem: of its rewritten conv): "halo" (the staged-halo producer: a tile is 2 or 4 patches of 8
 x 8 output pixels, stacked along depth in a 3-D conv and along rows in a
 2-D one, whose input box with its halo lands by TMA once a tile, each
 tap's A a wgmma descriptor into it; `halo_plan`) for a conv at unit stride
@@ -61,7 +72,7 @@ for a tensor on neither device and call the op.
 `qconv_int8_requant.launches` counts the kernel's launches through both
 wrappers (in the card's implementation), `.producers` per A producer,
 `.epilogues` per epilogue, `.forms` the launches of each QOperator form
-(FORMS).
+and of the space-to-depth form (FORMS).
 """
 
 from __future__ import annotations
@@ -87,7 +98,9 @@ __all__ = ["qconv_int8_requant", "qconv_int8_requant_plain", "qconv_int8",
            "channels_last_input", "PRODUCERS", "K_ALIGN", "FORMS",
            "schema_padding", "nested_padding", "conv_fake", "op_zero_points",
            "halo_plan", "halo_tile", "halo_2d_wins",
-           "HALO_PLANES", "HALO_ROWS"]
+           "HALO_PLANES", "HALO_ROWS", "stem_s2d", "s2d_conv", "s2d_weight",
+           "space_to_depth", "space_to_depth_plain", "conv_input",
+           "S2D_CHANNELS"]
 
 # packed weight rows are zero-padded to a multiple of 16 bytes: TMA reads
 # rows whose stride is a multiple of 16
@@ -104,7 +117,7 @@ PRODUCERS = {"tma": 0, "gather": 1, "halo": 2}
 HALO_PLANES = (2, 4)
 HALO_ROWS = 8
 HALO_CHUNK = 128
-HALO_BN = (64, 128)
+HALO_BN = (64, 96, 128)
 
 # the tiles whose kernel instances carry the gather's 3-D form (BM 128, BN
 # 64 or 128: csrc/int8_wgmma.cuh, D3_TILE): a 3-D conv takes one of them
@@ -116,12 +129,16 @@ TILE_3D_BN = (64, 128)
 # holds the two equal)
 TILE_TMA_INT32_BM = (128,)
 
-# the QOperator forms `.forms` counts (a launch may be of several): a uint8
-# x, padding taps holding a non-zero pad value, an output zero point, a
-# uint8 output, a dilation, the int32 epilogue, a zero point the kernel reads
-# from device memory (computed at run time), a 3-D conv
+# the forms `.forms` counts (a launch may be of several): a uint8 x, padding
+# taps holding a non-zero pad value, an output zero point, a uint8 output, a
+# dilation, the int32 epilogue, a zero point the kernel reads from device
+# memory (computed at run time), a 3-D conv (the QOperator forms), and a
+# stem run as its space-to-depth rewrite
 FORMS = ("uint8_x", "zero_point_pad", "y_zero_point", "uint8_y", "dilated",
-         "int32", "device_zero_point", "3d")
+         "int32", "device_zero_point", "3d", "s2d")
+
+# the channels of a stem's space-to-depth pixel: 2 x 2 pixels of 4
+S2D_CHANNELS = 16
 
 Padding = Sequence[Tuple[int, int]]
 
@@ -170,6 +187,84 @@ def conv_out_hw(H: int, W: int, KH: int, KW: int, stride: Sequence[int],
     return conv_out_size((H, W), (KH, KW), stride, padding, dilation)
 
 
+def stem_s2d(C: int, kernel: Sequence[int], stride: Sequence[int],
+             dilation: Optional[Sequence[int]] = None) -> bool:
+    """Whether a group-1 conv over C channels runs as its space-to-depth
+    rewrite (`s2d_conv`): the kernel reads C as 4 channels
+    (`conv_channels`), a 2-D or 3-D conv at stride 2 in H and W (1 in
+    depth) and dilation 1, its kernel wider than 1 in H and W. The stems
+    of SqueezeNet 1.0 (7x7), ResNet-50 (7x7), MobileNetV2 (3x3) and
+    R3D-18 (3x7x7)."""
+    spatial = len(kernel)
+    ones = (1,) * spatial
+    return (spatial in (2, 3) and conv_channels(C) == 4
+            and tuple(stride)[-2:] == (2, 2)
+            and tuple(stride)[:-2] == ones[:-2]
+            and tuple(dilation or ones) == ones and min(kernel[-2:]) > 1)
+
+
+def s2d_conv(x_shape: Sequence[int], w_shape: Sequence[int],
+             stride: Sequence[int], padding: Padding,
+             dilation: Optional[Sequence[int]] = None) -> Optional[dict]:
+    """None for a conv `stem_s2d` does not take; else the stride-1 conv
+    over S2D_CHANNELS channels it runs as, with the same output:
+
+      x [B, 16, (D,) Hs, Ws]: pixel (i, j) channel (2 sh + sw) * 4 + c is x
+        channel c at row 2 i + sh - mh, column 2 j + sw - mw (the pad value
+        where that lies outside x, or c >= C);
+      w [O, 16, (KD,) ceil(KH/2), ceil(KW/2)]: tap (q, r) channel (2 sh +
+        sw) * 4 + c is w's tap (2 q + sh, 2 r + sw) of channel c (0 past
+        KH, KW or C: `s2d_weight`);
+      stride 1, padding (top, bottom) = (ph // 2, what keeps OH) in rows
+        (likewise in columns; depth as given), dilation 1.
+
+    `lead` (mh, mw) is ph % 2 and pw % 2: an odd padding's last row
+    (column) is one half of the rewritten input's first pixel row, which
+    the layout writes with the pad value, so the kernel's own padding
+    covers whole pixels, and the weight's layout does not depend on the
+    padding. Hs and Ws stop at the last pixel row and column a window
+    reads. Every x row the conv reads lands in a pixel; the halves of a
+    pixel that lie past x are padding or meet zero weights."""
+    kernel = tuple(w_shape[2:])
+    if not stem_s2d(x_shape[1], kernel, stride, dilation):
+        return None
+    spatial = len(kernel)
+    out = conv_out_size(x_shape[2:], kernel, stride, padding)
+    lead, size, taps, pads = [], [], [], []
+    for n, kk, (lo, _), o in zip(x_shape[-2:], kernel[-2:], padding[-2:],
+                                 out[-2:]):
+        k2 = -(-kk // 2)
+        read = o - 1 + k2 - lo // 2  # pixel rows the windows reach
+        ns = min(-(-(n + lo % 2) // 2), read)
+        if ns < 1:
+            return None
+        lead.append(lo % 2)
+        size.append(ns)
+        taps.append(k2)
+        pads.append((lo // 2, read - ns))
+    mid = tuple(x_shape[2:-2])
+    return {"x": (x_shape[0], S2D_CHANNELS, *mid, *size),
+            "w": (w_shape[0], S2D_CHANNELS, *kernel[:-2], *taps),
+            "stride": (1,) * spatial,
+            "padding": (*(tuple(p) for p in padding[:-2]), *pads),
+            "dilation": (1,) * spatial, "lead": tuple(lead)}
+
+
+def s2d_weight(w: torch.Tensor) -> torch.Tensor:
+    """A stem's weight [O, C, (KD,) KH, KW] (C <= 4) as its space-to-depth
+    rewrite's [O, 16, (KD,) ceil(KH/2), ceil(KW/2)] (`s2d_conv`)."""
+    O, C = w.shape[:2]
+    mid, (KH, KW) = tuple(w.shape[2:-2]), tuple(w.shape[-2:])
+    KHs, KWs = -(-KH // 2), -(-KW // 2)
+    wp = w.new_zeros((O, 4, *mid, 2 * KHs, 2 * KWs))
+    wp[:, :C, ..., :KH, :KW] = w
+    nd = len(mid)
+    # [O, c, mid, q, sh, r, sw] -> [O, sh, sw, c, mid, q, r]
+    wp = wp.reshape(O, 4, *mid, KHs, 2, KWs, 2).permute(
+        0, 3 + nd, 5 + nd, 1, *range(2, 2 + nd), 2 + nd, 4 + nd)
+    return wp.reshape(O, S2D_CHANNELS, *mid, KHs, KWs)
+
+
 def halo_tile(planes: int, spatial: int) -> Tuple[int, int, int]:
     """The output box of a staged-halo tile of `planes` patches (planes,
     rows, columns): the patches stacked along depth in a 3-D conv, along
@@ -194,9 +289,10 @@ def halo_plan(C: int, N: int, kernel: Sequence[int], out: Sequence[int],
     (`chunk`: C, or HALO_CHUNK) and the chunks, the 128-byte K slices of
     one chunk, the box's bytes (its 16-channel blocks, and where a chunk
     has an odd number of them a second copy of the first: the k32 step
-    that spans two taps reads it), and the tile: BM 64 x patches, BN 64
-    where N <= 64 or where 128-wide tiles would leave half the SMs idle
-    (at most NUM_SMS / 2 tiles: R3D-18's layer4), else 128, the weights
+    that spans two taps reads it), and the tile: BM 64 x patches, BN the
+    narrowest of HALO_BN that holds N (64, 96: SqueezeNet's conv1, 128),
+    64 where 128-wide tiles would leave half the SMs idle (at most
+    NUM_SMS / 2 tiles: R3D-18's layer4), 128 for a wider N, the weights
     resident where their N tile's K slices fit beside two box slots (each
     block keeps one N tile: the kernel's grid is a multiple of N's tiles,
     and at most the tiles), else a ring of the most stages that fits; the patches that give resident
@@ -215,7 +311,7 @@ def halo_plan(C: int, N: int, kernel: Sequence[int], out: Sequence[int],
         m_tiles = B * math.prod(-(-o // t) for o, t in zip(
             out3, halo_tile(planes, spatial)))
         narrow = (N > HALO_BN[0]
-                  and 2 * m_tiles * -(-N // HALO_BN[1]) <= NUM_SMS)
+                  and 2 * m_tiles * -(-N // HALO_BN[-1]) <= NUM_SMS)
         plans.append(_halo_plan(C, N, kernel, planes, narrow))
     fits = [p for p in plans if p["tile"].stages >= 2] or plans
     return next((p for p in fits if p["tile"].b_resident), fits[0])
@@ -233,8 +329,8 @@ def _halo_plan(C: int, N: int, kernel: Sequence[int], planes: int,
     chunk_k = -(-taps * C // STAGE_K) if n_chunks == 1 else taps
     blocks = chunk // 16 + chunk // 16 % 2
     box_bytes = blocks * cb_pitch
-    lo, hi = HALO_BN
-    bn = lo if N <= lo or narrow else hi
+    bn = HALO_BN[0] if narrow else next((b for b in HALO_BN if b >= N),
+                                        HALO_BN[-1])
     num_k = -(-taps * C // STAGE_K)
     resident = (halo_smem(bn, 2, num_k, box_bytes, chunk_k) <= SMEM_LIMIT
                 and -(-N // bn) <= NUM_SMS)
@@ -274,7 +370,7 @@ def _halo_ok(C: int, kernel, stride, dilation) -> bool:
             or (C > HALO_CHUNK and C % HALO_CHUNK) or max(kernel) > 64
             or (len(kernel) == 2 and math.prod(kernel) == 1)):
         return False
-    return _halo_plan(C, HALO_BN[1], kernel, 2)["tile"].stages >= 2
+    return _halo_plan(C, HALO_BN[-1], kernel, 2)["tile"].stages >= 2
 
 
 def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
@@ -299,7 +395,18 @@ def conv_plan(x_shape: Sequence[int], w_shape: Sequence[int],
     TMA producer's int32 instances on BM TILE_TMA_INT32_BM), except that on
     the int32 epilogue a 1x1 over C 16 (one 16-byte K slice) stays on the
     gather: SqueezeNet's expand1x1 of fires 2-3 measured 2-5% slower on
-    TMA on the H100 (PERF.md §6, the 2-D staged-halo findings)."""
+    TMA on the H100 (PERF.md §6, the 2-D staged-halo findings).
+
+    A stem (`stem_s2d`) is planned as its space-to-depth rewrite
+    (`s2d_conv`), a stride-1 conv over 16 channels by the same rules: the
+    four stems of SqueezeNet, ResNet-50, MobileNetV2 (N 96, 64, 32: one
+    resident N tile) and R3D-18 (3-D) on the staged-halo producer; a 2-D
+    stem the fallback rule refuses (N > 128 on the requant epilogue) on
+    the gather at 16-byte runs."""
+    geo = s2d_conv(x_shape, w_shape, stride, padding, dilation)
+    if geo is not None:
+        x_shape, w_shape, stride, padding, dilation = (
+            geo[f] for f in ("x", "w", "stride", "padding", "dilation"))
     B, C = x_shape[:2]
     O, kernel = w_shape[0], tuple(w_shape[2:])
     out = conv_out_size(x_shape[2:], kernel, stride, padding, dilation)
@@ -329,18 +436,27 @@ def halo_2d_wins(plan: dict, N: int, epilogue: str) -> bool:
     faster there; N 192, and N 256 on the requant epilogue in three of its
     four SqueezeNet shapes and forms, slower); the gather takes the rest."""
     return plan["tile"].b_resident and (
-        N <= HALO_BN[1] or (epilogue == "int32" and N % HALO_BN[1] == 0))
+        N <= HALO_BN[-1] or (epilogue == "int32" and N % HALO_BN[-1] == 0))
 
 
-def pack_qconv_weight(w: torch.Tensor) -> torch.Tensor:
+def pack_qconv_weight(w: torch.Tensor,
+                      stride: Optional[Sequence[int]] = None,
+                      dilation: Optional[Sequence[int]] = None
+                      ) -> torch.Tensor:
     """int8 [O, C, KH, KW] (or [O, C, KD, KH, KW]) -> int8 [O, Kp]: row o
     holds output channel o's taps in (kh, kw, c) order ((kd, kh, kw, c))
     over Cp = conv_channels(C) channels (zero past C), the order of K in
     the kernel's implicit GEMM, zero-padded to Kp = KH*KW*Cp (KD*KH*KW*Cp)
-    rounded up to K_ALIGN."""
+    rounded up to K_ALIGN. Given the conv's stride (and dilation), a
+    stem's weight (`stem_s2d`) is packed as its space-to-depth rewrite's
+    (`s2d_weight`: [O, 16, (KD,) ceil(KH/2), ceil(KW/2)]), which is what
+    the kernel reads for that conv; without them, as the conv it is."""
     if w.dtype != torch.int8 or w.dim() not in (4, 5):
         raise ValueError(f"pack_qconv_weight: want int8 [O,C,KH,KW] or "
                          f"[O,C,KD,KH,KW], got {w.dtype} {tuple(w.shape)}")
+    if stride is not None and stem_s2d(w.shape[1], tuple(w.shape[2:]),
+                                       stride, dilation):
+        w = s2d_weight(w)
     O, C = w.shape[:2]
     kernel = tuple(w.shape[2:])
     Cp = conv_channels(C)
@@ -446,6 +562,96 @@ def channels_last_input(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _pad_fill(x: torch.Tensor, pad_value: ZeroPoint):
+    """The pad value as x's type takes it: an int, or a one-element tensor
+    on x's device saturated to x's range (as the kernels saturate it)."""
+    if not isinstance(pad_value, torch.Tensor):
+        return int(pad_value)
+    lo = 0 if x.dtype == torch.uint8 else -128
+    return pad_value.reshape(()).to(torch.int32).clamp(lo, lo + 255).to(
+        x.dtype)
+
+
+def space_to_depth_plain(x: torch.Tensor, geo: dict,
+                         pad_value: ZeroPoint = 0) -> torch.Tensor:
+    """The plain version of the layout kernel: a stem's x int8 or uint8
+    [B, C, (D,) H, W] (C <= 4; any strides) as its space-to-depth rewrite
+    (`s2d_conv`'s `geo`) [B, (D,) Hs, Ws, 16] contiguous: x padded with
+    pad_value to 4 channels, mh rows and mw columns before and up to 2 Hs
+    rows and 2 Ws columns, then each 2 x 2 pixel block's channels stacked
+    in (row, column, channel) order."""
+    B, C = x.shape[:2]
+    mid, (H, W) = tuple(x.shape[2:-2]), tuple(x.shape[-2:])
+    (mh, mw), (Hs, Ws) = geo["lead"], geo["x"][-2:]
+    buf = torch.empty((B, 4, *mid, 2 * Hs, 2 * Ws), dtype=x.dtype,
+                      device=x.device)
+    buf.fill_(_pad_fill(x, pad_value))
+    h, w = min(H, 2 * Hs - mh), min(W, 2 * Ws - mw)
+    buf[:, :C, ..., mh:mh + h, mw:mw + w] = x[..., :h, :w]
+    nd = len(mid)
+    # [B, c, mid, i, sh, j, sw] -> [B, mid, i, j, sh, sw, c]
+    buf = buf.reshape(B, 4, *mid, Hs, 2, Ws, 2).permute(
+        0, *range(2, 2 + nd), 2 + nd, 4 + nd, 3 + nd, 5 + nd, 1)
+    return buf.reshape(B, *mid, Hs, Ws, S2D_CHANNELS)
+
+
+def _s2d_fn():
+    fn = _build.load("qconv_int8").qconv_s2d_launch
+    if fn.argtypes is None:  # untyped, ctypes would pass 32-bit ints
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def space_to_depth(x: torch.Tensor, geo: dict,
+                   pad_value: ZeroPoint = 0) -> torch.Tensor:
+    """A stem's x as its space-to-depth rewrite reads it (the layout of
+    `space_to_depth_plain`, 16-byte aligned): on the card the layout
+    kernel (csrc/qconv_int8.cu, qconv_s2d_launch: one pass, x NCHW or
+    channels-last, a pad value in device memory read there), on the CPU
+    the plain version."""
+    if x.device.type == "cpu":
+        return space_to_depth_plain(x, geo, pad_value)
+    if x.device.type != "cuda":
+        raise ValueError(f"space_to_depth: no kernel for {x.device}")
+    if x.dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"space_to_depth: x wants torch.int8 or "
+                         f"torch.uint8, got {x.dtype}")
+    pad_int, pad_dev = zero_point_arg("space_to_depth", pad_value, x.dtype,
+                                      x.device)
+    x5 = x if x.dim() == 5 else x.unsqueeze(2)
+    B, C, D, H, W = x5.shape
+    (mh, mw), (Hs, Ws) = geo["lead"], geo["x"][-2:]
+    y = torch.empty((B, *x.shape[2:-2], Hs, Ws, S2D_CHANNELS),
+                    dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _s2d_fn()(
+            x5.data_ptr(), y.data_ptr(),
+            pad_dev.data_ptr() if pad_dev is not None else None,
+            B, C, D, H, W, *x5.stride(), Hs, Ws, mh, mw,
+            int(x.dtype == torch.uint8), pad_int & 0xFF,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"space_to_depth: launch failed with cudaError "
+                           f"{err}")
+    return y
+
+
+def conv_input(x: torch.Tensor, w_shape: Sequence[int],
+               stride: Sequence[int], padding: Padding,
+               dilation: Optional[Sequence[int]] = None,
+               pad_value: ZeroPoint = 0) -> torch.Tensor:
+    """The tensor the kernel reads for a conv of x by a weight of
+    `w_shape`: a stem's space-to-depth rewrite (`space_to_depth`), else
+    `channels_last_input(x)`."""
+    geo = s2d_conv(x.shape, w_shape, stride, padding, dilation)
+    if geo is None:
+        return channels_last_input(x)
+    return space_to_depth(x, geo, pad_value)
+
+
 def _as_3d(x_shape, w_shape, stride, padding, dilation):
     """A 2-D or 3-D conv's sizes as the kernel takes them, 2-D as depth 1:
     ((B, C, D, H, W), (O, KD, KH, KW), strides, padding pairs and
@@ -473,10 +679,15 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
             or len(dilation) != spatial:
         raise ValueError(f"{fn}: stride {stride}, padding {padding} and "
                          f"dilation {dilation} of a {spatial}-D conv")
-    (B, C, D, H, W), (O, KD, KH, KW), (sd, sh, sw), pads, (dd, dh, dw) = \
-        _as_3d(x.shape, w.shape, stride, padding, dilation)
-    if min(p for side in pads for p in side) < 0:
+    if min(p for side in padding for p in side) < 0:
         raise ValueError(f"{fn}: negative padding {padding}")
+    # a stem runs as its space-to-depth rewrite: the sizes the kernel takes
+    geo = s2d_conv(x.shape, w.shape, stride, padding, dilation)
+    sizes = ((x.shape, w.shape, stride, padding, dilation) if geo is None
+             else [geo[f] for f in ("x", "w", "stride", "padding",
+                                    "dilation")])
+    (B, C, D, H, W), (O, KD, KH, KW), (sd, sh, sw), pads, (dd, dh, dw) = \
+        _as_3d(*sizes)
     (pf, _), (pt, _), (pl, _) = pads
     OD, OH, OW = conv_out_size((D, H, W), (KD, KH, KW), (sd, sh, sw), pads,
                                (dd, dh, dw))
@@ -493,7 +704,8 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
     Kp = _round_up(KD * KH * KW * Cp, K_ALIGN)
     if tuple(packed.shape) != (O, Kp):
         raise ValueError(f"{fn}: packed weight {tuple(packed.shape)} is not "
-                         f"pack_qconv_weight's layout of w {tuple(w.shape)}")
+                         f"pack_qconv_weight's layout of w {tuple(w.shape)}"
+                         f" at stride {tuple(stride)}")
     y_int, y_dev = 0, None
     if epilogue == "requant":
         mult = mult_vector(mult, O)
@@ -511,7 +723,7 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
         raise ValueError(f"{fn}: packed weight not 16-byte aligned")
     producer, tile = conv_plan(x.shape, w.shape, stride, padding, dilation,
                                epilogue)
-    x_cl = channels_last_input(x)
+    x_cl = conv_input(x, w.shape, stride, padding, dilation, pad_value)
     y = torch.empty((M, O), device=dev, dtype=(
         torch.int32 if epilogue == "int32" else out_dtype))
     with torch.cuda.device(dev):
@@ -533,14 +745,14 @@ def _launch(fn: str, x, w, packed, epilogue: str, mult, bias, stride,
     w_.launches += 1
     w_.producers[producer] += 1
     w_.epilogues[epilogue] += 1
-    padded = any(p for side in pads for p in side)
+    padded = any(p for side in padding for p in side)
     count_forms(w_.forms, uint8_x=x.dtype == torch.uint8,
                 zero_point_pad=padded and (pad_dev is not None or pad_int != 0),
                 y_zero_point=y_dev is not None or y_int != 0,
                 uint8_y=epilogue == "requant" and out_dtype == torch.uint8,
                 dilated=(dd, dh, dw) != (1, 1, 1), int32=epilogue == "int32",
                 device_zero_point=pad_dev is not None or y_dev is not None,
-                **{"3d": spatial == 3})
+                s2d=geo is not None, **{"3d": spatial == 3})
     out_sizes = (OD, OH, OW)[3 - spatial:]
     return y.view(B, *out_sizes, O).permute(0, spatial + 1,
                                             *range(1, spatial + 1))

@@ -246,7 +246,8 @@ class _Conv:
         self.w = w
         if self.packed is None and x.device.type == "cuda":
             # a weight computed at run time: laid out for the kernel per call
-            self.packed = _pack_conv(as_int8(w), self.group)
+            self.packed = _pack_conv(as_int8(w), self.group, strides,
+                                     dilations)
         # the plain versions read the int8 values; the kernel, the layout
         self.wk = as_int8(w) if x.device.type == "cpu" else w
 
@@ -288,7 +289,8 @@ class _Conv:
                               device=x.device)
             packed = self.ctx.packed.get(ones_key(self.wname))
             if packed is None and x.device.type == "cuda":
-                packed = _pack_conv(ones, g)
+                packed = _pack_conv(ones, g, self.geom["stride"],
+                                    self.geom["dilation"])
             conv = qconv_int8 if g == 1 else qconv_grouped_int8
             extra = {} if g == 1 else {"bias": None}
             xsum = conv(x, ones, **extra, **self.geom, pad_value=zx,
@@ -302,10 +304,14 @@ class _Conv:
         return acc
 
 
-def _pack_conv(w: torch.Tensor, group: int) -> torch.Tensor:
+def _pack_conv(w: torch.Tensor, group: int, stride, dilation
+               ) -> torch.Tensor:
     """An int8 conv weight [O, C/group, KH, KW] (or [O, C/group, KD, KH,
-    KW]) in its kernel's layout."""
-    return (pack_qconv_weight if group == 1 else pack_qconv_grouped_weight)(w)
+    KW]) in its kernel's layout at the conv's stride and dilation (a
+    stem's: its space-to-depth rewrite's)."""
+    if group != 1:
+        return pack_qconv_grouped_weight(w)
+    return pack_qconv_weight(w, stride, dilation)
 
 
 @register("QLinearConv")

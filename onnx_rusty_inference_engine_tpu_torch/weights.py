@@ -18,7 +18,7 @@ import torch
 
 from .graph import Graph
 from .ops.kernels.qconv_grouped_int8 import pack_qconv_grouped_weight
-from .ops.kernels.qconv_int8 import pack_qconv_weight
+from .ops.kernels.qconv_int8 import pack_qconv_weight, stem_s2d
 from .ops.kernels.qmatmul_int8 import (as_int8, colsum_key, folded_bias_key,
                                        ones_key, pack_qmatmul_weight)
 
@@ -82,13 +82,24 @@ def _packer(node):
                 lambda w: pack_qmatmul_weight(logical(w)),
                 lambda w: logical(w).sum(dim=0, dtype=torch.int32))
     if op in ("QLinearConv", "ConvInteger"):
-        pack = (pack_qconv_weight if int(node.attr("group", 1)) == 1
-                else pack_qconv_grouped_weight)
+        pack = _conv_pack(node)
         return ((3 if op == "QLinearConv" else 1), (3, 4, 5),
                 lambda w: pack(as_int8(_conv4(w))),
                 lambda w: as_int8(w).sum(dim=tuple(range(1, w.dim())),
                                          dtype=torch.int32))
     return None
+
+
+def _conv_pack(node):
+    """The function that lays a conv node's int8 weight (4-D or 5-D) out
+    for its kernel: `pack_qconv_grouped_weight` for group > 1, else
+    `pack_qconv_weight` at the node's stride and dilation (a stem's weight
+    in its space-to-depth layout; a 1-D conv's stride of one never is)."""
+    if int(node.attr("group", 1)) != 1:
+        return pack_qconv_grouped_weight
+    stride, dilation = node.attr("strides", None), node.attr("dilations",
+                                                             None)
+    return lambda w: pack_qconv_weight(w, stride, dilation)
 
 
 def _const_int(graph: Graph, node, idx: int) -> Optional[np.ndarray]:
@@ -138,8 +149,7 @@ def _conv_extras(graph: Graph, node, name: str, w: torch.Tensor,
         group = int(node.attr("group", 1))
         ones = torch.ones((group, w.shape[1]) + tuple(_conv4(w).shape[2:]),
                           dtype=torch.int8, device=w.device)
-        packed[ones_key(name)] = (pack_qconv_weight if group == 1
-                                  else pack_qconv_grouped_weight)(ones)
+        packed[ones_key(name)] = _conv_pack(node)(ones)
     elif qlinear and colsum is not None and zx is not None and zx.size == 1:
         b = -int(zx[0]) * colsum
         bname = node.inputs[8] if len(node.inputs) > 8 else ""
@@ -160,9 +170,12 @@ def prepack_int8_weights(graph: Graph, params: Mapping[str, torch.Tensor]
     node's activation has a zero point (`_x_zero_point`) also keeps the
     int32 sums of its int8 form per output under `colsum_key(name)`, which
     that zero point's correction reads, and a conv what `_conv_extras`
-    adds. On the CPU the plain versions read the weights as
-    they are, and nothing is packed."""
+    adds. A conv weight is laid out for its node's stride (a stem's in its
+    space-to-depth layout), so two convs that share one must agree on it.
+    On the CPU the plain versions read the weights as they are, and
+    nothing is packed."""
     packed: Dict[str, torch.Tensor] = {}
+    layout: Dict[str, bool] = {}
     for node in graph.nodes:
         packer = _packer(node)
         if packer is None:
@@ -177,6 +190,16 @@ def prepack_int8_weights(graph: Graph, params: Mapping[str, torch.Tensor]
             continue
         if name not in packed:
             packed[name] = pack(w)
+        if node.op_type in ("QLinearConv", "ConvInteger"):
+            stem = int(node.attr("group", 1)) == 1 and stem_s2d(
+                w.shape[1], tuple(_conv4(w).shape[2:]),
+                node.attr("strides", None) or (), node.attr("dilations",
+                                                            None))
+            if layout.setdefault(name, stem) != stem:
+                raise ValueError(
+                    f"{node.op_type} {node.name!r}: weight {name!r} is "
+                    f"shared by a stem (space-to-depth layout) and a conv "
+                    f"that is not one; its kernel layout is one")
         if colsum_key(name) not in packed and _x_zero_point(graph, node):
             packed[colsum_key(name)] = sums(w)
         if node.op_type in ("QLinearConv", "ConvInteger"):

@@ -256,14 +256,14 @@ def test_captured_graph_replays_two_device_zero_points(cuda, halo_only):
 
 
 def test_refused_halo_tiles_raise_and_count_nothing(cuda, monkeypatch):
-    """A halo tile the entry point refuses (BM 192 and 64, BN 96, a ring of
+    """A halo tile the entry point refuses (BM 192 and 64, BN 48, a ring of
     9 slots): the wrappers raise, naming the producer, and count no launch;
     nothing falls back to the gather."""
     x = torch.zeros((1, 16, 8, 8), dtype=torch.int8, device=cuda)
     w = torch.zeros((32, 16, 3, 3), dtype=torch.int8, device=cuda)
     mult = torch.ones(32, device=cuda)
     packed = k.pack_qconv_weight(w)
-    for tile in (q8.Int8Tile(192, 64, 2), q8.Int8Tile(128, 96, 2),
+    for tile in (q8.Int8Tile(192, 64, 2), q8.Int8Tile(128, 48, 2),
                  q8.Int8Tile(128, 64, 9), q8.Int8Tile(64, 64, 2)):
         monkeypatch.setattr(k, "conv_plan", lambda *a, t=tile: ("halo", t))
         before = (k.qconv_int8_requant.launches,

@@ -9,8 +9,11 @@ no kernel and no model forward.
   (`halo_2d_wins`) keeps it there (weights resident and N <= 128, or on
   the int32 epilogue N % 128 == 0), to the gather where it does not
   (SqueezeNet's N 192, and N 256 on the requant epilogue; ResNet-50's 14
-  and 7, a ring of weights). The one BM of the TMA producer's int32
-  instances is the same in the plan and in the CUDA source.
+  and 7, a ring of weights); a stride-2 stem over 3 channels, as its
+  space-to-depth rewrite (a stride-1 conv over 16 channels:
+  tests/test_torch_port_stem_plan.py), to the staged-halo producer. The
+  one BM of the TMA producer's int32 instances is the same in the plan
+  and in the CUDA source.
 - Each 2-D halo plan's output boxes, walked as the kernel walks its tiles,
   cover the output once; its input box holds every tap's reads at H and W
   of 13, 27 and 54; its K walk takes each 16-byte K slice of the packed
@@ -107,9 +110,14 @@ def _design(xs, ws, stride, epilogue):
     """The producer the design names for a group-1 2-D conv of the models:
     the halo for an eligible conv over an output of HALO_SIZES, and of
     BY_N_SIZES where N <= 128 or (int32) N % 128 == 0 (the gather for the
-    other N and for GATHER_SIZES), TMA for a stride-1 unpadded 1x1 over
-    C % 16 == 0 (on the int32 epilogue C >= 32), the gather for the rest
-    (conv1's 3 channels, the strided convs, the int32 1x1s over C 16)."""
+    other N and for GATHER_SIZES), and for a stem (conv1's 3 channels at
+    stride 2, as its space-to-depth rewrite; N <= 128), TMA for a stride-1
+    unpadded 1x1 over C % 16 == 0 (on the int32 epilogue C >= 32), the
+    gather for the rest (the strided convs over more channels, the int32
+    1x1s over C 16)."""
+    if k.stem_s2d(xs[1], ws[2:], stride):
+        assert ws[0] <= 128
+        return "halo"
     if _eligible(xs, ws, stride):
         assert xs[2] in HALO_SIZES + BY_N_SIZES + GATHER_SIZES
         n_ok = ws[0] <= 128 or (epilogue == "int32" and ws[0] % 128 == 0)
@@ -130,15 +138,16 @@ def _split(convs, epilogue="requant"):
 
 
 @pytest.mark.parametrize("epilogue,tma,halo,gather", [
-    ("requant", 17, 4, 5), ("int32", 15, 6, 5)])
+    ("requant", 17, 5, 4), ("int32", 15, 7, 4)])
 def test_squeezenet_b256_splits_by_producer(epilogue, tma, halo, gather):
     """The static INT8 forward (requant) and ORT's dynamic one (int32, its
     zero point in device memory): the 1x1s by TMA (on the int32 epilogue
-    not fires 2-3's expand1x1 over C 16), the 3x3 expands of fires 2-5 (N
-    64 and 128) on the staged-halo producer, and on the int32 epilogue
-    those of fires 8-9 (N 256 over 26 x 26 and 12 x 12); conv1, the
-    expands of fires 6-7 (N 192), on the requant epilogue those of fires
-    8-9 and on the int32 one fires 2-3's expand1x1 on the gather."""
+    not fires 2-3's expand1x1 over C 16), conv1 (as its space-to-depth
+    rewrite) and the 3x3 expands of fires 2-5 (N 64 and 128) on the
+    staged-halo producer, and on the int32 epilogue those of fires 8-9 (N
+    256 over 26 x 26 and 12 x 12); the expands of fires 6-7 (N 192), on
+    the requant epilogue those of fires 8-9 and on the int32 one fires
+    2-3's expand1x1 on the gather."""
     assert len(SQUEEZENET) == 26
     assert _split(SQUEEZENET, epilogue) == {"tma": tma, "halo": halo,
                                             "gather": gather}
@@ -169,10 +178,10 @@ def test_conv_takes_the_named_producer(model, conv):
 
 def test_model_splits():
     assert len(RESNET50) == 53 and len(UNET) == 11
-    # ResNet-50: layers 1-2's six stride-1 3x3s on the halo; the stem, 3
-    # strided 3x3s, 3 strided shortcuts and layers 3-4's seven stride-1
-    # 3x3s on the gather
-    assert _split(RESNET50) == {"tma": 33, "halo": 6, "gather": 7 + 7}
+    # ResNet-50: the stem (its space-to-depth rewrite) and layers 1-2's six
+    # stride-1 3x3s on the halo; 3 strided 3x3s, 3 strided shortcuts and
+    # layers 3-4's seven stride-1 3x3s on the gather
+    assert _split(RESNET50) == {"tma": 33, "halo": 1 + 6, "gather": 6 + 7}
     assert _split(UNET) == {"tma": 1, "halo": 6, "gather": 4}
 
 

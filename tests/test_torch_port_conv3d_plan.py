@@ -3,8 +3,9 @@ no model forward.
 
 - `conv_plan` sends each of R3D-18's 20 convs (b16 clips of R3D_CLIP, the
   shapes read off `build_r3d18`'s graph) to the producer its design names:
-  the 13 stride-1 3x3x3 convs to the staged-halo producer, the stem, the
-  3 strided convs and the 3 shortcuts to the gather.
+  the 13 stride-1 3x3x3 convs and the stem (as its space-to-depth
+  rewrite, tests/test_torch_port_stem_plan.py) to the staged-halo
+  producer, the 3 strided convs and the 3 shortcuts to the gather.
 - Each halo plan's output boxes (2 or 4 planes), walked as the kernel
   walks its tiles, cover the output once; its input box holds every
   tap's reads; its K walk (one box or 128-channel chunks) takes every
@@ -73,8 +74,13 @@ def test_r3d_conv_takes_the_named_producer(i):
     name, xs, ws, stride, padding = R3D[i]
     producer, tile = k.conv_plan(xs, ws, stride, padding)
     halo = stride == (1, 1, 1) and ws[2:] == (3, 3, 3)
-    assert producer == ("halo" if halo else "gather"), name
-    if halo:
+    stem = k.stem_s2d(xs[1], ws[2:], stride)
+    assert producer == ("halo" if halo or stem else "gather"), name
+    if stem:
+        # the stem as its space-to-depth rewrite (a stride-1 3x4x4 over 16
+        # channels): four output planes a tile, BN 64, its weights resident
+        assert (tile.bm, tile.bn, tile.b_resident) == (256, 64, True)
+    elif halo:
         # four output planes a tile where they divide the output's depth
         # (layers 1-3), else two (layer4: OD 2); BN 64 for layer1's N and
         # where 128-wide tiles would fill half the SMs or less (layer4: 16

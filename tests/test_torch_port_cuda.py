@@ -122,7 +122,7 @@ def test_kernel_equals_plain(cuda, case):
     before = k.qconv_int8_requant.launches
     got = k.qconv_int8_requant(x, w, mult, bias, stride=(s, s),
                                padding=padding,
-                               packed=k.pack_qconv_weight(w))
+                               packed=k.pack_qconv_weight(w, (s, s)))
     torch.cuda.synchronize()
     assert k.qconv_int8_requant.launches == before + 1
     want = k.qconv_int8_requant_plain(x, w, mult, bias, stride=(s, s),
@@ -150,7 +150,8 @@ SQUEEZENET_B256_CONVS = [
 def test_kernel_equals_plain_at_every_squeezenet_b256_conv(cuda, C, H, O,
                                                            ksz, s, pad):
     """On channels-last input, as the previous conv leaves it (conv1's
-    NCHW input is copied), through the producer its shape picks."""
+    NCHW input is laid out as its space-to-depth rewrite, its weight
+    packed at its stride), through the producer its shape picks."""
     x, w, mult, bias = _qconv_operands(256, C, H, H, O, ksz, True, True,
                                        np.random.default_rng(C + O), cuda)
     if C != 3:
@@ -160,7 +161,7 @@ def test_kernel_equals_plain_at_every_squeezenet_b256_conv(cuda, C, H, O,
     before = dict(k.qconv_int8_requant.producers)
     got = k.qconv_int8_requant(x, w, mult, bias, stride=(s, s),
                                padding=padding,
-                               packed=k.pack_qconv_weight(w))
+                               packed=k.pack_qconv_weight(w, (s, s)))
     torch.cuda.synchronize()
     assert k.qconv_int8_requant.producers[producer] == before[producer] + 1
     want = k.qconv_int8_requant_plain(x, w, mult, bias, stride=(s, s),
@@ -1648,7 +1649,7 @@ def test_qoperator_conv_forms_equal_plain(cuda, shape, dt, zx, zy):
     x = _qop_x(dt, (B, C, H, W), rng, cuda)
     _, w, mult, bias = _qconv_operands(B, C, H, W, O, ksz, True, True, rng,
                                        cuda)
-    packed = k.pack_qconv_weight(w)
+    packed = k.pack_qconv_weight(w, (s, s), (d, d))
     kw = dict(stride=(s, s), padding=((pt, pb), (pl, pr)), dilation=(d, d),
               pad_value=zx)
     before = (k.qconv_int8_requant.launches,

@@ -305,8 +305,9 @@ def test_dynamic_form_round_trips_as_bytes(dynamic):
     ((2, 8, 3, 5, 6), (20, 8, 2, 3, 1), (1, 1, 1), (0, 1, 0)),
 ])
 def test_3d_conv_plan_and_layouts(x_shape, w_shape, stride, pads):
-    """A stride-1 3-D conv over C % 16 == 0 channels on the staged-halo
-    producer (BM 64 x 2 or 4 planes, BN one of HALO_BN), every other on
+    """A stride-1 3-D conv over C % 16 == 0 channels, and R3D-18's stem as
+    its space-to-depth rewrite, on the staged-halo producer (BM 64 x 2 or
+    4 planes, BN one of HALO_BN), every other on
     the gather, on a tile whose instances carry the 3-D form (TILE_3D_BM x
     TILE_3D_BN); the packed weight's rows in (kd, kh, kw, c) order; a
     channels_last_3d input read in place; the fake result's shape and
@@ -318,7 +319,8 @@ def test_3d_conv_plan_and_layouts(x_shape, w_shape, stride, pads):
 
     padding = tuple((p, p) for p in pads)
     producer, tile = k.conv_plan(x_shape, w_shape, stride, padding)
-    halo = tuple(stride) == (1, 1, 1) and w_shape[1] % 16 == 0
+    halo = (tuple(stride) == (1, 1, 1) and w_shape[1] % 16 == 0
+            or k.stem_s2d(w_shape[1], w_shape[2:], stride))
     assert producer == ("halo" if halo else "gather")
     if halo:
         assert tile.bm in [64 * p for p in k.HALO_PLANES]

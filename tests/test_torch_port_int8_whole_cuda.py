@@ -95,16 +95,20 @@ def test_3d_conv_equals_plain(cuda, xs, O, kern, s, p, xdt):
     pad = tuple((q, q) for q in p)
     zx = 131 if xdt == np.uint8 else -7
     kw = dict(stride=s, padding=pad, pad_value=zx)
-    packed = k.pack_qconv_weight(w)
+    packed = k.pack_qconv_weight(w, s)
     before = dict(k.qconv_int8_requant.forms)
     got = k.qconv_int8_requant(x, w, mult, bias, **kw, y_zp=5,
                                packed=packed)
     acc = k.qconv_int8(x, w, **kw, packed=packed)
     torch.cuda.synchronize()
     assert k.qconv_int8_requant.forms["3d"] == before["3d"] + 2
-    # the staged-halo producer: unit stride, C % 16 == 0, either epilogue
+    # the staged-halo producer: unit stride, C % 16 == 0, either epilogue;
+    # the stem (C 3, stride (1, 2, 2)) as its space-to-depth rewrite
     assert k.conv_plan(x.shape, w.shape, s, pad)[0] == (
-        "halo" if s == (1, 1, 1) and xs[1] % 16 == 0 else "gather")
+        "halo" if s == (1, 1, 1) and xs[1] % 16 == 0
+        or k.stem_s2d(xs[1], kern, s) else "gather")
+    assert k.qconv_int8_requant.forms["s2d"] == before["s2d"] + 2 * (
+        k.stem_s2d(xs[1], kern, s))
     want = k.qconv_int8_requant_plain(x, w, mult, bias, **kw, y_zp=5)
     assert got.shape == want.shape and torch.equal(got, want)
     assert torch.equal(acc, k.qconv_int8_plain(x, w, **kw))

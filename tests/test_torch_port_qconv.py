@@ -270,8 +270,10 @@ def test_tile_and_producer_fit_every_squeezenet_b256_conv(C, H, O, ksz, s,
     """Each conv goes to the producer its shape allows: TMA for the 1x1s (C
     % 16 == 0), the staged-halo producer for the stride-1 3x3 expands to N
     64 and 128 (test_torch_port_conv2d_plan.py holds its plans and its
-    fallback rule), the gather for the other expands and for conv1, whose
-    3 channels are read as 4. The tile the wrapper passes the TMA and
+    fallback rule) and for conv1, whose 3 channels are read as 4 and which
+    runs as its space-to-depth rewrite (a stride-1 4x4 over 16 channels:
+    tests/test_torch_port_stem_plan.py), the gather for the other
+    expands. The tile the wrapper passes the TMA and
     gather convs fits the kernel (a BN it has, a ring of at least 2 slots
     within the H100's 227 KB of shared memory) and covers N in one block
     where N <= 256; the 3x3 expands' gather tile (the plan the staged-halo
@@ -283,12 +285,12 @@ def test_tile_and_producer_fit_every_squeezenet_b256_conv(C, H, O, ksz, s,
     # the expands to N <= 128 on the staged-halo producer; to N 192 and 256
     # over 26 x 26 and 12 x 12 its 8-wide patches cover 1.5 and 1.8 times
     # the pixels and its fallback rule keeps them on the gather
-    assert producer == ("tma" if ksz == 1 else "halo" if s == 1 and O <= 128
-                        else "gather")
+    assert producer == ("tma" if ksz == 1 else "halo" if O <= 128 and (
+        s == 1 or C == 3) else "gather")
     assert Cp == (4 if C == 3 else C)
     if producer == "halo":
         assert tile.bn in k.HALO_BN and tile.bm in (128, 256)
-        OH = H + 2 * pad - ksz + 1
+        OH = (H + 2 * pad - ksz) // s + 1
         tile = q8.int8_tile(256 * OH * OH, O, ksz * ksz * Cp)
     assert tile.bn in q8.BN_CHOICES and tile.bm in (64, 128)
     assert 2 <= tile.stages <= q8.MAX_STAGES
